@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (deeplearning4j_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; each prints one JSON line and any failure exits non-zero:
+
+1. ``device``  — the card (torch and nvidia-smi), the TF32 switches.
+2. ``build``   — seconds to build the CUDA kernels from ``csrc/`` with nvcc
+   (one process per source, in parallel), and ptxas's register report.
+3. ``kernels`` — each kernel in float32 and bfloat16 at the serving shapes,
+   held against its plain PyTorch version on the same inputs (max abs
+   error and tolerance), with kernel / plain / library times (device time:
+   the calls replayed from a CUDA graph between CUDA events, so no host
+   work sits between launches) and the least time the card could take
+   (``bound_ms``).
+4. ``serve``   — GPT at GPT-2-small width (GptConfig.base(), float32,
+   random weights from a numpy seed) served by the port's
+   GenerativeEngine through start()/submit()/stop(): once with
+   helper_mode="generic" (plain PyTorch attention) as the reference, then
+   — with every launch count set to 0 just before — through the kernels.
+   Checks finish reasons, launch counts, and greedy tokens against the
+   reference run.
+
+Then the kernel summary line, the card's name and power limit as
+nvidia-smi prints them, and the result line. Without a GPU (or without the
+package beside this script) it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
+              "bfloat16": 989e12}    # dense tensor cores
+# kernel vs plain version, elementwise |kernel - plain| <= ATOL + RTOL*|plain|:
+#  float32  — same math, another summation order: 1e-4 absolute (errors of
+#             ~1e-6 are seen)
+#  bfloat16 — both sides compute in float32 and round the output once to
+#             bfloat16, so they differ by at most one rounding step: one
+#             unit in the last place, at most 2^-7 of |plain|
+ATOL = {"float32": 1e-4, "bfloat16": 1e-5}
+RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+TOL_LSE = 1e-4          # float32 in both dtypes; logsumexp of <= 512 terms
+LOGIT_TOL = 1e-3        # kernel vs generic GPT logits (float32, 12 layers)
+
+FLASH_SHAPE = dict(bh=12, t=512, d=64)
+PAGED_SHAPE = dict(slots=8, heads=12, d=64, page=16, max_pages=64)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, the graph replayed ``replays`` times between two CUDA
+    events, the mean per call. A replay issues the captured launches with
+    no Python, argument checks or allocation between them, so the time is
+    the kernels' own (and the gaps between them inside the graph), not the
+    host's rate of issuing calls."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def compare(out, ref, dtype: str):
+    """(max abs error, worst error as a share of its tolerance) of a
+    kernel's output against its plain version's."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    lim = ATOL[dtype] + RTOL[dtype] * ref.abs()
+    return err.max().item(), (err / lim).max().item()
+
+
+def tol_text(dtype: str) -> str:
+    if RTOL[dtype] == 0.0:
+        return f"{ATOL[dtype]:g}"
+    return f"{ATOL[dtype]:g} + {RTOL[dtype]:g}*|plain|"
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_case(dtype, dev):
+    """Flash prefill at the slice's shape: causal, end-padded key mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+
+    bh, t, d = FLASH_SHAPE["bh"], FLASH_SHAPE["t"], FLASH_SHAPE["d"]
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, t, d),
+                                                    dtype=np.float32))
+               .to(dev, dtype) for _ in range(3))
+    lens = np.array([512, 300, 1, 17, 64, 65, 128, 200, 511, 256, 400, 33])
+    mask_np = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+    mask = torch.from_numpy(mask_np).to(dev)
+    out, lse = ca.flash_attention(q, k, v, mask, causal=True)
+    ref_out, ref_lse = ca.flash_attention_reference(q, k, v, mask,
+                                                    causal=True)
+    torch.cuda.synchronize()
+    name = str(dtype).replace("torch.", "")
+    err, share = compare(out, ref_out, name)
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok = (share <= 1.0 and err_lse <= TOL_LSE
+          and bool(torch.isfinite(out.float()).all()))
+    # SDPA yardstick with the same (causal & key) mask, timed only
+    allowed = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+    sdpa_mask = (allowed[None] & (mask[:, None, :] > 0.5))[None]
+    q4, k4, v4 = q[None], k[None], v[None]
+    ms = time_ms(lambda: ca.flash_attention(q, k, v, mask, causal=True))
+    plain_ms = time_ms(lambda: ca.flash_attention_reference(
+        q, k, v, mask, causal=True))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=sdpa_mask))
+    es = q.element_size()
+    nbytes = 4 * bh * t * d * es + bh * t * 4 + bh * t * 4
+    # (query, key) pairs this data needs: key j is visible to rows j..t-1
+    pairs = float((mask_np * (t - np.arange(t))[None, :]).sum())
+    bms, by = bound(nbytes, 4.0 * d * pairs, name)
+    return ok, {"kernel": "flash_attn_fwd", "dtype": name,
+                "shape": [bh, t, d], "max_abs_err": err,
+                "tol": tol_text(name), "err_over_tol": share,
+                "lse_max_abs_err": err_lse, "lse_tol": TOL_LSE, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                "bound_by": by}
+
+
+def paged_case(dtype, dev):
+    """Paged decode at the slice's shape: shuffled page table, seq_lens of
+    1, page boundaries and full context."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+
+    s_n, h, d = PAGED_SHAPE["slots"], PAGED_SHAPE["heads"], PAGED_SHAPE["d"]
+    page, max_pages = PAGED_SHAPE["page"], PAGED_SHAPE["max_pages"]
+    n_pages = s_n * max_pages
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((s_n, h, d), dtype=np.float32)
+                         ).to(dev, dtype)
+    # one (2, P+1, page, H, D) buffer, k/v as its views — as in the cache
+    kv = torch.from_numpy(rng.standard_normal(
+        (2, n_pages + 1, page, h, d), dtype=np.float32)).to(dev, dtype)
+    pt = torch.from_numpy(rng.permutation(n_pages).reshape(
+        s_n, max_pages).astype(np.int32)).to(dev)
+    lens_np = np.array([1, 16, 17, 32, 100, 513, 1000, 1024], np.int32)
+    sl = torch.from_numpy(lens_np).to(dev)
+    out = ca.paged_decode_attention(q, kv[0], kv[1], pt, sl)
+    ref = ca.paged_decode_attention_reference(q, kv[0], kv[1], pt, sl)
+    torch.cuda.synchronize()
+    name = str(dtype).replace("torch.", "")
+    err, share = compare(out, ref, name)
+    ok = share <= 1.0 and bool(torch.isfinite(out.float()).all())
+    ms = time_ms(lambda: ca.paged_decode_attention(q, kv[0], kv[1], pt, sl))
+    plain_ms = time_ms(lambda: ca.paged_decode_attention_reference(
+        q, kv[0], kv[1], pt, sl))
+    es = q.element_size()
+    tokens = float(lens_np.sum())
+    nbytes = (tokens * 2 * h * d * es + 2 * s_n * h * d * es
+              + s_n * max_pages * 4 + s_n * 4)
+    bms, by = bound(nbytes, 4.0 * h * d * tokens, name)
+    return ok, {"kernel": "paged_decode", "dtype": name,
+                "shape": [s_n, h, d, page, max_pages], "max_abs_err": err,
+                "tol": tol_text(name), "err_over_tol": share, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def serve(engine_cls, model, prompts, **engine_kw):
+    """Serve ``prompts`` through start()/submit()/stop(); returns the
+    results and the wall seconds from first submit to last result."""
+    eng = engine_cls(model, **engine_kw).start()
+    try:
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    return results, wall
+
+
+def explain_divergence(model, prompt, toks_a, toks_b):
+    """Greedy tokens of two runs first differ at index j: accept only a
+    near-tie — the prefix's next-token logits agree between the generic
+    and kernel paths within LOGIT_TOL and the top-2 gap is below
+    2*LOGIT_TOL. Returns (ok, details)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.models.gpt import gpt_prefill
+
+    j = 0
+    while j < min(len(toks_a), len(toks_b)) and toks_a[j] == toks_b[j]:
+        j += 1
+    ids = np.concatenate([prompt, toks_a[:j]]).astype(np.int64)[None]
+    ids_t = torch.from_numpy(ids).to(model.device)
+    env = environment()
+    logits = {}
+    with torch.no_grad():
+        for mode in ("generic", "auto"):
+            env.helper_mode = mode
+            logits[mode] = gpt_prefill(model.params, ids_t, model.cfg)[0][
+                0, -1].float()
+    env.helper_mode = "auto"
+    diff = (logits["generic"] - logits["auto"]).abs().max().item()
+    top2 = torch.topk(logits["generic"], 2).values
+    gap = (top2[0] - top2[1]).item()
+    ok = diff <= LOGIT_TOL and gap <= 2 * LOGIT_TOL
+    return ok, {"index": j, "logit_max_abs_diff": diff, "top2_gap": gap}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "drives the port on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.models.gpt import (
+        GptConfig, GptModel, init_gpt_params)
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.serving import GenerativeEngine
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "kind": kind,
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+
+    # ------------------------------------------------------------- build
+    secs = _build.build()
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n, log in _build.build_logs.items()}
+    emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
+
+    # ----------------------------------------------------------- kernels
+    entries, failed = [], []
+    for case in (flash_case, paged_case):
+        for dtype in (torch.float32, torch.bfloat16):
+            ok, entry = case(dtype, dev)
+            entries.append(entry)
+            if not ok:
+                failed.append(f"{entry['kernel']}[{entry['dtype']}]")
+    emit({"phase": "kernels", "card": smi, "entries": entries})
+    if failed:
+        raise SystemExit(f"kernel disagrees with its plain version: {failed}")
+
+    # ------------------------------------------------------------- serve
+    cfg = GptConfig.base()
+    params = init_gpt_params(cfg, seed=0, device=dev,
+                             std=2.0 / math.sqrt(cfg.hidden))
+    model = GptModel(cfg, params=params, device=dev)
+    rng = np.random.default_rng(3)
+    lengths = np.linspace(8, 512, 12).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    engine_kw = dict(max_slots=8, page_size=16, max_pages_per_seq=64,
+                     max_prompt=512, seed=0, device=dev)
+    env = environment()
+    # warm-up: the process's first cuBLAS/allocator use is not measured
+    for mode in ("generic", "auto"):
+        env.helper_mode = mode
+        GenerativeEngine(model, **engine_kw).generate([prompts[-1]],
+                                                      max_new_tokens=2)
+    env.helper_mode = "generic"
+    ref_results, ref_wall = serve(GenerativeEngine, model, prompts,
+                                  **engine_kw)
+    env.helper_mode = "auto"
+
+    observe.reset()
+    ca.reset_launch_counts()          # the main path's run starts here
+    results, wall = serve(GenerativeEngine, model, prompts, **engine_kw)
+    launches = ca.launch_counts()     # ... and ends here
+    m = observe.metrics()
+    decode_steps = m.histogram("dl4j_tpu_serving_decode_step_seconds").count
+    admitted = int(m.counter("dl4j_tpu_serving_admitted_total").value)
+
+    problems = []
+    for r in results + ref_results:
+        if r.finish_reason not in ("length", "eos"):
+            problems.append(f"finish_reason {r.finish_reason}")
+        if r.tokens.size and not (0 <= r.tokens.min()
+                                  and r.tokens.max() < cfg.vocab_size):
+            problems.append("token out of vocab")
+    if launches["flash_attn_fwd"] < cfg.layers * len(prompts):
+        problems.append(f"flash launches {launches['flash_attn_fwd']} < "
+                        f"{cfg.layers} x {len(prompts)} requests")
+    if launches["paged_decode"] < cfg.layers * decode_steps:
+        problems.append(f"paged launches {launches['paged_decode']} < "
+                        f"{cfg.layers} x {decode_steps} decode steps")
+    divergences = []
+    for p, a, b in zip(prompts, ref_results, results):
+        if list(a.tokens) != list(b.tokens):
+            ok, det = explain_divergence(model, p, list(a.tokens),
+                                         list(b.tokens))
+            divergences.append(det)
+            if not ok:
+                problems.append(f"greedy tokens diverge without a near-tie: "
+                                f"{det}")
+    generated = sum(int(r.tokens.size) for r in results)
+    ttft = [r.ttft_s for r in results]
+    itl = [g for r in results for g in r.intertoken_s]
+    dec = m.histogram("dl4j_tpu_serving_decode_step_seconds").percentiles()
+    emit({"phase": "serve", "card": smi, "model": "GptConfig.base()",
+          "dtype": "float32", "requests": len(prompts),
+          "prompt_lens": lengths.tolist(), "max_new_tokens": 32,
+          "admitted": admitted, "decode_steps": decode_steps,
+          "launches": launches, "generated_tokens": generated,
+          "wall_s": wall, "tokens_per_s": generated / wall,
+          "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+          "intertoken_p50_ms": float(np.percentile(itl, 50)) * 1e3,
+          "decode_step_p50_ms_hist": dec["p50"] * 1e3,
+          "generic_tokens_per_s": sum(int(r.tokens.size)
+                                      for r in ref_results) / ref_wall,
+          "generic_ttft_p50_ms": float(np.percentile(
+              [r.ttft_s for r in ref_results], 50)) * 1e3,
+          "tokens_equal_generic": sum(list(a.tokens) == list(b.tokens)
+                                      for a, b in zip(ref_results, results)),
+          "divergences": divergences, "problems": problems})
+    if problems:
+        raise SystemExit(f"serve phase failed: {problems}")
+
+    # ---------------------------------------------- contract lines, last
+    where = {"flash_attn_fwd": (
+                 "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
+                 "deeplearning4j_tpu/ops/pallas_attention.py:194"),
+             "paged_decode": (
+                 "deeplearning4j_tpu_torch/csrc/paged_decode.cu",
+                 "deeplearning4j_tpu/ops/pallas_attention.py:683")}
+    summary = []
+    for name, (source, replaces) in where.items():
+        f32 = next(e for e in entries
+                   if e["kernel"] == name and e["dtype"] == "float32")
+        bf16 = next(e for e in entries
+                    if e["kernel"] == name and e["dtype"] == "bfloat16")
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+            "dtype": "float32",
+            "bfloat16": {k: bf16[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}})
+    emit({"kernels": summary})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

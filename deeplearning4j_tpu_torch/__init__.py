@@ -1,0 +1,21 @@
+"""deeplearning4j_tpu_torch — the PyTorch + CUDA port of deeplearning4j_tpu.
+
+The JAX package ``deeplearning4j_tpu`` is the reference; this package is
+its port to PyTorch on an NVIDIA H100, module by module, with every TPU
+(Pallas) kernel on a ported path rewritten by hand for Hopper
+(``csrc/``). It imports ``torch`` and never ``jax`` nor anything of the
+JAX package.
+
+Ported so far: generative serving of GPT — ``models.gpt``, the paged KV
+cache, scheduler, sampler and ``serving.GenerativeEngine`` — over two CUDA
+kernels, causal flash prefill and paged decode
+(``ops.cuda_attention``). Entry points run on ``"cuda"`` unless the
+caller passes ``device="cpu"``.
+"""
+
+from deeplearning4j_tpu_torch import observe, ops  # noqa: F401
+from deeplearning4j_tpu_torch.environment import (
+    Environment, environment, resolve_device,
+)
+
+__all__ = ["Environment", "environment", "resolve_device", "observe", "ops"]

@@ -1,0 +1,263 @@
+"""Attention parity of the PyTorch port against the JAX package (CPU).
+
+The port's plain flash and paged-decode versions — what the CUDA kernels
+are held against on the card — run on the same numpy inputs as the JAX
+package's generic op and its Pallas kernels in interpret mode. The
+wrappers on CPU tensors compute the plain versions; the registry's
+dispatch and usable gates are checked without a card.
+
+Tolerances (float32 throughout): 1e-5 absolute/relative — the same
+arithmetic in another summation order, on O(1) values.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from deeplearning4j_tpu.ops import nn_ops as jax_nn_ops
+from deeplearning4j_tpu.ops import pallas_attention as jpa
+from deeplearning4j_tpu_torch.environment import environment
+from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+from deeplearning4j_tpu_torch.ops import exec_op, registry
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _qkv(bh=6, t_q=40, t_k=40, d=16, seed=0):
+    r = np.random.RandomState(seed)
+    return (r.randn(bh, t_q, d).astype(np.float32),
+            r.randn(bh, t_k, d).astype(np.float32),
+            r.randn(bh, t_k, d).astype(np.float32))
+
+
+def _key_mask(bh, t_k, seed=1):
+    """End-padded key masks; key 0 always valid (no fully-masked row)."""
+    lens = np.random.RandomState(seed).randint(1, t_k + 1, size=bh)
+    lens[0] = t_k
+    return (np.arange(t_k)[None, :] < lens[:, None]).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.fixture
+def helper_mode():
+    env = environment()
+    old = env.helper_mode
+    yield env
+    env.helper_mode = old
+
+
+class TestFlashPlainParity:
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_vs_jax_generic(self, causal, masked):
+        q, k, v = _qkv()
+        m = _key_mask(6, 40) if masked else None
+        want = jax_nn_ops.dot_product_attention.fn(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            None if m is None else jnp.asarray(m[:, None, :] > 0.5),
+            scaled=True, causal=causal)
+        got, _ = ca.flash_attention_reference(
+            _t(q), _t(k), _t(v), None if m is None else _t(m),
+            causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_vs_pallas_interpret(self, causal):
+        """Out AND lse against the Pallas forward, ragged T=40 over 16-row
+        blocks (multi-tile, padded edge, causal tile skip)."""
+        q, k, v = _qkv()
+        m = _key_mask(6, 40)
+        scale = 1.0 / np.sqrt(16)
+        out, lse = jpa._flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m),
+            jnp.zeros((1, 1), jnp.int32), scale=scale, causal=causal,
+            block_q=16, block_k=16, interpret=True, dropout_rate=0.0)
+        public = jpa.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m),
+            None, scale, causal, 16, 16, True, 0.0)
+        got, got_lse = ca.flash_attention_reference(
+            _t(q), _t(k), _t(v), _t(m), scale=scale, causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(out), **TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(public), **TOL)
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse)[..., 0],
+                                   **TOL)
+
+    def test_wrapper_on_cpu_is_the_plain_version(self):
+        q, k, v = _qkv(seed=3)
+        m = _key_mask(6, 40, seed=4)
+        before = ca.flash_attention.launches
+        out, lse = ca.flash_attention(_t(q), _t(k), _t(v), _t(m),
+                                      causal=True)
+        ref_out, ref_lse = ca.flash_attention_reference(
+            _t(q), _t(k), _t(v), _t(m), causal=True)
+        assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+        assert ca.flash_attention.launches == before  # nothing launched
+
+    def test_causal_requires_equal_lengths(self):
+        q, k, v = _qkv(t_q=8, t_k=12)
+        with pytest.raises(ValueError, match="t_q == t_kv"):
+            ca.flash_attention(_t(q), _t(k), _t(v), causal=True)
+
+
+class TestGenericOpParity:
+    @pytest.mark.parametrize("t_q,t_k", [(24, 24), (8, 24)])
+    def test_dot_product_attention_4d(self, t_q, t_k):
+        """The port's generic op (mask fill -1e9, END-aligned causal) vs
+        the JAX generic, (B, H, T, D) with a (B, 1, 1, Tk) key mask."""
+        r = np.random.RandomState(5)
+        q = r.randn(2, 3, t_q, 16).astype(np.float32)
+        k = r.randn(2, 3, t_k, 16).astype(np.float32)
+        v = r.randn(2, 3, t_k, 16).astype(np.float32)
+        m = _key_mask(2, t_k, seed=6)[:, None, None, :] > 0.5
+        want = jax_nn_ops.dot_product_attention.fn(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m),
+            scaled=True, causal=True)
+        got = exec_op("dot_product_attention", _t(q), _t(k), _t(v), _t(m),
+                      scaled=True, causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _paged_inputs(seed=3):
+    r = np.random.RandomState(seed)
+    s_n, h, d, page, n_pages, max_pages = 4, 4, 16, 8, 12, 4
+    q = r.randn(s_n, h, d).astype(np.float32)
+    kp = r.randn(n_pages, page, h, d).astype(np.float32)
+    vp = r.randn(n_pages, page, h, d).astype(np.float32)
+    pt = np.stack([r.choice(n_pages, max_pages, replace=False)
+                   for _ in range(s_n)]).astype(np.int32)
+    # 1, a page boundary + 1, a partial page, the full row
+    sl = np.array([1, 9, 25, 32], np.int32)
+    return q, kp, vp, pt, sl
+
+
+class TestPagedPlainParity:
+    def test_vs_jax_generic_and_pallas_interpret(self):
+        q, kp, vp, pt, sl = _paged_inputs()
+        args = [jnp.asarray(a) for a in (q, kp, vp, pt, sl)]
+        want_xla = np.asarray(jpa.paged_decode_attention_xla(*args))
+        want_pl = np.asarray(jpa._paged_decode_call(*args, interpret=True))
+        got = ca.paged_decode_attention_reference(
+            *[_t(a) for a in (q, kp, vp, pt, sl)]).numpy()
+        np.testing.assert_allclose(got, want_xla, **TOL)
+        np.testing.assert_allclose(got, want_pl, **TOL)
+
+    def test_registry_op_on_cpu(self, helper_mode):
+        q, kp, vp, pt, sl = _paged_inputs(seed=8)
+        ts = [_t(a) for a in (q, kp, vp, pt, sl)]
+        before = ca.paged_decode_attention.launches
+        got = exec_op("paged_decode_attention", *ts, scale=0.25)
+        want = jpa.paged_decode_attention_xla(
+            *[jnp.asarray(a) for a in (q, kp, vp, pt, sl)], scale=0.25)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert ca.paged_decode_attention.launches == before
+
+
+class TestDispatch:
+    def test_auto_on_cpu_takes_the_generic_impl(self, helper_mode):
+        q, k, v = (_t(a) for a in _qkv(bh=2, t_q=8, t_k=8))
+        desc = registry().get("dot_product_attention")
+        helper_mode.helper_mode = "auto"
+        assert desc.resolve(q, k, v, causal=True) is desc.fn
+        helper_mode.helper_mode = "generic"
+        assert desc.resolve(q, k, v, causal=True) is desc.fn
+
+    @pytest.mark.parametrize("op", ["dot_product_attention",
+                                    "paged_decode_attention"])
+    def test_forced_kernel_on_cpu_raises(self, helper_mode, op):
+        helper_mode.helper_mode = "kernel"
+        q = torch.zeros(2, 8, 16)
+        with pytest.raises(RuntimeError, match="no kernel is registered"):
+            registry().get(op).resolve(q, q, q)
+
+    def test_usable_gates(self, monkeypatch):
+        """The gates' shape logic, with the device check stubbed (these
+        tensors live on the CPU)."""
+        monkeypatch.setattr(ca, "_on_cuda", lambda *ts: True)
+        q4 = torch.zeros(1, 12, 32, 64)
+        m4 = torch.ones(1, 1, 1, 32)
+        assert ca.flash_usable(q4, q4, q4, m4, causal=True)
+        assert not ca.flash_usable(q4, q4, q4, m4, causal=True,
+                                   dropout_rate=0.1)
+        short = torch.zeros(1, 12, 8, 64)
+        assert not ca.flash_usable(short, q4, q4, m4, causal=True)
+        assert ca.flash_usable(short, q4, q4, m4, causal=False)
+        assert not ca.flash_usable(q4, q4, q4, torch.ones(1, 12, 32, 32))
+        # every head dim the JAX gate takes (a multiple of 8) passes, D=128
+        # included; the rest is refused as there
+        for d in (8, 48, 128, 256, 512):
+            qd = torch.zeros(1, 12, 32, d)
+            assert ca.flash_usable(qd, qd, qd), d
+        odd = torch.zeros(1, 12, 32, 44)
+        assert not ca.flash_usable(odd, odd, odd)
+        # the kernel's own limits (dtype, D > 256) are the wrapper's to
+        # refuse, loudly: the gate does not hand them to the plain op
+        assert ca.flash_usable(q4.double(), q4.double(), q4.double())
+        q, kp = torch.zeros(8, 12, 64), torch.zeros(9, 16, 12, 64)
+        pt, sl = (torch.zeros(8, 4, dtype=torch.int32),
+                  torch.zeros(8, dtype=torch.int32))
+        assert ca.paged_usable(q, kp, kp, pt, sl)
+        assert ca.paged_usable(q, kp, kp, pt.long(), sl)
+        assert not ca.paged_usable(q[None], kp, kp, pt, sl)
+        for d in (8, 96, 128, 256):
+            qd, kd = torch.zeros(8, 12, d), torch.zeros(9, 16, 12, d)
+            assert ca.paged_usable(qd, kd, kd, pt, sl), d
+        q44, k44 = torch.zeros(8, 12, 44), torch.zeros(9, 16, 12, 44)
+        assert not ca.paged_usable(q44, k44, k44, pt, sl)
+        k12 = torch.zeros(9, 12, 12, 64)  # page size 12: not a multiple of 8
+        assert not ca.paged_usable(q, k12, k12, pt, sl)
+
+    def test_gates_decide_as_the_jax_gates(self, monkeypatch):
+        """Over a grid of ranks, masks, causal flags, head dims and page
+        sizes, each gate (device check stubbed) says what the JAX gate says
+        with its TPU-measured thresholds taken out (``flash_min_t`` 0,
+        ``min_pages`` at its default 1). Dropout is left out of the grid:
+        the CUDA kernel has none yet, so the port's gate refuses it."""
+        from deeplearning4j_tpu.ops.registry import registry as jax_registry
+
+        monkeypatch.setattr(ca, "_on_cuda", lambda *ts: True)
+        monkeypatch.setattr(jpa, "flash_min_t", lambda: 0)
+        jax_flash = jax_registry().get(
+            "dot_product_attention").platform_usable["tpu"]
+        jax_paged = jax_registry().get(
+            "paged_decode_attention").platform_usable["tpu"]
+        z = np.zeros
+        masks = {"none": lambda b, h, t: None,
+                 "key": lambda b, h, t: z((b, 1, 1, t), np.float32),
+                 "full": lambda b, h, t: z((b, h, t, t), np.float32)}
+        n = 0
+        for d in (8, 44, 64, 128, 256):
+            for t_q in (16, 32):
+                for causal in (False, True):
+                    for mname, mk in masks.items():
+                        q = z((1, 2, t_q, d), np.float32)
+                        kv = z((1, 2, 32, d), np.float32)
+                        m = mk(1, 2, 32)
+                        if mname == "full":
+                            m = z((1, 2, t_q, 32), np.float32)
+                        want = bool(jax_flash(q, kv, kv, m, causal=causal))
+                        got = ca.flash_usable(
+                            _t(q), _t(kv), _t(kv),
+                            None if m is None else _t(m), causal=causal)
+                        assert got == want, (d, t_q, causal, mname)
+                        n += want
+        for d in (8, 44, 64, 128):
+            for page in (8, 12, 16):
+                for q_rank in (2, 3):
+                    q = z((8, 12, d)[3 - q_rank:], np.float32)
+                    kp = z((9, page, 12, d), np.float32)
+                    pt, sl = z((8, 4), np.int32), z((8,), np.int32)
+                    want = bool(jax_paged(q, kp, kp, pt, sl))
+                    got = ca.paged_usable(_t(q), _t(kp), _t(kp), _t(pt),
+                                          _t(sl))
+                    assert got == want, (d, page, q_rank)
+                    n += want
+        assert n > 0  # the grid has cases both gates take
+
+    def test_gates_refuse_cpu_tensors(self):
+        q4 = torch.zeros(1, 12, 32, 64)
+        assert not ca.flash_usable(q4, q4, q4)
