@@ -8,12 +8,15 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 1. ``device``  — the card (torch and nvidia-smi), the TF32 switches.
 2. ``build``   — seconds to build the CUDA kernels from ``csrc/`` with nvcc
    (one process per source, in parallel), and ptxas's register report.
-3. ``kernels`` — each kernel in float32 and bfloat16 at the serving shapes,
-   held against its plain PyTorch version on the same inputs (max abs
-   error and tolerance), with kernel / plain / library times (device time:
-   the calls replayed from a CUDA graph between CUDA events, so no host
-   work sits between launches) and the least time the card could take
-   (``bound_ms``).
+3. ``kernels`` — each kernel at its path's shapes, held against its plain
+   PyTorch version on the same inputs (max abs error and tolerance):
+   attention in float32 and bfloat16 at the serving shapes; the fused
+   updater (Nesterovs) in float32 and bfloat16 at the largest ResNet-50
+   leaf and a 3×3×256×256 conv leaf; the BN/matmul/BN-stats kernel in
+   bfloat16 at a stage-1 and a stage-3 1×1 conv of batch 128. With
+   kernel / plain / library times (device time: the calls replayed from a
+   CUDA graph between CUDA events, so no host work sits between launches)
+   and the least time the card could take (``bound_ms``).
 4. ``serve``   — GPT at GPT-2-small width (GptConfig.base(), float32,
    random weights from a numpy seed) served by the port's
    GenerativeEngine through start()/submit()/stop(): once with
@@ -21,6 +24,20 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    — with every launch count set to 0 just before — through the kernels.
    Checks finish reasons, launch counts, and greedy tokens against the
    reference run.
+5. ``train``   — ResNet-50 at full width (224×224×3, 1000 classes), the
+   usual configuration (float32, composed blocks, Nesterovs lr 0.1),
+   batch 32, trained through ``ResNet50().init()`` → ``fit``: 3 steps
+   with helper_mode="generic", then — launch counts set to 0 just before —
+   3 steps through the kernels from the same initial state on the same
+   batches. Checks the updater launches (161 leaves × 3 steps) and the
+   losses and parameters against the generic run.
+6. ``train_fused`` — the same for ``ResNet50(fused_blocks=True,
+   dtype="mixed")`` at batch 128, where every 1×1 conv of the fused
+   blocks takes the BN/matmul/BN-stats kernel (>= 36 × 3 launches). The
+   step-1 losses (same parameters) must agree to one bfloat16 unit; the
+   generic run is repeated with its input moved by one bfloat16 unit,
+   and the kernel run's parameters after 3 steps must sit within 3× that
+   run's distance.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -53,6 +70,29 @@ LOGIT_TOL = 1e-3        # kernel vs generic GPT logits (float32, 12 layers)
 
 FLASH_SHAPE = dict(bh=12, t=512, d=64)
 PAGED_SHAPE = dict(slots=8, heads=12, d=64, page=16, max_pages=64)
+# fused updater: the fc weight (the largest leaf) and a stage-3 3×3 conv
+UPDATER_SHAPES = {"fc.W": (2048, 1000), "conv3x3": (3, 3, 256, 256)}
+# bn_matmul_stats at batch 128: stage-1 c3 (M = 128·56·56, prologue+relu)
+# and stage-3 c1 (M = 128·14·14, no prologue), as FusedBottleneck calls it
+CONVBN_SHAPES = {"stage1_c3": (401408, 64, 256, True),
+                 "stage3_c1": (25088, 1024, 256, False)}
+IMAGE = (224, 224, 3)
+CLASSES = 1000
+TRAIN_STEPS = 3
+# train phase A: the updater kernel is bit-exact and cuDNN is run
+# deterministic, so the kernel run should equal the generic run; the
+# bound leaves room for summation-order noise only
+TRAIN_A_LOSS_RTOL = 1e-5
+TRAIN_A_PARAM_SHARE = 1e-5   # of the largest parameter move in 3 steps
+# train phase B (mixed): the kernel's z differs from the plain version's
+# by bf16 roundings, which 50 layers of batch statistics amplify. Step 1
+# runs both at the same parameters: its loss may move by one bf16 unit.
+# After that the parameters differ, and the lr-0.1 run diverges (its loss
+# rises), so the later losses are not bounded by a single yardstick run;
+# the parameters after 3 steps (a max over 25.6M values) are held to 3×
+# the generic run's own distance when its input moves by one bf16 unit.
+TRAIN_B_LOSS1_RTOL = 2.0 ** -8
+TRAIN_B_YARDSTICK = 3.0
 
 
 def emit(obj) -> None:
@@ -200,6 +240,230 @@ def paged_case(dtype, dev):
                 "library_ms": None, "bound_ms": bms, "bound_by": by}
 
 
+def updater_case(dtype, dev):
+    """Nesterovs (ResNet-50's updater) on the largest leaf and a conv leaf;
+    the kernel must equal the plain version bit for bit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    upd = Nesterovs(learning_rate=0.1, momentum=0.9)
+    name = str(dtype).replace("torch.", "")
+    out = {}
+    for leaf, shape in UPDATER_SHAPES.items():
+        rng = np.random.default_rng(4)
+        p, g, v = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dtype) for _ in range(3))
+        lr = upd.lr(0)
+        hyper = upd.fused_hyper()
+        got = cu.fused_updater(p, g, lr, 0, v, kind="Nesterovs", **hyper)
+        ref = cu.fused_updater_step.fn(p, g, lr, 0, v, kind="Nesterovs",
+                                       **hyper)
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, ref))
+        exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+        ms = time_ms(lambda: cu.fused_updater(p, g, lr, 0, v,
+                                              kind="Nesterovs", **hyper))
+        plain_ms = time_ms(lambda: cu.fused_updater_step.fn(
+            p, g, lr, 0, v, kind="Nesterovs", **hyper))
+        n = p.numel()
+        # p, g, v read once; p, v written once
+        bms, by = bound(5.0 * n * p.element_size(), 10.0 * n, "float32")
+        out[leaf] = {"kernel": "fused_updater", "dtype": name,
+                     "leaf": leaf, "shape": list(shape), "max_abs_err": err,
+                     "tol": "0 (bit-exact)", "exact": exact, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "library_note": "no single PyTorch call computes "
+                                     "DL4J's Nesterovs update",
+                     "bound_ms": bms, "bound_by": by}
+    ok = all(e["exact"] for e in out.values())
+    return ok, list(out.values())
+
+
+def convbn_case(dev):
+    """bn_matmul_stats (bfloat16) at two batch-128 ResNet-50 1×1 convs,
+    held to ``kernel_tolerance`` (one bf16 unit on z; the derived bound
+    for statistics taken from the float32 accumulator)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import cuda_convbn as cc
+
+    entries, ok = [], True
+    for label, (m, k, n, prologue) in CONVBN_SHAPES.items():
+        rng = np.random.default_rng(5)
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)
+                             ).to(dev, torch.bfloat16)
+        sc = torch.from_numpy((rng.random(k) + 0.5).astype(np.float32)
+                              ).to(dev)
+        sh = torch.from_numpy((0.1 * rng.standard_normal(k)).astype(
+            np.float32)).to(dev)
+        w = torch.from_numpy((rng.standard_normal((k, n)) * k ** -0.5
+                              ).astype(np.float32)).to(dev, torch.bfloat16)
+        ss = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
+            np.float32)).to(dev)
+        kw = dict(relu=prologue, fuse_prologue=prologue)
+        args = (x, sc, sh, w, ss)
+        z, mean, var = cc.bn_matmul_stats(*args, **kw)
+        zr, mr, vr = cc.reference_bn_matmul_stats(*args, **kw)
+        torch.cuda.synchronize()
+        z_atol, z_rtol, m_tol, v_tol = cc.kernel_tolerance(*args, zr, **kw)
+        zerr = (z.float() - zr.float()).abs()
+        share = max((zerr / (z_atol + z_rtol * zr.float().abs())).max().item(),
+                    ((mean - mr).abs() / m_tol).max().item(),
+                    ((var - vr).abs() / v_tol).max().item())
+        ok = ok and share <= 1.0 and bool(torch.isfinite(z.float()).all())
+        y = x.float() * sc + sh if prologue else x.float()
+        y = (torch.clamp_min(y, 0.0) if prologue else y).to(torch.bfloat16)
+        ms = time_ms(lambda: cc.bn_matmul_stats(*args, **kw))
+        plain_ms = time_ms(lambda: cc.reference_bn_matmul_stats(*args, **kw))
+        lib_ms = time_ms(lambda: torch.matmul(y, w))
+        nbytes = (2.0 * m * k + 2.0 * k * n + 8.0 * k + 4.0 * n
+                  + 2.0 * m * n + 8.0 * n)
+        bms, by = bound(nbytes, 2.0 * m * k * n, "bfloat16")
+        entries.append({
+            "kernel": "bn_matmul_stats", "dtype": "bfloat16", "conv": label,
+            "shape": [m, k, n], "prologue_relu": prologue,
+            "max_abs_err": zerr.max().item(),
+            "mean_max_abs_err": (mean - mr).abs().max().item(),
+            "var_max_abs_err": (var - vr).abs().max().item(),
+            "tol": "cuda_convbn.kernel_tolerance", "err_over_tol": share,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_note": "cuBLAS bf16 torch.matmul of the prologued "
+                            "operand: the product alone, no prologue or "
+                            "statistics",
+            "bound_ms": bms, "bound_by": by})
+    return ok, entries
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _max_diff(a, b):
+    if isinstance(a, dict):
+        return max([_max_diff(a[k], b[k]) for k in a], default=0.0)
+    return (a.float() - b.float()).abs().max().item()
+
+
+def train_phase(phase, dev, smi, *, fused, dtype, batch):
+    """ResNet-50 at full width through ``ResNet50(...).init()`` → ``fit``:
+    generic run(s) as the reference, then the kernel run with every launch
+    count set to 0 just before. Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import synthetic_image_batch
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.ops import cuda_convbn as cc
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    env = environment()
+    net = ResNet50(num_classes=CLASSES, input_shape=IMAGE,
+                   fused_blocks=fused, dtype=dtype, device=dev).init()
+    n_leaves = sum(len(p) for p in net.params.values())
+    start = (_clone_tree(net.params), _clone_tree(net.opt_state),
+             _clone_tree(net.net_state))
+    data = []
+    for i in range(TRAIN_STEPS):
+        x, lab = synthetic_image_batch(batch, *IMAGE, CLASSES, seed=100 + i)
+        data.append((x, np.eye(CLASSES, dtype=np.float32)[lab]))
+
+    def run(mode, scale=None):
+        env.helper_mode = mode
+        net.params, net.opt_state, net.net_state = (_clone_tree(t)
+                                                    for t in start)
+        net.iteration_count = 0
+        losses, times = [], []
+        for x, y in data:
+            if scale is not None:
+                x = (x * scale).astype(np.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(x, y, batch_size=batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(net.score())
+        return losses, times, _clone_tree(net.params)
+
+    run("auto")       # warm-up: cuDNN/cuBLAS set-up and the kernel build
+    run("generic")
+    generic, g_times, g_params = run("generic")
+    pert = None
+    if dtype == "mixed":
+        sign = np.sign(np.random.default_rng(6).standard_normal(
+            (batch,) + IMAGE)).astype(np.float32)
+        pert = run("generic", 1.0 + 2.0 ** -8 * sign)
+    cu.fused_updater.launches = 0
+    cc.bn_matmul_stats.launches = 0          # the main path's run starts
+    kernel, k_times, k_params = run("auto")
+    launches = {"fused_updater": cu.fused_updater.launches,
+                "bn_matmul_stats": cc.bn_matmul_stats.launches}  # ... ends
+    env.helper_mode = "auto"
+    param_diff = _max_diff(g_params, k_params)
+    moved = _max_diff(start[0], g_params)
+    loss_diff = max(abs(a - b) for a, b in zip(kernel, generic))
+    problems = []
+    if not all(math.isfinite(v) for v in kernel + generic):
+        problems.append("non-finite loss")
+    if launches["fused_updater"] != n_leaves * TRAIN_STEPS:
+        problems.append(f"fused_updater launches {launches['fused_updater']}"
+                        f" != {n_leaves} leaves x {TRAIN_STEPS} steps")
+    line = {"phase": phase, "card": smi,
+            "model": f"ResNet50(fused_blocks={fused}, dtype={dtype!r})",
+            "image": list(IMAGE), "classes": CLASSES, "batch": batch,
+            "steps": TRAIN_STEPS, "leaves": n_leaves,
+            "params": net.num_params(), "launches": launches,
+            "losses_generic": generic, "losses_kernel": kernel,
+            "loss_max_abs_diff": loss_diff,
+            "param_max_abs_diff": param_diff,
+            "param_max_move_generic": moved}
+    if dtype == "mixed":
+        yard_loss = max(abs(a - b) for a, b in zip(pert[0], generic))
+        yard_param = _max_diff(g_params, pert[2])
+        line.update({"losses_generic_input_moved_1_bf16_unit": pert[0],
+                     "yardstick_loss_diff": yard_loss,
+                     "yardstick_param_diff": yard_param,
+                     "loss_diff_over_yardstick": [
+                         abs(a - b) / max(abs(c - b), 1e-12)
+                         for a, b, c in zip(kernel, generic, pert[0])],
+                     "tol": f"step-1 loss {TRAIN_B_LOSS1_RTOL:g} relative; "
+                            f"params {TRAIN_B_YARDSTICK:g} x yardstick"})
+        if launches["bn_matmul_stats"] < 36 * TRAIN_STEPS:
+            problems.append(f"bn_matmul_stats launches "
+                            f"{launches['bn_matmul_stats']} < 36 x "
+                            f"{TRAIN_STEPS}")
+        if abs(kernel[0] - generic[0]) > TRAIN_B_LOSS1_RTOL * abs(generic[0]):
+            problems.append(f"step-1 loss {kernel[0]} vs generic "
+                            f"{generic[0]}")
+        if param_diff > TRAIN_B_YARDSTICK * yard_param:
+            problems.append(f"param diff {param_diff} > {TRAIN_B_YARDSTICK}"
+                            f" x {yard_param}")
+    else:
+        line["tol"] = (f"loss {TRAIN_A_LOSS_RTOL:g} relative; params "
+                       f"{TRAIN_A_PARAM_SHARE:g} x the largest 3-step move")
+        if any(abs(a - b) > TRAIN_A_LOSS_RTOL * abs(b)
+               for a, b in zip(kernel, generic)):
+            problems.append(f"losses {kernel} vs generic {generic}")
+        if param_diff > TRAIN_A_PARAM_SHARE * moved:
+            problems.append(f"param diff {param_diff} > "
+                            f"{TRAIN_A_PARAM_SHARE} x {moved}")
+    p50 = float(np.percentile(k_times, 50))
+    line.update({"smoke_reading": f"{TRAIN_STEPS} steps, no spread",
+                 "step_p50_ms": p50 * 1e3, "images_per_s": batch / p50,
+                 "generic_step_p50_ms": float(np.percentile(g_times, 50))
+                 * 1e3,
+                 "problems": problems})
+    del net
+    torch.cuda.empty_cache()
+    return problems, line, launches
+
+
 def serve(engine_cls, model, prompts, **engine_kw):
     """Serve ``prompts`` through start()/submit()/stop(); returns the
     results and the wall seconds from first submit to last result."""
@@ -289,6 +553,15 @@ def main() -> int:
             entries.append(entry)
             if not ok:
                 failed.append(f"{entry['kernel']}[{entry['dtype']}]")
+    for dtype in (torch.float32, torch.bfloat16):
+        ok, upd_entries = updater_case(dtype, dev)
+        entries += upd_entries
+        if not ok:
+            failed.append(f"fused_updater[{dtype}]")
+    ok, conv_entries = convbn_case(dev)
+    entries += conv_entries
+    if not ok:
+        failed.append("bn_matmul_stats[bfloat16]")
     emit({"phase": "kernels", "card": smi, "entries": entries})
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
@@ -368,6 +641,18 @@ def main() -> int:
     if problems:
         raise SystemExit(f"serve phase failed: {problems}")
 
+    # ------------------------------------------------------ train, train_fused
+    train_launches = {}
+    for phase, kw in (("train", dict(fused=False, dtype="float32",
+                                     batch=32)),
+                      ("train_fused", dict(fused=True, dtype="mixed",
+                                           batch=128))):
+        problems, line, train_launches[phase] = train_phase(
+            phase, dev, smi, **kw)
+        emit(line)
+        if problems:
+            raise SystemExit(f"{phase} phase failed: {problems}")
+
     # ---------------------------------------------- contract lines, last
     where = {"flash_attn_fwd": (
                  "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -391,6 +676,30 @@ def main() -> int:
             "bfloat16": {k: bf16[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
+    upd = [e for e in entries if e["kernel"] == "fused_updater"]
+    conv = [e for e in entries if e["kernel"] == "bn_matmul_stats"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for name, source, replaces, launches_on, rows in (
+            ("fused_updater",
+             "deeplearning4j_tpu_torch/csrc/fused_updater.cu",
+             "deeplearning4j_tpu/ops/pallas_updater.py:84",
+             "train", upd),
+            ("bn_matmul_stats",
+             "deeplearning4j_tpu_torch/csrc/bn_matmul_stats.cu",
+             "deeplearning4j_tpu/ops/pallas_convbn.py:49",
+             "train_fused", conv)):
+        first = rows[0]
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": train_launches[launches_on][name],
+            "launches_path": launches_on,
+            **{k: first[k] for k in keys},
+            "dtype": first["dtype"], "shape": first["shape"],
+            "other_shapes": [dict({k: r[k] for k in keys},
+                                  dtype=r["dtype"], shape=r["shape"])
+                             for r in rows[1:]]})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

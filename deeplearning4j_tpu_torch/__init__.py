@@ -7,10 +7,12 @@ its port to PyTorch on an NVIDIA H100, module by module, with every TPU
 JAX package.
 
 Ported so far: generative serving of GPT — ``models.gpt``, the paged KV
-cache, scheduler, sampler and ``serving.GenerativeEngine`` — over two CUDA
-kernels, causal flash prefill and paged decode
-(``ops.cuda_attention``). Entry points run on ``"cuda"`` unless the
-caller passes ``device="cpu"``.
+cache, scheduler, sampler and ``serving.GenerativeEngine`` — over causal
+flash prefill and paged decode (``ops.cuda_attention``); and training
+through ``nn.ComputationGraph`` — ``models.ResNet50(...).init().fit`` —
+over the fused updater step (``ops.cuda_updater``) and the fused
+BN-apply/1×1-matmul/BN-stats kernel (``ops.cuda_convbn``). Entry points
+run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 """
 
 from deeplearning4j_tpu_torch import observe, ops  # noqa: F401

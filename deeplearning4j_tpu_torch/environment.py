@@ -1,7 +1,7 @@
 """Process-level configuration of the PyTorch port.
 
 Counterpart of ``deeplearning4j_tpu/environment.py``. The port keeps only
-what its serving path reads:
+what its ported paths read:
 
 * :class:`Environment` ``.helper_mode`` — platform-helper selection for the
   op registry: ``"auto"`` (hand-written CUDA kernel where one is registered
@@ -10,7 +10,8 @@ what its serving path reads:
   counterparts of the JAX package's ``auto`` / ``xla`` / ``pallas``. Set it
   by assigning the attribute of :func:`environment`.
 * :data:`DEFAULT_DEVICE` — where entry points (``GptModel``,
-  ``GenerativeEngine``, ``restore_gpt``) put their tensors when the caller
+  ``GenerativeEngine``, ``restore_gpt``, ``init_gpt_params``,
+  ``ComputationGraph``, ``ResNet50``) put their tensors when the caller
   names no device: ``"cuda"``. :func:`resolve_device` refuses it on a host
   without a GPU instead of quietly running on the CPU; the CPU is used
   only when the caller passes ``device="cpu"``.

@@ -116,14 +116,17 @@ def _map_tree(fn, tree):
 
 def init_gpt_params(cfg: GptConfig, seed: int = 0,
                     dtype: torch.dtype = torch.float32,
-                    device: Union[str, torch.device] = "cpu",
+                    device: Union[str, torch.device, None] = None,
                     std: float = 0.02) -> Dict[str, Any]:
     """Random parameters from a numpy seed: N(0, std) matrices and
     embeddings, zero biases, unit LayerNorm gains (the JAX init's scheme
     at the default std; the streams differ, so parity tests carry JAX
     parameters across with :func:`params_from_numpy` instead). At the
     default std a random model's greedy output repeats its last prompt
-    token; ``std ~ 2/sqrt(hidden)`` gives varied tokens."""
+    token; ``std ~ 2/sqrt(hidden)`` gives varied tokens. ``device``
+    defaults to ``"cuda"`` as every entry point does; pass ``"cpu"`` for
+    host tensors."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     def make(path_shape):

@@ -1,0 +1,549 @@
+"""ComputationGraph — DAG networks, trained eagerly with autograd.
+
+Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``GraphBuilder`` /
+``graph_builder()``, ``ComputationGraphConfiguration`` with the JSON the
+JAX package writes (``to_json``/``from_json``), ``ElementWiseVertex``,
+and the runtime — ``init``, ``output``, ``fit``, ``score`` and the train
+step of ``graph.py:734-748``.
+
+What the train step does in place of ``jax.value_and_grad`` + ``jit``:
+each parameter leaf is taken as an autograd leaf (``detach()`` +
+``requires_grad_``, no copy), the forward and loss run eagerly,
+``torch.autograd.grad`` gives the gradients, and the update tail
+(``apply_layer_updates``: regularization, gradient normalization, the
+fused updater op per leaf, weight decay) runs under ``torch.no_grad()``.
+The updates are out of place: each step replaces ``params``, ``opt_state``
+and ``net_state`` with new tensors, as the JAX step returns new arrays.
+
+Dtype policy: under ``"mixed"`` the float32 master parameters and the
+inputs are cast to bfloat16 once at the top of ``_forward``; gradients
+flow back through that cast to the float32 leaves, and the network
+outputs are cast back to float32 for the loss. Under ``"float32"`` the
+forward and backward run in :func:`~deeplearning4j_tpu_torch.nn.dtype.
+precision_scope` (no TF32).
+
+The network lives on one device: ``"cuda"`` unless the caller passes
+``device="cpu"``. Not ported yet: the other vertices, listeners,
+tBPTT/RNN state, ``fit_scanned``, evaluation and zip serde (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch import observe
+from deeplearning4j_tpu_torch.datasets.dataset import (
+    DataSet, ListDataSetIterator)
+from deeplearning4j_tpu_torch.environment import resolve_device
+from deeplearning4j_tpu_torch.nn import conf as C
+from deeplearning4j_tpu_torch.nn import dtype as DT
+from deeplearning4j_tpu_torch.nn.layers import Layer, build_layer
+from deeplearning4j_tpu_torch.nn.multilayer import (
+    apply_layer_updates, aux_losses, reg_penalty)
+from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
+from deeplearning4j_tpu_torch.ops.losses import get_loss
+
+# ---------------------------------------------------------------------------
+# Vertices
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphVertex:
+    """Base non-layer vertex."""
+
+    def apply(self, inputs: List[torch.Tensor]):
+        raise NotImplementedError
+
+    def output_type(self, itypes: List[C.InputType]) -> C.InputType:
+        return itypes[0]
+
+    def to_dict(self):
+        d = dataclasses.asdict(self)
+        d["@type"] = type(self).__name__
+        return d
+
+    @staticmethod
+    def from_dict(d):
+        d = dict(d)
+        name = d.pop("@type")
+        cls = VERTEX_TYPES.get(name)
+        if cls is None:
+            raise ValueError(
+                f"vertex type {name!r} is not ported to "
+                f"deeplearning4j_tpu_torch yet; ported: {sorted(VERTEX_TYPES)}")
+        for k, v in list(d.items()):
+            if isinstance(v, list):
+                d[k] = tuple(v)
+        return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementWiseVertex(GraphVertex):
+    """ElementWiseVertex.java: Add | Subtract | Product | Average | Max |
+    Min."""
+
+    op: str = "add"
+
+    def apply(self, inputs):
+        op = self.op.lower()
+        if op == "add":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = out + x
+            return out
+        if op == "subtract":
+            return inputs[0] - inputs[1]
+        if op == "product":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = out * x
+            return out
+        if op == "average":
+            return sum(inputs) / len(inputs)
+        if op == "max":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = torch.maximum(out, x)
+            return out
+        if op == "min":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = torch.minimum(out, x)
+            return out
+        raise ValueError(f"unknown ElementWiseVertex op {self.op}")
+
+
+VERTEX_TYPES = {c.__name__: c for c in [ElementWiseVertex]}
+
+
+# ---------------------------------------------------------------------------
+# Configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _GraphNode:
+    name: str
+    kind: str  # 'layer' | 'vertex'
+    layer: Optional[C.LayerConf] = None
+    vertex: Optional[GraphVertex] = None
+    inputs: List[str] = dataclasses.field(default_factory=list)
+    flatten_input: bool = False
+
+
+@dataclasses.dataclass
+class ComputationGraphConfiguration:
+    """ComputationGraphConfiguration.java analog; its JSON is the JAX
+    package's."""
+
+    network_inputs: List[str] = dataclasses.field(default_factory=list)
+    network_outputs: List[str] = dataclasses.field(default_factory=list)
+    nodes: List[_GraphNode] = dataclasses.field(default_factory=list)
+    input_types: Dict[str, C.InputType] = dataclasses.field(
+        default_factory=dict)
+    seed: int = 0
+    updater: Any = None
+    activation: str = "identity"
+    weight_init: str = "xavier"
+    l1: float = 0.0
+    l2: float = 0.0
+    weight_decay: float = 0.0
+    dtype: str = "float32"
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
+
+    layer_activation = C.MultiLayerConfiguration.layer_activation
+    layer_weight_init = C.MultiLayerConfiguration.layer_weight_init
+    layer_updater = C.MultiLayerConfiguration.layer_updater
+    layer_l1 = C.MultiLayerConfiguration.layer_l1
+    layer_l2 = C.MultiLayerConfiguration.layer_l2
+    layer_weight_decay = C.MultiLayerConfiguration.layer_weight_decay
+
+    def __post_init__(self):
+        if self.updater is None:
+            self.updater = Adam()
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "network_inputs": self.network_inputs,
+            "network_outputs": self.network_outputs,
+            "nodes": [
+                {"name": n.name, "kind": n.kind,
+                 "layer": n.layer.to_dict() if n.layer else None,
+                 "vertex": n.vertex.to_dict() if n.vertex else None,
+                 "inputs": n.inputs}
+                for n in self.nodes
+            ],
+            "input_types": {k: v.to_dict()
+                            for k, v in self.input_types.items()},
+            "seed": self.seed,
+            "updater": {"__updater__": get_updater(self.updater).to_dict()},
+            "activation": self.activation,
+            "weight_init": self.weight_init,
+            "l1": self.l1, "l2": self.l2, "weight_decay": self.weight_decay,
+            "dtype": self.dtype,
+            "gradient_normalization": self.gradient_normalization,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        d = json.loads(s)
+        return ComputationGraphConfiguration(
+            network_inputs=d["network_inputs"],
+            network_outputs=d["network_outputs"],
+            nodes=[
+                _GraphNode(
+                    name=nd["name"], kind=nd["kind"],
+                    layer=(C.LayerConf.from_dict(nd["layer"])
+                           if nd["layer"] else None),
+                    vertex=(GraphVertex.from_dict(nd["vertex"])
+                            if nd["vertex"] else None),
+                    inputs=list(nd["inputs"]))
+                for nd in d["nodes"]
+            ],
+            input_types={k: C.InputType.from_dict(v)
+                         for k, v in d["input_types"].items()},
+            seed=d.get("seed", 0),
+            updater=Updater.from_dict(d["updater"]["__updater__"]),
+            activation=d.get("activation", "identity"),
+            weight_init=d.get("weight_init", "xavier"),
+            l1=d.get("l1", 0.0), l2=d.get("l2", 0.0),
+            weight_decay=d.get("weight_decay", 0.0),
+            dtype=d.get("dtype", "float32"),
+            gradient_normalization=d.get("gradient_normalization"),
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0),
+        )
+
+
+class GraphBuilder:
+    """ComputationGraphConfiguration.GraphBuilder analog (fluent)."""
+
+    def __init__(self) -> None:
+        self._conf = ComputationGraphConfiguration()
+
+    def _set(self, **kw):
+        for k, v in kw.items():
+            setattr(self._conf, k, v)
+        return self
+
+    def seed(self, s: int):
+        return self._set(seed=s)
+
+    def updater(self, u):
+        return self._set(updater=u)
+
+    def activation(self, a: str):
+        return self._set(activation=a)
+
+    def weight_init(self, w: str):
+        return self._set(weight_init=w)
+
+    def l1(self, v: float):
+        return self._set(l1=v)
+
+    def l2(self, v: float):
+        return self._set(l2=v)
+
+    def weight_decay(self, v: float):
+        return self._set(weight_decay=v)
+
+    def dtype(self, d: str):
+        return self._set(dtype=d)
+
+    def gradient_normalization(self, kind: str, threshold: float = 1.0):
+        return self._set(gradient_normalization=kind,
+                         gradient_normalization_threshold=threshold)
+
+    def graph_builder(self):
+        return self
+
+    def add_inputs(self, *names: str):
+        self._conf.network_inputs.extend(names)
+        return self
+
+    def set_input_types(self, **types: C.InputType):
+        self._conf.input_types.update(types)
+        return self
+
+    def add_layer(self, name: str, layer: C.LayerConf, *inputs: str):
+        self._conf.nodes.append(_GraphNode(name=name, kind="layer",
+                                           layer=layer, inputs=list(inputs)))
+        return self
+
+    def add_vertex(self, name: str, vertex, *inputs: str):
+        if isinstance(vertex, C.LayerConf):
+            return self.add_layer(name, vertex, *inputs)
+        self._conf.nodes.append(_GraphNode(name=name, kind="vertex",
+                                           vertex=vertex, inputs=list(inputs)))
+        return self
+
+    def set_outputs(self, *names: str):
+        self._conf.network_outputs.extend(names)
+        return self
+
+    def build(self) -> ComputationGraphConfiguration:
+        return self._conf
+
+
+def graph_builder() -> GraphBuilder:
+    return GraphBuilder()
+
+
+# ---------------------------------------------------------------------------
+# Runtime
+# ---------------------------------------------------------------------------
+
+
+def _to_device(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+class ComputationGraph:
+    """DAG network runtime (ComputationGraph.java analog)."""
+
+    def __init__(self, conf: ComputationGraphConfiguration, *, device=None):
+        self.conf = conf
+        self.device = resolve_device(device)
+        self._order = self._toposort()
+        self._itypes: Dict[str, C.InputType] = {}
+        self.layers: Dict[str, Layer] = {}
+        self._net_conf_view = C.MultiLayerConfiguration(
+            seed=conf.seed, updater=conf.updater,
+            activation=conf.activation, weight_init=conf.weight_init,
+            l1=conf.l1, l2=conf.l2, weight_decay=conf.weight_decay,
+            dtype=conf.dtype,
+            gradient_normalization=conf.gradient_normalization,
+            gradient_normalization_threshold=(
+                conf.gradient_normalization_threshold))
+        for name in conf.network_inputs:
+            it = conf.input_types.get(name, C.InputType.feed_forward(0))
+            if it.kind == "convolutionalflat":
+                it = C.InputType.convolutional(it.height, it.width,
+                                               it.channels)
+            self._itypes[name] = it
+        for node in self._order:
+            in_types = [self._itypes[i] for i in node.inputs]
+            if node.kind == "vertex":
+                self._itypes[node.name] = node.vertex.output_type(in_types)
+                continue
+            itype = in_types[0]
+            if (itype.kind == "convolutional"
+                    and isinstance(node.layer, C.DenseLayer)):
+                # conv -> dense: NHWC flattened channel-major at run time
+                itype = C.InputType.feed_forward(itype.flat_size())
+                node.flatten_input = True
+            itype, node.layer = C.infer_layer(itype, node.layer)
+            layer = build_layer(self._net_conf_view, node.layer, itype,
+                                self.device)
+            self.layers[node.name] = layer
+            self._itypes[node.name] = layer.otype
+        self._layer_names = [n.name for n in self._order
+                             if n.kind == "layer"]
+        self._output_layers = [
+            n for n in conf.network_outputs
+            if getattr(self._node(n).layer, "loss", None) is not None]
+        self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.net_state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.opt_state: Optional[Dict[str, Any]] = None
+        self.iteration_count = 0
+        self.epoch_count = 0
+        self.last_batch_size = 0
+        self._score: Optional[torch.Tensor] = None
+
+    def _node(self, name: str) -> _GraphNode:
+        for n in self.conf.nodes:
+            if n.name == name:
+                return n
+        raise KeyError(name)
+
+    def _toposort(self) -> List[_GraphNode]:
+        done = set(self.conf.network_inputs)
+        remaining = list(self.conf.nodes)
+        order = []
+        while remaining:
+            progress = False
+            for n in list(remaining):
+                if all(i in done for i in n.inputs):
+                    order.append(n)
+                    done.add(n.name)
+                    remaining.remove(n)
+                    progress = True
+            if not progress:
+                raise ValueError(f"graph has a cycle or missing inputs: "
+                                 f"{[n.name for n in remaining]}")
+        return order
+
+    # ------------------------------------------------------------------ init
+    def init(self, params=None) -> "ComputationGraph":
+        """Parameters from ``params`` (name -> leaf -> tensor, moved to the
+        network's device) or drawn from ``conf.seed``; fresh layer state
+        and updater state."""
+        if params is not None:
+            self.params = {n: {k: v.to(self.device) for k, v in p.items()}
+                           for n, p in params.items()}
+        else:
+            gen = torch.Generator().manual_seed(self.conf.seed)
+            self.params = {n: self.layers[n].init(gen)
+                           for n in self._layer_names}
+        self.net_state = {n: l.init_state() for n, l in self.layers.items()}
+        self.opt_state = {}
+        for n, l in self.layers.items():
+            upd = self.conf.layer_updater(l.lc)
+            self.opt_state[n] = {k: upd.init_state(v)
+                                 for k, v in self.params[n].items()}
+        return self
+
+    # --------------------------------------------------------------- forward
+    def _forward(self, params, net_state, inputs: Dict[str, Any], masks, *,
+                 train: bool, rng=None):
+        """(activations by node name, new layer state)."""
+        if DT.needs_cast(self.conf.dtype):
+            # mixed policy: the ONE cast of params and inputs to bf16
+            cd = DT.compute_dtype(self.conf.dtype)
+            params = DT.cast_floats(params, cd)
+            inputs = DT.cast_floats(inputs, cd)
+        acts: Dict[str, Any] = dict(inputs)
+        act_masks: Dict[str, Any] = dict(masks or {})
+        new_state: Dict[str, Any] = {}
+        for node in self._order:
+            xs = [acts[i] for i in node.inputs]
+            if node.kind == "vertex":
+                acts[node.name] = node.vertex.apply(xs)
+                ms = [act_masks.get(i) for i in node.inputs]
+                act_masks[node.name] = next(
+                    (m for m in ms if m is not None), None)
+                continue
+            x = xs[0]
+            if node.flatten_input and x.ndim == 4:
+                # NHWC -> the reference's channel-major flat order
+                x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+            y, st, m2 = self.layers[node.name].apply(
+                params[node.name], x, net_state[node.name], train=train,
+                rng=rng, mask=act_masks.get(node.inputs[0]))
+            acts[node.name] = y
+            act_masks[node.name] = m2
+            new_state[node.name] = st
+        if DT.needs_cast(self.conf.dtype):
+            for o in self.conf.network_outputs:  # loss/eval math in f32
+                acts[o] = DT.cast_floats(acts[o], torch.float32)
+        return acts, new_state
+
+    def _feed(self, arrays: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: _to_device(v, self.device) for k, v in arrays.items()}
+
+    def output(self, *inputs, masks=None) -> List[np.ndarray]:
+        """graph.output(inputs...) — the output nodes' activations
+        (inference mode), as numpy arrays."""
+        feed = self._feed(dict(zip(self.conf.network_inputs, inputs)))
+        m = None if masks is None else self._feed(masks)
+        with torch.no_grad(), DT.precision_scope(self.conf.dtype):
+            acts, _ = self._forward(self.params, self.net_state, feed, m,
+                                    train=False)
+        return [acts[o].float().cpu().numpy()
+                for o in self.conf.network_outputs]
+
+    def output_single(self, x, masks=None) -> np.ndarray:
+        return self.output(x, masks=masks)[0]
+
+    # ------------------------------------------------------------ train step
+    def _losses(self, acts, labels: Dict[str, Any], lmasks):
+        total = torch.zeros((), device=self.device)
+        for name in self._output_layers:
+            loss_fn = get_loss(self._node(name).layer.loss)
+            lm = None if lmasks is None else lmasks.get(name)
+            total = total + loss_fn(acts[name], labels[name], lm)
+        return total
+
+    def _train_step(self, feeds, labels, fmasks, lmasks) -> torch.Tensor:
+        """One step: loss and gradients by autograd, then the update tail
+        under no_grad. Returns the score (loss + regularization penalty of
+        the parameters before the update), a 0-d tensor on the device."""
+        names = self._layer_names
+        step = self.iteration_count
+        with DT.precision_scope(self.conf.dtype):
+            with torch.enable_grad():
+                params = {n: {k: v.detach().requires_grad_(True)
+                              for k, v in self.params[n].items()}
+                          for n in names}
+                acts, new_state = self._forward(params, self.net_state, feeds,
+                                                fmasks, train=True)
+                loss = self._losses(acts, labels, lmasks) + aux_losses(
+                    new_state)
+                leaves = [(n, k) for n in names for k in sorted(params[n])]
+                grads = torch.autograd.grad(
+                    loss, [params[n][k] for n, k in leaves],
+                    allow_unused=True)
+            with torch.no_grad():
+                g: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in names}
+                for (n, k), gr in zip(leaves, grads):
+                    g[n][k] = (gr if gr is not None
+                               else torch.zeros_like(self.params[n][k]))
+                updated = apply_layer_updates(
+                    self.conf,
+                    ((self.params[n], g[n], self.opt_state[n],
+                      self.conf.layer_updater(self.layers[n].lc),
+                      self.layers[n].lc) for n in names),
+                    step)
+                score = loss.detach() + reg_penalty(
+                    self.conf, ((self.params[n], self.layers[n].lc)
+                                for n in names))
+        self.params = {n: p for n, (p, _) in zip(names, updated)}
+        self.opt_state = {n: s for n, (_, s) in zip(names, updated)}
+        self.net_state = {n: {k: v.detach() for k, v in st.items()}
+                          for n, st in new_state.items()}
+        return score
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, epochs: int = 1,
+            batch_size: int = 32) -> None:
+        """fit over a DataSet / iterator, or (features, labels) arrays cut
+        into ``batch_size`` batches. Single input and single output: the
+        features feed the first input, the labels the first output."""
+        if labels is not None:
+            data = ListDataSetIterator(DataSet(data, labels),
+                                       batch_size=batch_size)
+        elif isinstance(data, DataSet):
+            data = ListDataSetIterator(data, batch_size=batch_size)
+        in_name = self.conf.network_inputs[0]
+        out_name = self.conf.network_outputs[0]
+        m = observe.metrics()
+        steps_c = m.counter("dl4j_tpu_train_steps_total", model="graph")
+        ex_c = m.counter("dl4j_tpu_train_examples_total", model="graph")
+        step_h = m.histogram("dl4j_tpu_train_step_seconds", model="graph")
+        for _ in range(epochs):
+            t_prev = time.perf_counter()
+            for ds in data:
+                self.last_batch_size = ds.num_examples()
+                feeds = self._feed({in_name: ds.features})
+                labs = self._feed({out_name: ds.labels})
+                fmasks = (None if ds.features_mask is None
+                          else self._feed({in_name: ds.features_mask}))
+                lmasks = (None if ds.labels_mask is None
+                          else self._feed({out_name: ds.labels_mask}))
+                self._score = self._train_step(feeds, labs, fmasks, lmasks)
+                self.iteration_count += 1
+                now = time.perf_counter()
+                step_h.observe(now - t_prev)
+                t_prev = now
+                steps_c.inc()
+                ex_c.inc(ds.num_examples())
+            self.epoch_count += 1
+
+    def score(self) -> float:
+        return float("nan") if self._score is None else float(self._score)
+
+    def num_params(self) -> int:
+        return sum(v.numel() for p in self.params.values()
+                   for v in p.values())

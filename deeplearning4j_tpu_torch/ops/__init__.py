@@ -1,18 +1,26 @@
 """Op registry of the port: generic PyTorch ops and their CUDA kernels.
 
-Importing this package registers the generic ops (:mod:`.nn_ops`) and
+Importing this package registers the generic ops (:mod:`.nn_ops`,
+:mod:`.shape_ops`, ``fused_updater_step``, ``fused_bn_matmul_stats``) and
 installs the hand-written CUDA kernels as their ``"cuda"`` platform
-helpers (:mod:`.cuda_attention`). No kernel is built at import.
+helpers (:mod:`.cuda_attention`, :mod:`.cuda_updater`,
+:mod:`.cuda_convbn`). No kernel is built at import.
 """
 
-from deeplearning4j_tpu_torch.ops import nn_ops  # noqa: F401 (registers)
+from deeplearning4j_tpu_torch.ops import nn_ops, shape_ops  # noqa: F401
 from deeplearning4j_tpu_torch.ops.cuda_attention import (
     register_platform_attention,
+)
+from deeplearning4j_tpu_torch.ops.cuda_convbn import register_platform_convbn
+from deeplearning4j_tpu_torch.ops.cuda_updater import (
+    register_platform_fused_updater,
 )
 from deeplearning4j_tpu_torch.ops.registry import (
     OpDescriptor, OpRegistry, exec_op, op, registry,
 )
 
 register_platform_attention()
+register_platform_fused_updater()
+register_platform_convbn()
 
 __all__ = ["OpDescriptor", "OpRegistry", "exec_op", "op", "registry"]

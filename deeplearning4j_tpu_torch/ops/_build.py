@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # one shared library per source; the name is the source's stem
-SOURCES = ("flash_attn_fwd", "paged_decode")
+SOURCES = ("flash_attn_fwd", "paged_decode", "fused_updater",
+           "bn_matmul_stats")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,19 +1,290 @@
 """Generic neural-net ops of the port (plain PyTorch).
 
-Counterpart of the slice of ``deeplearning4j_tpu/ops/nn_ops.py`` the
-serving path reaches: the generic ``dot_product_attention``
-(``nn_ops.py:448``). The hand-written flash kernel registers as its
-``"cuda"`` platform helper in :mod:`.cuda_attention`.
+Counterpart of the slices of ``deeplearning4j_tpu/ops/nn_ops.py`` that the
+ported paths reach:
+
+* serving: the generic ``dot_product_attention`` (``nn_ops.py:448``); the
+  hand-written flash kernel registers as its ``"cuda"`` platform helper in
+  :mod:`.cuda_attention`;
+* training (ResNet-50 through ``ComputationGraph``): ``conv2d`` with the
+  reference padding modes, max/avg/pnorm pooling, global pooling, the
+  inference ``batchnorm`` and the training ``batch_norm_train`` over a
+  hand-written-backward core (:class:`_BNCore`, the ``_bn_core``
+  custom VJP).
+
+Layouts are the JAX package's: activations NHWC, conv kernels HWIO. Inside,
+``x.permute(0, 3, 1, 2)`` of an NHWC-contiguous tensor is a
+``channels_last`` NCHW tensor, so the convolutions and pools run on it
+with no copy, and the NHWC view of their channels-last output is
+contiguous again. Convolutions and pools are library calls (cuDNN on the
+card), as the JAX package left them to XLA.
+
+XLA's "SAME" padding is asymmetric (the odd cell goes on the high side);
+torch's ``padding=`` is symmetric, so an asymmetric pad is applied with
+``F.pad`` first.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops.registry import op
+
+IntPair = Union[int, Tuple[int, int]]
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+
+def _pair(v: IntPair) -> Tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        return (int(v[0]), int(v[1]))
+    return (int(v), int(v))
+
+
+def _padding(mode, kernel, stride, dilation):
+    """Reference padding modes: 'same' | 'valid' | 'truncate' | explicit
+    (ph, pw) | ((top, bottom), (left, right)). Returns "SAME", "VALID" or
+    explicit pairs, as the JAX package's ``_padding``."""
+    if isinstance(mode, str):
+        m = mode.upper()
+        if m in ("SAME", "TRUNCATE", "VALID"):
+            return "SAME" if m == "SAME" else "VALID"
+        raise ValueError(f"unknown padding mode {mode}")
+    if (isinstance(mode, (tuple, list)) and len(mode) == 2
+            and isinstance(mode[0], (tuple, list))):
+        return tuple((int(a), int(b)) for a, b in mode)
+    ph, pw = _pair(mode)
+    return ((ph, ph), (pw, pw))
+
+
+def _explicit_pads(pad, in_hw: Sequence[int], kernel: Sequence[int],
+                   stride: Sequence[int], dilation: Sequence[int]) -> Pads:
+    """XLA's pads for "SAME"/"VALID" (``lax.padtype_to_pads``): SAME keeps
+    ceil(in/stride) outputs and puts the odd cell of padding on the high
+    side."""
+    if pad == "VALID":
+        return ((0, 0), (0, 0))
+    if pad != "SAME":
+        return tuple(tuple(p) for p in pad)
+    out = []
+    for n, k, s, d in zip(in_hw, kernel, stride, dilation):
+        eff = (k - 1) * d + 1
+        total = max((-(-n // s) - 1) * s + eff - n, 0)
+        out.append((total // 2, total - total // 2))
+    return tuple(out)
+
+
+def _pad_nchw(xc, pads: Pads, value: float):
+    """Apply ``pads`` to an NCHW tensor: symmetric pads go to the op's own
+    ``padding=`` argument (returned), asymmetric ones through ``F.pad``."""
+    (pt, pb), (pl_, pr) = pads
+    if pt == pb and pl_ == pr and value == 0.0:
+        return xc, (pt, pl_)
+    if pt or pb or pl_ or pr:
+        xc = F.pad(xc, (pl_, pr, pt, pb), value=value)
+    return xc, (0, 0)
+
+
+# --------------------------------------------------------------------------
+# Convolutions
+# --------------------------------------------------------------------------
+
+
+@op("conv2d")
+def conv2d(x, w, b=None, *, stride: IntPair = 1, padding="same",
+           dilation: IntPair = 1, feature_group_count: int = 1):
+    """2-D convolution. x: [N,H,W,C_in], w: [kH,kW,C_in/groups,C_out]."""
+    s = _pair(stride)
+    d = _pair(dilation)
+    pads = _explicit_pads(_padding(padding, w.shape[:2], s, d),
+                          x.shape[1:3], w.shape[:2], s, d)
+    xc, sym = _pad_nchw(x.permute(0, 3, 1, 2), pads, 0.0)
+    out = F.conv2d(xc, w.permute(3, 2, 0, 1), None, s, sym, d,
+                   feature_group_count)
+    out = out.permute(0, 2, 3, 1)
+    if b is not None:
+        out = out + b
+    return out
+
+
+# --------------------------------------------------------------------------
+# Pooling
+# --------------------------------------------------------------------------
+
+
+def _pool_prep(x, kernel, stride, padding, value):
+    k = _pair(kernel)
+    s = _pair(stride if stride is not None else kernel)
+    if isinstance(padding, str):
+        pad = "SAME" if padding.upper() == "SAME" else "VALID"
+    else:
+        pad = _padding(padding, kernel, stride, 1)
+    pads = _explicit_pads(pad, x.shape[1:3], k, s, (1, 1))
+    (pt, pb), (pl_, pr) = pads
+    xc = x.permute(0, 3, 1, 2)
+    if pt or pb or pl_ or pr:
+        xc = F.pad(xc, (pl_, pr, pt, pb), value=value)
+    return xc, k, s
+
+
+@op("maxpool2d")
+def maxpool2d(x, *, kernel: IntPair, stride: Optional[IntPair] = None,
+              padding="valid"):
+    xc, k, s = _pool_prep(x, kernel, stride, padding, -math.inf)
+    return F.max_pool2d(xc, k, s).permute(0, 2, 3, 1)
+
+
+def _sum_pool(x, kernel, stride, padding):
+    xc, k, s = _pool_prep(x, kernel, stride, padding, 0.0)
+    return F.avg_pool2d(xc, k, s).permute(0, 2, 3, 1) * (k[0] * k[1])
+
+
+@op("avgpool2d")
+def avgpool2d(x, *, kernel: IntPair, stride: Optional[IntPair] = None,
+              padding="valid", count_include_pad: bool = True):
+    kh, kw = _pair(kernel)
+    if count_include_pad or (isinstance(padding, str)
+                             and padding.upper() == "VALID"):
+        xc, k, s = _pool_prep(x, kernel, stride, padding, 0.0)
+        return F.avg_pool2d(xc, k, s).permute(0, 2, 3, 1)
+    summed = _sum_pool(x, kernel, stride, padding)
+    counts = _sum_pool(torch.ones_like(x), kernel, stride, padding)
+    return summed / counts
+
+
+@op("pnormpool2d")
+def pnormpool2d(x, *, kernel: IntPair, stride: Optional[IntPair] = None,
+                padding="valid", p: float = 2.0):
+    return _sum_pool(torch.abs(x) ** p, kernel, stride, padding) ** (1.0 / p)
+
+
+@op("global_avg_pool")
+def global_avg_pool(x):
+    return torch.mean(x, dim=(1, 2))
+
+
+@op("global_max_pool")
+def global_max_pool(x):
+    return torch.amax(x, dim=(1, 2))
+
+
+# --------------------------------------------------------------------------
+# Normalization
+# --------------------------------------------------------------------------
+
+
+def _stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    """At least float32 (``jnp.promote_types(x.dtype, float32)``)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+@op("batchnorm")
+def batchnorm(x, mean, var, gamma=None, beta=None, *, eps: float = 1e-5):
+    """Normalize with given statistics (inference form). Scale and shift
+    are folded in at least float32 and cast to x's dtype, so a bfloat16
+    stream stays bfloat16."""
+    f32 = _stat_dtype(x.dtype)
+    scale = torch.rsqrt(var.to(f32) + eps)
+    if gamma is not None:
+        scale = scale * gamma.to(f32)
+    shift = -mean.to(f32) * scale
+    if beta is not None:
+        shift = shift + beta.to(f32)
+    return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
+def _bn_fwd_math(x, gamma, beta, stat_shift, eps):
+    """Channel-last batch statistics and normalize (``_bn_fwd_math``):
+    bfloat16 inputs take one-pass moments shifted by the running mean
+    (stable while the running mean tracks the batch mean); every other
+    dtype takes two passes. Returns (out, mean, biased var, inv, scale)."""
+    f32 = _stat_dtype(x.dtype)
+    axes = tuple(range(x.ndim - 1))
+    xf = x.to(f32)
+    if x.dtype == torch.bfloat16 and stat_shift is not None:
+        sf = stat_shift.detach().to(f32)
+        xc = xf - sf
+        m1 = torch.mean(xc, dim=axes)
+        m2 = torch.mean(torch.square(xc), dim=axes)
+        mean = m1 + sf
+        var = torch.clamp_min(m2 - torch.square(m1), 0.0)
+    else:
+        mean = torch.mean(xf, dim=axes)
+        var = torch.mean(torch.square(xf - mean), dim=axes)
+    inv = torch.rsqrt(var + eps)
+    scale = inv if gamma is None else inv * gamma.to(f32)
+    shift = -mean * scale
+    if beta is not None:
+        shift = shift + beta.to(f32)
+    out = x * scale.to(x.dtype) + shift.to(x.dtype)
+    return out, mean, var, inv, scale
+
+
+class _BNCore(torch.autograd.Function):
+    """Channel-last training batch norm with the hand-written backward of
+    ``_bn_core`` (the canonical two-reduction form). Returns
+    (out, mean, biased var); the statistics feed the running buffers and
+    are not differentiable, and ``stat_shift`` (the running mean) only
+    stabilizes the bfloat16 one-pass moments."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, stat_shift, eps):
+        out, mean, var, inv, _ = _bn_fwd_math(x, gamma, beta, stat_shift, eps)
+        ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.has_beta = beta is not None
+        ctx.beta_dtype = None if beta is None else beta.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, gamma, mean, inv = ctx.saved_tensors
+        f32 = _stat_dtype(x.dtype)
+        axes = tuple(range(x.ndim - 1))
+        n = x.numel() // x.shape[-1]
+        dyf = dy.to(f32)
+        xhat = (x.to(f32) - mean) * inv
+        sum_dy = torch.sum(dyf, dim=axes)
+        sum_dy_xhat = torch.sum(dyf * xhat, dim=axes)
+        g = inv if gamma is None else inv * gamma.to(f32)
+        dx = g * (dyf - sum_dy / n - xhat * (sum_dy_xhat / n))
+        dgamma = None if gamma is None else sum_dy_xhat.to(gamma.dtype)
+        dbeta = sum_dy.to(ctx.beta_dtype) if ctx.has_beta else None
+        return dx.to(x.dtype), dgamma, dbeta, None, None
+
+
+def batch_norm_train(x, gamma, beta, running_mean, running_var, *,
+                     axis=(0,), eps: float = 1e-5, momentum: float = 0.9):
+    """Training-mode batch norm: (out, new_running_mean, new_running_var).
+
+    DL4J ``decay`` semantics: running = momentum·running +
+    (1−momentum)·batch_stat, with the unbiased (n/(n−1)) batch variance.
+    Statistics are taken in at least float32; the running buffers keep
+    their own dtype. The channel-last case (the layer path) runs
+    :class:`_BNCore`; other axes take autograd of the plain math."""
+    if tuple(axis) == tuple(range(x.ndim - 1)):
+        out, mean, var = _BNCore.apply(x, gamma, beta, running_mean, eps)
+    else:
+        xf = x.to(_stat_dtype(x.dtype))
+        mean = torch.mean(xf, dim=tuple(axis))
+        var = torch.var(xf, dim=tuple(axis), correction=0)
+        out = batchnorm.fn(x, mean, var, gamma, beta, eps=eps)
+    n = x.numel() // mean.numel()
+    unbiased = var * n / max(n - 1, 1)
+    rdt = running_mean.dtype
+    new_mean = (momentum * running_mean
+                + (1.0 - momentum) * mean.detach().to(rdt))
+    new_var = (momentum * running_var
+               + (1.0 - momentum) * unbiased.detach().to(rdt))
+    return out, new_mean, new_var
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
 
 
 @op("dot_product_attention")

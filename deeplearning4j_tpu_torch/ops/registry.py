@@ -74,6 +74,10 @@ class OpDescriptor:
         if usable(*args, **kwargs):
             _note_dispatch(self.name, platform, "usable")
             return impl
+        if mode == "kernel":
+            raise RuntimeError(
+                f"op {self.name}: helper_mode='kernel' but the {platform!r} "
+                f"kernel's usable gate refuses these arguments")
         _note_dispatch(self.name, "generic", "not_usable")
         return self.fn
 

@@ -7,10 +7,14 @@ on the card with::
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
 ``chip_smoke.py`` holds each kernel against its plain version at the
-serving shapes; these cover the edges: ragged lengths, one-row queries,
-non-causal and rectangular attention, head dims of every instantiation
-(padded and exact), other page sizes, empty (inactive) decode slots, and
-the three dtypes.
+main path's shapes; these cover the edges. Attention: ragged lengths,
+one-row queries, non-causal and rectangular attention, head dims of every
+instantiation (padded and exact), other page sizes, empty (inactive)
+decode slots, and the three dtypes. Training: every updater kind on
+ragged, aligned and unaligned leaves in the three dtypes; the convbn
+kernel's gate edges, prologue/relu on and off, its backward against
+autograd of the plain chain, and a small ResNet-50 in both
+configurations.
 
 Tolerances, elementwise ``|kernel - plain| <= ATOL + RTOL * |plain|``:
 float32 1e-4 absolute (same math, another summation order; ~1e-6 seen);
@@ -27,10 +31,15 @@ import pytest
 
 import torch
 
+from deeplearning4j_tpu_torch.datasets import synthetic_image_batch
 from deeplearning4j_tpu_torch.environment import environment
+from deeplearning4j_tpu_torch.models import ResNet50
 from deeplearning4j_tpu_torch.models.gpt import (
     GptConfig, GptModel, init_gpt_params, reference_generate)
+from deeplearning4j_tpu_torch.nn import updater as U
 from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+from deeplearning4j_tpu_torch.ops import cuda_convbn as cc
+from deeplearning4j_tpu_torch.ops import cuda_updater as cu
 from deeplearning4j_tpu_torch.ops import exec_op
 from deeplearning4j_tpu_torch.serving import GenerativeEngine
 
@@ -188,3 +197,202 @@ def test_engine_greedy_matches_the_oracle_on_cuda(cuda, hidden, heads):
                 r.tokens, reference_generate(model.params, cfg, p, 6))
     finally:
         env.helper_mode = old
+
+
+# ---------------------------------------------------------------------------
+# training kernels: fused updater step, fused BN-apply/matmul/BN-stats
+# ---------------------------------------------------------------------------
+#
+# Updater: the kernel repeats the plain version's float32 operations in the
+# same order, each rounded once, with the lr/step scalars computed by the
+# same torch ops on the host, so every kind agrees BIT FOR BIT in float32,
+# and therefore in bfloat16/float16 too (both compute in float32 and round
+# each output once) — except Nadam, whose divisions by a host scalar torch
+# may carry out as a multiplication by the reciprocal: 2 ulp there.
+# bn_matmul_stats: cuda_convbn.kernel_tolerance (one bf16 unit on z; the
+# derived bound for statistics taken from the float32 accumulator).
+
+UPDATER_KINDS = sorted(U.UPDATERS)
+
+
+def _leaf_set(kind, n, dtype, dev, seed, offset=0):
+    g = torch.Generator().manual_seed(seed)
+    upd = U.UPDATERS[kind]()
+    keys = sorted(upd.init_state(torch.zeros(1)))
+
+    def draw(scale, positive=False):
+        t = torch.randn(n + offset, generator=g) * scale
+        return (t.abs() if positive else t).to(dev, dtype)[offset:]
+
+    return upd, draw(1.0), draw(0.1), [draw(0.1, True) for _ in keys]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,offset", [(1, 0), (37, 0), (4099, 0),
+                                      (65536, 0), (1000, 1)])
+@pytest.mark.parametrize("kind", UPDATER_KINDS)
+def test_fused_updater_matches_plain(cuda, kind, n, offset, dtype):
+    """Ragged, aligned and unaligned (a view one element in: no 16-byte
+    vectors) leaves."""
+    upd, p, gr, st = _leaf_set(kind, n, dtype, cuda, n + offset, offset)
+    lr = upd.lr(0) * 3.0
+    before = cu.fused_updater.launches
+    out = cu.fused_updater(p, gr, lr, 5, *st, kind=kind, **upd.fused_hyper())
+    ref = cu.fused_updater_step.fn(p, gr, lr, 5, *st, kind=kind,
+                                   **upd.fused_hyper())
+    torch.cuda.synchronize()
+    assert cu.fused_updater.launches == before + 1
+    assert len(out) == len(ref) == 1 + len(st)
+    for a, b in zip(out, ref):
+        assert a.dtype == dtype and a.shape == (n,)
+        if kind == "Nadam":
+            np.testing.assert_array_max_ulp(a.float().cpu().numpy(),
+                                            b.float().cpu().numpy(), maxulp=2)
+        else:
+            assert torch.equal(a, b), (a - b).abs().max().item()
+
+
+def test_fused_updater_routes_and_refuses(cuda):
+    upd = U.Nesterovs()
+    p = torch.randn(300, device=cuda)
+    st = upd.init_state(p)
+    env = environment()
+    old = env.helper_mode
+    try:
+        for mode, launched in (("generic", 0), ("auto", 1), ("kernel", 1)):
+            env.helper_mode = mode
+            before = cu.fused_updater.launches
+            upd.apply_fused(p, p, st, upd.lr(0), 0)
+            assert cu.fused_updater.launches - before == launched
+    finally:
+        env.helper_mode = old
+    with pytest.raises(ValueError, match="dtype"):
+        cu.fused_updater(p.double(), p.double(), 0.1, 0, p.double(),
+                         kind="Nesterovs", momentum=0.9)
+    assert not cu.fused_updater_usable(p, p[:10], 0.1, 0, st["v"],
+                                       kind="Nesterovs", momentum=0.9)
+
+
+def _convbn_inputs(m, k, n, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+    sc = (torch.rand(k, generator=g) + 0.5).to(dev)
+    sh = (0.1 * torch.randn(k, generator=g)).to(dev)
+    w = (torch.randn(k, n, generator=g) * k ** -0.5).to(dev, torch.bfloat16)
+    ss = (0.1 * torch.randn(n, generator=g)).to(dev)
+    return x, sc, sh, w, ss
+
+
+def _check_convbn(out, ref, tol):
+    z, mean, var = out
+    zr, mr, vr = ref
+    z_atol, z_rtol, m_tol, v_tol = tol
+    zerr = (z.float() - zr.float()).abs()
+    assert (zerr <= z_atol + z_rtol * zr.float().abs()).all(), \
+        zerr.max().item()
+    assert ((mean - mr).abs() <= m_tol).all()
+    assert ((var - vr).abs() <= v_tol).all()
+
+
+@pytest.mark.parametrize("prologue,relu", [(True, True), (True, False),
+                                           (False, False), (False, True)])
+@pytest.mark.parametrize("m,k,n", [(128, 64, 64), (256, 192, 128),
+                                   (1024, 64, 256), (6272, 2048, 512)])
+def test_bn_matmul_stats_matches_plain(cuda, m, k, n, prologue, relu):
+    args = _convbn_inputs(m, k, n, cuda, m + k + n)
+    kw = dict(relu=relu, fuse_prologue=prologue)
+    assert cc.bn_matmul_stats_usable(*args)
+    before = cc.bn_matmul_stats.launches
+    out = cc.bn_matmul_stats(*args, **kw)
+    ref = cc.reference_bn_matmul_stats(*args, **kw)
+    torch.cuda.synchronize()
+    assert cc.bn_matmul_stats.launches == before + 1
+    assert out[0].dtype == torch.bfloat16 and out[0].shape == (m, n)
+    _check_convbn(out, ref, cc.kernel_tolerance(*args, ref[0], **kw))
+
+
+@pytest.mark.parametrize("m,k,n", [(192, 64, 64), (128, 96, 64),
+                                   (128, 64, 96), (100, 64, 64)])
+def test_bn_matmul_stats_gate_edges(cuda, m, k, n):
+    """Shapes off the (128, 64, 64) grid: the gate refuses, auto takes the
+    plain version, kernel mode raises, the wrapper itself raises."""
+    args = _convbn_inputs(m, k, n, cuda, 1)
+    assert not cc.bn_matmul_stats_usable(*args)
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    assert not cc.bn_matmul_stats_usable(*f32)  # float32 x: refused too
+    env = environment()
+    old = env.helper_mode
+    try:
+        env.helper_mode = "auto"
+        before = cc.bn_matmul_stats.launches
+        exec_op("fused_bn_matmul_stats", *args)
+        assert cc.bn_matmul_stats.launches == before
+        env.helper_mode = "kernel"
+        with pytest.raises(RuntimeError, match="usable gate"):
+            exec_op("fused_bn_matmul_stats", *args)
+    finally:
+        env.helper_mode = old
+    with pytest.raises(ValueError, match="multiple"):
+        cc.bn_matmul_stats(*args)
+
+
+@pytest.mark.parametrize("prologue,relu", [(True, True), (False, False)])
+def test_fused_matmul_bn_backward_agrees_with_the_plain_chain(cuda, prologue,
+                                                              relu):
+    """The hand backward (kernel forward) against autograd through the
+    plain chain written out in float32 torch ops. The hand backward, as
+    the JAX package's ``_fused_bwd``, rounds the folded cotangent dz to
+    bf16 (2^-8 per term) before its products and column sums, whose terms
+    partly cancel: each gradient is held to 2^-6 of its own largest
+    magnitude (a 4× margin), plus 1e-3."""
+    m, k, n = 512, 128, 64
+    x, sc, sh, w, ss = _convbn_inputs(m, k, n, cuda, 9)
+    g = torch.Generator().manual_seed(10)
+    dz = torch.randn(m, n, generator=g).to(cuda, torch.bfloat16)
+    dmean = torch.randn(n, generator=g).to(cuda)
+    dvar = torch.randn(n, generator=g).to(cuda)
+
+    def leaves():
+        return [t.clone().requires_grad_(True) for t in (x, sc, sh, w)]
+
+    a = leaves()
+    before = cc.bn_matmul_stats.launches
+    out = cc.fused_matmul_bn(*a, ss, prologue, relu)
+    assert cc.bn_matmul_stats.launches == before + 1
+    torch.autograd.backward(out, (dz, dmean, dvar))
+    b = leaves()
+    y = b[0].float()
+    if prologue:
+        y = y * b[1] + b[2]
+        if relu:
+            y = torch.clamp_min(y, 0.0)
+    z = (y.to(torch.bfloat16).float() @ b[3].float())
+    c = z - ss
+    m1 = c.mean(0)
+    var = torch.clamp_min((c * c).mean(0) - m1 * m1, 0.0)
+    torch.autograd.backward((z, m1 + ss, var), (dz.float(), dmean, dvar))
+    for name, ta, tb in zip(("x", "scale", "shift", "w"), a, b):
+        if not prologue and name in ("scale", "shift"):
+            continue
+        ga, gb = ta.grad.float(), tb.grad.float()
+        err = (ga - gb).abs().max().item()
+        assert err <= 1e-3 + 2.0 ** -6 * gb.abs().max().item(), (name, err)
+
+
+def test_resnet50_trains_through_both_kernels_on_cuda(cuda):
+    """A small ResNet-50 in configuration A (float32) and B (fused blocks,
+    mixed): A launches the updater once per leaf per step; B launches the
+    convbn kernel on every gated 1×1 conv; losses stay finite."""
+    x, lab = synthetic_image_batch(8, 64, 64, 3, 10, seed=3)
+    y = np.eye(10, dtype=np.float32)[lab]
+    for fused, dtype in ((False, "float32"), (True, "mixed")):
+        net = ResNet50(num_classes=10, input_shape=(64, 64, 3),
+                       fused_blocks=fused, dtype=dtype, device=cuda).init()
+        u0, c0 = cu.fused_updater.launches, cc.bn_matmul_stats.launches
+        net.fit(x, y, batch_size=8)
+        net.fit(x, y, batch_size=8)
+        torch.cuda.synchronize()
+        assert math.isfinite(net.score())
+        assert cu.fused_updater.launches - u0 == 2 * 161
+        if fused:  # stages 1-3 pass the gate (M = 8·16·16, 8·8·8, 8·4·4)
+            assert cc.bn_matmul_stats.launches - c0 >= 2 * 2 * 13

@@ -26,7 +26,8 @@ from deeplearning4j_tpu_torch.serving import (
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CFG = GptConfig.tiny()
 MODEL = GptModel(CFG, params=init_gpt_params(
-    CFG, seed=1, std=2.0 / math.sqrt(CFG.hidden)), device="cpu")
+    CFG, seed=1, std=2.0 / math.sqrt(CFG.hidden), device="cpu"),
+    device="cpu")
 PROMPTS = [np.array([3, 5, 7, 9], np.int32),
            np.array([11, 2], np.int32),
            np.array([42, 43, 44, 45, 46, 47], np.int32),
@@ -298,6 +299,13 @@ class TestEngine:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="is_available"):
             GenerativeEngine(MODEL)
+
+    def test_init_gpt_params_defaults_to_cuda(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="is_available"):
+            init_gpt_params(CFG, seed=0)
+        params = init_gpt_params(CFG, seed=0, device="cpu")
+        assert params["embeddings"]["word"].device.type == "cpu"
 
     def test_model_device_must_match(self):
         with pytest.raises(ValueError, match="live on"):
