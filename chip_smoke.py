@@ -13,7 +13,10 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    attention in float32 and bfloat16 at the serving shapes; the fused
    updater (Nesterovs) in float32 and bfloat16 at the largest ResNet-50
    leaf and a 3×3×256×256 conv leaf; the BN/matmul/BN-stats kernel in
-   bfloat16 at a stage-1 and a stage-3 1×1 conv of batch 128. With
+   bfloat16 at a stage-1 and a stage-3 1×1 conv of batch 128; the flash
+   forward with dropout 0.1 and the dq and dk/dv backward kernels in
+   float32 and bfloat16 at BERT's two attention shapes (A: BH 384, T 128,
+   ragged key mask; B: BH 96, T 512). With
    kernel / plain / library times (device time: the calls replayed from a
    CUDA graph between CUDA events, so no host work sits between launches)
    and the least time the card could take (``bound_ms``).
@@ -38,6 +41,19 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    generic run is repeated with its input moved by one bfloat16 unit,
    and the kernel run's parameters after 3 steps must sit within 3× that
    run's distance.
+7. ``bert_train`` — BERT-base at full width (``BertConfig.base()``,
+   110.1M parameters in 206 leaves, random weights from the port's seed),
+   float32, ``fit_classifier`` on batch 32 × seq 128 with ragged rows,
+   Adam lr 2e-5, attention and FFN dropout 0.1: 3 steps through the
+   kernels (launch counts set to 0 just before; 12 flash forwards, 12 dq,
+   12 dk/dv and 206 updater launches a step), then the same steps with
+   the plain flash versions installed as the ``cuda`` helper (same
+   seeds, same dropped entries), and at dropout 0 against
+   ``helper_mode="generic"``; losses step by step and parameters after
+   3 steps against a yardstick run from parameters moved by one unit in
+   the last place; ``predict`` launches 12 forwards.
+8. ``bert_mlm`` — the same for ``BertModel(..., dtype=bfloat16)``,
+   ``fit_mlm`` on batch 8 × seq 512 with 15% of positions masked.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -46,6 +62,8 @@ package beside this script) it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -76,6 +94,27 @@ UPDATER_SHAPES = {"fc.W": (2048, 1000), "conv3x3": (3, 3, 256, 256)}
 # and stage-3 c1 (M = 128·14·14, no prologue), as FusedBottleneck calls it
 CONVBN_SHAPES = {"stage1_c3": (401408, 64, 256, True),
                  "stage3_c1": (25088, 1024, 256, False)}
+# BERT-base attention at the two BERT phases' shapes (BH = batch·12):
+# A — fine-tune, batch 32 × seq 128, ragged rows (key mask); B — MLM,
+# batch 8 × seq 512, full rows. Dropout 0.1 (BertConfig's default).
+BERT_ATTN_SHAPES = {"A": dict(batch=32, heads=12, t=128, d=64, min_len=16),
+                    "B": dict(batch=8, heads=12, t=512, d=64, min_len=None)}
+ATTN_DROPOUT = 0.1
+# the backward: sums of up to T products in float32 in another order:
+# 1e-4 absolute plus 1e-5 relative; bfloat16 one unit in the last place
+BWD_ATOL = 1e-4
+BWD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+BERT_STEPS = 3
+# BERT phases: the kernel run against a reference run on the same data,
+# seeds and starting state. Each step's loss may differ by LOSS_RTOL of
+# its value or by 3× the reference run's own change when its starting
+# parameters move by one unit in the last place (the yardstick), and the
+# parameters after 3 steps by 3× the yardstick's distance (at least one
+# unit in the last place of the largest parameter). Adam's first step
+# moves an element by ~±lr whatever its gradient's size, so tiny
+# gradients of opposite sign move parameters by ~2·lr in either run pair.
+BERT_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+BERT_YARDSTICK = 3.0
 IMAGE = (224, 224, 3)
 CLASSES = 1000
 TRAIN_STEPS = 3
@@ -240,6 +279,153 @@ def paged_case(dtype, dev):
                 "library_ms": None, "bound_ms": bms, "bound_by": by}
 
 
+def _attn_inputs(shape, dtype, dev, seed):
+    """q, k, v, dO (BH, T, D) and the key mask of a BERT attention shape
+    (ragged rows of min_len…T for A, None for B's full rows)."""
+    import torch
+
+    bh, t, d = shape["batch"] * shape["heads"], shape["t"], shape["d"]
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (bh, t, d), dtype=np.float32)).to(dev, dtype) for _ in range(4))
+    mask_np = None
+    if shape["min_len"] is not None:
+        lens = rng.integers(shape["min_len"], t + 1, shape["batch"])
+        rows = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+        mask_np = np.repeat(rows, shape["heads"], axis=0)  # batch-major
+    mask = None if mask_np is None else torch.from_numpy(mask_np).to(dev)
+    pairs = float(bh * t * t if mask_np is None else t * mask_np.sum())
+    return q, k, v, do, mask, mask_np, pairs
+
+
+def _sdpa_args(q, k, v, mask, heads):
+    """(B, H, T, D) views and the broadcast boolean key mask for SDPA."""
+    bh, t, d = q.shape
+    four = [x.reshape(bh // heads, heads, t, d) for x in (q, k, v)]
+    m4 = None if mask is None else (mask.reshape(bh // heads, heads, t)[
+        :, :1, None, :] > 0.5)
+    return four, m4
+
+
+def flash_dropout_case(dtype, dev, label):
+    """Flash forward with in-kernel dropout 0.1 at a BERT shape, against
+    its plain version with the same seed (same keep mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+
+    shape = BERT_ATTN_SHAPES[label]
+    q, k, v, _, mask, _, pairs = _attn_inputs(shape, dtype, dev, 11)
+    seed = torch.tensor([20260917], dtype=torch.int32, device=dev)
+    kw = dict(dropout_rate=ATTN_DROPOUT)
+    out, lse = ca.flash_attention(q, k, v, mask, seed, **kw)
+    ref_out, ref_lse = ca.flash_attention_reference(q, k, v, mask, seed,
+                                                    **kw)
+    torch.cuda.synchronize()
+    name = str(dtype).replace("torch.", "")
+    err, share = compare(out, ref_out, name)
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok = (share <= 1.0 and err_lse <= TOL_LSE
+          and bool(torch.isfinite(out.float()).all()))
+    (q4, k4, v4), m4 = _sdpa_args(q, k, v, mask, shape["heads"])
+    ms = time_ms(lambda: ca.flash_attention(q, k, v, mask, seed, **kw))
+    plain_ms = time_ms(lambda: ca.flash_attention_reference(
+        q, k, v, mask, seed, **kw))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=m4, dropout_p=ATTN_DROPOUT))
+    bh, t, d = q.shape
+    es = q.element_size()
+    nbytes = 4 * bh * t * d * es + bh * t * 4 + (0 if mask is None
+                                                 else bh * t * 4)
+    bms, by = bound(nbytes, 4.0 * d * pairs, name)
+    return ok, {"kernel": "flash_attn_fwd", "dtype": name, "bert": label,
+                "shape": [bh, t, d], "masked": mask is not None,
+                "dropout": ATTN_DROPOUT, "max_abs_err": err,
+                "tol": tol_text(name), "err_over_tol": share,
+                "lse_max_abs_err": err_lse, "lse_tol": TOL_LSE, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_note": "SDPA forward with dropout_p 0.1 (its own "
+                                "RNG), timed only",
+                "bound_ms": bms, "bound_by": by}
+
+
+def sdpa_backward_ms(q4, k4, v4, m4, do4) -> float:
+    """SDPA's backward alone, no dropout: the device time of forward plus
+    backward minus that of the forward, each captured in a CUDA graph by
+    :func:`time_ms` (autograd's backward runs on the capture stream, as
+    in whole-network capture)."""
+    import torch
+    import torch.nn.functional as F
+
+    xs = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*xs, attn_mask=m4)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), xs, do4)
+
+    return time_ms(fwd_bwd) - time_ms(fwd)
+
+
+def flash_backward_case(dtype, dev, label):
+    """dq and dk/dv kernels at a BERT shape with dropout 0.1, against
+    their plain versions (same seed, lse and Δ). Returns two entries."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+
+    shape = BERT_ATTN_SHAPES[label]
+    q, k, v, do, mask, _, pairs = _attn_inputs(shape, dtype, dev, 12)
+    seed = torch.tensor([-5], dtype=torch.int32, device=dev)
+    bh, t, d = q.shape
+    kw = dict(scale=1.0 / math.sqrt(d), dropout_rate=ATTN_DROPOUT)
+    out, lse = ca.flash_attention_reference(q, k, v, mask, seed, **kw)
+    delta = ca.attention_delta(do, out)
+    args = (q, k, v, mask, seed, do, lse, delta)
+    got = {"flash_attn_dq": (ca.flash_attention_dq(*args, **kw),),
+           "flash_attn_dkv": ca.flash_attention_dkv(*args, **kw)}
+    ref = {"flash_attn_dq": (ca.flash_attention_dq_reference(*args, **kw),),
+           "flash_attn_dkv": ca.flash_attention_dkv_reference(*args, **kw)}
+    torch.cuda.synchronize()
+    name = str(dtype).replace("torch.", "")
+    (q4, k4, v4), m4 = _sdpa_args(q, k, v, mask, shape["heads"])
+    lib_ms = sdpa_backward_ms(q4, k4, v4, m4, do.reshape(q4.shape))
+    es = q.element_size()
+    side = 2 * bh * t * 4 + (0 if mask is None else bh * t * 4)
+    timed = {"flash_attn_dq": (ca.flash_attention_dq,
+                               ca.flash_attention_dq_reference, 5, 6.0),
+             "flash_attn_dkv": (ca.flash_attention_dkv,
+                                ca.flash_attention_dkv_reference, 6, 8.0)}
+    ok, entries = True, []
+    for kernel, (fn, plain, tensors, ops_per_pair) in timed.items():
+        errs, shares = [], []
+        for g, r in zip(got[kernel], ref[kernel]):
+            r = r.float()
+            e = (g.float() - r).abs()
+            errs.append(e.max().item())
+            shares.append((e / (BWD_ATOL + BWD_RTOL[name] * r.abs()))
+                          .max().item())
+            ok = ok and bool(torch.isfinite(g.float()).all())
+        ok = ok and max(shares) <= 1.0
+        bms, by = bound(tensors * bh * t * d * es + side,
+                        ops_per_pair * d * pairs, name)
+        entries.append({
+            "kernel": kernel, "dtype": name, "bert": label,
+            "shape": [bh, t, d], "masked": mask is not None,
+            "dropout": ATTN_DROPOUT, "max_abs_err": max(errs),
+            "tol": f"{BWD_ATOL:g} + {BWD_RTOL[name]:g}*|plain|",
+            "err_over_tol": max(shares),
+            "ms": time_ms(lambda: fn(*args, **kw)),
+            "plain_ms": time_ms(lambda: plain(*args, **kw)),
+            "library_ms": lib_ms,
+            "library_note": "SDPA backward (dq, dk and dv together), no "
+                            "dropout: its RNG differs",
+            "bound_ms": bms, "bound_by": by})
+    return ok, entries
+
+
 def updater_case(dtype, dev):
     """Nesterovs (ResNet-50's updater) on the largest leaf and a conv leaf;
     the kernel must equal the plain version bit for bit."""
@@ -338,14 +524,17 @@ def convbn_case(dev):
 
 
 def _clone_tree(tree):
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
     return tree.clone()
 
 
 def _max_diff(a, b):
-    if isinstance(a, dict):
-        return max([_max_diff(a[k], b[k]) for k in a], default=0.0)
+    if isinstance(a, (dict, list)):
+        keys = a.keys() if isinstance(a, dict) else range(len(a))
+        return max([_max_diff(a[k], b[k]) for k in keys], default=0.0)
     return (a.float() - b.float()).abs().max().item()
 
 
@@ -464,6 +653,186 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
     return problems, line, launches
 
 
+def _nudged(tree, rng):
+    """``tree`` with every parameter moved by one unit in the last place
+    of its dtype, the sign drawn from ``rng`` (numpy)."""
+    import torch
+
+    def move(t):
+        f = t.float()
+        ulp = torch.finfo(t.dtype).eps * torch.exp2(torch.floor(torch.log2(
+            f.abs().clamp_min(torch.finfo(t.dtype).tiny))))
+        sign = torch.from_numpy(np.sign(rng.standard_normal(
+            tuple(t.shape))).astype(np.float32)).to(t.device)
+        return (f + sign * ulp).to(t.dtype)
+
+    if isinstance(tree, dict):
+        return {k: _nudged(v, rng) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_nudged(v, rng) for v in tree]
+    return move(tree)
+
+
+def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
+    """BERT-base at full width through ``BertModel(...)`` → ``fit_*`` →
+    ``predict``, 3 steps per run from one starting state on the same
+    batches:
+
+    * the kernel run at dropout 0.1 — the main path, every launch count
+      set to 0 just before and read just after;
+    * the reference at dropout 0.1: the same model with attention run by
+      the plain flash versions on the card (a ``cuda`` helper installed
+      through the registry), drawing the same seeds, so both drop the
+      same attention probabilities and the same FFN activations; and
+      that reference again from parameters moved by one unit in the last
+      place (its yardstick);
+    * at dropout 0: the kernels against ``helper_mode="generic"``, with
+      the generic run's own yardstick.
+
+    Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import synthetic_bert_batch
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.models.bert import BertConfig, BertModel
+    from deeplearning4j_tpu_torch.models._tree import leaf_paths
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.ops.registry import registry
+
+    env = environment()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = BertConfig.base()
+    model = BertModel(cfg, seed=0, dtype=getattr(torch, dtype), device=dev)
+    n_leaves = len(list(leaf_paths(model.params)))
+    start = (_clone_tree(model.params), _clone_tree(model.opt_state),
+             [g.get_state() for g in model.rng])
+    iterator_task = ("seq_classification" if task == "classifier"
+                     else "unsupervised")
+    data = [synthetic_bert_batch(batch, seq, cfg.vocab_size,
+                                 task=iterator_task, seed=300 + i,
+                                 min_len=min_len)
+            for i in range(BERT_STEPS)]
+    fit = model.fit_classifier if task == "classifier" else model.fit_mlm
+    desc = registry().get("dot_product_attention")
+    kernel_helper = desc.platform_impls["cuda"]
+
+    def run(mode, dropout, *, plain=False, nudge=False, steps=BERT_STEPS):
+        model.cfg = dataclasses.replace(cfg, dropout=dropout)
+        model.params = (_nudged(start[0], np.random.default_rng(8)) if nudge
+                        else _clone_tree(start[0]))
+        model.opt_state = _clone_tree(start[1])
+        for g, st in zip(model.rng, start[2]):
+            g.set_state(st)
+        model.step = 0
+        env.helper_mode = mode
+        if plain:
+            desc.platform_impls["cuda"] = functools.partial(ca.flash_dpa,
+                                                            plain=True)
+        losses, times = [], []
+        try:
+            for b in data[:steps]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses += fit([b])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            desc.platform_impls["cuda"] = kernel_helper
+            env.helper_mode = "auto"
+        return losses, times, _clone_tree(model.params)
+
+    run("auto", ATTN_DROPOUT, steps=1)   # warm-up: cuBLAS, allocator
+    run("generic", 0.0, steps=1)
+    ca.reset_launch_counts()
+    cu.fused_updater.launches = 0        # the main path's run starts here
+    kernel, k_times, k_params = run("auto", ATTN_DROPOUT)
+    launches = dict(ca.launch_counts(),
+                    fused_updater=cu.fused_updater.launches)  # ... ends here
+    ref, r_times, r_params = run("auto", ATTN_DROPOUT, plain=True)
+    yard, _, y_params = run("auto", ATTN_DROPOUT, plain=True, nudge=True)
+    kernel0, k0_times, k0_params = run("auto", 0.0)
+    generic0, g0_times, g0_params = run("generic", 0.0)
+    yard0, _, y0_params = run("generic", 0.0, nudge=True)
+
+    # predict: no dropout, forward kernels only
+    model.params = k_params
+    pb = data[0]
+    ca.reset_launch_counts()
+    logits = model.predict(pb["ids"], pb["segments"], pb["mask"])
+    predict_launches = ca.launch_counts()
+    model.cfg = cfg
+
+    problems = []
+    want = {"flash_attn_fwd": cfg.layers * BERT_STEPS,
+            "flash_attn_dq": cfg.layers * BERT_STEPS,
+            "flash_attn_dkv": cfg.layers * BERT_STEPS,
+            "fused_updater": n_leaves * BERT_STEPS}
+    for name, n in want.items():
+        if launches[name] != n:
+            problems.append(f"{name} launches {launches[name]} != {n}")
+    if (predict_launches["flash_attn_fwd"] != cfg.layers
+            or predict_launches["flash_attn_dq"]
+            or predict_launches["flash_attn_dkv"]):
+        problems.append(f"predict launches {predict_launches}")
+    if logits.shape != (batch, cfg.num_labels) or not np.all(
+            np.isfinite(logits)):
+        problems.append(f"predict logits {logits.shape} not finite")
+    all_losses = kernel + ref + yard + kernel0 + generic0 + yard0
+    if not all(math.isfinite(v) for v in all_losses):
+        problems.append("non-finite loss")
+    big = max(t.float().abs().max().item() for _, t in leaf_paths(start[0]))
+    p_floor = torch.finfo(getattr(torch, dtype)).eps * big
+    checks = {}
+    for label, got, want_l, yard_l, gp, wp, yp in (
+            ("dropout_0.1_kernel_vs_plain_flash", kernel, ref, yard,
+             k_params, r_params, y_params),
+            ("dropout_0_kernel_vs_generic", kernel0, generic0, yard0,
+             k0_params, g0_params, y0_params)):
+        loss_lim = [max(BERT_LOSS_RTOL[dtype] * abs(w),
+                        BERT_YARDSTICK * abs(y - w))
+                    for w, y in zip(want_l, yard_l)]
+        loss_diff = [abs(a - b) for a, b in zip(got, want_l)]
+        p_diff = _max_diff(gp, wp)
+        p_lim = max(BERT_YARDSTICK * _max_diff(yp, wp), p_floor)
+        checks[label] = {"losses": got, "reference_losses": want_l,
+                         "yardstick_losses": yard_l,
+                         "loss_abs_diff": loss_diff, "loss_limit": loss_lim,
+                         "param_max_abs_diff": p_diff, "param_limit": p_lim}
+        if any(d > lim for d, lim in zip(loss_diff, loss_lim)):
+            problems.append(f"{label}: losses {got} vs {want_l} "
+                            f"(limits {loss_lim})")
+        if p_diff > p_lim:
+            problems.append(f"{label}: params {p_diff} > {p_lim}")
+    tokens = batch * seq
+    real = int(sum(b["mask"].sum() for b in data)) / len(data)
+    p50 = float(np.percentile(k_times, 50))
+    line = {"phase": phase, "card": smi,
+            "model": f"BertModel(BertConfig.base(), dtype={dtype})",
+            "task": task, "batch": batch, "seq": seq,
+            "min_len": min_len, "real_tokens_per_batch": real,
+            "steps": BERT_STEPS, "leaves": n_leaves,
+            "params": model.num_params(), "dropout": ATTN_DROPOUT,
+            "launches": launches, "predict_launches": predict_launches,
+            "checks": checks, "tol": (
+                f"loss max({BERT_LOSS_RTOL[dtype]:g} relative, "
+                f"{BERT_YARDSTICK:g} x yardstick); params "
+                f"{BERT_YARDSTICK:g} x yardstick"),
+            "smoke_reading": f"{BERT_STEPS} steps, no spread",
+            "step_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
+            "real_tokens_per_s": real / p50,
+            "plain_flash_step_p50_ms": float(np.percentile(r_times, 50))
+            * 1e3,
+            "dropout0_step_p50_ms": float(np.percentile(k0_times, 50)) * 1e3,
+            "generic_dropout0_step_p50_ms": float(np.percentile(g0_times,
+                                                                50)) * 1e3,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "problems": problems}
+    del model
+    torch.cuda.empty_cache()
+    return problems, line, launches
+
+
 def serve(engine_cls, model, prompts, **engine_kw):
     """Serve ``prompts`` through start()/submit()/stop(); returns the
     results and the wall seconds from first submit to last result."""
@@ -562,6 +931,16 @@ def main() -> int:
     entries += conv_entries
     if not ok:
         failed.append("bn_matmul_stats[bfloat16]")
+    for label in BERT_ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ok, entry = flash_dropout_case(dtype, dev, label)
+            entries.append(entry)
+            if not ok:
+                failed.append(f"flash_attn_fwd[dropout, {label}, {dtype}]")
+            ok, bwd_entries = flash_backward_case(dtype, dev, label)
+            entries += bwd_entries
+            if not ok:
+                failed.append(f"flash_attn_dq/dkv[{label}, {dtype}]")
     emit({"phase": "kernels", "card": smi, "entries": entries})
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
@@ -653,52 +1032,54 @@ def main() -> int:
         if problems:
             raise SystemExit(f"{phase} phase failed: {problems}")
 
+    # ------------------------------------------------- bert_train, bert_mlm
+    for phase, kw in (("bert_train", dict(dtype="float32", batch=32,
+                                          seq=128, task="classifier",
+                                          min_len=16)),
+                      ("bert_mlm", dict(dtype="bfloat16", batch=8, seq=512,
+                                        task="mlm", min_len=None))):
+        problems, line, train_launches[phase] = bert_phase(
+            phase, dev, smi, **kw)
+        emit(line)
+        if problems:
+            raise SystemExit(f"{phase} phase failed: {problems}")
+
     # ---------------------------------------------- contract lines, last
-    where = {"flash_attn_fwd": (
-                 "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
-                 "deeplearning4j_tpu/ops/pallas_attention.py:194"),
-             "paged_decode": (
-                 "deeplearning4j_tpu_torch/csrc/paged_decode.cu",
-                 "deeplearning4j_tpu/ops/pallas_attention.py:683")}
-    summary = []
-    for name, (source, replaces) in where.items():
-        f32 = next(e for e in entries
-                   if e["kernel"] == name and e["dtype"] == "float32")
-        bf16 = next(e for e in entries
-                    if e["kernel"] == name and e["dtype"] == "bfloat16")
-        summary.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-            "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-            "dtype": "float32",
-            "bfloat16": {k: bf16[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}})
-    upd = [e for e in entries if e["kernel"] == "fused_updater"]
-    conv = [e for e in entries if e["kernel"] == "bn_matmul_stats"]
+    # launches of each kernel on each main path that runs it
+    by_path = {"flash_attn_fwd": {"serve": launches["flash_attn_fwd"]},
+               "paged_decode": {"serve": launches["paged_decode"]},
+               "fused_updater": {}, "bn_matmul_stats": {},
+               "flash_attn_dq": {}, "flash_attn_dkv": {}}
+    for path, counts in train_launches.items():
+        for name, n in counts.items():
+            if name in by_path and n:
+                by_path[name][path] = n
+    sources = {
+        "flash_attn_fwd": ("flash_attn_fwd.cu", "pallas_attention.py:194"),
+        "paged_decode": ("paged_decode.cu", "pallas_attention.py:683"),
+        "fused_updater": ("fused_updater.cu", "pallas_updater.py:84"),
+        "bn_matmul_stats": ("bn_matmul_stats.cu", "pallas_convbn.py:49"),
+        "flash_attn_dq": ("flash_attn_bwd.cu", "pallas_attention.py:244"),
+        "flash_attn_dkv": ("flash_attn_bwd.cu", "pallas_attention.py:282")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    for name, source, replaces, launches_on, rows in (
-            ("fused_updater",
-             "deeplearning4j_tpu_torch/csrc/fused_updater.cu",
-             "deeplearning4j_tpu/ops/pallas_updater.py:84",
-             "train", upd),
-            ("bn_matmul_stats",
-             "deeplearning4j_tpu_torch/csrc/bn_matmul_stats.cu",
-             "deeplearning4j_tpu/ops/pallas_convbn.py:49",
-             "train_fused", conv)):
+    summary = []
+    for name, (source, replaces) in sources.items():
+        rows = [e for e in entries if e["kernel"] == name]
         first = rows[0]
         summary.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": train_launches[launches_on][name],
-            "launches_path": launches_on,
+            "name": name, "route": "cuda",
+            "source": f"deeplearning4j_tpu_torch/csrc/{source}",
+            "replaces": f"deeplearning4j_tpu/ops/{replaces}",
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             **{k: first[k] for k in keys},
             "dtype": first["dtype"], "shape": first["shape"],
             "other_shapes": [dict({k: r[k] for k in keys},
-                                  dtype=r["dtype"], shape=r["shape"])
+                                  dtype=r["dtype"], shape=r["shape"],
+                                  **{x: r[x] for x in ("bert", "dropout",
+                                                       "leaf", "conv")
+                                     if x in r})
                              for r in rows[1:]]})
     emit({"kernels": summary})
     print(smi, flush=True)

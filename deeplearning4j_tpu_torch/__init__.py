@@ -11,8 +11,11 @@ cache, scheduler, sampler and ``serving.GenerativeEngine`` — over causal
 flash prefill and paged decode (``ops.cuda_attention``); and training
 through ``nn.ComputationGraph`` — ``models.ResNet50(...).init().fit`` —
 over the fused updater step (``ops.cuda_updater``) and the fused
-BN-apply/1×1-matmul/BN-stats kernel (``ops.cuda_convbn``). Entry points
-run on ``"cuda"`` unless the caller passes ``device="cpu"``.
+BN-apply/1×1-matmul/BN-stats kernel (``ops.cuda_convbn``); and BERT
+training — ``models.BertModel(...).fit_classifier`` / ``fit_mlm`` — over
+differentiable flash attention with in-kernel dropout and the dq and
+dk/dv backward kernels. Entry points run on ``"cuda"`` unless the caller
+passes ``device="cpu"``.
 """
 
 from deeplearning4j_tpu_torch import observe, ops  # noqa: F401

@@ -4,11 +4,15 @@
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_attention.py `_attn_kernel`,
 // reached through `_flash_fwd` (the Pallas forward behind `flash_dpa`, the
-// TPU platform helper of `dot_product_attention`). Same contract, dropout
-// rate 0: q, k, v (BH, T, D) row-major; an optional key mask (BH, Tk) of
-// 0/1 floats; an optional START-aligned causal mask (key j visible to query
-// i iff j <= i); masked scores are -1e30 as in the TPU kernel. Outputs are
-// out (BH, Tq, D) in the input type and lse (BH, Tq) in float32.
+// TPU platform helper of `dot_product_attention`). Same contract: q, k, v
+// (BH, T, D) row-major; an optional key mask (BH, Tk) of 0/1 floats; an
+// optional START-aligned causal mask (key j visible to query i iff j <= i);
+// masked scores are -1e30 as in the TPU kernel; optional attention dropout
+// in the kernel (`_keep_mask`, flash_common.cuh): each probability is
+// dropped after the denominator update and the kept ones scaled by
+// 1/(1-rate), so neither the scores nor the mask reach device memory.
+// Outputs are out (BH, Tq, D) in the input type and lse (BH, Tq) in
+// float32. The backward kernels are flash_attn_bwd.cu.
 //
 // What bounds it on the H100: at the serving shape (BH=12, T=512, D=64,
 // causal) the work is ~0.4 GFLOP against ~3 MB of traffic, so the card's
@@ -42,37 +46,22 @@
 //  * A row whose keys are all masked gets finite values (the -1e30 fill,
 //    as on the TPU), never NaN.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstddef>
 
+#include "flash_common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+using flash::from_f32;
+using flash::keep_element;
+using flash::kMasked;
+using flash::kMaxHeadDim;
+using flash::to_f32;
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
-
-constexpr float kMasked = -1e30f;  // the TPU kernel's mask fill
-constexpr int kChunk = 16;         // keys per online-softmax rescale
-constexpr int kMaxHeadDim = 256;
+constexpr int kChunk = 16;  // keys per online-softmax rescale
 
 // Tile geometry of one instantiation: DT dims per thread, G threads per row.
 template <int DT, int G>
@@ -84,12 +73,15 @@ struct Tile {
   static constexpr int BK = DP <= 64 ? 64 : 4096 / DP;  // staged keys per tile
 };
 
-template <typename T, int DT, int G>
+// DROP: attention dropout at `rate` (keep mask from `*seed`); the
+// instantiation without it is the rate-0 path, untouched by dropout.
+template <typename T, int DT, int G, bool DROP>
 __global__ void __launch_bounds__(Tile<DT, G>::THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
                  T* __restrict__ out, float* __restrict__ lse, int tq,
-                 int tk, int d, float scale, int causal) {
+                 int tk, int d, float scale, int causal,
+                 const int* __restrict__ seed, float rate, float inv_keep) {
   using Tl = Tile<DT, G>;
   constexpr int DP = Tl::DP, BK = Tl::BK, ROWS = Tl::ROWS;
   constexpr int NT = Tl::THREADS;
@@ -121,6 +113,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = kMasked;  // running row max
   float l = 0.f;      // running softmax denominator
+  const unsigned seed_v = DROP ? static_cast<unsigned>(seed[0]) : 0u;
 
   // causal whole-tile skip: no row of this block sees keys past its last row
   const int q_last = min(q0 + ROWS, tq) - 1;
@@ -184,8 +177,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < kChunk; ++jj) {
         const int j = j0 + jj;
         if (j < jn) {
-          const float p = expf(s[jj] - cmax);
+          float p = expf(s[jj] - cmax);
+          // the denominator takes the un-dropped p; dropout hits the
+          // normalized probabilities, as on the TPU
           l += p;
+          if (DROP) {
+            if (!keep_element(seed_v, bh, qi, k0 + j, rate)) continue;
+            p *= inv_keep;
+          }
 #pragma unroll
           for (int i = 0; i < DT; ++i)
             acc[i] = fmaf(p, vs[j][i * G + g], acc[i]);
@@ -207,59 +206,64 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DT, int G>
-int launch(const void* q, const void* k, const void* v, const void* mask,
-           void* out, void* lse, int bh, int tq, int tk, int d, float scale,
-           int causal, cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v, *mask;
+  void *out, *lse;
+  int bh, tq, tk, d;
+  float scale;
+  int causal;
+  const int* seed;
+  float rate, inv_keep;
+};
+
+template <typename T, int DT, int G, bool DROP>
+int launch(const Args& a, cudaStream_t stream) {
   using Tl = Tile<DT, G>;
-  const dim3 grid((tq + Tl::ROWS - 1) / Tl::ROWS, bh);
-  flash_fwd_kernel<T, DT, G><<<grid, Tl::THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(mask),
-      static_cast<T*>(out), static_cast<float*>(lse), tq, tk, d, scale,
-      causal);
+  const dim3 grid((a.tq + Tl::ROWS - 1) / Tl::ROWS, a.bh);
+  flash_fwd_kernel<T, DT, G, DROP><<<grid, Tl::THREADS, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.mask),
+      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.tq, a.tk, a.d,
+      a.scale, a.causal, a.seed, a.rate, a.inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool DROP>
+int dispatch_d(const Args& a, cudaStream_t s) {
+  if (a.d <= 0 || a.d % 8 != 0 || a.d > kMaxHeadDim) return -1;
+  if (a.d <= 32) return launch<T, 32, 1, DROP>(a, s);
+  if (a.d <= 64) return launch<T, 64, 1, DROP>(a, s);
+  if (a.d <= 128) return launch<T, 32, 4, DROP>(a, s);
+  return launch<T, 32, 8, DROP>(a, s);
+}
+
 template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const void* mask, void* out, void* lse, int bh, int tq, int tk,
-               float scale, int causal, cudaStream_t s) {
-  if (d <= 0 || d % 8 != 0 || d > kMaxHeadDim) return -1;
-  if (d <= 32)
-    return launch<T, 32, 1>(q, k, v, mask, out, lse, bh, tq, tk, d, scale,
-                            causal, s);
-  if (d <= 64)
-    return launch<T, 64, 1>(q, k, v, mask, out, lse, bh, tq, tk, d, scale,
-                            causal, s);
-  if (d <= 128)
-    return launch<T, 32, 4>(q, k, v, mask, out, lse, bh, tq, tk, d, scale,
-                            causal, s);
-  return launch<T, 32, 8>(q, k, v, mask, out, lse, bh, tq, tk, d, scale,
-                          causal, s);
+int dispatch_drop(const Args& a, cudaStream_t s) {
+  return a.rate > 0.f ? dispatch_d<T, true>(a, s) : dispatch_d<T, false>(a, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. mask may be null (every
-// key visible). Returns cudaGetLastError() of the launch, or -1 for an
+// key visible). rate: attention-dropout rate in [0, 1); above 0, `seed`
+// points to one int32 on the device and inv_keep is 1 / (1 - rate); at 0
+// both are ignored. Returns cudaGetLastError() of the launch, or -1 for an
 // unsupported dtype or head dim (D % 8 != 0 or D > 256). Launches on
 // `stream`; allocates nothing.
 extern "C" int dl4j_flash_attn_fwd(const void* q, const void* k,
                                    const void* v, const void* mask, void* out,
                                    void* lse, int bh, int tq, int tk, int d,
-                                   float scale, int causal, int dtype,
+                                   float scale, int causal, const void* seed,
+                                   float rate, float inv_keep, int dtype,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || tq <= 0) return 0;
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, mask, out, lse, bh, tq, tk, scale,
-                             causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, mask, out, lse, bh, tq, tk,
-                                     scale, causal, s);
-  if (dtype == 2)
-    return dispatch_d<__half>(d, q, k, v, mask, out, lse, bh, tq, tk, scale,
-                              causal, s);
+  const Args a{q,     k,     v,      mask,
+               out,   lse,   bh,     tq,
+               tk,    d,     scale,  causal,
+               static_cast<const int*>(seed), rate, inv_keep};
+  if (dtype == 0) return dispatch_drop<float>(a, s);
+  if (dtype == 1) return dispatch_drop<__nv_bfloat16>(a, s);
+  if (dtype == 2) return dispatch_drop<__half>(a, s);
   return -1;
 }

@@ -1,5 +1,10 @@
 """Models of the port."""
 
+from deeplearning4j_tpu_torch.models.bert import (
+    BertConfig, BertModel, bert_encoder, bert_opt_state_from_numpy,
+    bert_params_from_numpy, classification_logits, init_bert_params,
+    mlm_logits,
+)
 from deeplearning4j_tpu_torch.models.gpt import (
     GptConfig, GptModel, gpt_decode_step, gpt_prefill, params_from_numpy,
     reference_generate, restore_gpt, save_gpt,
@@ -9,6 +14,9 @@ from deeplearning4j_tpu_torch.models.zoo import (
 )
 
 __all__ = [
+    "BertConfig", "BertModel", "bert_encoder", "bert_opt_state_from_numpy",
+    "bert_params_from_numpy", "classification_logits", "init_bert_params",
+    "mlm_logits",
     "GptConfig", "GptModel", "gpt_decode_step", "gpt_prefill",
     "params_from_numpy", "reference_generate", "restore_gpt", "save_gpt",
     "ResNet50", "ZooModel", "graph_state_from_numpy",

@@ -24,13 +24,17 @@ import dataclasses
 import json
 import math
 import zipfile
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.environment import resolve_device
+from deeplearning4j_tpu_torch.models._tree import (  # noqa: F401
+    leaf_paths as _leaf_paths, map_tree as _map_tree,
+    params_from_numpy, rebuild as _rebuild,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -93,27 +97,6 @@ def param_shapes(cfg: GptConfig) -> Dict[str, Any]:
             "blocks": [block for _ in range(cfg.layers)]}
 
 
-def _leaf_paths(tree, prefix=()) -> Iterator[Tuple[tuple, Any]]:
-    """(path, leaf) in ``jax.tree.leaves`` order: dict keys sorted, lists
-    in order — the order of the JAX zip's coefficients buffer."""
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from _leaf_paths(tree[key], prefix + (key,))
-    elif isinstance(tree, list):
-        for i, sub in enumerate(tree):
-            yield from _leaf_paths(sub, prefix + (i,))
-    else:
-        yield prefix, tree
-
-
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_tree(fn, v) for v in tree]
-    return fn(tree)
-
-
 def init_gpt_params(cfg: GptConfig, seed: int = 0,
                     dtype: torch.dtype = torch.float32,
                     device: Union[str, torch.device, None] = None,
@@ -143,33 +126,6 @@ def init_gpt_params(cfg: GptConfig, seed: int = 0,
     shapes = param_shapes(cfg)
     made = {path: make((path, shape)) for path, shape in _leaf_paths(shapes)}
     return _rebuild(shapes, made)
-
-
-def _rebuild(template, by_path: Dict[tuple, Any], prefix=()):
-    if isinstance(template, dict):
-        return {k: _rebuild(v, by_path, prefix + (k,))
-                for k, v in template.items()}
-    if isinstance(template, list):
-        return [_rebuild(v, by_path, prefix + (i,))
-                for i, v in enumerate(template)]
-    return by_path[prefix]
-
-
-def params_from_numpy(tree, device: Union[str, torch.device, None] = None,
-                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """The JAX parameter pytree, as numpy arrays (``jax.tree.map(np.asarray,
-    params)``), as the port's parameter dict on ``device``."""
-    dev = resolve_device(device)
-
-    def conv(a):
-        a = np.asarray(a)
-        want = dtype
-        if a.dtype.name == "bfloat16":  # ml_dtypes: numpy has no bfloat16
-            a, want = a.astype(np.float32), dtype or torch.bfloat16
-        t = torch.from_numpy(np.array(a, copy=True))  # own, writable
-        return t.to(device=dev, dtype=want or t.dtype)
-
-    return _map_tree(conv, tree)
 
 
 # ---------------------------------------------------------------------------

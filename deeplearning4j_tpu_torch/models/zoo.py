@@ -12,10 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
-import numpy as np
-import torch
-
-from deeplearning4j_tpu_torch.environment import resolve_device
+from deeplearning4j_tpu_torch.models._tree import params_from_numpy
 from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraph, ElementWiseVertex, GraphBuilder, graph_builder)
@@ -120,20 +117,6 @@ class ResNet50(ZooModel):
         return ComputationGraph(self.conf(), device=self.device).init()
 
 
-def _tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes arrays from a bf16 policy
-        return torch.from_numpy(a.astype(np.float32)).to(device,
-                                                         torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(device)  # a copy: never alias
-
-
-def _tree(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree(v, device) for k, v in tree.items()}
-    return _tensor(tree, device)
-
-
 def graph_state_from_numpy(params: Dict[str, Any], net_state: Dict[str, Any],
                            opt_state: Dict[str, Any], device=None):
     """The JAX ComputationGraph's ``params`` / ``net_state`` /
@@ -142,5 +125,5 @@ def graph_state_from_numpy(params: Dict[str, Any], net_state: Dict[str, Any],
     port's tensor trees on ``device``. Assign the three to a port network
     (``net.params, net.net_state, net.opt_state = ...``) to continue the
     JAX run."""
-    dev = resolve_device(device)
-    return _tree(params, dev), _tree(net_state, dev), _tree(opt_state, dev)
+    return tuple(params_from_numpy(t, device)
+                 for t in (params, net_state, opt_state))

@@ -4,7 +4,7 @@ Each source in ``deeplearning4j_tpu_torch/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library with a plain C
 interface, loaded with ``ctypes``. Libraries land in ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``), named by a hash of
-the source and the flags, and are built at first use: a fresh checkout
+the source, the shared headers and the flags, and are built at first use: a fresh checkout
 builds on its first kernel call. All missing libraries are compiled
 together, one ``nvcc`` process per source.
 
@@ -29,8 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # one shared library per source; the name is the source's stem
-SOURCES = ("flash_attn_fwd", "paged_decode", "fused_updater",
-           "bn_matmul_stats")
+SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "paged_decode",
+           "fused_updater", "bn_matmul_stats")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,7 +55,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (``*.cuh``) are part of every source's key
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

@@ -1,31 +1,38 @@
-"""Hand-written CUDA attention kernels for the serving path, and their
-plain PyTorch versions.
+"""Hand-written CUDA attention kernels, and their plain PyTorch versions.
 
-Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py`` for the two
-kernels generative serving reaches:
+Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
 
-* :func:`flash_attention` — causal/masked FlashAttention-2 forward over
-  ``(BH, T, D)`` tensors, returning ``(out, lse)`` as ``_flash_fwd`` does
-  (``csrc/flash_attn_fwd.cu``, replacing ``_attn_kernel``). Forward only,
-  dropout rate 0: dropout and the backward come with the training slice.
+* :func:`flash_attention` — FlashAttention-2 over ``(BH, T, D)`` tensors
+  with a key mask, start-aligned causal masking and in-kernel attention
+  dropout, returning ``(out, lse)`` as ``_flash_fwd`` does. It is
+  differentiable: :class:`FlashAttentionFn` is the counterpart of the JAX
+  ``flash_attention`` custom VJP. On the card its forward launches
+  ``csrc/flash_attn_fwd.cu`` (replacing ``_attn_kernel``) and its backward
+  :func:`flash_attention_dq` and :func:`flash_attention_dkv`
+  (``csrc/flash_attn_bwd.cu``, replacing ``_dq_kernel`` and
+  ``_dkv_kernel``).
+* :func:`keep_mask` — the dropout keep mask, ``_keep_mask``'s hash bit for
+  bit, so the plain versions drop exactly what the kernels (and the TPU
+  kernels) drop for the same seed.
 * :func:`paged_decode_attention` — one query per slot against the
   block-paged KV cache (``csrc/paged_decode.cu``, replacing
   ``_paged_decode_kernel``), the contract of ``paged_decode_attention_xla``.
 
-Beside each wrapper stands its plain PyTorch version
-(:func:`flash_attention_reference`, :func:`paged_decode_attention_reference`,
-the counterparts of ``_reference_attention`` and
-``paged_decode_attention_xla``). A wrapper given CPU tensors computes the
-plain version; given CUDA tensors it launches its kernel or raises — it
-never falls back. Each wrapper counts its launches in ``.launches``.
+Beside each kernel wrapper stands its plain PyTorch version
+(:func:`flash_attention_reference`, :func:`flash_attention_dq_reference`,
+:func:`flash_attention_dkv_reference`,
+:func:`paged_decode_attention_reference`). A wrapper given CPU tensors
+computes the plain version; given CUDA tensors it launches its kernel or
+raises — it never falls back. Each kernel's launches are counted on its
+wrapper's ``.launches`` (the forward's on :func:`flash_attention`).
 
-:func:`register_platform_attention` installs both kernels under the
+:func:`register_platform_attention` installs the kernels under the
 ``"cuda"`` platform of the op registry, behind usable gates that mirror
 the JAX package's ``usable`` / ``_paged_usable`` without the TPU-measured
-``flash_min_t`` crossover: on the card every prefill the JAX gate would
-send to its kernel launches this one. Both kernels take float32,
-bfloat16 and float16 and every head dim the JAX gates take (a multiple
-of 8) up to :data:`MAX_HEAD_DIM`; past that the wrappers raise.
+``flash_min_t`` crossover: on the card every call the JAX gate would send
+to its kernel launches this one, dropout included. The kernels take
+float32, bfloat16 and float16 and every head dim the JAX gates take (a
+multiple of 8) up to :data:`MAX_HEAD_DIM`; past that the wrappers raise.
 """
 
 from __future__ import annotations
@@ -34,19 +41,26 @@ import ctypes
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.ops import _build
 
-# both kernels take every head dim D with D % 8 == 0 up to this
+# every kernel takes every head dim D with D % 8 == 0 up to this
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASKED = -1e30  # the kernels' (and the TPU kernels') mask fill
+_U32 = 0xFFFFFFFF
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_FLASH_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P)
+# q k v mask out lse | bh tq tk d scale causal | seed rate inv_keep dtype st
+_FLASH_ARGS = (_P,) * 6 + (_I,) * 4 + (_F, _I, _P, _F, _F, _I, _P)
+# q k v mask dout lse delta seed dq | bh tq tk d scale causal | rate ...
+_DQ_ARGS = (_P,) * 9 + (_I,) * 4 + (_F, _I, _F, _F, _I, _P)
+# ... seed dk dv | bh tq tk d scale causal | rate inv_keep dtype stream
+_DKV_ARGS = (_P,) * 10 + (_I,) * 4 + (_F, _I, _F, _F, _I, _P)
 _PAGED_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)
 
 
@@ -74,21 +88,77 @@ def _check_launch(rc: int, kernel: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# flash attention forward
+# attention dropout: the keep mask
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_reference(q, k, v, kv_mask=None, *,
-                              scale: Optional[float] = None,
-                              causal: bool = False
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`flash_attention`: the O(T^2) materialized
-    softmax in float32 (``_reference_attention``'s math, -1e30 mask fill,
-    causal aligned as the kernel is for ``t_q == t_kv``). Returns
-    ``(out in q's dtype, lse float32)``."""
-    bh, t_q, d = q.shape
+def keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
+    """True where attention probability ``(rows, cols)`` of batch·head
+    ``bh`` survives dropout at ``rate`` — ``_keep_mask``'s counter-based
+    hash of ``(seed, bh, absolute row, absolute column)``, bit for bit.
+
+    The TPU computes it in int32 arithmetic that wraps, with logical right
+    shifts; here it runs in int64 holding the unsigned 32-bit value, cut
+    to 32 bits after every add and multiply. The uniform ``(h & 0xFFFFFF)
+    · 2^-24`` is compared with the rate in float32, as there. Arguments
+    are ints or integer tensors that broadcast together (``seed`` may be
+    the kernels' int32 device tensor)."""
+    dev = next((a.device for a in (seed, bh, rows, cols)
+                if isinstance(a, torch.Tensor)), None)
+
+    def u32(x):
+        return torch.as_tensor(x, device=dev).to(torch.int64) & _U32
+
+    h = u32(seed)
+    h = (h + (u32(bh) * 7919 & _U32)) & _U32
+    h = (h + (u32(rows) * 1103515245 & _U32)) & _U32
+    h = (h + (u32(cols) * 1299709 & _U32)) & _U32
+    h = h ^ (h >> 13)
+    h = (h * 1274126177) & _U32
+    h = h ^ (h >> 16)
+    u = (h & 0xFFFFFF).to(torch.float32) * (1.0 / (1 << 24))
+    # the float32 rate as a Python float (exact in both): no host tensor
+    return u >= float(np.float32(rate))
+
+
+def _tile_keep(seed, bh: int, t_q: int, t_k: int, rate: float, device):
+    """The (BH, Tq, Tk) keep mask of a whole attention call."""
+    return keep_mask(seed.reshape(-1)[0],
+                     torch.arange(bh, device=device)[:, None, None],
+                     torch.arange(t_q, device=device)[None, :, None],
+                     torch.arange(t_k, device=device)[None, None, :], rate)
+
+
+def _norm_seed(seed, dropout_rate: float, device) -> Optional[torch.Tensor]:
+    """The kernels' seed: one int32 on ``device`` (``_norm_seed``), None at
+    rate 0."""
+    if dropout_rate <= 0.0:
+        return None
+    if seed is None:
+        raise ValueError("flash attention dropout_rate > 0 needs a seed")
+    seed = torch.as_tensor(seed, device=device)
+    return seed.reshape(-1)[:1].to(device=device,
+                                   dtype=torch.int32).contiguous()
+
+
+def rng_to_seed(rng: torch.Generator) -> torch.Tensor:
+    """One int32 kernel seed drawn from ``rng`` on the generator's device
+    (the counterpart of ``rng_to_seed``): a device draw, so the host does
+    not wait for the card."""
+    return torch.randint(-2 ** 31, 2 ** 31, (1,), generator=rng,
+                         device=rng.device, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: plain versions
+# ---------------------------------------------------------------------------
+
+
+def _scores(q, k, kv_mask, scale: float, causal: bool) -> torch.Tensor:
+    """float32 scaled scores, -1e30 where masked (key mask; causal aligned
+    as the kernels are for ``t_q == t_kv``)."""
+    bh, t_q, _ = q.shape
     t_k = k.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if kv_mask is not None:
         s = s.masked_fill(kv_mask.reshape(bh, 1, t_k) <= 0.5, _MASKED)
@@ -96,59 +166,296 @@ def flash_attention_reference(q, k, v, kv_mask=None, *,
         tri = torch.ones((t_q, t_k), dtype=torch.bool,
                          device=q.device).tril(diagonal=t_k - t_q)
         s = s.masked_fill(~tri, _MASKED)
+    return s
+
+
+def _dropped(x, seed, rate: float) -> torch.Tensor:
+    """``x`` (BH, Tq, Tk) with the dropped entries 0 and the kept ones
+    scaled by 1/(1-rate)."""
+    if rate <= 0.0:
+        return x
+    keep = _tile_keep(seed, x.shape[0], x.shape[1], x.shape[2], rate,
+                      x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def flash_attention_reference(q, k, v, kv_mask=None, seed=None, *,
+                              scale: Optional[float] = None,
+                              causal: bool = False,
+                              dropout_rate: float = 0.0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: the O(T^2) materialized softmax
+    in float32 (``_reference_attention``'s math, -1e30 mask fill), then
+    dropout of the normalized probabilities by :func:`keep_mask` and
+    scaling of the kept ones by 1/(1-rate), as ``_attn_kernel`` does (its
+    denominator sums the un-dropped p). Returns ``(out in q's dtype, lse
+    float32)``; differentiable by autograd."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    seed = _norm_seed(seed, dropout_rate, q.device)
+    s = _scores(q, k, kv_mask, scale, causal)
     lse = torch.logsumexp(s, dim=-1)
-    out = torch.matmul(torch.softmax(s, dim=-1), v.float())
-    return out.to(q.dtype), lse
+    p = _dropped(torch.softmax(s, dim=-1), seed, dropout_rate)
+    return torch.matmul(p, v.float()).to(q.dtype), lse
 
 
-def flash_attention(q, k, v, kv_mask=None, *, scale: Optional[float] = None,
-                    causal: bool = False
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Blockwise attention forward over ``(BH, T, D)`` tensors.
+def _bwd_terms(q, k, v, kv_mask, seed, dout, lse, delta, scale, causal,
+               rate):
+    """(p, p after dropout, ds) of the backward, float32 (BH, Tq, Tk)."""
+    p = torch.exp(_scores(q, k, kv_mask, scale, causal) - lse[..., None])
+    dp = _dropped(torch.matmul(dout.float(), v.float().transpose(-1, -2)),
+                  seed, rate)
+    return p, _dropped(p, seed, rate), p * (dp - delta[..., None])
 
-    ``kv_mask``: optional ``(BH, T_kv)`` 0/1 key-padding mask (1 = attend).
-    ``causal``: start-aligned causal mask; requires ``t_q == t_kv`` (the
-    only case where it agrees with the generic op's end-aligned mask).
-    Returns ``(out (BH, Tq, D) in q's dtype, lse (BH, Tq) float32)``."""
-    if causal and q.shape[1] != k.shape[1]:
-        raise ValueError(f"causal flash attention requires t_q == t_kv, got "
-                         f"{q.shape[1]} vs {k.shape[1]}")
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_mask, scale=scale,
-                                         causal=causal)
+
+def flash_attention_dq_reference(q, k, v, kv_mask, seed, dout, lse, delta,
+                                 *, scale: float, causal: bool = False,
+                                 dropout_rate: float = 0.0) -> torch.Tensor:
+    """Plain version of the dq kernel (``_dq_kernel``): ``p = exp(s -
+    lse)``, ``dp = dO·Vᵀ`` dropped and scaled by the forward's keep mask,
+    ``ds = p·(dp - Δ)``, ``dq = scale·ds·K``; in q's dtype."""
+    seed = _norm_seed(seed, dropout_rate, q.device)
+    _, _, ds = _bwd_terms(q, k, v, kv_mask, seed, dout, lse, delta, scale,
+                          causal, dropout_rate)
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_attention_dkv_reference(q, k, v, kv_mask, seed, dout, lse, delta,
+                                  *, scale: float, causal: bool = False,
+                                  dropout_rate: float = 0.0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dk/dv kernel (``_dkv_kernel``): ``dk =
+    scale·dsᵀ·Q``, ``dv = p̃ᵀ·dO`` with p̃ the dropped probabilities; in
+    k's and v's dtypes."""
+    seed = _norm_seed(seed, dropout_rate, q.device)
+    _, pt, ds = _bwd_terms(q, k, v, kv_mask, seed, dout, lse, delta, scale,
+                           causal, dropout_rate)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(pt.transpose(-1, -2), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(dout, out) -> torch.Tensor:
+    """Δ = rowsum(dO·O) in float32, (BH, Tq) — a torch reduction, as the
+    JAX ``_flash_bwd`` computes it outside its kernels."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def flash_attention_backward_reference(q, k, v, kv_mask, seed, out, lse,
+                                       dout, *, scale: Optional[float] = None,
+                                       causal: bool = False,
+                                       dropout_rate: float = 0.0):
+    """Plain backward of :func:`flash_attention`: ``(dq, dk, dv)`` from the
+    forward's ``out`` and ``lse`` — what ``_flash_bwd`` computes."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    delta = attention_delta(dout, out)
+    kw = dict(scale=scale, causal=causal, dropout_rate=dropout_rate)
+    dq = flash_attention_dq_reference(q, k, v, kv_mask, seed, dout, lse,
+                                      delta, **kw)
+    dk, dv = flash_attention_dkv_reference(q, k, v, kv_mask, seed, dout, lse,
+                                           delta, **kw)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_qkv(q, k, v, kernel: str) -> None:
     _require(q.device.type == "cuda",
-             f"flash_attention: unsupported device {q.device}")
+             f"{kernel}: unsupported device {q.device}")
     _require(q.ndim == 3 and k.ndim == 3 and v.ndim == 3,
-             "flash_attention: q, k, v must be (BH, T, D)")
-    bh, t_q, d = q.shape
+             f"{kernel}: q, k, v must be (BH, T, D)")
+    bh, _, d = q.shape
     t_k = k.shape[1]
     _require(k.shape == (bh, t_k, d) and v.shape == (bh, t_k, d),
-             f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+             f"{kernel}: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
              f"{tuple(v.shape)} disagree")
     _require(q.dtype in _DTYPE_CODES and k.dtype == q.dtype
              and v.dtype == q.dtype,
-             f"flash_attention: dtypes must be one of float32/bfloat16/"
-             f"float16 and agree, got {q.dtype}, {k.dtype}, {v.dtype}")
-    _require_head_dim(d, "flash_attention")
+             f"{kernel}: dtypes must be one of float32/bfloat16/float16 and "
+             f"agree, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _require_head_dim(d, kernel)
     _require(all(t.device == q.device and t.is_contiguous()
                  for t in (k, v, q)),
-             "flash_attention: q, k, v must be contiguous on one device")
-    if kv_mask is not None:
-        kv_mask = kv_mask.reshape(bh, t_k).to(torch.float32).contiguous()
-        _require(kv_mask.device == q.device,
-                 "flash_attention: kv_mask on another device")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+             f"{kernel}: q, k, v must be contiguous on one device")
+
+
+def _kernel_mask(kv_mask, bh: int, t_k: int, device, kernel: str):
+    if kv_mask is None:
+        return None
+    kv_mask = kv_mask.reshape(bh, t_k).to(torch.float32).contiguous()
+    _require(kv_mask.device == device, f"{kernel}: kv_mask on another device")
+    return kv_mask
+
+
+def _inv_keep(rate: float) -> float:
+    return float(np.float32(1.0) / np.float32(1.0 - rate)) if rate else 0.0
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _flash_fwd(q, k, v, kv_mask, seed, scale: float, causal: bool,
+               dropout_rate: float):
+    """The forward kernel (CPU tensors: its plain version)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, kv_mask, seed, scale=scale,
+                                         causal=causal,
+                                         dropout_rate=dropout_rate)
+    _check_qkv(q, k, v, "flash_attn_fwd")
+    bh, t_q, d = q.shape
+    t_k = k.shape[1]
+    kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
     fn = _build.kernel_fn("flash_attn_fwd", "dl4j_flash_attn_fwd",
                           _FLASH_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_mask is None else kv_mask.data_ptr(),
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             out.data_ptr(), lse.data_ptr(), bh, t_q, t_k, d, float(scale),
-            int(bool(causal)), _DTYPE_CODES[q.dtype], _stream(q))
+            int(bool(causal)), _ptr(seed), float(dropout_rate),
+            _inv_keep(dropout_rate), _DTYPE_CODES[q.dtype], _stream(q))
     _check_launch(rc, "flash_attn_fwd")
     flash_attention.launches += 1
     return out, lse
+
+
+def _check_bwd(q, k, v, dout, lse, delta, kernel: str) -> None:
+    _check_qkv(q, k, v, kernel)
+    bh, t_q, _ = q.shape
+    _require(dout.shape == q.shape and dout.dtype == q.dtype
+             and dout.device == q.device and dout.is_contiguous(),
+             f"{kernel}: dout must match q in shape, dtype and device and "
+             f"be contiguous")
+    for name, t in (("lse", lse), ("delta", delta)):
+        _require(t.shape == (bh, t_q) and t.dtype == torch.float32
+                 and t.device == q.device and t.is_contiguous(),
+                 f"{kernel}: {name} must be a contiguous float32 (BH, Tq) "
+                 f"tensor on q's device")
+
+
+def flash_attention_dq(q, k, v, kv_mask, seed, dout, lse, delta, *,
+                       scale: float, causal: bool = False,
+                       dropout_rate: float = 0.0) -> torch.Tensor:
+    """dq of flash attention (``csrc/flash_attn_bwd.cu``, replacing
+    ``_dq_kernel``) from the forward's lse, ``Δ`` (:func:`attention_delta`)
+    and seed. CPU tensors: :func:`flash_attention_dq_reference`."""
+    if q.device.type == "cpu":
+        return flash_attention_dq_reference(
+            q, k, v, kv_mask, seed, dout, lse, delta, scale=scale,
+            causal=causal, dropout_rate=dropout_rate)
+    _check_bwd(q, k, v, dout, lse, delta, "flash_attn_dq")
+    bh, t_q, d = q.shape
+    t_k = k.shape[1]
+    kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dq")
+    seed = _norm_seed(seed, dropout_rate, q.device)
+    dq = torch.empty_like(q)
+    fn = _build.kernel_fn("flash_attn_bwd", "dl4j_flash_attn_dq", _DQ_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seed),
+            dq.data_ptr(), bh, t_q, t_k, d, float(scale), int(bool(causal)),
+            float(dropout_rate), _inv_keep(dropout_rate),
+            _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(rc, "flash_attn_dq")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
+                        scale: float, causal: bool = False,
+                        dropout_rate: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of flash attention (``csrc/flash_attn_bwd.cu``, replacing
+    ``_dkv_kernel``). CPU tensors: :func:`flash_attention_dkv_reference`."""
+    if q.device.type == "cpu":
+        return flash_attention_dkv_reference(
+            q, k, v, kv_mask, seed, dout, lse, delta, scale=scale,
+            causal=causal, dropout_rate=dropout_rate)
+    _check_bwd(q, k, v, dout, lse, delta, "flash_attn_dkv")
+    bh, t_q, d = q.shape
+    t_k = k.shape[1]
+    kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dkv")
+    seed = _norm_seed(seed, dropout_rate, q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.kernel_fn("flash_attn_bwd", "dl4j_flash_attn_dkv", _DKV_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seed),
+            dk.data_ptr(), dv.data_ptr(), bh, t_q, t_k, d, float(scale),
+            int(bool(causal)), float(dropout_rate), _inv_keep(dropout_rate),
+            _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(rc, "flash_attn_dkv")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention — the counterpart of the JAX
+    ``flash_attention`` ``custom_vjp`` (``_fwd``/``_bwd``). The forward
+    saves q, k, v, the mask, the seed, out and lse; the backward computes
+    Δ with torch and runs the dq and dk/dv kernels (their plain versions on
+    CPU tensors, or everywhere when ``plain``). lse is returned but not
+    differentiated."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, seed, scale, causal, dropout_rate,
+                plain):
+        if plain:
+            out, lse = flash_attention_reference(
+                q, k, v, kv_mask, seed, scale=scale, causal=causal,
+                dropout_rate=dropout_rate)
+        else:
+            out, lse = _flash_fwd(q, k, v, kv_mask, seed, scale, causal,
+                                  dropout_rate)
+        ctx.save_for_backward(q, k, v, kv_mask, seed, out, lse)
+        ctx.config = (scale, causal, dropout_rate, plain)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, kv_mask, seed, out, lse = ctx.saved_tensors
+        scale, causal, rate, plain = ctx.config
+        dout = dout.contiguous()
+        delta = attention_delta(dout, out)
+        dq_fn, dkv_fn = ((flash_attention_dq_reference,
+                          flash_attention_dkv_reference) if plain else
+                         (flash_attention_dq, flash_attention_dkv))
+        kw = dict(scale=scale, causal=causal, dropout_rate=rate)
+        dq = dq_fn(q, k, v, kv_mask, seed, dout, lse, delta, **kw)
+        dk, dv = dkv_fn(q, k, v, kv_mask, seed, dout, lse, delta, **kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, kv_mask=None, seed=None, *,
+                    scale: Optional[float] = None, causal: bool = False,
+                    dropout_rate: float = 0.0, plain: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise attention over ``(BH, T, D)`` tensors, differentiable in
+    q, k and v.
+
+    ``kv_mask``: optional ``(BH, T_kv)`` 0/1 key-padding mask (1 = attend).
+    ``causal``: start-aligned causal mask; requires ``t_q == t_kv`` (the
+    only case where it agrees with the generic op's end-aligned mask).
+    ``dropout_rate`` / ``seed``: post-softmax attention dropout inside the
+    kernels; the seed is any int or int32 tensor (its first element is
+    used) and is required when the rate is above 0. ``plain``: run the
+    plain versions even on CUDA tensors (a reference run on the card).
+    Returns ``(out (BH, Tq, D) in q's dtype, lse (BH, Tq) float32)``."""
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"causal flash attention requires t_q == t_kv, got "
+                         f"{q.shape[1]} vs {k.shape[1]}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    seed = _norm_seed(seed, dropout_rate, q.device)
+    return FlashAttentionFn.apply(q, k, v, kv_mask, seed, float(scale),
+                                  bool(causal), float(dropout_rate),
+                                  bool(plain))
 
 
 flash_attention.launches = 0
@@ -235,8 +542,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
 
 paged_decode_attention.launches = 0
 
-# kernel name (= csrc source stem) -> wrapper holding its launch count
+# kernel name -> the function holding its launch count
 KERNELS = {"flash_attn_fwd": flash_attention,
+           "flash_attn_dq": flash_attention_dq,
+           "flash_attn_dkv": flash_attention_dkv,
            "paged_decode": paged_decode_attention}
 
 
@@ -265,12 +574,12 @@ def flash_usable(q, k, v, mask=None, *, scaled: bool = True,
     """Gate of the flash helper: the JAX ``usable`` without the
     TPU-measured ``flash_min_t`` crossover — ranks, key-padding-only
     masks, causal only for ``t_q == t_kv``, head dim a multiple of 8 — on
-    CUDA tensors, and no dropout (not in the kernel yet; it comes with the
-    training slice). Limits of the kernel that the JAX gate does not have
-    (dtype, head dim above :data:`MAX_HEAD_DIM`) are not checked here:
-    :func:`flash_attention` raises on them instead of the op quietly
-    running its plain version."""
-    if dropout_rate or not _on_cuda(q, k, v):
+    CUDA tensors. Dropout passes, as it does there (the kernels drop in
+    place). Limits of the kernel that the JAX gate does not have (dtype,
+    head dim above :data:`MAX_HEAD_DIM`) are not checked here: the kernel
+    wrappers raise on them instead of the op quietly running its plain
+    version."""
+    if not _on_cuda(q, k, v):
         return False
     if q.ndim == 4:
         t_q, t_kv = q.shape[2], k.shape[2]
@@ -291,13 +600,22 @@ def flash_usable(q, k, v, mask=None, *, scaled: bool = True,
 
 def flash_dpa(q, k, v, mask=None, *, scaled: bool = True,
               causal: bool = False, dropout_rate: float = 0.0,
-              dropout_rng=None):
-    """``dot_product_attention`` through the flash kernel: folds
-    ``(B, H, T, D)`` to ``(B*H, T, D)`` and the ``(B, 1, 1, Tk)`` key mask
-    to ``(B*H, Tk)``."""
-    if dropout_rate:
-        raise ValueError("flash_dpa: the CUDA flash kernel has no dropout")
-    scale = (1.0 / math.sqrt(q.shape[-1])) if scaled else 1.0
+              dropout_rng: Optional[torch.Generator] = None,
+              plain: bool = False):
+    """``dot_product_attention`` through :func:`flash_attention`: folds
+    ``(B, H, T, D)`` to ``(B*H, T, D)`` (batch-major, as the JAX
+    ``flash_dpa`` does, so the dropout hash sees the same batch·head
+    index) and the ``(B, 1, 1, Tk)`` key mask to ``(B*H, Tk)``. With
+    dropout, one int32 seed is drawn from ``dropout_rng`` (a
+    ``torch.Generator``) on the device. ``plain`` runs the plain versions
+    on the card (a reference run); the registry never passes it."""
+    if dropout_rate > 0.0 and dropout_rng is None:
+        raise ValueError(
+            "dot_product_attention: dropout_rate > 0 requires dropout_rng "
+            "(pass rate 0 for eval mode)")
+    seed = rng_to_seed(dropout_rng) if dropout_rate > 0.0 else None
+    kw = dict(scale=(1.0 / math.sqrt(q.shape[-1])) if scaled else 1.0,
+              causal=causal, dropout_rate=dropout_rate, plain=plain)
     if q.ndim == 4:
         b, h, t, d = q.shape
         tk = k.shape[2]
@@ -308,12 +626,11 @@ def flash_dpa(q, k, v, mask=None, *, scaled: bool = True,
         out, _ = flash_attention(
             q.reshape(b * h, t, d).contiguous(),
             k.reshape(b * h, tk, d).contiguous(),
-            v.reshape(b * h, tk, d).contiguous(), m, scale=scale,
-            causal=causal)
+            v.reshape(b * h, tk, d).contiguous(), m, seed, **kw)
         return out.reshape(b, h, t, d)
     m = None if mask is None else mask.reshape(q.shape[0], k.shape[1])
     out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                             m, scale=scale, causal=causal)
+                             m, seed, **kw)
     return out
 
 

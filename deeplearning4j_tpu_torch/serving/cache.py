@@ -32,6 +32,8 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.environment import resolve_device
+
 
 class PagedKVCache:
     """Fixed-pool paged KV storage + refcounted free-list allocator
@@ -41,7 +43,10 @@ class PagedKVCache:
                  page_size: int = 16, num_pages: int = 64,
                  max_slots: int = 4, max_pages_per_seq: int = 8,
                  dtype: torch.dtype = torch.float32,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device, None] = None):
+        # the entry points' device rule: "cuda" unless the caller names
+        # another, and an error on a host without a GPU
+        device = resolve_device(device)
         if page_size <= 0 or num_pages <= 0:
             raise ValueError("page_size and num_pages must be positive")
         self.layers = layers

@@ -2,17 +2,22 @@
 
 The port's plain flash and paged-decode versions — what the CUDA kernels
 are held against on the card — run on the same numpy inputs as the JAX
-package's generic op and its Pallas kernels in interpret mode. The
-wrappers on CPU tensors compute the plain versions; the registry's
-dispatch and usable gates are checked without a card.
+package's generic op and its Pallas kernels in interpret mode: the
+forward with and without dropout, and the backward against ``jax.vjp``
+of the JAX ``flash_attention`` custom VJP. The dropout keep mask equals
+the TPU kernels' bit for bit. The wrappers on CPU tensors compute the
+plain versions; the registry's dispatch and usable gates are checked
+without a card.
 
 Tolerances (float32 throughout): 1e-5 absolute/relative — the same
-arithmetic in another summation order, on O(1) values.
+arithmetic in another summation order, on O(1) values. The keep mask:
+exact.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -104,6 +109,156 @@ class TestFlashPlainParity:
             ca.flash_attention(_t(q), _t(k), _t(v), causal=True)
 
 
+class TestDropoutAndBackward:
+    """In-kernel attention dropout and the backward (kernels 1, 3, 4)."""
+
+    @pytest.mark.parametrize("rate", [0.1, 0.3])
+    @pytest.mark.parametrize("seed", [-2 ** 31, -7, 0, 123456789,
+                                      2 ** 31 - 1])
+    def test_keep_mask_is_bit_exact(self, seed, rate):
+        """Rows and columns up to 511 (the int32 products wrap), batch·head
+        indices up to 383, negative and large seeds."""
+        rows = torch.arange(512)[:, None]
+        cols = torch.arange(512)[None, :]
+        for bh in (0, 1, 97, 383):
+            want = np.asarray(jpa._keep_mask(
+                jnp.int32(seed), jnp.int32(bh), 0, 0, block_q=512,
+                block_k=512, rate=rate))
+            got = ca.keep_mask(torch.tensor(seed, dtype=torch.int32), bh,
+                               rows, cols, rate).numpy()
+            np.testing.assert_array_equal(got, want)
+            assert 0.5 < want.mean() < 1.0  # both values occur
+
+    def test_keep_mask_takes_absolute_coordinates(self):
+        """A tile at (q0, k0) of the JAX mask is the port's mask at those
+        rows and columns (what lets every kernel regenerate it)."""
+        want = np.asarray(jpa._keep_mask(jnp.int32(5), jnp.int32(7), 48, 16,
+                                         block_q=16, block_k=32, rate=0.25))
+        got = ca.keep_mask(5, 7, torch.arange(48, 64)[:, None],
+                           torch.arange(16, 48)[None, :], 0.25).numpy()
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("rate", [0.1, 0.3])
+    def test_dropout_forward_vs_pallas_interpret(self, causal, rate):
+        """Out and lse against the Pallas forward with in-kernel dropout,
+        BH 6, ragged T = 40 over 16-row blocks, key mask."""
+        q, k, v = _qkv()
+        m = _key_mask(6, 40)
+        scale = 1.0 / np.sqrt(16)
+        seed = jnp.array([[-1234567]], jnp.int32)
+        out, lse = jpa._flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m),
+            seed, scale=scale, causal=causal, block_q=16, block_k=16,
+            interpret=True, dropout_rate=rate)
+        public = jpa.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m),
+            seed, scale, causal, 16, 16, True, rate)
+        got, got_lse = ca.flash_attention_reference(
+            _t(q), _t(k), _t(v), _t(m), torch.tensor([-1234567]),
+            scale=scale, causal=causal, dropout_rate=rate)
+        np.testing.assert_allclose(got.numpy(), np.asarray(out)[:, :40],
+                                   **TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(public), **TOL)
+        np.testing.assert_allclose(got_lse.numpy(),
+                                   np.asarray(lse)[:, :40, 0], **TOL)
+        # dropout really dropped: the rate-0 output differs
+        plain, _ = ca.flash_attention_reference(
+            _t(q), _t(k), _t(v), _t(m), scale=scale, causal=causal)
+        assert not np.allclose(got.numpy(), plain.numpy(), atol=1e-3)
+
+    @pytest.mark.parametrize("rate", [0.0, 0.25])
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_backward_vs_jax_vjp(self, rate, causal, masked):
+        """dq, dk, dv of the plain backward against ``jax.vjp`` of the JAX
+        ``flash_attention`` (its Pallas dq and dk/dv kernels, interpret
+        mode), from the port's own forward out and lse."""
+        q, k, v = _qkv(seed=11)
+        dout = np.random.RandomState(12).randn(6, 40, 16).astype(np.float32)
+        m = _key_mask(6, 40, seed=13) if masked else None
+        scale = 1.0 / np.sqrt(16)
+        seed = 424242
+        jm = None if m is None else jnp.asarray(m)
+
+        def f(q_, k_, v_):
+            return jpa.flash_attention(q_, k_, v_, jm,
+                                       jnp.array([[seed]], jnp.int32), scale,
+                                       causal, 16, 16, True, rate)
+
+        _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(dout))
+        tm = None if m is None else _t(m)
+        out, lse = ca.flash_attention_reference(
+            _t(q), _t(k), _t(v), tm, seed, scale=scale, causal=causal,
+            dropout_rate=rate)
+        got = ca.flash_attention_backward_reference(
+            _t(q), _t(k), _t(v), tm, seed, out, lse, _t(dout), scale=scale,
+            causal=causal, dropout_rate=rate)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                       err_msg=name)
+
+    @pytest.mark.parametrize("rate", [0.0, 0.25])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_autograd_function_vs_autograd_of_plain_forward(self, rate,
+                                                             causal):
+        """``FlashAttentionFn`` on CPU tensors (its backward = the plain
+        dq and dk/dv) against torch autograd through the plain forward."""
+        q, k, v = (_t(a) for a in _qkv(seed=21))
+        m = _t(_key_mask(6, 40, seed=22))
+        dout = _t(np.random.RandomState(23).randn(6, 40, 16).astype(
+            np.float32))
+        grads = []
+        for fn in (ca.flash_attention, ca.flash_attention_reference):
+            qs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out, lse = fn(*qs, m, 77, causal=causal, dropout_rate=rate)
+            if fn is ca.flash_attention:  # lse is not differentiated
+                assert not lse.requires_grad
+            grads.append(torch.autograd.grad(out, qs, dout))
+        for name, g, w in zip(("dq", "dk", "dv"), *grads):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL,
+                                       err_msg=name)
+
+    def test_flash_attention_output_carries_a_grad_fn(self):
+        q, k, v = (_t(a).requires_grad_(True) for a in _qkv(seed=31))
+        out, _ = ca.flash_attention(q, k, v)
+        assert out.grad_fn is not None
+        before = (ca.flash_attention.launches, ca.flash_attention_dq.launches,
+                  ca.flash_attention_dkv.launches)
+        out.sum().backward()
+        assert q.grad is not None and k.grad is not None and v.grad is not None
+        assert (ca.flash_attention.launches, ca.flash_attention_dq.launches,
+                ca.flash_attention_dkv.launches) == before  # CPU: plain
+
+    def test_dropout_needs_a_seed_and_an_rng(self):
+        q, k, v = (_t(a) for a in _qkv(bh=2, t_q=8, t_k=8))
+        with pytest.raises(ValueError, match="needs a seed"):
+            ca.flash_attention(q, k, v, dropout_rate=0.1)
+        with pytest.raises(ValueError, match="requires dropout_rng"):
+            ca.flash_dpa(q[None], k[None], v[None], dropout_rate=0.1)
+
+    def test_flash_dpa_draws_its_seed_from_the_generator(self):
+        """Two generators seeded alike give the same dropped output; the
+        folded batch·head index is batch-major, as the JAX ``flash_dpa``."""
+        r = np.random.RandomState(41)
+        q, k, v = (_t(r.randn(2, 3, 24, 16).astype(np.float32))
+                   for _ in range(3))
+        mask = _t(_key_mask(2, 24, seed=42)[:, None, None, :])
+        outs = [ca.flash_dpa(q, k, v, mask, dropout_rate=0.2,
+                             dropout_rng=torch.Generator().manual_seed(5))
+                for _ in range(2)]
+        assert torch.equal(outs[0], outs[1])
+        seed = ca.rng_to_seed(torch.Generator().manual_seed(5))
+        assert seed.dtype == torch.int32 and seed.shape == (1,)
+        m = mask.reshape(2, 24).float().repeat_interleave(3, dim=0)
+        want, _ = ca.flash_attention_reference(
+            q.reshape(6, 24, 16), k.reshape(6, 24, 16), v.reshape(6, 24, 16),
+            m, seed, dropout_rate=0.2)
+        np.testing.assert_allclose(outs[0].reshape(6, 24, 16).numpy(),
+                                   want.numpy(), **TOL)
+
+
 class TestGenericOpParity:
     @pytest.mark.parametrize("t_q,t_k", [(24, 24), (8, 24)])
     def test_dot_product_attention_4d(self, t_q, t_k):
@@ -120,6 +275,24 @@ class TestGenericOpParity:
         got = exec_op("dot_product_attention", _t(q), _t(k), _t(v), _t(m),
                       scaled=True, causal=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    def test_int_key_mask_as_bert_passes_it(self):
+        """BERT hands the op its (B, 1, 1, T) int32 iterator mask: the
+        port reads nonzero as attend (``.bool()``) and fills -1e9, as
+        ``jnp.where`` on the int mask does."""
+        r = np.random.RandomState(7)
+        q, k, v = (r.randn(2, 3, 24, 16).astype(np.float32)
+                   for _ in range(3))
+        m = _key_mask(2, 24, seed=8).astype(np.int32)[:, None, None, :]
+        want = jax_nn_ops.dot_product_attention.fn(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(m),
+            scaled=True)
+        got = exec_op("dot_product_attention", _t(q), _t(k), _t(v), _t(m),
+                      scaled=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        with pytest.raises(ValueError, match="requires dropout_rng"):
+            exec_op("dot_product_attention", _t(q), _t(k), _t(v),
+                    dropout_rate=0.1)
 
 
 def _paged_inputs(seed=3):
@@ -181,8 +354,9 @@ class TestDispatch:
         q4 = torch.zeros(1, 12, 32, 64)
         m4 = torch.ones(1, 1, 1, 32)
         assert ca.flash_usable(q4, q4, q4, m4, causal=True)
-        assert not ca.flash_usable(q4, q4, q4, m4, causal=True,
-                                   dropout_rate=0.1)
+        # dropout runs in the kernels, as it does in the JAX gate's kernel
+        assert ca.flash_usable(q4, q4, q4, m4, causal=True,
+                               dropout_rate=0.1)
         short = torch.zeros(1, 12, 8, 64)
         assert not ca.flash_usable(short, q4, q4, m4, causal=True)
         assert ca.flash_usable(short, q4, q4, m4, causal=False)
@@ -215,8 +389,7 @@ class TestDispatch:
         """Over a grid of ranks, masks, causal flags, head dims and page
         sizes, each gate (device check stubbed) says what the JAX gate says
         with its TPU-measured thresholds taken out (``flash_min_t`` 0,
-        ``min_pages`` at its default 1). Dropout is left out of the grid:
-        the CUDA kernel has none yet, so the port's gate refuses it."""
+        ``min_pages`` at its default 1), with and without dropout."""
         from deeplearning4j_tpu.ops.registry import registry as jax_registry
 
         monkeypatch.setattr(ca, "_on_cuda", lambda *ts: True)
@@ -232,18 +405,21 @@ class TestDispatch:
         n = 0
         for d in (8, 44, 64, 128, 256):
             for t_q in (16, 32):
-                for causal in (False, True):
+                for causal, rate in ((False, 0.0), (True, 0.0),
+                                     (False, 0.1), (True, 0.1)):
                     for mname, mk in masks.items():
                         q = z((1, 2, t_q, d), np.float32)
                         kv = z((1, 2, 32, d), np.float32)
                         m = mk(1, 2, 32)
                         if mname == "full":
                             m = z((1, 2, t_q, 32), np.float32)
-                        want = bool(jax_flash(q, kv, kv, m, causal=causal))
+                        want = bool(jax_flash(q, kv, kv, m, causal=causal,
+                                              dropout_rate=rate))
                         got = ca.flash_usable(
                             _t(q), _t(kv), _t(kv),
-                            None if m is None else _t(m), causal=causal)
-                        assert got == want, (d, t_q, causal, mname)
+                            None if m is None else _t(m), causal=causal,
+                            dropout_rate=rate)
+                        assert got == want, (d, t_q, causal, rate, mname)
                         n += want
         for d in (8, 44, 64, 128):
             for page in (8, 12, 16):

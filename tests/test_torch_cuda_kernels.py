@@ -10,7 +10,11 @@ on the card with::
 main path's shapes; these cover the edges. Attention: ragged lengths,
 one-row queries, non-causal and rectangular attention, head dims of every
 instantiation (padded and exact), other page sizes, empty (inactive)
-decode slots, and the three dtypes. Training: every updater kind on
+decode slots, and the three dtypes; in-kernel dropout (the dropped
+entries read out and compared with ``keep_mask``), the dq and dk/dv
+kernels with and without dropout, gradients through the registry's
+``dot_product_attention``, and a small BERT trained through all three
+flash kernels. Training: every updater kind on
 ragged, aligned and unaligned leaves in the three dtypes; the convbn
 kernel's gate edges, prologue/relu on and off, its backward against
 autograd of the plain chain, and a small ResNet-50 in both
@@ -21,9 +25,12 @@ float32 1e-4 absolute (same math, another summation order; ~1e-6 seen);
 bfloat16 and float16 one unit in the last place of the plain output
 (RTOL 2^-7 and 2^-10, ATOL 1e-5): both sides compute in float32 and round
 once, so they differ by at most one rounding step. The float32 lse:
-1e-4 absolute.
+1e-4 absolute. The backward: 1e-4 absolute plus, relative, 1e-5 in
+float32 and one unit in the last place in bfloat16/float16 (sums of up
+to T products whose terms reach ~16 at D = 256).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -130,6 +137,172 @@ def test_flash_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ca.flash_attention(q.transpose(0, 1), q.transpose(0, 1),
                            q.transpose(0, 1))
+
+
+def test_flash_dropout_matches_plain_and_drops_the_same(cuda):
+    """The dropout forward against its plain version, and the masks read
+    out with V = identity columns (out[i, j] = kept, scaled p_ij): the
+    kernel drops exactly the entries :func:`keep_mask` drops."""
+    bh, t, d, rate = 6, 64, 64, 0.3
+    q = _randn((bh, t, d), torch.float32, cuda, 40)
+    k = _randn((bh, t, d), torch.float32, cuda, 41)
+    v = torch.eye(t, d, device=cuda).expand(bh, t, d).contiguous()
+    lens = torch.tensor([64, 50, 33, 17, 64, 1], device=cuda)
+    m = (torch.arange(t, device=cuda)[None] < lens[:, None]).float()
+    seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
+    for causal in (False, True):
+        out, lse = ca.flash_attention(q, k, v, m, seed, causal=causal,
+                                      dropout_rate=rate)
+        ref, ref_lse = ca.flash_attention_reference(
+            q, k, v, m, seed, causal=causal, dropout_rate=rate)
+        torch.cuda.synchronize()
+        _assert_close(out, ref, torch.float32)
+        assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+        visible = (m[:, None, :] > 0.5).expand(bh, t, t)
+        if causal:
+            visible = visible & torch.ones(t, t, dtype=torch.bool,
+                                           device=cuda).tril()
+        keep = ca._tile_keep(seed, bh, t, t, rate, cuda)
+        assert torch.equal(out[..., :t] != 0, keep & visible)
+        assert 0.6 < keep.float().mean().item() < 0.8
+
+
+BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}
+BWD_ATOL = 1e-4  # float32 sums of up to T products of O(1-16) terms
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t_q,t_k,causal,masked", [
+    (70, 70, True, True),      # ragged, causal tile skips, masked
+    (130, 130, False, True),   # non-causal, masked, several tiles
+    (20, 90, False, False),    # rectangular, one query tile
+    (1, 1, True, False),       # one row
+])
+def test_flash_backward_matches_plain(cuda, dtype, d, rate, t_q, t_k,
+                                      causal, masked):
+    """dq and dk/dv kernels against their plain versions, from the plain
+    forward's lse and a torch Δ."""
+    bh = 3
+    q = _randn((bh, t_q, d), dtype, cuda, 50)
+    k = _randn((bh, t_k, d), dtype, cuda, 51)
+    v = _randn((bh, t_k, d), dtype, cuda, 52)
+    dout = _randn((bh, t_q, d), dtype, cuda, 53)
+    m = None
+    if masked:
+        lens = torch.tensor([t_k, max(1, t_k // 3), 1], device=cuda)
+        m = (torch.arange(t_k, device=cuda)[None] < lens[:, None]).float()
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda)
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal, dropout_rate=rate)
+    out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+    delta = ca.attention_delta(dout, out)
+    n_dq, n_dkv = ca.flash_attention_dq.launches, ca.flash_attention_dkv.launches
+    dq = ca.flash_attention_dq(q, k, v, m, seed, dout, lse, delta, **kw)
+    dk, dv = ca.flash_attention_dkv(q, k, v, m, seed, dout, lse, delta, **kw)
+    ref_dq = ca.flash_attention_dq_reference(q, k, v, m, seed, dout, lse,
+                                             delta, **kw)
+    ref_dk, ref_dv = ca.flash_attention_dkv_reference(
+        q, k, v, m, seed, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (ca.flash_attention_dq.launches - n_dq,
+            ca.flash_attention_dkv.launches - n_dkv) == (1, 1)
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        ref = ref.float()
+        err = (got.float() - ref).abs()
+        worst = (err / (BWD_ATOL + BWD_RTOL[dtype] * ref.abs())).max().item()
+        assert worst <= 1.0, (name, err.max().item(), worst)
+
+
+def test_flash_backward_fully_masked_rows_are_finite(cuda):
+    q = _randn((2, 40, 64), torch.float32, cuda, 54)
+    q.requires_grad_(True)
+    m = torch.zeros(2, 40, device=cuda)
+    out, _ = ca.flash_attention(q, q, q, m)
+    (g,) = torch.autograd.grad(out.sum(), (q,))
+    assert torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("causal,rate", [(False, 0.0), (True, 0.0),
+                                         (False, 0.1)])
+def test_attention_gradients_through_the_registry(cuda, causal, rate):
+    """Gradients through ``exec_op("dot_product_attention")`` on CUDA
+    tensors that require grad (the flash kernels, forward and backward)
+    equal those of the plain path; without dropout the plain path is the
+    generic op. Attention gradients used to be lost on the card: the
+    kernel's output carried no grad_fn."""
+    env = environment()
+    old = env.helper_mode
+    b, h, t, d = 2, 3, 40, 64
+    qkv = [_randn((b, h, t, d), torch.float32, cuda, 60 + i)
+           for i in range(3)]
+    dout = _randn((b, h, t, d), torch.float32, cuda, 63)
+    m = (torch.arange(t, device=cuda)[None] < torch.tensor(
+        [[t], [23]], device=cuda)).int()[:, None, None, :]
+    kw = dict(scaled=True, causal=causal, dropout_rate=rate,
+              dropout_rng=torch.Generator(device=cuda).manual_seed(3)
+              if rate else None)
+    grads = {}
+    try:
+        for mode in ("auto", "generic"):
+            env.helper_mode = mode
+            xs = [x.clone().requires_grad_(True) for x in qkv]
+            if rate and mode == "generic":  # same seed, plain versions
+                kw["dropout_rng"] = torch.Generator(device=cuda).manual_seed(3)
+                out = ca.flash_dpa(*xs, m, plain=True, **kw)
+            else:
+                counts = ca.launch_counts()
+                out = exec_op("dot_product_attention", *xs, m, **kw)
+            grads[mode] = torch.autograd.grad(out, xs, dout)
+            if mode == "auto":
+                after = ca.launch_counts()
+                assert all(after[n] - counts[n] == 1 for n in (
+                    "flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"))
+    finally:
+        env.helper_mode = old
+    for a, g in zip(grads["auto"], grads["generic"]):
+        assert (a - g).abs().max().item() <= BWD_ATOL
+
+
+def test_bert_trains_through_the_kernels(cuda):
+    """A small BERT step launches, per layer, one flash forward (with
+    dropout), one dq and one dk/dv, and the updater on every leaf; its
+    losses equal a run whose attention runs the plain versions on the
+    card with the same seeds."""
+    from deeplearning4j_tpu_torch.models.bert import BertConfig, BertModel
+    from deeplearning4j_tpu_torch.ops.registry import registry
+
+    cfg = BertConfig.tiny(hidden=128, heads=2)
+    r = np.random.default_rng(70)
+    lens = np.array([32, 20, 9, 16])
+    mask = (np.arange(32)[None] < lens[:, None]).astype(np.int32)
+    batch = {"ids": (r.integers(5, cfg.vocab_size, (4, 32)) * mask
+                     ).astype(np.int32),
+             "segments": np.zeros((4, 32), np.int32), "mask": mask,
+             "labels": np.eye(2, dtype=np.float32)[[0, 1, 1, 0]]}
+    desc = registry().get("dot_product_attention")
+    losses = {}
+    for plain in (False, True):
+        model = BertModel(cfg, seed=1, device=cuda)
+        if plain:
+            desc.platform_impls["cuda"] = functools.partial(ca.flash_dpa,
+                                                            plain=True)
+        try:
+            ca.reset_launch_counts()
+            u0 = cu.fused_updater.launches
+            losses[plain] = model.fit_classifier([batch, batch])
+            counts = ca.launch_counts()
+            updates = cu.fused_updater.launches - u0
+        finally:
+            desc.platform_impls["cuda"] = ca.flash_dpa
+        want = 0 if plain else 2 * cfg.layers
+        assert (counts["flash_attn_fwd"], counts["flash_attn_dq"],
+                counts["flash_attn_dkv"]) == (want,) * 3
+        assert updates == 2 * 46
+    np.testing.assert_allclose(losses[False], losses[True], rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -62,6 +62,7 @@ class TestPagedKVCache:
         kw.setdefault("num_pages", 8)
         kw.setdefault("max_slots", 3)
         kw.setdefault("max_pages_per_seq", 4)
+        kw.setdefault("device", "cpu")
         return PagedKVCache(**kw)
 
     def test_layout(self):
@@ -299,6 +300,15 @@ class TestEngine:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="is_available"):
             GenerativeEngine(MODEL)
+
+    def test_paged_kv_cache_defaults_to_cuda(self, monkeypatch):
+        """A cache that names no device asks for the card, as every other
+        entry point does (it used to default to the CPU)."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="is_available"):
+            PagedKVCache(layers=1, heads=1, head_dim=8)
+        cache = PagedKVCache(layers=1, heads=1, head_dim=8, device="cpu")
+        assert cache.kv.device.type == "cpu"
 
     def test_init_gpt_params_defaults_to_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
