@@ -16,7 +16,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    bfloat16 at a stage-1 and a stage-3 1×1 conv of batch 128; the flash
    forward with dropout 0.1 and the dq and dk/dv backward kernels in
    float32 and bfloat16 at BERT's two attention shapes (A: BH 384, T 128,
-   ragged key mask; B: BH 96, T 512). With
+   ragged key mask; B: BH 96, T 512), and the forward without dropout at
+   shape A (``onnx_bert``'s attention); the fused matmul + bias +
+   activation epilogue in float32 and bfloat16 at the three imported
+   BERT-base shapes (M 4096; K×N 768×768, 768×3072 with gelu_exact,
+   3072×768), every activation at 768×768 and a ragged M of 4000. With
    kernel / plain / library times (device time: the calls replayed from a
    CUDA graph between CUDA events, so no host work sits between launches)
    and the least time the card could take (``bound_ms``).
@@ -54,6 +58,19 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    the last place; ``predict`` launches 12 forwards.
 8. ``bert_mlm`` — the same for ``BertModel(..., dtype=bfloat16)``,
    ``fit_mlm`` on batch 8 × seq 512 with 15% of positions masked.
+9. ``onnx_bert`` — the imported-graph path: the ONNX bytes of a
+   BERT-base-width encoder (12 layers, d 768, 12 heads, ff 3072, vocab
+   30522, ~108.5M float32 weights from a numpy seed) built by the port's
+   builder, ``import_onnx`` onto the card, and ``sd.output`` on batch 32
+   × seq 128 with ragged rows (16…128 keys): the optimized plan must hold
+   12 attention and 72 epilogue fusions, and one forward — launch counts
+   and the dispatch counter set to 0 just before — must dispatch 72
+   ``fused_matmul_bias_act`` and 12 ``dot_product_attention`` calls to
+   the ``cuda`` kernels. Its output is held against
+   ``helper_mode="generic"`` and against the unoptimized graph
+   (``optimize=False``). Reports the p50 forward time and tokens/s over 5
+   forwards after 2 warm ones, parse and plan seconds, node counts and
+   peak memory.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -115,6 +132,22 @@ BERT_STEPS = 3
 # gradients of opposite sign move parameters by ~2·lr in either run pair.
 BERT_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 BERT_YARDSTICK = 3.0
+# fused matmul epilogue at the imported BERT-base shapes (M = batch 32 ·
+# seq 128): (K, N, activation) per layer — q/k/v/o projections ×4, FF1
+# with the exact gelu, FF2 — plus every activation at one shape and a
+# ragged M. Tolerance: cuda_matmul.kernel_tolerance — the float32
+# summation bound of K terms (2·K·2^-24·max|x|·max|w|) plus, in bfloat16,
+# one unit in the last place of the plain output.
+FUSED_MM_SHAPES = [(4096, 768, 768, "none"), (4096, 768, 3072, "gelu_exact"),
+                   (4096, 3072, 768, "none")]
+FUSED_MM_EXTRA = [(4096, 768, 768, "relu"), (4096, 768, 768, "tanh"),
+                  (4096, 768, 768, "gelu"), (4000, 768, 768, "gelu_exact")]
+# onnx_bert: the kernel run, the generic run and the unoptimized graph
+# compute the same float32 function through 12 layers, summed in other
+# orders (CUDA-core kernels vs cuBLAS): the output probabilities (y, in
+# [0, 1]) may differ by 1e-4 absolute
+ONNX_BERT_TOL = 1e-4
+ONNX_BERT_TIMED = 5
 IMAGE = (224, 224, 3)
 CLASSES = 1000
 TRAIN_STEPS = 3
@@ -307,9 +340,11 @@ def _sdpa_args(q, k, v, mask, heads):
     return four, m4
 
 
-def flash_dropout_case(dtype, dev, label):
-    """Flash forward with in-kernel dropout 0.1 at a BERT shape, against
-    its plain version with the same seed (same keep mask)."""
+def flash_bert_case(dtype, dev, label, rate):
+    """Flash forward at a BERT shape, not causal, with in-kernel dropout
+    ``rate`` (0.1 for training; 0 for the imported forward of
+    ``onnx_bert``, which builds the kernel without dropout), against its
+    plain version with the same seed (same keep mask)."""
     import torch
     import torch.nn.functional as F
 
@@ -317,8 +352,9 @@ def flash_dropout_case(dtype, dev, label):
 
     shape = BERT_ATTN_SHAPES[label]
     q, k, v, _, mask, _, pairs = _attn_inputs(shape, dtype, dev, 11)
-    seed = torch.tensor([20260917], dtype=torch.int32, device=dev)
-    kw = dict(dropout_rate=ATTN_DROPOUT)
+    seed = (torch.tensor([20260917], dtype=torch.int32, device=dev)
+            if rate else None)
+    kw = dict(dropout_rate=rate)
     out, lse = ca.flash_attention(q, k, v, mask, seed, **kw)
     ref_out, ref_lse = ca.flash_attention_reference(q, k, v, mask, seed,
                                                     **kw)
@@ -333,7 +369,7 @@ def flash_dropout_case(dtype, dev, label):
     plain_ms = time_ms(lambda: ca.flash_attention_reference(
         q, k, v, mask, seed, **kw))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=m4, dropout_p=ATTN_DROPOUT))
+        q4, k4, v4, attn_mask=m4, dropout_p=rate))
     bh, t, d = q.shape
     es = q.element_size()
     nbytes = 4 * bh * t * d * es + bh * t * 4 + (0 if mask is None
@@ -341,12 +377,13 @@ def flash_dropout_case(dtype, dev, label):
     bms, by = bound(nbytes, 4.0 * d * pairs, name)
     return ok, {"kernel": "flash_attn_fwd", "dtype": name, "bert": label,
                 "shape": [bh, t, d], "masked": mask is not None,
-                "dropout": ATTN_DROPOUT, "max_abs_err": err,
+                "dropout": rate, "max_abs_err": err,
                 "tol": tol_text(name), "err_over_tol": share,
                 "lse_max_abs_err": err_lse, "lse_tol": TOL_LSE, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                "library_note": "SDPA forward with dropout_p 0.1 (its own "
-                                "RNG), timed only",
+                "library_note": f"SDPA forward with dropout_p {rate:g}"
+                                + (" (its own RNG)" if rate else "")
+                                + ", timed only",
                 "bound_ms": bms, "bound_by": by}
 
 
@@ -833,6 +870,181 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     return problems, line, launches
 
 
+def fused_matmul_case(dev):
+    """act(x @ w + b) at the imported BERT-base shapes (float32 and
+    bfloat16) and the extra activations and ragged M (float32 and
+    bfloat16), held to ``cuda_matmul.kernel_tolerance``."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    lib_act = {"none": lambda y: y, "relu": torch.relu, "tanh": torch.tanh,
+               "gelu": lambda y: F.gelu(y, approximate="tanh"),
+               "gelu_exact": F.gelu}
+    entries, ok = [], True
+    cases = ([(s, d) for d in (torch.float32, torch.bfloat16)
+              for s in FUSED_MM_SHAPES]
+             + [(s, d) for s in FUSED_MM_EXTRA
+                for d in (torch.float32, torch.bfloat16)])
+    for (m, k, n, act), dtype in cases:
+        rng = np.random.default_rng(6)
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)
+                             ).to(dev, dtype)
+        w = torch.from_numpy((0.02 * rng.standard_normal((k, n))).astype(
+            np.float32)).to(dev, dtype)
+        b = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
+            np.float32)).to(dev)
+        out = cm.fused_matmul(x, w, b, activation=act)
+        ref = cm.fused_matmul_bias_act_reference(x, w, b, activation=act)
+        torch.cuda.synchronize()
+        atol, rtol = cm.kernel_tolerance(x, w, ref)
+        err = (out.float() - ref.float()).abs()
+        share = (err / (atol + rtol * ref.float().abs())).max().item()
+        ok = ok and share <= 1.0 and bool(torch.isfinite(out.float()).all())
+        bl = b.to(dtype)
+        ms = time_ms(lambda: cm.fused_matmul(x, w, b, activation=act))
+        plain_ms = time_ms(lambda: cm.fused_matmul_bias_act_reference(
+            x, w, b, activation=act))
+        lib_ms = time_ms(lambda: lib_act[act](torch.addmm(bl, x, w)))
+        name = str(dtype).replace("torch.", "")
+        es = x.element_size()
+        nbytes = es * (m * k + k * n + m * n) + 4.0 * n
+        bms, by = bound(nbytes, 2.0 * m * k * n, name)
+        entries.append({
+            "kernel": "fused_matmul_bias_act", "dtype": name,
+            "shape": [m, k, n], "activation": act, "max_abs_err":
+            err.max().item(), "tol": f"{atol:.3g} + {rtol:g}*|plain|",
+            "err_over_tol": share, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_note": "torch.addmm (cuBLAS, TF32 off) plus the "
+                            "activation, bias in the operands' dtype",
+            "bound_ms": bms, "bound_by": by,
+            "achieved_tflops": 2.0 * m * k * n / ms / 1e9})
+    return ok, entries
+
+
+def onnx_bert_phase(dev, smi):
+    """The imported-graph path at BERT-base width: ONNX bytes →
+    ``import_onnx`` → SameDiff → optimizer → ``sd.output``, with the
+    kernels, with ``helper_mode="generic"`` and with ``optimize=False``.
+    Returns (problems, line, launches of the main path's forward)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.testing.onnx_builder import (
+        BERT_BASE_ONNX, bert_onnx_feeds, bert_onnx_model)
+
+    cfg = BERT_BASE_ONNX
+    env = environment()
+    t0 = time.perf_counter()
+    model = bert_onnx_model(**cfg)
+    build_s = time.perf_counter() - t0
+    feeds = bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+
+    def run(mode, optimize, *, counted=False):
+        """Import, 2 warm forwards, [the counted forward], 5 timed."""
+        env.helper_mode = mode
+        try:
+            t0 = time.perf_counter()
+            sd = import_onnx(model, optimize=optimize, device=dev)
+            torch.cuda.synchronize()
+            parse_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sd.output(feeds, ["y"])  # the first forward builds the plan
+            first_s = time.perf_counter() - t0
+            sd.output(feeds, ["y"])
+            launches = None
+            if counted:
+                observe.reset()
+                ca.reset_launch_counts()
+                cm.fused_matmul.launches = 0  # the main path starts here
+                y = sd.output(feeds, ["y"])["y"]
+                launches = dict(fused_matmul_bias_act=cm.fused_matmul.launches,
+                                flash_attn_fwd=ca.launch_counts()[
+                                    "flash_attn_fwd"])  # ... ends here
+                disp = observe.metrics()
+                launches["dispatch_cuda"] = {
+                    op: disp.counter("dl4j_tpu_helper_dispatch_total", op=op,
+                                     impl="cuda", reason="usable").value
+                    for op in ("fused_matmul_bias_act",
+                               "dot_product_attention")}
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(ONNX_BERT_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = sd.output(feeds, ["y"])["y"]
+                times.append(time.perf_counter() - t0)
+            st = sd.last_compile_stats
+            info = {"parse_s": parse_s, "first_forward_s": first_s,
+                    "p50_ms": float(np.percentile(times, 50)) * 1e3,
+                    "times_ms": [t * 1e3 for t in times],
+                    "peak_memory_gib":
+                        torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "nodes": len(sd._nodes)}
+            if optimize:
+                info.update(plan_s=st.optimize_seconds,
+                            nodes_before=st.nodes_before,
+                            nodes_after=st.nodes_after, fusions=st.fusions,
+                            invariant_checks=st.invariant_checks)
+            del sd
+            torch.cuda.empty_cache()
+            return y, info, launches
+        finally:
+            env.helper_mode = "auto"
+
+    y_k, k_info, launches = run("auto", True, counted=True)
+    y_g, g_info, _ = run("generic", True)
+    y_u, u_info, _ = run("auto", False)
+    problems = []
+    if k_info["fusions"] != {"attention": cfg["layers"],
+                             "epilogue": 6 * cfg["layers"]}:
+        problems.append(f"fusions {k_info['fusions']}")
+    want = {"fused_matmul_bias_act": 6 * cfg["layers"],
+            "flash_attn_fwd": cfg["layers"]}
+    for name, n in want.items():
+        if launches[name] != n:
+            problems.append(f"{name} launches {launches[name]} != {n}")
+    if launches["dispatch_cuda"] != {"fused_matmul_bias_act": 6 * cfg[
+            "layers"], "dot_product_attention": cfg["layers"]}:
+        problems.append(f"cuda dispatches {launches['dispatch_cuda']}")
+    shape = (cfg["batch"], cfg["seq"], 2)
+    diffs = {}
+    for label, y in (("kernel", y_k), ("generic", y_g),
+                     ("unoptimized", y_u)):
+        if y.shape != shape or not np.all(np.isfinite(y)):
+            problems.append(f"{label} output {y.shape} not finite")
+    diffs["kernel_vs_generic"] = float(np.abs(y_k - y_g).max())
+    diffs["kernel_vs_unoptimized"] = float(np.abs(y_k - y_u).max())
+    diffs["generic_vs_unoptimized"] = float(np.abs(y_g - y_u).max())
+    for label, d in diffs.items():
+        if d > ONNX_BERT_TOL:
+            problems.append(f"{label} max abs diff {d} > {ONNX_BERT_TOL}")
+    tokens = cfg["batch"] * cfg["seq"]
+    real = float(feeds["mask"].sum())
+    line = {"phase": "onnx_bert", "card": smi, "config": cfg,
+            "weights": "float32, numpy RandomState(0) * 0.02",
+            "build_bytes_s": build_s, "model_bytes": len(model),
+            "launches": launches, "kernel": k_info, "generic": g_info,
+            "unoptimized": u_info, "max_abs_diff": diffs,
+            "tol": ONNX_BERT_TOL,
+            "smoke_reading": f"{ONNX_BERT_TIMED} forwards, no spread",
+            "forward_p50_ms": k_info["p50_ms"],
+            "tokens_per_s": tokens / (k_info["p50_ms"] / 1e3),
+            "real_tokens_per_s": real / (k_info["p50_ms"] / 1e3),
+            "generic_tokens_per_s": tokens / (g_info["p50_ms"] / 1e3),
+            "unoptimized_tokens_per_s": tokens / (u_info["p50_ms"] / 1e3),
+            "problems": problems}
+    return problems, line, {"fused_matmul_bias_act":
+                            launches["fused_matmul_bias_act"],
+                            "flash_attn_fwd": launches["flash_attn_fwd"]}
+
+
 def serve(engine_cls, model, prompts, **engine_kw):
     """Serve ``prompts`` through start()/submit()/stop(); returns the
     results and the wall seconds from first submit to last result."""
@@ -933,14 +1145,22 @@ def main() -> int:
         failed.append("bn_matmul_stats[bfloat16]")
     for label in BERT_ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            ok, entry = flash_dropout_case(dtype, dev, label)
-            entries.append(entry)
-            if not ok:
-                failed.append(f"flash_attn_fwd[dropout, {label}, {dtype}]")
+            # shape A without dropout is onnx_bert's attention
+            for rate in (ATTN_DROPOUT, 0.0) if label == "A" else (
+                    ATTN_DROPOUT,):
+                ok, entry = flash_bert_case(dtype, dev, label, rate)
+                entries.append(entry)
+                if not ok:
+                    failed.append(f"flash_attn_fwd[dropout {rate}, "
+                                  f"{label}, {dtype}]")
             ok, bwd_entries = flash_backward_case(dtype, dev, label)
             entries += bwd_entries
             if not ok:
                 failed.append(f"flash_attn_dq/dkv[{label}, {dtype}]")
+    ok, mm_entries = fused_matmul_case(dev)
+    entries += mm_entries
+    if not ok:
+        failed.append("fused_matmul_bias_act[float32/bfloat16]")
     emit({"phase": "kernels", "card": smi, "entries": entries})
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
@@ -1044,12 +1264,19 @@ def main() -> int:
         if problems:
             raise SystemExit(f"{phase} phase failed: {problems}")
 
+    # ---------------------------------------------------------- onnx_bert
+    problems, line, train_launches["onnx_bert"] = onnx_bert_phase(dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"onnx_bert phase failed: {problems}")
+
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
     by_path = {"flash_attn_fwd": {"serve": launches["flash_attn_fwd"]},
                "paged_decode": {"serve": launches["paged_decode"]},
                "fused_updater": {}, "bn_matmul_stats": {},
-               "flash_attn_dq": {}, "flash_attn_dkv": {}}
+               "flash_attn_dq": {}, "flash_attn_dkv": {},
+               "fused_matmul_bias_act": {}}
     for path, counts in train_launches.items():
         for name, n in counts.items():
             if name in by_path and n:
@@ -1060,7 +1287,8 @@ def main() -> int:
         "fused_updater": ("fused_updater.cu", "pallas_updater.py:84"),
         "bn_matmul_stats": ("bn_matmul_stats.cu", "pallas_convbn.py:49"),
         "flash_attn_dq": ("flash_attn_bwd.cu", "pallas_attention.py:244"),
-        "flash_attn_dkv": ("flash_attn_bwd.cu", "pallas_attention.py:282")}
+        "flash_attn_dkv": ("flash_attn_bwd.cu", "pallas_attention.py:282"),
+        "fused_matmul_bias_act": ("fused_matmul.cu", "pallas_matmul.py:42")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = []
@@ -1078,7 +1306,8 @@ def main() -> int:
             "other_shapes": [dict({k: r[k] for k in keys},
                                   dtype=r["dtype"], shape=r["shape"],
                                   **{x: r[x] for x in ("bert", "dropout",
-                                                       "leaf", "conv")
+                                                       "leaf", "conv",
+                                                       "activation")
                                      if x in r})
                              for r in rows[1:]]})
     emit({"kernels": summary})

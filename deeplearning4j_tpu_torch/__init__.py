@@ -14,8 +14,11 @@ over the fused updater step (``ops.cuda_updater``) and the fused
 BN-apply/1×1-matmul/BN-stats kernel (``ops.cuda_convbn``); and BERT
 training — ``models.BertModel(...).fit_classifier`` / ``fit_mlm`` — over
 differentiable flash attention with in-kernel dropout and the dq and
-dk/dv backward kernels. Entry points run on ``"cuda"`` unless the caller
-passes ``device="cpu"``.
+dk/dv backward kernels; and imported graphs —
+``imports.import_onnx(bytes)`` → ``autodiff.SameDiff`` → the graph
+optimizer's fusion tier → ``sd.output`` — over flash attention and the
+fused matmul + bias + activation epilogue (``ops.cuda_matmul``). Entry
+points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 """
 
 from deeplearning4j_tpu_torch import observe, ops  # noqa: F401

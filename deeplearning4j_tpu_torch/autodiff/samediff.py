@@ -1,0 +1,996 @@
+"""SameDiff — the define-then-run graph engine of the port.
+
+Counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``: the user (or an
+importer) builds a graph of named variables and recorded ops; execution
+runs the requested outputs' subgraph — after the pre-run optimizer
+(:mod:`.optimize`: DCE, folding, CSE, algebraic cleanup and the fusion
+tier) when ``optimize=True`` — through the op catalog below and the
+port's registry, where fused nodes reach the hand-written CUDA kernels
+(``dot_product_attention`` → flash attention, ``fused_matmul_bias_act`` →
+the fused matmul epilogue).
+
+What differs from the JAX package:
+
+* There is no trace: the plan runs eagerly, node by node, on the card.
+  Values a node's consumers no longer need are dropped as soon as the last
+  one has run, so peak memory is the live set, not every intermediate.
+* Arrays are torch tensors on ``SameDiff(device=...)`` (the card unless
+  the caller asks for the CPU). Feeds, constants, variables and folded
+  constants are canonicalized as the JAX package does with 64-bit types
+  off: float64 → float32, int64 → int32 (complex128 → complex64, uint64 →
+  uint32), so avals, CSE keys and folds are the JAX package's.
+* ``output`` returns numpy arrays, as the JAX package does; a bfloat16
+  result comes back as float32 (numpy has no bfloat16).
+* Ported: the construction API, the ``math`` and ``nn`` namespaces, the
+  graph-op catalog without the losses, ``output``/``exec``,
+  ``get_arr``/``set_arr``, ``variables`` and ``summary``. Not yet:
+  gradients and ``fit``, control flow (scan/while/cond), serde, the other
+  namespaces and graph checking (``check``; ``validate=True`` raises)
+  (ROADMAP.md, Queue 1 items 6 and 10).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.environment import resolve_device
+from deeplearning4j_tpu_torch.ops import nn_ops
+from deeplearning4j_tpu_torch.ops.registry import registry as op_registry
+
+VALIDATE_NOT_PORTED = (
+    "graph checking (validate=True) needs the analyzers' check_samediff, "
+    "which the port does not have yet (ROADMAP.md, Queue 1 item 10)")
+
+# the JAX package runs with 64-bit types off: these become 32-bit
+_CANON = {torch.float64: torch.float32, torch.int64: torch.int32,
+          torch.complex128: torch.complex64}
+if hasattr(torch, "uint64"):
+    _CANON[torch.uint64] = torch.uint32
+
+
+def canonical_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype an array of ``dt`` has in the JAX package (64-bit off)."""
+    return _CANON.get(dt, dt)
+
+
+def canonical(value, device: Optional[torch.device] = None) -> torch.Tensor:
+    """``value`` (tensor, numpy array or Python scalar) as a tensor of its
+    canonical dtype on ``device`` (its own device when None)."""
+    if isinstance(value, torch.Tensor):
+        t = value
+    else:
+        arr = np.asarray(value)
+        if not arr.flags.writeable or not arr.flags.c_contiguous:
+            arr = np.array(arr)  # torch.from_numpy wants writable memory
+        t = torch.from_numpy(arr)
+    t = t.to(canonical_dtype(t.dtype))
+    return t if device is None else t.to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class SDVariable:
+    """SDVariable.java analog: a named symbolic tensor in one SameDiff graph.
+
+    variable_type: PLACEHOLDER | VARIABLE (trainable) | CONSTANT | ARRAY
+    (op output) — mirrors org.nd4j.autodiff.samediff.VariableType.
+    """
+
+    def __init__(self, sd: "SameDiff", name: str, vtype: str,
+                 shape: Optional[Tuple[int, ...]] = None,
+                 dtype: torch.dtype = torch.float32):
+        self.sd = sd
+        self.name = name
+        self.vtype = vtype
+        self.shape = tuple(shape) if shape is not None else None
+        self.dtype = dtype
+
+    # ---- python operator sugar (SDVariable.add/mul/... in the reference) --
+    def _bin(self, op: str, other) -> "SDVariable":
+        other = self.sd._lift(other)
+        return self.sd._record(op, [self, other])
+
+    def __add__(self, o):
+        return self._bin("add", o)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._bin("sub", o)
+
+    def __rsub__(self, o):
+        return self.sd._lift(o)._bin("sub", self)
+
+    def __mul__(self, o):
+        return self._bin("mul", o)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._bin("div", o)
+
+    def __rtruediv__(self, o):
+        return self.sd._lift(o)._bin("div", self)
+
+    def __pow__(self, o):
+        return self._bin("pow", o)
+
+    def __neg__(self):
+        return self.sd._record("neg", [self])
+
+    def __matmul__(self, o):
+        return self._bin("mmul", o)
+
+    # ---- common methods ---------------------------------------------------
+    def add(self, o):
+        return self.__add__(o)
+
+    def sub(self, o):
+        return self.__sub__(o)
+
+    def mul(self, o):
+        return self.__mul__(o)
+
+    def div(self, o):
+        return self.__truediv__(o)
+
+    def mmul(self, o):
+        return self.__matmul__(o)
+
+    def reshape(self, *shape):
+        return self.sd._record("reshape", [self],
+                               {"shape": tuple(int(s) for s in shape)})
+
+    def transpose(self, *axes):
+        return self.sd._record("transpose", [self], {"axes": axes or None})
+
+    def sum(self, *axes, keepdims=False):
+        return self.sd._record("reduce_sum", [self],
+                               {"axes": axes or None, "keepdims": keepdims})
+
+    def mean(self, *axes, keepdims=False):
+        return self.sd._record("reduce_mean", [self],
+                               {"axes": axes or None, "keepdims": keepdims})
+
+    def max(self, *axes, keepdims=False):
+        return self.sd._record("reduce_max", [self],
+                               {"axes": axes or None, "keepdims": keepdims})
+
+    def min(self, *axes, keepdims=False):
+        return self.sd._record("reduce_min", [self],
+                               {"axes": axes or None, "keepdims": keepdims})
+
+    def std(self, *axes, keepdims=False):
+        return self.sd._record("reduce_std", [self],
+                               {"axes": axes or None, "keepdims": keepdims})
+
+    def argmax(self, axis=-1):
+        return self.sd._record("argmax", [self], {"axis": axis})
+
+    def rename(self, new_name: str) -> "SDVariable":
+        self.sd._rename(self.name, new_name)
+        return self
+
+    def eval(self, feeds: Optional[Dict[str, Any]] = None):
+        """Evaluate just this variable (SDVariable.eval)."""
+        return self.sd.output(feeds or {}, [self.name])[self.name]
+
+    def __repr__(self):
+        return (f"SDVariable(name={self.name!r}, type={self.vtype}, "
+                f"shape={self.shape})")
+
+
+class _Node:
+    """One recorded op application (the reference's SameDiffOp entry)."""
+
+    __slots__ = ("op", "inputs", "kwargs", "outputs")
+
+    def __init__(self, op: str, inputs: List[str], kwargs: Dict[str, Any],
+                 outputs: List[str]):
+        self.op = op
+        self.inputs = inputs
+        self.kwargs = kwargs
+        self.outputs = outputs
+
+
+# ---------------------------------------------------------------------------
+# Op implementations available to graphs: name -> callable taking
+# (*input_tensors, **kwargs), the torch counterparts of the JAX package's
+# GRAPH_OPS (its jnp/lax entries), with its dtype results: comparisons give
+# float32, argmax/argmin and integer sums int32, true division of integers
+# float32. The loss entries are not ported yet.
+# ---------------------------------------------------------------------------
+
+
+def _all_axes(x, axes):
+    return tuple(range(x.ndim)) if not axes else tuple(int(a) for a in axes)
+
+
+def _int_sum_dtype(x):
+    # integer and bool sums accumulate in the default int (int32, x32)
+    return None if (x.is_floating_point() or x.is_complex()) else torch.int32
+
+
+def _reduce_sum(x, *, axes=None, keepdims=False):
+    return torch.sum(x, dim=_all_axes(x, axes), keepdim=keepdims,
+                     dtype=_int_sum_dtype(x))
+
+
+def _float(x):
+    return x if (x.is_floating_point() or x.is_complex()) else x.float()
+
+
+def _reduce_mean(x, *, axes=None, keepdims=False):
+    return torch.mean(_float(x), dim=_all_axes(x, axes), keepdim=keepdims)
+
+
+def _reduce_max(x, *, axes=None, keepdims=False):
+    return torch.amax(x, dim=_all_axes(x, axes), keepdim=keepdims)
+
+
+def _reduce_min(x, *, axes=None, keepdims=False):
+    return torch.amin(x, dim=_all_axes(x, axes), keepdim=keepdims)
+
+
+def _reduce_prod(x, *, axes=None, keepdims=False):
+    out = x if x.is_floating_point() else x.to(torch.int32)
+    for a in sorted((d % max(x.ndim, 1) for d in _all_axes(x, axes)),
+                    reverse=True):
+        out = torch.prod(out, dim=a, keepdim=keepdims)
+    return out
+
+
+def _reduce_std(x, *, axes=None, keepdims=False):
+    return torch.std(_float(x), dim=_all_axes(x, axes), unbiased=False,
+                     keepdim=keepdims)
+
+
+def _reduce_var(x, *, axes=None, keepdims=False):
+    return torch.var(_float(x), dim=_all_axes(x, axes), unbiased=False,
+                     keepdim=keepdims)
+
+
+def _cumsum_flags(a, axis, exclusive, reverse):
+    if reverse:
+        a = torch.flip(a, dims=(axis,))
+    out = torch.cumsum(a, dim=axis, dtype=_int_sum_dtype(a))
+    if exclusive:
+        out = out - a
+    if reverse:
+        out = torch.flip(out, dims=(axis,))
+    return out
+
+
+def _mmul(a, b, *, transpose_a=False, transpose_b=False):
+    if transpose_a:
+        a = a.transpose(-1, -2)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return torch.matmul(a, b)
+
+
+def _transpose(a, *, axes=None):
+    perm = (tuple(reversed(range(a.ndim))) if axes is None
+            else tuple(int(p) for p in axes))
+    return a.permute(perm)
+
+
+def _expand_dims(a, *, axis):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    rank = a.ndim + len(axes)
+    for ax in sorted(int(x) % rank for x in axes):
+        a = a.unsqueeze(ax)
+    return a
+
+
+def _squeeze(a, *, axis=None):
+    if axis is None:
+        return a.squeeze()
+    return torch.squeeze(a, dim=axis if isinstance(axis, int)
+                         else tuple(axis))
+
+
+def _dynamic_slice(a, *, begin, size):
+    # lax.dynamic_slice clamps each start so the slice stays in bounds
+    for d, (b, s) in enumerate(zip(begin, size)):
+        b = min(max(int(b), 0), a.shape[d] - int(s))
+        a = a.narrow(d, b, int(s))
+    return a
+
+
+def _strided_slice(a, *, begin, end, strides=None):
+    strides = strides or [1] * len(begin)
+    for d, (b, e, s) in enumerate(zip(begin, end, strides)):
+        idx = range(*slice(b, e, s).indices(a.shape[d]))
+        if idx.step > 0:
+            a = a.narrow(d, idx.start, len(idx)) if idx.step == 1 else \
+                a[(slice(None),) * d + (slice(idx.start, idx.stop,
+                                              idx.step),)]
+        else:  # torch slicing takes no negative step
+            a = torch.index_select(a, d, torch.tensor(
+                list(idx), dtype=torch.long, device=a.device))
+    return a
+
+
+def _gather(params, indices, *, axis=0):
+    """``jnp.take(params, indices.astype(int32), axis)``: negative indices
+    count from the end, out-of-range ones give NaN (0 for integers), as
+    ``jnp.take``'s default fill mode."""
+    axis = int(axis) % params.ndim
+    n = params.shape[axis]
+    idx = indices.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    flat = torch.clamp(idx, 0, max(n - 1, 0)).reshape(-1)
+    out = torch.index_select(params, axis, flat)
+    out = out.reshape(params.shape[:axis] + idx.shape
+                      + params.shape[axis + 1:])
+    fill = float("nan") if params.is_floating_point() else 0
+    keep = valid.reshape((1,) * axis + idx.shape
+                         + (1,) * (params.ndim - axis - 1))
+    return torch.where(keep, out, torch.full((), fill, dtype=out.dtype,
+                                             device=out.device))
+
+
+def _pad(a, *, paddings, value=0.0):
+    if isinstance(paddings, int):
+        paddings = [(paddings, paddings)] * a.ndim
+    flat = []
+    for lo, hi in reversed([tuple(p) for p in paddings]):
+        flat += [int(lo), int(hi)]
+    return F.pad(a, flat, value=value)
+
+
+def _one_hot(a, *, depth):
+    cls = torch.arange(int(depth), device=a.device)
+    return (a.to(torch.int64)[..., None] == cls).to(torch.float32)
+
+
+def _cast(a, *, dtype):
+    from deeplearning4j_tpu_torch.analysis.values import as_dtype
+
+    return a.to(canonical_dtype(as_dtype(dtype)))
+
+
+def _cmp(fn):
+    return lambda a, b: fn(a, b).to(torch.float32)
+
+
+GRAPH_OPS: Dict[str, Callable[..., Any]] = {
+    # elementwise binary
+    "add": lambda a, b: a + b,
+    "sub": lambda a, b: a - b,
+    "mul": lambda a, b: a * b,
+    "div": lambda a, b: a / b,
+    "pow": lambda a, b: a ** b,
+    "floormod": torch.remainder,
+    "maximum": torch.maximum,
+    "minimum": torch.minimum,
+    "squared_difference": lambda a, b: (a - b) ** 2,
+    # comparisons
+    "gt": _cmp(torch.gt),
+    "lt": _cmp(torch.lt),
+    "gte": _cmp(torch.ge),
+    "lte": _cmp(torch.le),
+    "eq": _cmp(torch.eq),
+    "neq": _cmp(torch.ne),
+    # elementwise unary
+    "neg": torch.neg,
+    "abs": torch.abs,
+    "exp": torch.exp,
+    "log": torch.log,
+    "log1p": torch.log1p,
+    "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt,
+    "square": torch.square,
+    "reciprocal": lambda a: 1.0 / a,
+    "sign": torch.sign,
+    "floor": torch.floor,
+    "ceil": torch.ceil,
+    "round": torch.round,
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "tan": torch.tan,
+    "asin": torch.asin,
+    "acos": torch.acos,
+    "atan": torch.atan,
+    "sinh": torch.sinh,
+    "cosh": torch.cosh,
+    "tanh": torch.tanh,
+    "erf": torch.erf,
+    "clip_by_value_graph": lambda a, *, min_value, max_value: torch.clamp(
+        a, min_value, max_value),
+    "cast": _cast,
+    # activations
+    "relu": torch.relu,
+    "relu6": F.relu6,
+    "leakyrelu": lambda a, *, alpha=0.01: F.leaky_relu(a, alpha),
+    "elu": F.elu,
+    "selu": F.selu,
+    "gelu": lambda a: F.gelu(a, approximate="tanh"),
+    "sigmoid": torch.sigmoid,
+    "softplus": F.softplus,
+    "softsign": F.softsign,
+    "swish": F.silu,
+    "mish": F.mish,
+    "hardsigmoid": F.hardsigmoid,
+    "hardtanh": F.hardtanh,
+    "softmax": lambda a, *, axis=-1: torch.softmax(a, dim=axis),
+    "log_softmax": lambda a, *, axis=-1: torch.log_softmax(a, dim=axis),
+    # linalg / shape
+    "mmul": _mmul,
+    "tensordot": lambda a, b, *, axes: torch.tensordot(a, b, dims=axes),
+    "reshape": lambda a, *, shape: torch.reshape(a, tuple(shape)),
+    "transpose": _transpose,
+    "permute": lambda a, *, axes: a.permute(tuple(axes)),
+    "expand_dims": _expand_dims,
+    "squeeze": _squeeze,
+    "concat": lambda *xs, axis=0: torch.cat(xs, dim=axis),
+    "unstack_first": lambda x: x[0],
+    "slice": _dynamic_slice,
+    "strided_slice": _strided_slice,
+    "gather": _gather,
+    "tile": lambda a, *, reps: torch.tile(a, tuple(reps)),
+    "pad": _pad,
+    "size": lambda a: torch.tensor(a.numel(), dtype=torch.int32,
+                                   device=a.device),
+    "one_hot_graph": _one_hot,
+    "where": lambda c, a, b: torch.where(c.bool(), a, b),
+    "select": lambda c, a, b: torch.where(c.bool(), a, b),
+    # reductions
+    "reduce_sum": _reduce_sum,
+    "reduce_mean": _reduce_mean,
+    "reduce_max": _reduce_max,
+    "reduce_min": _reduce_min,
+    "reduce_prod": _reduce_prod,
+    "reduce_std": _reduce_std,
+    "reduce_var": _reduce_var,
+    "argmax": lambda a, *, axis=-1: torch.argmax(a, dim=axis).to(torch.int32),
+    "argmin": lambda a, *, axis=-1: torch.argmin(a, dim=axis).to(torch.int32),
+    "cumsum": lambda a, *, axis=0, exclusive=False, reverse=False:
+        _cumsum_flags(a, axis, exclusive, reverse),
+    "zeros_like": torch.zeros_like,
+    "ones_like": torch.ones_like,
+    "norm2": lambda a, *, axes=None: torch.sqrt(_reduce_sum(a ** 2,
+                                                            axes=axes)),
+    # nn composites
+    "linear": lambda x, w, b=None: (x @ w + b) if b is not None else x @ w,
+    "layer_norm_graph": lambda x, gain, bias=None, *, axis=-1, eps=1e-5:
+        nn_ops.layer_norm.fn(x, gain, bias, axis=axis, eps=eps),
+    "batch_norm_graph": lambda x, mean, var, gamma, beta, *, eps=1e-5:
+        (x - mean) * torch.rsqrt(var + eps) * gamma + beta,
+    "dropout_graph": lambda x, *, rate, seed=0: x,  # inference identity
+    # the JAX package resolves `identity` from its registry (the port's
+    # registry has none) and its ONNX importer adds it here
+    "identity": lambda a: a,
+}
+
+
+# Registry-shadowing whitelist, as the JAX package keeps it: resolution
+# order is local -> GRAPH_OPS -> registry, so a GRAPH_OPS key that also
+# names a registry op silently wins over the registry impl. Every
+# intentional shadow is listed here.
+REGISTRY_SHADOW_WHITELIST = frozenset(
+    ["add", "abs", "acos", "asin", "atan", "ceil",
+     "cos", "cosh", "erf", "exp", "floor", "floormod", "log", "log1p",
+     "maximum", "minimum", "neg", "pow", "reciprocal", "round", "rsqrt",
+     "sign", "sin", "sinh", "sqrt", "square", "tan", "tanh",
+     "elu", "gelu", "mish", "relu6", "selu", "sigmoid", "softplus",
+     "softsign", "swish"]
+    + ["reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+       "reduce_prod", "argmax", "argmin", "cumsum"]
+    + ["concat", "expand_dims", "gather", "pad", "permute", "reshape",
+       "size", "slice", "squeeze", "strided_slice", "tile", "transpose",
+       "zeros_like", "ones_like"]
+    + ["where", "select"]
+    + ["identity"]
+)
+
+
+def resolve_graph_op(name: str,
+                     local_ops: Optional[Dict[str, Callable]] = None
+                     ) -> Callable[..., Any]:
+    """Resolve an op name: instance-local impls first, then the graph-op
+    catalog, then the op registry.
+
+    Registry ops WITH platform helpers resolve to the descriptor itself,
+    so graph execution dispatches through ``OpDescriptor.resolve`` per
+    call — this is how a fused ``dot_product_attention`` node lands on the
+    flash kernel and a ``fused_matmul_bias_act`` node on the fused matmul
+    kernel on the card. Helper-less ops return the raw impl."""
+    if local_ops and name in local_ops:
+        return local_ops[name]
+    if name in GRAPH_OPS:
+        return GRAPH_OPS[name]
+    reg = op_registry()
+    if name in reg:
+        desc = reg.get(name)
+        return desc if desc.platform_impls else desc.fn
+    raise KeyError(f"unknown graph op '{name}'")
+
+
+# ---------------------------------------------------------------------------
+# Namespaced op factories (SDMath/SDNN analogs)
+# ---------------------------------------------------------------------------
+
+
+class _Namespace:
+    def __init__(self, sd: "SameDiff"):
+        self._sd = sd
+
+
+class SDMath(_Namespace):
+    def _u(self, op, x, **kw):
+        return self._sd._record(op, [self._sd._lift(x)], kw)
+
+    def abs(self, x):
+        return self._u("abs", x)
+
+    def exp(self, x):
+        return self._u("exp", x)
+
+    def log(self, x):
+        return self._u("log", x)
+
+    def sqrt(self, x):
+        return self._u("sqrt", x)
+
+    def square(self, x):
+        return self._u("square", x)
+
+    def sin(self, x):
+        return self._u("sin", x)
+
+    def cos(self, x):
+        return self._u("cos", x)
+
+    def tanh(self, x):
+        return self._u("tanh", x)
+
+    def erf(self, x):
+        return self._u("erf", x)
+
+    def sign(self, x):
+        return self._u("sign", x)
+
+    def floor(self, x):
+        return self._u("floor", x)
+
+    def neg(self, x):
+        return self._u("neg", x)
+
+    def max(self, a, b):
+        return self._sd._record("maximum",
+                                [self._sd._lift(a), self._sd._lift(b)])
+
+    def min(self, a, b):
+        return self._sd._record("minimum",
+                                [self._sd._lift(a), self._sd._lift(b)])
+
+    def clip_by_value(self, x, lo, hi):
+        return self._sd._record("clip_by_value_graph", [self._sd._lift(x)],
+                                {"min_value": lo, "max_value": hi})
+
+    def cast(self, x, dtype):
+        from deeplearning4j_tpu_torch.analysis.values import as_dtype
+
+        return self._sd._record(
+            "cast", [self._sd._lift(x)],
+            {"dtype": str(as_dtype(dtype)).replace("torch.", "")})
+
+
+class SDNN(_Namespace):
+    def relu(self, x):
+        return self._sd._record("relu", [x])
+
+    def relu6(self, x):
+        return self._sd._record("relu6", [x])
+
+    def gelu(self, x):
+        return self._sd._record("gelu", [x])
+
+    def elu(self, x):
+        return self._sd._record("elu", [x])
+
+    def selu(self, x):
+        return self._sd._record("selu", [x])
+
+    def swish(self, x):
+        return self._sd._record("swish", [x])
+
+    def sigmoid(self, x):
+        return self._sd._record("sigmoid", [x])
+
+    def softplus(self, x):
+        return self._sd._record("softplus", [x])
+
+    def leaky_relu(self, x, alpha=0.01):
+        return self._sd._record("leakyrelu", [x], {"alpha": alpha})
+
+    def softmax(self, x, axis=-1):
+        return self._sd._record("softmax", [x], {"axis": axis})
+
+    def log_softmax(self, x, axis=-1):
+        return self._sd._record("log_softmax", [x], {"axis": axis})
+
+    def linear(self, x, w, b=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._sd._record("linear", ins)
+
+    def layer_norm(self, x, gain, bias=None, axis=-1, eps=1e-5):
+        ins = [x, gain] + ([bias] if bias is not None else [])
+        return self._sd._record("layer_norm_graph", ins,
+                                {"axis": axis, "eps": eps})
+
+    def batch_norm(self, x, mean, var, gamma, beta, eps=1e-5):
+        return self._sd._record("batch_norm_graph",
+                                [x, mean, var, gamma, beta], {"eps": eps})
+
+    def dropout(self, x, rate):
+        return self._sd._record("dropout_graph", [x], {"rate": rate})
+
+    def dot_product_attention(self, q, k, v):
+        return self._sd._record("dot_product_attention", [q, k, v])
+
+
+class SameDiff:
+    """The graph container + execution facade.
+
+    ``optimize``: run the pre-run graph optimizer (:mod:`.optimize` — DCE,
+    constant folding, CSE, algebraic cleanup, the fusion tier) before the
+    first execution of an output set. ``optimize_passes``: subset of
+    ``optimize.PASS_ORDER`` to enable (None = all of them).
+    ``last_compile_stats``: :class:`~.optimize.OptimizeStats` of the plan
+    most recently built or used (per-pass node deltas, fusion counts).
+    ``device``: where arrays live (the card unless the caller passes
+    ``"cpu"``). ``validate=True`` raises: graph checking is not ported.
+    """
+
+    def __init__(self, optimize: bool = True,
+                 optimize_passes: Optional[Sequence[str]] = None,
+                 validate: bool = False,
+                 device: Union[str, torch.device, None] = None) -> None:
+        if validate:
+            raise NotImplementedError(VALIDATE_NOT_PORTED)
+        self.device = resolve_device(device)
+        self._vars: Dict[str, SDVariable] = {}
+        self._arrays: Dict[str, torch.Tensor] = {}  # VARIABLE + CONSTANT
+        self._nodes: List[_Node] = []
+        # instance-local op impls; none are recorded yet (control flow is
+        # not ported) but resolution keeps the JAX package's order
+        self._local_ops: Dict[str, Callable[..., Any]] = {}
+        self._name_counter = 0
+        self.math = SDMath(self)
+        self.nn = SDNN(self)
+        self._jit_cache: Dict[Any, Any] = {}
+        # graph IO signature, populated by the import layer (imports/ir.py)
+        self.graph_inputs: List[str] = []
+        self.graph_outputs: List[str] = []
+        self.optimize = optimize
+        self.optimize_passes = (tuple(optimize_passes)
+                                if optimize_passes is not None else None)
+        self.last_compile_stats = None
+
+    # ------------------------------------------------------------- factories
+    @staticmethod
+    def create(optimize: bool = True,
+               optimize_passes: Optional[Sequence[str]] = None,
+               validate: bool = False,
+               device: Union[str, torch.device, None] = None) -> "SameDiff":
+        return SameDiff(optimize=optimize, optimize_passes=optimize_passes,
+                        validate=validate, device=device)
+
+    def _fresh(self, prefix: str) -> str:
+        self._name_counter += 1
+        return f"{prefix}_{self._name_counter}"
+
+    def placeholder(self, name: str, shape: Sequence[Optional[int]] = None,
+                    dtype=torch.float32) -> SDVariable:
+        from deeplearning4j_tpu_torch.analysis.values import as_dtype
+
+        v = SDVariable(self, name, "PLACEHOLDER",
+                       None if shape is None else
+                       tuple(-1 if s is None else s for s in shape),
+                       canonical_dtype(as_dtype(dtype)))
+        self._vars[name] = v
+        return v
+
+    # reference alias
+    place_holder = placeholder
+
+    def var(self, name: str, array=None, shape: Sequence[int] = None,
+            dtype=torch.float32, initializer: str = "xavier",
+            generator: Optional[torch.Generator] = None) -> SDVariable:
+        """Trainable variable — from an array, or from (shape, weight-init
+        scheme) drawn from ``generator`` (seeded by the variable count
+        when None; torch's stream, not the JAX package's)."""
+        if array is None:
+            from deeplearning4j_tpu_torch.analysis.values import as_dtype
+            from deeplearning4j_tpu_torch.ops.weight_init import init_weights
+
+            if shape is None:
+                raise ValueError("var() needs an array or a shape")
+            if generator is None:
+                generator = torch.Generator().manual_seed(len(self._vars))
+            array = init_weights(generator, tuple(shape), initializer,
+                                 dtype=as_dtype(dtype))
+        arr = canonical(array, self.device)
+        v = SDVariable(self, name, "VARIABLE", tuple(arr.shape), arr.dtype)
+        self._vars[name] = v
+        self._arrays[name] = arr
+        return v
+
+    def constant(self, name_or_value, value=None) -> SDVariable:
+        if value is None:
+            name, value = self._fresh("const"), name_or_value
+        else:
+            name = name_or_value
+        arr = canonical(value, self.device)
+        v = SDVariable(self, name, "CONSTANT", tuple(arr.shape), arr.dtype)
+        self._vars[name] = v
+        self._arrays[name] = arr
+        return v
+
+    def op(self, name: str, *inputs, **kwargs) -> SDVariable:
+        """Record any catalog or registry op by name (the
+        Nd4j.exec(DynamicCustomOp) parity surface). Multi-output ops take
+        ``n_out`` and return a tuple. Unknown names raise at graph build,
+        not at execution."""
+        n_out = int(kwargs.pop("n_out", 1))
+        resolve_graph_op(name, self._local_ops)  # existence check
+        ins = [self._lift(x) for x in inputs]
+        return self._record(name, ins, kwargs or None, n_out=n_out)
+
+    def _lift(self, x) -> SDVariable:
+        if isinstance(x, SDVariable):
+            return x
+        return self.constant(x)
+
+    def _rename(self, old: str, new: str) -> None:
+        if new in self._vars:
+            raise ValueError(f"variable '{new}' already exists")
+        v = self._vars.pop(old)
+        v.name = new
+        self._vars[new] = v
+        if old in self._arrays:
+            self._arrays[new] = self._arrays.pop(old)
+        for n in self._nodes:
+            n.inputs = [new if i == old else i for i in n.inputs]
+            n.outputs = [new if o == old else o for o in n.outputs]
+        # renaming is a graph mutation: cached plans hold node-name snapshots
+        self._invalidate("graph_mutation")
+
+    def _invalidate(self, cause: str) -> None:
+        """Drop every cached plan and runner. ``cause`` names why
+        (graph_mutation / constant_rebind / variable_rebind); the JAX
+        package's recompile ledger records it, which the port has no use
+        for (nothing is compiled)."""
+        self._jit_cache.clear()
+
+    # -------------------------------------------------------------- recording
+    def _record(self, op: str, inputs: List[SDVariable],
+                kwargs: Optional[Dict[str, Any]] = None, n_out: int = 1):
+        resolve_graph_op(op, self._local_ops)  # fail fast on unknown op
+        out_names = [self._fresh(op) for _ in range(n_out)]
+        self._nodes.append(_Node(op, [v.name for v in inputs],
+                                 dict(kwargs or {}), out_names))
+        outs = []
+        for n in out_names:
+            v = SDVariable(self, n, "ARRAY")
+            self._vars[n] = v
+            outs.append(v)
+        self._invalidate("graph_mutation")
+        return outs[0] if n_out == 1 else tuple(outs)
+
+    # -------------------------------------------------------------- execution
+    def _needed_nodes(self, wanted: Sequence[str]) -> List[_Node]:
+        """Ancestor subgraph of the wanted outputs."""
+        needed: set = set(wanted)
+        keep: List[_Node] = []
+        for node in reversed(self._nodes):
+            if any(o in needed for o in node.outputs):
+                keep.append(node)
+                needed.update(node.inputs)
+        keep.reverse()
+        return keep
+
+    def _precision_policy(self) -> str:
+        """Dtype policy the graph's float arrays imply — float32 graphs run
+        full float32 products (no TF32, ``nn.dtype.precision_scope``)."""
+        for a in self._arrays.values():
+            if a.dtype in (torch.bfloat16, torch.float16):
+                return "bfloat16"
+        return "float32"
+
+    def _input_avals(self):
+        """Declared placeholder metadata as symbolic avals — the optimizer's
+        pass-invariance checker unifies named batch dims through them."""
+        from deeplearning4j_tpu_torch.analysis import AVal
+
+        return {n: AVal.of_placeholder(n, v.shape, v.dtype)
+                for n, v in self._vars.items() if v.vtype == "PLACEHOLDER"}
+
+    def _effective_passes(self) -> Optional[Tuple[str, ...]]:
+        """The pass tuple a plan runs: the explicit ``optimize_passes`` or
+        the whole pipeline; None when the optimizer is off."""
+        if not self.optimize:
+            return None
+        if self.optimize_passes is not None:
+            return self.optimize_passes
+        from deeplearning4j_tpu_torch.autodiff import optimize as _opt
+
+        return _opt.PASS_ORDER
+
+    def _graph_plan(self, out_names: Tuple[str, ...]):
+        """Optimized execution plan for the given outputs, or None when the
+        optimizer is off; cached until the graph or a constant changes."""
+        if not self.optimize:
+            return None
+        from deeplearning4j_tpu_torch.autodiff import optimize as _opt
+
+        cache_key = ("plan", out_names, self._effective_passes())
+        plan = self._jit_cache.get(cache_key)
+        if plan is None:
+            # shape/dtype evidence for algebraic strips comes ONLY from
+            # bound arrays (VARIABLE + CONSTANT): declared PLACEHOLDER
+            # metadata is not enforced at feed time
+            seed_dtypes = {n: a.dtype for n, a in self._arrays.items()}
+            var_shapes = {n: tuple(a.shape) for n, a in self._arrays.items()}
+            plan = _opt.optimize_graph(
+                self._needed_nodes(out_names), list(out_names),
+                const_env=self._const_env(),
+                seed_dtypes=seed_dtypes,
+                var_shapes=var_shapes,
+                local_ops=self._local_ops,
+                resolve_op=lambda name: resolve_graph_op(name,
+                                                         self._local_ops),
+                passes=self._effective_passes(),
+                precision_policy=self._precision_policy(),
+                input_avals=self._input_avals())
+            self._jit_cache[cache_key] = plan
+        self.last_compile_stats = plan.stats
+        return plan
+
+    def _interpret(self, env: Dict[str, Any], wanted: Sequence[str],
+                   plan=None, last_use: Optional[Dict[str, int]] = None
+                   ) -> Dict[str, Any]:
+        """Run the needed subgraph in order. With a ``plan`` the optimized
+        node list runs instead and wanted names resolve through its alias
+        map; the caller has merged ``plan.extra_consts`` into ``env``.
+        ``last_use`` (name -> index of the last node reading it) lets a
+        node output go as soon as its last consumer has run."""
+        from deeplearning4j_tpu_torch.nn import dtype as DT
+
+        nodes = plan.nodes if plan is not None else self._needed_nodes(wanted)
+        with DT.precision_scope(self._precision_policy()):
+            for idx, node in enumerate(nodes):
+                if not all(i in env for i in node.inputs):
+                    missing = [i for i in node.inputs if i not in env]
+                    raise KeyError(
+                        f"op '{node.op}' needs {missing}; placeholders not "
+                        f"fed or graph out of order")
+                fn = resolve_graph_op(node.op, self._local_ops)
+                res = fn(*[env[i] for i in node.inputs], **node.kwargs)
+                if len(node.outputs) == 1:
+                    env[node.outputs[0]] = res
+                else:
+                    for o, r in zip(node.outputs, res):
+                        env[o] = r
+                if last_use is not None:
+                    for name in set(node.inputs):
+                        if last_use.get(name) == idx:
+                            del env[name]
+        if plan is not None:
+            return {w: env[plan.resolve(w)] for w in wanted}
+        return {w: env[w] for w in wanted}
+
+    def _exec_fn(self, out_names: Tuple[str, ...]):
+        """Build + cache the runner for the given outputs: a plain callable
+        ``(var_arrays, feeds) -> outputs`` over the plan (or the reachable
+        recording when the optimizer is off), with the constants — the
+        graph's and the plan's folded ones — bound in. The JAX package
+        jits this function; PyTorch runs the plan eagerly."""
+        cache_key = ("exec", out_names, bool(self.optimize),
+                     self._effective_passes())
+        cached = self._jit_cache.get(cache_key)
+        if cached is None:
+            plan = self._graph_plan(out_names)
+            const_env = self._const_env()
+            if plan is not None:
+                const_env = {**const_env, **plan.extra_consts}
+                nodes = plan.nodes
+                keep = {plan.resolve(w) for w in out_names}
+            else:
+                nodes = self._needed_nodes(out_names)
+                keep = set(out_names)
+            produced = {o for n in nodes for o in n.outputs}
+            last_use = {name: idx for idx, n in enumerate(nodes)
+                        for name in n.inputs
+                        if name in produced and name not in keep}
+
+            def run(var_arrays, feeds):
+                env = dict(const_env)
+                env.update(var_arrays)
+                env.update(feeds)
+                return self._interpret(env, out_names, plan, last_use)
+
+            from deeplearning4j_tpu_torch.autodiff.optimize import (
+                OptimizeStats)
+
+            cached = (run, frozenset(const_env),
+                      plan.stats if plan is not None else OptimizeStats())
+            self._jit_cache[cache_key] = cached
+        run, const_names, self.last_compile_stats = cached
+        return run, const_names
+
+    def _var_arrays(self, const_names):
+        return {k: v for k, v in self._arrays.items()
+                if k not in const_names}
+
+    def _const_env(self) -> Dict[str, Any]:
+        """CONSTANT-vtype arrays (fold inputs, bound into every run)."""
+        return {n: a for n, a in self._arrays.items()
+                if self._vars[n].vtype == "CONSTANT"}
+
+    def output(self, feeds: Dict[str, Any],
+               outputs: Union[str, Sequence[str]]) -> Dict[str, np.ndarray]:
+        """Execute the graph (InferenceSession.output analog): the feeds
+        are canonicalized onto the graph's device, the plan runs, and the
+        requested outputs come back as numpy arrays."""
+        if isinstance(outputs, str):
+            outputs = [outputs]
+        run, const_names = self._exec_fn(tuple(outputs))
+        res = run(self._var_arrays(const_names),
+                 {k: canonical(v, self.device) for k, v in feeds.items()})
+        return {k: _to_numpy(v) for k, v in res.items()}
+
+    exec = output  # reference SameDiff.exec alias
+
+    # ------------------------------------------------------------------ misc
+    def variables(self) -> List[str]:
+        return list(self._vars)
+
+    def get_variable(self, name: str) -> SDVariable:
+        return self._vars[name]
+
+    def get_arr(self, name: str) -> np.ndarray:
+        return _to_numpy(self._arrays[name])
+
+    def set_arr(self, name: str, value) -> None:
+        if name not in self._vars:
+            raise KeyError(name)
+        old = self._arrays.get(name)
+        arr = canonical(value, self.device)
+        self._arrays[name] = arr
+        # keep the variable's declared metadata in sync — optimizer plans
+        # read it, and a stale declared shape would survive the clear below
+        self._vars[name].shape = tuple(arr.shape)
+        self._vars[name].dtype = arr.dtype
+        if self._vars[name].vtype == "CONSTANT":
+            # constants are bound into cached runners AND folded into
+            # plans: changing one invalidates every cached plan
+            self._invalidate("constant_rebind")
+        elif old is None or old.dtype != arr.dtype or old.shape != arr.shape:
+            # a VARIABLE changing dtype/shape invalidates plans (their
+            # dtype-guarded identity strips read it)
+            self._invalidate("variable_rebind")
+
+    def summary(self) -> str:
+        lines = [f"SameDiff: {len(self._vars)} variables, "
+                 f"{len(self._nodes)} ops"]
+        for n in self._nodes:
+            lines.append(f"  {','.join(n.outputs)} = {n.op}"
+                         f"({','.join(n.inputs)})")
+        return "\n".join(lines)

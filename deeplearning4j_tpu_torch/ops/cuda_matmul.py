@@ -1,0 +1,245 @@
+"""act(x @ w + b) in one pass: the plain version, the hand-written CUDA
+kernel, its gate and the differentiable :class:`FusedMatmulFn`.
+
+Counterpart of ``deeplearning4j_tpu/ops/pallas_matmul.py`` — the platform
+helper of ``fused_matmul_bias_act``, the SameDiff optimizer's matmul + bias
+(+ activation) fusion target:
+
+* :func:`fused_matmul_bias_act_reference` is the plain version, with the
+  Pallas kernel's semantics (``pallas_matmul.py:42``): the operands
+  upcast to float32 and multiplied in float32, the float32 bias added, the
+  activation applied in float32, one cast to ``x.dtype``. It is not the
+  generic op (``ops/nn_ops.py``), which rounds after the product and again
+  after the bias in a low-precision dtype, as the JAX generic does.
+* :func:`fused_matmul` launches ``csrc/fused_matmul.cu`` (replacing
+  ``_kernel``, ``pallas_matmul.py:42``, via
+  ``fused_matmul_bias_act_pallas``): the product accumulated in float32
+  (CUDA cores for float32, tensor cores for bfloat16/float16), bias and
+  activation on the accumulator, one write. Given CPU tensors it computes
+  the plain version; given CUDA tensors it launches or raises — there is
+  no fallback. Its launches are counted in ``fused_matmul.launches``.
+* :func:`fused_matmul_usable` is the JAX ``_usable`` (``:192``) on CUDA
+  tensors without its TPU limits: rank-2/3 x, 2-D w, float dtypes, no
+  transpose flags, a known activation, a rank-1 bias. The Mosaic tile
+  rule (M % 8, K % 128, N % 128) and the TPU-measured ``pallas_min_m``
+  crossover are left out: the kernel bounds-checks every edge, so every
+  epilogue fusion on the card launches it.
+* :class:`FusedMatmulFn` is the ``custom_vjp`` of ``pallas_matmul.py:142``
+  as an ``autograd.Function``: the kernel forward, and ``_fused_bwd``
+  (``:158``) in PyTorch — the float32 pre-activation recomputed, the
+  activation's derivative, then dx, dw and db. Its products are plain
+  matmuls, as the JAX backward is plain XLA.
+
+The first float32 product on the card must not run in TF32: the port's
+float32 contract keeps full float32 products (``nn/dtype.precision_scope``,
+``torch.backends.cuda.matmul.allow_tf32 = False``), and the plain version
+is only a reference when it is computed so.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
+from deeplearning4j_tpu_torch.ops.nn_ops import (
+    FUSED_MATMUL_ACTIVATIONS, apply_fused_activation,
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGS = (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ACT_CODES = {a: i for i, a in enumerate(FUSED_MATMUL_ACTIVATIONS)}
+# elements of a 16-byte vector per dtype: the kernel's `vec` loads
+_VEC = {torch.float32: 4, torch.bfloat16: 8, torch.float16: 8}
+
+
+def _orient(x, w, transpose_a: bool, transpose_b: bool):
+    if transpose_a:
+        x = x.transpose(-1, -2)
+    if transpose_b:
+        w = w.transpose(-1, -2)
+    return x, w
+
+
+def fused_matmul_bias_act_reference(x, w, b=None, *,
+                                    activation: str = "none",
+                                    transpose_a: bool = False,
+                                    transpose_b: bool = False):
+    """Plain version: act(x @ w + b) in float32, one cast to x's dtype."""
+    x, w = _orient(x, w, transpose_a, transpose_b)
+    y = torch.matmul(x.float(), w.float())
+    if b is not None:
+        y = y + b.float()
+    return apply_fused_activation(y, activation).to(x.dtype)
+
+
+def fused_matmul(x, w, b=None, *, activation: str = "none",
+                 transpose_a: bool = False, transpose_b: bool = False):
+    """The CUDA kernel of :func:`fused_matmul_bias_act_reference` — same
+    contract; x (M, K) or (B, T, K), w (K, N), b (N,); x and w of one
+    dtype among float32, bfloat16 and float16. Not differentiable: the
+    registry reaches it through :func:`fused_matmul_helper`."""
+    if x.device.type == "cpu":
+        return fused_matmul_bias_act_reference(
+            x, w, b, activation=activation, transpose_a=transpose_a,
+            transpose_b=transpose_b)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_matmul: unsupported device {x.device}")
+    x, w = _orient(x, w, transpose_a, transpose_b)
+    if x.ndim not in (2, 3) or w.ndim != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"fused_matmul: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} are not (..., M, K) and (K, N)")
+    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+        raise ValueError(f"fused_matmul: x and w must share one of float32, "
+                         f"bfloat16, float16; got {x.dtype} and {w.dtype}")
+    if activation not in _ACT_CODES:
+        raise ValueError(f"fused_matmul: unknown activation '{activation}';"
+                         f" valid: {list(FUSED_MATMUL_ACTIVATIONS)}")
+    k, n = w.shape
+    if b is not None and (b.ndim != 1 or b.shape[0] != n):
+        raise ValueError(f"fused_matmul: bias {tuple(b.shape)} is not ({n},)")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k).contiguous()
+    w = w.contiguous()
+    bias = None if b is None else b.to(torch.float32).contiguous()
+    if any(t.device != x.device for t in (w, bias) if t is not None):
+        raise ValueError("fused_matmul: inputs on different devices")
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:  # nothing to compute: no launch
+        return out.reshape(lead + (n,))
+    per = _VEC[x.dtype]
+    vec = int(k % per == 0 and n % per == 0
+              and all(t.data_ptr() % 16 == 0 for t in (x2, w, out)))
+    fn = _build.kernel_fn("fused_matmul", "dl4j_fused_matmul", _ARGS)
+    rc = fn(x2.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
+            k, _DTYPE_CODES[x.dtype], _ACT_CODES[activation], vec,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc == -1:
+        raise ValueError(f"fused_matmul: shape ({m},{k})x({k},{n}) not taken "
+                         f"by the kernel")
+    if rc != 0:
+        raise RuntimeError(f"fused_matmul: kernel launch failed with "
+                           f"cudaError_t {rc}")
+    fused_matmul.launches += 1
+    return out.reshape(lead + (n,))
+
+
+fused_matmul.launches = 0
+
+
+def _act_grad(pre, activation: str):
+    """d act(pre) / d pre, from the float32 pre-activation."""
+    if activation == "none":
+        return torch.ones_like(pre)
+    if activation == "relu":
+        return (pre > 0).to(pre.dtype)
+    if activation == "tanh":
+        return 1.0 - torch.tanh(pre) ** 2
+    if activation == "gelu_exact":
+        cdf = 0.5 * (1.0 + torch.erf(pre * (1.0 / math.sqrt(2.0))))
+        pdf = torch.exp(-0.5 * pre * pre) * (1.0 / math.sqrt(2.0 * math.pi))
+        return cdf + pre * pdf
+    if activation == "gelu":
+        with torch.enable_grad():
+            p = pre.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(
+                F.gelu(p, approximate="tanh").sum(), p)
+        return g
+    raise ValueError(f"unknown activation '{activation}'")
+
+
+class FusedMatmulFn(torch.autograd.Function):
+    """The kernel forward with ``_fused_bwd``'s backward
+    (``pallas_matmul.py:158``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, activation, transpose_a, transpose_b):
+        ctx.save_for_backward(x, w, b)
+        ctx.cfg = (activation, transpose_a, transpose_b)
+        return fused_matmul(x, w, b, activation=activation,
+                            transpose_a=transpose_a, transpose_b=transpose_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        activation, transpose_a, transpose_b = ctx.cfg
+        xa, wa = _orient(x, w, transpose_a, transpose_b)
+        # recompute the pre-activation (no saved (M, N) float32 tensor)
+        pre = torch.matmul(xa.float(), wa.float())
+        if b is not None:
+            pre = pre + b.float()
+        dpre = g.float() * _act_grad(pre, activation)
+        dx = torch.matmul(dpre, wa.float().transpose(-1, -2)).to(x.dtype)
+        red = tuple(range(dpre.ndim - 2))
+        dw = torch.matmul(xa.float().transpose(-1, -2), dpre)
+        if red:
+            dw = dw.sum(dim=red)
+        dw = dw.to(w.dtype)
+        if transpose_a:
+            dx = dx.transpose(-1, -2)
+        if transpose_b:
+            dw = dw.transpose(-1, -2)
+        db = None if b is None else dpre.sum(
+            dim=tuple(range(dpre.ndim - 1))).to(b.dtype)
+        return dx, dw, db, None, None, None
+
+
+def fused_matmul_helper(x, w, b=None, *, activation: str = "none",
+                        transpose_a: bool = False, transpose_b: bool = False):
+    """The registered CUDA platform impl: the differentiable kernel."""
+    return FusedMatmulFn.apply(x, w, b, activation, transpose_a, transpose_b)
+
+
+def fused_matmul_usable(x, w, b=None, **kw) -> bool:
+    """Gate of the CUDA helper: the JAX ``_usable`` decisions on CUDA
+    tensors, without the TPU tile rule and ``pallas_min_m`` crossover (the
+    kernel takes any M, K and N). Kernel limits the JAX gate does not have
+    (mixed or float64 operands) raise in :func:`fused_matmul` instead of
+    the op quietly running its generic."""
+    if not _on_cuda(x, w):
+        return False
+    if kw.get("transpose_a") or kw.get("transpose_b"):
+        return False
+    if kw.get("activation", "none") not in FUSED_MATMUL_ACTIVATIONS:
+        return False
+    if x.ndim not in (2, 3) or w.ndim != 2:
+        return False
+    if not (x.is_floating_point() and w.is_floating_point()):
+        return False
+    return b is None or getattr(b, "ndim", 0) == 1
+
+
+def kernel_tolerance(x, w, plain):
+    """How far the kernel may sit from the plain version on the same
+    inputs: elementwise ``|kernel − plain| <= atol + rtol·|plain|``.
+    Both accumulate the same float32 products of K terms in other orders
+    (``atol`` = 2·K·2⁻²⁴·max|x|·max|w|, the float32 summation bound, plus
+    1e-6) and apply the same float32 epilogue; the activations' float32
+    library calls may differ by a few units in the last place (rtol 1e-6
+    in float32). bfloat16/float16 outputs are rounded once from float32 on
+    both sides: one unit in the last place (2⁻⁷ / 2⁻¹⁰ of |plain|)."""
+    k = x.shape[-1]
+    atol = (2.0 * k * 2.0 ** -24 * x.float().abs().max().item()
+            * w.float().abs().max().item() + 1e-6)
+    rtol = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}[plain.dtype]
+    return atol, rtol
+
+
+def register_platform_fused_matmul() -> None:
+    """Install the kernel as the ``"cuda"`` helper of
+    fused_matmul_bias_act."""
+    from deeplearning4j_tpu_torch.ops.registry import registry
+
+    reg = registry()
+    if "cuda" not in reg.get("fused_matmul_bias_act").platform_impls:
+        reg.register_platform("fused_matmul_bias_act", "cuda",
+                              fused_matmul_helper, fused_matmul_usable)

@@ -10,7 +10,13 @@ ported paths reach:
   reference padding modes, max/avg/pnorm pooling, global pooling, the
   inference ``batchnorm`` and the training ``batch_norm_train`` over a
   hand-written-backward core (:class:`_BNCore`, the ``_bn_core``
-  custom VJP).
+  custom VJP);
+* the imported-graph path: the catalog ``layer_norm``, the generic
+  ``fused_matmul_bias_act`` with its activation catalog
+  (``nn_ops.py:512-551``; the hand-written kernel registers as its
+  ``"cuda"`` helper in :mod:`.cuda_matmul`) and the generic
+  ``fused_layer_norm`` (``pallas_layernorm.py:37``; its kernel is still to
+  be ported).
 
 Layouts are the JAX package's: activations NHWC, conv kernels HWIO. Inside,
 ``x.permute(0, 3, 1, 2)`` of an NHWC-contiguous tensor is a
@@ -320,3 +326,88 @@ def dot_product_attention(q, k, v, mask=None, *, scaled: bool = True,
         weights = torch.where(keep, weights / (1.0 - dropout_rate),
                               torch.zeros_like(weights))
     return torch.matmul(weights, v)
+
+
+# --------------------------------------------------------------------------
+# Imported-graph path: the catalog layer norm and the matmul epilogue
+# --------------------------------------------------------------------------
+
+
+@op("layer_norm")
+def layer_norm(x, gain, bias=None, *, axis: int = -1, eps: float = 1e-5):
+    """(x - mean) * rsqrt(var + eps) * gain (+ bias) over ``axis``, with the
+    population variance — the op ONNX LayerNormalization records."""
+    mean = torch.mean(x, dim=axis, keepdim=True)
+    var = torch.var(x, dim=axis, keepdim=True, unbiased=False)
+    out = (x - mean) * torch.rsqrt(var + eps) * gain
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+# Activation epilogues the fused matmul understands. "gelu" is the tanh
+# approximation (what the graph/registry `gelu` op computes); "gelu_exact"
+# is the erf formula the decomposed ONNX/TF exporter chains
+# (x·0.5·(1+erf(x/√2))) lower to. The optimizer's epilogue matcher
+# (autodiff/optimize.py) picks the variant that matches the replaced
+# subgraph.
+FUSED_MATMUL_ACTIVATIONS = ("none", "relu", "tanh", "gelu", "gelu_exact")
+
+
+def apply_fused_activation(y, activation: str):
+    if activation == "none":
+        return y
+    if activation == "relu":
+        return torch.relu(y)
+    if activation == "tanh":
+        return torch.tanh(y)
+    if activation == "gelu":
+        return F.gelu(y, approximate="tanh")
+    if activation == "gelu_exact":
+        return F.gelu(y)
+    raise ValueError(
+        f"fused_matmul_bias_act: unknown activation '{activation}'; "
+        f"valid: {list(FUSED_MATMUL_ACTIVATIONS)}")
+
+
+@op("fused_matmul_bias_act")
+def fused_matmul_bias_act(x, w, b=None, *, activation: str = "none",
+                          transpose_a: bool = False,
+                          transpose_b: bool = False):
+    """act(x @ w + b) — the matmul-epilogue fusion target.
+
+    x:[...,M,K] w:[K,N] b:[N] -> [...,M,N]. The generic impl is the op
+    chain it replaces, op by op in the operands' dtype (promoted as
+    ``jnp.matmul`` promotes mixed operands); the hand-written CUDA kernel
+    (``ops/cuda_matmul.py``) registers as its ``"cuda"`` helper."""
+    if transpose_a:
+        x = x.transpose(-1, -2)
+    if transpose_b:
+        w = w.transpose(-1, -2)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = torch.matmul(x, w)
+    if b is not None:
+        y = y + b
+    return apply_fused_activation(y, activation)
+
+
+@op("fused_layer_norm")
+def fused_layer_norm(x, gain, bias=None, *, axis: int = -1,
+                     eps: float = 1e-5, activation: str = "none"):
+    """act(layer_norm(x) * gain + bias) — the LN-epilogue fusion target the
+    optimizer emits for a trailing-axis layer norm feeding a GELU. The
+    generic impl is the op chain it replaces; the JAX package's one-pass
+    kernel for it (``ops/pallas_layernorm.py``) is still to be ported
+    (ROADMAP.md, Queue 2), so no ``"cuda"`` helper is registered.
+
+    Trailing-axis only: the (N,)-shaped gain/bias broadcast along the last
+    axis, so a non-trailing ``axis`` raises."""
+    if axis not in (-1, x.ndim - 1):
+        raise ValueError(
+            f"fused_layer_norm normalizes the trailing axis only "
+            f"(gain/bias are per-last-dim); got axis={axis} for rank "
+            f"{x.ndim} — use the catalog layer_norm for other axes")
+    return apply_fused_activation(
+        layer_norm.fn(x, gain, bias, axis=-1, eps=eps), activation)

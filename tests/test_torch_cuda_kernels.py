@@ -18,7 +18,11 @@ flash kernels. Training: every updater kind on
 ragged, aligned and unaligned leaves in the three dtypes; the convbn
 kernel's gate edges, prologue/relu on and off, its backward against
 autograd of the plain chain, and a small ResNet-50 in both
-configurations.
+configurations. The fused matmul epilogue: ragged M and N and K that are
+not tile multiples, every activation, the three dtypes, unaligned
+operands (element loads), gradients through the registry, the gate and
+the wrapper's refusals, and a small imported BERT whose every epilogue
+fusion launches the kernel.
 
 Tolerances, elementwise ``|kernel - plain| <= ATOL + RTOL * |plain|``:
 float32 1e-4 absolute (same math, another summation order; ~1e-6 seen);
@@ -27,7 +31,11 @@ bfloat16 and float16 one unit in the last place of the plain output
 once, so they differ by at most one rounding step. The float32 lse:
 1e-4 absolute. The backward: 1e-4 absolute plus, relative, 1e-5 in
 float32 and one unit in the last place in bfloat16/float16 (sums of up
-to T products whose terms reach ~16 at D = 256).
+to T products whose terms reach ~16 at D = 256). The fused matmul:
+``cuda_matmul.kernel_tolerance`` (the float32 summation bound of K terms
+plus one unit in the last place in bfloat16/float16); its gradients, two
+products of the same numbers in another order, 1e-4 in float32 and one
+bfloat16 unit (2^-6 relative, 1e-2 absolute) in bfloat16.
 """
 
 import functools
@@ -569,3 +577,159 @@ def test_resnet50_trains_through_both_kernels_on_cuda(cuda):
         assert cu.fused_updater.launches - u0 == 2 * 161
         if fused:  # stages 1-3 pass the gate (M = 8·16·16, 8·8·8, 8·4·4)
             assert cc.bn_matmul_stats.launches - c0 >= 2 * 2 * 13
+
+
+# ----------------------------------------------------------- fused matmul
+# act(x @ w + b) against its plain version (float32 product, float32 bias
+# and activation, one cast), held to cuda_matmul.kernel_tolerance: the
+# float32 summation bound of K terms plus, in bfloat16/float16, one unit
+# in the last place of the plain output.
+
+FM_ACTS = ["none", "relu", "tanh", "gelu", "gelu_exact"]
+
+
+def _fm_inputs(lead, k, n, dtype, dev, seed, bias=True):
+    g = np.random.default_rng(seed)
+    x = torch.from_numpy(g.standard_normal(lead + (k,), dtype=np.float32)
+                         ).to(dev, dtype)
+    w = torch.from_numpy((g.standard_normal((k, n)) / math.sqrt(max(k, 1))
+                          ).astype(np.float32)).to(dev, dtype)
+    b = (torch.from_numpy(g.standard_normal(n, dtype=np.float32)).to(dev)
+         if bias else None)
+    return x, w, b
+
+
+def _check_fm(out, x, w, ref):
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    atol, rtol = cm.kernel_tolerance(x, w, ref)
+    err = (out.float() - ref.float()).abs()
+    lim = atol + rtol * ref.float().abs()
+    assert bool((err <= lim).all()), (err.max().item(),
+                                      (err / lim).max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lead,k,n", [
+    ((1,), 1, 1), ((7,), 33, 65), ((130,), 200, 129), ((257,), 768, 300),
+    ((2, 37), 96, 136), ((3, 128), 384, 256), ((256,), 3072, 128)])
+@pytest.mark.parametrize("act", FM_ACTS)
+def test_fused_matmul_matches_plain(cuda, dtype, lead, k, n, act):
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    x, w, b = _fm_inputs(lead, k, n, dtype, cuda, seed=k + n)
+    for bias in (b, None):
+        out = cm.fused_matmul(x, w, bias, activation=act)
+        ref = cm.fused_matmul_bias_act_reference(x, w, bias, activation=act)
+        torch.cuda.synchronize()
+        _check_fm(out, x, w, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_matmul_unaligned_operands(cuda, dtype):
+    """Views that start one element into their storage take the element
+    loads (no 16-byte vectors) and give the same result."""
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    x, w, b = _fm_inputs((65,), 129, 136, dtype, cuda, seed=3)
+    xs = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    xs[1:] = x.reshape(-1)
+    x_off = xs[1:].view(x.shape)
+    assert x_off.data_ptr() % 16 != 0
+    out = cm.fused_matmul(x_off, w, b, activation="gelu_exact")
+    ref = cm.fused_matmul_bias_act_reference(x, w, b,
+                                             activation="gelu_exact")
+    torch.cuda.synchronize()
+    _check_fm(out, x, w, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", FM_ACTS)
+def test_fused_matmul_gradients_through_the_registry(cuda, dtype, act):
+    """The registry's fused_matmul_bias_act on CUDA tensors launches the
+    kernel, and its output carries the backward: gradients equal autograd
+    of the plain version."""
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    x, w, b = _fm_inputs((2, 64), 256, 384, dtype, cuda, seed=9)
+    g = _randn((2, 64, 384), dtype, cuda, seed=10)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = cm.fused_matmul.launches
+    out = exec_op("fused_matmul_bias_act", *leaves, activation=act)
+    assert cm.fused_matmul.launches == before + 1
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    ref = cm.fused_matmul_bias_act_reference(*ref_leaves, activation=act)
+    want = torch.autograd.grad(ref, ref_leaves, g)
+    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -6)}
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype
+        torch.testing.assert_close(a.float(), e.float(), atol=tol[dtype][0],
+                                   rtol=tol[dtype][1])
+
+
+def test_fused_matmul_gate_and_refusals(cuda):
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    x, w, b = _fm_inputs((16,), 128, 128, torch.float32, cuda, seed=1)
+    assert cm.fused_matmul_usable(x, w, b)
+    assert not cm.fused_matmul_usable(x, w, b, transpose_b=True)
+    assert not cm.fused_matmul_usable(x, w, b, activation="swish")
+    # no TPU tile rule: ragged M, K and N are taken
+    assert cm.fused_matmul_usable(x[:12], w, b)
+    assert cm.fused_matmul_usable(x[:, :64], w[:64], b)
+    assert cm.fused_matmul_usable(x, w[:, :100], b[:100])
+    assert not cm.fused_matmul_usable(x, w, b[None])          # 2-D bias
+    assert not cm.fused_matmul_usable(x.cpu(), w.cpu(), b.cpu())
+    before = cm.fused_matmul.launches
+    assert cm.fused_matmul(x[:0], w, b).shape == (0, 128)   # nothing to do
+    assert cm.fused_matmul.launches == before
+    # kernel-only limits raise in the wrapper, never a quiet fallback
+    with pytest.raises(ValueError):
+        cm.fused_matmul(x, w.to(torch.bfloat16), b)
+    with pytest.raises(ValueError):
+        cm.fused_matmul(x.double(), w.double(), b)
+    with pytest.raises(ValueError):
+        cm.fused_matmul(x, w, b, activation="swish")
+    env = environment()
+    env.helper_mode = "kernel"
+    try:
+        with pytest.raises(RuntimeError):
+            exec_op("fused_matmul_bias_act", x, w.t(), b, transpose_b=True)
+    finally:
+        env.helper_mode = "auto"
+
+
+def test_imported_bert_runs_every_epilogue_through_the_kernel(cuda):
+    """A small imported BERT on the card: one
+    kernel launch per epilogue fusion and one flash launch per layer,
+    and the output equals the generic run's."""
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.testing.onnx_builder import bert_onnx_model
+
+    batch, seq, layers = 2, 64, 2
+    model = bert_onnx_model(layers=layers, batch=batch, seq=seq, d=256,
+                            heads=4, ff=512, vocab=100)
+    g = np.random.default_rng(2)
+    lens = np.array([64, 20])
+    feeds = {"ids": g.integers(0, 100, (batch, seq)).astype(np.float32),
+             "mask": (np.arange(seq)[None] < lens[:, None]).astype(
+                 np.float32)}
+    sd = import_onnx(model, device=cuda)
+    env = environment()
+    env.helper_mode = "generic"
+    try:
+        want = sd.output(feeds, ["y"])["y"]
+    finally:
+        env.helper_mode = "auto"
+    ca.reset_launch_counts()
+    before = cm.fused_matmul.launches
+    got = sd.output(feeds, ["y"])["y"]
+    st = sd.last_compile_stats
+    assert st.fusions == {"attention": layers, "epilogue": 6 * layers}
+    assert cm.fused_matmul.launches - before == 6 * layers
+    assert ca.launch_counts()["flash_attn_fwd"] == layers
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
