@@ -20,7 +20,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    shape A (``onnx_bert``'s attention); the fused matmul + bias +
    activation epilogue in float32 and bfloat16 at the three imported
    BERT-base shapes (M 4096; K×N 768×768, 768×3072 with gelu_exact,
-   3072×768), every activation at 768×768 and a ragged M of 4000. With
+   3072×768), every activation at 768×768 and a ragged M of 4000; the
+   fused LayerNorm + activation at 4096 × 768 (the fine-tune head's rows)
+   with gelu, gelu_exact and none in float32 and bfloat16. With
    kernel / plain / library times (device time: the calls replayed from a
    CUDA graph between CUDA events, so no host work sits between launches)
    and the least time the card could take (``bound_ms``).
@@ -71,6 +73,22 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    (``optimize=False``). Reports the p50 forward time and tokens/s over 5
    forwards after 2 warm ones, parse and plan seconds, node counts and
    peak memory.
+10. ``sd_bert_finetune`` — SameDiff training of that imported encoder: the
+   same ONNX bytes through ``import_onnx``, a token-classification head
+   added in SameDiff (dense 768×768 → ``sd.nn.layer_norm`` →
+   ``sd.nn.gelu`` → classifier over the 9 BIO tags of CoNLL-2003 NER,
+   ``sd.loss.softmax_cross_entropy`` against one-hot token labels; 201
+   trainable leaves), ``TrainingConfig(Adam lr 5e-5)`` and ``sd.fit`` for
+   3 steps on one repeated batch 32 × 128 (ragged rows), then
+   ``sd.output`` of the logits. The loss plan must hold exactly 12
+   attention, 74 epilogue and 1 LayerNorm fusions, and each step — launch
+   counts set to 0 just before the 3 steps and read just after — must
+   launch 1 fused LayerNorm, 12 flash forwards, 12 dq, 12 dk/dv, 74 fused
+   matmuls and 201 updater steps. Losses are held against a
+   ``helper_mode="generic"`` run from the same weights (step 1 to 1e-5
+   relative; later steps and the parameters to 3× a generic run from
+   weights moved by one unit in the last place), and the last loss must
+   be below the first.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -148,6 +166,13 @@ FUSED_MM_EXTRA = [(4096, 768, 768, "relu"), (4096, 768, 768, "tanh"),
 # [0, 1]) may differ by 1e-4 absolute
 ONNX_BERT_TOL = 1e-4
 ONNX_BERT_TIMED = 5
+# fused LayerNorm + activation at the fine-tune head's rows (batch 32 ·
+# seq 128) × hidden 768; tolerance cuda_layernorm.kernel_tolerance
+LN_SHAPE = (4096, 768)
+LN_ACTS = ("gelu", "gelu_exact", "none")
+# sd_bert_finetune: Adam lr and steps (BERT fine-tune practice: 2e-5…5e-5)
+FINETUNE_LR = 5e-5
+FINETUNE_STEPS = 3
 IMAGE = (224, 224, 3)
 CLASSES = 1000
 TRAIN_STEPS = 3
@@ -924,6 +949,75 @@ def fused_matmul_case(dev):
     return ok, entries
 
 
+def fused_layer_norm_case(dev):
+    """act(LayerNorm(x)·g + b) at 4096 × 768 for gelu, gelu_exact and
+    none, float32 and bfloat16, held to ``cuda_layernorm.kernel_tolerance``
+    of its plain version; ``F.layer_norm`` (then ``F.gelu``) timed as the
+    library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+    from deeplearning4j_tpu_torch.ops.nn_ops import apply_fused_activation
+
+    rows, d = LN_SHAPE
+    entries, ok = [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        for act in LN_ACTS:
+            rng = np.random.default_rng(7)
+            x = torch.from_numpy(rng.standard_normal(
+                (rows, d), dtype=np.float32)).to(dev, dtype)
+            g = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(d)).astype(
+                np.float32)).to(dev)
+            b = torch.from_numpy((0.1 * rng.standard_normal(d)).astype(
+                np.float32)).to(dev)
+            out = cl.fused_layer_norm_kernel(x, g, b, activation=act)
+            ref = cl.fused_layer_norm_reference(x, g, b, activation=act)
+            torch.cuda.synchronize()
+            atol, rtol = cl.kernel_tolerance(dtype)
+            err = (out.float() - ref.float()).abs()
+            share = (err / (atol + rtol * ref.float().abs())).max().item()
+            ok = (ok and share <= 1.0 and out.dtype == dtype
+                  and bool(torch.isfinite(out.float()).all()))
+            gl, bl = g.to(dtype), b.to(dtype)
+            ms = time_ms(lambda: cl.fused_layer_norm_kernel(
+                x, g, b, activation=act))
+            plain_ms = time_ms(lambda: cl.fused_layer_norm_reference(
+                x, g, b, activation=act))
+            lib_ms = time_ms(lambda: apply_fused_activation(F.layer_norm(
+                x, (d,), gl, bl, 1e-5), act))
+            name = str(dtype).replace("torch.", "")
+            # x read and y written once, g and b (float32) once; ~10
+            # float32 operations an element besides the activation
+            bms, by = bound(2.0 * rows * d * x.element_size() + 8.0 * d,
+                            10.0 * rows * d, "float32")
+            entries.append({
+                "kernel": "fused_layer_norm", "dtype": name,
+                "shape": [rows, d], "activation": act,
+                "max_abs_err": err.max().item(),
+                "tol": f"{atol:g} + {rtol:g}*|plain|", "err_over_tol": share,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_note": "F.layer_norm" + (
+                    "" if act == "none" else " then F.gelu") +
+                    ", gain and bias in x's dtype",
+                "bound_ms": bms, "bound_by": by,
+                "achieved_gb_per_s": (2.0 * rows * d * x.element_size()
+                                      + 8.0 * d) / ms / 1e6})
+    return ok, entries
+
+
+@functools.lru_cache(maxsize=1)
+def _bert_base_onnx():
+    """(ONNX bytes of the BERT-base-width encoder, seconds to build them):
+    built once, read by onnx_bert and sd_bert_finetune."""
+    from deeplearning4j_tpu_torch.testing.onnx_builder import (
+        BERT_BASE_ONNX, bert_onnx_model)
+
+    t0 = time.perf_counter()
+    model = bert_onnx_model(**BERT_BASE_ONNX)
+    return model, time.perf_counter() - t0
+
+
 def onnx_bert_phase(dev, smi):
     """The imported-graph path at BERT-base width: ONNX bytes →
     ``import_onnx`` → SameDiff → optimizer → ``sd.output``, with the
@@ -937,13 +1031,11 @@ def onnx_bert_phase(dev, smi):
     from deeplearning4j_tpu_torch.ops import cuda_attention as ca
     from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
     from deeplearning4j_tpu_torch.testing.onnx_builder import (
-        BERT_BASE_ONNX, bert_onnx_feeds, bert_onnx_model)
+        BERT_BASE_ONNX, bert_onnx_feeds)
 
     cfg = BERT_BASE_ONNX
     env = environment()
-    t0 = time.perf_counter()
-    model = bert_onnx_model(**cfg)
-    build_s = time.perf_counter() - t0
+    model, build_s = _bert_base_onnx()
     feeds = bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
 
     def run(mode, optimize, *, counted=False):
@@ -1043,6 +1135,175 @@ def onnx_bert_phase(dev, smi):
     return problems, line, {"fused_matmul_bias_act":
                             launches["fused_matmul_bias_act"],
                             "flash_attn_fwd": launches["flash_attn_fwd"]}
+
+
+def sd_bert_finetune_phase(dev, smi):
+    """SameDiff training of the imported BERT-base: ONNX bytes →
+    ``import_onnx`` → a token-classification head added in SameDiff →
+    ``TrainingConfig`` → ``sd.fit`` (3 steps) → ``sd.output``, through the
+    kernels; then the same steps with ``helper_mode="generic"`` from the
+    same weights, and from weights moved by one unit in the last place
+    (the yardstick). Returns (problems, line, launches of the 3 steps)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+
+    cfg = ob.BERT_BASE_ONNX
+    env = environment()
+    model, _ = _bert_base_onnx()
+    feeds = ob.bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+    batch = ob.TokenBatch(feeds, ob.token_labels(cfg["batch"], cfg["seq"]))
+    head = ob.token_head_arrays(cfg["d"])
+
+    def build(nudge=False):
+        sd = import_onnx(model, device=dev)
+        logits, loss = ob.add_token_head(sd, f"l{cfg['layers'] - 1}_out",
+                                         head, cfg["batch"], cfg["seq"])
+        sd.set_training_config(TrainingConfig(
+            updater=Adam(learning_rate=FINETUNE_LR),
+            data_set_feature_mapping=["ids", "mask"],
+            data_set_label_mapping=["labels"], loss_variables=[loss]))
+        if nudge:
+            moved = _nudged(sd.training_state()["params"],
+                            np.random.default_rng(9))
+            for n, t in moved.items():
+                sd.set_arr(n, t)
+        return sd, logits
+
+    def run(mode, *, nudge=False, counted=False):
+        env.helper_mode = mode
+        try:
+            resident = torch.cuda.memory_allocated() / 2 ** 30
+            sd, logits = build(nudge)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches = None
+            if counted:
+                ca.reset_launch_counts()
+                cl.fused_layer_norm_kernel.launches = 0
+                cm.fused_matmul.launches = 0
+                cu.fused_updater.launches = 0  # the main path starts here
+            losses, times = [], []
+            for _ in range(FINETUNE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses += sd.fit([batch])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if counted:
+                launches = dict(
+                    {k: v for k, v in ca.launch_counts().items()
+                     if k != "paged_decode"},
+                    fused_layer_norm=cl.fused_layer_norm_kernel.launches,
+                    fused_matmul_bias_act=cm.fused_matmul.launches,
+                    fused_updater=cu.fused_updater.launches)  # ... ends here
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            st = sd.last_compile_stats
+            info = {"losses": losses, "times_ms": [t * 1e3 for t in times],
+                    "step_p50_ms": float(np.percentile(times, 50)) * 1e3,
+                    "peak_memory_gib": peak,
+                    "resident_before_gib": resident,  # earlier phases'
+                    "fusions": st.fusions,
+                    "plan_nodes": st.nodes_after}
+            params = {n: t.clone() for n, t in
+                      sd.training_state()["params"].items()}
+            n_params = sum(t.numel() for t in params.values())
+            cl.fused_layer_norm_kernel.launches = 0
+            cm.fused_matmul.launches = 0
+            out = sd.output(feeds, [logits])[logits]
+            info["output_launches"] = {
+                "fused_layer_norm": cl.fused_layer_norm_kernel.launches,
+                "fused_matmul_bias_act": cm.fused_matmul.launches}
+            del sd
+            torch.cuda.empty_cache()
+            return info, launches, params, n_params, out
+        finally:
+            env.helper_mode = "auto"
+
+    run("auto")  # warm-up: cuBLAS, the allocator, the plan's first build
+    k_info, launches, k_params, n_params, k_out = run("auto", counted=True)
+    g_info, _, g_params, _, g_out = run("generic")
+    y_info, _, y_params, _, _ = run("generic", nudge=True)
+
+    problems = []
+    layers = cfg["layers"]
+    want_fusions = {"attention": layers, "epilogue": 6 * layers + 2,
+                    "layernorm": 1}
+    if k_info["fusions"] != want_fusions:
+        problems.append(f"fusions {k_info['fusions']} != {want_fusions}")
+    n_leaves = len(k_params)
+    per_step = {"fused_layer_norm": 1, "flash_attn_fwd": layers,
+                "flash_attn_dq": layers, "flash_attn_dkv": layers,
+                "fused_matmul_bias_act": 6 * layers + 2,
+                "fused_updater": n_leaves}
+    for name, n in per_step.items():
+        if launches[name] != n * FINETUNE_STEPS:
+            problems.append(f"{name} launches {launches[name]} != {n} x "
+                            f"{FINETUNE_STEPS} steps")
+    if k_info["output_launches"] != {"fused_layer_norm": 1,
+                                     "fused_matmul_bias_act": 6 * layers + 2}:
+        problems.append(f"output launches {k_info['output_launches']}")
+    kernel, generic, yard = (i["losses"] for i in (k_info, g_info, y_info))
+    if not all(math.isfinite(v) for v in kernel + generic + yard):
+        problems.append("non-finite loss")
+    loss_lim = [max(BERT_LOSS_RTOL["float32"] * abs(g), 0.0 if i == 0 else
+                    BERT_YARDSTICK * abs(y - g))
+                for i, (g, y) in enumerate(zip(generic, yard))]
+    loss_diff = [abs(a - b) for a, b in zip(kernel, generic)]
+    if any(d > lim for d, lim in zip(loss_diff, loss_lim)):
+        problems.append(f"losses {kernel} vs generic {generic} "
+                        f"(limits {loss_lim})")
+    if not kernel[-1] < kernel[0]:
+        problems.append(f"loss did not fall: {kernel}")
+    big = max(t.abs().max().item() for t in g_params.values())
+    p_diff = _max_diff(k_params, g_params)
+    p_lim = max(BERT_YARDSTICK * _max_diff(y_params, g_params),
+                torch.finfo(torch.float32).eps * big)
+    if p_diff > p_lim:
+        problems.append(f"params {p_diff} > {p_lim}")
+    shape = (cfg["batch"], cfg["seq"], ob.NER_TAGS)
+    if k_out.shape != shape or not np.all(np.isfinite(k_out)):
+        problems.append(f"output {k_out.shape} not finite")
+    out_diff = float(np.abs(k_out - g_out).max())
+    tokens = cfg["batch"] * cfg["seq"]
+    real = float(feeds["mask"].sum())
+    p50 = k_info["step_p50_ms"] / 1e3
+    line = {"phase": "sd_bert_finetune", "card": smi, "config": cfg,
+            "head": "dense 768x768 -> layer_norm -> gelu -> 768x9 "
+                    "(CoNLL-2003 BIO tags), softmax cross entropy",
+            "weights": "float32, numpy RandomState(0) * 0.02; head "
+                       "RandomState(2)",
+            "updater": f"Adam lr {FINETUNE_LR:g}", "steps": FINETUNE_STEPS,
+            "leaves": n_leaves, "params": n_params,
+            "param_bytes": 4 * n_params, "adam_state_bytes": 8 * n_params,
+            "launches": launches,
+            "launches_per_step": {k: v / FINETUNE_STEPS
+                                  for k, v in launches.items()},
+            "kernel": k_info, "generic": g_info,
+            "generic_weights_moved_1_ulp": y_info,
+            "loss_abs_diff": loss_diff, "loss_limit": loss_lim,
+            "param_max_abs_diff": p_diff, "param_limit": p_lim,
+            "output_max_abs_diff_vs_generic": out_diff,
+            "tol": (f"step-1 loss {BERT_LOSS_RTOL['float32']:g} relative; "
+                    f"later losses and params {BERT_YARDSTICK:g} x "
+                    f"yardstick"),
+            "smoke_reading": f"{FINETUNE_STEPS} steps, no spread",
+            "step_p50_ms": k_info["step_p50_ms"], "tokens_per_s": tokens / p50,
+            "real_tokens_per_s": real / p50,
+            "generic_step_p50_ms": g_info["step_p50_ms"],
+            "peak_memory_gib": k_info["peak_memory_gib"],
+            "peak_memory_own_gib": k_info["peak_memory_gib"]
+            - k_info["resident_before_gib"],
+            "problems": problems}
+    return problems, line, launches
 
 
 def serve(engine_cls, model, prompts, **engine_kw):
@@ -1161,6 +1422,10 @@ def main() -> int:
     entries += mm_entries
     if not ok:
         failed.append("fused_matmul_bias_act[float32/bfloat16]")
+    ok, ln_entries = fused_layer_norm_case(dev)
+    entries += ln_entries
+    if not ok:
+        failed.append("fused_layer_norm[float32/bfloat16]")
     emit({"phase": "kernels", "card": smi, "entries": entries})
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
@@ -1270,13 +1535,20 @@ def main() -> int:
     if problems:
         raise SystemExit(f"onnx_bert phase failed: {problems}")
 
+    # --------------------------------------------------- sd_bert_finetune
+    problems, line, train_launches["sd_bert_finetune"] = (
+        sd_bert_finetune_phase(dev, smi))
+    emit(line)
+    if problems:
+        raise SystemExit(f"sd_bert_finetune phase failed: {problems}")
+
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
     by_path = {"flash_attn_fwd": {"serve": launches["flash_attn_fwd"]},
                "paged_decode": {"serve": launches["paged_decode"]},
                "fused_updater": {}, "bn_matmul_stats": {},
                "flash_attn_dq": {}, "flash_attn_dkv": {},
-               "fused_matmul_bias_act": {}}
+               "fused_matmul_bias_act": {}, "fused_layer_norm": {}}
     for path, counts in train_launches.items():
         for name, n in counts.items():
             if name in by_path and n:
@@ -1288,7 +1560,9 @@ def main() -> int:
         "bn_matmul_stats": ("bn_matmul_stats.cu", "pallas_convbn.py:49"),
         "flash_attn_dq": ("flash_attn_bwd.cu", "pallas_attention.py:244"),
         "flash_attn_dkv": ("flash_attn_bwd.cu", "pallas_attention.py:282"),
-        "fused_matmul_bias_act": ("fused_matmul.cu", "pallas_matmul.py:42")}
+        "fused_matmul_bias_act": ("fused_matmul.cu", "pallas_matmul.py:42"),
+        "fused_layer_norm": ("fused_layer_norm.cu",
+                             "pallas_layernorm.py:69")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = []

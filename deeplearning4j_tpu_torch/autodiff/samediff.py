@@ -21,16 +21,26 @@ What differs from the JAX package:
   uint32), so avals, CSE keys and folds are the JAX package's.
 * ``output`` returns numpy arrays, as the JAX package does; a bfloat16
   result comes back as float32 (numpy has no bfloat16).
-* Ported: the construction API, the ``math`` and ``nn`` namespaces, the
-  graph-op catalog without the losses, ``output``/``exec``,
-  ``get_arr``/``set_arr``, ``variables`` and ``summary``. Not yet:
-  gradients and ``fit``, control flow (scan/while/cond), serde, the other
-  namespaces and graph checking (``check``; ``validate=True`` raises)
-  (ROADMAP.md, Queue 1 items 6 and 10).
+* Gradients come from ``torch.autograd.grad`` over the same plan
+  ``output`` runs (the JAX package takes ``jax.grad`` of the traced
+  interpreter), with zeros for a VARIABLE the loss never reads, as
+  ``jax.grad`` gives. ``fit`` steps eagerly: loss and gradients through
+  the plan, then one ``Updater.apply_fused`` per leaf (the fused updater
+  kernel on the card) under ``no_grad``; step losses stay on the device
+  and are read once per epoch.
+* Ported: the construction API, the ``math``, ``nn`` and ``loss``
+  namespaces, the graph-op catalog, ``output``/``exec``,
+  ``calculate_gradients``, ``TrainingConfig``/``fit`` with the training
+  state and listeners, ``get_arr``/``set_arr``, ``variables`` and
+  ``summary``. Not yet: control flow (scan/while/cond), serde, the other
+  namespaces, graph checking (``check``; ``validate=True`` raises), and
+  in ``fit`` the preemption hook and the epoch event log (ROADMAP.md,
+  Queue 1 items 5, 6, 9 and 10).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -38,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.environment import resolve_device
+from deeplearning4j_tpu_torch.ops import losses as loss_lib
 from deeplearning4j_tpu_torch.ops import nn_ops
 from deeplearning4j_tpu_torch.ops.registry import registry as op_registry
 
@@ -207,7 +218,7 @@ class _Node:
 # (*input_tensors, **kwargs), the torch counterparts of the JAX package's
 # GRAPH_OPS (its jnp/lax entries), with its dtype results: comparisons give
 # float32, argmax/argmin and integer sums int32, true division of integers
-# float32. The loss entries are not ported yet.
+# float32.
 # ---------------------------------------------------------------------------
 
 
@@ -368,6 +379,12 @@ def _cmp(fn):
     return lambda a, b: fn(a, b).to(torch.float32)
 
 
+def _huber(pred, labels, delta):
+    err = torch.abs(pred - labels)
+    quad = torch.clamp_max(err, delta)
+    return torch.mean(0.5 * quad ** 2 + delta * (err - quad))
+
+
 GRAPH_OPS: Dict[str, Callable[..., Any]] = {
     # elementwise binary
     "add": lambda a, b: a + b,
@@ -472,6 +489,19 @@ GRAPH_OPS: Dict[str, Callable[..., Any]] = {
     "batch_norm_graph": lambda x, mean, var, gamma, beta, *, eps=1e-5:
         (x - mean) * torch.rsqrt(var + eps) * gamma + beta,
     "dropout_graph": lambda x, *, rate, seed=0: x,  # inference identity
+    # losses (feed probabilities/logits per name, as the reference does)
+    "softmax_cross_entropy": lambda logits, labels:
+        loss_lib.softmax_cross_entropy_with_logits(logits, labels),
+    "sparse_softmax_cross_entropy": lambda logits, ids:
+        loss_lib.sparse_mcxent(logits, ids),
+    "sigmoid_cross_entropy": lambda logits, labels:
+        loss_lib.sigmoid_cross_entropy_with_logits(logits, labels),
+    "mean_squared_error": lambda pred, labels: loss_lib.mse(pred, labels),
+    "absolute_difference": lambda pred, labels: loss_lib.mae(pred, labels),
+    "log_loss": lambda probs, labels: loss_lib.binary_xent(probs, labels),
+    "huber_loss": lambda pred, labels, *, delta=1.0:
+        _huber(pred, labels, delta),
+    "cosine_distance": lambda a, b: loss_lib.cosine_proximity(a, b),
     # the JAX package resolves `identity` from its registry (the port's
     # registry has none) and its ONNX importer adds it here
     "identity": lambda a: a,
@@ -645,6 +675,58 @@ class SDNN(_Namespace):
         return self._sd._record("dot_product_attention", [q, k, v])
 
 
+class SDLoss(_Namespace):
+    """sd.loss — each method records the catalog loss op of its name: a
+    scalar, the mean over examples."""
+
+    def softmax_cross_entropy(self, logits, labels):
+        return self._sd._record("softmax_cross_entropy", [logits, labels])
+
+    def sparse_softmax_cross_entropy(self, logits, ids):
+        return self._sd._record("sparse_softmax_cross_entropy", [logits, ids])
+
+    def sigmoid_cross_entropy(self, logits, labels):
+        return self._sd._record("sigmoid_cross_entropy", [logits, labels])
+
+    def mean_squared_error(self, pred, labels):
+        return self._sd._record("mean_squared_error", [pred, labels])
+
+    def absolute_difference(self, pred, labels):
+        return self._sd._record("absolute_difference", [pred, labels])
+
+    def log_loss(self, probs, labels):
+        return self._sd._record("log_loss", [probs, labels])
+
+    def huber_loss(self, pred, labels, delta=1.0):
+        return self._sd._record("huber_loss", [pred, labels],
+                                {"delta": delta})
+
+    def cosine_distance(self, a, b):
+        return self._sd._record("cosine_distance", [a, b])
+
+
+class TrainingConfig:
+    """TrainingConfig.java analog: the updater (Adam by default, resolved
+    through :func:`~deeplearning4j_tpu_torch.nn.updater.get_updater`), l1,
+    l2 and weight decay, which placeholders a batch's features and labels
+    feed, and the loss variables' names."""
+
+    def __init__(self, updater=None, l1: float = 0.0, l2: float = 0.0,
+                 weight_decay: float = 0.0,
+                 data_set_feature_mapping: Optional[Sequence[str]] = None,
+                 data_set_label_mapping: Optional[Sequence[str]] = None,
+                 loss_variables: Optional[Sequence[str]] = None):
+        from deeplearning4j_tpu_torch.nn.updater import Adam, get_updater
+
+        self.updater = get_updater(updater) if updater is not None else Adam()
+        self.l1 = l1
+        self.l2 = l2
+        self.weight_decay = weight_decay
+        self.feature_mapping = list(data_set_feature_mapping or [])
+        self.label_mapping = list(data_set_label_mapping or [])
+        self.loss_variables = list(loss_variables or [])
+
+
 class SameDiff:
     """The graph container + execution facade.
 
@@ -674,6 +756,15 @@ class SameDiff:
         self._name_counter = 0
         self.math = SDMath(self)
         self.nn = SDNN(self)
+        self.loss = SDLoss(self)
+        self.training_config: Optional[TrainingConfig] = None
+        self._updater_state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self._step = 0
+        # exact-resume bookkeeping: epochs completed across fit() calls and
+        # completed batches of the current epoch
+        self.epoch_count = 0
+        self.batch_in_epoch = 0
+        self._listeners: List[Any] = []
         self._jit_cache: Dict[Any, Any] = {}
         # graph IO signature, populated by the import layer (imports/ir.py)
         self.graph_inputs: List[str] = []
@@ -957,6 +1048,189 @@ class SameDiff:
         return {k: _to_numpy(v) for k, v in res.items()}
 
     exec = output  # reference SameDiff.exec alias
+
+    # --------------------------------------------------------------- autodiff
+    def create_grad_function(self) -> None:
+        """API-parity no-op: the reference builds the grad subgraph
+        eagerly; here autograd derives gradients at execution time."""
+
+    def _trainable(self) -> List[str]:
+        return [n for n, v in self._vars.items() if v.vtype == "VARIABLE"]
+
+    def _loss_and_grads(self, loss_name: str, wrt: Sequence[str],
+                        feeds: Dict[str, torch.Tensor]):
+        """(loss, {name: gradient}) of the scalar ``loss_name`` through the
+        plan ``output`` runs for it, the leaves ``wrt`` requiring grad. A
+        leaf the loss never reads gets zeros, as ``jax.grad`` gives."""
+        from deeplearning4j_tpu_torch.nn import dtype as DT
+
+        run, const_names = self._exec_fn((loss_name,))
+        arrays = self._var_arrays(const_names)
+        leaves = [arrays[n].detach().requires_grad_(True) for n in wrt]
+        arrays.update(zip(wrt, leaves))
+        with torch.enable_grad(), DT.precision_scope(self._precision_policy()):
+            loss = run(arrays, feeds)[loss_name]
+            grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
+                     if loss.requires_grad else [None] * len(leaves))
+        return loss.detach(), {
+            n: torch.zeros_like(p) if g is None else g
+            for n, p, g in zip(wrt, leaves, grads)}
+
+    def calculate_gradients(self, feeds: Dict[str, Any], loss_name: str,
+                            wrt: Optional[Sequence[str]] = None
+                            ) -> Dict[str, np.ndarray]:
+        """Gradients of a scalar loss variable w.r.t. VARIABLEs (all of
+        them unless ``wrt`` names some), as numpy arrays
+        (sd.calculateGradients analog)."""
+        wrt = list(wrt) if wrt is not None else self._trainable()
+        _, grads = self._loss_and_grads(
+            loss_name, wrt,
+            {k: canonical(v, self.device) for k, v in feeds.items()})
+        return {k: _to_numpy(g) for k, g in grads.items()}
+
+    # --------------------------------------------------------------- training
+    def set_training_config(self, tc: TrainingConfig) -> None:
+        self.training_config = tc
+
+    def _init_updater_state(self) -> None:
+        if self._updater_state is None and self.training_config is not None:
+            upd = self.training_config.updater
+            self._updater_state = {n: upd.init_state(self._arrays[n])
+                                   for n in self._trainable()}
+
+    def training_state(self) -> Dict[str, Any]:
+        """Full training state for exact resume: trainable VARIABLE
+        arrays, updater slots, step/epoch position and the data cursor.
+        Initializes the updater state if fit has not run yet, so a restore
+        before the first fit still finds a matching tree."""
+        self._init_updater_state()
+        return {
+            "params": {n: self._arrays[n] for n in self._trainable()},
+            "opt_state": self._updater_state
+            if self._updater_state is not None else {},
+            "iteration": np.asarray(self._step),
+            "epoch": np.asarray(self.epoch_count),
+            "data_cursor": np.asarray(self.batch_in_epoch),
+        }
+
+    def apply_training_state(self, state: Dict[str, Any]) -> None:
+        """Inverse of :meth:`training_state`. Arrays may be tensors or
+        numpy arrays — the JAX package's ``training_state()`` converted
+        with ``np.asarray`` carries a run across."""
+        for n, a in state["params"].items():
+            self._arrays[n] = canonical(a, self.device)
+        opt = state.get("opt_state") or {}
+        if opt:
+            self._updater_state = {
+                n: {k: canonical(a, self.device) for k, a in s.items()}
+                for n, s in opt.items()}
+        self._step = int(state["iteration"])
+        self.epoch_count = int(state["epoch"])
+        self.batch_in_epoch = int(state.get("data_cursor", 0))
+
+    def _train_step(self, loss_name: str, trainable: Sequence[str],
+                    feeds: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One step: loss and gradients through the plan, then per leaf the
+        l2 and l1 terms, the updater's fused step and weight decay, in the
+        JAX package's order. Returns the loss (a device scalar)."""
+        tc = self.training_config
+        upd = tc.updater
+        loss, grads = self._loss_and_grads(loss_name, trainable, feeds)
+        lr = upd.lr(self._step)
+        with torch.no_grad():
+            for n, g in grads.items():
+                w = self._arrays[n]
+                if tc.l2:
+                    g = g + tc.l2 * w
+                if tc.l1:
+                    g = g + tc.l1 * torch.sign(w)
+                # fused updater step (ops/cuda_updater.py): one kernel per
+                # leaf on the card, the identical apply() math elsewhere
+                nw, self._updater_state[n] = upd.apply_fused(
+                    w, g, self._updater_state[n], lr, self._step)
+                if tc.weight_decay:
+                    nw = nw - lr * tc.weight_decay * w
+                self._arrays[n] = nw.to(w.dtype)
+        return loss
+
+    def fit(self, iterator, epochs: int = 1,
+            loss_name: Optional[str] = None) -> List[float]:
+        """sd.fit(DataSetIterator, nEpochs) — TrainingSession analog.
+
+        Each batch's features and labels bind to placeholders through the
+        TrainingConfig mappings (a list or tuple of arrays feeds one
+        placeholder each). Returns per-epoch mean losses (History
+        analog)."""
+        tc = self.training_config
+        if tc is None:
+            raise ValueError("call set_training_config first")
+        loss_name = loss_name or (tc.loss_variables[0]
+                                  if tc.loss_variables else None)
+        if loss_name is None:
+            raise ValueError("no loss variable configured")
+        trainable = self._trainable()
+        self._init_updater_state()
+
+        from deeplearning4j_tpu_torch import observe
+        from deeplearning4j_tpu_torch.datasets.dataset import (
+            DataSet, ListDataSetIterator)
+        from deeplearning4j_tpu_torch.autodiff.listeners import (
+            _notify_fit_done)
+
+        if isinstance(iterator, DataSet):
+            iterator = ListDataSetIterator(iterator, batch_size=32)
+        m = observe.metrics()
+        steps_c = m.counter("dl4j_tpu_train_steps_total", model="samediff")
+        ex_c = m.counter("dl4j_tpu_train_examples_total", model="samediff")
+        xfer_c = m.counter("dl4j_tpu_host_to_device_transfers_total",
+                           model="samediff")
+        step_h = m.histogram("dl4j_tpu_train_step_seconds", model="samediff")
+        history = []
+        for ep in range(epochs):
+            losses = []
+            t_prev = time.perf_counter()
+            # nonzero only when resuming mid-epoch: the first `skip`
+            # batches were already consumed by the interrupted run
+            skip = self.batch_in_epoch
+            for bi, ds in enumerate(iterator):
+                if bi < skip:
+                    continue
+                feats = (ds.features if isinstance(ds.features, (list, tuple))
+                         else [ds.features])
+                labs = (ds.labels if isinstance(ds.labels, (list, tuple))
+                        else [ds.labels])
+                feeds = {name: canonical(arr, self.device) for name, arr in
+                         zip(tc.feature_mapping, feats)}
+                feeds.update((name, canonical(arr, self.device)) for name, arr
+                             in zip(tc.label_mapping, labs))
+                loss = self._train_step(loss_name, trainable, feeds)
+                self._step += 1
+                self.batch_in_epoch = bi + 1  # cursor before listeners run
+                losses.append(loss)
+                # inter-step host time: steps are not synchronized, so this
+                # is the enqueue rate until the device's queue fills
+                now = time.perf_counter()
+                step_h.observe(now - t_prev)
+                t_prev = now
+                steps_c.inc()
+                ex_c.inc(ds.num_examples())
+                xfer_c.inc(len(feeds))
+                for lst in self._listeners:
+                    lst.iteration_done(self, self._step, ep, loss)
+            self.batch_in_epoch = 0
+            self.epoch_count += 1
+            if losses:  # one device read per epoch
+                history.append(float(torch.stack(losses).float().mean()))
+        _notify_fit_done(self, self._listeners)
+        return history
+
+    # --------------------------------------------------------------- listeners
+    def set_listeners(self, *listeners) -> None:
+        """SameDiff listener family (``autodiff/listeners.py``): listeners
+        receive ``iteration_done(self, iteration, epoch, loss)`` during
+        fit(), the loss a device scalar, and ``fit_done(self)`` after
+        it."""
+        self._listeners = list(listeners)
 
     # ------------------------------------------------------------------ misc
     def variables(self) -> List[str]:

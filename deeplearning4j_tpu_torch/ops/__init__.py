@@ -4,7 +4,7 @@ Importing this package registers the generic ops (:mod:`.nn_ops`,
 :mod:`.shape_ops`, ``fused_updater_step``, ``fused_bn_matmul_stats``) and
 installs the hand-written CUDA kernels as their ``"cuda"`` platform
 helpers (:mod:`.cuda_attention`, :mod:`.cuda_updater`,
-:mod:`.cuda_convbn`, :mod:`.cuda_matmul`). No kernel is built at import.
+:mod:`.cuda_convbn`, :mod:`.cuda_matmul`, :mod:`.cuda_layernorm`). No kernel is built at import.
 """
 
 from deeplearning4j_tpu_torch.ops import nn_ops, shape_ops  # noqa: F401
@@ -12,6 +12,9 @@ from deeplearning4j_tpu_torch.ops.cuda_attention import (
     register_platform_attention,
 )
 from deeplearning4j_tpu_torch.ops.cuda_convbn import register_platform_convbn
+from deeplearning4j_tpu_torch.ops.cuda_layernorm import (
+    register_platform_fused_layernorm,
+)
 from deeplearning4j_tpu_torch.ops.cuda_matmul import (
     register_platform_fused_matmul,
 )
@@ -26,5 +29,6 @@ register_platform_attention()
 register_platform_fused_updater()
 register_platform_convbn()
 register_platform_fused_matmul()
+register_platform_fused_layernorm()
 
 __all__ = ["OpDescriptor", "OpRegistry", "exec_op", "op", "registry"]

@@ -23,14 +23,15 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # one shared library per source; the name is the source's stem
 SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "paged_decode",
-           "fused_updater", "bn_matmul_stats", "fused_matmul")
+           "fused_updater", "bn_matmul_stats", "fused_matmul",
+           "fused_layer_norm")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,11 +63,12 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
-def build(names: Sequence[str] = SOURCES) -> float:
-    """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together. Returns the seconds spent
-    (0 when all were built already); raises with the compiler output of
-    each failed build."""
+def build(names: Optional[Sequence[str]] = None) -> float:
+    """Compile every library of ``names`` (all of :data:`SOURCES` when
+    None) that is not built yet, one ``nvcc`` per source, all started
+    together. Returns the seconds spent (0 when all were built already);
+    raises with the compiler output of each failed build."""
+    names = SOURCES if names is None else names
     missing = [n for n in names if not _lib_path(n).exists()]
     if not missing:
         return 0.0

@@ -398,9 +398,9 @@ def fused_layer_norm(x, gain, bias=None, *, axis: int = -1,
                      eps: float = 1e-5, activation: str = "none"):
     """act(layer_norm(x) * gain + bias) — the LN-epilogue fusion target the
     optimizer emits for a trailing-axis layer norm feeding a GELU. The
-    generic impl is the op chain it replaces; the JAX package's one-pass
-    kernel for it (``ops/pallas_layernorm.py``) is still to be ported
-    (ROADMAP.md, Queue 2), so no ``"cuda"`` helper is registered.
+    generic impl is the op chain it replaces; the hand-written one-pass
+    CUDA kernel (``ops/cuda_layernorm.py``) registers as its ``"cuda"``
+    helper.
 
     Trailing-axis only: the (N,)-shaped gain/bias broadcast along the last
     axis, so a non-trailing ``axis`` raises."""

@@ -1,19 +1,29 @@
-"""Where an imported BERT-base forward's time goes, on the card.
+"""Where an imported BERT-base forward's, or fine-tune step's, time goes,
+on the card.
 
-    python -m deeplearning4j_tpu_torch.profile_import [--trace out.json]
+    python -m deeplearning4j_tpu_torch.profile_import [--finetune] [--trace out.json]
 
 Builds the ONNX bytes of a BERT-base-width encoder with the port's builder
 (``testing.onnx_builder.BERT_BASE_ONNX``: 12 layers, d 768, 12 heads, ff
-3072, vocab 30522, random weights from a numpy seed), imports them with
-``import_onnx`` onto the card, and runs ``sd.output(feeds, ["y"])`` on
-batch 32 × seq 128 with ragged rows — ``chip_smoke.py``'s ``onnx_bert``
-main path: the optimized plan of ~450 nodes, eager, with 72
-``fused_matmul_bias_act`` and 12 ``dot_product_attention`` kernel
-launches a forward (TF32 off). After 2 warm forwards it profiles 3 with
-``torch.profiler`` and prints one JSON line: host wall time per forward,
-summed device kernel time, the device's busy share and the kernels with
-the most device time. Needs a GPU; the numbers are the card's, printed
-beside its name and power limit.
+3072, vocab 30522, random weights from a numpy seed) and imports them with
+``import_onnx`` onto the card; batch 32 × seq 128 with ragged rows, TF32
+off.
+
+* Default — ``chip_smoke.py``'s ``onnx_bert`` main path:
+  ``sd.output(feeds, ["y"])``, the optimized plan of ~450 nodes, eager,
+  with 72 ``fused_matmul_bias_act`` and 12 ``dot_product_attention``
+  kernel launches a forward. 2 warm forwards, then 3 profiled.
+* ``--finetune`` — ``chip_smoke.py``'s ``sd_bert_finetune`` main path
+  ("SameDiff BERT-base step time"): the token-classification head
+  (dense → LayerNorm → GELU → 9 tags) added in SameDiff, Adam lr 5e-5,
+  ``sd.fit`` on one repeated batch. 2 warm steps, then 3 profiled steps
+  in one ``fit``; the port's kernel launches a step are read from the
+  wrappers' counters over those steps.
+
+Prints one JSON line: host wall time per forward or step, summed device
+kernel time, the device's busy share and the kernels with the most device
+time. Needs a GPU; the numbers are the card's, printed beside its name
+and power limit.
 """
 
 from __future__ import annotations
@@ -28,10 +38,24 @@ from deeplearning4j_tpu_torch.profile_serve import _profile
 _WARM, _STEPS = 2, 3
 
 
+def _port_launches() -> dict:
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    return dict(ca.launch_counts(),
+                fused_layer_norm=cl.fused_layer_norm_kernel.launches,
+                fused_matmul_bias_act=cm.fused_matmul.launches,
+                fused_updater=cu.fused_updater.launches)
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--finetune", action="store_true",
+                    help="profile sd.fit steps instead of forwards")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace here")
     args = ap.parse_args(argv)
@@ -41,28 +65,55 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
     from deeplearning4j_tpu_torch.imports import import_onnx
-    from deeplearning4j_tpu_torch.testing.onnx_builder import (
-        BERT_BASE_ONNX, bert_onnx_feeds, bert_onnx_model)
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    cfg = BERT_BASE_ONNX
-    sd = import_onnx(bert_onnx_model(**cfg), device=torch.device("cuda", 0))
-    feeds = bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+    cfg = ob.BERT_BASE_ONNX
+    sd = import_onnx(ob.bert_onnx_model(**cfg),
+                     device=torch.device("cuda", 0))
+    feeds = ob.bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+    if not args.finetune:
+        def forward():
+            sd.output(feeds, ["y"])
 
-    def forward():
-        sd.output(feeds, ["y"])
+        for _ in range(_WARM):
+            forward()
+        torch.cuda.synchronize()
+        st = sd.last_compile_stats
+        print(json.dumps({"phase": "onnx_bert", "card": card, "config": cfg,
+                          "plan_nodes": st.nodes_after, "fusions": st.fusions,
+                          **_profile(forward, _STEPS, args.trace)}),
+              flush=True)
+        return 0
 
-    for _ in range(_WARM):
-        forward()
+    _, loss = ob.add_token_head(
+        sd, f"l{cfg['layers'] - 1}_out", ob.token_head_arrays(cfg["d"]),
+        cfg["batch"], cfg["seq"])
+    sd.set_training_config(TrainingConfig(
+        updater=Adam(learning_rate=5e-5),
+        data_set_feature_mapping=["ids", "mask"],
+        data_set_label_mapping=["labels"], loss_variables=[loss]))
+    batch = ob.TokenBatch(feeds, ob.token_labels(cfg["batch"], cfg["seq"]))
+    sd.fit([batch] * _WARM)
     torch.cuda.synchronize()
+    before = _port_launches()
+    prof = _profile(lambda: sd.fit([batch] * _STEPS), 1, args.trace,
+                    steps_per_call=_STEPS, top=16)
+    after = _port_launches()
     st = sd.last_compile_stats
-    print(json.dumps({"phase": "onnx_bert", "card": card, "config": cfg,
-                      "plan_nodes": st.nodes_after, "fusions": st.fusions,
-                      **_profile(forward, _STEPS, args.trace)}), flush=True)
+    print(json.dumps({
+        "phase": "sd_bert_finetune", "card": card, "config": cfg,
+        "plan_nodes": st.nodes_after, "fusions": st.fusions,
+        "leaves": len(sd.training_state()["params"]),
+        "port_kernel_launches_per_step": {
+            k: (after[k] - before[k]) / _STEPS for k in after},
+        **prof}), flush=True)
     return 0
 
 

@@ -36,7 +36,11 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(fn, steps: int, trace_path=None):
+def _profile(fn, steps: int, trace_path=None, *, steps_per_call: int = 1,
+             top: int = 8):
+    """Profile ``steps`` calls of ``fn`` (each ``steps_per_call`` steps of
+    the workload); every per-step figure is over ``steps *
+    steps_per_call`` steps. ``top`` kernels by device time are listed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -47,12 +51,13 @@ def _profile(fn, steps: int, trace_path=None):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps *= steps_per_call
     if trace_path:
         prof.export_chrome_trace(trace_path)
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
                and getattr(e.device_type, "name", "") == "CUDA"]
     total_us = sum(_device_us(e) for e in kernels)
-    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    top = sorted(kernels, key=_device_us, reverse=True)[:top]
     return {
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,

@@ -214,3 +214,63 @@ def bert_onnx_feeds(batch: int, seq: int, vocab: int, *, seed: int = 1,
     return {"ids": r.randint(0, vocab, (batch, seq)).astype(np.float32),
             "mask": (np.arange(seq)[None] < lens[:, None]).astype(
                 np.float32)}
+
+
+# The token-classification head a fine-tune adds in SameDiff on top of the
+# imported encoder (chip_smoke.py's sd_bert_finetune phase,
+# profile_import.py's fine-tune mode): dense → LayerNorm → GELU →
+# classifier over the 9 BIO tags of CoNLL-2003 NER, and a softmax
+# cross-entropy loss against one-hot token labels. The LayerNorm → GELU
+# pair is what the optimizer fuses into one ``fused_layer_norm`` node.
+NER_TAGS = 9
+
+
+def token_head_arrays(d: int, tags: int = NER_TAGS, *, seed: int = 2):
+    """Head weights from numpy ``RandomState(seed)``: dense (d, d) and
+    classifier (d, tags) N(0, 0.02²), LayerNorm gain 1 + N(0, 0.1²) and
+    bias N(0, 0.1²), dense bias N(0, 0.02²), classifier bias zeros."""
+    r = np.random.RandomState(seed)
+    return {
+        "head_w": (r.randn(d, d) * 0.02).astype(np.float32),
+        "head_b": (r.randn(d) * 0.02).astype(np.float32),
+        "head_ln_g": (1.0 + 0.1 * r.randn(d)).astype(np.float32),
+        "head_ln_b": (0.1 * r.randn(d)).astype(np.float32),
+        "cls_head_w": (r.randn(d, tags) * 0.02).astype(np.float32),
+        "cls_head_b": np.zeros(tags, np.float32),
+    }
+
+
+def add_token_head(sd, enc_name: str, arrays, batch: int, seq: int):
+    """Record the head on ``sd`` (a SameDiff of either package: only the
+    API both share is used) reading ``enc_name``. Adds the placeholder
+    ``labels`` (batch, seq, tags) and returns the names of the logits and
+    of the scalar loss."""
+    tags = arrays["cls_head_w"].shape[1]
+    v = {k: sd.var(k, a) for k, a in arrays.items()}
+    h = sd.get_variable(enc_name) @ v["head_w"] + v["head_b"]
+    a = sd.nn.gelu(sd.nn.layer_norm(h, v["head_ln_g"], v["head_ln_b"]))
+    logits = (a @ v["cls_head_w"] + v["cls_head_b"]).rename("head_logits")
+    labels = sd.placeholder("labels", (batch, seq, tags))
+    sd.loss.softmax_cross_entropy(logits, labels).rename("head_loss")
+    return "head_logits", "head_loss"
+
+
+def token_labels(batch: int, seq: int, tags: int = NER_TAGS, *,
+                 seed: int = 3) -> np.ndarray:
+    """One-hot float32 token labels (batch, seq, tags) from numpy."""
+    ids = np.random.RandomState(seed).randint(0, tags, (batch, seq))
+    return np.eye(tags, dtype=np.float32)[ids]
+
+
+class TokenBatch:
+    """One ``sd.fit`` batch of the fine-tune: ``features`` is the list
+    ``[ids, mask]`` (``fit`` feeds one array per mapped placeholder; a
+    ``DataSet`` would stack them into one array) and ``labels`` the
+    one-hot token labels."""
+
+    def __init__(self, feeds, labels):
+        self.features = [feeds["ids"], feeds["mask"]]
+        self.labels = labels
+
+    def num_examples(self) -> int:
+        return int(self.labels.shape[0])

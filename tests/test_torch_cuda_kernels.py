@@ -22,7 +22,13 @@ configurations. The fused matmul epilogue: ragged M and N and K that are
 not tile multiples, every activation, the three dtypes, unaligned
 operands (element loads), gradients through the registry, the gate and
 the wrapper's refusals, and a small imported BERT whose every epilogue
-fusion launches the kernel.
+fusion launches the kernel. The fused LayerNorm + activation: rows 1, 7
+and 4096, D 64 / 96 / 768 / 1000 / 4096 (the warp and the block path)
+and an odd D and unaligned rows (element accesses), every activation,
+the three dtypes, bias on and off, gradients through the registry, the
+gate and the wrapper's refusals, a failed build and a failed launch
+raising, and a small imported BERT fine-tuned through ``sd.fit`` whose
+head's LayerNorm → GELU launches the kernel once a step.
 
 Tolerances, elementwise ``|kernel - plain| <= ATOL + RTOL * |plain|``:
 float32 1e-4 absolute (same math, another summation order; ~1e-6 seen);
@@ -35,7 +41,11 @@ to T products whose terms reach ~16 at D = 256). The fused matmul:
 ``cuda_matmul.kernel_tolerance`` (the float32 summation bound of K terms
 plus one unit in the last place in bfloat16/float16); its gradients, two
 products of the same numbers in another order, 1e-4 in float32 and one
-bfloat16 unit (2^-6 relative, 1e-2 absolute) in bfloat16.
+bfloat16 unit (2^-6 relative, 1e-2 absolute) in bfloat16. The fused
+LayerNorm: ``cuda_layernorm.kernel_tolerance`` (float32 1e-5 relative and
+absolute; bfloat16/float16 one unit in the last place plus 1e-5); its
+gradients, the same autograd of the same float32 math on both sides,
+1e-5 in float32.
 """
 
 import functools
@@ -733,3 +743,208 @@ def test_imported_bert_runs_every_epilogue_through_the_kernel(cuda):
     assert cm.fused_matmul.launches - before == 6 * layers
     assert ca.launch_counts()["flash_attn_fwd"] == layers
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ----------------------------------------------------- fused LayerNorm
+
+
+LN_ACTS = ["none", "relu", "tanh", "gelu", "gelu_exact"]
+
+
+def _ln_inputs(rows, d, dtype, dev, seed):
+    g = np.random.default_rng(seed)
+    x = torch.from_numpy((2.0 * g.standard_normal((rows, d)) + 0.5).astype(
+        np.float32)).to(dev, dtype)
+    gain = torch.from_numpy((1.0 + 0.1 * g.standard_normal(d)).astype(
+        np.float32)).to(dev)
+    bias = torch.from_numpy((0.1 * g.standard_normal(d)).astype(
+        np.float32)).to(dev)
+    return x, gain, bias
+
+
+def _check_ln(out, ref):
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    atol, rtol = cl.kernel_tolerance(ref.dtype)
+    err = (out.float() - ref.float()).abs()
+    lim = atol + rtol * ref.float().abs()
+    assert bool((err <= lim).all()), (err.max().item(),
+                                      (err / lim).max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [1, 7, 4096])
+@pytest.mark.parametrize("d", [64, 96, 768, 1000, 4096])
+@pytest.mark.parametrize("act", LN_ACTS)
+def test_fused_layer_norm_matches_plain(cuda, dtype, rows, d, act):
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+
+    x, g, b = _ln_inputs(rows, d, dtype, cuda, seed=rows + d)
+    for bias in (b, None):
+        before = cl.fused_layer_norm_kernel.launches
+        out = cl.fused_layer_norm_kernel(x, g, bias, activation=act)
+        ref = cl.fused_layer_norm_reference(x, g, bias, activation=act)
+        torch.cuda.synchronize()
+        assert cl.fused_layer_norm_kernel.launches == before + 1
+        _check_ln(out, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [97, 1501])
+def test_fused_layer_norm_element_accesses(cuda, dtype, d):
+    """An odd D and rows that start off a 16-byte boundary take the element
+    accesses (no vectors), on the warp and the block path, in a 3-D x."""
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+
+    x, g, b = _ln_inputs(2 * 33, d, dtype, cuda, seed=d)
+    x = x.reshape(2, 33, d)
+    out = cl.fused_layer_norm_kernel(x, g, b, activation="gelu")
+    ref = cl.fused_layer_norm_reference(x, g, b, activation="gelu")
+    _check_ln(out, ref)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = x.reshape(-1)
+    x_off = flat[1:].view(2, 33, d)
+    assert x_off.data_ptr() % 16 != 0
+    out = cl.fused_layer_norm_kernel(x_off, g, b, activation="gelu_exact")
+    ref = cl.fused_layer_norm_reference(x, g, b, activation="gelu_exact")
+    torch.cuda.synchronize()
+    _check_ln(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", LN_ACTS)
+def test_fused_layer_norm_gradients_through_the_registry(cuda, dtype, act):
+    """The registry's fused_layer_norm on CUDA tensors launches the kernel,
+    and its output carries the backward: gradients equal autograd of the
+    plain version."""
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+
+    x, g, b = _ln_inputs(2 * 64, 768, dtype, cuda, seed=4)
+    x = x.reshape(2, 64, 768)
+    dy = _randn((2, 64, 768), dtype, cuda, seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in (x, g, b)]
+    before = cl.fused_layer_norm_kernel.launches
+    out = exec_op("fused_layer_norm", *leaves, activation=act)
+    assert cl.fused_layer_norm_kernel.launches == before + 1
+    assert out.grad_fn is not None and out.dtype == dtype
+    got = torch.autograd.grad(out, leaves, dy)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, g, b)]
+    ref = cl.fused_layer_norm_reference(*ref_leaves, activation=act)
+    want = torch.autograd.grad(ref, ref_leaves, dy)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype
+        torch.testing.assert_close(a.float(), e.float(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_fused_layer_norm_gate_and_refusals(cuda):
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+
+    x, g, b = _ln_inputs(16, 100, torch.float32, cuda, seed=1)
+    assert cl.fused_layer_norm_usable(x, g, b)
+    assert cl.fused_layer_norm_usable(x, g)                 # no bias
+    assert cl.fused_layer_norm_usable(x[:3], g, b)          # any rows, D
+    assert cl.fused_layer_norm_usable(x.double(), g, b)     # as the JAX gate
+    assert not cl.fused_layer_norm_usable(x, g, b, axis=0)
+    assert not cl.fused_layer_norm_usable(x, g, b, activation="swish")
+    assert not cl.fused_layer_norm_usable(x, g[None], b)    # 2-D gain
+    assert not cl.fused_layer_norm_usable(x, g, b[:50])
+    assert not cl.fused_layer_norm_usable(x[0], g, b)       # rank 1
+    assert not cl.fused_layer_norm_usable(x.cpu(), g.cpu(), b.cpu())
+    before = cl.fused_layer_norm_kernel.launches
+    assert cl.fused_layer_norm_kernel(x[:0], g, b).shape == (0, 100)
+    assert cl.fused_layer_norm_kernel.launches == before
+    # kernel-only limits raise in the wrapper, never a quiet fallback
+    with pytest.raises(ValueError):
+        cl.fused_layer_norm_kernel(x.double(), g, b)
+    with pytest.raises(ValueError):
+        cl.fused_layer_norm_kernel(x, g, b, activation="swish")
+    with pytest.raises(ValueError):
+        cl.fused_layer_norm_kernel(x, g[:50], b)
+    env = environment()
+    env.helper_mode = "kernel"
+    try:
+        with pytest.raises(RuntimeError):
+            exec_op("fused_layer_norm", x, g, b, axis=0)
+    finally:
+        env.helper_mode = "auto"
+
+
+def test_fused_layer_norm_build_and_launch_failures_raise(cuda, tmp_path,
+                                                          monkeypatch):
+    """A source that does not compile raises with the compiler's output,
+    and a launch the driver refuses raises with its cudaError_t; neither
+    runs the plain version nor counts a launch."""
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+
+    x, g, b = _ln_inputs(8, 64, torch.float32, cuda, seed=2)
+    before = cl.fused_layer_norm_kernel.launches
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "fused_layer_norm.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "SOURCES", ("fused_layer_norm",))
+    monkeypatch.setattr(_build, "_fns", {})
+    with pytest.raises(RuntimeError, match="build failed"):
+        cl.fused_layer_norm_kernel(x, g, b)
+    monkeypatch.setattr(_build, "kernel_fn",
+                        lambda *a, **k: (lambda *args: 9))
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        cl.fused_layer_norm_kernel(x, g, b)
+    assert cl.fused_layer_norm_kernel.launches == before
+
+
+def test_samediff_fit_launches_the_layernorm_kernel_each_step(cuda):
+    """A small imported BERT with the token head, fine-tuned through
+    ``sd.fit`` on the card: each step launches the fused LayerNorm once,
+    the flash forward, dq and dk/dv once a layer, the fused matmul once an
+    epilogue and the updater once a leaf; the losses equal the generic
+    run's (1e-5 relative)."""
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+
+    batch, seq, layers, d = 2, 64, 2, 256
+    model = ob.bert_onnx_model(layers=layers, batch=batch, seq=seq, d=d,
+                               heads=4, ff=512, vocab=100)
+    feeds = ob.bert_onnx_feeds(batch, seq, 100)
+    data = ob.TokenBatch(feeds, ob.token_labels(batch, seq))
+    env = environment()
+
+    def fit(mode):
+        env.helper_mode = mode
+        try:
+            sd = import_onnx(model, device=cuda)
+            _, loss = ob.add_token_head(sd, f"l{layers - 1}_out",
+                                        ob.token_head_arrays(d), batch, seq)
+            sd.set_training_config(TrainingConfig(
+                updater=Adam(learning_rate=1e-3),
+                data_set_feature_mapping=["ids", "mask"],
+                data_set_label_mapping=["labels"], loss_variables=[loss]))
+            return [sd.fit([data])[0] for _ in range(2)], sd
+        finally:
+            env.helper_mode = "auto"
+
+    want, _ = fit("generic")
+    ca.reset_launch_counts()
+    cl.fused_layer_norm_kernel.launches = 0
+    cm.fused_matmul.launches = 0
+    cu.fused_updater.launches = 0
+    got, sd = fit("auto")
+    n_leaves = len(sd.training_state()["params"])
+    assert sd.last_compile_stats.fusions == {
+        "attention": layers, "epilogue": 6 * layers + 2, "layernorm": 1}
+    assert cl.fused_layer_norm_kernel.launches == 2
+    assert cm.fused_matmul.launches == 2 * (6 * layers + 2)
+    assert cu.fused_updater.launches == 2 * n_leaves == 2 * 41
+    counts = ca.launch_counts()
+    for name in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+        assert counts[name] == 2 * layers, (name, counts)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    assert got[1] < got[0]
