@@ -22,7 +22,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    BERT-base shapes (M 4096; K×N 768×768, 768×3072 with gelu_exact,
    3072×768), every activation at 768×768 and a ragged M of 4000; the
    fused LayerNorm + activation at 4096 × 768 (the fine-tune head's rows)
-   with gelu, gelu_exact and none in float32 and bfloat16. With
+   with gelu, gelu_exact and none in float32 and bfloat16; the int8
+   serving matmul — the row quantization and the s8 tensor-core GEMM with
+   its de-scale — in float32 and bfloat16 at the int8 BERT-base shapes
+   (M 4096; K×N 768×768, 768×3072, 3072×768, 768×2), each equal to its
+   plain version bit for bit. With
    kernel / plain / library times (device time: the calls replayed from a
    CUDA graph between CUDA events, so no host work sits between launches)
    and the least time the card could take (``bound_ms``).
@@ -89,6 +93,24 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    relative; later steps and the parameters to 3× a generic run from
    weights moved by one unit in the last place), and the last loss must
    be below the first.
+11. ``int8_bert`` — int8 serving: the same BERT-base encoder with every
+   dense MatMul a ``matmul_int8`` (ONNX Runtime's dynamic quantization
+   layout: weights int8 per column, quantized once at build; activations
+   per row at call time; embeddings, biases, LayerNorms and attention in
+   float32), recorded through ``SameDiff`` by
+   ``testing/int8_bert.bert_int8_encoder`` from onnx_bert's own weights
+   and feeds, and run by ``sd.output``. One forward — launch counts and
+   the dispatch counter set to 0 just before — must launch the int8 GEMM
+   and the row quantization 73 times each and the flash forward 12 times,
+   and no ``matmul_int8`` or ``dot_product_attention`` call may take the
+   generic. Its output is held against ``helper_mode="generic"`` within
+   3× the distance of a generic run whose float32 embedding table is
+   moved by one unit in the last place, and against onnx_bert's float32
+   forward (same weights and feeds) within a gross-fault bound on the
+   last hidden state's relative error, which a wrong-scale-axis graph
+   must exceed. Reports the p50 forward time and tokens/s over 5
+   forwards after 2 warm ones, peak memory and node counts beside
+   onnx_bert's.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -99,6 +121,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -109,7 +132,8 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
-              "bfloat16": 989e12}    # dense tensor cores
+              "bfloat16": 989e12,    # dense tensor cores
+              "int8": 1979e12}       # dense int8 tensor cores (TOP/s)
 # kernel vs plain version, elementwise |kernel - plain| <= ATOL + RTOL*|plain|:
 #  float32  — same math, another summation order: 1e-4 absolute (errors of
 #             ~1e-6 are seen)
@@ -170,6 +194,23 @@ ONNX_BERT_TIMED = 5
 # seq 128) × hidden 768; tolerance cuda_layernorm.kernel_tolerance
 LN_SHAPE = (4096, 768)
 LN_ACTS = ("gelu", "gelu_exact", "none")
+# the int8 serving matmul at the int8 BERT-base shapes (M = batch 32 · seq
+# 128): q/k/v/o 768×768, FF up 768×3072, FF down 3072×768 and the 768×2
+# classifier. The kernels compute the plain versions' integers and float32
+# products: equal bit for bit
+INT8_MM_SHAPES = [(4096, 768, 768), (4096, 768, 3072), (4096, 3072, 768),
+                  (4096, 768, 2)]
+# int8_bert: the kernel run against helper_mode="generic" within this many
+# times the distance of a generic run with the embedding table moved by one
+# unit in the last place (a moved float input flips single quantized
+# values, so no fixed tolerance holds); and the last hidden state's relative
+# error against the float32 encoder, ||h_int8 - h_f32|| / ||h_f32||, below
+# a gross-fault bound: the true graph sits far below it, a wrong scale axis
+# or transposed projections far above (tests/test_torch_int8_bert.py, and
+# the run's own wrong-axis graph)
+INT8_BERT_YARDSTICK = 3.0
+INT8_GROSS_REL_ERR = 0.1
+INT8_BERT_TIMED = 5
 # sd_bert_finetune: Adam lr and steps (BERT fine-tune practice: 2e-5…5e-5)
 FINETUNE_LR = 5e-5
 FINETUNE_STEPS = 3
@@ -1006,6 +1047,79 @@ def fused_layer_norm_case(dev):
     return ok, entries
 
 
+def matmul_int8_case(dev):
+    """The int8 serving matmul at the int8 BERT-base shapes, float32 and
+    bfloat16 x: ``row_quantize`` against ``quantized._row_quantize`` and
+    the GEMM against its plain version on the same quantized inputs, both
+    bit for bit; ``torch._int_mm`` (cuBLASLt) plus the de-scale timed as
+    the library yardstick where it takes the shape."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+    from deeplearning4j_tpu_torch.ops import quantized as Q
+
+    entries, ok = [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        quantized_rows = set()
+        for m, k, n in INT8_MM_SHAPES:
+            rng = np.random.default_rng(8)
+            x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)
+                                 ).to(dev, dtype)
+            w = torch.from_numpy((0.02 * rng.standard_normal((k, n))).astype(
+                np.float32)).to(dev)
+            wq, ws = Q.quantize_int8.fn(w, axis=0)
+            xq, xs = cq.row_quantize(x)
+            rq, rs = Q._row_quantize(x)
+            y = cq.int8_matmul(xq, xs, wq, ws, dtype)
+            yr = cq.int8_matmul_reference(xq, xs, wq, ws, dtype)
+            whole = cq.matmul_int8(x, wq, ws)
+            torch.cuda.synchronize()
+            q_exact = torch.equal(xq, rq) and torch.equal(xs, rs)
+            y_exact = (torch.equal(y, yr) and torch.equal(
+                whole, cq.matmul_int8_reference(x, wq, ws)))
+            ok = (ok and q_exact and y_exact
+                  and bool(torch.isfinite(y.float()).all()))
+            es = x.element_size()
+            if k not in quantized_rows:  # one row_quantize entry per K
+                quantized_rows.add(k)
+                bms, by = bound(m * k * es + m * k + 4.0 * m, 3.0 * m * k,
+                                "float32")
+                entries.append({
+                    "kernel": "matmul_int8_row_quantize", "dtype": name,
+                    "shape": [m, k],
+                    "max_abs_err": float((xq.int() - rq.int()).abs().max()),
+                    "scale_max_abs_err": (xs - rs).abs().max().item(),
+                    "tol": "0 (bit-exact)", "exact": q_exact,
+                    "ms": time_ms(lambda: cq.row_quantize(x)),
+                    "plain_ms": time_ms(lambda: Q._row_quantize(x)),
+                    "library_ms": None,
+                    "library_note": "no single PyTorch call quantizes rows",
+                    "bound_ms": bms, "bound_by": by})
+            lib_ms, lib_note = None, ("torch._int_mm takes M > 16 and K, N "
+                                      "multiples of 8 only")
+            if m > 16 and k % 8 == 0 and n % 8 == 0:
+                wt = wq.t().contiguous().t()  # the column-major mat2 it wants
+                lib_ms = time_ms(lambda: (torch._int_mm(xq, wt).float() * xs
+                                          * ws).to(dtype))
+                lib_note = ("torch._int_mm (cuBLASLt s8 GEMM, int32 out) then "
+                            "the float32 de-scale: two kernels and an "
+                            "(M, N) int32 round trip")
+            bms, by = bound(m * k + 4.0 * m + k * n + 4.0 * n + m * n * es,
+                            2.0 * m * k * n, "int8")
+            ms = time_ms(lambda: cq.int8_matmul(xq, xs, wq, ws, dtype))
+            entries.append({
+                "kernel": "matmul_int8", "dtype": name, "shape": [m, k, n],
+                "max_abs_err": (y.float() - yr.float()).abs().max().item(),
+                "tol": "0 (bit-exact)", "exact": y_exact, "ms": ms,
+                "plain_ms": time_ms(lambda: cq.int8_matmul_reference(
+                    xq, xs, wq, ws, dtype)),
+                "library_ms": lib_ms, "library_note": lib_note,
+                "bound_ms": bms, "bound_by": by,
+                "achieved_tops": 2.0 * m * k * n / ms / 1e9})
+    return ok, entries
+
+
 @functools.lru_cache(maxsize=1)
 def _bert_base_onnx():
     """(ONNX bytes of the BERT-base-width encoder, seconds to build them):
@@ -1037,6 +1151,8 @@ def onnx_bert_phase(dev, smi):
     env = environment()
     model, build_s = _bert_base_onnx()
     feeds = bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+    last = f"l{cfg['layers'] - 1}_out"
+    float32_out = {}  # the kernel run's y and last hidden state (int8_bert)
 
     def run(mode, optimize, *, counted=False):
         """Import, 2 warm forwards, [the counted forward], 5 timed."""
@@ -1084,6 +1200,9 @@ def onnx_bert_phase(dev, smi):
                             nodes_before=st.nodes_before,
                             nodes_after=st.nodes_after, fusions=st.fusions,
                             invariant_checks=st.invariant_checks)
+            if counted:  # after the timing: a second plan, for int8_bert
+                out = sd.output(feeds, ["y", last])
+                float32_out.update(y=out["y"], hidden=out[last])
             del sd
             torch.cuda.empty_cache()
             return y, info, launches
@@ -1134,7 +1253,8 @@ def onnx_bert_phase(dev, smi):
             "problems": problems}
     return problems, line, {"fused_matmul_bias_act":
                             launches["fused_matmul_bias_act"],
-                            "flash_attn_fwd": launches["flash_attn_fwd"]}
+                            "flash_attn_fwd": launches["flash_attn_fwd"]}, \
+        float32_out
 
 
 def sd_bert_finetune_phase(dev, smi):
@@ -1306,6 +1426,198 @@ def sd_bert_finetune_phase(dev, smi):
     return problems, line, launches
 
 
+def _rel_err(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def int8_bert_phase(dev, smi, onnx_line, float32_out):
+    """int8 serving: the BERT-base encoder with every dense MatMul a
+    ``matmul_int8``, recorded through ``SameDiff`` from onnx_bert's weights
+    and run by ``sd.output`` — through the kernels, with
+    ``helper_mode="generic"``, generic from an embedding table moved by one
+    unit in the last place (the yardstick), and generic with each column
+    de-scaled by its neighbour's scale (the gross fault the float32 bound
+    must catch). Returns (problems, line, launches of the main path's
+    forward)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+    from deeplearning4j_tpu_torch.testing import int8_bert as ib
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+
+    cfg = ob.BERT_BASE_ONNX
+    env = environment()
+    t0 = time.perf_counter()
+    arrays = ob.bert_onnx_weights(**{k: cfg[k] for k in (
+        "layers", "seq", "d", "ff", "vocab")})
+    draw_s = time.perf_counter() - t0
+    feeds = ob.bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+    nudged = dict(arrays, emb=_nudged(torch.from_numpy(arrays["emb"]),
+                                      np.random.default_rng(10)).numpy())
+    dense = [k for k, a in arrays.items() if a.ndim == 2
+             and k not in ("emb", "pos")]
+    int8_bytes = sum(arrays[k].size + 4 * arrays[k].shape[1] for k in dense)
+
+    def run(mode, weights, *, counted=False, timed=True):
+        """Build, [2 warm, the counted, 5 timed forwards of y], then y and
+        the last hidden state."""
+        env.helper_mode = mode
+        try:
+            gc.collect()  # an earlier graph's reference cycles, freed now
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            sd = SameDiff(device=dev)
+            ib.bert_int8_encoder(sd, weights, batch=cfg["batch"],
+                                 seq=cfg["seq"], heads=cfg["heads"])
+            torch.cuda.synchronize()
+            info = {"build_s": time.perf_counter() - t0}
+            launches = None
+            if timed:
+                t0 = time.perf_counter()
+                sd.output(feeds, ["y"])  # the first forward builds the plan
+                info["first_forward_s"] = time.perf_counter() - t0
+                sd.output(feeds, ["y"])
+            if counted:
+                observe.reset()
+                ca.reset_launch_counts()
+                cq.reset_launch_counts()
+                cm.fused_matmul.launches = 0  # the main path starts here
+                sd.output(feeds, ["y"])
+                launches = dict(
+                    matmul_int8=cq.int8_matmul.launches,
+                    matmul_int8_row_quantize=cq.row_quantize.launches,
+                    flash_attn_fwd=ca.flash_attention.launches,
+                    fused_matmul_bias_act=cm.fused_matmul.launches)  # ... ends
+                disp = observe.metrics()
+                launches["dispatch"] = {
+                    op: {f"{impl}/{why}": disp.counter(
+                        "dl4j_tpu_helper_dispatch_total", op=op, impl=impl,
+                        reason=why).value
+                        for impl, why in (("cuda", "usable"),
+                                          ("generic", "not_usable"),
+                                          ("generic", "no_helper"),
+                                          ("generic", "forced_generic"))}
+                    for op in ("matmul_int8", "dot_product_attention")}
+            if timed:
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for _ in range(INT8_BERT_TIMED):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sd.output(feeds, ["y"])
+                    times.append(time.perf_counter() - t0)
+                st = sd.last_compile_stats
+                info.update(
+                    p50_ms=float(np.percentile(times, 50)) * 1e3,
+                    times_ms=[t * 1e3 for t in times],
+                    peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    peak_memory_own_gib=(torch.cuda.max_memory_allocated()
+                                         - resident) / 2 ** 30,
+                    nodes_before=st.nodes_before, nodes_after=st.nodes_after,
+                    fusions=st.fusions)
+            out = sd.output(feeds, ["y", "hidden"])
+            del sd
+            torch.cuda.empty_cache()
+            return out, info, launches
+        finally:
+            env.helper_mode = "auto"
+
+    k_out, k_info, launches = run("auto", arrays, counted=True)
+    g_out, g_info, _ = run("generic", arrays)
+    n_out, _, _ = run("generic", nudged, timed=False)
+    real_quantize = ib.quantize_weight
+    try:  # the gross fault: each column de-scaled by its neighbour's scale
+        ib.quantize_weight = lambda w: (lambda q, s: (q, np.roll(s, 1, 1)))(
+            *real_quantize(w))
+        bad_out, _, _ = run("generic", arrays, timed=False)
+    finally:
+        ib.quantize_weight = real_quantize
+
+    problems = []
+    layers = cfg["layers"]
+    n_dense = 6 * layers + 1
+    want = {"matmul_int8": n_dense, "matmul_int8_row_quantize": n_dense,
+            "flash_attn_fwd": layers, "fused_matmul_bias_act": 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            problems.append(f"{name} launches {launches[name]} != {n}")
+    want_disp = {"matmul_int8": n_dense, "dot_product_attention": layers}
+    for op, counts in launches["dispatch"].items():
+        if counts["cuda/usable"] != want_disp[op] or any(
+                v for k, v in counts.items() if k.startswith("generic")):
+            problems.append(f"{op} dispatches {counts}")
+    shapes = {"y": (cfg["batch"], cfg["seq"], 2),
+              "hidden": (cfg["batch"], cfg["seq"], cfg["d"])}
+    checks = {}
+    for name, shape in shapes.items():
+        for label, out in (("kernel", k_out), ("generic", g_out),
+                           ("generic_nudged", n_out)):
+            if out[name].shape != shape or not np.all(np.isfinite(out[name])):
+                problems.append(f"{label} {name} {out[name].shape} not finite")
+        diff = float(np.abs(k_out[name] - g_out[name]).max())
+        yard = float(np.abs(n_out[name] - g_out[name]).max())
+        checks[name] = {"kernel_vs_generic_max_abs": diff,
+                        "yardstick_max_abs": yard,
+                        "limit": INT8_BERT_YARDSTICK * yard}
+        if not diff <= INT8_BERT_YARDSTICK * yard:
+            problems.append(f"{name}: kernel vs generic {diff} > "
+                            f"{INT8_BERT_YARDSTICK} x yardstick {yard}")
+    h, hf = k_out["hidden"], float32_out["hidden"]
+    cos = (h * hf).sum(-1) / (np.linalg.norm(h, axis=-1)
+                              * np.linalg.norm(hf, axis=-1))
+    vs_f32 = {"hidden_rel_err": _rel_err(h, hf),
+              "hidden_cosine": float(h.ravel() @ hf.ravel()
+                                     / (np.linalg.norm(h) * np.linalg.norm(hf))),
+              "hidden_min_token_cosine": float(cos.min()),
+              "hidden_max_abs_err": float(np.abs(h - hf).max()),
+              "y_max_abs_err": float(np.abs(k_out["y"]
+                                            - float32_out["y"]).max()),
+              "wrong_scale_axis_hidden_rel_err": _rel_err(bad_out["hidden"],
+                                                          hf),
+              "gross_bound": INT8_GROSS_REL_ERR}
+    if not vs_f32["hidden_rel_err"] <= INT8_GROSS_REL_ERR:
+        problems.append(f"hidden vs float32: relative error "
+                        f"{vs_f32['hidden_rel_err']} > {INT8_GROSS_REL_ERR}")
+    if not vs_f32["wrong_scale_axis_hidden_rel_err"] > INT8_GROSS_REL_ERR:
+        problems.append("the gross bound does not catch a wrong scale axis")
+    tokens = cfg["batch"] * cfg["seq"]
+    real = float(feeds["mask"].sum())
+    p50 = k_info["p50_ms"] / 1e3
+    line = {"phase": "int8_bert", "card": smi, "config": cfg,
+            "layout": "every dense MatMul matmul_int8 (weights int8 per "
+                      "column, offline; activations per row); embeddings, "
+                      "biases, LayerNorm, attention float32",
+            "weights": "onnx_bert's: float32 numpy RandomState(0) * 0.02",
+            "draw_weights_s": draw_s, "int8_dense_bytes": int8_bytes,
+            "float32_embedding_bytes": 4 * (arrays["emb"].size
+                                            + arrays["pos"].size),
+            "launches": launches, "kernel": k_info, "generic": g_info,
+            "checks_vs_generic": checks,
+            "tol": f"{INT8_BERT_YARDSTICK:g} x the generic run's distance "
+                   f"with the embedding table moved by one unit in the last "
+                   f"place; hidden vs float32 relative error <= "
+                   f"{INT8_GROSS_REL_ERR:g}",
+            "vs_float32_onnx_bert": vs_f32,
+            "smoke_reading": f"{INT8_BERT_TIMED} forwards, no spread",
+            "forward_p50_ms": k_info["p50_ms"], "tokens_per_s": tokens / p50,
+            "real_tokens_per_s": real / p50,
+            "generic_forward_p50_ms": g_info["p50_ms"],
+            "generic_tokens_per_s": tokens / (g_info["p50_ms"] / 1e3),
+            "float32_onnx_bert": {
+                k: (onnx_line["kernel"][k] if k in onnx_line["kernel"]
+                    else onnx_line[k])
+                for k in ("forward_p50_ms", "tokens_per_s",
+                          "real_tokens_per_s", "peak_memory_gib",
+                          "nodes_before", "nodes_after")},
+            "problems": problems}
+    return problems, line, {k: launches[k] for k in want}
+
+
 def serve(engine_cls, model, prompts, **engine_kw):
     """Serve ``prompts`` through start()/submit()/stop(); returns the
     results and the wall seconds from first submit to last result."""
@@ -1426,6 +1738,10 @@ def main() -> int:
     entries += ln_entries
     if not ok:
         failed.append("fused_layer_norm[float32/bfloat16]")
+    ok, int8_entries = matmul_int8_case(dev)
+    entries += int8_entries
+    if not ok:
+        failed.append("matmul_int8[float32/bfloat16]")
     emit({"phase": "kernels", "card": smi, "entries": entries})
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
@@ -1530,8 +1846,9 @@ def main() -> int:
             raise SystemExit(f"{phase} phase failed: {problems}")
 
     # ---------------------------------------------------------- onnx_bert
-    problems, line, train_launches["onnx_bert"] = onnx_bert_phase(dev, smi)
-    emit(line)
+    problems, onnx_line, train_launches["onnx_bert"], float32_out = (
+        onnx_bert_phase(dev, smi))
+    emit(onnx_line)
     if problems:
         raise SystemExit(f"onnx_bert phase failed: {problems}")
 
@@ -1542,13 +1859,21 @@ def main() -> int:
     if problems:
         raise SystemExit(f"sd_bert_finetune phase failed: {problems}")
 
+    # ---------------------------------------------------------- int8_bert
+    problems, line, train_launches["int8_bert"] = int8_bert_phase(
+        dev, smi, onnx_line, float32_out)
+    emit(line)
+    if problems:
+        raise SystemExit(f"int8_bert phase failed: {problems}")
+
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
     by_path = {"flash_attn_fwd": {"serve": launches["flash_attn_fwd"]},
                "paged_decode": {"serve": launches["paged_decode"]},
                "fused_updater": {}, "bn_matmul_stats": {},
                "flash_attn_dq": {}, "flash_attn_dkv": {},
-               "fused_matmul_bias_act": {}, "fused_layer_norm": {}}
+               "fused_matmul_bias_act": {}, "fused_layer_norm": {},
+               "matmul_int8": {}, "matmul_int8_row_quantize": {}}
     for path, counts in train_launches.items():
         for name, n in counts.items():
             if name in by_path and n:
@@ -1562,7 +1887,11 @@ def main() -> int:
         "flash_attn_dkv": ("flash_attn_bwd.cu", "pallas_attention.py:282"),
         "fused_matmul_bias_act": ("fused_matmul.cu", "pallas_matmul.py:42"),
         "fused_layer_norm": ("fused_layer_norm.cu",
-                             "pallas_layernorm.py:69")}
+                             "pallas_layernorm.py:69"),
+        "matmul_int8": ("matmul_int8.cu", "quantized.py:122"),
+        # the per-row activation quantization XLA runs before the Pallas
+        # kernel (`_row_quantize` at matmul_int8_pallas, quantized.py:173)
+        "matmul_int8_row_quantize": ("matmul_int8.cu", "quantized.py:173")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = []

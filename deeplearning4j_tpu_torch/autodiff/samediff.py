@@ -77,7 +77,10 @@ def canonical(value, device: Optional[torch.device] = None) -> torch.Tensor:
         arr = np.asarray(value)
         if not arr.flags.writeable or not arr.flags.c_contiguous:
             arr = np.array(arr)  # torch.from_numpy wants writable memory
-        t = torch.from_numpy(arr)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes: torch has no reader
+            t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
     t = t.to(canonical_dtype(t.dtype))
     return t if device is None else t.to(device)
 

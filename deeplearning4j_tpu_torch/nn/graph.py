@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import observe
+from deeplearning4j_tpu_torch.autodiff.samediff import canonical
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet, ListDataSetIterator)
 from deeplearning4j_tpu_torch.environment import resolve_device
@@ -304,12 +305,6 @@ def graph_builder() -> GraphBuilder:
 # ---------------------------------------------------------------------------
 
 
-def _to_device(x, device):
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-
 class ComputationGraph:
     """DAG network runtime (ComputationGraph.java analog)."""
 
@@ -441,7 +436,9 @@ class ComputationGraph:
         return acts, new_state
 
     def _feed(self, arrays: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: _to_device(v, self.device) for k, v in arrays.items()}
+        # in the dtypes the JAX package computes in (64-bit types off:
+        # float64 → float32, int64 → int32)
+        return {k: canonical(v, self.device) for k, v in arrays.items()}
 
     def output(self, *inputs, masks=None) -> List[np.ndarray]:
         """graph.output(inputs...) — the output nodes' activations

@@ -1,13 +1,15 @@
 """Op registry of the port: generic PyTorch ops and their CUDA kernels.
 
 Importing this package registers the generic ops (:mod:`.nn_ops`,
-:mod:`.shape_ops`, ``fused_updater_step``, ``fused_bn_matmul_stats``) and
-installs the hand-written CUDA kernels as their ``"cuda"`` platform
-helpers (:mod:`.cuda_attention`, :mod:`.cuda_updater`,
-:mod:`.cuda_convbn`, :mod:`.cuda_matmul`, :mod:`.cuda_layernorm`). No kernel is built at import.
+:mod:`.shape_ops`, :mod:`.quantized`, ``fused_updater_step``,
+``fused_bn_matmul_stats``) and installs the hand-written CUDA kernels as
+their ``"cuda"`` platform helpers (:mod:`.cuda_attention`,
+:mod:`.cuda_updater`, :mod:`.cuda_convbn`, :mod:`.cuda_matmul`,
+:mod:`.cuda_layernorm`, :mod:`.cuda_quantized`). No kernel is built at
+import.
 """
 
-from deeplearning4j_tpu_torch.ops import nn_ops, shape_ops  # noqa: F401
+from deeplearning4j_tpu_torch.ops import nn_ops, quantized, shape_ops  # noqa: F401
 from deeplearning4j_tpu_torch.ops.cuda_attention import (
     register_platform_attention,
 )
@@ -17,6 +19,9 @@ from deeplearning4j_tpu_torch.ops.cuda_layernorm import (
 )
 from deeplearning4j_tpu_torch.ops.cuda_matmul import (
     register_platform_fused_matmul,
+)
+from deeplearning4j_tpu_torch.ops.cuda_quantized import (
+    register_platform_quantized,
 )
 from deeplearning4j_tpu_torch.ops.cuda_updater import (
     register_platform_fused_updater,
@@ -30,5 +35,6 @@ register_platform_fused_updater()
 register_platform_convbn()
 register_platform_fused_matmul()
 register_platform_fused_layernorm()
+register_platform_quantized()
 
 __all__ = ["OpDescriptor", "OpRegistry", "exec_op", "op", "registry"]

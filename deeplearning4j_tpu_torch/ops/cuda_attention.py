@@ -32,7 +32,8 @@ the JAX package's ``usable`` / ``_paged_usable`` without the TPU-measured
 ``flash_min_t`` crossover: on the card every call the JAX gate would send
 to its kernel launches this one, dropout included. The kernels take
 float32, bfloat16 and float16 and every head dim the JAX gates take (a
-multiple of 8) up to :data:`MAX_HEAD_DIM`; past that the wrappers raise.
+multiple of 8) up to :data:`MAX_HEAD_DIM`; past that the gates refuse and
+the op runs its plain version (the wrappers, called directly, raise).
 """
 
 from __future__ import annotations
@@ -575,10 +576,11 @@ def flash_usable(q, k, v, mask=None, *, scaled: bool = True,
     TPU-measured ``flash_min_t`` crossover — ranks, key-padding-only
     masks, causal only for ``t_q == t_kv``, head dim a multiple of 8 — on
     CUDA tensors. Dropout passes, as it does there (the kernels drop in
-    place). Limits of the kernel that the JAX gate does not have (dtype,
-    head dim above :data:`MAX_HEAD_DIM`) are not checked here: the kernel
-    wrappers raise on them instead of the op quietly running its plain
-    version."""
+    place). A head dim above :data:`MAX_HEAD_DIM`, which the JAX kernel
+    takes and these are not built for, is refused: the op runs its plain
+    version, counted as a ``not_usable`` generic dispatch. The dtype is not
+    checked here: the kernel wrappers raise on one they do not take
+    instead of the op quietly running its plain version."""
     if not _on_cuda(q, k, v):
         return False
     if q.ndim == 4:
@@ -595,7 +597,7 @@ def flash_usable(q, k, v, mask=None, *, scaled: bool = True,
         return False
     if causal and t_q != t_kv:
         return False
-    return mask_ok and q.shape[-1] % 8 == 0
+    return mask_ok and q.shape[-1] % 8 == 0 and q.shape[-1] <= MAX_HEAD_DIM
 
 
 def flash_dpa(q, k, v, mask=None, *, scaled: bool = True,
@@ -638,16 +640,17 @@ def paged_usable(q, k_pages, v_pages, page_table, seq_lens, **kw) -> bool:
     """Gate of the paged helper: the JAX ``_paged_usable`` on CUDA tensors
     — documented ranks, head dim and page size multiples of 8. Its tuned
     ``min_pages`` is a TPU measurement (default 1: always) and is left
-    out, as ``flash_min_t`` is. Limits of the kernel that the JAX gate does
-    not have (dtype, head dim above :data:`MAX_HEAD_DIM`) are not checked
-    here: :func:`paged_decode_attention` raises on them."""
+    out, as ``flash_min_t`` is. A head dim above :data:`MAX_HEAD_DIM` is
+    refused, as in :func:`flash_usable`; a dtype the kernel does not take
+    is not checked here: :func:`paged_decode_attention` raises on it."""
     if not _on_cuda(q, k_pages, v_pages, page_table, seq_lens):
         return False
     if q.ndim != 3 or k_pages.ndim != 4:
         return False
     if page_table.ndim != 2 or seq_lens.ndim != 1:
         return False
-    return q.shape[-1] % 8 == 0 and k_pages.shape[1] % 8 == 0
+    return (q.shape[-1] % 8 == 0 and q.shape[-1] <= MAX_HEAD_DIM
+            and k_pages.shape[1] % 8 == 0)
 
 
 def register_platform_attention() -> None:

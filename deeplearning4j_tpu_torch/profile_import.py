@@ -1,7 +1,7 @@
-"""Where an imported BERT-base forward's, or fine-tune step's, time goes,
-on the card.
+"""Where an imported BERT-base forward's, a fine-tune step's or an int8
+forward's time goes, on the card.
 
-    python -m deeplearning4j_tpu_torch.profile_import [--finetune] [--trace out.json]
+    python -m deeplearning4j_tpu_torch.profile_import [--finetune | --int8] [--trace out.json]
 
 Builds the ONNX bytes of a BERT-base-width encoder with the port's builder
 (``testing.onnx_builder.BERT_BASE_ONNX``: 12 layers, d 768, 12 heads, ff
@@ -19,6 +19,11 @@ off.
   ``sd.fit`` on one repeated batch. 2 warm steps, then 3 profiled steps
   in one ``fit``; the port's kernel launches a step are read from the
   wrappers' counters over those steps.
+* ``--int8`` — ``chip_smoke.py``'s ``int8_bert`` main path: the same
+  weights and feeds with every dense MatMul a ``matmul_int8``
+  (``testing.int8_bert.bert_int8_encoder`` through ``SameDiff``; no ONNX
+  bytes), ``sd.output(feeds, ["y"])``, 73 int8 GEMM + 73 row-quantize and
+  12 flash launches a forward. 2 warm forwards, then 3 profiled.
 
 Prints one JSON line: host wall time per forward or step, summed device
 kernel time, the device's busy share and the kernels with the most device
@@ -42,20 +47,25 @@ def _port_launches() -> dict:
     from deeplearning4j_tpu_torch.ops import cuda_attention as ca
     from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
     from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
     from deeplearning4j_tpu_torch.ops import cuda_updater as cu
 
     return dict(ca.launch_counts(),
                 fused_layer_norm=cl.fused_layer_norm_kernel.launches,
                 fused_matmul_bias_act=cm.fused_matmul.launches,
-                fused_updater=cu.fused_updater.launches)
+                fused_updater=cu.fused_updater.launches,
+                **{f"int8_{k}": v for k, v in cq.launch_counts().items()})
 
 
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--finetune", action="store_true",
-                    help="profile sd.fit steps instead of forwards")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--finetune", action="store_true",
+                      help="profile sd.fit steps instead of forwards")
+    mode.add_argument("--int8", action="store_true",
+                      help="profile the int8 encoder's forwards")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace here")
     args = ap.parse_args(argv)
@@ -65,18 +75,25 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
     from deeplearning4j_tpu_torch.imports import import_onnx
     from deeplearning4j_tpu_torch.nn.updater import Adam
     from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+    from deeplearning4j_tpu_torch.testing.int8_bert import bert_int8_encoder
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     cfg = ob.BERT_BASE_ONNX
-    sd = import_onnx(ob.bert_onnx_model(**cfg),
-                     device=torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if args.int8:
+        sd = SameDiff(device=dev)
+        bert_int8_encoder(sd, ob.bert_onnx_weights(**{
+            k: cfg[k] for k in ("layers", "seq", "d", "ff", "vocab")}),
+            batch=cfg["batch"], seq=cfg["seq"], heads=cfg["heads"])
+    else:
+        sd = import_onnx(ob.bert_onnx_model(**cfg), device=dev)
     feeds = ob.bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
     if not args.finetune:
         def forward():
@@ -86,10 +103,17 @@ def main(argv=None) -> int:
             forward()
         torch.cuda.synchronize()
         st = sd.last_compile_stats
-        print(json.dumps({"phase": "onnx_bert", "card": card, "config": cfg,
-                          "plan_nodes": st.nodes_after, "fusions": st.fusions,
-                          **_profile(forward, _STEPS, args.trace)}),
-              flush=True)
+        before = _port_launches()
+        prof = _profile(forward, _STEPS, args.trace, top=12)
+        after = _port_launches()
+        print(json.dumps({
+            "phase": "int8_bert" if args.int8 else "onnx_bert", "card": card,
+            "config": cfg, "plan_nodes": st.nodes_after,
+            "fusions": st.fusions,
+            "port_kernel_launches_per_forward": {
+                k: (after[k] - before[k]) / _STEPS for k in after
+                if after[k] != before[k]},
+            **prof}), flush=True)
         return 0
 
     _, loss = ob.add_token_head(

@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``deeplearning4j_tpu/testing/onnx_builder.py``
 (``tensor_proto``, ``attr_proto``, ``node_proto``, ``value_info``,
-``build_model``, ``bert_onnx_model``) on the port's own wire codec, so the
+``build_model``, ``bert_onnx_model``, whose weights :func:`bert_onnx_weights`
+draws) on the port's own wire codec, so the
 port and ``chip_smoke.py`` build ONNX bytes without importing the JAX
 package; a test holds the two builders' bytes equal.
 
@@ -85,6 +86,32 @@ def build_model(nodes, inputs, outputs, initializers):
     return m
 
 
+def bert_onnx_weights(*, layers: int = 12, seq: int = 16, d: int = 768,
+                      ff: int = 3072, vocab: int = 512,
+                      seed: int = 0) -> dict:
+    """The float32 weights of :func:`bert_onnx_model`, named as its
+    initializers, drawn in its order from numpy ``RandomState(seed)``:
+    embeddings, positions, the (d, 2) classifier, then per layer the six
+    N(0, 0.02²) dense weights (zero biases, unit LayerNorm gains, zero
+    LayerNorm biases)."""
+    r = np.random.RandomState(seed)
+    out = {"emb": (r.randn(vocab, d) * 0.02).astype(np.float32),
+           "pos": (r.randn(seq, d) * 0.02).astype(np.float32),
+           "cls_w": (r.randn(d, 2) * 0.02).astype(np.float32)}
+    for i in range(layers):
+        p = f"l{i}"
+        for nm, shape in [("wq", (d, d)), ("wk", (d, d)), ("wv", (d, d)),
+                          ("wo", (d, d)), ("w1", (d, ff)), ("w2", (ff, d))]:
+            out[f"{p}_{nm}"] = (r.randn(*shape) * 0.02).astype(np.float32)
+        for nm, size in [("bq", d), ("bk", d), ("bv", d), ("bo", d),
+                         ("b1", ff), ("b2", d)]:
+            out[f"{p}_{nm}"] = np.zeros(size, np.float32)
+        for ln in ("ln1", "ln2"):
+            out[f"{p}_{ln}_g"] = np.ones(d, np.float32)
+            out[f"{p}_{ln}_b"] = np.zeros(d, np.float32)
+    return out
+
+
 def bert_onnx_model(*, layers: int = 12, batch: int = 1, seq: int = 16,
                     d: int = 768, heads: int = 12, ff: int = 3072,
                     vocab: int = 512, seed: int = 0) -> bytes:
@@ -98,12 +125,13 @@ def bert_onnx_model(*, layers: int = 12, batch: int = 1, seq: int = 16,
     fusion target). Inputs: ``ids``/``mask`` of shape (batch, seq);
     output: ``y`` of shape (batch, seq, 2)."""
     hd = d // heads
-    r = np.random.RandomState(seed)
+    weights = bert_onnx_weights(layers=layers, seq=seq, d=d, ff=ff,
+                                vocab=vocab, seed=seed)
     nodes = []
     init = {
-        "emb": (r.randn(vocab, d) * 0.02).astype(np.float32),
-        "pos": (r.randn(seq, d) * 0.02).astype(np.float32),
-        "cls_w": (r.randn(d, 2) * 0.02).astype(np.float32),
+        "emb": weights["emb"],
+        "pos": weights["pos"],
+        "cls_w": weights["cls_w"],
         "shape_split": np.asarray([batch, seq, heads, hd], np.int64),
         "shape_merge": np.asarray([batch, seq, d], np.int64),
         "one": np.float32(1.0),
@@ -134,15 +162,8 @@ def bert_onnx_model(*, layers: int = 12, batch: int = 1, seq: int = 16,
 
     for i in range(layers):
         p = f"l{i}"
-        for nm, shape in [("wq", (d, d)), ("wk", (d, d)), ("wv", (d, d)),
-                          ("wo", (d, d)), ("w1", (d, ff)), ("w2", (ff, d))]:
-            init[f"{p}_{nm}"] = (r.randn(*shape) * 0.02).astype(np.float32)
-        for nm, size in [("bq", d), ("bk", d), ("bv", d), ("bo", d),
-                         ("b1", ff), ("b2", d)]:
-            init[f"{p}_{nm}"] = np.zeros(size, np.float32)
-        for ln in ("ln1", "ln2"):
-            init[f"{p}_{ln}_g"] = np.ones(d, np.float32)
-            init[f"{p}_{ln}_b"] = np.zeros(d, np.float32)
+        init.update((k, a) for k, a in weights.items()
+                    if k.startswith(f"{p}_"))
 
         # the attention-mask expansion chain, re-inlined per layer exactly
         # as per-module tracing exporters do — the CSE target

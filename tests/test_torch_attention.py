@@ -361,15 +361,20 @@ class TestDispatch:
         assert not ca.flash_usable(short, q4, q4, m4, causal=True)
         assert ca.flash_usable(short, q4, q4, m4, causal=False)
         assert not ca.flash_usable(q4, q4, q4, torch.ones(1, 12, 32, 32))
-        # every head dim the JAX gate takes (a multiple of 8) passes, D=128
-        # included; the rest is refused as there
-        for d in (8, 48, 128, 256, 512):
+        # every head dim the JAX gate takes (a multiple of 8) passes up to
+        # the kernels' MAX_HEAD_DIM, D=128 included; the rest is refused
+        for d in (8, 48, 128, 256):
             qd = torch.zeros(1, 12, 32, d)
             assert ca.flash_usable(qd, qd, qd), d
         odd = torch.zeros(1, 12, 32, 44)
         assert not ca.flash_usable(odd, odd, odd)
-        # the kernel's own limits (dtype, D > 256) are the wrapper's to
-        # refuse, loudly: the gate does not hand them to the plain op
+        # past MAX_HEAD_DIM the JAX kernel computes and these are not
+        # built: the gate refuses, so the op runs its plain version
+        for d in (264, 320, 512):
+            qd = torch.zeros(1, 12, 32, d)
+            assert not ca.flash_usable(qd, qd, qd), d
+        # the kernel's other limit (dtype) is the wrapper's to refuse,
+        # loudly: the gate does not hand it to the plain op
         assert ca.flash_usable(q4.double(), q4.double(), q4.double())
         q, kp = torch.zeros(8, 12, 64), torch.zeros(9, 16, 12, 64)
         pt, sl = (torch.zeros(8, 4, dtype=torch.int32),
@@ -382,6 +387,8 @@ class TestDispatch:
             assert ca.paged_usable(qd, kd, kd, pt, sl), d
         q44, k44 = torch.zeros(8, 12, 44), torch.zeros(9, 16, 12, 44)
         assert not ca.paged_usable(q44, k44, k44, pt, sl)
+        q320, k320 = torch.zeros(8, 12, 320), torch.zeros(9, 16, 12, 320)
+        assert not ca.paged_usable(q320, k320, k320, pt, sl)
         k12 = torch.zeros(9, 12, 12, 64)  # page size 12: not a multiple of 8
         assert not ca.paged_usable(q, k12, k12, pt, sl)
 
@@ -437,3 +444,29 @@ class TestDispatch:
     def test_gates_refuse_cpu_tensors(self):
         q4 = torch.zeros(1, 12, 32, 64)
         assert not ca.flash_usable(q4, q4, q4)
+
+    def test_head_dim_past_the_kernels_runs_the_plain_op(self, monkeypatch):
+        """D = 320 (a multiple of 8 past MAX_HEAD_DIM): the JAX package
+        computes it, so the port's gates refuse it instead of handing the
+        kernel wrappers a head dim they raise on; the op's plain version
+        (run here, on the CPU) equals the JAX generic."""
+        monkeypatch.setattr(ca, "_on_cuda", lambda *ts: True)
+        d = 320
+        assert d % 8 == 0 and d > ca.MAX_HEAD_DIM
+        q, k, v = _qkv(bh=4, t_q=12, t_k=12, d=d, seed=5)
+        q4, k4, v4 = (a.reshape(2, 2, 12, d) for a in (q, k, v))
+        mask = np.ones((2, 1, 1, 12), np.float32)
+        mask[1, ..., 7:] = 0.0
+        assert not registry().get("dot_product_attention").platform_usable[
+            "cuda"](_t(q4), _t(k4), _t(v4), _t(mask))
+        qd, kd = torch.zeros(8, 12, d), torch.zeros(9, 16, 12, d)
+        pt, sl = (torch.zeros(8, 4, dtype=torch.int32),
+                  torch.zeros(8, dtype=torch.int32))
+        assert not registry().get("paged_decode_attention").platform_usable[
+            "cuda"](qd, kd, kd, pt, sl)
+        got = exec_op("dot_product_attention", _t(q4), _t(k4), _t(v4),
+                      _t(mask) > 0.5)
+        want = jax_nn_ops.dot_product_attention.fn(
+            jnp.asarray(q4), jnp.asarray(k4), jnp.asarray(v4),
+            jnp.asarray(mask) > 0.5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

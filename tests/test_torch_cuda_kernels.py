@@ -28,7 +28,16 @@ and an odd D and unaligned rows (element accesses), every activation,
 the three dtypes, bias on and off, gradients through the registry, the
 gate and the wrapper's refusals, a failed build and a failed launch
 raising, and a small imported BERT fine-tuned through ``sd.fit`` whose
-head's LayerNorm → GELU launches the kernel once a step.
+head's LayerNorm → GELU launches the kernel once a step. The int8
+serving matmul: the row quantization, the GEMM and both together bit for
+bit against their plain versions at ragged M (1, 17, 4095), N (2, 9, 130)
+and K (7, 768, 3072), 2-D and 3-D x, (N,) and (1, N) scales, unaligned
+operands (element paths), the three dtypes; the straight-through
+gradients through the registry against the generic run's; the gate and
+the wrappers' refusals; and a small int8 encoder recorded through
+SameDiff whose every dense MatMul launches the kernels. Attention at a
+head dim past the kernels (D = 320) runs the plain op and counts a
+generic dispatch.
 
 Tolerances, elementwise ``|kernel - plain| <= ATOL + RTOL * |plain|``:
 float32 1e-4 absolute (same math, another summation order; ~1e-6 seen);
@@ -948,3 +957,193 @@ def test_samediff_fit_launches_the_layernorm_kernel_each_step(cuda):
         assert counts[name] == 2 * layers, (name, counts)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     assert got[1] < got[0]
+
+
+# ------------------------------------------------- int8 serving matmul
+
+
+def _int8_inputs(lead, k, n, dtype, dev, seed):
+    from deeplearning4j_tpu_torch.ops import quantized as Q
+
+    g = np.random.default_rng(seed)
+    x = torch.from_numpy((2.0 * g.standard_normal(lead + (k,))).astype(
+        np.float32)).to(dev, dtype)
+    w = torch.from_numpy((0.05 * g.standard_normal((k, n))).astype(
+        np.float32)).to(dev)
+    wq, ws = Q.quantize_int8.fn(w, axis=0)
+    return x, wq, ws
+
+
+def _check_int8(x, wq, ws):
+    """The row quantization, the GEMM and the two together equal their
+    plain versions bit for bit."""
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+    from deeplearning4j_tpu_torch.ops import quantized as Q
+
+    x2 = x.reshape(-1, x.shape[-1])
+    xq, xs = cq.row_quantize(x2)
+    rq, rs = Q._row_quantize(x2)
+    y = cq.int8_matmul(xq, xs, wq, ws, x.dtype)
+    whole = cq.matmul_int8(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, rq) and torch.equal(xs, rs)
+    assert torch.equal(y, cq.int8_matmul_reference(xq, xs, wq, ws, x.dtype))
+    assert whole.shape == x.shape[:-1] + (wq.shape[1],)
+    assert whole.dtype == x.dtype
+    assert torch.equal(whole, cq.matmul_int8_reference(x, wq, ws))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 17, 4095])
+@pytest.mark.parametrize("n", [2, 9, 130])
+@pytest.mark.parametrize("k", [7, 768, 3072])
+def test_matmul_int8_matches_plain_bit_for_bit(cuda, dtype, m, n, k):
+    x, wq, ws = _int8_inputs((m,), k, n, dtype, cuda, seed=m + n + k)
+    _check_int8(x, wq, ws)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lead,k,n", [((3, 17), 768, 130), ((2, 64), 3072, 768),
+                                      ((4, 9), 7, 2)])
+@pytest.mark.parametrize("scale_2d", [False, True], ids=["n", "1n"])
+def test_matmul_int8_3d_and_scale_layouts(cuda, dtype, lead, k, n, scale_2d):
+    x, wq, ws = _int8_inputs(lead, k, n, dtype, cuda, seed=k + n)
+    _check_int8(x, wq, ws if scale_2d else ws.reshape(n))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_int8_unaligned_operands(cuda, dtype):
+    """Operands at odd offsets into their buffers: the element paths."""
+    x, wq, ws = _int8_inputs((66,), 769, 33, dtype, cuda, seed=3)
+    xo = torch.empty(66 * 769 + 1, dtype=dtype, device=cuda)[1:].view(66, 769)
+    xo.copy_(x)
+    wo = torch.empty(769 * 33 + 3, dtype=torch.int8, device=cuda)[3:].view(
+        769, 33)
+    wo.copy_(wq)
+    _check_int8(xo, wo, ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_int8_gradients_through_the_registry(cuda, dtype):
+    """The straight-through backward on the card: the registry's kernel
+    forward launches both kernels once, and dx and the scale's (zero)
+    gradient equal the generic run's."""
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+
+    x, wq, ws = _int8_inputs((4, 33), 256, 96, dtype, cuda, seed=5)
+    g = _randn((4, 33, 96), dtype, cuda, 6)
+    env = environment()
+    grads = {}
+    for mode in ("generic", "auto"):
+        env.helper_mode = mode
+        try:
+            xr = x.clone().requires_grad_(True)
+            wr = ws.clone().requires_grad_(True)
+            cq.reset_launch_counts()
+            y = exec_op("matmul_int8", xr, wq, wr)
+            launched = cq.launch_counts()
+            grads[mode] = (y,) + torch.autograd.grad(y, (xr, wr), g)
+        finally:
+            env.helper_mode = "auto"
+        want = 0 if mode == "generic" else 1
+        assert launched == {"matmul_int8": want, "row_quantize": want}
+    for a, b in zip(grads["auto"], grads["generic"]):
+        assert torch.equal(a, b)
+    assert not grads["auto"][2].any()
+
+
+def test_matmul_int8_gate_and_refusals(cuda):
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+
+    x, wq, ws = _int8_inputs((16,), 128, 64, torch.float32, cuda, seed=1)
+    assert cq.matmul_int8_usable(x, wq, ws)
+    assert cq.matmul_int8_usable(x[:5, :100], wq[:100], ws)  # no tile rule
+    assert not cq.matmul_int8_usable(x.double(), wq, ws)
+    assert not cq.matmul_int8_usable(x[:, :64], wq, ws)
+    assert not cq.matmul_int8_usable(x, wq.float(), ws)
+    assert not cq.matmul_int8_usable(x, wq, ws[:, :10])
+    assert not cq.matmul_int8_usable(x.cpu(), wq.cpu(), ws.cpu())
+    before = cq.launch_counts()
+    assert cq.matmul_int8(x[:0], wq, ws).shape == (0, 64)  # nothing to do
+    assert cq.launch_counts() == before
+    # called directly, what the kernel does not take raises
+    with pytest.raises(ValueError):
+        cq.row_quantize(x.double())
+    xq, xs = cq.row_quantize(x)
+    with pytest.raises(ValueError):
+        cq.int8_matmul(xq[:, :64], xs, wq, ws, torch.float32)
+    with pytest.raises(ValueError):
+        cq.int8_matmul(xq, xs, wq, ws, torch.float64)
+    env = environment()
+    env.helper_mode = "kernel"
+    try:
+        with pytest.raises(RuntimeError):
+            exec_op("matmul_int8", x.double(), wq, ws)
+    finally:
+        env.helper_mode = "auto"
+
+
+def test_int8_bert_runs_every_matmul_through_the_kernel(cuda):
+    """A small int8 encoder recorded through SameDiff on the card: each
+    forward launches the GEMM and the row quantization once a dense
+    weight and flash once a layer; the output is held against the generic
+    run within 3× a generic run from an embedding table moved by one unit
+    in the last place."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+    from deeplearning4j_tpu_torch.testing.int8_bert import bert_int8_encoder
+
+    batch, seq, layers = 2, 64, 2
+    arrays = ob.bert_onnx_weights(layers=layers, seq=seq, d=256, ff=512,
+                                  vocab=100)
+    feeds = ob.bert_onnx_feeds(batch, seq, 100)
+    sign = np.sign(np.random.default_rng(4).standard_normal(
+        arrays["emb"].shape)).astype(np.float32)
+    nudged = dict(arrays, emb=np.nextafter(arrays["emb"],
+                                           sign * np.inf).astype(np.float32))
+    env = environment()
+
+    def run(mode, weights):
+        env.helper_mode = mode
+        try:
+            sd = SameDiff(device=cuda)
+            bert_int8_encoder(sd, weights, batch=batch, seq=seq, heads=4)
+            return sd.output(feeds, ["y", "hidden"])
+        finally:
+            env.helper_mode = "auto"
+
+    want, yard = run("generic", arrays), run("generic", nudged)
+    ca.reset_launch_counts()
+    cq.reset_launch_counts()
+    got = run("auto", arrays)
+    assert cq.launch_counts() == {"matmul_int8": 6 * layers + 1,
+                                  "row_quantize": 6 * layers + 1}
+    assert ca.launch_counts()["flash_attn_fwd"] == layers
+    for name in ("y", "hidden"):
+        assert np.all(np.isfinite(got[name]))
+        limit = 3.0 * np.abs(yard[name] - want[name]).max()
+        assert np.abs(got[name] - want[name]).max() <= limit, name
+
+
+def test_attention_head_dim_past_the_kernels_runs_the_plain_op(cuda):
+    """D = 320: the gate refuses it (the kernels are built up to 256), so
+    ``dot_product_attention`` returns the plain result, counts a generic
+    dispatch and launches nothing — it does not raise."""
+    from deeplearning4j_tpu_torch import observe
+
+    q, k, v = (_randn((2, 3, 40, 320), torch.float32, cuda, s)
+               for s in (1, 2, 3))
+    mask = torch.ones((2, 1, 1, 40), dtype=torch.bool, device=cuda)
+    mask[1, ..., 25:] = False
+    observe.reset()
+    ca.reset_launch_counts()
+    got = exec_op("dot_product_attention", q, k, v, mask)
+    assert ca.launch_counts()["flash_attn_fwd"] == 0
+    m = observe.metrics()
+    assert m.counter("dl4j_tpu_helper_dispatch_total",
+                     op="dot_product_attention", impl="generic",
+                     reason="not_usable").value == 1
+    from deeplearning4j_tpu_torch.ops.nn_ops import dot_product_attention
+
+    assert torch.equal(got, dot_product_attention.fn(q, k, v, mask))

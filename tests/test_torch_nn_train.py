@@ -314,6 +314,25 @@ def test_small_graph_trains_like_jax(fused, dtype):
     assert tnet.iteration_count == 3
 
 
+def test_float64_numpy_input_computes_in_float32_as_jax():
+    """numpy's default float (float64) features and one-hot labels
+    (``np.eye(5)[labels]``): the JAX package, 64-bit types off, computes in
+    float32, and so does the port — ``output`` returns float32 within
+    ``LAYER`` of the JAX output, and a ``fit`` step gives the JAX score
+    within 1e-5."""
+    jnet, tnet = _pair_of_graphs(False, "float32")
+    x, lab = synthetic_image_batch(8, 32, 32, 3, 5, seed=12)
+    x = x.astype(np.float64)
+    y = np.eye(5)[lab]
+    assert x.dtype == y.dtype == np.float64
+    lj, lt = jnet.output(x)[0], tnet.output(x)[0]
+    assert np.asarray(lj).dtype == lt.dtype == np.float32
+    np.testing.assert_allclose(lt, lj, **LAYER)
+    jnet.fit(x, y, batch_size=8)
+    tnet.fit(x, y, batch_size=8)
+    np.testing.assert_allclose(tnet.score(), jnet.score(), rtol=1e-5)
+
+
 def test_unported_layer_types_are_refused_by_name():
     text = _small_graph_json(False, "float32").replace(
         '"@type": "ActivationLayer"', '"@type": "LSTM"', 1)

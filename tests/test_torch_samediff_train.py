@@ -28,11 +28,20 @@ never read by the loss). Checked, in float32:
   JAX ``training_state()`` after one step, then one more step in each,
   held as ``fit`` is;
 * the listener, counters and resume cursor of ``fit``; and the float64
-  finite-difference check of the tiny BERT's gradients through its plan.
+  finite-difference check of the tiny BERT's gradients through its plan;
+* bfloat16 numpy arrays (``ml_dtypes.bfloat16``) as variables and feeds of
+  a small graph: ``output`` and one ``fit`` step against the JAX package,
+  and a JAX bfloat16 training state applied to the port. Tolerance one
+  bfloat16 unit (2^-7 relative) plus 1e-6: both compute the same bfloat16
+  graph; the JAX step promotes the bfloat16 parameters to float32 and the
+  port keeps their dtype (rounds the new value once), which moves a
+  parameter by at most half a unit.
 """
 
+import ml_dtypes
 import numpy as np
 import pytest
+import torch
 
 from deeplearning4j_tpu.autodiff.samediff import SameDiff as JSameDiff
 from deeplearning4j_tpu.autodiff.samediff import TrainingConfig as JTC
@@ -299,3 +308,72 @@ def test_gradients_through_the_plan_pass_finite_differences(tiny):
     model, feeds = tiny
     tsd, _, loss = _finetune("torch", model)
     assert check_samediff_gradients(tsd, feeds, loss, max_per_param=4)
+
+
+# ------------------------------------------------------- bfloat16 arrays
+
+BF16 = ml_dtypes.bfloat16
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-6)
+
+
+def _bf16_graph(pkg):
+    """tanh(x @ w + b) and its mean squared error, with bfloat16 numpy
+    variables, placeholders and feeds; Adam lr 1e-2."""
+    r = np.random.RandomState(3)
+    sd = JSameDiff() if pkg == "jax" else TSameDiff(device="cpu")
+    x = sd.placeholder("x", (4, 6), BF16)
+    labels = sd.placeholder("labels", (4, 3), BF16)
+    w = sd.var("w", (r.randn(6, 3) * 0.5).astype(BF16))
+    b = sd.var("b", (r.randn(3) * 0.1).astype(BF16))
+    y = sd.math.tanh(x.mmul(w) + b)
+    y.rename("y")
+    sd.loss.mean_squared_error(y, labels).rename("loss")
+    TC, Adam = (JTC, JAdam) if pkg == "jax" else (TTC, TAdam)
+    sd.set_training_config(TC(
+        updater=Adam(learning_rate=1e-2), data_set_feature_mapping=["x"],
+        data_set_label_mapping=["labels"], loss_variables=["loss"]))
+    r = np.random.RandomState(4)
+    return sd, {"x": r.randn(4, 6).astype(BF16),
+                "labels": r.randn(4, 3).astype(BF16)}
+
+
+class _Bf16Batch(Batch):
+    def __init__(self, feeds):
+        super().__init__(feeds["labels"])
+        self.features = [feeds["x"]]
+
+
+def test_bfloat16_numpy_graph_output_and_fit_match_jax():
+    (jsd, feeds), (tsd, _) = _bf16_graph("jax"), _bf16_graph("torch")
+    assert tsd.get_arr("w").shape == (6, 3)
+    want = jsd.output(feeds, ["y"])["y"]
+    got = tsd.output(feeds, ["y"])["y"]
+    # the documented deviation: a bfloat16 result comes back as float32
+    assert str(want.dtype) == "bfloat16" and got.dtype == np.float32
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16_TOL)
+    b = _Bf16Batch(feeds)
+    np.testing.assert_allclose(tsd.fit([b]), jsd.fit([b]), **BF16_TOL)
+    for name in ("w", "b"):
+        np.testing.assert_allclose(
+            tsd.get_arr(name), np.asarray(jsd.get_arr(name), np.float32),
+            err_msg=name, **BF16_TOL)
+
+
+def test_bfloat16_training_state_carried_from_jax():
+    (jsd, feeds), (tsd, _) = _bf16_graph("jax"), _bf16_graph("torch")
+    b = _Bf16Batch(feeds)
+    jsd.fit([b])
+    state = jsd.training_state()
+    opt = {n: {k: np.asarray(a) for k, a in s.items()}
+           for n, s in state["opt_state"].items()}
+    assert str(opt["w"]["m"].dtype) == "bfloat16"  # Adam's moments
+    tsd.apply_training_state({
+        "params": {n: np.asarray(a) for n, a in state["params"].items()},
+        "opt_state": opt, "iteration": state["iteration"],
+        "epoch": state["epoch"], "data_cursor": state["data_cursor"]})
+    assert tsd._updater_state["w"]["m"].dtype == torch.bfloat16
+    np.testing.assert_allclose(tsd.fit([b]), jsd.fit([b]), **BF16_TOL)
+    for name in ("w", "b"):
+        np.testing.assert_allclose(
+            tsd.get_arr(name), np.asarray(jsd.get_arr(name), np.float32),
+            err_msg=name, **BF16_TOL)
