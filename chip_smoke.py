@@ -26,10 +26,17 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    serving matmul — the row quantization and the s8 tensor-core GEMM with
    its de-scale — in float32 and bfloat16 at the int8 BERT-base shapes
    (M 4096; K×N 768×768, 768×3072, 3072×768, 768×2), each equal to its
-   plain version bit for bit. With
+   plain version bit for bit. Attention in bfloat16 at D 64 runs the
+   tensor-core ("sm90") forward and dk/dv, which round P and dS to
+   bfloat16 as the TPU kernels do: their bound adds that rounding
+   (``testing/flash_check.py``), each faulted plain variant (keep mask
+   shifted a column, last tile dropped, a rescale skipped) must exceed
+   it, two runs must give the same bits, and the dropout forward's
+   dropped entries must be keep_mask's. With
    kernel / plain / library times (device time: the calls replayed from a
    CUDA graph between CUDA events, so no host work sits between launches)
-   and the least time the card could take (``bound_ms``).
+   and the least time the card could take (``bound_ms``); the updater's
+   beside ``torch._fused_sgd_`` (Nesterov) and ``torch._fused_adam_``.
 4. ``serve``   — GPT at GPT-2-small width (GptConfig.base(), float32,
    random weights from a numpy seed) served by the port's
    GenerativeEngine through start()/submit()/stop(): once with
@@ -63,7 +70,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    3 steps against a yardstick run from parameters moved by one unit in
    the last place; ``predict`` launches 12 forwards.
 8. ``bert_mlm`` — the same for ``BertModel(..., dtype=bfloat16)``,
-   ``fit_mlm`` on batch 8 × seq 512 with 15% of positions masked.
+   ``fit_mlm`` on batch 8 × seq 512 with 15% of positions masked; its
+   forward and dk/dv launches (12 each a step) are the sm90 kernels',
+   and every float32 phase launches none of them.
 9. ``onnx_bert`` — the imported-graph path: the ONNX bytes of a
    BERT-base-width encoder (12 layers, d 768, 12 heads, ff 3072, vocab
    30522, ~108.5M float32 weights from a numpy seed) built by the port's
@@ -142,7 +151,14 @@ PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
 #             unit in the last place, at most 2^-7 of |plain|
 ATOL = {"float32": 1e-4, "bfloat16": 1e-5}
 RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+# The sm90 design (ca.flash_design: bfloat16 with D <= 128) rounds P and dS
+# to bfloat16 before the products that take them, as the TPU kernels' `_mm`
+# does; its bound adds that rounding per element (testing/flash_check.py):
+# out + 2^-7·(|P̃|·|V|), dv + 2^-7·(|P̃ᵀ|·|dO|), dk + 2^-7·scale·(|dSᵀ|·|Q|),
+# the products of the plain version's absolute values in float32.
 TOL_LSE = 1e-4          # float32 in both dtypes; logsumexp of <= 512 terms
+FLASH_FWD_KERNEL = {"simt": "flash_attn_fwd", "sm90": "flash_attn_fwd_sm90"}
+FLASH_DKV_KERNEL = {"simt": "flash_attn_dkv", "sm90": "flash_attn_dkv_sm90"}
 LOGIT_TOL = 1e-3        # kernel vs generic GPT logits (float32, 12 layers)
 
 FLASH_SHAPE = dict(bh=12, t=512, d=64)
@@ -279,10 +295,40 @@ def compare(out, ref, dtype: str):
     return err.max().item(), (err / lim).max().item()
 
 
-def tol_text(dtype: str) -> str:
-    if RTOL[dtype] == 0.0:
-        return f"{ATOL[dtype]:g}"
-    return f"{ATOL[dtype]:g} + {RTOL[dtype]:g}*|plain|"
+def tol_text(dtype: str, design: str = "simt", term: str = "|P~|.|V|",
+             atol: float = None, rtol: float = None) -> str:
+    atol = ATOL[dtype] if atol is None else atol
+    rtol = RTOL[dtype] if rtol is None else rtol
+    text = f"{atol:g}" if rtol == 0.0 else f"{atol:g} + {rtol:g}*|plain|"
+    if design == "sm90":
+        text += f" + 2^-7*({term})"  # the rounding of P or dS to bfloat16
+    return text
+
+
+def flash_check_forward(out, ref, args, kw, dtype, design):
+    """(max abs error, share of the bound, {fault: share}) of a flash
+    forward against its plain version. The sm90 design rounds P̃ to the
+    input dtype before P̃·V, as the TPU kernel does, so its bound adds
+    2^-7·(|P̃|·|V|) (``testing/flash_check.py``); and each faulted plain
+    variant (rounded as the kernel rounds) must exceed that bound, which
+    shows the bound still catches such faults. Faults that cannot show
+    (the keep mask at dropout 0) are left out."""
+    from deeplearning4j_tpu_torch.testing import flash_check as fc
+
+    name = str(dtype).replace("torch.", "")
+    unit = fc.rounding_unit(dtype, design)
+    slack = fc.forward_slack(*args, unit=unit, **kw)
+    err, share = fc.excess(out, ref, slack, ATOL[name], RTOL[name])
+    faults = {}
+    if design == "sm90":
+        for fault in fc.FAULTS:
+            if fault == "keep_shifted" and not kw["dropout_rate"]:
+                continue
+            bad, _ = fc.forward_variant(*args, round_to=dtype, fault=fault,
+                                        **kw)
+            faults[fault] = fc.excess(bad, ref, slack, ATOL[name],
+                                      RTOL[name])[1]
+    return err, share, faults
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -312,10 +358,14 @@ def flash_case(dtype, dev):
                                                     causal=True)
     torch.cuda.synchronize()
     name = str(dtype).replace("torch.", "")
-    err, share = compare(out, ref_out, name)
+    design = ca.flash_design(dtype, d)
+    fwd_kw = dict(scale=1.0 / math.sqrt(d), causal=True, dropout_rate=0.0)
+    err, share, faults = flash_check_forward(
+        out, ref_out, (q, k, v, mask, None), fwd_kw, dtype, design)
     err_lse = (lse - ref_lse).abs().max().item()
     ok = (share <= 1.0 and err_lse <= TOL_LSE
-          and bool(torch.isfinite(out.float()).all()))
+          and bool(torch.isfinite(out.float()).all())
+          and all(f > 1.0 for f in faults.values()))
     # SDPA yardstick with the same (causal & key) mask, timed only
     allowed = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
     sdpa_mask = (allowed[None] & (mask[:, None, :] > 0.5))[None]
@@ -330,9 +380,10 @@ def flash_case(dtype, dev):
     # (query, key) pairs this data needs: key j is visible to rows j..t-1
     pairs = float((mask_np * (t - np.arange(t))[None, :]).sum())
     bms, by = bound(nbytes, 4.0 * d * pairs, name)
-    return ok, {"kernel": "flash_attn_fwd", "dtype": name,
-                "shape": [bh, t, d], "max_abs_err": err,
-                "tol": tol_text(name), "err_over_tol": share,
+    return ok, {"kernel": FLASH_FWD_KERNEL[design], "design": design,
+                "dtype": name, "shape": [bh, t, d], "max_abs_err": err,
+                "tol": tol_text(name, design), "err_over_tol": share,
+                "faulted_plain_over_tol": faults,
                 "lse_max_abs_err": err_lse, "lse_tol": TOL_LSE, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
                 "bound_by": by}
@@ -422,29 +473,51 @@ def flash_bert_case(dtype, dev, label, rate):
             if rate else None)
     kw = dict(dropout_rate=rate)
     out, lse = ca.flash_attention(q, k, v, mask, seed, **kw)
+    again, _ = ca.flash_attention(q, k, v, mask, seed, **kw)
     ref_out, ref_lse = ca.flash_attention_reference(q, k, v, mask, seed,
                                                     **kw)
     torch.cuda.synchronize()
     name = str(dtype).replace("torch.", "")
-    err, share = compare(out, ref_out, name)
+    bh, t, d = q.shape
+    design = ca.flash_design(dtype, d)
+    err, share, faults = flash_check_forward(
+        out, ref_out, (q, k, v, mask, seed),
+        dict(scale=1.0 / math.sqrt(d), causal=False, **kw), dtype, design)
     err_lse = (lse - ref_lse).abs().max().item()
-    ok = (share <= 1.0 and err_lse <= TOL_LSE
-          and bool(torch.isfinite(out.float()).all()))
+    same_bits = torch.equal(out, again)
+    keep_equal = None
+    if rate:
+        # the dropped entries read out: with V the identity on its first
+        # D columns, out[i, j] != 0 exactly where key j < D is kept
+        eye = torch.eye(t, d, device=dev, dtype=dtype).expand(
+            bh, t, d).contiguous()
+        o_eye, _ = ca.flash_attention(q, k, eye, mask, seed, **kw)
+        visible = torch.ones((bh, t, d), dtype=torch.bool, device=dev)
+        if mask is not None:
+            visible = visible & (mask[:, None, :d] > 0.5)
+        keep = ca._tile_keep(seed, bh, t, d, rate, dev)
+        keep_equal = torch.equal(o_eye != 0, keep & visible)
+    ok = (share <= 1.0 and err_lse <= TOL_LSE and same_bits
+          and keep_equal is not False
+          and bool(torch.isfinite(out.float()).all())
+          and all(f > 1.0 for f in faults.values()))
     (q4, k4, v4), m4 = _sdpa_args(q, k, v, mask, shape["heads"])
     ms = time_ms(lambda: ca.flash_attention(q, k, v, mask, seed, **kw))
     plain_ms = time_ms(lambda: ca.flash_attention_reference(
         q, k, v, mask, seed, **kw))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=m4, dropout_p=rate))
-    bh, t, d = q.shape
     es = q.element_size()
     nbytes = 4 * bh * t * d * es + bh * t * 4 + (0 if mask is None
                                                  else bh * t * 4)
     bms, by = bound(nbytes, 4.0 * d * pairs, name)
-    return ok, {"kernel": "flash_attn_fwd", "dtype": name, "bert": label,
+    return ok, {"kernel": FLASH_FWD_KERNEL[design], "design": design,
+                "dtype": name, "bert": label,
                 "shape": [bh, t, d], "masked": mask is not None,
                 "dropout": rate, "max_abs_err": err,
-                "tol": tol_text(name), "err_over_tol": share,
+                "tol": tol_text(name, design), "err_over_tol": share,
+                "faulted_plain_over_tol": faults, "same_bits_twice": same_bits,
+                "keep_mask_equal": keep_equal,
                 "lse_max_abs_err": err_lse, "lse_tol": TOL_LSE, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
                 "library_note": f"SDPA forward with dropout_p {rate:g}"
@@ -478,6 +551,7 @@ def flash_backward_case(dtype, dev, label):
     import torch
 
     from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.testing import flash_check as fc
 
     shape = BERT_ATTN_SHAPES[label]
     q, k, v, do, mask, _, pairs = _attn_inputs(shape, dtype, dev, 12)
@@ -487,39 +561,62 @@ def flash_backward_case(dtype, dev, label):
     out, lse = ca.flash_attention_reference(q, k, v, mask, seed, **kw)
     delta = ca.attention_delta(do, out)
     args = (q, k, v, mask, seed, do, lse, delta)
-    got = {"flash_attn_dq": (ca.flash_attention_dq(*args, **kw),),
-           "flash_attn_dkv": ca.flash_attention_dkv(*args, **kw)}
-    ref = {"flash_attn_dq": (ca.flash_attention_dq_reference(*args, **kw),),
-           "flash_attn_dkv": ca.flash_attention_dkv_reference(*args, **kw)}
-    torch.cuda.synchronize()
     name = str(dtype).replace("torch.", "")
+    design = ca.flash_design(dtype, d)
+    dkv_name = FLASH_DKV_KERNEL[design]
+    got = {"flash_attn_dq": (ca.flash_attention_dq(*args, **kw),),
+           dkv_name: ca.flash_attention_dkv(*args, **kw)}
+    again = ca.flash_attention_dkv(*args, **kw)
+    ref = {"flash_attn_dq": (ca.flash_attention_dq_reference(*args, **kw),),
+           dkv_name: ca.flash_attention_dkv_reference(*args, **kw)}
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(got[dkv_name], again))
+    # the sm90 dk/dv rounds scale·dS and P̃ to bfloat16 (as the TPU kernel
+    # does): its bound adds 2^-7·scale·(|dSᵀ|·|Q|) to dk and 2^-7·(|P̃ᵀ|·|dO|)
+    # to dv; each faulted plain variant must exceed it
+    unit = fc.rounding_unit(dtype, design)
+    slack = {"flash_attn_dq": (0.0,),
+             dkv_name: fc.dkv_slack(*args, unit=unit, causal=False, **kw)}
+    faults = {}
+    if design == "sm90":
+        for fault in fc.DKV_FAULTS:
+            bad = fc.dkv_variant(*args, round_to=dtype, fault=fault,
+                                 causal=False, **kw)
+            faults[fault] = max(
+                fc.excess(b, r, sl, BWD_ATOL, BWD_RTOL[name])[1]
+                for b, r, sl in zip(bad, ref[dkv_name], slack[dkv_name]))
     (q4, k4, v4), m4 = _sdpa_args(q, k, v, mask, shape["heads"])
     lib_ms = sdpa_backward_ms(q4, k4, v4, m4, do.reshape(q4.shape))
     es = q.element_size()
     side = 2 * bh * t * 4 + (0 if mask is None else bh * t * 4)
     timed = {"flash_attn_dq": (ca.flash_attention_dq,
                                ca.flash_attention_dq_reference, 5, 6.0),
-             "flash_attn_dkv": (ca.flash_attention_dkv,
-                                ca.flash_attention_dkv_reference, 6, 8.0)}
-    ok, entries = True, []
+             dkv_name: (ca.flash_attention_dkv,
+                        ca.flash_attention_dkv_reference, 6, 8.0)}
+    ok = same_bits and all(f > 1.0 for f in faults.values())
+    entries = []
     for kernel, (fn, plain, tensors, ops_per_pair) in timed.items():
         errs, shares = [], []
-        for g, r in zip(got[kernel], ref[kernel]):
-            r = r.float()
-            e = (g.float() - r).abs()
-            errs.append(e.max().item())
-            shares.append((e / (BWD_ATOL + BWD_RTOL[name] * r.abs()))
-                          .max().item())
+        for g, r, sl in zip(got[kernel], ref[kernel], slack[kernel]):
+            e, share = fc.excess(g, r, sl, BWD_ATOL, BWD_RTOL[name])
+            errs.append(e)
+            shares.append(share)
             ok = ok and bool(torch.isfinite(g.float()).all())
         ok = ok and max(shares) <= 1.0
         bms, by = bound(tensors * bh * t * d * es + side,
                         ops_per_pair * d * pairs, name)
+        sm90 = kernel == "flash_attn_dkv_sm90"
         entries.append({
-            "kernel": kernel, "dtype": name, "bert": label,
+            "kernel": kernel, "design": "sm90" if sm90 else "simt",
+            "dtype": name, "bert": label,
             "shape": [bh, t, d], "masked": mask is not None,
             "dropout": ATTN_DROPOUT, "max_abs_err": max(errs),
-            "tol": f"{BWD_ATOL:g} + {BWD_RTOL[name]:g}*|plain|",
+            "tol": tol_text(name, "sm90" if sm90 else "simt",
+                            "dk: scale*|dS^T|.|Q|, dv: |P~^T|.|dO|",
+                            BWD_ATOL, BWD_RTOL[name]),
             "err_over_tol": max(shares),
+            **({"faulted_plain_over_tol": faults,
+                "same_bits_twice": same_bits} if sm90 else {}),
             "ms": time_ms(lambda: fn(*args, **kw)),
             "plain_ms": time_ms(lambda: plain(*args, **kw)),
             "library_ms": lib_ms,
@@ -564,11 +661,44 @@ def updater_case(dtype, dev):
                      "leaf": leaf, "shape": list(shape), "max_abs_err": err,
                      "tol": "0 (bit-exact)", "exact": exact, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": None,
-                     "library_note": "no single PyTorch call computes "
-                                     "DL4J's Nesterovs update",
                      "bound_ms": bms, "bound_by": by}
+        if leaf == "fc.W":
+            out[leaf].update(updater_library_ms(p, g, v, lr))
     ok = all(e["exact"] for e in out.values())
     return ok, list(out.values())
+
+
+def updater_library_ms(p, g, v, lr):
+    """PyTorch's own fused optimizer steps on the same leaf, timed only
+    (the port never calls them): ``torch._fused_sgd_`` with Nesterov
+    momentum beside the Nesterovs kernel (PyTorch's Nesterov form; the
+    same reads and writes), and ``torch._fused_adam_`` beside the kernel's
+    Adam step (the JAX updater's bias-corrected form) on the same leaf."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    pl, gl, vl = (t.clone() for t in (p, g, v))
+    sgd_ms = time_ms(lambda: torch._fused_sgd_(
+        [pl], [gl], [vl], weight_decay=0.0, momentum=0.9, lr=lr,
+        dampening=0.0, nesterov=True, maximize=False, is_first_step=False))
+    adam = Adam(learning_rate=1e-3)
+    m, sq = torch.zeros_like(p), torch.zeros_like(p)
+    adam_ms = time_ms(lambda: cu.fused_updater(
+        p, g, 1e-3, 1, m, sq, kind="Adam", **adam.fused_hyper()))
+    pa, ga, ma, va = (t.clone() for t in (p, g, m, sq))
+    step = torch.ones((), dtype=torch.float32, device=p.device)
+    adam_lib_ms = time_ms(lambda: torch._fused_adam_(
+        [pa], [ga], [ma], [va], [], [step], lr=1e-3, beta1=adam.beta1,
+        beta2=adam.beta2, weight_decay=0.0, eps=adam.epsilon, amsgrad=False,
+        maximize=False))
+    return {"library_ms": sgd_ms,
+            "library_note": "torch._fused_sgd_ (Nesterov momentum), timed "
+                            "only",
+            "adam_ms": adam_ms, "adam_library_ms": adam_lib_ms,
+            "adam_library_note": "torch._fused_adam_ on the same leaf, "
+                                 "timed only"}
 
 
 def convbn_case(dev):
@@ -867,14 +997,21 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     model.cfg = cfg
 
     problems = []
+    # bfloat16 at head dim 64 takes the tensor-core (sm90) forward and
+    # dk/dv, float32 the CUDA-core ones (ca.flash_design)
+    sm90 = ca.flash_design(getattr(torch, dtype),
+                           cfg.hidden // cfg.heads) == "sm90"
     want = {"flash_attn_fwd": cfg.layers * BERT_STEPS,
+            "flash_attn_fwd_sm90": cfg.layers * BERT_STEPS * sm90,
             "flash_attn_dq": cfg.layers * BERT_STEPS,
             "flash_attn_dkv": cfg.layers * BERT_STEPS,
+            "flash_attn_dkv_sm90": cfg.layers * BERT_STEPS * sm90,
             "fused_updater": n_leaves * BERT_STEPS}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
     if (predict_launches["flash_attn_fwd"] != cfg.layers
+            or predict_launches["flash_attn_fwd_sm90"] != cfg.layers * sm90
             or predict_launches["flash_attn_dq"]
             or predict_launches["flash_attn_dkv"]):
         problems.append(f"predict launches {predict_launches}")
@@ -1173,8 +1310,9 @@ def onnx_bert_phase(dev, smi):
                 cm.fused_matmul.launches = 0  # the main path starts here
                 y = sd.output(feeds, ["y"])["y"]
                 launches = dict(fused_matmul_bias_act=cm.fused_matmul.launches,
-                                flash_attn_fwd=ca.launch_counts()[
-                                    "flash_attn_fwd"])  # ... ends here
+                                flash_attn_fwd=ca.flash_attention.launches,
+                                flash_attn_fwd_sm90=ca.flash_attention
+                                .sm90_launches)  # ... ends here
                 disp = observe.metrics()
                 launches["dispatch_cuda"] = {
                     op: disp.counter("dl4j_tpu_helper_dispatch_total", op=op,
@@ -1217,7 +1355,7 @@ def onnx_bert_phase(dev, smi):
                              "epilogue": 6 * cfg["layers"]}:
         problems.append(f"fusions {k_info['fusions']}")
     want = {"fused_matmul_bias_act": 6 * cfg["layers"],
-            "flash_attn_fwd": cfg["layers"]}
+            "flash_attn_fwd": cfg["layers"], "flash_attn_fwd_sm90": 0}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
@@ -1253,7 +1391,9 @@ def onnx_bert_phase(dev, smi):
             "problems": problems}
     return problems, line, {"fused_matmul_bias_act":
                             launches["fused_matmul_bias_act"],
-                            "flash_attn_fwd": launches["flash_attn_fwd"]}, \
+                            "flash_attn_fwd": launches["flash_attn_fwd"],
+                            "flash_attn_fwd_sm90":
+                            launches["flash_attn_fwd_sm90"]}, \
         float32_out
 
 
@@ -1362,6 +1502,7 @@ def sd_bert_finetune_phase(dev, smi):
     n_leaves = len(k_params)
     per_step = {"fused_layer_norm": 1, "flash_attn_fwd": layers,
                 "flash_attn_dq": layers, "flash_attn_dkv": layers,
+                "flash_attn_fwd_sm90": 0, "flash_attn_dkv_sm90": 0,
                 "fused_matmul_bias_act": 6 * layers + 2,
                 "fused_updater": n_leaves}
     for name, n in per_step.items():
@@ -1492,6 +1633,7 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                     matmul_int8=cq.int8_matmul.launches,
                     matmul_int8_row_quantize=cq.row_quantize.launches,
                     flash_attn_fwd=ca.flash_attention.launches,
+                    flash_attn_fwd_sm90=ca.flash_attention.sm90_launches,
                     fused_matmul_bias_act=cm.fused_matmul.launches)  # ... ends
                 disp = observe.metrics()
                 launches["dispatch"] = {
@@ -1542,7 +1684,8 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
     layers = cfg["layers"]
     n_dense = 6 * layers + 1
     want = {"matmul_int8": n_dense, "matmul_int8_row_quantize": n_dense,
-            "flash_attn_fwd": layers, "fused_matmul_bias_act": 0}
+            "flash_attn_fwd": layers, "flash_attn_fwd_sm90": 0,
+            "fused_matmul_bias_act": 0}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
@@ -1789,6 +1932,9 @@ def main() -> int:
     if launches["paged_decode"] < cfg.layers * decode_steps:
         problems.append(f"paged launches {launches['paged_decode']} < "
                         f"{cfg.layers} x {decode_steps} decode steps")
+    if launches["flash_attn_fwd_sm90"] or launches["flash_attn_dkv_sm90"]:
+        problems.append(f"float32 serving launched the sm90 kernels: "
+                        f"{launches}")
     divergences = []
     for p, a, b in zip(prompts, ref_results, results):
         if list(a.tokens) != list(b.tokens):
@@ -1868,23 +2014,32 @@ def main() -> int:
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
-    by_path = {"flash_attn_fwd": {"serve": launches["flash_attn_fwd"]},
-               "paged_decode": {"serve": launches["paged_decode"]},
-               "fused_updater": {}, "bn_matmul_stats": {},
-               "flash_attn_dq": {}, "flash_attn_dkv": {},
-               "fused_matmul_bias_act": {}, "fused_layer_norm": {},
-               "matmul_int8": {}, "matmul_int8_row_quantize": {}}
-    for path, counts in train_launches.items():
+    # (flash_attn_fwd and flash_attn_dkv count both designs: their rows
+    # take the CUDA-core launches, the _sm90 rows the tensor-core ones)
+    by_path = {name: {} for name in (
+        "flash_attn_fwd", "flash_attn_fwd_sm90", "paged_decode",
+        "fused_updater", "bn_matmul_stats", "flash_attn_dq",
+        "flash_attn_dkv", "flash_attn_dkv_sm90", "fused_matmul_bias_act",
+        "fused_layer_norm", "matmul_int8", "matmul_int8_row_quantize")}
+    for path, counts in dict(serve=launches, **train_launches).items():
+        counts = dict(counts)
+        for both in ("flash_attn_fwd", "flash_attn_dkv"):
+            if both in counts:
+                counts[both] -= counts.get(both + "_sm90", 0)
         for name, n in counts.items():
             if name in by_path and n:
                 by_path[name][path] = n
     sources = {
         "flash_attn_fwd": ("flash_attn_fwd.cu", "pallas_attention.py:194"),
+        "flash_attn_fwd_sm90": ("flash_attn_fwd_sm90.cu",
+                                "pallas_attention.py:194"),
         "paged_decode": ("paged_decode.cu", "pallas_attention.py:683"),
         "fused_updater": ("fused_updater.cu", "pallas_updater.py:84"),
         "bn_matmul_stats": ("bn_matmul_stats.cu", "pallas_convbn.py:49"),
         "flash_attn_dq": ("flash_attn_bwd.cu", "pallas_attention.py:244"),
         "flash_attn_dkv": ("flash_attn_bwd.cu", "pallas_attention.py:282"),
+        "flash_attn_dkv_sm90": ("flash_attn_dkv_sm90.cu",
+                                "pallas_attention.py:282"),
         "fused_matmul_bias_act": ("fused_matmul.cu", "pallas_matmul.py:42"),
         "fused_layer_norm": ("fused_layer_norm.cu",
                              "pallas_layernorm.py:69"),

@@ -1,6 +1,8 @@
-// flash_attn_fwd.cu — blockwise (FlashAttention-2) attention forward for
-// Hopper (sm_90a), float32, bfloat16 and float16 inputs, float32
-// accumulation, any head dim D with D % 8 == 0 up to 256.
+// flash_attn_fwd.cu — blockwise (FlashAttention-2) attention forward on the
+// CUDA cores (sm_90a), float32 accumulation: float32 inputs at any head dim
+// D with D % 8 == 0 up to 256, and bfloat16 and float16 inputs with
+// 128 < D <= 256. 16-bit inputs with D <= 128 run the tensor-core kernel of
+// flash_attn_fwd_sm90.cu.
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_attention.py `_attn_kernel`,
 // reached through `_flash_fwd` (the Pallas forward behind `flash_dpa`, the
@@ -16,9 +18,10 @@
 //
 // What bounds it on the H100: at the serving shape (BH=12, T=512, D=64,
 // causal) the work is ~0.4 GFLOP against ~3 MB of traffic, so the card's
-// arithmetic, not its memory, is the limit; this first version runs that
-// arithmetic on the CUDA cores (67 TFLOP/s in float32), not the tensor
-// cores. wgmma/TMA staging is later work.
+// arithmetic, not its memory, is the limit; this kernel runs it on the CUDA
+// cores (67 TFLOP/s in float32). The 16-bit path with D <= 128 runs on the
+// tensor cores in flash_attn_fwd_sm90.cu; float32 keeps full-precision
+// products here.
 //
 // Design, and what it does about the TPU original:
 //  * The Pallas grid walks the kv blocks as a sequential ('arbitrary') grid
@@ -50,6 +53,7 @@
 #include <math_constants.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -231,9 +235,13 @@ int launch(const Args& a, cudaStream_t stream) {
 template <typename T, bool DROP>
 int dispatch_d(const Args& a, cudaStream_t s) {
   if (a.d <= 0 || a.d % 8 != 0 || a.d > kMaxHeadDim) return -1;
-  if (a.d <= 32) return launch<T, 32, 1, DROP>(a, s);
-  if (a.d <= 64) return launch<T, 64, 1, DROP>(a, s);
-  if (a.d <= 128) return launch<T, 32, 4, DROP>(a, s);
+  if constexpr (std::is_same<T, float>::value) {
+    if (a.d <= 32) return launch<T, 32, 1, DROP>(a, s);
+    if (a.d <= 64) return launch<T, 64, 1, DROP>(a, s);
+    if (a.d <= 128) return launch<T, 32, 4, DROP>(a, s);
+  } else if (a.d <= 128) {
+    return -1;  // 16-bit D <= 128: flash_attn_fwd_sm90.cu
+  }
   return launch<T, 32, 8, DROP>(a, s);
 }
 
@@ -244,12 +252,12 @@ int dispatch_drop(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. mask may be null (every
-// key visible). rate: attention-dropout rate in [0, 1); above 0, `seed`
-// points to one int32 on the device and inv_keep is 1 / (1 - rate); at 0
-// both are ignored. Returns cudaGetLastError() of the launch, or -1 for an
-// unsupported dtype or head dim (D % 8 != 0 or D > 256). Launches on
-// `stream`; allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (16-bit only with D > 128).
+// mask may be null (every key visible). rate: attention-dropout rate in
+// [0, 1); above 0, `seed` points to one int32 on the device and inv_keep is
+// 1 / (1 - rate); at 0 both are ignored. Returns cudaGetLastError() of the
+// launch, or -1 for an unsupported dtype or head dim (D % 8 != 0, D > 256,
+// or a 16-bit D <= 128). Launches on `stream`; allocates nothing.
 extern "C" int dl4j_flash_attn_fwd(const void* q, const void* k,
                                    const void* v, const void* mask, void* out,
                                    void* lse, int bh, int tq, int tk, int d,

@@ -7,10 +7,14 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
   dropout, returning ``(out, lse)`` as ``_flash_fwd`` does. It is
   differentiable: :class:`FlashAttentionFn` is the counterpart of the JAX
   ``flash_attention`` custom VJP. On the card its forward launches
-  ``csrc/flash_attn_fwd.cu`` (replacing ``_attn_kernel``) and its backward
-  :func:`flash_attention_dq` and :func:`flash_attention_dkv`
-  (``csrc/flash_attn_bwd.cu``, replacing ``_dq_kernel`` and
-  ``_dkv_kernel``).
+  ``_attn_kernel``'s counterpart and its backward :func:`flash_attention_dq`
+  and :func:`flash_attention_dkv` (``_dq_kernel``'s and ``_dkv_kernel``'s).
+  :func:`flash_design` picks the source by dtype and head dim: bfloat16
+  and float16 with D <= 128 take the tensor-core kernels
+  ``csrc/flash_attn_fwd_sm90.cu`` and ``csrc/flash_attn_dkv_sm90.cu``
+  (``"sm90"``); float32, and 16-bit D > 128, the CUDA-core kernels
+  ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu`` (``"simt"``).
+  dq always runs ``csrc/flash_attn_bwd.cu``.
 * :func:`keep_mask` — the dropout keep mask, ``_keep_mask``'s hash bit for
   bit, so the plain versions drop exactly what the kernels (and the TPU
   kernels) drop for the same seed.
@@ -24,7 +28,8 @@ Beside each kernel wrapper stands its plain PyTorch version
 :func:`paged_decode_attention_reference`). A wrapper given CPU tensors
 computes the plain version; given CUDA tensors it launches its kernel or
 raises — it never falls back. Each kernel's launches are counted on its
-wrapper's ``.launches`` (the forward's on :func:`flash_attention`).
+wrapper's ``.launches`` (the forward's on :func:`flash_attention`); the
+tensor-core designs' also on ``.sm90_launches`` of the same wrappers.
 
 :func:`register_platform_attention` installs the kernels under the
 ``"cuda"`` platform of the op registry, behind usable gates that mirror
@@ -49,6 +54,9 @@ from deeplearning4j_tpu_torch.ops import _build
 
 # every kernel takes every head dim D with D % 8 == 0 up to this
 MAX_HEAD_DIM = 256
+# the tensor-core forward and dk/dv take 16-bit inputs up to this head dim
+SM90_MAX_HEAD_DIM = 128
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASKED = -1e30  # the kernels' (and the TPU kernels') mask fill
 _U32 = 0xFFFFFFFF
@@ -83,6 +91,9 @@ def _require_head_dim(d: int, kernel: str) -> None:
 def _check_launch(rc: int, kernel: str) -> None:
     if rc == -1:
         raise ValueError(f"{kernel}: unsupported dtype or head dim")
+    if rc == -2:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (or libcuda does not export it)")
     if rc != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed with "
                            f"cudaError_t {rc}")
@@ -262,6 +273,22 @@ def flash_attention_backward_reference(q, k, v, kv_mask, seed, out, lse,
 # ---------------------------------------------------------------------------
 
 
+def flash_design(dtype: torch.dtype, d: int) -> str:
+    """Which design of the forward and dk/dv kernels runs ``dtype`` at head
+    dim ``d``: ``"sm90"`` (wgmma products fed by TMA, P and dS rounded to
+    the input type in registers) for bfloat16 and float16 with D <= 128,
+    ``"simt"`` (CUDA cores in float32) for everything else. A static choice,
+    not a fallback: either design raises when its build or launch fails."""
+    return ("sm90" if dtype in _SM90_DTYPES and d <= SM90_MAX_HEAD_DIM
+            else "simt")
+
+
+def _require_tma_aligned(kernel: str, *ts) -> None:
+    _require(all(t.data_ptr() % 16 == 0 for t in ts),
+             f"{kernel}: the tensor-core kernel reads its tiles with TMA and "
+             f"needs 16-byte aligned q, k, v (and dout)")
+
+
 def _check_qkv(q, k, v, kernel: str) -> None:
     _require(q.device.type == "cuda",
              f"{kernel}: unsupported device {q.device}")
@@ -311,14 +338,21 @@ def _flash_fwd(q, k, v, kv_mask, seed, scale: float, causal: bool,
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
-    fn = _build.kernel_fn("flash_attn_fwd", "dl4j_flash_attn_fwd",
-                          _FLASH_ARGS)
+    sm90 = flash_design(q.dtype, d) == "sm90"
+    if sm90:
+        _require_tma_aligned("flash_attn_fwd_sm90", q, k, v)
+        fn = _build.kernel_fn("flash_attn_fwd_sm90",
+                              "dl4j_flash_attn_fwd_sm90", _FLASH_ARGS)
+    else:
+        fn = _build.kernel_fn("flash_attn_fwd", "dl4j_flash_attn_fwd",
+                              _FLASH_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             out.data_ptr(), lse.data_ptr(), bh, t_q, t_k, d, float(scale),
             int(bool(causal)), _ptr(seed), float(dropout_rate),
             _inv_keep(dropout_rate), _DTYPE_CODES[q.dtype], _stream(q))
-    _check_launch(rc, "flash_attn_fwd")
+    _check_launch(rc, "flash_attn_fwd_sm90" if sm90 else "flash_attn_fwd")
     flash_attention.launches += 1
+    flash_attention.sm90_launches += int(sm90)
     return out, lse
 
 
@@ -370,8 +404,10 @@ def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
                         scale: float, causal: bool = False,
                         dropout_rate: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of flash attention (``csrc/flash_attn_bwd.cu``, replacing
-    ``_dkv_kernel``). CPU tensors: :func:`flash_attention_dkv_reference`."""
+    """(dk, dv) of flash attention (replacing ``_dkv_kernel``):
+    ``csrc/flash_attn_dkv_sm90.cu`` or ``csrc/flash_attn_bwd.cu`` as
+    :func:`flash_design` says. CPU tensors:
+    :func:`flash_attention_dkv_reference`."""
     if q.device.type == "cpu":
         return flash_attention_dkv_reference(
             q, k, v, kv_mask, seed, dout, lse, delta, scale=scale,
@@ -382,18 +418,27 @@ def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dkv")
     seed = _norm_seed(seed, dropout_rate, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.kernel_fn("flash_attn_bwd", "dl4j_flash_attn_dkv", _DKV_ARGS)
+    sm90 = flash_design(q.dtype, d) == "sm90"
+    if sm90:
+        _require_tma_aligned("flash_attn_dkv_sm90", q, k, v, dout)
+        fn = _build.kernel_fn("flash_attn_dkv_sm90",
+                              "dl4j_flash_attn_dkv_sm90", _DKV_ARGS)
+    else:
+        fn = _build.kernel_fn("flash_attn_bwd", "dl4j_flash_attn_dkv",
+                              _DKV_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seed),
             dk.data_ptr(), dv.data_ptr(), bh, t_q, t_k, d, float(scale),
             int(bool(causal)), float(dropout_rate), _inv_keep(dropout_rate),
             _DTYPE_CODES[q.dtype], _stream(q))
-    _check_launch(rc, "flash_attn_dkv")
+    _check_launch(rc, "flash_attn_dkv_sm90" if sm90 else "flash_attn_dkv")
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.sm90_launches += int(sm90)
     return dk, dv
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.sm90_launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -460,6 +505,7 @@ def flash_attention(q, k, v, kv_mask=None, seed=None, *,
 
 
 flash_attention.launches = 0
+flash_attention.sm90_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -543,20 +589,24 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
 
 paged_decode_attention.launches = 0
 
-# kernel name -> the function holding its launch count
-KERNELS = {"flash_attn_fwd": flash_attention,
-           "flash_attn_dq": flash_attention_dq,
-           "flash_attn_dkv": flash_attention_dkv,
-           "paged_decode": paged_decode_attention}
+# kernel name -> (the function holding its launch count, the attribute).
+# flash_attn_fwd and flash_attn_dkv count every launch of either design;
+# the _sm90 names count the tensor-core design's alone.
+KERNELS = {"flash_attn_fwd": (flash_attention, "launches"),
+           "flash_attn_fwd_sm90": (flash_attention, "sm90_launches"),
+           "flash_attn_dq": (flash_attention_dq, "launches"),
+           "flash_attn_dkv": (flash_attention_dkv, "launches"),
+           "flash_attn_dkv_sm90": (flash_attention_dkv, "sm90_launches"),
+           "paged_decode": (paged_decode_attention, "launches")}
 
 
 def reset_launch_counts() -> None:
-    for w in KERNELS.values():
-        w.launches = 0
+    for w, attr in KERNELS.values():
+        setattr(w, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: w.launches for name, w in KERNELS.items()}
+    return {name: getattr(w, attr) for name, (w, attr) in KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------

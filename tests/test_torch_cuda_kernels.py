@@ -76,6 +76,7 @@ from deeplearning4j_tpu_torch.ops import cuda_convbn as cc
 from deeplearning4j_tpu_torch.ops import cuda_updater as cu
 from deeplearning4j_tpu_torch.ops import exec_op
 from deeplearning4j_tpu_torch.serving import GenerativeEngine
+from deeplearning4j_tpu_torch.testing import flash_check as fc
 
 pytestmark = pytest.mark.cuda
 
@@ -87,10 +88,10 @@ LSE_TOL = 1e-4
 HEAD_DIMS = [8, 32, 48, 64, 96, 128, 200, 256]
 
 
-def _assert_close(out, ref, dtype):
+def _assert_close(out, ref, dtype, slack=0.0):
     ref = ref.float()
     err = (out.float() - ref).abs()
-    lim = ATOL[dtype] + RTOL[dtype] * ref.abs()
+    lim = ATOL[dtype] + RTOL[dtype] * ref.abs() + slack
     worst = (err / lim).max().item()
     assert worst <= 1.0, (f"max |kernel - plain| {err.max().item():.3g}, "
                           f"{worst:.3g} x the tolerance")
@@ -135,7 +136,10 @@ def test_flash_matches_plain(cuda, dtype, d, t_q, t_k, causal, masked):
     torch.cuda.synchronize()
     assert ca.flash_attention.launches == before + 1
     assert out.dtype == dtype and lse.dtype == torch.float32
-    _assert_close(out, ref, dtype)
+    # the sm90 design rounds P to the input dtype (testing/flash_check.py)
+    unit = fc.rounding_unit(dtype, ca.flash_design(dtype, d))
+    _assert_close(out, ref, dtype, fc.forward_slack(
+        q, k, v, m, scale=1.0 / math.sqrt(d), causal=causal, unit=unit))
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
 
 
@@ -235,13 +239,16 @@ def test_flash_backward_matches_plain(cuda, dtype, d, rate, t_q, t_k,
     torch.cuda.synchronize()
     assert (ca.flash_attention_dq.launches - n_dq,
             ca.flash_attention_dkv.launches - n_dkv) == (1, 1)
-    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
-                           ("dv", dv, ref_dv)):
+    # the sm90 dk/dv rounds dS and P̃ to the input dtype
+    unit = fc.rounding_unit(dtype, ca.flash_design(dtype, d))
+    slack_dk, slack_dv = fc.dkv_slack(q, k, v, m, seed, dout, lse, delta,
+                                      unit=unit, **kw)
+    for name, got, ref, slack in (("dq", dq, ref_dq, 0.0),
+                                  ("dk", dk, ref_dk, slack_dk),
+                                  ("dv", dv, ref_dv, slack_dv)):
         assert got.dtype == dtype and torch.isfinite(got.float()).all()
-        ref = ref.float()
-        err = (got.float() - ref).abs()
-        worst = (err / (BWD_ATOL + BWD_RTOL[dtype] * ref.abs())).max().item()
-        assert worst <= 1.0, (name, err.max().item(), worst)
+        _, worst = fc.excess(got, ref, slack, BWD_ATOL, BWD_RTOL[dtype])
+        assert worst <= 1.0, (name, worst)
 
 
 def test_flash_backward_fully_masked_rows_are_finite(cuda):
@@ -251,6 +258,141 @@ def test_flash_backward_fully_masked_rows_are_finite(cuda):
     out, _ = ca.flash_attention(q, q, q, m)
     (g,) = torch.autograd.grad(out.sum(), (q,))
     assert torch.isfinite(g).all()
+
+
+SM90_DTYPES = [torch.bfloat16, torch.float16]
+SM90_HEAD_DIMS = [16, 40, 64, 96, 128]
+SM90_LENGTHS = [1, 63, 64, 65, 130, 512]
+# (causal, key mask, dropout): causal runs Tq == Tk, the rest Tq != Tk;
+# "full" masks every key of one batch·head row
+SM90_VARIANTS = [(c, m, r) for c in (False, True)
+                 for m in (None, "pad", "full") for r in (0.0, 0.1)
+                 if not (c and m == "full")]
+
+
+def _sm90_inputs(dtype, d, t, causal, masked, dev, seed):
+    t_k = t if causal else t + 7
+    q, dout = (_randn((3, t, d), dtype, dev, seed + i) for i in (0, 1))
+    k, v = (_randn((3, t_k, d), dtype, dev, seed + i) for i in (2, 3))
+    m = None
+    if masked:
+        lens = torch.tensor([t_k, max(1, t_k // 3),
+                             0 if masked == "full" else 1], device=dev)
+        m = (torch.arange(t_k, device=dev)[None] < lens[:, None]).float()
+    return q, k, v, dout, m
+
+
+@pytest.mark.parametrize("dtype", SM90_DTYPES)
+@pytest.mark.parametrize("d", SM90_HEAD_DIMS)
+@pytest.mark.parametrize("t", SM90_LENGTHS)
+def test_sm90_forward_matches_plain(cuda, dtype, d, t):
+    """The tensor-core forward against its plain version under the sm90
+    bound, every causal / key-mask / dropout variant; lse to 1e-4; a fully
+    masked row equal to the plain version's mean of V."""
+    assert ca.flash_design(dtype, d) == "sm90"
+    for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
+        q, k, v, _, m = _sm90_inputs(dtype, d, t, causal, masked, cuda,
+                                     100 * i)
+        seed = torch.tensor([i - 77], dtype=torch.int32, device=cuda)
+        kw = dict(scale=1.0 / math.sqrt(d), causal=causal,
+                  dropout_rate=rate)
+        before = ca.flash_attention.sm90_launches
+        out, lse = ca.flash_attention(q, k, v, m, seed, **kw)
+        ref, ref_lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+        torch.cuda.synchronize()
+        assert ca.flash_attention.sm90_launches == before + 1
+        assert out.dtype == dtype and torch.isfinite(out.float()).all()
+        slack = fc.forward_slack(q, k, v, m, seed, unit=fc.ROUNDING[dtype],
+                                 **kw)
+        _, share = fc.excess(out, ref, slack, ATOL[dtype], RTOL[dtype])
+        assert share <= 1.0, (causal, masked, rate, share)
+        assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", SM90_DTYPES)
+@pytest.mark.parametrize("d", SM90_HEAD_DIMS)
+@pytest.mark.parametrize("t", SM90_LENGTHS)
+def test_sm90_dkv_matches_plain(cuda, dtype, d, t):
+    """The tensor-core dk/dv against its plain version under the sm90
+    bound, every causal / key-mask / dropout variant."""
+    assert ca.flash_design(dtype, d) == "sm90"
+    for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
+        q, k, v, dout, m = _sm90_inputs(dtype, d, t, causal, masked, cuda,
+                                        100 * i + 50)
+        seed = torch.tensor([3 * i + 1], dtype=torch.int32, device=cuda)
+        kw = dict(scale=1.0 / math.sqrt(d), causal=causal,
+                  dropout_rate=rate)
+        out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+        delta = ca.attention_delta(dout, out)
+        args = (q, k, v, m, seed, dout, lse, delta)
+        before = ca.flash_attention_dkv.sm90_launches
+        dk, dv = ca.flash_attention_dkv(*args, **kw)
+        ref_dk, ref_dv = ca.flash_attention_dkv_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert ca.flash_attention_dkv.sm90_launches == before + 1
+        slacks = fc.dkv_slack(*args, unit=fc.ROUNDING[dtype], **kw)
+        for got, ref, slack in zip((dk, dv), (ref_dk, ref_dv), slacks):
+            assert got.dtype == dtype and torch.isfinite(got.float()).all()
+            _, share = fc.excess(got, ref, slack, BWD_ATOL, BWD_RTOL[dtype])
+            assert share <= 1.0, (causal, masked, rate, share)
+
+
+@pytest.mark.parametrize("dtype", SM90_DTYPES)
+def test_sm90_gives_the_same_bits_twice(cuda, dtype):
+    q, k, v, dout, m = _sm90_inputs(dtype, 64, 130, False, "pad", cuda, 9)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    kw = dict(scale=0.125, dropout_rate=0.1)
+    outs = [ca.flash_attention(q, k, v, m, seed, **kw) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    out, lse = outs[0]
+    delta = ca.attention_delta(dout, out)
+    grads = [ca.flash_attention_dkv(q, k, v, m, seed, dout, lse, delta, **kw)
+             for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sm90_dropout_drops_what_keep_mask_drops(cuda, causal):
+    """The bfloat16 forward with V the identity on its first D columns:
+    out[i, j] != 0 exactly where keep_mask keeps (i, j) and key j is
+    visible — the tensor-core fragment's (row, column) is the hash's."""
+    bh, t, d, rate = 6, 130, 128, 0.3
+    q = _randn((bh, t, d), torch.bfloat16, cuda, 140)
+    k = _randn((bh, t, d), torch.bfloat16, cuda, 141)
+    v = torch.eye(t, d, device=cuda, dtype=torch.bfloat16).expand(
+        bh, t, d).contiguous()
+    lens = torch.tensor([130, 100, 64, 17, 128, 1], device=cuda)
+    m = (torch.arange(t, device=cuda)[None] < lens[:, None]).float()
+    seed = torch.tensor([-987654321], dtype=torch.int32, device=cuda)
+    out, _ = ca.flash_attention(q, k, v, m, seed, causal=causal,
+                                dropout_rate=rate)
+    torch.cuda.synchronize()
+    visible = (m[:, None, :d] > 0.5).expand(bh, t, d)
+    if causal:
+        visible = visible & torch.ones(t, d, dtype=torch.bool,
+                                       device=cuda).tril()
+    keep = ca._tile_keep(seed, bh, t, d, rate, cuda)
+    assert torch.equal(out != 0, keep & visible)
+
+
+def test_flash_design_routes_by_counters(cuda):
+    """bfloat16 at D 64 launches the sm90 forward and dk/dv; float32 at D
+    64 and bfloat16 at D 192 the CUDA-core ones (sm90 counters still)."""
+    for dtype, d, sm90 in ((torch.bfloat16, 64, 1), (torch.float16, 128, 1),
+                           (torch.float32, 64, 0), (torch.bfloat16, 192, 0)):
+        q, k, v, dout, _ = _sm90_inputs(dtype, d, 70, True, None, cuda, 11)
+        ca.reset_launch_counts()
+        out, lse = ca.flash_attention(q, k, v, causal=True)
+        delta = ca.attention_delta(dout, out)
+        ca.flash_attention_dkv(q, k, v, None, None, dout, lse, delta,
+                               scale=1.0 / math.sqrt(d), causal=True)
+        ca.flash_attention_dq(q, k, v, None, None, dout, lse, delta,
+                              scale=1.0 / math.sqrt(d), causal=True)
+        counts = ca.launch_counts()
+        assert counts == {"flash_attn_fwd": 1, "flash_attn_fwd_sm90": sm90,
+                          "flash_attn_dq": 1, "flash_attn_dkv": 1,
+                          "flash_attn_dkv_sm90": sm90, "paged_decode": 0}, (
+            dtype, d, counts)
 
 
 @pytest.mark.parametrize("causal,rate", [(False, 0.0), (True, 0.0),

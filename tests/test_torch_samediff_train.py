@@ -33,9 +33,18 @@ never read by the loss). Checked, in float32:
   a small graph: ``output`` and one ``fit`` step against the JAX package,
   and a JAX bfloat16 training state applied to the port. Tolerance one
   bfloat16 unit (2^-7 relative) plus 1e-6: both compute the same bfloat16
-  graph; the JAX step promotes the bfloat16 parameters to float32 and the
-  port keeps their dtype (rounds the new value once), which moves a
-  parameter by at most half a unit.
+  graph; the JAX generic step promotes the bfloat16 parameters to float32
+  and the port keeps their dtype (rounds the new value once), which moves a
+  parameter by at most half a unit;
+* the parameter dtype of a bfloat16 ``fit`` against the JAX Pallas updater
+  kernel (``fused_updater_helper`` in interpret mode, installed as the JAX
+  registry's CPU helper for the test): the kernel stores each new parameter
+  in the leaf's dtype, as the port's kernel and plain version do, so after
+  three steps both runs hold bfloat16 parameters. Their values agree to one
+  bfloat16 unit of the parameter per step taken: each step rounds once in
+  each run, and the two frameworks' bfloat16 gradients differ (Adam's first
+  moment by up to 15 units after one step), so a rounding can fall the
+  other way once a step.
 """
 
 import ml_dtypes
@@ -377,3 +386,44 @@ def test_bfloat16_training_state_carried_from_jax():
         np.testing.assert_allclose(
             tsd.get_arr(name), np.asarray(jsd.get_arr(name), np.float32),
             err_msg=name, **BF16_TOL)
+
+
+def _units(want, got):
+    """|got - want| in bfloat16 units of ``want`` (the spacing of the
+    bfloat16 grid at each element's magnitude)."""
+    unit = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)
+    return np.abs(got - want) / unit
+
+
+def test_bfloat16_parameters_keep_their_dtype_as_the_jax_kernel_does(
+        monkeypatch):
+    """The port's bfloat16 leaves stay bfloat16 through ``fit``, as the JAX
+    Pallas updater (``pallas_updater.py`` ``_kernel``: ``(p - u).astype(
+    out dtype)``) keeps them; only the JAX generic ``param - u`` promotes.
+    The JAX run here takes the Pallas kernel in interpret mode."""
+    from deeplearning4j_tpu.ops.pallas_updater import fused_updater_helper
+    from deeplearning4j_tpu.ops.registry import registry as jregistry
+
+    kernel_dtypes = []
+
+    def interpret_kernel(*args, **kw):
+        out = fused_updater_helper(*args, interpret=True, **kw)
+        kernel_dtypes.append((args[0].dtype, out[0].dtype))
+        return out
+
+    desc = jregistry().get("fused_updater_step")
+    monkeypatch.setitem(desc.platform_impls, "cpu", interpret_kernel)
+    monkeypatch.setitem(desc.platform_usable, "cpu", lambda *a, **k: True)
+    (jsd, feeds), (tsd, _) = _bf16_graph("jax"), _bf16_graph("torch")
+    b = _Bf16Batch(feeds)
+    for step in range(1, 4):
+        np.testing.assert_allclose(tsd.fit([b]), jsd.fit([b]), **BF16_TOL)
+        for name in ("w", "b"):
+            want = np.asarray(jsd.get_arr(name), np.float32)
+            assert _units(want, tsd.get_arr(name)).max() <= step, name
+    # the JAX kernel ran on both bfloat16 leaves and returned bfloat16
+    assert kernel_dtypes and all(
+        str(i) == str(o) == "bfloat16" for i, o in kernel_dtypes)
+    for name in ("w", "b"):
+        assert str(jsd.get_arr(name).dtype) == "bfloat16"
+        assert tsd._arrays[name].dtype == torch.bfloat16
