@@ -20,14 +20,18 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    shape A (``onnx_bert``'s attention); the fused matmul + bias +
    activation epilogue in float32 and bfloat16 at the three imported
    BERT-base shapes (M 4096; K×N 768×768, 768×3072 with gelu_exact,
-   3072×768), every activation at 768×768 and a ragged M of 4000; the
+   3072×768), every activation at 768×768, a ragged M of 4000, a K of 772
+   and ragged M 4095 × K 776 × N 1000 (bfloat16 runs the tensor-core
+   "sm90" design where TMA can read the operands and the WMMA one at
+   K 772; each sm90 entry's faulted plain variants — the last K slab
+   dropped, a slab added twice — must exceed the tolerance); the
    fused LayerNorm + activation at 4096 × 768 (the fine-tune head's rows)
    with gelu, gelu_exact and none in float32 and bfloat16; the int8
    serving matmul — the row quantization and the s8 tensor-core GEMM with
    its de-scale — in float32 and bfloat16 at the int8 BERT-base shapes
    (M 4096; K×N 768×768, 768×3072, 3072×768, 768×2), each equal to its
    plain version bit for bit. Attention in bfloat16 at D 64 runs the
-   tensor-core ("sm90") forward and dk/dv, which round P and dS to
+   tensor-core ("sm90") forward, dq and dk/dv, which round P and dS to
    bfloat16 as the TPU kernels do: their bound adds that rounding
    (``testing/flash_check.py``), each faulted plain variant (keep mask
    shifted a column, last tile dropped, a rescale skipped) must exceed
@@ -71,8 +75,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    the last place; ``predict`` launches 12 forwards.
 8. ``bert_mlm`` — the same for ``BertModel(..., dtype=bfloat16)``,
    ``fit_mlm`` on batch 8 × seq 512 with 15% of positions masked; its
-   forward and dk/dv launches (12 each a step) are the sm90 kernels',
-   and every float32 phase launches none of them.
+   forward, dq and dk/dv launches (12 each a step) are the sm90 kernels',
+   and every float32 phase launches none of them (nor the sm90 fused
+   matmul).
 9. ``onnx_bert`` — the imported-graph path: the ONNX bytes of a
    BERT-base-width encoder (12 layers, d 768, 12 heads, ff 3072, vocab
    30522, ~108.5M float32 weights from a numpy seed) built by the port's
@@ -155,9 +160,11 @@ RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 # to bfloat16 before the products that take them, as the TPU kernels' `_mm`
 # does; its bound adds that rounding per element (testing/flash_check.py):
 # out + 2^-7·(|P̃|·|V|), dv + 2^-7·(|P̃ᵀ|·|dO|), dk + 2^-7·scale·(|dSᵀ|·|Q|),
-# the products of the plain version's absolute values in float32.
+# dq + 2^-7·scale·(|dS|·|K|) (dS unscaled, as the TPU dq rounds it), the
+# products of the plain version's absolute values in float32.
 TOL_LSE = 1e-4          # float32 in both dtypes; logsumexp of <= 512 terms
 FLASH_FWD_KERNEL = {"simt": "flash_attn_fwd", "sm90": "flash_attn_fwd_sm90"}
+FLASH_DQ_KERNEL = {"simt": "flash_attn_dq", "sm90": "flash_attn_dq_sm90"}
 FLASH_DKV_KERNEL = {"simt": "flash_attn_dkv", "sm90": "flash_attn_dkv_sm90"}
 LOGIT_TOL = 1e-3        # kernel vs generic GPT logits (float32, 12 layers)
 
@@ -192,14 +199,19 @@ BERT_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 BERT_YARDSTICK = 3.0
 # fused matmul epilogue at the imported BERT-base shapes (M = batch 32 ·
 # seq 128): (K, N, activation) per layer — q/k/v/o projections ×4, FF1
-# with the exact gelu, FF2 — plus every activation at one shape and a
-# ragged M. Tolerance: cuda_matmul.kernel_tolerance — the float32
+# with the exact gelu, FF2 — plus every activation at one shape, a ragged
+# M, a K that is no multiple of 8 (bfloat16 runs the "wmma" design there:
+# TMA cannot read it) and ragged M, K and N with K and N multiples of 8 but
+# not of the sm90 tile (M 4095, K 776 = 12 slabs + 8, N 1000 = 5 tiles of
+# 192 + 40). Tolerance: cuda_matmul.kernel_tolerance — the float32
 # summation bound of K terms (2·K·2^-24·max|x|·max|w|) plus, in bfloat16,
-# one unit in the last place of the plain output.
+# one unit in the last place of the plain output; each sm90 entry's faulted
+# plain variants (testing/matmul_check.py) must exceed it.
 FUSED_MM_SHAPES = [(4096, 768, 768, "none"), (4096, 768, 3072, "gelu_exact"),
                    (4096, 3072, 768, "none")]
 FUSED_MM_EXTRA = [(4096, 768, 768, "relu"), (4096, 768, 768, "tanh"),
-                  (4096, 768, 768, "gelu"), (4000, 768, 768, "gelu_exact")]
+                  (4096, 768, 768, "gelu"), (4000, 768, 768, "gelu_exact"),
+                  (4096, 772, 768, "none"), (4095, 776, 1000, "gelu")]
 # onnx_bert: the kernel run, the generic run and the unoptimized graph
 # compute the same float32 function through 12 layers, summed in other
 # orders (CUDA-core kernels vs cuBLAS): the output probabilities (y, in
@@ -563,39 +575,50 @@ def flash_backward_case(dtype, dev, label):
     args = (q, k, v, mask, seed, do, lse, delta)
     name = str(dtype).replace("torch.", "")
     design = ca.flash_design(dtype, d)
-    dkv_name = FLASH_DKV_KERNEL[design]
-    got = {"flash_attn_dq": (ca.flash_attention_dq(*args, **kw),),
+    dq_name, dkv_name = FLASH_DQ_KERNEL[design], FLASH_DKV_KERNEL[design]
+    got = {dq_name: (ca.flash_attention_dq(*args, **kw),),
            dkv_name: ca.flash_attention_dkv(*args, **kw)}
-    again = ca.flash_attention_dkv(*args, **kw)
-    ref = {"flash_attn_dq": (ca.flash_attention_dq_reference(*args, **kw),),
+    again = {dq_name: (ca.flash_attention_dq(*args, **kw),),
+             dkv_name: ca.flash_attention_dkv(*args, **kw)}
+    ref = {dq_name: (ca.flash_attention_dq_reference(*args, **kw),),
            dkv_name: ca.flash_attention_dkv_reference(*args, **kw)}
     torch.cuda.synchronize()
-    same_bits = all(torch.equal(a, b) for a, b in zip(got[dkv_name], again))
-    # the sm90 dk/dv rounds scale·dS and P̃ to bfloat16 (as the TPU kernel
-    # does): its bound adds 2^-7·scale·(|dSᵀ|·|Q|) to dk and 2^-7·(|P̃ᵀ|·|dO|)
-    # to dv; each faulted plain variant must exceed it
+    same_bits = {n: all(torch.equal(a, b) for a, b in zip(got[n], again[n]))
+                 for n in got}
+    # the sm90 kernels round dS and P̃ to bfloat16 (as the TPU kernels do):
+    # the bound adds 2^-7·scale·(|dS|·|K|) to dq (dS unscaled), and
+    # 2^-7·scale·(|dSᵀ|·|Q|) to dk and 2^-7·(|P̃ᵀ|·|dO|) to dv; each faulted
+    # plain variant must exceed it
     unit = fc.rounding_unit(dtype, design)
-    slack = {"flash_attn_dq": (0.0,),
+    slack = {dq_name: (fc.dq_slack(*args, unit=unit, causal=False, **kw),),
              dkv_name: fc.dkv_slack(*args, unit=unit, causal=False, **kw)}
-    faults = {}
+    faults = {dq_name: {}, dkv_name: {}}
     if design == "sm90":
-        for fault in fc.DKV_FAULTS:
-            bad = fc.dkv_variant(*args, round_to=dtype, fault=fault,
-                                 causal=False, **kw)
-            faults[fault] = max(
-                fc.excess(b, r, sl, BWD_ATOL, BWD_RTOL[name])[1]
-                for b, r, sl in zip(bad, ref[dkv_name], slack[dkv_name]))
+        for name_, fault_names, variant in (
+                (dq_name, fc.DQ_FAULTS,
+                 lambda f: (fc.dq_variant(*args, round_to=dtype, fault=f,
+                                          causal=False, **kw),)),
+                (dkv_name, fc.DKV_FAULTS,
+                 lambda f: fc.dkv_variant(*args, round_to=dtype, fault=f,
+                                          causal=False, **kw))):
+            for fault in fault_names:
+                faults[name_][fault] = max(
+                    fc.excess(b, r, sl, BWD_ATOL, BWD_RTOL[name])[1]
+                    for b, r, sl in zip(variant(fault), ref[name_],
+                                        slack[name_]))
     (q4, k4, v4), m4 = _sdpa_args(q, k, v, mask, shape["heads"])
     lib_ms = sdpa_backward_ms(q4, k4, v4, m4, do.reshape(q4.shape))
     es = q.element_size()
     side = 2 * bh * t * 4 + (0 if mask is None else bh * t * 4)
-    timed = {"flash_attn_dq": (ca.flash_attention_dq,
-                               ca.flash_attention_dq_reference, 5, 6.0),
+    timed = {dq_name: (ca.flash_attention_dq,
+                       ca.flash_attention_dq_reference, 5, 6.0,
+                       "dq: scale*|dS|.|K|"),
              dkv_name: (ca.flash_attention_dkv,
-                        ca.flash_attention_dkv_reference, 6, 8.0)}
-    ok = same_bits and all(f > 1.0 for f in faults.values())
+                        ca.flash_attention_dkv_reference, 6, 8.0,
+                        "dk: scale*|dS^T|.|Q|, dv: |P~^T|.|dO|")}
+    ok = all(f > 1.0 for fs in faults.values() for f in fs.values())
     entries = []
-    for kernel, (fn, plain, tensors, ops_per_pair) in timed.items():
+    for kernel, (fn, plain, tensors, ops_per_pair, term) in timed.items():
         errs, shares = [], []
         for g, r, sl in zip(got[kernel], ref[kernel], slack[kernel]):
             e, share = fc.excess(g, r, sl, BWD_ATOL, BWD_RTOL[name])
@@ -605,18 +628,17 @@ def flash_backward_case(dtype, dev, label):
         ok = ok and max(shares) <= 1.0
         bms, by = bound(tensors * bh * t * d * es + side,
                         ops_per_pair * d * pairs, name)
-        sm90 = kernel == "flash_attn_dkv_sm90"
+        sm90 = design == "sm90"
+        ok = ok and same_bits[kernel]
         entries.append({
-            "kernel": kernel, "design": "sm90" if sm90 else "simt",
+            "kernel": kernel, "design": design,
             "dtype": name, "bert": label,
             "shape": [bh, t, d], "masked": mask is not None,
             "dropout": ATTN_DROPOUT, "max_abs_err": max(errs),
-            "tol": tol_text(name, "sm90" if sm90 else "simt",
-                            "dk: scale*|dS^T|.|Q|, dv: |P~^T|.|dO|",
-                            BWD_ATOL, BWD_RTOL[name]),
+            "tol": tol_text(name, design, term, BWD_ATOL, BWD_RTOL[name]),
             "err_over_tol": max(shares),
-            **({"faulted_plain_over_tol": faults,
-                "same_bits_twice": same_bits} if sm90 else {}),
+            **({"faulted_plain_over_tol": faults[kernel],
+                "same_bits_twice": same_bits[kernel]} if sm90 else {}),
             "ms": time_ms(lambda: fn(*args, **kw)),
             "plain_ms": time_ms(lambda: plain(*args, **kw)),
             "library_ms": lib_ms,
@@ -997,13 +1019,14 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     model.cfg = cfg
 
     problems = []
-    # bfloat16 at head dim 64 takes the tensor-core (sm90) forward and
+    # bfloat16 at head dim 64 takes the tensor-core (sm90) forward, dq and
     # dk/dv, float32 the CUDA-core ones (ca.flash_design)
     sm90 = ca.flash_design(getattr(torch, dtype),
                            cfg.hidden // cfg.heads) == "sm90"
     want = {"flash_attn_fwd": cfg.layers * BERT_STEPS,
             "flash_attn_fwd_sm90": cfg.layers * BERT_STEPS * sm90,
             "flash_attn_dq": cfg.layers * BERT_STEPS,
+            "flash_attn_dq_sm90": cfg.layers * BERT_STEPS * sm90,
             "flash_attn_dkv": cfg.layers * BERT_STEPS,
             "flash_attn_dkv_sm90": cfg.layers * BERT_STEPS * sm90,
             "fused_updater": n_leaves * BERT_STEPS}
@@ -1013,6 +1036,7 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     if (predict_launches["flash_attn_fwd"] != cfg.layers
             or predict_launches["flash_attn_fwd_sm90"] != cfg.layers * sm90
             or predict_launches["flash_attn_dq"]
+            or predict_launches["flash_attn_dq_sm90"]
             or predict_launches["flash_attn_dkv"]):
         problems.append(f"predict launches {predict_launches}")
     if logits.shape != (batch, cfg.num_labels) or not np.all(
@@ -1075,12 +1099,17 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
 
 def fused_matmul_case(dev):
     """act(x @ w + b) at the imported BERT-base shapes (float32 and
-    bfloat16) and the extra activations and ragged M (float32 and
-    bfloat16), held to ``cuda_matmul.kernel_tolerance``."""
+    bfloat16) and the extra activations and ragged shapes (float32 and
+    bfloat16), held to ``cuda_matmul.kernel_tolerance``. Each entry names
+    the design ``cm.matmul_design`` chose: the bfloat16 BERT shapes must
+    run "sm90" and at least one bfloat16 extra "wmma"; the sm90 launch
+    counter moves for the sm90 entries alone; each sm90 entry's faulted
+    plain variants must exceed the tolerance."""
     import torch
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.testing import matmul_check as mc
 
     lib_act = {"none": lambda y: y, "relu": torch.relu, "tanh": torch.tanh,
                "gelu": lambda y: F.gelu(y, approximate="tanh"),
@@ -1098,13 +1127,27 @@ def fused_matmul_case(dev):
             np.float32)).to(dev, dtype)
         b = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
             np.float32)).to(dev)
+        before = cm.fused_matmul.sm90_launches
         out = cm.fused_matmul(x, w, b, activation=act)
         ref = cm.fused_matmul_bias_act_reference(x, w, b, activation=act)
         torch.cuda.synchronize()
+        design = cm.matmul_design(x, w, out)
+        sm90 = design == "sm90"
         atol, rtol = cm.kernel_tolerance(x, w, ref)
-        err = (out.float() - ref.float()).abs()
-        share = (err / (atol + rtol * ref.float().abs())).max().item()
-        ok = ok and share <= 1.0 and bool(torch.isfinite(out.float()).all())
+
+        def share_of(y):
+            err = (y.float() - ref.float()).abs()
+            return err, (err / (atol + rtol * ref.float().abs())).max().item()
+
+        err, share = share_of(out)
+        faults = {f: share_of(mc.fused_matmul_variant(
+            x, w, b, activation=act, fault=f))[1]
+            for f in (mc.FAULTS if sm90 else ())}
+        ok = (ok and share <= 1.0 and bool(torch.isfinite(out.float()).all())
+              and cm.fused_matmul.sm90_launches - before == int(sm90)
+              and all(f > 1.0 for f in faults.values()))
+        if dtype == torch.bfloat16 and (m, k, n, act) in FUSED_MM_SHAPES:
+            ok = ok and sm90
         bl = b.to(dtype)
         ms = time_ms(lambda: cm.fused_matmul(x, w, b, activation=act))
         plain_ms = time_ms(lambda: cm.fused_matmul_bias_act_reference(
@@ -1115,15 +1158,19 @@ def fused_matmul_case(dev):
         nbytes = es * (m * k + k * n + m * n) + 4.0 * n
         bms, by = bound(nbytes, 2.0 * m * k * n, name)
         entries.append({
-            "kernel": "fused_matmul_bias_act", "dtype": name,
+            "kernel": "fused_matmul_bias_act" + ("_sm90" if sm90 else ""),
+            "design": design, "dtype": name,
             "shape": [m, k, n], "activation": act, "max_abs_err":
             err.max().item(), "tol": f"{atol:.3g} + {rtol:g}*|plain|",
-            "err_over_tol": share, "ms": ms, "plain_ms": plain_ms,
+            "err_over_tol": share,
+            **({"faulted_plain_over_tol": faults} if sm90 else {}),
+            "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms,
             "library_note": "torch.addmm (cuBLAS, TF32 off) plus the "
                             "activation, bias in the operands' dtype",
             "bound_ms": bms, "bound_by": by,
             "achieved_tflops": 2.0 * m * k * n / ms / 1e9})
+    ok = ok and any(e["design"] == "wmma" for e in entries)
     return ok, entries
 
 
@@ -1307,9 +1354,12 @@ def onnx_bert_phase(dev, smi):
             if counted:
                 observe.reset()
                 ca.reset_launch_counts()
-                cm.fused_matmul.launches = 0  # the main path starts here
+                cm.fused_matmul.launches = 0
+                cm.fused_matmul.sm90_launches = 0  # the main path starts here
                 y = sd.output(feeds, ["y"])["y"]
                 launches = dict(fused_matmul_bias_act=cm.fused_matmul.launches,
+                                fused_matmul_bias_act_sm90=cm.fused_matmul
+                                .sm90_launches,
                                 flash_attn_fwd=ca.flash_attention.launches,
                                 flash_attn_fwd_sm90=ca.flash_attention
                                 .sm90_launches)  # ... ends here
@@ -1355,6 +1405,7 @@ def onnx_bert_phase(dev, smi):
                              "epilogue": 6 * cfg["layers"]}:
         problems.append(f"fusions {k_info['fusions']}")
     want = {"fused_matmul_bias_act": 6 * cfg["layers"],
+            "fused_matmul_bias_act_sm90": 0,
             "flash_attn_fwd": cfg["layers"], "flash_attn_fwd_sm90": 0}
     for name, n in want.items():
         if launches[name] != n:
@@ -1391,6 +1442,8 @@ def onnx_bert_phase(dev, smi):
             "problems": problems}
     return problems, line, {"fused_matmul_bias_act":
                             launches["fused_matmul_bias_act"],
+                            "fused_matmul_bias_act_sm90":
+                            launches["fused_matmul_bias_act_sm90"],
                             "flash_attn_fwd": launches["flash_attn_fwd"],
                             "flash_attn_fwd_sm90":
                             launches["flash_attn_fwd_sm90"]}, \
@@ -1450,6 +1503,7 @@ def sd_bert_finetune_phase(dev, smi):
                 ca.reset_launch_counts()
                 cl.fused_layer_norm_kernel.launches = 0
                 cm.fused_matmul.launches = 0
+                cm.fused_matmul.sm90_launches = 0
                 cu.fused_updater.launches = 0  # the main path starts here
             losses, times = [], []
             for _ in range(FINETUNE_STEPS):
@@ -1464,6 +1518,7 @@ def sd_bert_finetune_phase(dev, smi):
                      if k != "paged_decode"},
                     fused_layer_norm=cl.fused_layer_norm_kernel.launches,
                     fused_matmul_bias_act=cm.fused_matmul.launches,
+                    fused_matmul_bias_act_sm90=cm.fused_matmul.sm90_launches,
                     fused_updater=cu.fused_updater.launches)  # ... ends here
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             st = sd.last_compile_stats
@@ -1502,8 +1557,10 @@ def sd_bert_finetune_phase(dev, smi):
     n_leaves = len(k_params)
     per_step = {"fused_layer_norm": 1, "flash_attn_fwd": layers,
                 "flash_attn_dq": layers, "flash_attn_dkv": layers,
-                "flash_attn_fwd_sm90": 0, "flash_attn_dkv_sm90": 0,
+                "flash_attn_fwd_sm90": 0, "flash_attn_dq_sm90": 0,
+                "flash_attn_dkv_sm90": 0,
                 "fused_matmul_bias_act": 6 * layers + 2,
+                "fused_matmul_bias_act_sm90": 0,
                 "fused_updater": n_leaves}
     for name, n in per_step.items():
         if launches[name] != n * FINETUNE_STEPS:
@@ -1932,7 +1989,8 @@ def main() -> int:
     if launches["paged_decode"] < cfg.layers * decode_steps:
         problems.append(f"paged launches {launches['paged_decode']} < "
                         f"{cfg.layers} x {decode_steps} decode steps")
-    if launches["flash_attn_fwd_sm90"] or launches["flash_attn_dkv_sm90"]:
+    if (launches["flash_attn_fwd_sm90"] or launches["flash_attn_dq_sm90"]
+            or launches["flash_attn_dkv_sm90"]):
         problems.append(f"float32 serving launched the sm90 kernels: "
                         f"{launches}")
     divergences = []
@@ -2014,16 +2072,19 @@ def main() -> int:
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
-    # (flash_attn_fwd and flash_attn_dkv count both designs: their rows
-    # take the CUDA-core launches, the _sm90 rows the tensor-core ones)
+    # (flash_attn_fwd, flash_attn_dq, flash_attn_dkv and
+    # fused_matmul_bias_act count both designs: their rows take the other
+    # design's launches, the _sm90 rows the tensor-core ones)
     by_path = {name: {} for name in (
         "flash_attn_fwd", "flash_attn_fwd_sm90", "paged_decode",
         "fused_updater", "bn_matmul_stats", "flash_attn_dq",
-        "flash_attn_dkv", "flash_attn_dkv_sm90", "fused_matmul_bias_act",
+        "flash_attn_dq_sm90", "flash_attn_dkv", "flash_attn_dkv_sm90",
+        "fused_matmul_bias_act", "fused_matmul_bias_act_sm90",
         "fused_layer_norm", "matmul_int8", "matmul_int8_row_quantize")}
     for path, counts in dict(serve=launches, **train_launches).items():
         counts = dict(counts)
-        for both in ("flash_attn_fwd", "flash_attn_dkv"):
+        for both in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                     "fused_matmul_bias_act"):
             if both in counts:
                 counts[both] -= counts.get(both + "_sm90", 0)
         for name, n in counts.items():
@@ -2037,10 +2098,14 @@ def main() -> int:
         "fused_updater": ("fused_updater.cu", "pallas_updater.py:84"),
         "bn_matmul_stats": ("bn_matmul_stats.cu", "pallas_convbn.py:49"),
         "flash_attn_dq": ("flash_attn_bwd.cu", "pallas_attention.py:244"),
+        "flash_attn_dq_sm90": ("flash_attn_dq_sm90.cu",
+                               "pallas_attention.py:244"),
         "flash_attn_dkv": ("flash_attn_bwd.cu", "pallas_attention.py:282"),
         "flash_attn_dkv_sm90": ("flash_attn_dkv_sm90.cu",
                                 "pallas_attention.py:282"),
         "fused_matmul_bias_act": ("fused_matmul.cu", "pallas_matmul.py:42"),
+        "fused_matmul_bias_act_sm90": ("fused_matmul_sm90.cu",
+                                       "pallas_matmul.py:42"),
         "fused_layer_norm": ("fused_layer_norm.cu",
                              "pallas_layernorm.py:69"),
         "matmul_int8": ("matmul_int8.cu", "quantized.py:122"),
@@ -2065,7 +2130,8 @@ def main() -> int:
                                   dtype=r["dtype"], shape=r["shape"],
                                   **{x: r[x] for x in ("bert", "dropout",
                                                        "leaf", "conv",
-                                                       "activation")
+                                                       "activation",
+                                                       "design")
                                      if x in r})
                              for r in rows[1:]]})
     emit({"kernels": summary})

@@ -1,9 +1,9 @@
 // flash_attn_bwd.cu — blockwise (FlashAttention-2) attention backward on the
 // CUDA cores (sm_90a): dq in one kernel, dk and dv in another. float32
 // accumulation, any head dim D with D % 8 == 0 up to 256, the gradients
-// written in the input type. dq takes float32, bfloat16 and float16; dk/dv
-// takes float32, and bfloat16 and float16 with D > 128 (16-bit inputs with
-// D <= 128 run the tensor-core kernel of flash_attn_dkv_sm90.cu).
+// written in the input type. Both take float32, and bfloat16 and float16
+// with D > 128 (16-bit inputs with D <= 128 run the tensor-core kernels of
+// flash_attn_dq_sm90.cu and flash_attn_dkv_sm90.cu).
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_attention.py `_dq_kernel` and
 // `_dkv_kernel`, reached through `_flash_bwd` (the backward of the
@@ -21,9 +21,8 @@
 // visible (query, key) pair against one read of q, k, v, dO; at BERT's
 // shapes (BH 384 × T 128, BH 96 × T 512, D 64) that is ~20-80 operations a
 // byte, so the arithmetic is the limit. These kernels run it on the CUDA
-// cores in float32 (67 TFLOP/s); the 16-bit dk/dv with D <= 128 runs on the
-// tensor cores in flash_attn_dkv_sm90.cu, and dq's tensor-core redesign is
-// later work.
+// cores in float32 (67 TFLOP/s); the 16-bit dq and dk/dv with D <= 128 run
+// on the tensor cores in flash_attn_dq_sm90.cu and flash_attn_dkv_sm90.cu.
 //
 // Design, and what it does about the TPU original:
 //  * The Pallas kernels carry their accumulators in VMEM across a
@@ -335,19 +334,23 @@ int launch_dkv(const Args& a, cudaStream_t s) {
 template <bool DKV, typename T, bool DROP>
 int dispatch_d(const Args& a, cudaStream_t s) {
   if (a.d <= 0 || a.d % 8 != 0 || a.d > kMaxHeadDim) return -1;
-  if constexpr (!DKV) {
-    if (a.d <= 32) return launch_dq<T, 1, DROP>(a, s);
-    if (a.d <= 64) return launch_dq<T, 2, DROP>(a, s);
-    if (a.d <= 128) return launch_dq<T, 4, DROP>(a, s);
-    return launch_dq<T, 8, DROP>(a, s);
-  } else if constexpr (std::is_same<T, float>::value) {
-    if (a.d <= 32) return launch_dkv<T, 1, DROP>(a, s);
-    if (a.d <= 64) return launch_dkv<T, 2, DROP>(a, s);
-    if (a.d <= 128) return launch_dkv<T, 4, DROP>(a, s);
-    return launch_dkv<T, 8, DROP>(a, s);
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (!DKV) {
+      if (a.d <= 32) return launch_dq<T, 1, DROP>(a, s);
+      if (a.d <= 64) return launch_dq<T, 2, DROP>(a, s);
+      if (a.d <= 128) return launch_dq<T, 4, DROP>(a, s);
+      return launch_dq<T, 8, DROP>(a, s);
+    } else {
+      if (a.d <= 32) return launch_dkv<T, 1, DROP>(a, s);
+      if (a.d <= 64) return launch_dkv<T, 2, DROP>(a, s);
+      if (a.d <= 128) return launch_dkv<T, 4, DROP>(a, s);
+      return launch_dkv<T, 8, DROP>(a, s);
+    }
   } else {
-    if (a.d <= 128) return -1;  // 16-bit D <= 128: flash_attn_dkv_sm90.cu
-    return launch_dkv<T, 8, DROP>(a, s);
+    // 16-bit D <= 128: flash_attn_dq_sm90.cu and flash_attn_dkv_sm90.cu
+    if (a.d <= 128) return -1;
+    if constexpr (!DKV) return launch_dq<T, 8, DROP>(a, s);
+    else return launch_dkv<T, 8, DROP>(a, s);
   }
 }
 
@@ -373,8 +376,7 @@ int dispatch(const Args& a, int dtype, cudaStream_t s) {
 // dropout rate of the forward; above 0, `seed` points to the forward's
 // int32 seed on the device and inv_keep is 1 / (1 - rate). Each returns
 // cudaGetLastError() of its launch, or -1 for an unsupported dtype or head
-// dim (for dk/dv also a 16-bit D <= 128). Launch on `stream`; allocate
-// nothing.
+// dim (also a 16-bit D <= 128). Launch on `stream`; allocate nothing.
 extern "C" int dl4j_flash_attn_dq(const void* q, const void* k, const void* v,
                                   const void* mask, const void* dout,
                                   const void* lse, const void* delta,

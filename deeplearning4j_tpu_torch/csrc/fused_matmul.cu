@@ -30,16 +30,20 @@
 //  * float32: a register-tiled CUDA-core SGEMM. 256 threads, each an 8x8
 //    micro-tile; K staged 8 at a time, the A tile stored transposed so a
 //    thread reads its 8 rows as two 16-byte loads.
-//  * bfloat16 / float16: WMMA 16x16x16 tensor-core fragments with float32
-//    accumulators (mma.sync underneath), as bn_matmul_stats.cu does;
+//  * bfloat16 / float16 that TMA cannot read (K or N not a multiple of 8,
+//    or an operand not 16-byte aligned; every other 16-bit shape runs
+//    fused_matmul_sm90.cu): WMMA 16x16x16 tensor-core fragments with
+//    float32 accumulators (mma.sync underneath), as bn_matmul_stats.cu does;
 //    8 warps of 64x32 each, K staged 32 at a time. The epilogue goes
 //    through a 16x16 float scratch per warp, one fragment at a time, so
 //    the whole 128x128 float tile never needs shared memory.
 //  * Every edge is bounds-checked: any M, N and K are computed, the ragged
-//    tiles zero-filled on load and masked on store. 16-byte loads are used
-//    when K and N keep every vector whole and the pointers are aligned
-//    (the `vec` flag); element loads otherwise.
-//  * No TMA, no wgmma, no pipelining yet: a simple first version.
+//    tiles zero-filled on load and masked on store. float32 uses 16-byte
+//    loads when K and N keep every vector whole and the pointers are
+//    aligned (the `vec` flag), element loads otherwise; the 16-bit kernel
+//    only meets shapes without that promise and always loads elements.
+//  * No TMA, no wgmma, no pipelining: the simple first version, kept for
+//    the shapes the sm90 kernel does not take.
 //  * Allocates nothing; the wrapper allocates the output.
 
 #include <cuda_bf16.h>
@@ -191,7 +195,7 @@ __device__ __forceinline__ __half from_float<__half>(float v) {
   return __float2half(v);
 }
 
-template <typename T, bool VEC>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 hgemm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
                       const float* __restrict__ bias, T* __restrict__ out,
@@ -228,16 +232,9 @@ hgemm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const long long grow = m0 + row;
       const int gk = k0 + cv;
       T* dst = As + row * LDA + cv;
-      if (VEC) {  // k % 8 == 0: a vector is all in or all out
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (grow < m && gk < k)
-          raw = *reinterpret_cast<const uint4*>(x + grow * k + gk);
-        *reinterpret_cast<uint4*>(dst) = raw;
-      } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          dst[j] = (grow < m && gk + j < k) ? x[grow * k + gk + j] : zero;
-      }
+      for (int j = 0; j < 8; ++j)
+        dst[j] = (grow < m && gk + j < k) ? x[grow * k + gk + j] : zero;
     }
     // B tile: 32 rows x 128 columns = 512 vectors of 8, 2 per thread
 #pragma unroll
@@ -248,17 +245,10 @@ hgemm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int gk = k0 + row;
       const long long gn = (long long)n0 + cv;
       T* dst = Bs + row * LDB + cv;
-      if (VEC) {  // n % 8 == 0
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (gk < k && gn < n)
-          raw = *reinterpret_cast<const uint4*>(w + (long long)gk * n + gn);
-        *reinterpret_cast<uint4*>(dst) = raw;
-      } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          dst[j] = (gk < k && gn + j < n) ? w[(long long)gk * n + gn + j]
-                                          : zero;
-      }
+      for (int j = 0; j < 8; ++j)
+        dst[j] = (gk < k && gn + j < n) ? w[(long long)gk * n + gn + j]
+                                        : zero;
     }
     __syncthreads();
 #pragma unroll
@@ -308,17 +298,11 @@ hgemm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T>
 int launch_half(const void* x, const void* w, const float* bias, void* out,
-                long long m, int n, int k, int act, int vec, dim3 grid,
+                long long m, int n, int k, int act, dim3 grid,
                 cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
-  if (vec)
-    hgemm_bias_act_kernel<T, true><<<grid, THREADS, 0, stream>>>(
-        xp, wp, bias, op, m, n, k, act);
-  else
-    hgemm_bias_act_kernel<T, false><<<grid, THREADS, 0, stream>>>(
-        xp, wp, bias, op, m, n, k, act);
+  hgemm_bias_act_kernel<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), bias,
+      static_cast<T*>(out), m, n, k, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -327,7 +311,8 @@ int launch_half(const void* x, const void* w, const float* bias, void* out,
 // x (m, k), w (k, n), out (m, n), all row-major and of one type (dtype 0
 // float32, 1 bfloat16, 2 float16); bias (n,) float32 or null; act 0..4 as
 // `Act`. vec = 1 promises 16-byte-aligned x, w and out with k and n
-// multiples of 4 (float32) or 8 (bfloat16/float16). Any m, n, k >= 0.
+// multiples of 4 (float32; bfloat16/float16 ignore it: the shapes with
+// that promise run fused_matmul_sm90.cu). Any m, n, k >= 0.
 // Returns cudaGetLastError() of the launch, or -1 for arguments the kernel
 // does not take. Launches on `stream`; allocates nothing.
 extern "C" int dl4j_fused_matmul(const void* x, const void* w,
@@ -356,11 +341,10 @@ extern "C" int dl4j_fused_matmul(const void* x, const void* w,
       return static_cast<int>(cudaGetLastError());
     }
     case 1:
-      return launch_half<__nv_bfloat16>(x, w, bias, out, m, n, k, act, vec,
-                                        grid, st);
+      return launch_half<__nv_bfloat16>(x, w, bias, out, m, n, k, act, grid,
+                                        st);
     case 2:
-      return launch_half<__half>(x, w, bias, out, m, n, k, act, vec, grid,
-                                 st);
+      return launch_half<__half>(x, w, bias, out, m, n, k, act, grid, st);
     default:
       return -1;
   }

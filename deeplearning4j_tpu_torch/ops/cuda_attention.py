@@ -11,10 +11,10 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
   and :func:`flash_attention_dkv` (``_dq_kernel``'s and ``_dkv_kernel``'s).
   :func:`flash_design` picks the source by dtype and head dim: bfloat16
   and float16 with D <= 128 take the tensor-core kernels
-  ``csrc/flash_attn_fwd_sm90.cu`` and ``csrc/flash_attn_dkv_sm90.cu``
-  (``"sm90"``); float32, and 16-bit D > 128, the CUDA-core kernels
-  ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu`` (``"simt"``).
-  dq always runs ``csrc/flash_attn_bwd.cu``.
+  ``csrc/flash_attn_fwd_sm90.cu``, ``csrc/flash_attn_dq_sm90.cu`` and
+  ``csrc/flash_attn_dkv_sm90.cu`` (``"sm90"``); float32, and 16-bit
+  D > 128, the CUDA-core kernels ``csrc/flash_attn_fwd.cu`` and
+  ``csrc/flash_attn_bwd.cu`` (``"simt"``).
 * :func:`keep_mask` — the dropout keep mask, ``_keep_mask``'s hash bit for
   bit, so the plain versions drop exactly what the kernels (and the TPU
   kernels) drop for the same seed.
@@ -54,7 +54,8 @@ from deeplearning4j_tpu_torch.ops import _build
 
 # every kernel takes every head dim D with D % 8 == 0 up to this
 MAX_HEAD_DIM = 256
-# the tensor-core forward and dk/dv take 16-bit inputs up to this head dim
+# the tensor-core forward, dq and dk/dv take 16-bit inputs up to this head
+# dim
 SM90_MAX_HEAD_DIM = 128
 _SM90_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -274,9 +275,9 @@ def flash_attention_backward_reference(q, k, v, kv_mask, seed, out, lse,
 
 
 def flash_design(dtype: torch.dtype, d: int) -> str:
-    """Which design of the forward and dk/dv kernels runs ``dtype`` at head
-    dim ``d``: ``"sm90"`` (wgmma products fed by TMA, P and dS rounded to
-    the input type in registers) for bfloat16 and float16 with D <= 128,
+    """Which design of the forward, dq and dk/dv kernels runs ``dtype`` at
+    head dim ``d``: ``"sm90"`` (wgmma products fed by TMA, P and dS rounded
+    to the input type in registers) for bfloat16 and float16 with D <= 128,
     ``"simt"`` (CUDA cores in float32) for everything else. A static choice,
     not a fallback: either design raises when its build or launch fails."""
     return ("sm90" if dtype in _SM90_DTYPES and d <= SM90_MAX_HEAD_DIM
@@ -373,9 +374,11 @@ def _check_bwd(q, k, v, dout, lse, delta, kernel: str) -> None:
 def flash_attention_dq(q, k, v, kv_mask, seed, dout, lse, delta, *,
                        scale: float, causal: bool = False,
                        dropout_rate: float = 0.0) -> torch.Tensor:
-    """dq of flash attention (``csrc/flash_attn_bwd.cu``, replacing
-    ``_dq_kernel``) from the forward's lse, ``Δ`` (:func:`attention_delta`)
-    and seed. CPU tensors: :func:`flash_attention_dq_reference`."""
+    """dq of flash attention (replacing ``_dq_kernel``):
+    ``csrc/flash_attn_dq_sm90.cu`` or ``csrc/flash_attn_bwd.cu`` as
+    :func:`flash_design` says, from the forward's lse, ``Δ``
+    (:func:`attention_delta`) and seed. CPU tensors:
+    :func:`flash_attention_dq_reference`."""
     if q.device.type == "cpu":
         return flash_attention_dq_reference(
             q, k, v, kv_mask, seed, dout, lse, delta, scale=scale,
@@ -386,18 +389,27 @@ def flash_attention_dq(q, k, v, kv_mask, seed, dout, lse, delta, *,
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dq")
     seed = _norm_seed(seed, dropout_rate, q.device)
     dq = torch.empty_like(q)
-    fn = _build.kernel_fn("flash_attn_bwd", "dl4j_flash_attn_dq", _DQ_ARGS)
+    sm90 = flash_design(q.dtype, d) == "sm90"
+    if sm90:
+        _require_tma_aligned("flash_attn_dq_sm90", q, k, v, dout)
+        fn = _build.kernel_fn("flash_attn_dq_sm90", "dl4j_flash_attn_dq_sm90",
+                              _DQ_ARGS)
+    else:
+        fn = _build.kernel_fn("flash_attn_bwd", "dl4j_flash_attn_dq",
+                              _DQ_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seed),
             dq.data_ptr(), bh, t_q, t_k, d, float(scale), int(bool(causal)),
             float(dropout_rate), _inv_keep(dropout_rate),
             _DTYPE_CODES[q.dtype], _stream(q))
-    _check_launch(rc, "flash_attn_dq")
+    _check_launch(rc, "flash_attn_dq_sm90" if sm90 else "flash_attn_dq")
     flash_attention_dq.launches += 1
+    flash_attention_dq.sm90_launches += int(sm90)
     return dq
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.sm90_launches = 0
 
 
 def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
@@ -590,11 +602,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
 paged_decode_attention.launches = 0
 
 # kernel name -> (the function holding its launch count, the attribute).
-# flash_attn_fwd and flash_attn_dkv count every launch of either design;
-# the _sm90 names count the tensor-core design's alone.
+# flash_attn_fwd, flash_attn_dq and flash_attn_dkv count every launch of
+# either design; the _sm90 names count the tensor-core design's alone.
 KERNELS = {"flash_attn_fwd": (flash_attention, "launches"),
            "flash_attn_fwd_sm90": (flash_attention, "sm90_launches"),
            "flash_attn_dq": (flash_attention_dq, "launches"),
+           "flash_attn_dq_sm90": (flash_attention_dq, "sm90_launches"),
            "flash_attn_dkv": (flash_attention_dkv, "launches"),
            "flash_attn_dkv_sm90": (flash_attention_dkv, "sm90_launches"),
            "paged_decode": (paged_decode_attention, "launches")}

@@ -11,13 +11,18 @@ helper of ``fused_matmul_bias_act``, the SameDiff optimizer's matmul + bias
   activation applied in float32, one cast to ``x.dtype``. It is not the
   generic op (``ops/nn_ops.py``), which rounds after the product and again
   after the bias in a low-precision dtype, as the JAX generic does.
-* :func:`fused_matmul` launches ``csrc/fused_matmul.cu`` (replacing
-  ``_kernel``, ``pallas_matmul.py:42``, via
-  ``fused_matmul_bias_act_pallas``): the product accumulated in float32
-  (CUDA cores for float32, tensor cores for bfloat16/float16), bias and
-  activation on the accumulator, one write. Given CPU tensors it computes
-  the plain version; given CUDA tensors it launches or raises — there is
-  no fallback. Its launches are counted in ``fused_matmul.launches``.
+* :func:`fused_matmul` launches a kernel replacing ``_kernel``
+  (``pallas_matmul.py:42``, via ``fused_matmul_bias_act_pallas``): the
+  product accumulated in float32, bias and activation on the accumulator,
+  one write. :func:`matmul_design` picks it statically: ``"sm90"``
+  (``csrc/fused_matmul_sm90.cu``, wgmma fed by TMA through an mbarrier
+  ring) for bfloat16/float16 that TMA can read, ``"wmma"``
+  (``csrc/fused_matmul.cu``'s tensor-core kernel) for the other 16-bit
+  cases, ``"simt"`` (its CUDA-core SGEMM) for float32. Given CPU tensors
+  it computes the plain version; given CUDA tensors it launches or raises
+  — there is no fallback. Its launches are counted in
+  ``fused_matmul.launches``, the sm90 design's also in
+  ``fused_matmul.sm90_launches``.
 * :func:`fused_matmul_usable` is the JAX ``_usable`` (``:192``) on CUDA
   tensors without its TPU limits: rank-2/3 x, 2-D w, float dtypes, no
   transpose flags, a known activation, a rank-1 bias. The Mosaic tile
@@ -53,10 +58,10 @@ from deeplearning4j_tpu_torch.ops.nn_ops import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P)
+# x w bias out | m n k dtype act | stream
+_SM90_ARGS = (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACT_CODES = {a: i for i, a in enumerate(FUSED_MATMUL_ACTIVATIONS)}
-# elements of a 16-byte vector per dtype: the kernel's `vec` loads
-_VEC = {torch.float32: 4, torch.bfloat16: 8, torch.float16: 8}
 
 
 def _orient(x, w, transpose_a: bool, transpose_b: bool):
@@ -77,6 +82,19 @@ def fused_matmul_bias_act_reference(x, w, b=None, *,
     if b is not None:
         y = y + b.float()
     return apply_fused_activation(y, activation).to(x.dtype)
+
+
+def matmul_design(x2, w, out) -> str:
+    """Which kernel computes ``out = act(x2 @ w + b)``: ``"sm90"`` for
+    bfloat16/float16 with K and N multiples of 8 and x2, w and out 16-byte
+    aligned (TMA's row strides and addresses), ``"wmma"`` for the other
+    16-bit cases, ``"simt"`` for float32. A static choice, not a fallback:
+    either kernel raises when its build or launch fails."""
+    if x2.dtype == torch.float32:
+        return "simt"
+    k, n = w.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, w, out))
+    return "sm90" if k % 8 == 0 and n % 8 == 0 and aligned else "wmma"
 
 
 def fused_matmul(x, w, b=None, *, activation: str = "none",
@@ -114,25 +132,39 @@ def fused_matmul(x, w, b=None, *, activation: str = "none",
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:  # nothing to compute: no launch
         return out.reshape(lead + (n,))
-    per = _VEC[x.dtype]
-    vec = int(k % per == 0 and n % per == 0
-              and all(t.data_ptr() % 16 == 0 for t in (x2, w, out)))
-    fn = _build.kernel_fn("fused_matmul", "dl4j_fused_matmul", _ARGS)
-    rc = fn(x2.data_ptr(), w.data_ptr(),
+    sm90 = matmul_design(x2, w, out) == "sm90"
+    args = (x2.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
-            k, _DTYPE_CODES[x.dtype], _ACT_CODES[activation], vec,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            k, _DTYPE_CODES[x.dtype], _ACT_CODES[activation])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if sm90:
+        fn = _build.kernel_fn("fused_matmul_sm90", "dl4j_fused_matmul_sm90",
+                              _SM90_ARGS)
+        rc = fn(*args, stream)
+    else:
+        # the float32 SGEMM's 16-byte loads; the 16-bit WMMA kernel only
+        # meets shapes TMA cannot read and loads elements
+        vec = int(k % 4 == 0 and n % 4 == 0
+                  and all(t.data_ptr() % 16 == 0 for t in (x2, w, out)))
+        fn = _build.kernel_fn("fused_matmul", "dl4j_fused_matmul", _ARGS)
+        rc = fn(*args, vec, stream)
+    kernel = "fused_matmul_sm90" if sm90 else "fused_matmul"
     if rc == -1:
-        raise ValueError(f"fused_matmul: shape ({m},{k})x({k},{n}) not taken "
+        raise ValueError(f"{kernel}: shape ({m},{k})x({k},{n}) not taken "
                          f"by the kernel")
+    if rc == -2:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (or libcuda does not export it)")
     if rc != 0:
-        raise RuntimeError(f"fused_matmul: kernel launch failed with "
+        raise RuntimeError(f"{kernel}: kernel launch failed with "
                            f"cudaError_t {rc}")
     fused_matmul.launches += 1
+    fused_matmul.sm90_launches += int(sm90)
     return out.reshape(lead + (n,))
 
 
 fused_matmul.launches = 0
+fused_matmul.sm90_launches = 0
 
 
 def _act_grad(pre, activation: str):

@@ -3,26 +3,30 @@
 The plain versions (``ops/cuda_attention.py``) keep P and dS in float32.
 The TPU kernels do not: ``pallas_attention.py`` ``_mm`` casts the float32
 operand of a mixed product down to the input dtype, so the forward rounds
-p before ``p @ v`` and dk/dv round ``scale·ds`` and ``p̃`` before ``dsᵀ·q``
-and ``p̃ᵀ·dO``. The ``"sm90"`` kernels (:func:`~deeplearning4j_tpu_torch.ops.
-cuda_attention.flash_design`) do the same: P and dS become the 16-bit A
-operand of a wgmma. Their check against the plain version therefore adds,
-per output element, the rounding of that operand:
+p before ``p @ v``, dk/dv round ``scale·ds`` and ``p̃`` before ``dsᵀ·q``
+and ``p̃ᵀ·dO``, and dq rounds the unscaled ``ds`` before ``ds @ k`` (the
+scale multiplies the float32 sum afterwards). The ``"sm90"`` kernels
+(:func:`~deeplearning4j_tpu_torch.ops.cuda_attention.flash_design`) do the
+same: P and dS become the 16-bit A operand of a wgmma. Their check against
+the plain version therefore adds, per output element, the rounding of that
+operand:
 
 * out: ``|kernel - plain| <= ATOL + RTOL·|plain| + u·(|P̃|·|V|)``;
 * dv:  the same with ``u·(|P̃ᵀ|·|dO|)``;
 * dk:  the same with ``u·scale·(|dSᵀ|·|Q|)``;
+* dq:  the same with ``u·scale·(|dS|·|K|)``;
 
 where ``|A|·|B|`` is the product of the plain version's absolute values in
 float32 and ``u`` is :data:`ROUNDING`: the dtype's unit roundoff (2^-8 in
 bfloat16, 2^-11 in float16) with a margin of 2. The term is 0 for the
 ``"simt"`` kernels, whose check does not change.
 
-:func:`forward_variant` and :func:`dkv_variant` are plain versions that can
-round those operands as the kernels do (which must pass the bound) or carry
-one fault of the kind the redesign could bring (which must fail it): the
-keep mask shifted by one key column, the last streamed tile dropped, and —
-in the forward — the rescale of the running sums skipped for one tile.
+:func:`forward_variant`, :func:`dkv_variant` and :func:`dq_variant` are
+plain versions that can round those operands as the kernels do (which must
+pass the bound) or carry one fault of the kind the redesign could bring
+(which must fail it): the keep mask shifted by one key column, the last
+streamed tile dropped, and — in the forward — the rescale of the running
+sums skipped for one tile.
 """
 
 from __future__ import annotations
@@ -36,11 +40,13 @@ from deeplearning4j_tpu_torch.ops import cuda_attention as ca
 
 # u: twice the unit roundoff of the rounded operand's dtype
 ROUNDING = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
-# the kernels' tiles: keys per forward tile, queries per dk/dv tile
+# the kernels' tiles: keys per forward and dq tile, queries per dk/dv tile
 FORWARD_TILE = 64
 DKV_TILE = 64
+DQ_TILE = 64
 FAULTS = ("keep_shifted", "last_tile_dropped", "rescale_skipped")
 DKV_FAULTS = ("keep_shifted", "last_tile_dropped")
+DQ_FAULTS = ("keep_shifted", "last_tile_dropped")
 
 
 def rounding_unit(dtype: torch.dtype, design: str) -> float:
@@ -92,6 +98,19 @@ def dkv_slack(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
                                      q.float().abs())
     dv = unit * torch.matmul(pt.abs().transpose(-1, -2), dout.float().abs())
     return dk, dv
+
+
+def dq_slack(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
+             causal: bool = False, dropout_rate: float = 0.0,
+             unit: float) -> torch.Tensor:
+    """``unit·scale·(|dS|·|K|)`` (BH, Tq, D) in float32, from the plain
+    version's float32 dS (unscaled, as the kernels round it)."""
+    if unit == 0.0:
+        return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    seed = ca._norm_seed(seed, dropout_rate, q.device)
+    _, _, ds = ca._bwd_terms(q, k, v, kv_mask, seed, dout, lse, delta,
+                             scale, causal, dropout_rate)
+    return unit * scale * torch.matmul(ds.abs(), k.float().abs())
 
 
 def excess(got, ref, slack, atol: float, rtol: float) -> Tuple[float, float]:
@@ -180,3 +199,29 @@ def dkv_variant(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     dv = torch.matmul(pt.transpose(-1, -2), dout.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def dq_variant(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
+               causal: bool = False, dropout_rate: float = 0.0,
+               round_to: Optional[torch.dtype] = None,
+               fault: Optional[str] = None) -> torch.Tensor:
+    """The plain dq with dS rounded, unscaled, to ``round_to`` before
+    ``dS·K`` and the scale applied to the float32 sum, as the TPU and sm90
+    kernels do; ``fault`` is one of :data:`DQ_FAULTS` (the last streamed
+    tile is the last :data:`DQ_TILE` keys). Returns dq in q's dtype."""
+    assert fault is None or fault in DQ_FAULTS, fault
+    seed = ca._norm_seed(seed, dropout_rate, q.device)
+    p = torch.exp(ca._scores(q, k, kv_mask, scale, causal) - lse[..., None])
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    keep = None
+    if dropout_rate > 0.0:
+        keep = _keep(seed, p.shape, dropout_rate,
+                     1 if fault == "keep_shifted" else 0, q.device)
+    ds = p * (_drop(dp, keep, dropout_rate) - delta[..., None])
+    if fault == "last_tile_dropped":
+        t_k = k.shape[1]
+        ds = ds.clone()
+        ds[..., (t_k - 1) // DQ_TILE * DQ_TILE:] = 0.0
+    if round_to is not None:
+        ds = ds.to(round_to).float()
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)

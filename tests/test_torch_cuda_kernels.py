@@ -12,7 +12,10 @@ one-row queries, non-causal and rectangular attention, head dims of every
 instantiation (padded and exact), other page sizes, empty (inactive)
 decode slots, and the three dtypes; in-kernel dropout (the dropped
 entries read out and compared with ``keep_mask``), the dq and dk/dv
-kernels with and without dropout, gradients through the registry's
+kernels with and without dropout (the tensor-core "sm90" forward, dq and
+dk/dv for bfloat16/float16 at D 16…128 × T 1…512 × causal / key mask /
+dropout under the sm90 bound of ``testing/flash_check.py``, the same bits
+twice, routing by counters), gradients through the registry's
 ``dot_product_attention``, and a small BERT trained through all three
 flash kernels. Training: every updater kind on
 ragged, aligned and unaligned leaves in the three dtypes; the convbn
@@ -20,7 +23,9 @@ kernel's gate edges, prologue/relu on and off, its backward against
 autograd of the plain chain, and a small ResNet-50 in both
 configurations. The fused matmul epilogue: ragged M and N and K that are
 not tile multiples, every activation, the three dtypes, unaligned
-operands (element loads), gradients through the registry, the gate and
+operands (element loads), the tensor-core "sm90" design at ragged M, K
+and N (multiples of 8) for bfloat16/float16 and which design
+``matmul_design`` picks, by counters, gradients through the registry, the gate and
 the wrapper's refusals, and a small imported BERT whose every epilogue
 fusion launches the kernel. The fused LayerNorm + activation: rows 1, 7
 and 4096, D 64 / 96 / 768 / 1000 / 4096 (the warp and the block path)
@@ -239,11 +244,12 @@ def test_flash_backward_matches_plain(cuda, dtype, d, rate, t_q, t_k,
     torch.cuda.synchronize()
     assert (ca.flash_attention_dq.launches - n_dq,
             ca.flash_attention_dkv.launches - n_dkv) == (1, 1)
-    # the sm90 dk/dv rounds dS and P̃ to the input dtype
+    # the sm90 dq and dk/dv round dS (and P̃) to the input dtype
     unit = fc.rounding_unit(dtype, ca.flash_design(dtype, d))
-    slack_dk, slack_dv = fc.dkv_slack(q, k, v, m, seed, dout, lse, delta,
-                                      unit=unit, **kw)
-    for name, got, ref, slack in (("dq", dq, ref_dq, 0.0),
+    args = (q, k, v, m, seed, dout, lse, delta)
+    slack_dq = fc.dq_slack(*args, unit=unit, **kw)
+    slack_dk, slack_dv = fc.dkv_slack(*args, unit=unit, **kw)
+    for name, got, ref, slack in (("dq", dq, ref_dq, slack_dq),
                                   ("dk", dk, ref_dk, slack_dk),
                                   ("dv", dv, ref_dv, slack_dv)):
         assert got.dtype == dtype and torch.isfinite(got.float()).all()
@@ -338,6 +344,34 @@ def test_sm90_dkv_matches_plain(cuda, dtype, d, t):
 
 
 @pytest.mark.parametrize("dtype", SM90_DTYPES)
+@pytest.mark.parametrize("d", SM90_HEAD_DIMS)
+@pytest.mark.parametrize("t", SM90_LENGTHS)
+def test_sm90_dq_matches_plain(cuda, dtype, d, t):
+    """The tensor-core dq against its plain version under the sm90 bound
+    (dS rounded unscaled: ``u·scale·(|dS|·|K|)``), every causal / key-mask
+    / dropout variant."""
+    assert ca.flash_design(dtype, d) == "sm90"
+    for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
+        q, k, v, dout, m = _sm90_inputs(dtype, d, t, causal, masked, cuda,
+                                        100 * i + 70)
+        seed = torch.tensor([5 * i - 3], dtype=torch.int32, device=cuda)
+        kw = dict(scale=1.0 / math.sqrt(d), causal=causal,
+                  dropout_rate=rate)
+        out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+        delta = ca.attention_delta(dout, out)
+        args = (q, k, v, m, seed, dout, lse, delta)
+        before = ca.flash_attention_dq.sm90_launches
+        dq = ca.flash_attention_dq(*args, **kw)
+        ref = ca.flash_attention_dq_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert ca.flash_attention_dq.sm90_launches == before + 1
+        assert dq.dtype == dtype and torch.isfinite(dq.float()).all()
+        slack = fc.dq_slack(*args, unit=fc.ROUNDING[dtype], **kw)
+        _, share = fc.excess(dq, ref, slack, BWD_ATOL, BWD_RTOL[dtype])
+        assert share <= 1.0, (causal, masked, rate, share)
+
+
+@pytest.mark.parametrize("dtype", SM90_DTYPES)
 def test_sm90_gives_the_same_bits_twice(cuda, dtype):
     q, k, v, dout, m = _sm90_inputs(dtype, 64, 130, False, "pad", cuda, 9)
     seed = torch.tensor([5], dtype=torch.int32, device=cuda)
@@ -349,6 +383,9 @@ def test_sm90_gives_the_same_bits_twice(cuda, dtype):
     grads = [ca.flash_attention_dkv(q, k, v, m, seed, dout, lse, delta, **kw)
              for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+    dqs = [ca.flash_attention_dq(q, k, v, m, seed, dout, lse, delta, **kw)
+           for _ in range(2)]
+    assert torch.equal(*dqs)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -376,8 +413,9 @@ def test_sm90_dropout_drops_what_keep_mask_drops(cuda, causal):
 
 
 def test_flash_design_routes_by_counters(cuda):
-    """bfloat16 at D 64 launches the sm90 forward and dk/dv; float32 at D
-    64 and bfloat16 at D 192 the CUDA-core ones (sm90 counters still)."""
+    """bfloat16 at D 64 launches the sm90 forward, dq and dk/dv; float32
+    at D 64 and bfloat16 at D 192 the CUDA-core ones (sm90 counters
+    still)."""
     for dtype, d, sm90 in ((torch.bfloat16, 64, 1), (torch.float16, 128, 1),
                            (torch.float32, 64, 0), (torch.bfloat16, 192, 0)):
         q, k, v, dout, _ = _sm90_inputs(dtype, d, 70, True, None, cuda, 11)
@@ -390,9 +428,9 @@ def test_flash_design_routes_by_counters(cuda):
                               scale=1.0 / math.sqrt(d), causal=True)
         counts = ca.launch_counts()
         assert counts == {"flash_attn_fwd": 1, "flash_attn_fwd_sm90": sm90,
-                          "flash_attn_dq": 1, "flash_attn_dkv": 1,
-                          "flash_attn_dkv_sm90": sm90, "paged_decode": 0}, (
-            dtype, d, counts)
+                          "flash_attn_dq": 1, "flash_attn_dq_sm90": sm90,
+                          "flash_attn_dkv": 1, "flash_attn_dkv_sm90": sm90,
+                          "paged_decode": 0}, (dtype, d, counts)
 
 
 @pytest.mark.parametrize("causal,rate", [(False, 0.0), (True, 0.0),
@@ -803,6 +841,79 @@ def test_fused_matmul_unaligned_operands(cuda, dtype):
                                              activation="gelu_exact")
     torch.cuda.synchronize()
     _check_fm(out, x, w, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("lead,k,n", [
+    ((1,), 8, 8), ((7,), 64, 192), ((5,), 16, 16), ((129,), 776, 1000),
+    ((2, 65), 96, 200), ((3, 128), 8, 392), ((4095,), 3072, 768)])
+@pytest.mark.parametrize("act", FM_ACTS)
+def test_fused_matmul_sm90_matches_plain(cuda, dtype, lead, k, n, act):
+    """The tensor-core kernel (K and N multiples of 8, aligned operands)
+    at ragged M, N and K — one row, a partial K slab, N past the
+    192-column tile, 2-D and 3-D x — with and without a bias."""
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    x, w, b = _fm_inputs(lead, k, n, dtype, cuda, seed=k + n + 1)
+    for bias in (b, None):
+        before = cm.fused_matmul.sm90_launches
+        out = cm.fused_matmul(x, w, bias, activation=act)
+        ref = cm.fused_matmul_bias_act_reference(x, w, bias, activation=act)
+        torch.cuda.synchronize()
+        assert cm.fused_matmul.sm90_launches == before + 1
+        _check_fm(out, x, w, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fused_matmul_sm90_takes_a_bias_view_off_8_byte_alignment(cuda,
+                                                                  dtype):
+    """A float32 bias that is a view one element into its storage (4-byte
+    aligned only) is read as it is by the sm90 kernel."""
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    x, w, b = _fm_inputs((70,), 64, 200, dtype, cuda, seed=12)
+    buf = torch.zeros(b.numel() + 1, device=cuda)
+    buf[1:] = b
+    b_off = buf[1:]
+    assert b_off.data_ptr() % 8 != 0
+    before = cm.fused_matmul.sm90_launches
+    out = cm.fused_matmul(x, w, b_off, activation="relu")
+    ref = cm.fused_matmul_bias_act_reference(x, w, b, activation="relu")
+    torch.cuda.synchronize()
+    assert cm.fused_matmul.sm90_launches == before + 1
+    _check_fm(out, x, w, ref)
+
+
+def test_matmul_design_routes_by_counters(cuda):
+    """matmul_design picks sm90 for 16-bit operands TMA can read, wmma for
+    the other 16-bit ones, simt for float32; the sm90 counter moves only
+    for sm90, the launch counter for every call."""
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    for dtype, k, n, shift, want in (
+            (torch.bfloat16, 64, 64, False, "sm90"),
+            (torch.float16, 776, 1000, False, "sm90"),
+            (torch.bfloat16, 68, 64, False, "wmma"),
+            (torch.bfloat16, 64, 60, False, "wmma"),
+            (torch.float16, 64, 64, True, "wmma"),
+            (torch.float32, 64, 64, False, "simt")):
+        x, w, b = _fm_inputs((33,), k, n, dtype, cuda, seed=5)
+        if shift:
+            x = unaligned(x)
+        out = torch.empty((33, n), dtype=dtype, device=cuda)
+        assert cm.matmul_design(x, w, out) == want, (dtype, k, n, shift)
+        before = (cm.fused_matmul.launches, cm.fused_matmul.sm90_launches)
+        got = cm.fused_matmul(x, w, b, activation="gelu")
+        ref = cm.fused_matmul_bias_act_reference(x, w, b, activation="gelu")
+        torch.cuda.synchronize()
+        assert (cm.fused_matmul.launches, cm.fused_matmul.sm90_launches) == (
+            before[0] + 1, before[1] + int(want == "sm90"))
+        _check_fm(got, x, w, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

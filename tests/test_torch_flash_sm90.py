@@ -12,14 +12,15 @@ plain versions with that rounding added. Here, with no card:
 * a plain version that rounds P̃ and dS as the kernels do passes the
   bound, and each faulted variant fails it: the keep mask shifted by one
   key column, the last streamed tile dropped, and (forward) the rescale
-  skipped for one tile;
-* the plain forward and dk/dv in bfloat16 against the JAX ``_flash_fwd`` /
-  ``_flash_bwd`` Pallas kernels run in interpret mode in bfloat16 (the TPU
-  kernels' own rounding), under the same bound: the yardstick the card
-  check uses is the one the TPU kernel itself meets.
+  skipped for one tile; dq rounds dS unscaled, as the TPU dq does, and its
+  bound adds ``u·scale·(|dS|·|K|)``;
+* the plain forward, dq and dk/dv in bfloat16 against the JAX
+  ``_flash_fwd`` / ``_flash_bwd`` Pallas kernels run in interpret mode in
+  bfloat16 (the TPU kernels' own rounding), under the same bound: the
+  yardstick the card check uses is the one the TPU kernel itself meets.
 
 Tolerances: the card check's, ``ATOL + RTOL·|plain| + slack`` — forward
-ATOL 1e-5, dk/dv 1e-4, RTOL one unit in the last place (2^-7 bfloat16,
+ATOL 1e-5, dq and dk/dv 1e-4, RTOL one unit in the last place (2^-7 bfloat16,
 2^-10 float16), slack ``u·(|A|·|B|)`` with ``u`` twice the unit roundoff.
 """
 
@@ -59,8 +60,16 @@ def test_flash_design_by_dtype_and_head_dim(dtype, d):
     design = ca.flash_design(dtype, d)
     assert design == ("sm90" if sm90 else "simt")
     # the check adds the rounding term for the sm90 design alone
-    assert fc.rounding_unit(dtype, design) == (fc.ROUNDING[dtype] if sm90
-                                               else 0.0)
+    unit = fc.rounding_unit(dtype, design)
+    assert unit == (fc.ROUNDING[dtype] if sm90 else 0.0)
+    # ... and so does dq's term, which the sm90 dq needs as dk/dv do
+    q, k, v, do, _ = _inputs(torch.float32, 1, 9, d, False, 3)
+    out, lse = ca.flash_attention_reference(q, k, v, scale=0.5)
+    delta = ca.attention_delta(do, out)
+    slack = fc.dq_slack(q, k, v, None, None, do, lse, delta, scale=0.5,
+                        unit=unit)
+    assert slack.shape == q.shape
+    assert bool((slack > 0).any()) == sm90 and bool((slack >= 0).all())
 
 
 CASES = [  # (bh, t, d, causal, masked, rate)
@@ -113,6 +122,54 @@ def test_rounded_plain_forward_passes_the_bound(dtype, case):
 @pytest.mark.parametrize("case", CASES)
 def test_rounded_plain_dkv_passes_the_bound(dtype, case):
     assert max(_dkv(dtype, case)) <= 1.0
+
+
+def _dq(dtype, case, seed=0, slack=True, **variant):
+    bh, t, d, causal, masked, rate = case
+    q, k, v, do, m = _inputs(dtype, bh, t, d, masked, seed + 20)
+    s = torch.tensor([4321 + seed], dtype=torch.int32)
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal, dropout_rate=rate)
+    out, lse = ca.flash_attention_reference(q, k, v, m, s, **kw)
+    delta = ca.attention_delta(do, out)
+    args = (q, k, v, m, s, do, lse, delta)
+    ref = ca.flash_attention_dq_reference(*args, **kw)
+    sl = fc.dq_slack(*args, unit=fc.ROUNDING[dtype] if slack else 0.0, **kw)
+    dq = fc.dq_variant(*args, round_to=dtype, **variant, **kw)
+    return fc.excess(dq, ref, sl, DKV_ATOL, RTOL[dtype])[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", CASES)
+def test_rounded_plain_dq_passes_the_bound(dtype, case):
+    assert _dq(dtype, case) <= 1.0
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_the_dq_rounding_needs_the_slack(case):
+    """Without the slack term the plain dq with dS rounded to bfloat16, as
+    the sm90 and TPU kernels round it, fails the old one-unit check."""
+    assert _dq(torch.bfloat16, case, slack=False) > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("fault", fc.DQ_FAULTS)
+@pytest.mark.parametrize("case", FAULT_CASES)
+def test_each_dq_fault_exceeds_the_bound(dtype, fault, case):
+    assert _dq(dtype, case, fault=fault) > 1.0, fault
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_unfaulted_tiled_dq_is_the_plain_version(causal):
+    """Without rounding or fault the dq variant computes the plain dq
+    (float32: the scale applied after the sum instead of before)."""
+    q, k, v, do, m = _inputs(torch.float32, 3, 130, 64, not causal, 6)
+    s = torch.tensor([9], dtype=torch.int32)
+    kw = dict(scale=0.125, causal=causal, dropout_rate=0.1)
+    out, lse = ca.flash_attention_reference(q, k, v, m, s, **kw)
+    args = (q, k, v, m, s, do, lse, ca.attention_delta(do, out))
+    np.testing.assert_allclose(fc.dq_variant(*args, **kw).numpy(),
+                               ca.flash_attention_dq_reference(
+                                   *args, **kw).numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -225,3 +282,32 @@ def test_plain_bf16_dkv_vs_pallas_interpret_under_the_bound(case):
         got = torch.from_numpy(np.asarray(got.astype(jnp.float32)))
         assert fc.excess(got, ref, slack, DKV_ATOL,
                          RTOL[torch.bfloat16])[1] <= 1.0
+
+
+@pytest.mark.parametrize("case", JAX_CASES)
+def test_plain_bf16_dq_vs_pallas_interpret_under_the_bound(case):
+    """The TPU dq kernel in bfloat16 (interpret mode, from the port's plain
+    out and lse) rounds the unscaled ds before ds @ k and scales the
+    float32 sum: it sits within the sm90 dq bound of the port's plain
+    dq."""
+    bh, t, d, causal, masked, rate = case
+    q, k, v, do, m = _inputs(torch.bfloat16, bh, t, d, masked, 10)
+    scale = 1.0 / math.sqrt(d)
+    seed = 7777
+    kw = dict(scale=scale, causal=causal, dropout_rate=rate)
+    out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+    jdq, _, _ = jpa._flash_bwd(
+        _jnp_bf16(q), _jnp_bf16(k), _jnp_bf16(v),
+        None if m is None else jnp.asarray(m.numpy()),
+        jnp.array([[seed]], jnp.int32), _jnp_bf16(out),
+        jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None], (bh, t, 8)),
+        _jnp_bf16(do), scale=scale, causal=causal, block_q=64, block_k=64,
+        interpret=True, dropout_rate=rate)
+    assert jdq.dtype == jnp.bfloat16
+    delta = ca.attention_delta(do, out)
+    args = (q, k, v, m, seed, do, lse, delta)
+    ref = ca.flash_attention_dq_reference(*args, **kw)
+    slack = fc.dq_slack(*args, unit=fc.ROUNDING[torch.bfloat16], **kw)
+    got = torch.from_numpy(np.asarray(jdq.astype(jnp.float32)))
+    assert fc.excess(got, ref, slack, DKV_ATOL,
+                     RTOL[torch.bfloat16])[1] <= 1.0

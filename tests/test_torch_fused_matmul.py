@@ -24,6 +24,11 @@ Inputs are drawn with numpy and fed to both packages.
   stubbed and the TPU limits taken out: the ``pallas_min_m`` crossover
   and the Mosaic tile rule (the JAX gate is asked about the shapes padded
   to M % 8, K % 128, N % 128; the CUDA kernel takes any M, K and N).
+* ``matmul_design``'s static choice of kernel for each dtype, K and N
+  alignment and pointer alignment, and the faulted plain variants of
+  ``testing/matmul_check.py`` (the last K slab dropped, a slab added
+  twice), which must exceed ``kernel_tolerance`` where the plain version
+  itself sits at 0.
 """
 
 import numpy as np
@@ -39,6 +44,7 @@ from deeplearning4j_tpu.ops import tuning as jtuning
 from deeplearning4j_tpu_torch.ops import cuda_matmul as T
 from deeplearning4j_tpu_torch.ops import exec_op
 from deeplearning4j_tpu_torch.ops import nn_ops as tops
+from deeplearning4j_tpu_torch.testing import matmul_check as mc
 
 ACTS = ["none", "relu", "tanh", "gelu", "gelu_exact"]
 TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -204,3 +210,54 @@ def test_kernel_tolerance_is_one_unit_in_low_precision():
     _, rtol = T.kernel_tolerance(x.bfloat16(), w.bfloat16(),
                                  torch.zeros(1, dtype=torch.bfloat16))
     assert rtol == 2.0 ** -7
+
+
+def _offset(t, elements: int):
+    """``t``'s values in a fresh buffer, starting ``elements`` in."""
+    buf = torch.zeros(t.numel() + elements, dtype=t.dtype)
+    buf[elements:] = t.reshape(-1)
+    return buf[elements:].view(t.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("k,n", [(64, 64), (776, 1000), (8, 8), (68, 64),
+                                 (64, 60), (33, 65), (1, 1)])
+@pytest.mark.parametrize("moved", [None, "x", "w", "out"])
+def test_matmul_design_by_dtype_shape_and_alignment(dtype, k, n, moved):
+    """sm90 for 16-bit operands with K and N multiples of 8 and x, w and
+    out 16-byte aligned; wmma for every other 16-bit case; simt for
+    float32, whatever its shape."""
+    t = {"x": torch.zeros((5, k), dtype=dtype),
+         "w": torch.zeros((k, n), dtype=dtype),
+         "out": torch.zeros((5, n), dtype=dtype)}
+    assert all(v.data_ptr() % 16 == 0 for v in t.values())
+    if moved is not None:
+        t[moved] = _offset(t[moved], 1)
+        assert t[moved].data_ptr() % 16 != 0
+    if dtype == torch.float32:
+        want = "simt"
+    elif k % 8 == 0 and n % 8 == 0 and moved is None:
+        want = "sm90"
+    else:
+        want = "wmma"
+    assert T.matmul_design(t["x"], t["w"], t["out"]) == want
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("fault", mc.FAULTS)
+@pytest.mark.parametrize("x_shape,k,n,act", [
+    ((64,), 768, 96, "none"), ((2, 33), 776, 200, "gelu"),
+    ((40,), 128, 64, "gelu_exact")])
+def test_each_faulted_variant_exceeds_the_tolerance(dtype, fault, x_shape, k,
+                                                    n, act):
+    """The faults a slab ring could bring (testing/matmul_check.py) leave
+    kernel_tolerance far behind; the plain version is the reference."""
+    x, w, b = (torch.from_numpy(a).to(TD[dtype])
+               for a in _inputs(x_shape, k, n, 11))
+    b = b.float()
+    ref = T.fused_matmul_bias_act_reference(x, w, b, activation=act)
+    atol, rtol = T.kernel_tolerance(x, w, ref)
+    bad = mc.fused_matmul_variant(x, w, b, activation=act, fault=fault)
+    err = (bad.float() - ref.float()).abs()
+    assert (err / (atol + rtol * ref.float().abs())).max().item() > 1.0
