@@ -13,7 +13,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    attention in float32 and bfloat16 at the serving shapes; the fused
    updater (Nesterovs) in float32 and bfloat16 at the largest ResNet-50
    leaf and a 3×3×256×256 conv leaf; the BN/matmul/BN-stats kernel in
-   bfloat16 at a stage-1 and a stage-3 1×1 conv of batch 128; the flash
+   bfloat16 at the stage-1 c1 and c3 and the stage-3 c1 1×1 convs of
+   batch 128, in both designs (``convbn_design``: the tensor-core "sm90"
+   on the aligned operands the main path gives it, the WMMA one on an x
+   off 16-byte alignment), z, mean and var to ``kernel_tolerance`` and
+   each 128-row block's partial sums to ``partials_tolerance``, the sm90
+   design's faulted plain variants (prologue skipped, last K slab
+   dropped, a row block counted twice) beyond that check; the flash
    forward with dropout 0.1 and the dq and dk/dv backward kernels in
    float32 and bfloat16 at BERT's two attention shapes (A: BH 384, T 128,
    ragged key mask; B: BH 96, T 512), and the forward without dropout at
@@ -28,9 +34,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    fused LayerNorm + activation at 4096 × 768 (the fine-tune head's rows)
    with gelu, gelu_exact and none in float32 and bfloat16; the int8
    serving matmul — the row quantization and the s8 tensor-core GEMM with
-   its de-scale — in float32 and bfloat16 at the int8 BERT-base shapes
+   its de-scale, in both designs (``int8_design``: the wgmma "sm90" on
+   its K-major weight copy, whose one-off cost is timed apart, and the
+   WMMA one on a q off 16-byte alignment) — in float32 and bfloat16 at the int8 BERT-base shapes
    (M 4096; K×N 768×768, 768×3072, 3072×768, 768×2), each equal to its
-   plain version bit for bit. Attention in bfloat16 at D 64 runs the
+   plain version bit for bit, the sm90 design's faulted plain variants
+   (a K slab dropped, the scales on the wrong axis) not. Attention in
+   bfloat16 at D 64 runs the
    tensor-core ("sm90") forward, dq and dk/dv, which round P and dS to
    bfloat16 as the TPU kernels do: their bound adds that rounding
    (``testing/flash_check.py``), each faulted plain variant (keep mask
@@ -57,7 +67,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    losses and parameters against the generic run.
 6. ``train_fused`` — the same for ``ResNet50(fused_blocks=True,
    dtype="mixed")`` at batch 128, where every 1×1 conv of the fused
-   blocks takes the BN/matmul/BN-stats kernel (>= 36 × 3 launches). The
+   blocks takes the BN/matmul/BN-stats kernel's sm90 design (36 × 3
+   launches, their (M, K, N, prologue) census reported). The
    step-1 losses (same parameters) must agree to one bfloat16 unit; the
    generic run is repeated with its input moved by one bfloat16 unit,
    and the kernel run's parameters after 3 steps must sit within 3× that
@@ -115,7 +126,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    ``testing/int8_bert.bert_int8_encoder`` from onnx_bert's own weights
    and feeds, and run by ``sd.output``. One forward — launch counts and
    the dispatch counter set to 0 just before — must launch the int8 GEMM
-   and the row quantization 73 times each and the flash forward 12 times,
+   (all 73 on its sm90 design, their 73 K-major weight copies all made
+   before it) and the row quantization 73 times each and the flash
+   forward 12 times,
    and no ``matmul_int8`` or ``dot_product_attention`` call may take the
    generic. Its output is held against ``helper_mode="generic"`` within
    3× the distance of a generic run whose float32 embedding table is
@@ -172,10 +185,15 @@ FLASH_SHAPE = dict(bh=12, t=512, d=64)
 PAGED_SHAPE = dict(slots=8, heads=12, d=64, page=16, max_pages=64)
 # fused updater: the fc weight (the largest leaf) and a stage-3 3×3 conv
 UPDATER_SHAPES = {"fc.W": (2048, 1000), "conv3x3": (3, 3, 256, 256)}
-# bn_matmul_stats at batch 128: stage-1 c3 (M = 128·56·56, prologue+relu)
-# and stage-3 c1 (M = 128·14·14, no prologue), as FusedBottleneck calls it
+# bn_matmul_stats at batch 128: stage-1 c3 (M = 128·56·56, prologue+relu),
+# stage-3 c1 (M = 128·14·14, no prologue) and stage-1 c1 (N 64, the
+# narrowest tile), as FusedBottleneck calls it
 CONVBN_SHAPES = {"stage1_c3": (401408, 64, 256, True),
-                 "stage3_c1": (25088, 1024, 256, False)}
+                 "stage3_c1": (25088, 1024, 256, False),
+                 "stage1_c1": (401408, 64, 64, False)}
+# train_fused: convbn launches a step (16 bottlenecks × c1, c3 + 4
+# projection shortcuts), every one on the sm90 design
+CONVBN_PER_STEP = 36
 # BERT-base attention at the two BERT phases' shapes (BH = batch·12):
 # A — fine-tune, batch 32 × seq 128, ragged rows (key mask); B — MLM,
 # batch 8 × seq 512, full rows. Dropout 0.1 (BertConfig's default).
@@ -724,12 +742,21 @@ def updater_library_ms(p, g, v, lr):
 
 
 def convbn_case(dev):
-    """bn_matmul_stats (bfloat16) at two batch-128 ResNet-50 1×1 convs,
-    held to ``kernel_tolerance`` (one bf16 unit on z; the derived bound
-    for statistics taken from the float32 accumulator)."""
+    """bn_matmul_stats (bfloat16) at three batch-128 ResNet-50 1×1 convs,
+    in both designs: "sm90" on the aligned operands the main path gives
+    it, "wmma" on an x one element into its buffer (the only operands
+    ``convbn_design`` routes to it). Each is held to ``kernel_tolerance``
+    (one bf16 unit on z; the derived bound for statistics taken from the
+    float32 accumulator) and each 128-row block's partial sums to
+    ``partials_tolerance`` (``matmul_check.convbn_share``). The sm90
+    design's faulted plain variants (prologue skipped, last K slab
+    dropped, a row block's statistics counted twice) must exceed that
+    check, and two of its runs must give the same bits."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import cuda_convbn as cc
+    from deeplearning4j_tpu_torch.ops.cuda_matmul import sm_count
+    from deeplearning4j_tpu_torch.testing import matmul_check as mc
 
     entries, ok = [], True
     for label, (m, k, n, prologue) in CONVBN_SHAPES.items():
@@ -744,37 +771,71 @@ def convbn_case(dev):
                               ).astype(np.float32)).to(dev, torch.bfloat16)
         ss = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
             np.float32)).to(dev)
+        x_off = torch.empty(m * k + 1, dtype=x.dtype, device=dev)[1:].view(
+            m, k)
+        x_off.copy_(x)
         kw = dict(relu=prologue, fuse_prologue=prologue)
         args = (x, sc, sh, w, ss)
-        z, mean, var = cc.bn_matmul_stats(*args, **kw)
         zr, mr, vr = cc.reference_bn_matmul_stats(*args, **kw)
-        torch.cuda.synchronize()
-        z_atol, z_rtol, m_tol, v_tol = cc.kernel_tolerance(*args, zr, **kw)
-        zerr = (z.float() - zr.float()).abs()
-        share = max((zerr / (z_atol + z_rtol * zr.float().abs())).max().item(),
-                    ((mean - mr).abs() / m_tol).max().item(),
-                    ((var - vr).abs() / v_tol).max().item())
-        ok = ok and share <= 1.0 and bool(torch.isfinite(z.float()).all())
+        plain = (zr, cc.reference_partials(zr, ss), mr, vr)
         y = x.float() * sc + sh if prologue else x.float()
         y = (torch.clamp_min(y, 0.0) if prologue else y).to(torch.bfloat16)
-        ms = time_ms(lambda: cc.bn_matmul_stats(*args, **kw))
         plain_ms = time_ms(lambda: cc.reference_bn_matmul_stats(*args, **kw))
         lib_ms = time_ms(lambda: torch.matmul(y, w))
+
+        def chain():
+            yc = x.float() * sc + sh if prologue else x
+            if prologue:
+                yc = torch.clamp_min(yc, 0.0).to(torch.bfloat16)
+            return torch.var_mean(torch.matmul(yc, w), dim=0)
+
+        chain_ms = time_ms(chain)
         nbytes = (2.0 * m * k + 2.0 * k * n + 8.0 * k + 4.0 * n
                   + 2.0 * m * n + 8.0 * n)
         bms, by = bound(nbytes, 2.0 * m * k * n, "bfloat16")
-        entries.append({
-            "kernel": "bn_matmul_stats", "dtype": "bfloat16", "conv": label,
-            "shape": [m, k, n], "prologue_relu": prologue,
-            "max_abs_err": zerr.max().item(),
-            "mean_max_abs_err": (mean - mr).abs().max().item(),
-            "var_max_abs_err": (var - vr).abs().max().item(),
-            "tol": "cuda_convbn.kernel_tolerance", "err_over_tol": share,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "library_note": "cuBLAS bf16 torch.matmul of the prologued "
-                            "operand: the product alone, no prologue or "
-                            "statistics",
-            "bound_ms": bms, "bound_by": by})
+        for design, a in (("sm90", args), ("wmma", (x_off,) + args[1:])):
+            before = cc.bn_matmul_stats.sm90_launches
+            z, parts = cc.bn_matmul_stats_partials(*a, **kw)
+            got = (z, parts) + cc.reduce_partials(parts, ss)
+            torch.cuda.synchronize()
+            sm90 = cc.bn_matmul_stats.sm90_launches - before == 1
+            share = mc.convbn_share(got, plain, args, **kw)
+            ok = (ok and share <= 1.0 and bool(torch.isfinite(z.float()).all())
+                  and sm90 == (design == "sm90")
+                  and cc.convbn_design(a[0], a[3]) == design)
+            extra = {}
+            if design == "sm90":
+                faults = {f: mc.convbn_share(mc.bn_matmul_stats_variant(
+                    *args, **kw, fault=f), plain, args, **kw)
+                    for f in mc.convbn_faults(prologue)}
+                z2, parts2 = cc.bn_matmul_stats_partials(*a, **kw)
+                same = torch.equal(z, z2) and torch.equal(parts, parts2)
+                ok = ok and same and all(v > 1.0 for v in faults.values())
+                extra = {"faulted_plain_over_tol": faults,
+                         "same_bits_twice": same,
+                         "kernel_only_ms": time_ms(
+                             lambda: cc.bn_matmul_stats_partials(*a, **kw)),
+                         "tile_n": cc.convbn_tile_n(m, n, sm_count(0))}
+            ms = time_ms(lambda: cc.bn_matmul_stats(*a, **kw))
+            entries.append({
+                "kernel": "bn_matmul_stats" + ("_sm90" if design == "sm90"
+                                               else ""),
+                "design": design, "dtype": "bfloat16", "conv": label,
+                "shape": [m, k, n], "prologue_relu": prologue,
+                "max_abs_err": (z.float() - zr.float()).abs().max().item(),
+                "mean_max_abs_err": (got[2] - mr).abs().max().item(),
+                "var_max_abs_err": (got[3] - vr).abs().max().item(),
+                "tol": "cuda_convbn.kernel_tolerance + partials_tolerance",
+                "err_over_tol": share, **extra,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_note": "cuBLAS bf16 torch.matmul of the prologued "
+                                "operand: the product alone, no prologue or "
+                                "statistics",
+                "library_chain_ms": chain_ms,
+                "library_chain_note": "the composed chain: elementwise "
+                                      "affine + relu, torch.matmul, "
+                                      "torch.var_mean of z",
+                "bound_ms": bms, "bound_by": by})
     return ok, entries
 
 
@@ -844,10 +905,14 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
             (batch,) + IMAGE)).astype(np.float32)
         pert = run("generic", 1.0 + 2.0 ** -8 * sign)
     cu.fused_updater.launches = 0
-    cc.bn_matmul_stats.launches = 0          # the main path's run starts
+    cc.reset_launch_counts()                 # the main path's run starts
     kernel, k_times, k_params = run("auto")
     launches = {"fused_updater": cu.fused_updater.launches,
-                "bn_matmul_stats": cc.bn_matmul_stats.launches}  # ... ends
+                "bn_matmul_stats": cc.bn_matmul_stats.launches,
+                "bn_matmul_stats_sm90": cc.bn_matmul_stats.sm90_launches}
+    census = {f"{m}x{k}x{n}{' prologue' if p else ''} {d}": c / TRAIN_STEPS
+              for (m, k, n, p, d), c in sorted(
+                  cc.bn_matmul_stats.census.items())}  # ... ends
     env.helper_mode = "auto"
     param_diff = _max_diff(g_params, k_params)
     moved = _max_diff(start[0], g_params)
@@ -863,6 +928,7 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
             "image": list(IMAGE), "classes": CLASSES, "batch": batch,
             "steps": TRAIN_STEPS, "leaves": n_leaves,
             "params": net.num_params(), "launches": launches,
+            "convbn_census_per_step": census,
             "losses_generic": generic, "losses_kernel": kernel,
             "loss_max_abs_diff": loss_diff,
             "param_max_abs_diff": param_diff,
@@ -878,10 +944,12 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
                          for a, b, c in zip(kernel, generic, pert[0])],
                      "tol": f"step-1 loss {TRAIN_B_LOSS1_RTOL:g} relative; "
                             f"params {TRAIN_B_YARDSTICK:g} x yardstick"})
-        if launches["bn_matmul_stats"] < 36 * TRAIN_STEPS:
-            problems.append(f"bn_matmul_stats launches "
-                            f"{launches['bn_matmul_stats']} < 36 x "
-                            f"{TRAIN_STEPS}")
+        want = CONVBN_PER_STEP * TRAIN_STEPS
+        if (launches["bn_matmul_stats"] != want
+                or launches["bn_matmul_stats_sm90"] != want):
+            problems.append(f"convbn launches {launches['bn_matmul_stats']}"
+                            f" (sm90 {launches['bn_matmul_stats_sm90']}) != "
+                            f"{CONVBN_PER_STEP} x {TRAIN_STEPS}, all sm90")
         if abs(kernel[0] - generic[0]) > TRAIN_B_LOSS1_RTOL * abs(generic[0]):
             problems.append(f"step-1 loss {kernel[0]} vs generic "
                             f"{generic[0]}")
@@ -1234,13 +1302,21 @@ def fused_layer_norm_case(dev):
 def matmul_int8_case(dev):
     """The int8 serving matmul at the int8 BERT-base shapes, float32 and
     bfloat16 x: ``row_quantize`` against ``quantized._row_quantize`` and
-    the GEMM against its plain version on the same quantized inputs, both
-    bit for bit; ``torch._int_mm`` (cuBLASLt) plus the de-scale timed as
-    the library yardstick where it takes the shape."""
+    the GEMM in both designs — "sm90" on the aligned q the main path gives
+    it, "wmma" on a q one byte into its buffer (the operands
+    ``int8_design`` routes to it besides an odd K) — against its plain
+    version on the same quantized inputs, all bit for bit. The sm90 design's faulted
+    plain variants (a K slab dropped, the scales on the wrong axis) must
+    differ from it, two of its runs must give the same bits, and the
+    one-off K-major copy of the weight it reads is timed apart from the
+    GEMM. ``torch._int_mm`` (cuBLASLt) plus the de-scale is timed as the
+    library yardstick where it takes the shape."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
     from deeplearning4j_tpu_torch.ops import quantized as Q
+    from deeplearning4j_tpu_torch.ops.cuda_matmul import sm_count
+    from deeplearning4j_tpu_torch.testing import matmul_check as mc
 
     entries, ok = [], True
     for dtype in (torch.float32, torch.bfloat16):
@@ -1255,15 +1331,12 @@ def matmul_int8_case(dev):
             wq, ws = Q.quantize_int8.fn(w, axis=0)
             xq, xs = cq.row_quantize(x)
             rq, rs = Q._row_quantize(x)
-            y = cq.int8_matmul(xq, xs, wq, ws, dtype)
             yr = cq.int8_matmul_reference(xq, xs, wq, ws, dtype)
             whole = cq.matmul_int8(x, wq, ws)
             torch.cuda.synchronize()
             q_exact = torch.equal(xq, rq) and torch.equal(xs, rs)
-            y_exact = (torch.equal(y, yr) and torch.equal(
-                whole, cq.matmul_int8_reference(x, wq, ws)))
-            ok = (ok and q_exact and y_exact
-                  and bool(torch.isfinite(y.float()).all()))
+            ok = (ok and q_exact and cq.int8_design(xq) == "sm90"
+                  and torch.equal(whole, cq.matmul_int8_reference(x, wq, ws)))
             es = x.element_size()
             if k not in quantized_rows:  # one row_quantize entry per K
                 quantized_rows.add(k)
@@ -1291,16 +1364,47 @@ def matmul_int8_case(dev):
                             "(M, N) int32 round trip")
             bms, by = bound(m * k + 4.0 * m + k * n + 4.0 * n + m * n * es,
                             2.0 * m * k * n, "int8")
-            ms = time_ms(lambda: cq.int8_matmul(xq, xs, wq, ws, dtype))
-            entries.append({
-                "kernel": "matmul_int8", "dtype": name, "shape": [m, k, n],
-                "max_abs_err": (y.float() - yr.float()).abs().max().item(),
-                "tol": "0 (bit-exact)", "exact": y_exact, "ms": ms,
-                "plain_ms": time_ms(lambda: cq.int8_matmul_reference(
-                    xq, xs, wq, ws, dtype)),
-                "library_ms": lib_ms, "library_note": lib_note,
-                "bound_ms": bms, "bound_by": by,
-                "achieved_tops": 2.0 * m * k * n / ms / 1e9})
+            plain_ms = time_ms(lambda: cq.int8_matmul_reference(
+                xq, xs, wq, ws, dtype))
+            xq_off = torch.empty(m * k + 1, dtype=torch.int8,
+                                 device=dev)[1:].view(m, k)
+            xq_off.copy_(xq)
+            for design, q in (("sm90", xq), ("wmma", xq_off)):
+                before = cq.int8_matmul.sm90_launches
+                y = cq.int8_matmul(q, xs, wq, ws, dtype)
+                torch.cuda.synchronize()
+                y_exact = torch.equal(y, yr)
+                ok = (ok and y_exact and bool(torch.isfinite(y.float()).all())
+                      and cq.int8_design(q) == design
+                      and cq.int8_matmul.sm90_launches - before
+                      == int(design == "sm90"))
+                extra = {}
+                if design == "sm90":
+                    faults = {f: not torch.equal(mc.int8_matmul_variant(
+                        xq, xs, wq, ws, dtype, fault=f), y)
+                        for f in mc.INT8_FAULTS}
+                    same = torch.equal(y, cq.int8_matmul(xq, xs, wq, ws,
+                                                         dtype))
+                    ok = ok and same and all(faults.values())
+                    extra = {"faulted_plain_differs": faults,
+                             "same_bits_twice": same,
+                             "tile_n": cq.int8_tile_n(m, n, sm_count(0)),
+                             "kmajor_copy_ms": time_ms(
+                                 lambda: wq.t().contiguous()),
+                             "kmajor_copy_note": "the one-off (N, K) copy "
+                                                 "of the weight, made once a "
+                                                 "weight, not in ms"}
+                ms = time_ms(lambda: cq.int8_matmul(q, xs, wq, ws, dtype))
+                entries.append({
+                    "kernel": "matmul_int8" + ("_sm90" if design == "sm90"
+                                               else ""),
+                    "design": design, "dtype": name, "shape": [m, k, n],
+                    "max_abs_err": (y.float() - yr.float()).abs().max().item(),
+                    "tol": "0 (bit-exact)", "exact": y_exact, **extra,
+                    "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "library_note": lib_note,
+                    "bound_ms": bms, "bound_by": by,
+                    "achieved_tops": 2.0 * m * k * n / ms / 1e9})
     return ok, entries
 
 
@@ -1668,6 +1772,7 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
         try:
             gc.collect()  # an earlier graph's reference cycles, freed now
             resident = torch.cuda.memory_allocated()
+            copies0 = cq.kmajor_weight.copies
             t0 = time.perf_counter()
             sd = SameDiff(device=dev)
             ib.bert_int8_encoder(sd, weights, batch=cfg["batch"],
@@ -1685,9 +1790,14 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                 ca.reset_launch_counts()
                 cq.reset_launch_counts()
                 cm.fused_matmul.launches = 0  # the main path starts here
+                copies1 = cq.kmajor_weight.copies
                 sd.output(feeds, ["y"])
+                info["kmajor_copies"] = {  # the sm90 GEMM's weight copies
+                    "build_to_counted": cq.kmajor_weight.copies - copies0,
+                    "counted_forward": cq.kmajor_weight.copies - copies1}
                 launches = dict(
                     matmul_int8=cq.int8_matmul.launches,
+                    matmul_int8_sm90=cq.int8_matmul.sm90_launches,
                     matmul_int8_row_quantize=cq.row_quantize.launches,
                     flash_attn_fwd=ca.flash_attention.launches,
                     flash_attn_fwd_sm90=ca.flash_attention.sm90_launches,
@@ -1740,12 +1850,18 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
     problems = []
     layers = cfg["layers"]
     n_dense = 6 * layers + 1
-    want = {"matmul_int8": n_dense, "matmul_int8_row_quantize": n_dense,
+    want = {"matmul_int8": n_dense, "matmul_int8_sm90": n_dense,
+            "matmul_int8_row_quantize": n_dense,
             "flash_attn_fwd": layers, "flash_attn_fwd_sm90": 0,
             "fused_matmul_bias_act": 0}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
+    # one K-major copy a weight, made before the counted forward
+    if k_info["kmajor_copies"] != {"build_to_counted": n_dense,
+                                   "counted_forward": 0}:
+        problems.append(f"K-major weight copies {k_info['kmajor_copies']} != "
+                        f"{n_dense} before the counted forward, 0 in it")
     want_disp = {"matmul_int8": n_dense, "dot_product_attention": layers}
     for op, counts in launches["dispatch"].items():
         if counts["cuda/usable"] != want_disp[op] or any(
@@ -2072,19 +2188,21 @@ def main() -> int:
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
-    # (flash_attn_fwd, flash_attn_dq, flash_attn_dkv and
-    # fused_matmul_bias_act count both designs: their rows take the other
-    # design's launches, the _sm90 rows the tensor-core ones)
+    # (flash_attn_fwd, flash_attn_dq, flash_attn_dkv, fused_matmul_bias_act,
+    # bn_matmul_stats and matmul_int8 count both designs: their rows take
+    # the other design's launches, the _sm90 rows the tensor-core ones)
     by_path = {name: {} for name in (
         "flash_attn_fwd", "flash_attn_fwd_sm90", "paged_decode",
-        "fused_updater", "bn_matmul_stats", "flash_attn_dq",
-        "flash_attn_dq_sm90", "flash_attn_dkv", "flash_attn_dkv_sm90",
-        "fused_matmul_bias_act", "fused_matmul_bias_act_sm90",
-        "fused_layer_norm", "matmul_int8", "matmul_int8_row_quantize")}
+        "fused_updater", "bn_matmul_stats", "bn_matmul_stats_sm90",
+        "flash_attn_dq", "flash_attn_dq_sm90", "flash_attn_dkv",
+        "flash_attn_dkv_sm90", "fused_matmul_bias_act",
+        "fused_matmul_bias_act_sm90", "fused_layer_norm", "matmul_int8",
+        "matmul_int8_sm90", "matmul_int8_row_quantize")}
     for path, counts in dict(serve=launches, **train_launches).items():
         counts = dict(counts)
         for both in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
-                     "fused_matmul_bias_act"):
+                     "fused_matmul_bias_act", "bn_matmul_stats",
+                     "matmul_int8"):
             if both in counts:
                 counts[both] -= counts.get(both + "_sm90", 0)
         for name, n in counts.items():
@@ -2097,6 +2215,8 @@ def main() -> int:
         "paged_decode": ("paged_decode.cu", "pallas_attention.py:683"),
         "fused_updater": ("fused_updater.cu", "pallas_updater.py:84"),
         "bn_matmul_stats": ("bn_matmul_stats.cu", "pallas_convbn.py:49"),
+        "bn_matmul_stats_sm90": ("bn_matmul_stats_sm90.cu",
+                                 "pallas_convbn.py:49"),
         "flash_attn_dq": ("flash_attn_bwd.cu", "pallas_attention.py:244"),
         "flash_attn_dq_sm90": ("flash_attn_dq_sm90.cu",
                                "pallas_attention.py:244"),
@@ -2109,6 +2229,7 @@ def main() -> int:
         "fused_layer_norm": ("fused_layer_norm.cu",
                              "pallas_layernorm.py:69"),
         "matmul_int8": ("matmul_int8.cu", "quantized.py:122"),
+        "matmul_int8_sm90": ("matmul_int8_sm90.cu", "quantized.py:122"),
         # the per-row activation quantization XLA runs before the Pallas
         # kernel (`_row_quantize` at matmul_int8_pallas, quantized.py:173)
         "matmul_int8_row_quantize": ("matmul_int8.cu", "quantized.py:173")}
@@ -2125,13 +2246,15 @@ def main() -> int:
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
             **{k: first[k] for k in keys},
+            **{k: first[k] for k in ("library_chain_ms",) if k in first},
             "dtype": first["dtype"], "shape": first["shape"],
             "other_shapes": [dict({k: r[k] for k in keys},
                                   dtype=r["dtype"], shape=r["shape"],
                                   **{x: r[x] for x in ("bert", "dropout",
                                                        "leaf", "conv",
                                                        "activation",
-                                                       "design")
+                                                       "design",
+                                                       "library_chain_ms")
                                      if x in r})
                              for r in rows[1:]]})
     emit({"kernels": summary})

@@ -34,7 +34,11 @@
 //    and sum of squares over the tile's 128 rows are reduced in a fixed
 //    order into the block's row of csum/csq. No atomics: the result does
 //    not depend on block scheduling.
-//  * No TMA, no wgmma, no double buffering yet: a simple first version.
+//  * No TMA, no wgmma, no double buffering: bn_matmul_stats_sm90.cu is the
+//    tensor-core design, and this kernel keeps only the x and w pointers
+//    it cannot read (off 16-byte alignment: `convbn_design`). So x and w
+//    are read in 16-byte vectors where `vec_x` / `vec_w` say the pointer
+//    allows it, one element at a time otherwise.
 //  * Allocates nothing; the wrapper allocates z and the partial sums.
 
 #include <cuda_bf16.h>
@@ -66,7 +70,8 @@ bn_matmul_stats_kernel(const __nv_bfloat16* __restrict__ x,
                        const float* __restrict__ stat_shift,
                        __nv_bfloat16* __restrict__ z,
                        float* __restrict__ csum, float* __restrict__ csq,
-                       int k_dim, int n, int grid_n, int prologue, int relu) {
+                       int k_dim, int n, int grid_n, int prologue, int relu,
+                       int vec_x, int vec_w) {
   __shared__ __align__(128) unsigned char smem[SMEM];
   __shared__ float red_sum[THREADS / BN][BN];
   __shared__ float red_sq[THREADS / BN][BN];
@@ -96,8 +101,15 @@ bn_matmul_stats_kernel(const __nv_bfloat16* __restrict__ x,
       const int idx = tid + i * THREADS;
       const int row = idx / (BK / 8);
       const int cv = (idx % (BK / 8)) * 8;
-      uint4 raw = *reinterpret_cast<const uint4*>(
-          x + (m0 + row) * k_dim + k0 + cv);
+      const __nv_bfloat16* src = x + (m0 + row) * k_dim + k0 + cv;
+      uint4 raw;
+      if (vec_x) {
+        raw = *reinterpret_cast<const uint4*>(src);
+      } else {
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e[j] = src[j];
+      }
       if (prologue) {
         __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
 #pragma unroll
@@ -115,9 +127,14 @@ bn_matmul_stats_kernel(const __nv_bfloat16* __restrict__ x,
     {
       const int row = tid / (BN / 8);
       const int cv = (tid % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + row * LDB + cv) =
-          *reinterpret_cast<const uint4*>(w + (long long)(k0 + row) * n + n0 +
-                                          cv);
+      const __nv_bfloat16* src = w + (long long)(k0 + row) * n + n0 + cv;
+      if (vec_w) {
+        *reinterpret_cast<uint4*>(Bs + row * LDB + cv) =
+            *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) Bs[row * LDB + cv + j] = src[j];
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -194,7 +211,8 @@ bn_matmul_stats_kernel(const __nv_bfloat16* __restrict__ x,
 }  // namespace
 
 // Shapes: M % 128 == 0, K % 32 == 0, N % 64 == 0 (the wrapper's gate asks
-// K % 64, as the JAX gate does); every pointer 16-byte aligned. Returns
+// K % 64, as the JAX gate does); z 16-byte aligned; vec_x = 1 (vec_w = 1)
+// promises a 16-byte-aligned x (w), read in 16-byte vectors. Returns
 // cudaGetLastError() of the launch, or -1 for a shape the kernel does not
 // take. Launches on `stream`; allocates nothing.
 extern "C" int dl4j_bn_matmul_stats(const void* x, const float* scale,
@@ -202,7 +220,7 @@ extern "C" int dl4j_bn_matmul_stats(const void* x, const float* scale,
                                     const float* stat_shift, void* z,
                                     float* csum, float* csq, long long m,
                                     int k, int n, int prologue, int relu,
-                                    void* stream) {
+                                    int vec_x, int vec_w, void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || m % BM || k % BK || n % BN) return -1;
   const long long grid_m = m / BM;
   const int grid_n = n / BN;
@@ -211,6 +229,7 @@ extern "C" int dl4j_bn_matmul_stats(const void* x, const float* scale,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), scale, shift,
       static_cast<const __nv_bfloat16*>(w), stat_shift,
-      static_cast<__nv_bfloat16*>(z), csum, csq, k, n, grid_n, prologue, relu);
+      static_cast<__nv_bfloat16*>(z), csum, csq, k, n, grid_n, prologue, relu,
+      vec_x, vec_w);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,8 +49,10 @@
 //    transpose is needed.
 //  * Every edge is bounds-checked and zero-filled on load: a zero adds
 //    nothing to an integer dot, so ragged M, N (the 768x2 classifier) and
-//    K are exact. 16-byte loads are used where K (for A) or N (for B) keeps
-//    every vector whole and the pointer is aligned; byte loads otherwise.
+//    K are exact. B is read in 16-byte loads where N keeps every vector
+//    whole and the pointer is aligned, byte loads otherwise; A always in
+//    byte loads: an A that 16-byte loads could take (K % 16 == 0, aligned)
+//    goes to matmul_int8_sm90.cu instead (`int8_design`).
 //  * row_quantize: one warp per row for K <= 1024, one block of 256
 //    threads per row above (as fused_layer_norm.cu places its rows); the
 //    amax is a shuffle (and shared-memory) max reduction, then the row is
@@ -215,8 +217,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                  const int8_t* __restrict__ wq, const float* __restrict__ ws,
-                 T* __restrict__ out, long long m, int n, int k, int vec_a,
-                 int vec_b) {
+                 T* __restrict__ out, long long m, int n, int k, int vec_b) {
   __shared__ __align__(128) signed char As[BM * BK];
   __shared__ __align__(128) signed char Bs[BK * BN];
   __shared__ __align__(128) int scratch[THREADS / 32][16 * 16];
@@ -246,16 +247,9 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       const long long grow = m0 + row;
       const int gk = k0 + kt * 16;
       signed char* dst = As + a_tile(row / 16, kt) + (row % 16) * 16;
-      if (vec_a) {  // k % 16 == 0: a vector is all in or all out
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (grow < m && gk < k)
-          raw = *reinterpret_cast<const uint4*>(xq + grow * k + gk);
-        *reinterpret_cast<uint4*>(dst) = raw;
-      } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          dst[j] = (grow < m && gk + j < k) ? xq[grow * k + gk + j] : 0;
-      }
+      for (int j = 0; j < 16; ++j)
+        dst[j] = (grow < m && gk + j < k) ? xq[grow * k + gk + j] : 0;
     }
     // B tile: 64 rows x 128 bytes = 512 vectors of 16, 2 per thread
 #pragma unroll
@@ -329,9 +323,9 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 template <typename T>
 int launch_gemm(const int8_t* xq, const float* xs, const int8_t* wq,
                 const float* ws, void* out, long long m, int n, int k,
-                int vec_a, int vec_b, dim3 grid, cudaStream_t stream) {
+                int vec_b, dim3 grid, cudaStream_t stream) {
   int8_gemm_kernel<T><<<grid, THREADS, 0, stream>>>(
-      xq, xs, wq, ws, static_cast<T*>(out), m, n, k, vec_a, vec_b);
+      xq, xs, wq, ws, static_cast<T*>(out), m, n, k, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,14 +355,13 @@ extern "C" int dl4j_row_quantize(const void* x, int8_t* xq, float* xs,
 
 // xq (m, k) int8, xs (m,) float32, wq (k, n) int8, ws (n,) float32, all
 // row-major; out (m, n) of dtype 0 float32, 1 bfloat16, 2 float16.
-// vec_a = 1 promises k % 16 == 0 and a 16-byte-aligned xq; vec_b = 1 that
-// n % 16 == 0 and a 16-byte-aligned wq. Any m, n >= 0, k >= 1. Returns
+// vec_b = 1 promises n % 16 == 0 and a 16-byte-aligned wq. Any m, n >= 0, k >= 1. Returns
 // cudaGetLastError() of the launch, or -1 for arguments not taken.
 // Launches on `stream`; allocates nothing.
 extern "C" int dl4j_matmul_int8(const int8_t* xq, const float* xs,
                                 const int8_t* wq, const float* ws, void* out,
                                 long long m, int n, int k, int dtype,
-                                int vec_a, int vec_b, void* stream) {
+                                int vec_b, void* stream) {
   if (m < 0 || n < 0 || k < 1) return -1;
   if (m == 0 || n == 0) return 0;
   const long long grid_m = (m + BM - 1) / BM;
@@ -378,14 +371,14 @@ extern "C" int dl4j_matmul_int8(const int8_t* xq, const float* xs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_gemm<float>(xq, xs, wq, ws, out, m, n, k, vec_a, vec_b,
-                                grid, st);
+      return launch_gemm<float>(xq, xs, wq, ws, out, m, n, k, vec_b, grid,
+                                st);
     case 1:
-      return launch_gemm<__nv_bfloat16>(xq, xs, wq, ws, out, m, n, k, vec_a,
-                                        vec_b, grid, st);
+      return launch_gemm<__nv_bfloat16>(xq, xs, wq, ws, out, m, n, k, vec_b,
+                                        grid, st);
     case 2:
-      return launch_gemm<__half>(xq, xs, wq, ws, out, m, n, k, vec_a, vec_b,
-                                 grid, st);
+      return launch_gemm<__half>(xq, xs, wq, ws, out, m, n, k, vec_b, grid,
+                                 st);
     default:
       return -1;
   }

@@ -1,12 +1,14 @@
 // sm90.cuh — Hopper (sm_90a) building blocks shared by the tensor-core
 // kernels (flash_attn_fwd_sm90.cu, flash_attn_dkv_sm90.cu,
-// flash_attn_dq_sm90.cu, fused_matmul_sm90.cu): mbarriers, TMA tile loads,
+// flash_attn_dq_sm90.cu, fused_matmul_sm90.cu, bn_matmul_stats_sm90.cu,
+// matmul_int8_sm90.cu): mbarriers, TMA tile loads,
 // wgmma matrix descriptors and the wgmma instructions themselves, written
 // as inline PTX, plus the one mapping from a wgmma accumulator register to
 // its (row, column) that every kernel uses for masking, dropout, the
 // register A operand and the epilogue.
 //
-// Shared-memory tiles are 128-byte-swizzled slabs of 64 16-bit columns:
+// Shared-memory tiles are 128-byte-swizzled slabs of 64 16-bit columns
+// (128 int8 columns):
 // row r of a slab starts at r * 128 bytes and its eight 16-byte chunks are
 // XOR-permuted by r % 8 — the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with a SW128 descriptor. Every
@@ -85,6 +87,30 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of shared memory at `src` into a 3-D tensor map at (c0, c1,
+// c2), as an asynchronous bulk store of the issuing thread; coordinates past
+// the tensor's edge are not written. The thread commits its stores as a
+// group (bulk_commit) and, before the box is written again,
+// bulk_wait_read<0>() waits until every committed group has read its
+// shared memory. The writes are fenced (fence_proxy_async) and the writing
+// threads synchronised before the store is issued.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // Matrix descriptor of a 128-byte-swizzled operand at shared address
@@ -139,6 +165,19 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Orders this thread's earlier generic-proxy writes to shared memory
+// before later async-proxy reads of it (wgmma operands, TMA stores).
+// Without it the tensor cores may read the bytes as they were before the
+// writes; a barrier after it makes every thread's writes visible.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The float32 accumulator of an m64nNk16 product over a warpgroup: thread
@@ -287,6 +326,24 @@ struct Wgmma<64, __half> {
 template <>
 struct Wgmma<128, __nv_bfloat16> {
   template <int TRANS_B>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+  }
+  template <int TRANS_B>
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
@@ -384,6 +441,60 @@ struct Wgmma<192, __half> {
   }
 };
 
+// wgmma.mma_async m64nNk32, int32 accumulator, s8 operands. Both read
+// from shared memory K-major: 8-bit wgmma has no transpose bit, so an
+// (K, N) row-major B must be given as its (N, K) copy. The accumulator's
+// registers map to (row, column) as the float32 m64nNk16 one does
+// (acc_row / acc_col).
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void ss(int (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<192> {
+  static __device__ __forceinline__ void ss(int (&d)[96], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "%96, %97, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
 // -------------------------------------------------------- host: tensor maps
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -413,24 +524,28 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A (D, T, BH) tensor map of a 16-bit tensor (dtype 1 = bfloat16, 2 =
-// float16) with boxes of 64 columns x `rows` rows, 128-byte swizzle, zeros
-// outside the tensor. A row-major (R, C) matrix is the case BH = 1, T = R,
-// D = C. D must be a multiple of 8 (16-byte row strides). Encoded at every
-// call: it takes microseconds, and a cache keyed by pointer would go stale
-// under the caching allocator.
+// A (D, T, BH) tensor map with boxes of one 128-byte swizzle span of
+// columns x `rows` rows, 128-byte swizzle, zeros outside the tensor.
+// dtype 1 = bfloat16 and 2 = float16 (64-column boxes), 3 = int8 (128-column
+// boxes: one swizzle span holds 128 K values, so an int8 K slab is 128
+// deep). A row-major (R, C) matrix is the case BH = 1, T = R, D = C. A row
+// must be a multiple of 16 bytes (D % 8 for 16-bit, D % 16 for int8).
+// Encoded at every call: it takes microseconds, and a cache keyed by
+// pointer would go stale under the caching allocator.
 inline bool make_map(CUtensorMap* map, const void* ptr, int dtype, int bh,
                      int t, int d, int rows) {
   EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
+  if (enc == nullptr || dtype < 1 || dtype > 3) return false;
+  const cuuint64_t es = dtype == 3 ? 1 : 2;  // bytes an element
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {64u, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * es, (cuuint64_t)t * d * es};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / es), (cuuint32_t)rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return enc(map,
-             dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-             3, const_cast<void*>(ptr), dims, strides, box, step,
+  const CUtensorMapDataType type =
+      dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+      : dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return enc(map, type, 3, const_cast<void*>(ptr), dims, strides, box, step,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -12,13 +12,20 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_convbn.py``::
   the product accumulated in float32 and rounded to x's dtype, and the
   moments — shifted by the running mean ``stat_shift`` — taken from the
   ROUNDED z.
-* :func:`bn_matmul_stats` launches ``csrc/bn_matmul_stats.cu`` (replacing
-  ``_kernel``, ``pallas_convbn.py:49``, via ``fused_bn_matmul_stats``):
-  one pass reads x once and writes z once, taking the moments from the
-  float32 accumulator as the Pallas kernel does, as per-row-block partial
-  sums that the wrapper reduces in float32. Given CPU tensors it computes
-  the plain version; given CUDA tensors it launches or raises. Its
-  launches are counted in ``bn_matmul_stats.launches``.
+* :func:`bn_matmul_stats` launches a kernel replacing ``_kernel``
+  (``pallas_convbn.py:49``, via ``fused_bn_matmul_stats``): one pass reads
+  x once and writes z once, taking the moments from the float32
+  accumulator as the Pallas kernel does, as per-row-block partial sums
+  (:func:`bn_matmul_stats_partials`) that the wrapper reduces in float32.
+  :func:`convbn_design` picks the kernel statically: ``"sm90"``
+  (``csrc/bn_matmul_stats_sm90.cu``, wgmma fed by TMA through an mbarrier
+  ring, the prologue rewritten in shared memory) where TMA can read x and
+  w, ``"wmma"`` (``csrc/bn_matmul_stats.cu``) for pointers off 16-byte
+  alignment. Given CPU tensors it computes the plain version; given CUDA
+  tensors it launches or raises. Its launches are counted in
+  ``bn_matmul_stats.launches``, the sm90 design's also in
+  ``bn_matmul_stats.sm90_launches``, and each launch's (M, K, N,
+  prologue, design) in the ``bn_matmul_stats.census`` Counter.
 * :func:`bn_matmul_stats_usable` is the JAX ``_pallas_ok`` minus its
   backend and environment checks: CUDA tensors, bfloat16 x, M % 128,
   K % 64 and N % 64.
@@ -37,17 +44,23 @@ float32`` on the CPU and on the card alike.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops.cuda_matmul import fullest_tile_n, sm_count
 from deeplearning4j_tpu_torch.ops.registry import exec_op, op
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = (_P,) * 8 + (ctypes.c_longlong, _I, _I, _I, _I, _P)
+# x scale shift w stat_shift z csum csq | m k n prologue relu vec_x vec_w
+_ARGS = (_P,) * 8 + (ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _P)
+# x scale shift w stat_shift z csum csq | m k n prologue relu bn | stream
+_SM90_ARGS = (_P,) * 8 + (ctypes.c_longlong, _I, _I, _I, _I, _I, _P)
 BLOCK_M = 128  # rows of one block of the kernel: one partial-sum row each
+TILE_N = (128, 64)  # the sm90 kernel's tile widths, preferred first
 
 
 def _dot(a, b):
@@ -78,14 +91,36 @@ def reference_bn_matmul_stats(x, scale, shift, w, stat_shift, *,
 op("fused_bn_matmul_stats")(reference_bn_matmul_stats)
 
 
-def bn_matmul_stats(x, scale, shift, w, stat_shift, *, relu: bool = True,
-                    fuse_prologue: bool = True):
-    """The CUDA kernel of :func:`reference_bn_matmul_stats` — same
-    contract; x and w bfloat16, M % 128, K % 64, N % 64."""
+def convbn_design(x, w) -> str:
+    """Which kernel computes :func:`bn_matmul_stats` of the contiguous
+    ``x`` and ``w``: ``"sm90"`` where both are 16-byte aligned (TMA's
+    addresses; the gate's K % 64 and N % 64 give 16-byte row strides),
+    ``"wmma"`` otherwise (its element loads take any bfloat16 pointer). A
+    static choice, not a fallback: either kernel raises when its build or
+    launch fails."""
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "sm90" if aligned else "wmma"
+
+
+def convbn_tile_n(m: int, n: int, sms: int) -> int:
+    """The sm90 kernel's tile width for an (M, N) output on ``sms`` SMs:
+    128 or 64, whichever leaves the fuller waves (``fullest_tile_n``)."""
+    return fullest_tile_n(m, n, TILE_N, sms, bm=BLOCK_M)
+
+
+def bn_matmul_stats_partials(x, scale, shift, w, stat_shift, *,
+                             relu: bool = True, fuse_prologue: bool = True):
+    """The kernel's own outputs: ``(z, parts)`` with parts (2, M/128, N)
+    float32, ``parts[0]`` the sums over each 128-row block of (acc − s)
+    and ``parts[1]`` of (acc − s)², acc the float32 accumulator before z
+    is rounded. Given CPU tensors, the plain version's
+    (:func:`reference_partials` of the plain z). x and w bfloat16,
+    M % 128, K % 64, N % 64."""
     if x.device.type == "cpu":
-        return reference_bn_matmul_stats(x, scale, shift, w, stat_shift,
-                                         relu=relu,
-                                         fuse_prologue=fuse_prologue)
+        z = reference_bn_matmul_stats(x, scale, shift, w, stat_shift,
+                                      relu=relu,
+                                      fuse_prologue=fuse_prologue)[0]
+        return z, reference_partials(z, stat_shift)
     if x.device.type != "cuda":
         raise ValueError(f"bn_matmul_stats: unsupported device {x.device}")
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
@@ -111,25 +146,73 @@ def bn_matmul_stats(x, scale, shift, w, stat_shift, *, relu: bool = True,
         raise ValueError("bn_matmul_stats: scale/shift must be (K,) and "
                          "stat_shift (N,)")
     z = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    csum = torch.empty((m // BLOCK_M, n), **f32)
-    csq = torch.empty((m // BLOCK_M, n), **f32)
-    fn = _build.kernel_fn("bn_matmul_stats", "dl4j_bn_matmul_stats", _ARGS)
-    rc = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
-            sf.data_ptr(), z.data_ptr(), csum.data_ptr(), csq.data_ptr(), m,
-            k, n, int(bool(fuse_prologue)), int(bool(relu)),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    parts = torch.empty((2, m // BLOCK_M, n), **f32)
+    design = convbn_design(x, w)
+    args = (x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
+            sf.data_ptr(), z.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr(), m, k, n, int(bool(fuse_prologue)),
+            int(bool(relu)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if design == "sm90":
+        bn = convbn_tile_n(m, n, sm_count(x.device.index or 0))
+        fn = _build.kernel_fn("bn_matmul_stats_sm90",
+                              "dl4j_bn_matmul_stats_sm90", _SM90_ARGS)
+        rc = fn(*args, bn, stream)
+    else:
+        fn = _build.kernel_fn("bn_matmul_stats", "dl4j_bn_matmul_stats",
+                              _ARGS)
+        rc = fn(*args, int(x.data_ptr() % 16 == 0),
+                int(w.data_ptr() % 16 == 0), stream)
+    kernel = "bn_matmul_stats" + ("_sm90" if design == "sm90" else "")
     if rc == -1:
-        raise ValueError("bn_matmul_stats: shape not taken by the kernel")
+        raise ValueError(f"{kernel}: shape not taken by the kernel")
+    if rc == -2:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (or libcuda does not export it)")
     if rc != 0:
-        raise RuntimeError(f"bn_matmul_stats: kernel launch failed with "
+        raise RuntimeError(f"{kernel}: kernel launch failed with "
                            f"cudaError_t {rc}")
     bn_matmul_stats.launches += 1
-    m1 = torch.sum(csum, dim=0) / m
-    m2 = torch.sum(csq, dim=0) / m
-    return z, m1 + sf, torch.clamp_min(m2 - torch.square(m1), 0.0)
+    bn_matmul_stats.sm90_launches += int(design == "sm90")
+    bn_matmul_stats.census[(m, k, n, bool(fuse_prologue), design)] += 1
+    return z, parts
+
+
+def bn_matmul_stats(x, scale, shift, w, stat_shift, *, relu: bool = True,
+                    fuse_prologue: bool = True):
+    """The CUDA kernel of :func:`reference_bn_matmul_stats` — same
+    contract; x and w bfloat16, M % 128, K % 64, N % 64."""
+    if x.device.type == "cpu":
+        return reference_bn_matmul_stats(x, scale, shift, w, stat_shift,
+                                         relu=relu,
+                                         fuse_prologue=fuse_prologue)
+    z, parts = bn_matmul_stats_partials(x, scale, shift, w, stat_shift,
+                                        relu=relu,
+                                        fuse_prologue=fuse_prologue)
+    return (z,) + reduce_partials(parts, stat_shift)
+
+
+def reduce_partials(parts, stat_shift):
+    """``(mean, biased var)`` (N,) float32 from the (2, blocks, N) partial
+    sums of (acc − s) and (acc − s)² over M = 128 · blocks rows: the
+    first moments m1, m2 of (acc − s), mean m1 + s and var m2 − m1²
+    (floored at 0). Five launches on the card: one sum over both."""
+    m = parts.shape[1] * BLOCK_M
+    sf = stat_shift.to(dtype=torch.float32, device=parts.device)
+    m12 = torch.sum(parts, dim=1) / m
+    var = torch.addcmul(m12[1], m12[0], m12[0], value=-1.0)
+    return m12[0] + sf, var.clamp_min_(0.0)
 
 
 bn_matmul_stats.launches = 0
+bn_matmul_stats.sm90_launches = 0
+bn_matmul_stats.census = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    bn_matmul_stats.launches = 0
+    bn_matmul_stats.sm90_launches = 0
+    bn_matmul_stats.census.clear()
 
 
 def bn_matmul_stats_usable(x, scale, shift, w, stat_shift, **kw) -> bool:
@@ -178,6 +261,36 @@ def kernel_tolerance(x, scale, shift, w, stat_shift, z, *, relu=True,
                + u * u * ((zf * zf).mean(0) + e_az * e_az)
                + 1e-5 * (c * c).mean(0) + 1e-6)
     return z_atol + 1e-6, 2.0 ** -7, mean_tol, var_tol
+
+
+def reference_partials(z, stat_shift):
+    """``parts`` (2, M/128, N) of a z (M, N): the sums over each 128-row
+    block of (z − s) and (z − s)² in float32 — the plain counterpart of
+    the kernel's partial sums, which take (acc − s) before the
+    rounding."""
+    m, n = z.shape
+    c = (z.float() - stat_shift.float()).reshape(m // BLOCK_M, BLOCK_M, n)
+    return torch.stack((c.sum(1), (c * c).sum(1)))
+
+
+def partials_tolerance(z, stat_shift):
+    """How far the kernel's partial sums may sit from
+    :func:`reference_partials` of the plain z, per block and column:
+    ``kernel_tolerance``'s derivation per 128-row block
+    (``|acc − z| <= u·|z|``, u = 2^-8; with c = z − s:
+    |Δ(c)| <= u|z| and |Δ(c²)| <= 2u|c||z| + u²z²) summed over the
+    block, plus 1e-5 of the block's sum of |c| (resp. c²) and 1e-6 for
+    the float32 summation orders. The mean and variance checks average
+    over all M rows, where one wrong block of M/128 hides; this check sees
+    each block. Returns the (2, M/128, N) tolerance of ``parts``."""
+    m, n = z.shape
+    u = 2.0 ** -8
+    zf = z.float().reshape(m // BLOCK_M, BLOCK_M, n)
+    c = zf - stat_shift.float()
+    az = zf.abs()
+    sum_tol = (u * az + 1e-5 * c.abs()).sum(1)
+    sq_tol = (2 * u * c.abs() * az + u * u * az * az + 1e-5 * c * c).sum(1)
+    return torch.stack((sum_tol, sq_tol)) + 1e-6
 
 
 class _FusedMatmulBN(torch.autograd.Function):

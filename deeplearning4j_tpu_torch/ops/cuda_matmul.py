@@ -44,6 +44,7 @@ is only a reference when it is computed so.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -95,6 +96,26 @@ def matmul_design(x2, w, out) -> str:
     k, n = w.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (x2, w, out))
     return "sm90" if k % 8 == 0 and n % 8 == 0 and aligned else "wmma"
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fullest_tile_n(m: int, n: int, candidates, sms: int, bm: int = 128):
+    """The tile width among ``candidates`` whose waves of one tile an SM
+    leave the least of the card idle: the useful share m·n of waves · sms
+    · bm · bn (padding past M and N and the last wave's idle SMs both
+    count against a width); the first candidate wins a tie. The sm90
+    kernels of a persistent grid (``csrc/*_sm90.cu``) take it as their
+    BN."""
+    def share(bn):
+        tiles = -(-m // bm) * -(-n // bn)
+        return m * n / (-(-tiles // sms) * sms * bm * bn)
+
+    return max(candidates, key=share)
 
 
 def fused_matmul(x, w, b=None, *, activation: str = "none",

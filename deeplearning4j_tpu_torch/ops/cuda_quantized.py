@@ -9,10 +9,17 @@ Counterpart of the Pallas half of ``deeplearning4j_tpu/ops/quantized.py``
   ``csrc/matmul_int8.cu``: per-row int8 activations and float32 row scales
   from a (M, K) x, bit for bit ``quantized._row_quantize``. Its launches
   are counted in ``row_quantize.launches``.
-* :func:`int8_matmul` launches ``dl4j_matmul_int8``: the int8 dot on s8
-  tensor cores with an int32 accumulator (exact at any K) and the float32
-  de-scale epilogue, bit for bit :func:`int8_matmul_reference`. Its
-  launches are counted in ``int8_matmul.launches``.
+* :func:`int8_matmul` launches a GEMM: the int8 dot on s8 tensor cores
+  with an int32 accumulator (exact at any K) and the float32 de-scale
+  epilogue, bit for bit :func:`int8_matmul_reference`.
+  :func:`int8_design` picks the kernel statically: ``"sm90"``
+  (``csrc/matmul_int8_sm90.cu``, wgmma fed by TMA through an mbarrier
+  ring) where TMA can read q (K % 16, 16-byte aligned), ``"wmma"``
+  (``dl4j_matmul_int8``) otherwise. 8-bit wgmma reads its operands
+  K-major only, so the sm90 design takes the weight as its (N, K) copy
+  (:func:`kmajor_weight`, made once a weight). Its launches are counted in
+  ``int8_matmul.launches``, the sm90 design's also in
+  ``int8_matmul.sm90_launches``.
 * :func:`matmul_int8` is the two in a row — the forward of the op's
   ``"cuda"`` helper; :func:`matmul_int8_reference` is its plain version
   (the generic forward, ``_matmul_int8_raw``). :func:`matmul_int8_helper`
@@ -39,12 +46,16 @@ import torch
 from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import quantized as Q
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda, _stream
+from deeplearning4j_tpu_torch.ops.cuda_matmul import fullest_tile_n, sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _ROW_ARGS = (_P, _P, _P, _LL, _I, _I, _I, _P)
-_GEMM_ARGS = (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P)
+_GEMM_ARGS = (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P)
+# q xs wt ws out | m n k dtype bn | stream
+_SM90_ARGS = (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P)
+TILE_N = (192, 128)  # the sm90 GEMM's tile widths, preferred first
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -91,10 +102,54 @@ def int8_matmul_reference(xq, xs, w_q, w_scale, dtype: torch.dtype):
     return Q._int8_descale(xq, xs, w_q, w_scale, dtype)
 
 
+def int8_design(xq) -> str:
+    """Which GEMM multiplies the contiguous (M, K) int8 ``xq``: ``"sm90"``
+    where TMA can read it — K % 16 == 0 (16-byte rows) and a 16-byte
+    aligned pointer — ``"wmma"`` otherwise (an odd K, an offset view). The
+    weight does not enter: the sm90 design reads its own K-major copy. A
+    static choice, not a fallback: either kernel raises when its build or
+    launch fails."""
+    return ("sm90" if xq.shape[1] % 16 == 0 and xq.data_ptr() % 16 == 0
+            else "wmma")
+
+
+def int8_tile_n(m: int, n: int, sms: int) -> int:
+    """The sm90 GEMM's tile width for an (M, N) output on ``sms`` SMs:
+    192 or 128, whichever leaves the fuller waves (``fullest_tile_n``)."""
+    return fullest_tile_n(m, n, TILE_N, sms)
+
+
+def kmajor_weight(w_q):
+    """The K-major (N, K) copy of an int8 (K, N) weight that the sm90 GEMM
+    reads (8-bit wgmma has no transpose). Made once and kept on ``w_q``
+    itself, so it lives and dies with the weight; remade when ``w_q``
+    changes in place (its ``_version``) or its storage, shape or strides
+    change. Never keyed on the pointer alone: the caching allocator hands a
+    freed weight's address to the next tensor. An inference tensor keeps
+    no version counter, so a kept copy could go stale unseen: its copy is
+    made at every call. Copies made are counted in
+    ``kmajor_weight.copies``."""
+    if w_q.is_inference():
+        kmajor_weight.copies += 1
+        return w_q.t().contiguous()
+    key = (w_q._version, w_q.data_ptr(), tuple(w_q.shape), w_q.stride())
+    kept = getattr(w_q, "_dl4j_kmajor", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    wt = w_q.t().contiguous()
+    kmajor_weight.copies += 1
+    w_q._dl4j_kmajor = (key, wt)
+    return wt
+
+
+kmajor_weight.copies = 0
+
+
 def int8_matmul(xq, xs, w_q, w_scale, dtype: torch.dtype):
     """The CUDA kernel of :func:`int8_matmul_reference`: xq (M, K) int8,
     xs (M, 1) or (M,) float32, w_q (K, N) int8, w_scale (N,) or (1, N)
-    float32 -> (M, N) of ``dtype`` (float32, bfloat16 or float16)."""
+    float32 -> (M, N) of ``dtype`` (float32, bfloat16 or float16), by the
+    design :func:`int8_design` picks."""
     if xq.device.type == "cpu":
         return int8_matmul_reference(xq, xs, w_q, w_scale, dtype)
     if xq.device.type != "cuda":
@@ -110,7 +165,7 @@ def int8_matmul(xq, xs, w_q, w_scale, dtype: torch.dtype):
         raise ValueError(f"int8_matmul: scales {tuple(xs.shape)} and "
                          f"{tuple(w_scale.shape)} for ({m}, {k})x({k}, {n}),"
                          f" out {dtype}")
-    xq, w_q = xq.contiguous(), w_q.contiguous()
+    xq = xq.contiguous()
     xs = xs.to(torch.float32).reshape(m).contiguous()
     ws = w_scale.to(torch.float32).reshape(n).contiguous()
     if any(t.device != xq.device for t in (xs, w_q, ws)):
@@ -118,18 +173,33 @@ def int8_matmul(xq, xs, w_q, w_scale, dtype: torch.dtype):
     out = torch.empty((m, n), dtype=dtype, device=xq.device)
     if m == 0 or n == 0:  # nothing to compute: no launch
         return out
-    vec_a = int(k % 16 == 0 and xq.data_ptr() % 16 == 0)
-    vec_b = int(n % 16 == 0 and w_q.data_ptr() % 16 == 0)
-    fn = _build.kernel_fn("matmul_int8", "dl4j_matmul_int8", _GEMM_ARGS)
-    rc = fn(xq.data_ptr(), xs.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), m, n, k, _DTYPE_CODES[dtype], vec_a, vec_b,
-            _stream(xq))
-    _check(rc, "int8_matmul", f"({m}, {k})x({k}, {n})")
+    design = int8_design(xq)
+    if design == "sm90":
+        wt = kmajor_weight(w_q)
+        bn = int8_tile_n(m, n, sm_count(xq.device.index or 0))
+        fn = _build.kernel_fn("matmul_int8_sm90", "dl4j_matmul_int8_sm90",
+                              _SM90_ARGS)
+        rc = fn(xq.data_ptr(), xs.data_ptr(), wt.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), m, n, k, _DTYPE_CODES[dtype], bn, _stream(xq))
+    else:
+        w_q = w_q.contiguous()
+        vec_b = int(n % 16 == 0 and w_q.data_ptr() % 16 == 0)
+        fn = _build.kernel_fn("matmul_int8", "dl4j_matmul_int8", _GEMM_ARGS)
+        rc = fn(xq.data_ptr(), xs.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), m, n, k, _DTYPE_CODES[dtype], vec_b,
+                _stream(xq))
+    kernel = "int8_matmul" + ("_sm90" if design == "sm90" else "")
+    if rc == -2:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (or libcuda does not export it)")
+    _check(rc, kernel, f"({m}, {k})x({k}, {n})")
     int8_matmul.launches += 1
+    int8_matmul.sm90_launches += int(design == "sm90")
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.sm90_launches = 0
 
 
 def matmul_int8_reference(x, w_q, w_scale):
@@ -180,6 +250,7 @@ KERNELS = {"matmul_int8": int8_matmul, "row_quantize": row_quantize}
 def reset_launch_counts() -> None:
     for w in KERNELS.values():
         w.launches = 0
+    int8_matmul.sm90_launches = 0
 
 
 def launch_counts() -> dict:

@@ -37,10 +37,12 @@ def _device_us(evt) -> float:
 
 
 def _profile(fn, steps: int, trace_path=None, *, steps_per_call: int = 1,
-             top: int = 8):
+             top: int = 8, named=()):
     """Profile ``steps`` calls of ``fn`` (each ``steps_per_call`` steps of
     the workload); every per-step figure is over ``steps *
-    steps_per_call`` steps. ``top`` kernels by device time are listed."""
+    steps_per_call`` steps. ``top`` kernels by device time are listed, and
+    for each substring in ``named`` the kernels whose name holds it are
+    summed, wherever they rank."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -67,6 +69,11 @@ def _profile(fn, steps: int, trace_path=None, *, steps_per_call: int = 1,
         "top_kernels": [{"name": e.key[:80], "calls_per_step":
                          e.count / steps, "ms_per_step":
                          _device_us(e) / 1e3 / steps} for e in top],
+        "named_kernels": {s: {
+            "calls_per_step": sum(e.count for e in kernels if s in e.key)
+            / steps,
+            "ms_per_step": sum(_device_us(e) for e in kernels if s in e.key)
+            / 1e3 / steps} for s in named},
     }
 
 

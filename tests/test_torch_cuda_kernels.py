@@ -21,7 +21,12 @@ flash kernels. Training: every updater kind on
 ragged, aligned and unaligned leaves in the three dtypes; the convbn
 kernel's gate edges, prologue/relu on and off, its backward against
 autograd of the plain chain, and a small ResNet-50 in both
-configurations. The fused matmul epilogue: ragged M and N and K that are
+configurations; its tensor-core "sm90" design at every tile width, one
+and many K slabs and row blocks (the same bits twice), each 128-row
+block's partial sums
+to ``partials_tolerance``, the faulted plain variants of
+``testing/matmul_check.py`` beyond that check at a stage-3 shape, and
+the WMMA design on operands off 16-byte alignment. The fused matmul epilogue: ragged M and N and K that are
 not tile multiples, every activation, the three dtypes, unaligned
 operands (element loads), the tensor-core "sm90" design at ragged M, K
 and N (multiples of 8) for bfloat16/float16 and which design
@@ -40,7 +45,13 @@ and K (7, 768, 3072), 2-D and 3-D x, (N,) and (1, N) scales, unaligned
 operands (element paths), the three dtypes; the straight-through
 gradients through the registry against the generic run's; the gate and
 the wrappers' refusals; and a small int8 encoder recorded through
-SameDiff whose every dense MatMul launches the kernels. Attention at a
+SameDiff whose every dense MatMul launches the kernels; the sm90 int8
+GEMM bit for bit at ragged M (1, 130, 4095), N (2, 9, 200, 768) and K
+(16, 784, 3072), the same bits twice, the s32 accumulator map read out
+of a product whose every entry is known (r + 4096·c) in both tile
+widths, its faulted variants breaking bit-exactness, and routing by
+counters with the K-major weight copy made once and remade after an
+in-place change. Attention at a
 head dim past the kernels (D = 320) runs the plain op and counts a
 generic dispatch.
 
@@ -778,6 +789,81 @@ def test_resnet50_trains_through_both_kernels_on_cuda(cuda):
             assert cc.bn_matmul_stats.launches - c0 >= 2 * 2 * 13
 
 
+def _convbn_all(args, kw):
+    """(z, parts, mean, var) of the kernel and of the plain version."""
+    z, parts = cc.bn_matmul_stats_partials(*args, **kw)
+    got = (z, parts) + cc.reduce_partials(parts, args[4])
+    zr, mr, vr = cc.reference_bn_matmul_stats(*args, **kw)
+    return got, (zr, cc.reference_partials(zr, args[4]), mr, vr)
+
+
+# every tile width (N 64 takes BN 64; 192 a BN-128 tile half past N),
+# one and many K slabs, one and many row blocks, the stream shape's K 64
+@pytest.mark.parametrize("prologue,relu", [(True, True), (True, False),
+                                           (False, False)])
+@pytest.mark.parametrize("m,k,n", [(128, 64, 64), (256, 64, 192),
+                                   (384, 128, 128), (1024, 64, 256),
+                                   (6272, 2048, 512), (25088, 1024, 256)])
+def test_convbn_sm90_matches_plain(cuda, m, k, n, prologue, relu):
+    """The tensor-core design against the plain version: z, mean and var
+    within ``kernel_tolerance``, each 128-row block's partial sums within
+    ``partials_tolerance``; the same bits twice."""
+    from deeplearning4j_tpu_torch.testing import matmul_check as mc
+
+    args = _convbn_inputs(m, k, n, cuda, m + k + n)
+    kw = dict(relu=relu, fuse_prologue=prologue)
+    assert cc.convbn_design(args[0], args[3]) == "sm90"
+    before = (cc.bn_matmul_stats.launches, cc.bn_matmul_stats.sm90_launches)
+    got, plain = _convbn_all(args, kw)
+    again, _ = _convbn_all(args, kw)
+    torch.cuda.synchronize()
+    assert (cc.bn_matmul_stats.launches,
+            cc.bn_matmul_stats.sm90_launches) == (before[0] + 2,
+                                                  before[1] + 2)
+    assert mc.convbn_share(got, plain, args, **kw) <= 1.0
+    for a, b in zip(got[:2], again[:2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("prologue", [True, False])
+def test_convbn_faulted_variants_exceed_the_check(cuda, prologue):
+    """At a stage-3 shape (196 row blocks, where one doubled block moves
+    the mean and variance by less than their tolerance) each faulted plain
+    variant of ``testing/matmul_check.py`` still lies beyond the check the
+    kernel passes: the partial sums see the block."""
+    from deeplearning4j_tpu_torch.testing import matmul_check as mc
+
+    args = _convbn_inputs(25088, 1024, 256, cuda, 3)
+    kw = dict(relu=prologue, fuse_prologue=prologue)
+    got, plain = _convbn_all(args, kw)
+    assert mc.convbn_share(got, plain, args, **kw) <= 1.0
+    for fault in mc.convbn_faults(prologue):
+        bad = mc.bn_matmul_stats_variant(*args, **kw, fault=fault)
+        assert mc.convbn_share(bad, plain, args, **kw) > 1.0, fault
+
+
+@pytest.mark.parametrize("moved", ["x", "w"])
+def test_convbn_wmma_takes_unaligned_operands(cuda, moved):
+    """An x or w one element into its buffer (off 16-byte alignment, so TMA
+    cannot read it) runs the WMMA kernel's element loads."""
+    args = list(_convbn_inputs(512, 128, 128, cuda, 4))
+    i = 0 if moved == "x" else 3
+    t = args[i]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    args[i] = buf[1:].view(t.shape)
+    args[i].copy_(t)
+    assert args[i].data_ptr() % 16 != 0
+    assert cc.convbn_design(args[0], args[3]) == "wmma"
+    kw = dict(relu=True, fuse_prologue=True)
+    before = (cc.bn_matmul_stats.launches, cc.bn_matmul_stats.sm90_launches)
+    out = cc.bn_matmul_stats(*args, **kw)
+    ref = cc.reference_bn_matmul_stats(*args, **kw)
+    torch.cuda.synchronize()
+    assert (cc.bn_matmul_stats.launches,
+            cc.bn_matmul_stats.sm90_launches) == (before[0] + 1, before[1])
+    _check_convbn(out, ref, cc.kernel_tolerance(*args, ref[0], **kw))
+
+
 # ----------------------------------------------------------- fused matmul
 # act(x @ w + b) against its plain version (float32 product, float32 bias
 # and activation, one cast), held to cuda_matmul.kernel_tolerance: the
@@ -1274,6 +1360,110 @@ def test_matmul_int8_unaligned_operands(cuda, dtype):
         769, 33)
     wo.copy_(wq)
     _check_int8(xo, wo, ws)
+
+
+# the sm90 GEMM: ragged M, N past and short of both tile widths (N 2, 9:
+# element stores), K of one 16-byte row and a partial 128-deep slab
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 130, 4095])
+@pytest.mark.parametrize("n", [2, 9, 200, 768])
+@pytest.mark.parametrize("k", [16, 784, 3072])
+def test_matmul_int8_sm90_matches_plain_bit_for_bit(cuda, dtype, m, n, k):
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+
+    x, wq, ws = _int8_inputs((m,), k, n, dtype, cuda, seed=m + n + k + 1)
+    xq, xs = cq.row_quantize(x)
+    assert cq.int8_design(xq) == "sm90"
+    before = cq.int8_matmul.sm90_launches
+    y = cq.int8_matmul(xq, xs, wq, ws, dtype)
+    again = cq.int8_matmul(xq, xs, wq, ws, dtype)
+    torch.cuda.synchronize()
+    assert cq.int8_matmul.sm90_launches == before + 2
+    assert torch.equal(y, cq.int8_matmul_reference(xq, xs, wq, ws, dtype))
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("n", [200, 768])
+def test_int8_sm90_accumulator_map(cuda, n):
+    """An integer product whose every entry is known, acc[r, c] =
+    r + 4096·c (exact in float32), with unit scales: each s32 register of
+    m64nNk32 lands at the (row, column) acc_row / acc_col give it, in both
+    tile widths (M 4096: N 200 takes BN 128, N 768 BN 192)."""
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+
+    m, k = 4096, 4176
+    r = torch.arange(m)
+    c = torch.arange(n)
+    q = torch.zeros((m, k), dtype=torch.int64)
+    w = torch.zeros((k, n), dtype=torch.int64)
+    q[:, 0], q[:, 1] = r % 64, r // 64       # r = r0 + 64 r1
+    w[0], w[1] = 1, 64
+    q[:, 2:66] = 64                          # 64 · 64 · (c % 64)
+    w[2:66] = (c % 64).reshape(1, n)
+    q[:, 66:4162] = 64                       # 4096 · 64 · (c // 64)
+    w[66:4162] = (c // 64).reshape(1, n)
+    q, w = q.to(cuda, torch.int8), w.to(cuda, torch.int8)
+    from deeplearning4j_tpu_torch.ops.cuda_matmul import sm_count
+
+    assert cq.int8_tile_n(m, n, sm_count(0)) == (192 if n == 768 else 128)
+    ones_m = torch.ones(m, device=cuda)
+    ones_n = torch.ones(n, device=cuda)
+    assert cq.int8_design(q) == "sm90"
+    want = (r.reshape(m, 1) + 4096 * c.reshape(1, n)).to(cuda, torch.float32)
+    y = cq.int8_matmul(q, ones_m, w, ones_n, torch.float32)
+    assert torch.equal(y, want)
+    y = cq.int8_matmul(q, ones_m, -w, ones_n, torch.float32)  # signed s8
+    assert torch.equal(y, -want)
+
+
+def test_int8_faulted_variants_break_bit_exactness(cuda):
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+    from deeplearning4j_tpu_torch.testing import matmul_check as mc
+
+    x, wq, ws = _int8_inputs((4096,), 768, 768, torch.float32, cuda, seed=2)
+    xq, xs = cq.row_quantize(x)
+    y = cq.int8_matmul(xq, xs, wq, ws, torch.float32)
+    assert torch.equal(y, cq.int8_matmul_reference(xq, xs, wq, ws,
+                                                   torch.float32))
+    for fault in mc.INT8_FAULTS:
+        bad = mc.int8_matmul_variant(xq, xs, wq, ws, torch.float32,
+                                     fault=fault)
+        assert not torch.equal(bad, y), fault
+
+
+def test_int8_design_routes_by_counters(cuda):
+    """sm90 where TMA reads q (K % 16, aligned), wmma for an odd K or an
+    offset q; the sm90 counter moves only for sm90. The K-major weight is
+    copied once, reused, and remade after an in-place change of w_q."""
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+
+    for k, shift, want in ((768, False, "sm90"), (7, False, "wmma"),
+                           (776, True, "wmma")):
+        x, wq, ws = _int8_inputs((33,), k, 40, torch.bfloat16, cuda, seed=k)
+        xq, xs = cq.row_quantize(x)
+        if shift:
+            buf = torch.empty(xq.numel() + 1, dtype=torch.int8, device=cuda)
+            xq = buf[1:].view(xq.shape).copy_(xq)
+        assert cq.int8_design(xq) == want, (k, shift)
+        before = (cq.int8_matmul.launches, cq.int8_matmul.sm90_launches)
+        y = cq.int8_matmul(xq, xs, wq, ws, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert (cq.int8_matmul.launches, cq.int8_matmul.sm90_launches) == (
+            before[0] + 1, before[1] + int(want == "sm90"))
+        assert torch.equal(y, cq.int8_matmul_reference(xq, xs, wq, ws,
+                                                       torch.bfloat16))
+    x, wq, ws = _int8_inputs((64,), 256, 96, torch.float32, cuda, seed=9)
+    xq, xs = cq.row_quantize(x)
+    copies = cq.kmajor_weight.copies
+    cq.int8_matmul(xq, xs, wq, ws, torch.float32)
+    cq.int8_matmul(xq, xs, wq, ws, torch.float32)
+    assert cq.kmajor_weight.copies == copies + 1
+    wq.neg_()  # in place: the kept copy is stale
+    y = cq.int8_matmul(xq, xs, wq, ws, torch.float32)
+    torch.cuda.synchronize()
+    assert cq.kmajor_weight.copies == copies + 2
+    assert torch.equal(y, cq.int8_matmul_reference(xq, xs, wq, ws,
+                                                   torch.float32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -27,6 +27,10 @@ backward is a float32 product).
   to what the kernel takes (float32/bfloat16/float16 x, matching K and
   scale), which the port's gate checks itself.
 * ``_check_quantize_round_trip`` of the reference, on the port's ops.
+* The sm90 GEMM's routing: ``int8_design`` by K and q's alignment,
+  ``int8_tile_n``, the K-major weight copy (made once, reused, remade
+  after an in-place change; never made for CPU tensors) and the faulted
+  variants of ``testing/matmul_check.py`` breaking bit-exactness.
 """
 
 import ml_dtypes
@@ -320,3 +324,99 @@ def test_kernel_row_arithmetic_transcribed_is_bit_exact(dtype):
     tq, ts = T._row_quantize(torch.from_numpy(x).to(TD[dtype]))
     np.testing.assert_array_equal(ts.numpy(), scale)
     np.testing.assert_array_equal(tq.numpy(), q)
+
+
+# ------------------------------------------- the sm90 GEMM's routing (CPU)
+# ``int8_design`` sends a q TMA can read to the wgmma kernel, which reads
+# the weight as its K-major (N, K) copy (``kmajor_weight``, kept on the
+# weight and remade when it changes); ``int8_tile_n`` picks its tile
+# width; ``testing/matmul_check.py``'s faulted variants must break the
+# bit-exact check.
+
+@pytest.mark.parametrize("k", [16, 768, 3072, 7, 776, 8])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_int8_design_by_k_and_alignment(k, offset):
+    """sm90 for K % 16 == 0 and a 16-byte-aligned q (TMA's row stride and
+    address), wmma otherwise — whatever the weight."""
+    buf = torch.zeros(5 * k + 16, dtype=torch.int8)
+    assert buf.data_ptr() % 16 == 0
+    xq = buf[offset:offset + 5 * k].view(5, k)
+    want = "sm90" if k % 16 == 0 and offset == 0 else "wmma"
+    assert CQ.int8_design(xq) == want
+
+
+@pytest.mark.parametrize("m,n,bn", [(4096, 768, 192), (4096, 3072, 192),
+                                    (4096, 2, 128), (4096, 200, 128),
+                                    (17, 768, 128)])
+def test_int8_tile_n_fills_the_waves(m, n, bn):
+    """BN 192 gives M 4096 × N 768 one wave of 128 tiles on 132 SMs (BN 128
+    would take 192 tiles, a second wave 45% full); at N 3072 the two waste
+    the same and the first, 192, wins; a narrow N takes 128."""
+    assert CQ.int8_tile_n(m, n, 132) == bn
+
+
+def test_kmajor_weight_is_made_once_and_remade_after_a_change():
+    wq, _ = _weights(96, 40, 31)
+    copies = CQ.kmajor_weight.copies
+    wt = CQ.kmajor_weight(wq)
+    assert wt.shape == (40, 96) and wt.is_contiguous()
+    assert torch.equal(wt, wq.t())
+    assert CQ.kmajor_weight(wq) is wt  # reused
+    assert CQ.kmajor_weight.copies == copies + 1
+    wq.mul_(-1)  # in place: the version moves, the copy is stale
+    wt2 = CQ.kmajor_weight(wq)
+    assert wt2 is not wt and torch.equal(wt2, wq.t())
+    assert CQ.kmajor_weight.copies == copies + 2
+    other = wq.clone()  # same values, another tensor: its own copy
+    assert CQ.kmajor_weight(other) is not wt2
+    assert CQ.kmajor_weight.copies == copies + 3
+
+
+def test_kmajor_weight_of_an_inference_tensor_is_made_at_every_call():
+    """A weight made under ``torch.inference_mode`` has no version
+    counter to key on: its copy is made afresh each call, never kept."""
+    with torch.inference_mode():
+        wq, _ = _weights(64, 24, 33)
+    copies = CQ.kmajor_weight.copies
+    for _ in range(2):
+        wt = CQ.kmajor_weight(wq)
+        assert torch.equal(wt, wq.t()) and wt.is_contiguous()
+    assert CQ.kmajor_weight.copies == copies + 2
+    assert not hasattr(wq, "_dl4j_kmajor")
+
+
+def test_cpu_int8_matmul_never_makes_the_kmajor_copy():
+    """CPU tensors take the plain version: no K-major copy, no launch."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(33, 256)
+                         .astype(np.float32))
+    wq, ws = _weights(256, 96, 32)
+    copies = CQ.kmajor_weight.copies
+    CQ.reset_launch_counts()
+    xq, xs = CQ.row_quantize(x)
+    y = CQ.int8_matmul(xq, xs, wq, ws, torch.float32)
+    assert torch.equal(y, CQ.int8_matmul_reference(xq, xs, wq, ws,
+                                                   torch.float32))
+    assert torch.equal(CQ.matmul_int8(x, wq, ws), T._matmul_int8_raw(x, wq,
+                                                                     ws))
+    assert CQ.kmajor_weight.copies == copies
+    assert not hasattr(wq, "_dl4j_kmajor")
+    assert CQ.int8_matmul.sm90_launches == 0
+    assert CQ.launch_counts() == {"matmul_int8": 0, "row_quantize": 0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [256, 768])
+def test_int8_faulted_variants_break_the_bit_exact_check(dtype, k):
+    """Each faulted plain variant of the sm90 GEMM (the last 128-deep K
+    slab dropped, the scales read along the wrong axis) differs from the
+    plain version; without a fault its arithmetic is the plain version's."""
+    from deeplearning4j_tpu_torch.testing import matmul_check as mc
+
+    x = torch.from_numpy(np.random.RandomState(k).randn(64, k)
+                         .astype(np.float32)).to(TD[dtype])
+    wq, ws = _weights(k, 48, k + 1)
+    xq, xs = T._row_quantize(x)
+    ref = CQ.int8_matmul_reference(xq, xs, wq, ws, TD[dtype])
+    for fault in mc.INT8_FAULTS:
+        bad = mc.int8_matmul_variant(xq, xs, wq, ws, TD[dtype], fault=fault)
+        assert bad.shape == ref.shape and not torch.equal(bad, ref), fault
