@@ -10,7 +10,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    (one process per source, in parallel), and ptxas's register report.
 3. ``kernels`` — each kernel at its path's shapes, held against its plain
    PyTorch version on the same inputs (max abs error and tolerance):
-   attention in float32 and bfloat16 at the serving shapes; the fused
+   attention in float32 and bfloat16 at the serving shapes (and float32 at
+   D 192, which the float32 tensor-core forward refuses: the CUDA-core one
+   stays checked and timed); the fused
    updater (Nesterovs) in float32 and bfloat16 at the largest ResNet-50
    leaf and a 3×3×256×256 conv leaf; the BN/matmul/BN-stats kernel in
    bfloat16 at the stage-1 c1 and c3 and the stage-3 c1 1×1 convs of
@@ -26,11 +28,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    shape A (``onnx_bert``'s attention); the fused matmul + bias +
    activation epilogue in float32 and bfloat16 at the three imported
    BERT-base shapes (M 4096; K×N 768×768, 768×3072 with gelu_exact,
-   3072×768), every activation at 768×768, a ragged M of 4000, a K of 772
-   and ragged M 4095 × K 776 × N 1000 (bfloat16 runs the tensor-core
-   "sm90" design where TMA can read the operands and the WMMA one at
-   K 772; each sm90 entry's faulted plain variants — the last K slab
-   dropped, a slab added twice — must exceed the tolerance); the
+   3072×768), every activation at 768×768, a ragged M of 4000, a K of 770
+   (TMA cannot read it: the WMMA design in bfloat16, the CUDA-core SGEMM in
+   float32), ragged M 4095 × K 776 × N 1000 and the 768×9 classifier
+   (bfloat16 runs the tensor-core "sm90" design where TMA can read the
+   operands; each tensor-core entry's faulted plain variants — the last K
+   slab dropped, a slab added twice — must exceed the tolerance); the
    fused LayerNorm + activation at 4096 × 768 (the fine-tune head's rows)
    with gelu, gelu_exact and none in float32 and bfloat16; the int8
    serving matmul — the row quantization and the s8 tensor-core GEMM with
@@ -46,7 +49,14 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    (``testing/flash_check.py``), each faulted plain variant (keep mask
    shifted a column, last tile dropped, a rescale skipped) must exceed
    it, two runs must give the same bits, and the dropout forward's
-   dropped entries must be keep_mask's. With
+   dropped entries must be keep_mask's. The float32 flash forward at
+   D <= 128 and the float32 fused matmul where TMA reads x run the
+   "sm90_f32" designs — every product three TF32 passes on the tensor
+   cores (``testing/split_f32.py``) — held to the float32 checks
+   unchanged; their faulted plain variants add one TF32 pass (and the
+   matmul's slabs are 32 deep); their entries carry the one-off K-major
+   split copy of the weight and the bound at the split's rate (three
+   TF32 passes). With
    kernel / plain / library times (device time: the calls replayed from a
    CUDA graph between CUDA events, so no host work sits between launches)
    and the least time the card could take (``bound_ms``); the updater's
@@ -56,8 +66,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    GenerativeEngine through start()/submit()/stop(): once with
    helper_mode="generic" (plain PyTorch attention) as the reference, then
    — with every launch count set to 0 just before — through the kernels.
-   Checks finish reasons, launch counts, and greedy tokens against the
-   reference run.
+   Checks finish reasons, launch counts (every prefill on the float32
+   tensor-core forward), and greedy tokens against the reference run.
 5. ``train``   — ResNet-50 at full width (224×224×3, 1000 classes), the
    usual configuration (float32, composed blocks, Nesterovs lr 0.1),
    batch 32, trained through ``ResNet50().init()`` → ``fit``: 3 steps
@@ -77,8 +87,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    110.1M parameters in 206 leaves, random weights from the port's seed),
    float32, ``fit_classifier`` on batch 32 × seq 128 with ragged rows,
    Adam lr 2e-5, attention and FFN dropout 0.1: 3 steps through the
-   kernels (launch counts set to 0 just before; 12 flash forwards, 12 dq,
-   12 dk/dv and 206 updater launches a step), then the same steps with
+   kernels (launch counts set to 0 just before; 12 flash forwards — all
+   on the float32 tensor-core design — 12 dq, 12 dk/dv and 206 updater
+   launches a step), then the same steps with
    the plain flash versions installed as the ``cuda`` helper (same
    seeds, same dropped entries), and at dropout 0 against
    ``helper_mode="generic"``; losses step by step and parameters after
@@ -87,8 +98,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 8. ``bert_mlm`` — the same for ``BertModel(..., dtype=bfloat16)``,
    ``fit_mlm`` on batch 8 × seq 512 with 15% of positions masked; its
    forward, dq and dk/dv launches (12 each a step) are the sm90 kernels',
-   and every float32 phase launches none of them (nor the sm90 fused
-   matmul).
+   and every float32 phase launches none of them (nor the 16-bit sm90
+   fused matmul): their flash forwards and fused matmuls are all the
+   float32 tensor-core ("sm90_f32") designs', none the CUDA-core ones.
 9. ``onnx_bert`` — the imported-graph path: the ONNX bytes of a
    BERT-base-width encoder (12 layers, d 768, 12 heads, ff 3072, vocab
    30522, ~108.5M float32 weights from a numpy seed) built by the port's
@@ -113,7 +125,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    attention, 74 epilogue and 1 LayerNorm fusions, and each step — launch
    counts set to 0 just before the 3 steps and read just after — must
    launch 1 fused LayerNorm, 12 flash forwards, 12 dq, 12 dk/dv, 74 fused
-   matmuls and 201 updater steps. Losses are held against a
+   matmuls (forwards and matmuls on the sm90_f32 designs, with one K-major
+   split copy of each matmul's weight a step: the updater's weights are
+   new tensors) and 201 updater steps. Losses are held against a
    ``helper_mode="generic"`` run from the same weights (step 1 to 1e-5
    relative; later steps and the parameters to 3× a generic run from
    weights moved by one unit in the last place), and the last loss must
@@ -160,7 +174,9 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
               "bfloat16": 989e12,    # dense tensor cores
-              "int8": 1979e12}       # dense int8 tensor cores (TOP/s)
+              "int8": 1979e12,       # dense int8 tensor cores (TOP/s)
+              # float32 products as three TF32 passes (the sm90_f32 designs)
+              "tf32_split": 494.7e12 / 3}
 # kernel vs plain version, elementwise |kernel - plain| <= ATOL + RTOL*|plain|:
 #  float32  — same math, another summation order: 1e-4 absolute (errors of
 #             ~1e-6 are seen)
@@ -176,12 +192,23 @@ RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 # dq + 2^-7·scale·(|dS|·|K|) (dS unscaled, as the TPU dq rounds it), the
 # products of the plain version's absolute values in float32.
 TOL_LSE = 1e-4          # float32 in both dtypes; logsumexp of <= 512 terms
-FLASH_FWD_KERNEL = {"simt": "flash_attn_fwd", "sm90": "flash_attn_fwd_sm90"}
+# the float32 forward with D <= 128 (ca.flash_design: "sm90_f32") forms
+# every product from TF32 parts (testing/split_f32.py) and is held to the
+# float32 bounds above unchanged; its faulted plain variants — one TF32
+# pass, the last key tile dropped, a rescale skipped, the keep mask shifted
+# a column — must exceed them
+FLASH_FWD_KERNEL = {"simt": "flash_attn_fwd", "sm90": "flash_attn_fwd_sm90",
+                    "sm90_f32": "flash_attn_fwd_f32_sm90"}
+FLASH_F32_FAULTS = ("single_pass_tf32", "keep_shifted", "last_tile_dropped",
+                    "rescale_skipped")
 FLASH_DQ_KERNEL = {"simt": "flash_attn_dq", "sm90": "flash_attn_dq_sm90"}
 FLASH_DKV_KERNEL = {"simt": "flash_attn_dkv", "sm90": "flash_attn_dkv_sm90"}
 LOGIT_TOL = 1e-3        # kernel vs generic GPT logits (float32, 12 layers)
 
 FLASH_SHAPE = dict(bh=12, t=512, d=64)
+# a float32 head dim the tensor-core forward refuses: the CUDA-core one
+# stays checked and timed there
+FLASH_SIMT_D = 192
 PAGED_SHAPE = dict(slots=8, heads=12, d=64, page=16, max_pages=64)
 # fused updater: the fc weight (the largest leaf) and a stage-3 3×3 conv
 UPDATER_SHAPES = {"fc.W": (2048, 1000), "conv3x3": (3, 3, 256, 256)}
@@ -218,18 +245,22 @@ BERT_YARDSTICK = 3.0
 # fused matmul epilogue at the imported BERT-base shapes (M = batch 32 ·
 # seq 128): (K, N, activation) per layer — q/k/v/o projections ×4, FF1
 # with the exact gelu, FF2 — plus every activation at one shape, a ragged
-# M, a K that is no multiple of 8 (bfloat16 runs the "wmma" design there:
-# TMA cannot read it) and ragged M, K and N with K and N multiples of 8 but
-# not of the sm90 tile (M 4095, K 776 = 12 slabs + 8, N 1000 = 5 tiles of
-# 192 + 40). Tolerance: cuda_matmul.kernel_tolerance — the float32
-# summation bound of K terms (2·K·2^-24·max|x|·max|w|) plus, in bfloat16,
-# one unit in the last place of the plain output; each sm90 entry's faulted
-# plain variants (testing/matmul_check.py) must exceed it.
+# M, a K that is no multiple of 4 (TMA cannot read it: bfloat16 runs the
+# "wmma" design there and float32 the CUDA-core "simt" one), ragged M, K
+# and N with K and N multiples of 8 but not of the sm90 tile (M 4095, K
+# 776 = 12 slabs + 8, N 1000 = 5 tiles of 192 + 40) and the fine-tune
+# head's 768×9 classifier. Tolerance: cuda_matmul.kernel_tolerance — the
+# float32 summation bound of K terms (2·K·2^-24·max|x|·max|w|) plus, in
+# bfloat16, one unit in the last place of the plain output, unchanged for
+# the float32 "sm90_f32" design, whose products are three TF32 passes; each
+# tensor-core entry's faulted plain variants (testing/matmul_check.py; for
+# sm90_f32 also one TF32 pass) must exceed it.
 FUSED_MM_SHAPES = [(4096, 768, 768, "none"), (4096, 768, 3072, "gelu_exact"),
                    (4096, 3072, 768, "none")]
 FUSED_MM_EXTRA = [(4096, 768, 768, "relu"), (4096, 768, 768, "tanh"),
                   (4096, 768, 768, "gelu"), (4000, 768, 768, "gelu_exact"),
-                  (4096, 772, 768, "none"), (4095, 776, 1000, "gelu")]
+                  (4096, 770, 768, "none"), (4095, 776, 1000, "gelu"),
+                  (4096, 768, 9, "none")]
 # onnx_bert: the kernel run, the generic run and the unoptimized graph
 # compute the same float32 function through 12 layers, summed in other
 # orders (CUDA-core kernels vs cuBLAS): the output probabilities (y, in
@@ -339,23 +370,30 @@ def flash_check_forward(out, ref, args, kw, dtype, design):
     """(max abs error, share of the bound, {fault: share}) of a flash
     forward against its plain version. The sm90 design rounds P̃ to the
     input dtype before P̃·V, as the TPU kernel does, so its bound adds
-    2^-7·(|P̃|·|V|) (``testing/flash_check.py``); and each faulted plain
-    variant (rounded as the kernel rounds) must exceed that bound, which
-    shows the bound still catches such faults. Faults that cannot show
-    (the keep mask at dropout 0) are left out."""
+    2^-7·(|P̃|·|V|) (``testing/flash_check.py``); the sm90_f32 design is
+    held to the float32 bound itself. Each faulted plain variant (rounded
+    as the kernel rounds; for sm90_f32 also one TF32 pass,
+    ``testing/split_f32.py``) must exceed that bound, which shows the bound
+    still catches such faults. Faults that cannot show (the keep mask at
+    dropout 0) are left out."""
     from deeplearning4j_tpu_torch.testing import flash_check as fc
+    from deeplearning4j_tpu_torch.testing import split_f32 as sf
 
     name = str(dtype).replace("torch.", "")
     unit = fc.rounding_unit(dtype, design)
     slack = fc.forward_slack(*args, unit=unit, **kw)
     err, share = fc.excess(out, ref, slack, ATOL[name], RTOL[name])
     faults = {}
-    if design == "sm90":
-        for fault in fc.FAULTS:
+    if design in ("sm90", "sm90_f32"):
+        for fault in (fc.FAULTS if design == "sm90" else FLASH_F32_FAULTS):
             if fault == "keep_shifted" and not kw["dropout_rate"]:
                 continue
-            bad, _ = fc.forward_variant(*args, round_to=dtype, fault=fault,
-                                        **kw)
+            if fault == "single_pass_tf32":
+                bad, _ = sf.flash_forward_split(*args, passes="single", **kw)
+            else:
+                bad, _ = fc.forward_variant(
+                    *args, round_to=dtype if design == "sm90" else None,
+                    fault=fault, **kw)
             faults[fault] = fc.excess(bad, ref, slack, ATOL[name],
                                       RTOL[name])[1]
     return err, share, faults
@@ -368,14 +406,21 @@ def bound(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_case(dtype, dev):
+def design_bound(nbytes: float, flops: float, name: str, design: str):
+    """``bound`` of a flash or matmul entry: the sm90_f32 designs' at the
+    split's rate (three TF32 passes), the others' at their dtype's."""
+    return bound(nbytes, flops, "tf32_split" if design == "sm90_f32"
+                 else name)
+
+
+def flash_case(dtype, dev, d=FLASH_SHAPE["d"]):
     """Flash prefill at the slice's shape: causal, end-padded key mask."""
     import torch
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import cuda_attention as ca
 
-    bh, t, d = FLASH_SHAPE["bh"], FLASH_SHAPE["t"], FLASH_SHAPE["d"]
+    bh, t = FLASH_SHAPE["bh"], FLASH_SHAPE["t"]
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal((bh, t, d),
                                                     dtype=np.float32))
@@ -384,16 +429,18 @@ def flash_case(dtype, dev):
     mask_np = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
     mask = torch.from_numpy(mask_np).to(dev)
     out, lse = ca.flash_attention(q, k, v, mask, causal=True)
+    again, _ = ca.flash_attention(q, k, v, mask, causal=True)
     ref_out, ref_lse = ca.flash_attention_reference(q, k, v, mask,
                                                     causal=True)
     torch.cuda.synchronize()
     name = str(dtype).replace("torch.", "")
-    design = ca.flash_design(dtype, d)
+    design = ca.flash_design(dtype, d, "fwd")
     fwd_kw = dict(scale=1.0 / math.sqrt(d), causal=True, dropout_rate=0.0)
     err, share, faults = flash_check_forward(
         out, ref_out, (q, k, v, mask, None), fwd_kw, dtype, design)
     err_lse = (lse - ref_lse).abs().max().item()
-    ok = (share <= 1.0 and err_lse <= TOL_LSE
+    same_bits = torch.equal(out, again)
+    ok = (share <= 1.0 and err_lse <= TOL_LSE and same_bits
           and bool(torch.isfinite(out.float()).all())
           and all(f > 1.0 for f in faults.values()))
     # SDPA yardstick with the same (causal & key) mask, timed only
@@ -409,11 +456,11 @@ def flash_case(dtype, dev):
     nbytes = 4 * bh * t * d * es + bh * t * 4 + bh * t * 4
     # (query, key) pairs this data needs: key j is visible to rows j..t-1
     pairs = float((mask_np * (t - np.arange(t))[None, :]).sum())
-    bms, by = bound(nbytes, 4.0 * d * pairs, name)
+    bms, by = design_bound(nbytes, 4.0 * d * pairs, name, design)
     return ok, {"kernel": FLASH_FWD_KERNEL[design], "design": design,
                 "dtype": name, "shape": [bh, t, d], "max_abs_err": err,
                 "tol": tol_text(name, design), "err_over_tol": share,
-                "faulted_plain_over_tol": faults,
+                "faulted_plain_over_tol": faults, "same_bits_twice": same_bits,
                 "lse_max_abs_err": err_lse, "lse_tol": TOL_LSE, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
                 "bound_by": by}
@@ -509,7 +556,7 @@ def flash_bert_case(dtype, dev, label, rate):
     torch.cuda.synchronize()
     name = str(dtype).replace("torch.", "")
     bh, t, d = q.shape
-    design = ca.flash_design(dtype, d)
+    design = ca.flash_design(dtype, d, "fwd")
     err, share, faults = flash_check_forward(
         out, ref_out, (q, k, v, mask, seed),
         dict(scale=1.0 / math.sqrt(d), causal=False, **kw), dtype, design)
@@ -540,7 +587,7 @@ def flash_bert_case(dtype, dev, label, rate):
     es = q.element_size()
     nbytes = 4 * bh * t * d * es + bh * t * 4 + (0 if mask is None
                                                  else bh * t * 4)
-    bms, by = bound(nbytes, 4.0 * d * pairs, name)
+    bms, by = design_bound(nbytes, 4.0 * d * pairs, name, design)
     return ok, {"kernel": FLASH_FWD_KERNEL[design], "design": design,
                 "dtype": name, "bert": label,
                 "shape": [bh, t, d], "masked": mask is not None,
@@ -592,7 +639,7 @@ def flash_backward_case(dtype, dev, label):
     delta = ca.attention_delta(do, out)
     args = (q, k, v, mask, seed, do, lse, delta)
     name = str(dtype).replace("torch.", "")
-    design = ca.flash_design(dtype, d)
+    design = ca.flash_design(dtype, d, "dq")
     dq_name, dkv_name = FLASH_DQ_KERNEL[design], FLASH_DKV_KERNEL[design]
     got = {dq_name: (ca.flash_attention_dq(*args, **kw),),
            dkv_name: ca.flash_attention_dkv(*args, **kw)}
@@ -1088,11 +1135,15 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
 
     problems = []
     # bfloat16 at head dim 64 takes the tensor-core (sm90) forward, dq and
-    # dk/dv, float32 the CUDA-core ones (ca.flash_design)
-    sm90 = ca.flash_design(getattr(torch, dtype),
-                           cfg.hidden // cfg.heads) == "sm90"
+    # dk/dv; float32 the sm90_f32 forward and the CUDA-core dq and dk/dv
+    # (ca.flash_design)
+    head_dim = cfg.hidden // cfg.heads
+    sm90 = ca.flash_design(getattr(torch, dtype), head_dim, "dq") == "sm90"
+    f32 = ca.flash_design(getattr(torch, dtype), head_dim,
+                          "fwd") == "sm90_f32"
     want = {"flash_attn_fwd": cfg.layers * BERT_STEPS,
             "flash_attn_fwd_sm90": cfg.layers * BERT_STEPS * sm90,
+            "flash_attn_fwd_f32_sm90": cfg.layers * BERT_STEPS * f32,
             "flash_attn_dq": cfg.layers * BERT_STEPS,
             "flash_attn_dq_sm90": cfg.layers * BERT_STEPS * sm90,
             "flash_attn_dkv": cfg.layers * BERT_STEPS,
@@ -1103,6 +1154,7 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
             problems.append(f"{name} launches {launches[name]} != {n}")
     if (predict_launches["flash_attn_fwd"] != cfg.layers
             or predict_launches["flash_attn_fwd_sm90"] != cfg.layers * sm90
+            or predict_launches["flash_attn_fwd_f32_sm90"] != cfg.layers * f32
             or predict_launches["flash_attn_dq"]
             or predict_launches["flash_attn_dq_sm90"]
             or predict_launches["flash_attn_dkv"]):
@@ -1169,19 +1221,22 @@ def fused_matmul_case(dev):
     """act(x @ w + b) at the imported BERT-base shapes (float32 and
     bfloat16) and the extra activations and ragged shapes (float32 and
     bfloat16), held to ``cuda_matmul.kernel_tolerance``. Each entry names
-    the design ``cm.matmul_design`` chose: the bfloat16 BERT shapes must
-    run "sm90" and at least one bfloat16 extra "wmma"; the sm90 launch
-    counter moves for the sm90 entries alone; each sm90 entry's faulted
-    plain variants must exceed the tolerance."""
+    the design ``cm.matmul_design`` chose: the BERT shapes must run "sm90"
+    (bfloat16) and "sm90_f32" (float32), and at least one extra "wmma" and
+    one "simt"; each design's launch counter moves for its entries alone;
+    each tensor-core entry's faulted plain variants must exceed the
+    tolerance and two of its runs must give the same bits."""
     import torch
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.ops.cuda_matmul import sm_count
     from deeplearning4j_tpu_torch.testing import matmul_check as mc
 
     lib_act = {"none": lambda y: y, "relu": torch.relu, "tanh": torch.tanh,
                "gelu": lambda y: F.gelu(y, approximate="tanh"),
                "gelu_exact": F.gelu}
+    want_design = {torch.float32: "sm90_f32", torch.bfloat16: "sm90"}
     entries, ok = [], True
     cases = ([(s, d) for d in (torch.float32, torch.bfloat16)
               for s in FUSED_MM_SHAPES]
@@ -1195,12 +1250,14 @@ def fused_matmul_case(dev):
             np.float32)).to(dev, dtype)
         b = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
             np.float32)).to(dev)
-        before = cm.fused_matmul.sm90_launches
+        before = (cm.fused_matmul.sm90_launches,
+                  cm.fused_matmul.sm90_f32_launches)
         out = cm.fused_matmul(x, w, b, activation=act)
+        again = cm.fused_matmul(x, w, b, activation=act)
         ref = cm.fused_matmul_bias_act_reference(x, w, b, activation=act)
         torch.cuda.synchronize()
         design = cm.matmul_design(x, w, out)
-        sm90 = design == "sm90"
+        tensor_cores = design in ("sm90", "sm90_f32")
         atol, rtol = cm.kernel_tolerance(x, w, ref)
 
         def share_of(y):
@@ -1208,14 +1265,24 @@ def fused_matmul_case(dev):
             return err, (err / (atol + rtol * ref.float().abs())).max().item()
 
         err, share = share_of(out)
-        faults = {f: share_of(mc.fused_matmul_variant(
-            x, w, b, activation=act, fault=f))[1]
-            for f in (mc.FAULTS if sm90 else ())}
+        faults = {}
+        if design == "sm90":
+            faults = {f: share_of(mc.fused_matmul_variant(
+                x, w, b, activation=act, fault=f))[1] for f in mc.FAULTS}
+        elif design == "sm90_f32":
+            faults = {f: share_of(mc.fused_matmul_variant(
+                x, w, b, activation=act, fault=f, slab=mc.F32_SLAB))[1]
+                for f in mc.F32_FAULTS}
+        same_bits = torch.equal(out, again)
         ok = (ok and share <= 1.0 and bool(torch.isfinite(out.float()).all())
-              and cm.fused_matmul.sm90_launches - before == int(sm90)
-              and all(f > 1.0 for f in faults.values()))
-        if dtype == torch.bfloat16 and (m, k, n, act) in FUSED_MM_SHAPES:
-            ok = ok and sm90
+              and cm.fused_matmul.sm90_launches - before[0]
+              == 2 * int(design == "sm90")
+              and cm.fused_matmul.sm90_f32_launches - before[1]
+              == 2 * int(design == "sm90_f32")
+              and all(f > 1.0 for f in faults.values())
+              and (same_bits or not tensor_cores))
+        if (m, k, n, act) in FUSED_MM_SHAPES:
+            ok = ok and design == want_design[dtype]
         bl = b.to(dtype)
         ms = time_ms(lambda: cm.fused_matmul(x, w, b, activation=act))
         plain_ms = time_ms(lambda: cm.fused_matmul_bias_act_reference(
@@ -1224,21 +1291,33 @@ def fused_matmul_case(dev):
         name = str(dtype).replace("torch.", "")
         es = x.element_size()
         nbytes = es * (m * k + k * n + m * n) + 4.0 * n
-        bms, by = bound(nbytes, 2.0 * m * k * n, name)
+        bms, by = design_bound(nbytes, 2.0 * m * k * n, name, design)
+        extra = {}
+        if design == "sm90_f32":
+            extra = dict(
+                tile_n=cm.fullest_tile_n(m, n, cm.TILE_N, sm_count(0)),
+                kmajor_copy_ms=time_ms(lambda: cm.kmajor_split(w)),
+                kmajor_copy_note="the one-off K-major split copy (w_hi, "
+                                 "w_lo) of the weight, made once a weight, "
+                                 "not in ms")
+        kernel = {"sm90": "fused_matmul_bias_act_sm90",
+                  "sm90_f32": "fused_matmul_bias_act_f32_sm90"}.get(
+                      design, "fused_matmul_bias_act")
         entries.append({
-            "kernel": "fused_matmul_bias_act" + ("_sm90" if sm90 else ""),
-            "design": design, "dtype": name,
+            "kernel": kernel, "design": design, "dtype": name,
             "shape": [m, k, n], "activation": act, "max_abs_err":
             err.max().item(), "tol": f"{atol:.3g} + {rtol:g}*|plain|",
             "err_over_tol": share,
-            **({"faulted_plain_over_tol": faults} if sm90 else {}),
+            **({"faulted_plain_over_tol": faults,
+                "same_bits_twice": same_bits} if tensor_cores else {}),
             "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms,
             "library_note": "torch.addmm (cuBLAS, TF32 off) plus the "
                             "activation, bias in the operands' dtype",
-            "bound_ms": bms, "bound_by": by,
+            "bound_ms": bms, "bound_by": by, **extra,
             "achieved_tflops": 2.0 * m * k * n / ms / 1e9})
-    ok = ok and any(e["design"] == "wmma" for e in entries)
+    ok = (ok and any(e["design"] == "wmma" for e in entries)
+          and any(e["design"] == "simt" for e in entries))
     return ok, entries
 
 
@@ -1446,6 +1525,7 @@ def onnx_bert_phase(dev, smi):
         """Import, 2 warm forwards, [the counted forward], 5 timed."""
         env.helper_mode = mode
         try:
+            copies0 = cm.kmajor_weight.copies
             t0 = time.perf_counter()
             sd = import_onnx(model, optimize=optimize, device=dev)
             torch.cuda.synchronize()
@@ -1459,14 +1539,25 @@ def onnx_bert_phase(dev, smi):
                 observe.reset()
                 ca.reset_launch_counts()
                 cm.fused_matmul.launches = 0
-                cm.fused_matmul.sm90_launches = 0  # the main path starts here
+                cm.fused_matmul.sm90_launches = 0
+                cm.fused_matmul.sm90_f32_launches = 0
+                copies1 = cm.kmajor_weight.copies  # the main path starts here
                 y = sd.output(feeds, ["y"])["y"]
                 launches = dict(fused_matmul_bias_act=cm.fused_matmul.launches,
                                 fused_matmul_bias_act_sm90=cm.fused_matmul
                                 .sm90_launches,
+                                fused_matmul_bias_act_f32_sm90=cm.fused_matmul
+                                .sm90_f32_launches,
                                 flash_attn_fwd=ca.flash_attention.launches,
                                 flash_attn_fwd_sm90=ca.flash_attention
-                                .sm90_launches)  # ... ends here
+                                .sm90_launches,
+                                flash_attn_fwd_f32_sm90=ca.flash_attention
+                                .sm90_f32_launches)  # ... ends here
+                # the sm90_f32 matmul's K-major split weight copies: all
+                # made by the forwards before this one
+                launches["kmajor_copies"] = {
+                    "import_to_counted": copies1 - copies0,
+                    "counted_forward": cm.kmajor_weight.copies - copies1}
                 disp = observe.metrics()
                 launches["dispatch_cuda"] = {
                     op: disp.counter("dl4j_tpu_helper_dispatch_total", op=op,
@@ -1508,12 +1599,22 @@ def onnx_bert_phase(dev, smi):
     if k_info["fusions"] != {"attention": cfg["layers"],
                              "epilogue": 6 * cfg["layers"]}:
         problems.append(f"fusions {k_info['fusions']}")
+    # every float32 fused matmul and flash forward on the tensor-core
+    # sm90_f32 designs, none on the CUDA-core ones
     want = {"fused_matmul_bias_act": 6 * cfg["layers"],
             "fused_matmul_bias_act_sm90": 0,
-            "flash_attn_fwd": cfg["layers"], "flash_attn_fwd_sm90": 0}
+            "fused_matmul_bias_act_f32_sm90": 6 * cfg["layers"],
+            "flash_attn_fwd": cfg["layers"], "flash_attn_fwd_sm90": 0,
+            "flash_attn_fwd_f32_sm90": cfg["layers"]}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
+    # one split copy a weight, all made before the counted forward
+    if launches["kmajor_copies"] != {"import_to_counted": 6 * cfg["layers"],
+                                     "counted_forward": 0}:
+        problems.append(f"K-major weight copies {launches['kmajor_copies']} "
+                        f"!= {6 * cfg['layers']} before the counted forward, "
+                        f"0 in it")
     if launches["dispatch_cuda"] != {"fused_matmul_bias_act": 6 * cfg[
             "layers"], "dot_product_attention": cfg["layers"]}:
         problems.append(f"cuda dispatches {launches['dispatch_cuda']}")
@@ -1544,14 +1645,7 @@ def onnx_bert_phase(dev, smi):
             "generic_tokens_per_s": tokens / (g_info["p50_ms"] / 1e3),
             "unoptimized_tokens_per_s": tokens / (u_info["p50_ms"] / 1e3),
             "problems": problems}
-    return problems, line, {"fused_matmul_bias_act":
-                            launches["fused_matmul_bias_act"],
-                            "fused_matmul_bias_act_sm90":
-                            launches["fused_matmul_bias_act_sm90"],
-                            "flash_attn_fwd": launches["flash_attn_fwd"],
-                            "flash_attn_fwd_sm90":
-                            launches["flash_attn_fwd_sm90"]}, \
-        float32_out
+    return problems, line, {k: launches[k] for k in want}, float32_out
 
 
 def sd_bert_finetune_phase(dev, smi):
@@ -1608,6 +1702,8 @@ def sd_bert_finetune_phase(dev, smi):
                 cl.fused_layer_norm_kernel.launches = 0
                 cm.fused_matmul.launches = 0
                 cm.fused_matmul.sm90_launches = 0
+                cm.fused_matmul.sm90_f32_launches = 0
+                copies0 = cm.kmajor_weight.copies
                 cu.fused_updater.launches = 0  # the main path starts here
             losses, times = [], []
             for _ in range(FINETUNE_STEPS):
@@ -1623,7 +1719,12 @@ def sd_bert_finetune_phase(dev, smi):
                     fused_layer_norm=cl.fused_layer_norm_kernel.launches,
                     fused_matmul_bias_act=cm.fused_matmul.launches,
                     fused_matmul_bias_act_sm90=cm.fused_matmul.sm90_launches,
+                    fused_matmul_bias_act_f32_sm90=cm.fused_matmul
+                    .sm90_f32_launches,
                     fused_updater=cu.fused_updater.launches)  # ... ends here
+                # the updater makes new weights each step: the sm90_f32
+                # matmul makes their K-major split copies anew
+                copies = cm.kmajor_weight.copies - copies0
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             st = sd.last_compile_stats
             info = {"losses": losses, "times_ms": [t * 1e3 for t in times],
@@ -1632,6 +1733,8 @@ def sd_bert_finetune_phase(dev, smi):
                     "resident_before_gib": resident,  # earlier phases'
                     "fusions": st.fusions,
                     "plan_nodes": st.nodes_after}
+            if counted:
+                info["kmajor_copies"] = copies
             params = {n: t.clone() for n, t in
                       sd.training_state()["params"].items()}
             n_params = sum(t.numel() for t in params.values())
@@ -1662,14 +1765,20 @@ def sd_bert_finetune_phase(dev, smi):
     per_step = {"fused_layer_norm": 1, "flash_attn_fwd": layers,
                 "flash_attn_dq": layers, "flash_attn_dkv": layers,
                 "flash_attn_fwd_sm90": 0, "flash_attn_dq_sm90": 0,
-                "flash_attn_dkv_sm90": 0,
+                "flash_attn_dkv_sm90": 0, "flash_attn_fwd_f32_sm90": layers,
                 "fused_matmul_bias_act": 6 * layers + 2,
                 "fused_matmul_bias_act_sm90": 0,
+                "fused_matmul_bias_act_f32_sm90": 6 * layers + 2,
                 "fused_updater": n_leaves}
     for name, n in per_step.items():
         if launches[name] != n * FINETUNE_STEPS:
             problems.append(f"{name} launches {launches[name]} != {n} x "
                             f"{FINETUNE_STEPS} steps")
+    # one K-major split copy of each fused matmul's weight a step: the
+    # updater's new weights are new tensors
+    if k_info["kmajor_copies"] != (6 * layers + 2) * FINETUNE_STEPS:
+        problems.append(f"K-major weight copies {k_info['kmajor_copies']} != "
+                        f"{6 * layers + 2} x {FINETUNE_STEPS} steps")
     if k_info["output_launches"] != {"fused_layer_norm": 1,
                                      "fused_matmul_bias_act": 6 * layers + 2}:
         problems.append(f"output launches {k_info['output_launches']}")
@@ -1801,6 +1910,8 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                     matmul_int8_row_quantize=cq.row_quantize.launches,
                     flash_attn_fwd=ca.flash_attention.launches,
                     flash_attn_fwd_sm90=ca.flash_attention.sm90_launches,
+                    flash_attn_fwd_f32_sm90=ca.flash_attention
+                    .sm90_f32_launches,
                     fused_matmul_bias_act=cm.fused_matmul.launches)  # ... ends
                 disp = observe.metrics()
                 launches["dispatch"] = {
@@ -1853,7 +1964,7 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
     want = {"matmul_int8": n_dense, "matmul_int8_sm90": n_dense,
             "matmul_int8_row_quantize": n_dense,
             "flash_attn_fwd": layers, "flash_attn_fwd_sm90": 0,
-            "fused_matmul_bias_act": 0}
+            "flash_attn_fwd_f32_sm90": layers, "fused_matmul_bias_act": 0}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
@@ -2023,6 +2134,11 @@ def main() -> int:
             entries.append(entry)
             if not ok:
                 failed.append(f"{entry['kernel']}[{entry['dtype']}]")
+    # float32 at a head dim the sm90_f32 forward refuses: the CUDA-core one
+    ok, entry = flash_case(torch.float32, dev, d=FLASH_SIMT_D)
+    entries.append(entry)
+    if not (ok and entry["design"] == "simt"):
+        failed.append(f"{entry['kernel']}[float32, D {FLASH_SIMT_D}]")
     for dtype in (torch.float32, torch.bfloat16):
         ok, upd_entries = updater_case(dtype, dev)
         entries += upd_entries
@@ -2102,6 +2218,10 @@ def main() -> int:
     if launches["flash_attn_fwd"] < cfg.layers * len(prompts):
         problems.append(f"flash launches {launches['flash_attn_fwd']} < "
                         f"{cfg.layers} x {len(prompts)} requests")
+    # every float32 prefill on the tensor-core sm90_f32 forward
+    if launches["flash_attn_fwd_f32_sm90"] != launches["flash_attn_fwd"]:
+        problems.append(f"float32 serving launched the CUDA-core forward: "
+                        f"{launches}")
     if launches["paged_decode"] < cfg.layers * decode_steps:
         problems.append(f"paged launches {launches['paged_decode']} < "
                         f"{cfg.layers} x {decode_steps} decode steps")
@@ -2189,22 +2309,25 @@ def main() -> int:
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
     # (flash_attn_fwd, flash_attn_dq, flash_attn_dkv, fused_matmul_bias_act,
-    # bn_matmul_stats and matmul_int8 count both designs: their rows take
-    # the other design's launches, the _sm90 rows the tensor-core ones)
+    # bn_matmul_stats and matmul_int8 count every design: their rows take
+    # the CUDA-core / WMMA design's launches, the _sm90 rows the 16-bit (or
+    # int8) tensor-core ones, the _f32_sm90 rows the float32 ones)
     by_path = {name: {} for name in (
-        "flash_attn_fwd", "flash_attn_fwd_sm90", "paged_decode",
-        "fused_updater", "bn_matmul_stats", "bn_matmul_stats_sm90",
-        "flash_attn_dq", "flash_attn_dq_sm90", "flash_attn_dkv",
-        "flash_attn_dkv_sm90", "fused_matmul_bias_act",
-        "fused_matmul_bias_act_sm90", "fused_layer_norm", "matmul_int8",
-        "matmul_int8_sm90", "matmul_int8_row_quantize")}
+        "flash_attn_fwd", "flash_attn_fwd_sm90", "flash_attn_fwd_f32_sm90",
+        "paged_decode", "fused_updater", "bn_matmul_stats",
+        "bn_matmul_stats_sm90", "flash_attn_dq", "flash_attn_dq_sm90",
+        "flash_attn_dkv", "flash_attn_dkv_sm90", "fused_matmul_bias_act",
+        "fused_matmul_bias_act_sm90", "fused_matmul_bias_act_f32_sm90",
+        "fused_layer_norm", "matmul_int8", "matmul_int8_sm90",
+        "matmul_int8_row_quantize")}
     for path, counts in dict(serve=launches, **train_launches).items():
         counts = dict(counts)
         for both in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
                      "fused_matmul_bias_act", "bn_matmul_stats",
                      "matmul_int8"):
             if both in counts:
-                counts[both] -= counts.get(both + "_sm90", 0)
+                counts[both] -= (counts.get(both + "_sm90", 0)
+                                 + counts.get(both + "_f32_sm90", 0))
         for name, n in counts.items():
             if name in by_path and n:
                 by_path[name][path] = n
@@ -2212,6 +2335,8 @@ def main() -> int:
         "flash_attn_fwd": ("flash_attn_fwd.cu", "pallas_attention.py:194"),
         "flash_attn_fwd_sm90": ("flash_attn_fwd_sm90.cu",
                                 "pallas_attention.py:194"),
+        "flash_attn_fwd_f32_sm90": ("flash_attn_fwd_f32_sm90.cu",
+                                    "pallas_attention.py:194"),
         "paged_decode": ("paged_decode.cu", "pallas_attention.py:683"),
         "fused_updater": ("fused_updater.cu", "pallas_updater.py:84"),
         "bn_matmul_stats": ("bn_matmul_stats.cu", "pallas_convbn.py:49"),
@@ -2226,6 +2351,8 @@ def main() -> int:
         "fused_matmul_bias_act": ("fused_matmul.cu", "pallas_matmul.py:42"),
         "fused_matmul_bias_act_sm90": ("fused_matmul_sm90.cu",
                                        "pallas_matmul.py:42"),
+        "fused_matmul_bias_act_f32_sm90": ("fused_matmul_f32_sm90.cu",
+                                           "pallas_matmul.py:42"),
         "fused_layer_norm": ("fused_layer_norm.cu",
                              "pallas_layernorm.py:69"),
         "matmul_int8": ("matmul_int8.cu", "quantized.py:122"),

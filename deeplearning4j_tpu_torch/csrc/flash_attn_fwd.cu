@@ -1,8 +1,8 @@
 // flash_attn_fwd.cu — blockwise (FlashAttention-2) attention forward on the
-// CUDA cores (sm_90a), float32 accumulation: float32 inputs at any head dim
-// D with D % 8 == 0 up to 256, and bfloat16 and float16 inputs with
-// 128 < D <= 256. 16-bit inputs with D <= 128 run the tensor-core kernel of
-// flash_attn_fwd_sm90.cu.
+// CUDA cores (sm_90a), float32 accumulation: float32 and 16-bit inputs with
+// 128 < D <= 256 (D % 8 == 0). With D <= 128, 16-bit inputs run the
+// tensor-core kernel of flash_attn_fwd_sm90.cu and float32 inputs that of
+// flash_attn_fwd_f32_sm90.cu (`cuda_attention.flash_design`).
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_attention.py `_attn_kernel`,
 // reached through `_flash_fwd` (the Pallas forward behind `flash_dpa`, the
@@ -16,12 +16,14 @@
 // Outputs are out (BH, Tq, D) in the input type and lse (BH, Tq) in
 // float32. The backward kernels are flash_attn_bwd.cu.
 //
-// What bounds it on the H100: at the serving shape (BH=12, T=512, D=64,
-// causal) the work is ~0.4 GFLOP against ~3 MB of traffic, so the card's
-// arithmetic, not its memory, is the limit; this kernel runs it on the CUDA
-// cores (67 TFLOP/s in float32). The 16-bit path with D <= 128 runs on the
-// tensor cores in flash_attn_fwd_sm90.cu; float32 keeps full-precision
-// products here.
+// What bounds it on the H100: at the head dims it takes (D 192, 256) and
+// T 512 a head does 4·D·T² flops against 4·T·D elements moved, ~T flops an
+// element, so the card's arithmetic, not its memory, is the limit; this kernel runs it on the CUDA cores (67 TFLOP/s in float32).
+// With D <= 128 both paths run on the tensor cores: 16-bit in
+// flash_attn_fwd_sm90.cu, float32 in flash_attn_fwd_f32_sm90.cu, whose
+// products are accurate to float32 by split TF32 passes (hi·lo, lo·hi,
+// hi·hi), never single-pass TF32, and held to the same float32 checks as
+// this kernel, unchanged.
 //
 // Design, and what it does about the TPU original:
 //  * The Pallas grid walks the kv blocks as a sequential ('arbitrary') grid
@@ -29,10 +31,10 @@
 //    scratch. Blocks on Hopper run in no order, so here ONE block owns one
 //    tile of ROWS query rows for one (batch*head) and loops over the K/V
 //    tiles itself; nothing is carried between blocks.
-//  * A query row belongs to a group of G threads (G = 1 for D <= 64, 4 for
-//    D <= 128, 8 for D <= 256). Thread g of the group keeps dims g, g+G,
-//    g+2G, ... of the row's q and of its float32 accumulator in registers
-//    (DT = 32 or 64 floats each, so nothing spills); its partial dot
+//  * A query row belongs to a group of G = 8 threads. Thread g of the
+//    group keeps dims g, g+G, g+2G, ... of the row's q and of its float32
+//    accumulator in registers (DT = 32 floats each, so nothing spills);
+//    its partial dot
 //    products are summed across the group with warp shuffles. The strided
 //    split keeps the group's shared-memory reads on distinct banks.
 //  * Each K/V tile (BK rows) is staged once through shared memory in float32
@@ -53,7 +55,6 @@
 #include <math_constants.h>
 
 #include <cstddef>
-#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -70,11 +71,11 @@ constexpr int kChunk = 16;  // keys per online-softmax rescale
 // Tile geometry of one instantiation: DT dims per thread, G threads per row.
 template <int DT, int G>
 struct Tile {
-  static_assert(G >= 1 && G <= 16 && 32 % G == 0, "a row group lies in a warp");
-  static constexpr int DP = DT * G;                   // padded head dim
-  static constexpr int ROWS = G == 1 ? 64 : 256 / G;  // query rows per block
+  static_assert(G >= 2 && G <= 16 && 32 % G == 0, "a row group lies in a warp");
+  static constexpr int DP = DT * G;          // padded head dim
+  static constexpr int ROWS = 256 / G;       // query rows per block
   static constexpr int THREADS = ROWS * G;
-  static constexpr int BK = DP <= 64 ? 64 : 4096 / DP;  // staged keys per tile
+  static constexpr int BK = 4096 / DP;       // staged keys per tile
 };
 
 // DROP: attention dropout at `rate` (keep mask from `*seed`); the
@@ -100,8 +101,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + tid / G;
   const bool row_ok = qi < tq;
   // the lanes of this row's group, for the partial-dot shuffles
-  const unsigned lanes = (G == 1 ? 1u : ((1u << G) - 1u))
-                         << ((tid % 32) / G * G);
+  const unsigned lanes = ((1u << G) - 1u) << ((tid % 32) / G * G);
 
   const T* qb = q + (size_t)bh * tq * d;
   const T* kb = k + (size_t)bh * tk * d;
@@ -234,14 +234,9 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <typename T, bool DROP>
 int dispatch_d(const Args& a, cudaStream_t s) {
-  if (a.d <= 0 || a.d % 8 != 0 || a.d > kMaxHeadDim) return -1;
-  if constexpr (std::is_same<T, float>::value) {
-    if (a.d <= 32) return launch<T, 32, 1, DROP>(a, s);
-    if (a.d <= 64) return launch<T, 64, 1, DROP>(a, s);
-    if (a.d <= 128) return launch<T, 32, 4, DROP>(a, s);
-  } else if (a.d <= 128) {
-    return -1;  // 16-bit D <= 128: flash_attn_fwd_sm90.cu
-  }
+  // D <= 128 runs flash_attn_fwd_sm90.cu (16-bit) or
+  // flash_attn_fwd_f32_sm90.cu (float32)
+  if (a.d <= 128 || a.d % 8 != 0 || a.d > kMaxHeadDim) return -1;
   return launch<T, 32, 8, DROP>(a, s);
 }
 
@@ -252,12 +247,12 @@ int dispatch_drop(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (16-bit only with D > 128).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D > 128 only.
 // mask may be null (every key visible). rate: attention-dropout rate in
 // [0, 1); above 0, `seed` points to one int32 on the device and inv_keep is
 // 1 / (1 - rate); at 0 both are ignored. Returns cudaGetLastError() of the
 // launch, or -1 for an unsupported dtype or head dim (D % 8 != 0, D > 256,
-// or a 16-bit D <= 128). Launches on `stream`; allocates nothing.
+// or D <= 128). Launches on `stream`; allocates nothing.
 extern "C" int dl4j_flash_attn_fwd(const void* q, const void* k,
                                    const void* v, const void* mask, void* out,
                                    void* lse, int bh, int tq, int tk, int d,

@@ -17,9 +17,13 @@
 // What bounds it on the H100: at the imported BERT-base shapes (M 4096,
 // K 768/3072, N 768/3072) the product dominates — 2*M*K*N flops against
 // (M*K + K*N + M*N) elements moved, ~200-600 flops a byte in float32.
-// So float32 is bound by the CUDA cores (67 TFLOP/s, no TF32: the port's
-// float32 contract keeps full float32 products) and bfloat16/float16 by
-// the tensor cores (989 TFLOP/s dense).
+// So float32 here is bound by the CUDA cores (67 TFLOP/s; the port's
+// float32 contract keeps products accurate to float32, so never
+// single-pass TF32) and bfloat16/float16 by the tensor cores (989 TFLOP/s
+// dense). This SGEMM now takes the float32 shapes TMA cannot read (K not a
+// multiple of 4, or x off 16-byte alignment); the rest run fused_matmul_f32_sm90.cu, whose
+// products are three TF32 passes on the tensor cores, held to the same
+// float32 check (`cuda_matmul.kernel_tolerance`) unchanged.
 //
 // Design, and what it does about the TPU original:
 //  * Pallas walks an (M, N, K) grid in order and keeps the (bm, bn)
@@ -38,10 +42,8 @@
 //    through a 16x16 float scratch per warp, one fragment at a time, so
 //    the whole 128x128 float tile never needs shared memory.
 //  * Every edge is bounds-checked: any M, N and K are computed, the ragged
-//    tiles zero-filled on load and masked on store. float32 uses 16-byte
-//    loads when K and N keep every vector whole and the pointers are
-//    aligned (the `vec` flag), element loads otherwise; the 16-bit kernel
-//    only meets shapes without that promise and always loads elements.
+//    tiles zero-filled on load and masked on store. Both kernels only meet
+//    shapes or pointers TMA cannot read, so both load elements.
 //  * No TMA, no wgmma, no pipelining: the simple first version, kept for
 //    the shapes the sm90 kernel does not take.
 //  * Allocates nothing; the wrapper allocates the output.
@@ -70,7 +72,6 @@ constexpr int BN = 128;
 
 constexpr int SBK = 8;  // K columns staged per step
 
-template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 sgemm_bias_act_kernel(const float* __restrict__ x,
                       const float* __restrict__ w,
@@ -105,13 +106,7 @@ sgemm_bias_act_kernel(const float* __restrict__ x,
     {
       float v[4] = {0.f, 0.f, 0.f, 0.f};
       const int gk = k0 + a_col;
-      if (VEC) {  // k % 4 == 0: a vector is all in or all out
-        if (a_grow < m && gk < k) {
-          const float4 t =
-              *reinterpret_cast<const float4*>(x + a_grow * k + gk);
-          v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-        }
-      } else if (a_grow < m) {
+      if (a_grow < m) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           if (gk + j < k) v[j] = x[a_grow * k + gk + j];
@@ -124,14 +119,10 @@ sgemm_bias_act_kernel(const float* __restrict__ x,
       const int gk = k0 + b_row;
       if (gk < k) {
         const float* src = w + (long long)gk * n + b_gcol;
-        if (VEC) {  // n % 4 == 0
-          if (b_gcol < n) t = *reinterpret_cast<const float4*>(src);
-        } else {
-          if (b_gcol < n) t.x = src[0];
-          if (b_gcol + 1 < n) t.y = src[1];
-          if (b_gcol + 2 < n) t.z = src[2];
-          if (b_gcol + 3 < n) t.w = src[3];
-        }
+        if (b_gcol < n) t.x = src[0];
+        if (b_gcol + 1 < n) t.y = src[1];
+        if (b_gcol + 2 < n) t.z = src[2];
+        if (b_gcol + 3 < n) t.w = src[3];
       }
       *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = t;
     }
@@ -166,15 +157,9 @@ sgemm_bias_act_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] = activate(acc[i][j] + bv[j], act);
     float* dst = out + row * n + col0;
-    if (VEC && col0 + 8 <= n) {
-      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(v[4], v[5], v[6], v[7]);
-    } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (col0 + j < n) dst[j] = v[j];
-    }
+    for (int j = 0; j < 8; ++j)
+      if (col0 + j < n) dst[j] = v[j];
   }
 }
 
@@ -310,14 +295,12 @@ int launch_half(const void* x, const void* w, const float* bias, void* out,
 
 // x (m, k), w (k, n), out (m, n), all row-major and of one type (dtype 0
 // float32, 1 bfloat16, 2 float16); bias (n,) float32 or null; act 0..4 as
-// `Act`. vec = 1 promises 16-byte-aligned x, w and out with k and n
-// multiples of 4 (float32; bfloat16/float16 ignore it: the shapes with
-// that promise run fused_matmul_sm90.cu). Any m, n, k >= 0.
+// `Act`. Any m, n, k >= 0.
 // Returns cudaGetLastError() of the launch, or -1 for arguments the kernel
 // does not take. Launches on `stream`; allocates nothing.
 extern "C" int dl4j_fused_matmul(const void* x, const void* w,
                                  const float* bias, void* out, long long m,
-                                 int n, int k, int dtype, int act, int vec,
+                                 int n, int k, int dtype, int act,
                                  void* stream) {
   if (m < 0 || n < 0 || k < 0 || act < ACT_NONE || act > ACT_GELU_EXACT)
     return -1;
@@ -328,18 +311,11 @@ extern "C" int dl4j_fused_matmul(const void* x, const void* w,
   const dim3 grid(static_cast<unsigned>(grid_m), static_cast<unsigned>(grid_n));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: {
-      const float* xp = static_cast<const float*>(x);
-      const float* wp = static_cast<const float*>(w);
-      float* op = static_cast<float*>(out);
-      if (vec)
-        sgemm_bias_act_kernel<true><<<grid, THREADS, 0, st>>>(
-            xp, wp, bias, op, m, n, k, act);
-      else
-        sgemm_bias_act_kernel<false><<<grid, THREADS, 0, st>>>(
-            xp, wp, bias, op, m, n, k, act);
+    case 0:
+      sgemm_bias_act_kernel<<<grid, THREADS, 0, st>>>(
+          static_cast<const float*>(x), static_cast<const float*>(w), bias,
+          static_cast<float*>(out), m, n, k, act);
       return static_cast<int>(cudaGetLastError());
-    }
     case 1:
       return launch_half<__nv_bfloat16>(x, w, bias, out, m, n, k, act, grid,
                                         st);

@@ -1,14 +1,15 @@
 // sm90.cuh — Hopper (sm_90a) building blocks shared by the tensor-core
 // kernels (flash_attn_fwd_sm90.cu, flash_attn_dkv_sm90.cu,
 // flash_attn_dq_sm90.cu, fused_matmul_sm90.cu, bn_matmul_stats_sm90.cu,
-// matmul_int8_sm90.cu): mbarriers, TMA tile loads,
-// wgmma matrix descriptors and the wgmma instructions themselves, written
-// as inline PTX, plus the one mapping from a wgmma accumulator register to
-// its (row, column) that every kernel uses for masking, dropout, the
-// register A operand and the epilogue.
+// matmul_int8_sm90.cu, fused_matmul_f32_sm90.cu, flash_attn_fwd_f32_sm90.cu):
+// mbarriers, TMA tile loads, wgmma matrix descriptors and the wgmma
+// instructions themselves (bf16/f16, int8, and TF32 for float32 products
+// split into TF32 parts), written as inline PTX, plus the one mapping from
+// a wgmma accumulator register to its (row, column) that every kernel uses
+// for masking, dropout, the register A operand and the epilogue.
 //
 // Shared-memory tiles are 128-byte-swizzled slabs of 64 16-bit columns
-// (128 int8 columns):
+// (128 int8 columns, 32 float32 columns):
 // row r of a slab starts at r * 128 bytes and its eight 16-byte chunks are
 // XOR-permuted by r % 8 — the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with a SW128 descriptor. Every
@@ -495,6 +496,157 @@ struct WgmmaS8<192> {
   }
 };
 
+// ------------------------------------------------------ float32 by split TF32
+//
+// TF32 wgmma reads a float32 operand's sign, exponent and top 10 mantissa
+// bits. A float32 product x·w accurate to float32 is three TF32 products:
+// x = x_hi + x_lo with x_hi = tf32(x) and x_lo = tf32(x - x_hi) (the
+// subtraction is exact), then x_lo·w_hi + x_hi·w_lo + x_hi·w_hi; the
+// dropped x_lo·w_lo and the rounding of the lo parts are ~2^-22 of |x·w|.
+// The kernels run the two small passes first, then hi·hi.
+
+// x rounded to TF32, to nearest with ties away from zero (cvt.rna), as a
+// float32 with the 13 bits below TF32's mantissa cleared (the instruction
+// leaves them unspecified).
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+// (hi, lo) of the split above, as the bits wgmma's register operands take.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float h = tf32_round(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32_round(x - h));
+}
+
+// One float32 from shared memory at shared address `addr`.
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// The register A fragment of a TF32 m64nNk8 product: thread `lane` of warp
+// `warp` holds rows r = 16 warp + lane / 4 (a[0], a[2]) and r + 8 (a[1],
+// a[3]), columns c = lane % 4 (a[0], a[1]) and c + 4 (a[2], a[3]) of the
+// 64 x 8 tile. The float32 accumulator holds columns 2c and 2c + 1 of each
+// 8-column group instead (acc_col), so an accumulator taken as the A
+// operand of k-step kk — a[0..3] = d[4kk], d[4kk + 2], d[4kk + 1],
+// d[4kk + 3] — is its columns in the order 0, 2, 4, 6, 1, 3, 5, 7 of the
+// group: the B operand's K rows must be permuted the same way.
+__device__ __forceinline__ int tf32_a_row(int r, int warp, int lane) {
+  return 16 * warp + lane / 4 + 8 * (r & 1);
+}
+__device__ __forceinline__ int tf32_a_col(int r, int lane) {
+  return lane % 4 + 4 * (r >> 1);
+}
+
+// wgmma.mma_async m64nNk8, float32 accumulator, TF32 operands. Both read
+// K-major only (TF32 has no transpose bit): an operand whose reduction dim
+// is not contiguous is given as its transposed copy. A K-major SW128
+// descriptor (desc_sw128(addr, 16, 1024)) reads 32-bit elements as it reads
+// 16-bit ones: a row is one 128-byte span of 32 values, and k-step kk of a
+// span starts kk * 32 bytes in. ss: A and B from shared memory; rs: A from
+// registers (the fragment above). `accumulate` 0 overwrites d.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32<192> {
+  static __device__ __forceinline__ void rs(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
 // -------------------------------------------------------- host: tensor maps
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -526,23 +678,26 @@ inline EncodeTiled encoder() {
 
 // A (D, T, BH) tensor map with boxes of one 128-byte swizzle span of
 // columns x `rows` rows, 128-byte swizzle, zeros outside the tensor.
-// dtype 1 = bfloat16 and 2 = float16 (64-column boxes), 3 = int8 (128-column
-// boxes: one swizzle span holds 128 K values, so an int8 K slab is 128
-// deep). A row-major (R, C) matrix is the case BH = 1, T = R, D = C. A row
-// must be a multiple of 16 bytes (D % 8 for 16-bit, D % 16 for int8).
+// dtype 0 = float32 (32-column boxes: one span holds 32 float32 values, so
+// a float32 K slab is 32 deep), 1 = bfloat16 and 2 = float16 (64-column
+// boxes), 3 = int8 (128-column boxes: one swizzle span holds 128 K values,
+// so an int8 K slab is 128 deep). A row-major (R, C) matrix is the case
+// BH = 1, T = R, D = C. A row must be a multiple of 16 bytes (D % 4 for
+// float32, D % 8 for 16-bit, D % 16 for int8).
 // Encoded at every call: it takes microseconds, and a cache keyed by
 // pointer would go stale under the caching allocator.
 inline bool make_map(CUtensorMap* map, const void* ptr, int dtype, int bh,
                      int t, int d, int rows) {
   EncodeTiled enc = encoder();
-  if (enc == nullptr || dtype < 1 || dtype > 3) return false;
-  const cuuint64_t es = dtype == 3 ? 1 : 2;  // bytes an element
+  if (enc == nullptr || dtype < 0 || dtype > 3) return false;
+  const cuuint64_t es = dtype == 0 ? 4 : dtype == 3 ? 1 : 2;  // bytes each
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * es, (cuuint64_t)t * d * es};
   const cuuint32_t box[3] = {(cuuint32_t)(128 / es), (cuuint32_t)rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUtensorMapDataType type =
-      dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+      dtype == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
       : dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                    : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   return enc(map, type, 3, const_cast<void*>(ptr), dims, strides, box, step,

@@ -9,12 +9,15 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
   ``flash_attention`` custom VJP. On the card its forward launches
   ``_attn_kernel``'s counterpart and its backward :func:`flash_attention_dq`
   and :func:`flash_attention_dkv` (``_dq_kernel``'s and ``_dkv_kernel``'s).
-  :func:`flash_design` picks the source by dtype and head dim: bfloat16
-  and float16 with D <= 128 take the tensor-core kernels
+  :func:`flash_design` picks each kernel's source by dtype and head dim:
+  bfloat16 and float16 with D <= 128 take the tensor-core kernels
   ``csrc/flash_attn_fwd_sm90.cu``, ``csrc/flash_attn_dq_sm90.cu`` and
-  ``csrc/flash_attn_dkv_sm90.cu`` (``"sm90"``); float32, and 16-bit
-  D > 128, the CUDA-core kernels ``csrc/flash_attn_fwd.cu`` and
-  ``csrc/flash_attn_bwd.cu`` (``"simt"``).
+  ``csrc/flash_attn_dkv_sm90.cu`` (``"sm90"``); the float32 forward with
+  D <= 128 takes ``csrc/flash_attn_fwd_f32_sm90.cu`` (``"sm90_f32"``:
+  every product split into TF32 parts, accurate to float32); the float32
+  dq and dk/dv, and D > 128, the CUDA-core kernels
+  ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
+  (``"simt"``).
 * :func:`keep_mask` — the dropout keep mask, ``_keep_mask``'s hash bit for
   bit, so the plain versions drop exactly what the kernels (and the TPU
   kernels) drop for the same seed.
@@ -29,7 +32,8 @@ Beside each kernel wrapper stands its plain PyTorch version
 computes the plain version; given CUDA tensors it launches its kernel or
 raises — it never falls back. Each kernel's launches are counted on its
 wrapper's ``.launches`` (the forward's on :func:`flash_attention`); the
-tensor-core designs' also on ``.sm90_launches`` of the same wrappers.
+16-bit tensor-core designs' also on ``.sm90_launches`` of the same
+wrappers, the float32 one's on ``flash_attention.sm90_f32_launches``.
 
 :func:`register_platform_attention` installs the kernels under the
 ``"cuda"`` platform of the op registry, behind usable gates that mirror
@@ -54,8 +58,8 @@ from deeplearning4j_tpu_torch.ops import _build
 
 # every kernel takes every head dim D with D % 8 == 0 up to this
 MAX_HEAD_DIM = 256
-# the tensor-core forward, dq and dk/dv take 16-bit inputs up to this head
-# dim
+# the tensor-core forward, dq and dk/dv take 16-bit inputs, and the
+# float32 tensor-core forward float32 ones, up to this head dim
 SM90_MAX_HEAD_DIM = 128
 _SM90_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -71,6 +75,8 @@ _FLASH_ARGS = (_P,) * 6 + (_I,) * 4 + (_F, _I, _P, _F, _F, _I, _P)
 _DQ_ARGS = (_P,) * 9 + (_I,) * 4 + (_F, _I, _F, _F, _I, _P)
 # ... seed dk dv | bh tq tk d scale causal | rate inv_keep dtype stream
 _DKV_ARGS = (_P,) * 10 + (_I,) * 4 + (_F, _I, _F, _F, _I, _P)
+# q k v mask vt out lse | bh tq tk d scale causal | seed rate inv_keep stream
+_FLASH_F32_ARGS = (_P,) * 7 + (_I,) * 4 + (_F, _I, _P, _F, _F, _P)
 _PAGED_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)
 
 
@@ -274,20 +280,34 @@ def flash_attention_backward_reference(q, k, v, kv_mask, seed, out, lse,
 # ---------------------------------------------------------------------------
 
 
-def flash_design(dtype: torch.dtype, d: int) -> str:
-    """Which design of the forward, dq and dk/dv kernels runs ``dtype`` at
-    head dim ``d``: ``"sm90"`` (wgmma products fed by TMA, P and dS rounded
-    to the input type in registers) for bfloat16 and float16 with D <= 128,
-    ``"simt"`` (CUDA cores in float32) for everything else. A static choice,
-    not a fallback: either design raises when its build or launch fails."""
-    return ("sm90" if dtype in _SM90_DTYPES and d <= SM90_MAX_HEAD_DIM
-            else "simt")
+FLASH_KERNELS = ("fwd", "dq", "dkv")
+
+
+def flash_design(dtype: torch.dtype, d: int, kernel: str) -> str:
+    """Which design of flash ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``)
+    runs ``dtype`` at head dim ``d``: ``"sm90"`` (wgmma products fed by
+    TMA, P and dS rounded to the input type in registers) for bfloat16 and
+    float16 with D <= 128; for the float32 forward with D <= 128
+    ``"sm90_f32"`` (wgmma products, each split into TF32 parts: accurate to
+    float32); ``"simt"`` (CUDA cores in float32) for everything else — the
+    float32 dq and dk/dv have no tensor-core design. A static choice, not a
+    fallback: either design raises when its build or launch fails."""
+    if kernel not in FLASH_KERNELS:
+        raise ValueError(f"flash_design: kernel {kernel!r} is not one of "
+                         f"{FLASH_KERNELS}")
+    if d <= SM90_MAX_HEAD_DIM:
+        if dtype in _SM90_DTYPES:
+            return "sm90"
+        if dtype == torch.float32 and kernel == "fwd":
+            return "sm90_f32"
+    return "simt"
 
 
 def _require_tma_aligned(kernel: str, *ts) -> None:
     _require(all(t.data_ptr() % 16 == 0 for t in ts),
              f"{kernel}: the tensor-core kernel reads its tiles with TMA and "
-             f"needs 16-byte aligned q, k, v (and dout)")
+             f"needs 16-byte aligned q, k, v and dout (the float32 forward: "
+             f"q and k)")
 
 
 def _check_qkv(q, k, v, kernel: str) -> None:
@@ -339,21 +359,34 @@ def _flash_fwd(q, k, v, kv_mask, seed, scale: float, causal: bool,
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
-    sm90 = flash_design(q.dtype, d) == "sm90"
-    if sm90:
-        _require_tma_aligned("flash_attn_fwd_sm90", q, k, v)
-        fn = _build.kernel_fn("flash_attn_fwd_sm90",
-                              "dl4j_flash_attn_fwd_sm90", _FLASH_ARGS)
+    design = flash_design(q.dtype, d, "fwd")
+    kernel = {"sm90": "flash_attn_fwd_sm90",
+              "sm90_f32": "flash_attn_fwd_f32_sm90"}.get(design,
+                                                         "flash_attn_fwd")
+    tail = (float(scale), int(bool(causal)), _ptr(seed), float(dropout_rate),
+            _inv_keep(dropout_rate))
+    if design == "sm90_f32":
+        # TMA reads q and k; the kernel's pre-pass writes Vᵀ (keys rounded
+        # up to 8) into this scratch
+        _require_tma_aligned(kernel, q, k)
+        vt = torch.empty((bh, d, -(-t_k // 8) * 8), dtype=torch.float32,
+                         device=q.device)
+        fn = _build.kernel_fn(kernel, "dl4j_flash_attn_fwd_f32_sm90",
+                              _FLASH_F32_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+                vt.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, t_q, t_k,
+                d, *tail, _stream(q))
     else:
-        fn = _build.kernel_fn("flash_attn_fwd", "dl4j_flash_attn_fwd",
-                              _FLASH_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
-            out.data_ptr(), lse.data_ptr(), bh, t_q, t_k, d, float(scale),
-            int(bool(causal)), _ptr(seed), float(dropout_rate),
-            _inv_keep(dropout_rate), _DTYPE_CODES[q.dtype], _stream(q))
-    _check_launch(rc, "flash_attn_fwd_sm90" if sm90 else "flash_attn_fwd")
+        if design == "sm90":
+            _require_tma_aligned(kernel, q, k, v)
+        fn = _build.kernel_fn(kernel, "dl4j_" + kernel, _FLASH_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+                out.data_ptr(), lse.data_ptr(), bh, t_q, t_k, d, *tail,
+                _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(rc, kernel)
     flash_attention.launches += 1
-    flash_attention.sm90_launches += int(sm90)
+    flash_attention.sm90_launches += int(design == "sm90")
+    flash_attention.sm90_f32_launches += int(design == "sm90_f32")
     return out, lse
 
 
@@ -389,7 +422,7 @@ def flash_attention_dq(q, k, v, kv_mask, seed, dout, lse, delta, *,
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dq")
     seed = _norm_seed(seed, dropout_rate, q.device)
     dq = torch.empty_like(q)
-    sm90 = flash_design(q.dtype, d) == "sm90"
+    sm90 = flash_design(q.dtype, d, "dq") == "sm90"
     if sm90:
         _require_tma_aligned("flash_attn_dq_sm90", q, k, v, dout)
         fn = _build.kernel_fn("flash_attn_dq_sm90", "dl4j_flash_attn_dq_sm90",
@@ -430,7 +463,7 @@ def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dkv")
     seed = _norm_seed(seed, dropout_rate, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    sm90 = flash_design(q.dtype, d) == "sm90"
+    sm90 = flash_design(q.dtype, d, "dkv") == "sm90"
     if sm90:
         _require_tma_aligned("flash_attn_dkv_sm90", q, k, v, dout)
         fn = _build.kernel_fn("flash_attn_dkv_sm90",
@@ -518,6 +551,7 @@ def flash_attention(q, k, v, kv_mask=None, seed=None, *,
 
 flash_attention.launches = 0
 flash_attention.sm90_launches = 0
+flash_attention.sm90_f32_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -603,9 +637,11 @@ paged_decode_attention.launches = 0
 
 # kernel name -> (the function holding its launch count, the attribute).
 # flash_attn_fwd, flash_attn_dq and flash_attn_dkv count every launch of
-# either design; the _sm90 names count the tensor-core design's alone.
+# any design; the _sm90 names count the 16-bit tensor-core design's alone,
+# flash_attn_fwd_f32_sm90 the float32 one's.
 KERNELS = {"flash_attn_fwd": (flash_attention, "launches"),
            "flash_attn_fwd_sm90": (flash_attention, "sm90_launches"),
+           "flash_attn_fwd_f32_sm90": (flash_attention, "sm90_f32_launches"),
            "flash_attn_dq": (flash_attention_dq, "launches"),
            "flash_attn_dq_sm90": (flash_attention_dq, "sm90_launches"),
            "flash_attn_dkv": (flash_attention_dkv, "launches"),

@@ -18,11 +18,15 @@ helper of ``fused_matmul_bias_act``, the SameDiff optimizer's matmul + bias
   (``csrc/fused_matmul_sm90.cu``, wgmma fed by TMA through an mbarrier
   ring) for bfloat16/float16 that TMA can read, ``"wmma"``
   (``csrc/fused_matmul.cu``'s tensor-core kernel) for the other 16-bit
-  cases, ``"simt"`` (its CUDA-core SGEMM) for float32. Given CPU tensors
-  it computes the plain version; given CUDA tensors it launches or raises
-  — there is no fallback. Its launches are counted in
-  ``fused_matmul.launches``, the sm90 design's also in
-  ``fused_matmul.sm90_launches``.
+  cases, ``"sm90_f32"`` (``csrc/fused_matmul_f32_sm90.cu``: the same ring,
+  every product split into TF32 parts, on the weight's K-major split copy
+  :func:`kmajor_weight`) for float32 that TMA can read, ``"simt"`` (the
+  CUDA-core SGEMM of ``csrc/fused_matmul.cu``) for the other float32
+  cases. Given CPU tensors it computes the plain version; given CUDA
+  tensors it launches or raises — there is no fallback. Its launches are
+  counted in ``fused_matmul.launches``, the sm90 design's also in
+  ``fused_matmul.sm90_launches`` and the sm90_f32 design's in
+  ``fused_matmul.sm90_f32_launches``.
 * :func:`fused_matmul_usable` is the JAX ``_usable`` (``:192``) on CUDA
   tensors without its TPU limits: rank-2/3 x, 2-D w, float dtypes, no
   transpose flags, a known activation, a rank-1 bias. The Mosaic tile
@@ -35,10 +39,14 @@ helper of ``fused_matmul_bias_act``, the SameDiff optimizer's matmul + bias
   activation's derivative, then dx, dw and db. Its products are plain
   matmuls, as the JAX backward is plain XLA.
 
-The first float32 product on the card must not run in TF32: the port's
-float32 contract keeps full float32 products (``nn/dtype.precision_scope``,
-``torch.backends.cuda.matmul.allow_tf32 = False``), and the plain version
-is only a reference when it is computed so.
+The port's float32 contract keeps products accurate to float32
+(``nn/dtype.precision_scope``, ``torch.backends.cuda.matmul.allow_tf32 =
+False``), and the plain version is only a reference when it is computed so.
+The ``"sm90_f32"`` kernel meets it on TF32 tensor cores by splitting each
+operand into TF32 parts, hi = tf32(v) and lo = tf32(v − hi), and adding
+three TF32 products (lo·hi, hi·lo, then hi·hi) — never single-pass TF32,
+and held to the float32 check :func:`kernel_tolerance` unchanged, which a
+single TF32 pass breaks.
 """
 
 from __future__ import annotations
@@ -58,9 +66,13 @@ from deeplearning4j_tpu_torch.ops.nn_ops import (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P)
+_ARGS = (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P)
 # x w bias out | m n k dtype act | stream
 _SM90_ARGS = (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P)
+# x ws bias out | m n k act bn | stream
+_F32_ARGS = (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P)
+_SPLIT_ARGS = (_P, _P, _I, _I, _P)  # w ws | k n | stream
+TILE_N = (192, 128)  # the sm90_f32 kernel's tile widths, preferred first
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACT_CODES = {a: i for i, a in enumerate(FUSED_MATMUL_ACTIVATIONS)}
 
@@ -89,13 +101,68 @@ def matmul_design(x2, w, out) -> str:
     """Which kernel computes ``out = act(x2 @ w + b)``: ``"sm90"`` for
     bfloat16/float16 with K and N multiples of 8 and x2, w and out 16-byte
     aligned (TMA's row strides and addresses), ``"wmma"`` for the other
-    16-bit cases, ``"simt"`` for float32. A static choice, not a fallback:
-    either kernel raises when its build or launch fails."""
-    if x2.dtype == torch.float32:
-        return "simt"
+    16-bit cases; ``"sm90_f32"`` for float32 with K a multiple of 4 and x2
+    16-byte aligned (TMA reads x2 and the weight's own K-major copy; the
+    epilogue masks any N), ``"simt"`` for the other float32 cases. A
+    static choice, not a fallback: either kernel raises when its build or
+    launch fails."""
     k, n = w.shape
+    if x2.dtype == torch.float32:
+        return ("sm90_f32" if k % 4 == 0 and x2.data_ptr() % 16 == 0
+                else "simt")
     aligned = all(t.data_ptr() % 16 == 0 for t in (x2, w, out))
     return "sm90" if k % 8 == 0 and n % 8 == 0 and aligned else "wmma"
+
+
+def kmajor_split(w) -> torch.Tensor:
+    """The (2, N, K) K-major split copy of a float32 (K, N) CUDA weight —
+    hi = tf32(wᵀ) and lo = tf32(wᵀ − hi), the parts whose three TF32
+    products lo·hi + hi·lo + hi·hi the sm90_f32 kernels add for one
+    float32 product — by one launch of ``dl4j_tf32_split_weight``
+    (``csrc/fused_matmul_f32_sm90.cu``)."""
+    if w.device.type != "cuda":
+        raise ValueError(f"kmajor_split: unsupported device {w.device}")
+    w = w.float().contiguous()
+    k, n = w.shape
+    ws = torch.empty((2, n, k), dtype=torch.float32, device=w.device)
+    fn = _build.kernel_fn("fused_matmul_f32_sm90", "dl4j_tf32_split_weight",
+                          _SPLIT_ARGS)
+    rc = fn(w.data_ptr(), ws.data_ptr(), k, n,
+            torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tf32_split_weight: ({k}, {n}) weight, launch "
+                           f"returned {rc}")
+    return ws
+
+
+def kmajor_weight(w, split: bool = False):
+    """The K-major (N, K) copy of a (K, N) weight that an sm90 GEMM reads
+    (8-bit and TF32 wgmma have no transpose) — for ``split``, the float32
+    weight's TF32 parts as one (2, N, K) tensor (:func:`kmajor_split`).
+    Made once and kept on ``w`` itself, so it lives and dies
+    with the weight; remade when ``w`` changes in place (its ``_version``)
+    or its storage, shape or strides change. Never keyed on the pointer
+    alone: the caching allocator hands a freed weight's address to the
+    next tensor. An inference tensor keeps no version counter, so a kept
+    copy could go stale unseen: its copy is made at every call. Copies
+    made are counted in ``kmajor_weight.copies``."""
+    def make():
+        kmajor_weight.copies += 1
+        return kmajor_split(w) if split else w.t().contiguous()
+
+    if w.is_inference():
+        return make()
+    attr = "_dl4j_kmajor_split" if split else "_dl4j_kmajor"
+    key = (w._version, w.data_ptr(), tuple(w.shape), w.stride())
+    kept = getattr(w, attr, None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    wt = make()
+    setattr(w, attr, (key, wt))
+    return wt
+
+
+kmajor_weight.copies = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,7 +212,7 @@ def fused_matmul(x, w, b=None, *, activation: str = "none",
         raise ValueError(f"fused_matmul: bias {tuple(b.shape)} is not ({n},)")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
-    w = w.contiguous()
+    w_in, w = w, w.contiguous()
     bias = None if b is None else b.to(torch.float32).contiguous()
     if any(t.device != x.device for t in (w, bias) if t is not None):
         raise ValueError("fused_matmul: inputs on different devices")
@@ -153,23 +220,29 @@ def fused_matmul(x, w, b=None, *, activation: str = "none",
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:  # nothing to compute: no launch
         return out.reshape(lead + (n,))
-    sm90 = matmul_design(x2, w, out) == "sm90"
-    args = (x2.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
-            k, _DTYPE_CODES[x.dtype], _ACT_CODES[activation])
+    design = matmul_design(x2, w, out)
+    bias_ptr = None if bias is None else bias.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if sm90:
-        fn = _build.kernel_fn("fused_matmul_sm90", "dl4j_fused_matmul_sm90",
-                              _SM90_ARGS)
-        rc = fn(*args, stream)
+    act = _ACT_CODES[activation]
+    if design == "sm90_f32":
+        ws = kmajor_weight(w_in, split=True)
+        bn = fullest_tile_n(m, n, TILE_N, sm_count(x.device.index or 0))
+        fn = _build.kernel_fn("fused_matmul_f32_sm90",
+                              "dl4j_fused_matmul_f32_sm90", _F32_ARGS)
+        rc = fn(x2.data_ptr(), ws.data_ptr(), bias_ptr, out.data_ptr(), m,
+                n, k, act, bn, stream)
     else:
-        # the float32 SGEMM's 16-byte loads; the 16-bit WMMA kernel only
-        # meets shapes TMA cannot read and loads elements
-        vec = int(k % 4 == 0 and n % 4 == 0
-                  and all(t.data_ptr() % 16 == 0 for t in (x2, w, out)))
-        fn = _build.kernel_fn("fused_matmul", "dl4j_fused_matmul", _ARGS)
-        rc = fn(*args, vec, stream)
-    kernel = "fused_matmul_sm90" if sm90 else "fused_matmul"
+        args = (x2.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), m, n,
+                k, _DTYPE_CODES[x.dtype], act)
+        if design == "sm90":
+            fn = _build.kernel_fn("fused_matmul_sm90",
+                                  "dl4j_fused_matmul_sm90", _SM90_ARGS)
+            rc = fn(*args, stream)
+        else:
+            fn = _build.kernel_fn("fused_matmul", "dl4j_fused_matmul", _ARGS)
+            rc = fn(*args, stream)
+    kernel = {"sm90": "fused_matmul_sm90",
+              "sm90_f32": "fused_matmul_f32_sm90"}.get(design, "fused_matmul")
     if rc == -1:
         raise ValueError(f"{kernel}: shape ({m},{k})x({k},{n}) not taken "
                          f"by the kernel")
@@ -180,12 +253,14 @@ def fused_matmul(x, w, b=None, *, activation: str = "none",
         raise RuntimeError(f"{kernel}: kernel launch failed with "
                            f"cudaError_t {rc}")
     fused_matmul.launches += 1
-    fused_matmul.sm90_launches += int(sm90)
+    fused_matmul.sm90_launches += int(design == "sm90")
+    fused_matmul.sm90_f32_launches += int(design == "sm90_f32")
     return out.reshape(lead + (n,))
 
 
 fused_matmul.launches = 0
 fused_matmul.sm90_launches = 0
+fused_matmul.sm90_f32_launches = 0
 
 
 def _act_grad(pre, activation: str):

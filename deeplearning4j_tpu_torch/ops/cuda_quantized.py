@@ -17,8 +17,8 @@ Counterpart of the Pallas half of ``deeplearning4j_tpu/ops/quantized.py``
   ring) where TMA can read q (K % 16, 16-byte aligned), ``"wmma"``
   (``dl4j_matmul_int8``) otherwise. 8-bit wgmma reads its operands
   K-major only, so the sm90 design takes the weight as its (N, K) copy
-  (:func:`kmajor_weight`, made once a weight). Its launches are counted in
-  ``int8_matmul.launches``, the sm90 design's also in
+  (``cuda_matmul.kmajor_weight``, made once a weight). Its launches are
+  counted in ``int8_matmul.launches``, the sm90 design's also in
   ``int8_matmul.sm90_launches``.
 * :func:`matmul_int8` is the two in a row — the forward of the op's
   ``"cuda"`` helper; :func:`matmul_int8_reference` is its plain version
@@ -46,7 +46,9 @@ import torch
 from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import quantized as Q
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda, _stream
-from deeplearning4j_tpu_torch.ops.cuda_matmul import fullest_tile_n, sm_count
+from deeplearning4j_tpu_torch.ops.cuda_matmul import (
+    fullest_tile_n, kmajor_weight, sm_count,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -117,32 +119,6 @@ def int8_tile_n(m: int, n: int, sms: int) -> int:
     """The sm90 GEMM's tile width for an (M, N) output on ``sms`` SMs:
     192 or 128, whichever leaves the fuller waves (``fullest_tile_n``)."""
     return fullest_tile_n(m, n, TILE_N, sms)
-
-
-def kmajor_weight(w_q):
-    """The K-major (N, K) copy of an int8 (K, N) weight that the sm90 GEMM
-    reads (8-bit wgmma has no transpose). Made once and kept on ``w_q``
-    itself, so it lives and dies with the weight; remade when ``w_q``
-    changes in place (its ``_version``) or its storage, shape or strides
-    change. Never keyed on the pointer alone: the caching allocator hands a
-    freed weight's address to the next tensor. An inference tensor keeps
-    no version counter, so a kept copy could go stale unseen: its copy is
-    made at every call. Copies made are counted in
-    ``kmajor_weight.copies``."""
-    if w_q.is_inference():
-        kmajor_weight.copies += 1
-        return w_q.t().contiguous()
-    key = (w_q._version, w_q.data_ptr(), tuple(w_q.shape), w_q.stride())
-    kept = getattr(w_q, "_dl4j_kmajor", None)
-    if kept is not None and kept[0] == key:
-        return kept[1]
-    wt = w_q.t().contiguous()
-    kmajor_weight.copies += 1
-    w_q._dl4j_kmajor = (key, wt)
-    return wt
-
-
-kmajor_weight.copies = 0
 
 
 def int8_matmul(xq, xs, w_q, w_scale, dtype: torch.dtype):

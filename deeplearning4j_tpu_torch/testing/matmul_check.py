@@ -1,15 +1,17 @@
 """Faulted plain versions of the tensor-core ("sm90") GEMM kernels, for
-their checks: the fused matmul, the BN-apply → matmul → BN-statistics
-kernel and the int8 GEMM.
+their checks: the fused matmul (16-bit and float32), the BN-apply → matmul
+→ BN-statistics kernel and the int8 GEMM.
 
 ``csrc/fused_matmul_sm90.cu`` walks K in slabs of :data:`SLAB` columns
-through a ring of shared-memory stages. The faults such a design could
-bring are a slab that never reaches the product (the last, ragged one) and
-a slab that is accumulated twice (a consumer waiting on the wrong phase of
-its stage's barrier). :func:`fused_matmul_variant` computes the plain
-version (``cuda_matmul.fused_matmul_bias_act_reference``) with one of
-these faults; each must exceed ``cuda_matmul.kernel_tolerance``, which
-shows that the kernel's check still catches them.
+(``csrc/fused_matmul_f32_sm90.cu`` in slabs of :data:`F32_SLAB`) through a
+ring of shared-memory stages. The faults such a design could bring are a
+slab that never reaches the product (the last, ragged one) and a slab
+that is accumulated twice (a consumer waiting on the wrong phase of its
+stage's barrier); the float32 design could also run one TF32 pass where
+it should run three (``testing/split_f32.py``). :func:`fused_matmul_variant`
+computes the plain version (``cuda_matmul.fused_matmul_bias_act_reference``)
+with one of these faults; each must exceed ``cuda_matmul.kernel_tolerance``,
+which shows that the kernel's check still catches them.
 """
 
 from __future__ import annotations
@@ -17,24 +19,31 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.ops.nn_ops import apply_fused_activation
+from deeplearning4j_tpu_torch.testing import split_f32
 
 SLAB = 64  # K columns of one shared-memory stage
+F32_SLAB = 32  # the float32 design's: one 128-byte span of float32
 FAULTS = ("last_slab_dropped", "slab_added_twice")
+F32_FAULTS = ("single_pass_tf32",) + FAULTS
 
 
 def fused_matmul_variant(x, w, b=None, *, activation: str = "none",
-                         fault: str) -> torch.Tensor:
+                         fault: str, slab: int = SLAB) -> torch.Tensor:
     """act(x @ w + b) in float32, one cast to x's dtype, with ``fault``
-    (one of :data:`FAULTS`): the last K slab left out of the product, or
-    the first K slab added to it a second time."""
-    assert fault in FAULTS, fault
+    (one of :data:`F32_FAULTS`): the last K slab of ``slab`` columns left
+    out of the product, the first K slab added to it a second time, or the
+    product taken as one TF32 pass (operands rounded to TF32, float32
+    sums)."""
+    assert fault in F32_FAULTS, fault
     xf, wf = x.float(), w.float()
     k = wf.shape[0]
-    if fault == "last_slab_dropped":
-        keep = (k - 1) // SLAB * SLAB
+    if fault == "single_pass_tf32":
+        y = split_f32.split_product(xf, wf, passes="single")
+    elif fault == "last_slab_dropped":
+        keep = (k - 1) // slab * slab
         y = torch.matmul(xf[..., :keep], wf[:keep])
     else:
-        y = torch.matmul(xf, wf) + torch.matmul(xf[..., :SLAB], wf[:SLAB])
+        y = torch.matmul(xf, wf) + torch.matmul(xf[..., :slab], wf[:slab])
     if b is not None:
         y = y + b.float()
     return apply_fused_activation(y, activation).to(x.dtype)

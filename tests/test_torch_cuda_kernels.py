@@ -15,7 +15,10 @@ entries read out and compared with ``keep_mask``), the dq and dk/dv
 kernels with and without dropout (the tensor-core "sm90" forward, dq and
 dk/dv for bfloat16/float16 at D 16…128 × T 1…512 × causal / key mask /
 dropout under the sm90 bound of ``testing/flash_check.py``, the same bits
-twice, routing by counters), gradients through the registry's
+twice, routing by counters; the float32 tensor-core "sm90_f32" forward at
+D 8…128 × T 1…512 × the same variants under the float32 tolerance itself,
+the same bits twice, and its faulted variants — one TF32 pass among them —
+beyond it), gradients through the registry's
 ``dot_product_attention``, and a small BERT trained through all three
 flash kernels. Training: every updater kind on
 ragged, aligned and unaligned leaves in the three dtypes; the convbn
@@ -32,7 +35,12 @@ operands (element loads), the tensor-core "sm90" design at ragged M, K
 and N (multiples of 8) for bfloat16/float16 and which design
 ``matmul_design`` picks, by counters, gradients through the registry, the gate and
 the wrapper's refusals, and a small imported BERT whose every epilogue
-fusion launches the kernel. The fused LayerNorm + activation: rows 1, 7
+fusion launches the kernel; the float32 tensor-core "sm90_f32" design
+(three TF32 passes a product) at ragged M, K (multiples of 4) and N (odd
+included), every activation, 2-D and 3-D x, to ``kernel_tolerance``, the
+same bits twice, its K-major split weight copy made once and remade after
+an in-place change, and its faulted variants (one TF32 pass, the last
+32-deep slab dropped, a slab added twice) beyond the tolerance. The fused LayerNorm + activation: rows 1, 7
 and 4096, D 64 / 96 / 768 / 1000 / 4096 (the warp and the block path)
 and an odd D and unaligned rows (element accesses), every activation,
 the three dtypes, bias on and off, gradients through the registry, the
@@ -153,7 +161,7 @@ def test_flash_matches_plain(cuda, dtype, d, t_q, t_k, causal, masked):
     assert ca.flash_attention.launches == before + 1
     assert out.dtype == dtype and lse.dtype == torch.float32
     # the sm90 design rounds P to the input dtype (testing/flash_check.py)
-    unit = fc.rounding_unit(dtype, ca.flash_design(dtype, d))
+    unit = fc.rounding_unit(dtype, ca.flash_design(dtype, d, "fwd"))
     _assert_close(out, ref, dtype, fc.forward_slack(
         q, k, v, m, scale=1.0 / math.sqrt(d), causal=causal, unit=unit))
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
@@ -256,7 +264,7 @@ def test_flash_backward_matches_plain(cuda, dtype, d, rate, t_q, t_k,
     assert (ca.flash_attention_dq.launches - n_dq,
             ca.flash_attention_dkv.launches - n_dkv) == (1, 1)
     # the sm90 dq and dk/dv round dS (and P̃) to the input dtype
-    unit = fc.rounding_unit(dtype, ca.flash_design(dtype, d))
+    unit = fc.rounding_unit(dtype, ca.flash_design(dtype, d, "dq"))
     args = (q, k, v, m, seed, dout, lse, delta)
     slack_dq = fc.dq_slack(*args, unit=unit, **kw)
     slack_dk, slack_dv = fc.dkv_slack(*args, unit=unit, **kw)
@@ -306,7 +314,7 @@ def test_sm90_forward_matches_plain(cuda, dtype, d, t):
     """The tensor-core forward against its plain version under the sm90
     bound, every causal / key-mask / dropout variant; lse to 1e-4; a fully
     masked row equal to the plain version's mean of V."""
-    assert ca.flash_design(dtype, d) == "sm90"
+    assert ca.flash_design(dtype, d, "fwd") == "sm90"
     for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
         q, k, v, _, m = _sm90_inputs(dtype, d, t, causal, masked, cuda,
                                      100 * i)
@@ -332,7 +340,7 @@ def test_sm90_forward_matches_plain(cuda, dtype, d, t):
 def test_sm90_dkv_matches_plain(cuda, dtype, d, t):
     """The tensor-core dk/dv against its plain version under the sm90
     bound, every causal / key-mask / dropout variant."""
-    assert ca.flash_design(dtype, d) == "sm90"
+    assert ca.flash_design(dtype, d, "dkv") == "sm90"
     for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
         q, k, v, dout, m = _sm90_inputs(dtype, d, t, causal, masked, cuda,
                                         100 * i + 50)
@@ -361,7 +369,7 @@ def test_sm90_dq_matches_plain(cuda, dtype, d, t):
     """The tensor-core dq against its plain version under the sm90 bound
     (dS rounded unscaled: ``u·scale·(|dS|·|K|)``), every causal / key-mask
     / dropout variant."""
-    assert ca.flash_design(dtype, d) == "sm90"
+    assert ca.flash_design(dtype, d, "dq") == "sm90"
     for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
         q, k, v, dout, m = _sm90_inputs(dtype, d, t, causal, masked, cuda,
                                         100 * i + 70)
@@ -423,12 +431,70 @@ def test_sm90_dropout_drops_what_keep_mask_drops(cuda, causal):
     assert torch.equal(out != 0, keep & visible)
 
 
+F32_HEAD_DIMS = [8, 40, 64, 96, 128]
+
+
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+@pytest.mark.parametrize("t", SM90_LENGTHS)
+def test_f32_sm90_forward_matches_plain(cuda, d, t):
+    """The float32 tensor-core forward (every product three TF32 passes)
+    against its plain version at the float32 tolerance itself, every
+    causal / key-mask / dropout variant, Tk past Tq by 7 (Vᵀ's keys
+    padded to 8); lse to 1e-4; a fully masked row equal to the plain
+    version's mean of V."""
+    assert ca.flash_design(torch.float32, d, "fwd") == "sm90_f32"
+    for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
+        q, k, v, _, m = _sm90_inputs(torch.float32, d, t, causal, masked,
+                                     cuda, 100 * i + 1)
+        seed = torch.tensor([i - 55], dtype=torch.int32, device=cuda)
+        kw = dict(scale=1.0 / math.sqrt(d), causal=causal,
+                  dropout_rate=rate)
+        before = ca.flash_attention.sm90_f32_launches
+        out, lse = ca.flash_attention(q, k, v, m, seed, **kw)
+        ref, ref_lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+        torch.cuda.synchronize()
+        assert ca.flash_attention.sm90_f32_launches == before + 1
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        _assert_close(out, ref, torch.float32)
+        assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
+def test_f32_sm90_forward_same_bits_and_faults(cuda):
+    """Two runs give the same bits; the faulted plain variants — one TF32
+    pass (testing/split_f32.py), the last key tile dropped, a rescale
+    skipped, the keep mask shifted a column — all break the float32
+    bound the kernel meets."""
+    from deeplearning4j_tpu_torch.testing import split_f32 as sf
+
+    q, k, v, _, m = _sm90_inputs(torch.float32, 64, 130, False, "pad",
+                                 cuda, 19)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    kw = dict(scale=0.125, dropout_rate=0.1)
+    a = ca.flash_attention(q, k, v, m, seed, **kw)
+    b = ca.flash_attention(q, k, v, m, seed, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref, _ = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+    _assert_close(a[0], ref, torch.float32)
+    bad = {"single_pass_tf32": sf.flash_forward_split(
+        q, k, v, m, seed, passes="single", **kw)[0]}
+    for fault in fc.FAULTS:
+        bad[fault] = fc.forward_variant(q, k, v, m, seed, fault=fault,
+                                        **kw)[0]
+    for fault, out in bad.items():
+        assert (out - ref).abs().max().item() > ATOL[torch.float32], fault
+
+
 def test_flash_design_routes_by_counters(cuda):
     """bfloat16 at D 64 launches the sm90 forward, dq and dk/dv; float32
-    at D 64 and bfloat16 at D 192 the CUDA-core ones (sm90 counters
-    still)."""
-    for dtype, d, sm90 in ((torch.bfloat16, 64, 1), (torch.float16, 128, 1),
-                           (torch.float32, 64, 0), (torch.bfloat16, 192, 0)):
+    at D 64 the sm90_f32 forward and the CUDA-core dq and dk/dv; float32
+    at D 192 and bfloat16 at D 192 the CUDA-core ones (tensor-core
+    counters still)."""
+    for dtype, d, sm90, f32 in ((torch.bfloat16, 64, 1, 0),
+                                (torch.float16, 128, 1, 0),
+                                (torch.float32, 64, 0, 1),
+                                (torch.float32, 128, 0, 1),
+                                (torch.float32, 192, 0, 0),
+                                (torch.bfloat16, 192, 0, 0)):
         q, k, v, dout, _ = _sm90_inputs(dtype, d, 70, True, None, cuda, 11)
         ca.reset_launch_counts()
         out, lse = ca.flash_attention(q, k, v, causal=True)
@@ -439,6 +505,7 @@ def test_flash_design_routes_by_counters(cuda):
                               scale=1.0 / math.sqrt(d), causal=True)
         counts = ca.launch_counts()
         assert counts == {"flash_attn_fwd": 1, "flash_attn_fwd_sm90": sm90,
+                          "flash_attn_fwd_f32_sm90": f32,
                           "flash_attn_dq": 1, "flash_attn_dq_sm90": sm90,
                           "flash_attn_dkv": 1, "flash_attn_dkv_sm90": sm90,
                           "paged_decode": 0}, (dtype, d, counts)
@@ -970,10 +1037,68 @@ def test_fused_matmul_sm90_takes_a_bias_view_off_8_byte_alignment(cuda,
     _check_fm(out, x, w, ref)
 
 
+@pytest.mark.parametrize("lead,k,n", [
+    ((1,), 4, 1), ((7,), 32, 9), ((5,), 36, 130), ((129,), 776, 1000),
+    ((2, 65), 96, 200), ((3, 128), 8, 391), ((4095,), 3072, 768)])
+@pytest.mark.parametrize("act", FM_ACTS)
+def test_fused_matmul_f32_sm90_matches_plain(cuda, lead, k, n, act):
+    """The float32 tensor-core kernel (K % 4 == 0, x aligned; three TF32
+    passes) at ragged M, N and K — one row, a partial K slab, odd N, N
+    past both tile widths, 2-D and 3-D x — with and without a bias, held
+    to kernel_tolerance unchanged."""
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+
+    x, w, b = _fm_inputs(lead, k, n, torch.float32, cuda, seed=k + n + 3)
+    for bias in (b, None):
+        before = cm.fused_matmul.sm90_f32_launches
+        out = cm.fused_matmul(x, w, bias, activation=act)
+        ref = cm.fused_matmul_bias_act_reference(x, w, bias, activation=act)
+        torch.cuda.synchronize()
+        assert cm.fused_matmul.sm90_f32_launches == before + 1
+        _check_fm(out, x, w, ref)
+
+
+def test_fused_matmul_f32_sm90_bits_copies_and_faults(cuda):
+    """Two runs give the same bits; the weight's K-major split copy (its
+    kernel giving tf32_split's bits) is made once and remade after an
+    in-place change (the new result agrees with
+    the new weight); one TF32 pass, the last 32-deep K slab dropped and a
+    slab added twice all break kernel_tolerance."""
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.testing import matmul_check as mc
+    from deeplearning4j_tpu_torch.testing import split_f32 as sf
+
+    x, w, b = _fm_inputs((300,), 776, 200, torch.float32, cuda, seed=21)
+    # the split copy's kernel gives tf32_split's bits, ragged tiles too
+    for shape in ((776, 200), (5, 33), (64, 1)):
+        ww = _randn(shape, torch.float32, cuda, 22)
+        assert torch.equal(cm.kmajor_split(ww), sf.tf32_split(ww.t()))
+    copies = cm.kmajor_weight.copies
+    out = cm.fused_matmul(x, w, b, activation="gelu")
+    again = cm.fused_matmul(x, w, b, activation="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert cm.kmajor_weight.copies == copies + 1
+    ref = cm.fused_matmul_bias_act_reference(x, w, b, activation="gelu")
+    _check_fm(out, x, w, ref)
+    atol, rtol = cm.kernel_tolerance(x, w, ref)
+    for fault in mc.F32_FAULTS:
+        bad = mc.fused_matmul_variant(x, w, b, activation="gelu",
+                                      fault=fault, slab=mc.F32_SLAB)
+        assert ((bad - ref).abs() > atol + rtol * ref.abs()).any(), fault
+    w.mul_(-1.0)
+    out = cm.fused_matmul(x, w, b, activation="gelu")
+    torch.cuda.synchronize()
+    assert cm.kmajor_weight.copies == copies + 2
+    _check_fm(out, x, w, cm.fused_matmul_bias_act_reference(
+        x, w, b, activation="gelu"))
+
+
 def test_matmul_design_routes_by_counters(cuda):
     """matmul_design picks sm90 for 16-bit operands TMA can read, wmma for
-    the other 16-bit ones, simt for float32; the sm90 counter moves only
-    for sm90, the launch counter for every call."""
+    the other 16-bit ones, sm90_f32 for float32 with K % 4 == 0 and an
+    aligned x, simt for the other float32 ones; each design's counter
+    moves only for it, the launch counter for every call."""
     from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
 
     def unaligned(t):
@@ -987,18 +1112,24 @@ def test_matmul_design_routes_by_counters(cuda):
             (torch.bfloat16, 68, 64, False, "wmma"),
             (torch.bfloat16, 64, 60, False, "wmma"),
             (torch.float16, 64, 64, True, "wmma"),
-            (torch.float32, 64, 64, False, "simt")):
+            (torch.float32, 64, 64, False, "sm90_f32"),
+            (torch.float32, 68, 9, False, "sm90_f32"),
+            (torch.float32, 66, 64, False, "simt"),
+            (torch.float32, 64, 64, True, "simt")):
         x, w, b = _fm_inputs((33,), k, n, dtype, cuda, seed=5)
         if shift:
             x = unaligned(x)
         out = torch.empty((33, n), dtype=dtype, device=cuda)
         assert cm.matmul_design(x, w, out) == want, (dtype, k, n, shift)
-        before = (cm.fused_matmul.launches, cm.fused_matmul.sm90_launches)
+        before = (cm.fused_matmul.launches, cm.fused_matmul.sm90_launches,
+                  cm.fused_matmul.sm90_f32_launches)
         got = cm.fused_matmul(x, w, b, activation="gelu")
         ref = cm.fused_matmul_bias_act_reference(x, w, b, activation="gelu")
         torch.cuda.synchronize()
-        assert (cm.fused_matmul.launches, cm.fused_matmul.sm90_launches) == (
-            before[0] + 1, before[1] + int(want == "sm90"))
+        assert (cm.fused_matmul.launches, cm.fused_matmul.sm90_launches,
+                cm.fused_matmul.sm90_f32_launches) == (
+            before[0] + 1, before[1] + int(want == "sm90"),
+            before[2] + int(want == "sm90_f32"))
         _check_fm(got, x, w, ref)
 
 

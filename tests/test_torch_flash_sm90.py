@@ -7,8 +7,10 @@ before the products that take them, as the TPU kernels do
 plain versions with that rounding added. Here, with no card:
 
 * :func:`~deeplearning4j_tpu_torch.ops.cuda_attention.flash_design` over
-  every dtype and head dim: bfloat16 and float16 with D <= 128 take the
-  sm90 design, everything else the CUDA-core one;
+  every dtype, head dim and kernel: bfloat16 and float16 with D <= 128
+  take the sm90 design, the float32 forward with D <= 128 the sm90_f32
+  one (``tests/test_torch_split_f32.py`` checks its arithmetic), everything
+  else the CUDA-core one;
 * a plain version that rounds P̃ and dS as the kernels do passes the
   bound, and each faulted variant fails it: the keep mask shifted by one
   key column, the last streamed tile dropped, and (forward) the rescale
@@ -57,11 +59,19 @@ def _inputs(dtype, bh, t, d, masked, seed):
 @pytest.mark.parametrize("d", [8, 16, 40, 64, 96, 120, 128, 136, 192, 256])
 def test_flash_design_by_dtype_and_head_dim(dtype, d):
     sm90 = dtype in (torch.bfloat16, torch.float16) and d <= 128
-    design = ca.flash_design(dtype, d)
-    assert design == ("sm90" if sm90 else "simt")
+    # the float32 forward alone has a tensor-core design of its own
+    f32_fwd = dtype == torch.float32 and d <= 128
+    for kernel in ca.FLASH_KERNELS:
+        want = ("sm90" if sm90 else
+                "sm90_f32" if f32_fwd and kernel == "fwd" else "simt")
+        assert ca.flash_design(dtype, d, kernel) == want, kernel
+    with pytest.raises(ValueError, match="kernel"):
+        ca.flash_design(dtype, d, "bwd")
+    design = ca.flash_design(dtype, d, "dq")
     # the check adds the rounding term for the sm90 design alone
     unit = fc.rounding_unit(dtype, design)
     assert unit == (fc.ROUNDING[dtype] if sm90 else 0.0)
+    assert fc.rounding_unit(dtype, ca.flash_design(dtype, d, "fwd")) == unit
     # ... and so does dq's term, which the sm90 dq needs as dk/dv do
     q, k, v, do, _ = _inputs(torch.float32, 1, 9, d, False, 3)
     out, lse = ca.flash_attention_reference(q, k, v, scale=0.5)

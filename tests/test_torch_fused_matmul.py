@@ -25,7 +25,7 @@ Inputs are drawn with numpy and fed to both packages.
   and the Mosaic tile rule (the JAX gate is asked about the shapes padded
   to M % 8, K % 128, N % 128; the CUDA kernel takes any M, K and N).
 * ``matmul_design``'s static choice of kernel for each dtype, K and N
-  alignment and pointer alignment, and the faulted plain variants of
+  alignment and pointer alignment (float32: sm90_f32 where TMA reads x), and the faulted plain variants of
   ``testing/matmul_check.py`` (the last K slab dropped, a slab added
   twice), which must exceed ``kernel_tolerance`` where the plain version
   itself sits at 0.
@@ -222,12 +222,15 @@ def _offset(t, elements: int):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("k,n", [(64, 64), (776, 1000), (8, 8), (68, 64),
-                                 (64, 60), (33, 65), (1, 1)])
+                                 (64, 60), (33, 65), (1, 1), (30, 9),
+                                 (770, 768), (3072, 9)])
 @pytest.mark.parametrize("moved", [None, "x", "w", "out"])
 def test_matmul_design_by_dtype_shape_and_alignment(dtype, k, n, moved):
     """sm90 for 16-bit operands with K and N multiples of 8 and x, w and
-    out 16-byte aligned; wmma for every other 16-bit case; simt for
-    float32, whatever its shape."""
+    out 16-byte aligned; wmma for every other 16-bit case; sm90_f32 for
+    float32 with K % 4 == 0 and x 16-byte aligned (w and out do not
+    enter: the kernel reads w's own K-major copy and masks any N); simt
+    for every other float32 case."""
     t = {"x": torch.zeros((5, k), dtype=dtype),
          "w": torch.zeros((k, n), dtype=dtype),
          "out": torch.zeros((5, n), dtype=dtype)}
@@ -236,7 +239,7 @@ def test_matmul_design_by_dtype_shape_and_alignment(dtype, k, n, moved):
         t[moved] = _offset(t[moved], 1)
         assert t[moved].data_ptr() % 16 != 0
     if dtype == torch.float32:
-        want = "simt"
+        want = "sm90_f32" if k % 4 == 0 and moved != "x" else "simt"
     elif k % 8 == 0 and n % 8 == 0 and moved is None:
         want = "sm90"
     else:
