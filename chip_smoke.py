@@ -24,8 +24,10 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    dropped, a row block counted twice) beyond that check; the flash
    forward with dropout 0.1 and the dq and dk/dv backward kernels in
    float32 and bfloat16 at BERT's two attention shapes (A: BH 384, T 128,
-   ragged key mask; B: BH 96, T 512), and the forward without dropout at
-   shape A (``onnx_bert``'s attention); the fused matmul + bias +
+   ragged key mask; B: BH 96, T 512), the float32 dq and dk/dv also causal
+   at BH 12 × T 512 and at D 192 (the CUDA-core ones: the float32
+   tensor-core dq and dk/dv take D <= 64), and the forward without
+   dropout at shape A (``onnx_bert``'s attention); the fused matmul + bias +
    activation epilogue in float32 and bfloat16 at the three imported
    BERT-base shapes (M 4096; K×N 768×768, 768×3072 with gelu_exact,
    3072×768), every activation at 768×768, a ragged M of 4000, a K of 770
@@ -50,17 +52,19 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    shifted a column, last tile dropped, a rescale skipped) must exceed
    it, two runs must give the same bits, and the dropout forward's
    dropped entries must be keep_mask's. The float32 flash forward at
-   D <= 128 and the float32 fused matmul where TMA reads x run the
-   "sm90_f32" designs — every product three TF32 passes on the tensor
-   cores (``testing/split_f32.py``) — held to the float32 checks
-   unchanged; their faulted plain variants add one TF32 pass (and the
-   matmul's slabs are 32 deep); their entries carry the one-off K-major
-   split copy of the weight and the bound at the split's rate (three
-   TF32 passes). With
+   D <= 128, the float32 dq and dk/dv at D <= 64 and the float32 fused
+   matmul where TMA reads x run the "sm90_f32" designs — every product
+   three TF32 passes on the tensor cores (``testing/split_f32.py``) —
+   held to the float32 checks unchanged; their faulted plain variants add
+   one TF32 pass (and the matmul's slabs are 32 deep, the backward's tiles
+   32 wide), and two runs must give the same bits; their entries carry the
+   one-off K-major split copy of the weight and the bound at the split's
+   rate (three TF32 passes). With
    kernel / plain / library times (device time: the calls replayed from a
    CUDA graph between CUDA events, so no host work sits between launches)
    and the least time the card could take (``bound_ms``); the updater's
-   beside ``torch._fused_sgd_`` (Nesterov) and ``torch._fused_adam_``.
+   beside ``torch._fused_sgd_`` (Nesterov, both leaves) and
+   ``torch._fused_adam_``.
 4. ``serve``   — GPT at GPT-2-small width (GptConfig.base(), float32,
    random weights from a numpy seed) served by the port's
    GenerativeEngine through start()/submit()/stop(): once with
@@ -87,9 +91,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    110.1M parameters in 206 leaves, random weights from the port's seed),
    float32, ``fit_classifier`` on batch 32 × seq 128 with ragged rows,
    Adam lr 2e-5, attention and FFN dropout 0.1: 3 steps through the
-   kernels (launch counts set to 0 just before; 12 flash forwards — all
-   on the float32 tensor-core design — 12 dq, 12 dk/dv and 206 updater
-   launches a step), then the same steps with
+   kernels (launch counts set to 0 just before; 12 flash forwards, 12 dq
+   and 12 dk/dv — all on the float32 tensor-core designs — and 206
+   updater launches a step), then the same steps with
    the plain flash versions installed as the ``cuda`` helper (same
    seeds, same dropped entries), and at dropout 0 against
    ``helper_mode="generic"``; losses step by step and parameters after
@@ -99,8 +103,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    ``fit_mlm`` on batch 8 × seq 512 with 15% of positions masked; its
    forward, dq and dk/dv launches (12 each a step) are the sm90 kernels',
    and every float32 phase launches none of them (nor the 16-bit sm90
-   fused matmul): their flash forwards and fused matmuls are all the
-   float32 tensor-core ("sm90_f32") designs', none the CUDA-core ones.
+   fused matmul): their flash forwards, dq, dk/dv and fused matmuls are
+   all the float32 tensor-core ("sm90_f32") designs', none the CUDA-core
+   ones.
 9. ``onnx_bert`` — the imported-graph path: the ONNX bytes of a
    BERT-base-width encoder (12 layers, d 768, 12 heads, ff 3072, vocab
    30522, ~108.5M float32 weights from a numpy seed) built by the port's
@@ -124,7 +129,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    ``sd.output`` of the logits. The loss plan must hold exactly 12
    attention, 74 epilogue and 1 LayerNorm fusions, and each step — launch
    counts set to 0 just before the 3 steps and read just after — must
-   launch 1 fused LayerNorm, 12 flash forwards, 12 dq, 12 dk/dv, 74 fused
+   launch 1 fused LayerNorm, 12 flash forwards, 12 dq, 12 dk/dv (the three
+   on their sm90_f32 designs), 74 fused
    matmuls (forwards and matmuls on the sm90_f32 designs, with one K-major
    split copy of each matmul's weight a step: the updater's weights are
    new tensors) and 201 updater steps. Losses are held against a
@@ -201,8 +207,16 @@ FLASH_FWD_KERNEL = {"simt": "flash_attn_fwd", "sm90": "flash_attn_fwd_sm90",
                     "sm90_f32": "flash_attn_fwd_f32_sm90"}
 FLASH_F32_FAULTS = ("single_pass_tf32", "keep_shifted", "last_tile_dropped",
                     "rescale_skipped")
-FLASH_DQ_KERNEL = {"simt": "flash_attn_dq", "sm90": "flash_attn_dq_sm90"}
-FLASH_DKV_KERNEL = {"simt": "flash_attn_dkv", "sm90": "flash_attn_dkv_sm90"}
+FLASH_DQ_KERNEL = {"simt": "flash_attn_dq", "sm90": "flash_attn_dq_sm90",
+                   "sm90_f32": "flash_attn_dq_f32_sm90"}
+FLASH_DKV_KERNEL = {"simt": "flash_attn_dkv", "sm90": "flash_attn_dkv_sm90",
+                    "sm90_f32": "flash_attn_dkv_f32_sm90"}
+# the float32 dq and dk/dv with D <= 64 ("sm90_f32") are held to the
+# float32 backward bound (BWD_ATOL, BWD_RTOL) unchanged; their faulted plain
+# variants — one TF32 pass (testing/split_f32.py), the keep mask shifted a
+# column, the last 32-wide tile dropped — must exceed it
+FLASH_BWD_F32_FAULTS = ("single_pass_tf32", "keep_shifted",
+                        "last_tile_dropped")
 LOGIT_TOL = 1e-3        # kernel vs generic GPT logits (float32, 12 layers)
 
 FLASH_SHAPE = dict(bh=12, t=512, d=64)
@@ -226,6 +240,9 @@ CONVBN_PER_STEP = 36
 # batch 8 × seq 512, full rows. Dropout 0.1 (BertConfig's default).
 BERT_ATTN_SHAPES = {"A": dict(batch=32, heads=12, t=128, d=64, min_len=16),
                     "B": dict(batch=8, heads=12, t=512, d=64, min_len=None)}
+# the backward also at a causal shape (the causal branch of the float32
+# tensor-core dq and dk/dv: GPT-2-small's 12 heads over 512 tokens)
+BWD_CAUSAL_SHAPE = dict(batch=1, heads=12, t=512, d=64, min_len=None)
 ATTN_DROPOUT = 0.1
 # the backward: sums of up to T products in float32 in another order:
 # 1e-4 absolute plus 1e-5 relative; bfloat16 one unit in the last place
@@ -603,7 +620,7 @@ def flash_bert_case(dtype, dev, label, rate):
                 "bound_ms": bms, "bound_by": by}
 
 
-def sdpa_backward_ms(q4, k4, v4, m4, do4) -> float:
+def sdpa_backward_ms(q4, k4, v4, m4, do4, causal: bool = False) -> float:
     """SDPA's backward alone, no dropout: the device time of forward plus
     backward minus that of the forward, each captured in a CUDA graph by
     :func:`time_ms` (autograd's backward runs on the capture stream, as
@@ -614,7 +631,8 @@ def sdpa_backward_ms(q4, k4, v4, m4, do4) -> float:
     xs = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
 
     def fwd():
-        return F.scaled_dot_product_attention(*xs, attn_mask=m4)
+        return F.scaled_dot_product_attention(*xs, attn_mask=m4,
+                                              is_causal=causal)
 
     def fwd_bwd():
         torch.autograd.grad(fwd(), xs, do4)
@@ -622,19 +640,57 @@ def sdpa_backward_ms(q4, k4, v4, m4, do4) -> float:
     return time_ms(fwd_bwd) - time_ms(fwd)
 
 
-def flash_backward_case(dtype, dev, label):
-    """dq and dk/dv kernels at a BERT shape with dropout 0.1, against
-    their plain versions (same seed, lse and Δ). Returns two entries."""
+def _bwd_faults(args, kw, dtype, design, dq_name, dkv_name):
+    """The faulted plain variants of a tensor-core backward design: for
+    sm90 ``testing/flash_check.py``'s, rounded as the kernels round; for
+    sm90_f32 one TF32 pass (``testing/split_f32.py``) and the tile faults
+    at its 32-wide tiles. {kernel: {fault: (dq,) or (dk, dv)}}."""
+    from deeplearning4j_tpu_torch.testing import flash_check as fc
+    from deeplearning4j_tpu_torch.testing import split_f32 as sf
+
+    out = {dq_name: {}, dkv_name: {}}
+    if design == "sm90":
+        for fault in fc.DQ_FAULTS:
+            out[dq_name][fault] = (fc.dq_variant(*args, round_to=dtype,
+                                                 fault=fault, **kw),)
+        for fault in fc.DKV_FAULTS:
+            out[dkv_name][fault] = fc.dkv_variant(*args, round_to=dtype,
+                                                  fault=fault, **kw)
+    elif design == "sm90_f32":
+        for fault in FLASH_BWD_F32_FAULTS:
+            if fault == "single_pass_tf32":
+                out[dq_name][fault] = (sf.flash_dq_split(
+                    *args, passes="single", **kw),)
+                out[dkv_name][fault] = sf.flash_dkv_split(
+                    *args, passes="single", **kw)
+                continue
+            tile = dict(fault=fault, tile=sf.FLASH_BWD_TILE)
+            out[dq_name][fault] = (fc.dq_variant(*args, **tile, **kw),)
+            out[dkv_name][fault] = fc.dkv_variant(*args, **tile, **kw)
+    return out
+
+
+def flash_backward_case(dtype, dev, label, d=None):
+    """dq and dk/dv kernels at a BERT shape (``label`` "A" or "B") or the
+    causal shape (``"causal"``: :data:`BWD_CAUSAL_SHAPE`) with dropout 0.1,
+    against their plain versions (same seed, lse and Δ); ``d`` overrides
+    the head dim. Returns two entries."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import cuda_attention as ca
     from deeplearning4j_tpu_torch.testing import flash_check as fc
 
-    shape = BERT_ATTN_SHAPES[label]
+    causal = label == "causal"
+    shape = dict(BWD_CAUSAL_SHAPE if causal else BERT_ATTN_SHAPES[label])
+    if d is not None:
+        shape["d"] = d
     q, k, v, do, mask, _, pairs = _attn_inputs(shape, dtype, dev, 12)
     seed = torch.tensor([-5], dtype=torch.int32, device=dev)
     bh, t, d = q.shape
-    kw = dict(scale=1.0 / math.sqrt(d), dropout_rate=ATTN_DROPOUT)
+    if causal:  # (query, key) pairs on or below the diagonal
+        pairs = float(bh * t * (t + 1) // 2)
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal,
+              dropout_rate=ATTN_DROPOUT)
     out, lse = ca.flash_attention_reference(q, k, v, mask, seed, **kw)
     delta = ca.attention_delta(do, out)
     args = (q, k, v, mask, seed, do, lse, delta)
@@ -652,27 +708,19 @@ def flash_backward_case(dtype, dev, label):
                  for n in got}
     # the sm90 kernels round dS and P̃ to bfloat16 (as the TPU kernels do):
     # the bound adds 2^-7·scale·(|dS|·|K|) to dq (dS unscaled), and
-    # 2^-7·scale·(|dSᵀ|·|Q|) to dk and 2^-7·(|P̃ᵀ|·|dO|) to dv; each faulted
-    # plain variant must exceed it
+    # 2^-7·scale·(|dSᵀ|·|Q|) to dk and 2^-7·(|P̃ᵀ|·|dO|) to dv; the sm90_f32
+    # kernels are held to the float32 bound itself. Each faulted plain
+    # variant must exceed the bound.
     unit = fc.rounding_unit(dtype, design)
-    slack = {dq_name: (fc.dq_slack(*args, unit=unit, causal=False, **kw),),
-             dkv_name: fc.dkv_slack(*args, unit=unit, causal=False, **kw)}
-    faults = {dq_name: {}, dkv_name: {}}
-    if design == "sm90":
-        for name_, fault_names, variant in (
-                (dq_name, fc.DQ_FAULTS,
-                 lambda f: (fc.dq_variant(*args, round_to=dtype, fault=f,
-                                          causal=False, **kw),)),
-                (dkv_name, fc.DKV_FAULTS,
-                 lambda f: fc.dkv_variant(*args, round_to=dtype, fault=f,
-                                          causal=False, **kw))):
-            for fault in fault_names:
-                faults[name_][fault] = max(
-                    fc.excess(b, r, sl, BWD_ATOL, BWD_RTOL[name])[1]
-                    for b, r, sl in zip(variant(fault), ref[name_],
-                                        slack[name_]))
+    slack = {dq_name: (fc.dq_slack(*args, unit=unit, **kw),),
+             dkv_name: fc.dkv_slack(*args, unit=unit, **kw)}
+    faults = {n: {f: max(fc.excess(b, r, sl, BWD_ATOL, BWD_RTOL[name])[1]
+                         for b, r, sl in zip(bad, ref[n], slack[n]))
+                  for f, bad in fs.items()}
+              for n, fs in _bwd_faults(args, kw, dtype, design, dq_name,
+                                       dkv_name).items()}
     (q4, k4, v4), m4 = _sdpa_args(q, k, v, mask, shape["heads"])
-    lib_ms = sdpa_backward_ms(q4, k4, v4, m4, do.reshape(q4.shape))
+    lib_ms = sdpa_backward_ms(q4, k4, v4, m4, do.reshape(q4.shape), causal)
     es = q.element_size()
     side = 2 * bh * t * 4 + (0 if mask is None else bh * t * 4)
     timed = {dq_name: (ca.flash_attention_dq,
@@ -691,19 +739,21 @@ def flash_backward_case(dtype, dev, label):
             shares.append(share)
             ok = ok and bool(torch.isfinite(g.float()).all())
         ok = ok and max(shares) <= 1.0
-        bms, by = bound(tensors * bh * t * d * es + side,
-                        ops_per_pair * d * pairs, name)
-        sm90 = design == "sm90"
+        nbytes = tensors * bh * t * d * es + side
+        bms, by = design_bound(nbytes, ops_per_pair * d * pairs, name, design)
+        tensor_cores = design in ("sm90", "sm90_f32")
         ok = ok and same_bits[kernel]
         entries.append({
             "kernel": kernel, "design": design,
             "dtype": name, "bert": label,
             "shape": [bh, t, d], "masked": mask is not None,
-            "dropout": ATTN_DROPOUT, "max_abs_err": max(errs),
+            "causal": causal, "dropout": ATTN_DROPOUT,
+            "max_abs_err": max(errs),
             "tol": tol_text(name, design, term, BWD_ATOL, BWD_RTOL[name]),
             "err_over_tol": max(shares),
             **({"faulted_plain_over_tol": faults[kernel],
-                "same_bits_twice": same_bits[kernel]} if sm90 else {}),
+                "same_bits_twice": same_bits[kernel]} if tensor_cores
+               else {}),
             "ms": time_ms(lambda: fn(*args, **kw)),
             "plain_ms": time_ms(lambda: plain(*args, **kw)),
             "library_ms": lib_ms,
@@ -749,41 +799,48 @@ def updater_case(dtype, dev):
                      "tol": "0 (bit-exact)", "exact": exact, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": None,
                      "bound_ms": bms, "bound_by": by}
+        out[leaf].update(fused_sgd_ms(p, g, v, lr))
         if leaf == "fc.W":
-            out[leaf].update(updater_library_ms(p, g, v, lr))
+            out[leaf].update(adam_ms(p, g))
     ok = all(e["exact"] for e in out.values())
     return ok, list(out.values())
 
 
-def updater_library_ms(p, g, v, lr):
-    """PyTorch's own fused optimizer steps on the same leaf, timed only
-    (the port never calls them): ``torch._fused_sgd_`` with Nesterov
-    momentum beside the Nesterovs kernel (PyTorch's Nesterov form; the
-    same reads and writes), and ``torch._fused_adam_`` beside the kernel's
-    Adam step (the JAX updater's bias-corrected form) on the same leaf."""
+def fused_sgd_ms(p, g, v, lr):
+    """PyTorch's own fused optimizer step on the same leaf, timed only (the
+    port never calls it): ``torch._fused_sgd_`` with Nesterov momentum
+    beside the Nesterovs kernel (PyTorch's Nesterov form; the same reads
+    and writes)."""
+    import torch
+
+    pl, gl, vl = (t.clone() for t in (p, g, v))
+    return {"library_ms": time_ms(lambda: torch._fused_sgd_(
+                [pl], [gl], [vl], weight_decay=0.0, momentum=0.9, lr=lr,
+                dampening=0.0, nesterov=True, maximize=False,
+                is_first_step=False)),
+            "library_note": "torch._fused_sgd_ (Nesterov momentum), timed "
+                            "only"}
+
+
+def adam_ms(p, g):
+    """The kernel's Adam step (the JAX updater's bias-corrected form) and
+    ``torch._fused_adam_`` on the same leaf, the latter timed only."""
     import torch
 
     from deeplearning4j_tpu_torch.nn.updater import Adam
     from deeplearning4j_tpu_torch.ops import cuda_updater as cu
 
-    pl, gl, vl = (t.clone() for t in (p, g, v))
-    sgd_ms = time_ms(lambda: torch._fused_sgd_(
-        [pl], [gl], [vl], weight_decay=0.0, momentum=0.9, lr=lr,
-        dampening=0.0, nesterov=True, maximize=False, is_first_step=False))
     adam = Adam(learning_rate=1e-3)
     m, sq = torch.zeros_like(p), torch.zeros_like(p)
-    adam_ms = time_ms(lambda: cu.fused_updater(
+    kernel_ms = time_ms(lambda: cu.fused_updater(
         p, g, 1e-3, 1, m, sq, kind="Adam", **adam.fused_hyper()))
     pa, ga, ma, va = (t.clone() for t in (p, g, m, sq))
     step = torch.ones((), dtype=torch.float32, device=p.device)
-    adam_lib_ms = time_ms(lambda: torch._fused_adam_(
+    lib_ms = time_ms(lambda: torch._fused_adam_(
         [pa], [ga], [ma], [va], [], [step], lr=1e-3, beta1=adam.beta1,
         beta2=adam.beta2, weight_decay=0.0, eps=adam.epsilon, amsgrad=False,
         maximize=False))
-    return {"library_ms": sgd_ms,
-            "library_note": "torch._fused_sgd_ (Nesterov momentum), timed "
-                            "only",
-            "adam_ms": adam_ms, "adam_library_ms": adam_lib_ms,
+    return {"adam_ms": kernel_ms, "adam_library_ms": lib_ms,
             "adam_library_note": "torch._fused_adam_ on the same leaf, "
                                  "timed only"}
 
@@ -1135,19 +1192,22 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
 
     problems = []
     # bfloat16 at head dim 64 takes the tensor-core (sm90) forward, dq and
-    # dk/dv; float32 the sm90_f32 forward and the CUDA-core dq and dk/dv
-    # (ca.flash_design)
+    # dk/dv; float32 the tensor-core sm90_f32 ones (ca.flash_design)
     head_dim = cfg.hidden // cfg.heads
     sm90 = ca.flash_design(getattr(torch, dtype), head_dim, "dq") == "sm90"
     f32 = ca.flash_design(getattr(torch, dtype), head_dim,
                           "fwd") == "sm90_f32"
+    f32_bwd = ca.flash_design(getattr(torch, dtype), head_dim,
+                              "dq") == "sm90_f32"
     want = {"flash_attn_fwd": cfg.layers * BERT_STEPS,
             "flash_attn_fwd_sm90": cfg.layers * BERT_STEPS * sm90,
             "flash_attn_fwd_f32_sm90": cfg.layers * BERT_STEPS * f32,
             "flash_attn_dq": cfg.layers * BERT_STEPS,
             "flash_attn_dq_sm90": cfg.layers * BERT_STEPS * sm90,
+            "flash_attn_dq_f32_sm90": cfg.layers * BERT_STEPS * f32_bwd,
             "flash_attn_dkv": cfg.layers * BERT_STEPS,
             "flash_attn_dkv_sm90": cfg.layers * BERT_STEPS * sm90,
+            "flash_attn_dkv_f32_sm90": cfg.layers * BERT_STEPS * f32_bwd,
             "fused_updater": n_leaves * BERT_STEPS}
     for name, n in want.items():
         if launches[name] != n:
@@ -1156,7 +1216,6 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
             or predict_launches["flash_attn_fwd_sm90"] != cfg.layers * sm90
             or predict_launches["flash_attn_fwd_f32_sm90"] != cfg.layers * f32
             or predict_launches["flash_attn_dq"]
-            or predict_launches["flash_attn_dq_sm90"]
             or predict_launches["flash_attn_dkv"]):
         problems.append(f"predict launches {predict_launches}")
     if logits.shape != (batch, cfg.num_labels) or not np.all(
@@ -1766,6 +1825,8 @@ def sd_bert_finetune_phase(dev, smi):
                 "flash_attn_dq": layers, "flash_attn_dkv": layers,
                 "flash_attn_fwd_sm90": 0, "flash_attn_dq_sm90": 0,
                 "flash_attn_dkv_sm90": 0, "flash_attn_fwd_f32_sm90": layers,
+                "flash_attn_dq_f32_sm90": layers,
+                "flash_attn_dkv_f32_sm90": layers,
                 "fused_matmul_bias_act": 6 * layers + 2,
                 "fused_matmul_bias_act_sm90": 0,
                 "fused_matmul_bias_act_f32_sm90": 6 * layers + 2,
@@ -2162,6 +2223,17 @@ def main() -> int:
             entries += bwd_entries
             if not ok:
                 failed.append(f"flash_attn_dq/dkv[{label}, {dtype}]")
+    # the float32 backward's causal branch; and at a head dim the sm90_f32
+    # dq and dk/dv refuse, the CUDA-core ones
+    ok, bwd_entries = flash_backward_case(torch.float32, dev, "causal")
+    entries += bwd_entries
+    if not (ok and bwd_entries[0]["design"] == "sm90_f32"):
+        failed.append("flash_attn_dq/dkv[causal, float32]")
+    ok, bwd_entries = flash_backward_case(torch.float32, dev, "A",
+                                          d=FLASH_SIMT_D)
+    entries += bwd_entries
+    if not (ok and bwd_entries[0]["design"] == "simt"):
+        failed.append(f"flash_attn_dq/dkv[A, float32, D {FLASH_SIMT_D}]")
     ok, mm_entries = fused_matmul_case(dev)
     entries += mm_entries
     if not ok:
@@ -2316,7 +2388,8 @@ def main() -> int:
         "flash_attn_fwd", "flash_attn_fwd_sm90", "flash_attn_fwd_f32_sm90",
         "paged_decode", "fused_updater", "bn_matmul_stats",
         "bn_matmul_stats_sm90", "flash_attn_dq", "flash_attn_dq_sm90",
-        "flash_attn_dkv", "flash_attn_dkv_sm90", "fused_matmul_bias_act",
+        "flash_attn_dq_f32_sm90", "flash_attn_dkv", "flash_attn_dkv_sm90",
+        "flash_attn_dkv_f32_sm90", "fused_matmul_bias_act",
         "fused_matmul_bias_act_sm90", "fused_matmul_bias_act_f32_sm90",
         "fused_layer_norm", "matmul_int8", "matmul_int8_sm90",
         "matmul_int8_row_quantize")}
@@ -2345,9 +2418,13 @@ def main() -> int:
         "flash_attn_dq": ("flash_attn_bwd.cu", "pallas_attention.py:244"),
         "flash_attn_dq_sm90": ("flash_attn_dq_sm90.cu",
                                "pallas_attention.py:244"),
+        "flash_attn_dq_f32_sm90": ("flash_attn_dq_f32_sm90.cu",
+                                   "pallas_attention.py:244"),
         "flash_attn_dkv": ("flash_attn_bwd.cu", "pallas_attention.py:282"),
         "flash_attn_dkv_sm90": ("flash_attn_dkv_sm90.cu",
                                 "pallas_attention.py:282"),
+        "flash_attn_dkv_f32_sm90": ("flash_attn_dkv_f32_sm90.cu",
+                                    "pallas_attention.py:282"),
         "fused_matmul_bias_act": ("fused_matmul.cu", "pallas_matmul.py:42"),
         "fused_matmul_bias_act_sm90": ("fused_matmul_sm90.cu",
                                        "pallas_matmul.py:42"),
@@ -2380,7 +2457,7 @@ def main() -> int:
                                   **{x: r[x] for x in ("bert", "dropout",
                                                        "leaf", "conv",
                                                        "activation",
-                                                       "design",
+                                                       "design", "causal",
                                                        "library_chain_ms")
                                      if x in r})
                              for r in rows[1:]]})

@@ -1,9 +1,11 @@
 // flash_attn_bwd.cu — blockwise (FlashAttention-2) attention backward on the
 // CUDA cores (sm_90a): dq in one kernel, dk and dv in another. float32
 // accumulation, any head dim D with D % 8 == 0 up to 256, the gradients
-// written in the input type. Both take float32, and bfloat16 and float16
-// with D > 128 (16-bit inputs with D <= 128 run the tensor-core kernels of
-// flash_attn_dq_sm90.cu and flash_attn_dkv_sm90.cu).
+// written in the input type. Both take float32 with D > 64, and bfloat16
+// and float16 with D > 128 (16-bit inputs with D <= 128 run the
+// tensor-core kernels of flash_attn_dq_sm90.cu and flash_attn_dkv_sm90.cu,
+// float32 with D <= 64 those of flash_attn_dq_f32_sm90.cu and
+// flash_attn_dkv_f32_sm90.cu).
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_attention.py `_dq_kernel` and
 // `_dkv_kernel`, reached through `_flash_bwd` (the backward of the
@@ -22,7 +24,9 @@
 // shapes (BH 384 × T 128, BH 96 × T 512, D 64) that is ~20-80 operations a
 // byte, so the arithmetic is the limit. These kernels run it on the CUDA
 // cores in float32 (67 TFLOP/s); the 16-bit dq and dk/dv with D <= 128 run
-// on the tensor cores in flash_attn_dq_sm90.cu and flash_attn_dkv_sm90.cu.
+// on the tensor cores in flash_attn_dq_sm90.cu and flash_attn_dkv_sm90.cu,
+// and the float32 ones with D <= 64 there too, every product split into
+// TF32 parts, in flash_attn_dq_f32_sm90.cu and flash_attn_dkv_f32_sm90.cu.
 //
 // Design, and what it does about the TPU original:
 //  * The Pallas kernels carry their accumulators in VMEM across a
@@ -32,8 +36,8 @@
 //    Q/dO tiles with their lse and Δ. Every output element is written by
 //    one thread, once, in a fixed order: no atomics, no second pass, and
 //    the gradients are the same bits on every run.
-//  * A row belongs to a group of G threads (G = 1 for D <= 32, 2 for
-//    D <= 64, 4 for D <= 128, 8 for D <= 256); thread g keeps dims g, g+G,
+//  * A row belongs to a group of G threads (G = 4 for D <= 128, 8 for
+//    D <= 256); thread g keeps dims g, g+G,
 //    ... (32 per thread) of its row's operands and accumulators in
 //    registers — dq: q, dO, dq; dk/dv: k, v, dk, dv — and the two dot
 //    products per pair are summed across the group with warp shuffles.
@@ -66,18 +70,18 @@ constexpr int kDT = 32;  // head dims per thread
 // Tile geometry for G threads per row.
 template <int G>
 struct Tile {
-  static_assert(G >= 1 && G <= 16 && 32 % G == 0, "a row group lies in a warp");
+  static_assert(G == 4 || G == 8, "a row group lies in a warp");
   static constexpr int DP = kDT * G;                         // padded D
-  static constexpr int THREADS = 64 * G < 256 ? 64 * G : 256;
+  static constexpr int THREADS = 256;
   static constexpr int ROWS = THREADS / G;                   // owned rows
-  static constexpr int BS = DP <= 64 ? 64 : 4096 / DP;       // streamed rows
+  static constexpr int BS = 4096 / DP;                       // streamed rows
   static constexpr int RSTEP = THREADS / DP;                 // staging stride
   static_assert(RSTEP * DP == THREADS && BS % RSTEP == 0, "staging tiles");
 };
 
 template <int G>
 __device__ __forceinline__ unsigned group_lanes(int tid) {
-  return (G == 1 ? 1u : ((1u << G) - 1u)) << ((tid % 32) / G * G);
+  return ((1u << G) - 1u) << ((tid % 32) / G * G);
 }
 
 template <int G>
@@ -335,14 +339,12 @@ template <bool DKV, typename T, bool DROP>
 int dispatch_d(const Args& a, cudaStream_t s) {
   if (a.d <= 0 || a.d % 8 != 0 || a.d > kMaxHeadDim) return -1;
   if constexpr (std::is_same<T, float>::value) {
+    // float32 D <= 64: flash_attn_dq_f32_sm90.cu and flash_attn_dkv_f32_sm90.cu
+    if (a.d <= 64) return -1;
     if constexpr (!DKV) {
-      if (a.d <= 32) return launch_dq<T, 1, DROP>(a, s);
-      if (a.d <= 64) return launch_dq<T, 2, DROP>(a, s);
       if (a.d <= 128) return launch_dq<T, 4, DROP>(a, s);
       return launch_dq<T, 8, DROP>(a, s);
     } else {
-      if (a.d <= 32) return launch_dkv<T, 1, DROP>(a, s);
-      if (a.d <= 64) return launch_dkv<T, 2, DROP>(a, s);
       if (a.d <= 128) return launch_dkv<T, 4, DROP>(a, s);
       return launch_dkv<T, 8, DROP>(a, s);
     }
@@ -376,7 +378,8 @@ int dispatch(const Args& a, int dtype, cudaStream_t s) {
 // dropout rate of the forward; above 0, `seed` points to the forward's
 // int32 seed on the device and inv_keep is 1 / (1 - rate). Each returns
 // cudaGetLastError() of its launch, or -1 for an unsupported dtype or head
-// dim (also a 16-bit D <= 128). Launch on `stream`; allocate nothing.
+// dim (also a float32 D <= 64 and a 16-bit D <= 128). Launch on `stream`;
+// allocate nothing.
 extern "C" int dl4j_flash_attn_dq(const void* q, const void* k, const void* v,
                                   const void* mask, const void* dout,
                                   const void* lse, const void* delta,

@@ -73,12 +73,15 @@
 #include <cstring>
 
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using flash::keep_element;
 using flash::kMasked;
+using flash_f32::group_key;
+using flash_f32::split_chunks;
 using sm90::WgmmaTf32;
 
 constexpr int kRows = 128;                  // query rows a block (2 WGs)
@@ -103,11 +106,6 @@ struct Layout {
   static constexpr uint32_t kSmem = 2 * kQ + STAGES * kStage + 1024;
 };
 
-// Keys of a group of 8 in the order the TF32 A fragment reads P's columns.
-__device__ __forceinline__ int group_key(int p) {
-  return (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1);
-}
-
 // The pre-pass: vt (BH, D, Tp) = Vᵀ, keys permuted within groups of 8 and
 // zeros past Tk. A block takes 32 keys of one batch·head through shared
 // memory: rows of V read and rows of Vᵀ written along consecutive
@@ -129,26 +127,6 @@ transpose_v(const float* __restrict__ v, float* __restrict__ vt, int tk,
   for (int e = threadIdx.x; e < 32 * d; e += blockDim.x) {
     const int row = e / 32, p = e % 32;
     if (k0 + p < tp) vth[(size_t)row * tp + k0 + p] = tile[group_key(p)][row];
-  }
-}
-
-// Splits `n16` 16-byte chunks at `src` (generic shared-memory pointer) in
-// place: hi over the values, lo at `src + lo_off`. Thread `i` of `count`.
-__device__ __forceinline__ void split_chunks(uint8_t* src, uint32_t lo_off,
-                                             int n16, int i, int count) {
-  for (int e = i; e < n16; e += count) {
-    float4* h = reinterpret_cast<float4*>(src + e * 16);
-    float4* l = reinterpret_cast<float4*>(src + lo_off + e * 16);
-    const float4 x = *h;
-    uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
-    sm90::tf32_split(x.x, hx, lx);
-    sm90::tf32_split(x.y, hy, ly);
-    sm90::tf32_split(x.z, hz, lz);
-    sm90::tf32_split(x.w, hw, lw);
-    *h = make_float4(__uint_as_float(hx), __uint_as_float(hy),
-                     __uint_as_float(hz), __uint_as_float(hw));
-    *l = make_float4(__uint_as_float(lx), __uint_as_float(ly),
-                     __uint_as_float(lz), __uint_as_float(lw));
   }
 }
 

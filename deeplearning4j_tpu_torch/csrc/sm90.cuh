@@ -172,6 +172,14 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+// For register A operands: computed in full before the wgmma fence, so
+// that the compiler does not sink their computation into the wgmma chain
+// (where it would have to inject a warpgroup.arrive before each use).
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Orders this thread's earlier generic-proxy writes to shared memory
 // before later async-proxy reads of it (wgmma operands, TMA stores).

@@ -34,7 +34,8 @@ SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_sm90",
            "fused_updater", "bn_matmul_stats", "bn_matmul_stats_sm90",
            "fused_matmul", "fused_matmul_sm90", "fused_matmul_f32_sm90",
            "fused_layer_norm", "matmul_int8", "matmul_int8_sm90",
-           "flash_attn_fwd_f32_sm90")
+           "flash_attn_fwd_f32_sm90", "flash_attn_dq_f32_sm90",
+           "flash_attn_dkv_f32_sm90")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

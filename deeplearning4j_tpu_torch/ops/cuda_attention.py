@@ -13,10 +13,11 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
   bfloat16 and float16 with D <= 128 take the tensor-core kernels
   ``csrc/flash_attn_fwd_sm90.cu``, ``csrc/flash_attn_dq_sm90.cu`` and
   ``csrc/flash_attn_dkv_sm90.cu`` (``"sm90"``); the float32 forward with
-  D <= 128 takes ``csrc/flash_attn_fwd_f32_sm90.cu`` (``"sm90_f32"``:
-  every product split into TF32 parts, accurate to float32); the float32
-  dq and dk/dv, and D > 128, the CUDA-core kernels
-  ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
+  D <= 128 and the float32 dq and dk/dv with D <= 64 take
+  ``csrc/flash_attn_fwd_f32_sm90.cu``, ``csrc/flash_attn_dq_f32_sm90.cu``
+  and ``csrc/flash_attn_dkv_f32_sm90.cu`` (``"sm90_f32"``: every product
+  split into TF32 parts, accurate to float32); the rest the CUDA-core
+  kernels ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
   (``"simt"``).
 * :func:`keep_mask` — the dropout keep mask, ``_keep_mask``'s hash bit for
   bit, so the plain versions drop exactly what the kernels (and the TPU
@@ -33,7 +34,7 @@ computes the plain version; given CUDA tensors it launches its kernel or
 raises — it never falls back. Each kernel's launches are counted on its
 wrapper's ``.launches`` (the forward's on :func:`flash_attention`); the
 16-bit tensor-core designs' also on ``.sm90_launches`` of the same
-wrappers, the float32 one's on ``flash_attention.sm90_f32_launches``.
+wrappers, the float32 ones' on ``.sm90_f32_launches``.
 
 :func:`register_platform_attention` installs the kernels under the
 ``"cuda"`` platform of the op registry, behind usable gates that mirror
@@ -61,6 +62,10 @@ MAX_HEAD_DIM = 256
 # the tensor-core forward, dq and dk/dv take 16-bit inputs, and the
 # float32 tensor-core forward float32 ones, up to this head dim
 SM90_MAX_HEAD_DIM = 128
+# the float32 tensor-core dq and dk/dv up to this one: at D 128 their
+# float32 operands in two parts do not fit a block's shared memory at the
+# tiles the 64-dim kernels use
+SM90_F32_BWD_MAX_HEAD_DIM = 64
 _SM90_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASKED = -1e30  # the kernels' (and the TPU kernels') mask fill
@@ -287,18 +292,24 @@ def flash_design(dtype: torch.dtype, d: int, kernel: str) -> str:
     """Which design of flash ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``)
     runs ``dtype`` at head dim ``d``: ``"sm90"`` (wgmma products fed by
     TMA, P and dS rounded to the input type in registers) for bfloat16 and
-    float16 with D <= 128; for the float32 forward with D <= 128
-    ``"sm90_f32"`` (wgmma products, each split into TF32 parts: accurate to
-    float32); ``"simt"`` (CUDA cores in float32) for everything else — the
-    float32 dq and dk/dv have no tensor-core design. A static choice, not a
-    fallback: either design raises when its build or launch fails."""
+    float16 with D <= 128; ``"sm90_f32"`` (wgmma products, each split into
+    TF32 parts: accurate to float32) for the float32 forward with D <= 128
+    and the float32 dq and dk/dv with D <= 64
+    (:data:`SM90_F32_BWD_MAX_HEAD_DIM`: at D 128 their operands' two parts
+    do not fit the kernels' shared memory, and 64 < D <= 128 keeps the CUDA
+    cores); ``"simt"`` (CUDA cores in float32) for everything else. A
+    static choice, not a fallback: either design raises when its build or
+    launch fails. Every design gives keys past the causal diagonal p = 0;
+    the plain versions' -1e30 fill gives them p = 1 in a row whose visible
+    keys are all masked, the one place where they part."""
     if kernel not in FLASH_KERNELS:
         raise ValueError(f"flash_design: kernel {kernel!r} is not one of "
                          f"{FLASH_KERNELS}")
     if d <= SM90_MAX_HEAD_DIM:
         if dtype in _SM90_DTYPES:
             return "sm90"
-        if dtype == torch.float32 and kernel == "fwd":
+        if dtype == torch.float32 and (
+                kernel == "fwd" or d <= SM90_F32_BWD_MAX_HEAD_DIM):
             return "sm90_f32"
     return "simt"
 
@@ -408,9 +419,9 @@ def flash_attention_dq(q, k, v, kv_mask, seed, dout, lse, delta, *,
                        scale: float, causal: bool = False,
                        dropout_rate: float = 0.0) -> torch.Tensor:
     """dq of flash attention (replacing ``_dq_kernel``):
-    ``csrc/flash_attn_dq_sm90.cu`` or ``csrc/flash_attn_bwd.cu`` as
-    :func:`flash_design` says, from the forward's lse, ``Δ``
-    (:func:`attention_delta`) and seed. CPU tensors:
+    ``csrc/flash_attn_dq_sm90.cu``, ``csrc/flash_attn_dq_f32_sm90.cu`` or
+    ``csrc/flash_attn_bwd.cu`` as :func:`flash_design` says, from the
+    forward's lse, ``Δ`` (:func:`attention_delta`) and seed. CPU tensors:
     :func:`flash_attention_dq_reference`."""
     if q.device.type == "cpu":
         return flash_attention_dq_reference(
@@ -422,27 +433,29 @@ def flash_attention_dq(q, k, v, kv_mask, seed, dout, lse, delta, *,
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dq")
     seed = _norm_seed(seed, dropout_rate, q.device)
     dq = torch.empty_like(q)
-    sm90 = flash_design(q.dtype, d, "dq") == "sm90"
-    if sm90:
-        _require_tma_aligned("flash_attn_dq_sm90", q, k, v, dout)
-        fn = _build.kernel_fn("flash_attn_dq_sm90", "dl4j_flash_attn_dq_sm90",
-                              _DQ_ARGS)
-    else:
-        fn = _build.kernel_fn("flash_attn_bwd", "dl4j_flash_attn_dq",
-                              _DQ_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+    design = flash_design(q.dtype, d, "dq")
+    kernel = {"sm90": "flash_attn_dq_sm90",
+              "sm90_f32": "flash_attn_dq_f32_sm90"}.get(design,
+                                                        "flash_attn_dq")
+    if design != "simt":
+        _require_tma_aligned(kernel, q, k, v, dout)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seed),
             dq.data_ptr(), bh, t_q, t_k, d, float(scale), int(bool(causal)),
-            float(dropout_rate), _inv_keep(dropout_rate),
-            _DTYPE_CODES[q.dtype], _stream(q))
-    _check_launch(rc, "flash_attn_dq_sm90" if sm90 else "flash_attn_dq")
+            float(dropout_rate), _inv_keep(dropout_rate))
+    lib = "flash_attn_bwd" if design == "simt" else kernel
+    fn = _build.kernel_fn(lib, "dl4j_" + kernel, _DQ_ARGS)
+    rc = fn(*args, _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(rc, kernel)
     flash_attention_dq.launches += 1
-    flash_attention_dq.sm90_launches += int(sm90)
+    flash_attention_dq.sm90_launches += int(design == "sm90")
+    flash_attention_dq.sm90_f32_launches += int(design == "sm90_f32")
     return dq
 
 
 flash_attention_dq.launches = 0
 flash_attention_dq.sm90_launches = 0
+flash_attention_dq.sm90_f32_launches = 0
 
 
 def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
@@ -450,8 +463,8 @@ def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
                         dropout_rate: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of flash attention (replacing ``_dkv_kernel``):
-    ``csrc/flash_attn_dkv_sm90.cu`` or ``csrc/flash_attn_bwd.cu`` as
-    :func:`flash_design` says. CPU tensors:
+    ``csrc/flash_attn_dkv_sm90.cu``, ``csrc/flash_attn_dkv_f32_sm90.cu`` or
+    ``csrc/flash_attn_bwd.cu`` as :func:`flash_design` says. CPU tensors:
     :func:`flash_attention_dkv_reference`."""
     if q.device.type == "cpu":
         return flash_attention_dkv_reference(
@@ -463,27 +476,29 @@ def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dkv")
     seed = _norm_seed(seed, dropout_rate, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    sm90 = flash_design(q.dtype, d, "dkv") == "sm90"
-    if sm90:
-        _require_tma_aligned("flash_attn_dkv_sm90", q, k, v, dout)
-        fn = _build.kernel_fn("flash_attn_dkv_sm90",
-                              "dl4j_flash_attn_dkv_sm90", _DKV_ARGS)
-    else:
-        fn = _build.kernel_fn("flash_attn_bwd", "dl4j_flash_attn_dkv",
-                              _DKV_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+    design = flash_design(q.dtype, d, "dkv")
+    kernel = {"sm90": "flash_attn_dkv_sm90",
+              "sm90_f32": "flash_attn_dkv_f32_sm90"}.get(design,
+                                                         "flash_attn_dkv")
+    if design != "simt":
+        _require_tma_aligned(kernel, q, k, v, dout)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seed),
             dk.data_ptr(), dv.data_ptr(), bh, t_q, t_k, d, float(scale),
-            int(bool(causal)), float(dropout_rate), _inv_keep(dropout_rate),
-            _DTYPE_CODES[q.dtype], _stream(q))
-    _check_launch(rc, "flash_attn_dkv_sm90" if sm90 else "flash_attn_dkv")
+            int(bool(causal)), float(dropout_rate), _inv_keep(dropout_rate))
+    lib = "flash_attn_bwd" if design == "simt" else kernel
+    fn = _build.kernel_fn(lib, "dl4j_" + kernel, _DKV_ARGS)
+    rc = fn(*args, _DTYPE_CODES[q.dtype], _stream(q))
+    _check_launch(rc, kernel)
     flash_attention_dkv.launches += 1
-    flash_attention_dkv.sm90_launches += int(sm90)
+    flash_attention_dkv.sm90_launches += int(design == "sm90")
+    flash_attention_dkv.sm90_f32_launches += int(design == "sm90_f32")
     return dk, dv
 
 
 flash_attention_dkv.launches = 0
 flash_attention_dkv.sm90_launches = 0
+flash_attention_dkv.sm90_f32_launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -638,14 +653,18 @@ paged_decode_attention.launches = 0
 # kernel name -> (the function holding its launch count, the attribute).
 # flash_attn_fwd, flash_attn_dq and flash_attn_dkv count every launch of
 # any design; the _sm90 names count the 16-bit tensor-core design's alone,
-# flash_attn_fwd_f32_sm90 the float32 one's.
+# the _f32_sm90 names the float32 one's.
 KERNELS = {"flash_attn_fwd": (flash_attention, "launches"),
            "flash_attn_fwd_sm90": (flash_attention, "sm90_launches"),
            "flash_attn_fwd_f32_sm90": (flash_attention, "sm90_f32_launches"),
            "flash_attn_dq": (flash_attention_dq, "launches"),
            "flash_attn_dq_sm90": (flash_attention_dq, "sm90_launches"),
+           "flash_attn_dq_f32_sm90": (flash_attention_dq,
+                                      "sm90_f32_launches"),
            "flash_attn_dkv": (flash_attention_dkv, "launches"),
            "flash_attn_dkv_sm90": (flash_attention_dkv, "sm90_launches"),
+           "flash_attn_dkv_f32_sm90": (flash_attention_dkv,
+                                       "sm90_f32_launches"),
            "paged_decode": (paged_decode_attention, "launches")}
 
 

@@ -306,7 +306,10 @@ def dot_product_attention(q, k, v, mask=None, *, scaled: bool = True,
     attention probabilities."""
     scores = torch.matmul(q, k.transpose(-1, -2))
     if scaled:
-        scores = scores / math.sqrt(q.shape[-1])
+        # √D rounded to the scores' dtype, as the reference's
+        # jnp.sqrt(jnp.asarray(D, scores.dtype)): 9.8125 for D 96 in bf16
+        scores = scores / torch.tensor(float(q.shape[-1]),
+                                       dtype=scores.dtype).sqrt().item()
     neg = torch.tensor(-1e9, dtype=scores.dtype, device=scores.device)
     if mask is not None:
         scores = torch.where(mask.bool(), scores, neg)

@@ -170,14 +170,14 @@ def forward_variant(q, k, v, kv_mask=None, seed=None, *,
 def dkv_variant(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
                 causal: bool = False, dropout_rate: float = 0.0,
                 round_to: Optional[torch.dtype] = None,
-                fault: Optional[str] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                fault: Optional[str] = None,
+                tile: int = DKV_TILE) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain dk/dv with ``scale`` folded into dS before the product, as
     the TPU and sm90 kernels do. ``round_to`` rounds P̃ and dS to that dtype
     before ``P̃ᵀ·dO`` and ``dSᵀ·Q``; ``fault`` is one of
-    :data:`DKV_FAULTS` (the last streamed tile is the last
-    :data:`DKV_TILE` queries). Returns ``(dk, dv)`` in k's and v's
-    dtypes."""
+    :data:`DKV_FAULTS` (the last streamed tile is the last ``tile``
+    queries: :data:`DKV_TILE` for the sm90 kernel, 32 for the float32 one).
+    Returns ``(dk, dv)`` in k's and v's dtypes."""
     assert fault is None or fault in DKV_FAULTS, fault
     seed = ca._norm_seed(seed, dropout_rate, q.device)
     p = torch.exp(ca._scores(q, k, kv_mask, scale, causal) - lse[..., None])
@@ -190,7 +190,7 @@ def dkv_variant(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
     ds = p * (_drop(dp, keep, dropout_rate) - delta[..., None]) * scale
     if fault == "last_tile_dropped":
         t_q = q.shape[1]
-        first = (t_q - 1) // DKV_TILE * DKV_TILE
+        first = (t_q - 1) // tile * tile
         pt, ds = pt.clone(), ds.clone()
         pt[:, first:] = 0.0
         ds[:, first:] = 0.0
@@ -204,11 +204,13 @@ def dkv_variant(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
 def dq_variant(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
                causal: bool = False, dropout_rate: float = 0.0,
                round_to: Optional[torch.dtype] = None,
-               fault: Optional[str] = None) -> torch.Tensor:
+               fault: Optional[str] = None,
+               tile: int = DQ_TILE) -> torch.Tensor:
     """The plain dq with dS rounded, unscaled, to ``round_to`` before
     ``dS·K`` and the scale applied to the float32 sum, as the TPU and sm90
     kernels do; ``fault`` is one of :data:`DQ_FAULTS` (the last streamed
-    tile is the last :data:`DQ_TILE` keys). Returns dq in q's dtype."""
+    tile is the last ``tile`` keys: :data:`DQ_TILE` for the sm90 kernel,
+    32 for the float32 one). Returns dq in q's dtype."""
     assert fault is None or fault in DQ_FAULTS, fault
     seed = ca._norm_seed(seed, dropout_rate, q.device)
     p = torch.exp(ca._scores(q, k, kv_mask, scale, causal) - lse[..., None])
@@ -221,7 +223,7 @@ def dq_variant(q, k, v, kv_mask, seed, dout, lse, delta, *, scale: float,
     if fault == "last_tile_dropped":
         t_k = k.shape[1]
         ds = ds.clone()
-        ds[..., (t_k - 1) // DQ_TILE * DQ_TILE:] = 0.0
+        ds[..., (t_k - 1) // tile * tile:] = 0.0
     if round_to is not None:
         ds = ds.to(round_to).float()
     return (torch.matmul(ds, k.float()) * scale).to(q.dtype)

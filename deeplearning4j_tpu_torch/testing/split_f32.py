@@ -1,6 +1,7 @@
 """A plain transcription of the float32 tensor-core kernels' arithmetic:
 every float32 product as three products of TF32 parts
-(``csrc/fused_matmul_f32_sm90.cu``, ``csrc/flash_attn_fwd_f32_sm90.cu``;
+(``csrc/fused_matmul_f32_sm90.cu``, ``csrc/flash_attn_fwd_f32_sm90.cu``,
+``csrc/flash_attn_dq_f32_sm90.cu``, ``csrc/flash_attn_dkv_f32_sm90.cu``;
 ``csrc/sm90.cuh`` ``tf32_split``).
 
 TF32 keeps float32's sign and exponent and 10 mantissa bits. An operand v
@@ -18,14 +19,16 @@ one k-step, which no transcription can know.
 ``"single"`` (one TF32 pass, hi·hi — a kernel that forgot the split) and
 ``"lo_dropped"`` (the a_lo·b_hi pass left out). The float32 checks the
 kernels are held to (``cuda_matmul.kernel_tolerance``; the flash forward's
-:data:`F32_ATOL` and :data:`F32_LSE_TOL`) admit the first and refuse the
-other two.
+:data:`F32_ATOL` and :data:`F32_LSE_TOL`; the backward's ``chip_smoke``
+``BWD_ATOL`` and ``BWD_RTOL``) admit the first and refuse the other two.
 
 The register mappings of ``sm90.cuh`` are transcribed as well
 (:func:`acc_row`, :func:`acc_col`, :func:`tf32_a_row`, :func:`tf32_a_col`,
-:func:`group_key`), so that :func:`register_pv` can compute P·V the way the
-flash kernel feeds it to the tensor cores: P's accumulator registers as the
-TF32 A fragment, V's keys permuted within each group of 8.
+:func:`group_key`), so that :func:`register_pv` can compute a product the
+way the flash kernels feed it to the tensor cores: an accumulator's
+registers as the TF32 A fragment, the B operand's contraction index
+permuted within each group of 8 — P·V in the forward, dS·K in dq, P̃ᵀ·dO
+and dSᵀ·Q in dk/dv.
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ PASSES = {"split": (("lo", "hi"), ("hi", "lo"), ("hi", "hi")),
           "lo_dropped": (("hi", "lo"), ("hi", "hi"))}
 MATMUL_SLAB = 32   # K values a stage of the fused matmul: one 128-byte span
 FLASH_KEYS = 64    # keys a tile of the flash forward at D <= 64 (32 above)
+# keys a tile of the float32 dq, and queries a tile of its dk/dv: one
+# 128-byte span of the transposed copy (Kᵀ; Qᵀ and dOᵀ)
+FLASH_BWD_TILE = 32
 # the float32 flash forward's check on the card (chip_smoke ATOL["float32"]
 # and TOL_LSE): out within 1e-4 absolute, lse within 1e-4
 F32_ATOL = 1e-4
@@ -147,6 +153,90 @@ def flash_forward_split(q, k, v, kv_mask=None, seed=None, *,
     return o / ls[..., None], m + torch.log(ls)
 
 
+def _bwd_tile(q, k, v, kv_mask, keep, dout, lse, delta, rows, cols, *,
+              scale: float, causal: bool, inv_keep: float, passes: str):
+    """(P̃, dS) float32 of the (rows, cols) tile as the float32 backward
+    kernels form them: S and dP from TF32 parts, the -1e30 key-mask fill,
+    P = exp(S·scale - lse) and 0 past the causal diagonal, dP and P̃
+    dropped by ``keep``, dS = P⊙(dP - Δ) unscaled."""
+    bh = q.shape[0]
+    s = split_product(q[:, rows], k[:, cols].transpose(-1, -2),
+                      passes) * scale
+    dp = split_product(dout[:, rows], v[:, cols].transpose(-1, -2), passes)
+    if kv_mask is not None:
+        s = s.masked_fill(kv_mask.reshape(bh, 1, -1)[..., cols] <= 0.5,
+                          ca._MASKED)
+    p = torch.exp(s - lse[:, rows, None])
+    if causal:
+        p = p.masked_fill(cols[None, None, :] > rows[None, :, None], 0.0)
+    pt = p
+    if keep is not None:
+        kt = keep[:, rows][..., cols]
+        pt = torch.where(kt, p * inv_keep, torch.zeros_like(p))
+        dp = torch.where(kt, dp * inv_keep, torch.zeros_like(dp))
+    return pt, p * (dp - delta[:, rows, None])
+
+
+def _bwd_setup(q, k, seed, dropout_rate: float):
+    seed = ca._norm_seed(seed, dropout_rate, q.device)
+    keep = None
+    if dropout_rate:
+        keep = ca._tile_keep(seed, q.shape[0], q.shape[1], k.shape[1],
+                             dropout_rate, q.device)
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate else 0.0
+    return keep, inv_keep
+
+
+def flash_dq_split(q, k, v, kv_mask, seed, dout, lse, delta, *,
+                   scale: float, causal: bool = False,
+                   dropout_rate: float = 0.0,
+                   passes: str = "split") -> torch.Tensor:
+    """dq of the float32 backward as ``csrc/flash_attn_dq_f32_sm90.cu``
+    computes it: tiles of :data:`FLASH_BWD_TILE` keys, S and dP from TF32
+    parts, dS float32, each tile's dS·K summed from zero (its passes in
+    turn) and added to dq's float32 sum, scaled once at the end."""
+    qf, kf, vf, df = q.float(), k.float(), v.float(), dout.float()
+    keep, inv_keep = _bwd_setup(q, k, seed, dropout_rate)
+    t_q, t_k = q.shape[1], k.shape[1]
+    rows = torch.arange(t_q, device=q.device)
+    acc = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, t_k, FLASH_BWD_TILE):
+        cols = torch.arange(k0, min(k0 + FLASH_BWD_TILE, t_k),
+                            device=q.device)
+        _, ds = _bwd_tile(qf, kf, vf, kv_mask, keep, df, lse, delta, rows,
+                          cols, scale=scale, causal=causal,
+                          inv_keep=inv_keep, passes=passes)
+        acc = acc + split_product(ds, kf[:, cols], passes)
+    return acc * scale
+
+
+def flash_dkv_split(q, k, v, kv_mask, seed, dout, lse, delta, *,
+                    scale: float, causal: bool = False,
+                    dropout_rate: float = 0.0, passes: str = "split"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the float32 backward as
+    ``csrc/flash_attn_dkv_f32_sm90.cu`` computes them: tiles of
+    :data:`FLASH_BWD_TILE` queries, Sᵀ and dPᵀ from TF32 parts, P̃ᵀ and dSᵀ
+    float32, each tile's P̃ᵀ·dO and dSᵀ·Q summed from zero (their passes in
+    turn) and added to dv's and dk's float32 sums, dk scaled once at the
+    end."""
+    qf, kf, vf, df = q.float(), k.float(), v.float(), dout.float()
+    keep, inv_keep = _bwd_setup(q, k, seed, dropout_rate)
+    t_q, t_k = q.shape[1], k.shape[1]
+    cols = torch.arange(t_k, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
+    for i0 in range(0, t_q, FLASH_BWD_TILE):
+        rows = torch.arange(i0, min(i0 + FLASH_BWD_TILE, t_q),
+                            device=q.device)
+        pt, ds = _bwd_tile(qf, kf, vf, kv_mask, keep, df, lse, delta, rows,
+                           cols, scale=scale, causal=causal,
+                           inv_keep=inv_keep, passes=passes)
+        dv = dv + split_product(pt.transpose(-1, -2), df[:, rows], passes)
+        dk = dk + split_product(ds.transpose(-1, -2), qf[:, rows], passes)
+    return dk * scale, dv
+
+
 # ------------------------------------------- sm90.cuh's register mappings
 
 
@@ -171,26 +261,29 @@ def tf32_a_col(r: int, lane: int) -> int:
 
 
 def group_key(p: int) -> int:
-    """The key at position ``p`` of the flash kernel's Vᵀ copy: each group
-    of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 (``group_key`` of
-    ``flash_attn_fwd_f32_sm90.cu``)."""
+    """The row at position ``p`` of the flash kernels' transposed copies
+    (Vᵀ, Kᵀ, Qᵀ, dOᵀ): each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7
+    (``csrc/flash_f32.cuh`` ``group_key``)."""
     return (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1)
 
 
 def kernel_a_register(kk: int, r: int) -> int:
-    """The accumulator register the flash kernel hands as A register ``r``
-    of k-step ``kk`` of P·V: 4kk, 4kk + 2, 4kk + 1, 4kk + 3."""
+    """The accumulator register the flash kernels hand as A register ``r``
+    of k-step ``kk``: 4kk, 4kk + 2, 4kk + 1, 4kk + 3."""
     return 4 * kk + (r & 1) * 2 + (r >> 1)
 
 
 def register_pv(p: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor,
                                                            torch.Tensor]:
-    """``(A, A @ B)`` for one warpgroup's 64 × keys tile of P: A is the
-    matrix the tensor cores read when every thread hands its accumulator
-    registers as the TF32 A fragment in the kernel's order
-    (:func:`kernel_a_register`), B is V with its keys in the Vᵀ copy's
+    """``(A, A @ B)`` for one warpgroup's 64-row accumulator tile ``p``
+    handed over as the A operand of ``p @ v``: A is the matrix the tensor
+    cores read when every thread hands its accumulator registers as the
+    TF32 A fragment in the kernels' order (:func:`kernel_a_register`), B is
+    ``v`` with its rows (the contraction index) in the transposed copy's
     order (:func:`group_key`). ``A @ B`` must be ``p @ v``; A's entries not
-    written by any thread stay NaN."""
+    written by any thread stay NaN. P·V (64 queries × keys, V), dS·K (64
+    queries × keys, K), P̃ᵀ·dO and dSᵀ·Q (64 keys × queries, dO and Q)
+    are all this product."""
     rows, keys = p.shape
     assert rows == 64 and keys % 8 == 0
     a = torch.full_like(p, math.nan)

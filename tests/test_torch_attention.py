@@ -276,6 +276,28 @@ class TestGenericOpParity:
                       scaled=True, causal=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
+    @pytest.mark.parametrize("d", [96, 40])
+    def test_bf16_divides_by_sqrt_d_rounded_to_bf16(self, d):
+        """bfloat16 scores are divided by √D rounded to bfloat16 (9.8125
+        for D 96, 6.3125 for D 40), as the reference's
+        ``jnp.sqrt(jnp.asarray(D, scores.dtype))``: within one bfloat16
+        unit at the largest |y| (the float √D missed by up to 0.516 at
+        |y| ~9, where a unit is 0.0625)."""
+        g = np.random.default_rng(0)
+        q, k, v = (3.0 * g.standard_normal((2, 4, 64, d), dtype=np.float32)
+                   for _ in range(3))
+        want = jax_nn_ops.dot_product_attention.fn(
+            *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+            scaled=True, causal=True)
+        got = exec_op("dot_product_attention",
+                      *(_t(a).to(torch.bfloat16) for a in (q, k, v)),
+                      scaled=True, causal=True)
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        unit = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= unit, (err, unit)
+
     def test_int_key_mask_as_bert_passes_it(self):
         """BERT hands the op its (B, 1, 1, T) int32 iterator mask: the
         port reads nonzero as attend (``.bool()``) and fills -1e9, as

@@ -16,9 +16,10 @@ kernels with and without dropout (the tensor-core "sm90" forward, dq and
 dk/dv for bfloat16/float16 at D 16…128 × T 1…512 × causal / key mask /
 dropout under the sm90 bound of ``testing/flash_check.py``, the same bits
 twice, routing by counters; the float32 tensor-core "sm90_f32" forward at
-D 8…128 × T 1…512 × the same variants under the float32 tolerance itself,
-the same bits twice, and its faulted variants — one TF32 pass among them —
-beyond it), gradients through the registry's
+D 8…128 and dq and dk/dv at D 8…64 × T 1…512 × the same variants under
+the float32 tolerance itself, the same bits twice, and their faulted
+variants — one TF32 pass among them — beyond it), gradients through the
+registry's
 ``dot_product_attention``, and a small BERT trained through all three
 flash kernels. Training: every updater kind on
 ragged, aligned and unaligned leaves in the three dtypes; the convbn
@@ -253,7 +254,8 @@ def test_flash_backward_matches_plain(cuda, dtype, d, rate, t_q, t_k,
     kw = dict(scale=1.0 / math.sqrt(d), causal=causal, dropout_rate=rate)
     out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
     delta = ca.attention_delta(dout, out)
-    n_dq, n_dkv = ca.flash_attention_dq.launches, ca.flash_attention_dkv.launches
+    design = ca.flash_design(dtype, d, "dq")
+    ca.reset_launch_counts()
     dq = ca.flash_attention_dq(q, k, v, m, seed, dout, lse, delta, **kw)
     dk, dv = ca.flash_attention_dkv(q, k, v, m, seed, dout, lse, delta, **kw)
     ref_dq = ca.flash_attention_dq_reference(q, k, v, m, seed, dout, lse,
@@ -261,10 +263,16 @@ def test_flash_backward_matches_plain(cuda, dtype, d, rate, t_q, t_k,
     ref_dk, ref_dv = ca.flash_attention_dkv_reference(
         q, k, v, m, seed, dout, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert (ca.flash_attention_dq.launches - n_dq,
-            ca.flash_attention_dkv.launches - n_dkv) == (1, 1)
+    # each launched once, on its design (float32 D <= 64: the sm90_f32
+    # tensor-core kernels, held to the float32 bound itself)
+    counts = ca.launch_counts()
+    for kernel in ("dq", "dkv"):
+        assert counts[f"flash_attn_{kernel}"] == 1
+        assert counts[f"flash_attn_{kernel}_sm90"] == int(design == "sm90")
+        assert counts[f"flash_attn_{kernel}_f32_sm90"] == int(
+            design == "sm90_f32")
     # the sm90 dq and dk/dv round dS (and P̃) to the input dtype
-    unit = fc.rounding_unit(dtype, ca.flash_design(dtype, d, "dq"))
+    unit = fc.rounding_unit(dtype, design)
     args = (q, k, v, m, seed, dout, lse, delta)
     slack_dq = fc.dq_slack(*args, unit=unit, **kw)
     slack_dk, slack_dv = fc.dkv_slack(*args, unit=unit, **kw)
@@ -287,6 +295,10 @@ def test_flash_backward_fully_masked_rows_are_finite(cuda):
 
 SM90_DTYPES = [torch.bfloat16, torch.float16]
 SM90_HEAD_DIMS = [16, 40, 64, 96, 128]
+# the tensor-core dq and dk/dv: 16-bit up to D 128 (sm90), float32 up to
+# D 64 (sm90_f32, held to the float32 bound itself: no rounding slack)
+SM90_BWD_CASES = ([(dt, d) for dt in SM90_DTYPES for d in SM90_HEAD_DIMS]
+                  + [(torch.float32, d) for d in (8, 16, 40, 64)])
 SM90_LENGTHS = [1, 63, 64, 65, 130, 512]
 # (causal, key mask, dropout): causal runs Tq == Tk, the rest Tq != Tk;
 # "full" masks every key of one batch·head row
@@ -334,13 +346,24 @@ def test_sm90_forward_matches_plain(cuda, dtype, d, t):
         assert (lse - ref_lse).abs().max().item() <= LSE_TOL
 
 
-@pytest.mark.parametrize("dtype", SM90_DTYPES)
-@pytest.mark.parametrize("d", SM90_HEAD_DIMS)
+def _bwd_design(dtype, d, kernel):
+    """(the wrapper, its tensor-core launch counter, the bound's rounding
+    unit) of the tensor-core dq or dk/dv at ``dtype`` and ``d``."""
+    design = ca.flash_design(dtype, d, kernel)
+    assert design == ("sm90_f32" if dtype == torch.float32 else "sm90")
+    wrapper = (ca.flash_attention_dq if kernel == "dq" else
+               ca.flash_attention_dkv)
+    counter = "sm90_f32_launches" if design == "sm90_f32" else "sm90_launches"
+    return wrapper, counter, fc.rounding_unit(dtype, design)
+
+
+@pytest.mark.parametrize("dtype,d", SM90_BWD_CASES)
 @pytest.mark.parametrize("t", SM90_LENGTHS)
 def test_sm90_dkv_matches_plain(cuda, dtype, d, t):
-    """The tensor-core dk/dv against its plain version under the sm90
-    bound, every causal / key-mask / dropout variant."""
-    assert ca.flash_design(dtype, d, "dkv") == "sm90"
+    """The tensor-core dk/dv against its plain version under its bound
+    (sm90: with the rounding of P̃ and dS; sm90_f32: the float32 bound),
+    every causal / key-mask / dropout variant."""
+    wrapper, counter, unit = _bwd_design(dtype, d, "dkv")
     for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
         q, k, v, dout, m = _sm90_inputs(dtype, d, t, causal, masked, cuda,
                                         100 * i + 50)
@@ -350,26 +373,25 @@ def test_sm90_dkv_matches_plain(cuda, dtype, d, t):
         out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
         delta = ca.attention_delta(dout, out)
         args = (q, k, v, m, seed, dout, lse, delta)
-        before = ca.flash_attention_dkv.sm90_launches
+        before = getattr(wrapper, counter)
         dk, dv = ca.flash_attention_dkv(*args, **kw)
         ref_dk, ref_dv = ca.flash_attention_dkv_reference(*args, **kw)
         torch.cuda.synchronize()
-        assert ca.flash_attention_dkv.sm90_launches == before + 1
-        slacks = fc.dkv_slack(*args, unit=fc.ROUNDING[dtype], **kw)
+        assert getattr(wrapper, counter) == before + 1
+        slacks = fc.dkv_slack(*args, unit=unit, **kw)
         for got, ref, slack in zip((dk, dv), (ref_dk, ref_dv), slacks):
             assert got.dtype == dtype and torch.isfinite(got.float()).all()
             _, share = fc.excess(got, ref, slack, BWD_ATOL, BWD_RTOL[dtype])
             assert share <= 1.0, (causal, masked, rate, share)
 
 
-@pytest.mark.parametrize("dtype", SM90_DTYPES)
-@pytest.mark.parametrize("d", SM90_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,d", SM90_BWD_CASES)
 @pytest.mark.parametrize("t", SM90_LENGTHS)
 def test_sm90_dq_matches_plain(cuda, dtype, d, t):
-    """The tensor-core dq against its plain version under the sm90 bound
-    (dS rounded unscaled: ``u·scale·(|dS|·|K|)``), every causal / key-mask
-    / dropout variant."""
-    assert ca.flash_design(dtype, d, "dq") == "sm90"
+    """The tensor-core dq against its plain version under its bound (sm90:
+    dS rounded unscaled, ``u·scale·(|dS|·|K|)``; sm90_f32: the float32
+    bound), every causal / key-mask / dropout variant."""
+    wrapper, counter, unit = _bwd_design(dtype, d, "dq")
     for i, (causal, masked, rate) in enumerate(SM90_VARIANTS):
         q, k, v, dout, m = _sm90_inputs(dtype, d, t, causal, masked, cuda,
                                         100 * i + 70)
@@ -379,13 +401,13 @@ def test_sm90_dq_matches_plain(cuda, dtype, d, t):
         out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
         delta = ca.attention_delta(dout, out)
         args = (q, k, v, m, seed, dout, lse, delta)
-        before = ca.flash_attention_dq.sm90_launches
+        before = getattr(wrapper, counter)
         dq = ca.flash_attention_dq(*args, **kw)
         ref = ca.flash_attention_dq_reference(*args, **kw)
         torch.cuda.synchronize()
-        assert ca.flash_attention_dq.sm90_launches == before + 1
+        assert getattr(wrapper, counter) == before + 1
         assert dq.dtype == dtype and torch.isfinite(dq.float()).all()
-        slack = fc.dq_slack(*args, unit=fc.ROUNDING[dtype], **kw)
+        slack = fc.dq_slack(*args, unit=unit, **kw)
         _, share = fc.excess(dq, ref, slack, BWD_ATOL, BWD_RTOL[dtype])
         assert share <= 1.0, (causal, masked, rate, share)
 
@@ -484,17 +506,80 @@ def test_f32_sm90_forward_same_bits_and_faults(cuda):
         assert (out - ref).abs().max().item() > ATOL[torch.float32], fault
 
 
+def test_f32_sm90_backward_same_bits_and_faults(cuda):
+    """The float32 tensor-core dq and dk/dv give the same bits twice; the
+    faulted plain variants — one TF32 pass (testing/split_f32.py), the
+    keep mask shifted a column, the last 32-wide tile dropped — all break
+    the float32 bound they meet."""
+    from deeplearning4j_tpu_torch.testing import split_f32 as sf
+
+    q, k, v, dout, m = _sm90_inputs(torch.float32, 64, 130, False, "pad",
+                                    cuda, 29)
+    seed = torch.tensor([6], dtype=torch.int32, device=cuda)
+    kw = dict(scale=0.125, dropout_rate=0.1)
+    out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+    args = (q, k, v, m, seed, dout, lse, ca.attention_delta(dout, out))
+    got = [(ca.flash_attention_dq(*args, **kw),
+            *ca.flash_attention_dkv(*args, **kw)) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    ref = (ca.flash_attention_dq_reference(*args, **kw),
+           *ca.flash_attention_dkv_reference(*args, **kw))
+    zero = torch.zeros((), device=cuda)
+
+    def share(gs):
+        return max(fc.excess(g, r, zero, BWD_ATOL, BWD_RTOL[torch.float32])[1]
+                   for g, r in zip(gs, ref))
+
+    assert share(got[0]) <= 1.0
+    tile = dict(tile=sf.FLASH_BWD_TILE)
+    bad = {"single_pass_tf32": (
+        sf.flash_dq_split(*args, passes="single", **kw),
+        *sf.flash_dkv_split(*args, passes="single", **kw))}
+    for fault in ("keep_shifted", "last_tile_dropped"):
+        bad[fault] = (fc.dq_variant(*args, fault=fault, **tile, **kw),
+                      *fc.dkv_variant(*args, fault=fault, **tile, **kw))
+    for fault, gs in bad.items():
+        assert share(gs) > 1.0, fault
+
+
+def test_f32_sm90_backward_left_padded_causal(cuda):
+    """Causal rows whose visible keys are all masked while later keys are
+    not (left padding): their masked keys' p is 1, not 0, so the float32
+    dq and dk/dv must not skip those keys. Held against the split
+    transcription (testing/split_f32.py), which, as every kernel, gives
+    keys past the diagonal p = 0 where the plain version's -1e30 fill gives
+    such a row's 1; every dO row is nonzero."""
+    from deeplearning4j_tpu_torch.testing import split_f32 as sf
+
+    t, d = 200, 64
+    q, k, v, dout = (_randn((4, t, d), torch.float32, cuda, 60 + i)
+                     for i in range(4))
+    pads = torch.tensor([0, 40, 70, 150], device=cuda)
+    m = (torch.arange(t, device=cuda)[None] >= pads[:, None]).float()
+    seed = torch.tensor([8], dtype=torch.int32, device=cuda)
+    kw = dict(scale=0.125, causal=True, dropout_rate=0.1)
+    out, lse = ca.flash_attention_reference(q, k, v, m, seed, **kw)
+    args = (q, k, v, m, seed, dout, lse, ca.attention_delta(dout, out))
+    got = (ca.flash_attention_dq(*args, **kw),
+           *ca.flash_attention_dkv(*args, **kw))
+    ref = (sf.flash_dq_split(*args, **kw), *sf.flash_dkv_split(*args, **kw))
+    zero = torch.zeros((), device=cuda)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _, share = fc.excess(g, r, zero, BWD_ATOL, BWD_RTOL[torch.float32])
+        assert share <= 1.0, (name, share)
+
+
 def test_flash_design_routes_by_counters(cuda):
     """bfloat16 at D 64 launches the sm90 forward, dq and dk/dv; float32
-    at D 64 the sm90_f32 forward and the CUDA-core dq and dk/dv; float32
-    at D 192 and bfloat16 at D 192 the CUDA-core ones (tensor-core
-    counters still)."""
-    for dtype, d, sm90, f32 in ((torch.bfloat16, 64, 1, 0),
-                                (torch.float16, 128, 1, 0),
-                                (torch.float32, 64, 0, 1),
-                                (torch.float32, 128, 0, 1),
-                                (torch.float32, 192, 0, 0),
-                                (torch.bfloat16, 192, 0, 0)):
+    at D 64 the sm90_f32 forward, dq and dk/dv; float32 at D 128 the
+    sm90_f32 forward and the CUDA-core dq and dk/dv; float32 at D 192 and
+    bfloat16 at D 192 the CUDA-core ones (tensor-core counters still)."""
+    for dtype, d, sm90, f32, f32_bwd in ((torch.bfloat16, 64, 1, 0, 0),
+                                         (torch.float16, 128, 1, 0, 0),
+                                         (torch.float32, 64, 0, 1, 1),
+                                         (torch.float32, 128, 0, 1, 0),
+                                         (torch.float32, 192, 0, 0, 0),
+                                         (torch.bfloat16, 192, 0, 0, 0)):
         q, k, v, dout, _ = _sm90_inputs(dtype, d, 70, True, None, cuda, 11)
         ca.reset_launch_counts()
         out, lse = ca.flash_attention(q, k, v, causal=True)
@@ -507,7 +592,9 @@ def test_flash_design_routes_by_counters(cuda):
         assert counts == {"flash_attn_fwd": 1, "flash_attn_fwd_sm90": sm90,
                           "flash_attn_fwd_f32_sm90": f32,
                           "flash_attn_dq": 1, "flash_attn_dq_sm90": sm90,
+                          "flash_attn_dq_f32_sm90": f32_bwd,
                           "flash_attn_dkv": 1, "flash_attn_dkv_sm90": sm90,
+                          "flash_attn_dkv_f32_sm90": f32_bwd,
                           "paged_decode": 0}, (dtype, d, counts)
 
 

@@ -8,8 +8,9 @@ plain versions with that rounding added. Here, with no card:
 
 * :func:`~deeplearning4j_tpu_torch.ops.cuda_attention.flash_design` over
   every dtype, head dim and kernel: bfloat16 and float16 with D <= 128
-  take the sm90 design, the float32 forward with D <= 128 the sm90_f32
-  one (``tests/test_torch_split_f32.py`` checks its arithmetic), everything
+  take the sm90 design, the float32 forward with D <= 128 and the float32
+  dq and dk/dv with D <= 64 the sm90_f32 one
+  (``tests/test_torch_split_f32.py`` checks its arithmetic), everything
   else the CUDA-core one;
 * a plain version that rounds P̃ and dS as the kernels do passes the
   bound, and each faulted variant fails it: the keep mask shifted by one
@@ -59,11 +60,12 @@ def _inputs(dtype, bh, t, d, masked, seed):
 @pytest.mark.parametrize("d", [8, 16, 40, 64, 96, 120, 128, 136, 192, 256])
 def test_flash_design_by_dtype_and_head_dim(dtype, d):
     sm90 = dtype in (torch.bfloat16, torch.float16) and d <= 128
-    # the float32 forward alone has a tensor-core design of its own
-    f32_fwd = dtype == torch.float32 and d <= 128
+    # float32 has tensor-core designs of its own: the forward up to D 128,
+    # dq and dk/dv up to D 64
+    f32_limit = {"fwd": 128, "dq": 64, "dkv": 64}
     for kernel in ca.FLASH_KERNELS:
-        want = ("sm90" if sm90 else
-                "sm90_f32" if f32_fwd and kernel == "fwd" else "simt")
+        f32 = dtype == torch.float32 and d <= f32_limit[kernel]
+        want = "sm90" if sm90 else "sm90_f32" if f32 else "simt"
         assert ca.flash_design(dtype, d, kernel) == want, kernel
     with pytest.raises(ValueError, match="kernel"):
         ca.flash_design(dtype, d, "bwd")
