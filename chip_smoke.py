@@ -7,14 +7,23 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 
 1. ``device``  — the card (torch and nvidia-smi), the TF32 switches.
 2. ``build``   — seconds to build the CUDA kernels from ``csrc/`` with nvcc
-   (one process per source, in parallel), and ptxas's register report.
+   (one process per source, in parallel), nvcc's version, and ptxas's
+   register report; the updater and paged decode must keep no stack frame
+   and spill nothing.
 3. ``kernels`` — each kernel at its path's shapes, held against its plain
    PyTorch version on the same inputs (max abs error and tolerance):
    attention in float32 and bfloat16 at the serving shapes (and float32 at
    D 192, which the float32 tensor-core forward refuses: the CUDA-core one
-   stays checked and timed); the fused
+   stays checked and timed); paged decode (split-KV, one launch a call)
+   at 8 slots of 1…1024 tokens and at 8 slots all at 1024, its faulted
+   split-KV transcriptions (a split dropped, the combine without its
+   rescale) beyond the tolerance; the fused
    updater (Nesterovs) in float32 and bfloat16 at the largest ResNet-50
-   leaf and a 3×3×256×256 conv leaf; the BN/matmul/BN-stats kernel in
+   leaf and a 3×3×256×256 conv leaf (one leaf a launch), and over the
+   whole ResNet-50 tree (Nesterovs, 161 leaves) and BERT-base tree (Adam,
+   206 leaves) in one multi-tensor launch each, bit-exact leaf by leaf,
+   beside ``torch._fused_sgd_`` / ``torch._fused_adam_`` over the same
+   lists; the BN/matmul/BN-stats kernel in
    bfloat16 at the stage-1 c1 and c3 and the stage-3 c1 1×1 convs of
    batch 128, in both designs (``convbn_design``: the tensor-core "sm90"
    on the aligned operands the main path gives it, the WMMA one on an x
@@ -63,8 +72,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    kernel / plain / library times (device time: the calls replayed from a
    CUDA graph between CUDA events, so no host work sits between launches)
    and the least time the card could take (``bound_ms``); the updater's
-   beside ``torch._fused_sgd_`` (Nesterov, both leaves) and
-   ``torch._fused_adam_``.
+   beside ``torch._fused_sgd_`` (Nesterov) and ``torch._fused_adam_``.
 4. ``serve``   — GPT at GPT-2-small width (GptConfig.base(), float32,
    random weights from a numpy seed) served by the port's
    GenerativeEngine through start()/submit()/stop(): once with
@@ -77,8 +85,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    batch 32, trained through ``ResNet50().init()`` → ``fit``: 3 steps
    with helper_mode="generic", then — launch counts set to 0 just before —
    3 steps through the kernels from the same initial state on the same
-   batches. Checks the updater launches (161 leaves × 3 steps) and the
-   losses and parameters against the generic run.
+   batches. Checks the updater counts (161 leaves × 3 steps updated, one
+   multi-tensor launch a step) and the losses and parameters against the
+   generic run.
 6. ``train_fused`` — the same for ``ResNet50(fused_blocks=True,
    dtype="mixed")`` at batch 128, where every 1×1 conv of the fused
    blocks takes the BN/matmul/BN-stats kernel's sm90 design (36 × 3
@@ -92,8 +101,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    float32, ``fit_classifier`` on batch 32 × seq 128 with ragged rows,
    Adam lr 2e-5, attention and FFN dropout 0.1: 3 steps through the
    kernels (launch counts set to 0 just before; 12 flash forwards, 12 dq
-   and 12 dk/dv — all on the float32 tensor-core designs — and 206
-   updater launches a step), then the same steps with
+   and 12 dk/dv — all on the float32 tensor-core designs — and the
+   updater over 206 leaves in one launch a step), then the same steps
+   with
    the plain flash versions installed as the ``cuda`` helper (same
    seeds, same dropped entries), and at dropout 0 against
    ``helper_mode="generic"``; losses step by step and parameters after
@@ -133,7 +143,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    on their sm90_f32 designs), 74 fused
    matmuls (forwards and matmuls on the sm90_f32 designs, with one K-major
    split copy of each matmul's weight a step: the updater's weights are
-   new tensors) and 201 updater steps. Losses are held against a
+   new tensors) and one updater launch over 201 leaves. Losses are held
+   against a
    ``helper_mode="generic"`` run from the same weights (step 1 to 1e-5
    relative; later steps and the parameters to 3× a generic run from
    weights moved by one unit in the last place), and the last loss must
@@ -224,8 +235,12 @@ FLASH_SHAPE = dict(bh=12, t=512, d=64)
 # stays checked and timed there
 FLASH_SIMT_D = 192
 PAGED_SHAPE = dict(slots=8, heads=12, d=64, page=16, max_pages=64)
-# fused updater: the fc weight (the largest leaf) and a stage-3 3×3 conv
+# fused updater: the fc weight (the largest leaf) and a stage-3 3×3 conv,
+# one leaf a call; and the whole ResNet-50 and BERT-base trees, one
+# multi-tensor launch a call (updater_tree_case)
 UPDATER_SHAPES = {"fc.W": (2048, 1000), "conv3x3": (3, 3, 256, 256)}
+# libraries whose every kernel must keep no stack frame and spill nothing
+NO_STACK_KERNELS = ("fused_updater", "paged_decode")
 # bn_matmul_stats at batch 128: stage-1 c3 (M = 128·56·56, prologue+relu),
 # stage-3 c1 (M = 128·14·14, no prologue) and stage-1 c1 (N 64, the
 # narrowest tile), as FusedBottleneck calls it
@@ -484,43 +499,71 @@ def flash_case(dtype, dev, d=FLASH_SHAPE["d"]):
 
 
 def paged_case(dtype, dev):
-    """Paged decode at the slice's shape: shuffled page table, seq_lens of
-    1, page boundaries and full context."""
+    """Paged decode at the slice's shape, shuffled page table: seq_lens of
+    1, page boundaries and full context in one batch ("mixed", the serve
+    phase's kind of batch), and every slot at full context ("full": the
+    bandwidth the short slots hide). The split-KV transcription's faulted
+    variants (a split dropped, the combine without its rescale,
+    ``testing/paged_check.py``) must exceed the tolerance."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.testing import paged_check as pc
 
     s_n, h, d = PAGED_SHAPE["slots"], PAGED_SHAPE["heads"], PAGED_SHAPE["d"]
     page, max_pages = PAGED_SHAPE["page"], PAGED_SHAPE["max_pages"]
     n_pages = s_n * max_pages
-    rng = np.random.default_rng(2)
-    q = torch.from_numpy(rng.standard_normal((s_n, h, d), dtype=np.float32)
-                         ).to(dev, dtype)
-    # one (2, P+1, page, H, D) buffer, k/v as its views — as in the cache
-    kv = torch.from_numpy(rng.standard_normal(
-        (2, n_pages + 1, page, h, d), dtype=np.float32)).to(dev, dtype)
-    pt = torch.from_numpy(rng.permutation(n_pages).reshape(
-        s_n, max_pages).astype(np.int32)).to(dev)
-    lens_np = np.array([1, 16, 17, 32, 100, 513, 1000, 1024], np.int32)
-    sl = torch.from_numpy(lens_np).to(dev)
-    out = ca.paged_decode_attention(q, kv[0], kv[1], pt, sl)
-    ref = ca.paged_decode_attention_reference(q, kv[0], kv[1], pt, sl)
-    torch.cuda.synchronize()
     name = str(dtype).replace("torch.", "")
-    err, share = compare(out, ref, name)
-    ok = share <= 1.0 and bool(torch.isfinite(out.float()).all())
-    ms = time_ms(lambda: ca.paged_decode_attention(q, kv[0], kv[1], pt, sl))
-    plain_ms = time_ms(lambda: ca.paged_decode_attention_reference(
-        q, kv[0], kv[1], pt, sl))
-    es = q.element_size()
-    tokens = float(lens_np.sum())
-    nbytes = (tokens * 2 * h * d * es + 2 * s_n * h * d * es
-              + s_n * max_pages * 4 + s_n * 4)
-    bms, by = bound(nbytes, 4.0 * h * d * tokens, name)
-    return ok, {"kernel": "paged_decode", "dtype": name,
-                "shape": [s_n, h, d, page, max_pages], "max_abs_err": err,
-                "tol": tol_text(name), "err_over_tol": share, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None, "bound_ms": bms, "bound_by": by}
+    entries, ok = [], True
+    for context, lens in (("mixed", [1, 16, 17, 32, 100, 513, 1000, 1024]),
+                          ("full", [max_pages * page] * s_n)):
+        rng = np.random.default_rng(2)
+        q = torch.from_numpy(rng.standard_normal(
+            (s_n, h, d), dtype=np.float32)).to(dev, dtype)
+        # one (2, P+1, page, H, D) buffer, k/v as its views — as in the cache
+        kv = torch.from_numpy(rng.standard_normal(
+            (2, n_pages + 1, page, h, d), dtype=np.float32)).to(dev, dtype)
+        pt = torch.from_numpy(rng.permutation(n_pages).reshape(
+            s_n, max_pages).astype(np.int32)).to(dev)
+        lens_np = np.array(lens, np.int32)
+        sl = torch.from_numpy(lens_np).to(dev)
+        before = ca.paged_decode_attention.launches
+        out = ca.paged_decode_attention(q, kv[0], kv[1], pt, sl)
+        launches = ca.paged_decode_attention.launches - before
+        again = ca.paged_decode_attention(q, kv[0], kv[1], pt, sl)
+        ref = ca.paged_decode_attention_reference(q, kv[0], kv[1], pt, sl)
+        torch.cuda.synchronize()
+        err, share = compare(out, ref, name)
+        plan = ca.paged_plan(s_n, h, d, page, max_pages, q.element_size(),
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count)
+        faults = {f: compare(pc.paged_decode_split(
+            q, kv[0], kv[1], pt, sl, plan=plan, fault=f), ref, name)[1]
+            for f in pc.FAULTS}
+        same = torch.equal(out, again)
+        ok = (ok and share <= 1.0 and same and launches == 1
+              and bool(torch.isfinite(out.float()).all())
+              and all(v > 1.0 for v in faults.values()))
+        ms = time_ms(lambda: ca.paged_decode_attention(q, kv[0], kv[1], pt,
+                                                       sl))
+        plain_ms = time_ms(lambda: ca.paged_decode_attention_reference(
+            q, kv[0], kv[1], pt, sl))
+        es = q.element_size()
+        tokens = float(lens_np.sum())
+        nbytes = (tokens * 2 * h * d * es + 2 * s_n * h * d * es
+                  + s_n * max_pages * 4 + s_n * 4)
+        bms, by = bound(nbytes, 4.0 * h * d * tokens, name)
+        entries.append({
+            "kernel": "paged_decode", "dtype": name, "context": context,
+            "seq_lens": lens, "shape": [s_n, h, d, page, max_pages],
+            "plan": dataclasses.asdict(plan), "launches_per_call": launches,
+            "max_abs_err": err, "tol": tol_text(name), "err_over_tol": share,
+            "faulted_plain_over_tol": faults, "same_bits_twice": same,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "library_note": "none: no single PyTorch call gathers pages "
+                            "through a page table and attends",
+            "bound_ms": bms, "bound_by": by})
+    return ok, entries
 
 
 def _attn_inputs(shape, dtype, dev, seed):
@@ -806,6 +849,132 @@ def updater_case(dtype, dev):
     return ok, list(out.values())
 
 
+def updater_count_problems(launches, leaves, n_leaves, steps):
+    """The updater counts of a training run: every leaf updated once a
+    step (``fused_updater.leaves``), in one multi-tensor launch a step for
+    each table of at most ``TABLE_LEAVES`` leaves (one updater, one dtype:
+    one group)."""
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    problems = []
+    if leaves != n_leaves * steps:
+        problems.append(f"fused_updater leaves {leaves} != {n_leaves} "
+                        f"leaves x {steps} steps")
+    groups = -(-n_leaves // cu.TABLE_LEAVES)
+    if launches != groups * steps:
+        problems.append(f"fused_updater launches {launches} != {groups} "
+                        f"launch(es) x {steps} steps")
+    return problems
+
+
+def _model_leaf_shapes(model: str, dev):
+    """The parameter leaves' shapes of ResNet-50 (161) or BERT-base (206),
+    from the models' own init (random weights; none downloaded)."""
+    import torch
+
+    if model == "resnet50":
+        from deeplearning4j_tpu_torch.models import ResNet50
+
+        net = ResNet50(num_classes=CLASSES, input_shape=IMAGE,
+                       device=dev).init()
+        shapes = [tuple(net.params[n][k].shape) for n in net.params
+                  for k in sorted(net.params[n])]
+    else:
+        from deeplearning4j_tpu_torch.models._tree import leaf_paths
+        from deeplearning4j_tpu_torch.models.bert import (BertConfig,
+                                                          BertModel)
+
+        net = BertModel(BertConfig.base(), device=dev)
+        shapes = [tuple(t.shape) for _, t in leaf_paths(net.params)]
+    del net
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def updater_tree_case(dtype, dev):
+    """The fused updater over a whole model's leaves in one multi-tensor
+    launch: ResNet-50's 161 leaves with Nesterovs (train A and B's
+    updater) and BERT-base's 206 with Adam (bert_train's), against
+    PyTorch's multi-tensor ``torch._fused_sgd_`` (Nesterov) and
+    ``torch._fused_adam_`` over the same lists (timed only). Every leaf
+    must equal the plain version bit for bit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.updater import Adam, Nesterovs
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    name = str(dtype).replace("torch.", "")
+    entries, ok = [], True
+    for model, upd in (("resnet50", Nesterovs(learning_rate=0.1,
+                                              momentum=0.9)),
+                       ("bert_base", Adam(learning_rate=2e-5))):
+        shapes = _model_leaf_shapes(model, dev)
+        gen = torch.Generator(device=dev).manual_seed(4)
+
+        def draw(shape, scale=1.0, positive=False):
+            t = torch.randn(shape, generator=gen, device=dev) * scale
+            return (t.abs() if positive else t).to(dtype)
+
+        kind = type(upd).__name__
+        ns = len(upd.init_state(torch.zeros(1)))
+        ps = [draw(s) for s in shapes]
+        gs = [draw(s, 0.1) for s in shapes]
+        ss = [tuple(draw(s, 0.1, True) for _ in range(ns)) for s in shapes]
+        lr, step, hyper = upd.lr(0), 1, upd.fused_hyper()
+        before = cu.fused_updater.launches
+        outs = cu.fused_updater_multi(ps, gs, ss, lr, step, kind=kind,
+                                      **hyper)
+        torch.cuda.synchronize()
+        launches = cu.fused_updater.launches - before
+        exact, err = True, 0.0
+        for p, g, s, out in zip(ps, gs, ss, outs):
+            ref = cu.fused_updater_step.fn(p, g, lr, step, *s, kind=kind,
+                                           **hyper)
+            exact = exact and all(torch.equal(a, b) for a, b in zip(out,
+                                                                    ref))
+            err = max(err, max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(out, ref)))
+        del outs
+        ms = time_ms(lambda: cu.fused_updater_multi(
+            ps, gs, ss, lr, step, kind=kind, **hyper), iters=5, replays=3)
+        plain_ms = time_ms(lambda: [cu.fused_updater_step.fn(
+            p, g, lr, step, *s, kind=kind, **hyper)
+            for p, g, s in zip(ps, gs, ss)], iters=2, replays=2)
+        if kind == "Nesterovs":
+            vl = [s[0].clone() for s in ss]
+            lib_ms = time_ms(lambda: torch._fused_sgd_(
+                ps, gs, vl, weight_decay=0.0, momentum=0.9, lr=float(lr),
+                dampening=0.0, nesterov=True, maximize=False,
+                is_first_step=False), iters=5, replays=3)
+            lib = "torch._fused_sgd_ (Nesterov momentum) over the same lists"
+        else:
+            ml = [s[0].clone() for s in ss]
+            vl = [s[1].clone() for s in ss]
+            steps = [torch.ones((), device=dev) for _ in ss]
+            lib_ms = time_ms(lambda: torch._fused_adam_(
+                ps, gs, ml, vl, [], steps, lr=float(lr), beta1=upd.beta1,
+                beta2=upd.beta2, weight_decay=0.0, eps=upd.epsilon,
+                amsgrad=False, maximize=False), iters=5, replays=3)
+            lib = "torch._fused_adam_ over the same lists"
+        n = sum(p.numel() for p in ps)
+        # param, grad, state read once; param, state written once
+        bms, by = bound((3 + 2 * ns) * n * ps[0].element_size(),
+                        10.0 * n, "float32")
+        ok = ok and exact and launches == 1
+        entries.append({
+            "kernel": "fused_updater", "dtype": name,
+            "leaf": f"{model} tree, {kind}", "shape": [len(shapes), n],
+            "leaves": len(shapes), "launches_per_call": launches,
+            "max_abs_err": err, "tol": "0 (bit-exact)", "exact": exact,
+            "ms": ms, "plain_ms": plain_ms, "plain_note": "the plain "
+            "version leaf by leaf", "library_ms": lib_ms,
+            "library_note": lib + ", timed only", "bound_ms": bms,
+            "bound_by": by})
+        del ps, gs, ss
+        torch.cuda.empty_cache()
+    return ok, entries
+
+
 def fused_sgd_ms(p, g, v, lr):
     """PyTorch's own fused optimizer step on the same leaf, timed only (the
     port never calls it): ``torch._fused_sgd_`` with Nesterov momentum
@@ -1008,12 +1177,13 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
         sign = np.sign(np.random.default_rng(6).standard_normal(
             (batch,) + IMAGE)).astype(np.float32)
         pert = run("generic", 1.0 + 2.0 ** -8 * sign)
-    cu.fused_updater.launches = 0
+    cu.fused_updater.launches = cu.fused_updater.leaves = 0
     cc.reset_launch_counts()                 # the main path's run starts
     kernel, k_times, k_params = run("auto")
     launches = {"fused_updater": cu.fused_updater.launches,
                 "bn_matmul_stats": cc.bn_matmul_stats.launches,
                 "bn_matmul_stats_sm90": cc.bn_matmul_stats.sm90_launches}
+    updater_leaves = cu.fused_updater.leaves  # ... ends
     census = {f"{m}x{k}x{n}{' prologue' if p else ''} {d}": c / TRAIN_STEPS
               for (m, k, n, p, d), c in sorted(
                   cc.bn_matmul_stats.census.items())}  # ... ends
@@ -1024,14 +1194,14 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
     problems = []
     if not all(math.isfinite(v) for v in kernel + generic):
         problems.append("non-finite loss")
-    if launches["fused_updater"] != n_leaves * TRAIN_STEPS:
-        problems.append(f"fused_updater launches {launches['fused_updater']}"
-                        f" != {n_leaves} leaves x {TRAIN_STEPS} steps")
+    problems += updater_count_problems(launches["fused_updater"],
+                                       updater_leaves, n_leaves, TRAIN_STEPS)
     line = {"phase": phase, "card": smi,
             "model": f"ResNet50(fused_blocks={fused}, dtype={dtype!r})",
             "image": list(IMAGE), "classes": CLASSES, "batch": batch,
             "steps": TRAIN_STEPS, "leaves": n_leaves,
             "params": net.num_params(), "launches": launches,
+            "fused_updater_leaves": updater_leaves,
             "convbn_census_per_step": census,
             "losses_generic": generic, "losses_kernel": kernel,
             "loss_max_abs_diff": loss_diff,
@@ -1172,10 +1342,11 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     run("auto", ATTN_DROPOUT, steps=1)   # warm-up: cuBLAS, allocator
     run("generic", 0.0, steps=1)
     ca.reset_launch_counts()
-    cu.fused_updater.launches = 0        # the main path's run starts here
+    cu.fused_updater.launches = cu.fused_updater.leaves = 0  # starts here
     kernel, k_times, k_params = run("auto", ATTN_DROPOUT)
     launches = dict(ca.launch_counts(),
                     fused_updater=cu.fused_updater.launches)  # ... ends here
+    updater_leaves = cu.fused_updater.leaves
     ref, r_times, r_params = run("auto", ATTN_DROPOUT, plain=True)
     yard, _, y_params = run("auto", ATTN_DROPOUT, plain=True, nudge=True)
     kernel0, k0_times, k0_params = run("auto", 0.0)
@@ -1207,11 +1378,12 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
             "flash_attn_dq_f32_sm90": cfg.layers * BERT_STEPS * f32_bwd,
             "flash_attn_dkv": cfg.layers * BERT_STEPS,
             "flash_attn_dkv_sm90": cfg.layers * BERT_STEPS * sm90,
-            "flash_attn_dkv_f32_sm90": cfg.layers * BERT_STEPS * f32_bwd,
-            "fused_updater": n_leaves * BERT_STEPS}
+            "flash_attn_dkv_f32_sm90": cfg.layers * BERT_STEPS * f32_bwd}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
+    problems += updater_count_problems(launches["fused_updater"],
+                                       updater_leaves, n_leaves, BERT_STEPS)
     if (predict_launches["flash_attn_fwd"] != cfg.layers
             or predict_launches["flash_attn_fwd_sm90"] != cfg.layers * sm90
             or predict_launches["flash_attn_fwd_f32_sm90"] != cfg.layers * f32
@@ -1256,7 +1428,8 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
             "min_len": min_len, "real_tokens_per_batch": real,
             "steps": BERT_STEPS, "leaves": n_leaves,
             "params": model.num_params(), "dropout": ATTN_DROPOUT,
-            "launches": launches, "predict_launches": predict_launches,
+            "launches": launches, "fused_updater_leaves": updater_leaves,
+            "predict_launches": predict_launches,
             "checks": checks, "tol": (
                 f"loss max({BERT_LOSS_RTOL[dtype]:g} relative, "
                 f"{BERT_YARDSTICK:g} x yardstick); params "
@@ -1764,6 +1937,7 @@ def sd_bert_finetune_phase(dev, smi):
                 cm.fused_matmul.sm90_f32_launches = 0
                 copies0 = cm.kmajor_weight.copies
                 cu.fused_updater.launches = 0  # the main path starts here
+                cu.fused_updater.leaves = 0
             losses, times = [], []
             for _ in range(FINETUNE_STEPS):
                 torch.cuda.synchronize()
@@ -1784,6 +1958,7 @@ def sd_bert_finetune_phase(dev, smi):
                 # the updater makes new weights each step: the sm90_f32
                 # matmul makes their K-major split copies anew
                 copies = cm.kmajor_weight.copies - copies0
+                updater_leaves = cu.fused_updater.leaves
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             st = sd.last_compile_stats
             info = {"losses": losses, "times_ms": [t * 1e3 for t in times],
@@ -1794,6 +1969,7 @@ def sd_bert_finetune_phase(dev, smi):
                     "plan_nodes": st.nodes_after}
             if counted:
                 info["kmajor_copies"] = copies
+                info["fused_updater_leaves"] = updater_leaves
             params = {n: t.clone() for n, t in
                       sd.training_state()["params"].items()}
             n_params = sum(t.numel() for t in params.values())
@@ -1829,12 +2005,14 @@ def sd_bert_finetune_phase(dev, smi):
                 "flash_attn_dkv_f32_sm90": layers,
                 "fused_matmul_bias_act": 6 * layers + 2,
                 "fused_matmul_bias_act_sm90": 0,
-                "fused_matmul_bias_act_f32_sm90": 6 * layers + 2,
-                "fused_updater": n_leaves}
+                "fused_matmul_bias_act_f32_sm90": 6 * layers + 2}
     for name, n in per_step.items():
         if launches[name] != n * FINETUNE_STEPS:
             problems.append(f"{name} launches {launches[name]} != {n} x "
                             f"{FINETUNE_STEPS} steps")
+    problems += updater_count_problems(launches["fused_updater"],
+                                       k_info["fused_updater_leaves"],
+                                       n_leaves, FINETUNE_STEPS)
     # one K-major split copy of each fused matmul's weight a step: the
     # updater's new weights are new tensors
     if k_info["kmajor_copies"] != (6 * layers + 2) * FINETUNE_STEPS:
@@ -2185,16 +2363,31 @@ def main() -> int:
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in _build.build_logs.items()}
-    emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    emit({"phase": "build", "seconds": secs, "nvcc": nvcc, "ptxas": ptxas})
+    # the updater and paged decode keep no stack frame and spill nothing
+    # (when built by this process: a library built earlier left no log)
+    frames = [ln for n in NO_STACK_KERNELS for ln in ptxas.get(n, ())
+              if "stack frame" in ln]
+    if any(not ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                             "0 bytes spill loads") for ln in frames):
+        raise SystemExit(f"stack frames or spills in {NO_STACK_KERNELS}: "
+                         f"{sorted(set(frames))}")
 
     # ----------------------------------------------------------- kernels
     entries, failed = [], []
-    for case in (flash_case, paged_case):
-        for dtype in (torch.float32, torch.bfloat16):
-            ok, entry = case(dtype, dev)
-            entries.append(entry)
-            if not ok:
-                failed.append(f"{entry['kernel']}[{entry['dtype']}]")
+    for dtype in (torch.float32, torch.bfloat16):
+        ok, entry = flash_case(dtype, dev)
+        entries.append(entry)
+        if not ok:
+            failed.append(f"{entry['kernel']}[{entry['dtype']}]")
+    for dtype in (torch.float32, torch.bfloat16):
+        ok, paged_entries = paged_case(dtype, dev)
+        entries += paged_entries
+        if not ok:
+            failed.append(f"paged_decode[{dtype}]")
     # float32 at a head dim the sm90_f32 forward refuses: the CUDA-core one
     ok, entry = flash_case(torch.float32, dev, d=FLASH_SIMT_D)
     entries.append(entry)
@@ -2205,6 +2398,11 @@ def main() -> int:
         entries += upd_entries
         if not ok:
             failed.append(f"fused_updater[{dtype}]")
+    for dtype in (torch.float32, torch.bfloat16):
+        ok, upd_entries = updater_tree_case(dtype, dev)
+        entries += upd_entries
+        if not ok:
+            failed.append(f"fused_updater[whole trees, {dtype}]")
     ok, conv_entries = convbn_case(dev)
     entries += conv_entries
     if not ok:
@@ -2458,6 +2656,7 @@ def main() -> int:
                                                        "leaf", "conv",
                                                        "activation",
                                                        "design", "causal",
+                                                       "context",
                                                        "library_chain_ms")
                                      if x in r})
                              for r in rows[1:]]})

@@ -25,8 +25,8 @@ What differs from the JAX package:
   ``output`` runs (the JAX package takes ``jax.grad`` of the traced
   interpreter), with zeros for a VARIABLE the loss never reads, as
   ``jax.grad`` gives. ``fit`` steps eagerly: loss and gradients through
-  the plan, then one ``Updater.apply_fused`` per leaf (the fused updater
-  kernel on the card) under ``no_grad``; step losses stay on the device
+  the plan, then one ``Updater.apply_fused_many`` over every leaf (the
+  fused updater kernel on the card, one launch) under ``no_grad``; step losses stay on the device
   and are read once per epoch.
 * Ported: the construction API, the ``math``, ``nn`` and ``loss``
   namespaces, the graph-op catalog, ``output``/``exec``,
@@ -1141,19 +1141,26 @@ class SameDiff:
         loss, grads = self._loss_and_grads(loss_name, trainable, feeds)
         lr = upd.lr(self._step)
         with torch.no_grad():
-            for n, g in grads.items():
-                w = self._arrays[n]
+            names = list(grads)
+            ws = [self._arrays[n] for n in names]
+            gs = []
+            for w, g in zip(ws, grads.values()):
                 if tc.l2:
                     g = g + tc.l2 * w
                 if tc.l1:
                     g = g + tc.l1 * torch.sign(w)
-                # fused updater step (ops/cuda_updater.py): one kernel per
-                # leaf on the card, the identical apply() math elsewhere
-                nw, self._updater_state[n] = upd.apply_fused(
-                    w, g, self._updater_state[n], lr, self._step)
+                gs.append(g)
+            # fused updater step (ops/cuda_updater.py): one multi-tensor
+            # launch over every leaf on the card, the identical apply()
+            # math elsewhere
+            new_ws, new_ss = upd.apply_fused_many(
+                ws, gs, [self._updater_state[n] for n in names], lr,
+                self._step)
+            for n, w, nw, ns in zip(names, ws, new_ws, new_ss):
                 if tc.weight_decay:
                     nw = nw - lr * tc.weight_decay * w
                 self._arrays[n] = nw.to(w.dtype)
+                self._updater_state[n] = ns
         return loss
 
     def fit(self, iterator, epochs: int = 1,

@@ -1,8 +1,9 @@
 // sm90.cuh — Hopper (sm_90a) building blocks shared by the tensor-core
 // kernels (flash_attn_fwd_sm90.cu, flash_attn_dkv_sm90.cu,
 // flash_attn_dq_sm90.cu, fused_matmul_sm90.cu, bn_matmul_stats_sm90.cu,
-// matmul_int8_sm90.cu, fused_matmul_f32_sm90.cu, flash_attn_fwd_f32_sm90.cu):
-// mbarriers, TMA tile loads, wgmma matrix descriptors and the wgmma
+// matmul_int8_sm90.cu, fused_matmul_f32_sm90.cu, flash_attn_fwd_f32_sm90.cu)
+// and the paged decode (paged_decode.cu): mbarriers, TMA tile loads, bulk
+// copies of contiguous runs, wgmma matrix descriptors and the wgmma
 // instructions themselves (bf16/f16, int8, and TF32 for float32 products
 // split into TF32 parts), written as inline PTX, plus the one mapping from
 // a wgmma accumulator register to its (row, column) that every kernel uses
@@ -85,6 +86,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory at `src` into shared memory at
+// `dst`, one bulk asynchronous copy (no tensor map), completed on `bar`.
+// `bytes`, `src` and `dst` are multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))), "r"(bytes),
+      "r"(bar)
       : "memory");
 }
 

@@ -7,13 +7,14 @@ training entry points — ``BertModel(cfg, seed=…)`` → ``fit_classifier`` /
 ``fit_mlm`` → ``predict``. Attention goes through the op registry's
 ``dot_product_attention``, so on the card it runs the flash kernels with
 in-kernel attention dropout, forward and backward
-(``ops/cuda_attention.py``); every parameter leaf steps through
-``Updater.apply_fused`` (the fused updater kernel).
+(``ops/cuda_attention.py``); the parameter leaves step through
+``Updater.apply_fused_many`` (the fused updater kernel, one multi-tensor
+launch a step).
 
 What differs from the JAX package:
 
 * PyTorch runs eagerly: a step is the forward, ``torch.autograd.grad`` over
-  the 206 leaves and a per-leaf update under ``no_grad``, where the JAX
+  the 206 leaves and one update of them all under ``no_grad``, where the JAX
   package jits the whole step. ``fit_mlm_scanned`` is a plain loop of
   steps.
 * Randomness comes from ``torch.Generator``s, so the draws differ from
@@ -297,8 +298,9 @@ class BertModel:
                    ) -> torch.Tensor:
         """One step: the loss, its gradient over every leaf (zeros for a
         leaf the loss does not reach, as ``jax.value_and_grad`` gives), and
-        the updater's fused step on each leaf under ``no_grad``, cast back
-        to the leaf's dtype. Returns the loss (a device scalar)."""
+        the updater's fused step over every leaf under ``no_grad`` (one
+        multi-tensor launch on the card), cast back to the leaf's dtype.
+        Returns the loss (a device scalar)."""
         paths = [p for p, _ in leaf_paths(self.params)]
         leaves = [_get(self.params, p).detach().requires_grad_(True)
                   for p in paths]
@@ -306,16 +308,16 @@ class BertModel:
         loss = loss_fn(params, batch, self.cfg, train=True, rng=self.rng)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         lr = self.updater.lr(self.step)
-        new_p, new_s = {}, {}
         with torch.no_grad():
-            for path, p, g in zip(paths, leaves, grads):
-                p = p.detach()
-                g = torch.zeros_like(p) if g is None else g
-                np_, new_s[path] = self.updater.apply_fused(
-                    p, g, _get(self.opt_state, path), lr, self.step)
-                new_p[path] = np_.to(p.dtype)
-        self.params = rebuild(self.params, new_p)
-        self.opt_state = rebuild(self.params, new_s)
+            ps = [p.detach() for p in leaves]
+            gs = [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(ps, grads)]
+            new_ps, new_ss = self.updater.apply_fused_many(
+                ps, gs, [_get(self.opt_state, path) for path in paths], lr,
+                self.step)
+        self.params = rebuild(self.params, {
+            path: np_.to(p.dtype) for path, p, np_ in zip(paths, ps, new_ps)})
+        self.opt_state = rebuild(self.params, dict(zip(paths, new_ss)))
         self.step += 1
         return loss.detach()
 

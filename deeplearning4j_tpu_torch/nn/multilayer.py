@@ -85,22 +85,41 @@ def apply_layer_updates(conf, items, step):
 
     items: iterable of (params, grads, opt_state, updater, layer_conf),
     trees of one level (leaf name -> tensor; opt_state leaf name -> state
-    dict). Returns a list of (new_params, new_opt_state) in input order."""
-    out = []
-    for p, g, s, upd, lc in items:
+    dict). Returns a list of (new_params, new_opt_state) in input order.
+
+    Each leaf sees the reference's order: its layer's L1/L2 and gradient
+    normalization, the updater step, its layer's weight decay. The updater
+    steps of all layers that share an updater (and so one lr) go in one
+    :meth:`Updater.apply_fused_many` call: one multi-tensor launch for the
+    whole network on the card."""
+    layers = []
+    groups: List[tuple] = []  # (updater, [(layer, leaf name)]), equal configs
+    for i, (p, g, s, upd, lc) in enumerate(items):
         l1 = conf.layer_l1(lc)
         l2 = conf.layer_l2(lc)
-        wd = conf.layer_weight_decay(lc)
         if l2:
             g = _map_weights(lambda gw, w: gw + l2 * w, g, p)
         if l1:
             g = _map_weights(lambda gw, w: gw + l1 * torch.sign(w), g, p)
         g = normalize_gradient(conf, g)
-        lr = upd.lr(step)
-        new_p, new_s = {}, {}
-        for k in sorted(p):
-            new_p[k], new_s[k] = upd.apply_fused(p[k], g[k], s[k], lr, step)
+        layers.append((p, g, s, upd, lc, {}, {}))
+        leaves = next((lv for u, lv in groups if u == upd), None)
+        if leaves is None:
+            leaves = []
+            groups.append((upd, leaves))
+        leaves.extend((i, k) for k in sorted(p))
+    for upd, leaves in groups:
+        new_p, new_s = upd.apply_fused_many(
+            [layers[i][0][k] for i, k in leaves],
+            [layers[i][1][k] for i, k in leaves],
+            [layers[i][2][k] for i, k in leaves], upd.lr(step), step)
+        for (i, k), np_, ns in zip(leaves, new_p, new_s):
+            layers[i][5][k], layers[i][6][k] = np_, ns
+    out = []
+    for p, _, _, upd, lc, new_p, new_s in layers:
+        wd = conf.layer_weight_decay(lc)
         if wd:
+            lr = upd.lr(step)
             new_p = _map_weights(lambda w, w0: w - lr * wd * w0, new_p, p)
         out.append((new_p, new_s))
     return out

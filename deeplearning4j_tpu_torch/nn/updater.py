@@ -15,10 +15,12 @@ as scalars, so the CUDA kernel of ``fused_updater_step``
 float32 values by value (:meth:`Updater.coefficients`) and repeats the
 elementwise operations in the same order and rounding.
 
-:meth:`Updater.apply_fused` is the train-step entry: it routes a leaf
-through the ``fused_updater_step`` registry op, whose ``"cuda"`` helper is
-the one-pass kernel. There is no environment switch; ``helper_mode``
-decides.
+:meth:`Updater.apply_fused` routes a leaf through the
+``fused_updater_step`` registry op, whose ``"cuda"`` helper is the
+one-pass kernel; :meth:`Updater.apply_fused_many`, the train steps'
+entry, resolves every leaf the same way and updates the leaves that take
+the kernel in one multi-tensor launch. There is no environment switch;
+``helper_mode`` decides.
 """
 
 from __future__ import annotations
@@ -245,6 +247,45 @@ class Updater:
             return out[0], dict(zip(keys, out[1:]))
         u, new_state = self.apply(grad, state, lr, step)
         return param - u, new_state
+
+    def apply_fused_many(self, params, grads, states, lr, step):
+        """:meth:`apply_fused` over many leaves at one ``(lr, step)``:
+        ``(new_params, new_states)``, lists in input order. Each leaf is
+        resolved through the ``fused_updater_step`` registry op as
+        :meth:`apply_fused` resolves it (``helper_mode``, the gate and the
+        dispatch counter, leaf by leaf); the leaves that resolve to the
+        CUDA helper are updated by one multi-tensor launch per dtype
+        (``cuda_updater.fused_updater_multi``), the rest by the resolved
+        function, one leaf at a time."""
+        if not self._fusable():
+            outs = [self.apply(g, s, lr, step)
+                    for g, s in zip(grads, states)]
+            return ([p - u for p, (u, _) in zip(params, outs)],
+                    [s for _, s in outs])
+        from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+        from deeplearning4j_tpu_torch.ops.registry import registry
+
+        desc = registry().get("fused_updater_step")
+        kind, hyper = type(self).__name__, self.fused_hyper()
+        keys = [sorted(s) for s in states]
+        new_p, new_s = [None] * len(params), [None] * len(params)
+        groups: Dict[Any, list] = {}
+        for i, (p, g, s) in enumerate(zip(params, grads, states)):
+            st = [s[k] for k in keys[i]]
+            fn = desc.resolve(p, g, lr, step, *st, kind=kind, **hyper)
+            if fn is cu.fused_updater:
+                groups.setdefault((p.dtype, p.device), []).append(i)
+                continue
+            out = fn(p, g, lr, step, *st, kind=kind, **hyper)
+            new_p[i], new_s[i] = out[0], dict(zip(keys[i], out[1:]))
+        for idx in groups.values():
+            outs = cu.fused_updater_multi(
+                [params[i] for i in idx], [grads[i] for i in idx],
+                [tuple(states[i][k] for k in keys[i]) for i in idx], lr,
+                step, kind=kind, **hyper)
+            for i, out in zip(idx, outs):
+                new_p[i], new_s[i] = out[0], dict(zip(keys[i], out[1:]))
+        return new_p, new_s
 
     def to_dict(self) -> Dict[str, Any]:
         d = {}

@@ -24,7 +24,9 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
   kernels) drop for the same seed.
 * :func:`paged_decode_attention` — one query per slot against the
   block-paged KV cache (``csrc/paged_decode.cu``, replacing
-  ``_paged_decode_kernel``), the contract of ``paged_decode_attention_xla``.
+  ``_paged_decode_kernel``), the contract of ``paged_decode_attention_xla``:
+  split-KV over the slot's pages by the plan of :func:`paged_plan`, the
+  splits combined in the same launch.
 
 Beside each kernel wrapper stands its plain PyTorch version
 (:func:`flash_attention_reference`, :func:`flash_attention_dq_reference`,
@@ -49,6 +51,7 @@ the op runs its plain version (the wrappers, called directly, raise).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -82,7 +85,9 @@ _DQ_ARGS = (_P,) * 9 + (_I,) * 4 + (_F, _I, _F, _F, _I, _P)
 _DKV_ARGS = (_P,) * 10 + (_I,) * 4 + (_F, _I, _F, _F, _I, _P)
 # q k v mask vt out lse | bh tq tk d scale causal | seed rate inv_keep stream
 _FLASH_F32_ARGS = (_P,) * 7 + (_I,) * 4 + (_F, _I, _P, _F, _F, _P)
-_PAGED_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)
+# q k v pt sl out ws counters | S H D page max_pages num_pages | scale |
+# tp hb nst pps dtype | stream
+_PAGED_ARGS = (_P,) * 8 + (_I,) * 6 + (_F,) + (_I,) * 5 + (_P,)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -596,6 +601,74 @@ def paged_decode_attention_reference(q, k_pages, v_pages, page_table,
     return torch.einsum("sht,sthd->shd", p, v.float()).to(q.dtype)
 
 
+# paged decode's plan (csrc/paged_decode.cu): one stage of the ring holds a
+# K and a V tile of at most PAGED_STAGE_BYTES, the ring at most
+# PAGED_RING_BYTES (two blocks an SM); a block owns at most
+# PAGED_MAX_HEADS heads (a warp each); splits are sized so that a full
+# batch gives PAGED_WAVES blocks an SM.
+PAGED_STAGE_BYTES = 48 * 1024
+PAGED_RING_BYTES = 96 * 1024
+PAGED_MAX_HEADS = 16
+PAGED_WAVES = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """How :func:`paged_decode_attention` cuts one call.
+
+    ``tile`` positions of a page (a divisor of the page) land in shared
+    memory per stage, ``heads_per_block`` heads each (``head_groups``
+    blocks cover a position's heads), in a ring of ``stages``; a slot's
+    sequence is cut into splits of ``pages_per_split`` pages, at most
+    ``splits`` of them (a full slot)."""
+
+    tile: int
+    heads_per_block: int
+    head_groups: int
+    stages: int
+    pages_per_split: int
+    splits: int
+
+
+def paged_plan(slots: int, heads: int, d: int, page: int, max_pages: int,
+               elem_size: int, sms: int) -> PagedPlan:
+    """The plan of a call. A tile is the largest run of a page whose K and
+    V fit one stage (the whole page where it fits: bfloat16 at GPT-2-small
+    width, half of it in float32); where not even 8 positions of every head
+    fit, the heads are split over blocks. The split length comes from the
+    batch's capacity, ``slots × max_pages`` pages against
+    :data:`PAGED_WAVES` × ``sms`` blocks: seq_lens lives on the device,
+    and reading it would synchronise the host. Each slot then takes the
+    splits its own seq_len fills, on the device."""
+    row = d * elem_size  # bytes of one head of one position
+    hb = min(heads, PAGED_MAX_HEADS)
+    want = min(page, 8)
+    if 2 * want * hb * row > PAGED_STAGE_BYTES:
+        hb = max(1, PAGED_STAGE_BYTES // (2 * want * row))
+    tile = max(t for t in range(1, page + 1)
+               if page % t == 0 and 2 * t * hb * row <= PAGED_STAGE_BYTES)
+    stage = 2 * tile * hb * row
+    stages = max(2, min(4, PAGED_RING_BYTES // stage))
+    groups = -(-heads // hb)
+    pps = max(1, -(-(slots * max_pages * groups) // (PAGED_WAVES * sms)))
+    return PagedPlan(tile=tile, heads_per_block=hb, head_groups=groups,
+                     stages=stages, pages_per_split=pps,
+                     splits=-(-max_pages // pps))
+
+
+# per device: the kernel's split counters (zero between calls; the last
+# block of a slot resets its own)
+_PAGED_COUNTERS: dict = {}
+
+
+def _paged_counters(dev: torch.device, n: int) -> torch.Tensor:
+    c = _PAGED_COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _PAGED_COUNTERS[dev] = c
+    return c
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                            scale: Optional[float] = None):
     """Decode-step attention: ``q (S, H, D)``, ``k/v_pages (P, page, H,
@@ -603,7 +676,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     The indices are taken as int32, as ``_paged_decode_call`` casts them
     (no copy when they already are). The pages are read in place:
     ``k_pages``/``v_pages`` may be views of the engine's whole cache
-    (``kv[layer, 0]``), and are never copied."""
+    (``kv[layer, 0]``), and are never copied. One launch a call: the
+    splits of :func:`paged_plan` write partial softmax sums to a workspace
+    and the last split of each slot combines them."""
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_pages, v_pages, page_table, seq_lens, scale=scale)
@@ -631,18 +706,28 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     seq_lens = seq_lens.to(torch.int32)
     _require(all(t.data_ptr() % 16 == 0 for t in (k_pages, v_pages)),
              "paged_decode_attention: pages must be 16-byte aligned (the "
-             "kernel reads them in 16-byte vectors)")
+             "kernel copies them to shared memory in bulk)")
     _require(all(t.device == q.device and t.is_contiguous()
                  for t in (q, k_pages, v_pages, page_table, seq_lens)),
              "paged_decode_attention: inputs must be contiguous on one "
              "device")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if s_n == 0 or max_pages == 0:
+        return torch.zeros_like(q)
+    plan = paged_plan(s_n, h, d, page, max_pages, q.element_size(),
+                      torch.cuda.get_device_properties(
+                          q.device).multi_processor_count)
     out = torch.empty_like(q)
+    ws = torch.empty(max(1, s_n * plan.splits * h * (d + 2)),
+                     dtype=torch.float32, device=q.device)
+    counters = _paged_counters(q.device, s_n * plan.head_groups)
     fn = _build.kernel_fn("paged_decode", "dl4j_paged_decode", _PAGED_ARGS)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            s_n, h, d, page, max_pages, n_pages, float(scale),
-            _DTYPE_CODES[q.dtype], _stream(q))
+            ws.data_ptr(), counters.data_ptr(), s_n, h, d, page, max_pages,
+            n_pages, float(scale), plan.tile, plan.heads_per_block,
+            plan.stages, plan.pages_per_split, _DTYPE_CODES[q.dtype],
+            _stream(q))
     _check_launch(rc, "paged_decode")
     paged_decode_attention.launches += 1
     return out

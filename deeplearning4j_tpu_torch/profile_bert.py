@@ -14,7 +14,8 @@ from the port's seed, attention and FFN dropout 0.1) through
 After 2 warm steps it profiles 3 steps with ``torch.profiler`` and prints
 one JSON line per configuration: host wall time per step, summed device
 kernel time per step, the device's busy share and the kernels with the
-most device time (``profile_serve``'s summary). Needs a GPU; the numbers
+most device time (``profile_serve``'s summary), and the fused updater's
+own time (``fused_updater``). Needs a GPU; the numbers
 are the card's, printed beside its name and power limit.
 """
 
@@ -74,7 +75,8 @@ def main(argv=None) -> int:
                           "model": f"BertModel(BertConfig.base(), "
                                    f"dtype={dtype})", "task": task,
                           "batch": batch, "seq": seq,
-                          **_profile(step, _STEPS, trace)}), flush=True)
+                          **_profile(step, _STEPS, trace,
+                                     named=("fused_updater",))}), flush=True)
         del model
         torch.cuda.empty_cache()
     return 0

@@ -54,6 +54,7 @@ def _port_launches() -> dict:
                 fused_layer_norm=cl.fused_layer_norm_kernel.launches,
                 fused_matmul_bias_act=cm.fused_matmul.launches,
                 fused_updater=cu.fused_updater.launches,
+                fused_updater_leaves=cu.fused_updater.leaves,
                 **{f"int8_{k}": v for k, v in cq.launch_counts().items()})
 
 
@@ -128,7 +129,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     before = _port_launches()
     prof = _profile(lambda: sd.fit([batch] * _STEPS), 1, args.trace,
-                    steps_per_call=_STEPS, top=16)
+                    steps_per_call=_STEPS, top=16,
+                    named=("fused_updater",))
     after = _port_launches()
     st = sd.last_compile_stats
     print(json.dumps({

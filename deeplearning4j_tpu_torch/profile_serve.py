@@ -125,7 +125,8 @@ def main(argv=None) -> int:
     for _ in range(3):
         eng.step()   # warm decode
     print(json.dumps({"phase": "decode", "active_slots": 8, **out,
-                      **_profile(eng.step, _DECODE_STEPS, args.trace)}),
+                      **_profile(eng.step, _DECODE_STEPS, args.trace,
+                                 named=("paged_decode",))}),
           flush=True)
     while eng.scheduler.has_work():
         eng.step()

@@ -14,9 +14,9 @@ settings (deterministic cuDNN, TF32 off):
 After 2 warm steps it profiles 3 steps with ``torch.profiler`` and prints
 one JSON line per configuration: host wall time per step, summed device
 kernel time per step, the device's busy share, the kernels with the
-most device time (``profile_serve``'s summary) and the fused
+most device time (``profile_serve``'s summary), the fused
 BN-apply/matmul/BN-statistics kernels' own time (``bn_matmul_stats``,
-both designs). Needs a GPU; the numbers are the card's, printed beside
+both designs) and the fused updater's (``fused_updater``). Needs a GPU; the numbers are the card's, printed beside
 its name and power limit.
 """
 
@@ -74,7 +74,8 @@ def main(argv=None) -> int:
                           "model": f"ResNet50(fused_blocks={fused}, "
                                    f"dtype={dtype!r})", "batch": batch,
                           **_profile(step, _STEPS, trace,
-                                     named=("bn_matmul_stats",))}), flush=True)
+                                     named=("bn_matmul_stats",
+                                            "fused_updater"))}), flush=True)
         del net
         torch.cuda.empty_cache()
     return 0

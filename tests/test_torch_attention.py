@@ -14,6 +14,8 @@ arithmetic in another summation order, on O(1) values. The keep mask:
 exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -26,6 +28,7 @@ from deeplearning4j_tpu.ops import pallas_attention as jpa
 from deeplearning4j_tpu_torch.environment import environment
 from deeplearning4j_tpu_torch.ops import cuda_attention as ca
 from deeplearning4j_tpu_torch.ops import exec_op, registry
+from deeplearning4j_tpu_torch.testing import paged_check as pc
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -350,6 +353,148 @@ class TestPagedPlainParity:
             *[jnp.asarray(a) for a in (q, kp, vp, pt, sl)], scale=0.25)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         assert ca.paged_decode_attention.launches == before
+
+
+def _split_inputs(page, d, dtype, seed, s_n=6, h=2, max_pages=4):
+    """Seq_lens 0, 1, page - 1, page, page + 1 and a full row; a shuffled
+    page table."""
+    r = np.random.RandomState(seed)
+    n_pages = s_n * max_pages
+    q = r.randn(s_n, h, d).astype(np.float32)
+    kp = r.randn(n_pages + 1, page, h, d).astype(np.float32)
+    vp = r.randn(n_pages + 1, page, h, d).astype(np.float32)
+    pt = r.permutation(n_pages).reshape(s_n, max_pages).astype(np.int32)
+    sl = np.array([0, 1, page - 1, page, page + 1, max_pages * page],
+                  np.int32)
+    if dtype == torch.bfloat16:  # the bfloat16 values, in both packages
+        q, kp, vp = (np.asarray(jnp.asarray(a, jnp.bfloat16).astype(
+            jnp.float32)) for a in (q, kp, vp))
+    return q, kp, vp, pt, sl
+
+
+# paged decode's split-KV plan, transcribed (testing/paged_check.py): the
+# same float32 arithmetic as the reference in another order, 1e-5; in
+# bfloat16 both round the float32 result once, so one unit in the last
+# place (2^-7 relative) apart at most. The bfloat16 Pallas kernel also
+# rounds P to bfloat16 before P·V (its `_mm_nn`): against it the bound adds
+# 2^-7·(|P|·|V|) and one more unit of its own output's rounding
+_SPLIT_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+              torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+
+
+class TestPagedSplitKV:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [32, 64, 128])
+    @pytest.mark.parametrize("page", [8, 16, 32])
+    def test_split_plan_vs_reference_and_pallas_interpret(self, page, d,
+                                                          dtype):
+        q, kp, vp, pt, sl = _split_inputs(page, d, dtype, page + d)
+        tq, tk, tv = (_t(a).to(dtype) for a in (q, kp, vp))
+        tpt, tsl = _t(pt), _t(sl)
+        es = tq.element_size()
+        live = sl > 0
+        ref = ca.paged_decode_attention_reference(tq, tk, tv, tpt, tsl)
+        # |P|·|V|: the reference's own weights over |V|
+        abs_pv = ca.paged_decode_attention_reference(
+            tq.float(), tk.float(), tv.float().abs(), tpt, tsl)
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        want_pl = np.asarray(jpa._paged_decode_call(
+            *[jnp.asarray(a, jdt) for a in (q, kp, vp)], jnp.asarray(pt),
+            jnp.asarray(sl), interpret=True).astype(jnp.float32))
+        # the card's plan (one page a split at this size) and coarser ones
+        plans = [ca.paged_plan(6, 2, d, page, 4, es, 132)] + [
+            dataclasses.replace(ca.paged_plan(6, 2, d, page, 4, es, 132),
+                                pages_per_split=pps, splits=-(-4 // pps))
+            for pps in (2, 3)]
+        assert plans[0].pages_per_split == 1
+        for plan in plans:
+            got = pc.paged_decode_split(tq, tk, tv, tpt, tsl, plan=plan)
+            assert got.dtype == dtype
+            assert (got[~torch.from_numpy(live)] == 0).all()
+            np.testing.assert_allclose(got.float()[live], ref.float()[live],
+                                       **_SPLIT_TOL[dtype])
+            if dtype == torch.float32:
+                np.testing.assert_allclose(got.float()[live], want_pl[live],
+                                           **_SPLIT_TOL[dtype])
+            else:  # the Pallas kernel also rounds P to bfloat16 before P·V
+                err = (got.float() - torch.from_numpy(want_pl)).abs()[live]
+                lim = (1e-5 + 2.0 ** -6 * ref.float().abs()
+                       + 2.0 ** -7 * abs_pv)[live]
+                assert (err <= lim).all(), (err / lim).max().item()
+
+    @pytest.mark.parametrize("fault", pc.FAULTS)
+    def test_faulted_transcriptions_break_the_check(self, fault):
+        q, kp, vp, pt, sl = _split_inputs(16, 64, torch.float32, 5)
+        args = [_t(a) for a in (q, kp, vp, pt, sl)]
+        plan = ca.paged_plan(6, 2, 64, 16, 4, 4, 132)
+        ref = ca.paged_decode_attention_reference(*args)
+        bad = pc.paged_decode_split(*args, plan=plan, fault=fault)
+        live = sl > 0
+        err = (bad - ref).abs()[live]
+        lim = 1e-5 + 1e-5 * ref.abs()[live]
+        assert (err / lim).max().item() > 100.0
+        # only the multi-split slots move
+        one_split = torch.from_numpy(sl <= 16)
+        assert torch.equal(bad[one_split], pc.paged_decode_split(
+            *args, plan=plan)[one_split])
+
+    def test_splits_and_tiles_cover_every_position_once(self):
+        for n in (0, 1, 15, 16, 17, 100, 1024):
+            for page, pps, tile in ((16, 1, 16), (16, 2, 8), (8, 3, 8),
+                                    (24, 2, 12)):
+                seen = np.zeros(max(n, 1), np.int64)
+                splits = pc.split_bounds(n, page, pps)
+                assert len(splits) == max(1, -(-n // (page * pps)))
+                for lo, hi in splits:
+                    assert lo % page == 0  # splits start on pages
+                    for groups in pc.tile_bounds(lo, hi, tile):
+                        assert all(b - a <= 8 for a, b in groups)
+                        for a, b in groups:
+                            assert a // page == (b - 1) // page
+                            seen[a:b] += 1
+                assert (seen[:n] == 1).all()
+
+    def test_reduce_scatter_leaves_lane_l_position_l_over_4(self):
+        """csrc/paged_decode.cu's reduce_scatter8, shuffles transcribed:
+        lane l ends with the warp's sum for position l // 4, as max8,
+        sum8 and the P·V broadcast (from lane 4 i) read it."""
+        part = np.random.RandomState(3).randn(32, 8)  # [lane, position]
+
+        def shfl_xor(v, mask):
+            return np.array([v[lane ^ mask] for lane in range(32)])
+
+        lane = np.arange(32)
+        b4, b3, b2 = (lane & 16) > 0, (lane & 8) > 0, (lane & 4) > 0
+        r4 = [np.where(b4, part[:, k + 4], part[:, k]) + shfl_xor(
+            np.where(b4, part[:, k], part[:, k + 4]), 16) for k in range(4)]
+        r2 = [np.where(b3, r4[k + 2], r4[k]) + shfl_xor(
+            np.where(b3, r4[k], r4[k + 2]), 8) for k in range(2)]
+        r = np.where(b2, r2[1], r2[0]) + shfl_xor(np.where(b2, r2[0], r2[1]),
+                                                  4)
+        r = r + shfl_xor(r, 2)
+        r = r + shfl_xor(r, 1)
+        np.testing.assert_allclose(r, part.sum(axis=0)[lane // 4],
+                                   rtol=1e-12)
+
+    def test_plan_at_the_serving_shapes(self):
+        # GPT-2 small: 12 heads × 64, page 16, 8 slots × 64 pages, 132 SMs
+        f32 = ca.paged_plan(8, 12, 64, 16, 64, 4, 132)
+        bf16 = ca.paged_plan(8, 12, 64, 16, 64, 2, 132)
+        assert (f32.tile, f32.heads_per_block, f32.head_groups) == (8, 12, 1)
+        assert (bf16.tile, bf16.heads_per_block) == (16, 12)  # whole pages
+        for p in (f32, bf16):
+            assert (p.pages_per_split, p.splits, p.stages) == (2, 32, 2)
+        # H·D past one block's stages: the heads split over blocks
+        big = ca.paged_plan(4, 32, 256, 16, 8, 4, 132)
+        assert big.head_groups * big.heads_per_block >= 32
+        assert big.heads_per_block < 32 and big.tile == 8
+        for p in (f32, bf16, big):
+            es = 4 if p is not bf16 else 2
+            d = 256 if p is big else 64
+            stage = 2 * p.tile * p.heads_per_block * d * es
+            assert stage <= ca.PAGED_STAGE_BYTES
+            assert p.stages * stage <= ca.PAGED_RING_BYTES
+            assert 16 % p.tile == 0
 
 
 class TestDispatch:

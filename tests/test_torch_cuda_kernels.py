@@ -10,7 +10,9 @@ on the card with::
 main path's shapes; these cover the edges. Attention: ragged lengths,
 one-row queries, non-causal and rectangular attention, head dims of every
 instantiation (padded and exact), other page sizes, empty (inactive)
-decode slots, and the three dtypes; in-kernel dropout (the dropped
+decode slots, the split-KV paged decode with every slot at full context,
+one page a slot and 32 heads (split over blocks at D 256), one launch a
+call, and the three dtypes; in-kernel dropout (the dropped
 entries read out and compared with ``keep_mask``), the dq and dk/dv
 kernels with and without dropout (the tensor-core "sm90" forward, dq and
 dk/dv for bfloat16/float16 at D 16…128 × T 1…512 × causal / key mask /
@@ -22,7 +24,9 @@ variants — one TF32 pass among them — beyond it), gradients through the
 registry's
 ``dot_product_attention``, and a small BERT trained through all three
 flash kernels. Training: every updater kind on
-ragged, aligned and unaligned leaves in the three dtypes; the convbn
+ragged, aligned and unaligned leaves in the three dtypes, one leaf a
+launch and a tree of them in one multi-tensor launch (and two past
+``TABLE_LEAVES``), launches and leaves counted apart; the convbn
 kernel's gate edges, prologue/relu on and off, its backward against
 autograd of the plain chain, and a small ResNet-50 in both
 configurations; its tensor-core "sm90" design at every tile width, one
@@ -641,7 +645,8 @@ def test_attention_gradients_through_the_registry(cuda, causal, rate):
 
 def test_bert_trains_through_the_kernels(cuda):
     """A small BERT step launches, per layer, one flash forward (with
-    dropout), one dq and one dk/dv, and the updater on every leaf; its
+    dropout), one dq and one dk/dv, and the updater once over every leaf;
+    its
     losses equal a run whose attention runs the plain versions on the
     card with the same seeds."""
     from deeplearning4j_tpu_torch.models.bert import BertConfig, BertModel
@@ -664,39 +669,64 @@ def test_bert_trains_through_the_kernels(cuda):
                                                             plain=True)
         try:
             ca.reset_launch_counts()
-            u0 = cu.fused_updater.launches
+            u0, v0 = cu.fused_updater.launches, cu.fused_updater.leaves
             losses[plain] = model.fit_classifier([batch, batch])
             counts = ca.launch_counts()
-            updates = cu.fused_updater.launches - u0
+            launches = cu.fused_updater.launches - u0
+            leaves = cu.fused_updater.leaves - v0
         finally:
             desc.platform_impls["cuda"] = ca.flash_dpa
         want = 0 if plain else 2 * cfg.layers
         assert (counts["flash_attn_fwd"], counts["flash_attn_dq"],
                 counts["flash_attn_dkv"]) == (want,) * 3
-        assert updates == 2 * 46
+        # every leaf, in one multi-tensor launch a step
+        assert (leaves, launches) == (2 * 46, 2)
     np.testing.assert_allclose(losses[False], losses[True], rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("page", [8, 16])
-def test_paged_matches_plain(cuda, dtype, d, page):
+@pytest.mark.parametrize("batch", ["mixed", "full", "one_page", "wide"])
+def test_paged_matches_plain(cuda, dtype, d, page, batch):
+    """Split-KV paged decode, one launch a call: mixed seq_lens (an
+    inactive slot, one token, a page boundary, ragged, a full row), every
+    slot at full context, one page a slot, and 32 heads — at D 256 more
+    than one block's stages hold, so the heads split over blocks.
+    Inactive slots are zeros."""
     s_n, h, max_pages = 5, 3, 12
+    if batch == "one_page":
+        max_pages = 1
+    if batch == "wide":
+        h = 32
     n_pages = s_n * max_pages
     kv = _randn((2, n_pages + 1, page, h, d), dtype, cuda, 5)
     q = _randn((s_n, h, d), dtype, cuda, 6)
     perm = np.random.default_rng(7).permutation(n_pages)
     pt = torch.from_numpy(perm.reshape(s_n, max_pages).astype(np.int32)).to(
         cuda)
-    # an inactive slot (0), one token, a page boundary, ragged, full row
-    lens = [0, 1, page, 3 * page + 5, max_pages * page]
+    lens = {"mixed": [0, 1, page, 3 * page + 5, max_pages * page],
+            "full": [max_pages * page] * s_n,
+            "one_page": [0, 1, page - 1, page, 3],
+            "wide": [0, 1, page + 1, 5 * page, max_pages * page]}[batch]
     sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = ca.paged_decode_attention.launches
     out = ca.paged_decode_attention(q, kv[0], kv[1], pt, sl)
+    assert ca.paged_decode_attention.launches == before + 1
     ref = ca.paged_decode_attention_reference(q, kv[0], kv[1], pt, sl)
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     live = sl > 0
+    assert (out[~live] == 0).all()
     _assert_close(out[live], ref[live], dtype)
+    plan = ca.paged_plan(s_n, h, d, page, max_pages, q.element_size(),
+                         torch.cuda.get_device_properties(
+                             cuda).multi_processor_count)
+    if batch == "wide" and d == 256:
+        assert plan.head_groups > 1
+    # twice in a row: the split counters were left at zero
+    assert torch.equal(out, ca.paged_decode_attention(q, kv[0], kv[1], pt,
+                                                      sl))
 
 
 def test_registry_routes_to_kernels_on_cuda(cuda):
@@ -795,6 +825,78 @@ def test_fused_updater_matches_plain(cuda, kind, n, offset, dtype):
                                             b.float().cpu().numpy(), maxulp=2)
         else:
             assert torch.equal(a, b), (a - b).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", UPDATER_KINDS)
+def test_fused_updater_multi_matches_plain(cuda, kind, dtype):
+    """One multi-tensor launch over a tree of odd sizes, an offset view
+    (the scalar path) and an empty leaf: every leaf equals its plain
+    version; one launch, every leaf counted. Past TABLE_LEAVES leaves the
+    group takes a second launch."""
+    sizes = [1, 7, 8, 4097, 65539, 2048000, 0, 1000, 9]
+    offsets = [0, 0, 0, 0, 1, 0, 0, 1, 0]
+    leaves = [_leaf_set(kind, n, dtype, cuda, 40 + i, off)
+              for i, (n, off) in enumerate(zip(sizes, offsets))]
+    upd = leaves[0][0]
+    lr = upd.lr(0) * 3.0
+    ps, gs, ss = ([lf[1] for lf in leaves], [lf[2] for lf in leaves],
+                  [tuple(lf[3]) for lf in leaves])
+    l0, v0 = cu.fused_updater.launches, cu.fused_updater.leaves
+    outs = cu.fused_updater_multi(ps, gs, ss, lr, 5, kind=kind,
+                                  **upd.fused_hyper())
+    torch.cuda.synchronize()
+    assert cu.fused_updater.launches - l0 == 1
+    assert cu.fused_updater.leaves - v0 == len(sizes)
+    for p, g, s, out in zip(ps, gs, ss, outs):
+        ref = cu.fused_updater_step.fn(p, g, lr, 5, *s, kind=kind,
+                                       **upd.fused_hyper())
+        assert len(out) == len(ref) == 1 + len(s)
+        for a, b in zip(out, ref):
+            assert a.dtype == dtype and a.shape == b.shape
+            if kind == "Nadam":
+                np.testing.assert_array_max_ulp(a.float().cpu().numpy(),
+                                                b.float().cpu().numpy(),
+                                                maxulp=2)
+            else:
+                assert torch.equal(a, b), (a - b).abs().max().item()
+    n = cu.TABLE_LEAVES + 3
+    ps = [torch.randn(17, device=cuda).to(dtype) for _ in range(n)]
+    ss = [tuple(torch.rand(17, device=cuda).to(dtype) for _ in ss[0])
+          for _ in range(n)]
+    l0 = cu.fused_updater.launches
+    outs = cu.fused_updater_multi(ps, ps, ss, lr, 5, kind=kind,
+                                  **upd.fused_hyper())
+    assert cu.fused_updater.launches - l0 == 2
+    ref = cu.fused_updater_step.fn(ps[-1], ps[-1], lr, 5, *ss[-1], kind=kind,
+                                   **upd.fused_hyper())
+    if kind != "Nadam":
+        assert all(torch.equal(a, b) for a, b in zip(outs[-1], ref))
+
+
+def test_apply_fused_many_routes_leaf_by_leaf(cuda):
+    """helper_mode decides for the whole call as for one leaf; a float64
+    leaf passes the gate and raises, as apply_fused does."""
+    upd = U.Adam()
+    ps = [torch.randn(n, device=cuda) for n in (3, 300, 5000)]
+    ss = [upd.init_state(p) for p in ps]
+    env = environment()
+    old = env.helper_mode
+    try:
+        for mode, launched in (("generic", 0), ("auto", 1), ("kernel", 1)):
+            env.helper_mode = mode
+            before = cu.fused_updater.launches
+            new_p, new_s = upd.apply_fused_many(ps, ps, ss, upd.lr(0), 0)
+            assert cu.fused_updater.launches - before == launched
+            for p, s, np_, ns in zip(ps, ss, new_p, new_s):
+                want_p, want_s = upd.apply_fused(p, p, s, upd.lr(0), 0)
+                assert torch.equal(np_, want_p)
+                assert all(torch.equal(ns[k], want_s[k]) for k in ns)
+    finally:
+        env.helper_mode = old
+    with pytest.raises(ValueError, match="dtype"):
+        upd.apply_fused_many([ps[0].double()], [ps[0].double()],
+                             [upd.init_state(ps[0].double())], upd.lr(0), 0)
 
 
 def test_fused_updater_routes_and_refuses(cuda):
@@ -926,7 +1028,8 @@ def test_fused_matmul_bn_backward_agrees_with_the_plain_chain(cuda, prologue,
 
 def test_resnet50_trains_through_both_kernels_on_cuda(cuda):
     """A small ResNet-50 in configuration A (float32) and B (fused blocks,
-    mixed): A launches the updater once per leaf per step; B launches the
+    mixed): A updates every leaf in one updater launch a step; B launches
+    the
     convbn kernel on every gated 1×1 conv; losses stay finite."""
     x, lab = synthetic_image_batch(8, 64, 64, 3, 10, seed=3)
     y = np.eye(10, dtype=np.float32)[lab]
@@ -934,11 +1037,13 @@ def test_resnet50_trains_through_both_kernels_on_cuda(cuda):
         net = ResNet50(num_classes=10, input_shape=(64, 64, 3),
                        fused_blocks=fused, dtype=dtype, device=cuda).init()
         u0, c0 = cu.fused_updater.launches, cc.bn_matmul_stats.launches
+        v0 = cu.fused_updater.leaves
         net.fit(x, y, batch_size=8)
         net.fit(x, y, batch_size=8)
         torch.cuda.synchronize()
         assert math.isfinite(net.score())
-        assert cu.fused_updater.launches - u0 == 2 * 161
+        assert cu.fused_updater.leaves - v0 == 2 * 161
+        assert cu.fused_updater.launches - u0 == 2
         if fused:  # stages 1-3 pass the gate (M = 8·16·16, 8·8·8, 8·4·4)
             assert cc.bn_matmul_stats.launches - c0 >= 2 * 2 * 13
 
@@ -1501,14 +1606,15 @@ def test_samediff_fit_launches_the_layernorm_kernel_each_step(cuda):
     ca.reset_launch_counts()
     cl.fused_layer_norm_kernel.launches = 0
     cm.fused_matmul.launches = 0
-    cu.fused_updater.launches = 0
+    cu.fused_updater.launches = cu.fused_updater.leaves = 0
     got, sd = fit("auto")
     n_leaves = len(sd.training_state()["params"])
     assert sd.last_compile_stats.fusions == {
         "attention": layers, "epilogue": 6 * layers + 2, "layernorm": 1}
     assert cl.fused_layer_norm_kernel.launches == 2
     assert cm.fused_matmul.launches == 2 * (6 * layers + 2)
-    assert cu.fused_updater.launches == 2 * n_leaves == 2 * 41
+    assert cu.fused_updater.leaves == 2 * n_leaves == 2 * 41
+    assert cu.fused_updater.launches == 2
     counts = ca.launch_counts()
     for name in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
         assert counts[name] == 2 * layers, (name, counts)

@@ -249,3 +249,182 @@ def test_wrong_state_count_is_refused():
     with pytest.raises(ValueError, match="state"):
         cu.fused_updater_step.fn(torch.zeros(3), torch.zeros(3), 0.1, 0,
                                  kind="Adam")
+
+
+# --- the multi-tensor launch: plan and indexing, transcribed --------------
+#
+# csrc/fused_updater.cu's fused_updater_kernel in numpy: block b finds its
+# leaf by binary search over the launch's chunk starts, updates the
+# vectors [e0 / VEC, min(e0 / VEC + 256 * 4, n_vec)) of its chunk (thread
+# t's i-th vector is v0 + i * 256 + t) and, one element a thread a
+# stride, the chunk's elements past n_vec * VEC.
+
+_THREADS, _ILP = 256, 4
+
+
+def _block_elements(numels, n_vecs, starts, b, elem_size):
+    """(leaf, element indices) that block ``b`` of a launch updates."""
+    vec = 16 // elem_size
+    chunk = cu.chunk_elements(elem_size)
+    lo, hi = 0, len(numels) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if starts[mid] <= b:
+            lo = mid
+        else:
+            hi = mid - 1
+    n, n_vec = numels[lo], n_vecs[lo]
+    e0 = (b - starts[lo]) * chunk
+    v0 = e0 // vec
+    v_end = min(v0 + _THREADS * _ILP, n_vec)
+    v = (v0 + np.arange(_ILP)[:, None] * _THREADS
+         + np.arange(_THREADS)[None, :]).ravel()
+    v = v[v < v_end]
+    vec_elems = (v[:, None] * vec + np.arange(vec)[None, :]).ravel()
+    s_end = min(e0 + chunk, n)
+    first = max(e0, n_vec * vec)
+    per_thread = max(0, -(-(s_end - first) // _THREADS))
+    e = (first + np.arange(_THREADS)[:, None]
+         + _THREADS * np.arange(per_thread)[None, :]).ravel()
+    return lo, np.concatenate([vec_elems, e[e < s_end]])
+
+
+def _coverage(numels, ptr_offsets, elem_size):
+    """Per leaf, how many times the planned launches update each element;
+    and the launches' leaf counts."""
+    counts = [np.zeros(n, np.int64) for n in numels]
+    # leaf i's buffers at 4096-byte-aligned bases moved by ptr_offsets[i]
+    n_vecs = [cu.vector_count(n, elem_size, [4096 * 7 + off] * 5)
+              for n, off in zip(numels, ptr_offsets)]
+    plan = cu.plan_launches(numels, elem_size)
+    for idx, starts in plan:
+        assert len(idx) <= cu.TABLE_LEAVES
+        assert starts[0] == 0 and starts == sorted(starts)
+        sub_n = [numels[i] for i in idx]
+        sub_v = [n_vecs[i] for i in idx]
+        for b in range(starts[-1]):
+            leaf, elems = _block_elements(sub_n, sub_v, starts, b,
+                                          elem_size)
+            np.add.at(counts[idx[leaf]], elems, 1)
+    return counts, [len(idx) for idx, _ in plan], n_vecs
+
+
+@pytest.mark.parametrize("elem_size", [4, 2])
+@pytest.mark.parametrize("numels,offsets", [
+    ([1, 7, 8, 4097, 2048000], [0] * 5),
+    ([4097, 2048000, 9], [4, 2, 0]),                 # offset views
+    ([0, 3, 16384, 16385, 8191, 0, 1000], [0, 0, 0, 0, 0, 0, 8]),
+])
+def test_multi_tensor_plan_covers_every_element_once(numels, offsets,
+                                                     elem_size):
+    counts, per_launch, n_vecs = _coverage(numels, offsets, elem_size)
+    for n, c, off, nv in zip(numels, counts, offsets, n_vecs):
+        assert (c == 1).all(), (n, off, np.unique(c))
+        # an offset leaf takes the scalar path whole; an aligned one its
+        # vectors and the ragged tail
+        assert nv == (0 if off % 16 else n // (16 // elem_size))
+    assert per_launch == [sum(n > 0 for n in numels)]
+
+
+def test_multi_tensor_plan_splits_a_group_larger_than_one_table():
+    numels = [((i * 7919) % 5000) + 1 for i in range(cu.TABLE_LEAVES + 45)]
+    for elem_size, offset in ((4, 0), (2, 4)):
+        counts, per_launch, _ = _coverage(numels, [offset] * len(numels),
+                                          elem_size)
+        assert all((c == 1).all() for c in counts)
+        assert per_launch == [cu.TABLE_LEAVES, 45]
+
+
+def test_flat_outputs_start_every_leaf_on_16_bytes():
+    shapes = [(3,), (7, 5), (1,), (2, 2, 2), (4097,)]
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        outs = cu._flat_outputs(shapes, dtype, torch.device("cpu"), 3)
+        one = cu._flat_outputs(shapes[1:2], dtype, torch.device("cpu"), 2)
+        assert [v[0].shape for v in one] == [(7, 5)] * 2
+        assert len(outs) == 3
+        for views in outs:
+            base = views[0].data_ptr()
+            for v, s in zip(views, shapes):
+                assert v.shape == s and v.dtype == dtype
+                assert (v.data_ptr() - base) % 16 == 0
+            assert len({v.untyped_storage().data_ptr() for v in views}) == 1
+
+
+def _tree(kind, dtype, seed, sizes=(1, 7, 8, 37, 300)):
+    r = np.random.RandomState(seed)
+    keys = sorted(tupd.UPDATERS[kind]().init_state(torch.zeros(1)))
+    ps = [torch.from_numpy(r.randn(n).astype(np.float32)).to(dtype)
+          for n in sizes]
+    gs = [torch.from_numpy((r.randn(n) * 0.1).astype(np.float32)).to(dtype)
+          for n in sizes]
+    ss = [{k: torch.from_numpy((np.abs(r.randn(n)) * 0.1).astype(
+        np.float32)).to(dtype) for k in keys} for n in sizes]
+    return ps, gs, ss
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", KINDS)
+def test_apply_fused_many_equals_apply_fused_per_leaf(kind, dtype):
+    tu = tupd.UPDATERS[kind](**_hyper(kind))
+    ps, gs, ss = _tree(kind, dtype, 200 + KINDS.index(kind))
+    lr = tu.lr(0) * 3.0
+    launches = cu.fused_updater.launches
+    new_p, new_s = tu.apply_fused_many(ps, gs, ss, lr, 4)
+    assert cu.fused_updater.launches == launches  # CPU: the plain version
+    for p, g, s, np_, ns in zip(ps, gs, ss, new_p, new_s):
+        want_p, want_s = tu.apply_fused(p, g, s, lr, 4)
+        assert np_.dtype == dtype and torch.equal(np_, want_p)
+        assert sorted(ns) == sorted(want_s)
+        for k in ns:
+            assert torch.equal(ns[k], want_s[k])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_apply_fused_many_three_scheduled_steps_match_jax(kind):
+    """A small tree through apply_fused_many, three steps of an
+    exponential schedule, against the JAX generic op and the Pallas kernel
+    in interpret mode leaf by leaf."""
+    hyper = _hyper(kind)
+    tu = tupd.UPDATERS[kind](
+        learning_rate=tupd.ExponentialSchedule(**SCHED), **hyper)
+    ju = jupd.UPDATERS[kind](
+        learning_rate=jupd.ExponentialSchedule(**SCHED), **hyper)
+    ps, _, ss = _tree(kind, torch.float32, 300 + KINDS.index(kind),
+                      sizes=(5, 37, 130))
+    keys = sorted(ss[0])
+    jp = [jnp.asarray(p.numpy()) for p in ps]
+    js = [[jnp.asarray(s[k].numpy()) for k in keys] for s in ss]
+    jpl, jsl = list(jp), [list(s) for s in js]
+    r = np.random.RandomState(KINDS.index(kind))
+    for step in range(3):
+        gs = [(r.randn(p.numel()) * 0.1).astype(np.float32) for p in ps]
+        ps, ss = tu.apply_fused_many(ps, [torch.from_numpy(g) for g in gs],
+                                     ss, tu.lr(step), step)
+        jlr = ju.lr(step)
+        for i, g in enumerate(gs):
+            out_j = jax_step.fn(jp[i], jnp.asarray(g), jlr, jnp.float32(step),
+                                *js[i], kind=kind, **ju.fused_hyper())
+            out_pl = fused_updater_helper(
+                jpl[i], jnp.asarray(g), jlr, jnp.float32(step), *jsl[i],
+                kind=kind, block_rows=8, interpret=True, **ju.fused_hyper())
+            jp[i], js[i] = out_j[0], list(out_j[1:])
+            jpl[i], jsl[i] = out_pl[0], list(out_pl[1:])
+            got = [ps[i]] + [ss[i][k] for k in keys]
+            for a, b, c in zip(got, out_j, out_pl):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+                np.testing.assert_allclose(a.numpy(), np.asarray(c), **TOL)
+
+
+def test_apply_fused_many_keeps_a_subclass_override():
+    """A user subclass overriding apply keeps its per-leaf path."""
+
+    class Halved(tupd.Sgd):
+        def apply(self, grad, state, lr, step):
+            return 0.5 * lr * grad, state
+
+    upd = Halved(learning_rate=0.2)
+    ps, gs, ss = _tree("Sgd", torch.float32, 9)
+    new_p, new_s = upd.apply_fused_many(ps, gs, ss, upd.lr(0), 0)
+    for p, g, np_ in zip(ps, gs, new_p):
+        assert torch.equal(np_, p - 0.5 * upd.lr(0) * g)
+    assert new_s == ss
