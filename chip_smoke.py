@@ -77,9 +77,17 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    random weights from a numpy seed) served by the port's
    GenerativeEngine through start()/submit()/stop(): once with
    helper_mode="generic" (plain PyTorch attention) as the reference, then
-   — with every launch count set to 0 just before — through the kernels.
-   Checks finish reasons, launch counts (every prefill on the float32
-   tensor-core forward), and greedy tokens against the reference run.
+   — with every launch count set to 0 just before — through the kernels,
+   its prefill, write-prompt and decode steps replayed as CUDA-graph
+   captures (``ops/capture.py``), then by the same engine under
+   ``disable_capture()`` (op by op). Checks finish reasons, launch counts
+   through the replays (every prefill on the float32 tensor-core forward,
+   12 paged decodes a decode step), the serving ledger (one
+   ``first_compile`` each for prefill, write_prompt and decode, no
+   ``new_shape``), greedy tokens against the reference run and 12 of 12
+   equal between the captured and the eager run; then with 8 slots
+   decoding, the decode step's wall p50 captured and eager, and one
+   decode step on fixed inputs captured and eager, logits bit-equal.
 5. ``train``   — ResNet-50 at full width (224×224×3, 1000 classes), the
    usual configuration (float32, composed blocks, Nesterovs lr 0.1),
    batch 32, trained through ``ResNet50().init()`` → ``fit``: 3 steps
@@ -124,11 +132,15 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    12 attention and 72 epilogue fusions, and one forward — launch counts
    and the dispatch counter set to 0 just before — must dispatch 72
    ``fused_matmul_bias_act`` and 12 ``dot_product_attention`` calls to
-   the ``cuda`` kernels. Its output is held against
+   the ``cuda`` kernels — a replay of the plan's CUDA-graph capture, its
+   launches counted through the replay. Its output is held against
    ``helper_mode="generic"`` and against the unoptimized graph
-   (``optimize=False``). Reports the p50 forward time and tokens/s over 5
-   forwards after 2 warm ones, parse and plan seconds, node counts and
-   peak memory.
+   (``optimize=False``), and the captured output against the same
+   forward under ``disable_capture()``, bit for bit, with one
+   ``first_compile`` for ``exec`` in the ledger. Reports the p50 forward
+   time (captured and eager) and tokens/s over 5 forwards after 2 warm
+   ones, parse and plan seconds, node counts, peak memory and the graph
+   pool's memory.
 10. ``sd_bert_finetune`` — SameDiff training of that imported encoder: the
    same ONNX bytes through ``import_onnx``, a token-classification head
    added in SameDiff (dense 768×768 → ``sd.nn.layer_norm`` →
@@ -148,7 +160,10 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    ``helper_mode="generic"`` run from the same weights (step 1 to 1e-5
    relative; later steps and the parameters to 3× a generic run from
    weights moved by one unit in the last place), and the last loss must
-   be below the first.
+   be below the first. ``sd.output`` of the logits, captured before the
+   3 steps and replayed after them on the updated weights (reloaded into
+   its static buffers, their K-major split copies remade in place), must
+   equal the same call under ``disable_capture()`` bit for bit.
 11. ``int8_bert`` — int8 serving: the same BERT-base encoder with every
    dense MatMul a ``matmul_int8`` (ONNX Runtime's dynamic quantization
    layout: weights int8 per column, quantized once at build; activations
@@ -166,9 +181,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    moved by one unit in the last place, and against onnx_bert's float32
    forward (same weights and feeds) within a gross-fault bound on the
    last hidden state's relative error, which a wrong-scale-axis graph
-   must exceed. Reports the p50 forward time and tokens/s over 5
-   forwards after 2 warm ones, peak memory and node counts beside
-   onnx_bert's.
+   must exceed. The captured forward equals the same forward under
+   ``disable_capture()`` bit for bit, with one ``first_compile`` for
+   ``exec``. Reports the p50 forward time (captured and eager) and
+   tokens/s over 5 forwards after 2 warm ones, peak memory, the graph
+   pool's memory and node counts beside onnx_bert's.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -177,6 +194,7 @@ package beside this script) it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -229,6 +247,7 @@ FLASH_DKV_KERNEL = {"simt": "flash_attn_dkv", "sm90": "flash_attn_dkv_sm90",
 FLASH_BWD_F32_FAULTS = ("single_pass_tf32", "keep_shifted",
                         "last_tile_dropped")
 LOGIT_TOL = 1e-3        # kernel vs generic GPT logits (float32, 12 layers)
+DECODE_TIMED = 20       # serve: decode steps timed captured, then eager
 
 FLASH_SHAPE = dict(bh=12, t=512, d=64)
 # a float32 head dim the tensor-core forward refuses: the CUDA-core one
@@ -1731,6 +1750,58 @@ def _bert_base_onnx():
     return model, time.perf_counter() - t0
 
 
+def samediff_ledger(observe) -> list:
+    """The (key, cause) of every SameDiff compile in the ledger."""
+    return [[ev.key, ev.cause] for ev in observe.ledger().events()
+            if ev.graph == "samediff"]
+
+
+def exec_unit(sd, outputs):
+    """The captured unit behind ``sd.output(feeds, outputs)``."""
+    from deeplearning4j_tpu_torch.autodiff.optimize import CompiledGraph
+
+    (fn,) = [f for k, f in sd._jit_cache.items()
+             if isinstance(f, CompiledGraph) and k[1] == tuple(outputs)]
+    return fn.unit
+
+
+def captured_vs_eager(sd, feeds, outputs, captured, timed):
+    """``captured`` (a replayed ``sd.output``'s first output) against the
+    same call under ``disable_capture()``, bit for bit; the eager wall p50
+    over ``timed`` forwards; the unit's captures and memory."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
+
+    times = []
+    with disable_capture():
+        eager = sd.output(feeds, outputs)[outputs[0]]
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sd.output(feeds, outputs)
+            times.append(time.perf_counter() - t0)
+    return {"bits_equal_eager": bool(np.array_equal(captured, eager)),
+            "max_abs_diff_eager": float(np.abs(captured - eager).max()),
+            "eager_p50_ms": float(np.percentile(times, 50)) * 1e3,
+            "eager_times_ms": [t * 1e3 for t in times],
+            "graph_unit": unit_memory(exec_unit(sd, outputs))}
+
+
+def captured_problems(info) -> list:
+    """A phase's captured-vs-eager checks: the same bits, one capture, one
+    first_compile for exec and nothing else."""
+    problems = []
+    if not info["bits_equal_eager"]:
+        problems.append(f"captured output differs from eager by "
+                        f"{info['max_abs_diff_eager']}")
+    if info["graph_unit"]["captures"] != 1:
+        problems.append(f"captures {info['graph_unit']}")
+    if info["ledger"] != [["exec", "first_compile"]]:
+        problems.append(f"ledger {info['ledger']}")
+    return problems
+
+
 def onnx_bert_phase(dev, smi):
     """The imported-graph path at BERT-base width: ONNX bytes →
     ``import_onnx`` → SameDiff → optimizer → ``sd.output``, with the
@@ -1757,6 +1828,8 @@ def onnx_bert_phase(dev, smi):
         """Import, 2 warm forwards, [the counted forward], 5 timed."""
         env.helper_mode = mode
         try:
+            if counted:
+                observe.reset()  # the ledger from here holds this graph's
             copies0 = cm.kmajor_weight.copies
             t0 = time.perf_counter()
             sd = import_onnx(model, optimize=optimize, device=dev)
@@ -1768,6 +1841,7 @@ def onnx_bert_phase(dev, smi):
             sd.output(feeds, ["y"])
             launches = None
             if counted:
+                ledger = samediff_ledger(observe)
                 observe.reset()
                 ca.reset_launch_counts()
                 cm.fused_matmul.launches = 0
@@ -1815,10 +1889,17 @@ def onnx_bert_phase(dev, smi):
                             nodes_before=st.nodes_before,
                             nodes_after=st.nodes_after, fusions=st.fusions,
                             invariant_checks=st.invariant_checks)
+            info.update(trace_s=st.trace_seconds,
+                        capture_s=st.compile_seconds)
+            if counted:
+                info.update(captured_vs_eager(sd, feeds, ["y"], y,
+                                              ONNX_BERT_TIMED),
+                            ledger=ledger)
             if counted:  # after the timing: a second plan, for int8_bert
                 out = sd.output(feeds, ["y", last])
                 float32_out.update(y=out["y"], hidden=out[last])
             del sd
+            gc.collect()  # a captured graph's cycle back to sd, and its pool
             torch.cuda.empty_cache()
             return y, info, launches
         finally:
@@ -1850,6 +1931,7 @@ def onnx_bert_phase(dev, smi):
     if launches["dispatch_cuda"] != {"fused_matmul_bias_act": 6 * cfg[
             "layers"], "dot_product_attention": cfg["layers"]}:
         problems.append(f"cuda dispatches {launches['dispatch_cuda']}")
+    problems += captured_problems(k_info)
     shape = (cfg["batch"], cfg["seq"], 2)
     diffs = {}
     for label, y in (("kernel", y_k), ("generic", y_g),
@@ -1872,8 +1954,10 @@ def onnx_bert_phase(dev, smi):
             "tol": ONNX_BERT_TOL,
             "smoke_reading": f"{ONNX_BERT_TIMED} forwards, no spread",
             "forward_p50_ms": k_info["p50_ms"],
+            "eager_forward_p50_ms": k_info["eager_p50_ms"],
             "tokens_per_s": tokens / (k_info["p50_ms"] / 1e3),
             "real_tokens_per_s": real / (k_info["p50_ms"] / 1e3),
+            "eager_tokens_per_s": tokens / (k_info["eager_p50_ms"] / 1e3),
             "generic_tokens_per_s": tokens / (g_info["p50_ms"] / 1e3),
             "unoptimized_tokens_per_s": tokens / (u_info["p50_ms"] / 1e3),
             "problems": problems}
@@ -1921,11 +2005,17 @@ def sd_bert_finetune_phase(dev, smi):
                 sd.set_arr(n, t)
         return sd, logits
 
-    def run(mode, *, nudge=False, counted=False):
+    def run(mode, *, nudge=False, counted=False, refit=False):
+        """Build, 3 fit steps, then ``sd.output`` of the logits. With
+        ``refit`` that output is captured before the steps (and replayed
+        once) and replayed after them, then held against eager."""
         env.helper_mode = mode
         try:
             resident = torch.cuda.memory_allocated() / 2 ** 30
             sd, logits = build(nudge)
+            if refit:
+                before = sd.output(feeds, [logits])[logits]
+                sd.output(feeds, [logits])
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             launches = None
@@ -1979,13 +2069,20 @@ def sd_bert_finetune_phase(dev, smi):
             info["output_launches"] = {
                 "fused_layer_norm": cl.fused_layer_norm_kernel.launches,
                 "fused_matmul_bias_act": cm.fused_matmul.launches}
+            if refit:
+                info.update(captured_vs_eager(sd, feeds, [logits], out, 1),
+                            changed_by_fit=bool(not np.array_equal(before,
+                                                                   out)))
             del sd
+            gc.collect()  # a captured graph's cycle back to sd, and its pool
             torch.cuda.empty_cache()
             return info, launches, params, n_params, out
         finally:
             env.helper_mode = "auto"
 
-    run("auto")  # warm-up: cuBLAS, the allocator, the plan's first build
+    # warm-up (cuBLAS, the allocator, the plan's first build), with the
+    # logits' sd.output captured before the steps and replayed after them
+    r_info = run("auto", refit=True)[0]
     k_info, launches, k_params, n_params, k_out = run("auto", counted=True)
     g_info, _, g_params, _, g_out = run("generic")
     y_info, _, y_params, _, _ = run("generic", nudge=True)
@@ -2021,6 +2118,12 @@ def sd_bert_finetune_phase(dev, smi):
     if k_info["output_launches"] != {"fused_layer_norm": 1,
                                      "fused_matmul_bias_act": 6 * layers + 2}:
         problems.append(f"output launches {k_info['output_launches']}")
+    refit = {k: r_info[k] for k in ("bits_equal_eager", "max_abs_diff_eager",
+                                    "changed_by_fit", "graph_unit")}
+    if not (refit["bits_equal_eager"] and refit["changed_by_fit"]
+            and refit["graph_unit"]["captures"] == 1):
+        problems.append(f"sd.output captured before the steps, replayed "
+                        f"after them: {refit}")
     kernel, generic, yard = (i["losses"] for i in (k_info, g_info, y_info))
     if not all(math.isfinite(v) for v in kernel + generic + yard):
         problems.append("non-finite loss")
@@ -2062,6 +2165,7 @@ def sd_bert_finetune_phase(dev, smi):
             "loss_abs_diff": loss_diff, "loss_limit": loss_lim,
             "param_max_abs_diff": p_diff, "param_limit": p_lim,
             "output_max_abs_diff_vs_generic": out_diff,
+            "output_captured_before_fit_replayed_after": refit,
             "tol": (f"step-1 loss {BERT_LOSS_RTOL['float32']:g} relative; "
                     f"later losses and params {BERT_YARDSTICK:g} x "
                     f"yardstick"),
@@ -2120,6 +2224,8 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
         try:
             gc.collect()  # an earlier graph's reference cycles, freed now
             resident = torch.cuda.memory_allocated()
+            if counted:
+                observe.reset()  # the ledger from here holds this graph's
             copies0 = cq.kmajor_weight.copies
             t0 = time.perf_counter()
             sd = SameDiff(device=dev)
@@ -2134,6 +2240,7 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                 info["first_forward_s"] = time.perf_counter() - t0
                 sd.output(feeds, ["y"])
             if counted:
+                ledger = samediff_ledger(observe)
                 observe.reset()
                 ca.reset_launch_counts()
                 cq.reset_launch_counts()
@@ -2168,7 +2275,7 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                 for _ in range(INT8_BERT_TIMED):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    sd.output(feeds, ["y"])
+                    y = sd.output(feeds, ["y"])["y"]
                     times.append(time.perf_counter() - t0)
                 st = sd.last_compile_stats
                 info.update(
@@ -2178,7 +2285,12 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                     peak_memory_own_gib=(torch.cuda.max_memory_allocated()
                                          - resident) / 2 ** 30,
                     nodes_before=st.nodes_before, nodes_after=st.nodes_after,
-                    fusions=st.fusions)
+                    fusions=st.fusions, trace_s=st.trace_seconds,
+                    capture_s=st.compile_seconds)
+            if counted:
+                info.update(captured_vs_eager(sd, feeds, ["y"], y,
+                                              INT8_BERT_TIMED),
+                            ledger=ledger)
             out = sd.output(feeds, ["y", "hidden"])
             del sd
             torch.cuda.empty_cache()
@@ -2212,6 +2324,7 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                                    "counted_forward": 0}:
         problems.append(f"K-major weight copies {k_info['kmajor_copies']} != "
                         f"{n_dense} before the counted forward, 0 in it")
+    problems += captured_problems(k_info)
     want_disp = {"matmul_int8": n_dense, "dot_product_attention": layers}
     for op, counts in launches["dispatch"].items():
         if counts["cuda/usable"] != want_disp[op] or any(
@@ -2272,6 +2385,8 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
             "smoke_reading": f"{INT8_BERT_TIMED} forwards, no spread",
             "forward_p50_ms": k_info["p50_ms"], "tokens_per_s": tokens / p50,
             "real_tokens_per_s": real / p50,
+            "eager_forward_p50_ms": k_info["eager_p50_ms"],
+            "eager_tokens_per_s": tokens / (k_info["eager_p50_ms"] / 1e3),
             "generic_forward_p50_ms": g_info["p50_ms"],
             "generic_tokens_per_s": tokens / (g_info["p50_ms"] / 1e3),
             "float32_onnx_bert": {
@@ -2284,10 +2399,10 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
     return problems, line, {k: launches[k] for k in want}
 
 
-def serve(engine_cls, model, prompts, **engine_kw):
-    """Serve ``prompts`` through start()/submit()/stop(); returns the
-    results and the wall seconds from first submit to last result."""
-    eng = engine_cls(model, **engine_kw).start()
+def serve(eng, prompts):
+    """Serve ``prompts`` through ``eng``'s start()/submit()/stop(); returns
+    the results and the wall seconds from first submit to last result."""
+    eng.start()
     try:
         t0 = time.perf_counter()
         futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
@@ -2296,6 +2411,49 @@ def serve(engine_cls, model, prompts, **engine_kw):
     finally:
         eng.stop()
     return results, wall
+
+
+def decode_step_case(eng, prompts):
+    """A new engine, every slot decoding inline: the step's wall p50
+    (``eng.step()``, host
+    clock; it ends reading the tokens back) captured and under
+    ``disable_capture()``, then one decode step on fixed inputs — the
+    staged buffers the last step left — captured and eager. Returns
+    (logits bit-equal, their max abs difference, {"captured": p50 ms,
+    "eager": p50 ms}) and drains the engine."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
+
+    for p in prompts[:eng.cache.max_slots]:
+        eng.submit(p, max_new_tokens=2 * DECODE_TIMED + 4, eos_token=-1)
+    eng.step()  # admits every slot, then decodes
+    p50 = {}
+    for label, ctx in (("captured", contextlib.nullcontext),
+                       ("eager", disable_capture)):
+        times = []
+        with ctx():
+            for _ in range(DECODE_TIMED):
+                t0 = time.perf_counter()
+                eng.step()
+                times.append(time.perf_counter() - t0)
+        p50[label] = float(np.percentile(times, 50)) * 1e3
+    captured = eng._decode_fn()[1].clone()
+    with disable_capture():
+        eager = eng._decode_fn()[1]
+    equal = bool(torch.equal(captured, eager))
+    diff = float((captured - eager).abs().max())
+    while eng.scheduler.has_work():
+        eng.step()
+    return equal, diff, p50
+
+
+def unit_memory(unit) -> dict:
+    """A captured unit's graphs and memory: the pool's reserved bytes and
+    the static input buffers, MiB."""
+    return {"captures": unit.captures,
+            "pool_mib": unit.pool_bytes / 2 ** 20,
+            "static_mib": unit.static_bytes / 2 ** 20}
 
 
 def explain_divergence(model, prompt, toks_a, toks_b):
@@ -2344,6 +2502,7 @@ def main() -> int:
         GptConfig, GptModel, init_gpt_params)
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
     from deeplearning4j_tpu_torch.serving import GenerativeEngine
 
     dev = torch.device("cuda", 0)
@@ -2466,17 +2625,30 @@ def main() -> int:
         GenerativeEngine(model, **engine_kw).generate([prompts[-1]],
                                                       max_new_tokens=2)
     env.helper_mode = "generic"
-    ref_results, ref_wall = serve(GenerativeEngine, model, prompts,
-                                  **engine_kw)
+    ref_results, ref_wall = serve(GenerativeEngine(model, **engine_kw),
+                                  prompts)
     env.helper_mode = "auto"
 
     observe.reset()
+    eng = GenerativeEngine(model, **engine_kw)
     ca.reset_launch_counts()          # the main path's run starts here
-    results, wall = serve(GenerativeEngine, model, prompts, **engine_kw)
+    results, wall = serve(eng, prompts)
     launches = ca.launch_counts()     # ... and ends here
     m = observe.metrics()
     decode_steps = m.histogram("dl4j_tpu_serving_decode_step_seconds").count
     admitted = int(m.counter("dl4j_tpu_serving_admitted_total").value)
+    # the same engine, op by op
+    with disable_capture():
+        eager_results, eager_wall = serve(eng, prompts)
+    serving_ledger = {}
+    for ev in observe.ledger().events():
+        if ev.graph == "serving":
+            serving_ledger.setdefault(ev.key, []).append(ev.cause)
+    step_equal, step_diff, step_p50 = decode_step_case(
+        GenerativeEngine(model, **engine_kw), prompts)
+    units = {name: unit_memory(u) for name, u in (
+        ("prefill", eng._prefill_fn), ("write_prompt", eng._write_fn),
+        ("decode", eng._decode_fn))}
 
     problems = []
     for r in results + ref_results:
@@ -2495,6 +2667,19 @@ def main() -> int:
     if launches["paged_decode"] < cfg.layers * decode_steps:
         problems.append(f"paged launches {launches['paged_decode']} < "
                         f"{cfg.layers} x {decode_steps} decode steps")
+    if serving_ledger != {k: ["first_compile"] for k in (
+            "prefill", "write_prompt", "decode")}:
+        problems.append(f"serving ledger {serving_ledger}")
+    if any(u["captures"] != 1 for u in units.values()):
+        problems.append(f"captures {units}")
+    tokens_equal_eager = sum(list(a.tokens) == list(b.tokens)
+                             for a, b in zip(results, eager_results))
+    if tokens_equal_eager != len(prompts):
+        problems.append(f"captured vs eager greedy tokens: "
+                        f"{tokens_equal_eager} of {len(prompts)} equal")
+    if not step_equal:
+        problems.append(f"decode step on fixed inputs: captured logits "
+                        f"differ from eager by {step_diff}")
     if (launches["flash_attn_fwd_sm90"] or launches["flash_attn_dq_sm90"]
             or launches["flash_attn_dkv_sm90"]):
         problems.append(f"float32 serving launched the sm90 kernels: "
@@ -2527,7 +2712,21 @@ def main() -> int:
               [r.ttft_s for r in ref_results], 50)) * 1e3,
           "tokens_equal_generic": sum(list(a.tokens) == list(b.tokens)
                                       for a, b in zip(ref_results, results)),
-          "divergences": divergences, "problems": problems})
+          "divergences": divergences,
+          "captured": {"tokens_per_s": generated / wall,
+                       "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+                       "decode_step_p50_ms": step_p50["captured"]},
+          "eager": {"tokens_per_s": sum(int(r.tokens.size)
+                                        for r in eager_results) / eager_wall,
+                    "ttft_p50_ms": float(np.percentile(
+                        [r.ttft_s for r in eager_results], 50)) * 1e3,
+                    "decode_step_p50_ms": step_p50["eager"]},
+          "decode_step_timed": f"{DECODE_TIMED} steps each, 8 slots, "
+                               f"host wall of eng.step(), no spread",
+          "tokens_equal_eager": tokens_equal_eager,
+          "decode_logits_bit_equal_eager": step_equal,
+          "serving_ledger": serving_ledger, "graph_units": units,
+          "problems": problems})
     if problems:
         raise SystemExit(f"serve phase failed: {problems}")
 

@@ -85,6 +85,11 @@ class OptimizeStats:
     #               "removed": cumulative node delta across iterations}
     passes: Dict[str, Dict[str, int]] = dataclasses.field(default_factory=dict)
     optimize_seconds: float = 0.0
+    # populated by CompiledGraph on the output() path: the warm-up run and
+    # the CUDA-graph capture of its first call (the reference's trace and
+    # XLA compile); None where nothing was captured
+    trace_seconds: Optional[float] = None
+    compile_seconds: Optional[float] = None
     # pass-invariance runs of the abstract interpreter: how many times
     # the interface shapes/dtypes were re-verified between passes
     invariant_checks: int = 0
@@ -104,6 +109,17 @@ class OptimizeStats:
     @property
     def removed(self) -> int:
         return self.nodes_before - self.nodes_after
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"nodes_before": self.nodes_before,
+                "nodes_after": self.nodes_after,
+                "removed": self.removed,
+                "passes": {k: dict(v) for k, v in self.passes.items()},
+                "optimize_seconds": round(self.optimize_seconds, 4),
+                "trace_seconds": self.trace_seconds,
+                "compile_seconds": self.compile_seconds,
+                "invariant_checks": self.invariant_checks,
+                "fusions": dict(self.fusions)}
 
 
 class GraphPlan:
@@ -1279,3 +1295,76 @@ def optimize_graph(nodes, outputs: Sequence[str], *,
         m.counter("dl4j_tpu_graph_fusions_total", kind=kind).inc(hits)
     return GraphPlan(nodes=work, extra_consts=extra, alias=alias,
                      outputs=list(outputs), stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# compiled execution (the trace/compile split of last_compile_stats)
+# ---------------------------------------------------------------------------
+
+
+class CompiledGraph:
+    """The counterpart of the reference's ``CompiledGraph(jax.jit(run))``:
+    ``run(var_arrays, feeds) -> {name: tensor}``, the eager whole-graph
+    function, as a :class:`~deeplearning4j_tpu_torch.ops.capture.CapturedUnit`
+    — on the card captured once per feed signature (the variables and feeds
+    by name, shape and dtype) and replayed after; on the CPU, or under
+    ``disable_capture()``, run eagerly each call. The outputs are the
+    graph's own buffers, good until the next call.
+
+    Its first call is timed as the reference times it: the warm-up run as
+    ``stats.trace_seconds``, the capture as ``stats.compile_seconds``, with
+    the ``jit_trace`` / ``xla_compile`` spans and the
+    ``dl4j_tpu_trace_seconds`` / ``dl4j_tpu_xla_compile_seconds``
+    histograms. A first call that captures nothing (the CPU) is all trace:
+    ``compile_seconds`` stays None."""
+
+    def __init__(self, run: Callable[..., Dict[str, torch.Tensor]],
+                 stats: Optional[OptimizeStats] = None, *, device):
+        from deeplearning4j_tpu_torch.ops.capture import CapturedUnit
+
+        self._run = run
+        self.stats = stats if stats is not None else OptimizeStats()
+        self._timed = False
+        self._names: Tuple[Tuple[str, ...], Tuple[str, ...]] = ((), ())
+        self.unit = CapturedUnit(self._flat, device=device, name="exec")
+
+    def _flat(self, *tensors):
+        var_names, feed_names = self._names
+        n = len(var_names)
+        return self._run(dict(zip(var_names, tensors[:n])),
+                         dict(zip(feed_names, tensors[n:])))
+
+    def __call__(self, var_arrays: Dict[str, torch.Tensor],
+                 feeds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        self._names = (tuple(sorted(var_arrays)), tuple(sorted(feeds)))
+        args = ([var_arrays[k] for k in self._names[0]]
+                + [feeds[k] for k in self._names[1]])
+        if self._timed:
+            with torch.no_grad():
+                return self.unit(*args, key=self._names)
+        self._timed = True
+        captures = self.unit.captures
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = self.unit(*args, key=self._names)
+        t_end = time.perf_counter()
+        from deeplearning4j_tpu_torch import observe
+
+        tr, m = observe.tracer(), observe.metrics()
+        if self.unit.captures > captures:
+            t0, t1, t2 = self.unit.timings
+            self.stats.trace_seconds = round(t1 - t0, 4)
+            self.stats.compile_seconds = round(t2 - t1, 4)
+            tr.complete_between("jit_trace", t0, t1, category="compile")
+            tr.complete_between("xla_compile", t1, t2, category="compile")
+            m.histogram("dl4j_tpu_trace_seconds").observe(t1 - t0)
+            m.histogram("dl4j_tpu_xla_compile_seconds").observe(t2 - t1)
+        else:
+            self.stats.trace_seconds = round(t_end - t0, 4)
+            tr.complete_between("jit_trace", t0, t_end, category="compile")
+            m.histogram("dl4j_tpu_trace_seconds").observe(t_end - t0)
+        return out
+
+    def reset(self) -> None:
+        """Drop the captured graphs and their pool."""
+        self.unit.reset()

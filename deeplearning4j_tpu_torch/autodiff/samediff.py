@@ -11,9 +11,15 @@ the fused matmul epilogue).
 
 What differs from the JAX package:
 
-* There is no trace: the plan runs eagerly, node by node, on the card.
-  Values a node's consumers no longer need are dropped as soon as the last
-  one has run, so peak memory is the live set, not every intermediate.
+* There is no trace. ``output`` runs the plan as one compiled unit
+  (``optimize.CompiledGraph``): on the card its kernels are captured into
+  a CUDA graph once per feed signature and replayed after
+  (``ops/capture.py``); on the CPU, and under ``disable_capture()``, the
+  plan runs eagerly, node by node. Every compile is reported to the
+  recompile ledger (``observe.ledger()``, graph ``"samediff"``, key
+  ``"exec"``) with the JAX package's causes. Values a node's consumers no
+  longer need are dropped as soon as the last one has run, so peak memory
+  is the live set, not every intermediate.
 * Arrays are torch tensors on ``SameDiff(device=...)`` (the card unless
   the caller asks for the CPU). Feeds, constants, variables and folded
   constants are canonicalized as the JAX package does with 64-bit types
@@ -24,7 +30,9 @@ What differs from the JAX package:
 * Gradients come from ``torch.autograd.grad`` over the same plan
   ``output`` runs (the JAX package takes ``jax.grad`` of the traced
   interpreter), with zeros for a VARIABLE the loss never reads, as
-  ``jax.grad`` gives. ``fit`` steps eagerly: loss and gradients through
+  ``jax.grad`` gives. Gradients and ``fit`` run eagerly (their capture
+  is ROADMAP Queue 1 item 2's training half). ``fit`` steps: loss and
+  gradients through
   the plan, then one ``Updater.apply_fused_many`` over every leaf (the
   fused updater kernel on the card, one launch) under ``no_grad``; step losses stay on the device
   and are read once per epoch.
@@ -333,8 +341,9 @@ def _strided_slice(a, *, begin, end, strides=None):
                 a[(slice(None),) * d + (slice(idx.start, idx.stop,
                                               idx.step),)]
         else:  # torch slicing takes no negative step
-            a = torch.index_select(a, d, torch.tensor(
-                list(idx), dtype=torch.long, device=a.device))
+            rows = idx.start + idx.step * torch.arange(len(idx),
+                                                       device=a.device)
+            a = torch.index_select(a, d, rows)
     return a
 
 
@@ -464,8 +473,8 @@ GRAPH_OPS: Dict[str, Callable[..., Any]] = {
     "gather": _gather,
     "tile": lambda a, *, reps: torch.tile(a, tuple(reps)),
     "pad": _pad,
-    "size": lambda a: torch.tensor(a.numel(), dtype=torch.int32,
-                                   device=a.device),
+    "size": lambda a: torch.full((), a.numel(), dtype=torch.int32,
+                                 device=a.device),
     "one_hot_graph": _one_hot,
     "where": lambda c, a, b: torch.where(c.bool(), a, b),
     "select": lambda c, a, b: torch.where(c.bool(), a, b),
@@ -776,6 +785,12 @@ class SameDiff:
         self.optimize_passes = (tuple(optimize_passes)
                                 if optimize_passes is not None else None)
         self.last_compile_stats = None
+        # recompile-ledger wiring: the cause of the most recent cache
+        # invalidation, applied by _note_compile to EVERY previously
+        # compiled key rebuilt after it (keys never compiled before stay
+        # "first_compile")
+        self._pending_invalidate: Optional[str] = None
+        self._ever_compiled: set = set()
 
     # ------------------------------------------------------------- factories
     @staticmethod
@@ -867,11 +882,46 @@ class SameDiff:
         self._invalidate("graph_mutation")
 
     def _invalidate(self, cause: str) -> None:
-        """Drop every cached plan and runner. ``cause`` names why
-        (graph_mutation / constant_rebind / variable_rebind); the JAX
-        package's recompile ledger records it, which the port has no use
-        for (nothing is compiled)."""
+        """Drop every cached plan, runner and captured graph (with its
+        memory pool), remembering WHY — the recompile ledger tags rebuilt
+        keys with this cause (graph_mutation / constant_rebind /
+        variable_rebind). A clear while the cache is empty AND no cause is
+        pending (graph still being built, nothing ever compiled) is not an
+        invalidation; an empty cache WITH a pending cause means we are
+        between invalidation and recompile, where a second invalidation
+        updates the cause to the latest one."""
+        from deeplearning4j_tpu_torch.autodiff.optimize import CompiledGraph
+
+        if self._jit_cache or self._pending_invalidate is not None:
+            self._pending_invalidate = cause
+        for fn in self._jit_cache.values():
+            if isinstance(fn, CompiledGraph):
+                fn.reset()
         self._jit_cache.clear()
+
+    def _note_compile(self, fn, kind: str, signature: str,
+                      stable_key: Any = None) -> None:
+        """Report a compile to the recompile ledger iff this (unit, input
+        signature) pair has not run before (``observe.note_jit_signature``:
+        the seen-signature set lives ON the cached unit, so every
+        ``_jit_cache`` invalidation drops the history with it).
+        ``stable_key`` mirrors the ``_jit_cache`` key and survives
+        invalidation in ``_ever_compiled``: a key compiled before that
+        shows up as a fresh unit was REBUILT and reports the pending
+        invalidation cause; a key never compiled before reports
+        first_compile; a cached unit seeing a new signature reports
+        new_shape (a new capture)."""
+        from deeplearning4j_tpu_torch import observe
+
+        ident = (kind, stable_key)
+        rebuilt = ident in self._ever_compiled
+        pend = (self._pending_invalidate if rebuilt else None) \
+            or "first_compile"
+        cause = observe.note_jit_signature(
+            fn, graph="samediff", key=kind, signature=signature,
+            stats=self.last_compile_stats, cause_if_new_fn=pend)
+        if cause is not None:
+            self._ever_compiled.add(ident)
 
     # -------------------------------------------------------------- recording
     def _record(self, op: str, inputs: List[SDVariable],
@@ -991,11 +1041,12 @@ class SameDiff:
         return {w: env[w] for w in wanted}
 
     def _exec_fn(self, out_names: Tuple[str, ...]):
-        """Build + cache the runner for the given outputs: a plain callable
-        ``(var_arrays, feeds) -> outputs`` over the plan (or the reachable
-        recording when the optimizer is off), with the constants — the
-        graph's and the plan's folded ones — bound in. The JAX package
-        jits this function; PyTorch runs the plan eagerly."""
+        """Build + cache the eager runner for the given outputs: a plain
+        callable ``(var_arrays, feeds) -> outputs`` over the plan (or the
+        reachable recording when the optimizer is off), with the constants
+        — the graph's and the plan's folded ones — bound in. Gradients and
+        ``fit`` run it eagerly; ``output`` runs it through
+        :meth:`_compiled_fn`."""
         cache_key = ("exec", out_names, bool(self.optimize),
                      self._effective_passes())
         cached = self._jit_cache.get(cache_key)
@@ -1029,6 +1080,25 @@ class SameDiff:
         run, const_names, self.last_compile_stats = cached
         return run, const_names
 
+    def _compiled_fn(self, out_names: Tuple[str, ...]):
+        """The :class:`~.optimize.CompiledGraph` of the eager runner for the
+        given outputs — the reference's ``CompiledGraph(jax.jit(run))``:
+        captured once per feed signature on the card. Cached beside the
+        runner, so every invalidation drops it with its graphs."""
+        from deeplearning4j_tpu_torch.autodiff.optimize import CompiledGraph
+
+        cache_key = ("compiled", out_names, bool(self.optimize),
+                     self._effective_passes())
+        fn = self._jit_cache.get(cache_key)
+        run, const_names = self._exec_fn(out_names)
+        if fn is None:
+            fn = CompiledGraph(run, self.last_compile_stats,
+                               device=self.device)
+            fn._const_names = const_names
+            self._jit_cache[cache_key] = fn
+        self.last_compile_stats = fn.stats
+        return fn
+
     def _var_arrays(self, const_names):
         return {k: v for k, v in self._arrays.items()
                 if k not in const_names}
@@ -1040,13 +1110,21 @@ class SameDiff:
 
     def output(self, feeds: Dict[str, Any],
                outputs: Union[str, Sequence[str]]) -> Dict[str, np.ndarray]:
-        """Execute the graph (InferenceSession.output analog): the feeds
-        are canonicalized onto the graph's device, the plan runs, and the
-        requested outputs come back as numpy arrays."""
+        """Execute the graph (InferenceSession.output analog): ONE compiled
+        unit — on the card a CUDA-graph capture per feed signature,
+        replayed after (``ops/capture.py``); the feeds are canonicalized
+        onto the graph's device and the requested outputs come back as
+        numpy arrays. Each compile is reported to the recompile ledger
+        (graph ``"samediff"``, key ``"exec"``)."""
         if isinstance(outputs, str):
             outputs = [outputs]
-        run, const_names = self._exec_fn(tuple(outputs))
-        res = run(self._var_arrays(const_names),
+        fn = self._compiled_fn(tuple(outputs))
+        from deeplearning4j_tpu_torch.observe import signature_of
+
+        self._note_compile(fn, "exec", signature_of(**feeds),
+                           stable_key=(tuple(outputs), bool(self.optimize),
+                                       self.optimize_passes))
+        res = fn(self._var_arrays(fn._const_names),
                  {k: canonical(v, self.device) for k, v in feeds.items()})
         return {k: _to_numpy(v) for k, v in res.items()}
 

@@ -3,7 +3,8 @@
 Counterpart of ``deeplearning4j_tpu/observe/tracing.py``: nested spans on
 the monotonic clock, one track per thread, a bounded event buffer (newest
 kept). The serving engine records ``serving_prefill`` and
-``serving_decode`` spans here.
+``serving_decode`` spans here, ``CompiledGraph`` its ``jit_trace`` (the
+warm-up run) and ``xla_compile`` (the capture) spans.
 """
 
 from __future__ import annotations
@@ -40,6 +41,18 @@ class SpanTracer:
                   "tid": threading.get_ident() % 1_000_000, "args": args}
             with self._lock:
                 self.events.append(ev)
+
+    def complete_between(self, name: str, perf_start: float,
+                         perf_end: float, category: str = "step",
+                         **args) -> None:
+        """Record a complete event from two ``time.perf_counter()``
+        readings (the tracer's own clock)."""
+        ev = {"name": name, "cat": category, "ph": "X",
+              "ts": (perf_start - self._t0) * 1e6,
+              "dur": (perf_end - perf_start) * 1e6, "pid": 0,
+              "tid": threading.get_ident() % 1_000_000, "args": args}
+        with self._lock:
+            self.events.append(ev)
 
     def to_dict(self) -> Dict[str, Any]:
         with self._lock:

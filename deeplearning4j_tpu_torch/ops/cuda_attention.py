@@ -657,13 +657,23 @@ def paged_plan(slots: int, heads: int, d: int, page: int, max_pages: int,
 
 
 # per device: the kernel's split counters (zero between calls; the last
-# block of a slot resets its own)
+# block of a slot resets its own). A buffer outgrown by a larger call is
+# kept, never freed: a CUDA graph captured against it keeps its address.
 _PAGED_COUNTERS: dict = {}
+_PAGED_OUTGROWN: list = []
 
 
 def _paged_counters(dev: torch.device, n: int) -> torch.Tensor:
     c = _PAGED_COUNTERS.get(dev)
     if c is None or c.numel() < n:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            # a capture's warm-up sized it; made here it would live in the
+            # graph's pool and die with the graph
+            raise RuntimeError("paged_decode_attention: split counters "
+                               "would be allocated inside a CUDA-graph "
+                               "capture; run the call once before it")
+        if c is not None:
+            _PAGED_OUTGROWN.append(c)
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
         _PAGED_COUNTERS[dev] = c
     return c

@@ -58,7 +58,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, capture
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.nn_ops import (
     FUSED_MATMUL_ACTIVATIONS, apply_fused_activation,
@@ -114,17 +114,21 @@ def matmul_design(x2, w, out) -> str:
     return "sm90" if k % 8 == 0 and n % 8 == 0 and aligned else "wmma"
 
 
-def kmajor_split(w) -> torch.Tensor:
+def kmajor_split(w, out=None) -> torch.Tensor:
     """The (2, N, K) K-major split copy of a float32 (K, N) CUDA weight —
     hi = tf32(wᵀ) and lo = tf32(wᵀ − hi), the parts whose three TF32
     products lo·hi + hi·lo + hi·hi the sm90_f32 kernels add for one
     float32 product — by one launch of ``dl4j_tf32_split_weight``
-    (``csrc/fused_matmul_f32_sm90.cu``)."""
+    (``csrc/fused_matmul_f32_sm90.cu``), into ``out`` when given."""
     if w.device.type != "cuda":
         raise ValueError(f"kmajor_split: unsupported device {w.device}")
     w = w.float().contiguous()
     k, n = w.shape
-    ws = torch.empty((2, n, k), dtype=torch.float32, device=w.device)
+    ws = (torch.empty((2, n, k), dtype=torch.float32, device=w.device)
+          if out is None else out)
+    if ws.shape != (2, n, k) or not ws.is_contiguous():
+        raise ValueError(f"kmajor_split: out {tuple(ws.shape)} is not a "
+                         f"contiguous (2, {n}, {k})")
     fn = _build.kernel_fn("fused_matmul_f32_sm90", "dl4j_tf32_split_weight",
                           _SPLIT_ARGS)
     rc = fn(w.data_ptr(), ws.data_ptr(), k, n,
@@ -145,7 +149,10 @@ def kmajor_weight(w, split: bool = False):
     alone: the caching allocator hands a freed weight's address to the
     next tensor. An inference tensor keeps no version counter, so a kept
     copy could go stale unseen: its copy is made at every call. Copies
-    made are counted in ``kmajor_weight.copies``."""
+    made are counted in ``kmajor_weight.copies``. A kept copy is a
+    derived buffer of a CUDA-graph capture underway (``ops/capture.py``):
+    the graph reads it in place, and it is remade into the same buffer
+    (:func:`_remake_kmajor`) before a replay once ``w`` has changed."""
     def make():
         kmajor_weight.copies += 1
         return kmajor_split(w) if split else w.t().contiguous()
@@ -156,13 +163,28 @@ def kmajor_weight(w, split: bool = False):
     key = (w._version, w.data_ptr(), tuple(w.shape), w.stride())
     kept = getattr(w, attr, None)
     if kept is not None and kept[0] == key:
-        return kept[1]
-    wt = make()
-    setattr(w, attr, (key, wt))
+        wt = kept[1]
+    else:
+        wt = make()
+        setattr(w, attr, (key, wt))
+    capture.note_derived(w, wt, functools.partial(_remake_kmajor,
+                                                  attr=attr, split=split))
     return wt
 
 
 kmajor_weight.copies = 0
+
+
+def _remake_kmajor(w, wt, *, attr: str, split: bool) -> None:
+    """Remake ``w``'s K-major copy into ``wt``, the buffer a captured graph
+    reads, and keep it on ``w`` as the current one (counted as a copy)."""
+    kmajor_weight.copies += 1
+    if split:
+        kmajor_split(w, out=wt)
+    else:
+        wt.copy_(w.t())
+    setattr(w, attr, ((w._version, w.data_ptr(), tuple(w.shape),
+                       w.stride()), wt))
 
 
 @functools.lru_cache(maxsize=None)

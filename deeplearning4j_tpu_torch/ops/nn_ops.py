@@ -310,7 +310,8 @@ def dot_product_attention(q, k, v, mask=None, *, scaled: bool = True,
         # jnp.sqrt(jnp.asarray(D, scores.dtype)): 9.8125 for D 96 in bf16
         scores = scores / torch.tensor(float(q.shape[-1]),
                                        dtype=scores.dtype).sqrt().item()
-    neg = torch.tensor(-1e9, dtype=scores.dtype, device=scores.device)
+    # a fill on the device (no host copy, so it runs inside a capture)
+    neg = torch.full((), -1e9, dtype=scores.dtype, device=scores.device)
     if mask is not None:
         scores = torch.where(mask.bool(), scores, neg)
     if causal:

@@ -9,7 +9,8 @@ chosen per call behind a ``usable`` gate — libnd4j's
 What differs from the JAX package: the platform is read from the tensor
 arguments (``"cuda"`` or ``"cpu"``), not from a process-wide backend,
 because a PyTorch program places each tensor itself. Resolution runs on
-every call (PyTorch is eager; there is no trace to resolve once in).
+every call run eagerly; a CUDA-graph capture (``ops/capture.py``) keeps
+the decisions taken while it was recorded, as a jit trace keeps them.
 """
 
 from __future__ import annotations
@@ -32,8 +33,13 @@ def tensor_platform(*args: Any, **kwargs: Any) -> str:
 def _note_dispatch(op: str, impl: str, reason: str) -> None:
     """Dispatch-decision counter ``dl4j_tpu_helper_dispatch_total``: a
     kernel-vs-generic routing change shows in the metrics instead of only
-    as a throughput delta."""
+    as a throughput delta. A decision taken inside a CUDA-graph capture is
+    tallied by the capture and counted at each replay instead."""
     from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.ops import capture
+
+    if capture.tally_dispatch(op, impl, reason):
+        return
 
     observe.metrics().counter("dl4j_tpu_helper_dispatch_total",
                               op=op, impl=impl, reason=reason).inc()

@@ -1,7 +1,7 @@
 """Where an imported BERT-base forward's, a fine-tune step's or an int8
 forward's time goes, on the card.
 
-    python -m deeplearning4j_tpu_torch.profile_import [--finetune | --int8] [--trace out.json]
+    python -m deeplearning4j_tpu_torch.profile_import [--finetune | --int8] [--eager] [--trace out.json]
 
 Builds the ONNX bytes of a BERT-base-width encoder with the port's builder
 (``testing.onnx_builder.BERT_BASE_ONNX``: 12 layers, d 768, 12 heads, ff
@@ -10,9 +10,11 @@ Builds the ONNX bytes of a BERT-base-width encoder with the port's builder
 off.
 
 * Default — ``chip_smoke.py``'s ``onnx_bert`` main path:
-  ``sd.output(feeds, ["y"])``, the optimized plan of ~450 nodes, eager,
-  with 72 ``fused_matmul_bias_act`` and 12 ``dot_product_attention``
-  kernel launches a forward. 2 warm forwards, then 3 profiled.
+  ``sd.output(feeds, ["y"])``, the optimized plan of ~450 nodes replayed
+  as one CUDA-graph capture (``--eager``: run node by node under
+  ``disable_capture()``), with 72 ``fused_matmul_bias_act`` and 12
+  ``dot_product_attention`` kernel launches a forward. 2 warm forwards,
+  then 3 profiled.
 * ``--finetune`` — ``chip_smoke.py``'s ``sd_bert_finetune`` main path
   ("SameDiff BERT-base step time"): the token-classification head
   (dense → LayerNorm → GELU → 9 tags) added in SameDiff, Adam lr 5e-5,
@@ -22,8 +24,9 @@ off.
 * ``--int8`` — ``chip_smoke.py``'s ``int8_bert`` main path: the same
   weights and feeds with every dense MatMul a ``matmul_int8``
   (``testing.int8_bert.bert_int8_encoder`` through ``SameDiff``; no ONNX
-  bytes), ``sd.output(feeds, ["y"])``, 73 int8 GEMM + 73 row-quantize and
-  12 flash launches a forward. 2 warm forwards, then 3 profiled.
+  bytes), ``sd.output(feeds, ["y"])`` (captured, or ``--eager``), 73 int8
+  GEMM + 73 row-quantize and 12 flash launches a forward. 2 warm forwards,
+  then 3 profiled.
 
 Prints one JSON line: host wall time per forward or step, summed device
 kernel time, the device's busy share and the kernels with the most device
@@ -34,6 +37,7 @@ and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -69,12 +73,22 @@ def main(argv=None) -> int:
                       help="profile the int8 encoder's forwards")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace here")
+    ap.add_argument("--eager", action="store_true",
+                    help="run sd.output node by node (disable_capture)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_import: no GPU", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
+
+    with disable_capture() if args.eager else contextlib.nullcontext():
+        return _profile_import(args)
+
+
+def _profile_import(args) -> int:
+    import torch
 
     from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
     from deeplearning4j_tpu_torch.imports import import_onnx
@@ -109,6 +123,7 @@ def main(argv=None) -> int:
         after = _port_launches()
         print(json.dumps({
             "phase": "int8_bert" if args.int8 else "onnx_bert", "card": card,
+            "captured": not args.eager,
             "config": cfg, "plan_nodes": st.nodes_after,
             "fusions": st.fusions,
             "port_kernel_launches_per_forward": {

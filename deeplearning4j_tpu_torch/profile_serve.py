@@ -1,10 +1,12 @@
 """Where a serving step's time goes, on the card.
 
-    python -m deeplearning4j_tpu_torch.profile_serve [--trace out.json]
+    python -m deeplearning4j_tpu_torch.profile_serve [--eager] [--trace out.json]
 
 Serves GPT at GPT-2-small width (GptConfig.base(), float32, random weights
 from a numpy seed, as ``chip_smoke.py`` does) through the port's
-GenerativeEngine, then profiles with ``torch.profiler`` (CPU + CUDA
+GenerativeEngine — its prefill, write-prompt and decode steps replayed as
+CUDA-graph captures, or with ``--eager`` run op by op under
+``disable_capture()`` — then profiles with ``torch.profiler`` (CPU + CUDA
 activities):
 
 * ``prefill`` — one admission of a 512-token prompt (the TTFT path);
@@ -19,6 +21,7 @@ numbers are the card's, printed beside its name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -83,12 +86,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default=None,
                     help="write the decode window's Chrome trace here")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps op by op (disable_capture)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: no GPU", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
+
+    with disable_capture() if args.eager else contextlib.nullcontext():
+        return _serve(args)
+
+
+def _serve(args) -> int:
+    import torch
 
     from deeplearning4j_tpu_torch.models.gpt import (
         GptConfig, GptModel, init_gpt_params)
@@ -114,7 +128,8 @@ def main(argv=None) -> int:
         eng.submit(prompt, max_new_tokens=1)
         eng.step()  # admits (prefill), then retires: max_new_tokens == 1
 
-    out = {"card": card, "model": "GptConfig.base()", "dtype": "float32"}
+    out = {"card": card, "model": "GptConfig.base()", "dtype": "float32",
+           "captured": not args.eager}
     print(json.dumps({"phase": "prefill", **out,
                       **_profile(admit_one, 3)}), flush=True)
 

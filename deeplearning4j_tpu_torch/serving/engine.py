@@ -1,12 +1,15 @@
 """Generative serving engine — prefill/decode dispatch over the paged cache.
 
 Counterpart of ``deeplearning4j_tpu/serving/engine.py`` on the path without
-prefix cache, speculation, AOT export or supervision. Three step functions
-run eagerly on the engine's device:
+prefix cache, speculation, AOT export or supervision. Three compiled step
+functions — the JAX engine jits them, the port runs each as a
+:class:`~deeplearning4j_tpu_torch.ops.capture.CapturedUnit`, a CUDA-graph
+capture on the card (eager on the CPU, and under ``disable_capture()``):
 
-* **prefill** — the whole (padded) prompt through one causal
-  ``gpt_prefill`` pass (the CUDA flash kernel on the card) and first-token
-  sampling. TTFT is measured across it.
+* **prefill** — the whole prompt, bucketed at ``max_prompt``, through one
+  causal ``gpt_prefill`` pass (the CUDA flash kernel on the card), the last
+  prompt position's logits gathered by index, and first-token sampling.
+  TTFT is measured across it.
 * **write-prompt** — scatter the prefill K/V into the slot's pages, in
   place; prompt-pad positions land on the trash page.
 * **decode** — one token for EVERY slot (inactive slots ride along masked:
@@ -14,8 +17,19 @@ run eagerly on the engine's device:
   attention through the registry's ``paged_decode_attention`` (the CUDA
   paged kernel on the card), then the temperature/top-k/top-p sampler.
 
-The JAX engine jits these and donates the cache array; here the cache is
-one preallocated tensor written in place.
+Their signatures depend only on the engine's configuration (slots, page
+geometry, prompt bucket), so the recompile ledger records one
+``first_compile`` each (graph ``"serving"``, keys ``"prefill"``,
+``"write_prompt"``, ``"decode"``) and no ``new_shape`` across admissions
+and evictions. Each is captured at its first use. The host state a step
+reads — the prompt, its length and sampling knobs, the slot's page-table
+row; for decode the page table, lengths, fed tokens, active flags and
+knobs of every slot — is packed into one pinned host buffer and copied to
+the device in one transfer into the static buffers the graphs read. The
+cache is one preallocated tensor written in place (never reallocated: the
+graphs address it), as are the model's parameters: change those in place.
+The engine's ``torch.Generator`` is registered with the prefill and decode
+graphs.
 
 Without supervision, an exception in a step fails every outstanding
 request and leaves the engine dead (the unsupervised JAX path). Per-request
@@ -23,8 +37,8 @@ deadlines, the bounded queue (``max_queue`` sheds as ``shed``), capacity
 evictions (``overflow``/``oom``) and priority admission are kept.
 
 Observability: admitted/evicted/generated-token counters, slot-occupancy
-gauge, decode-step, TTFT and inter-token histograms, and the
-``serving_prefill``/``serving_decode`` spans.
+gauge, decode-step, TTFT and inter-token histograms, the
+``serving_prefill``/``serving_decode`` spans and the ledger notes.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from deeplearning4j_tpu_torch import observe
 from deeplearning4j_tpu_torch.environment import resolve_device
 from deeplearning4j_tpu_torch.models.gpt import (
     GptModel, gpt_decode_step, gpt_prefill)
+from deeplearning4j_tpu_torch.ops.capture import CapturedUnit
 from deeplearning4j_tpu_torch.serving.cache import PagedKVCache
 from deeplearning4j_tpu_torch.serving.sampling import sample_tokens
 from deeplearning4j_tpu_torch.serving.scheduler import (
@@ -105,6 +120,10 @@ class GenerativeEngine:
         self.scheduler = SlotScheduler(max_slots)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
+        self._stage()
+        self._prefill_fn: Optional[CapturedUnit] = None
+        self._write_fn: Optional[CapturedUnit] = None
+        self._decode_fn: Optional[CapturedUnit] = None
         self.max_queue = None if max_queue is None else int(max_queue)
         self.default_deadline_s = default_deadline_s
         self._worker: Optional[threading.Thread] = None
@@ -122,10 +141,95 @@ class GenerativeEngine:
             "itl_h": m.histogram("dl4j_tpu_serving_intertoken_seconds"),
         }
 
-    def _tensor(self, arr) -> torch.Tensor:
-        """A device copy of host state (never a view of the numpy array,
-        which the scheduler keeps mutating)."""
-        return torch.tensor(arr, device=self.device)
+    # ---------------------------------------------------------- staging
+    def _stage(self) -> None:
+        """The static device buffers the step graphs read, and their pinned
+        host twins. Admission: the bucketed prompt ids, its length and
+        top-k, temperature and top-p (float32 bits), the slot's page-table
+        row. Decode: the page table, lengths, fed tokens, active flags,
+        temperatures, top-k and top-p of every slot. Each buffer is int32
+        (the float32 knobs are views of its bits) and crosses in one
+        copy."""
+        s_n, p_n = self.cache.max_slots, self.cache.max_pages_per_seq
+        t = self.max_prompt
+        pin = self.device.type == "cuda"
+
+        def pair(n):
+            host = torch.zeros(n, dtype=torch.int32, pin_memory=pin)
+            return host, host.numpy(), torch.zeros(n, dtype=torch.int32,
+                                                   device=self.device)
+
+        self._adm_host, self._adm_np, adm = pair(t + 4 + p_n)
+        self._adm_dev = adm
+        self._adm = {"ids": adm[:t].view(1, t), "p_len": adm[t],
+                     "top_k": adm[t + 1:t + 2],
+                     "temp": adm[t + 2:t + 3].view(torch.float32),
+                     "top_p": adm[t + 3:t + 4].view(torch.float32),
+                     "pt_row": adm[t + 4:]}
+        self._dec_host, self._dec_np, dec = pair(s_n * p_n + 6 * s_n)
+        self._dec_dev = dec
+        o = s_n * p_n
+        self._dec = {"page_table": dec[:o].view(s_n, p_n),
+                     **{k: dec[o + i * s_n:o + (i + 1) * s_n]
+                        for i, k in enumerate(("seq_lens", "tokens",
+                                               "active", "top_k"))},
+                     "temp": dec[o + 4 * s_n:o + 5 * s_n].view(torch.float32),
+                     "top_p": dec[o + 5 * s_n:].view(torch.float32)}
+
+    def _build_prefill(self) -> CapturedUnit:
+        cfg, params, a = self.cfg, self.model.params, self._adm
+        t = self.max_prompt
+
+        def prefill():
+            pos = torch.arange(t, device=self.device)
+            mask = (pos < a["p_len"])[None].to(torch.int32)
+            logits, kv = gpt_prefill(params, a["ids"], cfg, mask=mask)
+            last = logits[0].index_select(
+                0, (a["p_len"] - 1).reshape(1).long())  # (1, V)
+            tok = sample_tokens(last, self._gen, a["temp"], a["top_k"],
+                                a["top_p"])
+            return kv[:, :, 0], tok  # (L, 2, T, H, Dh), (1,)
+
+        return CapturedUnit(prefill, device=self.device,
+                            generators=(self._gen,), name="prefill")
+
+    def _build_write(self) -> CapturedUnit:
+        cache, a = self.cache, self._adm
+        page, trash, t = cache.page_size, cache.trash_page, self.max_prompt
+
+        def write_prompt(kv_prompt):
+            pos = torch.arange(t, device=self.device)
+            page_idx = torch.where(pos < a["p_len"],
+                                   a["pt_row"][pos // page], trash)
+            cache.kv[:, :, page_idx, pos % page] = kv_prompt
+
+        # kv_prompt is the prefill graph's own output buffer: read in place
+        return CapturedUnit(write_prompt, device=self.device,
+                            owned_inputs=True, name="write_prompt")
+
+    def _build_decode(self) -> CapturedUnit:
+        cfg, cache, params, d = self.cfg, self.cache, self.model.params, \
+            self._dec
+        page, trash = cache.page_size, cache.trash_page
+        s_n, p_n = cache.max_slots, cache.max_pages_per_seq
+
+        def decode():
+            seq_lens = d["seq_lens"]
+            on = d["active"] > 0
+            row = (seq_lens // page).clamp(max=p_n - 1)
+            write_page = torch.where(
+                on, d["page_table"][torch.arange(s_n, device=self.device),
+                                    row.long()], trash).to(torch.int32)
+            seq_incl = seq_lens + on.to(torch.int32)
+            _, logits = gpt_decode_step(
+                params, cache.kv, d["tokens"], seq_lens, d["page_table"],
+                seq_incl, write_page, seq_lens % page, cfg)
+            toks = sample_tokens(logits, self._gen, d["temp"], d["top_k"],
+                                 d["top_p"])
+            return toks, logits
+
+        return CapturedUnit(decode, device=self.device,
+                            generators=(self._gen,), name="decode")
 
     # ------------------------------------------------------------------- api
     def submit(self, prompt, *, max_new_tokens: int = 16,
@@ -377,7 +481,7 @@ class GenerativeEngine:
     def _step_decode(self, active: List[int]) -> int:
         """One decode token for every active slot."""
         cache, sched = self.cache, self.scheduler
-        s_n = cache.max_slots
+        s_n, p_n = cache.max_slots, cache.max_pages_per_seq
         tokens = np.zeros((s_n,), np.int32)
         act = np.zeros((s_n,), np.int32)
         temp = np.zeros((s_n,), np.float32)
@@ -390,26 +494,26 @@ class GenerativeEngine:
             temp[slot] = st.request.temperature
             top_k[slot] = st.request.top_k
             top_p[slot] = st.request.top_p
+        if self._decode_fn is None:
+            self._decode_fn = self._build_decode()
+        observe.note_jit_signature(
+            self._decode_fn, graph="serving", key="decode",
+            signature=observe.signature_of(
+                page_table=cache.page_table, seq_lens=cache.seq_lens,
+                tokens=tokens, active=act))
+        h, o = self._dec_np, s_n * p_n
+        h[:o] = cache.page_table.reshape(-1)
+        for i, arr in enumerate((cache.seq_lens, tokens, act, top_k)):
+            h[o + i * s_n:o + (i + 1) * s_n] = arr
+        h[o + 4 * s_n:].view(np.float32)[:] = np.concatenate([temp, top_p])
         t0 = time.perf_counter()
         with observe.tracer().span("serving_decode", category="serving",
                                    slots=len(active)):
-            page = cache.page_size
-            page_table = self._tensor(cache.page_table)
-            seq_lens = self._tensor(cache.seq_lens)
-            on = self._tensor(act) > 0
-            row = (seq_lens // page).clamp(max=cache.max_pages_per_seq - 1)
-            write_page = torch.where(
-                on, page_table[torch.arange(s_n, device=self.device),
-                               row.long()],
-                cache.trash_page).to(torch.int32)
-            write_off = seq_lens % page
-            seq_incl = seq_lens + on.to(torch.int32)
-            _, logits = gpt_decode_step(
-                self.model.params, cache.kv, self._tensor(tokens), seq_lens,
-                page_table, seq_incl, write_page, write_off, self.cfg)
-            next_toks = sample_tokens(
-                logits, self._gen, self._tensor(temp), self._tensor(top_k),
-                self._tensor(top_p)).cpu().numpy()
+            # the last step read its tokens back, so the previous copy out
+            # of the pinned buffer is done
+            self._dec_dev.copy_(self._dec_host, non_blocking=True)
+            next_toks, _logits = self._decode_fn()
+            next_toks = next_toks.cpu().numpy()
         dt = time.perf_counter() - t0
         self._obs["decode_h"].observe(dt)
         now = time.perf_counter()
@@ -427,26 +531,29 @@ class GenerativeEngine:
         """Run the (bucketed) prefill, scatter K/V into the slot's pages,
         return the first sampled token."""
         cache = self.cache
+        t = self.max_prompt
         p_len = int(req.prompt.size)
-        ids = np.zeros((1, self.max_prompt), np.int32)
+        ids = np.zeros((1, t), np.int32)
         ids[0, :p_len] = req.prompt
+        if self._prefill_fn is None:
+            self._prefill_fn = self._build_prefill()
+        if self._write_fn is None:
+            self._write_fn = self._build_write()
+        observe.note_jit_signature(
+            self._prefill_fn, graph="serving", key="prefill",
+            signature=observe.signature_of(ids=ids))
+        observe.note_jit_signature(
+            self._write_fn, graph="serving", key="write_prompt",
+            signature=observe.signature_of(ids=ids))
+        h = self._adm_np
+        h[:t] = ids[0]
+        h[t:t + 2] = (p_len, req.top_k)
+        h[t + 2:t + 4].view(np.float32)[:] = (req.temperature, req.top_p)
+        h[t + 4:] = cache.page_table[slot]
         with observe.tracer().span("serving_prefill", category="serving",
                                    prompt_len=p_len):
-            pos = torch.arange(self.max_prompt, device=self.device)
-            valid = pos < p_len
-            logits, kv = gpt_prefill(self.model.params, self._tensor(ids),
-                                     self.cfg,
-                                     mask=valid[None].to(torch.int32))
-            tok = sample_tokens(
-                logits[0, p_len - 1][None], self._gen,
-                torch.tensor([req.temperature], device=self.device),
-                torch.tensor([req.top_k], device=self.device),
-                torch.tensor([req.top_p], device=self.device))[0]
-            # write-prompt: the prompt's K/V into the slot's pages, in
-            # place; pad positions go to the trash page
-            pt_row = self._tensor(cache.page_table[slot])
-            page_idx = torch.where(valid, pt_row[pos // cache.page_size],
-                                   cache.trash_page)
-            cache.kv[:, :, page_idx, pos % cache.page_size] = kv[:, :, 0]
-            tok = int(tok)
+            self._adm_dev.copy_(self._adm_host, non_blocking=True)
+            kv_prompt, tok = self._prefill_fn()
+            self._write_fn(kv_prompt)
+            tok = int(tok[0])
         return tok

@@ -4,9 +4,10 @@ Counterpart of ``deeplearning4j_tpu/serving/sampling.py`` with the same
 semantics: one vectorized function over the slot axis, every knob a
 ``(S,)`` tensor, so a greedy slot and a temperature-1.2 top-p slot share
 one call. Random draws come from the caller's ``torch.Generator`` (the
-engine owns one on its device, seeded from its ``seed``); ``jax.random``
-and ``torch.Generator`` streams cannot agree, so only greedy slots match
-the JAX package token for token.
+engine owns one on its device, seeded from its ``seed``, and registers it
+with the CUDA graphs of its prefill and decode steps, so each replay draws
+new numbers); ``jax.random`` and ``torch.Generator`` streams cannot agree,
+so only greedy slots match the JAX package token for token.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ def sample_tokens(logits, generator: torch.Generator, temperature, top_k,
     greedy = torch.argmax(logits, dim=-1)
 
     scaled = logits / temperature.float().clamp(min=1e-6)[:, None]
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    # a fill on the device, not a host copy: the sampler runs inside the
+    # decode step's CUDA-graph capture
+    neg_inf = torch.full((), float("-inf"), device=logits.device)
 
     # top-k: keep scores >= the k-th largest per row (k=0 -> keep all)
     k = torch.where(top_k > 0, top_k, torch.full_like(top_k, vocab))
