@@ -186,6 +186,35 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    ``exec``. Reports the p50 forward time (captured and eager) and
    tokens/s over 5 forwards after 2 warm ones, peak memory, the graph
    pool's memory and node counts beside onnx_bert's.
+12. ``lenet`` — the sequential network: ``LeNet().init()`` at its zoo
+   defaults (28×28×1, 10 classes, Adam 1e-3, seed 123; 431,080
+   parameters) → ``fit`` on batches of 64 synthetic digits, 3 steps
+   ``helper_mode="generic"``, then 3 counted steps (launch counts and the
+   dispatch tally set to 0 just before): one updater launch over the 8
+   leaves a step; losses and parameters held to the generic run as
+   ``train`` holds them. Reports images/s.
+13. ``bilstm_tagger`` — BASELINE config 3 at a realistic width:
+   ``Bidirectional(LSTM(256, tanh), concat)`` over 300-wide word vectors
+   → ``RnnOutputLayer`` over CoNLL-2003's 9 tags, Adam 5e-3, built with
+   ``builder()…list()…build()``; batch 32 × T 128 with ragged lengths
+   8…128 (features and labels masks right padded). 3 counted ``fit``
+   steps must dispatch ``lstm_layer`` to cuDNN twice a forward (one a
+   direction) and never to the generic, and launch the updater once a
+   step; losses and parameter moves against ``helper_mode="generic"``
+   (float32, TF32 off) within max(1e-5 relative / 1e-3 relative L2, 3×
+   a generic run from parameters one ulp away); then ``output`` at every
+   position, padded ones included, cuDNN against the generic within 1e-5.
+   Reports real tokens/s and ``lstm_layer``'s forward + backward time at
+   the shape on cuDNN and on the generic.
+14. ``char_lstm`` — the layers of ``TextGenerationLSTM(vocab_size=77)``
+   (2 × LSTM 256, RmsProp 1e-2) built with ``tbptt(50, 50)``, one ``fit``
+   batch of 32 × 1000 one-hot characters: 20 segments, 20 updater
+   launches, 40 cuDNN dispatches. Each segment is held, from the generic
+   run's own state at its start, cuDNN against the generic (score 1e-5
+   relative, parameter move 1e-3 relative L2, carried h and c 1e-5 +
+   1e-5 relative); the free-running trajectories are reported beside
+   their one-ulp yardstick. ``rnn_time_step`` fed 50 steps one at a time
+   must equal ``output`` over the same 50 within 1e-4. Reports tokens/s.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -359,6 +388,22 @@ TRAIN_A_PARAM_SHARE = 1e-5   # of the largest parameter move in 3 steps
 # the generic run's own distance when its input moves by one bf16 unit.
 TRAIN_B_LOSS1_RTOL = 2.0 ** -8
 TRAIN_B_YARDSTICK = 3.0
+
+
+# the sequential phases' widths and data: testing/sequential.py
+LENET_PARAMS = 431080   # 520 + 25,050 + 400,500 + 5,010
+# cuDNN's LSTM against the generic recurrence (float32, TF32 off): each
+# loss 1e-5 relative or 3x a generic run from parameters one ulp away,
+# the parameter moves 1e-3 relative L2 or 3x that run's (a few elements
+# in Adam's / RmsProp's epsilon region move by a share of lr on a
+# rounding of their gradient)
+RNN_LOSS_RTOL = 1e-5
+RNN_MOVE_RTOL = 1e-3
+RNN_YARDSTICK = 3.0
+LSTM_OUT_TOL = 1e-5     # probabilities, every position
+STATE_TOL = 1e-5        # carried h and c, absolute + relative: c is
+                        # unbounded (tens of units in a loss spike)
+STREAM_TOL = 1e-4       # rnn_time_step vs output, BASELINE.md's gate
 
 
 def emit(obj) -> None:
@@ -2486,6 +2531,434 @@ def explain_divergence(model, prompt, toks_a, toks_b):
     return ok, {"index": j, "logit_max_abs_diff": diff, "top2_gap": gap}
 
 
+# ------------------------------------------------ the sequential network
+
+
+def dispatch_tally(op=None) -> dict:
+    """The registry's dispatch counter, ``"op impl reason": count``."""
+    from deeplearning4j_tpu_torch import observe
+
+    out = {}
+    for c in observe.metrics().instruments():
+        if c.name != "dl4j_tpu_helper_dispatch_total" or not c.value:
+            continue
+        lab = dict(c.labels)
+        if op is None or lab["op"] == op:
+            out[f"{lab['op']} {lab['impl']} {lab['reason']}"] = int(c.value)
+    return out
+
+
+def _move_distance(a, b, start) -> float:
+    """‖a − b‖ / ‖b − start‖ over every parameter leaf: how far two runs'
+    parameter moves differ, relative to the move."""
+    from deeplearning4j_tpu_torch.models._tree import leaf_paths
+
+    num = den = 0.0
+    for (_, x), (_, y), (_, s) in zip(leaf_paths(a), leaf_paths(b),
+                                      leaf_paths(start)):
+        num += float(((x.float() - y.float()) ** 2).sum())
+        den += float(((y.float() - s.float()) ** 2).sum())
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
+
+
+def _mln_run(net, start, mode, batches, *, nudge=False):
+    """``net.fit`` over ``batches`` (one ``fit`` call each) from the
+    cloned ``start`` state under ``helper_mode=mode``: (scores — one a
+    step, or one a tBPTT segment —, host seconds a batch, parameters)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.environment import environment
+
+    env = environment()
+    env.helper_mode = mode
+    net.params = (_nudged(start[0], np.random.default_rng(8)) if nudge
+                  else _clone_tree(start[0]))
+    net.opt_state, net.net_state = (_clone_tree(t) for t in start[1:])
+    net.iteration_count = 0
+    tbptt = net.conf.backprop_type == "tbptt"
+    scores, times = [], []
+    try:
+        for ds in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(ds, batch_size=ds.num_examples())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            scores += net.tbptt_scores() if tbptt else [net.score()]
+    finally:
+        env.helper_mode = "auto"
+    return scores, times, _clone_tree(net.params)
+
+
+def _mln_main_path(net, batches):
+    """Warm-up, the generic run (the reference), then the counted run
+    with every launch count and the dispatch tally set to 0 just before
+    and read just after. Returns (start, generic run, kernel run,
+    launches, updater leaves, tally)."""
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    start = (_clone_tree(net.params), _clone_tree(net.opt_state),
+             _clone_tree(net.net_state))
+    _mln_run(net, start, "auto", batches[:1])   # warm-up: cuDNN, cuBLAS
+    generic = _mln_run(net, start, "generic", batches)
+    cu.fused_updater.launches = cu.fused_updater.leaves = 0
+    observe.reset()                                 # the main path's run
+    kernel = _mln_run(net, start, "auto", batches)
+    launches = {"fused_updater": cu.fused_updater.launches}
+    leaves, tally = cu.fused_updater.leaves, dispatch_tally()  # ... ends
+    return start, generic, kernel, launches, leaves, tally
+
+
+def _rnn_agreement(start, generic, kernel, yard) -> tuple:
+    """Losses and parameters of the cuDNN run against the generic run:
+    each loss within max(RNN_LOSS_RTOL relative, RNN_YARDSTICK × the
+    one-ulp-nudged generic run's distance), the parameter moves within
+    max(RNN_MOVE_RTOL, RNN_YARDSTICK × the yardstick's) in relative L2
+    norm. Returns (problems, line fields)."""
+    loss_lim = [max(RNN_LOSS_RTOL * abs(g), RNN_YARDSTICK * abs(y - g))
+                for g, y in zip(generic[0], yard[0])]
+    loss_diff = [abs(k - g) for k, g in zip(kernel[0], generic[0])]
+    move = _move_distance(kernel[2], generic[2], start[0])
+    yard_move = _move_distance(yard[2], generic[2], start[0])
+    move_lim = max(RNN_MOVE_RTOL, RNN_YARDSTICK * yard_move)
+    problems = []
+    if not all(math.isfinite(v) for v in kernel[0] + generic[0] + yard[0]):
+        problems.append("non-finite loss")
+    if any(d > lim for d, lim in zip(loss_diff, loss_lim)):
+        problems.append(f"losses {kernel[0]} vs generic {generic[0]} "
+                        f"(limits {loss_lim})")
+    if move > move_lim:
+        problems.append(f"parameter moves differ by {move} > {move_lim}")
+    return problems, {
+        "losses_kernel": kernel[0], "losses_generic": generic[0],
+        "losses_generic_nudged_1_ulp": yard[0],
+        "loss_abs_diff": loss_diff, "loss_limit": loss_lim,
+        "param_move_rel_diff": move, "param_move_rel_diff_yardstick":
+            yard_move, "param_move_limit": move_lim,
+        "param_max_abs_diff": _max_diff(kernel[2], generic[2]),
+        "param_max_move_generic": _max_diff(start[0], generic[2]),
+        "tol": (f"loss max({RNN_LOSS_RTOL:g} relative, {RNN_YARDSTICK:g} x "
+                f"yardstick); parameter moves max({RNN_MOVE_RTOL:g}, "
+                f"{RNN_YARDSTICK:g} x yardstick) relative L2")}
+
+
+def lenet_phase(dev, smi):
+    """``LeNet().init()`` → ``fit`` at the zoo defaults, batch 64 of
+    synthetic digits: 3 steps generic, then 3 counted steps through the
+    kernels. Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.testing import sequential as S
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    net = LeNet(device=dev).init()
+    n_leaves = sum(len(p) for p in net.params)
+    batch, steps = S.LENET["batch"], S.LENET["steps"]
+    batches = S.lenet_batches(batch, steps)
+    start, generic, kernel, launches, leaves, tally = _mln_main_path(
+        net, batches)
+    out = net.output(batches[0].features)
+    problems = updater_count_problems(launches["fused_updater"], leaves,
+                                      n_leaves, steps)
+    if net.num_params() != LENET_PARAMS:
+        problems.append(f"{net.num_params()} parameters != {LENET_PARAMS}")
+    if not all(math.isfinite(v) for v in kernel[0] + generic[0]):
+        problems.append("non-finite loss")
+    if any(abs(a - b) > TRAIN_A_LOSS_RTOL * abs(b)
+           for a, b in zip(kernel[0], generic[0])):
+        problems.append(f"losses {kernel[0]} vs generic {generic[0]}")
+    param_diff = _max_diff(kernel[2], generic[2])
+    moved = _max_diff(start[0], generic[2])
+    if param_diff > TRAIN_A_PARAM_SHARE * moved:
+        problems.append(f"param diff {param_diff} > {TRAIN_A_PARAM_SHARE} "
+                        f"x {moved}")
+    if out.shape != (batch, 10) or not np.allclose(out.sum(-1), 1.0,
+                                                   atol=1e-5):
+        problems.append(f"output {out.shape} is not a softmax")
+    p50 = float(np.percentile(kernel[1], 50))
+    line = {"phase": "lenet", "card": smi, "model": "LeNet()",
+            "input": [28, 28, 1], "classes": 10, "batch": batch,
+            "steps": steps, "leaves": n_leaves,
+            "params": net.num_params(), "launches": launches,
+            "fused_updater_leaves": leaves, "dispatch": tally,
+            "losses_generic": generic[0], "losses_kernel": kernel[0],
+            "param_max_abs_diff": param_diff,
+            "param_max_move_generic": moved,
+            "tol": f"loss {TRAIN_A_LOSS_RTOL:g} relative; params "
+                   f"{TRAIN_A_PARAM_SHARE:g} x the largest 3-step move",
+            "smoke_reading": f"{steps} steps, no spread",
+            "step_p50_ms": p50 * 1e3, "images_per_s": batch / p50,
+            "generic_step_p50_ms": float(np.percentile(generic[1], 50))
+            * 1e3, "problems": problems}
+    del net
+    torch.cuda.empty_cache()
+    return problems, line, launches
+
+
+def lstm_layer_ms(params, x, mask) -> dict:
+    """Forward + backward of one ``lstm_layer`` call (the tagger's forward
+    direction) on the cuDNN helper and on the generic: CUDA events around
+    5 calls after 2 warm ones, the host's gaps between launches included;
+    each call gets a fresh copy of the mask, as each ``fit`` step does
+    (the helper reads its lengths once a mask)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.ops import exec_op
+
+    env = environment()
+    leaves = [params[k].detach().clone().requires_grad_(True)
+              for k in ("W", "RW", "b")]
+    xs = x.detach().clone().requires_grad_(True)
+    out = {}
+    for impl, mode in (("cudnn", "kernel"), ("generic", "generic")):
+        env.helper_mode = mode
+
+        def once():
+            hs, _, _ = exec_op("lstm_layer", xs, *leaves, None, None,
+                               mask.clone(), gate_activation="sigmoid",
+                               activation="tanh")
+            hs.sum().backward()
+
+        try:
+            for _ in range(2):
+                once()
+            t0, t1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            torch.cuda.synchronize()
+            t0.record()
+            for _ in range(5):
+                once()
+            t1.record()
+            torch.cuda.synchronize()
+        finally:
+            env.helper_mode = "auto"
+        out[impl] = t0.elapsed_time(t1) / 5
+    return out
+
+
+def bilstm_tagger_phase(dev, smi):
+    """BASELINE config 3: Bidirectional(LSTM 256, concat) over 300-wide
+    word vectors → RnnOutputLayer over CoNLL-2003's 9 tags, Adam 5e-3,
+    batch 32 × T 128 with ragged lengths 8…128 (features and labels masks
+    right padded). 3 ``fit`` steps generic, 3 counted through cuDNN and
+    the updater kernel, 3 generic from parameters moved one ulp (the
+    yardstick); then ``output`` at every position, cuDNN against the
+    generic. Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.models._tree import leaf_paths
+    from deeplearning4j_tpu_torch.testing import sequential as S
+
+    cfg = S.TAGGER
+    b, t, tags, steps = cfg["batch"], cfg["seq"], cfg["tags"], cfg["steps"]
+    net = tnn.MultiLayerNetwork(S.tagger_conf(
+        cfg["features"], cfg["hidden"], tags), device=dev).init()
+    n_leaves = len(list(leaf_paths(net.params)))
+    batches, real = S.tagger_batches(b, t, cfg["min_len"], cfg["features"],
+                                     tags, steps)
+    start, generic, kernel, launches, leaves, tally = _mln_main_path(
+        net, batches)
+    yard = _mln_run(net, start, "generic", batches, nudge=True)
+    problems, fields = _rnn_agreement(start, generic, kernel, yard)
+    problems += updater_count_problems(launches["fused_updater"], leaves,
+                                       n_leaves, steps)
+    want = {"lstm_layer cudnn usable": 2 * steps}
+    if {k: v for k, v in tally.items() if k.startswith("lstm_layer")} != want:
+        problems.append(f"lstm_layer dispatch {tally} != {want}")
+    # output at every position, padded ones included: cuDNN vs generic on
+    # the counted run's parameters
+    from deeplearning4j_tpu_torch import observe
+
+    net.params = kernel[2]
+    ds = batches[0]
+    observe.reset()
+    out = net.output(ds.features, ds.features_mask)
+    out_tally = dispatch_tally("lstm_layer")
+    env = environment()
+    env.helper_mode = "generic"
+    try:
+        out_generic = net.output(ds.features, ds.features_mask)
+    finally:
+        env.helper_mode = "auto"
+    out_diff = float(np.abs(out - out_generic).max())
+    if out_tally != {"lstm_layer cudnn usable": 2}:
+        problems.append(f"output's lstm_layer dispatch {out_tally}")
+    if out_diff > LSTM_OUT_TOL or out.shape != (b, t, tags):
+        problems.append(f"output {out.shape}: cuDNN vs generic {out_diff} "
+                        f"> {LSTM_OUT_TOL}")
+    timing = lstm_layer_ms(net.params[0]["fwd"],
+                           torch.from_numpy(ds.features).to(dev),
+                           torch.from_numpy(ds.features_mask).to(dev))
+    p50 = float(np.percentile(kernel[1], 50))
+    line = {"phase": "bilstm_tagger", "card": smi,
+            "model": f"Bidirectional(LSTM({cfg['hidden']}), concat) -> "
+                     f"RnnOutputLayer({tags})",
+            "batch": b, "seq": t, "features": cfg["features"],
+            "lengths": f"{cfg['min_len']}..{t}",
+            "real_tokens_per_batch": float(np.mean(real)),
+            "steps": steps, "leaves": n_leaves,
+            "params": net.num_params(), "launches": launches,
+            "fused_updater_leaves": leaves, "dispatch": tally, **fields,
+            "output_max_abs_diff_cudnn_vs_generic": out_diff,
+            "output_tol": LSTM_OUT_TOL, "output_dispatch": out_tally,
+            "lstm_layer_fwd_bwd_ms": timing,
+            "lstm_layer_timed": f"CUDA events around 5 calls (N {b}, T {t}, "
+                                f"I {cfg['features']}, H {cfg['hidden']}, "
+                                f"right padded), host gaps included",
+            "smoke_reading": f"{steps} steps, no spread",
+            "step_p50_ms": p50 * 1e3, "tokens_per_s": b * t / p50,
+            "real_tokens_per_s": float(np.mean(real)) / p50,
+            "generic_step_p50_ms": float(np.percentile(generic[1], 50))
+            * 1e3, "problems": problems}
+    del net
+    torch.cuda.empty_cache()
+    return problems, line, launches
+
+
+def char_lstm_phase(dev, smi):
+    """The layers of ``TextGenerationLSTM(vocab_size=77)`` (2 × LSTM 256,
+    RmsProp 1e-2, seed 123) built with ``tbptt(50, 50)``: one ``fit``
+    batch of 32 × 1000 one-hot characters is 20 segments, one update
+    each. Generic, then counted through cuDNN and the updater kernel, then
+    the one-ulp yardstick; then ``rnn_time_step`` over 50 single steps
+    against ``output`` over the same 50. Returns (problems, line,
+    launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.models._tree import leaf_paths
+    from deeplearning4j_tpu_torch.testing import sequential as S
+
+    b, t, v, seg = (S.CHAR["batch"], S.CHAR["seq"], S.CHAR["vocab"],
+                    S.CHAR["tbptt"])
+    net = tnn.MultiLayerNetwork(S.char_conf(v, S.CHAR["hidden"], seg),
+                                device=dev).init()
+    n_leaves = len(list(leaf_paths(net.params)))
+    batches = [S.char_batch(b, t, v)]
+    segments = -(-t // seg)
+    start, generic, kernel, launches, leaves, tally = _mln_main_path(
+        net, batches)
+    yard = _mln_run(net, start, "generic", batches, nudge=True)
+    # 20 RmsProp steps through a loss spike: the free-running trajectories
+    # are reported beside their one-ulp yardstick; the gate is each
+    # segment from a shared state
+    free_problems, free = _rnn_agreement(start, generic, kernel, yard)
+    problems, segment_fields = _tbptt_segment_checks(net, start, batches[0])
+    problems += updater_count_problems(launches["fused_updater"], leaves,
+                                       n_leaves, segments)
+    want = {"lstm_layer cudnn usable": 2 * segments}
+    if {k: v for k, v in tally.items() if k.startswith("lstm_layer")} != want:
+        problems.append(f"lstm_layer dispatch {tally} != {want}")
+    if len(kernel[0]) != segments:
+        problems.append(f"{len(kernel[0])} segment scores != {segments}")
+    # streaming: 50 single steps against one output over the same 50
+    net.params = kernel[2]
+    xs = batches[0].features[:, :seg]
+    observe.reset()
+    net.rnn_clear_previous_state()
+    streamed = np.stack([net.rnn_time_step(xs[:, i]) for i in range(seg)],
+                        axis=1)
+    stream_tally = dispatch_tally("lstm_layer")
+    whole = net.output(xs)
+    stream_diff = float(np.abs(streamed - whole).max())
+    if stream_diff > STREAM_TOL:
+        problems.append(f"rnn_time_step vs output {stream_diff} > "
+                        f"{STREAM_TOL}")
+    if stream_tally != {"lstm_layer cudnn usable": 2 * seg}:
+        problems.append(f"rnn_time_step dispatch {stream_tally}")
+    wall = kernel[1][0]
+    line = {"phase": "char_lstm", "card": smi,
+            "model": f"TextGenerationLSTM(vocab_size={v}) layers, "
+                     f"tbptt({seg}, {seg})",
+            "batch": b, "seq": t, "segments": segments, "leaves": n_leaves,
+            "params": net.num_params(), "launches": launches,
+            "fused_updater_leaves": leaves, "dispatch": tally,
+            "free_running": dict(free, within_yardstick=not free_problems,
+                                 gated=False),
+            "segment_by_segment": segment_fields,
+            "rnn_time_step_vs_output_max_abs_diff": stream_diff,
+            "stream_tol": STREAM_TOL, "stream_dispatch": stream_tally,
+            "smoke_reading": "one batch of 20 segments, no spread",
+            "batch_s": wall, "tokens_per_s": b * t / wall,
+            "generic_batch_s": generic[1][0], "problems": problems}
+    del net
+    torch.cuda.empty_cache()
+    return problems, line, launches
+
+
+def _clone_states(states):
+    """A copy of carried RNN states (tuples, tensors or None)."""
+    return [None if st is None else tuple(t.clone() for t in st)
+            if isinstance(st, tuple) else st.clone() for st in states]
+
+
+def _tbptt_segment_checks(net, start, ds):
+    """Each tBPTT segment of ``ds`` trained from the generic run's own
+    state at its start (parameters, updater state, carried h and c,
+    iteration), once through cuDNN and once generic: the segment's score
+    within RNN_LOSS_RTOL relative, its parameter move within
+    RNN_MOVE_RTOL relative L2 and the carried state it hands on within
+    STATE_TOL absolute + STATE_TOL relative. Returns (problems, line
+    fields)."""
+    from deeplearning4j_tpu_torch.environment import environment
+
+    env = environment()
+    net.params, net.opt_state, net.net_state = (_clone_tree(t)
+                                                for t in start)
+    net.iteration_count = 0
+    x, y = net._feed(ds.features), net._feed(ds.labels)
+    seg = net.conf.tbptt_fwd_length
+    rnn = net._zero_rnn_states(x.shape[0])
+    loss_rel, moves, state_diff = [], [], []
+    for t0 in range(0, x.shape[1], seg):
+        sl = slice(t0, t0 + seg)
+        before = (_clone_tree(net.params), _clone_tree(net.opt_state))
+        outs = {}
+        for mode in ("auto", "generic"):
+            env.helper_mode = mode
+            net.params, net.opt_state = (_clone_tree(t) for t in before)
+            try:
+                score, new_rnn = net._train_step(x[:, sl], y[:, sl], None,
+                                                 None, _clone_states(rnn))
+            finally:
+                env.helper_mode = "auto"
+            outs[mode] = (float(score), net.params, new_rnn)
+        (k_score, k_params, k_rnn), (g_score, _, rnn) = (outs["auto"],
+                                                         outs["generic"])
+        net.iteration_count += 1
+        loss_rel.append(abs(k_score - g_score) / abs(g_score))
+        moves.append(_move_distance(k_params, net.params, before[0]))
+        state_diff.append(max(
+            ((a.float() - b.float()).abs()
+             / (STATE_TOL + STATE_TOL * b.float().abs())).max().item()
+            for ka, ga in zip(k_rnn, rnn) if ka is not None
+            for a, b in zip(ka, ga)))
+    problems = []
+    if max(loss_rel) > RNN_LOSS_RTOL:
+        problems.append(f"segment scores differ by {max(loss_rel)} "
+                        f"relative > {RNN_LOSS_RTOL}")
+    if max(moves) > RNN_MOVE_RTOL:
+        problems.append(f"segment parameter moves differ by {max(moves)} "
+                        f"> {RNN_MOVE_RTOL}")
+    if max(state_diff) > 1.0:
+        problems.append(f"carried state differs by {max(state_diff)} x "
+                        f"its tolerance")
+    return problems, {
+        "score_rel_diff": loss_rel, "param_move_rel_diff": moves,
+        "carried_state_diff_over_tol": state_diff,
+        "tol": f"score {RNN_LOSS_RTOL:g} relative, parameter move "
+               f"{RNN_MOVE_RTOL:g} relative L2, carried h and c "
+               f"{STATE_TOL:g} + {STATE_TOL:g} x |generic|, each segment "
+               f"from the generic run's state"}
+
+
 def main() -> int:
     import torch
 
@@ -2774,6 +3247,15 @@ def main() -> int:
     emit(line)
     if problems:
         raise SystemExit(f"int8_bert phase failed: {problems}")
+
+    # ------------------------------- lenet, bilstm_tagger, char_lstm
+    for phase, fn in (("lenet", lenet_phase),
+                      ("bilstm_tagger", bilstm_tagger_phase),
+                      ("char_lstm", char_lstm_phase)):
+        problems, line, train_launches[phase] = fn(dev, smi)
+        emit(line)
+        if problems:
+            raise SystemExit(f"{phase} phase failed: {problems}")
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it

@@ -10,7 +10,7 @@ from deeplearning4j_tpu_torch.models.gpt import (
     reference_generate, restore_gpt, save_gpt,
 )
 from deeplearning4j_tpu_torch.models.zoo import (
-    ResNet50, ZooModel, graph_state_from_numpy,
+    LeNet, ResNet50, TextGenerationLSTM, ZooModel, graph_state_from_numpy,
 )
 
 __all__ = [
@@ -19,5 +19,6 @@ __all__ = [
     "mlm_logits",
     "GptConfig", "GptModel", "gpt_decode_step", "gpt_prefill",
     "params_from_numpy", "reference_generate", "restore_gpt", "save_gpt",
-    "ResNet50", "ZooModel", "graph_state_from_numpy",
+    "LeNet", "ResNet50", "TextGenerationLSTM", "ZooModel",
+    "graph_state_from_numpy",
 ]

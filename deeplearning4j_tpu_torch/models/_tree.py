@@ -56,10 +56,14 @@ def params_from_numpy(tree, device: Union[str, torch.device, None] = None,
     """A JAX tree as numpy arrays (``jax.tree.map(np.asarray, tree)``) as a
     tree of tensors on ``device``: copies, never aliases of the arrays.
     bfloat16 arrays (ml_dtypes) become bfloat16 tensors; ``dtype``, when
-    given, casts every leaf."""
+    given, casts every leaf. Tensor leaves (a tree of the port's own) are
+    copied to ``device`` as they are."""
     dev = resolve_device(device)
 
     def conv(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(device=dev, dtype=dtype or a.dtype,
+                                 copy=True)
         a = np.asarray(a)
         want = dtype
         if a.dtype.name == "bfloat16":  # ml_dtypes: numpy has no bfloat16

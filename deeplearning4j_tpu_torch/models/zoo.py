@@ -1,10 +1,11 @@
-"""Model zoo of the port: ResNet-50 as a ComputationGraph.
+"""Model zoo of the port: LeNet, ResNet-50 and TextGenerationLSTM.
 
-Counterpart of ``deeplearning4j_tpu/models/zoo.py:173-260``
-(``ZooModel``, ``ResNet50``), with the same graph node names, layer
-configs and defaults (Nesterovs lr 0.1 momentum 0.9, He init, seed 123),
-so the JAX package's parameter trees carry across unchanged through
-:func:`graph_state_from_numpy`. ``device`` is where the network lives:
+Counterpart of ``deeplearning4j_tpu/models/zoo.py`` ``ZooModel``,
+``LeNet`` (:44), ``ResNet50`` (:173-260) and ``TextGenerationLSTM``
+(:349), with the same layer configs, graph node names and defaults, so
+the JAX package's parameter trees carry across unchanged (through
+:func:`graph_state_from_numpy` for the graph, ``init(params=...)`` for
+the sequential networks). ``device`` is where the network lives:
 ``"cuda"`` unless the caller passes ``device="cpu"``.
 """
 
@@ -16,7 +17,8 @@ from deeplearning4j_tpu_torch.models._tree import params_from_numpy
 from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraph, ElementWiseVertex, GraphBuilder, graph_builder)
-from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.updater import Adam, Nesterovs, RmsProp
 
 
 class ZooModel:
@@ -24,6 +26,65 @@ class ZooModel:
 
     def init(self):
         raise NotImplementedError
+
+
+class LeNet(ZooModel):
+    """zoo/model/LeNet.java: 2 × (conv 5×5 + max-pool 2×2/2), dense 500,
+    softmax; Adam 1e-3, He init, seed 123; MNIST's 28×28×1 by default."""
+
+    def __init__(self, num_classes: int = 10, seed: int = 123, updater=None,
+                 input_shape: Tuple[int, int, int] = (28, 28, 1),
+                 device=None):
+        self.num_classes = num_classes
+        self.seed = seed
+        self.updater = updater or Adam(learning_rate=1e-3)
+        self.input_shape = input_shape
+        self.device = device
+
+    def conf(self) -> C.MultiLayerConfiguration:
+        h, w, c = self.input_shape
+        return (C.builder().seed(self.seed).weight_init("relu")
+                .updater(self.updater).list()
+                .layer(C.ConvolutionLayer(n_out=20, kernel=(5, 5),
+                                          activation="relu"))
+                .layer(C.SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+                .layer(C.ConvolutionLayer(n_out=50, kernel=(5, 5),
+                                          activation="relu"))
+                .layer(C.SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+                .layer(C.DenseLayer(n_out=500, activation="relu"))
+                .layer(C.OutputLayer(n_out=self.num_classes,
+                                     activation="softmax", loss="mcxent"))
+                .set_input_type(C.InputType.convolutional_flat(h, w, c))
+                .build())
+
+    def init(self, params=None) -> MultiLayerNetwork:
+        return MultiLayerNetwork(self.conf(), device=self.device).init(params)
+
+
+class TextGenerationLSTM(ZooModel):
+    """zoo/model/TextGenerationLSTM.java: character-level 2 × LSTM(tanh)
+    + softmax over the vocabulary; RmsProp 1e-2, Xavier init, seed 123."""
+
+    def __init__(self, vocab_size: int, hidden: int = 256, seed: int = 123,
+                 updater=None, device=None):
+        self.vocab_size = vocab_size
+        self.hidden = hidden
+        self.seed = seed
+        self.updater = updater or RmsProp(learning_rate=1e-2)
+        self.device = device
+
+    def conf(self) -> C.MultiLayerConfiguration:
+        return (C.builder().seed(self.seed).updater(self.updater)
+                .weight_init("xavier").list()
+                .layer(C.LSTM(n_out=self.hidden, activation="tanh"))
+                .layer(C.LSTM(n_out=self.hidden, activation="tanh"))
+                .layer(C.RnnOutputLayer(n_out=self.vocab_size,
+                                        activation="softmax", loss="mcxent"))
+                .set_input_type(C.InputType.recurrent(self.vocab_size))
+                .build())
+
+    def init(self, params=None) -> MultiLayerNetwork:
+        return MultiLayerNetwork(self.conf(), device=self.device).init(params)
 
 
 class ResNet50(ZooModel):

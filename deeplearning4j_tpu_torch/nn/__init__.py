@@ -1,26 +1,42 @@
-"""The DL4J network API of the port: layer configs, updaters, dtype
-policies and the ComputationGraph runtime (trained with autograd)."""
+"""The DL4J network API of the port: layer configs, the sequential
+network (``MultiLayerNetwork``, its builder and model zips), the
+ComputationGraph runtime, updaters and dtype policies (trained with
+autograd)."""
 
 from deeplearning4j_tpu_torch.nn.conf import (
-    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    FusedBottleneck, GlobalPoolingLayer, InputType, LayerConf, OutputLayer,
-    SubsamplingLayer,
+    GRU, LSTM, ActivationLayer, BatchNormalization, Bidirectional,
+    CnnToFeedForwardPreProcessor, ConvolutionLayer, DenseLayer, DropoutLayer,
+    EmbeddingLayer, EmbeddingSequenceLayer, FeedForwardToCnnPreProcessor,
+    FeedForwardToRnnPreProcessor, FusedBottleneck, GlobalPoolingLayer,
+    GravesLSTM, InputPreProcessor, InputType, LastTimeStep, LayerConf,
+    LossLayer, MultiLayerConfiguration, NeuralNetConfigurationBuilder,
+    OutputLayer, RnnLossLayer, RnnOutputLayer, RnnToFeedForwardPreProcessor,
+    SimpleRnn, SubsamplingLayer, builder,
 )
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraph, ComputationGraphConfiguration, ElementWiseVertex,
     GraphBuilder, graph_builder,
 )
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.serde import restore_model, save_model
 from deeplearning4j_tpu_torch.nn.updater import (
     UPDATERS, AdaDelta, AdaGrad, AdaMax, Adam, AmsGrad, Frozen, Nadam,
     Nesterovs, NoOp, RmsProp, Sgd, get_updater,
 )
 
 __all__ = [
-    "ActivationLayer", "BatchNormalization", "ConvolutionLayer",
-    "DenseLayer", "FusedBottleneck", "GlobalPoolingLayer", "InputType",
-    "LayerConf", "OutputLayer", "SubsamplingLayer", "ComputationGraph",
-    "ComputationGraphConfiguration", "ElementWiseVertex", "GraphBuilder",
-    "graph_builder", "UPDATERS", "AdaDelta", "AdaGrad", "AdaMax", "Adam",
-    "AmsGrad", "Frozen", "Nadam", "Nesterovs", "NoOp", "RmsProp", "Sgd",
-    "get_updater",
+    "GRU", "LSTM", "ActivationLayer", "BatchNormalization", "Bidirectional",
+    "CnnToFeedForwardPreProcessor", "ConvolutionLayer", "DenseLayer",
+    "DropoutLayer", "EmbeddingLayer", "EmbeddingSequenceLayer",
+    "FeedForwardToCnnPreProcessor", "FeedForwardToRnnPreProcessor",
+    "FusedBottleneck", "GlobalPoolingLayer", "GravesLSTM",
+    "InputPreProcessor", "InputType", "LastTimeStep", "LayerConf",
+    "LossLayer", "MultiLayerConfiguration", "NeuralNetConfigurationBuilder",
+    "OutputLayer", "RnnLossLayer", "RnnOutputLayer",
+    "RnnToFeedForwardPreProcessor", "SimpleRnn", "SubsamplingLayer",
+    "builder", "ComputationGraph", "ComputationGraphConfiguration",
+    "ElementWiseVertex", "GraphBuilder", "graph_builder",
+    "MultiLayerNetwork", "restore_model", "save_model",
+    "UPDATERS", "AdaDelta", "AdaGrad", "AdaMax", "Adam", "AmsGrad", "Frozen",
+    "Nadam", "Nesterovs", "NoOp", "RmsProp", "Sgd", "get_updater",
 ]

@@ -1,20 +1,29 @@
-"""Declarative layer configuration with JSON round trip.
+"""Declarative layer and network configuration with JSON round trip.
 
-Counterpart of the part of ``deeplearning4j_tpu/nn/conf.py`` that
-ComputationGraph training of ResNet-50 reaches: ``InputType``, the layer
-configs ``ConvolutionLayer`` (with ``s2d_stem``), ``SubsamplingLayer``,
-``GlobalPoolingLayer``, ``BatchNormalization``, ``ActivationLayer``,
-``DenseLayer``/``OutputLayer`` and ``FusedBottleneck``, the net-wide
-default lookups, and the ``to_dict``/``from_dict`` JSON the JAX package
-writes ("@type" discriminators, lists for tuples, ``{"__updater__": ...}``
-for per-layer updaters). The field names and defaults are the JAX
-package's, so its JSON loads here. A layer type that is not ported yet is
-refused by name.
+Counterpart of ``deeplearning4j_tpu/nn/conf.py`` for the ported layers:
+``InputType``; the layer configs of ResNet-50 (``ConvolutionLayer`` with
+``s2d_stem``, ``SubsamplingLayer``, ``GlobalPoolingLayer``,
+``BatchNormalization``, ``ActivationLayer``, ``DenseLayer`` /
+``OutputLayer``, ``FusedBottleneck``) and of the sequential network
+(``LossLayer``, ``EmbeddingLayer``, ``EmbeddingSequenceLayer``,
+``DropoutLayer``, ``LSTM``, ``GravesLSTM``, ``GRU``, ``SimpleRnn``,
+``Bidirectional``, ``RnnOutputLayer``, ``LastTimeStep``,
+``RnnLossLayer``); the preprocessors ``FeedForwardToCnn``,
+``CnnToFeedForward``, ``RnnToFeedForward`` and ``FeedForwardToRnn``;
+``MultiLayerConfiguration`` with its JSON, the fluent
+``NeuralNetConfigurationBuilder`` (``builder()``) and the build-time shape
+inference (``_infer_shapes`` / ``_adapt``); and the ``to_dict`` /
+``from_dict`` JSON the JAX package writes ("@type" discriminators, lists
+for tuples, ``{"__updater__": ...}`` for per-layer updaters). The field
+names and defaults are the JAX package's, so its JSON loads here and the
+port's loads there. A layer or preprocessor type that is not ported yet
+is refused by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
@@ -267,10 +276,253 @@ class FusedBottleneck(LayerConf):
         return True
 
 
+@dataclasses.dataclass(frozen=True)
+class LossLayer(LayerConf):
+    """conf/layers/LossLayer.java: loss without params (identity
+    transform, then the activation)."""
+
+    loss: str = "mcxent"
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingLayer(LayerConf):
+    """conf/layers/EmbeddingLayer.java: int ids -> embedding rows."""
+
+    n_in: int = 0
+    n_out: int = 0
+    has_bias: bool = False
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.n_out)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingSequenceLayer(LayerConf):
+    """conf/layers/EmbeddingSequenceLayer.java: id sequence -> vector
+    sequence."""
+
+    n_in: int = 0
+    n_out: int = 0
+    input_length: int = -1
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, self.input_length)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutLayer(LayerConf):
+    """conf/layers/DropoutLayer.java: standalone dropout; ``mode`` is the
+    IDropout variant: "elementwise", "spatial" (whole feature maps along
+    the trailing channel axis), "alpha" (SELU-preserving) or "gaussian"
+    (multiplicative N(1, rate/(1-rate)) noise)."""
+
+    rate: float = 0.5
+    mode: str = "elementwise"
+
+
+@dataclasses.dataclass(frozen=True)
+class LSTM(LayerConf):
+    """conf/layers/LSTM.java: LSTM over the time axis, gate order i, f, o,
+    g, forget-gate bias init; the activation is the cell-output
+    activation."""
+
+    n_in: int = 0
+    n_out: int = 0
+    forget_gate_bias_init: float = 1.0
+    gate_activation: str = "sigmoid"
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, itype.timesteps)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class GravesLSTM(LSTM):
+    """conf/layers/GravesLSTM.java. The peepholes are omitted, as in the
+    JAX package (its documented divergence): the math is LSTM's."""
+
+
+@dataclasses.dataclass(frozen=True)
+class GRU(LayerConf):
+    """GRU over the ``gru_cell`` op: gate order r, z, n with separate
+    input and recurrent biases."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, itype.timesteps)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class SimpleRnn(LayerConf):
+    """conf/layers/recurrent/SimpleRnn.java: h' = act(x·W + h·RW + b)."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, itype.timesteps)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Bidirectional(LayerConf):
+    """conf/layers/recurrent/Bidirectional.java: wraps a recurrent layer
+    config (kept serialized in ``fwd``); mode concat | add | mul |
+    average."""
+
+    fwd: Optional[Dict[str, Any]] = None
+    mode: str = "concat"
+
+    def inner(self) -> LayerConf:
+        return LayerConf.from_dict(dict(self.fwd))
+
+    def output_type(self, itype):
+        out = self.inner().output_type(itype)
+        if self.mode == "concat":
+            return InputType.recurrent(out.size * 2, out.timesteps)
+        return out
+
+    def has_params(self):
+        return True
+
+    @staticmethod
+    def wrap(inner: LayerConf, mode: str = "concat",
+             name=None) -> "Bidirectional":
+        return Bidirectional(fwd=inner.to_dict(), mode=mode, name=name)
+
+
+@dataclasses.dataclass(frozen=True)
+class RnnOutputLayer(LayerConf):
+    """conf/layers/RnnOutputLayer.java: per-timestep dense + loss."""
+
+    n_in: int = 0
+    n_out: int = 0
+    loss: str = "mcxent"
+    has_bias: bool = True
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, itype.timesteps)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class LastTimeStep(LayerConf):
+    """conf/layers/recurrent/LastTimeStep.java: wraps a recurrent layer,
+    emits its last (unmasked) step."""
+
+    fwd: Optional[Dict[str, Any]] = None
+    mode: str = "last"
+
+    def inner(self) -> LayerConf:
+        return LayerConf.from_dict(dict(self.fwd))
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.inner().output_type(itype).size)
+
+    def has_params(self):
+        return True
+
+    @staticmethod
+    def wrap(inner: LayerConf, name=None) -> "LastTimeStep":
+        return LastTimeStep(fwd=inner.to_dict(), name=name)
+
+
+@dataclasses.dataclass(frozen=True)
+class RnnLossLayer(LayerConf):
+    """conf/layers/RnnLossLayer.java: per-timestep loss over (N, T, C)."""
+
+    loss: str = "mcxent"
+
+
 LAYER_TYPES = {c.__name__: c for c in [
     DenseLayer, OutputLayer, ConvolutionLayer, SubsamplingLayer,
     GlobalPoolingLayer, BatchNormalization, ActivationLayer,
-    FusedBottleneck]}
+    FusedBottleneck, LossLayer, EmbeddingLayer, EmbeddingSequenceLayer,
+    DropoutLayer, LSTM, GravesLSTM, GRU, SimpleRnn, Bidirectional,
+    RnnOutputLayer, LastTimeStep, RnnLossLayer]}
+
+
+# ---------------------------------------------------------------------------
+# Preprocessors (conf/preprocessor/*): shape adapters between layers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InputPreProcessor:
+    """Base preprocessor, applied to the activations flowing into a
+    layer."""
+
+    def to_dict(self):
+        d = dataclasses.asdict(self)
+        d["@type"] = type(self).__name__
+        return d
+
+    @staticmethod
+    def from_dict(d):
+        if d is None:
+            return None
+        d = dict(d)
+        name = d.pop("@type")
+        cls = PREPROCESSORS.get(name)
+        if cls is None:
+            raise ValueError(
+                f"preprocessor type {name!r} is not ported to "
+                f"deeplearning4j_tpu_torch yet; ported: "
+                f"{sorted(PREPROCESSORS)}")
+        return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class FeedForwardToCnnPreProcessor(InputPreProcessor):
+    """(N, C·H·W) in the reference's NCHW flat order -> (N, H, W, C)."""
+
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CnnToFeedForwardPreProcessor(InputPreProcessor):
+    """(N, H, W, C) -> (N, C·H·W), flattened channel-major (the
+    reference's NCHW order), so flat parameters and activations line up
+    with the JAX package's."""
+
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RnnToFeedForwardPreProcessor(InputPreProcessor):
+    """(N, T, F) -> (N·T, F)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FeedForwardToRnnPreProcessor(InputPreProcessor):
+    """(N·T, F) -> (N, T, F); needs the batch size, so it is refused
+    standalone, as in the JAX package."""
+
+
+PREPROCESSORS = {c.__name__: c for c in [
+    FeedForwardToCnnPreProcessor, CnnToFeedForwardPreProcessor,
+    RnnToFeedForwardPreProcessor, FeedForwardToRnnPreProcessor]}
 
 
 # ---------------------------------------------------------------------------
@@ -280,12 +532,16 @@ LAYER_TYPES = {c.__name__: c for c in [
 
 @dataclasses.dataclass
 class MultiLayerConfiguration:
-    """The net-wide defaults a layer resolves against
-    (``MultiLayerConfiguration``'s fields and lookups). The sequential
-    network itself is not ported yet; ComputationGraph builds one of these
-    as its defaults view."""
+    """MultiLayerConfiguration.java: ordered layers, their preprocessors
+    and the net-wide defaults (``ComputationGraph`` builds one as its
+    defaults view). ``input_type`` drives the build-time shape inference:
+    ``n_in`` fields left at 0 are filled and preprocessors inserted where
+    the reference's InputType logic puts them. ``backprop_type`` "tbptt"
+    with ``tbptt_fwd_length`` > 0 trains by truncated BPTT."""
 
     layers: List[LayerConf] = dataclasses.field(default_factory=list)
+    preprocessors: Dict[int, InputPreProcessor] = dataclasses.field(
+        default_factory=dict)
     input_type: Optional[InputType] = None
     seed: int = 0
     updater: Any = dataclasses.field(default_factory=Adam)
@@ -297,6 +553,54 @@ class MultiLayerConfiguration:
     dtype: str = "float32"
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
+    tbptt_fwd_length: int = -1
+    tbptt_back_length: int = -1
+    backprop_type: str = "standard"  # standard | tbptt
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "layers": [lc.to_dict() for lc in self.layers],
+            "preprocessors": {str(k): v.to_dict()
+                              for k, v in self.preprocessors.items()},
+            "input_type": (self.input_type.to_dict() if self.input_type
+                           else None),
+            "seed": self.seed,
+            "updater": {"__updater__": get_updater(self.updater).to_dict()},
+            "activation": self.activation,
+            "weight_init": self.weight_init,
+            "l1": self.l1, "l2": self.l2, "weight_decay": self.weight_decay,
+            "dtype": self.dtype,
+            "gradient_normalization": self.gradient_normalization,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+            "backprop_type": self.backprop_type,
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        d = json.loads(s)
+        return MultiLayerConfiguration(
+            layers=[LayerConf.from_dict(lc) for lc in d["layers"]],
+            preprocessors={int(k): InputPreProcessor.from_dict(v)
+                           for k, v in d.get("preprocessors", {}).items()},
+            input_type=(InputType.from_dict(d["input_type"])
+                        if d.get("input_type") else None),
+            seed=d.get("seed", 0),
+            updater=Updater.from_dict(d["updater"]["__updater__"]),
+            activation=d.get("activation", "identity"),
+            weight_init=d.get("weight_init", "xavier"),
+            l1=d.get("l1", 0.0), l2=d.get("l2", 0.0),
+            weight_decay=d.get("weight_decay", 0.0),
+            dtype=d.get("dtype", "float32"),
+            gradient_normalization=d.get("gradient_normalization"),
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", -1),
+            tbptt_back_length=d.get("tbptt_back_length", -1),
+            backprop_type=d.get("backprop_type", "standard"),
+        )
 
     def layer_activation(self, lc: LayerConf) -> str:
         return lc.activation if lc.activation is not None else self.activation
@@ -320,11 +624,148 @@ class MultiLayerConfiguration:
                 else self.weight_decay)
 
 
+class NeuralNetConfigurationBuilder:
+    """NeuralNetConfiguration.Builder + ListBuilder in one fluent object::
+
+        conf = (builder().seed(42).updater(Adam(1e-3)).list()
+                .layer(ConvolutionLayer(...)).layer(...)
+                .set_input_type(InputType.convolutional_flat(28, 28, 1))
+                .build())
+    """
+
+    def __init__(self) -> None:
+        self._conf = MultiLayerConfiguration()
+
+    def _set(self, **kw):
+        for k, v in kw.items():
+            setattr(self._conf, k, v)
+        return self
+
+    def seed(self, s: int):
+        return self._set(seed=s)
+
+    def updater(self, u):
+        return self._set(updater=u)
+
+    def activation(self, a: str):
+        return self._set(activation=a)
+
+    def weight_init(self, w: str):
+        return self._set(weight_init=w)
+
+    def l1(self, v: float):
+        return self._set(l1=v)
+
+    def l2(self, v: float):
+        return self._set(l2=v)
+
+    def weight_decay(self, v: float):
+        return self._set(weight_decay=v)
+
+    def dtype(self, d: str):
+        return self._set(dtype=d)
+
+    def gradient_normalization(self, kind: str, threshold: float = 1.0):
+        return self._set(gradient_normalization=kind,
+                         gradient_normalization_threshold=threshold)
+
+    def tbptt(self, fwd_length: int, back_length: Optional[int] = None):
+        return self._set(backprop_type="tbptt", tbptt_fwd_length=fwd_length,
+                         tbptt_back_length=back_length or fwd_length)
+
+    def list(self):
+        return self
+
+    def layer(self, lc: LayerConf):
+        self._conf.layers.append(lc)
+        return self
+
+    def input_pre_processor(self, idx: int, p: InputPreProcessor):
+        self._conf.preprocessors[idx] = p
+        return self
+
+    def set_input_type(self, itype: InputType):
+        return self._set(input_type=itype)
+
+    def build(self) -> MultiLayerConfiguration:
+        conf = self._conf
+        if conf.input_type is not None:
+            _infer_shapes(conf)
+        return conf
+
+
+def builder() -> NeuralNetConfigurationBuilder:
+    return NeuralNetConfigurationBuilder()
+
+
+def _infer_shapes(conf: MultiLayerConfiguration) -> None:
+    """setInputType: fill ``n_in`` = 0 fields, insert preprocessors."""
+    itype = conf.input_type
+    new_layers: List[LayerConf] = []
+    for i, lc in enumerate(conf.layers):
+        itype, lc = _adapt(conf, i, itype, lc)
+        new_layers.append(lc)
+        itype = lc.output_type(itype)
+    conf.layers = new_layers
+
+
+def _adapt(conf, i, itype, lc) -> Tuple[InputType, LayerConf]:
+    """Insert a preprocessor and fill ``n_in`` for one layer
+    (InputType.getPreProcessorForInputType)."""
+    needs_ff = isinstance(lc, (DenseLayer, EmbeddingLayer))
+    is_conv = isinstance(lc, (ConvolutionLayer, SubsamplingLayer))
+    if i not in conf.preprocessors:
+        if itype.kind == "convolutionalflat" and is_conv:
+            conf.preprocessors[i] = FeedForwardToCnnPreProcessor(
+                itype.height, itype.width, itype.channels)
+            itype = InputType.convolutional(itype.height, itype.width,
+                                            itype.channels)
+        elif itype.kind == "convolutional" and needs_ff:
+            conf.preprocessors[i] = CnnToFeedForwardPreProcessor(
+                itype.height, itype.width, itype.channels)
+            itype = InputType.feed_forward(itype.flat_size())
+        elif itype.kind == "convolutionalflat" and needs_ff:
+            itype = InputType.feed_forward(itype.size)
+    else:
+        p = conf.preprocessors[i]
+        if isinstance(p, FeedForwardToCnnPreProcessor):
+            itype = InputType.convolutional(p.height, p.width, p.channels)
+        elif isinstance(p, CnnToFeedForwardPreProcessor):
+            itype = InputType.feed_forward(p.height * p.width * p.channels)
+    if isinstance(lc, (Bidirectional, LastTimeStep)):
+        # the wrapped config's n_in, then the wrapper rebuilt around it
+        inner = lc.inner()
+        if getattr(inner, "n_in", 1) == 0:
+            size = (itype.size if itype.kind == "recurrent"
+                    else itype.flat_size())
+            lc = dataclasses.replace(lc, fwd=dataclasses.replace(
+                inner, n_in=size).to_dict())
+        return itype, lc
+    updates: Dict[str, Any] = {}
+    if hasattr(lc, "n_in") and getattr(lc, "n_in") == 0:
+        if itype.kind in ("feedforward", "convolutionalflat"):
+            updates["n_in"] = itype.flat_size()
+        elif itype.kind == "recurrent":
+            updates["n_in"] = itype.size
+        elif itype.kind in ("convolutional", "convolutional3d"):
+            updates["n_in"] = itype.channels
+    if isinstance(lc, BatchNormalization) and lc.n_out == 0:
+        updates["n_out"] = (itype.channels
+                            if itype.kind in ("convolutional",
+                                              "convolutional3d")
+                            else (itype.size if itype.kind == "recurrent"
+                                  else itype.flat_size()))
+    if updates:
+        lc = dataclasses.replace(lc, **updates)
+    return itype, lc
+
+
 def infer_layer(itype: InputType, lc: LayerConf
                 ) -> Tuple[InputType, LayerConf]:
     """Fill ``n_in`` (and a BatchNormalization's ``n_out``) from the input
-    type, as the JAX ``_adapt`` does for one layer; a flat convolutional
-    input feeding a conv/pool layer is taken as convolutional."""
+    type, as :func:`_adapt` does for one layer of a graph (no
+    preprocessors: a flat convolutional input feeding a conv/pool layer is
+    taken as convolutional)."""
     if itype.kind == "convolutionalflat" and isinstance(
             lc, (ConvolutionLayer, SubsamplingLayer)):
         itype = InputType.convolutional(itype.height, itype.width,

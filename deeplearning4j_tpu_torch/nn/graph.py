@@ -46,7 +46,8 @@ from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn import dtype as DT
 from deeplearning4j_tpu_torch.nn.layers import Layer, build_layer
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    apply_layer_updates, aux_losses, reg_penalty)
+    _tree, apply_layer_updates, autograd_leaves, aux_losses, grad_tree,
+    init_opt_state, reg_penalty)
 from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
 from deeplearning4j_tpu_torch.ops.losses import get_loss
 
@@ -356,6 +357,8 @@ class ComputationGraph:
         self.epoch_count = 0
         self.last_batch_size = 0
         self._score: Optional[torch.Tensor] = None
+        # dropout's draws in training
+        self._gen = torch.Generator(device=self.device).manual_seed(conf.seed)
 
     def _node(self, name: str) -> _GraphNode:
         for n in self.conf.nodes:
@@ -386,7 +389,7 @@ class ComputationGraph:
         network's device) or drawn from ``conf.seed``; fresh layer state
         and updater state."""
         if params is not None:
-            self.params = {n: {k: v.to(self.device) for k, v in p.items()}
+            self.params = {n: _tree().map_tree(lambda v: v.to(self.device), p)
                            for n, p in params.items()}
         else:
             gen = torch.Generator().manual_seed(self.conf.seed)
@@ -396,8 +399,7 @@ class ComputationGraph:
         self.opt_state = {}
         for n, l in self.layers.items():
             upd = self.conf.layer_updater(l.lc)
-            self.opt_state[n] = {k: upd.init_state(v)
-                                 for k, v in self.params[n].items()}
+            self.opt_state[n] = init_opt_state(upd, self.params[n])
         return self
 
     # --------------------------------------------------------------- forward
@@ -471,22 +473,14 @@ class ComputationGraph:
         step = self.iteration_count
         with DT.precision_scope(self.conf.dtype):
             with torch.enable_grad():
-                params = {n: {k: v.detach().requires_grad_(True)
-                              for k, v in self.params[n].items()}
-                          for n in names}
+                params = {n: autograd_leaves(self.params[n]) for n in names}
                 acts, new_state = self._forward(params, self.net_state, feeds,
-                                                fmasks, train=True)
+                                                fmasks, train=True,
+                                                rng=self._gen)
                 loss = self._losses(acts, labels, lmasks) + aux_losses(
                     new_state)
-                leaves = [(n, k) for n in names for k in sorted(params[n])]
-                grads = torch.autograd.grad(
-                    loss, [params[n][k] for n, k in leaves],
-                    allow_unused=True)
+                g = grad_tree(loss, params)
             with torch.no_grad():
-                g: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in names}
-                for (n, k), gr in zip(leaves, grads):
-                    g[n][k] = (gr if gr is not None
-                               else torch.zeros_like(self.params[n][k]))
                 updated = apply_layer_updates(
                     self.conf,
                     ((self.params[n], g[n], self.opt_state[n],

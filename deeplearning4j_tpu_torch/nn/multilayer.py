@@ -1,23 +1,53 @@
-"""The per-layer update tail shared by the network runtimes.
+"""MultiLayerNetwork, the sequential network, and the per-layer update
+tail shared by the network runtimes.
 
-Counterpart of the shared part of ``deeplearning4j_tpu/nn/multilayer.py``:
-:func:`apply_layer_updates` (``multilayer.py:84``: L1/L2 into the
-gradient, gradient normalization, the updater through the fused
-``fused_updater_step`` op, weight decay), :func:`reg_penalty`,
-:func:`aux_losses` and :func:`normalize_gradient` (the
-``_normalize_gradient`` method at ``multilayer.py:455``, as a function of
-the configuration). ``MultiLayerNetwork`` itself is not ported yet.
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``:
 
-Trees are dicts of tensors; leaves are visited in sorted-key order, as
-``jax.tree.flatten`` visits a dict. Called under ``torch.no_grad()``;
-every update is out of place (new tensors).
+* :func:`apply_layer_updates` (``multilayer.py:84``: L1/L2 into the
+  gradient, gradient normalization, the updater through the fused
+  ``fused_updater_step`` op, weight decay), :func:`reg_penalty`,
+  :func:`aux_losses` and :func:`normalize_gradient` (the
+  ``_normalize_gradient`` method at ``multilayer.py:455``, as a function
+  of the configuration);
+* :class:`MultiLayerNetwork` (``multilayer.py:149``): ``init``, the
+  forward with preprocessors and carried RNN state, ``feed_forward``,
+  ``output``, ``predict``, ``rnn_time_step`` and its state, the train
+  step, truncated BPTT, ``fit`` over arrays / a ``DataSet`` / an
+  iterator, ``score``, and the flat parameter and updater-state views in
+  the JAX package's order (``_sorted_leaves``).
+
+What the train step does in place of ``jax.value_and_grad`` + ``jit``:
+each parameter leaf is taken as an autograd leaf (``detach()`` +
+``requires_grad_``, no copy), the forward and loss run eagerly,
+``torch.autograd.grad`` gives the gradients, and the update tail runs
+under ``torch.no_grad()``: one :meth:`Updater.apply_fused_many` call a
+step (one multi-tensor launch of the updater kernel on the card). Every
+update is out of place (new tensors), as the JAX step returns new arrays.
+
+Trees are dicts of tensors (nested for wrapper layers: Bidirectional's
+``fwd`` / ``bwd``); leaves are visited in sorted-key order, as
+``jax.tree.flatten`` visits a dict. Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): ``fit_scanned``,
+listeners, ``evaluate*`` and the preemption hooks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import time
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch import observe
+from deeplearning4j_tpu_torch.datasets.dataset import (
+    DataSet, ListDataSetIterator)
+from deeplearning4j_tpu_torch.environment import resolve_device
+from deeplearning4j_tpu_torch.nn import conf as C
+from deeplearning4j_tpu_torch.nn import dtype as DT
+from deeplearning4j_tpu_torch.nn.layers import (
+    BidirectionalImpl, Layer, apply_preprocessor, build_layer)
+from deeplearning4j_tpu_torch.ops.losses import get_loss
 
 WEIGHT_KEYS = {"W", "RW", "dW", "pW", "Wq", "Wk", "Wv", "Wo"}
 
@@ -42,6 +72,43 @@ def _weight_leaves(tree):
             yield from _weight_leaves(v)
         elif k in WEIGHT_KEYS:
             yield v
+
+
+def _tree():
+    """``models/_tree`` (imported on use: the models package imports the
+    networks of this package)."""
+    from deeplearning4j_tpu_torch.models import _tree as tree
+
+    return tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def init_opt_state(upd, params):
+    """The updater state of a parameter tree: the same tree with
+    ``upd.init_state(leaf)`` at each leaf (``jax.tree.map(upd.init_state,
+    params)``)."""
+    return _tree().map_tree(upd.init_state, params)
+
+
+def autograd_leaves(params):
+    """The parameter tree with every leaf an autograd leaf (no copy)."""
+    return _tree().map_tree(lambda v: v.detach().requires_grad_(True), params)
+
+
+def grad_tree(loss, params):
+    """d loss / d params as a tree like ``params`` (zeros for unused
+    leaves)."""
+    paths = list(_tree().leaf_paths(params))
+    grads = torch.autograd.grad(loss, [leaf for _, leaf in paths],
+                                allow_unused=True)
+    return _tree().rebuild(params, {
+        path: g if g is not None else torch.zeros_like(leaf)
+        for (path, leaf), g in zip(paths, grads)})
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -83,9 +150,10 @@ def apply_layer_updates(conf, items, step):
     updater math, weight decay (BaseMultiLayerUpdater.update +
     WeightDecay.applyStep).
 
-    items: iterable of (params, grads, opt_state, updater, layer_conf),
-    trees of one level (leaf name -> tensor; opt_state leaf name -> state
-    dict). Returns a list of (new_params, new_opt_state) in input order.
+    items: iterable of (params, grads, opt_state, updater, layer_conf):
+    trees of leaf name -> tensor (nested for wrapper layers), and the
+    updater state the same tree with a state dict at each leaf. Returns a
+    list of (new_params, new_opt_state) in input order.
 
     Each leaf sees the reference's order: its layer's L1/L2 and gradient
     normalization, the updater step, its layer's weight decay. The updater
@@ -93,7 +161,7 @@ def apply_layer_updates(conf, items, step):
     :meth:`Updater.apply_fused_many` call: one multi-tensor launch for the
     whole network on the card."""
     layers = []
-    groups: List[tuple] = []  # (updater, [(layer, leaf name)]), equal configs
+    groups: List[tuple] = []  # (updater, [(layer, leaf path)]), equal configs
     for i, (p, g, s, upd, lc) in enumerate(items):
         l1 = conf.layer_l1(lc)
         l2 = conf.layer_l2(lc)
@@ -107,16 +175,19 @@ def apply_layer_updates(conf, items, step):
         if leaves is None:
             leaves = []
             groups.append((upd, leaves))
-        leaves.extend((i, k) for k in sorted(p))
+        leaves.extend((i, path) for path, _ in _tree().leaf_paths(p))
     for upd, leaves in groups:
         new_p, new_s = upd.apply_fused_many(
-            [layers[i][0][k] for i, k in leaves],
-            [layers[i][1][k] for i, k in leaves],
-            [layers[i][2][k] for i, k in leaves], upd.lr(step), step)
-        for (i, k), np_, ns in zip(leaves, new_p, new_s):
-            layers[i][5][k], layers[i][6][k] = np_, ns
+            [_at(layers[i][0], path) for i, path in leaves],
+            [_at(layers[i][1], path) for i, path in leaves],
+            [_at(layers[i][2], path) for i, path in leaves],
+            upd.lr(step), step)
+        for (i, path), np_, ns in zip(leaves, new_p, new_s):
+            layers[i][5][path], layers[i][6][path] = np_, ns
     out = []
-    for p, _, _, upd, lc, new_p, new_s in layers:
+    for p, _, _, upd, lc, by_path, state_by_path in layers:
+        new_p = _tree().rebuild(p, by_path)
+        new_s = _tree().rebuild(p, state_by_path)
         wd = conf.layer_weight_decay(lc)
         if wd:
             lr = upd.lr(step)
@@ -151,3 +222,359 @@ def reg_penalty(conf, items) -> torch.Tensor:
                 torch.sum(torch.abs(w.float()))
                 for w in _weight_leaves(p))
     return penalty
+
+
+_ROADMAP = "ROADMAP Queue 1 item 5"
+
+
+class MultiLayerNetwork:
+    """Sequential network over a :class:`~.conf.MultiLayerConfiguration`
+    (MultiLayerNetwork.java), on one device: ``"cuda"`` unless the caller
+    passes ``device="cpu"``. ``params`` and ``opt_state`` are lists with
+    one tree a layer; dropout draws from one ``torch.Generator`` on the
+    device, seeded from the configuration's seed."""
+
+    def __init__(self, conf: C.MultiLayerConfiguration, *, device=None):
+        self.conf = conf
+        self.device = resolve_device(device)
+        self.layers: List[Layer] = []
+        itype = conf.input_type
+        for i, lc in enumerate(conf.layers):
+            pre = conf.preprocessors.get(i)
+            if pre is not None and itype is not None:
+                if isinstance(pre, C.FeedForwardToCnnPreProcessor):
+                    itype = C.InputType.convolutional(pre.height, pre.width,
+                                                      pre.channels)
+                elif isinstance(pre, C.CnnToFeedForwardPreProcessor):
+                    itype = C.InputType.feed_forward(
+                        pre.height * pre.width * pre.channels)
+            layer = build_layer(conf, lc, itype or C.InputType.feed_forward(0),
+                                self.device)
+            self.layers.append(layer)
+            itype = layer.otype
+        self.updaters = [conf.layer_updater(lc) for lc in conf.layers]
+        self.params: Optional[List[Dict[str, Any]]] = None
+        self.net_state: Optional[List[Dict[str, Any]]] = None
+        self.opt_state: Optional[List[Any]] = None
+        self.iteration_count = 0
+        self.epoch_count = 0
+        self.last_batch_size = 0
+        self.listeners: List[Any] = []
+        self._score: Optional[torch.Tensor] = None
+        self._tbptt_scores: List[torch.Tensor] = []
+        self._rnn_states: Optional[List[Any]] = None
+        self._gen = torch.Generator(device=self.device).manual_seed(conf.seed)
+        last = conf.layers[-1] if conf.layers else None
+        self._loss_name = getattr(last, "loss", None)
+        self._loss_fn = get_loss(self._loss_name) if self._loss_name else None
+
+    # ------------------------------------------------------------------ init
+    def init(self, params=None) -> "MultiLayerNetwork":
+        """Parameters from ``params`` (one tree a layer, numpy arrays as
+        the JAX package's ``jax.tree.map(np.asarray, net.params)`` gives
+        them, or tensors; moved to the network's device) or drawn from the
+        configuration's seed; fresh layer state and updater state."""
+        if params is not None:
+            self.params = _tree().params_from_numpy(list(params), self.device)
+        else:
+            gen = torch.Generator().manual_seed(self.conf.seed)
+            self.params = [layer.init(gen) for layer in self.layers]
+        self.net_state = [layer.init_state() for layer in self.layers]
+        self.opt_state = [init_opt_state(upd, p)
+                          for upd, p in zip(self.updaters, self.params)]
+        return self
+
+    def set_listeners(self, *listeners) -> None:
+        raise NotImplementedError(
+            f"MultiLayerNetwork listeners are not ported yet ({_ROADMAP})")
+
+    add_listeners = set_listeners
+
+    # --------------------------------------------------------------- forward
+    def _forward(self, params, net_state, x, mask, *, train: bool, rng,
+                 rnn_states=None):
+        """Preprocessors and layers: (out, new layer state), or with
+        ``rnn_states`` (one entry a layer, None for the non-recurrent
+        ones) (out, new layer state, new rnn states): the tBPTT /
+        ``rnn_time_step`` path, where each recurrent layer starts from its
+        carried state."""
+        if DT.needs_cast(self.conf.dtype):
+            # mixed policy: the ONE cast of parameters and inputs to bf16
+            cd = DT.compute_dtype(self.conf.dtype)
+            params = DT.cast_floats(params, cd)
+            x = DT.cast_floats(x, cd)
+            if rnn_states is not None:
+                rnn_states = DT.cast_floats(rnn_states, cd)
+        new_state = []
+        new_rnn = [] if rnn_states is not None else None
+        for i, layer in enumerate(self.layers):
+            x = apply_preprocessor(self.conf.preprocessors.get(i), x)
+            if rnn_states is not None and hasattr(layer, "apply_with_state"):
+                x = layer._maybe_dropout(x, train=train, rng=rng)
+                x, last = layer.apply_with_state(params[i], x, mask=mask,
+                                                 initial=rnn_states[i])
+                new_rnn.append(last)
+                new_state.append(net_state[i])
+            else:
+                x, st, mask = layer.apply(params[i], x, net_state[i],
+                                          train=train, rng=rng, mask=mask)
+                new_state.append(st)
+                if new_rnn is not None:
+                    new_rnn.append(None)
+        if DT.needs_cast(self.conf.dtype):
+            x = DT.cast_floats(x, torch.float32)  # loss/eval math in f32
+        if rnn_states is not None:
+            return x, new_state, new_rnn
+        return x, new_state
+
+    def _feed(self, a):
+        # in the dtypes the JAX package computes in (float64 → float32,
+        # int64 → int32)
+        from deeplearning4j_tpu_torch.autodiff.samediff import canonical
+
+        return None if a is None else canonical(a, self.device)
+
+    def feed_forward(self, x, train: bool = False) -> List[np.ndarray]:
+        """Each layer's activations (MultiLayerNetwork.feedForward)."""
+        acts = []
+        xt, mask = self._feed(x), None
+        with torch.no_grad(), DT.precision_scope(self.conf.dtype):
+            for i, layer in enumerate(self.layers):
+                xt = apply_preprocessor(self.conf.preprocessors.get(i), xt)
+                xt, _, mask = layer.apply(self.params[i], xt,
+                                          self.net_state[i], train=train,
+                                          rng=self._gen, mask=mask)
+                acts.append(xt.float().cpu().numpy())
+        return acts
+
+    def output(self, x, mask=None) -> np.ndarray:
+        """Inference forward (MultiLayerNetwork.output), as numpy."""
+        with torch.no_grad(), DT.precision_scope(self.conf.dtype):
+            out, _ = self._forward(self.params, self.net_state,
+                                   self._feed(x), self._feed(mask),
+                                   train=False, rng=None)
+        return out.float().cpu().numpy()
+
+    def predict(self, x) -> np.ndarray:
+        return self.output(x).argmax(axis=-1)
+
+    # ------------------------------------------------------ stateful RNN API
+    def rnn_time_step(self, x, mask=None) -> np.ndarray:
+        """Stateful streaming inference (MultiLayerNetwork.rnnTimeStep):
+        (N, T, F), or (N, F) for one step, carrying each recurrent layer's
+        state across calls."""
+        x = np.asarray(x)
+        squeeze = x.ndim == 2
+        if squeeze:
+            x = x[:, None, :]
+        if self._rnn_states is None:
+            self._rnn_states = self._zero_rnn_states(x.shape[0])
+        with torch.no_grad(), DT.precision_scope(self.conf.dtype):
+            out, _, self._rnn_states = self._forward(
+                self.params, self.net_state, self._feed(x), self._feed(mask),
+                train=False, rng=None, rnn_states=self._rnn_states)
+        out = out.float().cpu().numpy()
+        return out[:, -1] if squeeze else out
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_states = None
+
+    def rnn_get_previous_state(self, layer_idx: int):
+        states = self._rnn_states
+        return None if states is None else states[layer_idx]
+
+    def _zero_rnn_states(self, batch: int):
+        states = []
+        for layer in self.layers:
+            if isinstance(layer, BidirectionalImpl):
+                # the reference's rnnTimeStep refuses them too: the
+                # backward direction needs the future
+                raise ValueError(
+                    "stateful RNN state (rnn_time_step / tBPTT) is not "
+                    "supported with Bidirectional layers")
+            states.append(layer.zero_state(batch)
+                          if hasattr(layer, "zero_state") else None)
+        return states
+
+    # ------------------------------------------------------------ train step
+    def _train_step(self, x, y, fmask, lmask, rnn_states=None):
+        """One step (one tBPTT segment with ``rnn_states``): loss and
+        gradients by autograd, the update tail under no_grad. Returns the
+        score (loss + the regularization penalty of the parameters before
+        the update, a 0-d tensor on the device) and the carried state,
+        detached: gradients stop at the segment boundary."""
+        if self._loss_fn is None:
+            raise ValueError("terminal layer has no loss configured")
+        step = self.iteration_count
+        with DT.precision_scope(self.conf.dtype):
+            with torch.enable_grad():
+                params = autograd_leaves(self.params)
+                res = self._forward(params, self.net_state, x, fmask,
+                                    train=True, rng=self._gen,
+                                    rnn_states=rnn_states)
+                out, new_state = res[0], res[1]
+                loss = self._loss_fn(out, y, lmask) + aux_losses(new_state)
+                grads = grad_tree(loss, params)
+            with torch.no_grad():
+                updated = apply_layer_updates(
+                    self.conf, zip(self.params, grads, self.opt_state,
+                                   self.updaters, self.conf.layers), step)
+                score = loss.detach() + reg_penalty(
+                    self.conf, zip(self.params, self.conf.layers))
+        self.params = [p for p, _ in updated]
+        self.opt_state = [s for _, s in updated]
+        self.net_state = [{k: v.detach() for k, v in st.items()}
+                          for st in new_state]
+        new_rnn = None if rnn_states is None else [_detached(st)
+                                                   for st in res[2]]
+        return score, new_rnn
+
+    def _fit_tbptt_batch(self, x, y, fmask, lmask):
+        """The time axis cut into ``tbptt_fwd_length`` segments, the RNN
+        state carried (detached) from one to the next; one update a
+        segment."""
+        if y.ndim < 3:
+            raise ValueError(
+                "tBPTT requires 3-D time-series labels (N, T, C); got shape "
+                f"{tuple(y.shape)}: use standard backprop for per-sequence "
+                "labels")
+        fwd = self.conf.tbptt_fwd_length
+        t = x.shape[1]
+        rnn_states = self._zero_rnn_states(x.shape[0])
+        segments = list(range(0, t, fwd))
+        self._tbptt_scores = []
+        for i, t0 in enumerate(segments):
+            sl = slice(t0, min(t0 + fwd, t))
+            score, rnn_states = self._train_step(
+                x[:, sl], y[:, sl], None if fmask is None else fmask[:, sl],
+                None if lmask is None else lmask[:, sl], rnn_states)
+            self._tbptt_scores.append(score)
+            # the iteration advances once a segment (Adam's bias
+            # correction, schedules); fit() adds the last segment's
+            if i < len(segments) - 1:
+                self.iteration_count += 1
+        return score
+
+    def tbptt_scores(self) -> List[float]:
+        """The scores of the last tBPTT batch's segments, in order."""
+        return [float(s) for s in self._tbptt_scores]
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, epochs: int = 1,
+            batch_size: int = 32) -> None:
+        """fit(DataSetIterator | DataSet | (features, labels)): one train
+        step a minibatch, or one a tBPTT segment when the configuration
+        says ``backprop_type="tbptt"``."""
+        if labels is not None:
+            data = ListDataSetIterator(DataSet(data, labels),
+                                       batch_size=batch_size)
+        elif isinstance(data, DataSet):
+            data = ListDataSetIterator(data, batch_size=batch_size)
+        tbptt = (self.conf.backprop_type == "tbptt"
+                 and self.conf.tbptt_fwd_length > 0)
+        m = observe.metrics()
+        steps_c = m.counter("dl4j_tpu_train_steps_total", model="mln")
+        ex_c = m.counter("dl4j_tpu_train_examples_total", model="mln")
+        xfer_c = m.counter("dl4j_tpu_host_to_device_transfers_total",
+                           model="mln")
+        step_h = m.histogram("dl4j_tpu_train_step_seconds", model="mln")
+        for _ in range(epochs):
+            t_prev = time.perf_counter()
+            for ds in data:
+                self.last_batch_size = ds.num_examples()
+                x, y = self._feed(ds.features), self._feed(ds.labels)
+                fm, lm = self._feed(ds.features_mask), self._feed(
+                    ds.labels_mask)
+                if tbptt:
+                    self._score = self._fit_tbptt_batch(x, y, fm, lm)
+                else:
+                    self._score, _ = self._train_step(x, y, fm, lm)
+                self.iteration_count += 1
+                now = time.perf_counter()
+                step_h.observe(now - t_prev)
+                t_prev = now
+                steps_c.inc()
+                ex_c.inc(ds.num_examples())
+                xfer_c.inc(2 + (ds.features_mask is not None)
+                           + (ds.labels_mask is not None))
+            self.epoch_count += 1
+
+    def fit_scanned(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"MultiLayerNetwork.fit_scanned is not ported yet ({_ROADMAP})")
+
+    def score(self, ds: Optional[DataSet] = None) -> float:
+        """The loss on ``ds``, or the last training score."""
+        if ds is None:
+            return float("nan") if self._score is None else float(self._score)
+        out = torch.from_numpy(self.output(ds.features, ds.features_mask))
+        lm = (None if ds.labels_mask is None
+              else self._feed(ds.labels_mask).cpu())
+        return float(self._loss_fn(out, self._feed(ds.labels).cpu(), lm))
+
+    def evaluate(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"MultiLayerNetwork.evaluate is not ported yet ({_ROADMAP}: "
+            f"eval/)")
+
+    evaluate_regression = evaluate_roc = evaluate
+
+    # ------------------------------------------------------- flattened views
+    def params_flat(self) -> np.ndarray:
+        """One flat float32 vector (MultiLayerNetwork.params()): layer
+        order, then sorted keys within a layer."""
+        return flatten_trees(self.params)
+
+    def set_params_flat(self, flat) -> None:
+        self.params, offset = unflatten_trees(self.params, flat, self.device)
+        if offset != np.asarray(flat).size:
+            raise ValueError(f"param vector length {np.asarray(flat).size} "
+                             f"!= model size {offset}")
+
+    def num_params(self) -> int:
+        return sum(leaf.numel() for p in self.params
+                   for _, leaf in _tree().leaf_paths(p))
+
+    def updater_state_flat(self) -> np.ndarray:
+        return flatten_trees(self.opt_state)
+
+    def set_updater_state_flat(self, flat) -> None:
+        self.opt_state, _ = unflatten_trees(self.opt_state, flat, self.device)
+
+
+def _detached(state):
+    """A carried RNN state ((h, c) for an LSTM, h for a GRU or SimpleRnn,
+    None for other layers) cut from the graph that made it."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(t.detach() for t in state)
+    return state.detach()
+
+
+def flatten_trees(trees) -> np.ndarray:
+    """The leaves of a list of trees in ``_sorted_leaves`` order (sorted
+    keys, depth first), concatenated as float32."""
+    leaves = [leaf for tree in trees for _, leaf in _tree().leaf_paths(tree)]
+    if not leaves:
+        return np.zeros((0,), np.float32)
+    return np.concatenate([leaf.detach().float().reshape(-1).cpu().numpy()
+                           for leaf in leaves])
+
+
+def unflatten_trees(trees, flat, device):
+    """Trees like ``trees`` (shapes and dtypes) read from ``flat`` in
+    :func:`flatten_trees`'s order. Returns (trees, values read)."""
+    flat = np.asarray(flat)
+    offset = 0
+    by_tree = []
+    for tree in trees:
+        by_path = {}
+        for path, leaf in _tree().leaf_paths(tree):
+            n = leaf.numel()
+            chunk = flat[offset:offset + n].reshape(tuple(leaf.shape))
+            by_path[path] = torch.from_numpy(np.array(chunk)).to(
+                device=device, dtype=leaf.dtype)
+            offset += n
+        by_tree.append(_tree().rebuild(tree, by_path))
+    return by_tree, offset

@@ -2,11 +2,12 @@
 
 Importing this package registers the generic ops (:mod:`.nn_ops`,
 :mod:`.shape_ops`, :mod:`.quantized`, ``fused_updater_step``,
-``fused_bn_matmul_stats``) and installs the hand-written CUDA kernels as
-their ``"cuda"`` platform helpers (:mod:`.cuda_attention`,
+``fused_bn_matmul_stats``, ``lstm_layer``) and installs the hand-written
+CUDA kernels as their ``"cuda"`` platform helpers (:mod:`.cuda_attention`,
 :mod:`.cuda_updater`, :mod:`.cuda_convbn`, :mod:`.cuda_matmul`,
-:mod:`.cuda_layernorm`, :mod:`.cuda_quantized`). No kernel is built at
-import.
+:mod:`.cuda_layernorm`, :mod:`.cuda_quantized`), and cuDNN's LSTM as
+``lstm_layer``'s (:mod:`.cudnn_lstm`, a library call: the reference has
+no TPU kernel there). No kernel is built at import.
 """
 
 from deeplearning4j_tpu_torch.ops import nn_ops, quantized, shape_ops  # noqa: F401
@@ -26,6 +27,7 @@ from deeplearning4j_tpu_torch.ops.cuda_quantized import (
 from deeplearning4j_tpu_torch.ops.cuda_updater import (
     register_platform_fused_updater,
 )
+from deeplearning4j_tpu_torch.ops.cudnn_lstm import register_platform_lstm
 from deeplearning4j_tpu_torch.ops.registry import (
     OpDescriptor, OpRegistry, exec_op, op, registry,
 )
@@ -36,5 +38,6 @@ register_platform_convbn()
 register_platform_fused_matmul()
 register_platform_fused_layernorm()
 register_platform_quantized()
+register_platform_lstm()
 
 __all__ = ["OpDescriptor", "OpRegistry", "exec_op", "op", "registry"]

@@ -16,7 +16,14 @@ ported paths reach:
   (``nn_ops.py:512-551``; the hand-written kernel registers as its
   ``"cuda"`` helper in :mod:`.cuda_matmul`) and the generic
   ``fused_layer_norm`` (``pallas_layernorm.py:37``; its kernel is still to
-  be ported).
+  be ported);
+* the sequential network (``MultiLayerNetwork``): ``dropout`` (from an
+  explicit ``torch.Generator``), ``embedding_lookup``, the cells
+  ``lstm_cell`` (gate order i, f, g, o), ``gru_cell`` and
+  ``simple_rnn_cell``, and the sequence ops ``lstm_sequence`` and
+  ``gru_sequence`` (``nn_ops.py:393-660``). The LSTM layer's own
+  recurrence (gate order i, f, o, g) is the ``lstm_layer`` op of
+  :mod:`.cudnn_lstm`.
 
 Layouts are the JAX package's: activations NHWC, conv kernels HWIO. Inside,
 ``x.permute(0, 3, 1, 2)`` of an NHWC-contiguous tensor is a
@@ -415,3 +422,107 @@ def fused_layer_norm(x, gain, bias=None, *, axis: int = -1,
             f"{x.ndim} — use the catalog layer_norm for other axes")
     return apply_fused_activation(
         layer_norm.fn(x, gain, bias, axis=-1, eps=eps), activation)
+
+
+# --------------------------------------------------------------------------
+# Dropout, embeddings and the recurrent cells (the sequential network's)
+# --------------------------------------------------------------------------
+
+
+@op("dropout")
+def dropout(x, gen: Optional[torch.Generator], *, rate: float,
+            deterministic: bool = False):
+    """Inverted dropout: each entry kept with probability ``1 - rate``,
+    drawn from ``gen`` (a ``torch.Generator`` on x's device), and scaled
+    by ``1 / (1 - rate)``; the rest zero. The JAX package draws from a PRNG
+    key, so the two agree in distribution, not bit for bit."""
+    if deterministic or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+@op("embedding_lookup")
+def embedding_lookup(table, ids):
+    """Rows of ``table`` at integer ``ids``: ids.shape + table.shape[1:]."""
+    flat = ids.reshape(-1).long()
+    return table.index_select(0, flat).reshape(
+        tuple(ids.shape) + tuple(table.shape[1:]))
+
+
+@op("lstm_cell")
+def lstm_cell(x, h_prev, c_prev, w_ih, w_hh, b, *, forget_bias: float = 0.0):
+    """Standard LSTM cell, gate order i, f, g (cell), o. x:[B,I],
+    h/c:[B,H], w_ih:[I,4H], w_hh:[H,4H], b:[4H]."""
+    z = x @ w_ih + h_prev @ w_hh + b
+    i, f, g, o = torch.chunk(z, 4, dim=-1)
+    i = torch.sigmoid(i)
+    f = torch.sigmoid(f + forget_bias)
+    g = torch.tanh(g)
+    o = torch.sigmoid(o)
+    c = f * c_prev + i * g
+    h = o * torch.tanh(c)
+    return h, c
+
+
+@op("gru_cell")
+def gru_cell(x, h_prev, w_ih, w_hh, b_ih, b_hh):
+    """GRU cell, gate order r, z, n, with separate input and recurrent
+    biases. x:[B,I], h:[B,H], w_ih:[I,3H], w_hh:[H,3H]."""
+    gi = x @ w_ih + b_ih
+    gh = h_prev @ w_hh + b_hh
+    i_r, i_z, i_n = torch.chunk(gi, 3, dim=-1)
+    h_r, h_z, h_n = torch.chunk(gh, 3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * h_prev
+
+
+@op("simple_rnn_cell")
+def simple_rnn_cell(x, h_prev, w_ih, w_hh, b, *, activation=torch.tanh):
+    return activation(x @ w_ih + h_prev @ w_hh + b)
+
+
+@op("lstm_sequence")
+def lstm_sequence(x, w_ih, w_hh, b, h0=None, c0=None):
+    """Full-sequence LSTM over ``lstm_cell`` (gate order i, f, g, o),
+    batch-major x:[N,T,I]. Returns (ys:[N,T,H], h_T, c_T)."""
+    h_dim = w_hh.shape[0]
+    n = x.shape[0]
+    h = x.new_zeros((n, h_dim)) if h0 is None else h0
+    c = x.new_zeros((n, h_dim)) if c0 is None else c0
+    ys = []
+    for t in range(x.shape[1]):
+        h, c = lstm_cell.fn(x[:, t], h, c, w_ih, w_hh, b)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h, c
+
+
+@op("gru_sequence")
+def gru_sequence(x, w_ih, w_hh, b_ih, b_hh, h0=None, *,
+                 linear_before_reset: bool = True):
+    """Full-sequence GRU, gate order r, z, n; batch-major x:[N,T,I].
+    Returns (ys:[N,T,H], h_T). ``linear_before_reset=True`` is
+    ``gru_cell``; False is the ONNX GRU default
+    (n = tanh(Wn x + Rn (r*h) + b))."""
+    h_dim = w_hh.shape[0]
+    n = x.shape[0]
+    h = x.new_zeros((n, h_dim)) if h0 is None else h0
+    ys = []
+    for t in range(x.shape[1]):
+        xt = x[:, t]
+        if linear_before_reset:
+            h = gru_cell.fn(xt, h, w_ih, w_hh, b_ih, b_hh)
+        else:
+            gi = xt @ w_ih + b_ih
+            i_r, i_z, i_n = torch.chunk(gi, 3, dim=-1)
+            r = torch.sigmoid(i_r + h @ w_hh[:, :h_dim] + b_hh[:h_dim])
+            z = torch.sigmoid(i_z + h @ w_hh[:, h_dim:2 * h_dim]
+                              + b_hh[h_dim:2 * h_dim])
+            nn = torch.tanh(i_n + (r * h) @ w_hh[:, 2 * h_dim:]
+                            + b_hh[2 * h_dim:])
+            h = (1.0 - z) * nn + z * h
+        ys.append(h)
+    return torch.stack(ys, dim=1), h

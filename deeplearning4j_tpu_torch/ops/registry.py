@@ -56,6 +56,9 @@ class OpDescriptor:
         default_factory=dict)
     platform_usable: Dict[str, Callable[..., bool]] = dataclasses.field(
         default_factory=dict)
+    # the name a platform's helper is tallied under (the platform itself
+    # unless the helper names its library, as the cuDNN LSTM does)
+    platform_labels: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def resolve(self, *args: Any, **kwargs: Any) -> Callable[..., Any]:
         """Pick the implementation for these arguments."""
@@ -78,7 +81,9 @@ class OpDescriptor:
         # the usable gate comes from the SAME table entry as the impl
         usable = self.platform_usable.get(platform, lambda *a, **k: True)
         if usable(*args, **kwargs):
-            _note_dispatch(self.name, platform, "usable")
+            _note_dispatch(self.name,
+                           self.platform_labels.get(platform, platform),
+                           "usable")
             return impl
         if mode == "kernel":
             raise RuntimeError(
@@ -107,12 +112,14 @@ class OpRegistry:
 
     def register_platform(self, name: str, platform: str,
                           fn: Callable[..., Any],
-                          usable: Optional[Callable[..., bool]] = None
-                          ) -> None:
+                          usable: Optional[Callable[..., bool]] = None,
+                          label: Optional[str] = None) -> None:
         desc = self._ops[name]
         desc.platform_impls[platform] = fn
         if usable is not None:
             desc.platform_usable[platform] = usable
+        if label is not None:
+            desc.platform_labels[platform] = label
 
     def get(self, name: str) -> OpDescriptor:
         try:

@@ -1,0 +1,101 @@
+"""Where a MultiLayerNetwork training step's time goes, on the card.
+
+    python -m deeplearning4j_tpu_torch.profile_mln [--trace out.json]
+
+Trains the three networks of ``chip_smoke.py``'s sequential phases
+(``testing/sequential.py``: LeNet at batch 64; the BiLSTM tagger, 32 ×
+128 with ragged right-padded masks; the character LSTM, one batch of 32
+× 1000 in 20 tBPTT segments) through ``fit`` with TF32 off, the tagger
+also under ``helper_mode="generic"`` (the LSTM recurrence as the generic
+Python scan instead of cuDNN). After 2 warm calls it profiles 3 calls
+with ``torch.profiler`` and prints one JSON line per configuration:
+host wall time per step (per batch for the character LSTM), summed device
+kernel time, the device's busy share, the kernels with the most device
+time (``profile_serve``'s summary), and the device time of the kernels
+whose names hold ``RNN`` / ``LSTM`` (cuDNN's recurrence), ``gemm`` and
+``fused_updater``. Needs a GPU; the numbers are the card's, printed
+beside its name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+from deeplearning4j_tpu_torch.profile_serve import _profile
+
+_WARM, _STEPS = 2, 3
+_NAMED = ("RNN", "LSTM", "gemm", "fused_updater")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default=None,
+                    help="write the tagger's (cuDNN) Chrome trace here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_mln: no GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.testing import sequential as S
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    tg = S.TAGGER
+    tagger = (S.tagger_conf(tg["features"], tg["hidden"], tg["tags"]),
+              S.tagger_batches(tg["batch"], tg["seq"], tg["min_len"],
+                               tg["features"], tg["tags"], 1)[0][0])
+    cells = [
+        ("lenet", "auto", LeNet(device=dev).init(),
+         S.lenet_batches(S.LENET["batch"], 1)[0]),
+        ("bilstm_tagger", "auto", None, tagger),
+        ("bilstm_tagger", "generic", None, tagger),
+        ("char_lstm", "auto",
+         MultiLayerNetwork(S.char_conf(S.CHAR["vocab"], S.CHAR["hidden"],
+                                       S.CHAR["tbptt"]), device=dev).init(),
+         S.char_batch(S.CHAR["batch"], S.CHAR["seq"], S.CHAR["vocab"])),
+    ]
+    env = environment()
+    for phase, mode, net, data in cells:
+        if net is None:
+            conf, data = data
+            net = MultiLayerNetwork(conf, device=dev).init()
+        env.helper_mode = mode
+
+        def step():
+            net.fit(data, batch_size=data.num_examples())
+
+        try:
+            for _ in range(_WARM):
+                step()
+            torch.cuda.synchronize()
+            trace = args.trace if (phase, mode) == ("bilstm_tagger",
+                                                    "auto") else None
+            line = _profile(step, _STEPS, trace, named=_NAMED)
+        finally:
+            env.helper_mode = "auto"
+        print(json.dumps({"phase": phase, "helper_mode": mode, "card": card,
+                          "batch": data.num_examples(),
+                          "shape": list(data.features.shape), **line}),
+              flush=True)
+        del net
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

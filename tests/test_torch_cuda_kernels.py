@@ -66,7 +66,14 @@ widths, its faulted variants breaking bit-exactness, and routing by
 counters with the K-major weight copy made once and remade after an
 in-place change. Attention at a
 head dim past the kernels (D = 320) runs the plain op and counts a
-generic dispatch.
+generic dispatch. ``lstm_layer``'s cuDNN helper (a library call, not a
+hand-written kernel) against its generic: outputs at every position, the
+last h and c and the gradients, forward and reverse, with no mask and a
+right-padded one, from a zero and a carried state; float16; the padded
+positions (the last h forward, the initial h reverse); the gate's
+refusals (interior mask, hardsigmoid gates, a non-tanh cell, bfloat16)
+tallied as generic, and a BiLSTM tagger dispatching cuDNN once a
+direction.
 
 Tolerances, elementwise ``|kernel - plain| <= ATOL + RTOL * |plain|``:
 float32 1e-4 absolute (same math, another summation order; ~1e-6 seen);
@@ -83,7 +90,10 @@ bfloat16 unit (2^-6 relative, 1e-2 absolute) in bfloat16. The fused
 LayerNorm: ``cuda_layernorm.kernel_tolerance`` (float32 1e-5 relative and
 absolute; bfloat16/float16 one unit in the last place plus 1e-5); its
 gradients, the same autograd of the same float32 math on both sides,
-1e-5 in float32.
+1e-5 in float32. cuDNN's LSTM against the generic scan, float32 with
+TF32 off: outputs, h and c 1e-5, gradients 1e-4 (the same products
+summed in cuDNN's order over 12 steps); float16 1e-2 absolute (outputs
+in (-1, 1), ten float16 units at 1).
 """
 
 import functools
@@ -1914,3 +1924,158 @@ def test_attention_head_dim_past_the_kernels_runs_the_plain_op(cuda):
     from deeplearning4j_tpu_torch.ops.nn_ops import dot_product_attention
 
     assert torch.equal(got, dot_product_attention.fn(q, k, v, mask))
+
+
+# ---------------------------------------------------------------------------
+# lstm_layer: cuDNN's LSTM as the registry helper (a library call)
+# ---------------------------------------------------------------------------
+
+LSTM_LENGTHS = [12, 9, 5, 1, 12]
+
+
+def _lstm_inputs(dev, dtype=torch.float32, state=False, t=12, i=7, h=16):
+    n = len(LSTM_LENGTHS)
+    args = [_randn((n, t, i), dtype, dev, 70),
+            0.3 * _randn((i, 4 * h), dtype, dev, 71),
+            0.3 * _randn((h, 4 * h), dtype, dev, 72),
+            0.1 * _randn((4 * h,), dtype, dev, 73)]
+    args += ([_randn((n, h), dtype, dev, 74), _randn((n, h), dtype, dev, 75)]
+             if state else [None, None])
+    return args
+
+
+def _right_mask(dev, t=12):
+    lens = torch.tensor(LSTM_LENGTHS, device=dev)
+    return (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+
+
+def _lstm_tally(op="lstm_layer"):
+    from deeplearning4j_tpu_torch import observe
+
+    return {dict(c.labels)["impl"] + "/" + dict(c.labels)["reason"]:
+            int(c.value) for c in observe.metrics().instruments()
+            if c.name == "dl4j_tpu_helper_dispatch_total"
+            and dict(c.labels)["op"] == op and c.value}
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "reverse"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "right"])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "carried"])
+def test_lstm_layer_cudnn_matches_generic(cuda, reverse, masked, state):
+    """The helper against the generic on the card, float32 (TF32 off):
+    outputs at every position 1e-5, the last h and c 1e-5, and the
+    gradients of x, W, RW, b (and the carried state) 1e-4 — the same
+    products summed in cuDNN's order. Padded positions hold the last h in
+    the forward direction and the initial h in the reverse one."""
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.ops.cudnn_lstm import lstm_layer
+
+    args = _lstm_inputs(cuda, state=state)
+    mask = _right_mask(cuda) if masked else None
+    kw = dict(gate_activation="sigmoid", activation="tanh", reverse=reverse)
+    w = [_randn(s, torch.float32, cuda, 76 + k)
+         for k, s in enumerate([(5, 12, 16), (5, 16), (5, 16)])]
+    outs, grads = {}, {}
+    for name in ("helper", "generic"):
+        leaves = [a.clone().requires_grad_(True) if a is not None else None
+                  for a in args]
+        observe.reset()
+        fn = (functools.partial(exec_op, "lstm_layer") if name == "helper"
+              else lstm_layer.fn)
+        ys = fn(*leaves, mask, **kw)
+        if name == "helper":
+            assert _lstm_tally() == {"cudnn/usable": 1}
+        sum((y * wk).sum() for y, wk in zip(ys, w)).backward()
+        outs[name] = [y.detach() for y in ys]
+        grads[name] = [a.grad for a in leaves if a is not None]
+    for a, b in zip(outs["helper"], outs["generic"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for a, b in zip(grads["helper"], grads["generic"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    if masked:
+        y, h_last = outs["helper"][0], outs["helper"][1]
+        h0 = args[4] if state else torch.zeros_like(h_last)
+        for row, n in enumerate(LSTM_LENGTHS):
+            fill = h0[row] if reverse else h_last[row]
+            assert torch.equal(y[row, n:], fill.expand(12 - n, -1))
+
+
+def test_lstm_layer_cudnn_float16(cuda):
+    """float16, right-padded, both directions: the helper within 1e-2 of
+    the generic (outputs in (-1, 1); ten float16 units at 1 over 12
+    steps)."""
+    from deeplearning4j_tpu_torch.ops.cudnn_lstm import lstm_layer
+
+    args = _lstm_inputs(cuda, dtype=torch.float16)
+    mask = _right_mask(cuda)
+    for reverse in (False, True):
+        kw = dict(gate_activation="sigmoid", activation="tanh",
+                  reverse=reverse)
+        got = exec_op("lstm_layer", *args, mask, **kw)
+        want = lstm_layer.fn(*args, mask, **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                       atol=1e-2)
+
+
+@pytest.mark.parametrize("case", ["interior_mask", "hardsigmoid",
+                                  "identity_cell", "bfloat16"])
+def test_lstm_layer_gate_refuses_what_cudnn_computes_otherwise(cuda, case):
+    """An interior mask, hardsigmoid gates, a non-tanh cell activation and
+    bfloat16 run the generic (tallied ``impl=generic``, the generic's
+    exact result); ``helper_mode="kernel"`` raises instead."""
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.ops.cudnn_lstm import lstm_layer
+
+    dtype = torch.bfloat16 if case == "bfloat16" else torch.float32
+    args = _lstm_inputs(cuda, dtype=dtype)
+    mask = _right_mask(cuda)
+    if case == "interior_mask":
+        mask[0, 3] = 0.0
+    kw = dict(gate_activation="hardsigmoid" if case == "hardsigmoid"
+              else "sigmoid",
+              activation="identity" if case == "identity_cell" else "tanh")
+    observe.reset()
+    got = exec_op("lstm_layer", *args, mask, **kw)
+    assert _lstm_tally() == {"generic/not_usable": 1}
+    for a, b in zip(got, lstm_layer.fn(*args, mask, **kw)):
+        assert torch.equal(a, b)
+    env = environment()
+    env.helper_mode = "kernel"
+    try:
+        with pytest.raises(RuntimeError, match="usable gate refuses"):
+            exec_op("lstm_layer", *args, mask, **kw)
+    finally:
+        env.helper_mode = "auto"
+
+
+def test_bilstm_tagger_dispatches_cudnn_per_direction(cuda):
+    """A small BiLSTM tagger through ``fit`` and ``output`` on the card:
+    two cuDNN dispatches a forward (one a direction), none generic, and
+    its output within 1e-5 of ``helper_mode="generic"`` at every position
+    after a step."""
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch import observe
+
+    conf = (tnn.builder().seed(1).updater(tnn.Adam(learning_rate=5e-3))
+            .list()
+            .layer(tnn.Bidirectional.wrap(tnn.LSTM(n_out=16,
+                                                   activation="tanh")))
+            .layer(tnn.RnnOutputLayer(n_out=5, activation="softmax"))
+            .set_input_type(tnn.InputType.recurrent(7)).build())
+    net = tnn.MultiLayerNetwork(conf, device=cuda).init()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((5, 12, 7), dtype=np.float32)
+    y = np.eye(5, dtype=np.float32)[rng.integers(0, 5, (5, 12))]
+    m = _right_mask(cuda).cpu().numpy()
+    observe.reset()
+    net.fit(x, y, batch_size=5)
+    got = net.output(x, m)
+    assert _lstm_tally() == {"cudnn/usable": 4}   # fit's forward, output
+    env = environment()
+    env.helper_mode = "generic"
+    try:
+        want = net.output(x, m)
+    finally:
+        env.helper_mode = "auto"
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -334,10 +334,19 @@ def test_float64_numpy_input_computes_in_float32_as_jax():
 
 
 def test_unported_layer_types_are_refused_by_name():
+    """A layer type the port has not ported is refused by name, by the
+    graph's JSON and by the sequential network's."""
     text = _small_graph_json(False, "float32").replace(
-        '"@type": "ActivationLayer"', '"@type": "LSTM"', 1)
-    with pytest.raises(ValueError, match="'LSTM' is not ported"):
+        '"@type": "ActivationLayer"', '"@type": "SelfAttentionLayer"', 1)
+    with pytest.raises(ValueError, match="'SelfAttentionLayer' is not ported"):
         tgraph.ComputationGraphConfiguration.from_json(text)
+    mlc = (jnn.builder().list()
+           .layer(jnn.DenseLayer(n_in=4, n_out=3, activation="relu"))
+           .layer(jnn.OutputLayer(n_in=3, n_out=2)).build())
+    text = mlc.to_json().replace('"@type": "DenseLayer"',
+                                 '"@type": "SelfAttentionLayer"', 1)
+    with pytest.raises(ValueError, match="'SelfAttentionLayer' is not ported"):
+        tconf.MultiLayerConfiguration.from_json(text)
 
 
 # ---------------------------------------------------------------------------
