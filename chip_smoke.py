@@ -215,6 +215,34 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    1e-5 relative); the free-running trajectories are reported beside
    their one-ulp yardstick. ``rnn_time_step`` fed 50 steps one at a time
    must equal ``output`` over the same 50 within 1e-4. Reports tokens/s.
+15. ``zoo_cnn`` — the zoo's vision families at their zoo defaults (the
+   reference's constructor defaults: full width, the zoo's input size;
+   ``testing/zoo_cnn.py``): SimpleCNN 48² b64, AlexNet 224² b128, VGG16
+   and VGG19 224² b32, Darknet19 224² b64, SqueezeNet 227² b64, UNet
+   128²×1 b16, Xception 299² b32 (8 middle blocks), InceptionResNetV1
+   160² b64 (blocks 5, 10, 5), each through ``Zoo().init()`` → ``fit``:
+   3 steps ``helper_mode="generic"``, then 3 counted steps from the same
+   start on the same batches (launch counts set to 0 just before), with
+   a ``CollectScoresIterationListener`` and a ``PerformanceListener``
+   attached. Checks: one updater launch a step for each table of at most
+   256 leaves (InceptionResNetV1's 366 leaves take 2); losses and
+   parameters held to the generic run as ``train`` holds ResNet-50, and
+   for the four models with overlapping 3×3/2 max pools within
+   max(1e-5, 3× a generic run from parameters one ulp away); ``output``
+   on 2 images on the card against the port's CPU ``output`` of the same
+   parameters (1e-3 relative + 1e-5 of the output's largest magnitude,
+   TF32 off); ``evaluate`` on
+   a held batch against numpy's argmax agreement (UNet: a
+   ``RegressionEvaluation`` against numpy's mean squared error); the
+   listener's 3 scores equal to the run's losses. UNet has no loss
+   layer in the reference: its score is 0 and no parameter moves. Then
+   TinyYOLO and YOLO2 at 416×416×3, batch 8: ``output`` through the
+   kernels against the generic and against the CPU, and ``yolo_loss``
+   with its gradient w.r.t. the prediction finite and equal to the
+   generic's. Reports each model's step p50, images/s, parameters, peak
+   memory, FLOPs a step (from the convolution and dense shapes) and
+   their share of 67 TFLOP/s (float32 without tensor cores), and the
+   phase's seconds.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -404,6 +432,18 @@ LSTM_OUT_TOL = 1e-5     # probabilities, every position
 STATE_TOL = 1e-5        # carried h and c, absolute + relative: c is
                         # unbounded (tens of units in a loss spike)
 STREAM_TOL = 1e-4       # rnn_time_step vs output, BASELINE.md's gate
+# zoo_cnn: the overlapping-pool models against the generic run, as the
+# recurrent phases hold theirs, with floors of 1e-5; the card's output
+# against the port's CPU output of the same parameters (float32 both,
+# TF32 off; cuDNN and the CPU's library sum in other orders)
+ZOO_LOSS_RTOL = 1e-5
+ZOO_MOVE_RTOL = 1e-5
+ZOO_CPU_RTOL = 1e-3
+ZOO_CPU_ATOL = 1e-5
+ZOO_STEPS = 3
+ZOO_CPU_IMAGES = 2
+ZOO_CPU_TOL_TEXT = (f"{ZOO_CPU_ATOL:g} x max(1, max |cpu|) + {ZOO_CPU_RTOL:g}"
+                    f" x |cpu|, elementwise, {ZOO_CPU_IMAGES} images")
 
 
 def emit(obj) -> None:
@@ -2099,6 +2139,10 @@ def sd_bert_finetune_phase(dev, smi):
             info = {"losses": losses, "times_ms": [t * 1e3 for t in times],
                     "step_p50_ms": float(np.percentile(times, 50)) * 1e3,
                     "peak_memory_gib": peak,
+        "peak_memory_counted": "the counted run's peak allocation above "
+                               "what was allocated before it (the model, "
+                               "its updater state and earlier phases' "
+                               "leftovers)",
                     "resident_before_gib": resident,  # earlier phases'
                     "fusions": st.fusions,
                     "plan_nodes": st.nodes_after}
@@ -2610,18 +2654,19 @@ def _mln_main_path(net, batches):
     return start, generic, kernel, launches, leaves, tally
 
 
-def _rnn_agreement(start, generic, kernel, yard) -> tuple:
-    """Losses and parameters of the cuDNN run against the generic run:
-    each loss within max(RNN_LOSS_RTOL relative, RNN_YARDSTICK × the
-    one-ulp-nudged generic run's distance), the parameter moves within
-    max(RNN_MOVE_RTOL, RNN_YARDSTICK × the yardstick's) in relative L2
-    norm. Returns (problems, line fields)."""
-    loss_lim = [max(RNN_LOSS_RTOL * abs(g), RNN_YARDSTICK * abs(y - g))
+def _rnn_agreement(start, generic, kernel, yard, loss_rtol=RNN_LOSS_RTOL,
+                   move_rtol=RNN_MOVE_RTOL) -> tuple:
+    """Losses and parameters of the kernel (cuDNN) run against the
+    generic run: each loss within max(``loss_rtol`` relative,
+    RNN_YARDSTICK × the one-ulp-nudged generic run's distance), the
+    parameter moves within max(``move_rtol``, RNN_YARDSTICK × the
+    yardstick's) in relative L2 norm. Returns (problems, line fields)."""
+    loss_lim = [max(loss_rtol * abs(g), RNN_YARDSTICK * abs(y - g))
                 for g, y in zip(generic[0], yard[0])]
     loss_diff = [abs(k - g) for k, g in zip(kernel[0], generic[0])]
     move = _move_distance(kernel[2], generic[2], start[0])
     yard_move = _move_distance(yard[2], generic[2], start[0])
-    move_lim = max(RNN_MOVE_RTOL, RNN_YARDSTICK * yard_move)
+    move_lim = max(move_rtol, RNN_YARDSTICK * yard_move)
     problems = []
     if not all(math.isfinite(v) for v in kernel[0] + generic[0] + yard[0]):
         problems.append("non-finite loss")
@@ -2638,8 +2683,8 @@ def _rnn_agreement(start, generic, kernel, yard) -> tuple:
             yard_move, "param_move_limit": move_lim,
         "param_max_abs_diff": _max_diff(kernel[2], generic[2]),
         "param_max_move_generic": _max_diff(start[0], generic[2]),
-        "tol": (f"loss max({RNN_LOSS_RTOL:g} relative, {RNN_YARDSTICK:g} x "
-                f"yardstick); parameter moves max({RNN_MOVE_RTOL:g}, "
+        "tol": (f"loss max({loss_rtol:g} relative, {RNN_YARDSTICK:g} x "
+                f"yardstick); parameter moves max({move_rtol:g}, "
                 f"{RNN_YARDSTICK:g} x yardstick) relative L2")}
 
 
@@ -2959,6 +3004,341 @@ def _tbptt_segment_checks(net, start, ds):
                f"from the generic run's state"}
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _first_output(out):
+    return out[0] if isinstance(out, list) else out
+
+
+def _zoo_run(net, start, mode, batches, *, dev, listeners=(), nudge=False):
+    """``net.fit`` over ``batches`` (one ``fit`` call each) from the
+    cloned ``start`` state, the dropout generator reseeded, under
+    ``helper_mode=mode``: (scores, host seconds a step, parameters)."""
+    from deeplearning4j_tpu_torch.environment import environment
+
+    env = environment()
+    env.helper_mode = mode
+    net.params = (_nudged(start[0], np.random.default_rng(8)) if nudge
+                  else _clone_tree(start[0]))
+    net.opt_state, net.net_state = (_clone_tree(t) for t in start[1:])
+    net.iteration_count = 0
+    net._gen.manual_seed(net.conf.seed)
+    net.set_listeners(*listeners)
+    scores, times = [], []
+    try:
+        for x, y in batches:
+            _sync(dev)
+            t0 = time.perf_counter()
+            net.fit(x, y, batch_size=x.shape[0])
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            scores.append(net.score())
+    finally:
+        env.helper_mode = "auto"
+        net.set_listeners()
+    return scores, times, _clone_tree(net.params)
+
+
+def _cpu_copy(name, net, kwargs):
+    """The port's network of the same zoo model on the CPU, with
+    ``net``'s parameters and layer state."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models._tree import params_from_numpy
+
+    cpu = getattr(zoo, name)(device="cpu", **kwargs).init(net.params)
+    cpu.net_state = params_from_numpy(net.net_state, "cpu")
+    return cpu
+
+
+def _card_vs_cpu(name, net, kwargs, x) -> tuple:
+    """``output`` on the card and on the CPU copy, elementwise within
+    ZOO_CPU_ATOL × max(1, max |cpu|) + ZOO_CPU_RTOL × |cpu| (a raw
+    detection head is not a probability: its absolute rounding scales
+    with its largest value). Returns (max abs diff, max |cpu|,
+    problems)."""
+    card = _first_output(net.output(x))
+    cpu = _first_output(_cpu_copy(name, net, kwargs).output(x))
+    diff = np.abs(card - cpu)
+    scale = float(np.abs(cpu).max())
+    lim = ZOO_CPU_ATOL * max(1.0, scale) + ZOO_CPU_RTOL * np.abs(cpu)
+    problems = []
+    if not np.isfinite(card).all() or card.shape != cpu.shape:
+        problems.append(f"card output {card.shape} not finite or not the "
+                        f"CPU's {cpu.shape}")
+    elif (diff > lim).any():
+        problems.append(f"card vs CPU output {float(diff.max())} beyond "
+                        f"{ZOO_CPU_ATOL:g} x max(1, {scale}) + "
+                        f"{ZOO_CPU_RTOL:g} x |cpu|")
+    return float(diff.max()), scale, problems
+
+
+def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
+    """One trainable zoo model at its defaults: generic run, counted run
+    with the listeners, the yardstick where the pools overlap, card vs
+    CPU, ``evaluate``. Returns (problems, line, updater launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.eval import RegressionEvaluation
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models._tree import leaf_paths
+    from deeplearning4j_tpu_torch.nn import listeners as L
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.testing import zoo_cnn as Z
+
+    t_start = time.perf_counter()
+    kwargs = kwargs or {}
+    model = getattr(zoo, name)(device=dev, **kwargs)
+    net = model.init()
+    problems = []
+    if type(net.conf.updater).__name__ != updater:
+        problems.append(f"zoo updater {type(net.conf.updater).__name__} "
+                        f"!= {updater}")
+    n_leaves = len(list(leaf_paths(net.params)))
+    batches, held = Z.batches(model, batch, ZOO_STEPS)
+    start = (_clone_tree(net.params), _clone_tree(net.opt_state),
+             _clone_tree(net.net_state))
+    _zoo_run(net, start, "auto", batches[:1], dev=dev)  # warm-up
+    generic = _zoo_run(net, start, "generic", batches, dev=dev)
+    collect = L.CollectScoresIterationListener()
+    perf = L.PerformanceListener(frequency=1)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 2 ** 30
+    cu.fused_updater.launches = cu.fused_updater.leaves = 0
+    kernel = _zoo_run(net, start, "auto", batches, dev=dev,  # counted
+                      listeners=(collect, perf))
+    launches = cu.fused_updater.launches
+    leaves = cu.fused_updater.leaves                           # ... ends
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 - before
+            if dev.type == "cuda" else None)
+    problems += updater_count_problems(launches, leaves, n_leaves, ZOO_STEPS)
+    if not all(math.isfinite(v) for v in kernel[0] + generic[0]):
+        problems.append("non-finite loss")
+    line = {"phase": "zoo_cnn", "card": smi, "model": f"{name}()",
+            "input": list(model.input_shape), "batch": batch,
+            "updater": updater, "steps": ZOO_STEPS, "leaves": n_leaves,
+            "params": net.num_params(),
+            "launches": {"fused_updater": launches},
+            "fused_updater_leaves": leaves,
+            "losses_generic": generic[0], "losses_kernel": kernel[0]}
+    if name in Z.OVERLAPPING_POOLS:
+        yard = _zoo_run(net, start, "generic", batches, dev=dev, nudge=True)
+        agree, fields = _rnn_agreement(start, generic, kernel, yard,
+                                       loss_rtol=ZOO_LOSS_RTOL,
+                                       move_rtol=ZOO_MOVE_RTOL)
+        problems += agree
+        line["against_generic"] = dict(
+            fields, bit_equal=_max_diff(kernel[2], generic[2]) == 0.0)
+    else:
+        param_diff = _max_diff(kernel[2], generic[2])
+        moved = _max_diff(start[0], generic[2])
+        if any(abs(a - b) > TRAIN_A_LOSS_RTOL * abs(b)
+               for a, b in zip(kernel[0], generic[0])):
+            problems.append(f"losses {kernel[0]} vs generic {generic[0]}")
+        if param_diff > TRAIN_A_PARAM_SHARE * moved:
+            problems.append(f"param diff {param_diff} > "
+                            f"{TRAIN_A_PARAM_SHARE} x {moved}")
+        line["against_generic"] = {
+            "param_max_abs_diff": param_diff,
+            "param_max_move_generic": moved,
+            "tol": f"loss {TRAIN_A_LOSS_RTOL:g} relative; params "
+                   f"{TRAIN_A_PARAM_SHARE:g} x the largest 3-step move"}
+    if name == "UNet":  # no loss layer in the reference's UNet
+        if any(kernel[0] + generic[0]) or _max_diff(start[0], kernel[2]):
+            problems.append("UNet moved: the reference's has no loss layer")
+    scores = [s for _, s in collect.scores]
+    if ([i for i, _ in collect.scores] != list(range(1, ZOO_STEPS + 1))
+            or scores != kernel[0]):
+        problems.append(f"listener scores {collect.scores} != losses "
+                        f"{kernel[0]}")
+    if len(perf.history) != ZOO_STEPS - 1:
+        problems.append(f"PerformanceListener {len(perf.history)} records")
+    # the card against the CPU, on the trained parameters
+    net.params = kernel[2]
+    cpu_diff, cpu_scale, cpu_problems = _card_vs_cpu(
+        name, net, kwargs, held[0][:ZOO_CPU_IMAGES])
+    problems += cpu_problems
+    # evaluate on the held batch
+    out = _first_output(net.output(held[0]))
+    if name == "UNet":
+        ev = net.evaluate(DataSet(*held), RegressionEvaluation())
+        got = ev.average_mean_squared_error()
+        want = float(((out.astype(np.float64) - held[1]) ** 2).mean())
+        ok = math.isclose(got, want, rel_tol=1e-12)
+        ev_line = {"evaluation": "RegressionEvaluation",
+                   "average_mse": got, "numpy_mse": want}
+    else:
+        ev = net.evaluate(DataSet(*held))
+        got = ev.accuracy()
+        want = float((out.argmax(-1) == held[1].argmax(-1)).mean())
+        ok = got == want
+        ev_line = {"evaluation": type(ev).__name__, "accuracy": got,
+                   "numpy_argmax_agreement": want}
+    if not ok:
+        problems.append(f"evaluate {got} != numpy {want}")
+    flops = Z.step_flops(net, batch)
+    p50 = float(np.percentile(kernel[1], 50))
+    wall = time.perf_counter() - t_start
+    line.update({
+        "card_vs_cpu_max_abs_diff": cpu_diff, "cpu_max_abs": cpu_scale,
+        "card_vs_cpu_tol": ZOO_CPU_TOL_TEXT,
+        "evaluate": ev_line,
+        "listener_scores": scores,
+        "performance_listener": perf.history,
+        "smoke_reading": f"{ZOO_STEPS} steps, no spread",
+        "step_p50_ms": p50 * 1e3, "images_per_s": batch / p50,
+        "generic_step_p50_ms": float(np.percentile(generic[1], 50)) * 1e3,
+        "peak_memory_gib": peak,
+        "peak_memory_counted": "the counted run's peak allocation above "
+                               "what was allocated before it (the model, "
+                               "its updater state and earlier phases' "
+                               "leftovers)",
+        "flops_per_step": flops["step"],
+        "flops_counted": "2 x multiply-adds of the conv and dense layers: "
+                         "forward, weight gradient, input gradient (none "
+                         "into the network input)",
+        "tflops_per_s": flops["step"] / p50 / 1e12,
+        "share_of_67_tflops_f32": flops["step"] / p50 / PEAK_FLOPS[
+            "float32"],
+        "wall_s": wall, "problems": problems})
+    del net
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return problems, line, launches
+
+
+def zoo_detect_case(name, batch, dev, smi, kwargs=None):
+    """A detector at its defaults (416×416×3): ``output`` through the
+    kernels against the generic and the CPU; ``yolo_loss`` and its
+    gradient w.r.t. the prediction. Returns (problems, line)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.testing import zoo_cnn as Z
+
+    t_start = time.perf_counter()
+    kwargs = kwargs or {}
+    env = environment()
+    model = getattr(zoo, name)(device=dev, **kwargs)
+    net = model.init()
+    _, (x, _) = Z.batches(model, batch, 0)
+    env.helper_mode = "generic"
+    try:
+        _first_output(net.output(x))                     # warm-up
+        generic = _first_output(net.output(x))
+    finally:
+        env.helper_mode = "auto"
+    cu.fused_updater.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = _first_output(net.output(x))                   # counted
+    _sync(dev)
+    fwd_s = time.perf_counter() - t0
+    problems = []
+    if cu.fused_updater.launches:
+        problems.append("an inference forward launched the updater")
+    gh, gw = model.input_shape[0] // 32, model.input_shape[1] // 32
+    depth = model.num_boxes * (5 + model.num_classes)
+    if out.shape != (batch, gh, gw, depth) or not np.isfinite(out).all():
+        problems.append(f"head {out.shape} not finite or not "
+                        f"{(batch, gh, gw, depth)}")
+    vs_generic = float(np.abs(out - generic).max())
+    if vs_generic > ZOO_CPU_ATOL:
+        problems.append(f"output vs generic {vs_generic}")
+    cpu_diff, cpu_scale, cpu_problems = _card_vs_cpu(
+        name, net, kwargs, x[:ZOO_CPU_IMAGES])
+    problems += cpu_problems
+    rng = np.random.default_rng(9)
+    target = np.zeros((batch, gh, gw, model.num_boxes,
+                       5 + model.num_classes), np.float32)
+    target[..., :4] = rng.random(target.shape[:-1] + (4,))
+    obj = rng.random(target.shape[:-1]) < 0.05
+    target[..., 4] = obj
+    target[..., 5:] = np.eye(model.num_classes, dtype=np.float32)[
+        rng.integers(0, model.num_classes, target.shape[:-1])] * obj[
+        ..., None]
+    losses = {}
+    for mode, pred_np in (("generic", generic), ("auto", out)):
+        env.helper_mode = mode
+        try:
+            pred = torch.tensor(pred_np, device=dev, requires_grad=True)
+            loss = model.yolo_loss(pred, torch.from_numpy(target).to(dev))
+            (grad,) = torch.autograd.grad(loss, pred)
+            losses[mode] = (float(loss.detach()), grad.cpu().numpy())
+        finally:
+            env.helper_mode = "auto"
+    (lg, gg), (lk, gk) = losses["generic"], losses["auto"]
+    grad_diff = float(np.abs(gk - gg).max())
+    if not (math.isfinite(lk) and np.isfinite(gk).all()):
+        problems.append("yolo_loss or its gradient not finite")
+    if abs(lk - lg) > ZOO_LOSS_RTOL * abs(lg) or grad_diff > ZOO_CPU_ATOL:
+        problems.append(f"yolo_loss {lk} vs generic {lg}, gradient "
+                        f"{grad_diff}")
+    flops = Z.step_flops(net, batch)
+    line = {"phase": "zoo_cnn", "card": smi, "model": f"{name}()",
+            "input": list(model.input_shape), "batch": batch,
+            "params": net.num_params(), "head": list(out.shape),
+            "output_vs_generic_max_abs_diff": vs_generic,
+            "card_vs_cpu_max_abs_diff": cpu_diff, "cpu_max_abs": cpu_scale,
+            "card_vs_cpu_tol": ZOO_CPU_TOL_TEXT, "yolo_loss": lk,
+            "yolo_loss_generic": lg,
+            "yolo_grad_vs_generic_max_abs_diff": grad_diff,
+            "forward_ms": fwd_s * 1e3, "images_per_s": batch / fwd_s,
+            "flops_per_forward": flops["forward"],
+            "share_of_67_tflops_f32": flops["forward"] / fwd_s / PEAK_FLOPS[
+                "float32"],
+            "smoke_reading": "one forward, no spread",
+            "wall_s": time.perf_counter() - t_start, "problems": problems}
+    del net
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return problems, line
+
+
+def zoo_cnn_phase(dev, smi, train=None, detect=None, kwargs=None):
+    """The ``zoo_cnn`` phase: every trainable cell of
+    ``testing/zoo_cnn.TRAIN`` and every detector of ``DETECT`` (or the
+    ones given), each model's constructor ``kwargs`` its defaults unless
+    given. Emits a line a model and a summary; returns (problems,
+    launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.testing import zoo_cnn as Z
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    kwargs = kwargs or {}
+    t0 = time.perf_counter()
+    problems, launches = [], 0
+    for name, batch, updater in (Z.TRAIN if train is None else train):
+        found, line, n = zoo_train_case(name, batch, updater, dev, smi,
+                                        kwargs.get(name))
+        emit(line)
+        problems += [f"{name}: {p}" for p in found]
+        launches += n
+    for name, batch in (Z.DETECT if detect is None else detect):
+        found, line = zoo_detect_case(name, batch, dev, smi,
+                                      kwargs.get(name))
+        emit(line)
+        problems += [f"{name}: {p}" for p in found]
+    emit({"phase": "zoo_cnn", "card": smi, "summary": True,
+          "models": len(Z.TRAIN if train is None else train)
+          + len(Z.DETECT if detect is None else detect),
+          "fused_updater_launches": launches,
+          "seconds": time.perf_counter() - t0, "problems": problems})
+    return problems, {"fused_updater": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3256,6 +3636,11 @@ def main() -> int:
         emit(line)
         if problems:
             raise SystemExit(f"{phase} phase failed: {problems}")
+
+    # ------------------------------------------------------------ zoo_cnn
+    problems, train_launches["zoo_cnn"] = zoo_cnn_phase(dev, smi)
+    if problems:
+        raise SystemExit(f"zoo_cnn phase failed: {problems}")
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it

@@ -1,14 +1,22 @@
 """DataSet and the iterators ``fit`` uses.
 
 Counterpart of the part of ``deeplearning4j_tpu/datasets/dataset.py`` that
-``ComputationGraph.fit`` reaches: ``DataSet`` (features/labels and their
-masks, host numpy), ``DataSetIterator`` and ``ListDataSetIterator``.
-Batches stay numpy on the host; ``fit`` moves each to the device.
+``fit`` reaches: ``DataSet`` (features/labels and their masks, host
+numpy), ``DataSetIterator`` and ``ListDataSetIterator``; and the
+normalizers (``api/preprocessor/*``): ``NormalizerStandardize``,
+``NormalizerMinMaxScaler`` and ``ImagePreProcessingScaler``, whose
+``state()`` / ``load_state`` the model zips carry. Batches stay numpy on
+the host; ``fit`` moves each to the device.
+
+The JAX package normalizes uint8 image batches in a native loop
+(``native_ops/pixops.py``); the port computes the same float32
+arithmetic in numpy (its documented fallback): (x − mean) · (1 / std)
+channel-last for the standardizer, x · scale + shift for the scalers.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Iterator, List, Sequence
 
 import numpy as np
 
@@ -40,6 +48,20 @@ class DataSet:
                                cut(self.features_mask), cut(self.labels_mask)))
         return out
 
+    @staticmethod
+    def merge(sets: Sequence["DataSet"]) -> "DataSet":
+        def cat(parts):
+            if any(p is None for p in parts):
+                return None
+            return np.concatenate(parts, axis=0)
+
+        return DataSet(
+            np.concatenate([d.features for d in sets], axis=0),
+            cat([d.labels for d in sets]),
+            cat([d.features_mask for d in sets]),
+            cat([d.labels_mask for d in sets]),
+        )
+
 
 class DataSetIterator:
     """DataSetIterator.java analog: an iterable of DataSet batches."""
@@ -61,3 +83,117 @@ class ListDataSetIterator(DataSetIterator):
             yield from self._data.batch_by(self.batch_size)
         else:
             yield from self._data
+
+
+# ---------------------------------------------------------------------------
+# Normalizers (api/preprocessor/*)
+# ---------------------------------------------------------------------------
+
+
+def _features(data):
+    return (data.features if isinstance(data, DataSet)
+            else DataSet.merge(list(data)).features)
+
+
+def _u8_affine(img, scale: float, shift: float) -> np.ndarray:
+    """float32 img · scale + shift of a uint8 batch (``u8_normalize``)."""
+    out = np.multiply(np.ascontiguousarray(img, np.uint8), np.float32(scale),
+                      dtype=np.float32)
+    out += np.float32(shift)
+    return out
+
+
+class NormalizerStandardize:
+    """NormalizerStandardize.java: per-feature z-score (the trailing axis)
+    from fitted statistics."""
+
+    def __init__(self):
+        self.mean = None
+        self.std = None
+
+    def fit(self, data) -> None:
+        feats = _features(data)
+        axes = tuple(range(feats.ndim - 1))
+        self.mean = feats.mean(axis=axes)
+        self.std = feats.std(axis=axes) + 1e-8
+
+    def transform(self, ds: DataSet) -> None:
+        if (getattr(ds.features, "dtype", None) == np.uint8
+                and np.ndim(self.mean) == 1
+                and ds.features.shape[-1] == np.shape(self.mean)[0]):
+            c = ds.features.shape[-1]
+            mean = np.broadcast_to(self.mean, (c,)).astype(np.float32)
+            inv = (1.0 / np.maximum(np.broadcast_to(self.std, (c,)).astype(
+                np.float32), 1e-8)).astype(np.float32)
+            ds.features = ((ds.features.astype(np.float32) - mean)
+                           * inv).astype(np.float32)
+            return
+        ds.features = (ds.features - self.mean) / self.std
+
+    def revert(self, ds: DataSet) -> None:
+        ds.features = ds.features * self.std + self.mean
+
+    def state(self):
+        return {"mean": self.mean, "std": self.std}
+
+    def load_state(self, s):
+        self.mean, self.std = np.asarray(s["mean"]), np.asarray(s["std"])
+
+
+class NormalizerMinMaxScaler:
+    """NormalizerMinMaxScaler.java: rescale features to [lo, hi] by the
+    fitted global min and max."""
+
+    def __init__(self, lo: float = 0.0, hi: float = 1.0):
+        self.lo, self.hi = lo, hi
+        self.fmin = None
+        self.fmax = None
+
+    def fit(self, data) -> None:
+        feats = _features(data)
+        flat = feats.reshape(feats.shape[0], -1)
+        self.fmin = flat.min()
+        self.fmax = flat.max()
+
+    def transform(self, ds: DataSet) -> None:
+        rng = max(self.fmax - self.fmin, 1e-8)
+        if getattr(ds.features, "dtype", None) == np.uint8:
+            scale = (self.hi - self.lo) / rng
+            ds.features = _u8_affine(ds.features, scale,
+                                     self.lo - self.fmin * scale)
+            return
+        ds.features = ((ds.features - self.fmin) / rng * (self.hi - self.lo)
+                       + self.lo)
+
+    def state(self):
+        return {"fmin": self.fmin, "fmax": self.fmax, "lo": self.lo,
+                "hi": self.hi}
+
+    def load_state(self, s):
+        self.fmin, self.fmax = s["fmin"], s["fmax"]
+        self.lo, self.hi = s.get("lo", 0.0), s.get("hi", 1.0)
+
+
+class ImagePreProcessingScaler:
+    """ImagePreProcessingScaler.java: pixels [0, max_pixel] → [lo, hi]."""
+
+    def __init__(self, lo: float = 0.0, hi: float = 1.0,
+                 max_pixel: float = 255.0):
+        self.lo, self.hi, self.max_pixel = lo, hi, max_pixel
+
+    def fit(self, data) -> None:  # stateless
+        pass
+
+    def transform(self, ds: DataSet) -> None:
+        if getattr(ds.features, "dtype", None) == np.uint8:
+            ds.features = _u8_affine(
+                ds.features, (self.hi - self.lo) / self.max_pixel, self.lo)
+            return
+        ds.features = (ds.features / self.max_pixel * (self.hi - self.lo)
+                       + self.lo)
+
+    def state(self):
+        return {"lo": self.lo, "hi": self.hi, "max_pixel": self.max_pixel}
+
+    def load_state(self, s):
+        self.lo, self.hi, self.max_pixel = s["lo"], s["hi"], s["max_pixel"]

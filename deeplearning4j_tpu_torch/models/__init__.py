@@ -10,7 +10,9 @@ from deeplearning4j_tpu_torch.models.gpt import (
     reference_generate, restore_gpt, save_gpt,
 )
 from deeplearning4j_tpu_torch.models.zoo import (
-    LeNet, ResNet50, TextGenerationLSTM, ZooModel, graph_state_from_numpy,
+    GPT, VGG16, VGG19, YOLO2, AlexNet, Darknet19, InceptionResNetV1, LeNet,
+    ResNet50, SimpleCNN, SqueezeNet, TextGenerationLSTM, TinyYOLO, UNet,
+    Xception, ZooModel, graph_state_from_numpy,
 )
 
 __all__ = [
@@ -19,6 +21,8 @@ __all__ = [
     "mlm_logits",
     "GptConfig", "GptModel", "gpt_decode_step", "gpt_prefill",
     "params_from_numpy", "reference_generate", "restore_gpt", "save_gpt",
-    "LeNet", "ResNet50", "TextGenerationLSTM", "ZooModel",
+    "GPT", "VGG16", "VGG19", "YOLO2", "AlexNet", "Darknet19",
+    "InceptionResNetV1", "LeNet", "ResNet50", "SimpleCNN", "SqueezeNet",
+    "TextGenerationLSTM", "TinyYOLO", "UNet", "Xception", "ZooModel",
     "graph_state_from_numpy",
 ]

@@ -1,24 +1,35 @@
 """The DL4J network API of the port: layer configs, the sequential
 network (``MultiLayerNetwork``, its builder and model zips), the
-ComputationGraph runtime, updaters and dtype policies (trained with
-autograd)."""
+ComputationGraph runtime with its vertices and zips, listeners, updaters
+and dtype policies (trained with autograd)."""
 
 from deeplearning4j_tpu_torch.nn.conf import (
     GRU, LSTM, ActivationLayer, BatchNormalization, Bidirectional,
-    CnnToFeedForwardPreProcessor, ConvolutionLayer, DenseLayer, DropoutLayer,
-    EmbeddingLayer, EmbeddingSequenceLayer, FeedForwardToCnnPreProcessor,
+    CnnToFeedForwardPreProcessor, ConvolutionLayer, Deconvolution2D,
+    DenseLayer, DepthwiseConvolution2D, DropoutLayer, EmbeddingLayer,
+    EmbeddingSequenceLayer, FeedForwardToCnnPreProcessor,
     FeedForwardToRnnPreProcessor, FusedBottleneck, GlobalPoolingLayer,
     GravesLSTM, InputPreProcessor, InputType, LastTimeStep, LayerConf,
-    LossLayer, MultiLayerConfiguration, NeuralNetConfigurationBuilder,
-    OutputLayer, RnnLossLayer, RnnOutputLayer, RnnToFeedForwardPreProcessor,
-    SimpleRnn, SubsamplingLayer, builder,
+    LocalResponseNormalization, LossLayer, MultiLayerConfiguration,
+    NeuralNetConfigurationBuilder, OutputLayer, RnnLossLayer,
+    RnnOutputLayer, RnnToFeedForwardPreProcessor, SeparableConvolution2D,
+    SimpleRnn, SpaceToDepthLayer, SubsamplingLayer, Upsampling2D, builder,
 )
 from deeplearning4j_tpu_torch.nn.graph import (
-    ComputationGraph, ComputationGraphConfiguration, ElementWiseVertex,
-    GraphBuilder, graph_builder,
+    ComputationGraph, ComputationGraphConfiguration, DotProductVertex,
+    DuplicateToTimeSeriesVertex, ElementWiseVertex, FlattenVertex,
+    GraphBuilder, L2NormalizeVertex, LastTimeStepVertex, MergeVertex,
+    ReshapeVertex, ScaleVertex, ShiftVertex, StackVertex, SubsetVertex,
+    UnstackVertex, graph_builder, restore_graph, save_graph,
+)
+from deeplearning4j_tpu_torch.nn.listeners import (
+    CheckpointListener, CollectScoresIterationListener, EvaluativeListener,
+    PerformanceListener, ScoreIterationListener, TimeIterationListener,
+    TrainingListener,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-from deeplearning4j_tpu_torch.nn.serde import restore_model, save_model
+from deeplearning4j_tpu_torch.nn.serde import (
+    restore_model, restore_normalizer, save_model)
 from deeplearning4j_tpu_torch.nn.updater import (
     UPDATERS, AdaDelta, AdaGrad, AdaMax, Adam, AmsGrad, Frozen, Nadam,
     Nesterovs, NoOp, RmsProp, Sgd, get_updater,
@@ -26,17 +37,26 @@ from deeplearning4j_tpu_torch.nn.updater import (
 
 __all__ = [
     "GRU", "LSTM", "ActivationLayer", "BatchNormalization", "Bidirectional",
-    "CnnToFeedForwardPreProcessor", "ConvolutionLayer", "DenseLayer",
-    "DropoutLayer", "EmbeddingLayer", "EmbeddingSequenceLayer",
-    "FeedForwardToCnnPreProcessor", "FeedForwardToRnnPreProcessor",
-    "FusedBottleneck", "GlobalPoolingLayer", "GravesLSTM",
-    "InputPreProcessor", "InputType", "LastTimeStep", "LayerConf",
-    "LossLayer", "MultiLayerConfiguration", "NeuralNetConfigurationBuilder",
+    "CnnToFeedForwardPreProcessor", "ConvolutionLayer", "Deconvolution2D",
+    "DenseLayer", "DepthwiseConvolution2D", "DropoutLayer", "EmbeddingLayer",
+    "EmbeddingSequenceLayer", "FeedForwardToCnnPreProcessor",
+    "FeedForwardToRnnPreProcessor", "FusedBottleneck", "GlobalPoolingLayer",
+    "GravesLSTM", "InputPreProcessor", "InputType", "LastTimeStep",
+    "LayerConf", "LocalResponseNormalization", "LossLayer",
+    "MultiLayerConfiguration", "NeuralNetConfigurationBuilder",
     "OutputLayer", "RnnLossLayer", "RnnOutputLayer",
-    "RnnToFeedForwardPreProcessor", "SimpleRnn", "SubsamplingLayer",
-    "builder", "ComputationGraph", "ComputationGraphConfiguration",
-    "ElementWiseVertex", "GraphBuilder", "graph_builder",
-    "MultiLayerNetwork", "restore_model", "save_model",
+    "RnnToFeedForwardPreProcessor", "SeparableConvolution2D", "SimpleRnn",
+    "SpaceToDepthLayer", "SubsamplingLayer", "Upsampling2D", "builder",
+    "ComputationGraph", "ComputationGraphConfiguration",
+    "DotProductVertex", "DuplicateToTimeSeriesVertex", "ElementWiseVertex",
+    "FlattenVertex", "GraphBuilder", "L2NormalizeVertex",
+    "LastTimeStepVertex", "MergeVertex", "ReshapeVertex", "ScaleVertex",
+    "ShiftVertex", "StackVertex", "SubsetVertex", "UnstackVertex",
+    "graph_builder", "restore_graph", "save_graph",
+    "CheckpointListener", "CollectScoresIterationListener",
+    "EvaluativeListener", "PerformanceListener", "ScoreIterationListener",
+    "TimeIterationListener", "TrainingListener",
+    "MultiLayerNetwork", "restore_model", "restore_normalizer", "save_model",
     "UPDATERS", "AdaDelta", "AdaGrad", "AdaMax", "Adam", "AmsGrad", "Frozen",
     "Nadam", "Nesterovs", "NoOp", "RmsProp", "Sgd", "get_updater",
 ]

@@ -4,7 +4,11 @@ Counterpart of ``deeplearning4j_tpu/nn/conf.py`` for the ported layers:
 ``InputType``; the layer configs of ResNet-50 (``ConvolutionLayer`` with
 ``s2d_stem``, ``SubsamplingLayer``, ``GlobalPoolingLayer``,
 ``BatchNormalization``, ``ActivationLayer``, ``DenseLayer`` /
-``OutputLayer``, ``FusedBottleneck``) and of the sequential network
+``OutputLayer``, ``FusedBottleneck``), of the zoo's other vision models
+(``Deconvolution2D``, ``DepthwiseConvolution2D``,
+``SeparableConvolution2D``, ``Upsampling2D``,
+``LocalResponseNormalization``, ``SpaceToDepthLayer``) and of the
+sequential network
 (``LossLayer``, ``EmbeddingLayer``, ``EmbeddingSequenceLayer``,
 ``DropoutLayer``, ``LSTM``, ``GravesLSTM``, ``GRU``, ``SimpleRnn``,
 ``Bidirectional``, ``RnnOutputLayer``, ``LastTimeStep``,
@@ -197,6 +201,83 @@ class ConvolutionLayer(LayerConf):
 
     def has_params(self):
         return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Deconvolution2D(ConvolutionLayer):
+    """conf/layers/Deconvolution2D.java: transposed convolution, W
+    (kh, kw, n_in, n_out). The declared output size is the reference's;
+    with an explicit padding the op's (the JAX ``deconv2d``'s) can differ
+    from it, as in the JAX package."""
+
+    def output_type(self, itype):
+        kh, kw = _pair(self.kernel)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        if self.convolution_mode == "same":
+            oh, ow = itype.height * sh, itype.width * sw
+        else:
+            oh = sh * (itype.height - 1) + kh - 2 * ph
+            ow = sw * (itype.width - 1) + kw - 2 * pw
+        return InputType.convolutional(oh, ow, self.n_out)
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """conf/layers/DepthwiseConvolution2D.java: W (kh, kw, C,
+    depth_multiplier), C · depth_multiplier output channels."""
+
+    depth_multiplier: int = 1
+
+    def output_type(self, itype):
+        base = super().output_type(itype)
+        return InputType.convolutional(
+            base.height, base.width, itype.channels * self.depth_multiplier)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeparableConvolution2D(ConvolutionLayer):
+    """conf/layers/SeparableConvolution2D.java: depthwise dW (kh, kw, C,
+    depth_multiplier), then pointwise pW (1, 1, C · depth_multiplier,
+    n_out)."""
+
+    depth_multiplier: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Upsampling2D(LayerConf):
+    """conf/layers/Upsampling2D.java: nearest upsampling by ``size``."""
+
+    size: Tuple[int, int] = (2, 2)
+
+    def output_type(self, itype):
+        sh, sw = _pair(self.size)
+        return InputType.convolutional(itype.height * sh, itype.width * sw,
+                                       itype.channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalResponseNormalization(LayerConf):
+    """conf/layers/LocalResponseNormalization.java: window ``n`` channels,
+    bias ``k``, ``alpha``, ``beta``."""
+
+    n: int = 5
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+
+@dataclasses.dataclass(frozen=True)
+class SpaceToDepthLayer(LayerConf):
+    """conf/layers/SpaceToDepthLayer.java: (N, H, W, C) → (N, H/b, W/b,
+    C·b·b), the YOLOv2 passthrough (reorg) block."""
+
+    block_size: int = 2
+
+    def output_type(self, itype):
+        b = self.block_size
+        return InputType.convolutional(itype.height // b, itype.width // b,
+                                       itype.channels * b * b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -452,11 +533,18 @@ class RnnLossLayer(LayerConf):
 
 
 LAYER_TYPES = {c.__name__: c for c in [
-    DenseLayer, OutputLayer, ConvolutionLayer, SubsamplingLayer,
-    GlobalPoolingLayer, BatchNormalization, ActivationLayer,
+    DenseLayer, OutputLayer, ConvolutionLayer, Deconvolution2D,
+    DepthwiseConvolution2D, SeparableConvolution2D, SubsamplingLayer,
+    Upsampling2D, GlobalPoolingLayer, BatchNormalization,
+    LocalResponseNormalization, ActivationLayer, SpaceToDepthLayer,
     FusedBottleneck, LossLayer, EmbeddingLayer, EmbeddingSequenceLayer,
     DropoutLayer, LSTM, GravesLSTM, GRU, SimpleRnn, Bidirectional,
     RnnOutputLayer, LastTimeStep, RnnLossLayer]}
+
+# the conv-family layers a flat convolutional input is reshaped for
+# (``_adapt``'s FeedForwardToCnnPreProcessor)
+_CNN_LAYERS = (ConvolutionLayer, SubsamplingLayer, Upsampling2D,
+               LocalResponseNormalization)
 
 
 # ---------------------------------------------------------------------------
@@ -713,7 +801,7 @@ def _adapt(conf, i, itype, lc) -> Tuple[InputType, LayerConf]:
     """Insert a preprocessor and fill ``n_in`` for one layer
     (InputType.getPreProcessorForInputType)."""
     needs_ff = isinstance(lc, (DenseLayer, EmbeddingLayer))
-    is_conv = isinstance(lc, (ConvolutionLayer, SubsamplingLayer))
+    is_conv = isinstance(lc, _CNN_LAYERS)
     if i not in conf.preprocessors:
         if itype.kind == "convolutionalflat" and is_conv:
             conf.preprocessors[i] = FeedForwardToCnnPreProcessor(
@@ -766,8 +854,7 @@ def infer_layer(itype: InputType, lc: LayerConf
     type, as :func:`_adapt` does for one layer of a graph (no
     preprocessors: a flat convolutional input feeding a conv/pool layer is
     taken as convolutional)."""
-    if itype.kind == "convolutionalflat" and isinstance(
-            lc, (ConvolutionLayer, SubsamplingLayer)):
+    if itype.kind == "convolutionalflat" and isinstance(lc, _CNN_LAYERS):
         itype = InputType.convolutional(itype.height, itype.width,
                                         itype.channels)
     elif itype.kind == "convolutionalflat" and isinstance(lc, DenseLayer):

@@ -2,9 +2,12 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``GraphBuilder`` /
 ``graph_builder()``, ``ComputationGraphConfiguration`` with the JSON the
-JAX package writes (``to_json``/``from_json``), ``ElementWiseVertex``,
-and the runtime — ``init``, ``output``, ``fit``, ``score`` and the train
-step of ``graph.py:734-748``.
+JAX package writes (``to_json``/``from_json``), every vertex of the
+reference (``graph.py:78-307``), the runtime — ``init``, ``output``,
+``fit`` with its listener calls, ``score``, ``evaluate``, the train step
+of ``graph.py:734-748``, the flat parameter view — and the zips
+``save_graph`` / ``restore_graph`` (``graph.py:1133``, ``:1152``), whose
+entries are the JAX package's bytes.
 
 What the train step does in place of ``jax.value_and_grad`` + ``jit``:
 each parameter leaf is taken as an autograd leaf (``detach()`` +
@@ -23,8 +26,9 @@ forward and backward run in :func:`~deeplearning4j_tpu_torch.nn.dtype.
 precision_scope` (no TF32).
 
 The network lives on one device: ``"cuda"`` unless the caller passes
-``device="cpu"``. Not ported yet: the other vertices, listeners,
-tBPTT/RNN state, ``fit_scanned``, evaluation and zip serde (ROADMAP).
+``device="cpu"``. Not ported yet: ``rnn_time_step``, ``fit_tbptt``,
+``fit_multi`` (ROADMAP Queue 1 item 5), ``fit_scanned`` (item 2) and the
+preemption hooks of ``fit`` (item 6).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,12 +46,15 @@ from deeplearning4j_tpu_torch.autodiff.samediff import canonical
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet, ListDataSetIterator)
 from deeplearning4j_tpu_torch.environment import resolve_device
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn import dtype as DT
 from deeplearning4j_tpu_torch.nn.layers import Layer, build_layer
+from deeplearning4j_tpu_torch.nn.listeners import (
+    TrainingListener, notify_fit_done)
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _tree, apply_layer_updates, autograd_leaves, aux_losses, grad_tree,
-    init_opt_state, reg_penalty)
+    _tree, apply_layer_updates, autograd_leaves, aux_losses, flatten_trees,
+    grad_tree, init_opt_state, reg_penalty, unflatten_trees)
 from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
 from deeplearning4j_tpu_torch.ops.losses import get_loss
 
@@ -122,7 +129,191 @@ class ElementWiseVertex(GraphVertex):
         raise ValueError(f"unknown ElementWiseVertex op {self.op}")
 
 
-VERTEX_TYPES = {c.__name__: c for c in [ElementWiseVertex]}
+@dataclasses.dataclass(frozen=True)
+class MergeVertex(GraphVertex):
+    """MergeVertex.java: concatenation along the trailing (channel /
+    feature) axis of the NHWC or (N, T, F) activations."""
+
+    def apply(self, inputs):
+        return torch.cat(inputs, dim=-1)
+
+    def output_type(self, itypes):
+        t0 = itypes[0]
+        if t0.kind == "convolutional":
+            return C.InputType.convolutional(t0.height, t0.width,
+                                             sum(t.channels for t in itypes))
+        if t0.kind == "recurrent":
+            return C.InputType.recurrent(sum(t.size for t in itypes),
+                                         t0.timesteps)
+        return C.InputType.feed_forward(sum(t.flat_size() for t in itypes))
+
+
+@dataclasses.dataclass(frozen=True)
+class DotProductVertex(GraphVertex):
+    """Keras Dot merge: a per-example contraction of two inputs along
+    ``axes`` (negative allowed), L2-normalized first with ``normalize``
+    (cosine proximity); a vector dot keeps a trailing axis of 1."""
+
+    axes: int = -1
+    normalize: bool = False
+
+    def apply(self, inputs):
+        a, b = inputs
+        ax = self.axes
+        if self.normalize:
+            a = a / torch.clamp_min(torch.linalg.vector_norm(
+                a, dim=ax, keepdim=True), 1e-12)
+            b = b / torch.clamp_min(torch.linalg.vector_norm(
+                b, dim=ax, keepdim=True), 1e-12)
+        a2 = a.movedim(ax % a.ndim, -1)
+        b2 = b.movedim(ax % b.ndim, -1)
+        n, k = a2.shape[0], a2.shape[-1]
+        out = torch.bmm(a2.reshape(n, -1, k), b2.reshape(n, -1, k)
+                        .transpose(1, 2))
+        out = out.reshape((n,) + tuple(a2.shape[1:-1])
+                          + tuple(b2.shape[1:-1]))
+        return out[:, None] if out.ndim == 1 else out
+
+    def output_type(self, itypes):
+        a, b = itypes
+        if a.kind == "feedforward":
+            return C.InputType.feed_forward(1)
+        if a.kind == "recurrent" and self.axes in (-1, 2):
+            return C.InputType.recurrent(
+                b.timesteps if b.timesteps else -1, a.timesteps)
+        raise NotImplementedError(
+            f"DotProductVertex shape inference for {a.kind} inputs with "
+            f"axes={self.axes}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsetVertex(GraphVertex):
+    """SubsetVertex.java: trailing-axis slice [from, to], inclusive."""
+
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def apply(self, inputs):
+        return inputs[0][..., self.from_idx:self.to_idx + 1]
+
+    def output_type(self, itypes):
+        n = self.to_idx - self.from_idx + 1
+        t = itypes[0]
+        if t.kind == "recurrent":
+            return C.InputType.recurrent(n, t.timesteps)
+        return C.InputType.feed_forward(n)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleVertex(GraphVertex):
+    """ScaleVertex.java: multiply by a constant."""
+
+    scale: float = 1.0
+
+    def apply(self, inputs):
+        return inputs[0] * self.scale
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftVertex(GraphVertex):
+    """ShiftVertex.java: add a constant."""
+
+    shift: float = 0.0
+
+    def apply(self, inputs):
+        return inputs[0] + self.shift
+
+
+@dataclasses.dataclass(frozen=True)
+class L2NormalizeVertex(GraphVertex):
+    """L2NormalizeVertex.java: x / sqrt(Σ x² + eps) along the trailing
+    axis."""
+
+    eps: float = 1e-8
+
+    def apply(self, inputs):
+        x = inputs[0]
+        return x / torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)
+                              + self.eps)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackVertex(GraphVertex):
+    """StackVertex.java: concatenation along the batch axis."""
+
+    def apply(self, inputs):
+        return torch.cat(inputs, dim=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReshapeVertex(GraphVertex):
+    """ReshapeVertex.java: reshape to ``shape`` (batch axis included)."""
+
+    shape: Tuple[int, ...] = ()
+
+    def apply(self, inputs):
+        return inputs[0].reshape(self.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class UnstackVertex(GraphVertex):
+    """UnstackVertex.java: the ``from_idx``-th of ``stack_size`` equal
+    batch-axis slices (StackVertex's inverse)."""
+
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def apply(self, inputs):
+        x = inputs[0]
+        n = x.shape[0] // self.stack_size
+        return x[self.from_idx * n:(self.from_idx + 1) * n]
+
+
+@dataclasses.dataclass(frozen=True)
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """DuplicateToTimeSeriesVertex.java: inputs (value (N, F), time
+    reference (N, T, ·)) → value repeated over the T steps."""
+
+    def apply(self, inputs):
+        val, ref = inputs
+        return val[:, None, :].expand(val.shape[0], ref.shape[1],
+                                      val.shape[1])
+
+    def output_type(self, itypes):
+        return C.InputType.recurrent(itypes[0].flat_size(),
+                                     itypes[1].timesteps)
+
+
+@dataclasses.dataclass(frozen=True)
+class LastTimeStepVertex(GraphVertex):
+    """LastTimeStepVertex.java: (N, T, F) → (N, F), the last step. As in
+    the JAX package, vertices see no masks: masked sequences take the
+    LastTimeStep layer wrapper."""
+
+    def apply(self, inputs):
+        return inputs[0][:, -1]
+
+    def output_type(self, itypes):
+        return C.InputType.feed_forward(itypes[0].size)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlattenVertex(GraphVertex):
+    """Batch-preserving flatten in the activations' own (NHWC) order."""
+
+    def apply(self, inputs):
+        x = inputs[0]
+        return x.reshape(x.shape[0], -1)
+
+    def output_type(self, itypes):
+        return C.InputType.feed_forward(itypes[0].flat_size())
+
+
+VERTEX_TYPES = {c.__name__: c for c in [
+    MergeVertex, ElementWiseVertex, SubsetVertex, ScaleVertex, ShiftVertex,
+    L2NormalizeVertex, StackVertex, ReshapeVertex, FlattenVertex,
+    UnstackVertex, DuplicateToTimeSeriesVertex, LastTimeStepVertex,
+    DotProductVertex]}
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +547,7 @@ class ComputationGraph:
         self.iteration_count = 0
         self.epoch_count = 0
         self.last_batch_size = 0
+        self.listeners: List[TrainingListener] = []
         self._score: Optional[torch.Tensor] = None
         # dropout's draws in training
         self._gen = torch.Generator(device=self.device).manual_seed(conf.seed)
@@ -385,12 +577,13 @@ class ComputationGraph:
 
     # ------------------------------------------------------------------ init
     def init(self, params=None) -> "ComputationGraph":
-        """Parameters from ``params`` (name -> leaf -> tensor, moved to the
-        network's device) or drawn from ``conf.seed``; fresh layer state
-        and updater state."""
+        """Parameters from ``params`` (name -> leaf -> numpy array, as the
+        JAX package's ``jax.tree.map(np.asarray, net.params)`` gives them,
+        or tensor; copied to the network's device) or drawn from
+        ``conf.seed``; fresh layer state and updater state."""
         if params is not None:
-            self.params = {n: _tree().map_tree(lambda v: v.to(self.device), p)
-                           for n, p in params.items()}
+            self.params = _tree().params_from_numpy(dict(params),
+                                                    self.device)
         else:
             gen = torch.Generator().manual_seed(self.conf.seed)
             self.params = {n: self.layers[n].init(gen)
@@ -401,6 +594,12 @@ class ComputationGraph:
             upd = self.conf.layer_updater(l.lc)
             self.opt_state[n] = init_opt_state(upd, self.params[n])
         return self
+
+    def set_listeners(self, *ls: TrainingListener) -> None:
+        self.listeners = list(ls)
+
+    def add_listeners(self, *ls: TrainingListener) -> None:
+        self.listeners.extend(ls)
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, net_state, inputs: Dict[str, Any], masks, *,
@@ -514,8 +713,12 @@ class ComputationGraph:
         ex_c = m.counter("dl4j_tpu_train_examples_total", model="graph")
         step_h = m.histogram("dl4j_tpu_train_step_seconds", model="graph")
         for _ in range(epochs):
+            for lst in self.listeners:
+                lst.on_epoch_start(self)
             t_prev = time.perf_counter()
             for ds in data:
+                # the preemption poll of the JAX fit waits for ROADMAP
+                # Queue 1 item 6 (faults, notify_preemption)
                 self.last_batch_size = ds.num_examples()
                 feeds = self._feed({in_name: ds.features})
                 labs = self._feed({out_name: ds.labels})
@@ -530,11 +733,115 @@ class ComputationGraph:
                 t_prev = now
                 steps_c.inc()
                 ex_c.inc(ds.num_examples())
+                # the loss as a device tensor: no host sync unless a
+                # listener reads it
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration_count,
+                                       self.epoch_count, self._score)
             self.epoch_count += 1
+            for lst in self.listeners:
+                lst.on_epoch_end(self)
+        notify_fit_done(self, self.listeners)
+
+    def fit_scanned(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ComputationGraph.fit_scanned is not ported yet (ROADMAP "
+            "Queue 1 item 2: a captured training step)")
 
     def score(self) -> float:
         return float("nan") if self._score is None else float(self._score)
 
+    def evaluate(self, iterator, evaluation=None):
+        """evaluate(DataSetIterator | DataSet) → the ``evaluation``
+        accumulator (an ``Evaluation`` unless one is given) over the first
+        output of every batch."""
+        e = evaluation if evaluation is not None else Evaluation()
+        if isinstance(iterator, DataSet):
+            iterator = ListDataSetIterator(iterator, batch_size=256)
+        in_name = self.conf.network_inputs[0]
+        for ds in iterator:
+            masks = (None if ds.features_mask is None
+                     else {in_name: ds.features_mask})
+            out = self.output_single(ds.features, masks=masks)
+            e.eval(ds.labels, out, ds.labels_mask)
+        return e
+
+    # ---------------------------------------------------- flat params / serde
+    def _by_name(self, trees) -> list:
+        """The layers' trees in sorted layer-name order (the JAX flat
+        order: ``for name in sorted(self.params)``)."""
+        return [trees[n] for n in sorted(trees)]
+
+    def params_flat(self) -> np.ndarray:
+        """One flat float32 vector: layers by sorted name, then sorted
+        keys within a layer."""
+        return flatten_trees(self._by_name(self.params))
+
+    def set_params_flat(self, flat) -> None:
+        names = sorted(self.params)
+        trees, offset = unflatten_trees(self._by_name(self.params), flat,
+                                        self.device)
+        if offset != np.asarray(flat).size:
+            raise ValueError(f"param vector length {np.asarray(flat).size} "
+                             f"!= model size {offset}")
+        self.params = dict(zip(names, trees))
+
+    def updater_state_flat(self) -> np.ndarray:
+        return flatten_trees(self._by_name(self.opt_state))
+
+    def set_updater_state_flat(self, flat) -> None:
+        names = sorted(self.opt_state)
+        trees, _ = unflatten_trees(self._by_name(self.opt_state), flat,
+                                   self.device)
+        self.opt_state = dict(zip(names, trees))
+
     def num_params(self) -> int:
-        return sum(v.numel() for p in self.params.values()
-                   for v in p.values())
+        return sum(leaf.numel() for p in self.params.values()
+                   for _, leaf in _tree().leaf_paths(p))
+
+
+_F32_LE = np.dtype("<f4")
+
+
+def save_graph(net: ComputationGraph, path: str,
+               save_updater: bool = True) -> None:
+    """ModelSerializer.writeModel for a ComputationGraph: the JAX
+    package's entries (``configuration.json``, ``coefficients.bin``,
+    ``meta.json`` with ``model_type``, ``updaterState.bin``); like it, no
+    ``netState.bin``: a restored graph starts from fresh layer state."""
+    import zipfile
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("configuration.json", net.conf.to_json())
+        z.writestr("coefficients.bin",
+                   net.params_flat().astype(_F32_LE).tobytes())
+        z.writestr("meta.json", json.dumps(
+            {"iteration_count": net.iteration_count,
+             "epoch_count": net.epoch_count,
+             "model_type": "ComputationGraph"}))
+        if save_updater and net.opt_state is not None:
+            z.writestr("updaterState.bin",
+                       net.updater_state_flat().astype(_F32_LE).tobytes())
+
+
+def restore_graph(path: str, load_updater: bool = True,
+                  device=None) -> ComputationGraph:
+    """ModelSerializer.restoreComputationGraph, onto ``device``
+    (``"cuda"`` unless the caller passes ``device="cpu"``)."""
+    import zipfile
+
+    with zipfile.ZipFile(path, "r") as z:
+        names = z.namelist()
+        conf = ComputationGraphConfiguration.from_json(
+            z.read("configuration.json").decode())
+        net = ComputationGraph(conf, device=device).init()
+        net.set_params_flat(np.frombuffer(z.read("coefficients.bin"),
+                                          _F32_LE))
+        if "meta.json" in names:
+            meta = json.loads(z.read("meta.json").decode())
+            net.iteration_count = meta.get("iteration_count", 0)
+            net.epoch_count = meta.get("epoch_count", 0)
+        if load_updater and "updaterState.bin" in names:
+            net.set_updater_state_flat(np.frombuffer(
+                z.read("updaterState.bin"), _F32_LE))
+    return net

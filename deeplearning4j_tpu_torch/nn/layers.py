@@ -1,15 +1,18 @@
 """Runtime layers: ``init`` / ``apply`` per layer config.
 
 Counterpart of the part of ``deeplearning4j_tpu/nn/layers.py`` that
-ResNet-50 and the sequential network reach (dense, output, loss,
-embedding, convolution, pooling, batch norm, activation, dropout, the
+ResNet-50, the zoo's other vision models and the sequential network
+reach (dense, output, loss, embedding, convolution, transposed,
+depthwise and separable convolution, upsampling, space-to-depth,
+pooling, batch norm, LRN, activation, dropout, the
 recurrent layers LSTM / GravesLSTM / GRU / SimpleRnn, Bidirectional,
 RnnOutputLayer, LastTimeStep, RnnLossLayer) and
 :func:`apply_preprocessor`. A layer is
 ``apply(params, x, state, *, train, rng, mask) -> (y, new_state, mask)``
 over NHWC activations and HWIO kernels; ``state`` carries the
 non-trainable buffers (BatchNormalization's running statistics).
-Parameter names are the JAX package's ("W", "b", "gamma", "beta"), so
+Parameter names are the JAX package's ("W", "b", "gamma", "beta"; "dW",
+"pW" for the separable convolution), so
 its parameter trees carry across unchanged. Gradients come from autograd
 (BatchNormalization's through the hand-written ``_BNCore`` backward).
 
@@ -199,6 +202,92 @@ class ConvolutionLayerImpl(Layer):
         x2 = exec_op("space_to_depth", x, block_size=2)
         return nn_ops.conv2d.fn(x2, w2, b, stride=(1, 1),
                                 padding=((1, 2), (1, 2)))
+
+
+class Deconvolution2DImpl(ConvolutionLayerImpl):
+    """layers/convolution/Deconvolution2DLayer.java (transposed conv; W
+    and b as a convolution's)."""
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        lc = self.lc
+        x = self._maybe_dropout(x, train=train, rng=rng)
+        pad = "same" if lc.convolution_mode == "same" else C._pair(lc.padding)
+        z = nn_ops.deconv2d.fn(x, params["W"], params.get("b"),
+                               stride=C._pair(lc.stride), padding=pad)
+        return self.activation(z), state, mask
+
+
+class DepthwiseConvolution2DImpl(Layer):
+    """layers/convolution/DepthwiseConvolution2DLayer.java: W (kh, kw, C,
+    mult), b (C·mult)."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        kh, kw = C._pair(lc.kernel)
+        mult = lc.depth_multiplier
+        p = {"W": self._weights(gen, (kh, kw, lc.n_in, mult))}
+        if lc.has_bias:
+            p["b"] = self._zeros(lc.n_in * mult)
+        return p
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        lc = self.lc
+        x = self._maybe_dropout(x, train=train, rng=rng)
+        pad = "same" if lc.convolution_mode == "same" else "valid"
+        z = nn_ops.depthwise_conv2d.fn(
+            x, params["W"], params.get("b"), stride=C._pair(lc.stride),
+            padding=pad, dilation=C._pair(lc.dilation))
+        return self.activation(z), state, mask
+
+
+class SeparableConvolution2DImpl(Layer):
+    """layers/convolution/SeparableConvolution2DLayer.java: dW (kh, kw, C,
+    mult), pW (1, 1, C·mult, n_out), b (n_out)."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        kh, kw = C._pair(lc.kernel)
+        mult = lc.depth_multiplier
+        p = {"dW": self._weights(gen, (kh, kw, lc.n_in, mult)),
+             "pW": self._weights(gen, (1, 1, lc.n_in * mult, lc.n_out))}
+        if lc.has_bias:
+            p["b"] = self._zeros(lc.n_out)
+        return p
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        lc = self.lc
+        x = self._maybe_dropout(x, train=train, rng=rng)
+        pad = "same" if lc.convolution_mode == "same" else "valid"
+        z = nn_ops.separable_conv2d.fn(
+            x, params["dW"], params["pW"], params.get("b"),
+            stride=C._pair(lc.stride), padding=pad)
+        return self.activation(z), state, mask
+
+
+class Upsampling2DImpl(Layer):
+    """layers/convolution/upsampling/Upsampling2D.java."""
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        return (nn_ops.upsampling2d.fn(x, size=C._pair(self.lc.size)), state,
+                mask)
+
+
+class LocalResponseNormalizationImpl(Layer):
+    """layers/normalization/LocalResponseNormalization.java."""
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        lc = self.lc
+        y = nn_ops.local_response_normalization.fn(
+            x, depth=lc.n, bias=lc.k, alpha=lc.alpha, beta=lc.beta)
+        return y, state, mask
+
+
+class SpaceToDepthLayerImpl(Layer):
+    """layers/convolution/SpaceToDepthLayer.java (the YOLOv2 reorg)."""
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        return (exec_op("space_to_depth", x, block_size=self.lc.block_size),
+                state, mask)
 
 
 class SubsamplingLayerImpl(Layer):
@@ -542,7 +631,13 @@ LAYER_IMPLS: Dict[Type[C.LayerConf], Type[Layer]] = {
     C.DenseLayer: DenseLayerImpl,
     C.OutputLayer: OutputLayerImpl,
     C.ConvolutionLayer: ConvolutionLayerImpl,
+    C.Deconvolution2D: Deconvolution2DImpl,
+    C.DepthwiseConvolution2D: DepthwiseConvolution2DImpl,
+    C.SeparableConvolution2D: SeparableConvolution2DImpl,
     C.SubsamplingLayer: SubsamplingLayerImpl,
+    C.Upsampling2D: Upsampling2DImpl,
+    C.LocalResponseNormalization: LocalResponseNormalizationImpl,
+    C.SpaceToDepthLayer: SpaceToDepthLayerImpl,
     C.GlobalPoolingLayer: GlobalPoolingLayerImpl,
     C.BatchNormalization: BatchNormalizationImpl,
     C.ActivationLayer: ActivationLayerImpl,

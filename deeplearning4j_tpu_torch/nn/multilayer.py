@@ -13,8 +13,10 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``:
   forward with preprocessors and carried RNN state, ``feed_forward``,
   ``output``, ``predict``, ``rnn_time_step`` and its state, the train
   step, truncated BPTT, ``fit`` over arrays / a ``DataSet`` / an
-  iterator, ``score``, and the flat parameter and updater-state views in
-  the JAX package's order (``_sorted_leaves``).
+  iterator with its listener calls, ``score``, ``evaluate``,
+  ``evaluate_regression`` and ``evaluate_roc``, and the flat parameter
+  and updater-state views in the JAX package's order
+  (``_sorted_leaves``).
 
 What the train step does in place of ``jax.value_and_grad`` + ``jit``:
 each parameter leaf is taken as an autograd leaf (``detach()`` +
@@ -26,9 +28,11 @@ update is out of place (new tensors), as the JAX step returns new arrays.
 
 Trees are dicts of tensors (nested for wrapper layers: Bidirectional's
 ``fwd`` / ``bwd``); leaves are visited in sorted-key order, as
-``jax.tree.flatten`` visits a dict. Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``fit_scanned``,
-listeners, ``evaluate*`` and the preemption hooks.
+``jax.tree.flatten`` visits a dict. Listeners get each step's loss as
+the 0-d device tensor the step returned: ``fit`` adds no host
+synchronization a step unless a listener reads the score. Not ported
+yet: ``fit_scanned`` (raises, naming ROADMAP Queue 1 item 2) and the
+preemption hooks of ``fit`` (Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -43,10 +47,14 @@ from deeplearning4j_tpu_torch import observe
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet, ListDataSetIterator)
 from deeplearning4j_tpu_torch.environment import resolve_device
+from deeplearning4j_tpu_torch.eval.evaluation import (
+    ROC, Evaluation, RegressionEvaluation)
 from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn import dtype as DT
 from deeplearning4j_tpu_torch.nn.layers import (
     BidirectionalImpl, Layer, apply_preprocessor, build_layer)
+from deeplearning4j_tpu_torch.nn.listeners import (
+    TrainingListener, notify_fit_done)
 from deeplearning4j_tpu_torch.ops.losses import get_loss
 
 WEIGHT_KEYS = {"W", "RW", "dW", "pW", "Wq", "Wk", "Wv", "Wo"}
@@ -102,8 +110,12 @@ def autograd_leaves(params):
 
 def grad_tree(loss, params):
     """d loss / d params as a tree like ``params`` (zeros for unused
-    leaves)."""
+    leaves, and for every leaf when the loss is a constant: a graph whose
+    outputs carry no loss layer, as the reference's UNet, scores 0 and
+    moves nothing, as ``jax.value_and_grad`` of a constant does)."""
     paths = list(_tree().leaf_paths(params))
+    if not loss.requires_grad:
+        return _tree().map_tree(torch.zeros_like, params)
     grads = torch.autograd.grad(loss, [leaf for _, leaf in paths],
                                 allow_unused=True)
     return _tree().rebuild(params, {
@@ -224,9 +236,6 @@ def reg_penalty(conf, items) -> torch.Tensor:
     return penalty
 
 
-_ROADMAP = "ROADMAP Queue 1 item 5"
-
-
 class MultiLayerNetwork:
     """Sequential network over a :class:`~.conf.MultiLayerConfiguration`
     (MultiLayerNetwork.java), on one device: ``"cuda"`` unless the caller
@@ -259,7 +268,7 @@ class MultiLayerNetwork:
         self.iteration_count = 0
         self.epoch_count = 0
         self.last_batch_size = 0
-        self.listeners: List[Any] = []
+        self.listeners: List[TrainingListener] = []
         self._score: Optional[torch.Tensor] = None
         self._tbptt_scores: List[torch.Tensor] = []
         self._rnn_states: Optional[List[Any]] = None
@@ -284,11 +293,11 @@ class MultiLayerNetwork:
                           for upd, p in zip(self.updaters, self.params)]
         return self
 
-    def set_listeners(self, *listeners) -> None:
-        raise NotImplementedError(
-            f"MultiLayerNetwork listeners are not ported yet ({_ROADMAP})")
+    def set_listeners(self, *ls: TrainingListener) -> None:
+        self.listeners = list(ls)
 
-    add_listeners = set_listeners
+    def add_listeners(self, *ls: TrainingListener) -> None:
+        self.listeners.extend(ls)
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, net_state, x, mask, *, train: bool, rng,
@@ -479,8 +488,12 @@ class MultiLayerNetwork:
                            model="mln")
         step_h = m.histogram("dl4j_tpu_train_step_seconds", model="mln")
         for _ in range(epochs):
+            for lst in self.listeners:
+                lst.on_epoch_start(self)
             t_prev = time.perf_counter()
             for ds in data:
+                # the preemption poll of the JAX fit waits for ROADMAP
+                # Queue 1 item 6 (faults, notify_preemption)
                 self.last_batch_size = ds.num_examples()
                 x, y = self._feed(ds.features), self._feed(ds.labels)
                 fm, lm = self._feed(ds.features_mask), self._feed(
@@ -497,11 +510,20 @@ class MultiLayerNetwork:
                 ex_c.inc(ds.num_examples())
                 xfer_c.inc(2 + (ds.features_mask is not None)
                            + (ds.labels_mask is not None))
+                # the loss as a device tensor: no host sync unless a
+                # listener reads it
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration_count,
+                                       self.epoch_count, self._score)
             self.epoch_count += 1
+            for lst in self.listeners:
+                lst.on_epoch_end(self)
+        notify_fit_done(self, self.listeners)
 
     def fit_scanned(self, *args, **kwargs):
         raise NotImplementedError(
-            f"MultiLayerNetwork.fit_scanned is not ported yet ({_ROADMAP})")
+            "MultiLayerNetwork.fit_scanned is not ported yet (ROADMAP "
+            "Queue 1 item 2: a captured training step)")
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """The loss on ``ds``, or the last training score."""
@@ -512,12 +534,24 @@ class MultiLayerNetwork:
               else self._feed(ds.labels_mask).cpu())
         return float(self._loss_fn(out, self._feed(ds.labels).cpu(), lm))
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"MultiLayerNetwork.evaluate is not ported yet ({_ROADMAP}: "
-            f"eval/)")
+    # -------------------------------------------------------------- evaluate
+    def evaluate(self, iterator, evaluation=None):
+        """evaluate(DataSetIterator | DataSet) → the ``evaluation``
+        accumulator (an ``Evaluation`` unless one is given) over
+        ``output`` of every batch."""
+        e = evaluation if evaluation is not None else Evaluation()
+        if isinstance(iterator, DataSet):
+            iterator = ListDataSetIterator(iterator, batch_size=256)
+        for ds in iterator:
+            out = self.output(ds.features, ds.features_mask)
+            e.eval(ds.labels, out, ds.labels_mask)
+        return e
 
-    evaluate_regression = evaluate_roc = evaluate
+    def evaluate_regression(self, iterator) -> RegressionEvaluation:
+        return self.evaluate(iterator, RegressionEvaluation())
+
+    def evaluate_roc(self, iterator) -> ROC:
+        return self.evaluate(iterator, ROC())
 
     # ------------------------------------------------------- flattened views
     def params_flat(self) -> np.ndarray:

@@ -1,15 +1,19 @@
 """Model zips: ModelSerializer's layout, the JAX package's bytes.
 
-Counterpart of ``deeplearning4j_tpu/nn/serde.py`` ``save_model`` (:77)
-and ``restore_model`` (:94). The zip holds, in this order:
+Counterpart of ``deeplearning4j_tpu/nn/serde.py`` ``save_model`` (:77),
+``restore_model`` (:94) and ``restore_normalizer`` (:122). The zip
+holds, in this order:
 ``configuration.json`` (the configuration's JSON), ``coefficients.bin``
 (the flat parameter vector, float32 little-endian), ``netState.bin``
 (the layers' state, e.g. BatchNormalization's running statistics, the
-same way), ``meta.json`` (``iteration_count``, ``epoch_count``) and, when
-saved, ``updaterState.bin`` (the flat updater state). Flat order is the
-JAX package's ``_sorted_leaves`` order, so a zip the JAX package saves
-restores here and the reverse. Normalizers are not ported yet: saving one
-raises, and ``restore_normalizer`` waits with them (ROADMAP).
+same way), ``meta.json`` (``iteration_count``, ``epoch_count``), when saved
+``updaterState.bin`` (the flat updater state) and, when given,
+``normalizer.json`` (the normalizer's class and ``state()``, read back by
+:func:`restore_normalizer`). Flat order is the JAX package's
+``_sorted_leaves`` order, so a zip the JAX package saves restores here
+and the reverse. The ComputationGraph's zips are
+:func:`~deeplearning4j_tpu_torch.nn.graph.save_graph` /
+``restore_graph``.
 """
 
 from __future__ import annotations
@@ -28,10 +32,8 @@ _F32_LE = np.dtype("<f4")
 
 def save_model(net: MultiLayerNetwork, path: str, save_updater: bool = True,
                normalizer=None) -> None:
-    """ModelSerializer.writeModel."""
-    if normalizer is not None:
-        raise NotImplementedError(
-            "normalizers are not ported to deeplearning4j_tpu_torch yet")
+    """ModelSerializer.writeModel (with the normalizer's statistics when
+    ``normalizer`` is given)."""
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr("configuration.json", net.conf.to_json())
         z.writestr("coefficients.bin",
@@ -44,6 +46,11 @@ def save_model(net: MultiLayerNetwork, path: str, save_updater: bool = True,
         if save_updater and net.opt_state is not None:
             z.writestr("updaterState.bin",
                        net.updater_state_flat().astype(_F32_LE).tobytes())
+        if normalizer is not None:
+            state = {k: np.asarray(v).tolist()
+                     for k, v in normalizer.state().items()}
+            z.writestr("normalizer.json", json.dumps(
+                {"@type": type(normalizer).__name__, "state": state}))
 
 
 def restore_model(path: str, load_updater: bool = True,
@@ -69,3 +76,17 @@ def restore_model(path: str, load_updater: bool = True,
             net.set_updater_state_flat(np.frombuffer(
                 z.read("updaterState.bin"), _F32_LE))
     return net
+
+
+def restore_normalizer(path: str):
+    """ModelSerializer.restoreNormalizers: the normalizer a zip carries,
+    or None."""
+    from deeplearning4j_tpu_torch.datasets import dataset as D
+
+    with zipfile.ZipFile(path, "r") as z:
+        if "normalizer.json" not in z.namelist():
+            return None
+        d = json.loads(z.read("normalizer.json").decode())
+    norm = getattr(D, d["@type"])()
+    norm.load_state({k: np.asarray(v) for k, v in d["state"].items()})
+    return norm

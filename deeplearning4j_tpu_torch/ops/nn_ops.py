@@ -11,6 +11,9 @@ ported paths reach:
   inference ``batchnorm`` and the training ``batch_norm_train`` over a
   hand-written-backward core (:class:`_BNCore`, the ``_bn_core``
   custom VJP);
+* the zoo's other vision families: ``depthwise_conv2d``, ``sconv2d``,
+  ``deconv2d``, ``upsampling2d`` and ``lrn`` (``nn_ops.py:135-173``,
+  ``:378``), generic only, as the JAX package left them to XLA;
 * the imported-graph path: the catalog ``layer_norm``, the generic
   ``fused_matmul_bias_act`` with its activation catalog
   (``nn_ops.py:512-551``; the hand-written kernel registers as its
@@ -121,6 +124,92 @@ def conv2d(x, w, b=None, *, stride: IntPair = 1, padding="same",
     if b is not None:
         out = out + b
     return out
+
+
+@op("depthwise_conv2d")
+def depthwise_conv2d(x, w, b=None, *, stride: IntPair = 1, padding="same",
+                     dilation: IntPair = 1):
+    """Depthwise conv. x: [N,H,W,C], w: [kH,kW,C,mult]. Output channel
+    c·mult + m is input channel c under multiplier m (the JAX reshape to
+    (kH, kW, 1, C·mult) with C groups)."""
+    kh, kw, wc, mult = w.shape
+    w2 = w.reshape(kh, kw, 1, wc * mult)
+    return conv2d.fn(x, w2, b, stride=stride, padding=padding,
+                     dilation=dilation, feature_group_count=x.shape[-1])
+
+
+@op("sconv2d")
+def separable_conv2d(x, depth_w, point_w, b=None, *, stride: IntPair = 1,
+                     padding="same"):
+    """Separable conv (reference sconv2d): depthwise then 1×1 pointwise."""
+    y = depthwise_conv2d.fn(x, depth_w, None, stride=stride, padding=padding)
+    return conv2d.fn(y, point_w, b, stride=1, padding="valid")
+
+
+def _deconv_pads(padding, kernel: Sequence[int], stride: Sequence[int]):
+    """The pads ``lax.conv_transpose`` puts on the stride-dilated input:
+    "SAME" and "VALID" as its ``_conv_transpose_padding``, an explicit
+    (ph, pw) as ((ph, ph), (pw, pw)) handed over unchanged."""
+    if isinstance(padding, str):
+        mode = "SAME" if padding.upper() == "SAME" else "VALID"
+        out = []
+        for k, s in zip(kernel, stride):
+            if mode == "SAME":
+                total = k + s - 2
+                before = k - 1 if s > k - 1 else -(-total // 2)
+            else:
+                total = k + s - 2 + max(k - s, 0)
+                before = k - 1
+            out.append((before, total - before))
+        return tuple(out)
+    return tuple((int(p), int(p)) for p in _pair(padding))
+
+
+@op("deconv2d")
+def deconv2d(x, w, b=None, *, stride: IntPair = 1, padding="same"):
+    """Transposed conv, TF conv_transpose semantics at every stride.
+    x: [N,H,W,C_in], w: [kH,kW,C_in,C_out]. The JAX op's
+    ``conv_transpose(..., transpose_kernel=True)`` is a correlation of the
+    stride-dilated x with the flipped w under :func:`_deconv_pads`;
+    ``F.conv_transpose2d`` with no padding is the same correlation under
+    pads (k−1, k−1), so its output is cropped (or zero-extended: no tap
+    reaches there) to the wanted pads."""
+    s = _pair(stride)
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    (pt, pb), (pl_, pr) = _deconv_pads(padding, (kh, kw), s)
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1),
+                             None, s)
+    out = F.pad(out, (pl_ - (kw - 1), pr - (kw - 1),
+                      pt - (kh - 1), pb - (kh - 1)))
+    out = out.permute(0, 2, 3, 1)
+    if b is not None:
+        out = out + b
+    return out
+
+
+@op("upsampling2d")
+def upsampling2d(x, *, size: IntPair = 2):
+    """Nearest upsampling (``repeat`` along H then W) as a broadcast and
+    a reshape: the backward is a plain sum over each block, with no
+    atomics."""
+    sh, sw = _pair(size)
+    n, h, w, c = x.shape
+    return (x[:, :, None, :, None, :].expand(n, h, sh, w, sw, c)
+            .reshape(n, h * sh, w * sw, c))
+
+
+@op("lrn")
+def local_response_normalization(x, *, depth: int = 5, bias: float = 1.0,
+                                 alpha: float = 1e-4, beta: float = 0.75):
+    """LRN over the trailing (channel) axis, the JAX op's arithmetic:
+    x / (bias + alpha · Σ x²)^beta over the window of ``depth`` channels
+    starting ``depth // 2`` before each one (alpha is not divided by
+    ``depth``, as ``F.local_response_norm`` would)."""
+    half = depth // 2
+    c = x.shape[-1]
+    padded = F.pad(x * x, (half, half))
+    window = sum(padded[..., i:i + c] for i in range(depth))
+    return x / (bias + alpha * window) ** beta
 
 
 # --------------------------------------------------------------------------
