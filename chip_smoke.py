@@ -432,12 +432,10 @@ LSTM_OUT_TOL = 1e-5     # probabilities, every position
 STATE_TOL = 1e-5        # carried h and c, absolute + relative: c is
                         # unbounded (tens of units in a loss spike)
 STREAM_TOL = 1e-4       # rnn_time_step vs output, BASELINE.md's gate
-# zoo_cnn: the overlapping-pool models against the generic run, as the
-# recurrent phases hold theirs, with floors of 1e-5; the card's output
-# against the port's CPU output of the same parameters (float32 both,
-# TF32 off; cuDNN and the CPU's library sum in other orders)
-ZOO_LOSS_RTOL = 1e-5
-ZOO_MOVE_RTOL = 1e-5
+# zoo_cnn: each model against the generic run as train phase A holds
+# ResNet-50 (TRAIN_A_*); the card's output against the port's CPU output
+# of the same parameters (float32 both, TF32 off; cuDNN and the CPU's
+# library sum in other orders)
 ZOO_CPU_RTOL = 1e-3
 ZOO_CPU_ATOL = 1e-5
 ZOO_STEPS = 3
@@ -2139,10 +2137,6 @@ def sd_bert_finetune_phase(dev, smi):
             info = {"losses": losses, "times_ms": [t * 1e3 for t in times],
                     "step_p50_ms": float(np.percentile(times, 50)) * 1e3,
                     "peak_memory_gib": peak,
-        "peak_memory_counted": "the counted run's peak allocation above "
-                               "what was allocated before it (the model, "
-                               "its updater state and earlier phases' "
-                               "leftovers)",
                     "resident_before_gib": resident,  # earlier phases'
                     "fusions": st.fusions,
                     "plan_nodes": st.nodes_after}
@@ -2654,19 +2648,18 @@ def _mln_main_path(net, batches):
     return start, generic, kernel, launches, leaves, tally
 
 
-def _rnn_agreement(start, generic, kernel, yard, loss_rtol=RNN_LOSS_RTOL,
-                   move_rtol=RNN_MOVE_RTOL) -> tuple:
-    """Losses and parameters of the kernel (cuDNN) run against the
-    generic run: each loss within max(``loss_rtol`` relative,
-    RNN_YARDSTICK × the one-ulp-nudged generic run's distance), the
-    parameter moves within max(``move_rtol``, RNN_YARDSTICK × the
-    yardstick's) in relative L2 norm. Returns (problems, line fields)."""
-    loss_lim = [max(loss_rtol * abs(g), RNN_YARDSTICK * abs(y - g))
+def _rnn_agreement(start, generic, kernel, yard) -> tuple:
+    """Losses and parameters of the cuDNN run against the generic run:
+    each loss within max(RNN_LOSS_RTOL relative, RNN_YARDSTICK × the
+    one-ulp-nudged generic run's distance), the parameter moves within
+    max(RNN_MOVE_RTOL, RNN_YARDSTICK × the yardstick's) in relative L2
+    norm. Returns (problems, line fields)."""
+    loss_lim = [max(RNN_LOSS_RTOL * abs(g), RNN_YARDSTICK * abs(y - g))
                 for g, y in zip(generic[0], yard[0])]
     loss_diff = [abs(k - g) for k, g in zip(kernel[0], generic[0])]
     move = _move_distance(kernel[2], generic[2], start[0])
     yard_move = _move_distance(yard[2], generic[2], start[0])
-    move_lim = max(move_rtol, RNN_YARDSTICK * yard_move)
+    move_lim = max(RNN_MOVE_RTOL, RNN_YARDSTICK * yard_move)
     problems = []
     if not all(math.isfinite(v) for v in kernel[0] + generic[0] + yard[0]):
         problems.append("non-finite loss")
@@ -2683,9 +2676,32 @@ def _rnn_agreement(start, generic, kernel, yard, loss_rtol=RNN_LOSS_RTOL,
             yard_move, "param_move_limit": move_lim,
         "param_max_abs_diff": _max_diff(kernel[2], generic[2]),
         "param_max_move_generic": _max_diff(start[0], generic[2]),
-        "tol": (f"loss max({loss_rtol:g} relative, {RNN_YARDSTICK:g} x "
-                f"yardstick); parameter moves max({move_rtol:g}, "
+        "tol": (f"loss max({RNN_LOSS_RTOL:g} relative, {RNN_YARDSTICK:g} x "
+                f"yardstick); parameter moves max({RNN_MOVE_RTOL:g}, "
                 f"{RNN_YARDSTICK:g} x yardstick) relative L2")}
+
+
+def _train_a_agreement(start, generic, kernel) -> tuple:
+    """The kernel run against the generic run as train phase A holds
+    ResNet-50: finite losses, each within TRAIN_A_LOSS_RTOL relative, the
+    parameters within TRAIN_A_PARAM_SHARE × the generic run's largest
+    move. Returns (problems, line fields)."""
+    param_diff = _max_diff(kernel[2], generic[2])
+    moved = _max_diff(start[0], generic[2])
+    problems = []
+    if not all(math.isfinite(v) for v in kernel[0] + generic[0]):
+        problems.append("non-finite loss")
+    if any(abs(a - b) > TRAIN_A_LOSS_RTOL * abs(b)
+           for a, b in zip(kernel[0], generic[0])):
+        problems.append(f"losses {kernel[0]} vs generic {generic[0]}")
+    if param_diff > TRAIN_A_PARAM_SHARE * moved:
+        problems.append(f"param diff {param_diff} > {TRAIN_A_PARAM_SHARE} "
+                        f"x {moved}")
+    return problems, {
+        "param_max_abs_diff": param_diff, "param_max_move_generic": moved,
+        "bit_equal": param_diff == 0.0,
+        "tol": f"loss {TRAIN_A_LOSS_RTOL:g} relative; params "
+               f"{TRAIN_A_PARAM_SHARE:g} x the largest 3-step move"}
 
 
 def lenet_phase(dev, smi):
@@ -2710,16 +2726,8 @@ def lenet_phase(dev, smi):
                                       n_leaves, steps)
     if net.num_params() != LENET_PARAMS:
         problems.append(f"{net.num_params()} parameters != {LENET_PARAMS}")
-    if not all(math.isfinite(v) for v in kernel[0] + generic[0]):
-        problems.append("non-finite loss")
-    if any(abs(a - b) > TRAIN_A_LOSS_RTOL * abs(b)
-           for a, b in zip(kernel[0], generic[0])):
-        problems.append(f"losses {kernel[0]} vs generic {generic[0]}")
-    param_diff = _max_diff(kernel[2], generic[2])
-    moved = _max_diff(start[0], generic[2])
-    if param_diff > TRAIN_A_PARAM_SHARE * moved:
-        problems.append(f"param diff {param_diff} > {TRAIN_A_PARAM_SHARE} "
-                        f"x {moved}")
+    agree, against = _train_a_agreement(start, generic, kernel)
+    problems += agree
     if out.shape != (batch, 10) or not np.allclose(out.sum(-1), 1.0,
                                                    atol=1e-5):
         problems.append(f"output {out.shape} is not a softmax")
@@ -2730,11 +2738,7 @@ def lenet_phase(dev, smi):
             "params": net.num_params(), "launches": launches,
             "fused_updater_leaves": leaves, "dispatch": tally,
             "losses_generic": generic[0], "losses_kernel": kernel[0],
-            "param_max_abs_diff": param_diff,
-            "param_max_move_generic": moved,
-            "tol": f"loss {TRAIN_A_LOSS_RTOL:g} relative; params "
-                   f"{TRAIN_A_PARAM_SHARE:g} x the largest 3-step move",
-            "smoke_reading": f"{steps} steps, no spread",
+            **against, "smoke_reading": f"{steps} steps, no spread",
             "step_p50_ms": p50 * 1e3, "images_per_s": batch / p50,
             "generic_step_p50_ms": float(np.percentile(generic[1], 50))
             * 1e3, "problems": problems}
@@ -3015,7 +3019,7 @@ def _first_output(out):
     return out[0] if isinstance(out, list) else out
 
 
-def _zoo_run(net, start, mode, batches, *, dev, listeners=(), nudge=False):
+def _zoo_run(net, start, mode, batches, *, dev, listeners=()):
     """``net.fit`` over ``batches`` (one ``fit`` call each) from the
     cloned ``start`` state, the dropout generator reseeded, under
     ``helper_mode=mode``: (scores, host seconds a step, parameters)."""
@@ -3023,8 +3027,7 @@ def _zoo_run(net, start, mode, batches, *, dev, listeners=(), nudge=False):
 
     env = environment()
     env.helper_mode = mode
-    net.params = (_nudged(start[0], np.random.default_rng(8)) if nudge
-                  else _clone_tree(start[0]))
+    net.params = _clone_tree(start[0])
     net.opt_state, net.net_state = (_clone_tree(t) for t in start[1:])
     net.iteration_count = 0
     net._gen.manual_seed(net.conf.seed)
@@ -3079,8 +3082,7 @@ def _card_vs_cpu(name, net, kwargs, x) -> tuple:
 
 def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
     """One trainable zoo model at its defaults: generic run, counted run
-    with the listeners, the yardstick where the pools overlap, card vs
-    CPU, ``evaluate``. Returns (problems, line, updater launches)."""
+    with the listeners, card vs CPU, ``evaluate``. Returns (problems, line, updater launches)."""
     import torch
 
     from deeplearning4j_tpu_torch.datasets import DataSet
@@ -3118,8 +3120,6 @@ def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30 - before
             if dev.type == "cuda" else None)
     problems += updater_count_problems(launches, leaves, n_leaves, ZOO_STEPS)
-    if not all(math.isfinite(v) for v in kernel[0] + generic[0]):
-        problems.append("non-finite loss")
     line = {"phase": "zoo_cnn", "card": smi, "model": f"{name}()",
             "input": list(model.input_shape), "batch": batch,
             "updater": updater, "steps": ZOO_STEPS, "leaves": n_leaves,
@@ -3127,28 +3127,9 @@ def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
             "launches": {"fused_updater": launches},
             "fused_updater_leaves": leaves,
             "losses_generic": generic[0], "losses_kernel": kernel[0]}
-    if name in Z.OVERLAPPING_POOLS:
-        yard = _zoo_run(net, start, "generic", batches, dev=dev, nudge=True)
-        agree, fields = _rnn_agreement(start, generic, kernel, yard,
-                                       loss_rtol=ZOO_LOSS_RTOL,
-                                       move_rtol=ZOO_MOVE_RTOL)
-        problems += agree
-        line["against_generic"] = dict(
-            fields, bit_equal=_max_diff(kernel[2], generic[2]) == 0.0)
-    else:
-        param_diff = _max_diff(kernel[2], generic[2])
-        moved = _max_diff(start[0], generic[2])
-        if any(abs(a - b) > TRAIN_A_LOSS_RTOL * abs(b)
-               for a, b in zip(kernel[0], generic[0])):
-            problems.append(f"losses {kernel[0]} vs generic {generic[0]}")
-        if param_diff > TRAIN_A_PARAM_SHARE * moved:
-            problems.append(f"param diff {param_diff} > "
-                            f"{TRAIN_A_PARAM_SHARE} x {moved}")
-        line["against_generic"] = {
-            "param_max_abs_diff": param_diff,
-            "param_max_move_generic": moved,
-            "tol": f"loss {TRAIN_A_LOSS_RTOL:g} relative; params "
-                   f"{TRAIN_A_PARAM_SHARE:g} x the largest 3-step move"}
+    agree, line["against_generic"] = _train_a_agreement(start, generic,
+                                                        kernel)
+    problems += agree
     if name == "UNet":  # no loss layer in the reference's UNet
         if any(kernel[0] + generic[0]) or _max_diff(start[0], kernel[2]):
             problems.append("UNet moved: the reference's has no loss layer")
@@ -3280,7 +3261,7 @@ def zoo_detect_case(name, batch, dev, smi, kwargs=None):
     grad_diff = float(np.abs(gk - gg).max())
     if not (math.isfinite(lk) and np.isfinite(gk).all()):
         problems.append("yolo_loss or its gradient not finite")
-    if abs(lk - lg) > ZOO_LOSS_RTOL * abs(lg) or grad_diff > ZOO_CPU_ATOL:
+    if abs(lk - lg) > TRAIN_A_LOSS_RTOL * abs(lg) or grad_diff > ZOO_CPU_ATOL:
         problems.append(f"yolo_loss {lk} vs generic {lg}, gradient "
                         f"{grad_diff}")
     flops = Z.step_flops(net, batch)

@@ -5,9 +5,9 @@ Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``GraphBuilder`` /
 JAX package writes (``to_json``/``from_json``), every vertex of the
 reference (``graph.py:78-307``), the runtime — ``init``, ``output``,
 ``fit`` with its listener calls, ``score``, ``evaluate``, the train step
-of ``graph.py:734-748``, the flat parameter view — and the zips
-``save_graph`` / ``restore_graph`` (``graph.py:1133``, ``:1152``), whose
-entries are the JAX package's bytes.
+of ``graph.py:734-748``, the flat parameter view — and the JAX names
+of the zips, ``save_graph`` / ``restore_graph`` (``graph.py:1133``,
+``:1152``), over ``nn/serde.py``'s one writer and reader.
 
 What the train step does in place of ``jax.value_and_grad`` + ``jit``:
 each parameter leaf is taken as an autograd leaf (``detach()`` +
@@ -46,15 +46,15 @@ from deeplearning4j_tpu_torch.autodiff.samediff import canonical
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet, ListDataSetIterator)
 from deeplearning4j_tpu_torch.environment import resolve_device
-from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn import dtype as DT
 from deeplearning4j_tpu_torch.nn.layers import Layer, build_layer
 from deeplearning4j_tpu_torch.nn.listeners import (
     TrainingListener, notify_fit_done)
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _tree, apply_layer_updates, autograd_leaves, aux_losses, flatten_trees,
-    grad_tree, init_opt_state, reg_penalty, unflatten_trees)
+    _tree, apply_layer_updates, autograd_leaves, aux_losses,
+    evaluate_batches, flatten_trees, grad_tree, init_opt_state, reg_penalty,
+    unflatten_trees)
 from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
 from deeplearning4j_tpu_torch.ops.losses import get_loss
 
@@ -755,16 +755,11 @@ class ComputationGraph:
         """evaluate(DataSetIterator | DataSet) → the ``evaluation``
         accumulator (an ``Evaluation`` unless one is given) over the first
         output of every batch."""
-        e = evaluation if evaluation is not None else Evaluation()
-        if isinstance(iterator, DataSet):
-            iterator = ListDataSetIterator(iterator, batch_size=256)
         in_name = self.conf.network_inputs[0]
-        for ds in iterator:
-            masks = (None if ds.features_mask is None
-                     else {in_name: ds.features_mask})
-            out = self.output_single(ds.features, masks=masks)
-            e.eval(ds.labels, out, ds.labels_mask)
-        return e
+        return evaluate_batches(iterator, evaluation, lambda ds: (
+            self.output_single(ds.features, masks=None
+                               if ds.features_mask is None
+                               else {in_name: ds.features_mask})))
 
     # ---------------------------------------------------- flat params / serde
     def _by_name(self, trees) -> list:
@@ -800,48 +795,23 @@ class ComputationGraph:
                    for _, leaf in _tree().leaf_paths(p))
 
 
-_F32_LE = np.dtype("<f4")
-
-
 def save_graph(net: ComputationGraph, path: str,
                save_updater: bool = True) -> None:
-    """ModelSerializer.writeModel for a ComputationGraph: the JAX
-    package's entries (``configuration.json``, ``coefficients.bin``,
-    ``meta.json`` with ``model_type``, ``updaterState.bin``); like it, no
-    ``netState.bin``: a restored graph starts from fresh layer state."""
-    import zipfile
+    """ModelSerializer.writeModel for a ComputationGraph, under the JAX
+    package's name: :func:`~deeplearning4j_tpu_torch.nn.serde.save_model`."""
+    from deeplearning4j_tpu_torch.nn.serde import save_model
 
-    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
-        z.writestr("configuration.json", net.conf.to_json())
-        z.writestr("coefficients.bin",
-                   net.params_flat().astype(_F32_LE).tobytes())
-        z.writestr("meta.json", json.dumps(
-            {"iteration_count": net.iteration_count,
-             "epoch_count": net.epoch_count,
-             "model_type": "ComputationGraph"}))
-        if save_updater and net.opt_state is not None:
-            z.writestr("updaterState.bin",
-                       net.updater_state_flat().astype(_F32_LE).tobytes())
+    save_model(net, path, save_updater)
 
 
 def restore_graph(path: str, load_updater: bool = True,
                   device=None) -> ComputationGraph:
-    """ModelSerializer.restoreComputationGraph, onto ``device``
-    (``"cuda"`` unless the caller passes ``device="cpu"``)."""
-    import zipfile
+    """ModelSerializer.restoreComputationGraph, under the JAX package's
+    name: :func:`~deeplearning4j_tpu_torch.nn.serde.restore_model`."""
+    from deeplearning4j_tpu_torch.nn.serde import restore_model
 
-    with zipfile.ZipFile(path, "r") as z:
-        names = z.namelist()
-        conf = ComputationGraphConfiguration.from_json(
-            z.read("configuration.json").decode())
-        net = ComputationGraph(conf, device=device).init()
-        net.set_params_flat(np.frombuffer(z.read("coefficients.bin"),
-                                          _F32_LE))
-        if "meta.json" in names:
-            meta = json.loads(z.read("meta.json").decode())
-            net.iteration_count = meta.get("iteration_count", 0)
-            net.epoch_count = meta.get("epoch_count", 0)
-        if load_updater and "updaterState.bin" in names:
-            net.set_updater_state_flat(np.frombuffer(
-                z.read("updaterState.bin"), _F32_LE))
+    net = restore_model(path, load_updater, device)
+    if not isinstance(net, ComputationGraph):
+        raise ValueError(f"{path} holds a {type(net).__name__}, not a "
+                         f"ComputationGraph")
     return net

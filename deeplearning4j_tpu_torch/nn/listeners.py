@@ -176,8 +176,8 @@ class EvaluativeListener(TrainingListener):
 
 class CheckpointListener(TrainingListener):
     """CheckpointListener.java: a model zip every N iterations or epochs
-    (``save_model`` for a MultiLayerNetwork, ``save_graph`` for a
-    ComputationGraph), the last ``keep_last`` kept."""
+    (``save_model``, which writes either network), the last
+    ``keep_last`` kept."""
 
     def __init__(self, directory: str,
                  save_every_n_iterations: Optional[int] = None,
@@ -191,15 +191,10 @@ class CheckpointListener(TrainingListener):
         os.makedirs(directory, exist_ok=True)
 
     def _save(self, model, tag: str):
-        from deeplearning4j_tpu_torch.nn.graph import (
-            ComputationGraph, save_graph)
         from deeplearning4j_tpu_torch.nn.serde import save_model
 
         path = os.path.join(self.dir, f"checkpoint_{tag}.zip")
-        if isinstance(model, ComputationGraph):
-            save_graph(model, path)
-        else:
-            save_model(model, path)
+        save_model(model, path)
         self.saved.append(path)
         if self.keep_last and len(self.saved) > self.keep_last:
             old = self.saved.pop(0)

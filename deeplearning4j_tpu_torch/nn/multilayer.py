@@ -539,13 +539,8 @@ class MultiLayerNetwork:
         """evaluate(DataSetIterator | DataSet) → the ``evaluation``
         accumulator (an ``Evaluation`` unless one is given) over
         ``output`` of every batch."""
-        e = evaluation if evaluation is not None else Evaluation()
-        if isinstance(iterator, DataSet):
-            iterator = ListDataSetIterator(iterator, batch_size=256)
-        for ds in iterator:
-            out = self.output(ds.features, ds.features_mask)
-            e.eval(ds.labels, out, ds.labels_mask)
-        return e
+        return evaluate_batches(iterator, evaluation, lambda ds: (
+            self.output(ds.features, ds.features_mask)))
 
     def evaluate_regression(self, iterator) -> RegressionEvaluation:
         return self.evaluate(iterator, RegressionEvaluation())
@@ -574,6 +569,19 @@ class MultiLayerNetwork:
 
     def set_updater_state_flat(self, flat) -> None:
         self.opt_state, _ = unflatten_trees(self.opt_state, flat, self.device)
+
+
+def evaluate_batches(iterator, evaluation, output_fn):
+    """The ``evaluate`` loop both networks share: ``evaluation`` (an
+    ``Evaluation`` unless one is given) fed ``output_fn(ds)`` against
+    the labels of every batch of ``iterator`` (a DataSet is cut into
+    batches of 256)."""
+    e = evaluation if evaluation is not None else Evaluation()
+    if isinstance(iterator, DataSet):
+        iterator = ListDataSetIterator(iterator, batch_size=256)
+    for ds in iterator:
+        e.eval(ds.labels, output_fn(ds), ds.labels_mask)
+    return e
 
 
 def _detached(state):

@@ -34,10 +34,6 @@ TRAIN: List[Tuple[str, int, str]] = [
     ("InceptionResNetV1", 64, "RmsProp"),
 ]
 DETECT: List[Tuple[str, int]] = [("TinyYOLO", 8), ("YOLO2", 8)]
-# max pools over overlapping 3×3/2 windows: a backward that may accumulate
-# in any order, so the generic run is no bit-exact reference there
-OVERLAPPING_POOLS = ("AlexNet", "SqueezeNet", "Xception",
-                     "InceptionResNetV1")
 
 
 def batches(zoo, batch: int, steps: int, seed: int = 500):

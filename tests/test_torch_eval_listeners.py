@@ -454,6 +454,28 @@ def test_graph_zips_cross_both_ways(tmp_path):
                                **OUT)
 
 
+def test_one_writer_and_reader_serve_both_networks(tmp_path):
+    """``save_model`` writes a graph's zip entry for entry as the JAX
+    package's ``save_graph`` (no netState.bin, ``model_type`` in
+    meta.json); ``restore_model`` reads the network type from meta.json;
+    ``restore_graph`` refuses a MultiLayerNetwork's zip."""
+    jg, tg = _nets("graph")
+    jpath, tpath = str(tmp_path / "jax.zip"), str(tmp_path / "port.zip")
+    jgraph.save_graph(jg, jpath)
+    tnn.save_model(tg, tpath)
+    _entries_equal(jpath, tpath)
+    back = tnn.restore_model(jpath, device="cpu")
+    assert isinstance(back, tgraph.ComputationGraph)
+    np.testing.assert_array_equal(back.params_flat(), jg.params_flat())
+    _, tm = _nets("mln")
+    mpath = str(tmp_path / "mln.zip")
+    tnn.save_model(tm, mpath)
+    assert isinstance(tnn.restore_model(mpath, device="cpu"),
+                      tnn.MultiLayerNetwork)
+    with pytest.raises(ValueError, match="not a ComputationGraph"):
+        tgraph.restore_graph(mpath, device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # normalizers
 # ---------------------------------------------------------------------------

@@ -255,14 +255,14 @@ def test_zoo_output_and_two_fit_steps_match_jax(name, monkeypatch):
     packages' arithmetic: score, parameters and updater state to 1e-9 of
     the port's float64 step. Xception's JAX step runs in float32 instead:
     XLA's float64 depthwise convolution on the CPU takes seconds a layer;
-    it is held as the port's float32 step is. The port's float32 ``fit``: its score to 1e-4 of the
-    float64 score, its parameters and updater state within 5% (relative
-    L2 norm of the step) of the float64 ones: a random relu network's
-    float32 step crosses relu and max-pool boundaries that lie a rounding
-    away, in either package (the JAX package's own float32 step lands
-    1.9% from its float64 step on VGG16 here)."""
-    jnet, tnet = _nets(name, monkeypatch)
-    j_ref, t64 = _nets(name, monkeypatch)
+    it is held as the port's float32 step is. The port's float32 ``fit``:
+    its score to 1e-4 of the float64 score, its parameters and updater
+    state within 5% (relative L2 norm of the step) of the float64 ones: a
+    random relu network's float32 step crosses relu and max-pool
+    boundaries that lie a rounding away, in either package (the JAX
+    package's own float32 step lands 1.9% from its float64 step on VGG16
+    here)."""
+    jnet, tnet = _nets(name, monkeypatch)  # each takes every step below
     jax_dtype = np.float32 if name in F32_JAX else np.float64
     x, _ = _data(name)
     np.testing.assert_allclose(_first(tnet.output(x)),
@@ -270,12 +270,12 @@ def test_zoo_output_and_two_fit_steps_match_jax(name, monkeypatch):
     trees = (_params(name), _host(jnet.net_state), _host(jnet.opt_state))
     for step in range(2):
         xs, ys = _data(name, n=BATCH, seed=10 + step)
-        score, p64, s64 = _port_f64_step(t64, trees, step,
+        score, p64, s64 = _port_f64_step(tnet, trees, step,
                                          xs.astype(np.float64),
                                          ys.astype(np.float64))
         before, p64, s64 = _flat(trees[0]), _flat(p64), _flat(s64)
         j_score, j_params, j_state, j_opt = _jax_step(
-            j_ref, trees, xs.astype(jax_dtype), ys.astype(jax_dtype))
+            jnet, trees, xs.astype(jax_dtype), ys.astype(jax_dtype))
         score_tol, step_tol = ((F64, F64) if jax_dtype == np.float64
                                else (F32_SCORE, F32_STEP))
         np.testing.assert_allclose(j_score, score, rtol=score_tol)
@@ -284,6 +284,7 @@ def test_zoo_output_and_two_fit_steps_match_jax(name, monkeypatch):
         # the port's float32 fit from the same state
         tnet.params, tnet.net_state, tnet.opt_state = (
             tzoo.graph_state_from_numpy(*trees, device="cpu"))
+        tnet.iteration_count = step
         tnet.fit(xs, ys, batch_size=BATCH)
         np.testing.assert_allclose(tnet.score(), score, rtol=F32_SCORE)
         move = _rel(_flat(tnet.params), p64, p64 - before)
@@ -292,7 +293,7 @@ def test_zoo_output_and_two_fit_steps_match_jax(name, monkeypatch):
         assert state <= F32_STEP, (step, state)
         trees = tuple(jax.tree.map(lambda a: a.astype(np.float32), t)
                       for t in (j_params, j_state, j_opt))
-    assert tnet.iteration_count == j_ref.iteration_count == 2
+    assert tnet.iteration_count == jnet.iteration_count == 2
 
 
 @pytest.mark.parametrize("name", ["TinyYOLO", "YOLO2"])
