@@ -88,6 +88,15 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    equal between the captured and the eager run; then with 8 slots
    decoding, the decode step's wall p50 captured and eager, and one
    decode step on fixed inputs captured and eager, logits bit-equal.
+4b. ``serve_supervised`` — a new engine of the same configuration,
+   supervised (the default), threaded, with ``decode_step_error`` and
+   ``worker_death`` armed once each (``SERVE_CRASH_AT``) and
+   ``max_retries=2``: every request's greedy tokens equal to the ``serve``
+   run's, 2 restarts, the retries equal to the requests active at the two
+   crashes, one capture and one ``first_compile`` a step unit (none after
+   a restart), the KV pool the same buffer; then one ``page_oom`` shot
+   ends its request as ``oom``. Reports each crash's recovery seconds and
+   a ``faults`` line.
 5. ``train``   — ResNet-50 at full width (224×224×3, 1000 classes), the
    usual configuration (float32, composed blocks, Nesterovs lr 0.1),
    batch 32, trained through ``ResNet50().init()`` → ``fit``: 3 steps
@@ -193,6 +202,10 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    dispatch tally set to 0 just before): one updater launch over the 8
    leaves a step; losses and parameters held to the generic run as
    ``train`` holds them. Reports images/s.
+12b. ``lenet_bf16`` — the same under ``dtype("bfloat16")``: bfloat16
+   parameters and updater state, float32 input promoting each op to
+   float32 as jnp does; 3 steps through the fused updater on bfloat16
+   leaves bit-equal to ``helper_mode="generic"``.
 13. ``bilstm_tagger`` — BASELINE config 3 at a realistic width:
    ``Bidirectional(LSTM(256, tanh), concat)`` over 300-wide word vectors
    → ``RnnOutputLayer`` over CoNLL-2003's 9 tags, Adam 5e-3, built with
@@ -243,6 +256,28 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    memory, FLOPs a step (from the convolution and dense shapes) and
    their share of 67 TFLOP/s (float32 without tensor cores), and the
    phase's seconds.
+16. ``supervised_train`` — ``AlexNet()`` at the zoo defaults (224², 1000
+   classes, batch 128, Nesterovs, dropout 0.5) on 2 epochs × 4 batches of
+   uint8 textures through ``ListDataSetIterator(shuffle=True)`` with
+   ``ImagePreProcessingScaler`` attached: the uninterrupted oracle; a
+   ``TrainingSupervisor(save_every=2)`` run killed by the ``preemption``
+   fault after 5 steps; a graceful ``request_preemption()`` at iteration
+   3 continued by a fresh network of another seed; the newest save torn
+   and a hard kill (the restore falls back). Per-iteration losses, final
+   parameters, updater and generator state bit-equal to the oracle's;
+   restarts, resumes, fallbacks and steps run as expected; one updater
+   launch a step run, replays included. Reports checkpoint bytes, sync
+   save and restore seconds, the training thread's seconds per async save
+   beside the writer's, and the unarmed poll's cost a step.
+17. ``graph_tbptt`` — TextGenerationLSTM's layers through
+   ``graph_builder()`` (tBPTT 50) on two 32 × 1000 character batches under
+   ``TrainingSupervisor(save_every=1)``, killed mid second batch: the
+   resumed run's losses and parameters equal to the oracle's, checkpoints
+   only at the batch boundaries; the graph's 20 segment losses equal to
+   the ``MultiLayerNetwork``'s from the same parameters, and 200
+   characters through ``rnn_time_step`` equal to the network's. Where a
+   run is not bit-reproducible the first differing segment is named and
+   held to ``char_lstm``'s 1e-5 relative.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -442,6 +477,18 @@ ZOO_STEPS = 3
 ZOO_CPU_IMAGES = 2
 ZOO_CPU_TOL_TEXT = (f"{ZOO_CPU_ATOL:g} x max(1, max |cpu|) + {ZOO_CPU_RTOL:g}"
                     f" x |cpu|, elementwise, {ZOO_CPU_IMAGES} images")
+# supervised_train: AlexNet at its zoo_cnn batch, 2 epochs of 4 batches
+SUP_BATCH = 128
+SUP_BATCHES = 4
+SUP_EPOCHS = 2
+SUP_DATA_SEED = 600
+SUP_SHUFFLE_SEED = 17
+SUP_OTHER_SEED = 321    # the relaunch's network: the restore overwrites it
+# graph_tbptt: characters streamed through rnn_time_step
+GRAPH_STREAM_CHARS = 200
+# serve_supervised: after_n of decode_step_error (decode steps) and
+# worker_death (serving-loop iterations with work)
+SERVE_CRASH_AT = (5, 30)
 
 
 def emit(obj) -> None:
@@ -3008,6 +3055,700 @@ def _tbptt_segment_checks(net, start, ds):
                f"from the generic run's state"}
 
 
+# ---------------------------------------------------------------------------
+# checkpointed, supervised training and serving
+# ---------------------------------------------------------------------------
+
+
+def _ckpt_dir(name: str) -> str:
+    """A fresh checkpoint directory inside this checkout (``build/`` is
+    ignored by git); the phase deletes it when done."""
+    import os
+    import pathlib
+    import shutil
+
+    d = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    d = d / name
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return str(d)
+
+
+def _drop_ckpt_dirs() -> None:
+    import pathlib
+    import shutil
+
+    shutil.rmtree(pathlib.Path(__file__).resolve().parent / "build"
+                  / "chip_smoke_ckpt", ignore_errors=True)
+
+
+class _StepLog:
+    """A listener: every ``iteration_done`` call's (iteration, score);
+    with ``kill_at`` one hard kill when that iteration is reported
+    (``InjectedFault("preemption")`` raised from inside the batch), with
+    ``preempt_at`` one graceful ``request_preemption()``."""
+
+    def __init__(self, kill_at=None, preempt_at=None):
+        self.calls = []
+        self.kill_at, self.preempt_at = kill_at, preempt_at
+
+    def iteration_done(self, model, iteration, epoch, score):
+        from deeplearning4j_tpu_torch import faults
+
+        self.calls.append((iteration, float(score)))
+        if iteration == self.kill_at:
+            self.kill_at = None
+            raise faults.InjectedFault("preemption")
+        if iteration == self.preempt_at:
+            self.preempt_at = None
+            faults.request_preemption()
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def _equal_trees(a, b) -> bool:
+    """Same leaves, dtypes and bits."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models._tree import leaf_paths
+
+    la, lb = list(leaf_paths(a)), list(leaf_paths(b))
+    return len(la) == len(lb) and all(
+        pa == pb and x.dtype == y.dtype and torch.equal(x, y)
+        for (pa, x), (pb, y) in zip(la, lb))
+
+
+def _final_state(net) -> dict:
+    return {"params": _clone_tree(net.params),
+            "opt_state": _clone_tree(net.opt_state),
+            "gen": net._gen.get_state().clone()}
+
+
+def _state_problems(run, got, want) -> list:
+    """Bit-equality of a run's final parameters, updater state and
+    generator state against the oracle's."""
+    out = []
+    for part in ("params", "opt_state"):
+        if not _equal_trees(got[part], want[part]):
+            out.append(f"{run}: {part} differ from the oracle's by "
+                       f"{_max_diff(got[part], want[part])}")
+    if not _equal_trees(got["gen"], want["gen"]):
+        out.append(f"{run}: generator state differs from the oracle's")
+    return out
+
+
+def _faults_line(phase: str, runs: list) -> dict:
+    """The phase's faults summary: per run the points armed, the fires
+    and the supervisor's restarts."""
+    return {"faults": phase, "runs": runs,
+            "fires": {k: sum(r["fires"].get(k, 0) for r in runs)
+                      for k in sorted({k for r in runs for k in r["fires"]})},
+            "restarts": sum(r["restarts"] for r in runs)}
+
+
+def _poll_ns(n: int = 200000) -> float:
+    """Host nanoseconds of one unarmed preemption poll of a fit loop
+    (``maybe_fail`` + ``preemption_requested``)."""
+    from deeplearning4j_tpu_torch import faults
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        faults.maybe_fail("preemption")
+        faults.preemption_requested()
+    return (time.perf_counter() - t0) / n * 1e9
+
+
+def supervised_train_phase(dev, smi, *, input_shape=None, classes=None,
+                           batch=SUP_BATCH, batches=SUP_BATCHES,
+                           epochs=SUP_EPOCHS):
+    """``AlexNet()`` at the zoo defaults (224×224×3, 1000 classes,
+    Nesterovs, dropout 0.5 in both dense layers) fed ``epochs`` ×
+    ``batches`` batches of ``batch`` synthetic uint8 textures through a
+    reshuffling ``ListDataSetIterator`` with ``ImagePreProcessingScaler``
+    attached by ``set_pre_processor``, cuDNN deterministic. Four runs:
+    the uninterrupted oracle; ``TrainingSupervisor(save_every=2)``
+    (asynchronous saves) killed by the ``preemption`` fault after 5
+    steps; a graceful ``request_preemption()`` at iteration 3, then a
+    fresh ``AlexNet(seed=...)`` and a fresh checkpointer on the same
+    directory to the end; the newest save torn
+    (``checkpoint_torn_write``) and a hard kill after 5 steps, the restore
+    falling back. Each run's per-iteration losses, final parameters,
+    updater state and generator state must equal the oracle's bit for
+    bit; restarts, resumes and fallbacks are counted; fused-updater
+    launches equal the steps run, replays included. Returns (problems,
+    line, launches, faults line)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import faults, observe
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, ImagePreProcessingScaler, ListDataSetIterator,
+        synthetic_image_batch)
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.parallel import (
+        TrainingCheckpointer, TrainingSupervisor)
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    kw = dict(device=dev)
+    if input_shape is not None:
+        kw.update(input_shape=input_shape, num_classes=classes)
+
+    def model(seed=123):
+        return zoo.AlexNet(seed=seed, **kw)
+
+    h, w, c = model().input_shape
+    n_cls = model().num_classes
+    n = batch * batches
+    x, lab = synthetic_image_batch(n, h, w, c, n_cls, seed=SUP_DATA_SEED)
+    x_u8 = np.clip(x / 1.05 * 255.0, 0, 255).astype(np.uint8)
+    y = np.eye(n_cls, dtype=np.float32)[lab]
+    del x
+
+    def data():
+        it = ListDataSetIterator(DataSet(x_u8, y), batch_size=batch,
+                                 shuffle=True, seed=SUP_SHUFFLE_SEED)
+        it.set_pre_processor(ImagePreProcessingScaler())
+        return it
+
+    steps = batches * epochs
+    m = observe.metrics()
+
+    def counters():
+        return {k: m.counter(f"dl4j_tpu_{k}").value for k in (
+            "ckpt_resumes_total", "checkpoint_fallback_total",
+            "checkpoint_corrupt_total", "checkpoint_saves_total")}
+
+    def run(body):
+        """One run from a clean fault table: (scores by iteration,
+        final state, steps run, updater launches, counters moved,
+        fires, restarts, seconds)."""
+        faults.reset()
+        before = counters()
+        cu.fused_updater.launches = 0
+        t0 = time.perf_counter()
+        logs, restarts, net = body()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        scores = {}
+        for lg in logs:
+            scores.update(dict(lg.calls))
+        out = dict(scores=scores, state=_final_state(net),
+                   steps=sum(len(lg.calls) for lg in logs),
+                   launches=cu.fused_updater.launches,
+                   moved={k: v - before[k] for k, v in counters().items()},
+                   fires=faults.fire_counts(), restarts=restarts,
+                   seconds=secs)
+        faults.reset()
+        return out
+
+    # 1. the oracle
+    def oracle_body():
+        net = model().init()
+        lg = _StepLog()
+        net.set_listeners(lg)
+        net.fit(data(), epochs=epochs)
+        return [lg], 0, net
+
+    oracle = run(oracle_body)
+
+    save_block = []   # the training thread's seconds a save_async
+
+    class TimedCheckpointer(TrainingCheckpointer):
+        def save_async(self, step, net):
+            t0 = time.perf_counter()
+            super().save_async(step, net)
+            save_block.append(time.perf_counter() - t0)
+
+    # 2. asynchronous saves every 2 steps, killed after 5 steps
+    def killed_body():
+        net = model().init()
+        lg = _StepLog()
+        net.set_listeners(lg)
+        sup = TrainingSupervisor(net, TimedCheckpointer(
+            _ckpt_dir("killed"), keep_last=2), save_every=2,
+            restart_backoff_s=0.0)
+        faults.arm("preemption", after_n=5, max_fires=1)
+        status = sup.fit(data(), epochs=epochs)
+        if status != "completed":
+            raise RuntimeError(f"supervised fit returned {status}")
+        sup.ckpt.close()
+        return [lg], sup.restarts, net
+
+    write_h0 = m.histogram("dl4j_tpu_ckpt_write_seconds")
+    w_count0, w_sum0 = write_h0.count, write_h0.sum
+    killed = run(killed_body)
+    writes = write_h0.count - w_count0
+    writer_s = (write_h0.sum - w_sum0) / max(writes, 1)
+
+    # 3. graceful preemption at iteration 3, a fresh net of another seed
+    def graceful_body():
+        d = _ckpt_dir("graceful")
+        net = model().init()
+        lg1 = _StepLog(preempt_at=3)
+        net.set_listeners(lg1)
+        sup = TrainingSupervisor(net, TrainingCheckpointer(d, keep_last=2),
+                                 save_every=2, restart_backoff_s=0.0)
+        status = sup.fit(data(), epochs=epochs)
+        faults.clear_preemption()
+        sup.ckpt.close()
+        if status != "preempted":
+            raise RuntimeError(f"graceful run returned {status}")
+        del net
+        net2 = model(seed=SUP_OTHER_SEED).init()
+        lg2 = _StepLog()
+        net2.set_listeners(lg2)
+        sup2 = TrainingSupervisor(net2, TrainingCheckpointer(d, keep_last=2),
+                                  save_every=2, restart_backoff_s=0.0)
+        status = sup2.fit(data(), epochs=epochs)
+        sup2.ckpt.close()
+        if status != "completed":
+            raise RuntimeError(f"resumed run returned {status}")
+        return [lg1, lg2], sup.restarts + sup2.restarts, net2
+
+    graceful = run(graceful_body)
+
+    # 4. the newest save torn, then a hard kill: the restore falls back
+    def torn_body():
+        net = model().init()
+        lg = _StepLog()
+        net.set_listeners(lg)
+        sup = TrainingSupervisor(net, TrainingCheckpointer(
+            _ckpt_dir("torn"), keep_last=2), save_every=2,
+            restart_backoff_s=0.0)
+        faults.arm("checkpoint_torn_write", after_n=1, max_fires=1)
+        faults.arm("preemption", after_n=5, max_fires=1)
+        status = sup.fit(data(), epochs=epochs)
+        if status != "completed":
+            raise RuntimeError(f"supervised fit returned {status}")
+        sup.ckpt.close()
+        return [lg], sup.restarts, net
+
+    torn = run(torn_body)
+
+    # the checkpoint's size, one synchronous save and one restore of the
+    # oracle's state
+    net = model().init()
+    d = _ckpt_dir("timed")
+    ck = TrainingCheckpointer(d, keep_last=None)
+    net.params, net.opt_state = (oracle["state"]["params"],
+                                 oracle["state"]["opt_state"])
+    t0 = time.perf_counter()
+    path = ck.save(steps, net)
+    sync_save_s = time.perf_counter() - t0
+    ckpt_bytes = __import__("os").path.getsize(path)
+    fresh = model(seed=SUP_OTHER_SEED).init()
+    _sync(dev)
+    t0 = time.perf_counter()
+    ck.restore(fresh)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    restored_equal = (_equal_trees(fresh.params, oracle["state"]["params"])
+                      and _equal_trees(fresh.opt_state,
+                                       oracle["state"]["opt_state"]))
+    del net, fresh
+    _drop_ckpt_dirs()
+
+    problems = []
+    if not restored_equal:
+        problems.append("save + restore of the oracle's state not exact")
+    if len(oracle["scores"]) != steps or not all(
+            math.isfinite(v) for v in oracle["scores"].values()):
+        problems.append(f"oracle scores {oracle['scores']}")
+    # expected: restarts, resumes, fallbacks, steps run (replays included)
+    want = {"killed": (1, 1, 0, steps + 1),      # saved at 4, killed at 5
+            "graceful": (0, 1, 0, steps),        # saved at 3 (SIGTERM path)
+            "torn": (1, 1, 1, steps + 3)}        # 4 torn: back to 2
+    runs = {"killed": killed, "graceful": graceful, "torn": torn}
+    for name, r in runs.items():
+        restarts, resumes, fallbacks, ran = want[name]
+        got = (r["restarts"], r["moved"]["ckpt_resumes_total"],
+               r["moved"]["checkpoint_fallback_total"], r["steps"])
+        if got != want[name]:
+            problems.append(f"{name}: (restarts, resumes, fallbacks, steps) "
+                            f"{got} != {want[name]}")
+        if r["scores"] != oracle["scores"]:
+            diff = {k: (v, oracle["scores"].get(k))
+                    for k, v in r["scores"].items()
+                    if v != oracle["scores"].get(k)}
+            problems.append(f"{name}: per-iteration losses differ from the "
+                            f"oracle's: {diff}")
+        problems += _state_problems(name, r["state"], oracle["state"])
+    for name, r in dict(oracle=oracle, **runs).items():
+        if dev.type == "cuda" and r["launches"] != r["steps"]:
+            problems.append(f"{name}: {r['launches']} updater launches != "
+                            f"{r['steps']} steps run")
+    if killed["fires"] != {"preemption": 1} or torn["fires"] != {
+            "preemption": 1, "checkpoint_torn_write": 1}:
+        problems.append(f"fires {killed['fires']}, {torn['fires']}")
+    step_s = oracle["seconds"] / steps
+    poll = _poll_ns()
+    line = {"phase": "supervised_train", "card": smi,
+            "model": "AlexNet()", "input": list(model().input_shape),
+            "classes": n_cls, "batch": batch, "batches_per_epoch": batches,
+            "epochs": epochs, "updater": "Nesterovs", "dropout": 0.5,
+            "data": "uint8 textures, ListDataSetIterator(shuffle=True) + "
+                    "ImagePreProcessingScaler",
+            "runs": {name: {"steps_run": r["steps"],
+                            "restarts": r["restarts"],
+                            "counters": r["moved"], "fires": r["fires"],
+                            "updater_launches": r["launches"],
+                            "seconds": r["seconds"]}
+                     for name, r in dict(oracle=oracle, **runs).items()},
+            "losses": [oracle["scores"][k] for k in sorted(oracle["scores"])],
+            "bit_equal_to_oracle": not problems,
+            "checkpoint_bytes": ckpt_bytes, "sync_save_s": sync_save_s,
+            "async_save_training_thread_s": save_block,
+            "async_write_s_mean": writer_s, "async_writes": writes,
+            "restore_s": restore_s, "oracle_step_s": step_s,
+            "unarmed_poll_ns": poll,
+            "unarmed_poll_share_of_step": poll * 1e-9 / step_s,
+            "smoke_reading": "one run each, no spread", "problems": problems}
+    launches = {"fused_updater": killed["launches"]}
+    fl = _faults_line("supervised_train", [
+        {"run": name, "armed": armed, "fires": runs[name]["fires"],
+         "restarts": runs[name]["restarts"]}
+        for name, armed in (
+            ("killed", ["preemption:after_n=5"]),
+            ("graceful", ["request_preemption() at iteration 3"]),
+            ("torn", ["checkpoint_torn_write:after_n=1",
+                      "preemption:after_n=5"]))])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return problems, line, launches, fl
+
+
+def graph_tbptt_phase(dev, smi, *, batch=None, seq=None, vocab=None,
+                      hidden=None, seg=None, stream=GRAPH_STREAM_CHARS):
+    """TextGenerationLSTM's three layers (2 × LSTM 256, RmsProp 1e-2) built
+    with ``graph_builder()``, tBPTT 50, on ``char_lstm``'s data: two
+    batches of 32 × 1000 (20 segments each). ``ComputationGraph.fit``
+    through the tBPTT dispatch under ``TrainingSupervisor(save_every=1)``,
+    killed mid second batch (a listener raises ``InjectedFault`` at
+    iteration 25): the resumed run must equal the uninterrupted oracle's
+    parameters and losses, and checkpoints land only at batch boundaries.
+    The graph's per-segment losses must equal the
+    ``MultiLayerNetwork``'s from the same parameters, and ``stream``
+    characters through ``rnn_time_step`` one at a time must equal the
+    network's. Returns (problems, line, launches, faults line)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import faults, observe
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.parallel import (
+        TrainingCheckpointer, TrainingSupervisor)
+    from deeplearning4j_tpu_torch.testing import sequential as S
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    b = batch or S.CHAR["batch"]
+    t = seq or S.CHAR["seq"]
+    v = vocab or S.CHAR["vocab"]
+    hd = hidden or S.CHAR["hidden"]
+    sg = seg or S.CHAR["tbptt"]
+    segments = -(-t // sg)
+    ds = [S.char_batch(b, t, v), S.char_batch(b, t, v, seed=78)]
+    conf = S.char_graph_conf(v, hd, sg)
+
+    def graph():
+        return ComputationGraph(conf, device=dev).init()
+
+    start = _clone_tree(graph().params)
+    # the oracle
+    cu.fused_updater.launches = 0
+    oracle = graph()
+    o_log = _StepLog()
+    oracle.set_listeners(o_log)
+    t0 = time.perf_counter()
+    oracle.fit(ListDataSetIterator(ds))
+    _sync(dev)
+    oracle_s = time.perf_counter() - t0
+    oracle_launches = cu.fused_updater.launches
+    # supervised, killed mid second batch
+    kill_at = segments + segments // 4
+    faults.reset()
+    m = observe.metrics()
+    saves0 = m.counter("dl4j_tpu_checkpoint_saves_total").value
+    resumes0 = m.counter("dl4j_tpu_ckpt_resumes_total").value
+    cu.fused_updater.launches = 0
+    net = graph()
+    log = _StepLog(kill_at=kill_at)
+    net.set_listeners(log)
+    ck = TrainingCheckpointer(_ckpt_dir("graph_tbptt"), keep_last=None)
+    sup = TrainingSupervisor(net, ck, save_every=1, restart_backoff_s=0.0)
+    status = sup.fit(ListDataSetIterator(ds), epochs=1)
+    ck.close()
+    launches = {"fused_updater": cu.fused_updater.launches}
+    saved = sorted(s for s, _, _ in ck._saved)
+    saves = m.counter("dl4j_tpu_checkpoint_saves_total").value - saves0
+    resumes = m.counter("dl4j_tpu_ckpt_resumes_total").value - resumes0
+    _drop_ckpt_dirs()
+    problems = []
+    if status != "completed" or sup.restarts != 1 or resumes != 1:
+        problems.append(f"status {status}, restarts {sup.restarts}, "
+                        f"resumes {resumes}")
+    if saved != [segments, 2 * segments] or saves != 2:
+        problems.append(f"checkpoints at {saved} ({saves} saves), not only "
+                        f"at the batch boundaries {segments}, "
+                        f"{2 * segments}")
+    ran = len(log.calls)
+    if ran != 2 * segments + (kill_at - segments):
+        problems.append(f"{ran} segments run")
+    if dev.type == "cuda" and (launches["fused_updater"] != ran
+                               or oracle_launches != 2 * segments):
+        problems.append(f"updater launches {launches} / {oracle_launches} "
+                        f"!= segments run {ran} / {2 * segments}")
+
+    def first_diff(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+
+    # the resumed run against the oracle: losses a segment, parameters
+    o_scores = [s for _, s in o_log.calls]
+    r_scores = [s for _, s in log.calls[:segments]] + [
+        s for _, s in log.calls[-segments:]]
+    resumed_equal = _equal_trees(net.params, oracle.params)
+    resumed_first = first_diff(r_scores, o_scores)
+    # the graph against the MultiLayerNetwork of the same layers
+    mln = tnn.MultiLayerNetwork(S.char_conf(v, hd, sg), device=dev).init(
+        params=[start["l0"], start["l1"], start["out"]])
+    g2 = graph()
+    g2.params = _clone_tree(start)
+    mln.fit(ds[0], batch_size=b)
+    g2.fit(ds[0], batch_size=b)
+    g_scores, m_scores = g2.tbptt_scores(), mln.tbptt_scores()
+    mln_first = first_diff(g_scores, m_scores)
+    # the yardstick where a run is not bit-reproducible: char_lstm's
+    # segment tolerance (RNN_LOSS_RTOL), named by its first segment
+    for label, got, want, first in (
+            ("resumed vs oracle", r_scores, o_scores, resumed_first),
+            ("graph vs network", g_scores, m_scores, mln_first)):
+        if first is None:
+            continue
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if rel > RNN_LOSS_RTOL:
+            problems.append(f"{label}: segment {first} first differs; "
+                            f"{rel} relative > {RNN_LOSS_RTOL}")
+    if resumed_first is None and not resumed_equal:
+        problems.append(f"resumed parameters differ from the oracle's by "
+                        f"{_max_diff(net.params, oracle.params)}")
+    # streaming through both networks from the oracle's parameters
+    mln.params = [oracle.params["l0"], oracle.params["l1"],
+                  oracle.params["out"]]
+    g2.params = oracle.params
+    chars = np.random.default_rng(79).integers(0, v, (b, stream))
+    eye = np.eye(v, dtype=np.float32)
+    g2.rnn_clear_previous_state()
+    mln.rnn_clear_previous_state()
+    t0 = time.perf_counter()
+    sg_out = [g2.rnn_time_step(eye[chars[:, i]]) for i in range(stream)]
+    stream_s = time.perf_counter() - t0
+    sm_out = [mln.rnn_time_step(eye[chars[:, i]]) for i in range(stream)]
+    stream_diff = float(np.abs(np.stack(sg_out) - np.stack(sm_out)).max())
+    if stream_diff != 0.0:
+        problems.append(f"graph rnn_time_step differs from the network's "
+                        f"by {stream_diff}")
+    line = {"phase": "graph_tbptt", "card": smi,
+            "model": f"TextGenerationLSTM(vocab_size={v}) layers as "
+                     f"graph_builder(), tbptt({sg}, {sg})",
+            "batch": b, "seq": t, "batches": 2, "segments": 2 * segments,
+            "kill_at_iteration": kill_at, "status": status,
+            "restarts": sup.restarts, "checkpoints_at": saved,
+            "segments_run": ran, "launches": launches,
+            "oracle_launches": oracle_launches,
+            "resumed_params_bit_equal": resumed_equal,
+            "resumed_first_differing_segment": resumed_first,
+            "graph_vs_network_first_differing_segment": mln_first,
+            "graph_segment_losses": g_scores,
+            "rnn_time_step_chars": stream,
+            "rnn_time_step_max_abs_diff": stream_diff,
+            "rnn_time_step_ms_a_char": stream_s / stream * 1e3,
+            "oracle_s": oracle_s, "tokens_per_s": 2 * b * t / oracle_s,
+            "smoke_reading": "one run, no spread", "problems": problems}
+    fl = _faults_line("graph_tbptt", [{
+        "run": "supervised", "armed": [f"InjectedFault('preemption') "
+                                       f"raised at iteration {kill_at}"],
+        "fires": {"preemption": int(log.kill_at is None)},
+        "restarts": sup.restarts}])
+    faults.reset()
+    del net, oracle, mln, g2
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return problems, line, launches, fl
+
+
+def serve_supervised_phase(dev, smi, model, engine_kw, prompts, want):
+    """The ``serve`` phase's engine (GPT-2-small width, threaded through
+    ``start()``), supervised, with ``decode_step_error`` once and
+    ``worker_death`` once armed: every request's greedy tokens must equal
+    the unfaulted ``serve`` run's (``want``), two restarts, the retries
+    equal to the requests active at the two crashes, no capture and no
+    ``new_shape`` after a restart, the KV pool the same buffer; then one
+    ``page_oom`` shot ends its request as ``oom``. Returns (problems,
+    line, launches, faults line)."""
+    from deeplearning4j_tpu_torch import faults, observe
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.serving import GenerativeEngine
+
+    faults.reset()
+    observe.reset()
+    eng = GenerativeEngine(model, **engine_kw)
+    crashes = []
+    real_recover = eng._recover
+
+    def recover(exc):
+        t0 = time.perf_counter()
+        active = len(eng.scheduler.active_slots())
+        ok = real_recover(exc)
+        crashes.append({"error": repr(exc), "active": active,
+                        "recovered": ok,
+                        "seconds": time.perf_counter() - t0})
+        return ok
+
+    eng._recover = recover
+    ptr = eng.cache.kv.data_ptr()
+    faults.arm("decode_step_error", after_n=SERVE_CRASH_AT[0], max_fires=1)
+    faults.arm("worker_death", after_n=SERVE_CRASH_AT[1], max_fires=1)
+    ca.reset_launch_counts()              # the main path's run starts here
+    eng.start()
+    t0 = time.perf_counter()
+    try:
+        futs = [eng.submit(p, max_new_tokens=32, max_retries=2)
+                for p in prompts]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = ca.launch_counts()     # ... and ends here
+        fires = faults.fire_counts()
+        faults.reset()
+        faults.arm("page_oom", max_fires=1)
+        oom = eng.submit(prompts[0], max_new_tokens=4).result(timeout=600)
+        oom_fires = faults.fire_counts()
+    finally:
+        faults.reset()
+        eng.stop()
+    m = observe.metrics()
+    retries = int(m.counter("dl4j_tpu_serving_retries_total").value)
+    restarts = int(m.counter("dl4j_tpu_serving_engine_restarts_total").value)
+    ledger = {}
+    for ev in observe.ledger().events():
+        if ev.graph == "serving":
+            ledger.setdefault(ev.key, []).append(ev.cause)
+    units = {name: unit_memory(u) for name, u in (
+        ("prefill", eng._prefill_fn), ("write_prompt", eng._write_fn),
+        ("decode", eng._decode_fn))}
+    problems = []
+    equal = sum(list(a.tokens) == list(b.tokens)
+                for a, b in zip(results, want))
+    if equal != len(prompts):
+        problems.append(f"greedy tokens equal to the unfaulted run: "
+                        f"{equal} of {len(prompts)}")
+    if any(r.finish_reason not in ("length", "eos") for r in results):
+        problems.append(f"finish reasons "
+                        f"{[r.finish_reason for r in results]}")
+    if fires != {"decode_step_error": 1, "worker_death": 1}:
+        problems.append(f"fires {fires}")
+    if eng.restarts != 2 or restarts != 2 or len(crashes) != 2:
+        problems.append(f"restarts {eng.restarts} (counter {restarts}, "
+                        f"{len(crashes)} crashes)")
+    if retries != sum(c["active"] for c in crashes):
+        problems.append(f"retries {retries} != active at the crashes "
+                        f"{[c['active'] for c in crashes]}")
+    if ledger != {k: ["first_compile"] for k in (
+            "prefill", "write_prompt", "decode")}:
+        problems.append(f"serving ledger {ledger}")
+    if dev.type == "cuda" and any(u["captures"] != 1
+                                  for u in units.values()):
+        problems.append(f"captures after the restarts {units}")
+    if eng.cache.kv.data_ptr() != ptr:
+        problems.append("the KV pool was reallocated")
+    if oom.finish_reason != "oom" or oom_fires != {"page_oom": 1}:
+        problems.append(f"page_oom shot: {oom.finish_reason}, {oom_fires}")
+    if dev.type == "cuda" and (launches["flash_attn_fwd"] < len(prompts)
+                               or not launches["paged_decode"]):
+        problems.append(f"launches {launches}")
+    line = {"phase": "serve_supervised", "card": smi,
+            "model": "GptConfig.base()", "dtype": "float32",
+            "requests": len(prompts), "max_retries": 2,
+            "armed": {"decode_step_error": SERVE_CRASH_AT[0],
+                      "worker_death": SERVE_CRASH_AT[1]},
+            "crashes": crashes, "restarts": eng.restarts,
+            "retries": retries, "tokens_equal_unfaulted": equal,
+            "launches": launches, "serving_ledger": ledger,
+            "graph_units": units, "page_oom_result": oom.finish_reason,
+            "wall_s": wall, "tokens_per_s": sum(
+                int(r.tokens.size) for r in results) / wall,
+            "smoke_reading": "one run, no spread", "problems": problems}
+    fl = _faults_line("serve_supervised", [
+        {"run": "threaded", "armed": [
+            f"decode_step_error:after_n={SERVE_CRASH_AT[0]}",
+            f"worker_death:after_n={SERVE_CRASH_AT[1]}"],
+         "fires": fires, "restarts": eng.restarts},
+        {"run": "page_oom shot", "armed": ["page_oom:max_fires=1"],
+         "fires": oom_fires, "restarts": 0}])
+    return problems, line, launches, fl
+
+
+def lenet_bf16_phase(dev, smi):
+    """``LeNet()`` under the "bfloat16" policy: bfloat16 parameters,
+    float32 input promoting each op to float32 (as jnp does), 3 steps
+    ``helper_mode="generic"`` then 3 counted steps through the fused
+    updater on the bfloat16 leaves: losses and parameters bit-equal.
+    Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.models._tree import leaf_paths
+    from deeplearning4j_tpu_torch.testing import sequential as S
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    conf = LeNet().conf()
+    conf.dtype = "bfloat16"
+    net = tnn.MultiLayerNetwork(conf, device=dev).init()
+    n_leaves = sum(len(p) for p in net.params)
+    batch, steps = S.LENET["batch"], S.LENET["steps"]
+    batches = S.lenet_batches(batch, steps)
+    start, generic, kernel, launches, leaves, tally = _mln_main_path(
+        net, batches)
+    problems = (updater_count_problems(launches["fused_updater"], leaves,
+                                       n_leaves, steps)
+                if dev.type == "cuda" else [])
+    dtypes = sorted({str(x.dtype) for _, x in leaf_paths(kernel[2])}
+                    | {str(x.dtype) for _, x in leaf_paths(net.opt_state)})
+    if dtypes != ["torch.bfloat16"]:
+        problems.append(f"leaves in {dtypes}, not bfloat16")
+    diff = _max_diff(kernel[2], generic[2])
+    if kernel[0] != generic[0] or diff != 0.0:
+        problems.append(f"not bit-equal to generic: losses {kernel[0]} vs "
+                        f"{generic[0]}, params {diff}")
+    out = net.output(batches[0].features)
+    if out.dtype != np.float32 or not np.isfinite(out).all():
+        problems.append(f"output {out.dtype}")
+    line = {"phase": "lenet_bf16", "card": smi,
+            "model": "LeNet() with dtype('bfloat16')", "batch": batch,
+            "steps": steps, "leaves": n_leaves, "launches": launches,
+            "fused_updater_leaves": leaves, "dispatch": tally,
+            "leaf_dtypes": dtypes, "losses_generic": generic[0],
+            "losses_kernel": kernel[0], "param_max_abs_diff": diff,
+            "bit_equal": not problems,
+            "step_p50_ms": float(np.percentile(kernel[1], 50)) * 1e3,
+            "generic_step_p50_ms": float(np.percentile(generic[1], 50))
+            * 1e3, "smoke_reading": f"{steps} steps, no spread",
+            "problems": problems}
+    del net
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return problems, line, launches
+
+
 def _sync(dev) -> None:
     import torch
 
@@ -3564,6 +4305,14 @@ def main() -> int:
     if problems:
         raise SystemExit(f"serve phase failed: {problems}")
 
+    # --------------------------------------------------- serve_supervised
+    problems, line, supervised_launches, faults_line = (
+        serve_supervised_phase(dev, smi, model, engine_kw, prompts, results))
+    emit(line)
+    emit(faults_line)
+    if problems:
+        raise SystemExit(f"serve_supervised phase failed: {problems}")
+
     # ------------------------------------------------------ train, train_fused
     train_launches = {}
     for phase, kw in (("train", dict(fused=False, dtype="float32",
@@ -3609,8 +4358,9 @@ def main() -> int:
     if problems:
         raise SystemExit(f"int8_bert phase failed: {problems}")
 
-    # ------------------------------- lenet, bilstm_tagger, char_lstm
+    # ------------------- lenet, lenet_bf16, bilstm_tagger, char_lstm
     for phase, fn in (("lenet", lenet_phase),
+                      ("lenet_bf16", lenet_bf16_phase),
                       ("bilstm_tagger", bilstm_tagger_phase),
                       ("char_lstm", char_lstm_phase)):
         problems, line, train_launches[phase] = fn(dev, smi)
@@ -3622,6 +4372,15 @@ def main() -> int:
     problems, train_launches["zoo_cnn"] = zoo_cnn_phase(dev, smi)
     if problems:
         raise SystemExit(f"zoo_cnn phase failed: {problems}")
+
+    # ------------------------------------ supervised_train, graph_tbptt
+    for phase, fn in (("supervised_train", supervised_train_phase),
+                      ("graph_tbptt", graph_tbptt_phase)):
+        problems, line, train_launches[phase], faults_line = fn(dev, smi)
+        emit(line)
+        emit(faults_line)
+        if problems:
+            raise SystemExit(f"{phase} phase failed: {problems}")
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
@@ -3638,7 +4397,9 @@ def main() -> int:
         "fused_matmul_bias_act_sm90", "fused_matmul_bias_act_f32_sm90",
         "fused_layer_norm", "matmul_int8", "matmul_int8_sm90",
         "matmul_int8_row_quantize")}
-    for path, counts in dict(serve=launches, **train_launches).items():
+    for path, counts in dict(serve=launches,
+                             serve_supervised=supervised_launches,
+                             **train_launches).items():
         counts = dict(counts)
         for both in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
                      "fused_matmul_bias_act", "bn_matmul_stats",

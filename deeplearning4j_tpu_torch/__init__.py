@@ -17,8 +17,10 @@ differentiable flash attention with in-kernel dropout and the dq and
 dk/dv backward kernels; and imported graphs —
 ``imports.import_onnx(bytes)`` → ``autodiff.SameDiff`` → the graph
 optimizer's fusion tier → ``sd.output`` — over flash attention and the
-fused matmul + bias + activation epilogue (``ops.cuda_matmul``). Entry
-points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
+fused matmul + bias + activation epilogue (``ops.cuda_matmul``); and
+checkpointed, supervised training and serving (``parallel``,
+``faults``). Entry points run on ``"cuda"`` unless the caller passes
+``device="cpu"``.
 """
 
 from deeplearning4j_tpu_torch import observe, ops  # noqa: F401

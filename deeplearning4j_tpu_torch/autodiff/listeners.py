@@ -9,11 +9,8 @@ server's port (ROADMAP.md, Queue 1 item 9).
 
 from __future__ import annotations
 
-import logging
 import time
 from typing import Any, Dict, List, Optional
-
-logger = logging.getLogger(__name__)
 
 
 class History:
@@ -83,15 +80,3 @@ class HistoryListener:
         self._flush_epoch()
         return self.history
 
-
-def _notify_fit_done(model, listeners) -> None:
-    """Fire ``fit_done`` across listeners that have it; one that raises is
-    logged and does not stop the others."""
-    for lst in listeners:
-        fn = getattr(lst, "fit_done", None)
-        if fn is not None:
-            try:
-                fn(model)
-            except Exception:
-                logger.warning("fit_done listener %r raised", lst,
-                               exc_info=True)

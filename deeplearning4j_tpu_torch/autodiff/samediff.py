@@ -40,10 +40,11 @@ What differs from the JAX package:
   namespaces, the graph-op catalog, ``output``/``exec``,
   ``calculate_gradients``, ``TrainingConfig``/``fit`` with the training
   state and listeners, ``get_arr``/``set_arr``, ``variables`` and
-  ``summary``. Not yet: control flow (scan/while/cond), serde, the other
-  namespaces, graph checking (``check``; ``validate=True`` raises), and
-  in ``fit`` the preemption hook and the epoch event log (ROADMAP.md,
-  Queue 1 items 5, 6, 9 and 10).
+  ``summary``; ``fit`` polls the preemption fault point and flag once a
+  batch, keeps the data cursor and logs the ``train_epoch`` event. Not
+  yet: control flow (scan/while/cond), serde, the other namespaces and
+  graph checking (``check``; ``validate=True`` raises) (ROADMAP.md,
+  Queue 1 items 7 and 11).
 """
 
 from __future__ import annotations
@@ -1259,11 +1260,11 @@ class SameDiff:
         trainable = self._trainable()
         self._init_updater_state()
 
-        from deeplearning4j_tpu_torch import observe
+        from deeplearning4j_tpu_torch import faults, observe
         from deeplearning4j_tpu_torch.datasets.dataset import (
             DataSet, ListDataSetIterator)
-        from deeplearning4j_tpu_torch.autodiff.listeners import (
-            _notify_fit_done)
+        from deeplearning4j_tpu_torch.nn.listeners import (
+            notify_fit_done, notify_preemption)
 
         if isinstance(iterator, DataSet):
             iterator = ListDataSetIterator(iterator, batch_size=32)
@@ -1283,6 +1284,12 @@ class SameDiff:
             for bi, ds in enumerate(iterator):
                 if bi < skip:
                     continue
+                # the hard kill (raises, for a supervisor to resume) and
+                # the graceful SIGTERM path (final snapshot, return)
+                faults.maybe_fail("preemption")
+                if faults.preemption_requested():
+                    notify_preemption(self, self._listeners)
+                    return history
                 feats = (ds.features if isinstance(ds.features, (list, tuple))
                          else [ds.features])
                 labs = (ds.labels if isinstance(ds.labels, (list, tuple))
@@ -1307,9 +1314,17 @@ class SameDiff:
                     lst.iteration_done(self, self._step, ep, loss)
             self.batch_in_epoch = 0
             self.epoch_count += 1
+            # the global epoch count: a resumed fit's `ep` restarts at 0
             if losses:  # one device read per epoch
-                history.append(float(torch.stack(losses).float().mean()))
-        _notify_fit_done(self, self._listeners)
+                ep_loss = float(torch.stack(losses).float().mean())
+                history.append(ep_loss)
+                observe.log_event("train_epoch", model="samediff",
+                                  epoch=self.epoch_count, steps=len(losses),
+                                  mean_loss=ep_loss)
+            else:
+                observe.log_event("train_epoch", model="samediff",
+                                  epoch=self.epoch_count, steps=0)
+        notify_fit_done(self, self._listeners)
         return history
 
     # --------------------------------------------------------------- listeners

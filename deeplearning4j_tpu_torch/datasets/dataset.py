@@ -1,12 +1,17 @@
-"""DataSet and the iterators ``fit`` uses.
+"""DataSet, the iterators ``fit`` reads, and the normalizers.
 
-Counterpart of the part of ``deeplearning4j_tpu/datasets/dataset.py`` that
-``fit`` reaches: ``DataSet`` (features/labels and their masks, host
-numpy), ``DataSetIterator`` and ``ListDataSetIterator``; and the
-normalizers (``api/preprocessor/*``): ``NormalizerStandardize``,
+Counterpart of ``deeplearning4j_tpu/datasets/dataset.py``: ``DataSet``
+(features/labels and their masks, host numpy) with
+``split_test_and_train`` and ``shuffle`` (``np.random.RandomState(seed)``,
+so an order matches the JAX package's bit for bit), ``DataSetIterator``
+(``reset``, ``set_pre_processor``), ``ListDataSetIterator`` (in batches,
+optionally reshuffled each epoch from ``seed + epoch``) and
+``AsyncDataSetIterator`` (a bounded prefetch thread); and the normalizers
+(``api/preprocessor/*``): ``NormalizerStandardize``,
 ``NormalizerMinMaxScaler`` and ``ImagePreProcessingScaler``, whose
-``state()`` / ``load_state`` the model zips carry. Batches stay numpy on
-the host; ``fit`` moves each to the device.
+``state()`` / ``load_state`` the model zips carry and which an iterator
+applies to each batch once attached by ``set_pre_processor``. Batches stay
+numpy on the host; ``fit`` moves each to the device.
 
 The JAX package normalizes uint8 image batches in a native loop
 (``native_ops/pixops.py``); the port computes the same float32
@@ -16,7 +21,9 @@ channel-last for the standardizer, x · scale + shift for the scalers.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence
+import queue
+import threading
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,6 +42,35 @@ class DataSet:
 
     def num_examples(self) -> int:
         return int(self.features.shape[0])
+
+    def split_test_and_train(self, n_train: int
+                             ) -> Tuple["DataSet", "DataSet"]:
+        """(the first ``n_train`` examples, the rest)."""
+        def cut(a, lo, hi):
+            return None if a is None else a[lo:hi]
+
+        n = self.num_examples()
+        return (
+            DataSet(self.features[:n_train], cut(self.labels, 0, n_train),
+                    cut(self.features_mask, 0, n_train),
+                    cut(self.labels_mask, 0, n_train)),
+            DataSet(self.features[n_train:], cut(self.labels, n_train, n),
+                    cut(self.features_mask, n_train, n),
+                    cut(self.labels_mask, n_train, n)),
+        )
+
+    def shuffle(self, seed: Optional[int] = None) -> None:
+        """Permute the examples in place by
+        ``np.random.RandomState(seed).permutation``, the JAX package's
+        draw."""
+        idx = np.random.RandomState(seed).permutation(self.num_examples())
+        self.features = self.features[idx]
+        if self.labels is not None:
+            self.labels = self.labels[idx]
+        if self.features_mask is not None:
+            self.features_mask = self.features_mask[idx]
+        if self.labels_mask is not None:
+            self.labels_mask = self.labels_mask[idx]
 
     def batch_by(self, batch_size: int) -> List["DataSet"]:
         out = []
@@ -64,25 +100,99 @@ class DataSet:
 
 
 class DataSetIterator:
-    """DataSetIterator.java analog: an iterable of DataSet batches."""
+    """DataSetIterator.java analog: a resettable iterable of DataSet
+    batches, each passed through the attached pre-processor."""
 
     def __iter__(self) -> Iterator[DataSet]:
         raise NotImplementedError
 
+    def reset(self) -> None:
+        pass
+
+    def set_pre_processor(self, pre) -> None:
+        """Attach a normalizer: its ``transform`` runs on every batch."""
+        self._pre = pre
+
+    def _maybe_pre(self, ds: DataSet) -> DataSet:
+        pre = getattr(self, "_pre", None)
+        if pre is not None:
+            pre.transform(ds)
+        return ds
+
 
 class ListDataSetIterator(DataSetIterator):
     """ListDataSetIterator.java: iterate a list of DataSets, or one big
-    DataSet in batches."""
+    DataSet in batches. With ``shuffle``, each pass over a big DataSet
+    iterates a copy shuffled from ``seed + epoch`` (``epoch`` counts the
+    passes, ``_epoch``; the training supervisor realigns it on resume)."""
 
-    def __init__(self, data, batch_size: int = 32):
+    def __init__(self, data, batch_size: int = 32, shuffle: bool = False,
+                 seed: int = 0):
         self._data = data if isinstance(data, DataSet) else list(data)
         self.batch_size = batch_size
+        self._shuffle = shuffle
+        self._seed = seed
+        self._epoch = 0
 
     def __iter__(self):
         if isinstance(self._data, DataSet):
-            yield from self._data.batch_by(self.batch_size)
+            ds = self._data
+            if self._shuffle:
+                ds = DataSet(ds.features, ds.labels, ds.features_mask,
+                             ds.labels_mask)
+                ds.shuffle(self._seed + self._epoch)
+            self._epoch += 1
+            for b in ds.batch_by(self.batch_size):
+                yield self._maybe_pre(b)
         else:
-            yield from self._data
+            for b in self._data:
+                yield self._maybe_pre(b)
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """AsyncDataSetIterator.java: a background thread prefetches up to
+    ``prefetch`` batches of ``base``. The batches come out in order; an
+    exception the worker meets is raised in the consumer; a consumer that
+    leaves mid-epoch waits at most a second for the (daemon) worker."""
+
+    def __init__(self, base: DataSetIterator, prefetch: int = 2):
+        self._base = base
+        self._prefetch = prefetch
+
+    @property
+    def batch_size(self) -> int:
+        return self._base.batch_size
+
+    def reset(self) -> None:
+        self._base.reset()
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self._prefetch)
+        done = object()
+
+        def worker():
+            try:
+                for item in self._base:
+                    q.put(item)
+                q.put(done)
+            except BaseException as e:  # handed to the consumer, raised
+                q.put(e)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # done or the exception is the worker's last put, so a normal
+            # exit joins at once; a consumer that leaves mid-epoch may
+            # leave the worker blocked on a full queue
+            t.join(timeout=1.0)
 
 
 # ---------------------------------------------------------------------------

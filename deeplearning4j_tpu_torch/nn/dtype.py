@@ -5,7 +5,10 @@ Counterpart of ``deeplearning4j_tpu/nn/dtype.py``. Policies
 
 * ``"float32"`` / ``"float64"`` — everything in one dtype (reference
   semantics: DL4J's FLOAT means float32 math);
-* ``"bfloat16"`` / ``"float16"`` — parameters and compute in the low dtype;
+* ``"bfloat16"`` / ``"float16"`` — parameters stored in the low dtype;
+  a layer op promotes its operands as jnp does (:func:`promote`:
+  float32 input × bfloat16 weights computes in float32), so float32
+  inputs give float32 activations and outputs, as in the JAX package;
 * ``"mixed"`` (alias ``"mixed_bfloat16"``) — float32 parameters, updater
   state and loss, bfloat16 layer compute.
 
@@ -68,6 +71,20 @@ def compute_dtype(policy: str) -> torch.dtype:
 
 def needs_cast(policy: str) -> bool:
     return policy in _MIXED
+
+
+def promote(*xs):
+    """``xs`` with every floating tensor in their common dtype, as jnp
+    promotes the operands of one op (``torch.promote_types``: float32 ×
+    bfloat16 → float32, bfloat16 × float16 → float32). None, integer
+    tensors and non-tensors pass through; a tensor already in the dtype
+    is returned as it is."""
+    dt = None
+    for x in xs:
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            dt = x.dtype if dt is None else torch.promote_types(dt, x.dtype)
+    return tuple(x.to(dt) if isinstance(x, torch.Tensor)
+                 and x.is_floating_point() else x for x in xs)
 
 
 def cast_floats(tree: Any, dtype: torch.dtype) -> Any:

@@ -4,10 +4,13 @@ Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``GraphBuilder`` /
 ``graph_builder()``, ``ComputationGraphConfiguration`` with the JSON the
 JAX package writes (``to_json``/``from_json``), every vertex of the
 reference (``graph.py:78-307``), the runtime — ``init``, ``output``,
-``fit`` with its listener calls, ``score``, ``evaluate``, the train step
-of ``graph.py:734-748``, the flat parameter view — and the JAX names
-of the zips, ``save_graph`` / ``restore_graph`` (``graph.py:1133``,
-``:1152``), over ``nn/serde.py``'s one writer and reader.
+``fit`` with its listener calls, data cursor (``batch_in_epoch``) and
+preemption poll, its truncated-BPTT dispatch, ``fit_tbptt``,
+``fit_multi``, the stateful ``rnn_time_step``, ``score``, ``evaluate``,
+the train step of ``graph.py:734-748``, the flat parameter view — and
+the JAX names of the zips, ``save_graph`` / ``restore_graph``
+(``graph.py:1133``, ``:1152``), over ``nn/serde.py``'s one writer and
+reader.
 
 What the train step does in place of ``jax.value_and_grad`` + ``jit``:
 each parameter leaf is taken as an autograd leaf (``detach()`` +
@@ -25,10 +28,17 @@ outputs are cast back to float32 for the loss. Under ``"float32"`` the
 forward and backward run in :func:`~deeplearning4j_tpu_torch.nn.dtype.
 precision_scope` (no TF32).
 
+Recurrent state: ``output`` and a standard ``fit`` run each recurrent
+layer from a zero state, as the JAX graph does; ``rnn_time_step`` carries
+each recurrent node's state across calls, and ``fit_tbptt`` carries it
+from one segment to the next (detached: gradients stop at the segment
+boundary). In ``fit``'s tBPTT dispatch ``_tbptt_mid_batch`` is set while
+a batch's segments run, so a listener that declares ``defers_mid_tbptt``
+(the checkpoint listener) is called once, at the batch boundary.
+
 The network lives on one device: ``"cuda"`` unless the caller passes
-``device="cpu"``. Not ported yet: ``rnn_time_step``, ``fit_tbptt``,
-``fit_multi`` (ROADMAP Queue 1 item 5), ``fit_scanned`` (item 2) and the
-preemption hooks of ``fit`` (item 6).
+``device="cpu"``. Not ported yet: ``fit_scanned`` (ROADMAP Queue 1
+item 2).
 """
 
 from __future__ import annotations
@@ -41,18 +51,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import observe
+from deeplearning4j_tpu_torch import faults, observe
 from deeplearning4j_tpu_torch.autodiff.samediff import canonical
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet, ListDataSetIterator)
 from deeplearning4j_tpu_torch.environment import resolve_device
 from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn import dtype as DT
-from deeplearning4j_tpu_torch.nn.layers import Layer, build_layer
+from deeplearning4j_tpu_torch.nn.layers import (
+    BidirectionalImpl, Layer, build_layer)
 from deeplearning4j_tpu_torch.nn.listeners import (
-    TrainingListener, notify_fit_done)
+    TrainingListener, notify_fit_done, notify_preemption)
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _tree, apply_layer_updates, autograd_leaves, aux_losses,
+    _detached, _tree, apply_layer_updates, autograd_leaves, aux_losses,
     evaluate_batches, flatten_trees, grad_tree, init_opt_state, reg_penalty,
     unflatten_trees)
 from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
@@ -351,6 +362,11 @@ class ComputationGraphConfiguration:
     dtype: str = "float32"
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
+    # truncated BPTT, set on the configuration (not in its JSON), as in
+    # the JAX package
+    tbptt_fwd_length: int = -1
+    tbptt_back_length: int = -1
+    backprop_type: str = "standard"
 
     layer_activation = C.MultiLayerConfiguration.layer_activation
     layer_weight_init = C.MultiLayerConfiguration.layer_weight_init
@@ -546,9 +562,13 @@ class ComputationGraph:
         self.opt_state: Optional[Dict[str, Any]] = None
         self.iteration_count = 0
         self.epoch_count = 0
+        self.batch_in_epoch = 0  # the data cursor a checkpoint carries
         self.last_batch_size = 0
         self.listeners: List[TrainingListener] = []
         self._score: Optional[torch.Tensor] = None
+        self._tbptt_scores: List[torch.Tensor] = []
+        self._tbptt_mid_batch = False
+        self._rnn_states: Optional[Dict[str, Any]] = None
         # dropout's draws in training
         self._gen = torch.Generator(device=self.device).manual_seed(conf.seed)
 
@@ -603,16 +623,27 @@ class ComputationGraph:
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, net_state, inputs: Dict[str, Any], masks, *,
-                 train: bool, rng=None):
-        """(activations by node name, new layer state)."""
+                 train: bool, rng=None, rnn_states=None):
+        """(activations by node name, new layer state); with
+        ``rnn_states`` (node name → carried state, None for the other
+        nodes) (activations, new layer state, new rnn states): the tBPTT /
+        ``rnn_time_step`` path, each recurrent node starting from its
+        carried state."""
         if DT.needs_cast(self.conf.dtype):
             # mixed policy: the ONE cast of params and inputs to bf16
             cd = DT.compute_dtype(self.conf.dtype)
             params = DT.cast_floats(params, cd)
             inputs = DT.cast_floats(inputs, cd)
+            if rnn_states is not None:
+                rnn_states = DT.cast_floats(rnn_states, cd)
+        # "bfloat16" / "float16": the parameters are stored 16-bit and the
+        # inputs keep their dtype; each layer op promotes its operands as
+        # jnp does (nn.dtype.promote), so float32 inputs compute and come
+        # out in float32, as in the JAX package
         acts: Dict[str, Any] = dict(inputs)
         act_masks: Dict[str, Any] = dict(masks or {})
         new_state: Dict[str, Any] = {}
+        new_rnn = {} if rnn_states is not None else None
         for node in self._order:
             xs = [acts[i] for i in node.inputs]
             if node.kind == "vertex":
@@ -621,11 +652,23 @@ class ComputationGraph:
                 act_masks[node.name] = next(
                     (m for m in ms if m is not None), None)
                 continue
+            layer = self.layers[node.name]
+            if rnn_states is not None and hasattr(layer, "apply_with_state"):
+                mask = act_masks.get(node.inputs[0])
+                x0 = layer._maybe_dropout(xs[0], train=train, rng=rng)
+                acts[node.name], new_rnn[node.name] = layer.apply_with_state(
+                    params[node.name], x0, mask=mask,
+                    initial=rnn_states.get(node.name))
+                act_masks[node.name] = mask
+                new_state[node.name] = net_state[node.name]
+                continue
+            if new_rnn is not None:
+                new_rnn[node.name] = None
             x = xs[0]
             if node.flatten_input and x.ndim == 4:
                 # NHWC -> the reference's channel-major flat order
                 x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
-            y, st, m2 = self.layers[node.name].apply(
+            y, st, m2 = layer.apply(
                 params[node.name], x, net_state[node.name], train=train,
                 rng=rng, mask=act_masks.get(node.inputs[0]))
             acts[node.name] = y
@@ -634,6 +677,8 @@ class ComputationGraph:
         if DT.needs_cast(self.conf.dtype):
             for o in self.conf.network_outputs:  # loss/eval math in f32
                 acts[o] = DT.cast_floats(acts[o], torch.float32)
+        if new_rnn is not None:
+            return acts, new_state, new_rnn
         return acts, new_state
 
     def _feed(self, arrays: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -655,6 +700,51 @@ class ComputationGraph:
     def output_single(self, x, masks=None) -> np.ndarray:
         return self.output(x, masks=masks)[0]
 
+    # ------------------------------------------------------ stateful RNN API
+    def rnn_time_step(self, *inputs, masks=None):
+        """Stateful streaming inference (ComputationGraph.rnnTimeStep):
+        each recurrent node's state carries across calls. Inputs (N, T, F)
+        a network input, or (N, F) for one step. Returns the network
+        outputs (a list, or the one array)."""
+        squeeze = False
+        feeds = {}
+        for name, x in zip(self.conf.network_inputs, inputs):
+            x = np.asarray(x)
+            if x.ndim == 2:
+                x = x[:, None, :]
+                squeeze = True
+            feeds[name] = x
+        feeds = self._feed(feeds)
+        if self._rnn_states is None:
+            batch = next(iter(feeds.values())).shape[0]
+            self._rnn_states = self._zero_rnn_states(batch)
+        m = None if masks is None else self._feed(masks)
+        with torch.no_grad(), DT.precision_scope(self.conf.dtype):
+            acts, _, self._rnn_states = self._forward(
+                self.params, self.net_state, feeds, m, train=False,
+                rnn_states=self._rnn_states)
+        outs = [acts[o].float().cpu().numpy()
+                for o in self.conf.network_outputs]
+        if squeeze:
+            outs = [o[:, -1] if o.ndim == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_states = None
+
+    def _zero_rnn_states(self, batch: int) -> Dict[str, Any]:
+        states: Dict[str, Any] = {}
+        for name, layer in self.layers.items():
+            if isinstance(layer, BidirectionalImpl):
+                # the reference refuses them too: the backward direction
+                # needs the future
+                raise ValueError(
+                    "stateful RNN state (rnn_time_step / tBPTT) is not "
+                    "supported with Bidirectional layers")
+            states[name] = (layer.zero_state(batch)
+                            if hasattr(layer, "zero_state") else None)
+        return states
+
     # ------------------------------------------------------------ train step
     def _losses(self, acts, labels: Dict[str, Any], lmasks):
         total = torch.zeros((), device=self.device)
@@ -664,20 +754,25 @@ class ComputationGraph:
             total = total + loss_fn(acts[name], labels[name], lm)
         return total
 
-    def _train_step(self, feeds, labels, fmasks, lmasks) -> torch.Tensor:
-        """One step: loss and gradients by autograd, then the update tail
-        under no_grad. Returns the score (loss + regularization penalty of
-        the parameters before the update), a 0-d tensor on the device."""
+    def _train_step(self, feeds, labels, fmasks, lmasks, rnn_states=None):
+        """One step (one tBPTT segment with ``rnn_states``): loss and
+        gradients by autograd, then the update tail under no_grad. Returns
+        the score (loss + regularization penalty of the parameters before
+        the update), a 0-d tensor on the device; with ``rnn_states`` also
+        the carried states, detached (gradients stop at the segment
+        boundary)."""
         names = self._layer_names
         step = self.iteration_count
         with DT.precision_scope(self.conf.dtype):
             with torch.enable_grad():
                 params = {n: autograd_leaves(self.params[n]) for n in names}
-                acts, new_state = self._forward(params, self.net_state, feeds,
-                                                fmasks, train=True,
-                                                rng=self._gen)
-                loss = self._losses(acts, labels, lmasks) + aux_losses(
-                    new_state)
+                res = self._forward(params, self.net_state, feeds, fmasks,
+                                    train=True, rng=self._gen,
+                                    rnn_states=rnn_states)
+                acts, new_state = res[0], res[1]
+                loss = self._losses(acts, labels, lmasks)
+                if rnn_states is None:  # the JAX tBPTT loss has no aux
+                    loss = loss + aux_losses(new_state)
                 g = grad_tree(loss, params)
             with torch.no_grad():
                 updated = apply_layer_updates(
@@ -693,19 +788,88 @@ class ComputationGraph:
         self.opt_state = {n: s for n, (_, s) in zip(names, updated)}
         self.net_state = {n: {k: v.detach() for k, v in st.items()}
                           for n, st in new_state.items()}
-        return score
+        if rnn_states is None:
+            return score
+        return score, {n: _detached(st) for n, st in res[2].items()}
+
+    def fit_tbptt(self, features, labels, masks=None, lmasks=None) -> float:
+        """One truncated-BPTT pass over a time-series batch
+        (ComputationGraph.doTruncatedBPTT): the time axis cut into
+        ``conf.tbptt_fwd_length`` segments, one update a segment, the RNN
+        state carried from one to the next. Arrays feed the first input /
+        output; name-keyed dicts feed several. Listeners are called after
+        every segment; returns the last segment's score."""
+        fwd = self.conf.tbptt_fwd_length
+        if fwd <= 0:
+            raise ValueError("set tbptt lengths on the configuration first")
+
+        def by_name(v, names):
+            return v if v is None or isinstance(v, dict) else {names[0]: v}
+
+        ins, outs = self.conf.network_inputs, self.conf.network_outputs
+        features, masks = by_name(features, ins), by_name(masks, ins)
+        labels, lmasks = by_name(labels, outs), by_name(lmasks, outs)
+        for k, v in labels.items():
+            if np.ndim(v) < 3:
+                raise ValueError(
+                    "tBPTT requires 3-D time-series labels (N, T, C); got "
+                    f"shape {np.shape(v)} for output '{k}'")
+        feeds, labs = self._feed(features), self._feed(labels)
+        fm = None if masks is None else self._feed(masks)
+        lm = None if lmasks is None else self._feed(lmasks)
+        first = next(iter(feeds.values()))
+        t = first.shape[1]
+        rnn_states = self._zero_rnn_states(first.shape[0])
+        segments = list(range(0, t, fwd))
+        self._tbptt_scores = []
+
+        def cut(d, sl):
+            return None if d is None else {k: v[:, sl] for k, v in d.items()}
+
+        for i, t0 in enumerate(segments):
+            sl = slice(t0, min(t0 + fwd, t))
+            score, rnn_states = self._train_step(
+                cut(feeds, sl), cut(labs, sl), cut(fm, sl), cut(lm, sl),
+                rnn_states)
+            self._score = score
+            self._tbptt_scores.append(score)
+            # the iteration advances once a segment; the last segment's
+            # advance comes after the listeners, as in the JAX graph
+            if i < len(segments) - 1:
+                self.iteration_count += 1
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration_count,
+                                   self.epoch_count, score)
+        self.iteration_count += 1
+        return float(score)
+
+    def tbptt_scores(self) -> List[float]:
+        """The scores of the last tBPTT batch's segments, in order."""
+        return [float(s) for s in self._tbptt_scores]
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, epochs: int = 1,
             batch_size: int = 32) -> None:
         """fit over a DataSet / iterator, or (features, labels) arrays cut
         into ``batch_size`` batches. Single input and single output: the
-        features feed the first input, the labels the first output."""
+        features feed the first input, the labels the first output (several
+        go through :meth:`fit_multi`). With ``backprop_type="tbptt"`` each
+        batch is one :meth:`fit_tbptt` pass.
+
+        Each batch first polls the ``preemption`` fault point (a hard
+        kill: it raises) and the graceful-preemption flag
+        (``notify_preemption``, then return); a fit resumed mid-epoch
+        skips the ``batch_in_epoch`` batches the interrupted one
+        trained."""
         if labels is not None:
             data = ListDataSetIterator(DataSet(data, labels),
                                        batch_size=batch_size)
         elif isinstance(data, DataSet):
             data = ListDataSetIterator(data, batch_size=batch_size)
+        if (self.conf.backprop_type == "tbptt"
+                and self.conf.tbptt_fwd_length > 0):
+            self._fit_tbptt_epochs(data, epochs)
+            return
         in_name = self.conf.network_inputs[0]
         out_name = self.conf.network_outputs[0]
         m = observe.metrics()
@@ -716,9 +880,15 @@ class ComputationGraph:
             for lst in self.listeners:
                 lst.on_epoch_start(self)
             t_prev = time.perf_counter()
-            for ds in data:
-                # the preemption poll of the JAX fit waits for ROADMAP
-                # Queue 1 item 6 (faults, notify_preemption)
+            n_steps = 0
+            skip = self.batch_in_epoch  # nonzero only on a resume
+            for bi, ds in enumerate(data):
+                if bi < skip:
+                    continue
+                faults.maybe_fail("preemption")
+                if faults.preemption_requested():
+                    notify_preemption(self, self.listeners)
+                    return
                 self.last_batch_size = ds.num_examples()
                 feeds = self._feed({in_name: ds.features})
                 labs = self._feed({out_name: ds.labels})
@@ -728,9 +898,11 @@ class ComputationGraph:
                           else self._feed({out_name: ds.labels_mask}))
                 self._score = self._train_step(feeds, labs, fmasks, lmasks)
                 self.iteration_count += 1
+                self.batch_in_epoch = bi + 1  # before listeners save
                 now = time.perf_counter()
                 step_h.observe(now - t_prev)
                 t_prev = now
+                n_steps += 1
                 steps_c.inc()
                 ex_c.inc(ds.num_examples())
                 # the loss as a device tensor: no host sync unless a
@@ -738,10 +910,69 @@ class ComputationGraph:
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration_count,
                                        self.epoch_count, self._score)
+            self.batch_in_epoch = 0
+            self.epoch_count += 1
+            observe.log_event("train_epoch", model="graph",
+                              epoch=self.epoch_count, steps=n_steps)
+            for lst in self.listeners:
+                lst.on_epoch_end(self)
+        notify_fit_done(self, self.listeners)
+
+    def _fit_tbptt_epochs(self, data, epochs: int) -> None:
+        """``fit``'s truncated-BPTT dispatch: one :meth:`fit_tbptt` pass a
+        batch, with the JAX graph's cursor and preemption poll. Listeners
+        that declare ``defers_mid_tbptt`` skip the per-segment calls
+        (``_tbptt_mid_batch``) and get one call at the batch boundary,
+        after the cursor moved: a snapshot mid-batch (a live RNN carry the
+        state does not hold, a stale cursor) could never resume
+        exactly."""
+        for _ in range(epochs):
+            for lst in self.listeners:
+                lst.on_epoch_start(self)
+            skip = self.batch_in_epoch
+            for bi, ds in enumerate(data):
+                if bi < skip:
+                    continue
+                faults.maybe_fail("preemption")
+                if faults.preemption_requested():
+                    notify_preemption(self, self.listeners)
+                    return
+                self.last_batch_size = ds.num_examples()
+                self._tbptt_mid_batch = True
+                try:
+                    loss = self.fit_tbptt(ds.features, ds.labels,
+                                          masks=ds.features_mask,
+                                          lmasks=ds.labels_mask)
+                finally:
+                    self._tbptt_mid_batch = False
+                self.batch_in_epoch = bi + 1
+                for lst in self.listeners:
+                    if getattr(lst, "defers_mid_tbptt", False):
+                        lst.iteration_done(self, self.iteration_count,
+                                           self.epoch_count, loss)
+            self.batch_in_epoch = 0
             self.epoch_count += 1
             for lst in self.listeners:
                 lst.on_epoch_end(self)
         notify_fit_done(self, self.listeners)
+
+    def fit_multi(self, inputs, labels) -> float:
+        """One training step over several inputs and outputs
+        (ComputationGraph.fit(MultiDataSet)): lists in
+        ``network_inputs`` / ``network_outputs`` order, or name-keyed
+        dicts. Returns the step's score."""
+        if not isinstance(inputs, dict):
+            inputs = dict(zip(self.conf.network_inputs, inputs))
+        if not isinstance(labels, dict):
+            labels = dict(zip(self.conf.network_outputs, labels))
+        feeds, labs = self._feed(inputs), self._feed(labels)
+        self.last_batch_size = next(iter(feeds.values())).shape[0]
+        self._score = self._train_step(feeds, labs, None, None)
+        self.iteration_count += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration_count, self.epoch_count,
+                               self._score)
+        return float(self._score)
 
     def fit_scanned(self, *args, **kwargs):
         raise NotImplementedError(

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn import conf as C
-from deeplearning4j_tpu_torch.nn.dtype import param_dtype
+from deeplearning4j_tpu_torch.nn.dtype import param_dtype, promote
 from deeplearning4j_tpu_torch.ops import exec_op, nn_ops
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.weight_init import init_weights
@@ -99,7 +99,8 @@ class DenseLayerImpl(Layer):
 
     def apply(self, params, x, state, *, train, rng, mask=None):
         x = self._maybe_dropout(x, train=train, rng=rng)
-        z = x @ params["W"]
+        x, w = promote(x, params["W"])
+        z = x @ w
         if "b" in params:
             z = z + params["b"]
         return self.activation(z), state, mask
@@ -176,11 +177,11 @@ class ConvolutionLayerImpl(Layer):
 
     def apply(self, params, x, state, *, train, rng, mask=None):
         x = self._maybe_dropout(x, train=train, rng=rng)
+        x, w, b = promote(x, params["W"], params.get("b"))
         if self.lc.s2d_stem:
-            z = self._s2d_stem_conv(x, params["W"], params.get("b"))
+            z = self._s2d_stem_conv(x, w, b)
         else:
-            z = nn_ops.conv2d.fn(x, params["W"], params.get("b"),
-                                 **self._conv_args())
+            z = nn_ops.conv2d.fn(x, w, b, **self._conv_args())
         return self.activation(z), state, mask
 
     def _s2d_stem_conv(self, x, W, b):
@@ -212,8 +213,9 @@ class Deconvolution2DImpl(ConvolutionLayerImpl):
         lc = self.lc
         x = self._maybe_dropout(x, train=train, rng=rng)
         pad = "same" if lc.convolution_mode == "same" else C._pair(lc.padding)
-        z = nn_ops.deconv2d.fn(x, params["W"], params.get("b"),
-                               stride=C._pair(lc.stride), padding=pad)
+        x, w, b = promote(x, params["W"], params.get("b"))
+        z = nn_ops.deconv2d.fn(x, w, b, stride=C._pair(lc.stride),
+                               padding=pad)
         return self.activation(z), state, mask
 
 
@@ -234,9 +236,10 @@ class DepthwiseConvolution2DImpl(Layer):
         lc = self.lc
         x = self._maybe_dropout(x, train=train, rng=rng)
         pad = "same" if lc.convolution_mode == "same" else "valid"
+        x, w, b = promote(x, params["W"], params.get("b"))
         z = nn_ops.depthwise_conv2d.fn(
-            x, params["W"], params.get("b"), stride=C._pair(lc.stride),
-            padding=pad, dilation=C._pair(lc.dilation))
+            x, w, b, stride=C._pair(lc.stride), padding=pad,
+            dilation=C._pair(lc.dilation))
         return self.activation(z), state, mask
 
 
@@ -259,7 +262,7 @@ class SeparableConvolution2DImpl(Layer):
         x = self._maybe_dropout(x, train=train, rng=rng)
         pad = "same" if lc.convolution_mode == "same" else "valid"
         z = nn_ops.separable_conv2d.fn(
-            x, params["dW"], params["pW"], params.get("b"),
+            *promote(x, params["dW"], params["pW"], params.get("b")),
             stride=C._pair(lc.stride), padding=pad)
         return self.activation(z), state, mask
 
@@ -454,8 +457,10 @@ class LSTMImpl(Layer):
         """(out, (h_last, c_last)): the one recurrence of the training
         forward, tBPTT and ``rnn_time_step``."""
         h0, c0 = initial if initial is not None else (None, None)
+        # one dtype for the helper's gate and cuDNN: the operands promoted
         hs, h_last, c_last = exec_op(
-            "lstm_layer", x, params["W"], params["RW"], params["b"], h0, c0,
+            "lstm_layer", *promote(x, params["W"], params["RW"], params["b"],
+                                   h0, c0),
             mask, gate_activation=self.lc.gate_activation,
             activation=self.net_conf.layer_activation(self.lc),
             reverse=self.reverse)
@@ -495,10 +500,11 @@ class GRUImpl(Layer):
     def apply_with_state(self, params, x, *, mask=None, initial=None):
         h = (initial if initial is not None
              else x.new_zeros((x.shape[0], self.lc.n_out)))
+        x, h, w, rw, b, rb = promote(x, h, params["W"], params["RW"],
+                                     params["b"], params["rb"])
         outs = []
         for t in range(x.shape[1]):
-            h_new = nn_ops.gru_cell.fn(x[:, t], h, params["W"], params["RW"],
-                                       params["b"], params["rb"])
+            h_new = nn_ops.gru_cell.fn(x[:, t], h, w, rw, b, rb)
             if mask is not None:
                 h_new = torch.where(mask[:, t, None] > 0, h_new, h)
             h = h_new
@@ -528,10 +534,10 @@ class SimpleRnnImpl(Layer):
     def apply_with_state(self, params, x, *, mask=None, initial=None):
         h = (initial if initial is not None
              else x.new_zeros((x.shape[0], self.lc.n_out)))
+        x, h, w, rw = promote(x, h, params["W"], params["RW"])
         outs = []
         for t in range(x.shape[1]):
-            h_new = self.activation(x[:, t] @ params["W"] + h @ params["RW"]
-                                    + params["b"])
+            h_new = self.activation(x[:, t] @ w + h @ rw + params["b"])
             if mask is not None:
                 h_new = torch.where(mask[:, t, None] > 0, h_new, h)
             h = h_new
@@ -599,7 +605,8 @@ class RnnOutputLayerImpl(Layer):
         return p
 
     def apply(self, params, x, state, *, train, rng, mask=None):
-        z = x @ params["W"]
+        x, w = promote(x, params["W"])
+        z = x @ w
         if "b" in params:
             z = z + params["b"]
         return self.activation(z), state, mask

@@ -3,7 +3,7 @@
 Counterpart of ``deeplearning4j_tpu/nn/listeners.py``: the
 ``TrainingListener`` hooks (``iteration_done``, ``on_epoch_start``,
 ``on_epoch_end``, ``fit_done``, ``on_preemption``), ``notify_fit_done``,
-and ``ScoreIterationListener``, ``PerformanceListener``,
+``notify_preemption``, and ``ScoreIterationListener``, ``PerformanceListener``,
 ``TimeIterationListener``, ``CollectScoresIterationListener``,
 ``EvaluativeListener`` and ``CheckpointListener``.
 
@@ -15,9 +15,9 @@ only with ``report_score``. ``PerformanceListener``'s rates are host time
 between calls, which on an asynchronous device is the rate the host
 enqueues steps (the reference's reading on an async backend too).
 
-The preemption hooks (``notify_preemption`` and the fault injector the
-JAX ``fit`` polls) wait for the training-robustness port (ROADMAP Queue 1
-item 6); ``on_preemption`` is kept so listeners written for it load.
+The fit loops poll ``faults.preemption_requested()`` once a batch; on a
+graceful-preemption request they call :func:`notify_preemption` (the
+checkpoint listener's final synchronous snapshot) and return.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ logger = logging.getLogger(__name__)
 
 class TrainingListener:
     """TrainingListener.java: every hook optional. ``fit`` calls
-    ``fit_done`` once when its loop completes."""
+    ``fit_done`` once when its loop completes, and ``on_preemption`` when
+    a graceful-preemption request (SIGTERM) makes it return early."""
 
     def iteration_done(self, model, iteration: int, epoch: int,
                        score) -> None:
@@ -61,6 +62,31 @@ def notify_fit_done(model, listeners) -> None:
                 fn(model)
             except Exception:
                 logger.warning("fit_done listener %r raised", lst,
+                               exc_info=True)
+
+
+def notify_preemption(model, listeners) -> None:
+    """The graceful-preemption exit: count and log it, then fire
+    ``on_preemption`` across listeners (the checkpoint listener's final
+    synchronous snapshot). One that raises is logged: the grace period is
+    finite. All logging of the request happens here, at the polling site
+    (``faults.request_preemption`` runs inside a signal handler)."""
+    from deeplearning4j_tpu_torch import observe
+
+    observe.metrics().counter("dl4j_tpu_train_preemptions_total").inc()
+    observe.log_event(
+        "train_preempt", phase="snapshot",
+        iteration=int(getattr(model, "iteration_count",
+                              getattr(model, "_step", 0))))
+    logger.warning("preemption requested: taking a final snapshot and "
+                   "leaving the fit loop")
+    for lst in listeners:
+        fn = getattr(lst, "on_preemption", None)
+        if fn is not None:
+            try:
+                fn(model)
+            except Exception:
+                logger.warning("on_preemption listener %r raised", lst,
                                exc_info=True)
 
 

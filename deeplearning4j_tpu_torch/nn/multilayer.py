@@ -13,7 +13,9 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``:
   forward with preprocessors and carried RNN state, ``feed_forward``,
   ``output``, ``predict``, ``rnn_time_step`` and its state, the train
   step, truncated BPTT, ``fit`` over arrays / a ``DataSet`` / an
-  iterator with its listener calls, ``score``, ``evaluate``,
+  iterator with its listener calls, its data cursor
+  (``batch_in_epoch``: a resumed fit skips the batches the interrupted
+  one consumed) and its preemption poll, ``score``, ``evaluate``,
   ``evaluate_regression`` and ``evaluate_roc``, and the flat parameter
   and updater-state views in the JAX package's order
   (``_sorted_leaves``).
@@ -31,8 +33,7 @@ Trees are dicts of tensors (nested for wrapper layers: Bidirectional's
 ``jax.tree.flatten`` visits a dict. Listeners get each step's loss as
 the 0-d device tensor the step returned: ``fit`` adds no host
 synchronization a step unless a listener reads the score. Not ported
-yet: ``fit_scanned`` (raises, naming ROADMAP Queue 1 item 2) and the
-preemption hooks of ``fit`` (Queue 1 item 6).
+yet: ``fit_scanned`` (raises, naming ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import observe
+from deeplearning4j_tpu_torch import faults, observe
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet, ListDataSetIterator)
 from deeplearning4j_tpu_torch.environment import resolve_device
@@ -54,7 +55,7 @@ from deeplearning4j_tpu_torch.nn import dtype as DT
 from deeplearning4j_tpu_torch.nn.layers import (
     BidirectionalImpl, Layer, apply_preprocessor, build_layer)
 from deeplearning4j_tpu_torch.nn.listeners import (
-    TrainingListener, notify_fit_done)
+    TrainingListener, notify_fit_done, notify_preemption)
 from deeplearning4j_tpu_torch.ops.losses import get_loss
 
 WEIGHT_KEYS = {"W", "RW", "dW", "pW", "Wq", "Wk", "Wv", "Wo"}
@@ -241,7 +242,9 @@ class MultiLayerNetwork:
     (MultiLayerNetwork.java), on one device: ``"cuda"`` unless the caller
     passes ``device="cpu"``. ``params`` and ``opt_state`` are lists with
     one tree a layer; dropout draws from one ``torch.Generator`` on the
-    device, seeded from the configuration's seed."""
+    device (``_gen``), seeded from the configuration's seed.
+    ``batch_in_epoch`` counts the batches of the current epoch already
+    trained (the data cursor a checkpoint carries)."""
 
     def __init__(self, conf: C.MultiLayerConfiguration, *, device=None):
         self.conf = conf
@@ -267,6 +270,7 @@ class MultiLayerNetwork:
         self.opt_state: Optional[List[Any]] = None
         self.iteration_count = 0
         self.epoch_count = 0
+        self.batch_in_epoch = 0
         self.last_batch_size = 0
         self.listeners: List[TrainingListener] = []
         self._score: Optional[torch.Tensor] = None
@@ -314,6 +318,10 @@ class MultiLayerNetwork:
             x = DT.cast_floats(x, cd)
             if rnn_states is not None:
                 rnn_states = DT.cast_floats(rnn_states, cd)
+        # "bfloat16" / "float16": the parameters are stored 16-bit and the
+        # inputs keep their dtype; each layer op promotes its operands as
+        # jnp does (nn.dtype.promote), so float32 inputs compute and come
+        # out in float32, as in the JAX package
         new_state = []
         new_rnn = [] if rnn_states is not None else None
         for i, layer in enumerate(self.layers):
@@ -473,7 +481,13 @@ class MultiLayerNetwork:
             batch_size: int = 32) -> None:
         """fit(DataSetIterator | DataSet | (features, labels)): one train
         step a minibatch, or one a tBPTT segment when the configuration
-        says ``backprop_type="tbptt"``."""
+        says ``backprop_type="tbptt"``.
+
+        Each batch first polls the ``preemption`` fault point (a hard
+        kill: it raises, for a supervisor to restore and resume) and the
+        graceful-preemption flag (``notify_preemption``, then return). A
+        fit resumed mid-epoch skips the ``batch_in_epoch`` batches the
+        interrupted one trained."""
         if labels is not None:
             data = ListDataSetIterator(DataSet(data, labels),
                                        batch_size=batch_size)
@@ -491,9 +505,15 @@ class MultiLayerNetwork:
             for lst in self.listeners:
                 lst.on_epoch_start(self)
             t_prev = time.perf_counter()
-            for ds in data:
-                # the preemption poll of the JAX fit waits for ROADMAP
-                # Queue 1 item 6 (faults, notify_preemption)
+            n_steps = 0
+            skip = self.batch_in_epoch  # nonzero only on a resume
+            for bi, ds in enumerate(data):
+                if bi < skip:
+                    continue
+                faults.maybe_fail("preemption")
+                if faults.preemption_requested():
+                    notify_preemption(self, self.listeners)
+                    return
                 self.last_batch_size = ds.num_examples()
                 x, y = self._feed(ds.features), self._feed(ds.labels)
                 fm, lm = self._feed(ds.features_mask), self._feed(
@@ -503,9 +523,11 @@ class MultiLayerNetwork:
                 else:
                     self._score, _ = self._train_step(x, y, fm, lm)
                 self.iteration_count += 1
+                self.batch_in_epoch = bi + 1  # before listeners save
                 now = time.perf_counter()
                 step_h.observe(now - t_prev)
                 t_prev = now
+                n_steps += 1
                 steps_c.inc()
                 ex_c.inc(ds.num_examples())
                 xfer_c.inc(2 + (ds.features_mask is not None)
@@ -515,7 +537,10 @@ class MultiLayerNetwork:
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration_count,
                                        self.epoch_count, self._score)
+            self.batch_in_epoch = 0
             self.epoch_count += 1
+            observe.log_event("train_epoch", model="mln",
+                              epoch=self.epoch_count, steps=n_steps)
             for lst in self.listeners:
                 lst.on_epoch_end(self)
         notify_fit_done(self, self.listeners)

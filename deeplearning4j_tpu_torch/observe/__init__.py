@@ -1,7 +1,8 @@
 """Runtime telemetry of the port: metrics registry, span tracer and the
 recompile ledger.
 
-Counterpart of ``deeplearning4j_tpu/observe``. :func:`ledger` is the
+Counterpart of ``deeplearning4j_tpu/observe``. :func:`log_event` appends
+one JSON line to the file ``DL4J_TPU_OBS_LOG`` names. :func:`ledger` is the
 :class:`RecompileLedger` fed by every compile of a cached unit — a
 CUDA-graph capture on the card (``ops/capture.py``), the first eager run
 for a signature on the CPU — with its shape/dtype signature and cause
@@ -16,8 +17,11 @@ from deeplearning4j_tpu_torch.observe.registry import (
     Gauge,
     Histogram,
     MetricsRegistry,
+    OBS_LOG_ENV,
     default_registry,
+    log_event,
     reset_default_registry,
+    reset_log_state,
 )
 from deeplearning4j_tpu_torch.observe.tracing import (
     SpanTracer,
@@ -51,4 +55,5 @@ __all__ = [
     "CompileEvent", "RecompileLedger",
     "metrics", "tracer", "ledger", "default_registry", "default_tracer",
     "default_ledger", "note_jit_signature", "signature_of", "reset",
+    "log_event", "reset_log_state", "OBS_LOG_ENV",
 ]

@@ -1,18 +1,25 @@
 """Process-wide metrics registry — counters, gauges, streaming histograms.
 
 Counterpart of ``deeplearning4j_tpu/observe/registry.py``, cut to what the
-serving engine and scheduler write: :class:`Counter`, :class:`Gauge` and
-:class:`Histogram` (p50/p95/p99 over log-spaced buckets), created or
-fetched by ``(name, labels)`` in one :class:`MetricsRegistry`. Metric names
-are the JAX package's, so a dashboard reads either package the same way.
-Every instrument is safe to write from any thread.
+port writes: :class:`Counter`, :class:`Gauge` and :class:`Histogram`
+(p50/p95/p99 over log-spaced buckets), created or fetched by ``(name,
+labels)`` in one :class:`MetricsRegistry`, and :func:`log_event`, the
+JSONL event log. Metric names and event kinds are the JAX package's, so a
+dashboard reads either package the same way. Every instrument is safe to
+write from any thread.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import math
+import os
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+logger = logging.getLogger(__name__)
 
 # log-spaced latency bucket bounds (seconds), 100 µs to ~56 min
 _DEFAULT_BOUNDS: Tuple[float, ...] = tuple(
@@ -173,3 +180,49 @@ def reset_default_registry() -> MetricsRegistry:
     with _DEFAULT_LOCK:
         _DEFAULT = None
     return default_registry()
+
+
+OBS_LOG_ENV = "DL4J_TPU_OBS_LOG"
+
+_LOG_LOCK = threading.Lock()
+# paths whose writes failed: logging to them is off (one warning a path),
+# so an unwritable log costs one set lookup an event, never an exception
+# inside a training or serving loop
+_LOG_FAILED_PATHS: set = set()
+
+
+def reset_log_state() -> None:
+    """Forget failed JSONL log paths (tests; or after freeing disk)."""
+    with _LOG_LOCK:
+        _LOG_FAILED_PATHS.clear()
+
+
+def log_event(kind: str, **fields: Any) -> None:
+    """Append one JSON line to the file ``DL4J_TPU_OBS_LOG`` names (a no-op
+    when it is unset): ``ts`` (epoch seconds), ``kind`` and the kind's
+    fields, as the JAX package writes them. A path that cannot be written
+    warns once and is not written again in this process; pointing the
+    variable at another path, or :func:`reset_log_state`, turns logging
+    back on."""
+    path = os.environ.get(OBS_LOG_ENV)
+    if not path or path in _LOG_FAILED_PATHS:
+        return
+    rec = {"ts": round(time.time(), 6), "kind": kind}
+    rec.update(fields)
+    try:
+        line = json.dumps(rec, default=str)
+    except (TypeError, ValueError):
+        line = json.dumps({"ts": rec["ts"], "kind": kind,
+                           "error": "unserializable event"})
+    try:
+        with _LOG_LOCK, open(path, "a", encoding="utf-8") as fh:
+            fh.write(line + "\n")
+    except OSError as e:
+        with _LOG_LOCK:
+            first = path not in _LOG_FAILED_PATHS
+            _LOG_FAILED_PATHS.add(path)
+        if first:
+            logger.warning(
+                "%s: cannot write %s (%s); JSONL event logging is off for "
+                "this path for the rest of the process", OBS_LOG_ENV, path,
+                e)

@@ -62,7 +62,16 @@ def lstm_layer(x, W, RW, b, h0=None, c0=None, mask=None, *,
                reverse: bool = False):
     """LSTM over x:[N,T,I] with W:[I,4H], RW:[H,4H], b:[4H] (gate order
     i, f, o, g). Returns (hs:[N,T,H], h_last, c_last); ``mask`` [N,T]
-    holds the state at steps where it is 0."""
+    holds the state at steps where it is 0. Mixed float operands compute
+    in their promoted dtype, as jnp promotes them (float32 x with
+    bfloat16 weights runs in float32)."""
+    dt = x.dtype
+    for a in (W, RW, b, h0, c0):
+        if a is not None:
+            dt = torch.promote_types(dt, a.dtype)
+    x, W, RW, b = x.to(dt), W.to(dt), RW.to(dt), b.to(dt)
+    h0 = None if h0 is None else h0.to(dt)
+    c0 = None if c0 is None else c0.to(dt)
     n, t = x.shape[0], x.shape[1]
     hdim = RW.shape[0]
     h = x.new_zeros((n, hdim)) if h0 is None else h0

@@ -14,6 +14,8 @@ the same refcounted allocator:
 * A host-side free list hands out pages and takes them back; pages are
   refcounted, so a page may be held by several slots (shared prefixes),
   returning to the free list when its last holder releases it.
+* Crash recovery zeroes the pool in place (:meth:`reset_kv`): the JAX
+  engine reallocates it, but the port's captured steps hold its address.
 
 The LAST page (index ``num_pages``) is the trash page: inactive slots'
 decode writes and unallocated page-table entries point at it.
@@ -32,6 +34,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import faults
 from deeplearning4j_tpu_torch.environment import resolve_device
 
 
@@ -140,6 +143,10 @@ class PagedKVCache:
         have = len(self.owned[slot])
         if need <= have:
             return "ok"
+        if faults.should_fire("page_oom"):
+            # injected pool pressure: the real oom's contract, the slot's
+            # pages untouched
+            return "oom"
         if need > self.max_pages_per_seq:
             return "overflow"
         if need - have > len(self.free):
@@ -160,6 +167,15 @@ class PagedKVCache:
         self.page_table[slot, :] = self.trash_page
         self.seq_lens[slot] = 0
         return released
+
+    def reset_kv(self) -> None:
+        """Zero the page pool in place (supervised crash recovery). The
+        JAX engine reallocates it, since a step that died may have
+        consumed its donated buffer; here the captured steps hold the
+        buffer's address, so it stays the same tensor and no step is
+        captured again. Host-side page accounting is untouched: the
+        caller frees and retries the slots."""
+        self.kv.zero_()
 
     def check_invariants(self, tree_refs=None) -> None:
         """Allocator soundness (test hook): free XOR live partition of the

@@ -1,7 +1,7 @@
 """Generative serving engine — prefill/decode dispatch over the paged cache.
 
 Counterpart of ``deeplearning4j_tpu/serving/engine.py`` on the path without
-prefix cache, speculation, AOT export or supervision. Three compiled step
+prefix cache, speculation or AOT export. Three compiled step
 functions — the JAX engine jits them, the port runs each as a
 :class:`~deeplearning4j_tpu_torch.ops.capture.CapturedUnit`, a CUDA-graph
 capture on the card (eager on the CPU, and under ``disable_capture()``):
@@ -31,14 +31,31 @@ graphs address it), as are the model's parameters: change those in place.
 The engine's ``torch.Generator`` is registered with the prefill and decode
 graphs.
 
-Without supervision, an exception in a step fails every outstanding
-request and leaves the engine dead (the unsupervised JAX path). Per-request
-deadlines, the bounded queue (``max_queue`` sheds as ``shed``), capacity
-evictions (``overflow``/``oom``) and priority admission are kept.
+**Supervision** (``supervise=True``, the default, as in the JAX
+package): an exception in a step, or the worker thread's death, does not
+kill the engine. :meth:`GenerativeEngine._recover` frees every slot,
+puts the requests with retries left back at the front of the queue
+(their original submit time: deadlines keep counting), finishes the
+others as ``error``, zeroes the KV pool in place
+(:meth:`PagedKVCache.reset_kv`: the captured steps keep their buffers, so
+a restart captures nothing again and the ledger records no
+``new_shape``), backs off (doubling from ``restart_backoff_s``, capped at
+``max_backoff_s``) and hands the loop to a replacement thread, up to
+``max_restarts`` times. Past that budget, or with ``supervise=False``, an
+exception fails every outstanding request and leaves the engine dead
+(the unsupervised path). Recovery handles host-side exceptions; a real
+CUDA fault leaves the context unusable and cannot be recovered in the
+process. The fault points ``decode_step_error``, ``slow_decode``,
+``worker_death``, ``engine_death`` and the cache's ``page_oom`` exercise
+these paths. Per-request deadlines, the bounded queue (``max_queue`` sheds
+as ``shed``), capacity evictions (``overflow``/``oom``) and priority
+admission are kept.
 
-Observability: admitted/evicted/generated-token counters, slot-occupancy
-gauge, decode-step, TTFT and inter-token histograms, the
-``serving_prefill``/``serving_decode`` spans and the ledger notes.
+Observability: admitted/evicted/generated-token counters, restart and
+retry counters, slot-occupancy and stopped-cleanly gauges, decode-step,
+TTFT and inter-token histograms, the ``serving_prefill``/``serving_decode``
+spans, the ledger notes and the ``engine_restart``, ``engine_dead`` and
+``serving_terminal`` events.
 """
 
 from __future__ import annotations
@@ -52,7 +69,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import observe
+from deeplearning4j_tpu_torch import faults, observe
 from deeplearning4j_tpu_torch.environment import resolve_device
 from deeplearning4j_tpu_torch.models.gpt import (
     GptModel, gpt_decode_step, gpt_prefill)
@@ -88,7 +105,9 @@ class GenerativeEngine:
     def __init__(self, model: GptModel, *, max_slots: int = 4,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  max_pages_per_seq: int = 8, max_prompt: int = 32,
-                 seed: int = 0, max_queue: Optional[int] = None,
+                 seed: int = 0, supervise: bool = True,
+                 max_restarts: int = 3, restart_backoff_s: float = 0.05,
+                 max_backoff_s: float = 2.0, max_queue: Optional[int] = None,
                  default_deadline_s: Optional[float] = None,
                  device: Union[str, torch.device, None] = None):
         cfg = model.cfg
@@ -124,8 +143,13 @@ class GenerativeEngine:
         self._prefill_fn: Optional[CapturedUnit] = None
         self._write_fn: Optional[CapturedUnit] = None
         self._decode_fn: Optional[CapturedUnit] = None
+        self.supervise = bool(supervise)
+        self.max_restarts = int(max_restarts)
+        self.restart_backoff_s = float(restart_backoff_s)
+        self.max_backoff_s = float(max_backoff_s)
         self.max_queue = None if max_queue is None else int(max_queue)
         self.default_deadline_s = default_deadline_s
+        self.restarts = 0            # crash recoveries so far (<= the cap)
         self._worker: Optional[threading.Thread] = None
         self._stop_flag = False
         self._error: Optional[Exception] = None
@@ -139,6 +163,11 @@ class GenerativeEngine:
             "decode_h": m.histogram("dl4j_tpu_serving_decode_step_seconds"),
             "ttft_h": m.histogram("dl4j_tpu_serving_ttft_seconds"),
             "itl_h": m.histogram("dl4j_tpu_serving_intertoken_seconds"),
+            "restarts": m.counter("dl4j_tpu_serving_engine_restarts_total"),
+            "retries": m.counter("dl4j_tpu_serving_retries_total"),
+            # written only by stop(): the gauge is process-wide, and a
+            # write here would hide an earlier engine's hung stop
+            "stopped_g": m.gauge("dl4j_tpu_serving_stopped_cleanly"),
         }
 
     # ---------------------------------------------------------- staging
@@ -235,16 +264,19 @@ class GenerativeEngine:
     def submit(self, prompt, *, max_new_tokens: int = 16,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                eos_token: Optional[int] = None,
-               deadline_s: Optional[float] = None, priority: int = 1
-               ) -> "Future[GenerationResult]":
-        """Queue one generation; returns a Future (thread-safe). When the
-        pending queue is at ``max_queue`` the request is SHED: its future
-        completes at once with the terminal reason ``"shed"``."""
+               deadline_s: Optional[float] = None, max_retries: int = 1,
+               priority: int = 1) -> "Future[GenerationResult]":
+        """Queue one generation; returns a Future (thread-safe).
+        ``max_retries`` is the request's budget of re-admissions after an
+        engine crash. When the pending queue is at ``max_queue`` the
+        request is SHED: its future completes at once with the terminal
+        reason ``"shed"``."""
         eos = self.cfg.eos_token if eos_token is None else eos_token
         req = GenerationRequest(
             prompt=prompt, max_new_tokens=max_new_tokens,
             temperature=temperature, top_k=top_k, top_p=top_p, eos_token=eos,
-            deadline_s=deadline_s, priority=priority)
+            deadline_s=deadline_s, max_retries=max_retries,
+            priority=priority)
         return self.submit_request(req)
 
     def validate_request(self, req: GenerationRequest) -> None:
@@ -286,8 +318,10 @@ class GenerativeEngine:
 
     def generate(self, prompts: Sequence, **kw) -> List[GenerationResult]:
         """Synchronous batch generation: submit everything, run the
-        scheduler loop inline until drained. A step failure fails every
-        outstanding request and propagates."""
+        scheduler loop inline until drained. A step that dies inside the
+        restart budget is recovered and the loop goes on; past it (or
+        unsupervised) every outstanding request fails and the exception
+        propagates."""
         if self._worker is not None:
             raise RuntimeError("generate() is the inline mode — the engine "
                                "is already running a serving loop; use "
@@ -297,8 +331,9 @@ class GenerativeEngine:
             try:
                 self.step()
             except Exception as e:
-                self._die(e)
-                raise
+                if not self._recover(e):
+                    self._die(e)
+                    raise
         return [f.result() for f in futs]
 
     def start(self) -> "GenerativeEngine":
@@ -315,24 +350,37 @@ class GenerativeEngine:
         """Stop the serving loop. In-flight sequences retire with their
         partial output and the ``"stopped"`` reason; queued requests fail.
         A worker that does not join within ``timeout`` is reported
-        (``stopped_cleanly`` False) and keeps its active slots."""
+        (``stopped_cleanly`` False, the ``dl4j_tpu_serving_stopped_cleanly``
+        gauge 0, an ``engine_stop_hung`` event) and keeps its active
+        slots; the engine is left stopping, not restartable."""
         self._stop_flag = True
-        with self._lifecycle:
-            w = self._worker
-        if w is not None and w is not threading.current_thread():
+        while True:
+            with self._lifecycle:
+                w = self._worker
+            if w is None or w is threading.current_thread():
+                break
             w.join(timeout=timeout)
             if w.is_alive():
+                # _worker stays set: a restart would race the stuck thread
+                # over the same cache and scheduler
                 self.stopped_cleanly = False
+                self._obs["stopped_g"].set(0.0)
                 logger.error("serving loop still running after %.0fs; "
                              "failing queued requests only", timeout)
+                observe.log_event("engine_stop_hung", timeout_s=timeout)
                 self.scheduler.fail_pending(
                     RuntimeError("GenerativeEngine stop timed out with the "
                                  "worker hung; queued request failed"),
                     reason="stopped")
                 return
             with self._lifecycle:
-                self._worker = None
+                if self._worker is w:
+                    self._worker = None
+                    break
+                # a recovery handed the loop to a replacement thread
+                # before the flag was seen: join that one too
         self.stopped_cleanly = True
+        self._obs["stopped_g"].set(1.0)
         for slot in self.scheduler.active_slots():
             self._retire(slot, "stopped")
         self.scheduler.fail_all(
@@ -345,26 +393,82 @@ class GenerativeEngine:
                 time.sleep(1e-3)
                 continue
             try:
+                if faults.should_fire("engine_death"):
+                    # an unrestartable kill: the budget is spent first, so
+                    # _recover cannot revive the worker
+                    self.restarts = self.max_restarts
+                    raise faults.InjectedFault("engine_death")
+                faults.maybe_fail("worker_death")
                 self.step()
-            except Exception as e:  # the loop's boundary: report, fail all
-                logger.exception("serving loop died")
+            except Exception as e:  # the loop's boundary
+                if self._recover(e):
+                    # this thread retires; a replacement owns the loop
+                    # (unless stop() raced us: it joins this thread)
+                    with self._lifecycle:
+                        if self._stop_flag:
+                            return
+                        self._worker = threading.Thread(
+                            target=self._serve_loop, daemon=True)
+                        self._worker.start()
+                    return
+                logger.exception("serving loop died (unrecoverable)")
                 self._die(e)
                 return
 
     def _die(self, exc: Exception) -> None:
         """Mark the engine dead and fail every outstanding request."""
         self._error = exc
+        observe.log_event("engine_dead", restarts=self.restarts,
+                          error=repr(exc))
         self.scheduler.fail_all(exc)
 
+    def _recover(self, exc: Exception) -> bool:
+        """Crash recovery: free every slot, put the requests with retries
+        left back at the front of the queue with their original submit
+        time, finish the others as ``error``, zero the KV pool in place
+        and back off. False when unsupervised or past ``max_restarts``
+        (the caller fails everything). Host-side exceptions only: a CUDA
+        fault leaves the context unusable."""
+        if not self.supervise or self.restarts >= self.max_restarts:
+            return False
+        self.restarts += 1
+        self._obs["restarts"].inc()
+        logger.warning("engine worker died (%r): restart %d/%d", exc,
+                       self.restarts, self.max_restarts)
+        sched, cache = self.scheduler, self.cache
+        # reversed: appendleft re-queues the last one first, and slots are
+        # taken lowest first, so the queue front gets the arrival order
+        for slot in reversed(sched.active_slots()):
+            st = sched.slots.pop(slot)
+            cache.free_slot(slot)
+            req = st.request
+            if req.retries_used < req.max_retries:
+                req.retries_used += 1
+                self._obs["retries"].inc()
+                with sched._plock:
+                    sched.pending.appendleft((req, st.future, st.submit_t))
+            else:
+                self._finish_unslotted(req, st.future, "error")
+        # the same buffer, zeroed: the captured steps keep their addresses
+        cache.reset_kv()
+        observe.log_event("engine_restart", restart=self.restarts,
+                          error=repr(exc))
+        delay = min(self.max_backoff_s,
+                    self.restart_backoff_s * (2 ** (self.restarts - 1)))
+        if delay > 0:
+            time.sleep(delay)
+        return True
+
     def _finish_unslotted(self, req, fut, reason: str) -> None:
-        """Complete a future that never held a slot (shed, or deadline in
-        the queue) with a terminal result."""
+        """Complete a future that holds no slot (shed, deadline in the
+        queue, error past the retry budget) with a terminal result."""
         if not fut.done():
             fut.set_result(GenerationResult(
                 tokens=np.zeros((0,), np.int32), finish_reason=reason,
                 prompt_len=int(req.prompt.size), ttft_s=None,
                 intertoken_s=[]))
         count_terminal(reason)
+        observe.log_event("serving_terminal", reason=reason)
 
     def check_invariants(self) -> None:
         """Allocator soundness (test hook)."""
@@ -475,6 +579,10 @@ class GenerativeEngine:
         active = sched.active_slots()
         if not active:
             return 0
+        # fault hooks before the dispatch: a crash never leaves a step
+        # half run
+        faults.maybe_fail("decode_step_error")
+        faults.maybe_sleep("slow_decode", 0.05)
         return self._step_decode(active)
 
     @torch.no_grad()

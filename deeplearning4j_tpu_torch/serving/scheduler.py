@@ -54,6 +54,8 @@ class GenerationRequest:
     top_p: float = 1.0               # 1.0 -> disabled
     eos_token: int = -1              # -1 -> never stop on a token
     deadline_s: Optional[float] = None  # submit -> terminal budget (wall)
+    max_retries: int = 1             # crash re-admissions before "error"
+    retries_used: int = 0            # supervisor bookkeeping, not user-set
     priority: int = 1                # 0 = most important; ties FIFO
 
     def __post_init__(self):
@@ -71,6 +73,9 @@ class GenerationRequest:
         if self.deadline_s is not None and self.deadline_s < 0:
             raise ValueError(f"deadline_s must be >= 0 (None disables), "
                              f"got {self.deadline_s}")
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, "
+                             f"got {self.max_retries}")
         if self.priority < 0:
             raise ValueError(f"priority must be >= 0, got {self.priority}")
 

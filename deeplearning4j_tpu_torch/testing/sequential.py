@@ -14,7 +14,8 @@ and by ``profile_mln``:
 * the layers of ``TextGenerationLSTM(vocab_size=77)`` (2 × LSTM 256,
   RmsProp 1e-2, seed 123) with truncated BPTT 50, on 32 × 1000 one-hot
   characters (dl4j-examples' character-modelling LSTM: minibatch 32,
-  example length 1000, tBPTT 50).
+  example length 1000, tBPTT 50); the same layers as a ComputationGraph
+  for ``graph_tbptt``.
 """
 
 from __future__ import annotations
@@ -76,6 +77,26 @@ def tagger_batches(batch: int, seq: int, min_len: int, features: int,
     return batches, real
 
 
+def char_graph_conf(vocab: int, hidden: int, tbptt: int):
+    """:func:`char_conf`'s layers as a ComputationGraph (``graph_builder``:
+    l0 → l1 → out), truncated BPTT set on the configuration as the JAX
+    graph takes it."""
+    from deeplearning4j_tpu_torch import nn
+    from deeplearning4j_tpu_torch.nn.graph import graph_builder
+
+    conf = (graph_builder().seed(123).updater(nn.RmsProp(learning_rate=1e-2))
+            .weight_init("xavier").add_inputs("in")
+            .set_input_types(**{"in": nn.InputType.recurrent(vocab)})
+            .add_layer("l0", nn.LSTM(n_out=hidden, activation="tanh"), "in")
+            .add_layer("l1", nn.LSTM(n_out=hidden, activation="tanh"), "l0")
+            .add_layer("out", nn.RnnOutputLayer(
+                n_out=vocab, activation="softmax", loss="mcxent"), "l1")
+            .set_outputs("out").build())
+    conf.backprop_type = "tbptt"
+    conf.tbptt_fwd_length = conf.tbptt_back_length = tbptt
+    return conf
+
+
 def char_conf(vocab: int, hidden: int, tbptt: int):
     from deeplearning4j_tpu_torch import nn
 
@@ -88,10 +109,10 @@ def char_conf(vocab: int, hidden: int, tbptt: int):
             .set_input_type(nn.InputType.recurrent(vocab)).build())
 
 
-def char_batch(batch: int, seq: int, vocab: int):
+def char_batch(batch: int, seq: int, vocab: int, seed: int = 77):
     """One DataSet of one-hot characters, each labelled with the next."""
     from deeplearning4j_tpu_torch.datasets import DataSet
 
-    chars = np.random.default_rng(77).integers(0, vocab, (batch, seq + 1))
+    chars = np.random.default_rng(seed).integers(0, vocab, (batch, seq + 1))
     eye = np.eye(vocab, dtype=np.float32)
     return DataSet(eye[chars[:, :-1]], eye[chars[:, 1:]])
