@@ -278,6 +278,29 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    characters through ``rnn_time_step`` equal to the network's. Where a
    run is not bit-reproducible the first differing segment is named and
    held to ``char_lstm``'s 1e-5 relative.
+18. ``fit_scanned`` — the scanned entry points against as many ``fit``
+   steps from the same start, bit for bit in losses and in the whole
+   state, each chunk run twice (the first captures the unit, the second
+   replays it with one host synchronization, counted by
+   ``torch.cuda.set_sync_debug_mode``): LeNet's ``fit_scanned`` in both
+   modes, ResNet-50 A's through ``ComputationGraph.fit_scanned`` (3
+   per-step batches of 32 at 224²) and ``fit_mlm_scanned`` at bert_mlm's
+   shape.
+19. ``updater_coefficients`` — every schedule's learning rate and every
+   updater kind's coefficient buffer computed on the card from an int32
+   step tensor against the CPU's: the largest ulp gap, reported.
+
+Every training phase (5–8, 10, 12–17) runs its steps as CUDA-graph
+training units (``nn/compiled.py``): the warm-up captures each step key,
+the counted run replays, and the same steps under ``disable_capture()``
+from the same start must equal the captured ones bit for bit in losses,
+parameters, updater and batch-norm state, with one ``first_compile`` a
+step key and no ``new_shape`` in the ledger (``capture_fields``: both
+step p50s, the ledger, each unit's captures and pool). Between runs the
+state is copied into the trainer's own tensors (``_load``), and the
+reference runs (generic, plain flash, the one-ulp yardsticks) run op by
+op. ``bilstm_tagger`` feeds masks to an LSTM: its steps are routed to
+eager by rule, and the phase prints their count.
 
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
@@ -295,6 +318,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -957,7 +981,10 @@ def flash_backward_case(dtype, dev, label, d=None):
 
 def updater_case(dtype, dev):
     """Nesterovs (ResNet-50's updater) on the largest leaf and a conv leaf;
-    the kernel must equal the plain version bit for bit."""
+    the kernel must equal the plain version bit for bit. The learning rate
+    and step live on the card, as a trainer's do; the kernel reads the
+    coefficient buffer ``Updater.coefficients`` made from them (made once
+    here, outside the timed calls)."""
     import torch
 
     from deeplearning4j_tpu_torch.nn.updater import Nesterovs
@@ -965,24 +992,28 @@ def updater_case(dtype, dev):
 
     upd = Nesterovs(learning_rate=0.1, momentum=0.9)
     name = str(dtype).replace("torch.", "")
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    lr = upd.lr(it)
+    coef = upd.coefficients(lr, it)
     out = {}
     for leaf, shape in UPDATER_SHAPES.items():
         rng = np.random.default_rng(4)
         p, g, v = (torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to(dev, dtype) for _ in range(3))
-        lr = upd.lr(0)
         hyper = upd.fused_hyper()
-        got = cu.fused_updater(p, g, lr, 0, v, kind="Nesterovs", **hyper)
-        ref = cu.fused_updater_step.fn(p, g, lr, 0, v, kind="Nesterovs",
+        got = cu.fused_updater(p, g, lr, it, v, kind="Nesterovs", coef=coef,
+                               **hyper)
+        ref = cu.fused_updater_step.fn(p, g, lr, it, v, kind="Nesterovs",
                                        **hyper)
         torch.cuda.synchronize()
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got, ref))
         exact = all(torch.equal(a, b) for a, b in zip(got, ref))
-        ms = time_ms(lambda: cu.fused_updater(p, g, lr, 0, v,
-                                              kind="Nesterovs", **hyper))
+        ms = time_ms(lambda: cu.fused_updater(p, g, lr, it, v,
+                                              kind="Nesterovs", coef=coef,
+                                              **hyper))
         plain_ms = time_ms(lambda: cu.fused_updater_step.fn(
-            p, g, lr, 0, v, kind="Nesterovs", **hyper))
+            p, g, lr, it, v, kind="Nesterovs", **hyper))
         n = p.numel()
         # p, g, v read once; p, v written once
         bms, by = bound(5.0 * n * p.element_size(), 10.0 * n, "float32")
@@ -991,7 +1022,7 @@ def updater_case(dtype, dev):
                      "tol": "0 (bit-exact)", "exact": exact, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": None,
                      "bound_ms": bms, "bound_by": by}
-        out[leaf].update(fused_sgd_ms(p, g, v, lr))
+        out[leaf].update(fused_sgd_ms(p, g, v, float(lr)))
         if leaf == "fc.W":
             out[leaf].update(adam_ms(p, g))
     ok = all(e["exact"] for e in out.values())
@@ -1069,10 +1100,14 @@ def updater_tree_case(dtype, dev):
         ps = [draw(s) for s in shapes]
         gs = [draw(s, 0.1) for s in shapes]
         ss = [tuple(draw(s, 0.1, True) for _ in range(ns)) for s in shapes]
-        lr, step, hyper = upd.lr(0), 1, upd.fused_hyper()
+        # the trainer's step and learning rate on the card
+        step = torch.ones((), dtype=torch.int32, device=dev)
+        lr, hyper = upd.lr(step), upd.fused_hyper()
+        coef = upd.coefficients(lr, step)
+        lr_f = float(lr)  # the library calls take a host float
         before = cu.fused_updater.launches
         outs = cu.fused_updater_multi(ps, gs, ss, lr, step, kind=kind,
-                                      **hyper)
+                                      coef=coef, **hyper)
         torch.cuda.synchronize()
         launches = cu.fused_updater.launches - before
         exact, err = True, 0.0
@@ -1085,14 +1120,15 @@ def updater_tree_case(dtype, dev):
                                for a, b in zip(out, ref)))
         del outs
         ms = time_ms(lambda: cu.fused_updater_multi(
-            ps, gs, ss, lr, step, kind=kind, **hyper), iters=5, replays=3)
+            ps, gs, ss, lr, step, kind=kind, coef=coef, **hyper), iters=5,
+            replays=3)
         plain_ms = time_ms(lambda: [cu.fused_updater_step.fn(
             p, g, lr, step, *s, kind=kind, **hyper)
             for p, g, s in zip(ps, gs, ss)], iters=2, replays=2)
         if kind == "Nesterovs":
             vl = [s[0].clone() for s in ss]
             lib_ms = time_ms(lambda: torch._fused_sgd_(
-                ps, gs, vl, weight_decay=0.0, momentum=0.9, lr=float(lr),
+                ps, gs, vl, weight_decay=0.0, momentum=0.9, lr=lr_f,
                 dampening=0.0, nesterov=True, maximize=False,
                 is_first_step=False), iters=5, replays=3)
             lib = "torch._fused_sgd_ (Nesterov momentum) over the same lists"
@@ -1101,7 +1137,7 @@ def updater_tree_case(dtype, dev):
             vl = [s[1].clone() for s in ss]
             steps = [torch.ones((), device=dev) for _ in ss]
             lib_ms = time_ms(lambda: torch._fused_adam_(
-                ps, gs, ml, vl, [], steps, lr=float(lr), beta1=upd.beta1,
+                ps, gs, ml, vl, [], steps, lr=lr_f, beta1=upd.beta1,
                 beta2=upd.beta2, weight_decay=0.0, eps=upd.epsilon,
                 amsgrad=False, maximize=False), iters=5, replays=3)
             lib = "torch._fused_adam_ over the same lists"
@@ -1150,8 +1186,11 @@ def adam_ms(p, g):
 
     adam = Adam(learning_rate=1e-3)
     m, sq = torch.zeros_like(p), torch.zeros_like(p)
+    it = torch.ones((), dtype=torch.int32, device=p.device)
+    lr = adam.lr(it)
+    coef = adam.coefficients(lr, it)
     kernel_ms = time_ms(lambda: cu.fused_updater(
-        p, g, 1e-3, 1, m, sq, kind="Adam", **adam.fused_hyper()))
+        p, g, lr, it, m, sq, kind="Adam", coef=coef, **adam.fused_hyper()))
     pa, ga, ma, va = (t.clone() for t in (p, g, m, sq))
     step = torch.ones((), dtype=torch.float32, device=p.device)
     lib_ms = time_ms(lambda: torch._fused_adam_(
@@ -1270,10 +1309,70 @@ def _clone_tree(tree):
 
 
 def _max_diff(a, b):
-    if isinstance(a, (dict, list)):
+    if isinstance(a, (dict, list, tuple)):
         keys = a.keys() if isinstance(a, dict) else range(len(a))
         return max([_max_diff(a[k], b[k]) for k in keys], default=0.0)
+    if a.numel() == 0:
+        return 0.0
     return (a.float() - b.float()).abs().max().item()
+
+
+def _load(live, start):
+    """``start``'s values copied into the tensors of ``live``
+    (``nn.compiled.commit``): the trainer keeps the buffers its captured
+    steps read and write, so its next step replays rather than captures
+    anew."""
+    from deeplearning4j_tpu_torch.nn.compiled import commit
+
+    return commit(live, start)
+
+
+def _eager_if(flag):
+    """``disable_capture()`` when ``flag``, else nothing: the reference
+    runs (generic, plain, nudged) and the eager comparison run op by op."""
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
+
+    return disable_capture() if flag else contextlib.nullcontext()
+
+
+def _ledger_by_key(events, keys) -> dict:
+    """The recompile ledger's causes by unit key, for ``keys``."""
+    out = {}
+    for ev in events:
+        if ev.key in keys:
+            out.setdefault(ev.key, []).append(ev.cause)
+    return out
+
+
+def capture_fields(units, captured, eager, events, keys) -> tuple:
+    """A training phase's captured steps against the same steps under
+    ``disable_capture()`` from the same starting state: ``captured`` and
+    ``eager`` are (losses, host seconds a step, ..., state tree). Both
+    bit-equal in losses and in every tensor of the state (parameters,
+    updater state, batch-norm state); one ``first_compile`` per step key
+    and no other ledger event (no ``new_shape``: every later step
+    replays). ``units``: the trainer's ``{key: CapturedUnit}``. Returns
+    (problems, line fields)."""
+    ledger = _ledger_by_key(events, keys)
+    losses_equal = list(captured[0]) == list(eager[0])
+    state_equal = _equal_trees(captured[-1], eager[-1])
+    problems = []
+    if not losses_equal:
+        problems.append(f"captured losses {captured[0]} != eager "
+                        f"{eager[0]}")
+    if not state_equal:
+        problems.append(f"captured state differs from eager by "
+                        f"{_max_diff(captured[-1], eager[-1])}")
+    for k in keys:
+        if ledger.get(k) != ["first_compile"]:
+            problems.append(f"ledger {k}: {ledger.get(k)} (one "
+                            f"first_compile, no new_shape)")
+    return problems, {
+        "captured_step_p50_ms": float(np.percentile(captured[1], 50)) * 1e3,
+        "eager_step_p50_ms": float(np.percentile(eager[1], 50)) * 1e3,
+        "captured_bit_equal_eager": losses_equal and state_equal,
+        "losses_eager": list(eager[0]), "ledger": ledger,
+        "graph_units": {k: unit_memory(u) for k, u in units.items()}}
 
 
 def train_phase(phase, dev, smi, *, fused, dtype, batch):
@@ -1282,6 +1381,7 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
     count set to 0 just before. Returns (problems, line, launches)."""
     import torch
 
+    from deeplearning4j_tpu_torch import observe
     from deeplearning4j_tpu_torch.datasets import synthetic_image_batch
     from deeplearning4j_tpu_torch.environment import environment
     from deeplearning4j_tpu_torch.models import ResNet50
@@ -1301,26 +1401,33 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
         x, lab = synthetic_image_batch(batch, *IMAGE, CLASSES, seed=100 + i)
         data.append((x, np.eye(CLASSES, dtype=np.float32)[lab]))
 
-    def run(mode, scale=None):
+    def run(mode, scale=None, eager=False):
+        """3 steps from ``start`` (copied into the network's tensors):
+        captured under ``"auto"``, op by op for the references and with
+        ``eager``."""
         env.helper_mode = mode
-        net.params, net.opt_state, net.net_state = (_clone_tree(t)
-                                                    for t in start)
+        net.params = _load(net.params, start[0])
+        net.opt_state = _load(net.opt_state, start[1])
+        net.net_state = _load(net.net_state, start[2])
         net.iteration_count = 0
         losses, times = [], []
-        for x, y in data:
-            if scale is not None:
-                x = (x * scale).astype(np.float32)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            net.fit(x, y, batch_size=batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append(net.score())
-        return losses, times, _clone_tree(net.params)
+        with _eager_if(eager or mode != "auto"):
+            for x, y in data:
+                if scale is not None:
+                    x = (x * scale).astype(np.float32)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net.fit(x, y, batch_size=batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(net.score())
+        return (losses, times, _clone_tree(net.params),
+                _clone_tree([net.params, net.opt_state, net.net_state]))
 
-    run("auto")       # warm-up: cuDNN/cuBLAS set-up and the kernel build
-    run("generic")
-    generic, g_times, g_params = run("generic")
+    observe.reset()
+    run("auto")       # warm-up: cuDNN/cuBLAS set-up, the kernel build and
+    run("generic")    # the step's capture
+    generic, g_times, g_params, _ = run("generic")
     pert = None
     if dtype == "mixed":
         sign = np.sign(np.random.default_rng(6).standard_normal(
@@ -1328,7 +1435,8 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
         pert = run("generic", 1.0 + 2.0 ** -8 * sign)
     cu.fused_updater.launches = cu.fused_updater.leaves = 0
     cc.reset_launch_counts()                 # the main path's run starts
-    kernel, k_times, k_params = run("auto")
+    kernel_run = run("auto")
+    kernel, k_times, k_params, _ = kernel_run
     launches = {"fused_updater": cu.fused_updater.launches,
                 "bn_matmul_stats": cc.bn_matmul_stats.launches,
                 "bn_matmul_stats_sm90": cc.bn_matmul_stats.sm90_launches}
@@ -1337,6 +1445,9 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
               for (m, k, n, p, d), c in sorted(
                   cc.bn_matmul_stats.census.items())}  # ... ends
     env.helper_mode = "auto"
+    cap_problems, cap_fields = capture_fields(
+        net._steps.units, kernel_run, run("auto", eager=True),
+        observe.ledger().events(), ("train",))
     param_diff = _max_diff(g_params, k_params)
     moved = _max_diff(start[0], g_params)
     loss_diff = max(abs(a - b) for a, b in zip(kernel, generic))
@@ -1345,6 +1456,7 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
         problems.append("non-finite loss")
     problems += updater_count_problems(launches["fused_updater"],
                                        updater_leaves, n_leaves, TRAIN_STEPS)
+    problems += cap_problems
     line = {"phase": phase, "card": smi,
             "model": f"ResNet50(fused_blocks={fused}, dtype={dtype!r})",
             "image": list(IMAGE), "classes": CLASSES, "batch": batch,
@@ -1392,7 +1504,7 @@ def train_phase(phase, dev, smi, *, fused, dtype, batch):
     line.update({"smoke_reading": f"{TRAIN_STEPS} steps, no spread",
                  "step_p50_ms": p50 * 1e3, "images_per_s": batch / p50,
                  "generic_step_p50_ms": float(np.percentile(g_times, 50))
-                 * 1e3,
+                 * 1e3, **cap_fields,
                  "problems": problems})
     del net
     torch.cuda.empty_cache()
@@ -1438,6 +1550,7 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     Returns (problems, line, launches)."""
     import torch
 
+    from deeplearning4j_tpu_torch import observe
     from deeplearning4j_tpu_torch.datasets import synthetic_bert_batch
     from deeplearning4j_tpu_torch.environment import environment
     from deeplearning4j_tpu_torch.models.bert import BertConfig, BertModel
@@ -1463,11 +1576,15 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     desc = registry().get("dot_product_attention")
     kernel_helper = desc.platform_impls["cuda"]
 
-    def run(mode, dropout, *, plain=False, nudge=False, steps=BERT_STEPS):
+    def run(mode, dropout, *, plain=False, nudge=False, steps=BERT_STEPS,
+            eager=False):
+        """``steps`` steps from ``start`` (copied into the model's tensors,
+        the generators reset): captured under ``"auto"``, op by op for the
+        references and with ``eager``."""
         model.cfg = dataclasses.replace(cfg, dropout=dropout)
-        model.params = (_nudged(start[0], np.random.default_rng(8)) if nudge
-                        else _clone_tree(start[0]))
-        model.opt_state = _clone_tree(start[1])
+        model.params = _load(model.params, _nudged(
+            start[0], np.random.default_rng(8)) if nudge else start[0])
+        model.opt_state = _load(model.opt_state, start[1])
         for g, st in zip(model.rng, start[2]):
             g.set_state(st)
         model.step = 0
@@ -1477,40 +1594,47 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
                                                             plain=True)
         losses, times = [], []
         try:
-            for b in data[:steps]:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                losses += fit([b])
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
+            with _eager_if(eager or plain or mode != "auto"):
+                for b in data[:steps]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses += fit([b])
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
         finally:
             desc.platform_impls["cuda"] = kernel_helper
             env.helper_mode = "auto"
-        return losses, times, _clone_tree(model.params)
+        return (losses, times, _clone_tree(model.params),
+                _clone_tree([model.params, model.opt_state]))
 
-    run("auto", ATTN_DROPOUT, steps=1)   # warm-up: cuBLAS, allocator
+    observe.reset()
+    run("auto", ATTN_DROPOUT, steps=1)   # warm-up: cuBLAS, the capture
     run("generic", 0.0, steps=1)
     ca.reset_launch_counts()
     cu.fused_updater.launches = cu.fused_updater.leaves = 0  # starts here
-    kernel, k_times, k_params = run("auto", ATTN_DROPOUT)
+    kernel_run = run("auto", ATTN_DROPOUT)
+    kernel, k_times, k_params, _ = kernel_run
     launches = dict(ca.launch_counts(),
                     fused_updater=cu.fused_updater.launches)  # ... ends here
     updater_leaves = cu.fused_updater.leaves
-    ref, r_times, r_params = run("auto", ATTN_DROPOUT, plain=True)
-    yard, _, y_params = run("auto", ATTN_DROPOUT, plain=True, nudge=True)
-    kernel0, k0_times, k0_params = run("auto", 0.0)
-    generic0, g0_times, g0_params = run("generic", 0.0)
-    yard0, _, y0_params = run("generic", 0.0, nudge=True)
+    cap_problems, cap_fields = capture_fields(
+        model._steps.units, kernel_run, run("auto", ATTN_DROPOUT, eager=True),
+        observe.ledger().events(), ("cls" if task == "classifier" else "mlm",))
+    ref, r_times, r_params, _ = run("auto", ATTN_DROPOUT, plain=True)
+    yard, _, y_params, _ = run("auto", ATTN_DROPOUT, plain=True, nudge=True)
+    kernel0, k0_times, k0_params, _ = run("auto", 0.0)
+    generic0, g0_times, g0_params, _ = run("generic", 0.0)
+    yard0, _, y0_params, _ = run("generic", 0.0, nudge=True)
 
     # predict: no dropout, forward kernels only
-    model.params = k_params
+    model.params = _load(model.params, k_params)
     pb = data[0]
     ca.reset_launch_counts()
     logits = model.predict(pb["ids"], pb["segments"], pb["mask"])
     predict_launches = ca.launch_counts()
     model.cfg = cfg
 
-    problems = []
+    problems = list(cap_problems)
     # bfloat16 at head dim 64 takes the tensor-core (sm90) forward, dq and
     # dk/dv; float32 the tensor-core sm90_f32 ones (ca.flash_design)
     head_dim = cfg.hidden // cfg.heads
@@ -1592,7 +1716,7 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
             "generic_dropout0_step_p50_ms": float(np.percentile(g0_times,
                                                                 50)) * 1e3,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "problems": problems}
+            **cap_fields, "problems": problems}
     del model
     torch.cuda.empty_cache()
     return problems, line, launches
@@ -2135,11 +2259,18 @@ def sd_bert_finetune_phase(dev, smi):
                 sd.set_arr(n, t)
         return sd, logits
 
-    def run(mode, *, nudge=False, counted=False, refit=False):
+    def run(mode, *, nudge=False, counted=False, refit=False, eager=False):
         """Build, 3 fit steps, then ``sd.output`` of the logits. With
         ``refit`` that output is captured before the steps (and replayed
-        once) and replayed after them, then held against eager."""
+        once) and replayed after them, then held against eager. The steps
+        are captured under ``"auto"``, op by op for the references and
+        with ``eager``."""
+        from deeplearning4j_tpu_torch import observe
+        from deeplearning4j_tpu_torch.nn.compiled import TrainUnits
+
         env.helper_mode = mode
+        if counted:
+            observe.reset()
         try:
             resident = torch.cuda.memory_allocated() / 2 ** 30
             sd, logits = build(nudge)
@@ -2159,12 +2290,21 @@ def sd_bert_finetune_phase(dev, smi):
                 cu.fused_updater.launches = 0  # the main path starts here
                 cu.fused_updater.leaves = 0
             losses, times = [], []
-            for _ in range(FINETUNE_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                losses += sd.fit([batch])
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
+            with _eager_if(eager or mode != "auto"):
+                for _ in range(FINETUNE_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses += sd.fit([batch])
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            events = list(observe.ledger().events())
+            # the unit's records (not the unit: its pool goes with sd)
+            units = {k[0]: types.SimpleNamespace(
+                captures=u.units["train"].captures,
+                pool_bytes=u.units["train"].pool_bytes,
+                static_bytes=u.units["train"].static_bytes)
+                for k, u in sd._jit_cache.items()
+                if isinstance(u, TrainUnits) and "train" in u.units}
             if counted:
                 launches = dict(
                     {k: v for k, v in ca.launch_counts().items()
@@ -2192,6 +2332,9 @@ def sd_bert_finetune_phase(dev, smi):
                 info["fused_updater_leaves"] = updater_leaves
             params = {n: t.clone() for n, t in
                       sd.training_state()["params"].items()}
+            info["state"] = _clone_tree([params, sd.training_state()[
+                "opt_state"]])
+            info["events"], info["units"] = events, units
             n_params = sum(t.numel() for t in params.values())
             cl.fused_layer_norm_kernel.launches = 0
             cm.fused_matmul.launches = 0
@@ -2214,10 +2357,20 @@ def sd_bert_finetune_phase(dev, smi):
     # logits' sd.output captured before the steps and replayed after them
     r_info = run("auto", refit=True)[0]
     k_info, launches, k_params, n_params, k_out = run("auto", counted=True)
+    e_info = run("auto", eager=True)[0]
     g_info, _, g_params, _, g_out = run("generic")
     y_info, _, y_params, _, _ = run("generic", nudge=True)
 
-    problems = []
+    problems, cap_fields = capture_fields(
+        k_info.pop("units"),
+        (k_info["losses"], [t / 1e3 for t in k_info["times_ms"]],
+         k_info.pop("state")),
+        (e_info["losses"], [t / 1e3 for t in e_info["times_ms"]],
+         e_info.pop("state")),
+        k_info.pop("events"), ("train",))
+    for info in (r_info, e_info, g_info, y_info):
+        for k in ("units", "state", "events"):
+            info.pop(k, None)
     layers = cfg["layers"]
     want_fusions = {"attention": layers, "epilogue": 6 * layers + 2,
                     "layernorm": 1}
@@ -2305,7 +2458,7 @@ def sd_bert_finetune_phase(dev, smi):
             "generic_step_p50_ms": g_info["step_p50_ms"],
             "peak_memory_gib": k_info["peak_memory_gib"],
             "peak_memory_own_gib": k_info["peak_memory_gib"]
-            - k_info["resident_before_gib"],
+            - k_info["resident_before_gib"], **cap_fields,
             "problems": problems}
     return problems, line, launches
 
@@ -2646,53 +2799,66 @@ def _move_distance(a, b, start) -> float:
     return math.sqrt(num) / max(math.sqrt(den), 1e-30)
 
 
-def _mln_run(net, start, mode, batches, *, nudge=False):
+def _mln_run(net, start, mode, batches, *, nudge=False, eager=False):
     """``net.fit`` over ``batches`` (one ``fit`` call each) from the
-    cloned ``start`` state under ``helper_mode=mode``: (scores — one a
-    step, or one a tBPTT segment —, host seconds a batch, parameters)."""
+    ``start`` state (copied into the network's own tensors) under
+    ``helper_mode=mode``, captured (``"auto"``) or, for the references
+    and with ``eager``, op by op: (scores — one a step, or one a tBPTT
+    segment —, host seconds a batch, parameters, the whole state)."""
     import torch
 
     from deeplearning4j_tpu_torch.environment import environment
 
     env = environment()
     env.helper_mode = mode
-    net.params = (_nudged(start[0], np.random.default_rng(8)) if nudge
-                  else _clone_tree(start[0]))
-    net.opt_state, net.net_state = (_clone_tree(t) for t in start[1:])
+    net.params = _load(net.params, _nudged(start[0], np.random.default_rng(
+        8)) if nudge else start[0])
+    net.opt_state = _load(net.opt_state, start[1])
+    net.net_state = _load(net.net_state, start[2])
     net.iteration_count = 0
+    net._gen.manual_seed(net.conf.seed)
     tbptt = net.conf.backprop_type == "tbptt"
     scores, times = [], []
     try:
-        for ds in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            net.fit(ds, batch_size=ds.num_examples())
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            scores += net.tbptt_scores() if tbptt else [net.score()]
+        with _eager_if(eager or mode != "auto"):
+            for ds in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net.fit(ds, batch_size=ds.num_examples())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                scores += net.tbptt_scores() if tbptt else [net.score()]
     finally:
         env.helper_mode = "auto"
-    return scores, times, _clone_tree(net.params)
+    return (scores, times, _clone_tree(net.params),
+            _clone_tree([net.params, net.opt_state, net.net_state]))
 
 
-def _mln_main_path(net, batches):
-    """Warm-up, the generic run (the reference), then the counted run
-    with every launch count and the dispatch tally set to 0 just before
-    and read just after. Returns (start, generic run, kernel run,
-    launches, updater leaves, tally)."""
+def _mln_main_path(net, batches, keys=("train",)):
+    """Warm-up (the step keys' captures), the generic run (the reference,
+    op by op), then the counted run — replays — with every launch count
+    and the dispatch tally set to 0 just before and read just after, then
+    the same steps under ``disable_capture()``. Returns (start, generic
+    run, kernel run, launches, updater leaves, tally, (capture problems,
+    capture fields))."""
     from deeplearning4j_tpu_torch import observe
     from deeplearning4j_tpu_torch.ops import cuda_updater as cu
 
+    observe.reset()
     start = (_clone_tree(net.params), _clone_tree(net.opt_state),
              _clone_tree(net.net_state))
-    _mln_run(net, start, "auto", batches[:1])   # warm-up: cuDNN, cuBLAS
+    _mln_run(net, start, "auto", batches[:1])   # warm-up: the captures
     generic = _mln_run(net, start, "generic", batches)
+    events = list(observe.ledger().events())
     cu.fused_updater.launches = cu.fused_updater.leaves = 0
     observe.reset()                                 # the main path's run
     kernel = _mln_run(net, start, "auto", batches)
     launches = {"fused_updater": cu.fused_updater.launches}
     leaves, tally = cu.fused_updater.leaves, dispatch_tally()  # ... ends
-    return start, generic, kernel, launches, leaves, tally
+    events += observe.ledger().events()
+    eager = _mln_run(net, start, "auto", batches, eager=True)
+    capture = capture_fields(net._steps.units, kernel, eager, events, keys)
+    return start, generic, kernel, launches, leaves, tally, capture
 
 
 def _rnn_agreement(start, generic, kernel, yard) -> tuple:
@@ -2766,11 +2932,11 @@ def lenet_phase(dev, smi):
     n_leaves = sum(len(p) for p in net.params)
     batch, steps = S.LENET["batch"], S.LENET["steps"]
     batches = S.lenet_batches(batch, steps)
-    start, generic, kernel, launches, leaves, tally = _mln_main_path(
-        net, batches)
+    start, generic, kernel, launches, leaves, tally, capture = (
+        _mln_main_path(net, batches))
     out = net.output(batches[0].features)
     problems = updater_count_problems(launches["fused_updater"], leaves,
-                                      n_leaves, steps)
+                                      n_leaves, steps) + capture[0]
     if net.num_params() != LENET_PARAMS:
         problems.append(f"{net.num_params()} parameters != {LENET_PARAMS}")
     agree, against = _train_a_agreement(start, generic, kernel)
@@ -2788,7 +2954,7 @@ def lenet_phase(dev, smi):
             **against, "smoke_reading": f"{steps} steps, no spread",
             "step_p50_ms": p50 * 1e3, "images_per_s": batch / p50,
             "generic_step_p50_ms": float(np.percentile(generic[1], 50))
-            * 1e3, "problems": problems}
+            * 1e3, **capture[1], "problems": problems}
     del net
     torch.cuda.empty_cache()
     return problems, line, launches
@@ -2858,20 +3024,30 @@ def bilstm_tagger_phase(dev, smi):
     n_leaves = len(list(leaf_paths(net.params)))
     batches, real = S.tagger_batches(b, t, cfg["min_len"], cfg["features"],
                                      tags, steps)
-    start, generic, kernel, launches, leaves, tally = _mln_main_path(
-        net, batches)
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.nn.compiled import MASKED_LSTM
+
+    start, generic, kernel, launches, leaves, tally, capture = (
+        _mln_main_path(net, batches))
+    # the steps of the counted run and of its eager twin, each routed to
+    # eager by the masked-LSTM rule (the metrics were reset before them)
+    routed = int(observe.metrics().counter(
+        "dl4j_tpu_capture_skipped_total", unit="train",
+        reason=MASKED_LSTM).value)
     yard = _mln_run(net, start, "generic", batches, nudge=True)
     problems, fields = _rnn_agreement(start, generic, kernel, yard)
     problems += updater_count_problems(launches["fused_updater"], leaves,
-                                       n_leaves, steps)
+                                       n_leaves, steps) + capture[0]
+    if routed != 2 * steps or capture[1]["graph_units"]["train"][
+            "captures"]:
+        problems.append(f"masked steps routed to eager {routed} != 2 x "
+                        f"{steps}, captures {capture[1]['graph_units']}")
     want = {"lstm_layer cudnn usable": 2 * steps}
     if {k: v for k, v in tally.items() if k.startswith("lstm_layer")} != want:
         problems.append(f"lstm_layer dispatch {tally} != {want}")
     # output at every position, padded ones included: cuDNN vs generic on
     # the counted run's parameters
-    from deeplearning4j_tpu_torch import observe
-
-    net.params = kernel[2]
+    net.params = _load(net.params, kernel[2])
     ds = batches[0]
     observe.reset()
     out = net.output(ds.features, ds.features_mask)
@@ -2911,7 +3087,10 @@ def bilstm_tagger_phase(dev, smi):
             "step_p50_ms": p50 * 1e3, "tokens_per_s": b * t / p50,
             "real_tokens_per_s": float(np.mean(real)) / p50,
             "generic_step_p50_ms": float(np.percentile(generic[1], 50))
-            * 1e3, "problems": problems}
+            * 1e3, **capture[1], "routed_eager_steps": routed,
+            "routed": [e.to_dict() for e in
+                       observe.ledger().routed_events()],
+            "problems": problems}
     del net
     torch.cuda.empty_cache()
     return problems, line, launches
@@ -2939,8 +3118,8 @@ def char_lstm_phase(dev, smi):
     n_leaves = len(list(leaf_paths(net.params)))
     batches = [S.char_batch(b, t, v)]
     segments = -(-t // seg)
-    start, generic, kernel, launches, leaves, tally = _mln_main_path(
-        net, batches)
+    start, generic, kernel, launches, leaves, tally, capture = (
+        _mln_main_path(net, batches, keys=("train_tbptt",)))
     yard = _mln_run(net, start, "generic", batches, nudge=True)
     # 20 RmsProp steps through a loss spike: the free-running trajectories
     # are reported beside their one-ulp yardstick; the gate is each
@@ -2948,14 +3127,14 @@ def char_lstm_phase(dev, smi):
     free_problems, free = _rnn_agreement(start, generic, kernel, yard)
     problems, segment_fields = _tbptt_segment_checks(net, start, batches[0])
     problems += updater_count_problems(launches["fused_updater"], leaves,
-                                       n_leaves, segments)
+                                       n_leaves, segments) + capture[0]
     want = {"lstm_layer cudnn usable": 2 * segments}
     if {k: v for k, v in tally.items() if k.startswith("lstm_layer")} != want:
         problems.append(f"lstm_layer dispatch {tally} != {want}")
     if len(kernel[0]) != segments:
         problems.append(f"{len(kernel[0])} segment scores != {segments}")
     # streaming: 50 single steps against one output over the same 50
-    net.params = kernel[2]
+    net.params = _load(net.params, kernel[2])
     xs = batches[0].features[:, :seg]
     observe.reset()
     net.rnn_clear_previous_state()
@@ -2983,7 +3162,9 @@ def char_lstm_phase(dev, smi):
             "stream_tol": STREAM_TOL, "stream_dispatch": stream_tally,
             "smoke_reading": "one batch of 20 segments, no spread",
             "batch_s": wall, "tokens_per_s": b * t / wall,
-            "generic_batch_s": generic[1][0], "problems": problems}
+            "generic_batch_s": generic[1][0], **capture[1],
+            "captured_step_p50_note": "one fit call of 20 segments",
+            "problems": problems}
     del net
     torch.cuda.empty_cache()
     return problems, line, launches
@@ -3006,8 +3187,9 @@ def _tbptt_segment_checks(net, start, ds):
     from deeplearning4j_tpu_torch.environment import environment
 
     env = environment()
-    net.params, net.opt_state, net.net_state = (_clone_tree(t)
-                                                for t in start)
+    net.params = _load(net.params, start[0])
+    net.opt_state = _load(net.opt_state, start[1])
+    net.net_state = _load(net.net_state, start[2])
     net.iteration_count = 0
     x, y = net._feed(ds.features), net._feed(ds.labels)
     seg = net.conf.tbptt_fwd_length
@@ -3019,13 +3201,16 @@ def _tbptt_segment_checks(net, start, ds):
         outs = {}
         for mode in ("auto", "generic"):
             env.helper_mode = mode
-            net.params, net.opt_state = (_clone_tree(t) for t in before)
+            net.params = _load(net.params, before[0])
+            net.opt_state = _load(net.opt_state, before[1])
             try:
-                score, new_rnn = net._train_step(x[:, sl], y[:, sl], None,
-                                                 None, _clone_states(rnn))
+                # kernels against the generic, a segment at a time: op by op
+                with _eager_if(True):
+                    score, new_rnn = net._train_step(
+                        x[:, sl], y[:, sl], None, None, _clone_states(rnn))
             finally:
                 env.helper_mode = "auto"
-            outs[mode] = (float(score), net.params, new_rnn)
+            outs[mode] = (float(score), _clone_tree(net.params), new_rnn)
         (k_score, k_params, k_rnn), (g_score, _, rnn) = (outs["auto"],
                                                          outs["generic"])
         net.iteration_count += 1
@@ -3216,6 +3401,7 @@ def supervised_train_phase(dev, smi, *, input_shape=None, classes=None,
         return it
 
     steps = batches * epochs
+    observe.reset()
     m = observe.metrics()
 
     def counters():
@@ -3238,6 +3424,8 @@ def supervised_train_phase(dev, smi, *, input_shape=None, classes=None,
         for lg in logs:
             scores.update(dict(lg.calls))
         out = dict(scores=scores, state=_final_state(net),
+                   captures={k: u.captures
+                             for k, u in net._steps.units.items()},
                    steps=sum(len(lg.calls) for lg in logs),
                    launches=cu.fused_updater.launches,
                    moved={k: v - before[k] for k, v in counters().items()},
@@ -3255,6 +3443,9 @@ def supervised_train_phase(dev, smi, *, input_shape=None, classes=None,
         return [lg], 0, net
 
     oracle = run(oracle_body)
+    # the oracle's steps op by op, from the same starting state
+    with _eager_if(True):
+        eager = run(oracle_body)
 
     save_block = []   # the training thread's seconds a save_async
 
@@ -3356,6 +3547,23 @@ def supervised_train_phase(dev, smi, *, input_shape=None, classes=None,
     problems = []
     if not restored_equal:
         problems.append("save + restore of the oracle's state not exact")
+    # captured against eager; one capture a network (a restore copies into
+    # the network's buffers, so a resumed fit replays); one first_compile
+    # a network and no new_shape
+    if eager["scores"] != oracle["scores"]:
+        problems.append(f"captured losses {oracle['scores']} != eager "
+                        f"{eager['scores']}")
+    problems += _state_problems("captured vs eager", oracle["state"],
+                                eager["state"])
+    ledger = [ev.cause for ev in observe.ledger().events()
+              if ev.key == "train"]
+    if ledger != ["first_compile"] * 6:
+        problems.append(f"ledger {ledger}: one first_compile for each of "
+                        f"the 6 networks trained")
+    for name, r in dict(oracle=oracle, killed=killed, graceful=graceful,
+                        torn=torn).items():
+        if dev.type == "cuda" and r["captures"] != {"train": 1}:
+            problems.append(f"{name}: captures {r['captures']}")
     if len(oracle["scores"]) != steps or not all(
             math.isfinite(v) for v in oracle["scores"].values()):
         problems.append(f"oracle scores {oracle['scores']}")
@@ -3405,6 +3613,14 @@ def supervised_train_phase(dev, smi, *, input_shape=None, classes=None,
             "async_save_training_thread_s": save_block,
             "async_write_s_mean": writer_s, "async_writes": writes,
             "restore_s": restore_s, "oracle_step_s": step_s,
+            "captured_step_s_mean": step_s,
+            "eager_step_s_mean": eager["seconds"] / steps,
+            "captured_bit_equal_eager": eager["scores"] == oracle["scores"]
+            and not _state_problems("", oracle["state"], eager["state"]),
+            "captures": {name: r["captures"] for name, r in dict(
+                oracle=oracle, killed=killed, graceful=graceful,
+                torn=torn).items()},
+            "ledger_train": ledger,
             "unarmed_poll_ns": poll,
             "unarmed_poll_share_of_step": poll * 1e-9 / step_s,
             "smoke_reading": "one run each, no spread", "problems": problems}
@@ -3461,6 +3677,7 @@ def graph_tbptt_phase(dev, smi, *, batch=None, seq=None, vocab=None,
         return ComputationGraph(conf, device=dev).init()
 
     start = _clone_tree(graph().params)
+    observe.reset()
     # the oracle
     cu.fused_updater.launches = 0
     oracle = graph()
@@ -3471,6 +3688,15 @@ def graph_tbptt_phase(dev, smi, *, batch=None, seq=None, vocab=None,
     _sync(dev)
     oracle_s = time.perf_counter() - t0
     oracle_launches = cu.fused_updater.launches
+    # the oracle's segments op by op, from the same starting state
+    e_oracle = graph()
+    e_log = _StepLog()
+    e_oracle.set_listeners(e_log)
+    t0 = time.perf_counter()
+    with _eager_if(True):
+        e_oracle.fit(ListDataSetIterator(ds))
+    _sync(dev)
+    eager_s = time.perf_counter() - t0
     # supervised, killed mid second batch
     kill_at = segments + segments // 4
     faults.reset()
@@ -3512,6 +3738,17 @@ def graph_tbptt_phase(dev, smi, *, batch=None, seq=None, vocab=None,
 
     # the resumed run against the oracle: losses a segment, parameters
     o_scores = [s for _, s in o_log.calls]
+    eager_equal = ([s for _, s in e_log.calls] == o_scores
+                   and _equal_trees(e_oracle.params, oracle.params)
+                   and _equal_trees(e_oracle.opt_state, oracle.opt_state))
+    if not eager_equal:
+        problems.append("the captured oracle differs from its eager twin: "
+                        f"params by {_max_diff(e_oracle.params, oracle.params)}")
+    captures = {"oracle": oracle._steps.units["train_tbptt"].captures,
+                "supervised": net._steps.units["train_tbptt"].captures}
+    if dev.type == "cuda" and captures != {"oracle": 1, "supervised": 1}:
+        problems.append(f"captures {captures}: one a network, the resumed "
+                        f"segments replayed")
     r_scores = [s for _, s in log.calls[:segments]] + [
         s for _, s in log.calls[-segments:]]
     resumed_equal = _equal_trees(net.params, oracle.params)
@@ -3555,6 +3792,13 @@ def graph_tbptt_phase(dev, smi, *, batch=None, seq=None, vocab=None,
     if stream_diff != 0.0:
         problems.append(f"graph rnn_time_step differs from the network's "
                         f"by {stream_diff}")
+    # every network's train_tbptt unit compiled once, no new_shape: the
+    # graph oracle and its eager twin, the supervised graph, g2 and mln
+    ledger = [(ev.graph, ev.cause) for ev in observe.ledger().events()
+              if ev.key == "train_tbptt"]
+    if sorted(ledger) != sorted([("graph", "first_compile")] * 4
+                                + [("mln", "first_compile")]):
+        problems.append(f"ledger {ledger}")
     line = {"phase": "graph_tbptt", "card": smi,
             "model": f"TextGenerationLSTM(vocab_size={v}) layers as "
                      f"graph_builder(), tbptt({sg}, {sg})",
@@ -3571,6 +3815,10 @@ def graph_tbptt_phase(dev, smi, *, batch=None, seq=None, vocab=None,
             "rnn_time_step_max_abs_diff": stream_diff,
             "rnn_time_step_ms_a_char": stream_s / stream * 1e3,
             "oracle_s": oracle_s, "tokens_per_s": 2 * b * t / oracle_s,
+            "captured_segment_s_mean": oracle_s / (2 * segments),
+            "eager_segment_s_mean": eager_s / (2 * segments),
+            "captured_bit_equal_eager": eager_equal, "captures": captures,
+            "ledger_train_tbptt": ledger,
             "smoke_reading": "one run, no spread", "problems": problems}
     fl = _faults_line("graph_tbptt", [{
         "run": "supervised", "armed": [f"InjectedFault('preemption') "
@@ -3578,10 +3826,273 @@ def graph_tbptt_phase(dev, smi, *, batch=None, seq=None, vocab=None,
         "fires": {"preemption": int(log.kill_at is None)},
         "restarts": sup.restarts}])
     faults.reset()
-    del net, oracle, mln, g2
+    del net, oracle, e_oracle, mln, g2
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return problems, line, launches, fl
+
+
+@contextlib.contextmanager
+def _host_syncs():
+    """The synchronizing CUDA calls made inside the block (a host read, a
+    device-to-host copy, a stream or device synchronization), as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: yields the
+    list of their warnings."""
+    import warnings
+
+    import torch
+
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        found = []
+        try:
+            yield found
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+            # one warning a synchronizing call; the mode's own notice
+            # that it is a prototype is not one
+            found += [str(w.message) for w in caught
+                      if "called a synchronizing" in str(w.message)]
+
+
+def _scan_case(label, trainer, load, stepped, scanned, units_key, state):
+    """One scanned entry point against as many steps of ``fit``: ``load()``
+    sets the trainer to its starting state; ``stepped()`` runs the steps
+    one ``fit`` call each and returns their losses; ``scanned()`` runs
+    them as one chunk and returns its losses. The chunk runs twice from
+    the start — the first captures its unit, the second replays it with
+    its host synchronizations counted (one: the losses read back) — and
+    each must equal the stepped run bit for bit in losses and in the
+    ``state()`` tree. Returns (problems, line fields)."""
+    import torch
+
+    load()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [float(v) for v in stepped()]
+    torch.cuda.synchronize()
+    stepped_s = time.perf_counter() - t0
+    want_state = _clone_tree(state())
+    load()
+    first = [float(v) for v in scanned()]
+    first_state = _clone_tree(state())
+    load()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _host_syncs() as syncs:
+        got = [float(v) for v in scanned()]
+    chunk_s = time.perf_counter() - t0
+    got_state = _clone_tree(state())
+    problems = []
+    for run, losses, st in (("first chunk", first, first_state),
+                            ("replayed chunk", got, got_state)):
+        if losses != want:
+            problems.append(f"{label} {run}: losses {losses} != fit's "
+                            f"{want}")
+        if not _equal_trees(st, want_state):
+            problems.append(f"{label} {run}: state differs from fit's by "
+                            f"{_max_diff(st, want_state)}")
+    equal = not problems
+    if len(syncs) != 1:
+        problems.append(f"{label}: {len(syncs)} host synchronizations in a "
+                        f"replayed chunk, not 1: {syncs}")
+    unit = trainer._steps.units[units_key]
+    return problems, {"losses": got, "bit_equal_fit": equal,
+                      "host_syncs_a_chunk": len(syncs),
+                      "chunk_s": chunk_s, "fit_s": stepped_s,
+                      "graph_unit": unit_memory(unit)}
+
+
+def fit_scanned_phase(dev, smi):
+    """The scanned entry points, each against as many ``fit`` steps from
+    the same starting state, bit for bit, with one host read a chunk:
+    LeNet's ``fit_scanned`` in both modes (``steps`` None: a [3, 64, 784]
+    stack staged on the card once; ``steps=3`` on one batch), ResNet-50
+    A's (``ComputationGraph.fit_scanned``, float32, batch 32 at 224²,
+    three per-step batches) and BERT-base's ``fit_mlm_scanned`` at
+    bert_mlm's shape (bfloat16, 8 × 512, dropout 0.1, 3 steps on one
+    batch against three ``fit_mlm`` calls). Returns (problems, line,
+    launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import (
+        synthetic_bert_batch, synthetic_image_batch)
+    from deeplearning4j_tpu_torch.models import LeNet, ResNet50
+    from deeplearning4j_tpu_torch.models.bert import BertConfig, BertModel
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.testing import sequential as S
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    problems, cases = [], {}
+    ca.reset_launch_counts()
+    cu.fused_updater.launches = cu.fused_updater.leaves = 0
+
+    def network_loader(net):
+        start = _clone_tree([net.params, net.opt_state, net.net_state])
+
+        def load():
+            net.params = _load(net.params, start[0])
+            net.opt_state = _load(net.opt_state, start[1])
+            net.net_state = _load(net.net_state, start[2])
+            net.iteration_count = 0
+            net._gen.manual_seed(net.conf.seed)
+        return load, lambda: [net.params, net.opt_state, net.net_state]
+
+    def stepped_fit(net, xs, ys, rows):
+        """``fit`` a batch at a time, on the host arrays."""
+        xs, ys = xs.cpu().numpy(), ys.cpu().numpy()
+
+        def run():
+            out = []
+            for k in range(len(xs) if rows else 3):
+                x, y = (xs[k], ys[k]) if rows else (xs, ys)
+                net.fit(x, y, batch_size=x.shape[0])
+                out.append(net.score())
+            return out
+        return run
+
+    # LeNet, both modes
+    net = LeNet(device=dev).init()
+    load, state = network_loader(net)
+    lb = S.lenet_batches(S.LENET["batch"], 3)
+    xs = torch.from_numpy(np.stack([d.features for d in lb])).to(dev)
+    ys = torch.from_numpy(np.stack([d.labels for d in lb])).to(dev)
+    for label, rows in (("lenet_rows", True), ("lenet_steps", False)):
+        x, y = (xs, ys) if rows else (xs[0], ys[0])
+        found, cases[label] = _scan_case(
+            label, net, load, stepped_fit(net, x, y, rows),
+            lambda x=x, y=y, rows=rows: net.fit_scanned(
+                x, y, steps=None if rows else 3), "fit_scanned", state)
+        problems += found
+    del net
+    # ResNet-50 A through ComputationGraph.fit_scanned
+    net = ResNet50(num_classes=CLASSES, input_shape=IMAGE,
+                   device=dev).init()
+    load, state = network_loader(net)
+    data = [synthetic_image_batch(32, *IMAGE, CLASSES, seed=100 + i)
+            for i in range(3)]
+    xs = torch.from_numpy(np.stack([x for x, _ in data])).to(dev)
+    ys = torch.from_numpy(np.stack([np.eye(CLASSES, dtype=np.float32)[lab]
+                                    for _, lab in data])).to(dev)
+    found, cases["resnet50_a_rows"] = _scan_case(
+        "resnet50_a_rows", net, load, stepped_fit(net, xs, ys, True),
+        lambda: net.fit_scanned(xs, ys), "fit_scanned", state)
+    problems += found
+    del net, xs, ys
+    torch.cuda.empty_cache()
+    # BERT-base fit_mlm_scanned at bert_mlm's shape
+    cfg = BertConfig.base()
+    model = BertModel(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    start = (_clone_tree([model.params, model.opt_state]),
+             [g.get_state() for g in model.rng])
+    b = synthetic_bert_batch(8, 512, cfg.vocab_size, task="unsupervised",
+                             seed=300)
+    b_dev = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in b.items()}
+
+    def load_bert():
+        model.params = _load(model.params, start[0][0])
+        model.opt_state = _load(model.opt_state, start[0][1])
+        for g, st in zip(model.rng, start[1]):
+            g.set_state(st)
+        model.step = 0
+
+    found, cases["bert_mlm_scanned"] = _scan_case(
+        "bert_mlm_scanned", model, load_bert,
+        lambda: [model.fit_mlm([b])[0] for _ in range(3)],
+        lambda: model.fit_mlm_scanned(b_dev, 3), "mlm",
+        lambda: [model.params, model.opt_state])
+    problems += found
+    if model.step != 3:
+        problems.append(f"BERT step {model.step} != 3 after the chunk")
+    launches = dict(ca.launch_counts(),
+                    fused_updater=cu.fused_updater.launches)
+    del model
+    torch.cuda.empty_cache()
+    line = {"phase": "fit_scanned", "card": smi,
+            "cells": {"lenet": "LeNet(), batch 64, 3 steps",
+                      "resnet50_a": "ResNet50(), float32, batch 32, 224x224",
+                      "bert_mlm": "BertModel(BertConfig.base(), bfloat16), "
+                                  "8 x 512, dropout 0.1"},
+            "cases": cases, "launches": launches,
+            "launches_note": "every run of the phase: the fit references "
+                             "and both chunks of each case",
+            "problems": problems}
+    return problems, line, launches
+
+
+def _ulp_gap(a, b) -> int:
+    """The float32 values' distance in units in the last place (their
+    bit patterns on one ordered integer line)."""
+    def ordered(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(ordered(a) - ordered(b)).max())
+
+
+def updater_coefficients_phase(dev, smi):
+    """Each schedule's learning rate and each updater kind's coefficient
+    buffer (``Updater.coefficients``: what the fused updater kernel reads)
+    computed on the card from an int32 step tensor against the same on
+    the CPU, at steps 0, 1, 7, 1000 and 100000: the largest gap in float32
+    units in the last place, by schedule and by kind. Reported: the
+    card's ``pow`` and ``exp`` may differ from the CPU's by an ulp; a
+    non-finite value on one side only fails. Returns (problems, line)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import updater as U
+
+    schedules = {
+        "constant": 3e-3,
+        "StepSchedule": U.StepSchedule(value=0.1, decay_rate=0.5, step=3.0),
+        "ExponentialSchedule": U.ExponentialSchedule(value=0.05,
+                                                     gamma=0.97),
+        "InverseSchedule": U.InverseSchedule(value=0.1, gamma=0.2,
+                                             power=1.5),
+        "PolySchedule": U.PolySchedule(value=0.1, power=2.0, max_iter=500),
+        "SigmoidSchedule": U.SigmoidSchedule(value=0.1, gamma=0.05,
+                                             step_size=5),
+        "CycleSchedule": U.CycleSchedule(initial_lr=1e-3, max_lr=1e-1,
+                                         cycle_length=20,
+                                         annealing_length=4),
+        "MapSchedule": U.MapSchedule(value=0.1, values=((1, 0.05),
+                                                        (7, 0.01)))}
+    steps = (0, 1, 7, 1000, 100000)
+    by_schedule, by_kind, problems = {}, {}, []
+    for sname, sched in schedules.items():
+        for kind, cls in U.UPDATERS.items():
+            u = cls() if kind == "AdaDelta" else cls(learning_rate=sched)
+            for step in steps:
+                vals = []
+                for where in ("cpu", dev):
+                    it = torch.tensor(step, dtype=torch.int32, device=where)
+                    lr = u.lr(it)
+                    vals.append((lr.cpu().numpy(),
+                                 u.coefficients(lr, it).cpu().numpy()))
+                (lr_c, co_c), (lr_d, co_d) = vals
+                if not (np.array_equal(np.isfinite(co_c), np.isfinite(co_d))
+                        and np.isfinite(lr_c) == np.isfinite(lr_d)):
+                    problems.append(f"{kind} {sname} step {step}: "
+                                    f"{co_c} vs {co_d}")
+                    continue
+                fin = np.isfinite(co_c)
+                by_schedule[sname] = max(by_schedule.get(sname, 0),
+                                         _ulp_gap(lr_c, lr_d))
+                by_kind[kind] = max(by_kind.get(kind, 0),
+                                    _ulp_gap(co_c[fin], co_d[fin])
+                                    if fin.any() else 0)
+    line = {"phase": "updater_coefficients", "card": smi, "steps": steps,
+            "max_ulp_gap_lr_by_schedule": by_schedule,
+            "max_ulp_gap_coefficients_by_kind": by_kind,
+            "max_ulp_gap": max(list(by_schedule.values())
+                               + list(by_kind.values())),
+            "note": "card (int32 step tensor on the GPU) against the CPU; "
+                    "reported, not gated", "problems": problems}
+    return problems, line
 
 
 def serve_supervised_phase(dev, smi, model, engine_kw, prompts, want):
@@ -3716,11 +4227,11 @@ def lenet_bf16_phase(dev, smi):
     n_leaves = sum(len(p) for p in net.params)
     batch, steps = S.LENET["batch"], S.LENET["steps"]
     batches = S.lenet_batches(batch, steps)
-    start, generic, kernel, launches, leaves, tally = _mln_main_path(
-        net, batches)
+    start, generic, kernel, launches, leaves, tally, capture = (
+        _mln_main_path(net, batches))
     problems = (updater_count_problems(launches["fused_updater"], leaves,
                                        n_leaves, steps)
-                if dev.type == "cuda" else [])
+                if dev.type == "cuda" else []) + capture[0]
     dtypes = sorted({str(x.dtype) for _, x in leaf_paths(kernel[2])}
                     | {str(x.dtype) for _, x in leaf_paths(net.opt_state)})
     if dtypes != ["torch.bfloat16"]:
@@ -3741,7 +4252,7 @@ def lenet_bf16_phase(dev, smi):
             "bit_equal": not problems,
             "step_p50_ms": float(np.percentile(kernel[1], 50)) * 1e3,
             "generic_step_p50_ms": float(np.percentile(generic[1], 50))
-            * 1e3, "smoke_reading": f"{steps} steps, no spread",
+            * 1e3, **capture[1], "smoke_reading": f"{steps} steps, no spread",
             "problems": problems}
     del net
     if dev.type == "cuda":
@@ -3760,32 +4271,37 @@ def _first_output(out):
     return out[0] if isinstance(out, list) else out
 
 
-def _zoo_run(net, start, mode, batches, *, dev, listeners=()):
+def _zoo_run(net, start, mode, batches, *, dev, listeners=(), eager=False):
     """``net.fit`` over ``batches`` (one ``fit`` call each) from the
-    cloned ``start`` state, the dropout generator reseeded, under
-    ``helper_mode=mode``: (scores, host seconds a step, parameters)."""
+    ``start`` state (copied into the network's tensors), the dropout
+    generator reseeded, under ``helper_mode=mode``, captured under
+    ``"auto"`` and op by op for the reference and with ``eager``:
+    (scores, host seconds a step, parameters, the whole state)."""
     from deeplearning4j_tpu_torch.environment import environment
 
     env = environment()
     env.helper_mode = mode
-    net.params = _clone_tree(start[0])
-    net.opt_state, net.net_state = (_clone_tree(t) for t in start[1:])
+    net.params = _load(net.params, start[0])
+    net.opt_state = _load(net.opt_state, start[1])
+    net.net_state = _load(net.net_state, start[2])
     net.iteration_count = 0
     net._gen.manual_seed(net.conf.seed)
     net.set_listeners(*listeners)
     scores, times = [], []
     try:
-        for x, y in batches:
-            _sync(dev)
-            t0 = time.perf_counter()
-            net.fit(x, y, batch_size=x.shape[0])
-            _sync(dev)
-            times.append(time.perf_counter() - t0)
-            scores.append(net.score())
+        with _eager_if(eager or mode != "auto"):
+            for x, y in batches:
+                _sync(dev)
+                t0 = time.perf_counter()
+                net.fit(x, y, batch_size=x.shape[0])
+                _sync(dev)
+                times.append(time.perf_counter() - t0)
+                scores.append(net.score())
     finally:
         env.helper_mode = "auto"
         net.set_listeners()
-    return scores, times, _clone_tree(net.params)
+    return (scores, times, _clone_tree(net.params),
+            _clone_tree([net.params, net.opt_state, net.net_state]))
 
 
 def _cpu_copy(name, net, kwargs):
@@ -3826,6 +4342,7 @@ def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
     with the listeners, card vs CPU, ``evaluate``. Returns (problems, line, updater launches)."""
     import torch
 
+    from deeplearning4j_tpu_torch import observe
     from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.eval import RegressionEvaluation
     from deeplearning4j_tpu_torch.models import zoo
@@ -3846,7 +4363,8 @@ def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
     batches, held = Z.batches(model, batch, ZOO_STEPS)
     start = (_clone_tree(net.params), _clone_tree(net.opt_state),
              _clone_tree(net.net_state))
-    _zoo_run(net, start, "auto", batches[:1], dev=dev)  # warm-up
+    observe.reset()
+    _zoo_run(net, start, "auto", batches[:1], dev=dev)  # warm-up, capture
     generic = _zoo_run(net, start, "generic", batches, dev=dev)
     collect = L.CollectScoresIterationListener()
     perf = L.PerformanceListener(frequency=1)
@@ -3861,6 +4379,11 @@ def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30 - before
             if dev.type == "cuda" else None)
     problems += updater_count_problems(launches, leaves, n_leaves, ZOO_STEPS)
+    cap_problems, cap_fields = capture_fields(
+        net._steps.units, kernel,
+        _zoo_run(net, start, "auto", batches, dev=dev, eager=True),
+        observe.ledger().events(), ("train",))
+    problems += cap_problems
     line = {"phase": "zoo_cnn", "card": smi, "model": f"{name}()",
             "input": list(model.input_shape), "batch": batch,
             "updater": updater, "steps": ZOO_STEPS, "leaves": n_leaves,
@@ -3882,7 +4405,7 @@ def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
     if len(perf.history) != ZOO_STEPS - 1:
         problems.append(f"PerformanceListener {len(perf.history)} records")
     # the card against the CPU, on the trained parameters
-    net.params = kernel[2]
+    net.params = _load(net.params, kernel[2])
     cpu_diff, cpu_scale, cpu_problems = _card_vs_cpu(
         name, net, kwargs, held[0][:ZOO_CPU_IMAGES])
     problems += cpu_problems
@@ -3927,7 +4450,7 @@ def zoo_train_case(name, batch, updater, dev, smi, kwargs=None):
                          "into the network input)",
         "tflops_per_s": flops["step"] / p50 / 1e12,
         "share_of_67_tflops_f32": flops["step"] / p50 / PEAK_FLOPS[
-            "float32"],
+            "float32"], **cap_fields,
         "wall_s": wall, "problems": problems})
     del net
     gc.collect()
@@ -4381,6 +4904,17 @@ def main() -> int:
         emit(faults_line)
         if problems:
             raise SystemExit(f"{phase} phase failed: {problems}")
+
+    # -------------------------------------- fit_scanned, the coefficients
+    problems, line, train_launches["fit_scanned"] = fit_scanned_phase(dev,
+                                                                       smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"fit_scanned phase failed: {problems}")
+    problems, line = updater_coefficients_phase(dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"updater_coefficients phase failed: {problems}")
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it

@@ -30,12 +30,17 @@ What differs from the JAX package:
 * Gradients come from ``torch.autograd.grad`` over the same plan
   ``output`` runs (the JAX package takes ``jax.grad`` of the traced
   interpreter), with zeros for a VARIABLE the loss never reads, as
-  ``jax.grad`` gives. Gradients and ``fit`` run eagerly (their capture
-  is ROADMAP Queue 1 item 2's training half). ``fit`` steps: loss and
-  gradients through
-  the plan, then one ``Updater.apply_fused_many`` over every leaf (the
-  fused updater kernel on the card, one launch) under ``no_grad``; step losses stay on the device
-  and are read once per epoch.
+  ``jax.grad`` gives. ``calculate_gradients`` and ``fit``'s step are
+  training units (``nn/compiled.py``, keys ``grad`` and ``train``, the JAX
+  package's jitted functions): captured per feed signature on the card,
+  eager on the CPU and under ``disable_capture()``. ``fit`` steps: loss
+  and gradients through the plan, then one ``Updater.apply_fused_many``
+  over every leaf (the fused updater kernel on the card, one launch)
+  under ``no_grad``, at the device iteration; on the card the arrays and
+  the updater state are written in place (the JAX step's donated
+  buffers), so ``output``'s captured graph sees each step through the
+  versions its static loads check. Step losses stay on the device and
+  are read once per epoch.
 * Ported: the construction API, the ``math``, ``nn`` and ``loss``
   namespaces, the graph-op catalog, ``output``/``exec``,
   ``calculate_gradients``, ``TrainingConfig``/``fit`` with the training
@@ -358,7 +363,13 @@ def _gather(params, indices, *, axis=0):
     idx = torch.where(idx < 0, idx + n, idx)
     valid = (idx >= 0) & (idx < n)
     flat = torch.clamp(idx, 0, max(n - 1, 0)).reshape(-1)
-    out = torch.index_select(params, axis, flat)
+    if axis == 0 and params.ndim == 2 and params.is_floating_point():
+        # a table's rows (an embedding): F.embedding's backward sums the
+        # rows' gradients in a fixed order on the card, where
+        # index_select's (index_add_) sums with atomics, in any order
+        out = F.embedding(flat, params)
+    else:
+        out = torch.index_select(params, axis, flat)
     out = out.reshape(params.shape[:axis] + idx.shape
                       + params.shape[axis + 1:])
     fill = float("nan") if params.is_floating_point() else 0
@@ -895,8 +906,10 @@ class SameDiff:
 
         if self._jit_cache or self._pending_invalidate is not None:
             self._pending_invalidate = cause
+        from deeplearning4j_tpu_torch.nn.compiled import TrainUnits
+
         for fn in self._jit_cache.values():
-            if isinstance(fn, CompiledGraph):
+            if isinstance(fn, (CompiledGraph, TrainUnits)):
                 fn.reset()
         self._jit_cache.clear()
 
@@ -1158,16 +1171,46 @@ class SameDiff:
             n: torch.zeros_like(p) if g is None else g
             for n, p, g in zip(wrt, leaves, grads)}
 
+    def _train_units(self, kind: str, loss_name: str, extra=()):
+        """The compiled-step holder (``nn/compiled.py``) of a ``kind``
+        (``train`` / ``grad``) unit for ``loss_name``, cached in
+        ``_jit_cache`` under the JAX package's key (the loss, the
+        optimizer switch and its passes): every invalidation drops it with
+        its graphs. Returns (units, key)."""
+        from deeplearning4j_tpu_torch.nn.compiled import TrainUnits
+
+        key = (kind, loss_name, *extra, bool(self.optimize),
+               self._effective_passes())
+        units = self._jit_cache.get(key)
+        if units is None:
+            units = TrainUnits(self.device, "samediff")
+            self._jit_cache[key] = units
+        return units, key
+
     def calculate_gradients(self, feeds: Dict[str, Any], loss_name: str,
                             wrt: Optional[Sequence[str]] = None
                             ) -> Dict[str, np.ndarray]:
         """Gradients of a scalar loss variable w.r.t. VARIABLEs (all of
         them unless ``wrt`` names some), as numpy arrays
-        (sd.calculateGradients analog)."""
+        (sd.calculateGradients analog): the training unit ``grad`` —
+        captured per feed signature on the card, eager on the CPU."""
+        from deeplearning4j_tpu_torch.observe import signature_of
+
         wrt = list(wrt) if wrt is not None else self._trainable()
-        _, grads = self._loss_and_grads(
-            loss_name, wrt,
-            {k: canonical(v, self.device) for k, v in feeds.items()})
+        feeds = {k: canonical(v, self.device) for k, v in feeds.items()}
+        units, key = self._train_units("grad", loss_name, (tuple(wrt),))
+        names = tuple(sorted(feeds))
+        _, const_names = self._exec_fn((loss_name,))
+
+        def body(*tensors):
+            return self._loss_and_grads(loss_name, wrt,
+                                        dict(zip(names, tensors)))[1]
+
+        grads = units.run(
+            "grad", body, [feeds[k] for k in names], layout=names,
+            reads=list(self._var_arrays(const_names).values()),
+            copy_out=False, note=lambda unit: self._note_compile(
+                unit, "grad", signature_of(**feeds), stable_key=key))
         return {k: _to_numpy(g) for k, g in grads.items()}
 
     # --------------------------------------------------------------- training
@@ -1198,27 +1241,39 @@ class SameDiff:
     def apply_training_state(self, state: Dict[str, Any]) -> None:
         """Inverse of :meth:`training_state`. Arrays may be tensors or
         numpy arrays — the JAX package's ``training_state()`` converted
-        with ``np.asarray`` carries a run across."""
+        with ``np.asarray`` carries a run across. Each array is copied into
+        the tensor already in its place (same shape and dtype), so a
+        captured training step keeps its buffers (no ``new_shape``)."""
+        from deeplearning4j_tpu_torch.nn.compiled import commit
+
         for n, a in state["params"].items():
-            self._arrays[n] = canonical(a, self.device)
+            self._arrays[n] = commit(self._arrays.get(n),
+                                     canonical(a, self.device))
         opt = state.get("opt_state") or {}
         if opt:
-            self._updater_state = {
+            self._updater_state = commit(self._updater_state, {
                 n: {k: canonical(a, self.device) for k, a in s.items()}
-                for n, s in opt.items()}
+                for n, s in opt.items()})
         self._step = int(state["iteration"])
         self.epoch_count = int(state["epoch"])
         self.batch_in_epoch = int(state.get("data_cursor", 0))
 
-    def _train_step(self, loss_name: str, trainable: Sequence[str],
-                    feeds: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One step: loss and gradients through the plan, then per leaf the
-        l2 and l1 terms, the updater's fused step and weight decay, in the
-        JAX package's order. Returns the loss (a device scalar)."""
+    def _train_body(self, loss_name: str, trainable: Sequence[str],
+                    feeds: Dict[str, torch.Tensor], step: torch.Tensor
+                    ) -> torch.Tensor:
+        """The step's body: loss and gradients through the plan, then per
+        leaf the l2 and l1 terms, the updater's fused step and weight decay
+        (of the weight before the step), in the JAX package's order, at
+        the device iteration ``step``, which it then advances. On the card
+        the arrays and the updater state are written in place. Returns the
+        loss (a device scalar)."""
+        from deeplearning4j_tpu_torch.nn.compiled import donates
+
         tc = self.training_config
         upd = tc.updater
+        donate = donates(self.device)
         loss, grads = self._loss_and_grads(loss_name, trainable, feeds)
-        lr = upd.lr(self._step)
+        lr = upd.lr(step)
         with torch.no_grad():
             names = list(grads)
             ws = [self._arrays[n] for n in names]
@@ -1229,17 +1284,54 @@ class SameDiff:
                 if tc.l1:
                     g = g + tc.l1 * torch.sign(w)
                 gs.append(g)
+            # weight decay reads the weight before the step: taken now,
+            # before an in-place step overwrites it
+            decay = ([lr * tc.weight_decay * w for w in ws]
+                     if tc.weight_decay else None)
             # fused updater step (ops/cuda_updater.py): one multi-tensor
             # launch over every leaf on the card, the identical apply()
             # math elsewhere
             new_ws, new_ss = upd.apply_fused_many(
-                ws, gs, [self._updater_state[n] for n in names], lr,
-                self._step)
-            for n, w, nw, ns in zip(names, ws, new_ws, new_ss):
-                if tc.weight_decay:
-                    nw = nw - lr * tc.weight_decay * w
+                ws, gs, [self._updater_state[n] for n in names], lr, step,
+                inplace=donate)
+            for i, (n, w, nw, ns) in enumerate(zip(names, ws, new_ws,
+                                                   new_ss)):
+                if donate:
+                    if decay is not None:
+                        w.sub_(decay[i])
+                    continue
+                if decay is not None:
+                    nw = nw - decay[i]
                 self._arrays[n] = nw.to(w.dtype)
                 self._updater_state[n] = ns
+            step.add_(1)
+        return loss
+
+    def _train_step(self, loss_name: str, trainable: Sequence[str],
+                    feeds: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One step as the training unit ``train`` (cached per loss, the
+        optimizer's passes and, through the capture, the feed signature,
+        as the JAX ``step_key``): captured on the card, eager on the CPU.
+        Returns the loss (a device scalar)."""
+        from deeplearning4j_tpu_torch.nn.compiled import tensors_of
+        from deeplearning4j_tpu_torch.observe import signature_of
+
+        units, key = self._train_units("train", loss_name)
+        step = units.iteration.at(self._step)
+        names = tuple(sorted(feeds))
+        _, const_names = self._exec_fn((loss_name,))
+        trained = set(trainable)
+        loss = units.run(
+            "train", lambda *t: self._train_body(loss_name, trainable,
+                                                 dict(zip(names, t)), step),
+            [feeds[k] for k in names], layout=(names, tuple(trainable)),
+            state=tensors_of([self._arrays[n] for n in trainable],
+                             self._updater_state) + [step],
+            reads=[a for n, a in self._var_arrays(const_names).items()
+                   if n not in trained],
+            note=lambda unit: self._note_compile(
+                unit, "train", signature_of(**feeds), stable_key=key))
+        units.iteration.advanced()
         return loss
 
     def fit(self, iterator, epochs: int = 1,

@@ -25,7 +25,10 @@
 //    (`__grid_constant__`, up to 32 764 bytes since CUDA 12.1): per leaf
 //    its pointers, element count and 16-byte vector count, and the prefix
 //    sum of the leaves' chunk counts. No table is copied to the device, so
-//    the launch needs no H2D copy and stays capturable in a CUDA graph.
+//    the launch needs no H2D copy and stays capturable in a CUDA graph:
+//    in a captured training step every pointer in it is a fixed buffer
+//    (the parameters and state, the gradients in the graph's pool), so the
+//    table is built once, at the capture.
 //    A group larger than one table (256 leaves) is split by the wrapper
 //    over several launches. A per-leaf call ships the same table: on the
 //    H100 a 16-leaf table timed the same (PERF.md §6, row 5).
@@ -45,13 +48,21 @@
 //    __fsub_rn/__fdiv_rn/__fsqrt_rn, which nvcc never contracts into FMAs,
 //    so float32 results agree bit for bit with the plain version on the
 //    card. Quantities that depend only on lr and step (Adam's alpha, the
-//    bias corrections) are computed once on the host by the same torch ops
-//    the plain version runs, and passed by value (`coef`).
+//    bias corrections) are computed on the device from the trainer's
+//    iteration tensor by the same torch ops the plain version runs, into
+//    an 8-float buffer (`Updater.coefficients`). The kernel reads them
+//    through a pointer, once a block (shared memory, then registers): a
+//    CUDA graph that captured the launch reads each replay's learning rate
+//    and bias correction, not the captured step's.
 //  * Nadam divides by its bias corrections; torch's CUDA division by a host
 //    scalar multiplies by the float32 reciprocal, so the kernel does too
-//    (the reciprocal comes in `coef`).
-//  * Out of place: the wrapper allocates the outputs; nothing is allocated
-//    here.
+//    (the reciprocal, `torch.reciprocal` on the device, comes in `coef`).
+//  * In place or out of place: the wrapper passes the destinations, which
+//    may be the sources themselves (the training steps update their
+//    parameters and state in place, as the JAX step donates them). Each
+//    thread reads an element's buffers before it writes that element, and
+//    no two threads touch one element, so dst == src is safe; no pointer is
+//    `__restrict__`. Nothing is allocated here.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -245,7 +256,7 @@ struct Table {
   Leaf<NS> leaf[kCap];
   int chunk_start[kCap];
   int n_leaves;
-  Coef k;
+  const float* coef;  // 8 floats on the device: the kind's coefficients
 };
 
 static_assert(sizeof(Table<3>) <= 32764,
@@ -277,6 +288,13 @@ fused_updater_kernel(const __grid_constant__ Table<Kind<KIND>::NS> tab) {
   constexpr long long CHUNK = kChunkBytes / sizeof(T);  // elements a block
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+
+  __shared__ float coef[8];
+  if (tid < 8) coef[tid] = tab.coef[tid];
+  __syncthreads();
+  Coef k;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) k.c[i] = coef[i];
 
   int lo = 0, hi = tab.n_leaves - 1;
   while (lo < hi) {
@@ -318,7 +336,7 @@ fused_updater_kernel(const __grid_constant__ Table<Kind<KIND>::NS> tab) {
           float s[NS > 0 ? NS : 1];
 #pragma unroll
           for (int j = 0; j < NS; ++j) s[j] = sf[j][e];
-          pf[e] = __fsub_rn(pf[e], K::step(tab.k, gf[e], s));
+          pf[e] = __fsub_rn(pf[e], K::step(k, gf[e], s));
 #pragma unroll
           for (int j = 0; j < NS; ++j) sf[j][e] = s[j];
         }
@@ -343,7 +361,7 @@ fused_updater_kernel(const __grid_constant__ Table<Kind<KIND>::NS> tab) {
       s[j] = to_f32(static_cast<const T*>(L.src[2 + j])[e]);
     const float g = to_f32(static_cast<const T*>(L.src[1])[e]);
     const float p = to_f32(static_cast<const T*>(L.src[0])[e]);
-    const float u = K::step(tab.k, g, s);
+    const float u = K::step(k, g, s);
     static_cast<T*>(L.dst[0])[e] = from_f32<T>(__fsub_rn(p, u));
 #pragma unroll
     for (int j = 0; j < NS; ++j)
@@ -355,7 +373,7 @@ fused_updater_kernel(const __grid_constant__ Table<Kind<KIND>::NS> tab) {
 // n_vec); starts: the n_leaves chunk starts, then the total chunk count.
 template <typename T, int KIND>
 int launch(const long long* rows, const int* starts, int n_leaves,
-           const Coef& k, cudaStream_t stream) {
+           const float* coef, cudaStream_t stream) {
   constexpr int NS = Kind<KIND>::NS;
   Table<NS> tab;
   for (int i = 0; i < n_leaves; ++i) {
@@ -372,7 +390,7 @@ int launch(const long long* rows, const int* starts, int n_leaves,
     tab.chunk_start[i] = starts[i];
   }
   tab.n_leaves = n_leaves;
-  tab.k = k;
+  tab.coef = coef;
   const int blocks = starts[n_leaves];
   if (blocks <= 0) return 0;
   fused_updater_kernel<T, KIND><<<blocks, kThreads, 0, stream>>>(tab);
@@ -381,7 +399,7 @@ int launch(const long long* rows, const int* starts, int n_leaves,
 
 template <typename T>
 int by_kind(int kind, const long long* rows, const int* starts, int n_leaves,
-            const Coef& k, cudaStream_t s) {
+            const float* k, cudaStream_t s) {
   switch (kind) {
     case 0: return launch<T, 0>(rows, starts, n_leaves, k, s);
     case 1: return launch<T, 1>(rows, starts, n_leaves, k, s);
@@ -402,20 +420,20 @@ int by_kind(int kind, const long long* rows, const int* starts, int n_leaves,
 
 // One launch over n_leaves (1..256) leaves of one dtype (0 = float32,
 // 1 = bfloat16, 2 = float16) and one kind (index into nn/updater.py
-// UPDATERS, 0..10); rows and starts as `launch` reads them; c0..c7 the
-// kind's coefficients. Returns cudaGetLastError() of the launch, or -1 for
-// an unsupported dtype, kind or leaf count. Launches on `stream`;
-// allocates nothing.
+// UPDATERS, 0..10); rows and starts as `launch` reads them (a row's
+// destinations may equal its sources); coef: 8 floats in device memory,
+// the kind's coefficients, read by the kernel when it runs. Returns
+// cudaGetLastError() of the launch, or -1 for an unsupported dtype, kind
+// or leaf count. Launches on `stream`; allocates nothing.
 extern "C" int dl4j_fused_updater_multi(const long long* rows,
                                         const int* starts, int n_leaves,
-                                        int kind, int dtype, float c0,
-                                        float c1, float c2, float c3,
-                                        float c4, float c5, float c6,
-                                        float c7, void* stream) {
-  if (kind < 0 || kind > 10 || n_leaves < 1 || n_leaves > kCap)
+                                        int kind, int dtype,
+                                        const float* coef, void* stream) {
+  if (kind < 0 || kind > 10 || n_leaves < 1 || n_leaves > kCap ||
+      coef == nullptr)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Coef k = {{c0, c1, c2, c3, c4, c5, c6, c7}};
+  const float* k = coef;
   if (dtype == 0) return by_kind<float>(kind, rows, starts, n_leaves, k, st);
   if (dtype == 1)
     return by_kind<__nv_bfloat16>(kind, rows, starts, n_leaves, k, st);

@@ -13,10 +13,17 @@ launch a step).
 
 What differs from the JAX package:
 
-* PyTorch runs eagerly: a step is the forward, ``torch.autograd.grad`` over
-  the 206 leaves and one update of them all under ``no_grad``, where the JAX
-  package jits the whole step. ``fit_mlm_scanned`` is a plain loop of
-  steps.
+* A step is the forward, ``torch.autograd.grad`` over the 206 leaves and
+  one update of them all under ``no_grad``, run as a training unit
+  (``nn/compiled.py``) keyed ``cls`` / ``mlm`` — the counterpart of the JAX
+  package's jitted ``_cls_step`` / ``_mlm_step``: on the card one CUDA-graph
+  capture per batch signature, replayed after, writing the parameters,
+  the Adam state and the device iteration in place (the donated buffers);
+  eager on the CPU (out of place there, as JAX returns new arrays) and
+  under ``disable_capture()``. ``fit_mlm_scanned`` replays the ``mlm``
+  unit once a step on the one batch, copies each loss into a device
+  vector and reads it back once: no host read between steps, as the JAX
+  package's ``lax.scan``.
 * Randomness comes from ``torch.Generator``s, so the draws differ from
   ``jax.random``'s. The model keeps two device generators: one for
   attention dropout (one int32 kernel seed per layer and step on the flash
@@ -36,11 +43,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch import observe
 from deeplearning4j_tpu_torch.environment import resolve_device
 from deeplearning4j_tpu_torch.models._tree import (
     leaf_paths, map_tree, params_from_numpy, rebuild,
 )
 from deeplearning4j_tpu_torch.models.gpt import _layer_norm
+from deeplearning4j_tpu_torch.nn.compiled import (
+    TrainUnits, donates, tensors_of)
 from deeplearning4j_tpu_torch.nn.dtype import precision_scope
 from deeplearning4j_tpu_torch.nn.updater import Adam, get_updater
 
@@ -182,6 +192,17 @@ def _attention(p, x, attn_mask, cfg: BertConfig, *, train: bool,
     return out @ p["Wo"] + p["bo"]
 
 
+def _type_rows(segments, table):
+    """The token-type rows of ``segments``: a one-hot product, exact (one
+    nonzero term a row), whose gradient into the table of ``type_vocab``
+    (2) rows is a GEMM — the same bits every run. ``F.embedding``'s
+    backward on the card sums the batch's thousands of duplicate indices
+    into those two rows in an order that varies from run to run. (No
+    ``F.one_hot``: it reads the indices' range on the host.)"""
+    rows = torch.arange(table.shape[0], device=segments.device)
+    return (segments[..., None] == rows).to(table.dtype) @ table
+
+
 def bert_encoder(params, ids, segments, mask, cfg: BertConfig, *,
                  train: bool = False, rng: Optional[DropoutRng] = None):
     """(N, T) integer ids → ``(N, T, H)`` sequence output and ``(N, H)``
@@ -195,7 +216,7 @@ def bert_encoder(params, ids, segments, mask, cfg: BertConfig, *,
     with precision_scope(policy):
         t = ids.shape[1]
         x = (F.embedding(ids, emb["word"]) + emb["position"][:t][None]
-             + F.embedding(segments, emb["token_type"]))
+             + _type_rows(segments, emb["token_type"]))
         x = _layer_norm(x, emb["ln_gamma"], emb["ln_beta"],
                         cfg.layer_norm_eps)
         for blk in params["encoder"]:
@@ -262,7 +283,11 @@ def mlm_loss(params, batch, cfg: BertConfig, *, train=True,
 # the model
 # ---------------------------------------------------------------------------
 
+# the training units' keys, the JAX package's jitted steps' names
+_STEP_KEYS = {classification_loss: "cls", mlm_loss: "mlm"}
+
 _INT_KEYS = ("ids", "segments", "mlm_labels")  # index tensors: int64
+_MLM_KEYS = ("ids", "segments", "mask", "mlm_labels", "mlm_mask")
 
 
 class BertModel:
@@ -283,43 +308,72 @@ class BertModel:
         self.rng: DropoutRng = (
             torch.Generator(device=self.device).manual_seed(seed + 1),
             torch.Generator(device=self.device).manual_seed(seed + 2))
+        # the compiled steps (keys cls / mlm) and the device iteration
+        self._steps = TrainUnits(self.device, "bert", self.rng)
 
     def num_params(self) -> int:
         return sum(t.numel() for _, t in leaf_paths(self.params))
 
     def _batch(self, batch, keys) -> Dict[str, torch.Tensor]:
+        """The batch's arrays (numpy, or tensors already staged) on the
+        model's device, the index arrays as int64."""
         out = {}
         for k in keys:
-            t = torch.as_tensor(np.asarray(batch[k]), device=self.device)
+            v = batch[k]
+            t = (v.to(self.device) if isinstance(v, torch.Tensor)
+                 else torch.as_tensor(np.asarray(v), device=self.device))
             out[k] = t.long() if k in _INT_KEYS else t
         return out
 
-    def train_step(self, loss_fn, batch: Dict[str, torch.Tensor]
-                   ) -> torch.Tensor:
-        """One step: the loss, its gradient over every leaf (zeros for a
-        leaf the loss does not reach, as ``jax.value_and_grad`` gives), and
-        the updater's fused step over every leaf under ``no_grad`` (one
-        multi-tensor launch on the card), cast back to the leaf's dtype.
-        Returns the loss (a device scalar)."""
+    def _step(self, loss_fn, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The step's body: the loss, its gradient over every leaf (zeros
+        for a leaf the loss does not reach, as ``jax.value_and_grad``
+        gives), the updater's fused step over every leaf under
+        ``no_grad`` (one multi-tensor launch on the card) at the device
+        iteration, which it then advances. Returns the loss."""
         paths = [p for p, _ in leaf_paths(self.params)]
         leaves = [_get(self.params, p).detach().requires_grad_(True)
                   for p in paths]
         params = rebuild(self.params, dict(zip(paths, leaves)))
         loss = loss_fn(params, batch, self.cfg, train=True, rng=self.rng)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        lr = self.updater.lr(self.step)
+        step = self._steps.iteration.tensor
+        donate = donates(self.device)
+        lr = self.updater.lr(step)
         with torch.no_grad():
             ps = [p.detach() for p in leaves]
             gs = [torch.zeros_like(p) if g is None else g
                   for p, g in zip(ps, grads)]
             new_ps, new_ss = self.updater.apply_fused_many(
                 ps, gs, [_get(self.opt_state, path) for path in paths], lr,
-                self.step)
-        self.params = rebuild(self.params, {
-            path: np_.to(p.dtype) for path, p, np_ in zip(paths, ps, new_ps)})
-        self.opt_state = rebuild(self.params, dict(zip(paths, new_ss)))
-        self.step += 1
+                step, inplace=donate)
+            if not donate:
+                self.params = rebuild(self.params, {
+                    path: np_.to(p.dtype)
+                    for path, p, np_ in zip(paths, ps, new_ps)})
+                self.opt_state = rebuild(self.params,
+                                         dict(zip(paths, new_ss)))
+            step.add_(1)
         return loss.detach()
+
+    def train_step(self, loss_fn, batch: Dict[str, torch.Tensor], *,
+                   copy_out: bool = True) -> torch.Tensor:
+        """One step as the training unit ``cls`` (the classification
+        loss) or ``mlm`` (the masked-LM loss): returns the loss (a device
+        scalar; with ``copy_out`` False on the card, the graph's own
+        buffer, good until the next step)."""
+        key = _STEP_KEYS.get(loss_fn, getattr(loss_fn, "__name__", "step"))
+        names = tuple(sorted(batch))
+        self._steps.iteration.at(self.step)
+        loss = self._steps.run(
+            key, lambda *t: self._step(loss_fn, dict(zip(names, t))),
+            [batch[k] for k in names], layout=(names, self.cfg),
+            state=tensors_of(self.params, self.opt_state)
+            + [self._steps.iteration.tensor],
+            signature=observe.signature_of(**batch), copy_out=copy_out)
+        self._steps.iteration.advanced()
+        self.step += 1
+        return loss
 
     def _fit(self, loss_fn, keys, iterator, epochs: int) -> List[float]:
         history = []
@@ -340,18 +394,20 @@ class BertModel:
     def fit_mlm(self, iterator, epochs: int = 1) -> List[float]:
         """Masked-LM training over ``BertIterator(task="unsupervised")``
         batches; returns the mean loss of each epoch."""
-        return self._fit(mlm_loss, ("ids", "segments", "mask", "mlm_labels",
-                                    "mlm_mask"), iterator, epochs)
+        return self._fit(mlm_loss, _MLM_KEYS, iterator, epochs)
 
     def fit_mlm_scanned(self, batch: Dict[str, Any], steps: int
                         ) -> np.ndarray:
-        """``steps`` MLM steps on one fixed batch; returns the per-step
-        losses. A plain loop of steps (the JAX package scans them in one
-        XLA call)."""
-        b = self._batch(batch, ("ids", "segments", "mask", "mlm_labels",
-                                "mlm_mask"))
-        losses = [self.train_step(mlm_loss, b) for _ in range(steps)]
-        return torch.stack(losses).float().cpu().numpy()
+        """``steps`` MLM steps on one fixed device-resident batch with no
+        host read between them (the JAX package's ``lax.scan`` over
+        ``_mlm_step``): the ``mlm`` unit replayed once a step, each loss
+        copied into a device vector, read back once. ``step`` advances by
+        ``steps``. Returns the per-step losses."""
+        b = self._batch(batch, _MLM_KEYS)
+        losses = torch.empty(steps, dtype=torch.float32, device=self.device)
+        for k in range(steps):
+            losses[k] = self.train_step(mlm_loss, b, copy_out=False)
+        return losses.cpu().numpy()
 
     @torch.no_grad()
     def predict(self, ids, segments=None, mask=None) -> np.ndarray:

@@ -14,12 +14,18 @@ reader.
 
 What the train step does in place of ``jax.value_and_grad`` + ``jit``:
 each parameter leaf is taken as an autograd leaf (``detach()`` +
-``requires_grad_``, no copy), the forward and loss run eagerly,
+``requires_grad_``, no copy), the forward and loss run,
 ``torch.autograd.grad`` gives the gradients, and the update tail
 (``apply_layer_updates``: regularization, gradient normalization, the
 fused updater op per leaf, weight decay) runs under ``torch.no_grad()``.
-The updates are out of place: each step replaces ``params``, ``opt_state``
-and ``net_state`` with new tensors, as the JAX step returns new arrays.
+The step is a training unit (``nn/compiled.py``), as the sequential
+network's is: on the card a CUDA-graph capture per batch signature (keys
+``train``, ``train_tbptt`` and ``fit_scanned``) that writes ``params``,
+``opt_state``, ``net_state`` and the device iteration in place; eager on
+the CPU and under ``disable_capture()``, and out of place on the CPU (new
+tensors, rebound), as the JAX step returns new arrays there.
+``fit_scanned`` runs many steps with one host read a chunk, feeding
+every input and output of a multi-IO graph by name.
 
 Dtype policy: under ``"mixed"`` the float32 master parameters and the
 inputs are cast to bfloat16 once at the top of ``_forward``; gradients
@@ -37,8 +43,7 @@ a batch's segments run, so a listener that declares ``defers_mid_tbptt``
 (the checkpoint listener) is called once, at the batch boundary.
 
 The network lives on one device: ``"cuda"`` unless the caller passes
-``device="cpu"``. Not ported yet: ``fit_scanned`` (ROADMAP Queue 1
-item 2).
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -58,6 +63,9 @@ from deeplearning4j_tpu_torch.datasets.dataset import (
 from deeplearning4j_tpu_torch.environment import resolve_device
 from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn import dtype as DT
+from deeplearning4j_tpu_torch.nn.compiled import (
+    TrainUnits, commit, donates, flatten_rnn, mask_routing, tensors_of,
+    unflatten_rnn)
 from deeplearning4j_tpu_torch.nn.layers import (
     BidirectionalImpl, Layer, build_layer)
 from deeplearning4j_tpu_torch.nn.listeners import (
@@ -571,6 +579,8 @@ class ComputationGraph:
         self._rnn_states: Optional[Dict[str, Any]] = None
         # dropout's draws in training
         self._gen = torch.Generator(device=self.device).manual_seed(conf.seed)
+        # the compiled training steps and the device iteration
+        self._steps = TrainUnits(self.device, "graph", [self._gen])
 
     def _node(self, name: str) -> _GraphNode:
         for n in self.conf.nodes:
@@ -754,15 +764,22 @@ class ComputationGraph:
             total = total + loss_fn(acts[name], labels[name], lm)
         return total
 
-    def _train_step(self, feeds, labels, fmasks, lmasks, rnn_states=None):
-        """One step (one tBPTT segment with ``rnn_states``): loss and
-        gradients by autograd, then the update tail under no_grad. Returns
-        the score (loss + regularization penalty of the parameters before
-        the update), a 0-d tensor on the device; with ``rnn_states`` also
-        the carried states, detached (gradients stop at the segment
-        boundary)."""
+    def _donated(self) -> list:
+        """The tensors a training step writes in place: parameters,
+        updater state, layer state and the device iteration."""
+        return tensors_of(self.params, self.opt_state, self.net_state) + [
+            self._steps.iteration.tensor]
+
+    def _step(self, feeds, labels, fmasks, lmasks, rnn_states=None):
+        """The step's body: loss and gradients by autograd, then the update
+        tail under no_grad and the iteration advanced on the device.
+        Returns the score (loss + regularization penalty of the parameters
+        before the update), a 0-d tensor on the device; with
+        ``rnn_states`` also the carried states, detached (gradients stop
+        at the segment boundary), flattened after it."""
         names = self._layer_names
-        step = self.iteration_count
+        step = self._steps.iteration.tensor
+        donate = donates(self.device)
         with DT.precision_scope(self.conf.dtype):
             with torch.enable_grad():
                 params = {n: autograd_leaves(self.params[n]) for n in names}
@@ -772,25 +789,71 @@ class ComputationGraph:
                 acts, new_state = res[0], res[1]
                 loss = self._losses(acts, labels, lmasks)
                 if rnn_states is None:  # the JAX tBPTT loss has no aux
-                    loss = loss + aux_losses(new_state)
+                    loss = loss + aux_losses(new_state, self.device)
                 g = grad_tree(loss, params)
             with torch.no_grad():
+                score = loss.detach() + reg_penalty(
+                    self.conf, ((self.params[n], self.layers[n].lc)
+                                for n in names), self.device)
                 updated = apply_layer_updates(
                     self.conf,
                     ((self.params[n], g[n], self.opt_state[n],
                       self.conf.layer_updater(self.layers[n].lc),
                       self.layers[n].lc) for n in names),
-                    step)
-                score = loss.detach() + reg_penalty(
-                    self.conf, ((self.params[n], self.layers[n].lc)
-                                for n in names))
-        self.params = {n: p for n, (p, _) in zip(names, updated)}
-        self.opt_state = {n: s for n, (_, s) in zip(names, updated)}
-        self.net_state = {n: {k: v.detach() for k, v in st.items()}
-                          for n, st in new_state.items()}
+                    step, inplace=donate)
+                new_state = {n: {k: v.detach() for k, v in st.items()}
+                             for n, st in new_state.items()}
+                if donate:
+                    self.net_state = commit(self.net_state, new_state)
+                else:
+                    self.params = {n: p for n, (p, _) in zip(names, updated)}
+                    self.opt_state = {n: s for n, (_, s) in zip(names,
+                                                                updated)}
+                    self.net_state = new_state
+                step.add_(1)
         if rnn_states is None:
             return score
-        return score, {n: _detached(st) for n, st in res[2].items()}
+        return (score,) + tuple(flatten_rnn(
+            {n: _detached(st) for n, st in res[2].items()})[0])
+
+    def _train_step(self, feeds, labels, fmasks, lmasks, rnn_states=None):
+        """One step (one tBPTT segment with ``rnn_states``) as the training
+        unit ``train`` / ``train_tbptt`` (module docstring): the score, a
+        0-d tensor on the device; with ``rnn_states`` also the carried
+        states."""
+        self._steps.iteration.at(self.iteration_count)
+        groups = [feeds, labels, fmasks or {}, lmasks or {}]
+        names = tuple(tuple(sorted(d)) for d in groups)
+        args = [d[k] for d, ks in zip(groups, names) for k in ks]
+        rnn_flat, rnn_spec = ([], None) if rnn_states is None else (
+            flatten_rnn(rnn_states))
+        counts = [len(ks) for ks in names]
+
+        def body(*tensors):
+            parts, i = [], 0
+            for ks, c in zip(names, counts):
+                parts.append(dict(zip(ks, tensors[i:i + c])))
+                i += c
+            carried = None if rnn_spec is None else unflatten_rnn(
+                rnn_spec, tensors[i:])
+            return self._step(parts[0], parts[1], parts[2] or None,
+                              parts[3] or None, carried)
+
+        out = self._steps.run(
+            "train" if rnn_states is None else "train_tbptt", body,
+            args + rnn_flat, layout=(names, rnn_spec),
+            state=self._donated(),
+            signature=observe.signature_of(
+                **{f"x.{k}": v for k, v in feeds.items()},
+                **{f"y.{k}": v for k, v in labels.items()},
+                **{f"fm.{k}": v for k, v in (fmasks or {}).items()},
+                **{f"lm.{k}": v for k, v in (lmasks or {}).items()}),
+            eager_reason=mask_routing(self.layers.values(),
+                                      (fmasks or {}).values()))
+        self._steps.iteration.advanced()
+        if rnn_states is None:
+            return out
+        return out[0], unflatten_rnn(rnn_spec, out[1:])
 
     def fit_tbptt(self, features, labels, masks=None, lmasks=None) -> float:
         """One truncated-BPTT pass over a time-series batch
@@ -974,10 +1037,51 @@ class ComputationGraph:
                                self._score)
         return float(self._score)
 
-    def fit_scanned(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ComputationGraph.fit_scanned is not ported yet (ROADMAP "
-            "Queue 1 item 2: a captured training step)")
+    def fit_scanned(self, features, labels, steps: Optional[int] = None
+                    ) -> np.ndarray:
+        """Many train steps with no host read between them — the training
+        unit ``fit_scanned`` replayed once a step (the JAX package's
+        ``lax.scan`` over the train step; see
+        ``MultiLayerNetwork.fit_scanned``, same two modes). ``features`` /
+        ``labels``: single-input/-output arrays, or dicts keyed by input /
+        output name for multi-IO graphs (with ``steps`` None each carries
+        the leading [steps, batch, ...] axis). Listeners fire after the
+        chunk with the steps' iteration numbers and losses. Returns the
+        per-step losses (float32 numpy)."""
+        if not isinstance(features, dict):
+            features = {self.conf.network_inputs[0]: features}
+        if not isinstance(labels, dict):
+            labels = {self.conf.network_outputs[0]: labels}
+        feeds, labs = self._feed(features), self._feed(labels)
+        per_step = steps is None
+        first = next(iter(feeds.values()))
+        n_steps = int(first.shape[0]) if per_step else int(steps)
+        fk, lk = sorted(feeds), sorted(labs)
+        start = self.iteration_count
+        self._steps.iteration.at(start)
+
+        def step(*batch):
+            return self._step(dict(zip(fk, batch[:len(fk)])),
+                              dict(zip(lk, batch[len(fk):])), None, None)
+
+        losses = self._steps.scan(
+            "fit_scanned", step, [feeds[k] for k in fk] + [labs[k]
+                                                           for k in lk],
+            n_steps, per_step=per_step, state=self._donated,
+            signature=observe.signature_of(
+                **{f"x.{k}": v for k, v in feeds.items()},
+                **{f"y.{k}": v for k, v in labs.items()}))
+        self._steps.iteration.advanced(n_steps)
+        self.iteration_count += n_steps
+        self._score = losses[-1]
+        host = losses.cpu().numpy()  # the chunk's one host read
+        self.last_batch_size = int(first.shape[1] if per_step
+                                   else first.shape[0])
+        for k in range(n_steps):
+            for lst in self.listeners:
+                lst.iteration_done(self, start + k + 1, self.epoch_count,
+                                   float(host[k]))
+        return host
 
     def score(self) -> float:
         return float("nan") if self._score is None else float(self._score)

@@ -22,18 +22,26 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``:
 
 What the train step does in place of ``jax.value_and_grad`` + ``jit``:
 each parameter leaf is taken as an autograd leaf (``detach()`` +
-``requires_grad_``, no copy), the forward and loss run eagerly,
+``requires_grad_``, no copy), the forward and loss run,
 ``torch.autograd.grad`` gives the gradients, and the update tail runs
 under ``torch.no_grad()``: one :meth:`Updater.apply_fused_many` call a
-step (one multi-tensor launch of the updater kernel on the card). Every
-update is out of place (new tensors), as the JAX step returns new arrays.
+step (one multi-tensor launch of the updater kernel on the card). The
+step is a training unit (``nn/compiled.py``): on the card one CUDA-graph
+capture per batch signature (keys ``train`` and ``train_tbptt``), replayed
+after, with the parameters, updater state, layer state and the device
+iteration written in place (the JAX step's donated buffers); on the CPU,
+and under ``disable_capture()``, the same function runs eagerly, and on
+the CPU the update is out of place (new tensors, rebound), as the JAX
+step returns new arrays there. A features mask fed to a network with an
+LSTM routes the step to eager execution (cuDNN reads the mask's lengths
+on the host). ``fit_scanned`` runs many steps as the unit
+``fit_scanned`` with one host read a chunk.
 
 Trees are dicts of tensors (nested for wrapper layers: Bidirectional's
 ``fwd`` / ``bwd``); leaves are visited in sorted-key order, as
 ``jax.tree.flatten`` visits a dict. Listeners get each step's loss as
 the 0-d device tensor the step returned: ``fit`` adds no host
-synchronization a step unless a listener reads the score. Not ported
-yet: ``fit_scanned`` (raises, naming ROADMAP Queue 1 item 2).
+synchronization a step unless a listener reads the score.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ from deeplearning4j_tpu_torch.eval.evaluation import (
     ROC, Evaluation, RegressionEvaluation)
 from deeplearning4j_tpu_torch.nn import conf as C
 from deeplearning4j_tpu_torch.nn import dtype as DT
+from deeplearning4j_tpu_torch.nn.compiled import (
+    TrainUnits, commit, donates, flatten_rnn, mask_routing, tensors_of,
+    unflatten_rnn)
 from deeplearning4j_tpu_torch.nn.layers import (
     BidirectionalImpl, Layer, apply_preprocessor, build_layer)
 from deeplearning4j_tpu_torch.nn.listeners import (
@@ -158,21 +169,25 @@ def normalize_gradient(conf, g: Dict[str, Any]) -> Dict[str, Any]:
     raise ValueError(f"unknown gradient normalization '{kind}'")
 
 
-def apply_layer_updates(conf, items, step):
+def apply_layer_updates(conf, items, step, *, inplace: bool = False):
     """The per-layer update block: L1/L2 into the gradient, clipping,
     updater math, weight decay (BaseMultiLayerUpdater.update +
     WeightDecay.applyStep).
 
     items: iterable of (params, grads, opt_state, updater, layer_conf):
     trees of leaf name -> tensor (nested for wrapper layers), and the
-    updater state the same tree with a state dict at each leaf. Returns a
-    list of (new_params, new_opt_state) in input order.
+    updater state the same tree with a state dict at each leaf. ``step``:
+    the iteration, an int or the trainer's int32 device tensor. Returns a
+    list of (new_params, new_opt_state) in input order; ``inplace``: the
+    given parameter and state tensors hold the new values and are the
+    ones returned.
 
     Each leaf sees the reference's order: its layer's L1/L2 and gradient
-    normalization, the updater step, its layer's weight decay. The updater
-    steps of all layers that share an updater (and so one lr) go in one
-    :meth:`Updater.apply_fused_many` call: one multi-tensor launch for the
-    whole network on the card."""
+    normalization, the updater step, its layer's weight decay (of the
+    weight before the step: taken before an in-place step overwrites it).
+    The updater steps of all layers that share an updater (and so one lr)
+    go in one :meth:`Updater.apply_fused_many` call: one multi-tensor
+    launch for the whole network on the card."""
     layers = []
     groups: List[tuple] = []  # (updater, [(layer, leaf path)]), equal configs
     for i, (p, g, s, upd, lc) in enumerate(items):
@@ -183,7 +198,12 @@ def apply_layer_updates(conf, items, step):
         if l1:
             g = _map_weights(lambda gw, w: gw + l1 * torch.sign(w), g, p)
         g = normalize_gradient(conf, g)
-        layers.append((p, g, s, upd, lc, {}, {}))
+        wd = conf.layer_weight_decay(lc)
+        decay = None
+        if wd:
+            lr = upd.lr(step)
+            decay = _map_weights(lambda w: lr * wd * w, p)
+        layers.append((p, g, s, upd, lc, {}, {}, decay))
         leaves = next((lv for u, lv in groups if u == upd), None)
         if leaves is None:
             leaves = []
@@ -194,36 +214,39 @@ def apply_layer_updates(conf, items, step):
             [_at(layers[i][0], path) for i, path in leaves],
             [_at(layers[i][1], path) for i, path in leaves],
             [_at(layers[i][2], path) for i, path in leaves],
-            upd.lr(step), step)
+            upd.lr(step), step, inplace=inplace)
         for (i, path), np_, ns in zip(leaves, new_p, new_s):
             layers[i][5][path], layers[i][6][path] = np_, ns
     out = []
-    for p, _, _, upd, lc, by_path, state_by_path in layers:
+    for p, _, _, upd, lc, by_path, state_by_path, decay in layers:
         new_p = _tree().rebuild(p, by_path)
         new_s = _tree().rebuild(p, state_by_path)
-        wd = conf.layer_weight_decay(lc)
-        if wd:
-            lr = upd.lr(step)
-            new_p = _map_weights(lambda w, w0: w - lr * wd * w0, new_p, p)
+        if decay is not None and inplace:
+            for w, d in zip(_weight_leaves(new_p), _weight_leaves(decay)):
+                w.sub_(d)
+        elif decay is not None:
+            new_p = _map_weights(lambda w, d: w - d, new_p, decay)
         out.append((new_p, new_s))
     return out
 
 
-def aux_losses(new_state) -> torch.Tensor:
+def aux_losses(new_state, device=None) -> torch.Tensor:
     """Sum the differentiable side losses layers keep in their state under
-    ``_aux_loss`` (none on the ported layers)."""
+    ``_aux_loss`` (none on the ported layers), from a zero on ``device``
+    (the step's: no host constant enters a captured step)."""
     states = new_state.values() if isinstance(new_state, dict) else new_state
-    total = torch.zeros(())
+    total = torch.zeros((), device=device)
     for st in states:
         if isinstance(st, dict) and "_aux_loss" in st:
             total = total + st["_aux_loss"]
     return total
 
 
-def reg_penalty(conf, items) -> torch.Tensor:
+def reg_penalty(conf, items, device=None) -> torch.Tensor:
     """Score regularization penalty (BaseLayer.calcRegularizationScore);
-    items: iterable of (params, layer_conf)."""
-    penalty = torch.zeros(())
+    items: iterable of (params, layer_conf); summed from a zero on
+    ``device``."""
+    penalty = torch.zeros((), device=device)
     for p, lc in items:
         l1 = conf.layer_l1(lc)
         l2 = conf.layer_l2(lc)
@@ -244,7 +267,8 @@ class MultiLayerNetwork:
     one tree a layer; dropout draws from one ``torch.Generator`` on the
     device (``_gen``), seeded from the configuration's seed.
     ``batch_in_epoch`` counts the batches of the current epoch already
-    trained (the data cursor a checkpoint carries)."""
+    trained (the data cursor a checkpoint carries). ``_steps`` holds the
+    compiled training steps and the device iteration."""
 
     def __init__(self, conf: C.MultiLayerConfiguration, *, device=None):
         self.conf = conf
@@ -277,6 +301,7 @@ class MultiLayerNetwork:
         self._tbptt_scores: List[torch.Tensor] = []
         self._rnn_states: Optional[List[Any]] = None
         self._gen = torch.Generator(device=self.device).manual_seed(conf.seed)
+        self._steps = TrainUnits(self.device, "mln", [self._gen])
         last = conf.layers[-1] if conf.layers else None
         self._loss_name = getattr(last, "loss", None)
         self._loss_fn = get_loss(self._loss_name) if self._loss_name else None
@@ -414,15 +439,21 @@ class MultiLayerNetwork:
         return states
 
     # ------------------------------------------------------------ train step
-    def _train_step(self, x, y, fmask, lmask, rnn_states=None):
-        """One step (one tBPTT segment with ``rnn_states``): loss and
-        gradients by autograd, the update tail under no_grad. Returns the
-        score (loss + the regularization penalty of the parameters before
-        the update, a 0-d tensor on the device) and the carried state,
-        detached: gradients stop at the segment boundary."""
-        if self._loss_fn is None:
-            raise ValueError("terminal layer has no loss configured")
-        step = self.iteration_count
+    def _donated(self) -> list:
+        """The tensors a training step writes in place: parameters,
+        updater state, layer state and the device iteration."""
+        return tensors_of(self.params, self.opt_state, self.net_state) + [
+            self._steps.iteration.tensor]
+
+    def _step(self, x, y, fmask, lmask, rnn_states=None):
+        """The step's body: loss and gradients by autograd, the update
+        tail under no_grad, the iteration advanced on the device. Returns
+        the score (loss + the regularization penalty of the parameters
+        before the update, a 0-d tensor on the device) and, with
+        ``rnn_states``, the carried states, detached: gradients stop at the
+        segment boundary."""
+        step = self._steps.iteration.tensor
+        donate = donates(self.device)
         with DT.precision_scope(self.conf.dtype):
             with torch.enable_grad():
                 params = autograd_leaves(self.params)
@@ -430,21 +461,61 @@ class MultiLayerNetwork:
                                     train=True, rng=self._gen,
                                     rnn_states=rnn_states)
                 out, new_state = res[0], res[1]
-                loss = self._loss_fn(out, y, lmask) + aux_losses(new_state)
+                loss = self._loss_fn(out, y, lmask) + aux_losses(
+                    new_state, self.device)
                 grads = grad_tree(loss, params)
             with torch.no_grad():
+                score = loss.detach() + reg_penalty(
+                    self.conf, zip(self.params, self.conf.layers),
+                    self.device)
                 updated = apply_layer_updates(
                     self.conf, zip(self.params, grads, self.opt_state,
-                                   self.updaters, self.conf.layers), step)
-                score = loss.detach() + reg_penalty(
-                    self.conf, zip(self.params, self.conf.layers))
-        self.params = [p for p, _ in updated]
-        self.opt_state = [s for _, s in updated]
-        self.net_state = [{k: v.detach() for k, v in st.items()}
-                          for st in new_state]
-        new_rnn = None if rnn_states is None else [_detached(st)
-                                                   for st in res[2]]
-        return score, new_rnn
+                                   self.updaters, self.conf.layers), step,
+                    inplace=donate)
+                new_state = [{k: v.detach() for k, v in st.items()}
+                             for st in new_state]
+                if donate:
+                    self.net_state = commit(self.net_state, new_state)
+                else:
+                    self.params = [p for p, _ in updated]
+                    self.opt_state = [s for _, s in updated]
+                    self.net_state = new_state
+                step.add_(1)
+        if rnn_states is None:
+            return score
+        return (score,) + tuple(flatten_rnn([_detached(st)
+                                             for st in res[2]])[0])
+
+    def _train_step(self, x, y, fmask, lmask, rnn_states=None):
+        """One step (one tBPTT segment with ``rnn_states``) as the training
+        unit ``train`` / ``train_tbptt`` (module docstring). Returns the
+        score (a 0-d device tensor) and the carried states (None without
+        ``rnn_states``)."""
+        if self._loss_fn is None:
+            raise ValueError("terminal layer has no loss configured")
+        self._steps.iteration.at(self.iteration_count)
+        rnn_flat, rnn_spec = ([], None) if rnn_states is None else (
+            flatten_rnn(rnn_states))
+        args = [x, y] + [m for m in (fmask, lmask) if m is not None]
+        layout = (fmask is not None, lmask is not None, rnn_spec)
+
+        def body(x, y, *rest):
+            rest = list(rest)
+            fm = rest.pop(0) if layout[0] else None
+            lm = rest.pop(0) if layout[1] else None
+            carried = None if rnn_spec is None else unflatten_rnn(rnn_spec,
+                                                                  rest)
+            return self._step(x, y, fm, lm, carried)
+
+        out = self._steps.run(
+            "train" if rnn_states is None else "train_tbptt", body,
+            args + rnn_flat, layout=layout, state=self._donated(),
+            signature=observe.signature_of(x=x, y=y, fm=fmask, lm=lmask),
+            eager_reason=mask_routing(self.layers, (fmask,)))
+        self._steps.iteration.advanced()
+        if rnn_states is None:
+            return out, None
+        return out[0], unflatten_rnn(rnn_spec, out[1:])
 
     def _fit_tbptt_batch(self, x, y, fmask, lmask):
         """The time axis cut into ``tbptt_fwd_length`` segments, the RNN
@@ -545,10 +616,55 @@ class MultiLayerNetwork:
                 lst.on_epoch_end(self)
         notify_fit_done(self, self.listeners)
 
-    def fit_scanned(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MultiLayerNetwork.fit_scanned is not ported yet (ROADMAP "
-            "Queue 1 item 2: a captured training step)")
+    def fit_scanned(self, features, labels, steps: Optional[int] = None,
+                    *, features_mask=None, labels_mask=None) -> np.ndarray:
+        """Many train steps with no host read between them (the JAX
+        package's ``lax.scan`` over the train step): the training unit
+        ``fit_scanned`` replayed once a step, the iteration and the
+        schedules advancing on the device, the per-step losses read back
+        once.
+
+        Two modes, as in the JAX package: ``steps`` given — train
+        ``steps`` times on the one device-resident batch; ``steps`` None —
+        ``features`` / ``labels`` carry a leading [steps, batch, ...] axis
+        of per-step minibatches, staged to the device once. Masks are
+        refused (use ``fit``). Listeners fire after the chunk, once a step
+        in iteration-major order, with the step's iteration number and
+        loss. Returns the per-step losses (float32 numpy)."""
+        if features_mask is not None or labels_mask is not None:
+            raise ValueError("fit_scanned takes no masks, as in the JAX "
+                             "package: use fit()")
+        if self._loss_fn is None:
+            raise ValueError("terminal layer has no loss configured")
+        per_step = steps is None
+        xs, ys = self._feed(features), self._feed(labels)
+        n_steps = int(xs.shape[0]) if per_step else int(steps)
+        start = self.iteration_count
+        self._steps.iteration.at(start)
+        t0 = time.perf_counter()
+        losses = self._steps.scan(
+            "fit_scanned", lambda x, y: self._step(x, y, None, None),
+            (xs, ys), n_steps, per_step=per_step, state=self._donated,
+            signature=observe.signature_of(x=xs, y=ys))
+        self._steps.iteration.advanced(n_steps)
+        self.iteration_count += n_steps
+        self._score = losses[-1]
+        host = losses.cpu().numpy()  # the chunk's one host read
+        self.last_batch_size = int(xs.shape[1] if per_step else xs.shape[0])
+        m = observe.metrics()
+        m.counter("dl4j_tpu_train_steps_total", model="mln").inc(n_steps)
+        m.counter("dl4j_tpu_host_to_device_transfers_total",
+                  model="mln").inc(2)
+        m.counter("dl4j_tpu_train_examples_total", model="mln").inc(
+            n_steps * self.last_batch_size)
+        observe.tracer().complete_between(
+            "fit_scanned", t0, time.perf_counter(), category="train",
+            steps=n_steps)
+        for k in range(n_steps):
+            for lst in self.listeners:
+                lst.iteration_done(self, start + k + 1, self.epoch_count,
+                                   float(host[k]))
+        return host
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """The loss on ``ds``, or the last training score."""

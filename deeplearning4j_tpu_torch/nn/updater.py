@@ -7,19 +7,28 @@ operations, so a trajectory agrees with the JAX package's to float
 rounding. An updater is ``(grad, state, lr, step) -> (update, new_state)``
 on one leaf; the train step applies ``param - update``.
 
-Scalars: ``lr`` and every quantity that depends only on ``lr``/``step``
-(Adam's bias-corrected ``alpha``, Nadam's bias corrections) are float32
-0-d tensors on the CPU, computed once per leaf. They enter the tensor math
-as scalars, so the CUDA kernel of ``fused_updater_step``
-(:mod:`deeplearning4j_tpu_torch.ops.cuda_updater`) receives the very same
-float32 values by value (:meth:`Updater.coefficients`) and repeats the
-elementwise operations in the same order and rounding.
+Scalars live where the iteration lives. A trainer keeps its iteration as
+an int32 0-d tensor on its device (beside its Python count), and ``lr``,
+every :class:`Schedule` and every quantity that depends only on
+``lr``/``step`` (Adam's bias-corrected ``alpha``, Nadam's bias
+corrections) are float32 0-d tensors computed from it on that device: no
+host read, so a step captured in a CUDA graph reads each replay's
+iteration. A Python int iteration gives the same values on the CPU (the
+tests' and the JAX package's way of calling). :meth:`Updater.coefficients`
+fills the (8,) float32 buffer the CUDA kernel of ``fused_updater_step``
+(:mod:`deeplearning4j_tpu_torch.ops.cuda_updater`) reads, with the very
+values the plain version computes with, so the kernel repeats its
+elementwise operations in the same order and rounding. Eager and
+captured steps take this one path and agree bit for bit; the device's
+``pow`` and ``exp`` may differ from the CPU's by an ulp.
 
 :meth:`Updater.apply_fused` routes a leaf through the
 ``fused_updater_step`` registry op, whose ``"cuda"`` helper is the
 one-pass kernel; :meth:`Updater.apply_fused_many`, the train steps'
 entry, resolves every leaf the same way and updates the leaves that take
-the kernel in one multi-tensor launch. There is no environment switch;
+the kernel in one multi-tensor launch, out of place or in place (the
+training steps on the card: their parameters and state are the static
+buffers of a captured graph). There is no environment switch;
 ``helper_mode`` decides.
 """
 
@@ -28,16 +37,26 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 # ---------------------------------------------------------------------------
-# Schedules (ISchedule analog): float32 0-d CPU tensors of the iteration
+# Schedules (ISchedule analog): float32 0-d tensors of the iteration, on the
+# iteration's device
 # ---------------------------------------------------------------------------
 
 
-def _f32(v) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32)
+def _device(iteration) -> torch.device:
+    return (iteration.device if isinstance(iteration, torch.Tensor)
+            else torch.device("cpu"))
+
+
+def _f32(v, device=None) -> torch.Tensor:
+    """``v`` as a float32 0-d tensor: a tensor converted on its device; a
+    Python number filled on ``device`` (the CPU by default) — a fill, not a
+    host-to-device copy, so it can run inside a CUDA-graph capture."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
+    return torch.full((), v, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +66,7 @@ class Schedule:
     value: float = 1e-3
 
     def __call__(self, iteration, epoch=None):
-        return _f32(self.value)
+        return _f32(self.value, _device(iteration))
 
     def to_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
@@ -156,9 +175,9 @@ class MapSchedule(Schedule):
 
     def __call__(self, iteration, epoch=None):
         it = _f32(iteration)
-        lr = _f32(self.value)
+        lr = _f32(self.value, it.device)
         for start, v in sorted(self.values):
-            lr = torch.where(it >= start, _f32(v), lr)
+            lr = torch.where(it >= start, _f32(v, it.device), lr)
         return lr
 
     def to_dict(self) -> Dict[str, Any]:
@@ -188,10 +207,14 @@ def _t(step) -> torch.Tensor:
     return _f32(step) + 1.0
 
 
-def _recip(x: torch.Tensor) -> float:
-    """float32 1/x of a 0-d float32 tensor: what torch's CUDA division by a
-    host scalar multiplies with."""
-    return float(np.float32(1.0) / np.float32(float(x)))
+def _recip(x: torch.Tensor) -> torch.Tensor:
+    """float32 1/x of a 0-d float32 tensor, on its device (a correctly
+    rounded division): what torch's CUDA division by a host scalar
+    multiplies with."""
+    return torch.reciprocal(x)
+
+
+COEFFICIENTS = 8  # the kernel's coefficient buffer (csrc/fused_updater.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,15 +222,17 @@ class Updater:
     """Base updater config. Subclasses define the reference math.
 
     ``learning_rate`` may be a float or a :class:`Schedule`.
-    :meth:`coefficients` lists, in the CUDA kernel's order, the float32
-    scalars the kernel takes by value for this ``(lr, step)``."""
+    :meth:`coefficients` gives, in the CUDA kernel's order, the float32
+    coefficients the kernel reads for this ``(lr, step)``."""
 
     learning_rate: Any = 1e-3
 
     def lr(self, iteration, epoch=None) -> torch.Tensor:
+        """The learning rate at ``iteration`` (an int, or an integer 0-d
+        tensor): a float32 0-d tensor on the iteration's device."""
         if isinstance(self.learning_rate, Schedule):
             return self.learning_rate(iteration, epoch)
-        return _f32(self.learning_rate)
+        return _f32(self.learning_rate, _device(iteration))
 
     def init_state(self, param) -> Dict[str, torch.Tensor]:
         return {}
@@ -216,8 +241,22 @@ class Updater:
         """Return (update, new_state); params -= update downstream."""
         raise NotImplementedError
 
-    def coefficients(self, lr, step) -> Tuple[float, ...]:
+    def _coefficients(self, lr, step) -> Tuple[Any, ...]:
+        """The kind's coefficients in the kernel's order: Python floats
+        (constants of the configuration) and float32 0-d tensors."""
         raise NotImplementedError
+
+    def coefficients(self, lr, step) -> torch.Tensor:
+        """The (8,) float32 buffer the CUDA kernel reads, on ``lr``'s
+        device: the kind's coefficients, zeros after them. Made by device
+        ops from ``lr`` and ``step`` (fills and the plain version's own
+        arithmetic), no host read."""
+        lr = _f32(lr)
+        parts = [_f32(v, lr.device).reshape(1)
+                 for v in self._coefficients(lr, step)]
+        parts.append(torch.zeros(COEFFICIENTS - len(parts),
+                                 dtype=torch.float32, device=lr.device))
+        return torch.cat(parts)
 
     # -- fused step (ops/cuda_updater.py) -----------------------------------
     def _fusable(self) -> bool:
@@ -248,7 +287,8 @@ class Updater:
         u, new_state = self.apply(grad, state, lr, step)
         return param - u, new_state
 
-    def apply_fused_many(self, params, grads, states, lr, step):
+    def apply_fused_many(self, params, grads, states, lr, step, *,
+                         inplace: bool = False):
         """:meth:`apply_fused` over many leaves at one ``(lr, step)``:
         ``(new_params, new_states)``, lists in input order. Each leaf is
         resolved through the ``fused_updater_step`` registry op as
@@ -256,12 +296,20 @@ class Updater:
         dispatch counter, leaf by leaf); the leaves that resolve to the
         CUDA helper are updated by one multi-tensor launch per dtype
         (``cuda_updater.fused_updater_multi``), the rest by the resolved
-        function, one leaf at a time."""
+        function, one leaf at a time.
+
+        ``inplace``: the new values are written into ``params`` and the
+        state dicts' tensors themselves (the kernel writes them directly;
+        another route's results are copied in), and those are returned —
+        the training steps' counterpart of the JAX step's donated
+        buffers."""
         if not self._fusable():
             outs = [self.apply(g, s, lr, step)
                     for g, s in zip(grads, states)]
-            return ([p - u for p, (u, _) in zip(params, outs)],
-                    [s for _, s in outs])
+            new_p = [p - u for p, (u, _) in zip(params, outs)]
+            new_s = [s for _, s in outs]
+            return (_store(params, states, new_p, new_s) if inplace
+                    else (new_p, new_s))
         from deeplearning4j_tpu_torch.ops import cuda_updater as cu
         from deeplearning4j_tpu_torch.ops.registry import registry
 
@@ -278,13 +326,18 @@ class Updater:
                 continue
             out = fn(p, g, lr, step, *st, kind=kind, **hyper)
             new_p[i], new_s[i] = out[0], dict(zip(keys[i], out[1:]))
+            if inplace:
+                _store([p], [s], [new_p[i]], [new_s[i]])
+                new_p[i], new_s[i] = p, s
         for idx in groups.values():
             outs = cu.fused_updater_multi(
                 [params[i] for i in idx], [grads[i] for i in idx],
                 [tuple(states[i][k] for k in keys[i]) for i in idx], lr,
-                step, kind=kind, **hyper)
+                step, kind=kind, inplace=inplace, **hyper)
             for i, out in zip(idx, outs):
-                new_p[i], new_s[i] = out[0], dict(zip(keys[i], out[1:]))
+                new_p[i] = out[0]
+                new_s[i] = states[i] if inplace else dict(zip(keys[i],
+                                                              out[1:]))
         return new_p, new_s
 
     def to_dict(self) -> Dict[str, Any]:
@@ -316,8 +369,8 @@ class Sgd(Updater):
     def apply(self, grad, state, lr, step):
         return lr * grad, state
 
-    def coefficients(self, lr, step):
-        return (float(lr),)
+    def _coefficients(self, lr, step):
+        return (lr,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,7 +380,7 @@ class NoOp(Updater):
     def apply(self, grad, state, lr, step):
         return grad, state
 
-    def coefficients(self, lr, step):
+    def _coefficients(self, lr, step):
         return ()
 
 
@@ -340,7 +393,7 @@ class Frozen(Updater):
     def apply(self, grad, state, lr, step):
         return torch.zeros_like(grad), state
 
-    def coefficients(self, lr, step):
+    def _coefficients(self, lr, step):
         return ()
 
 
@@ -362,8 +415,8 @@ class Nesterovs(Updater):
         update = mu * v_prev - (1 + mu) * v
         return update, {"v": v}
 
-    def coefficients(self, lr, step):
-        return (self.momentum, float(lr), 1 + self.momentum)
+    def _coefficients(self, lr, step):
+        return (self.momentum, lr, 1 + self.momentum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -381,8 +434,8 @@ class AdaGrad(Updater):
         update = lr * grad / (torch.sqrt(h) + self.epsilon)
         return update, {"h": h}
 
-    def coefficients(self, lr, step):
-        return (float(lr), self.epsilon)
+    def _coefficients(self, lr, step):
+        return (lr, self.epsilon)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,8 +454,8 @@ class RmsProp(Updater):
         update = grad * lr / torch.sqrt(g2 + self.epsilon)
         return update, {"g2": g2}
 
-    def coefficients(self, lr, step):
-        return (self.rms_decay, 1 - self.rms_decay, float(lr), self.epsilon)
+    def _coefficients(self, lr, step):
+        return (self.rms_decay, 1 - self.rms_decay, lr, self.epsilon)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -423,7 +476,7 @@ class AdaDelta(Updater):
         msdx = self.rho * state["msdx"] + (1 - self.rho) * dx * dx
         return dx, {"msg": msg, "msdx": msdx}
 
-    def coefficients(self, lr, step):
+    def _coefficients(self, lr, step):
         return (self.rho, 1 - self.rho, self.epsilon)
 
 
@@ -450,9 +503,9 @@ class Adam(Updater):
         update = self._alpha(lr, step) * m / (torch.sqrt(v) + self.epsilon)
         return update, {"m": m, "v": v}
 
-    def coefficients(self, lr, step):
+    def _coefficients(self, lr, step):
         return (self.beta1, 1 - self.beta1, self.beta2, 1 - self.beta2,
-                float(self._alpha(lr, step)), self.epsilon)
+                self._alpha(lr, step), self.epsilon)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -476,9 +529,9 @@ class AdaMax(Updater):
         update = self._scale(lr, step) * m / (u + self.epsilon)
         return update, {"m": m, "u": u}
 
-    def coefficients(self, lr, step):
+    def _coefficients(self, lr, step):
         return (self.beta1, 1 - self.beta1, self.beta2,
-                float(self._scale(lr, step)), self.epsilon)
+                self._scale(lr, step), self.epsilon)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -507,10 +560,10 @@ class Nadam(Updater):
                   / (torch.sqrt(v_hat) + self.epsilon))
         return update, {"m": m, "v": v}
 
-    def coefficients(self, lr, step):
+    def _coefficients(self, lr, step):
         bc1, bc2 = self._corrections(step)
         return (self.beta1, 1 - self.beta1, self.beta2, 1 - self.beta2,
-                float(lr), _recip(bc1), _recip(bc2), self.epsilon)
+                lr, _recip(bc1), _recip(bc2), self.epsilon)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -537,9 +590,21 @@ class AmsGrad(Updater):
         update = self._alpha(lr, step) * m / (torch.sqrt(vhat) + self.epsilon)
         return update, {"m": m, "v": v, "vhat": vhat}
 
-    def coefficients(self, lr, step):
+    def _coefficients(self, lr, step):
         return (self.beta1, 1 - self.beta1, self.beta2, 1 - self.beta2,
-                float(self._alpha(lr, step)), self.epsilon)
+                self._alpha(lr, step), self.epsilon)
+
+
+def _store(params, states, new_params, new_states):
+    """Copy new values into the given parameter and state tensors (each
+    copy moves the destination's version); returns them."""
+    for p, s, np_, ns in zip(params, states, new_params, new_states):
+        if np_ is not p:
+            p.copy_(np_)
+        for k, t in ns.items():
+            if t is not s[k]:
+                s[k].copy_(t)
+    return list(params), list(states)
 
 
 # the order is the CUDA kernel's kind code (csrc/fused_updater.cu)

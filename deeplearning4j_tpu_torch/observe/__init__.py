@@ -31,6 +31,7 @@ from deeplearning4j_tpu_torch.observe.tracing import (
 from deeplearning4j_tpu_torch.observe.ledger import (
     CompileEvent,
     RecompileLedger,
+    RoutedEvent,
     default_ledger,
     note_jit_signature,
     reset_default_ledger,
@@ -52,7 +53,7 @@ def reset() -> None:
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "SpanTracer",
-    "CompileEvent", "RecompileLedger",
+    "CompileEvent", "RecompileLedger", "RoutedEvent",
     "metrics", "tracer", "ledger", "default_registry", "default_tracer",
     "default_ledger", "note_jit_signature", "signature_of", "reset",
     "log_event", "reset_log_state", "OBS_LOG_ENV",

@@ -23,6 +23,13 @@ rebuilt after an invalidation — as one :class:`CompileEvent` carrying:
 Events also increment ``dl4j_tpu_recompiles_total`` (plus a per-cause
 counter) in the default metrics registry. The JAX package's JSONL event
 log is not ported.
+
+The port adds one kind of event the JAX package has no need of: a
+training step routed to eager execution instead of a capture
+(:meth:`RecompileLedger.routed`, a :class:`RoutedEvent` with its reason —
+the masked cuDNN LSTM step reads its mask on the host). It is not a
+compile and moves no recompile counter; the trainers count every routed
+step in ``dl4j_tpu_capture_skipped_total{unit,reason}``.
 """
 
 from __future__ import annotations
@@ -91,11 +98,26 @@ class CompileEvent:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class RoutedEvent:
+    """A unit's signature run eagerly instead of captured, and why."""
+
+    graph: str
+    key: str
+    signature: str
+    reason: str
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
 class RecompileLedger:
-    """Bounded, thread-safe event log of compilations."""
+    """Bounded, thread-safe event log of compilations (and of the
+    signatures routed to eager execution)."""
 
     def __init__(self, max_events: int = _MAX_EVENTS):
         self._events: "deque[CompileEvent]" = deque(maxlen=max_events)
+        self._routed: Dict[RoutedEvent, None] = {}
         self._lock = threading.Lock()
         self._seq = 0
 
@@ -122,6 +144,18 @@ class RecompileLedger:
     def events(self) -> Tuple[CompileEvent, ...]:
         with self._lock:
             return tuple(self._events)
+
+    def routed(self, *, graph: str, key: str, signature: str,
+               reason: str) -> None:
+        """Record (once) that ``key``'s ``signature`` runs eagerly for
+        ``reason``, decided before any capture."""
+        ev = RoutedEvent(graph, key, signature, reason)
+        with self._lock:
+            self._routed.setdefault(ev, None)
+
+    def routed_events(self) -> Tuple[RoutedEvent, ...]:
+        with self._lock:
+            return tuple(self._routed)
 
     def __len__(self) -> int:
         with self._lock:

@@ -28,6 +28,21 @@ the tensor loaded last time, unchanged since), refresh the derived buffers
 whose source changed (:func:`note_derived`), and replay. The outputs are
 the graph's own buffers: they hold until the unit's next call.
 
+**Training units.** A training step (``jax.jit(train_step,
+donate_argnums=...)`` in the JAX package) updates its parameters, updater
+state, layer state and iteration in place: the caller passes those
+tensors as ``state=``. They are the graph's static buffers themselves,
+never copied; their addresses, shapes and dtypes join the signature (a
+trainer that rebinds a parameter gets a new capture, never a replay that
+writes a freed buffer). A replay writes them behind PyTorch's back, so
+after each replay the unit moves the ``_version`` of every one
+(:func:`bump_versions`): ``_Static.load`` of another unit, the derived
+buffers and ``cuda_matmul.kmajor_weight`` then see the change. A K-major
+copy a training step reads is remade inside its graph, from the weight
+the replay has at that point (:func:`remakes_inside`): no derived buffer
+of a training unit is refreshed before a replay, and a multi-step graph
+reads each step's own weights.
+
 **Launch accounting.** A replay runs no Python, so the wrappers' launch
 counters and ``dl4j_tpu_helper_dispatch_total`` would miss it. The warm-up
 counts as it launches. The capture launches nothing: the launch counters
@@ -52,6 +67,7 @@ raises; nothing runs eagerly in its place.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 import weakref
@@ -66,6 +82,8 @@ _CAPTURE_LOCK = threading.Lock()
 _STATE_LOCK = threading.Lock()
 _DISABLED = 0  # depth of open disable_capture() blocks, process-wide
 _RECORDING = threading.local()  # .derived: the capture underway here
+# (.training: that capture is a training unit's, whose graph remakes the
+# K-major copies it reads)
 
 
 @contextlib.contextmanager
@@ -85,6 +103,10 @@ def disable_capture():
 
 def capture_enabled() -> bool:
     return _DISABLED == 0
+
+
+def _addresses(tensors: Sequence[torch.Tensor]) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
 
 
 def _version_key(t: torch.Tensor) -> tuple:
@@ -108,6 +130,19 @@ class _Derived:
         self.remake(self.source, self.buffer)
         self.key = key
         return True
+
+
+def remakes_inside() -> bool:
+    """Whether a training unit is warming up or capturing on this thread:
+    a copy derived from a weight is then made inside the graph, from the
+    weight as the replay finds it, and is neither kept nor noted."""
+    return bool(getattr(_RECORDING, "training", False))
+
+
+def bump_versions(tensors: Sequence[torch.Tensor]) -> None:
+    """Move the ``_version`` of tensors a kernel or a graph replay wrote
+    in place (PyTorch's own in-place ops do it themselves)."""
+    torch.autograd.graph.increment_version(list(tensors))
 
 
 def note_derived(source: torch.Tensor, buffer: torch.Tensor,
@@ -194,12 +229,15 @@ def _pool_bytes(pool) -> int:
 
 class _Graph:
     """One signature's capture: the graph, its static inputs and outputs,
-    the derived buffers it reads and what one replay launches."""
+    the state it writes in place, the derived buffers it reads and what
+    one replay launches."""
 
-    def __init__(self, graph, inputs, outputs, derived, launches, dispatch):
+    def __init__(self, graph, inputs, outputs, derived, launches, dispatch,
+                 state=()):
         self.graph = graph
         self.inputs: List[_Static] = inputs
         self.outputs = outputs
+        self.state: Tuple[torch.Tensor, ...] = tuple(state)
         self.derived: List[_Derived] = derived
         self.launches: List[Tuple[Tuple[Any, str], int]] = launches
         self.dispatch: Dict[Tuple[str, str, str], int] = dispatch
@@ -224,7 +262,12 @@ class CapturedUnit:
     docstring). ``fn(*args)`` takes tensors and returns a tensor, a tuple
     or dict of tensors, or None. ``generators``: the ``torch.Generator``
     objects ``fn`` draws from. ``owned_inputs``: the arguments are the
-    caller's persistent buffers, read in place and never copied.
+    caller's persistent buffers, read in place and never copied. A call's
+    ``state``: the tensors ``fn`` reads and writes in place without taking
+    them as arguments (a training unit's parameters and updater state);
+    ``reads``: the tensors it reads in place without taking them as
+    arguments and never writes. The addresses of both join the signature;
+    the versions of ``state`` move after each replay.
 
     Kept for the records: ``captures``, ``pool_bytes`` (the segments the
     shared pool holds after the last capture: its peak), ``static_bytes``
@@ -255,21 +298,26 @@ class CapturedUnit:
         """Whether this call would replay (or capture) a graph."""
         return self.device.type == "cuda" and capture_enabled()
 
-    def __call__(self, *args: torch.Tensor, key: Any = ()):
+    def __call__(self, *args: torch.Tensor, key: Any = (),
+                 state: Sequence[torch.Tensor] = (),
+                 reads: Sequence[torch.Tensor] = ()):
         if not self.captured():
             return self.fn(*args)
         sig = (key, environment().helper_mode,
                tuple((tuple(a.shape), a.dtype, a.stride(),
-                      a.data_ptr() if self._owned else 0) for a in args))
+                      a.data_ptr() if self._owned else 0) for a in args),
+               _addresses(state), _addresses(reads))
         g = self._graphs.get(sig)
         if g is None:
-            return self._capture(sig, args)
+            return self._capture(sig, args, tuple(state))
         with torch.cuda.device(self.device):
             for st, a in zip(g.inputs, args):
                 st.load(a)
             for d in g.derived:
                 d.refresh()
             g.graph.replay()
+        if g.state:
+            bump_versions(g.state)
         for (obj, attr), n in g.launches:
             setattr(obj, attr, getattr(obj, attr) + n)
         if g.dispatch:
@@ -291,7 +339,8 @@ class CapturedUnit:
             self.static_bytes += st.buffer.numel() * st.buffer.element_size()
         return st
 
-    def _capture(self, sig: tuple, args: Sequence[torch.Tensor]):
+    def _capture(self, sig: tuple, args: Sequence[torch.Tensor],
+                 state: Tuple[torch.Tensor, ...] = ()):
         """Warm up, capture, and return the warm-up's results in the
         graph's output buffers: the first call runs the function once."""
         dev = self.device
@@ -318,6 +367,7 @@ class CapturedUnit:
             dispatch: Dict[Tuple[str, str, str], int] = {}
             with _CAPTURE_LOCK:
                 _RECORDING.derived = derived
+                _RECORDING.training = bool(state)
                 try:
                     t0 = time.perf_counter()
                     self._stream.wait_stream(torch.cuda.current_stream(dev))
@@ -330,14 +380,25 @@ class CapturedUnit:
                         graph.register_generator_state(gen)
                     _RECORDING.dispatch = dispatch
                     # the engine captures on its worker thread while callers
-                    # submit on theirs: only this thread's calls are checked
+                    # submit on theirs: only this thread's calls are checked.
+                    # torch.cuda.graph collects garbage as it starts; the
+                    # collector stays off until the capture ends, so no
+                    # unreachable graph is destroyed (cudaGraphExecDestroy,
+                    # its pool freed) in the middle of this one
+                    collecting = gc.isenabled()
                     with torch.cuda.graph(graph, pool=self._pool,
                                           stream=self._stream,
                                           capture_error_mode="thread_local"):
-                        outputs = self.fn(*statics)
+                        gc.disable()
+                        try:
+                            outputs = self.fn(*statics)
+                        finally:
+                            if collecting:
+                                gc.enable()
                     t2 = time.perf_counter()
                 finally:
                     _RECORDING.derived = _RECORDING.dispatch = None
+                    _RECORDING.training = False
             self.pool_bytes = _pool_bytes(self._pool)
             # the capture launched nothing: its counts stand for a replay
             launches = [(c, getattr(*c) - b) for c, b in zip(cells, before)
@@ -348,7 +409,7 @@ class CapturedUnit:
                 out.copy_(warm)
         reads = [self._derived.setdefault(i, d) for i, d in derived.items()]
         self._graphs[sig] = _Graph(graph, inputs, outputs, reads, launches,
-                                   dispatch)
+                                   dispatch, state)
         self.captures += 1
         self.timings = (t0, t1, t2)
         return outputs

@@ -150,14 +150,25 @@ def kmajor_weight(w, split: bool = False):
     next tensor. An inference tensor keeps no version counter, so a kept
     copy could go stale unseen: its copy is made at every call. Copies
     made are counted in ``kmajor_weight.copies``. A kept copy is a
-    derived buffer of a CUDA-graph capture underway (``ops/capture.py``):
-    the graph reads it in place, and it is remade into the same buffer
-    (:func:`_remake_kmajor`) before a replay once ``w`` has changed."""
+    derived buffer of an inference unit's CUDA-graph capture underway
+    (``ops/capture.py``): the graph reads it in place, and it is remade
+    into the same buffer (:func:`_remake_kmajor`) before a replay once
+    ``w`` has changed.
+
+    Under a training unit's warm-up and capture
+    (``capture.remakes_inside()``) the copy is made at every call and kept
+    nowhere: the remaking launch is recorded in the graph, so each replay
+    remakes it from the weight as the replay finds it. A training step
+    rewrites its weights in place every replay, so a copy kept across
+    replays would always be stale; a derived buffer remade before the
+    replay would cost the same launch outside the graph and could not
+    serve a graph of several steps, whose later steps read weights the
+    earlier ones wrote."""
     def make():
         kmajor_weight.copies += 1
         return kmajor_split(w) if split else w.t().contiguous()
 
-    if w.is_inference():
+    if w.is_inference() or capture.remakes_inside():
         return make()
     attr = "_dl4j_kmajor_split" if split else "_dl4j_kmajor"
     key = (w._version, w.data_ptr(), tuple(w.shape), w.stride())

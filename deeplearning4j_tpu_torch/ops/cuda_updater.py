@@ -17,10 +17,17 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_updater.py``::
   hyperparameters, lr, step and dtype: one launch for up to
   :data:`TABLE_LEAVES` leaves, reading each leaf's param, grad and state
   buffers once and writing its new param and state once, for all 11
-  kinds, in float32, bfloat16 or float16. Out of place: the wrapper
-  allocates the outputs (views into one flat buffer per output). Given
-  CPU tensors it computes the plain version leaf by leaf; given CUDA
-  tensors it launches or raises. :func:`fused_updater` is the per-leaf
+  kinds, in float32, bfloat16 or float16. The kernel reads its
+  coefficients (the learning rate, Adam's bias-corrected step...) from
+  an 8-float device buffer, :meth:`Updater.coefficients`, computed on the
+  device from the trainer's iteration tensor: a CUDA graph that captured
+  the launch reads each replay's values. Out of place (the wrapper
+  allocates the outputs: views into one flat buffer per output) or in
+  place (``inplace=True``: the kernel writes each leaf's parameter and
+  state buffers themselves, and the wrapper moves their ``_version``, as
+  a PyTorch in-place op does — the training steps' counterpart of the
+  JAX step's donated buffers). Given CPU tensors it computes the plain
+  version leaf by leaf; given CUDA tensors it launches or raises. :func:`fused_updater` is the per-leaf
   entry, a group of one. Launches are counted in
   ``fused_updater.launches`` and leaves in ``fused_updater.leaves``.
   ``Updater.apply_fused_many`` (``nn/updater.py``) packs a train step's
@@ -50,9 +57,8 @@ from deeplearning4j_tpu_torch.ops.registry import op
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
-# rows starts | n_leaves kind dtype | c0..c7 | stream
-_ARGS = (_P, _P, _I, _I, _I) + (_F,) * 8 + (_P,)
+# rows starts | n_leaves kind dtype | coef | stream
+_ARGS = (_P, _P, _I, _I, _I, _P, _P)
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,7 +86,11 @@ def _resolve(kind, hyper, state):
 
 
 def _scalar(v) -> torch.Tensor:
-    """lr as the float32 0-d CPU tensor the updater math takes."""
+    """lr as the float32 0-d tensor the updater math takes: a tensor stays
+    on its device (the trainers' learning rate lives on theirs), a number
+    becomes a CPU scalar."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
     return torch.as_tensor(v, dtype=torch.float32, device="cpu")
 
 
@@ -168,19 +178,27 @@ def _flat_outputs(shapes, dtype, device, n_out):
 
 
 def fused_updater_multi(params, grads, states, lr, step, *,
-                        kind: str = "Sgd", **hyper):
+                        kind: str = "Sgd", inplace: bool = False,
+                        coef=None, **hyper):
     """The CUDA kernel over a group of leaves: ``[(new_param, *new_state)]``
     per leaf, each equal to :func:`fused_updater_step` of that leaf. The
     leaves share ``kind``, ``hyper``, ``lr``, ``step``, dtype and device;
     ``states[i]`` is leaf i's state in sorted-key order. One launch per
     :data:`TABLE_LEAVES` leaves (``fused_updater.launches``; the leaves on
-    ``fused_updater.leaves``). CPU tensors take the plain version leaf by
-    leaf."""
+    ``fused_updater.leaves``). ``inplace``: the new values overwrite the
+    given (contiguous) parameter and state tensors, which are returned.
+    CPU tensors take the plain version leaf by leaf."""
     if not params:
         return []
     if params[0].device.type == "cpu":
-        return [fused_updater_step.fn(p, g, lr, step, *s, kind=kind, **hyper)
+        outs = [fused_updater_step.fn(p, g, lr, step, *s, kind=kind, **hyper)
                 for p, g, s in zip(params, grads, states)]
+        if not inplace:
+            return outs
+        for p, s, out in zip(params, states, outs):
+            for dst, new in zip((p,) + tuple(s), out):
+                dst.copy_(new)
+        return [(p,) + tuple(s) for p, s in zip(params, states)]
     upd, _, code = _resolve(kind, hyper, states[0])
     dev, dtype = params[0].device, params[0].dtype
     if dev.type != "cuda":
@@ -194,6 +212,9 @@ def fused_updater_multi(params, grads, states, lr, step, *,
         if len(s) != ns:
             raise ValueError(f"fused_updater[{kind}]: every leaf needs {ns} "
                              f"state arrays")
+        if inplace and not all(t.is_contiguous() for t in (p,) + tuple(s)):
+            raise ValueError("fused_updater: an in-place update needs "
+                             "contiguous parameter and state tensors")
         bufs = [t.contiguous() for t in (p, g) + tuple(s)]
         if any(t.shape != p.shape or t.dtype != dtype or t.device != dev
                for t in bufs):
@@ -201,10 +222,17 @@ def fused_updater_multi(params, grads, states, lr, step, *,
                              "share shape, dtype and device (and one group "
                              "one dtype and device)")
         leaves.append(bufs)
-    lr = _scalar(lr)
-    coef = list(upd.coefficients(lr, step))
-    coef += [0.0] * (8 - len(coef))
-    outs = _flat_outputs([b[0].shape for b in leaves], dtype, dev, 1 + ns)
+    # the coefficients on the card (a no-op move when the trainer's lr and
+    # step live there); kept alive until the launches are enqueued
+    if coef is None:
+        coef = upd.coefficients(_scalar(lr), step)
+    coef = coef.to(dev, torch.float32).contiguous()
+    if inplace:
+        outs = [[b[0] for b in leaves]] + [[b[2 + j] for b in leaves]
+                                           for j in range(ns)]
+    else:
+        outs = _flat_outputs([b[0].shape for b in leaves], dtype, dev,
+                             1 + ns)
     es = leaves[0][0].element_size()
     rows = np.zeros((len(leaves), _ROW), np.int64)
     for i, bufs in enumerate(leaves):
@@ -222,7 +250,7 @@ def fused_updater_multi(params, grads, states, lr, step, *,
         table = np.ascontiguousarray(rows[idx])
         st = np.asarray(starts, np.int32)
         rc = fn(table.ctypes.data, st.ctypes.data, len(idx), code,
-                _DTYPE_CODES[dtype], *coef, stream)
+                _DTYPE_CODES[dtype], coef.data_ptr(), stream)
         if rc == -1:
             raise ValueError("fused_updater: unsupported dtype, kind or leaf "
                              "count")
@@ -231,14 +259,19 @@ def fused_updater_multi(params, grads, states, lr, step, *,
                                f"cudaError_t {rc}")
         fused_updater.launches += 1
     fused_updater.leaves += len(leaves)
+    if inplace:
+        from deeplearning4j_tpu_torch.ops.capture import bump_versions
+
+        bump_versions([t for o in outs for t in o])
     return [tuple(o[i] for o in outs) for i in range(len(leaves))]
 
 
-def fused_updater(param, grad, lr, step, *state, kind: str = "Sgd", **hyper):
+def fused_updater(param, grad, lr, step, *state, kind: str = "Sgd",
+                  coef=None, **hyper):
     """The CUDA kernel of :func:`fused_updater_step` — same contract; a
     group of one leaf of :func:`fused_updater_multi`."""
     return fused_updater_multi([param], [grad], [tuple(state)], lr, step,
-                               kind=kind, **hyper)[0]
+                               kind=kind, coef=coef, **hyper)[0]
 
 
 fused_updater.launches = 0

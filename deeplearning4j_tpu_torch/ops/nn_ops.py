@@ -403,9 +403,11 @@ def dot_product_attention(q, k, v, mask=None, *, scaled: bool = True,
     scores = torch.matmul(q, k.transpose(-1, -2))
     if scaled:
         # √D rounded to the scores' dtype, as the reference's
-        # jnp.sqrt(jnp.asarray(D, scores.dtype)): 9.8125 for D 96 in bf16
+        # jnp.sqrt(jnp.asarray(D, scores.dtype)): 9.8125 for D 96 in bf16;
+        # a 0-d CPU tensor, which torch takes as a host scalar on any
+        # device, as it takes its value: no host read inside a step
         scores = scores / torch.tensor(float(q.shape[-1]),
-                                       dtype=scores.dtype).sqrt().item()
+                                       dtype=scores.dtype).sqrt()
     # a fill on the device (no host copy, so it runs inside a capture)
     neg = torch.full((), -1e9, dtype=scores.dtype, device=scores.device)
     if mask is not None:

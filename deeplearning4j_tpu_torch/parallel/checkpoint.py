@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import faults, observe
+from deeplearning4j_tpu_torch.nn.compiled import commit
 
 logger = logging.getLogger(__name__)
 
@@ -125,6 +126,9 @@ def host_snapshot(state):
     """Every leaf of ``state`` as a host numpy array of its own: device
     tensors are copied without blocking, then one synchronization waits
     for all of them, so a writer thread never touches a device buffer.
+    The copies are queued on the current stream, the one the training
+    steps replay on, and the synchronization returns only when they are
+    done: the next step's in-place writes come after them.
     bfloat16 becomes float32 (numpy has no bfloat16; the values are
     exact)."""
     moved = []
@@ -624,12 +628,17 @@ class TrainingCheckpointer:
 
     @staticmethod
     def _apply_state(net, restored: Dict[str, Any]) -> None:
+        """Write the restored state into the net: each array copied into
+        the tensor already in its place (``nn/compiled.commit``), so the
+        net keeps its buffers — a captured training step's static state —
+        and its next step replays (the JAX restore's same-shape
+        assignment, which keeps the jitted step)."""
         if hasattr(net, "apply_training_state"):
             net.apply_training_state(restored)
             return
-        net.params = restored["params"]
-        net.opt_state = restored["opt_state"]
-        net.net_state = restored["net_state"]
+        net.params = commit(net.params, restored["params"])
+        net.opt_state = commit(net.opt_state, restored["opt_state"])
+        net.net_state = commit(net.net_state, restored["net_state"])
         net.iteration_count = int(restored["iteration"])
         net.epoch_count = int(restored["epoch"])
         if "data_cursor" in restored:

@@ -1,6 +1,6 @@
 """Where a BERT-base training step's time goes, on the card.
 
-    python -m deeplearning4j_tpu_torch.profile_bert [--trace out.json]
+    python -m deeplearning4j_tpu_torch.profile_bert [--eager] [--trace out.json]
 
 Trains BERT-base at full width (``BertConfig.base()``, random weights
 from the port's seed, attention and FFN dropout 0.1) through
@@ -22,6 +22,7 @@ are the card's, printed beside its name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,6 +40,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default=None,
                     help="write bert_train's Chrome trace here")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the training steps op by op (disable_capture); "
+                         "by default each is a CUDA-graph replay")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_bert: no GPU", file=sys.stderr)
@@ -46,8 +50,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from deeplearning4j_tpu_torch.datasets import synthetic_bert_batch
-    from deeplearning4j_tpu_torch.models.bert import BertConfig, BertModel
+    from deeplearning4j_tpu_torch.models.bert import BertConfig
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -55,6 +59,19 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     cfg = BertConfig.base()
+    with disable_capture() if args.eager else contextlib.nullcontext():
+        _run(args, card, dev, cfg)
+    return 0
+
+
+def _run(args, card, dev, cfg) -> None:
+    """Each configuration: warm steps (the step's capture), then the
+    profiled steps."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import synthetic_bert_batch
+    from deeplearning4j_tpu_torch.models.bert import BertModel
+
     for phase, dtype, task, batch, seq, min_len in CONFIGS:
         model = BertModel(cfg, seed=0, dtype=getattr(torch, dtype),
                           device=dev)
@@ -75,11 +92,11 @@ def main(argv=None) -> int:
                           "model": f"BertModel(BertConfig.base(), "
                                    f"dtype={dtype})", "task": task,
                           "batch": batch, "seq": seq,
+                          "captured": not args.eager,
                           **_profile(step, _STEPS, trace,
                                      named=("fused_updater",))}), flush=True)
         del model
         torch.cuda.empty_cache()
-    return 0
 
 
 if __name__ == "__main__":

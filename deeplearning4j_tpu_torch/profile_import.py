@@ -18,9 +18,10 @@ off.
 * ``--finetune`` — ``chip_smoke.py``'s ``sd_bert_finetune`` main path
   ("SameDiff BERT-base step time"): the token-classification head
   (dense → LayerNorm → GELU → 9 tags) added in SameDiff, Adam lr 5e-5,
-  ``sd.fit`` on one repeated batch. 2 warm steps, then 3 profiled steps
-  in one ``fit``; the port's kernel launches a step are read from the
-  wrappers' counters over those steps.
+  ``sd.fit`` on one repeated batch, each step a replay of the training
+  unit's capture (``--eager``: op by op). 2 warm steps, then 3 profiled
+  steps in one ``fit``; the port's kernel launches a step are read from
+  the wrappers' counters over those steps.
 * ``--int8`` — ``chip_smoke.py``'s ``int8_bert`` main path: the same
   weights and feeds with every dense MatMul a ``matmul_int8``
   (``testing.int8_bert.bert_int8_encoder`` through ``SameDiff``; no ONNX

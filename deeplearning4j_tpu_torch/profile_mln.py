@@ -1,6 +1,6 @@
 """Where a MultiLayerNetwork training step's time goes, on the card.
 
-    python -m deeplearning4j_tpu_torch.profile_mln [--trace out.json] [--zoo]
+    python -m deeplearning4j_tpu_torch.profile_mln [--eager] [--trace out.json] [--zoo]
 
 Trains the three networks of ``chip_smoke.py``'s sequential phases
 (``testing/sequential.py``: LeNet at batch 64; the BiLSTM tagger, 32 ×
@@ -26,6 +26,7 @@ device time of the kernels whose names hold ``conv``, ``gemm``,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -104,6 +105,9 @@ def main(argv=None) -> int:
                     help="write the tagger's (cuDNN) Chrome trace here")
     ap.add_argument("--zoo", action="store_true",
                     help="profile the zoo_cnn cells instead")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the training steps op by op (disable_capture); "
+                         "by default each is a CUDA-graph replay")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_mln: no GPU", file=sys.stderr)
@@ -114,6 +118,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = False
 
     from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -121,6 +126,16 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     env = environment()
+    with disable_capture() if args.eager else contextlib.nullcontext():
+        _run(args, card, dev, env)
+    return 0
+
+
+def _run(args, card, dev, env) -> None:
+    """Each cell: warm steps (the step's capture), then the profiled
+    steps."""
+    import torch
+
     cells = _zoo_cells(dev) if args.zoo else _sequential_cells(dev)
     named = _ZOO_NAMED if args.zoo else _NAMED
     for phase, mode, build in cells:
@@ -136,11 +151,11 @@ def main(argv=None) -> int:
         finally:
             env.helper_mode = "auto"
         print(json.dumps({"phase": phase, "helper_mode": mode, "card": card,
-                          "batch": batch, "shape": list(shape), **line}),
+                          "batch": batch, "shape": list(shape),
+                          "captured": not args.eager, **line}),
               flush=True)
         del net, step
         torch.cuda.empty_cache()
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Where a ResNet-50 training step's time goes, on the card.
 
-    python -m deeplearning4j_tpu_torch.profile_train [--trace out.json]
+    python -m deeplearning4j_tpu_torch.profile_train [--eager] [--trace out.json]
 
 Trains ResNet-50 at full width (224×224×3, 1000 classes, random weights
 from the port's seed) through ``ResNet50(...).init()`` → ``fit`` in the
@@ -23,6 +23,7 @@ its name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -40,6 +41,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default=None,
                     help="write the fused configuration's Chrome trace here")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the training steps op by op (disable_capture); "
+                         "by default each is a CUDA-graph replay")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no GPU", file=sys.stderr)
@@ -49,14 +53,26 @@ def main(argv=None) -> int:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
 
-    from deeplearning4j_tpu_torch.datasets import synthetic_image_batch
-    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    with disable_capture() if args.eager else contextlib.nullcontext():
+        _run(args, card, dev)
+    return 0
+
+
+def _run(args, card, dev) -> None:
+    """Each configuration: warm steps (the step's capture), then the
+    profiled steps."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import synthetic_image_batch
+    from deeplearning4j_tpu_torch.models import ResNet50
+
     for phase, fused, dtype, batch in (("train", False, "float32", 32),
                                        ("train_fused", True, "mixed", 128)):
         net = ResNet50(fused_blocks=fused, dtype=dtype, device=dev).init()
@@ -73,12 +89,12 @@ def main(argv=None) -> int:
         print(json.dumps({"phase": phase, "card": card,
                           "model": f"ResNet50(fused_blocks={fused}, "
                                    f"dtype={dtype!r})", "batch": batch,
+                          "captured": not args.eager,
                           **_profile(step, _STEPS, trace,
                                      named=("bn_matmul_stats",
                                             "fused_updater"))}), flush=True)
         del net
         torch.cuda.empty_cache()
-    return 0
 
 
 if __name__ == "__main__":

@@ -330,11 +330,17 @@ def test_feed_forward_score_and_counters():
 
 
 def test_unported_entry_points_raise():
-    """``fit_scanned`` still raises, naming its ROADMAP item (listeners
-    and ``evaluate`` are ported: ``test_torch_eval_listeners.py``)."""
+    """``fit_scanned`` is ported (its parity with the JAX package:
+    ``test_torch_capture_train.py``); what it does not take raises, as in
+    the JAX package, whose ``fit_scanned`` has no mask arguments: masks."""
     tnet = LeNet(device="cpu").init()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tnet.fit_scanned(None, None)
+    x = np.zeros((2, 784), np.float32)
+    y = np.eye(10, dtype=np.float32)[[0, 1]]
+    for kw in (dict(features_mask=np.ones((2, 1), np.float32)),
+               dict(labels_mask=np.ones((2, 1), np.float32))):
+        with pytest.raises(ValueError, match="no masks"):
+            tnet.fit_scanned(x, y, steps=1, **kw)
+    assert tnet.iteration_count == 0
 
 
 def test_text_generation_lstm_zoo_config():

@@ -371,6 +371,43 @@ class TestExactResume:
             == (12, 3, 0)
         assert new_shape_events() - ns0 == 0
 
+    @pytest.mark.parametrize("donate", [False, True],
+                             ids=["rebinding", "in_place"])
+    def test_restore_keeps_the_tensors_in_place(self, tmp_path, monkeypatch,
+                                                donate):
+        """A restore copies the checkpoint into the network's own
+        tensors (on the card, a captured training step's static
+        buffers): every parameter, updater-state and layer-state tensor
+        keeps its object and ``data_ptr``, holds the checkpoint's values,
+        and the fit resumed from it equals the uninterrupted one bit for
+        bit. ``in_place`` forces the card's donated step on the CPU."""
+        from deeplearning4j_tpu_torch.nn import compiled, multilayer
+
+        if donate:
+            for mod in (compiled, multilayer):
+                monkeypatch.setattr(mod, "donates", lambda device: True)
+        x, y = xy(64)
+        oracle = build_mln()
+        oracle.fit(x, y, epochs=2, batch_size=16)
+        net = build_mln()
+        ck = TrainingCheckpointer(str(tmp_path))
+        net.fit(x, y, epochs=1, batch_size=16)
+        ck.save(net.iteration_count, net)
+        saved = _flat_state(net)
+        net.fit(x, y, epochs=1, batch_size=16)
+        live = compiled.tensors_of(net.params, net.opt_state, net.net_state)
+        ptrs = [t.data_ptr() for t in live]
+        assert ck.restore(net) == 4
+        after = compiled.tensors_of(net.params, net.opt_state, net.net_state)
+        assert all(a is b for a, b in zip(after, live))
+        assert [t.data_ptr() for t in after] == ptrs
+        for a, b in zip(_flat_state(net), saved):
+            np.testing.assert_array_equal(a, b)
+        assert (net.iteration_count, net.epoch_count) == (4, 1)
+        net.fit(x, y, epochs=1, batch_size=16)
+        for a, b in zip(_flat_state(net), _flat_state(oracle)):
+            np.testing.assert_array_equal(a, b)
+
     def test_resume_replays_from_an_older_checkpoint(self, tmp_path):
         """Saves every 4 steps, killed after 6: the resume replays steps
         5 and 6 from step 4 and still lands on the oracle."""

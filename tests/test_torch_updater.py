@@ -175,6 +175,42 @@ def test_kernel_arithmetic_matches_the_plain_version(kind):
             np.testing.assert_array_equal(a, b.numpy())
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_reads_its_coefficient_buffer_and_writes_in_place(kind):
+    """The kernel's calling convention: its coefficients come from the
+    (8,) float32 buffer ``Updater.coefficients`` makes from the trainer's
+    int32 step tensor (the kernel loads it once a block), and it writes
+    the new parameter and state over the old ones (dst == src). The
+    transcription, fed that buffer, and writing into the leaf's own
+    arrays, equals the plain version at the same step tensor — bit for
+    bit, Nadam within the 2 ulp of its reciprocals."""
+    r = np.random.RandomState(300 + KINDS.index(kind))
+    tu = tupd.UPDATERS[kind](
+        learning_rate=tupd.ExponentialSchedule(**SCHED), **_hyper(kind))
+    step = torch.tensor(5, dtype=torch.int32)
+    lr = tu.lr(step)
+    buf = tu.coefficients(lr, step)
+    assert buf.shape == (8,) and buf.dtype == torch.float32
+    p = r.randn(N).astype(np.float32)
+    g = (r.randn(N) * 0.1).astype(np.float32)
+    st = _state0(kind, r)
+    keys = sorted(st)
+    want = cu.fused_updater_step.fn(
+        torch.from_numpy(p.copy()), torch.from_numpy(g), lr, step,
+        *(torch.from_numpy(st[k].copy()) for k in keys), kind=kind,
+        **tu.fused_hyper())
+    dst = [p] + [st[k] for k in keys]
+    new = _kernel_math(kind, list(buf.numpy()), p, g, dst[1:])
+    for d, v in zip(dst, new):
+        d[...] = v  # in place: the sources are the destinations
+    assert dst[0] is p and all(d is st[k] for d, k in zip(dst[1:], keys))
+    for a, b in zip(dst, want):
+        if kind == "Nadam":
+            np.testing.assert_array_max_ulp(a, b.numpy(), maxulp=2)
+        else:
+            np.testing.assert_array_equal(a, b.numpy())
+
+
 def test_plain_version_rounds_low_precision_leaves_once():
     """A bfloat16 leaf is computed in float32 and each output rounded once
     to bfloat16 — what the kernel stores."""
