@@ -1351,8 +1351,10 @@ def capture_fields(units, captured, eager, events, keys) -> tuple:
     bit-equal in losses and in every tensor of the state (parameters,
     updater state, batch-norm state); one ``first_compile`` per step key
     and no other ledger event (no ``new_shape``: every later step
-    replays). ``units``: the trainer's ``{key: CapturedUnit}``. Returns
-    (problems, line fields)."""
+    replays; no ``state_moved``), and each key's unit captured once at
+    most (none when its steps are routed to eager) with no capture that
+    only moved addresses called for. ``units``: the trainer's ``{key:
+    CapturedUnit}``. Returns (problems, line fields)."""
     ledger = _ledger_by_key(events, keys)
     losses_equal = list(captured[0]) == list(eager[0])
     state_equal = _equal_trees(captured[-1], eager[-1])
@@ -1367,6 +1369,11 @@ def capture_fields(units, captured, eager, events, keys) -> tuple:
         if ledger.get(k) != ["first_compile"]:
             problems.append(f"ledger {k}: {ledger.get(k)} (one "
                             f"first_compile, no new_shape)")
+        unit = units.get(k)
+        if unit is not None and (unit.captures > 1 or unit.moved):
+            problems.append(f"unit {k}: {unit.captures} captures, "
+                            f"{unit.moved} for moved addresses (one "
+                            f"capture, replayed)")
     return problems, {
         "captured_step_p50_ms": float(np.percentile(captured[1], 50)) * 1e3,
         "eager_step_p50_ms": float(np.percentile(eager[1], 50)) * 1e3,
@@ -2301,6 +2308,7 @@ def sd_bert_finetune_phase(dev, smi):
             # the unit's records (not the unit: its pool goes with sd)
             units = {k[0]: types.SimpleNamespace(
                 captures=u.units["train"].captures,
+                moved=u.units["train"].moved,
                 pool_bytes=u.units["train"].pool_bytes,
                 static_bytes=u.units["train"].static_bytes)
                 for k, u in sd._jit_cache.items()
@@ -2734,7 +2742,7 @@ def decode_step_case(eng, prompts):
 def unit_memory(unit) -> dict:
     """A captured unit's graphs and memory: the pool's reserved bytes and
     the static input buffers, MiB."""
-    return {"captures": unit.captures,
+    return {"captures": unit.captures, "moved": unit.moved,
             "pool_mib": unit.pool_bytes / 2 ** 20,
             "static_mib": unit.static_bytes / 2 ** 20}
 
@@ -3857,17 +3865,47 @@ def _host_syncs():
                       if "called a synchronizing" in str(w.message)]
 
 
-def _scan_case(label, trainer, load, stepped, scanned, units_key, state):
+def _kernel_counters():
+    """(name in the kernels line, wrapper, attribute) of every kernel
+    wrapper's launch count. The flash, fused-matmul, bn_matmul_stats and
+    int8 base names count every design, as in the kernels line."""
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_convbn as cc
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    cells = [(name, w, a) for name, (w, a) in ca.KERNELS.items()]
+    cells += [(f"fused_matmul_bias_act{suffix}", cm.fused_matmul, a)
+              for suffix, a in (("", "launches"), ("_sm90", "sm90_launches"),
+                                ("_f32_sm90", "sm90_f32_launches"))]
+    cells += [("fused_layer_norm", cl.fused_layer_norm_kernel, "launches"),
+              ("bn_matmul_stats", cc.bn_matmul_stats, "launches"),
+              ("bn_matmul_stats_sm90", cc.bn_matmul_stats, "sm90_launches"),
+              ("matmul_int8", cq.int8_matmul, "launches"),
+              ("matmul_int8_sm90", cq.int8_matmul, "sm90_launches"),
+              ("matmul_int8_row_quantize", cq.row_quantize, "launches"),
+              ("fused_updater", cu.fused_updater, "launches")]
+    return cells
+
+
+def _scan_case(label, trainer, load, stepped, scanned, units_key, state,
+               steps=3):
     """One scanned entry point against as many steps of ``fit``: ``load()``
-    sets the trainer to its starting state; ``stepped()`` runs the steps
-    one ``fit`` call each and returns their losses; ``scanned()`` runs
-    them as one chunk and returns its losses. The chunk runs twice from
-    the start — the first captures its unit, the second replays it with
-    its host synchronizations counted (one: the losses read back) — and
-    each must equal the stepped run bit for bit in losses and in the
-    ``state()`` tree. Returns (problems, line fields)."""
+    sets the trainer to its starting state; ``stepped()`` runs the
+    ``steps`` steps one ``fit`` call each and returns their losses;
+    ``scanned()`` runs them as one chunk and returns its losses. The chunk
+    runs twice from the start — the first captures its unit, the second
+    replays it with its host synchronizations counted (one: the losses
+    read back) — and each must equal the stepped run bit for bit in losses
+    and in the ``state()`` tree. The kernels' launch counts are set to 0
+    just before the replayed chunk and read just after: that run alone is
+    the scanned path's, and it must launch the updater once a step at
+    least. Returns (problems, line fields)."""
     import torch
 
+    cells = _kernel_counters()
     load()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3880,10 +3918,14 @@ def _scan_case(label, trainer, load, stepped, scanned, units_key, state):
     first_state = _clone_tree(state())
     load()
     torch.cuda.synchronize()
+    for _, w, a in cells:
+        setattr(w, a, 0)                # the scanned path's run starts
     t0 = time.perf_counter()
     with _host_syncs() as syncs:
         got = [float(v) for v in scanned()]
     chunk_s = time.perf_counter() - t0
+    launches = {name: getattr(w, a) for name, w, a in cells
+                if getattr(w, a)}       # ... and ends
     got_state = _clone_tree(state())
     problems = []
     for run, losses, st in (("first chunk", first, first_state),
@@ -3898,9 +3940,14 @@ def _scan_case(label, trainer, load, stepped, scanned, units_key, state):
     if len(syncs) != 1:
         problems.append(f"{label}: {len(syncs)} host synchronizations in a "
                         f"replayed chunk, not 1: {syncs}")
+    if launches.get("fused_updater", 0) < steps:
+        problems.append(f"{label}: the replayed chunk launched the fused "
+                        f"updater {launches.get('fused_updater', 0)} times "
+                        f"for {steps} steps")
     unit = trainer._steps.units[units_key]
     return problems, {"losses": got, "bit_equal_fit": equal,
                       "host_syncs_a_chunk": len(syncs),
+                      "launches": launches,
                       "chunk_s": chunk_s, "fit_s": stepped_s,
                       "graph_unit": unit_memory(unit)}
 
@@ -3913,23 +3960,20 @@ def fit_scanned_phase(dev, smi):
     A's (``ComputationGraph.fit_scanned``, float32, batch 32 at 224²,
     three per-step batches) and BERT-base's ``fit_mlm_scanned`` at
     bert_mlm's shape (bfloat16, 8 × 512, dropout 0.1, 3 steps on one
-    batch against three ``fit_mlm`` calls). Returns (problems, line,
-    launches)."""
+    batch against three ``fit_mlm`` calls). The launches are those of the
+    four replayed chunks, each counted alone (``_scan_case``), summed.
+    Returns (problems, line, launches)."""
     import torch
 
     from deeplearning4j_tpu_torch.datasets import (
         synthetic_bert_batch, synthetic_image_batch)
     from deeplearning4j_tpu_torch.models import LeNet, ResNet50
     from deeplearning4j_tpu_torch.models.bert import BertConfig, BertModel
-    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
-    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
     from deeplearning4j_tpu_torch.testing import sequential as S
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     problems, cases = [], {}
-    ca.reset_launch_counts()
-    cu.fused_updater.launches = cu.fused_updater.leaves = 0
 
     def network_loader(net):
         start = _clone_tree([net.params, net.opt_state, net.net_state])
@@ -4009,8 +4053,10 @@ def fit_scanned_phase(dev, smi):
     problems += found
     if model.step != 3:
         problems.append(f"BERT step {model.step} != 3 after the chunk")
-    launches = dict(ca.launch_counts(),
-                    fused_updater=cu.fused_updater.launches)
+    launches = {}
+    for case in cases.values():
+        for name, n in case["launches"].items():
+            launches[name] = launches.get(name, 0) + n
     del model
     torch.cuda.empty_cache()
     line = {"phase": "fit_scanned", "card": smi,
@@ -4019,8 +4065,9 @@ def fit_scanned_phase(dev, smi):
                       "bert_mlm": "BertModel(BertConfig.base(), bfloat16), "
                                   "8 x 512, dropout 0.1"},
             "cases": cases, "launches": launches,
-            "launches_note": "every run of the phase: the fit references "
-                             "and both chunks of each case",
+            "launches_note": "the replayed chunk of each case alone, its "
+                             "counts set to 0 just before it and read just "
+                             "after; summed over the cases",
             "problems": problems}
     return problems, line, launches
 

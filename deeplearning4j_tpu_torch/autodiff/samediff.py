@@ -364,10 +364,11 @@ def _gather(params, indices, *, axis=0):
     valid = (idx >= 0) & (idx < n)
     flat = torch.clamp(idx, 0, max(n - 1, 0)).reshape(-1)
     if axis == 0 and params.ndim == 2 and params.is_floating_point():
-        # a table's rows (an embedding): F.embedding's backward sums the
-        # rows' gradients in a fixed order on the card, where
-        # index_select's (index_add_) sums with atomics, in any order
-        out = F.embedding(flat, params)
+        # a table's rows (an embedding): nn_ops.table_rows, whose gradient
+        # has the same bits every run on the card, where index_select's
+        # (index_add_) sums with atomics and F.embedding's sums a small
+        # table's duplicate indices in an order that varies
+        out = nn_ops.table_rows(params, flat)
     else:
         out = torch.index_select(params, axis, flat)
     out = out.reshape(params.shape[:axis] + idx.shape

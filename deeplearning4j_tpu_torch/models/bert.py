@@ -53,6 +53,7 @@ from deeplearning4j_tpu_torch.nn.compiled import (
     TrainUnits, donates, tensors_of)
 from deeplearning4j_tpu_torch.nn.dtype import precision_scope
 from deeplearning4j_tpu_torch.nn.updater import Adam, get_updater
+from deeplearning4j_tpu_torch.ops.nn_ops import table_rows
 
 # (attention-dropout generator, FFN-dropout generator)
 DropoutRng = Tuple[torch.Generator, torch.Generator]
@@ -193,14 +194,12 @@ def _attention(p, x, attn_mask, cfg: BertConfig, *, train: bool,
 
 
 def _type_rows(segments, table):
-    """The token-type rows of ``segments``: a one-hot product, exact (one
-    nonzero term a row), whose gradient into the table of ``type_vocab``
-    (2) rows is a GEMM — the same bits every run. ``F.embedding``'s
-    backward on the card sums the batch's thousands of duplicate indices
-    into those two rows in an order that varies from run to run. (No
-    ``F.one_hot``: it reads the indices' range on the host.)"""
-    rows = torch.arange(table.shape[0], device=segments.device)
-    return (segments[..., None] == rows).to(table.dtype) @ table
+    """The token-type rows of ``segments``: ``nn_ops.table_rows``, whose
+    gradient into the table of ``type_vocab`` (2) rows is a GEMM against
+    the one-hot segments — the same bits every run, where
+    ``F.embedding``'s backward on the card sums the batch's thousands of
+    duplicate indices into those two rows in an order that varies."""
+    return table_rows(table, segments)
 
 
 def bert_encoder(params, ids, segments, mask, cfg: BertConfig, *,
@@ -356,21 +355,24 @@ class BertModel:
             step.add_(1)
         return loss.detach()
 
-    def train_step(self, loss_fn, batch: Dict[str, torch.Tensor], *,
-                   copy_out: bool = True) -> torch.Tensor:
+    def _donated(self) -> list:
+        """The tensors a training step writes in place: parameters,
+        updater state and the device iteration."""
+        return tensors_of(self.params, self.opt_state) + [
+            self._steps.iteration.tensor]
+
+    def train_step(self, loss_fn, batch: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
         """One step as the training unit ``cls`` (the classification
-        loss) or ``mlm`` (the masked-LM loss): returns the loss (a device
-        scalar; with ``copy_out`` False on the card, the graph's own
-        buffer, good until the next step)."""
+        loss) or ``mlm`` (the masked-LM loss): returns the loss, a device
+        scalar."""
         key = _STEP_KEYS.get(loss_fn, getattr(loss_fn, "__name__", "step"))
         names = tuple(sorted(batch))
         self._steps.iteration.at(self.step)
         loss = self._steps.run(
             key, lambda *t: self._step(loss_fn, dict(zip(names, t))),
             [batch[k] for k in names], layout=(names, self.cfg),
-            state=tensors_of(self.params, self.opt_state)
-            + [self._steps.iteration.tensor],
-            signature=observe.signature_of(**batch), copy_out=copy_out)
+            state=self._donated(), signature=observe.signature_of(**batch))
         self._steps.iteration.advanced()
         self.step += 1
         return loss
@@ -400,14 +402,23 @@ class BertModel:
                         ) -> np.ndarray:
         """``steps`` MLM steps on one fixed device-resident batch with no
         host read between them (the JAX package's ``lax.scan`` over
-        ``_mlm_step``): the ``mlm`` unit replayed once a step, each loss
-        copied into a device vector, read back once. ``step`` advances by
-        ``steps``. Returns the per-step losses."""
+        ``_mlm_step``): the ``mlm`` unit replayed once a step through
+        ``TrainUnits.scan``, each loss copied into a device vector, read
+        back once. ``step`` advances by ``steps``. Returns the per-step
+        losses."""
         b = self._batch(batch, _MLM_KEYS)
-        losses = torch.empty(steps, dtype=torch.float32, device=self.device)
-        for k in range(steps):
-            losses[k] = self.train_step(mlm_loss, b, copy_out=False)
-        return losses.cpu().numpy()
+        names = tuple(sorted(b))
+        start = self.step
+
+        def advance(_losses):
+            self.step = start + steps
+
+        return self._steps.scan(
+            "mlm", lambda *t: self._step(mlm_loss, dict(zip(names, t))),
+            [b[k] for k in names], steps, per_step=False,
+            state=self._donated, signature=observe.signature_of(**b),
+            start=start, batch_size=int(b["ids"].shape[0]),
+            advance=advance, layout=(names, self.cfg))
 
     @torch.no_grad()
     def predict(self, ids, segments=None, mask=None) -> np.ndarray:

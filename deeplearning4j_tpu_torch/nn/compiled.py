@@ -41,13 +41,17 @@ What a training unit needs that an inference unit does not:
 
 Each unit reports one ``first_compile`` per key and ``new_shape`` per
 further signature to the recompile ledger (``observe.note_jit_signature``),
-as the JAX package's jitted steps do.
+as the JAX package's jitted steps do, and ``state_moved`` for a capture
+that only moved donated or read tensors called for (a trainer that
+rebound its state instead of writing into it).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.ops.capture import CapturedUnit
@@ -178,7 +182,8 @@ class TrainUnits:
             return body(*args)
         self._body = body
         try:
-            out = unit(*args, key=(key, layout), state=state, reads=reads)
+            out = unit(*args, key=(key, layout), state=state, reads=reads,
+                       ledger=(self.graph, signature))
         finally:
             self._body = None
         if not (copy_out and unit.captured()):
@@ -191,17 +196,34 @@ class TrainUnits:
 
     def scan(self, key: str, step: Callable[..., torch.Tensor],
              stacks: Sequence[torch.Tensor], n: int, *, per_step: bool,
-             state: Callable[[], Sequence[torch.Tensor]],
-             signature: str) -> torch.Tensor:
-        """``n`` steps of ``step(*batch) -> loss`` as the unit ``key``,
-        with no host read between them: the counterpart of a
-        ``lax.scan`` over the train step. ``per_step``: step k trains on
-        row k of each tensor of ``stacks`` (staged to the device once; the
-        graph reads the row through the unit's position tensor, which it
-        advances), else every step on ``stacks`` themselves. ``state()``:
-        the donated tensors of the next step. Returns the steps' losses,
-        a float32 vector on the device, each copied out of the graph's
-        output before the next replay."""
+             state: Callable[[], Sequence[torch.Tensor]], signature: str,
+             start: int, batch_size: int,
+             advance: Callable[[torch.Tensor], None],
+             notify: Optional[Callable[[int, float], None]] = None,
+             layout: Any = ()) -> np.ndarray:
+        """``n`` steps of ``step(*batch) -> loss`` as the unit ``key``
+        from the trainer's iteration ``start``, with no host read between
+        them: the counterpart of a ``lax.scan`` over the train step.
+        ``per_step``: step k trains on row k of each tensor of ``stacks``
+        (staged to the device once; the graph reads the row through the
+        unit's position tensor, which it advances), else every step on
+        ``stacks`` themselves. ``state()``: the donated tensors of the
+        next step; ``layout``: what ``step`` makes of ``stacks``.
+
+        The chunk's epilogue, in this order: the device iteration moves
+        by ``n``; ``advance(losses)`` moves the trainer's own count (the
+        losses a float32 device vector); the losses are read back, the
+        chunk's one host read; ``dl4j_tpu_train_steps_total``,
+        ``dl4j_tpu_train_examples_total`` (``batch_size`` a step) and
+        ``dl4j_tpu_host_to_device_transfers_total`` (one a stack)
+        labelled ``model=graph`` and the span ``fit_scanned`` are
+        recorded; ``notify(iteration, loss)`` fires once a step in order,
+        with the JAX package's iteration numbers ``start + k + 1``.
+        Returns the losses (float32 numpy)."""
+        from deeplearning4j_tpu_torch import observe
+
+        self.iteration.at(start)
+        t0 = time.perf_counter()
         pos = self._position
         if pos is None:
             pos = self._position = torch.zeros((), dtype=torch.int64,
@@ -217,10 +239,26 @@ class TrainUnits:
 
         losses = torch.empty(n, dtype=torch.float32, device=self.device)
         for k in range(n):
-            losses[k] = self.run(key, body, stacks, layout=per_step,
+            losses[k] = self.run(key, body, stacks,
+                                 layout=(per_step, layout),
                                  state=list(state()) + [pos],
                                  signature=signature, copy_out=False)
-        return losses
+        self.iteration.advanced(n)
+        advance(losses)
+        host = losses.cpu().numpy()  # the chunk's one host read
+        m = observe.metrics()
+        m.counter("dl4j_tpu_train_steps_total", model=self.graph).inc(n)
+        m.counter("dl4j_tpu_train_examples_total", model=self.graph).inc(
+            n * batch_size)
+        m.counter("dl4j_tpu_host_to_device_transfers_total",
+                  model=self.graph).inc(len(stacks))
+        observe.tracer().complete_between(
+            "fit_scanned", t0, time.perf_counter(), category="train",
+            steps=n)
+        if notify is not None:
+            for k in range(n):
+                notify(start + k + 1, float(host[k]))
+        return host
 
     def reset(self) -> None:
         """Drop every unit's graphs and pools."""

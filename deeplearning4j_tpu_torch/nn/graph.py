@@ -49,6 +49,7 @@ The network lives on one device: ``"cuda"`` unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -69,7 +70,7 @@ from deeplearning4j_tpu_torch.nn.compiled import (
 from deeplearning4j_tpu_torch.nn.layers import (
     BidirectionalImpl, Layer, build_layer)
 from deeplearning4j_tpu_torch.nn.listeners import (
-    TrainingListener, notify_fit_done, notify_preemption)
+    TrainingListener, notify_fit_done, notify_iteration, notify_preemption)
 from deeplearning4j_tpu_torch.nn.multilayer import (
     _detached, _tree, apply_layer_updates, autograd_leaves, aux_losses,
     evaluate_batches, flatten_trees, grad_tree, init_opt_state, reg_penalty,
@@ -1056,32 +1057,28 @@ class ComputationGraph:
         per_step = steps is None
         first = next(iter(feeds.values()))
         n_steps = int(first.shape[0]) if per_step else int(steps)
-        fk, lk = sorted(feeds), sorted(labs)
+        fk, lk = tuple(sorted(feeds)), tuple(sorted(labs))
         start = self.iteration_count
-        self._steps.iteration.at(start)
+        self.last_batch_size = int(first.shape[1] if per_step
+                                   else first.shape[0])
 
         def step(*batch):
             return self._step(dict(zip(fk, batch[:len(fk)])),
                               dict(zip(lk, batch[len(fk):])), None, None)
 
-        losses = self._steps.scan(
+        def advance(losses):
+            self.iteration_count = start + n_steps
+            self._score = losses[-1]
+
+        return self._steps.scan(
             "fit_scanned", step, [feeds[k] for k in fk] + [labs[k]
                                                            for k in lk],
             n_steps, per_step=per_step, state=self._donated,
             signature=observe.signature_of(
                 **{f"x.{k}": v for k, v in feeds.items()},
-                **{f"y.{k}": v for k, v in labs.items()}))
-        self._steps.iteration.advanced(n_steps)
-        self.iteration_count += n_steps
-        self._score = losses[-1]
-        host = losses.cpu().numpy()  # the chunk's one host read
-        self.last_batch_size = int(first.shape[1] if per_step
-                                   else first.shape[0])
-        for k in range(n_steps):
-            for lst in self.listeners:
-                lst.iteration_done(self, start + k + 1, self.epoch_count,
-                                   float(host[k]))
-        return host
+                **{f"y.{k}": v for k, v in labs.items()}),
+            start=start, batch_size=self.last_batch_size, advance=advance,
+            notify=functools.partial(notify_iteration, self), layout=(fk, lk))
 
     def score(self) -> float:
         return float("nan") if self._score is None else float(self._score)

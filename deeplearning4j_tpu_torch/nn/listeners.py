@@ -65,6 +65,13 @@ def notify_fit_done(model, listeners) -> None:
                                exc_info=True)
 
 
+def notify_iteration(model, iteration: int, loss) -> None:
+    """``iteration_done`` across ``model.listeners`` at ``iteration`` (the
+    scanned loops' epilogue, once a step after the chunk)."""
+    for lst in model.listeners:
+        lst.iteration_done(model, iteration, model.epoch_count, loss)
+
+
 def notify_preemption(model, listeners) -> None:
     """The graceful-preemption exit: count and log it, then fire
     ``on_preemption`` across listeners (the checkpoint listener's final

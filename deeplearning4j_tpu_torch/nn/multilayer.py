@@ -46,6 +46,7 @@ synchronization a step unless a listener reads the score.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Dict, List, Optional
 
@@ -66,7 +67,7 @@ from deeplearning4j_tpu_torch.nn.compiled import (
 from deeplearning4j_tpu_torch.nn.layers import (
     BidirectionalImpl, Layer, apply_preprocessor, build_layer)
 from deeplearning4j_tpu_torch.nn.listeners import (
-    TrainingListener, notify_fit_done, notify_preemption)
+    TrainingListener, notify_fit_done, notify_iteration, notify_preemption)
 from deeplearning4j_tpu_torch.ops.losses import get_loss
 
 WEIGHT_KEYS = {"W", "RW", "dW", "pW", "Wq", "Wk", "Wv", "Wo"}
@@ -640,31 +641,18 @@ class MultiLayerNetwork:
         xs, ys = self._feed(features), self._feed(labels)
         n_steps = int(xs.shape[0]) if per_step else int(steps)
         start = self.iteration_count
-        self._steps.iteration.at(start)
-        t0 = time.perf_counter()
-        losses = self._steps.scan(
+        self.last_batch_size = int(xs.shape[1] if per_step else xs.shape[0])
+
+        def advance(losses):
+            self.iteration_count = start + n_steps
+            self._score = losses[-1]
+
+        return self._steps.scan(
             "fit_scanned", lambda x, y: self._step(x, y, None, None),
             (xs, ys), n_steps, per_step=per_step, state=self._donated,
-            signature=observe.signature_of(x=xs, y=ys))
-        self._steps.iteration.advanced(n_steps)
-        self.iteration_count += n_steps
-        self._score = losses[-1]
-        host = losses.cpu().numpy()  # the chunk's one host read
-        self.last_batch_size = int(xs.shape[1] if per_step else xs.shape[0])
-        m = observe.metrics()
-        m.counter("dl4j_tpu_train_steps_total", model="mln").inc(n_steps)
-        m.counter("dl4j_tpu_host_to_device_transfers_total",
-                  model="mln").inc(2)
-        m.counter("dl4j_tpu_train_examples_total", model="mln").inc(
-            n_steps * self.last_batch_size)
-        observe.tracer().complete_between(
-            "fit_scanned", t0, time.perf_counter(), category="train",
-            steps=n_steps)
-        for k in range(n_steps):
-            for lst in self.listeners:
-                lst.iteration_done(self, start + k + 1, self.epoch_count,
-                                   float(host[k]))
-        return host
+            signature=observe.signature_of(x=xs, y=ys), start=start,
+            batch_size=self.last_batch_size, advance=advance,
+            notify=functools.partial(notify_iteration, self))
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """The loss on ``ds``, or the last training score."""

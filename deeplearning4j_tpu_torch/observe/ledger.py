@@ -15,7 +15,10 @@ rebuilt after an invalidation — as one :class:`CompileEvent` carrying:
 * ``cause``: ``first_compile`` | ``new_shape`` | ``graph_mutation`` |
   ``constant_rebind`` | ``variable_rebind`` | ``cache_hit`` (the JAX
   package's persistent export cache; the port has none, so it never
-  records it, but accepts the name),
+  records it, but accepts the name) | ``state_moved`` (the port's own: a
+  training unit captured anew for a signature it had captured, because a
+  tensor it writes or reads in place moved — a trainer that rebound a
+  parameter instead of writing into it),
 * ``stats``: the live ``OptimizeStats`` when the optimizer produced one,
   so warm-up (``trace_seconds``) and capture (``compile_seconds``) times
   appear in the event once ``CompiledGraph`` measures them.
@@ -45,7 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 from deeplearning4j_tpu_torch.observe.registry import default_registry
 
 CAUSES = ("first_compile", "new_shape", "graph_mutation",
-          "constant_rebind", "variable_rebind", "cache_hit")
+          "constant_rebind", "variable_rebind", "cache_hit", "state_moved")
 
 _MAX_EVENTS = 2000
 

@@ -34,7 +34,11 @@ state, layer state and iteration in place: the caller passes those
 tensors as ``state=``. They are the graph's static buffers themselves,
 never copied; their addresses, shapes and dtypes join the signature (a
 trainer that rebinds a parameter gets a new capture, never a replay that
-writes a freed buffer). A replay writes them behind PyTorch's back, so
+writes a freed buffer). Such a capture — the shapes of a signature
+already captured, only addresses moved — is counted in ``moved`` and,
+when the call names its ledger entry, recorded in the recompile ledger
+with the cause ``state_moved``: a trainer that keeps its buffers never
+records one. A replay writes them behind PyTorch's back, so
 after each replay the unit moves the ``_version`` of every one
 (:func:`bump_versions`): ``_Static.load`` of another unit, the derived
 buffers and ``cuda_matmul.kmajor_weight`` then see the change. A K-major
@@ -105,8 +109,12 @@ def capture_enabled() -> bool:
     return _DISABLED == 0
 
 
-def _addresses(tensors: Sequence[torch.Tensor]) -> tuple:
-    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+def _layouts(tensors: Sequence[torch.Tensor]) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _pointers(tensors: Sequence[torch.Tensor]) -> tuple:
+    return tuple(t.data_ptr() for t in tensors)
 
 
 def _version_key(t: torch.Tensor) -> tuple:
@@ -269,7 +277,8 @@ class CapturedUnit:
     arguments and never writes. The addresses of both join the signature;
     the versions of ``state`` move after each replay.
 
-    Kept for the records: ``captures``, ``pool_bytes`` (the segments the
+    Kept for the records: ``captures``, ``moved`` (the captures that
+    only moved addresses called for), ``pool_bytes`` (the segments the
     shared pool holds after the last capture: its peak), ``static_bytes``
     (its static input buffers) and ``timings``, the ``time.perf_counter()`` readings
     that bound the last capture's warm-up and capture (start, warm-up end,
@@ -289,7 +298,8 @@ class CapturedUnit:
         self._derived: Dict[int, _Derived] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
-        self.captures = 0
+        self._layouts_seen: set = set()  # the signatures less addresses
+        self.captures = self.moved = 0
         self.pool_bytes = 0
         self.static_bytes = 0
         self.timings: Optional[Tuple[float, float, float]] = None
@@ -300,15 +310,28 @@ class CapturedUnit:
 
     def __call__(self, *args: torch.Tensor, key: Any = (),
                  state: Sequence[torch.Tensor] = (),
-                 reads: Sequence[torch.Tensor] = ()):
+                 reads: Sequence[torch.Tensor] = (),
+                 ledger: Optional[Tuple[str, str]] = None):
+        """``ledger``: (graph, signature) under which a capture that only
+        moved addresses is recorded (cause ``state_moved``)."""
         if not self.captured():
             return self.fn(*args)
-        sig = (key, environment().helper_mode,
-               tuple((tuple(a.shape), a.dtype, a.stride(),
-                      a.data_ptr() if self._owned else 0) for a in args),
-               _addresses(state), _addresses(reads))
+        layout = (key, environment().helper_mode,
+                  tuple((tuple(a.shape), a.dtype, a.stride()) for a in args),
+                  _layouts(state), _layouts(reads))
+        sig = (layout, _pointers(args) if self._owned else (),
+               _pointers(state), _pointers(reads))
         g = self._graphs.get(sig)
         if g is None:
+            if layout in self._layouts_seen:
+                self.moved += 1
+                if ledger is not None:
+                    from deeplearning4j_tpu_torch import observe
+
+                    observe.ledger().record(
+                        graph=ledger[0], key=self.name, signature=ledger[1],
+                        cause="state_moved")
+            self._layouts_seen.add(layout)
             return self._capture(sig, args, tuple(state))
         with torch.cuda.device(self.device):
             for st, a in zip(g.inputs, args):
@@ -417,6 +440,7 @@ class CapturedUnit:
     def reset(self) -> None:
         """Drop every graph, static buffer and the pool."""
         self._graphs.clear()
+        self._layouts_seen.clear()
         self._statics.clear()
         self._derived.clear()
         self._pool = None

@@ -26,7 +26,10 @@ ported paths reach:
   ``simple_rnn_cell``, and the sequence ops ``lstm_sequence`` and
   ``gru_sequence`` (``nn_ops.py:393-660``). The LSTM layer's own
   recurrence (gate order i, f, o, g) is the ``lstm_layer`` op of
-  :mod:`.cudnn_lstm`.
+  :mod:`.cudnn_lstm`;
+* :func:`table_rows`, the gather of a table's rows whose gradient has the
+  same bits every run on the card, which BERT's token-type rows and
+  SameDiff's ``gather`` share.
 
 Layouts are the JAX package's: activations NHWC, conv kernels HWIO. Inside,
 ``x.permute(0, 3, 1, 2)`` of an NHWC-contiguous tensor is a
@@ -532,6 +535,48 @@ def dropout(x, gen: Optional[torch.Generator], *, rate: float,
     keep = 1.0 - rate
     kept = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+# the most rows a table may have for :func:`table_rows` to take its
+# gradient as a GEMM against the one-hot ids (that many multiply-adds an
+# element of the gradient at most)
+ONE_HOT_ROWS = 512
+
+
+class _TableRows(torch.autograd.Function):
+    """The rows of a small table, whose gradient is ``one_hot(ids)ᵀ @
+    grad``: a GEMM, summing in the same order every run."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=ids.device)
+        hot = (ids.reshape(-1, 1) == rows).to(grad.dtype)
+        return hot.t() @ grad.reshape(-1, grad.shape[-1]), None
+
+
+def table_rows(table, ids):
+    """The rows of a 2-D float ``table`` at integer ``ids``: ids.shape +
+    (table.shape[1],), with a gradient into the table that has the same
+    bits every run on the card. ``F.embedding``'s backward there sums the
+    duplicate indices of a table of a few rows in an order that varies
+    from run to run (thousands of equal ids into a two-row table differ
+    run to run; the same count into a 30 522-row word table does not), and
+    ``index_select``'s sums with atomics. So a table of at most
+    :data:`ONE_HOT_ROWS` rows takes its gradient as the one-hot GEMM
+    (:class:`_TableRows`; no ``F.one_hot``, which reads the ids' range on
+    the host) and a larger one through ``F.embedding``. The forward is
+    ``F.embedding``'s either way: the rows themselves."""
+    if table.shape[0] <= ONE_HOT_ROWS and table.requires_grad \
+            and torch.is_grad_enabled():
+        return _TableRows.apply(table, ids)
+    return F.embedding(ids, table)
 
 
 @op("embedding_lookup")

@@ -20,8 +20,9 @@ They hold captured against eager bit for bit — a decode step's logits and
 tokens, an imported BERT's ``sd.output`` — with replays adding their
 launches to the counters, a weight changed in place after a capture seen by
 the next replay (and a faulted variant that skips the refresh caught), two
-replays of a sampled step drawing different tokens, and the serving ledger
-across admissions.
+replays of a sampled step drawing different tokens, the serving ledger
+across admissions, and a training unit whose trainer rebound a parameter
+capturing again under the ledger cause ``state_moved``.
 """
 
 import threading
@@ -442,3 +443,33 @@ def test_new_batch_captures_again_and_a_rename_drops_the_graphs(cuda):
     sd.output(feeds[0], ["out"])
     assert [e.cause for e in observe.ledger().events()] == [
         "first_compile", "new_shape", "graph_mutation"]
+
+
+@pytest.mark.cuda
+def test_rebound_state_captures_again_and_the_ledger_says_so(cuda):
+    """A training unit replays while the trainer writes into its buffers;
+    a parameter rebound to a new tensor moves an address of the step's
+    signature, and the capture that follows is counted in ``moved`` and
+    recorded as ``state_moved``."""
+    from deeplearning4j_tpu_torch import nn as tnn
+
+    conf = (tnn.builder().seed(1).updater(tnn.Adam(learning_rate=1e-2))
+            .list().layer(tnn.DenseLayer(n_out=8, activation="tanh"))
+            .layer(tnn.OutputLayer(n_out=3, activation="softmax",
+                                   loss="mcxent"))
+            .set_input_type(tnn.InputType.feed_forward(5)).build())
+    net = tnn.MultiLayerNetwork(conf, device=cuda).init()
+    r = np.random.default_rng(0)
+    x = r.standard_normal((6, 5)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[r.integers(0, 3, 6)]
+    observe.reset()
+    for _ in range(3):
+        net.fit(x, y, batch_size=6)
+    unit = net._steps.units["train"]
+    assert (unit.captures, unit.moved) == (1, 0)
+    net.params[0]["W"] = net.params[0]["W"].clone()
+    net.fit(x, y, batch_size=6)
+    assert (unit.captures, unit.moved) == (2, 1)
+    assert [(e.graph, e.key, e.cause) for e in observe.ledger().events()] \
+        == [("mln", "train", "first_compile"),
+            ("mln", "train", "state_moved")]

@@ -73,7 +73,8 @@ right-padded one, from a zero and a carried state; float16; the padded
 positions (the last h forward, the initial h reverse); the gate's
 refusals (interior mask, hardsigmoid gates, a non-tanh cell, bfloat16)
 tallied as generic, and a BiLSTM tagger dispatching cuDNN once a
-direction.
+direction. The gather of a small table (``nn_ops.table_rows``, SameDiff's
+``gather``) with 4096 equal ids: the same gradient bits in 20 runs.
 
 Tolerances, elementwise ``|kernel - plain| <= ATOL + RTOL * |plain|``:
 float32 1e-4 absolute (same math, another summation order; ~1e-6 seen);
@@ -2079,3 +2080,32 @@ def test_bilstm_tagger_dispatches_cudnn_per_direction(cuda):
     finally:
         env.helper_mode = "auto"
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [2, 64, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_table_gather_gradient_same_bits_every_run(cuda, rows, dtype):
+    """``nn_ops.table_rows`` and SameDiff's ``gather`` of a small table:
+    4096 equal ids (BERT's token types at 32 × 128, all segment 0) into a
+    table of ``rows`` rows, 20 backward runs of one gradient, the same bits
+    each time, and within float32 summation error of the index_add_
+    gradient."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import _gather
+    from deeplearning4j_tpu_torch.ops.nn_ops import table_rows
+
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    table = torch.randn(rows, 768, generator=g, device=cuda).to(dtype)
+    ids = torch.zeros(32, 128, dtype=torch.int64, device=cuda)
+    grad = torch.randn(32, 128, 768, generator=g, device=cuda).to(dtype)
+    want = torch.zeros(rows, 768, device=cuda).index_add_(
+        0, ids.reshape(-1), grad.float().reshape(-1, 768))
+    for gather in (table_rows, lambda t, i: _gather(t, i, axis=0)):
+        runs = []
+        for _ in range(20):
+            t = table.detach().requires_grad_(True)
+            gather(t, ids).backward(grad)
+            runs.append(t.grad)
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+        tol = 1e-3 if dtype == torch.float32 else 0.5
+        torch.testing.assert_close(runs[0].float(), want, rtol=2 ** -7,
+                                   atol=tol)
