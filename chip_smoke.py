@@ -173,6 +173,28 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    3 steps and replayed after them on the updated weights (reloaded into
    its static buffers, their K-major split copies remade in place), must
    equal the same call under ``disable_capture()`` bit for bit.
+10b. ``sd_namespaces`` — a SameDiff graph recorded through the public
+   namespaces alone (``testing/namespace_encoder.py``): a float32
+   placeholder [8, 128, 768] through 12 layers of
+   ``sd.nn.multi_head_dot_product_attention`` (12 heads) → residual add →
+   ``sd.nn.layer_norm`` → ``sd.nn.linear`` 768→3072 → ``sd.nn.gelu`` →
+   ``sd.nn.linear`` 3072→768 → residual add → ``sd.nn.layer_norm``, the
+   mean over T, ``sd.nn.linear`` 768→2 and
+   ``sd.loss.softmax_cross_entropy`` (85.0M parameters from numpy
+   RandomState(0) × 0.02): ``sd.output``, then 3 ``sd.fit`` steps (Adam
+   5e-5), then the logits again. Counts set to 0 just before the forward
+   and the steps: 12 flash forwards a forward, 12 + 12 + 12 flash and one
+   updater launch over 146 leaves a step. The step-1 loss and the first
+   logits within 1e-5 relative of ``helper_mode="generic"``, later
+   losses, parameters and logits within 3× a generic run from weights
+   moved by one unit in the last place; step p50, tokens/s and the busy
+   share of 2 more profiled steps.
+10c. ``op_catalog`` — every spec of the port's ``ops/validation.py`` (287
+   ops, 885 spec × dtype cases) through the registry on the card and on
+   the CPU (``testing/consistency.run_catalog``): structure, shapes and
+   dtypes equal, values within the spec's tolerance, random draws held
+   by their semantic checks and repeated from the same seed. Prints the
+   counts of ops, cases and failures; any failure fails the run.
 11. ``int8_bert`` — int8 serving: the same BERT-base encoder with every
    dense MatMul a ``matmul_int8`` (ONNX Runtime's dynamic quantization
    layout: weights int8 per column, quantized once at build; activations
@@ -2469,6 +2491,210 @@ def sd_bert_finetune_phase(dev, smi):
             - k_info["resident_before_gib"], **cap_fields,
             "problems": problems}
     return problems, line, launches
+
+
+def _zero_counters():
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    for _, w, a in _kernel_counters():
+        setattr(w, a, 0)
+    cu.fused_updater.leaves = 0
+
+
+def _read_counters() -> dict:
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    out = {name: getattr(w, a) for name, w, a in _kernel_counters()}
+    out["fused_updater_leaves"] = cu.fused_updater.leaves
+    return out
+
+
+def sd_namespaces_phase(dev, smi):
+    """A SameDiff graph built through the public namespaces alone at
+    BERT-base width (``testing/namespace_encoder.py``): ``sd.output`` of
+    the logits and loss, then ``sd.fit`` for 3 Adam steps, then the
+    logits again, through the kernels (counts set to 0 just before the
+    forward and just before the steps, read just after each); then the
+    same under ``helper_mode="generic"`` from the same weights and from
+    weights moved by one unit in the last place (the yardstick). Returns
+    (problems, line, launches of the 3 steps)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.profile_serve import _profile
+    from deeplearning4j_tpu_torch.testing import namespace_encoder as ne
+
+    cfg = ne.BERT_BASE
+    env = environment()
+    weights = ne.encoder_weights(cfg)
+    x, labels = ne.encoder_batch(cfg)
+    feeds = {"x": x, "labels": labels}
+    batch = ne.Batch(x, labels)
+    layers = cfg["layers"]
+
+    def run(mode, *, nudge=False, counted=False):
+        env.helper_mode = mode
+        try:
+            sd = SameDiff(device=dev)
+            logits, loss = ne.build_encoder(sd, cfg, weights)
+            sd.set_training_config(TrainingConfig(
+                updater=Adam(learning_rate=FINETUNE_LR),
+                data_set_feature_mapping=["x"],
+                data_set_label_mapping=["labels"], loss_variables=[loss]))
+            if nudge:
+                moved = _nudged(sd.training_state()["params"],
+                                np.random.default_rng(9))
+                for n, t in moved.items():
+                    sd.set_arr(n, t)
+            info = {}
+            torch.cuda.synchronize()
+            _zero_counters()  # the forward's main path starts here
+            out = sd.output(feeds, [logits, loss])
+            torch.cuda.synchronize()
+            info["forward_launches"] = _read_counters()  # ... ends here
+            losses, times = [], []
+            _zero_counters()  # the steps' main path starts here
+            for _ in range(FINETUNE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses += sd.fit([batch])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            info["step_launches"] = _read_counters()  # ... ends here
+            params = {n: t.clone() for n, t in
+                      sd.training_state()["params"].items()}
+            after = sd.output(feeds, [logits])[logits]
+            info.update(losses=losses, times_ms=[t * 1e3 for t in times],
+                        step_p50_ms=float(np.percentile(times, 50)) * 1e3,
+                        fusions=sd.last_compile_stats.fusions,
+                        plan_nodes=sd.last_compile_stats.nodes_after)
+            if counted:
+                # where the step's time goes (device busy share), over two
+                # more replayed steps, after the counted ones
+                info["profile"] = _profile(lambda: sd.fit([batch, batch]), 1,
+                                           steps_per_call=2, top=8)
+            del sd
+            gc.collect()
+            torch.cuda.empty_cache()
+            return info, out[logits], float(out[loss]), after, params
+        finally:
+            env.helper_mode = "auto"
+
+    k_info, k_out, k_loss0, k_after, k_params = run("auto", counted=True)
+    g_info, g_out, g_loss0, g_after, g_params = run("generic")
+    y_info, y_out, _, y_after, y_params = run("generic", nudge=True)
+
+    problems = []
+    fwd, step = k_info["forward_launches"], k_info["step_launches"]
+    want_fwd = {"flash_attn_fwd": layers, "flash_attn_dq": 0,
+                "flash_attn_dkv": 0, "fused_updater": 0}
+    want_step = {"flash_attn_fwd": layers * FINETUNE_STEPS,
+                 "flash_attn_dq": layers * FINETUNE_STEPS,
+                 "flash_attn_dkv": layers * FINETUNE_STEPS}
+    for name, n in want_fwd.items():
+        if fwd[name] != n:
+            problems.append(f"forward: {name} launches {fwd[name]} != {n}")
+    for name, n in want_step.items():
+        if step[name] != n:
+            problems.append(f"steps: {name} launches {step[name]} != {n}")
+    n_leaves = len(k_params)
+    problems += updater_count_problems(step["fused_updater"],
+                                       step["fused_updater_leaves"],
+                                       n_leaves, FINETUNE_STEPS)
+    # the generic runs launch no flash kernel
+    for info in (g_info, y_info):
+        for name, n in dict(info["forward_launches"],
+                            **info["step_launches"]).items():
+            if n and name.startswith("flash"):
+                problems.append(f"generic run launched {name} {n} times")
+    kernel, generic, yard = (i["losses"] for i in (k_info, g_info, y_info))
+    if not all(math.isfinite(v) for v in kernel + generic + yard):
+        problems.append("non-finite loss")
+    loss_lim = [max(BERT_LOSS_RTOL["float32"] * abs(g), 0.0 if i == 0 else
+                    BERT_YARDSTICK * abs(y - g))
+                for i, (g, y) in enumerate(zip(generic, yard))]
+    loss_diff = [abs(a - b) for a, b in zip(kernel, generic)]
+    if any(d > lim for d, lim in zip(loss_diff, loss_lim)):
+        problems.append(f"losses {kernel} vs generic {generic} "
+                        f"(limits {loss_lim})")
+    big = max(t.abs().max().item() for t in g_params.values())
+    p_diff = _max_diff(k_params, g_params)
+    p_lim = max(BERT_YARDSTICK * _max_diff(y_params, g_params),
+                torch.finfo(torch.float32).eps * big)
+    if p_diff > p_lim:
+        problems.append(f"params {p_diff} > {p_lim}")
+    # the forward before the steps: the same weights, 1e-5 of the largest
+    # logit or 3x the yardstick's distance; the logits after them as the
+    # parameters are held
+    out_diff = float(np.abs(k_out - g_out).max())
+    out_lim = max(BERT_LOSS_RTOL["float32"] * float(np.abs(g_out).max()),
+                  BERT_YARDSTICK * float(np.abs(y_out - g_out).max()))
+    after_diff = float(np.abs(k_after - g_after).max())
+    after_lim = max(BERT_LOSS_RTOL["float32"] * float(np.abs(g_after).max()),
+                    BERT_YARDSTICK * float(np.abs(y_after - g_after).max()))
+    if out_diff > out_lim or after_diff > after_lim:
+        problems.append(f"logits {out_diff} (limit {out_lim}), after the "
+                        f"steps {after_diff} (limit {after_lim})")
+    if abs(k_loss0 - g_loss0) > BERT_LOSS_RTOL["float32"] * abs(g_loss0):
+        problems.append(f"forward loss {k_loss0} vs generic {g_loss0}")
+    shape = (cfg["batch"], cfg["classes"])
+    if k_out.shape != shape or not np.all(np.isfinite(k_after)):
+        problems.append(f"logits {k_out.shape} != {shape} or not finite")
+    n_params = sum(t.numel() for t in k_params.values())
+    step_launches = {k: v for k, v in step.items()
+                     if k != "fused_updater_leaves"}
+    # the main path's launches: the counted forward and the 3 steps
+    path_launches = {k: v + fwd[k] for k, v in step_launches.items()}
+    line = {"phase": "sd_namespaces", "card": smi, "config": cfg,
+            "graph": "per layer: sd.nn.multi_head_dot_product_attention, "
+                     "add, sd.nn.layer_norm, sd.nn.linear 768x3072, "
+                     "sd.nn.gelu, sd.nn.linear 3072x768, add, "
+                     "sd.nn.layer_norm; mean over T, sd.nn.linear 768x2, "
+                     "sd.loss.softmax_cross_entropy",
+            "weights": "float32, numpy RandomState(0) * 0.02",
+            "updater": f"Adam lr {FINETUNE_LR:g}", "steps": FINETUNE_STEPS,
+            "leaves": n_leaves, "params": n_params,
+            "fusions": k_info["fusions"], "plan_nodes": k_info["plan_nodes"],
+            "forward_launches": {k: v for k, v in fwd.items() if v},
+            "launches_per_step": {k: v / FINETUNE_STEPS
+                                  for k, v in step_launches.items() if v},
+            "losses": kernel, "generic_losses": generic,
+            "yardstick_losses": yard, "loss_abs_diff": loss_diff,
+            "loss_limit": loss_lim, "param_max_abs_diff": p_diff,
+            "param_limit": p_lim, "logits_max_abs_diff": out_diff,
+            "logits_limit": out_lim,
+            "logits_after_steps_max_abs_diff": after_diff,
+            "logits_after_steps_limit": after_lim,
+            "loss_fell": kernel[-1] < kernel[0],
+            "tol": (f"step-1 loss and the first forward "
+                    f"{BERT_LOSS_RTOL['float32']:g} relative; later losses, "
+                    f"params and logits {BERT_YARDSTICK:g} x yardstick"),
+            "step_ms": k_info["times_ms"],
+            "step_p50_ms": k_info["step_p50_ms"],
+            "generic_step_p50_ms": g_info["step_p50_ms"],
+            "tokens_per_s": cfg["batch"] * cfg["seq"]
+            / (k_info["step_p50_ms"] / 1e3),
+            "profile_2_steps": k_info["profile"], "problems": problems}
+    return problems, line, path_launches
+
+
+def op_catalog_phase(dev, smi):
+    """Every spec of the port's validation table in every dtype it takes,
+    through the registry on the card and on the CPU
+    (``testing/consistency.run_catalog``). Returns (problems, line)."""
+    from deeplearning4j_tpu_torch.testing.consistency import run_catalog
+
+    out = run_catalog(dev)
+    problems = list(out["failed"])
+    if out["uncovered"]:
+        problems.append(f"ops with no spec: {out['uncovered']}")
+    line = {"phase": "op_catalog", "card": smi, "ops": out["ops"],
+            "cases": out["cases"], "failures": out["failures"],
+            "seconds": out["seconds"], "failed": out["failed"],
+            "problems": problems}
+    return problems, line
 
 
 def _rel_err(got, want) -> float:
@@ -4920,6 +5146,19 @@ def main() -> int:
     emit(line)
     if problems:
         raise SystemExit(f"sd_bert_finetune phase failed: {problems}")
+
+    # ------------------------------------------------------ sd_namespaces
+    problems, line, train_launches["sd_namespaces"] = sd_namespaces_phase(
+        dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"sd_namespaces phase failed: {problems}")
+
+    # --------------------------------------------------------- op_catalog
+    problems, line = op_catalog_phase(dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"op_catalog phase failed: {problems}")
 
     # ---------------------------------------------------------- int8_bert
     problems, line, train_launches["int8_bert"] = int8_bert_phase(

@@ -41,14 +41,16 @@ What differs from the JAX package:
   buffers), so ``output``'s captured graph sees each step through the
   versions its static loads check. Step losses stay on the device and
   are read once per epoch.
-* Ported: the construction API, the ``math``, ``nn`` and ``loss``
-  namespaces, the graph-op catalog, ``output``/``exec``,
-  ``calculate_gradients``, ``TrainingConfig``/``fit`` with the training
-  state and listeners, ``get_arr``/``set_arr``, ``variables`` and
-  ``summary``; ``fit`` polls the preemption fault point and flag once a
-  batch, keeps the data cursor and logs the ``train_epoch`` event. Not
-  yet: control flow (scan/while/cond), serde, the other namespaces and
-  graph checking (``check``; ``validate=True`` raises) (ROADMAP.md,
+* Ported: the construction API, the ``math``, ``nn``, ``cnn``, ``rnn``,
+  ``loss``, ``image``, ``linalg``, ``bitwise`` and ``random`` namespaces
+  (the JAX package's method names and arguments; a ``random`` draw seeds
+  a generator on the graph's device at every run), the graph-op catalog,
+  ``output``/``exec``, ``calculate_gradients``, ``TrainingConfig``/``fit``
+  with the training state and listeners, ``get_arr``/``set_arr``,
+  ``variables`` and ``summary``; ``fit`` polls the preemption fault point
+  and flag once a batch, keeps the data cursor and logs the
+  ``train_epoch`` event. Not yet: control flow (scan/while/cond), serde
+  and graph checking (``check``; ``validate=True`` raises) (ROADMAP.md,
   Queue 1 items 7 and 11).
 """
 
@@ -64,6 +66,11 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.environment import resolve_device
 from deeplearning4j_tpu_torch.ops import losses as loss_lib
 from deeplearning4j_tpu_torch.ops import nn_ops
+from deeplearning4j_tpu_torch.ops import reductions as R
+from deeplearning4j_tpu_torch.ops import shape_ops
+from deeplearning4j_tpu_torch.ops import transforms as T
+from deeplearning4j_tpu_torch.ops.transforms import inexact
+from deeplearning4j_tpu_torch.ops.validation import takes_device
 from deeplearning4j_tpu_torch.ops.registry import registry as op_registry
 
 VALIDATE_NOT_PORTED = (
@@ -239,74 +246,11 @@ class _Node:
 # ---------------------------------------------------------------------------
 
 
-def _all_axes(x, axes):
-    return tuple(range(x.ndim)) if not axes else tuple(int(a) for a in axes)
-
-
-def _int_sum_dtype(x):
-    # integer and bool sums accumulate in the default int (int32, x32)
-    return None if (x.is_floating_point() or x.is_complex()) else torch.int32
-
-
-def _reduce_sum(x, *, axes=None, keepdims=False):
-    return torch.sum(x, dim=_all_axes(x, axes), keepdim=keepdims,
-                     dtype=_int_sum_dtype(x))
-
-
-def _float(x):
-    return x if (x.is_floating_point() or x.is_complex()) else x.float()
-
-
-def _reduce_mean(x, *, axes=None, keepdims=False):
-    return torch.mean(_float(x), dim=_all_axes(x, axes), keepdim=keepdims)
-
-
-def _reduce_max(x, *, axes=None, keepdims=False):
-    return torch.amax(x, dim=_all_axes(x, axes), keepdim=keepdims)
-
-
-def _reduce_min(x, *, axes=None, keepdims=False):
-    return torch.amin(x, dim=_all_axes(x, axes), keepdim=keepdims)
-
-
-def _reduce_prod(x, *, axes=None, keepdims=False):
-    out = x if x.is_floating_point() else x.to(torch.int32)
-    for a in sorted((d % max(x.ndim, 1) for d in _all_axes(x, axes)),
-                    reverse=True):
-        out = torch.prod(out, dim=a, keepdim=keepdims)
-    return out
-
-
-def _reduce_std(x, *, axes=None, keepdims=False):
-    return torch.std(_float(x), dim=_all_axes(x, axes), unbiased=False,
-                     keepdim=keepdims)
-
-
-def _reduce_var(x, *, axes=None, keepdims=False):
-    return torch.var(_float(x), dim=_all_axes(x, axes), unbiased=False,
-                     keepdim=keepdims)
-
-
-def _cumsum_flags(a, axis, exclusive, reverse):
-    if reverse:
-        a = torch.flip(a, dims=(axis,))
-    out = torch.cumsum(a, dim=axis, dtype=_int_sum_dtype(a))
-    if exclusive:
-        out = out - a
-    if reverse:
-        out = torch.flip(out, dims=(axis,))
-    return out
-
-
-def _mmul(a, b, *, transpose_a=False, transpose_b=False):
-    if transpose_a:
-        a = a.transpose(-1, -2)
-    if transpose_b:
-        b = b.transpose(-1, -2)
-    if a.dtype != b.dtype:
-        dt = torch.promote_types(a.dtype, b.dtype)
-        a, b = a.to(dt), b.to(dt)
-    return torch.matmul(a, b)
+def _over_axes(fn):
+    """A registry reduction (``fn(x, axis, keepdims)``) under the graph
+    ops' keywords: ``axes`` (None or empty: every axis), ``keepdims``."""
+    return lambda x, *, axes=None, keepdims=False: fn(
+        x, tuple(axes) if axes else None, keepdims)
 
 
 def _transpose(a, *, axes=None):
@@ -330,54 +274,8 @@ def _squeeze(a, *, axis=None):
                          else tuple(axis))
 
 
-def _dynamic_slice(a, *, begin, size):
-    # lax.dynamic_slice clamps each start so the slice stays in bounds
-    for d, (b, s) in enumerate(zip(begin, size)):
-        b = min(max(int(b), 0), a.shape[d] - int(s))
-        a = a.narrow(d, b, int(s))
-    return a
-
-
-def _strided_slice(a, *, begin, end, strides=None):
-    strides = strides or [1] * len(begin)
-    for d, (b, e, s) in enumerate(zip(begin, end, strides)):
-        idx = range(*slice(b, e, s).indices(a.shape[d]))
-        if idx.step > 0:
-            a = a.narrow(d, idx.start, len(idx)) if idx.step == 1 else \
-                a[(slice(None),) * d + (slice(idx.start, idx.stop,
-                                              idx.step),)]
-        else:  # torch slicing takes no negative step
-            rows = idx.start + idx.step * torch.arange(len(idx),
-                                                       device=a.device)
-            a = torch.index_select(a, d, rows)
-    return a
-
-
-def _gather(params, indices, *, axis=0):
-    """``jnp.take(params, indices.astype(int32), axis)``: negative indices
-    count from the end, out-of-range ones give NaN (0 for integers), as
-    ``jnp.take``'s default fill mode."""
-    axis = int(axis) % params.ndim
-    n = params.shape[axis]
-    idx = indices.to(torch.int64)
-    idx = torch.where(idx < 0, idx + n, idx)
-    valid = (idx >= 0) & (idx < n)
-    flat = torch.clamp(idx, 0, max(n - 1, 0)).reshape(-1)
-    if axis == 0 and params.ndim == 2 and params.is_floating_point():
-        # a table's rows (an embedding): nn_ops.table_rows, whose gradient
-        # has the same bits every run on the card, where index_select's
-        # (index_add_) sums with atomics and F.embedding's sums a small
-        # table's duplicate indices in an order that varies
-        out = nn_ops.table_rows(params, flat)
-    else:
-        out = torch.index_select(params, axis, flat)
-    out = out.reshape(params.shape[:axis] + idx.shape
-                      + params.shape[axis + 1:])
-    fill = float("nan") if params.is_floating_point() else 0
-    keep = valid.reshape((1,) * axis + idx.shape
-                         + (1,) * (params.ndim - axis - 1))
-    return torch.where(keep, out, torch.full((), fill, dtype=out.dtype,
-                                             device=out.device))
+# ``jnp.take(params, indices.astype(int32), axis)`` in its fill mode
+_gather = nn_ops.take
 
 
 def _pad(a, *, paddings, value=0.0):
@@ -387,11 +285,6 @@ def _pad(a, *, paddings, value=0.0):
     for lo, hi in reversed([tuple(p) for p in paddings]):
         flat += [int(lo), int(hi)]
     return F.pad(a, flat, value=value)
-
-
-def _one_hot(a, *, depth):
-    cls = torch.arange(int(depth), device=a.device)
-    return (a.to(torch.int64)[..., None] == cls).to(torch.float32)
 
 
 def _cast(a, *, dtype):
@@ -457,22 +350,24 @@ GRAPH_OPS: Dict[str, Callable[..., Any]] = {
     "cast": _cast,
     # activations
     "relu": torch.relu,
-    "relu6": F.relu6,
-    "leakyrelu": lambda a, *, alpha=0.01: F.leaky_relu(a, alpha),
-    "elu": F.elu,
-    "selu": F.selu,
-    "gelu": lambda a: F.gelu(a, approximate="tanh"),
-    "sigmoid": torch.sigmoid,
-    "softplus": F.softplus,
-    "softsign": F.softsign,
-    "swish": F.silu,
-    "mish": F.mish,
-    "hardsigmoid": F.hardsigmoid,
-    "hardtanh": F.hardtanh,
-    "softmax": lambda a, *, axis=-1: torch.softmax(a, dim=axis),
-    "log_softmax": lambda a, *, axis=-1: torch.log_softmax(a, dim=axis),
+    # (jax.nn's: integer and bool inputs promote to float32)
+    "relu6": T.registry_fn("relu6"),
+    "leakyrelu": lambda a, *, alpha=0.01: F.leaky_relu(inexact(a), alpha),
+    "elu": T.registry_fn("elu"),
+    "selu": T.registry_fn("selu"),
+    "gelu": lambda a: F.gelu(inexact(a), approximate="tanh"),
+    "sigmoid": T.registry_fn("sigmoid"),
+    "softplus": T.registry_fn("softplus"),
+    "softsign": T.registry_fn("softsign"),
+    "swish": T.registry_fn("swish"),
+    "mish": T.registry_fn("mish"),
+    "hardsigmoid": T.registry_fn("hard_sigmoid"),
+    "hardtanh": T.registry_fn("hard_tanh"),
+    "softmax": lambda a, *, axis=-1: torch.softmax(inexact(a), dim=axis),
+    "log_softmax": lambda a, *, axis=-1: torch.log_softmax(inexact(a),
+                                                           dim=axis),
     # linalg / shape
-    "mmul": _mmul,
+    "mmul": nn_ops.matmul.fn,
     "tensordot": lambda a, b, *, axes: torch.tensordot(a, b, dims=axes),
     "reshape": lambda a, *, shape: torch.reshape(a, tuple(shape)),
     "transpose": _transpose,
@@ -481,36 +376,35 @@ GRAPH_OPS: Dict[str, Callable[..., Any]] = {
     "squeeze": _squeeze,
     "concat": lambda *xs, axis=0: torch.cat(xs, dim=axis),
     "unstack_first": lambda x: x[0],
-    "slice": _dynamic_slice,
-    "strided_slice": _strided_slice,
+    "slice": shape_ops.slice_op.fn,
+    "strided_slice": shape_ops.strided_slice.fn,
     "gather": _gather,
     "tile": lambda a, *, reps: torch.tile(a, tuple(reps)),
     "pad": _pad,
     "size": lambda a: torch.full((), a.numel(), dtype=torch.int32,
                                  device=a.device),
-    "one_hot_graph": _one_hot,
+    "one_hot_graph": lambda a, *, depth: nn_ops.one_hot.fn(a, depth=depth),
     "where": lambda c, a, b: torch.where(c.bool(), a, b),
     "select": lambda c, a, b: torch.where(c.bool(), a, b),
     # reductions
-    "reduce_sum": _reduce_sum,
-    "reduce_mean": _reduce_mean,
-    "reduce_max": _reduce_max,
-    "reduce_min": _reduce_min,
-    "reduce_prod": _reduce_prod,
-    "reduce_std": _reduce_std,
-    "reduce_var": _reduce_var,
+    "reduce_sum": _over_axes(R.sum_),
+    "reduce_mean": _over_axes(R.mean_),
+    "reduce_max": _over_axes(R.amax_),
+    "reduce_min": _over_axes(R.amin_),
+    "reduce_prod": _over_axes(R.prod_),
+    "reduce_std": _over_axes(R.std_),
+    "reduce_var": _over_axes(R.var_),
     "argmax": lambda a, *, axis=-1: torch.argmax(a, dim=axis).to(torch.int32),
     "argmin": lambda a, *, axis=-1: torch.argmin(a, dim=axis).to(torch.int32),
-    "cumsum": lambda a, *, axis=0, exclusive=False, reverse=False:
-        _cumsum_flags(a, axis, exclusive, reverse),
+    "cumsum": R.cumsum.fn,
     "zeros_like": torch.zeros_like,
     "ones_like": torch.ones_like,
-    "norm2": lambda a, *, axes=None: torch.sqrt(_reduce_sum(a ** 2,
-                                                            axes=axes)),
+    "norm2": lambda a, *, axes=None: torch.sqrt(_over_axes(R.sum_)(
+        a ** 2, axes=axes)),
     # nn composites
     "linear": lambda x, w, b=None: (x @ w + b) if b is not None else x @ w,
     "layer_norm_graph": lambda x, gain, bias=None, *, axis=-1, eps=1e-5:
-        nn_ops.layer_norm.fn(x, gain, bias, axis=axis, eps=eps),
+        nn_ops.layer_norm.fn(inexact(x), gain, bias, axis=axis, eps=eps),
     "batch_norm_graph": lambda x, mean, var, gamma, beta, *, eps=1e-5:
         (x - mean) * torch.rsqrt(var + eps) * gamma + beta,
     "dropout_graph": lambda x, *, rate, seed=0: x,  # inference identity
@@ -521,15 +415,15 @@ GRAPH_OPS: Dict[str, Callable[..., Any]] = {
         loss_lib.sparse_mcxent(logits, ids),
     "sigmoid_cross_entropy": lambda logits, labels:
         loss_lib.sigmoid_cross_entropy_with_logits(logits, labels),
-    "mean_squared_error": lambda pred, labels: loss_lib.mse(pred, labels),
-    "absolute_difference": lambda pred, labels: loss_lib.mae(pred, labels),
+    "mean_squared_error": lambda pred, labels: loss_lib.mse(
+        inexact(pred), inexact(labels)),
+    "absolute_difference": lambda pred, labels: loss_lib.mae(
+        inexact(pred), inexact(labels)),
     "log_loss": lambda probs, labels: loss_lib.binary_xent(probs, labels),
     "huber_loss": lambda pred, labels, *, delta=1.0:
         _huber(pred, labels, delta),
-    "cosine_distance": lambda a, b: loss_lib.cosine_proximity(a, b),
-    # the JAX package resolves `identity` from its registry (the port's
-    # registry has none) and its ONNX importer adds it here
-    "identity": lambda a: a,
+    "cosine_distance": lambda a, b: loss_lib.cosine_proximity(
+        inexact(a), inexact(b)),
 }
 
 
@@ -696,8 +590,51 @@ class SDNN(_Namespace):
     def dropout(self, x, rate):
         return self._sd._record("dropout_graph", [x], {"rate": rate})
 
+    def multi_head_dot_product_attention(self, q, k, v, wq, wk, wv, wo,
+                                         num_heads):
+        """Projected multi-head attention: the registry op, whose attention
+        goes through the ``dot_product_attention`` descriptor (the flash
+        kernels on the card)."""
+        return self._sd._record(
+            "multi_head_dot_product_attention", [q, k, v, wq, wk, wv, wo],
+            {"num_heads": num_heads})
+
     def dot_product_attention(self, q, k, v):
         return self._sd._record("dot_product_attention", [q, k, v])
+
+
+class SDCNN(_Namespace):
+    """sd.cnn — SDCNN.java op factory (NHWC, HWIO kernels)."""
+
+    def conv2d(self, x, w, b=None, *, stride=1, padding="same", dilation=1):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._sd._record("conv2d", ins, {"stride": stride,
+                                                "padding": padding,
+                                                "dilation": dilation})
+
+    def max_pooling2d(self, x, *, kernel, stride=None, padding="valid"):
+        return self._sd._record("maxpool2d", [x], {"kernel": kernel,
+                                                   "stride": stride,
+                                                   "padding": padding})
+
+    def avg_pooling2d(self, x, *, kernel, stride=None, padding="valid"):
+        return self._sd._record("avgpool2d", [x], {"kernel": kernel,
+                                                   "stride": stride,
+                                                   "padding": padding})
+
+    def upsampling2d(self, x, *, size=2):
+        return self._sd._record("upsampling2d", [x], {"size": size})
+
+
+class SDRNN(_Namespace):
+    """sd.rnn — SDRNN.java op factory (one step of a cell)."""
+
+    def lstm_cell(self, x, h, c, w_ih, w_hh, b):
+        return self._sd._record("lstm_cell", [x, h, c, w_ih, w_hh, b],
+                                n_out=2)
+
+    def gru_cell(self, x, h, w_ih, w_hh, b_ih, b_hh):
+        return self._sd._record("gru_cell", [x, h, w_ih, w_hh, b_ih, b_hh])
 
 
 class SDLoss(_Namespace):
@@ -728,6 +665,149 @@ class SDLoss(_Namespace):
 
     def cosine_distance(self, a, b):
         return self._sd._record("cosine_distance", [a, b])
+
+
+class SDImage(_Namespace):
+    """sd.image — SDImage.java op factory over the catalog's image family."""
+
+    def resize_bilinear(self, x, height, width):
+        return self._sd.op("resize_bilinear", x, size=(height, width))
+
+    def resize_nearest_neighbor(self, x, height, width):
+        return self._sd.op("resize_nearest_neighbor", x, size=(height, width))
+
+    def resize_bicubic(self, x, height, width):
+        return self._sd.op("resize_bicubic", x, size=(height, width))
+
+    def crop_and_resize(self, image, boxes, box_indices, crop_size):
+        return self._sd.op("crop_and_resize", image, boxes, box_indices,
+                           crop_size=tuple(crop_size))
+
+    def non_max_suppression(self, boxes, scores, max_out_size,
+                            iou_threshold=0.5, score_threshold=float("-inf")):
+        """Returns (indices, valid_mask) — the op is two-output."""
+        return self._sd.op("non_max_suppression", boxes, scores,
+                           max_output_size=max_out_size,
+                           iou_threshold=iou_threshold,
+                           score_threshold=score_threshold, n_out=2)
+
+    def adjust_contrast(self, x, factor):
+        return self._sd.op("adjust_contrast", x, factor=factor)
+
+    def adjust_hue(self, x, delta):
+        return self._sd.op("adjust_hue", x, delta=delta)
+
+    def adjust_saturation(self, x, factor):
+        return self._sd.op("adjust_saturation", x, factor=factor)
+
+    def rgb_to_hsv(self, x):
+        return self._sd.op("rgb_to_hsv", x)
+
+    def hsv_to_rgb(self, x):
+        return self._sd.op("hsv_to_rgb", x)
+
+
+class SDLinalg(_Namespace):
+    """sd.linalg — SDLinalg.java op factory."""
+
+    def cholesky(self, x):
+        return self._sd.op("cholesky", x)
+
+    def qr(self, x, full_matrices=False):
+        return self._sd.op("qr", x, full_matrices=full_matrices, n_out=2)
+
+    def svd(self, x, full_uv=False, compute_uv=True):
+        return self._sd.op("svd", x, full_matrices=full_uv,
+                           compute_uv=compute_uv, n_out=3 if compute_uv else 1)
+
+    def solve(self, a, b):
+        return self._sd.op("solve", a, b)
+
+    def triangular_solve(self, a, b, lower=True, adjoint=False):
+        return self._sd.op("triangular_solve", a, b, lower=lower,
+                           adjoint=adjoint)
+
+    def lu(self, x):
+        return self._sd.op("lu", x, n_out=2)
+
+    def matrix_determinant(self, x):
+        return self._sd.op("matrix_determinant", x)
+
+    def matrix_inverse(self, x):
+        return self._sd.op("matrix_inverse", x)
+
+    def matrix_band_part(self, x, lower, upper):
+        return self._sd.op("matrix_band_part", x, num_lower=lower,
+                           num_upper=upper)
+
+    def diag(self, x):
+        return self._sd.op("matrix_diag", x)
+
+
+class SDBitwise(_Namespace):
+    """sd.bitwise — SDBitwise.java op factory."""
+
+    def and_(self, a, b):
+        return self._sd.op("bitwise_and", a, b)
+
+    def or_(self, a, b):
+        return self._sd.op("bitwise_or", a, b)
+
+    def xor(self, a, b):
+        return self._sd.op("bitwise_xor", a, b)
+
+    def left_shift(self, x, n):
+        return self._sd.op("shift_bits", x, shift=int(n))
+
+    def right_shift(self, x, n):
+        return self._sd.op("rshift_bits", x, shift=int(n))
+
+    def left_shift_cyclic(self, x, n):
+        return self._sd.op("cyclic_shift_bits", x, shift=int(n))
+
+    def right_shift_cyclic(self, x, n):
+        return self._sd.op("cyclic_rshift_bits", x, shift=int(n))
+
+    def toggle_bits(self, x):
+        return self._sd.op("toggle_bits", x)
+
+    def bits_hamming_distance(self, a, b):
+        return self._sd.op("bits_hamming_distance", a, b)
+
+
+class SDRandom(_Namespace):
+    """sd.random — SDRandom.java op factory. Every draw takes an explicit
+    ``seed``: its node seeds a fresh generator with it on the graph's
+    device at every run, so the same seed gives the same draw there (the
+    JAX package's key constant; the stream is torch's)."""
+
+    def _draw(self, name, seed, **kw):
+        return self._sd.op(name, key=int(seed), device=str(self._sd.device),
+                           **kw)
+
+    def uniform(self, lo, hi, shape, seed=0):
+        return self._draw("random_uniform", seed, shape=tuple(shape),
+                          minval=lo, maxval=hi)
+
+    def normal(self, mean, stddev, shape, seed=0):
+        return self._draw("random_normal", seed, shape=tuple(shape),
+                          mean=mean, stddev=stddev)
+
+    def truncated_normal(self, mean, stddev, shape, seed=0):
+        return self._draw("random_truncated_normal", seed,
+                          shape=tuple(shape), mean=mean, stddev=stddev)
+
+    def bernoulli(self, p, shape, seed=0):
+        return self._draw("random_bernoulli", seed, shape=tuple(shape),
+                          prob=p)
+
+    def exponential(self, rate, shape, seed=0):
+        return self._draw("random_exponential", seed, shape=tuple(shape),
+                          rate=rate)
+
+    def gamma(self, alpha, shape, seed=0, beta=1.0):
+        return self._draw("random_gamma", seed, shape=tuple(shape),
+                          alpha=alpha, beta=beta)
 
 
 class TrainingConfig:
@@ -782,6 +862,12 @@ class SameDiff:
         self.math = SDMath(self)
         self.nn = SDNN(self)
         self.loss = SDLoss(self)
+        self.cnn = SDCNN(self)
+        self.rnn = SDRNN(self)
+        self.image = SDImage(self)
+        self.linalg = SDLinalg(self)
+        self.bitwise = SDBitwise(self)
+        self.random = SDRandom(self)
         self.training_config: Optional[TrainingConfig] = None
         self._updater_state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self._step = 0
@@ -871,7 +957,12 @@ class SameDiff:
         ``n_out`` and return a tuple. Unknown names raise at graph build,
         not at execution."""
         n_out = int(kwargs.pop("n_out", 1))
-        resolve_graph_op(name, self._local_ops)  # existence check
+        fn = resolve_graph_op(name, self._local_ops)  # existence check
+        if "device" not in kwargs and takes_device(
+                getattr(fn, "fn", fn)):
+            # an op with no tensor input (a fill, a range, a draw) makes
+            # its result on the graph's device
+            kwargs["device"] = str(self.device)
         ins = [self._lift(x) for x in inputs]
         return self._record(name, ins, kwargs or None, n_out=n_out)
 

@@ -1,16 +1,23 @@
 """Op registry of the port: generic PyTorch ops and their CUDA kernels.
 
-Importing this package registers the generic ops (:mod:`.nn_ops`,
-:mod:`.shape_ops`, :mod:`.quantized`, ``fused_updater_step``,
-``fused_bn_matmul_stats``, ``lstm_layer``) and installs the hand-written
-CUDA kernels as their ``"cuda"`` platform helpers (:mod:`.cuda_attention`,
-:mod:`.cuda_updater`, :mod:`.cuda_convbn`, :mod:`.cuda_matmul`,
-:mod:`.cuda_layernorm`, :mod:`.cuda_quantized`), and cuDNN's LSTM as
-``lstm_layer``'s (:mod:`.cudnn_lstm`, a library call: the reference has
-no TPU kernel there). No kernel is built at import.
+Importing this package registers the op catalog — the JAX registry's 285
+ops under their names (:mod:`.transforms`, :mod:`.reductions`,
+:mod:`.shape_ops`, :mod:`.misc_ops`, :mod:`.scatter`, :mod:`.linalg_ops`,
+:mod:`.image_ops`, :mod:`.bitwise`, :mod:`.random`, :mod:`.compression`,
+:mod:`.nn_ops`, :mod:`.quantized`, ``fused_updater_step``) and the port's
+own ``fused_bn_matmul_stats`` and ``lstm_layer`` — with a validation spec
+for each (:mod:`.validation`, :mod:`.nn_cases`), and installs the
+hand-written CUDA kernels as their ``"cuda"`` platform helpers
+(:mod:`.cuda_attention`, :mod:`.cuda_updater`, :mod:`.cuda_convbn`,
+:mod:`.cuda_matmul`, :mod:`.cuda_layernorm`, :mod:`.cuda_quantized`), and
+cuDNN's LSTM as ``lstm_layer``'s (:mod:`.cudnn_lstm`, a library call: the
+reference has no TPU kernel there). No kernel is built at import.
 """
 
-from deeplearning4j_tpu_torch.ops import nn_ops, quantized, shape_ops  # noqa: F401
+from deeplearning4j_tpu_torch.ops import (  # noqa: F401
+    bitwise, compression, image_ops, linalg_ops, misc_ops, nn_cases, nn_ops,
+    quantized, random, reductions, scatter, shape_ops, transforms, validation,
+)
 from deeplearning4j_tpu_torch.ops.cuda_attention import (
     register_platform_attention,
 )

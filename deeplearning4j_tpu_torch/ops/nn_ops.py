@@ -29,7 +29,14 @@ ported paths reach:
   :mod:`.cudnn_lstm`;
 * :func:`table_rows`, the gather of a table's rows whose gradient has the
   same bits every run on the card, which BERT's token-type rows and
-  SameDiff's ``gather`` share.
+  SameDiff's ``gather`` share;
+* the rest of the catalog's nn family (``nn_ops.py:92-623``): ``conv1d``,
+  ``conv3d``, ``im2col``, ``matmul``, ``xw_plus_b``, ``gather`` (the
+  fill mode of ``jnp.take``, :func:`take`), ``one_hot``,
+  ``multi_head_dot_product_attention`` (through the
+  ``dot_product_attention`` descriptor, so the flash kernels take its
+  attention on the card), ``softmax_op``, ``log_softmax_op``,
+  ``standardize``, ``clip_by_norm`` and ``clip_by_value``.
 
 Layouts are the JAX package's: activations NHWC, conv kernels HWIO. Inside,
 ``x.permute(0, 3, 1, 2)`` of an NHWC-contiguous tensor is a
@@ -51,7 +58,9 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.ops.reductions import dims
 from deeplearning4j_tpu_torch.ops.registry import op
+from deeplearning4j_tpu_torch.ops.transforms import inexact
 
 IntPair = Union[int, Tuple[int, int]]
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -662,3 +671,206 @@ def gru_sequence(x, w_ih, w_hh, b_ih, b_hh, h0=None, *,
             h = (1.0 - z) * nn + z * h
         ys.append(h)
     return torch.stack(ys, dim=1), h
+
+
+# --------------------------------------------------------------------------
+# The rest of the catalog's nn family (``nn_ops.py:92-623``): 1-D and 3-D
+# convolutions, im2col, the dense primitives, gather and one-hot, projected
+# multi-head attention, the softmax ops, standardize and the clips
+# --------------------------------------------------------------------------
+
+
+@op("conv1d")
+def conv1d(x, w, b=None, *, stride: int = 1, padding="same",
+           dilation: int = 1):
+    """1-D convolution. x: [N,W,C], w: [k,C_in,C_out]."""
+    s, d = int(stride), int(dilation)
+    if isinstance(padding, str):
+        pad = "SAME" if padding.upper() == "SAME" else "VALID"
+    else:
+        p = int(padding) if not isinstance(padding, (tuple, list)) \
+            else int(padding[0])
+        pad = ((p, p),)
+    ((lo, hi),) = ((0, 0),) if pad == "VALID" else _explicit_pads(
+        pad, x.shape[1:2], w.shape[:1], (s,), (d,))
+    xc = F.pad(x.permute(0, 2, 1), (lo, hi))
+    out = F.conv1d(xc, w.permute(2, 1, 0), None, s, 0, d).permute(0, 2, 1)
+    if b is not None:
+        out = out + b
+    return out
+
+
+@op("conv3d")
+def conv3d(x, w, b=None, *, stride=1, padding="same", dilation=1):
+    """3-D convolution. x: [N,D,H,W,C], w: [kD,kH,kW,C_in,C_out] (NDHWC)."""
+
+    def triple(v):
+        return tuple(int(a) for a in v) if isinstance(v, (tuple, list)) \
+            else (int(v),) * 3
+
+    s, d = triple(stride), triple(dilation)
+    if isinstance(padding, str):
+        pad = "SAME" if padding.upper() == "SAME" else "VALID"
+    else:
+        pad = tuple((int(p), int(p)) for p in triple(padding))
+    pads = _explicit_pads(pad, x.shape[1:4], w.shape[:3], s, d)
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    xc = F.pad(x.permute(0, 4, 1, 2, 3), flat)
+    out = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), None, s, 0, d)
+    out = out.permute(0, 2, 3, 4, 1)
+    if b is not None:
+        out = out + b
+    return out
+
+
+def patches(x, kernel, stride, dilation, pads):
+    """NHWC patches of ``x`` after ``pads``: (N, oh, ow, C·kh·kw) with the
+    features channel-major (C, kh, kw), as
+    ``lax.conv_general_dilated_patches`` orders them."""
+    (pt, pb), (pl_, pr) = pads
+    xc = F.pad(x.permute(0, 3, 1, 2), (pl_, pr, pt, pb))
+    n, c, h, w = xc.shape
+    kh, kw = kernel
+    oh = (h - (kh - 1) * dilation[0] - 1) // stride[0] + 1
+    ow = (w - (kw - 1) * dilation[1] - 1) // stride[1] + 1
+    cols = F.unfold(xc, (kh, kw), dilation=dilation, stride=stride)
+    return cols.reshape(n, c * kh * kw, oh, ow).permute(0, 2, 3, 1)
+
+
+@op("im2col")
+def im2col(x, *, kernel: IntPair, stride: IntPair = 1, padding="valid",
+           dilation: IntPair = 1):
+    """Patch extraction (reference helpers/im2col): NHWC x to (N, oh, ow,
+    C·kh·kw), features ordered (C, kh, kw). Exposed for parity; the
+    convolutions do not use it."""
+    k, s, d = _pair(kernel), _pair(stride), _pair(dilation)
+    pads = _explicit_pads(_padding(padding, k, s, d), x.shape[1:3], k, s, d)
+    return patches(x, k, s, d, pads)
+
+
+@op("matmul")
+def matmul(a, b, *, transpose_a: bool = False, transpose_b: bool = False):
+    if transpose_a:
+        a = a.transpose(-1, -2)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return torch.matmul(a, b)
+
+
+@op("xw_plus_b")
+def xw_plus_b(x, w, b):
+    """Dense layer primitive (reference xw_plus_b.cpp)."""
+    return torch.matmul(x, w) + b
+
+
+def take(params, indices, axis: int = 0):
+    """``jnp.take(params, indices, axis)`` in its default fill mode:
+    negative indices count from the end, and out-of-range ones give NaN
+    for floats and the dtype's minimum for integers (True for bool)."""
+    axis = int(axis) % params.ndim
+    n = params.shape[axis]
+    idx = indices.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    flat = torch.clamp(idx, 0, max(n - 1, 0)).reshape(-1)
+    if axis == 0 and params.ndim == 2 and params.is_floating_point():
+        # a table's rows (an embedding): :func:`table_rows`, whose gradient
+        # has the same bits every run on the card, where index_select's
+        # (index_add_) sums with atomics
+        out = table_rows(params, flat)
+    else:
+        out = torch.index_select(params, axis, flat)
+    out = out.reshape(params.shape[:axis] + idx.shape
+                      + params.shape[axis + 1:])
+    if params.is_floating_point() or params.is_complex():
+        fill = float("nan")
+    elif params.dtype == torch.bool:
+        fill = True
+    else:
+        fill = torch.iinfo(params.dtype).min
+    keep = valid.reshape((1,) * axis + idx.shape
+                         + (1,) * (params.ndim - axis - 1))
+    return torch.where(keep, out, torch.full((), fill, dtype=out.dtype,
+                                             device=out.device))
+
+
+@op("gather")
+def gather(params, indices, *, axis: int = 0):
+    return take(params, indices, axis)
+
+
+@op("one_hot")
+def one_hot(indices, *, depth: int, on_value: float = 1.0,
+            off_value: float = 0.0, dtype="float32"):
+    """``jax.nn.one_hot``: a row of zeros for an index outside [0, depth);
+    built on the device (``F.one_hot`` reads the range on the host)."""
+    from deeplearning4j_tpu_torch.analysis.values import as_dtype
+
+    cls = torch.arange(int(depth), device=indices.device)
+    oh = (indices.to(torch.int64)[..., None] == cls).to(as_dtype(dtype))
+    return oh * on_value + (1.0 - oh) * off_value
+
+
+@op("multi_head_dot_product_attention")
+def multi_head_dot_product_attention(q, k, v, wq, wk, wv, wo, mask=None, *,
+                                     num_heads: int, scaled: bool = True,
+                                     bq=None, bk=None, bv=None, bo=None):
+    """Projected multi-head attention, q/k/v: [B, L, D]; w*: [D, D].
+    Optional per-projection biases (Keras MultiHeadAttention use_bias);
+    ``mask`` [B, Lk] keeps the keys where it is nonzero."""
+
+    def split(x, w, bias):
+        y = torch.matmul(x, w)
+        if bias is not None:
+            y = y + bias
+        b, length, d = y.shape
+        return y.reshape(b, length, num_heads,
+                         d // num_heads).permute(0, 2, 1, 3)
+
+    qh, kh, vh = split(q, wq, bq), split(k, wk, bk), split(v, wv, bv)
+    m = None
+    if mask is not None:
+        m = mask[:, None, None, :].bool()
+    # through the DESCRIPTOR, so the flash kernels (the "cuda" helper) take
+    # the call on the card; calling .fn would pin the plain version
+    out = dot_product_attention(qh, kh, vh, m, scaled=scaled)
+    b, h, length, d = out.shape
+    out = out.permute(0, 2, 1, 3).reshape(b, length, h * d)
+    out = torch.matmul(out, wo)
+    return out if bo is None else out + bo
+
+
+@op("softmax_op")
+def softmax_op(x, *, axis: int = -1):
+    return torch.softmax(inexact(x), dim=axis)
+
+
+@op("log_softmax_op")
+def log_softmax_op(x, *, axis: int = -1):
+    return torch.log_softmax(inexact(x), dim=axis)
+
+
+@op("standardize")
+def standardize(x, *, axis=-1, eps: float = 1e-5):
+    x = inexact(x)
+    mean = torch.mean(x, dim=dims(x, axis), keepdim=True)
+    std = torch.std(x, dim=dims(x, axis), unbiased=False, keepdim=True)
+    return (x - mean) / (std + eps)
+
+
+@op("clip_by_norm")
+def clip_by_norm(x, *, clip_norm: float, axis=None):
+    n = torch.sqrt(torch.sum(x * x, dim=dims(x, axis),
+                             keepdim=axis is not None))
+    scale = torch.clamp_max(clip_norm / torch.clamp_min(n, 1e-12), 1.0)
+    return x * scale
+
+
+@op("clip_by_value")
+def clip_by_value(x, *, min_value: float, max_value: float):
+    return torch.clamp(x, min_value, max_value)

@@ -16,7 +16,7 @@ the decisions taken while it was recorded, as a jit trace keeps them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -130,6 +130,9 @@ class OpRegistry:
 
     def __contains__(self, name: str) -> bool:
         return name in self._ops
+
+    def names(self) -> List[str]:
+        return sorted(self._ops)
 
     def exec(self, name: str, *args: Any, **kwargs: Any) -> Any:
         return self.get(name)(*args, **kwargs)
