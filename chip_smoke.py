@@ -173,6 +173,25 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    3 steps and replayed after them on the updated weights (reloaded into
    its static buffers, their K-major split copies remade in place), must
    equal the same call under ``disable_capture()`` bit for bit.
+10a. ``tf_bert`` — TF import without TensorFlow: ``testing/tf_builder.py``
+   writes a frozen BERT-base GraphDef in google-research/bert's
+   ``modeling.py`` layout (float32 Const weights, ~440 MB; pooler and a
+   2-way classifier; batch 32 × 128, ragged key mask, segment ids);
+   ``import_frozen_graph`` puts it on the card (build, parse and import
+   seconds printed). The plan must hold 12 attention and 74 epilogue
+   fusions (no LayerNorm: TF's is decomposed); one counted forward
+   launches 12 flash forwards and 74 fused matmuls; a softmax cross
+   entropy added in SameDiff and 3 ``sd.fit`` Adam (5e-5) steps, counted,
+   launch 12 + 12 + 12 flash (sm90_f32), 74 fused matmuls and one updater
+   launch over 201 leaves a step. The captured steps equal the same steps
+   under ``disable_capture()`` bit for bit (one ``first_compile``); the
+   forward is held to 1e-4 of ``helper_mode="generic"``, the losses and
+   parameters as sd_bert_finetune holds its own; ``GraphRunner`` on the
+   same bytes gives the forward again. A SameDiff ``while_loop`` whose
+   trip count depends on its input must equal its CPU run and be routed
+   to eager once (one ledger event, ``dl4j_tpu_capture_skipped_total``
+   1, no capture). Step p50 (captured and eager), tokens/s, the busy
+   share of 2 more profiled steps and peak memory.
 10b. ``sd_namespaces`` — a SameDiff graph recorded through the public
    namespaces alone (``testing/namespace_encoder.py``): a float32
    placeholder [8, 128, 768] through 12 layers of
@@ -456,6 +475,12 @@ FUSED_MM_EXTRA = [(4096, 768, 768, "relu"), (4096, 768, 768, "tanh"),
 # [0, 1]) may differ by 1e-4 absolute
 ONNX_BERT_TOL = 1e-4
 ONNX_BERT_TIMED = 5
+# tf_bert: the kernel forward against the generic one (float32 logits), and
+# the routed while graph (a vector doubled plus one until its sum reaches
+# the limit: integers, exact in float32 on both devices)
+TF_BERT_TOL = ONNX_BERT_TOL
+TF_WHILE_N = 4096
+TF_WHILE_LIMIT = 1e7
 # fused LayerNorm + activation at the fine-tune head's rows (batch 32 ·
 # seq 128) × hidden 768; tolerance cuda_layernorm.kernel_tolerance
 LN_SHAPE = (4096, 768)
@@ -2490,6 +2515,307 @@ def sd_bert_finetune_phase(dev, smi):
             "peak_memory_own_gib": k_info["peak_memory_gib"]
             - k_info["resident_before_gib"], **cap_fields,
             "problems": problems}
+    return problems, line, launches
+
+
+def tf_bert_phase(dev, smi):
+    """TF import at BERT-base width, without TensorFlow: the port's builder
+    writes a frozen google-research/bert GraphDef (``testing/tf_builder``,
+    ~440 MB of float32 ``Const`` weights), ``import_frozen_graph`` puts it
+    on the card (parse and import seconds printed), ``sd.output`` runs the
+    logits, a softmax cross entropy is added in SameDiff and ``sd.fit``
+    takes 3 Adam steps through the kernels (counts set to 0 just before
+    the forward and just before the steps, read just after each); then
+    the same steps op by op (captured against eager, bit for bit), under
+    ``helper_mode="generic"`` from the same weights and from weights moved
+    by one unit in the last place (the yardstick); the forward once more
+    through ``GraphRunner``; and a SameDiff graph with a data-dependent
+    ``while_loop``, routed to eager, against its CPU run. Returns
+    (problems, line, launches of the counted forward and steps)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.imports import (
+        GraphRunner, TensorflowImporter, import_frozen_graph, tf_proto)
+    from deeplearning4j_tpu_torch.nn.compiled import CONTROL_FLOW, TrainUnits
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.profile_serve import _profile
+    from deeplearning4j_tpu_torch.testing import tf_builder as tb
+
+    cfg = tb.BERT_BASE_TF
+    layers = cfg["layers"]
+    n_fused = 6 * layers + 2  # six dense layers a layer, pooler, classifier
+    env = environment()
+    t0 = time.perf_counter()
+    data = tb.bert_tf_graph(**cfg)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gd = tf_proto.parse_graph_def(data)  # the references' imports reuse it
+    parse_s = time.perf_counter() - t0
+    feeds = tb.tf_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+    names = ["input_ids", "input_mask", "segment_ids"]
+    labels = tb.class_labels(cfg["batch"])
+    batch = types.SimpleNamespace(features=[feeds[n] for n in names],
+                                  labels=labels,
+                                  num_examples=lambda: cfg["batch"])
+
+    def build(source, nudge=False):
+        if isinstance(source, bytes):
+            sd = import_frozen_graph(source, device=dev)
+        else:
+            sd = TensorflowImporter(device=dev).run_import(source)
+        lab = sd.placeholder("labels", (cfg["batch"], 2))
+        sd.loss.softmax_cross_entropy(sd.get_variable("logits"),
+                                      lab).rename("loss")
+        sd.set_training_config(TrainingConfig(
+            updater=Adam(learning_rate=FINETUNE_LR),
+            data_set_feature_mapping=names, data_set_label_mapping=["labels"],
+            loss_variables=["loss"]))
+        if nudge:
+            moved = _nudged(sd.training_state()["params"],
+                            np.random.default_rng(9))
+            for n, t in moved.items():
+                sd.set_arr(n, t)
+        return sd
+
+    def run(mode, *, source=gd, nudge=False, counted=False, eager=False):
+        """Import, the logits' forward twice (the second counted), 3 fit
+        steps (counted), the logits after them."""
+        env.helper_mode = mode
+        if counted:
+            observe.reset()
+        try:
+            resident = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sd = build(source, nudge)
+            torch.cuda.synchronize()
+            info = {"import_s": time.perf_counter() - t0}
+            n_params = sum(a.numel() for n, a in sd._arrays.items()
+                           if sd._vars[n].vtype == "VARIABLE")
+            with _eager_if(eager or mode != "auto"):
+                t0 = time.perf_counter()
+                sd.output(feeds, ["logits"])  # builds the plan, captures
+                info["first_forward_s"] = time.perf_counter() - t0
+                if counted:
+                    _zero_counters()  # the main path's forward starts here
+                out = sd.output(feeds, ["logits"])["logits"]
+                if counted:
+                    info["forward_launches"] = _read_counters()  # ... ends
+                st = sd.last_compile_stats
+                info.update(fusions=st.fusions, plan_nodes=st.nodes_after,
+                            nodes=len(sd._nodes))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                if counted:
+                    copies0 = cm.kmajor_weight.copies
+                    _zero_counters()  # the main path's steps start here
+                losses, times = [], []
+                for _ in range(FINETUNE_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses += sd.fit([batch])
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                if counted:
+                    info["step_launches"] = _read_counters()  # ... end here
+                    # the updater's new weights: new K-major split copies
+                    info["kmajor_copies"] = cm.kmajor_weight.copies - copies0
+            info["events"] = list(observe.ledger().events())
+            info["units"] = {k[0]: types.SimpleNamespace(
+                captures=u.units["train"].captures,
+                moved=u.units["train"].moved,
+                pool_bytes=u.units["train"].pool_bytes,
+                static_bytes=u.units["train"].static_bytes)
+                for k, u in sd._jit_cache.items()
+                if isinstance(u, TrainUnits) and "train" in u.units}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            params = {n: t.clone() for n, t in
+                      sd.training_state()["params"].items()}
+            info.update(
+                losses=losses, times_ms=[t * 1e3 for t in times],
+                step_p50_ms=float(np.percentile(times, 50)) * 1e3,
+                peak_memory_gib=peak, resident_before_gib=resident,
+                params=n_params, leaves=len(params),
+                state=_clone_tree([params,
+                                   sd.training_state()["opt_state"]]))
+            with _eager_if(eager or mode != "auto"):
+                after = sd.output(feeds, ["logits"])["logits"]
+            if counted:
+                # where the step's time goes (device busy share), over two
+                # more replayed steps, after the counted ones
+                info["profile"] = _profile(lambda: sd.fit([batch, batch]), 1,
+                                           steps_per_call=2, top=8)
+            del sd
+            gc.collect()  # a captured graph's cycle back to sd, and its pool
+            torch.cuda.empty_cache()
+            return info, out, params, after
+        finally:
+            env.helper_mode = "auto"
+
+    k_info, k_out, k_params, k_after = run("auto", source=data, counted=True)
+    e_info = run("auto", eager=True)[0]
+    g_info, g_out, g_params, g_after = run("generic")
+    y_info, _, y_params, _ = run("generic", nudge=True)
+
+    problems, cap_fields = capture_fields(
+        k_info.pop("units"),
+        (k_info["losses"], [t / 1e3 for t in k_info["times_ms"]],
+         k_info.pop("state")),
+        (e_info["losses"], [t / 1e3 for t in e_info["times_ms"]],
+         e_info.pop("state")),
+        k_info.pop("events"), ("train",))
+    for info in (e_info, g_info, y_info):
+        for k in ("units", "state", "events"):
+            info.pop(k, None)
+    want_fusions = {"attention": layers, "epilogue": n_fused}
+    for label, info in (("kernel", k_info), ("generic", g_info)):
+        if info["fusions"] != want_fusions:
+            problems.append(f"{label} fusions {info['fusions']} != "
+                            f"{want_fusions}")
+    fwd, step = k_info["forward_launches"], k_info["step_launches"]
+    per_forward = {"flash_attn_fwd": layers, "flash_attn_fwd_f32_sm90": layers,
+                   "flash_attn_dq": 0, "flash_attn_dkv": 0,
+                   "fused_matmul_bias_act": n_fused,
+                   "fused_matmul_bias_act_f32_sm90": n_fused,
+                   "fused_layer_norm": 0, "fused_updater": 0}
+    per_step = {"flash_attn_fwd": layers, "flash_attn_dq": layers,
+                "flash_attn_dkv": layers, "flash_attn_fwd_sm90": 0,
+                "flash_attn_dq_sm90": 0, "flash_attn_dkv_sm90": 0,
+                "flash_attn_fwd_f32_sm90": layers,
+                "flash_attn_dq_f32_sm90": layers,
+                "flash_attn_dkv_f32_sm90": layers,
+                "fused_matmul_bias_act": n_fused,
+                "fused_matmul_bias_act_sm90": 0,
+                "fused_matmul_bias_act_f32_sm90": n_fused,
+                "fused_layer_norm": 0}
+    for name, n in per_forward.items():
+        if fwd[name] != n:
+            problems.append(f"forward: {name} launches {fwd[name]} != {n}")
+    for name, n in per_step.items():
+        if step[name] != n * FINETUNE_STEPS:
+            problems.append(f"steps: {name} launches {step[name]} != {n} x "
+                            f"{FINETUNE_STEPS} steps")
+    problems += updater_count_problems(step["fused_updater"],
+                                       step["fused_updater_leaves"],
+                                       k_info["leaves"], FINETUNE_STEPS)
+    if k_info["kmajor_copies"] != n_fused * FINETUNE_STEPS:
+        problems.append(f"K-major weight copies {k_info['kmajor_copies']} != "
+                        f"{n_fused} x {FINETUNE_STEPS} steps")
+    kernel, generic, yard = (i["losses"] for i in (k_info, g_info, y_info))
+    if not all(math.isfinite(v) for v in kernel + generic + yard):
+        problems.append("non-finite loss")
+    loss_lim = [max(BERT_LOSS_RTOL["float32"] * abs(g), 0.0 if i == 0 else
+                    BERT_YARDSTICK * abs(y - g))
+                for i, (g, y) in enumerate(zip(generic, yard))]
+    loss_diff = [abs(a - b) for a, b in zip(kernel, generic)]
+    if any(d > lim for d, lim in zip(loss_diff, loss_lim)):
+        problems.append(f"losses {kernel} vs generic {generic} "
+                        f"(limits {loss_lim})")
+    if not kernel[-1] < kernel[0]:
+        problems.append(f"loss did not fall: {kernel}")
+    big = max(t.abs().max().item() for t in g_params.values())
+    p_diff = _max_diff(k_params, g_params)
+    p_lim = max(BERT_YARDSTICK * _max_diff(y_params, g_params),
+                torch.finfo(torch.float32).eps * big)
+    if p_diff > p_lim:
+        problems.append(f"params {p_diff} > {p_lim}")
+    shape = (cfg["batch"], 2)
+    for label, y in (("kernel", k_out), ("generic", g_out),
+                     ("kernel after fit", k_after)):
+        if y.shape != shape or not np.all(np.isfinite(y)):
+            problems.append(f"{label} logits {y.shape} not finite")
+    fwd_diff = float(np.abs(k_out - g_out).max())
+    if fwd_diff > TF_BERT_TOL:
+        problems.append(f"forward vs generic max abs diff {fwd_diff} > "
+                        f"{TF_BERT_TOL}")
+
+    # the same forward through GraphRunner (its own import, captured)
+    runner = GraphRunner(data, device=dev)
+    r_out = runner.run(feeds, ["logits"])["logits"]
+    r_out = runner.run(feeds, ["logits"])["logits"]
+    runner_diff = float(np.abs(r_out - k_out).max())
+    runner_info = {"framework": runner.framework,
+                   "fusions": runner.compile_stats.fusions,
+                   "max_abs_diff_vs_forward": runner_diff,
+                   "bits_equal_forward": bool(np.array_equal(r_out, k_out))}
+    if runner.framework != "tensorflow" or runner_diff > TF_BERT_TOL:
+        problems.append(f"GraphRunner {runner_info}")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a data-dependent while loop built through the SameDiff API: its
+    # predicate is read on the host, so sd.output routes it to eager, once
+    def while_graph(device):
+        sd = SameDiff(device=device)
+        x = sd.placeholder("x", (TF_WHILE_N,))
+        sd.while_loop(lambda v: v.sum() < TF_WHILE_LIMIT,
+                      lambda v: v * 2.0 + 1.0, x).rename("y")
+        return sd
+
+    xw = np.random.RandomState(5).randint(0, 8, TF_WHILE_N).astype(
+        np.float32)
+    w_cpu = while_graph("cpu").output({"x": xw}, "y")["y"]
+    observe.reset()
+    sdw = while_graph(dev)
+    w_gpu = sdw.output({"x": xw}, "y")["y"]
+    routed = [[e.key, e.reason] for e in observe.ledger().routed_events()
+              if e.graph == "samediff"]
+    skipped = observe.metrics().counter("dl4j_tpu_capture_skipped_total",
+                                        unit="exec",
+                                        reason=CONTROL_FLOW).value
+    w_info = {"n": TF_WHILE_N, "limit": TF_WHILE_LIMIT,
+              "equal_cpu": bool(np.array_equal(w_gpu, w_cpu)),
+              "trips": int(round(math.log2((float(w_gpu[0]) + 1.0)
+                                           / (float(xw[0]) + 1.0)))),
+              "routed": routed, "capture_skipped_total": skipped,
+              "captures": exec_unit(sdw, ["y"]).captures}
+    if not (w_info["equal_cpu"] and routed == [["exec", CONTROL_FLOW]]
+            and skipped == 1 and w_info["captures"] == 0):
+        problems.append(f"while graph {w_info}")
+
+    tokens = cfg["batch"] * cfg["seq"]
+    real = float(feeds["input_mask"].sum())
+    p50 = k_info["step_p50_ms"] / 1e3
+    prof = k_info.pop("profile")
+    weight_bytes = 4 * k_info["params"]
+    line = {"phase": "tf_bert", "card": smi, "config": cfg,
+            "graph": "google-research/bert modeling.py layout, frozen "
+                     "(Const weights), pooler + 2-way classifier; key mask",
+            "weights": "float32, numpy RandomState(0) * 0.02",
+            "graph_bytes": len(data), "build_bytes_s": build_s,
+            "parse_s": parse_s, "import_s": k_info["import_s"],
+            "import_weight_gb_per_s": weight_bytes / k_info["import_s"] / 1e9,
+            "updater": f"Adam lr {FINETUNE_LR:g}", "steps": FINETUNE_STEPS,
+            "loss": "softmax cross entropy on the logits, added in SameDiff",
+            "leaves": k_info["leaves"], "params": k_info["params"],
+            "forward_launches": fwd, "step_launches": step,
+            "launches_per_step": {k: v / FINETUNE_STEPS
+                                  for k, v in step.items()},
+            "kernel": k_info, "eager": e_info, "generic": g_info,
+            "generic_weights_moved_1_ulp": y_info,
+            "forward_max_abs_diff_vs_generic": fwd_diff, "tol": TF_BERT_TOL,
+            "loss_abs_diff": loss_diff, "loss_limit": loss_lim,
+            "param_max_abs_diff": p_diff, "param_limit": p_lim,
+            "loss_tol": (f"step-1 loss {BERT_LOSS_RTOL['float32']:g} "
+                         f"relative; later losses and params "
+                         f"{BERT_YARDSTICK:g} x yardstick"),
+            "graph_runner": runner_info, "while_loop": w_info,
+            "smoke_reading": f"{FINETUNE_STEPS} steps, no spread",
+            "step_p50_ms": k_info["step_p50_ms"],
+            "eager_step_p50_ms": e_info["step_p50_ms"],
+            "generic_step_p50_ms": g_info["step_p50_ms"],
+            "tokens_per_s": tokens / p50, "real_tokens_per_s": real / p50,
+            "device_busy_share": prof["device_busy_share"], "profile": prof,
+            "peak_memory_gib": k_info["peak_memory_gib"],
+            "peak_memory_own_gib": k_info["peak_memory_gib"]
+            - k_info["resident_before_gib"], **cap_fields,
+            "problems": problems}
+    launches = {k: fwd.get(k, 0) + v for k, v in step.items()}
     return problems, line, launches
 
 
@@ -5146,6 +5472,12 @@ def main() -> int:
     emit(line)
     if problems:
         raise SystemExit(f"sd_bert_finetune phase failed: {problems}")
+
+    # ------------------------------------------------------------ tf_bert
+    problems, line, train_launches["tf_bert"] = tf_bert_phase(dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"tf_bert phase failed: {problems}")
 
     # ------------------------------------------------------ sd_namespaces
     problems, line, train_launches["sd_namespaces"] = sd_namespaces_phase(

@@ -1316,7 +1316,8 @@ class CompiledGraph:
     the ``jit_trace`` / ``xla_compile`` spans and the
     ``dl4j_tpu_trace_seconds`` / ``dl4j_tpu_xla_compile_seconds``
     histograms. A first call that captures nothing (the CPU) is all trace:
-    ``compile_seconds`` stays None."""
+    ``compile_seconds`` stays None. A graph with an :attr:`eager_reason`
+    is never captured: each call runs eagerly, recorded as routed."""
 
     def __init__(self, run: Callable[..., Dict[str, torch.Tensor]],
                  stats: Optional[OptimizeStats] = None, *, device):
@@ -1327,6 +1328,9 @@ class CompiledGraph:
         self._timed = False
         self._names: Tuple[Tuple[str, ...], Tuple[str, ...]] = ((), ())
         self.unit = CapturedUnit(self._flat, device=device, name="exec")
+        # the routing rule's reason when the graph must run eagerly (a
+        # node reads the host: nn/compiled.py CONTROL_FLOW), else None
+        self.eager_reason: Optional[str] = None
 
     def _flat(self, *tensors):
         var_names, feed_names = self._names
@@ -1335,18 +1339,23 @@ class CompiledGraph:
                          dict(zip(feed_names, tensors[n:])))
 
     def __call__(self, var_arrays: Dict[str, torch.Tensor],
-                 feeds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                 feeds: Dict[str, torch.Tensor],
+                 signature: str = "") -> Dict[str, torch.Tensor]:
         self._names = (tuple(sorted(var_arrays)), tuple(sorted(feeds)))
         args = ([var_arrays[k] for k in self._names[0]]
                 + [feeds[k] for k in self._names[1]])
+        if self.eager_reason is not None:
+            run = lambda *a, key: self._routed(signature, *a)  # noqa: E731
+        else:
+            run = self.unit
         if self._timed:
             with torch.no_grad():
-                return self.unit(*args, key=self._names)
+                return run(*args, key=self._names)
         self._timed = True
         captures = self.unit.captures
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = self.unit(*args, key=self._names)
+            out = run(*args, key=self._names)
         t_end = time.perf_counter()
         from deeplearning4j_tpu_torch import observe
 
@@ -1364,6 +1373,19 @@ class CompiledGraph:
             tr.complete_between("jit_trace", t0, t_end, category="compile")
             m.histogram("dl4j_tpu_trace_seconds").observe(t_end - t0)
         return out
+
+    def _routed(self, signature: str, *args):
+        """A call routed to eager by :attr:`eager_reason`: recorded once per
+        signature in the ledger, counted in
+        ``dl4j_tpu_capture_skipped_total{unit="exec",reason}``."""
+        from deeplearning4j_tpu_torch import observe
+
+        observe.ledger().routed(graph="samediff", key="exec",
+                                signature=signature, reason=self.eager_reason)
+        observe.metrics().counter("dl4j_tpu_capture_skipped_total",
+                                  unit="exec",
+                                  reason=self.eager_reason).inc()
+        return self._flat(*args)
 
     def reset(self) -> None:
         """Drop the captured graphs and their pool."""

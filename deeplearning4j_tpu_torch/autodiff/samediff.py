@@ -49,9 +49,18 @@ What differs from the JAX package:
   with the training state and listeners, ``get_arr``/``set_arr``,
   ``variables`` and ``summary``; ``fit`` polls the preemption fault point
   and flag once a batch, keeps the data cursor and logs the
-  ``train_epoch`` event. Not yet: control flow (scan/while/cond), serde
-  and graph checking (``check``; ``validate=True`` raises) (ROADMAP.md,
-  Queue 1 items 7 and 11).
+  ``train_epoch`` event. Not yet: serde and graph checking (``check``;
+  ``validate=True`` raises) (ROADMAP.md, Queue 1 item 11).
+* Control flow (``scan``, ``while_loop``, ``while_loop_multi``,
+  ``scan_multi``, ``cond_multi``, ``cond``: the JAX package's signatures,
+  the user's functions built from torch ops). A scan runs its fixed trip
+  count with no host read, so its graph is captured like any other. A
+  while loop or a conditional reads its predicate on the host and runs
+  only what it picks (``lax.cond`` traces both branches); a graph holding
+  one runs eagerly by rule — ``output``, ``calculate_gradients`` and
+  ``fit`` record the routing once per signature in the ledger and count
+  each call in ``dl4j_tpu_capture_skipped_total{unit,reason}``
+  (``nn.compiled.CONTROL_FLOW``), as the masked LSTM step is routed.
 """
 
 from __future__ import annotations
@@ -468,6 +477,93 @@ def resolve_graph_op(name: str,
         desc = reg.get(name)
         return desc if desc.platform_impls else desc.fn
     raise KeyError(f"unknown graph op '{name}'")
+
+
+# ---------------------------------------------------------------------------
+# Control flow: the bodies of the recorded scan / while / cond ops
+# ---------------------------------------------------------------------------
+
+
+def _reads_host(fn):
+    """Mark a control-flow op that reads a predicate on the host: a graph
+    that runs it is routed to eager (``SameDiff._routing``)."""
+    fn.reads_host = True
+    return fn
+
+
+def _predicate(p) -> bool:
+    """A scalar predicate read on the host (nonzero is true, as
+    ``astype(bool).reshape(())`` reads it)."""
+    t = p if isinstance(p, torch.Tensor) else torch.as_tensor(p)
+    return bool(t.reshape(()).bool())
+
+
+def _tree_on(v, device):
+    """A carry's initial value (a tree of tensors, arrays or scalars) as
+    canonical tensors on ``device``."""
+    if isinstance(v, (tuple, list)):
+        return type(v)(_tree_on(x, device) for x in v)
+    return canonical(v, device)
+
+
+def _stack(ys):
+    """Stack the per-trip outputs (tensors, tuples of them, or None)."""
+    if ys[0] is None:
+        return None
+    if isinstance(ys[0], (tuple, list)):
+        return tuple(torch.stack([torch.as_tensor(y[k]) for y in ys])
+                     for k in range(len(ys[0])))
+    return torch.stack([torch.as_tensor(y) for y in ys])
+
+
+def _empty_stack(y):
+    """The stack of no trip, shaped by one trip's outputs ``y``."""
+    if y is None:
+        return None
+    if isinstance(y, (tuple, list)):
+        return tuple(t.new_zeros((0,) + tuple(t.shape)) for t in y)
+    return y.new_zeros((0,) + tuple(y.shape))
+
+
+def _scan_loop(fn, init, xs: Sequence[torch.Tensor], trips: int,
+               single_x: bool = False):
+    """``lax.scan(fn, init, xs, length=trips)``: ``trips`` calls of
+    ``fn(carry, x_slice)`` (the bare slice with ``single_x``, else a tuple
+    of slices, None without xs), the per-trip outputs stacked on a new
+    axis 0. A fixed trip count: no host read."""
+    def slices(i):
+        if single_x:
+            return xs[0][i]
+        return tuple(t[i] for t in xs) if xs else None
+
+    carry, ys = init, []
+    for i in range(trips):
+        carry, y = fn(carry, slices(i))
+        ys.append(y)
+    if ys:
+        return carry, _stack(ys)
+    # no trip: one call on zero slices shapes the empty stacks
+    zero = [t.new_zeros(tuple(t.shape[1:])) for t in xs]
+    _, y0 = fn(init, zero[0] if single_x else (tuple(zero) if xs else None))
+    return carry, _empty_stack(y0)
+
+
+def _while(cond_fn, body_fn, carry: Tuple[torch.Tensor, ...]):
+    """``lax.while_loop`` over a tuple carry: the predicate read on the
+    host before every trip; the body must keep every carry's shape and
+    dtype, as lax requires."""
+    carry = tuple(carry)
+    sig = [(tuple(t.shape), t.dtype) for t in carry]
+    while _predicate(cond_fn(carry)):
+        out = body_fn(carry)
+        out = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+        got = [(tuple(t.shape), t.dtype) for t in out]
+        if got != sig:
+            raise TypeError(
+                f"while_loop: body_fn output and input must have identical "
+                f"types: carry {sig}, body returned {got}")
+        carry = out
+    return carry
 
 
 # ---------------------------------------------------------------------------
@@ -1201,6 +1297,7 @@ class SameDiff:
             fn = CompiledGraph(run, self.last_compile_stats,
                                device=self.device)
             fn._const_names = const_names
+            fn.eager_reason = self._routing(out_names)
             self._jit_cache[cache_key] = fn
         self.last_compile_stats = fn.stats
         return fn
@@ -1227,11 +1324,13 @@ class SameDiff:
         fn = self._compiled_fn(tuple(outputs))
         from deeplearning4j_tpu_torch.observe import signature_of
 
-        self._note_compile(fn, "exec", signature_of(**feeds),
+        signature = signature_of(**feeds)
+        self._note_compile(fn, "exec", signature,
                            stable_key=(tuple(outputs), bool(self.optimize),
                                        self.optimize_passes))
         res = fn(self._var_arrays(fn._const_names),
-                 {k: canonical(v, self.device) for k, v in feeds.items()})
+                 {k: canonical(v, self.device) for k, v in feeds.items()},
+                 signature=signature)
         return {k: _to_numpy(v) for k, v in res.items()}
 
     exec = output  # reference SameDiff.exec alias
@@ -1301,6 +1400,8 @@ class SameDiff:
         grads = units.run(
             "grad", body, [feeds[k] for k in names], layout=names,
             reads=list(self._var_arrays(const_names).values()),
+            signature=signature_of(**feeds),
+            eager_reason=self._routing((loss_name,)),
             copy_out=False, note=lambda unit: self._note_compile(
                 unit, "grad", signature_of(**feeds), stable_key=key))
         return {k: _to_numpy(g) for k, g in grads.items()}
@@ -1421,6 +1522,8 @@ class SameDiff:
                              self._updater_state) + [step],
             reads=[a for n, a in self._var_arrays(const_names).items()
                    if n not in trained],
+            signature=signature_of(**feeds),
+            eager_reason=self._routing((loss_name,)),
             note=lambda unit: self._note_compile(
                 unit, "train", signature_of(**feeds), stable_key=key))
         units.iteration.advanced()
@@ -1510,6 +1613,134 @@ class SameDiff:
                                   epoch=self.epoch_count, steps=0)
         notify_fit_done(self, self._listeners)
         return history
+
+    # ---------------------------------------------------------- control flow
+    def scan(self, fn, init, xs_var: "SDVariable") -> "SDVariable":
+        """Recorded scan over axis 0 of xs (the TF-frames / Enter-Exit
+        control-flow analog; ``lax.scan`` in the JAX package).
+
+        fn: (carry, x_slice) -> (new_carry, y_slice), built from torch ops
+        (run at execution time, NOT recorded node by node). The trip count
+        is xs's length: no host read, so the graph may be captured."""
+        name = self._fresh("scan")
+
+        def scan_op(xs, init_val=init):
+            _, ys = _scan_loop(fn, _tree_on(init_val, xs.device), (xs,),
+                               xs.shape[0], single_x=True)
+            return ys
+
+        self._local_ops[name + "_impl"] = scan_op
+        return self._record(name + "_impl", [xs_var])
+
+    def while_loop(self, cond_fn, body_fn,
+                   init_var: "SDVariable") -> "SDVariable":
+        """Recorded while loop (TF While-frame analog): ``cond_fn(x)`` is
+        read on the host before every trip, so a graph holding one runs
+        eagerly (:data:`~deeplearning4j_tpu_torch.nn.compiled.CONTROL_FLOW`
+        routing)."""
+        name = self._fresh("while")
+
+        def while_op(x):
+            return _while(lambda c: cond_fn(c[0]),
+                          lambda c: (body_fn(c[0]),), (x,))[0]
+
+        self._local_ops[name + "_impl"] = _reads_host(while_op)
+        return self._record(name + "_impl", [init_var])
+
+    def while_loop_multi(self, cond_fn, body_fn,
+                         init_vars: Sequence["SDVariable"]):
+        """Recorded multi-carry while loop — the TF2 While/StatelessWhile
+        function-graph analog (AbstractSession loop frames).
+
+        cond_fn: tuple(carry) -> scalar bool; body_fn: tuple(carry) ->
+        tuple(carry). Returns one SDVariable per loop variable (the final
+        carry), mirroring the TF While node's N outputs. The predicate is
+        read on the host, as in :meth:`while_loop`."""
+        name = self._fresh("while")
+        n = len(init_vars)
+
+        def while_op(*vals):
+            out = _while(cond_fn, body_fn, tuple(vals))
+            # n_out=1 slots store a bare value, not the 1-tuple carry
+            return out[0] if n == 1 else out
+
+        self._local_ops[name + "_impl"] = _reads_host(while_op)
+        return self._record(name + "_impl", list(init_vars), n_out=n)
+
+    def scan_multi(self, fn, init_vars: Sequence["SDVariable"],
+                   xs_vars: Sequence["SDVariable"], n_ys: int,
+                   length: Optional[int] = None):
+        """Recorded multi-carry multi-output scan — the ONNX Scan /
+        Loop-with-scan-outputs analog.
+
+        fn: (tuple(carry), tuple(x_slices)) -> (tuple(carry),
+        tuple(y_slices)) (x_slices is None without xs; then ``length`` is
+        the trip count); returns [final carries…] + [stacked ys…] as
+        SDVariables. No host read."""
+        name = self._fresh("scan")
+        n_state = len(init_vars)
+        n_out = n_state + n_ys
+
+        def scan_op(*vals):
+            inits = tuple(vals[:n_state])
+            xs = tuple(vals[n_state:])
+            if not xs and length is None:
+                raise ValueError("scan_multi: no xs and no length")
+            trips = xs[0].shape[0] if xs else int(length)
+            carry, ys = _scan_loop(fn, inits, xs, trips)
+            outs = tuple(carry) + (tuple(ys) if isinstance(ys, tuple)
+                                   else (ys,) if n_ys else ())
+            return outs[0] if n_out == 1 else outs
+
+        self._local_ops[name + "_impl"] = scan_op
+        return self._record(name + "_impl",
+                            list(init_vars) + list(xs_vars), n_out=n_out)
+
+    def cond_multi(self, pred_var: "SDVariable", true_fn, false_fn,
+                   operands: Sequence["SDVariable"], n_out: int):
+        """Recorded conditional over N operands with M outputs — the TF2
+        If/StatelessIf function-graph analog. true_fn/false_fn:
+        (*operands) -> tuple of n_out values. The predicate (a scalar) is
+        read on the host and only the branch it picks runs."""
+        name = self._fresh("cond")
+
+        def cond_op(pred, *vals):
+            return true_fn(*vals) if _predicate(pred) else false_fn(*vals)
+
+        self._local_ops[name + "_impl"] = _reads_host(cond_op)
+        return self._record(name + "_impl", [pred_var] + list(operands),
+                            n_out=n_out)
+
+    def cond(self, pred_var: "SDVariable", true_fn, false_fn,
+             operand: "SDVariable") -> "SDVariable":
+        """Recorded conditional (TF Switch/Merge analog), the predicate read
+        on the host as in :meth:`cond_multi`."""
+        name = self._fresh("cond")
+
+        def cond_op(pred, x):
+            return true_fn(x) if _predicate(pred) else false_fn(x)
+
+        self._local_ops[name + "_impl"] = _reads_host(cond_op)
+        return self._record(name + "_impl", [pred_var, operand])
+
+    def _routing(self, out_names: Tuple[str, ...]) -> Optional[str]:
+        """The routing rule of the units that run ``out_names``:
+        :data:`~deeplearning4j_tpu_torch.nn.compiled.CONTROL_FLOW` when a
+        node they run reads the host (a while loop's or a conditional's
+        predicate), else None. Decided from the plan before any capture;
+        cached with it."""
+        key = ("route", out_names, bool(self.optimize),
+               self._effective_passes())
+        if key not in self._jit_cache:
+            plan = self._graph_plan(out_names)
+            nodes = (plan.nodes if plan is not None
+                     else self._needed_nodes(out_names))
+            reads = any(getattr(self._local_ops.get(n.op), "reads_host",
+                                False) for n in nodes)
+            from deeplearning4j_tpu_torch.nn.compiled import CONTROL_FLOW
+
+            self._jit_cache[key] = CONTROL_FLOW if reads else None
+        return self._jit_cache[key]
 
     # --------------------------------------------------------------- listeners
     def set_listeners(self, *listeners) -> None:

@@ -31,7 +31,10 @@ What differs from the JAX package:
   the same FFN masks whichever attention path runs. Parity tests carry
   parameters across with :func:`bert_params_from_numpy` /
   :func:`bert_opt_state_from_numpy` and compare at dropout 0.
-* ``from_samediff_import`` waits for the SameDiff port.
+* A BERT imported from TF or ONNX is a SameDiff graph
+  (``imports.import_frozen_graph``, ``imports.import_onnx``), not a
+  ``BertModel``: the JAX package names a ``from_samediff_import`` in its
+  docstring but defines none, and the port adds none.
 """
 
 from __future__ import annotations

@@ -33,7 +33,8 @@ What a training unit needs that an inference unit does not:
   returns copies unless the caller copies them out itself (the scanned
   loops write each step's loss into the chunk's device vector).
 * **Routing.** A step that must read the host (the masked cuDNN LSTM reads
-  its mask's lengths) is routed to eager by a rule the trainer decides
+  its mask's lengths, a SameDiff while loop or conditional its
+  predicate) is routed to eager by a rule the trainer decides
   from the configuration and the feeds before any capture — never by
   catching a failed capture. The ledger records the routing once per
   (key, signature, reason) (``RecompileLedger.routed``) and
@@ -270,6 +271,10 @@ class TrainUnits:
 # the routing rule's reason: cuDNN's masked LSTM reads the mask's lengths
 # on the host (ops/cudnn_lstm.py right_padded_lengths)
 MASKED_LSTM = "masked_lstm_reads_host"
+# the routing rule's reason of a SameDiff graph holding a while loop or a
+# conditional: its predicate is read on the host before it branches
+# (autodiff/samediff.py SameDiff._routing)
+CONTROL_FLOW = "control_flow_reads_host"
 
 
 def runs_lstm(layer) -> bool:
