@@ -330,6 +330,17 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 19. ``updater_coefficients`` — every schedule's learning rate and every
    updater kind's coefficient buffer computed on the card from an int32
    step tensor against the CPU's: the largest ulp gap, reported.
+20. ``keras_bert`` — Keras import without h5py, Keras or TensorFlow:
+   ``testing/keras_builder.py`` writes the legacy ``.h5`` of a BERT-base
+   width functional Keras encoder (~440 MB), the port's HDF5 reader
+   parses it and ``import_keras_model_and_weights`` builds the
+   ComputationGraph on the card (build, parse, import seconds); every
+   leaf bit-equal to the builder's arrays; ``output`` at batch 32 × 128
+   launches exactly 12 float32 tensor-core flash forwards and nothing
+   else, within 3× the one-ulp yardstick of ``helper_mode="generic"``
+   (probabilities and last hidden state); eager forward p50, tokens/s,
+   busy share, peak memory; and a Sequential Conv1D classifier from the
+   same builder against its generic run and its CPU import.
 
 Every training phase (5–8, 10, 12–17) runs its steps as CUDA-graph
 training units (``nn/compiled.py``): the warm-up captures each step key,
@@ -502,6 +513,19 @@ INT8_MM_SHAPES = [(4096, 768, 768), (4096, 768, 3072), (4096, 3072, 768),
 INT8_BERT_YARDSTICK = 3.0
 INT8_GROSS_REL_ERR = 0.1
 INT8_BERT_TIMED = 5
+# keras_bert: the imported Keras encoder's forward at the tf_bert shape,
+# against helper_mode="generic" within this many times the generic
+# forward's own change when every weight moves by one unit in the last
+# place (at least one unit in the last place of the largest value); the
+# Sequential Conv1D classifier (no kernel on its path) against
+# its generic run and the port's CPU import
+KERAS_BERT_BATCH = 32
+KERAS_BERT_SEQ = 128
+KERAS_BERT_YARDSTICK = 3.0
+KERAS_BERT_TIMED = 5
+KERAS_SEQ_CFG = dict(vocab=1000, seq=128, width=32, filters=16, kernel=5,
+                     pool=2, classes=4)
+KERAS_SEQ_TOL = 1e-5
 # sd_bert_finetune: Adam lr and steps (BERT fine-tune practice: 2e-5…5e-5)
 FINETUNE_LR = 5e-5
 FINETUNE_STEPS = 3
@@ -4694,6 +4718,227 @@ def updater_coefficients_phase(dev, smi):
     return problems, line
 
 
+def _keras_expected_leaves(arrays):
+    """The leaves ``import_keras_model_and_weights`` must put in the
+    network for the builder's arrays (by layer, in ``weight_names``
+    order), written out here independently of the importer's mappers:
+    Embedding W; LayerNormalization gain and b; Dense W and b;
+    MultiHeadAttention's (d, H, hd) / (H, hd, d) kernels flattened to 2-D
+    Wq, Wk, Wv, Wo and their biases to 1-D."""
+    want = {}
+    for name, arrs in arrays.items():
+        if not arrs:
+            continue
+        if name.endswith("_embedding"):
+            want[name] = {"W": arrs[0]}
+        elif name.endswith("_norm"):
+            want[name] = {"gain": arrs[0], "b": arrs[1]}
+        elif name.endswith("_attention"):
+            d = arrs[0].shape[0]
+            leaves = {}
+            for i, part in enumerate("qkv"):
+                leaves[f"W{part}"] = arrs[2 * i].reshape(d, -1)
+                leaves[f"b{part}"] = arrs[2 * i + 1].reshape(-1)
+            leaves["Wo"] = arrs[6].reshape(-1, arrs[6].shape[-1])
+            leaves["bo"] = arrs[7].reshape(-1)
+            want[name] = leaves
+        else:
+            want[name] = {"W": arrs[0], "b": arrs[1]}
+    return want
+
+
+def keras_bert_phase(dev, smi):
+    """Keras import without h5py, Keras or TensorFlow, served on the card:
+    ``testing/keras_builder`` writes the legacy ``.h5`` of a BERT-base
+    width functional Keras encoder (12 layers, 768, 12 heads, 3072, vocab
+    30522, 512 positions; ~440 MB of float32 weights), the port's HDF5
+    reader parses it and ``import_keras_model_and_weights`` puts the
+    ``ComputationGraph`` on the card (build, parse and import seconds
+    printed); every imported leaf must equal the builder's array bit for
+    bit; ``output`` on token ids and positions of batch 32 × 128 (counts
+    set to 0 just before, read just after) must launch the float32
+    tensor-core flash forward exactly 12 times and nothing else of the
+    table, and agree with the same forward under ``helper_mode="generic"``
+    within 3× that forward's own change when every weight moves by one
+    unit in the last place (the probabilities and the last hidden state);
+    then the eager forward's p50, tokens/s, busy share and the phase's
+    peak memory. A Sequential Conv1D text classifier written by the same
+    builder is imported on the card too and held to its generic run and to
+    the port's CPU import. Returns (problems, line, launches of the
+    counted forward)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.imports import keras_import as ki
+    from deeplearning4j_tpu_torch.nn import dtype as DT
+    from deeplearning4j_tpu_torch.profile_serve import _profile
+    from deeplearning4j_tpu_torch.testing import keras_builder as kb
+
+    cfg = dict(kb.BERT_BASE_KERAS, seq=KERAS_BERT_SEQ)
+    layers, batch, seq = cfg["layers"], KERAS_BERT_BATCH, KERAS_BERT_SEQ
+    env = environment()
+    problems = []
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data, arrays = kb.bert_keras_h5(None, **cfg)
+    build_s = time.perf_counter() - t0
+    h5_bytes = len(data)
+    t0 = time.perf_counter()
+    config, weights = ki.read_keras_h5(data)
+    parse_s = time.perf_counter() - t0
+    del config, weights
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = ki.import_keras_model_and_weights(data, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for p in net.params.values()
+                   for t in p.values())
+
+    # every leaf against the builder's arrays, bit for bit
+    want = _keras_expected_leaves(arrays)
+    leaf_problems = []
+    got_names = {n for n, p in net.params.items() if p}
+    if got_names != set(want):
+        leaf_problems.append(f"layers with leaves differ: "
+                             f"{sorted(got_names ^ set(want))}")
+    n_leaves = 0
+    for name, leaves in want.items():
+        got = net.params.get(name, {})
+        if set(got) != set(leaves):
+            leaf_problems.append(f"{name}: leaves {sorted(got)} != "
+                                 f"{sorted(leaves)}")
+            continue
+        for k, arr in leaves.items():
+            n_leaves += 1
+            t = got[k]
+            if (t.device.type != torch.device(dev).type
+                    or t.dtype != torch.float32
+                    or not torch.equal(t.cpu(), torch.from_numpy(arr))):
+                leaf_problems.append(f"{name}.{k} not bit-equal on the card")
+    problems += leaf_problems[:8]
+    del data, arrays, want
+
+    ids, pos = kb.bert_inputs(batch, seq, cfg["vocab"], seed=1)
+    feeds = (ids.astype(np.float32), pos.astype(np.float32))
+    last_norm = f"layer_{layers - 1}_output_norm"
+
+    def forward(mode, params=None):
+        """(probabilities, last hidden state) under ``mode``."""
+        env.helper_mode = mode
+        try:
+            feed = net._feed(dict(zip(net.conf.network_inputs, feeds)))
+            with torch.no_grad(), DT.precision_scope(net.conf.dtype):
+                acts, _ = net._forward(params or net.params, net.net_state,
+                                       feed, None, train=False)
+            return (acts[net.conf.network_outputs[0]].cpu().numpy(),
+                    acts[last_norm].cpu().numpy())
+        finally:
+            env.helper_mode = "auto"
+
+    net.output(*feeds)  # warm-up: the first cuBLAS and kernel calls
+    torch.cuda.synchronize()
+    _zero_counters()  # the main path's forward starts here
+    probs = net.output(*feeds)[0]
+    launches = _read_counters()  # ... and ends here
+    k_probs, k_hidden = forward("auto")
+    g_probs, g_hidden = forward("generic")
+    y_probs, y_hidden = forward("generic", _nudged(net.params,
+                                                   np.random.default_rng(11)))
+    want_launches = {k: 0 for k in launches}
+    want_launches.update(flash_attn_fwd=layers,
+                         flash_attn_fwd_f32_sm90=layers)
+    if launches != want_launches:
+        problems.append(f"launches {launches} != {want_launches}")
+    if probs.shape != (batch, 2) or not np.all(np.isfinite(probs)):
+        problems.append(f"output {probs.shape} not finite")
+    if not np.array_equal(probs, k_probs):
+        problems.append("output() and the phase's own forward differ")
+    checks = {}
+    for label, k, g, y in (("probabilities", k_probs, g_probs, y_probs),
+                           ("hidden", k_hidden, g_hidden, y_hidden)):
+        diff = float(np.abs(k - g).max())
+        yard = float(np.abs(y - g).max())
+        # at least one unit in the last place of the largest value
+        lim = max(KERAS_BERT_YARDSTICK * yard,
+                  float(np.finfo(np.float32).eps * np.abs(g).max()))
+        checks[label] = {"max_abs_diff_vs_generic": diff,
+                         "yardstick_1_ulp": yard, "limit": lim}
+        if not diff <= lim:
+            problems.append(f"{label}: kernel vs generic {diff} > {lim} "
+                            f"({KERAS_BERT_YARDSTICK:g} x yardstick {yard})")
+
+    # the eager forward's time, busy share and the phase's peak memory
+    times = []
+    for _ in range(KERAS_BERT_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.output(*feeds)
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.percentile(times, 50))
+    prof = _profile(lambda: net.output(*feeds), 2, top=6,
+                    named=("flash",))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Sequential Conv1D text classifier, on the card and on the CPU
+    seq_data, _ = kb.conv1d_keras_h5(None, **KERAS_SEQ_CFG)
+    snet = ki.import_keras_sequential_model_and_weights(seq_data, device=dev)
+    cnet = ki.import_keras_model_and_weights(seq_data, device="cpu")
+    x = np.random.RandomState(2).randint(
+        0, KERAS_SEQ_CFG["vocab"], (batch, KERAS_SEQ_CFG["seq"])).astype(
+            np.float32)
+    s_out = snet.output(x)
+    env.helper_mode = "generic"
+    try:
+        s_gen = snet.output(x)
+    finally:
+        env.helper_mode = "auto"
+    s_cpu = cnet.output(x)
+    seq_info = {"config": KERAS_SEQ_CFG, "network": type(snet).__name__,
+                "layers": [type(l.lc).__name__ for l in snet.layers],
+                "max_abs_diff_vs_generic": float(np.abs(s_out - s_gen).max()),
+                "max_abs_diff_vs_cpu": float(np.abs(s_out - s_cpu).max()),
+                "tol": KERAS_SEQ_TOL}
+    if (s_out.shape != (batch, KERAS_SEQ_CFG["classes"])
+            or not np.all(np.isfinite(s_out))
+            or seq_info["max_abs_diff_vs_generic"] > KERAS_SEQ_TOL
+            or seq_info["max_abs_diff_vs_cpu"] > KERAS_SEQ_TOL):
+        problems.append(f"sequential conv1d {seq_info}")
+    del snet, cnet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    line = {"phase": "keras_bert", "card": smi, "config": cfg,
+            "graph": "functional Keras encoder, legacy .h5 as Keras 3.13 "
+                     "writes it: Embedding x2 + Add + LayerNormalization, "
+                     "per layer MultiHeadAttention + Dense(gelu) + Dense, "
+                     "GlobalAveragePooling1D + Dense(tanh) + Dense(2, "
+                     "softmax)",
+            "weights": "float32, numpy RandomState(0) * 0.02",
+            "batch": batch, "seq": seq, "params": n_params,
+            "leaves_checked": n_leaves,
+            "leaves_bit_equal": not leaf_problems,
+            "h5_bytes": h5_bytes, "build_s": build_s,
+            "parse_s": parse_s, "import_s": import_s,
+            "import_weight_gb_per_s": 4 * n_params / import_s / 1e9,
+            "forward_launches": launches, "checks": checks,
+            "forward_p50_ms": p50 * 1e3,
+            "forward_times_ms": [t * 1e3 for t in times],
+            "tokens_per_s": batch * seq / p50,
+            "device_busy_share": prof["device_busy_share"], "profile": prof,
+            "peak_memory_gib": peak,
+            "peak_memory_own_gib": peak - resident,
+            "sequential_conv1d": seq_info,
+            "smoke_reading": f"{KERAS_BERT_TIMED} eager forwards, no spread",
+            "problems": problems}
+    return problems, line, launches
+
+
 def serve_supervised_phase(dev, smi, model, engine_kw, prompts, want):
     """The ``serve`` phase's engine (GPT-2-small width, threaded through
     ``start()``), supervised, with ``decode_step_error`` once and
@@ -5533,6 +5778,12 @@ def main() -> int:
     emit(line)
     if problems:
         raise SystemExit(f"updater_coefficients phase failed: {problems}")
+
+    # --------------------------------------------------------- keras_bert
+    problems, line, train_launches["keras_bert"] = keras_bert_phase(dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"keras_bert phase failed: {problems}")
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it

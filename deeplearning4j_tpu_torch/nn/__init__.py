@@ -1,4 +1,5 @@
-"""The DL4J network API of the port: layer configs, the sequential
+"""The DL4J network API of the port: layer configs (with the types the
+Keras importer builds), the sequential
 network (``MultiLayerNetwork``, its builder and model zips), the
 ComputationGraph runtime with its vertices and zips, listeners, updaters
 and dtype policies (trained with autograd)."""
@@ -14,6 +15,17 @@ from deeplearning4j_tpu_torch.nn.conf import (
     NeuralNetConfigurationBuilder, OutputLayer, RnnLossLayer,
     RnnOutputLayer, RnnToFeedForwardPreProcessor, SeparableConvolution2D,
     SimpleRnn, SpaceToDepthLayer, SubsamplingLayer, Upsampling2D, builder,
+)
+from deeplearning4j_tpu_torch.nn.conf import (  # the Keras importer's
+    AttentionVertex, CategoryEncodingLayer, CenterCropLayer, Cnn3DToFeedForwardPreProcessor,
+    ConvLSTM2D, Convolution1D, Convolution3D, Cropping1D,
+    Cropping2D, Cropping3D, Deconvolution1D, Deconvolution3D,
+    DiscretizationLayer, DotAttentionLayer, EinsumDenseLayer, GroupNormalization,
+    LayerNormalization, LocallyConnected1D, LocallyConnected2D, MaskZeroLayer,
+    PermuteLayer, PReLULayer, RepeatVector, RescaleLayer,
+    ReshapeLayer, ResizeLayer, SeparableConvolution1D, Subsampling1DLayer,
+    Subsampling3DLayer, UnitNormLayer, Upsampling1D, Upsampling3D,
+    ZeroPadding1DLayer, ZeroPadding3DLayer, ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraph, ComputationGraphConfiguration, DotProductVertex,
@@ -47,6 +59,17 @@ __all__ = [
     "OutputLayer", "RnnLossLayer", "RnnOutputLayer",
     "RnnToFeedForwardPreProcessor", "SeparableConvolution2D", "SimpleRnn",
     "SpaceToDepthLayer", "SubsamplingLayer", "Upsampling2D", "builder",
+    "AttentionVertex", "CategoryEncodingLayer", "CenterCropLayer",
+    "Cnn3DToFeedForwardPreProcessor", "ConvLSTM2D", "Convolution1D",
+    "Convolution3D", "Cropping1D", "Cropping2D", "Cropping3D",
+    "Deconvolution1D", "Deconvolution3D", "DiscretizationLayer",
+    "DotAttentionLayer", "EinsumDenseLayer", "GroupNormalization",
+    "LayerNormalization", "LocallyConnected1D", "LocallyConnected2D",
+    "MaskZeroLayer", "PermuteLayer", "PReLULayer", "RepeatVector",
+    "RescaleLayer", "ReshapeLayer", "ResizeLayer", "SeparableConvolution1D",
+    "Subsampling1DLayer", "Subsampling3DLayer", "UnitNormLayer",
+    "Upsampling1D", "Upsampling3D", "ZeroPadding1DLayer",
+    "ZeroPadding3DLayer", "ZeroPaddingLayer",
     "ComputationGraph", "ComputationGraphConfiguration",
     "DotProductVertex", "DuplicateToTimeSeriesVertex", "ElementWiseVertex",
     "FlattenVertex", "GraphBuilder", "L2NormalizeVertex",

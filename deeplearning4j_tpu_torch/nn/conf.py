@@ -12,8 +12,13 @@ sequential network
 (``LossLayer``, ``EmbeddingLayer``, ``EmbeddingSequenceLayer``,
 ``DropoutLayer``, ``LSTM``, ``GravesLSTM``, ``GRU``, ``SimpleRnn``,
 ``Bidirectional``, ``RnnOutputLayer``, ``LastTimeStep``,
-``RnnLossLayer``); the preprocessors ``FeedForwardToCnn``,
-``CnnToFeedForward``, ``RnnToFeedForward`` and ``FeedForwardToRnn``;
+``RnnLossLayer``), the 34 layer types the Keras importer builds
+(``AttentionVertex`` for MultiHeadAttention, the 1-D and 3-D
+convolution, pooling, padding, cropping and upsampling layers, locally
+connected, ``PReLULayer``, the normalizations, shape, attention and
+preprocessing layers); the preprocessors ``FeedForwardToCnn``,
+``CnnToFeedForward``, ``Cnn3DToFeedForward``, ``RnnToFeedForward`` and
+``FeedForwardToRnn``;
 ``MultiLayerConfiguration`` with its JSON, the fluent
 ``NeuralNetConfigurationBuilder`` (``builder()``) and the build-time shape
 inference (``_infer_shapes`` / ``_adapt``); and the ``to_dict`` /
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
@@ -41,7 +47,8 @@ from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
 class InputType:
     """Shape token flowing between layer configs at build time: kind
     'feedforward', 'recurrent', 'convolutional' (height, width, channels;
-    NHWC) or 'convolutionalflat'."""
+    NHWC), 'convolutional3d' (depth too; NDHWC) or
+    'convolutionalflat'."""
 
     kind: str
     size: int = 0
@@ -63,6 +70,13 @@ class InputType:
     def convolutional(height: int, width: int, channels: int) -> "InputType":
         return InputType("convolutional", height=height, width=width,
                          channels=channels)
+
+    @staticmethod
+    def convolutional3d(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        """NDHWC volumetric input (InputTypeConvolutional3D)."""
+        return InputType("convolutional3d", depth=depth, height=height,
+                         width=width, channels=channels)
 
     @staticmethod
     def convolutional_flat(height: int, width: int,
@@ -532,6 +546,599 @@ class RnnLossLayer(LayerConf):
     loss: str = "mcxent"
 
 
+# ---------------------------------------------------------------------------
+# The Keras importer's layer types (JAX nn/conf.py:653-1530): attention,
+# 1-D and 3-D convolution and pooling, padding / cropping / upsampling,
+# locally connected, normalization, shape and preprocessing layers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionVertex(LayerConf):
+    """conf/graph/AttentionVertex.java: multi-head attention as a graph
+    vertex with parameters, inputs (queries, keys, values) or (queries,
+    keys = values); ``keras_order`` takes them in Keras
+    MultiHeadAttention's call order (query, value[, key]). ``d_out`` is the
+    output projection's width where it differs from ``n_out``."""
+
+    n_out: int = 0
+    n_heads: int = 1
+    n_in_queries: int = 0
+    n_in_keys: int = 0
+    n_in_values: int = 0
+    keras_order: bool = False
+    has_bias: bool = False
+    d_out: int = 0
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.d_out or self.n_out, itype.timesteps)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Convolution1D(LayerConf):
+    """conf/layers/Convolution1DLayer.java: temporal convolution over
+    (N, T, C), W (k, C_in, C_out)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel: int = 3
+    stride: int = 1
+    convolution_mode: str = "same"  # same | valid (truncate)
+    dilation: int = 1
+
+    def output_type(self, itype):
+        t = itype.timesteps
+        if t and t > 0:
+            if self.convolution_mode == "same":
+                t = -(-t // self.stride)
+            else:
+                eff = (self.kernel - 1) * self.dilation + 1
+                t = (t - eff) // self.stride + 1
+        return InputType.recurrent(self.n_out, t)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Convolution3D(LayerConf):
+    """conf/layers/Convolution3D.java: volumetric convolution over
+    (N, D, H, W, C), W (kd, kh, kw, C_in, C_out)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel: Tuple[int, int, int] = (3, 3, 3)
+    stride: Tuple[int, int, int] = (1, 1, 1)
+    convolution_mode: str = "same"
+
+    def output_type(self, itype):
+        def out(sz, k, s):
+            return -(-sz // s) if self.convolution_mode == "same" \
+                else (sz - k) // s + 1
+
+        k, s = self.kernel, self.stride
+        return InputType.convolutional3d(
+            out(itype.depth, k[0], s[0]), out(itype.height, k[1], s[1]),
+            out(itype.width, k[2], s[2]), self.n_out)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Subsampling3DLayer(LayerConf):
+    """conf/layers/Subsampling3DLayer.java: 3-D pooling (NDHWC), valid."""
+
+    kernel: Tuple[int, int, int] = (2, 2, 2)
+    stride: Tuple[int, int, int] = (2, 2, 2)
+    pooling_type: str = "max"
+
+    def output_type(self, itype):
+        k, s = self.kernel, self.stride
+        return InputType.convolutional3d(
+            (itype.depth - k[0]) // s[0] + 1,
+            (itype.height - k[1]) // s[1] + 1,
+            (itype.width - k[2]) // s[2] + 1, itype.channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocallyConnected2D(LayerConf):
+    """conf/layers/LocallyConnected2D.java: the convolution's topology
+    with unshared per-position weights."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel: Tuple[int, int] = (3, 3)
+    stride: Tuple[int, int] = (1, 1)
+    input_size: Tuple[int, int] = (0, 0)  # inferred at build when 0
+
+    def output_type(self, itype):
+        kh, kw = _pair(self.kernel)
+        sh, sw = _pair(self.stride)
+        return InputType.convolutional(
+            (itype.height - kh) // sh + 1, (itype.width - kw) // sw + 1,
+            self.n_out)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class LocallyConnected1D(LayerConf):
+    """conf/layers/LocallyConnected1D.java: temporal locally connected."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel: int = 3
+    stride: int = 1
+    input_size: int = 0
+
+    def output_type(self, itype):
+        t = (itype.timesteps - self.kernel) // self.stride + 1 \
+            if itype.timesteps and itype.timesteps > 0 else itype.timesteps
+        return InputType.recurrent(self.n_out, t)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class PReLULayer(LayerConf):
+    """conf/layers/PReLULayer.java: max(0, x) + alpha · min(0, x) with a
+    learned per-feature alpha (``n_in`` features, the last axis)."""
+
+    n_in: int = 0
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroPadding1DLayer(LayerConf):
+    """conf/layers/ZeroPadding1DLayer.java: pads the time axis of
+    (N, T, C)."""
+
+    padding: Tuple[int, int] = (1, 1)
+
+    def output_type(self, itype):
+        t = itype.timesteps
+        p = _pair(self.padding)
+        return InputType.recurrent(
+            itype.size, t + p[0] + p[1] if t and t > 0 else t)
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroPaddingLayer(LayerConf):
+    """conf/layers/ZeroPaddingLayer.java: NHWC spatial zero padding,
+    ``padding`` = (top, bottom, left, right)."""
+
+    padding: Tuple[int, int, int, int] = (1, 1, 1, 1)
+
+    def output_type(self, itype):
+        t, b, l, r = self.padding
+        return InputType.convolutional(itype.height + t + b,
+                                       itype.width + l + r, itype.channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroPadding3DLayer(LayerConf):
+    """conf/layers/ZeroPadding3DLayer.java: NDHWC zero padding,
+    ``padding`` = (d_lo, d_hi, h_lo, h_hi, w_lo, w_hi)."""
+
+    padding: Tuple[int, int, int, int, int, int] = (1, 1, 1, 1, 1, 1)
+
+    def output_type(self, itype):
+        p = self.padding
+        return InputType.convolutional3d(
+            itype.depth + p[0] + p[1], itype.height + p[2] + p[3],
+            itype.width + p[4] + p[5], itype.channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cropping1D(LayerConf):
+    """conf/layers/convolutional/Cropping1D.java: crops the time axis."""
+
+    cropping: Tuple[int, int] = (1, 1)
+
+    def output_type(self, itype):
+        t = itype.timesteps
+        c = _pair(self.cropping)
+        return InputType.recurrent(
+            itype.size, t - c[0] - c[1] if t and t > 0 else t)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cropping2D(LayerConf):
+    """conf/layers/convolutional/Cropping2D.java: NHWC crop, ``cropping``
+    = (top, bottom, left, right)."""
+
+    cropping: Tuple[int, int, int, int] = (1, 1, 1, 1)
+
+    def output_type(self, itype):
+        t, b, l, r = self.cropping
+        return InputType.convolutional(itype.height - t - b,
+                                       itype.width - l - r, itype.channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cropping3D(LayerConf):
+    """conf/layers/convolutional/Cropping3D.java: NDHWC crop, ``cropping``
+    = (d_lo, d_hi, h_lo, h_hi, w_lo, w_hi)."""
+
+    cropping: Tuple[int, int, int, int, int, int] = (1, 1, 1, 1, 1, 1)
+
+    def output_type(self, itype):
+        c = self.cropping
+        return InputType.convolutional3d(
+            itype.depth - c[0] - c[1], itype.height - c[2] - c[3],
+            itype.width - c[4] - c[5], itype.channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class Upsampling1D(LayerConf):
+    """conf/layers/Upsampling1D.java: each timestep repeated ``size``
+    times."""
+
+    size: int = 2
+
+    def output_type(self, itype):
+        t = itype.timesteps
+        return InputType.recurrent(itype.size,
+                                   t * self.size if t and t > 0 else t)
+
+
+@dataclasses.dataclass(frozen=True)
+class Upsampling3D(LayerConf):
+    """conf/layers/Upsampling3D.java: nearest upsampling, NDHWC."""
+
+    size: Tuple[int, int, int] = (2, 2, 2)
+
+    def output_type(self, itype):
+        s = self.size
+        return InputType.convolutional3d(
+            itype.depth * s[0], itype.height * s[1], itype.width * s[2],
+            itype.channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class Subsampling1DLayer(LayerConf):
+    """conf/layers/Subsampling1DLayer.java: temporal pooling over
+    (N, T, C)."""
+
+    kernel: int = 2
+    stride: int = 2
+    pooling_type: str = "max"  # max | avg
+    convolution_mode: str = "valid"
+
+    def output_type(self, itype):
+        t = itype.timesteps
+        if t and t > 0:
+            if self.convolution_mode == "same":
+                t = -(-t // self.stride)
+            else:
+                t = (t - self.kernel) // self.stride + 1
+        return InputType.recurrent(itype.size, t)
+
+
+@dataclasses.dataclass(frozen=True)
+class Deconvolution3D(LayerConf):
+    """conf/layers/Deconvolution3D.java: transposed volumetric
+    convolution, NDHWC, W (kd, kh, kw, C_in, C_out)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel: Tuple[int, int, int] = (2, 2, 2)
+    stride: Tuple[int, int, int] = (2, 2, 2)
+    convolution_mode: str = "valid"
+
+    def output_type(self, itype):
+        def out(sz, k, s):
+            return sz * s if self.convolution_mode == "same" \
+                else (sz - 1) * s + k
+
+        k, s = self.kernel, self.stride
+        return InputType.convolutional3d(
+            out(itype.depth, k[0], s[0]), out(itype.height, k[1], s[1]),
+            out(itype.width, k[2], s[2]), self.n_out)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskZeroLayer(LayerConf):
+    """conf/layers/recurrent/MaskZeroLayer.java: masks the timesteps
+    whose features all equal ``mask_value``, then runs the wrapped layer
+    (``underlying``, a config or its dict) under that mask."""
+
+    underlying: Optional[Any] = None
+    mask_value: float = 0.0
+
+    def inner(self) -> LayerConf:
+        u = self.underlying
+        return LayerConf.from_dict(u) if isinstance(u, dict) else u
+
+    def output_type(self, itype):
+        return self.inner().output_type(itype)
+
+    def has_params(self):
+        return self.inner().has_params()
+
+    def to_dict(self):
+        d = super().to_dict()
+        if isinstance(d.get("underlying"), LayerConf):
+            d["underlying"] = d["underlying"].to_dict()
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class RepeatVector(LayerConf):
+    """conf/layers/misc/RepeatVector.java: (N, F) -> (N, n, F)."""
+
+    n: int = 1
+
+    def output_type(self, itype):
+        return InputType.recurrent(itype.flat_size(), self.n)
+
+
+@dataclasses.dataclass(frozen=True)
+class PermuteLayer(LayerConf):
+    """Permutation of the non-batch axes (Keras Permute; ``dims``
+    1-indexed, as Keras writes them)."""
+
+    dims: tuple = ()
+
+    def output_type(self, itype):
+        if itype.kind == "recurrent" and tuple(self.dims) == (2, 1):
+            return InputType.recurrent(itype.timesteps, itype.size)
+        if itype.kind == "convolutional" and len(self.dims) == 3:
+            hwc = (itype.height, itype.width, itype.channels)
+            ph, pw, pc = (hwc[d - 1] for d in self.dims)
+            return InputType.convolutional(ph, pw, pc)
+        if itype.kind == "feedforward":
+            return itype
+        raise ValueError(
+            f"PermuteLayer: cannot infer the permuted shape for dims "
+            f"{self.dims} on a {itype.kind} input")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReshapeLayer(LayerConf):
+    """Batch-preserving reshape (Keras Reshape); ``target_shape`` leaves
+    out the batch axis, -1 is inferred."""
+
+    target_shape: tuple = ()
+
+    def output_type(self, itype):
+        flat = itype.flat_size()
+        shape = list(self.target_shape)
+        if -1 in shape:
+            known = 1
+            for s in shape:
+                if s != -1:
+                    known *= int(s)
+            shape[shape.index(-1)] = flat // max(known, 1)
+        if len(shape) == 1:
+            return InputType.feed_forward(shape[0])
+        if len(shape) == 2:
+            return InputType.recurrent(shape[1], shape[0])
+        if len(shape) == 3:
+            return InputType.convolutional(shape[0], shape[1], shape[2])
+        return InputType.feed_forward(flat)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerNormalization(LayerConf):
+    """Layer norm over the trailing axis with a learned gain and bias
+    (Keras LayerNormalization; the catalog ``layer_norm`` op as a
+    layer)."""
+
+    n_out: int = 0
+    eps: float = 1e-3
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupNormalization(LayerConf):
+    """Group norm over the channel axis (Keras GroupNormalization);
+    ``groups`` -1 is instance norm, 1 layer norm over space and
+    channels."""
+
+    n_out: int = 0
+    groups: int = 32
+    eps: float = 1e-3
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class RescaleLayer(LayerConf):
+    """x · scale + offset, broadcast per feature (Keras Rescaling and the
+    adapted Normalization)."""
+
+    scale: Any = 1.0
+    offset: Any = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscretizationLayer(LayerConf):
+    """Keras Discretization: values -> int32 bin indices by the given
+    ascending boundaries."""
+
+    bin_boundaries: Tuple[float, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class CategoryEncodingLayer(LayerConf):
+    """Keras CategoryEncoding: int ids -> one_hot / multi_hot / count
+    vectors of width ``num_tokens``."""
+
+    num_tokens: int = 0
+    output_mode: str = "multi_hot"
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.num_tokens)
+
+
+@dataclasses.dataclass(frozen=True)
+class EinsumDenseLayer(LayerConf):
+    """Keras EinsumDense: einsum(equation, x, W) (+ a bias of
+    ``bias_shape``); ``out_shape`` holds the kernel's output dims, without
+    the batch dims."""
+
+    equation: str = ""
+    out_shape: Tuple[int, ...] = ()
+    bias_shape: Tuple[int, ...] = ()  # () = no bias
+
+    def output_type(self, itype):
+        eq = self.equation.replace(" ", "")
+        out_spec = eq.split("->")[1]
+        if itype.kind == "recurrent":
+            # '...' keeps the (batch, time) prefix; an explicit output
+            # spec keeps the recurrent shape only while it is rank 3
+            if "..." in out_spec or len(out_spec) >= 3:
+                return InputType.recurrent(int(self.out_shape[-1]),
+                                           itype.timesteps)
+            return InputType.feed_forward(int(self.out_shape[-1]))
+        return InputType.feed_forward(int(math.prod(self.out_shape))
+                                      if self.out_shape
+                                      else itype.flat_size())
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitNormLayer(LayerConf):
+    """L2 normalization along the trailing axis (Keras
+    UnitNormalization)."""
+
+    eps: float = 1e-12
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvLSTM2D(LayerConf):
+    """Convolutional LSTM over (N, T, H, W, C) (Keras ConvLSTM2D), gate
+    order i, f, o, g; the input-to-gate convolution takes ``padding``, the
+    recurrent one is always 'same'."""
+
+    n_in: int = 0
+    filters: int = 0
+    kernel: tuple = (3, 3)
+    padding: str = "same"
+    return_sequences: bool = False
+    gate_activation: str = "sigmoid"
+
+    def has_params(self):
+        return True
+
+    def output_type(self, itype):
+        if self.padding not in ("same", "truncate", "valid"):
+            raise ValueError(f"ConvLSTM2D padding {self.padding!r}")
+        h, w = itype.height, itype.width
+        if self.padding in ("truncate", "valid"):
+            h = h - self.kernel[0] + 1
+            w = w - self.kernel[1] + 1
+        if self.return_sequences:
+            return InputType("convolutional3d", depth=itype.depth or -1,
+                             height=h, width=w, channels=self.filters)
+        return InputType.convolutional(h, w, self.filters)
+
+
+@dataclasses.dataclass(frozen=True)
+class DotAttentionLayer(LayerConf):
+    """Keras Attention / AdditiveAttention without parameters: inputs in
+    Keras order (query, value[, key]); ``additive`` scores Bahdanau-style,
+    tanh(q + k) reduced by ``scale`` under ``use_scale``."""
+
+    use_scale: bool = False
+    additive: bool = False
+    scale: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SeparableConvolution1D(LayerConf):
+    """Depthwise then pointwise temporal convolution over (N, T, C) (Keras
+    SeparableConv1D): dW (k, 1, C · mult), pW (1, C · mult, n_out)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel: int = 3
+    stride: int = 1
+    convolution_mode: str = "truncate"
+    depth_multiplier: int = 1
+    has_bias: bool = True
+
+    def output_type(self, itype):
+        t = itype.timesteps
+        if t and t > 0:
+            if self.convolution_mode == "same":
+                t = -(-t // self.stride)
+            else:
+                t = (t - self.kernel) // self.stride + 1
+        return InputType.recurrent(self.n_out, t)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Deconvolution1D(LayerConf):
+    """Transposed temporal convolution over (N, T, C) (Keras
+    Conv1DTranspose), W (k, C_in, C_out)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel: int = 3
+    stride: int = 1
+    convolution_mode: str = "truncate"
+    has_bias: bool = True
+
+    def output_type(self, itype):
+        t = itype.timesteps
+        if t and t > 0:
+            if self.convolution_mode == "same":
+                t = t * self.stride
+            else:
+                t = (t - 1) * self.stride + self.kernel
+        return InputType.recurrent(self.n_out, t)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class ResizeLayer(LayerConf):
+    """Spatial resize to a fixed (height, width) (Keras Resizing) over
+    the catalog's resize ops."""
+
+    height: int = 0
+    width: int = 0
+    method: str = "bilinear"  # bilinear | nearest | bicubic
+
+    def output_type(self, itype):
+        return InputType.convolutional(self.height, self.width,
+                                       itype.channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class CenterCropLayer(LayerConf):
+    """Center crop to (height, width) (Keras CenterCrop)."""
+
+    height: int = 0
+    width: int = 0
+
+    def output_type(self, itype):
+        return InputType.convolutional(self.height, self.width,
+                                       itype.channels)
+
+
 LAYER_TYPES = {c.__name__: c for c in [
     DenseLayer, OutputLayer, ConvolutionLayer, Deconvolution2D,
     DepthwiseConvolution2D, SeparableConvolution2D, SubsamplingLayer,
@@ -539,7 +1146,17 @@ LAYER_TYPES = {c.__name__: c for c in [
     LocalResponseNormalization, ActivationLayer, SpaceToDepthLayer,
     FusedBottleneck, LossLayer, EmbeddingLayer, EmbeddingSequenceLayer,
     DropoutLayer, LSTM, GravesLSTM, GRU, SimpleRnn, Bidirectional,
-    RnnOutputLayer, LastTimeStep, RnnLossLayer]}
+    RnnOutputLayer, LastTimeStep, RnnLossLayer,
+    # the Keras importer's
+    AttentionVertex, Convolution1D, Convolution3D, Subsampling3DLayer,
+    LocallyConnected2D, LocallyConnected1D, PReLULayer, ZeroPadding1DLayer,
+    ZeroPaddingLayer, ZeroPadding3DLayer, Cropping1D, Cropping2D, Cropping3D,
+    Upsampling1D, Upsampling3D, Subsampling1DLayer, Deconvolution3D,
+    MaskZeroLayer, RepeatVector, PermuteLayer, ReshapeLayer,
+    LayerNormalization, GroupNormalization, RescaleLayer,
+    DiscretizationLayer, CategoryEncodingLayer, EinsumDenseLayer,
+    UnitNormLayer, ConvLSTM2D, DotAttentionLayer, SeparableConvolution1D,
+    Deconvolution1D, ResizeLayer, CenterCropLayer]}
 
 # the conv-family layers a flat convolutional input is reshaped for
 # (``_adapt``'s FeedForwardToCnnPreProcessor)
@@ -598,6 +1215,17 @@ class CnnToFeedForwardPreProcessor(InputPreProcessor):
 
 
 @dataclasses.dataclass(frozen=True)
+class Cnn3DToFeedForwardPreProcessor(InputPreProcessor):
+    """(N, D, H, W, C) -> (N, C·D·H·W), flattened channel-major (the
+    reference's NCDHW order)."""
+
+    depth: int = 0
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class RnnToFeedForwardPreProcessor(InputPreProcessor):
     """(N, T, F) -> (N·T, F)."""
 
@@ -610,7 +1238,8 @@ class FeedForwardToRnnPreProcessor(InputPreProcessor):
 
 PREPROCESSORS = {c.__name__: c for c in [
     FeedForwardToCnnPreProcessor, CnnToFeedForwardPreProcessor,
-    RnnToFeedForwardPreProcessor, FeedForwardToRnnPreProcessor]}
+    Cnn3DToFeedForwardPreProcessor, RnnToFeedForwardPreProcessor,
+    FeedForwardToRnnPreProcessor]}
 
 
 # ---------------------------------------------------------------------------
@@ -812,6 +1441,10 @@ def _adapt(conf, i, itype, lc) -> Tuple[InputType, LayerConf]:
             conf.preprocessors[i] = CnnToFeedForwardPreProcessor(
                 itype.height, itype.width, itype.channels)
             itype = InputType.feed_forward(itype.flat_size())
+        elif itype.kind == "convolutional3d" and needs_ff:
+            conf.preprocessors[i] = Cnn3DToFeedForwardPreProcessor(
+                itype.depth, itype.height, itype.width, itype.channels)
+            itype = InputType.feed_forward(itype.flat_size())
         elif itype.kind == "convolutionalflat" and needs_ff:
             itype = InputType.feed_forward(itype.size)
     else:
@@ -829,6 +1462,12 @@ def _adapt(conf, i, itype, lc) -> Tuple[InputType, LayerConf]:
             lc = dataclasses.replace(lc, fwd=dataclasses.replace(
                 inner, n_in=size).to_dict())
         return itype, lc
+    return itype, _fill(itype, lc)
+
+
+def _fill(itype: InputType, lc: LayerConf) -> LayerConf:
+    """``lc`` with ``n_in`` = 0, a normalization's ``n_out`` = 0 and a
+    locally connected layer's ``input_size`` filled from ``itype``."""
     updates: Dict[str, Any] = {}
     if hasattr(lc, "n_in") and getattr(lc, "n_in") == 0:
         if itype.kind in ("feedforward", "convolutionalflat"):
@@ -837,42 +1476,37 @@ def _adapt(conf, i, itype, lc) -> Tuple[InputType, LayerConf]:
             updates["n_in"] = itype.size
         elif itype.kind in ("convolutional", "convolutional3d"):
             updates["n_in"] = itype.channels
-    if isinstance(lc, BatchNormalization) and lc.n_out == 0:
+    if isinstance(lc, (BatchNormalization, LayerNormalization,
+                       GroupNormalization)) and lc.n_out == 0:
+        # all three normalize the trailing (feature / channel) axis
         updates["n_out"] = (itype.channels
                             if itype.kind in ("convolutional",
                                               "convolutional3d")
                             else (itype.size if itype.kind == "recurrent"
                                   else itype.flat_size()))
+    if isinstance(lc, LocallyConnected2D) and tuple(lc.input_size) == (0, 0):
+        updates["input_size"] = (itype.height, itype.width)
+    if isinstance(lc, LocallyConnected1D) and lc.input_size == 0:
+        if not itype.timesteps or itype.timesteps < 0:
+            raise ValueError(
+                "LocallyConnected1D needs a fixed sequence length — set "
+                "input_size or use InputType.recurrent(size, timesteps)")
+        updates["input_size"] = itype.timesteps
     if updates:
         lc = dataclasses.replace(lc, **updates)
-    return itype, lc
+    return lc
 
 
 def infer_layer(itype: InputType, lc: LayerConf
                 ) -> Tuple[InputType, LayerConf]:
-    """Fill ``n_in`` (and a BatchNormalization's ``n_out``) from the input
-    type, as :func:`_adapt` does for one layer of a graph (no
-    preprocessors: a flat convolutional input feeding a conv/pool layer is
-    taken as convolutional)."""
+    """Fill what :func:`_fill` fills from the input type, as
+    :func:`_adapt` does for one layer of a graph (no preprocessors: a flat
+    convolutional input feeding a conv/pool layer is taken as
+    convolutional)."""
     if itype.kind == "convolutionalflat" and isinstance(lc, _CNN_LAYERS):
         itype = InputType.convolutional(itype.height, itype.width,
                                         itype.channels)
-    elif itype.kind == "convolutionalflat" and isinstance(lc, DenseLayer):
+    elif itype.kind == "convolutionalflat" and isinstance(
+            lc, (DenseLayer, EmbeddingLayer)):
         itype = InputType.feed_forward(itype.size)
-    updates: Dict[str, Any] = {}
-    if hasattr(lc, "n_in") and getattr(lc, "n_in") == 0:
-        if itype.kind in ("feedforward", "convolutionalflat"):
-            updates["n_in"] = itype.flat_size()
-        elif itype.kind == "recurrent":
-            updates["n_in"] = itype.size
-        elif itype.kind in ("convolutional", "convolutional3d"):
-            updates["n_in"] = itype.channels
-    if isinstance(lc, BatchNormalization) and lc.n_out == 0:
-        updates["n_out"] = (itype.channels
-                            if itype.kind in ("convolutional",
-                                              "convolutional3d")
-                            else (itype.size if itype.kind == "recurrent"
-                                  else itype.flat_size()))
-    if updates:
-        lc = dataclasses.replace(lc, **updates)
-    return itype, lc
+    return itype, _fill(itype, lc)

@@ -97,3 +97,10 @@ def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def host_array(t: torch.Tensor):
+    """A network output as numpy: floating tensors as float32 (numpy has
+    no bfloat16), integer ones in their own dtype, as the JAX package
+    returns them."""
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()

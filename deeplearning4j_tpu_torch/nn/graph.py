@@ -551,9 +551,11 @@ class ComputationGraph:
                 self._itypes[node.name] = node.vertex.output_type(in_types)
                 continue
             itype = in_types[0]
-            if (itype.kind == "convolutional"
-                    and isinstance(node.layer, C.DenseLayer)):
-                # conv -> dense: NHWC flattened channel-major at run time
+            if (itype.kind in ("convolutional", "convolutional3d")
+                    and isinstance(node.layer, (C.DenseLayer,
+                                                C.EmbeddingLayer))):
+                # conv -> dense: NHWC / NDHWC flattened channel-major at
+                # run time
                 itype = C.InputType.feed_forward(itype.flat_size())
                 node.flatten_input = True
             itype, node.layer = C.infer_layer(itype, node.layer)
@@ -675,10 +677,27 @@ class ComputationGraph:
                 continue
             if new_rnn is not None:
                 new_rnn[node.name] = None
+            if hasattr(layer, "apply_multi"):
+                # a multi-input layer (the AttentionVertex role) gets every
+                # wired input; the mask that matters is the keys input's
+                # (the last wired one): it gates the attended positions
+                kmask = (act_masks.get(node.inputs[-1])
+                         if len(node.inputs) > 1
+                         else act_masks.get(node.inputs[0]))
+                y, st, m2 = layer.apply_multi(
+                    params[node.name], xs, net_state[node.name],
+                    train=train, rng=rng, mask=kmask)
+                acts[node.name] = y
+                act_masks[node.name] = m2
+                new_state[node.name] = st
+                continue
             x = xs[0]
             if node.flatten_input and x.ndim == 4:
                 # NHWC -> the reference's channel-major flat order
                 x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+            elif node.flatten_input and x.ndim == 5:
+                # NDHWC -> channel-major (the reference's NCDHW order)
+                x = x.permute(0, 4, 1, 2, 3).reshape(x.shape[0], -1)
             y, st, m2 = layer.apply(
                 params[node.name], x, net_state[node.name], train=train,
                 rng=rng, mask=act_masks.get(node.inputs[0]))
@@ -705,7 +724,7 @@ class ComputationGraph:
         with torch.no_grad(), DT.precision_scope(self.conf.dtype):
             acts, _ = self._forward(self.params, self.net_state, feed, m,
                                     train=False)
-        return [acts[o].float().cpu().numpy()
+        return [DT.host_array(acts[o])
                 for o in self.conf.network_outputs]
 
     def output_single(self, x, masks=None) -> np.ndarray:
@@ -734,7 +753,7 @@ class ComputationGraph:
             acts, _, self._rnn_states = self._forward(
                 self.params, self.net_state, feeds, m, train=False,
                 rnn_states=self._rnn_states)
-        outs = [acts[o].float().cpu().numpy()
+        outs = [DT.host_array(acts[o])
                 for o in self.conf.network_outputs]
         if squeeze:
             outs = [o[:, -1] if o.ndim == 3 else o for o in outs]

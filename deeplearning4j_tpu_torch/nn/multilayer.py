@@ -282,9 +282,11 @@ class MultiLayerNetwork:
                 if isinstance(pre, C.FeedForwardToCnnPreProcessor):
                     itype = C.InputType.convolutional(pre.height, pre.width,
                                                       pre.channels)
-                elif isinstance(pre, C.CnnToFeedForwardPreProcessor):
+                elif isinstance(pre, (C.CnnToFeedForwardPreProcessor,
+                                      C.Cnn3DToFeedForwardPreProcessor)):
                     itype = C.InputType.feed_forward(
-                        pre.height * pre.width * pre.channels)
+                        getattr(pre, "depth", 1) * pre.height * pre.width
+                        * pre.channels)
             layer = build_layer(conf, lc, itype or C.InputType.feed_forward(0),
                                 self.device)
             self.layers.append(layer)
@@ -387,7 +389,7 @@ class MultiLayerNetwork:
                 xt, _, mask = layer.apply(self.params[i], xt,
                                           self.net_state[i], train=train,
                                           rng=self._gen, mask=mask)
-                acts.append(xt.float().cpu().numpy())
+                acts.append(DT.host_array(xt))
         return acts
 
     def output(self, x, mask=None) -> np.ndarray:
@@ -396,7 +398,7 @@ class MultiLayerNetwork:
             out, _ = self._forward(self.params, self.net_state,
                                    self._feed(x), self._feed(mask),
                                    train=False, rng=None)
-        return out.float().cpu().numpy()
+        return DT.host_array(out)
 
     def predict(self, x) -> np.ndarray:
         return self.output(x).argmax(axis=-1)
@@ -416,7 +418,7 @@ class MultiLayerNetwork:
             out, _, self._rnn_states = self._forward(
                 self.params, self.net_state, self._feed(x), self._feed(mask),
                 train=False, rng=None, rnn_states=self._rnn_states)
-        out = out.float().cpu().numpy()
+        out = DT.host_array(out)
         return out[:, -1] if squeeze else out
 
     def rnn_clear_previous_state(self) -> None:
