@@ -150,6 +150,28 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    time (captured and eager) and tokens/s over 5 forwards after 2 warm
    ones, parse and plan seconds, node counts, peak memory and the graph
    pool's memory.
+9a. ``onnx_vit`` — an imported ViT-B/16 (``google/vit-base-patch16-224``
+   widths: 224², patch 16, 197 tokens, 768, 12 layers, 12 heads, 3072,
+   exact GELU, 1000 classes; ``testing/onnx_builder.vit_onnx_model``, as
+   ``torch.onnx.export`` writes HF's ``ViTForImageClassification``, ~86.6M
+   float32 weights from a seed) served at batch 32: build, parse and
+   import seconds and the weight count; the plan's fusions (12 attention,
+   73 epilogue: the transB=1 Gemm head fused but refused by the kernel's
+   gate); one counted forward (counts set to 0 just before, read just
+   after) must launch exactly 12 ``sm90_f32`` flash forwards and 72
+   ``sm90_f32`` fused matmuls and nothing else of the table, every
+   attention dispatched to the kernel and the head the only generic
+   fused matmul; logits against ``helper_mode="generic"`` and against
+   ``optimize=False`` within 3× a generic forward from weights moved by
+   one ulp; captured = eager bit for bit; forward p50 captured and eager,
+   images/s, the busy share of 2 profiled forwards, peak memory.
+9b. ``onnx_resnet50`` — an imported ResNet-50 (torchvision v1.5,
+   BatchNormalization kept; ``resnet50_onnx_model``, ~25.6M weights) at
+   batch 32 × 3 × 224 × 224: the same import figures; its counted forward
+   launches none of the table's kernels (conv, BN and pooling are library
+   calls, as the JAX package runs them in plain XLA); logits against
+   ``optimize=False`` within the same yardstick; captured = eager bit for
+   bit; forward p50, images/s, busy share, peak memory.
 10. ``sd_bert_finetune`` — SameDiff training of that imported encoder: the
    same ONNX bytes through ``import_onnx``, a token-classification head
    added in SameDiff (dense 768×768 → ``sd.nn.layer_norm`` →
@@ -486,6 +508,12 @@ FUSED_MM_EXTRA = [(4096, 768, 768, "relu"), (4096, 768, 768, "tanh"),
 # [0, 1]) may differ by 1e-4 absolute
 ONNX_BERT_TOL = 1e-4
 ONNX_BERT_TIMED = 5
+# onnx_vit / onnx_resnet50: imported ViT-B/16 and ResNet-50 at 224×224,
+# batch 32, float32; logits held to 3× a generic forward from weights moved
+# by one unit in the last place (at least one ulp of the largest logit)
+ONNX_VISION_BATCH = 32
+ONNX_VISION_YARDSTICK = 3.0
+ONNX_VISION_TIMED = 5
 # tf_bert: the kernel forward against the generic one (float32 logits), and
 # the routed while graph (a vector doubled plus one until its sum reaches
 # the limit: integers, exact in float32 on both devices)
@@ -2294,6 +2322,189 @@ def onnx_bert_phase(dev, smi):
             "unoptimized_tokens_per_s": tokens / (u_info["p50_ms"] / 1e3),
             "problems": problems}
     return problems, line, {k: launches[k] for k in want}, float32_out
+
+
+def _nudge_variables(sd, seed):
+    """Move every float VARIABLE of ``sd`` by one unit in the last place
+    in place (the sign from numpy ``default_rng(seed)``)."""
+    rng = np.random.default_rng(seed)
+    for name, t in sd._arrays.items():
+        if sd._vars[name].vtype == "VARIABLE" and t.is_floating_point():
+            t.copy_(_nudged(t, rng))
+
+
+def onnx_vision_phase(phase, dev, smi):
+    """An imported vision model served on the card (``onnx_vit``: ViT-B/16,
+    ``onnx_resnet50``: ResNet-50): ONNX bytes → ``import_onnx`` → SameDiff
+    → ``sd.output`` at batch 32 × 3 × 224 × 224. Returns (problems, line,
+    launches of the counted forward)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.imports import import_onnx, parse_model
+    from deeplearning4j_tpu_torch.ops.capture import disable_capture
+    from deeplearning4j_tpu_torch.profile_serve import _profile
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+
+    vit = phase == "onnx_vit"
+    cfg = dict(ob.VIT_B16 if vit else ob.RESNET50)
+    batch = ONNX_VISION_BATCH
+    image = cfg["image"]
+    env = environment()
+    problems = []
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = (ob.vit_onnx_model(batch=batch, **cfg) if vit
+             else ob.resnet50_onnx_model(batch=batch, **cfg))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ir = parse_model(model)
+    parse_s = time.perf_counter() - t0
+    weights = int(sum(a.size for a in ir.initializers.values()
+                      if a.dtype == np.float32))
+    del ir
+    feed = "pixel_values" if vit else "x"
+    feeds = ob.image_feeds(feed, batch, image)
+    out = ["logits"]
+
+    def load(optimize=True):
+        t0 = time.perf_counter()
+        sd = import_onnx(model, optimize=optimize, device=dev)
+        torch.cuda.synchronize()
+        return sd, time.perf_counter() - t0
+
+    def forward(sd, mode="auto"):
+        env.helper_mode = mode
+        try:
+            return sd.output(feeds, out)["logits"]
+        finally:
+            env.helper_mode = "auto"
+
+    sd, import_s = load()
+    t0 = time.perf_counter()
+    forward(sd)  # the first forward builds the plan and warms up
+    first_s = time.perf_counter() - t0
+    forward(sd)  # the capture
+    observe.reset()
+    _zero_counters()  # the main path's forward starts here
+    y = forward(sd)
+    launches = _read_counters()  # ... and ends here
+    tally = [(dict(c.labels), c.value) for c in observe.metrics()
+             .instruments() if c.name == "dl4j_tpu_helper_dispatch_total"]
+    dispatch = {f"{op}.{impl}": sum(v for lab, v in tally
+                                    if lab.get("op") == op
+                                    and lab.get("impl") == impl)
+                for op in ("fused_matmul_bias_act", "dot_product_attention")
+                for impl in ("cuda", "generic")}
+    st = sd.last_compile_stats
+    info = captured_vs_eager(sd, feeds, out, y, ONNX_VISION_TIMED)
+    if not info["bits_equal_eager"]:
+        problems.append(f"captured output differs from eager by "
+                        f"{info['max_abs_diff_eager']}")
+    times = []
+    for _ in range(ONNX_VISION_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(sd)
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.percentile(times, 50))
+    prof = _profile(lambda: forward(sd), 2, top=6,
+                    named=("flash", "fused_matmul", "conv", "gemm"))
+    with disable_capture():
+        prof_eager = _profile(lambda: forward(sd), 2, top=6,
+                              named=("flash", "fused_matmul", "conv",
+                                     "gemm"))
+    y_g = forward(sd, "generic")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the yardstick: generic from weights moved by one ulp; then the
+    # unoptimized graph
+    sd, _ = load()
+    _nudge_variables(sd, 11)
+    y_n = forward(sd, "generic")
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd, import_u_s = load(optimize=False)
+    y_u = forward(sd)
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    yard = float(np.abs(y_n - y_g).max())
+    lim = max(ONNX_VISION_YARDSTICK * yard,
+              float(np.finfo(np.float32).eps * np.abs(y_g).max()))
+    diffs = {"kernel_vs_unoptimized": float(np.abs(y - y_u).max()),
+             "generic_vs_unoptimized": float(np.abs(y_g - y_u).max())}
+    if vit:
+        diffs["kernel_vs_generic"] = float(np.abs(y - y_g).max())
+    for label, d in diffs.items():
+        if not d <= lim:
+            problems.append(f"{label} max abs diff {d} > {lim} "
+                            f"({ONNX_VISION_YARDSTICK:g} x yardstick {yard})")
+    for label, v in (("kernel", y), ("generic", y_g), ("unoptimized", y_u)):
+        if v.shape != (batch, cfg["classes"]) or not np.all(np.isfinite(v)):
+            problems.append(f"{label} logits {v.shape} not finite")
+
+    layers = cfg.get("layers", 0)
+    want = {k: 0 for k in launches}
+    if vit:
+        want.update(flash_attn_fwd=layers, flash_attn_fwd_f32_sm90=layers,
+                    fused_matmul_bias_act=6 * layers,
+                    fused_matmul_bias_act_f32_sm90=6 * layers)
+        fusions = {"attention": layers, "epilogue": 6 * layers + 1}
+        want_disp = {"fused_matmul_bias_act.cuda": 6 * layers,
+                     "fused_matmul_bias_act.generic": 1,
+                     "dot_product_attention.cuda": layers,
+                     "dot_product_attention.generic": 0}
+    else:
+        fusions = {"epilogue": 1}
+        want_disp = {"fused_matmul_bias_act.cuda": 0,
+                     "fused_matmul_bias_act.generic": 1,
+                     "dot_product_attention.cuda": 0,
+                     "dot_product_attention.generic": 0}
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if dispatch != want_disp:
+        problems.append(f"dispatches {dispatch} != {want_disp}")
+    if st.fusions != fusions:
+        problems.append(f"fusions {st.fusions} != {fusions}")
+    line = {"phase": phase, "card": smi, "config": cfg, "batch": batch,
+            "graph": ("HF ViTForImageClassification as torch.onnx.export "
+                      "writes it" if vit else
+                      "torchvision resnet50 (v1.5) as torch.onnx.export "
+                      "writes it, BatchNormalization kept"),
+            "weights": weights, "weights_gb": 4 * weights / 1e9,
+            "model_bytes": len(model), "build_bytes_s": build_s,
+            "parse_s": parse_s, "import_s": import_s,
+            "import_unoptimized_s": import_u_s,
+            "first_forward_s": first_s,
+            "nodes_before": st.nodes_before, "nodes_after": st.nodes_after,
+            "fusions": st.fusions, "forward_launches": launches,
+            "table_kernels_launched": sum(launches.values()),
+            "dispatch": dispatch, "max_abs_diff": diffs,
+            "yardstick_1_ulp": yard, "limit": lim,
+            "max_abs_logit": float(np.abs(y_g).max()),
+            "forward_p50_ms": p50 * 1e3,
+            "forward_times_ms": [t * 1e3 for t in times],
+            "eager_forward_p50_ms": info["eager_p50_ms"],
+            "images_per_s": batch / p50,
+            "eager_images_per_s": batch / (info["eager_p50_ms"] / 1e3),
+            "captured_vs_eager": {k: info[k] for k in (
+                "bits_equal_eager", "max_abs_diff_eager", "graph_unit")},
+            "device_busy_share": prof["device_busy_share"], "profile": prof,
+            "eager_device_busy_share": prof_eager["device_busy_share"],
+            "eager_profile": prof_eager,
+            "peak_memory_gib": peak, "peak_memory_own_gib": peak - resident,
+            "smoke_reading": f"{ONNX_VISION_TIMED} forwards, no spread",
+            "problems": problems}
+    return problems, line, launches
 
 
 def sd_bert_finetune_phase(dev, smi):
@@ -5458,6 +5669,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+    # how a bfloat16 result reaches the host here (nn.dtype.host_array)
+    from deeplearning4j_tpu_torch.nn.dtype import host_array
+
+    emit({"host_bfloat16": "ml_dtypes" if host_array(torch.zeros(
+        1, dtype=torch.bfloat16)).dtype.name == "bfloat16" else "float32"})
 
     # ------------------------------------------------------------- build
     secs = _build.build()
@@ -5710,6 +5926,14 @@ def main() -> int:
     emit(onnx_line)
     if problems:
         raise SystemExit(f"onnx_bert phase failed: {problems}")
+
+    # ------------------------------------------ onnx_vit, onnx_resnet50
+    for phase in ("onnx_vit", "onnx_resnet50"):
+        problems, line, train_launches[phase] = onnx_vision_phase(
+            phase, dev, smi)
+        emit(line)
+        if problems:
+            raise SystemExit(f"{phase} phase failed: {problems}")
 
     # --------------------------------------------------- sd_bert_finetune
     problems, line, train_launches["sd_bert_finetune"] = (

@@ -25,8 +25,9 @@ What differs from the JAX package:
   constants are canonicalized as the JAX package does with 64-bit types
   off: float64 → float32, int64 → int32 (complex128 → complex64, uint64 →
   uint32), so avals, CSE keys and folds are the JAX package's.
-* ``output`` returns numpy arrays, as the JAX package does; a bfloat16
-  result comes back as float32 (numpy has no bfloat16).
+* ``output`` returns numpy arrays in the result's dtype, as the JAX
+  package does: a bfloat16 result as ``ml_dtypes.bfloat16``
+  (``nn.dtype.host_array``; float32 where ``ml_dtypes`` is missing).
 * Gradients come from ``torch.autograd.grad`` over the same plan
   ``output`` runs (the JAX package takes ``jax.grad`` of the traced
   interpreter), with zeros for a VARIABLE the loss never reads, as
@@ -115,11 +116,12 @@ def canonical(value, device: Optional[torch.device] = None) -> torch.Tensor:
     return t if device is None else t.to(device)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
+def _to_numpy(t) -> np.ndarray:
+    from deeplearning4j_tpu_torch.nn.dtype import host_array
+
+    if not isinstance(t, torch.Tensor):  # shape_of keeps shapes on the host
+        return np.asarray(t)
+    return host_array(t)
 
 
 class SDVariable:
@@ -488,6 +490,24 @@ def _reads_host(fn):
     """Mark a control-flow op that reads a predicate on the host: a graph
     that runs it is routed to eager (``SameDiff._routing``)."""
     fn.reads_host = True
+    return fn
+
+
+def seeds_generator(fn):
+    """Mark a graph op that seeds a fresh ``torch.Generator`` on every run
+    (an imported ONNX random node, whose draws are fixed per node): a
+    CUDA-graph capture refuses a generator's ``manual_seed``, so a graph
+    that runs one is routed to eager (``SameDiff._routing``)."""
+    fn.seeds_generator = True
+    return fn
+
+
+def inherit_routing(fn, body):
+    """``fn`` marked as ``body`` is: a scan whose body reads the host or
+    seeds a generator is routed to eager as that body would be. Returns
+    ``fn``."""
+    for flag in ("reads_host", "seeds_generator"):
+        setattr(fn, flag, getattr(body, flag, False))
     return fn
 
 
@@ -1629,7 +1649,7 @@ class SameDiff:
                                xs.shape[0], single_x=True)
             return ys
 
-        self._local_ops[name + "_impl"] = scan_op
+        self._local_ops[name + "_impl"] = inherit_routing(scan_op, fn)
         return self._record(name + "_impl", [xs_var])
 
     def while_loop(self, cond_fn, body_fn,
@@ -1692,7 +1712,7 @@ class SameDiff:
                                    else (ys,) if n_ys else ())
             return outs[0] if n_out == 1 else outs
 
-        self._local_ops[name + "_impl"] = scan_op
+        self._local_ops[name + "_impl"] = inherit_routing(scan_op, fn)
         return self._record(name + "_impl",
                             list(init_vars) + list(xs_vars), n_out=n_out)
 
@@ -1727,19 +1747,27 @@ class SameDiff:
         """The routing rule of the units that run ``out_names``:
         :data:`~deeplearning4j_tpu_torch.nn.compiled.CONTROL_FLOW` when a
         node they run reads the host (a while loop's or a conditional's
-        predicate), else None. Decided from the plan before any capture;
-        cached with it."""
+        predicate), else
+        :data:`~deeplearning4j_tpu_torch.nn.compiled.SEEDED_RANDOM` when
+        one seeds a generator (:func:`seeds_generator`), else None.
+        Decided from the plan before any capture; cached with it."""
         key = ("route", out_names, bool(self.optimize),
                self._effective_passes())
         if key not in self._jit_cache:
             plan = self._graph_plan(out_names)
             nodes = (plan.nodes if plan is not None
                      else self._needed_nodes(out_names))
-            reads = any(getattr(self._local_ops.get(n.op), "reads_host",
-                                False) for n in nodes)
-            from deeplearning4j_tpu_torch.nn.compiled import CONTROL_FLOW
+            from deeplearning4j_tpu_torch.nn.compiled import (
+                CONTROL_FLOW, SEEDED_RANDOM)
 
-            self._jit_cache[key] = CONTROL_FLOW if reads else None
+            fns = [self._local_ops.get(n.op, GRAPH_OPS.get(n.op))
+                   for n in nodes]
+            self._jit_cache[key] = (
+                CONTROL_FLOW if any(getattr(f, "reads_host", False)
+                                    for f in fns)
+                else SEEDED_RANDOM if any(getattr(f, "seeds_generator",
+                                                  False) for f in fns)
+                else None)
         return self._jit_cache[key]
 
     # --------------------------------------------------------------- listeners

@@ -54,7 +54,7 @@ from deeplearning4j_tpu_torch.models._tree import (
 from deeplearning4j_tpu_torch.models.gpt import _layer_norm
 from deeplearning4j_tpu_torch.nn.compiled import (
     TrainUnits, donates, tensors_of)
-from deeplearning4j_tpu_torch.nn.dtype import precision_scope
+from deeplearning4j_tpu_torch.nn.dtype import host_array, precision_scope
 from deeplearning4j_tpu_torch.nn.updater import Adam, get_updater
 from deeplearning4j_tpu_torch.ops.nn_ops import table_rows
 
@@ -425,7 +425,8 @@ class BertModel:
 
     @torch.no_grad()
     def predict(self, ids, segments=None, mask=None) -> np.ndarray:
-        """Classification logits (no dropout), as float32 numpy."""
+        """Classification logits (no dropout), as numpy in the model's
+        dtype (``nn.dtype.host_array``)."""
         ids = np.asarray(ids)
         b = self._batch({
             "ids": ids,
@@ -434,4 +435,4 @@ class BertModel:
             ("ids", "segments", "mask"))
         logits = classification_logits(self.params, b["ids"], b["segments"],
                                        b["mask"], self.cfg)
-        return logits.float().cpu().numpy()
+        return host_array(logits)

@@ -35,6 +35,7 @@ from deeplearning4j_tpu_torch.models._tree import (  # noqa: F401
     leaf_paths as _leaf_paths, map_tree as _map_tree,
     params_from_numpy, rebuild as _rebuild,
 )
+from deeplearning4j_tpu_torch.nn.dtype import host_array
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -267,10 +268,11 @@ class GptModel:
 
     @torch.inference_mode()
     def logits(self, ids) -> np.ndarray:
-        """Convenience full-sequence forward (no cache)."""
+        """Convenience full-sequence forward (no cache), as numpy in the
+        model's dtype (``nn.dtype.host_array``)."""
         ids = torch.as_tensor(np.asarray(ids), device=self.device)
         out, _ = gpt_prefill(self.params, ids, self.cfg)
-        return out.float().cpu().numpy()
+        return host_array(out)
 
 
 # ---------------------------------------------------------------------------

@@ -275,6 +275,10 @@ MASKED_LSTM = "masked_lstm_reads_host"
 # conditional: its predicate is read on the host before it branches
 # (autodiff/samediff.py SameDiff._routing)
 CONTROL_FLOW = "control_flow_reads_host"
+# the routing rule's reason of a SameDiff graph holding a node that seeds a
+# fresh generator on every run (an imported ONNX random node): a CUDA-graph
+# capture refuses the seeding (autodiff/samediff.py seeds_generator)
+SEEDED_RANDOM = "random_node_seeds_generator"
 
 
 def runs_lstm(layer) -> bool:

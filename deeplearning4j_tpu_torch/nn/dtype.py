@@ -100,7 +100,16 @@ def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
 
 
 def host_array(t: torch.Tensor):
-    """A network output as numpy: floating tensors as float32 (numpy has
-    no bfloat16), integer ones in their own dtype, as the JAX package
-    returns them."""
-    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+    """A result as numpy in its own dtype, as the JAX package returns it:
+    float16 as ``np.float16``, bfloat16 as an ``ml_dtypes.bfloat16``
+    array made from the tensor's 16 bits. Where ``ml_dtypes`` cannot be
+    imported (numpy itself has no bfloat16), a bfloat16 result is upcast
+    to float32, exactly."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        try:
+            import ml_dtypes
+        except ImportError:
+            return t.float().cpu().numpy()
+        return t.cpu().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.cpu().numpy()

@@ -392,13 +392,17 @@ class MultiLayerNetwork:
                 acts.append(DT.host_array(xt))
         return acts
 
-    def output(self, x, mask=None) -> np.ndarray:
-        """Inference forward (MultiLayerNetwork.output), as numpy."""
+    def _output_tensor(self, x, mask=None) -> torch.Tensor:
+        """The inference forward's result on the device, in its own dtype."""
         with torch.no_grad(), DT.precision_scope(self.conf.dtype):
             out, _ = self._forward(self.params, self.net_state,
                                    self._feed(x), self._feed(mask),
                                    train=False, rng=None)
-        return DT.host_array(out)
+        return out
+
+    def output(self, x, mask=None) -> np.ndarray:
+        """Inference forward (MultiLayerNetwork.output), as numpy."""
+        return DT.host_array(self._output_tensor(x, mask))
 
     def predict(self, x) -> np.ndarray:
         return self.output(x).argmax(axis=-1)
@@ -412,11 +416,16 @@ class MultiLayerNetwork:
         squeeze = x.ndim == 2
         if squeeze:
             x = x[:, None, :]
+        xt = self._feed(x)
         if self._rnn_states is None:
-            self._rnn_states = self._zero_rnn_states(x.shape[0])
+            # the first state in the input's float dtype, as the JAX
+            # package seeds it (16-bit input streams 16-bit state)
+            self._rnn_states = self._zero_rnn_states(
+                x.shape[0], xt.dtype if xt.is_floating_point()
+                else torch.float32)
         with torch.no_grad(), DT.precision_scope(self.conf.dtype):
             out, _, self._rnn_states = self._forward(
-                self.params, self.net_state, self._feed(x), self._feed(mask),
+                self.params, self.net_state, xt, self._feed(mask),
                 train=False, rng=None, rnn_states=self._rnn_states)
         out = DT.host_array(out)
         return out[:, -1] if squeeze else out
@@ -428,7 +437,7 @@ class MultiLayerNetwork:
         states = self._rnn_states
         return None if states is None else states[layer_idx]
 
-    def _zero_rnn_states(self, batch: int):
+    def _zero_rnn_states(self, batch: int, dtype=torch.float32):
         states = []
         for layer in self.layers:
             if isinstance(layer, BidirectionalImpl):
@@ -437,7 +446,7 @@ class MultiLayerNetwork:
                 raise ValueError(
                     "stateful RNN state (rnn_time_step / tBPTT) is not "
                     "supported with Bidirectional layers")
-            states.append(layer.zero_state(batch)
+            states.append(layer.zero_state(batch, dtype)
                           if hasattr(layer, "zero_state") else None)
         return states
 
@@ -660,10 +669,12 @@ class MultiLayerNetwork:
         """The loss on ``ds``, or the last training score."""
         if ds is None:
             return float("nan") if self._score is None else float(self._score)
-        out = torch.from_numpy(self.output(ds.features, ds.features_mask))
-        lm = (None if ds.labels_mask is None
-              else self._feed(ds.labels_mask).cpu())
-        return float(self._loss_fn(out, self._feed(ds.labels).cpu(), lm))
+        # from the forward's own tensor, in its dtype, as the JAX package
+        # scores the 16-bit array ``output`` returns
+        out = self._output_tensor(ds.features, ds.features_mask)
+        with torch.no_grad():
+            return float(self._loss_fn(out, self._feed(ds.labels),
+                                       self._feed(ds.labels_mask)))
 
     # -------------------------------------------------------------- evaluate
     def evaluate(self, iterator, evaluation=None):

@@ -318,3 +318,18 @@ class TestDeviceDefaults:
             tbert.bert_params_from_numpy({"w": np.zeros(2, np.float32)})
         m = tbert.BertModel(CFG_T, device="cpu")
         assert m.params["embeddings"]["word"].device.type == "cpu"
+
+
+def test_bfloat16_predict_comes_back_bfloat16():
+    """``BertModel(dtype=bfloat16).predict`` returns ``ml_dtypes.bfloat16``
+    numpy logits, as the JAX package's does, within one bfloat16 unit
+    (relative to the largest logit) of the JAX logits from the same
+    parameters."""
+    jm, tm = _models(jnp.bfloat16, torch.bfloat16)
+    b = _batch(seed=6)
+    want = np.asarray(jm.predict(b["ids"], b["segments"], b["mask"]))
+    got = tm.predict(b["ids"], b["segments"], b["mask"])
+    assert str(want.dtype) == str(got.dtype) == "bfloat16"
+    assert got.shape == want.shape == (4, 2)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0,
+                               atol=2.0 ** -7 * np.abs(_f32(want)).max())

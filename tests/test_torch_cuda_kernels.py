@@ -1427,6 +1427,110 @@ def test_imported_bert_runs_every_epilogue_through_the_kernel(cuda):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+def test_imported_vit_runs_attention_and_epilogues_through_the_kernels(cuda):
+    """A tiny imported ViT on the card (2 layers, d 64, 4 heads, 32×32
+    images, patch 8): one forward launches one flash forward a layer and
+    one fused matmul a layer's MatMul + Add (six), the Gemm head's
+    transB=1 product staying generic (the gate refuses transpose flags),
+    and its logits equal the generic run's."""
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+
+    layers = 2
+    model = ob.vit_onnx_model(layers=layers, batch=2, image=32, patch=8,
+                              d=64, heads=4, ff=128, classes=10)
+    feeds = ob.image_feeds("pixel_values", 2, 32)
+    sd = import_onnx(model, device=cuda)
+    env = environment()
+    env.helper_mode = "generic"
+    try:
+        want = sd.output(feeds, ["logits"])["logits"]
+    finally:
+        env.helper_mode = "auto"
+    sd.output(feeds, ["logits"])  # the capture: counted once, not here
+    ca.reset_launch_counts()
+    before = cm.fused_matmul.launches
+    got = sd.output(feeds, ["logits"])["logits"]
+    assert sd.last_compile_stats.fusions == {"attention": layers,
+                                             "epilogue": 6 * layers + 1}
+    assert cm.fused_matmul.launches - before == 6 * layers
+    assert ca.launch_counts()["flash_attn_fwd"] == layers
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_imported_conv_pool_bn_graph_matches_its_cpu_import(cuda):
+    """ONNX Conv (padded, strided, depthwise), BatchNormalization, Relu,
+    MaxPool, AveragePool with padding left out of the mean,
+    GlobalAveragePool, Flatten and Gemm imported on the card (cuDNN and
+    library calls: no hand kernel) agree with the same bytes imported on
+    the CPU."""
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+
+    r = np.random.RandomState(5)
+    init = {"w": (r.randn(8, 3, 3, 3) * 0.3).astype(np.float32),
+            "wd": (r.randn(8, 1, 3, 3) * 0.3).astype(np.float32),
+            "g": r.uniform(0.5, 1.0, 8).astype(np.float32),
+            "b": (0.1 * r.randn(8)).astype(np.float32),
+            "m": (0.1 * r.randn(8)).astype(np.float32),
+            "v": r.uniform(0.5, 1.5, 8).astype(np.float32),
+            "fw": (0.1 * r.randn(5, 8)).astype(np.float32),
+            "fb": (0.1 * r.randn(5)).astype(np.float32)}
+    nodes = [
+        ob.node_proto("Conv", ["x", "w"], ["c"], kernel_shape=[3, 3],
+                      strides=[2, 2], pads=[1, 1, 1, 1]),
+        ob.node_proto("BatchNormalization", ["c", "g", "b", "m", "v"],
+                      ["bn"]),
+        ob.node_proto("Relu", ["bn"], ["r"]),
+        ob.node_proto("Conv", ["r", "wd"], ["dw"], kernel_shape=[3, 3],
+                      group=8, pads=[1, 1, 1, 1]),
+        ob.node_proto("MaxPool", ["dw"], ["mp"], kernel_shape=[3, 3],
+                      strides=[2, 2], pads=[1, 1, 1, 1]),
+        ob.node_proto("AveragePool", ["mp"], ["ap"], kernel_shape=[3, 3],
+                      strides=[1, 1], pads=[1, 1, 1, 1]),
+        ob.node_proto("GlobalAveragePool", ["ap"], ["gp"]),
+        ob.node_proto("Flatten", ["gp"], ["f"], axis=1),
+        ob.node_proto("Gemm", ["f", "fw", "fb"], ["y"], transB=1)]
+    model = ob.build_model(nodes, [("x", (4, 3, 32, 32))], [("y", (4, 5))],
+                           init)
+    feeds = ob.image_feeds("x", 4, 32)
+    got = import_onnx(model, device=cuda).output(feeds, ["y"])["y"]
+    want = import_onnx(model, device="cpu").output(feeds, ["y"])["y"]
+    assert got.shape == want.shape == (4, 5)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_imported_random_graph_runs_eagerly_with_the_same_draws(cuda):
+    """ONNX RandomNormal and Bernoulli imported on the card: the graph is
+    routed to eager (``SEEDED_RANDOM``: a capture refuses the seeding),
+    two runs give the same draws, and the draws have their moments."""
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.nn.compiled import SEEDED_RANDOM
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+
+    model = ob.build_model(
+        [ob.node_proto("RandomNormal", [], ["rn"], shape=[4000], mean=2.0,
+                       scale=0.5, seed=7.0),
+         ob.node_proto("Bernoulli", ["p"], ["be"])],
+        [("p", (40, 100))], [("rn", (1,)), ("be", (1,))], {})
+    feeds = {"p": np.full((40, 100), 0.3, np.float32)}
+    observe.reset()
+    sd = import_onnx(model, device=cuda)
+    first = sd.output(feeds, ["rn", "be"])
+    again = sd.output(feeds, ["rn", "be"])
+    assert [(e.graph, e.key, e.reason)
+            for e in observe.ledger().routed_events()] == [
+        ("samediff", "exec", SEEDED_RANDOM)]
+    for k in ("rn", "be"):
+        np.testing.assert_array_equal(again[k], first[k], err_msg=k)
+    rn, be = first["rn"], first["be"]
+    assert abs(rn.mean() - 2.0) < 5 * 0.5 / np.sqrt(rn.size)
+    assert set(np.unique(be)) <= {0.0, 1.0}
+    assert abs(be.mean() - 0.3) < 5 * np.sqrt(0.21 / be.size)
+
+
 # ----------------------------------------------------- fused LayerNorm
 
 

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 
 import jax
+import ml_dtypes
 import torch
 
 from deeplearning4j_tpu import nn as jnn
@@ -601,3 +602,125 @@ def test_float16_adam_stays_finite():
     assert np.isfinite(tnet.params_flat()).all()
     assert tnet.params[0]["W"].dtype == torch.float16
     assert not np.isfinite(jnet.params_flat()).all()
+
+
+
+POLICY_NP = {"bfloat16": np.dtype(ml_dtypes.bfloat16),
+             "float16": np.dtype(np.float16)}
+
+
+def _16bit_result_net(pkg, conf, policy, kind):
+    """Dense(8) → LayerNormalization → Output(5) over 6 features,
+    Conv(4, 3×3) → BatchNormalization → max-pool 2×2 → Output(5) over a
+    6×6×2 image, or LSTM(8) → RnnOutput(5) over 6 features a step, under
+    ``policy``."""
+    b = pkg.builder().seed(5).dtype(policy).list()
+    out = pkg.OutputLayer(n_out=5, activation="softmax", loss="mcxent")
+    if kind == "conv_bn":
+        return (b.layer(conf.ConvolutionLayer(n_out=4, kernel=(3, 3),
+                                              activation="relu"))
+                .layer(conf.BatchNormalization())
+                .layer(conf.SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+                .layer(out)
+                .set_input_type(pkg.InputType.convolutional(6, 6, 2))
+                .build())
+    if kind == "lstm":
+        return (b.layer(pkg.LSTM(n_out=8, activation="tanh"))
+                .layer(pkg.RnnOutputLayer(n_out=5, activation="softmax",
+                                          loss="mcxent"))
+                .set_input_type(pkg.InputType.recurrent(6)).build())
+    return (b.layer(pkg.DenseLayer(n_out=8, activation="tanh"))
+            .layer(conf.LayerNormalization()).layer(out)
+            .set_input_type(pkg.InputType.feed_forward(6)).build())
+
+
+def _assert_16bit_results(pairs, policy, dtypes=None, units=1):
+    """Each (port, JAX) host array in the JAX package's dtype (``dtypes``,
+    one a pair; the policy's 16-bit dtype when None), the port's within
+    ``units`` units of the policy's dtype of it (relative to the largest
+    value): one, or one a recurrent step, whose state each step rounds
+    to the policy's dtype."""
+    unit = POLICY_UNIT[policy] * units
+    for k, (got, want) in enumerate(pairs):
+        want = np.asarray(want)
+        dt = POLICY_NP[policy] if dtypes is None else np.dtype(dtypes[k])
+        assert want.dtype == dt and got.dtype == dt, (k, got.dtype)
+        want32 = want.astype(np.float32)
+        np.testing.assert_allclose(got.astype(np.float32), want32, rtol=0,
+                                   atol=unit * np.abs(want32).max())
+
+
+@pytest.mark.parametrize("kind", ["dense_ln", "conv_bn", "lstm"])
+@pytest.mark.parametrize("policy", ["bfloat16", "float16"])
+def test_16bit_results_come_back_16bit(policy, kind):
+    """Under the "bfloat16" / "float16" policies, 16-bit numpy input
+    gives 16-bit numpy results, as the JAX package returns them:
+    ``output``, ``feed_forward`` and ``rnn_time_step`` return
+    ``ml_dtypes.bfloat16`` / ``np.float16`` arrays, within one unit of
+    that dtype of the JAX package's."""
+    from deeplearning4j_tpu.nn import conf as jconf
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+
+    jnet = jnn.MultiLayerNetwork(_16bit_result_net(
+        jnn, jconf, policy, kind)).init()
+    tnet = tnn.MultiLayerNetwork(_16bit_result_net(
+        tnn, tconf, policy, kind), device="cpu").init(
+            params=_host(jnet.params))
+    shape = {"dense_ln": (3, 6), "conv_bn": (3, 6, 6, 2),
+             "lstm": (3, 4, 6)}[kind]
+    x = np.random.default_rng(6).standard_normal(shape).astype(
+        POLICY_NP[policy])
+    pairs = [(tnet.output(x), jnet.output(x))]
+    pairs += list(zip(tnet.feed_forward(x), jnet.feed_forward(x)))
+    if kind == "lstm":
+        pairs.append((tnet.rnn_time_step(x), jnet.rnn_time_step(x)))
+    _assert_16bit_results(pairs, policy,
+                          units=shape[1] if kind == "lstm" else 1)
+
+
+@pytest.mark.parametrize("kind", ["dense_ln", "conv_bn", "lstm"])
+@pytest.mark.parametrize("policy", ["bfloat16", "float16"])
+def test_16bit_score_matches_jax(policy, kind):
+    """``score(DataSet)`` under the 16-bit policies, on 16-bit input, is a
+    float within one unit of the policy's dtype (relative) of the JAX
+    package's, which scores the 16-bit array its ``output`` returns; and
+    ``evaluate`` over those results gives the JAX package's accuracy."""
+    from deeplearning4j_tpu.nn import conf as jconf
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+
+    jnet = jnn.MultiLayerNetwork(_16bit_result_net(
+        jnn, jconf, policy, kind)).init()
+    tnet = tnn.MultiLayerNetwork(_16bit_result_net(
+        tnn, tconf, policy, kind), device="cpu").init(
+            params=_host(jnet.params))
+    shape = {"dense_ln": (3, 6), "conv_bn": (3, 6, 6, 2),
+             "lstm": (3, 4, 6)}[kind]
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal(shape).astype(POLICY_NP[policy])
+    y = np.eye(5, dtype=np.float32)[rng.integers(
+        0, 5, shape[:2] if kind == "lstm" else shape[:1])]
+    want = jnet.score(JDataSet(x, y))
+    got = tnet.score(DataSet(x, y))
+    assert isinstance(got, float)
+    assert abs(got - want) <= POLICY_UNIT[policy] * abs(want), (got, want)
+    assert (tnet.evaluate(DataSet(x, y)).accuracy()
+            == jnet.evaluate(JDataSet(x, y)).accuracy())
+
+
+@pytest.mark.parametrize("policy", ["bfloat16", "float16"])
+def test_16bit_graph_results_come_back_16bit(policy):
+    """The same for ``ComputationGraph.output`` and ``rnn_time_step``
+    (LSTM(8) → RnnOutput(5), 16-bit input). The graph seeds its stream's
+    state in float32, so ``rnn_time_step`` promotes to float32 there, as
+    in the JAX package."""
+    jnet = jgraph.ComputationGraph(_policy_net(
+        jnn, jgraph, policy, True, True)).init()
+    tnet = tgraph.ComputationGraph(_policy_net(
+        tnn, tgraph, policy, True, True), device="cpu").init(
+            params=_host(jnet.params))
+    x = np.random.default_rng(7).standard_normal((3, 4, 6)).astype(
+        POLICY_NP[policy])
+    _assert_16bit_results([(tnet.output(x)[0], jnet.output(x)[0]),
+                           (tnet.rnn_time_step(x), jnet.rnn_time_step(x))],
+                          policy, dtypes=(POLICY_NP[policy], np.float32),
+                          units=x.shape[1])

@@ -9,10 +9,11 @@
   optimizer on and off (float32: the same ops on the same numbers in
   another summation order); the optimized plan equal op for op (79 nodes,
   12 epilogue and 2 attention fusions).
-* Every other mapped rule (Gemm with flags and scales, Relu, Tanh,
-  Sigmoid, Gelu, LayerNormalization, Constant, Flatten, Concat, Squeeze)
-  in one small graph, against the JAX import.
-* An op without a rule raises at import; ``validate=True`` raises.
+* The rules outside the BERT graph that the first slice mapped (Gemm
+  with flags and scales, Relu, Tanh, Sigmoid, Gelu, LayerNormalization,
+  Constant, Flatten, Concat, Squeeze) in one small graph, against the JAX
+  import (``test_torch_onnx_rules.py`` holds every rule).
+* An op neither package maps raises at import; ``validate=True`` raises.
 * No module of the port, nor ``chip_smoke.py``, names JAX or the JAX
   package in an import or a dotted module path.
 """
@@ -76,6 +77,29 @@ def test_decoder_reads_what_the_jax_decoder_reads(tiny_bytes):
     for k, v in t.initializers.items():
         assert v.dtype == j.initializers[k].dtype
         np.testing.assert_array_equal(v, j.initializers[k])
+
+
+def test_a_tensor_without_dims_decodes_as_a_scalar():
+    """A TensorProto with no dims is 0-d, as ONNX defines it and as a real
+    exporter writes a scalar index: the port reads shape (), where the JAX
+    decoder reads (1,) (a departure ROADMAP.md records), so a Gather by
+    it drops the axis in the port and keeps a unit axis in the JAX
+    package."""
+    model = tb.build_model(
+        [tb.scalar_constant("i", np.int64(2)),
+         tb.node_proto("Gather", ["x", "i"], ["y"], axis=1)],
+        [("x", (3, 4, 5))], [("y", (3, 5))], {})
+    const = [[n for n in m.parse_model(model).nodes
+              if n.op_type == "Constant"][0].attrs["value"]
+             for m in (timp, jimp)]
+    assert const[0].shape == () and const[1].shape == (1,)
+    assert const[0] == const[1][0] == 2
+    x = np.arange(60, dtype=np.float32).reshape(3, 4, 5)
+    got = timp.import_onnx(model, device="cpu").output({"x": x}, ["y"])["y"]
+    want = np.asarray(jimp.import_onnx(model).output({"x": x}, ["y"])["y"])
+    assert got.shape == (3, 5) and want.shape == (3, 1, 5)
+    np.testing.assert_array_equal(got, x[:, 2])
+    np.testing.assert_array_equal(want[:, 0], got)
 
 
 @pytest.mark.parametrize("optimize", [True, False])
@@ -160,10 +184,13 @@ def test_every_mapped_rule_matches_jax(optimize):
 
 
 def test_an_unmapped_op_raises_at_import():
+    # an op neither package maps (the port maps every JAX rule)
+    assert "DeformConv" not in jimp.ONNX_OP_MAPPERS
     model = tb.build_model(
-        [tb.node_proto("Conv", ["x", "w"], ["y"])], [("x", (1, 1, 4, 4))],
-        [("y", (1, 1, 4, 4))], {"w": np.ones((1, 1, 1, 1), np.float32)})
-    with pytest.raises(NotImplementedError, match="Conv"):
+        [tb.node_proto("DeformConv", ["x", "w"], ["y"])],
+        [("x", (1, 1, 4, 4))], [("y", (1, 1, 4, 4))],
+        {"w": np.ones((1, 1, 1, 1), np.float32)})
+    with pytest.raises(NotImplementedError, match="DeformConv"):
         timp.import_onnx(model, device="cpu")
 
 

@@ -419,3 +419,47 @@ def test_matcher_evidence_matches_jax(name):
     want = _avals_of(jsd, outs, jopt)
     got = _avals_of(tsd, outs, topt)
     assert got == want
+
+
+def _bf16_matmul(sd_cls, **kw):
+    """A bfloat16 placeholder ``mmul`` a bfloat16 variable, 4×8 · 8×3."""
+    import ml_dtypes
+
+    r = np.random.RandomState(12)
+    sd = sd_cls(**kw)
+    x = sd.placeholder("x", (4, 8), ml_dtypes.bfloat16)
+    w = sd.var("w", r.randn(8, 3).astype(ml_dtypes.bfloat16))
+    x.mmul(w).rename("y")
+    return sd, {"x": r.randn(4, 8).astype(ml_dtypes.bfloat16)}
+
+
+def test_bfloat16_output_comes_back_bfloat16():
+    """A bfloat16 result of ``output`` is an ``ml_dtypes.bfloat16`` numpy
+    array, as the JAX package returns it, within one bfloat16 unit
+    (relative to the largest value) of the JAX result."""
+    jsd, feeds = _bf16_matmul(JSameDiff)
+    tsd, _ = _bf16_matmul(TSameDiff, device="cpu")
+    want = np.asarray(jsd.output(feeds, ["y"])["y"])
+    got = tsd.output(feeds, ["y"])["y"]
+    assert str(want.dtype) == str(got.dtype) == "bfloat16"
+    want32 = want.astype(np.float32)
+    np.testing.assert_allclose(got.astype(np.float32), want32, rtol=0,
+                               atol=2.0 ** -7 * np.abs(want32).max())
+    assert str(tsd.get_arr("w").dtype) == "bfloat16"
+
+
+def test_bfloat16_output_is_float32_without_ml_dtypes(monkeypatch):
+    """Where ``ml_dtypes`` cannot be imported, a bfloat16 result comes
+    back upcast to float32, exactly; float16 never needs it."""
+    import sys
+
+    from deeplearning4j_tpu_torch.nn.dtype import host_array
+
+    tsd, feeds = _bf16_matmul(TSameDiff, device="cpu")
+    with_ml = tsd.output(feeds, ["y"])["y"]
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)  # import fails
+    got = tsd.output(feeds, ["y"])["y"]
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, with_ml.astype(np.float32))
+    half = torch.tensor([1.5, -2.25], dtype=torch.float16)
+    assert host_array(half).dtype == np.float16

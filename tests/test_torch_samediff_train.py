@@ -357,9 +357,10 @@ def test_bfloat16_numpy_graph_output_and_fit_match_jax():
     assert tsd.get_arr("w").shape == (6, 3)
     want = jsd.output(feeds, ["y"])["y"]
     got = tsd.output(feeds, ["y"])["y"]
-    # the documented deviation: a bfloat16 result comes back as float32
-    assert str(want.dtype) == "bfloat16" and got.dtype == np.float32
-    np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16_TOL)
+    # a bfloat16 result comes back as bfloat16, as the JAX package's does
+    assert str(want.dtype) == str(got.dtype) == "bfloat16"
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **BF16_TOL)
     b = _Bf16Batch(feeds)
     np.testing.assert_allclose(tsd.fit([b]), jsd.fit([b]), **BF16_TOL)
     for name in ("w", "b"):
