@@ -14,7 +14,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    PyTorch version on the same inputs (max abs error and tolerance):
    attention in float32 and bfloat16 at the serving shapes (and float32 at
    D 192, which the float32 tensor-core forward refuses: the CUDA-core one
-   stays checked and timed); paged decode (split-KV, one launch a call)
+   stays checked and timed), and float32 at the speculative draft step's
+   shape (96 rows, one query each over 1,024 keys under a key mask, also
+   timed through the op with its layout copies); paged decode (split-KV, one launch a call)
    at 8 slots of 1…1024 tokens and at 8 slots all at 1024, its faulted
    split-KV transcriptions (a split dropped, the combine without its
    rescale) beyond the tolerance; the fused
@@ -97,6 +99,50 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    a restart), the KV pool the same buffer; then one ``page_oom`` shot
    ends its request as ``oom``. Reports each crash's recovery seconds and
    a ``faults`` line.
+4c. ``serve_prefix`` — the radix prefix cache at the same width:
+   ``PREFIX_REQUESTS`` requests (four 96-token system prompts, 8–32-token
+   tails, 16 greedy tokens each) closed loop with the cache off (the
+   reference), then — launch counts set to 0 just before — the four
+   system prompts pre-warmed and pinned and the same requests through
+   an engine with ``prefix_pages`` 64 and ``suffix_bucket`` 32 (prompt
+   bucket 128, page 16). Checks the tokens against the cache-off run
+   (ties explained by the top-2 gap), 16 hits, exactly 48 flash
+   prefills, 12 paged decodes a decode step and 12 generic attentions a
+   suffix prefill (the flash gate refuses its dense mask, as the JAX
+   gate does), one ``first_compile`` a unit, no ``new_shape``, the
+   allocator and tree invariants. Reports TTFT p50 on and off, the
+   suffix-prefill and full-prefill units' device time and the generic
+   attention's share of the suffix prefill.
+4d. ``serve_spec`` — the ``serve`` phase's engine and requests with
+   ``spec_k`` 4, once with ``perturbed_draft(scale=1e-2)`` and once with
+   scale 3e-3 (accepts and rejections both). Checks each run's committed
+   streams against the ``serve`` phase's (ties explained), the flash
+   launches (12 per target and draft prefill and 12 × 5 a propose: every
+   draft step runs flash at one query a slot), the generic attention of
+   each verify (12), no paged decode unless a slot falls back to plain
+   decode, one ``first_compile`` a unit and no ``new_shape``, the
+   draft/target length invariant. The draft path is checked against
+   its references: propose call ``SPEC_CHECK_CALL``'s proposals against
+   the same draft steps under ``helper_mode="generic"`` from the draft
+   cache it started from (near ties explained), the flash forward at
+   that call's shape (96 rows, ``t_q`` 1, 1,024 keys, the call's key
+   lengths, on the cache's first layer) against its plain version with
+   the faulted variants, and every request's accepted count against the
+   count its committed stream predicts (one generic draft prefill over
+   the stream gives every proposal). Reports proposed and accepted
+   tokens, tokens/s beside the ``serve`` phase's, the propose and verify
+   units' device time, and one layer's attention inside each, as the
+   path calls it (layout copies, gather and concatenation included) and
+   alone, each with its share.
+4e. ``serve_cluster`` — a ``ClusterRouter`` over two serve_prefix
+   engines behind ``SLOFrontend`` (interactive and standard pin a system
+   prompt each; batch's token bucket holds 2). Engine 0's loop runs alone
+   until ``engine_death`` fires in it; then engine 1 starts. Every
+   retryable request must complete on engine 1 with the serve_prefix
+   reference tokens, exactly 2 of the 4 batch arrivals shed by the
+   bucket, no ``new_shape``, the survivor's invariants, and, from the
+   run's own counts, 12 flash launches a prefix miss, 12 generic
+   attentions a hit and 12 paged launches a decode step.
 5. ``train``   — ResNet-50 at full width (224×224×3, 1000 classes), the
    usual configuration (float32, composed blocks, Nesterovs lr 0.1),
    batch 32, trained through ``ResNet50().init()`` → ``fit``: 3 steps
@@ -443,6 +489,11 @@ FLASH_SHAPE = dict(bh=12, t=512, d=64)
 # a float32 head dim the tensor-core forward refuses: the CUDA-core one
 # stays checked and timed there
 FLASH_SIMT_D = 192
+# the speculative draft step's flash forward (serve_spec): 8 slots x 12
+# heads, one query each against the 1,024-position dense draft cache;
+# visible keys a slot at one key, tile edges and the whole context
+DRAFT_FLASH = dict(slots=8, heads=12, t=1024, d=64,
+                   lens=(1, 9, 63, 64, 65, 300, 544, 1024))
 PAGED_SHAPE = dict(slots=8, heads=12, d=64, page=16, max_pages=64)
 # fused updater: the fc weight (the largest leaf) and a stage-3 3×3 conv,
 # one leaf a call; and the whole ResNet-50 and BERT-base trees, one
@@ -612,6 +663,30 @@ GRAPH_STREAM_CHARS = 200
 # serve_supervised: after_n of decode_step_error (decode steps) and
 # worker_death (serving-loop iterations with work)
 SERVE_CRASH_AT = (5, 30)
+# serve_prefix: four 96-token system prompts pre-warmed and pinned, then
+# 16 requests (four a prompt) with 8-32-token tails, closed loop, each
+# 16 greedy tokens; the engine's prompt bucket 128, 64 tree pages, the
+# suffix bucket 32
+PREFIX_KW = dict(max_slots=8, page_size=16, max_pages_per_seq=16,
+                 max_prompt=128, seed=0)
+PREFIX_CACHE_KW = dict(prefix_pages=64, suffix_bucket=32)
+PREFIX_SYSTEM = (4, 96)       # system prompts, tokens each
+PREFIX_REQUESTS = 16
+PREFIX_TAILS = (8, 32)        # tail tokens, inclusive
+PREFIX_NEW_TOKENS = 16
+# serve_spec: the serve phase's engine and requests with spec_k 4, once
+# with each perturbed_draft of the target: noise of 1e-2 (the random
+# GPT-2-small's weights are N(0, 0.072): its greedy argmax then agrees
+# with the target's at none of the 372 positions the serve streams feed
+# it) and of 3e-3 (at 124: every position of four requests, none of the
+# other eight), so that accepts and rejections both run on the card
+SPEC_K = 4
+SPEC_DRAFT_SCALES = (1e-2, 3e-3)
+SPEC_CHECK_CALL = 8           # the propose call held against generic
+# serve_cluster: engine_death after this many loop iterations of engine
+# 0; the batch class's token bucket admits this many of its arrivals
+CLUSTER_DEATH_AT = 3
+CLUSTER_BATCH = (4, 2)        # batch arrivals, bucket size
 
 
 def emit(obj) -> None:
@@ -679,7 +754,8 @@ def flash_check_forward(out, ref, args, kw, dtype, design):
     as the kernel rounds; for sm90_f32 also one TF32 pass,
     ``testing/split_f32.py``) must exceed that bound, which shows the bound
     still catches such faults. Faults that cannot show (the keep mask at
-    dropout 0) are left out."""
+    dropout 0, the last key tile dropped where the mask hides every key
+    of it) are left out."""
     from deeplearning4j_tpu_torch.testing import flash_check as fc
     from deeplearning4j_tpu_torch.testing import split_f32 as sf
 
@@ -691,6 +767,10 @@ def flash_check_forward(out, ref, args, kw, dtype, design):
     if design in ("sm90", "sm90_f32"):
         for fault in (fc.FAULTS if design == "sm90" else FLASH_F32_FAULTS):
             if fault == "keep_shifted" and not kw["dropout_rate"]:
+                continue
+            mask = args[3]
+            if (fault == "last_tile_dropped" and mask is not None
+                    and not bool((mask[:, -fc.FORWARD_TILE:] > 0.5).any())):
                 continue
             if fault == "single_pass_tf32":
                 bad, _ = sf.flash_forward_split(*args, passes="single", **kw)
@@ -766,6 +846,78 @@ def flash_case(dtype, dev, d=FLASH_SHAPE["d"]):
                 "tol": tol_text(name, design), "err_over_tol": share,
                 "faulted_plain_over_tol": faults, "same_bits_twice": same_bits,
                 "lse_max_abs_err": err_lse, "lse_tol": TOL_LSE, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                "bound_by": by}
+
+
+def flash_draft_case(dev, kv=None, lens=None, seed=4):
+    """Flash forward at the speculative draft step's shape: one query a
+    slot against the whole dense draft cache, ``(S, 1, 1, T)`` key mask
+    (S·H = 96 rows, t_q 1, t_k ``DRAFT_FLASH["t"]``), float32. ``kv`` is a
+    layer of the draft cache, ``(2, S, T + 1, H, Dh)`` (the trash position
+    last), and ``lens`` each slot's visible keys; by default random K/V in
+    that layout and ``DRAFT_FLASH["lens"]``. The kernel is held against
+    its plain version with the faulted variants, as in ``flash_case``, on
+    the folded inputs ``flash_dpa`` hands it; ``path_ms`` times the
+    registry's ``dot_product_attention`` on the cache's views as the draft
+    step calls it (``flash_dpa``'s layout copies of K and V included),
+    ``ms`` the kernel alone on the folded inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import exec_op
+
+    s_n, h, t, d = (DRAFT_FLASH[k] for k in ("slots", "heads", "t", "d"))
+    rng = np.random.default_rng(seed)
+    if kv is None:
+        kv = torch.from_numpy(rng.standard_normal(
+            (2, s_n, t + 1, h, d), dtype=np.float32)).to(dev)
+        lens = DRAFT_FLASH["lens"]
+    lens_np = np.asarray(lens, np.int64)
+    q4 = torch.from_numpy(rng.standard_normal(
+        (s_n, h, 1, d), dtype=np.float32)).to(dev)
+    k4 = kv[0, :, :t].permute(0, 2, 1, 3)        # (S, H, T, Dh) views
+    v4 = kv[1, :, :t].permute(0, 2, 1, 3)
+    mask4 = (torch.arange(t, device=dev)[None, :] < torch.from_numpy(
+        lens_np).to(dev)[:, None])[:, None, None, :]
+    bh = s_n * h
+    q, k, v = (x.reshape(bh, x.shape[2], d).contiguous()
+               for x in (q4, k4, v4))
+    mask = mask4.reshape(s_n, t).to(torch.float32).repeat_interleave(h, 0)
+    out, lse = ca.flash_attention(q, k, v, mask)
+    again, _ = ca.flash_attention(q, k, v, mask)
+    ref_out, ref_lse = ca.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    design = ca.flash_design(torch.float32, d, "fwd")
+    fwd_kw = dict(scale=1.0 / math.sqrt(d), causal=False, dropout_rate=0.0)
+    err, share, faults = flash_check_forward(
+        out, ref_out, (q, k, v, mask, None), fwd_kw, torch.float32, design)
+    err_lse = (lse - ref_lse).abs().max().item()
+    same_bits = torch.equal(out, again)
+    ok = (share <= 1.0 and err_lse <= TOL_LSE and same_bits
+          and bool(torch.isfinite(out).all())
+          and all(f > 1.0 for f in faults.values()))
+    ms = time_ms(lambda: ca.flash_attention(q, k, v, mask))
+    path_ms = time_ms(lambda: exec_op("dot_product_attention", q4, k4, v4,
+                                      mask4, scaled=True))
+    plain_ms = time_ms(lambda: ca.flash_attention_reference(q, k, v, mask))
+    kc, vc = k.view(s_n, h, t, d), v.view(s_n, h, t, d)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask4))
+    # the keys this data makes visible, each read once (K and V), each
+    # query and output row once, the folded mask and lse
+    pairs = float(h * lens_np.sum())
+    nbytes = 4 * (2 * bh * d + 2 * pairs * d + bh * t + bh)
+    bms, by = design_bound(nbytes, 4.0 * d * pairs, "float32", design)
+    return ok, {"kernel": FLASH_FWD_KERNEL[design], "design": design,
+                "dtype": "float32", "shape": [bh, 1, t, d],
+                "context": "draft decode step, (S,1,1,T) key mask",
+                "key_lens": lens_np.tolist(), "max_abs_err": err,
+                "tol": tol_text("float32", design), "err_over_tol": share,
+                "faulted_plain_over_tol": faults, "same_bits_twice": same_bits,
+                "lse_max_abs_err": err_lse, "lse_tol": TOL_LSE, "ms": ms,
+                "path_ms": path_ms, "layout_copies_ms": path_ms - ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
                 "bound_by": by}
 
@@ -5202,10 +5354,7 @@ def serve_supervised_phase(dev, smi, model, engine_kw, prompts, want):
     m = observe.metrics()
     retries = int(m.counter("dl4j_tpu_serving_retries_total").value)
     restarts = int(m.counter("dl4j_tpu_serving_engine_restarts_total").value)
-    ledger = {}
-    for ev in observe.ledger().events():
-        if ev.graph == "serving":
-            ledger.setdefault(ev.key, []).append(ev.cause)
+    ledger = _serving_ledger(observe)
     units = {name: unit_memory(u) for name, u in (
         ("prefill", eng._prefill_fn), ("write_prompt", eng._write_fn),
         ("decode", eng._decode_fn))}
@@ -5259,6 +5408,701 @@ def serve_supervised_phase(dev, smi, model, engine_kw, prompts, want):
         {"run": "page_oom shot", "armed": ["page_oom:max_fires=1"],
          "fires": oom_fires, "restarts": 0}])
     return problems, line, launches, fl
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn`` (a captured unit, which cannot be
+    captured again inside ``time_ms``'s graph): ``iters`` calls between
+    two CUDA events after two warm calls, the mean per call."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _serving_ledger(observe) -> dict:
+    out = {}
+    for ev in observe.ledger().events():
+        if ev.graph == "serving":
+            out.setdefault(ev.key, []).append(ev.cause)
+    return out
+
+
+def attention_ms(dev, b, h, t_q, t_k, d, mask) -> float:
+    """Device time of the registry's ``dot_product_attention`` as the
+    serving path calls it (its gate picks flash or the generic version by
+    shape) on random inputs of that shape, ``mask`` (b, 1, t_q|1, t_k)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import exec_op
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device=dev)
+               for t in (t_q, t_k, t_k))
+    return time_ms(lambda: exec_op("dot_product_attention", q, k, v, mask,
+                                   scaled=True))
+
+
+def prefix_requests(cfg):
+    """The serve_prefix traffic: ``PREFIX_SYSTEM`` system prompts and
+    ``PREFIX_REQUESTS`` prompts (four a system prompt, in turn) each with
+    a ``PREFIX_TAILS`` tail, from a numpy seed."""
+    rng = np.random.default_rng(5)
+    n_sys, sys_len = PREFIX_SYSTEM
+    systems = [rng.integers(1, cfg.vocab_size, sys_len).astype(np.int32)
+               for _ in range(n_sys)]
+    prompts = [np.concatenate([systems[i % n_sys], rng.integers(
+        1, cfg.vocab_size, int(rng.integers(PREFIX_TAILS[0],
+                                            PREFIX_TAILS[1] + 1)))
+        .astype(np.int32)]) for i in range(PREFIX_REQUESTS)]
+    return systems, prompts
+
+
+def _divergences(model, prompts, want, got, problems, what):
+    """Explain every greedy stream of ``got`` that differs from ``want``
+    (``explain_divergence``: a near tie, else a problem)."""
+    out = []
+    for p, a, b in zip(prompts, want, got):
+        if list(a) != list(b):
+            ok, det = explain_divergence(model, p, list(a), list(b))
+            out.append(det)
+            if not ok:
+                problems.append(f"{what}: greedy tokens diverge without a "
+                                f"near-tie: {det}")
+    return out
+
+
+def serve_prefix_phase(dev, smi, model):
+    """The radix prefix cache at GPT-2-small width: ``PREFIX_REQUESTS``
+    shared-prefix requests closed loop through an engine with the cache
+    off (the reference), then — launch counts set to 0 just before —
+    ``prewarm_prefix`` of the ``PREFIX_SYSTEM`` system prompts (pinned)
+    and the same requests through an engine with ``prefix_pages``. Checks
+    the tokens against the cache-off run (ties explained), one hit a
+    request, the exact flash, paged and generic-attention counts, one
+    ``first_compile`` a unit and no ``new_shape``, and the allocator and
+    tree invariants. Times TTFT on and off, the suffix-prefill and
+    full-prefill units, and the generic attention inside the suffix
+    prefill. Returns (problems, line, launches, traffic)."""
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.serving import GenerativeEngine
+
+    import torch
+
+    cfg, layers = model.cfg, model.cfg.layers
+    systems, prompts = prefix_requests(cfg)
+    kw = dict(PREFIX_KW, device=dev)
+
+    def closed_loop(eng):
+        return [eng.generate([p], max_new_tokens=PREFIX_NEW_TOKENS,
+                             eos_token=-1)[0] for p in prompts]
+
+    off = closed_loop(GenerativeEngine(model, **kw))
+    observe.reset()
+    eng = GenerativeEngine(model, **kw, **PREFIX_CACHE_KW)
+    ca.reset_launch_counts()              # the main path's run starts here
+    t0 = time.perf_counter()
+    for sp in systems:
+        eng.prewarm_prefix(sp)
+    on = closed_loop(eng)
+    wall = time.perf_counter() - t0
+    launches = ca.launch_counts()         # ... and ends here
+    dispatch = dispatch_tally()
+    m = observe.metrics()
+    decode_steps = m.histogram("dl4j_tpu_serving_decode_step_seconds").count
+    hits = int(m.counter("dl4j_tpu_prefix_hits_total").value)
+    cows = int(m.counter("dl4j_tpu_prefix_cow_copies_total").value)
+    ledger = _serving_ledger(observe)
+    units = {name: unit_memory(u) for name, u in (
+        ("prefill", eng._prefill_fn), ("write_prompt", eng._write_fn),
+        ("suffix_prefill", eng._suffix_fn), ("decode", eng._decode_fn))}
+    problems = []
+    try:
+        eng.check_invariants()
+    except AssertionError as e:
+        problems.append(f"invariants: {e}")
+    n_sys, sys_len = PREFIX_SYSTEM
+    want_steps = PREFIX_REQUESTS * (PREFIX_NEW_TOKENS - 1)
+    if any(r.finish_reason != "length" for r in on + off):
+        problems.append(f"finish reasons {[r.finish_reason for r in on]}")
+    if hits != PREFIX_REQUESTS or any(r.prefix_hit_tokens != sys_len
+                                      for r in on):
+        problems.append(f"hits {hits}, hit tokens "
+                        f"{[r.prefix_hit_tokens for r in on]}")
+    if eng.prefix.pinned_pages != n_sys * sys_len // PREFIX_KW["page_size"]:
+        problems.append(f"pinned pages {eng.prefix.pinned_pages}")
+    want_disp = {
+        "dot_product_attention cuda usable": layers * n_sys,
+        "dot_product_attention generic not_usable": layers * PREFIX_REQUESTS,
+        "paged_decode_attention cuda usable": layers * want_steps}
+    got_disp = {k: dispatch.get(k, 0) for k in want_disp}
+    if decode_steps != want_steps or got_disp != want_disp:
+        problems.append(f"decode steps {decode_steps} (want {want_steps}), "
+                        f"dispatches {got_disp} (want {want_disp})")
+    if (launches["flash_attn_fwd"] != layers * n_sys
+            or launches["flash_attn_fwd_f32_sm90"] != layers * n_sys
+            or launches["paged_decode"] != layers * want_steps):
+        problems.append(f"launches {launches}")
+    if ledger != {k: ["first_compile"] for k in (
+            "prefill", "write_prompt", "suffix_prefill", "decode")}:
+        problems.append(f"serving ledger {ledger}")
+    if dev.type == "cuda" and any(u["captures"] != 1
+                                  for u in units.values()):
+        problems.append(f"captures {units}")
+    divergences = _divergences(model, prompts, [r.tokens for r in off],
+                               [r.tokens for r in on], problems,
+                               "prefix on vs off")
+    timing = {}
+    if dev.type == "cuda":
+        # after every check: a replay rewrites the last request's suffix
+        # K/V with the same values, and the full prefill's unit its scratch
+        suffix_ms = cuda_ms(eng._suffix_fn)
+        prefill_ms = cuda_ms(eng._prefill_fn)
+        b, t_pre = PREFIX_CACHE_KW["suffix_bucket"], PREFIX_KW["max_prompt"]
+        ar = torch.arange(b, device=dev)
+        m_suf = (ar[None, :] <= ar[:, None]) & (ar[None, :] < 16)
+        m_pre = (torch.arange(t_pre, device=dev) < sys_len)[None].expand(
+            b, t_pre)
+        mask = torch.cat([m_pre, m_suf], dim=1)[None, None]
+        attn = attention_ms(dev, 1, cfg.heads, b, t_pre + b,
+                            cfg.hidden // cfg.heads, mask)
+        timing = {"suffix_prefill_unit_ms": suffix_ms,
+                  "prefill_unit_ms": prefill_ms,
+                  "generic_attention_ms": attn,
+                  "generic_attention_ms_per_unit": attn * layers,
+                  "generic_attention_share": attn * layers / suffix_ms,
+                  "attention_shape": f"q 1x{cfg.heads}x{b}x64, k/v "
+                                     f"1x{cfg.heads}x{t_pre + b}x64, "
+                                     f"dense (1,1,{b},{t_pre + b}) mask",
+                  "timed": "CUDA events over 20 replays (units); 20 calls "
+                           "in a CUDA graph x 5 replays (attention)"}
+    ttft_on = float(np.percentile([r.ttft_s for r in on], 50)) * 1e3
+    ttft_off = float(np.percentile([r.ttft_s for r in off], 50)) * 1e3
+    line = {"phase": "serve_prefix", "card": smi,
+            "model": "GptConfig.base()", "dtype": "float32",
+            "engine": dict(PREFIX_KW, **PREFIX_CACHE_KW),
+            "system_prompts": list(PREFIX_SYSTEM),
+            "requests": PREFIX_REQUESTS, "tails": list(PREFIX_TAILS),
+            "new_tokens": PREFIX_NEW_TOKENS, "hits": hits,
+            "cow_copies": cows, "tree_pages": eng.prefix.tree_pages,
+            "pinned_pages": eng.prefix.pinned_pages,
+            "decode_steps": decode_steps, "launches": launches,
+            "dispatch": dispatch, "serving_ledger": ledger,
+            "graph_units": units,
+            "ttft_p50_ms": {"prefix_on": ttft_on, "prefix_off": ttft_off},
+            "ttft_reading": "closed loop, one request at a time; the p50 "
+                            "over the 16 requests, the first of which "
+                            "captures its units; one run, no spread",
+            "wall_s": wall,
+            "tokens_equal_prefix_off": sum(
+                list(a.tokens) == list(b.tokens) for a, b in zip(off, on)),
+            "divergences": divergences, **timing, "problems": problems}
+    traffic = (systems, prompts, [r.tokens for r in off])
+    return problems, line, launches, traffic
+
+
+def _draft_agreement(draft, k, prompts, results):
+    """The acceptance the committed streams predict. The draft is fed the
+    committed stream, so proposal ``i`` of a verify is the draft's argmax
+    after that stream's prefix: one draft prefill over each prompt and its
+    stream (``helper_mode="generic"``: no kernel) gives every such argmax
+    at once. Walking each request's verifies as the engine does (the
+    leading agreeing proposals land, then the target's token, never past
+    the budget) gives its accepted count. Returns (per-request predicted
+    accepted, per-request smallest draft top-2 gap at the positions the
+    walk read, positions where the draft agrees, positions)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.models.gpt import gpt_prefill
+
+    env = environment()
+    env.helper_mode = "generic"
+    predicted, gaps, agree_n, n_pos = [], [], 0, 0
+    try:
+        for p, r in zip(prompts, results):
+            toks = np.asarray(r.tokens, np.int64)
+            n, p_len = int(toks.size), int(p.size)
+            ids = torch.from_numpy(np.concatenate(
+                [p.astype(np.int64), toks[:-1]])[None]).to(draft.device)
+            with torch.no_grad():
+                rows = gpt_prefill(draft.params, ids, draft.cfg)[0][
+                    0, p_len - 1:p_len - 1 + n].float()
+            top2 = torch.topk(rows, 2, dim=-1)
+            agree = (top2.indices[:, 0].cpu().numpy() == toks)
+            gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+            agree_n += int(agree[1:].sum())
+            n_pos += n - 1
+            c, acc, read = 1, 0, []
+            while c < n:
+                rem, j = n - c, 0
+                while j < min(k, rem) and agree[c + j]:
+                    j += 1
+                read += list(range(c, min(c + j + 1, n)))
+                m = min(j + 1, rem)
+                acc += min(j, m)
+                c += m
+            predicted.append(acc)
+            gaps.append(float(gap[read].min()))
+    finally:
+        env.helper_mode = "auto"
+    return predicted, gaps, agree_n, n_pos
+
+
+def _propose_check(spec, snap):
+    """One captured ``propose`` against the same draft steps run with
+    ``helper_mode="generic"`` from the draft cache it started from
+    (``snap``: the cache, the staged tokens, lengths and active flags, and
+    the proposals the captured unit returned). Each generic step is fed
+    the captured proposal before it, so every step compares one argmax; a
+    proposal that differs passes only as a near tie (the generic top-2 gap
+    within 2·LOGIT_TOL). Returns (problems, summary)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.serving.speculative import (
+        _draft_decode_step)
+
+    env = environment()
+    env.helper_mode = "generic"
+    cfg, params = spec.draft.cfg, spec.draft.params
+    kv = snap["kv"].clone()
+    toks, pos, active = snap["tokens"], snap["lens"], snap["active"]
+    step = (active > 0).to(torch.int32)
+    props = torch.from_numpy(snap["props"]).to(kv.device)
+    on = snap["active"].cpu().numpy() > 0
+    mismatches, n_eq = [], 0
+    try:
+        with torch.no_grad():
+            for j in range(spec.k):
+                _, logits = _draft_decode_step(params, kv, toks, pos,
+                                               active, cfg)
+                top2 = torch.topk(logits.float(), 2, dim=-1)
+                am = top2.indices[:, 0].cpu().numpy()
+                gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+                for s in np.flatnonzero(on):
+                    if am[s] == snap["props"][s, j]:
+                        n_eq += 1
+                    else:
+                        mismatches.append({"slot": int(s), "step": j,
+                                           "top2_gap": float(gap[s])})
+                toks, pos = props[:, j], pos + step
+    finally:
+        env.helper_mode = "auto"
+    problems = [f"captured propose vs generic: {m}" for m in mismatches
+                if m["top2_gap"] > 2 * LOGIT_TOL]
+    return problems, {"propose_call": snap["call"],
+                      "active_slots": int(on.sum()),
+                      "lens": snap["lens"].cpu().numpy().tolist(),
+                      "proposals": int(on.sum()) * spec.k,
+                      "equal_generic": n_eq, "mismatches": mismatches}
+
+
+def verify_attention_ms(dev, eng, cfg) -> dict:
+    """Device time of one layer's attention inside ``gpt_verify`` at the
+    run's shape: as the path calls it (the gather of every slot's pages
+    from the engine's cache through its last page table, the
+    concatenation with the fed tokens' K/V, the registry's generic
+    ``dot_product_attention`` under the dense mask) and the attention
+    alone on contiguous inputs; their difference is the layout work."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import exec_op
+
+    v = eng._ver
+    kvp, page = eng.cache.kv, eng.cache.page_size
+    table, seq_lens = v["page_table"], v["seq_lens"]
+    s_n, w = v["tokens"].shape
+    h, d = cfg.heads, cfg.hidden // cfg.heads
+    t_v = table.shape[1] * page
+    tpos = torch.arange(t_v, device=dev)
+    ar = torch.arange(w, device=dev)
+    gpage, goff = table.long()[:, tpos // page], tpos % page
+    m_ctx = (tpos[None, None, :] < seq_lens[:, None, None]).expand(
+        s_n, w, t_v)
+    m_fed = (ar[None, :] <= ar[:, None])[None].expand(s_n, w, w)
+    m4 = torch.cat([m_ctx, m_fed], dim=2)[:, None]
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, kf, vf = (torch.randn((s_n, h, w, d), generator=g, device=dev)
+                 for _ in range(3))
+
+    def path():
+        kc = kvp[0, 0][gpage, goff].permute(0, 2, 1, 3)
+        vc = kvp[0, 1][gpage, goff].permute(0, 2, 1, 3)
+        return exec_op("dot_product_attention", q, torch.cat([kc, kf], 2),
+                       torch.cat([vc, vf], 2), m4, scaled=True)
+
+    path_ms = time_ms(path)
+    alone = attention_ms(dev, s_n, h, w, t_v + w, d, m4)
+    return {"path_ms": path_ms, "attention_ms": alone,
+            "layout_ms": path_ms - alone,
+            "shape": f"q {s_n}x{h}x{w}x{d}, k/v {s_n}x{h}x{t_v + w}x{d}, "
+                     f"dense ({s_n},1,{w},{t_v + w}) mask"}
+
+
+def _spec_run(dev, model, engine_kw, prompts, want, scale, timed):
+    """One serve_spec run: the serve phase's engine configuration and
+    requests with ``spec_k`` ``SPEC_K`` and ``perturbed_draft(scale)``,
+    threaded, launch counts set to 0 just before and read just after.
+    Propose call ``SPEC_CHECK_CALL`` keeps the draft cache it started from
+    and its proposals; after the run they are held against the generic
+    draft steps (``_propose_check``), and that cache's first layer, at the
+    key lengths the call's step 0 sees, feeds ``flash_draft_case``. The
+    accepted count must equal what the committed streams predict
+    (``_draft_agreement``) request by request, or differ only where the
+    draft has a near tie. Returns (problems, line, launches)."""
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.serving import (
+        GenerativeEngine, perturbed_draft)
+
+    import torch
+
+    cfg, layers = model.cfg, model.cfg.layers
+    draft = perturbed_draft(model, scale=scale, seed=1)
+    observe.reset()
+    eng = GenerativeEngine(model, **engine_kw, spec_k=SPEC_K,
+                           draft_model=draft)
+    calls = {"propose": 0, "plain_decode": 0}
+    snap = {}
+    real_propose = eng.spec.propose
+
+    def propose(tokens, active):
+        calls["propose"] += 1
+        if calls["propose"] != SPEC_CHECK_CALL:
+            return real_propose(tokens, active)
+        torch.cuda.synchronize()
+        snap["kv"] = eng.spec.kv.clone()
+        props = real_propose(tokens, active)
+        p = eng.spec._prop
+        snap.update(call=SPEC_CHECK_CALL, props=props,
+                    tokens=p["tokens"].clone(), lens=p["lens"].clone(),
+                    active=p["active"].clone())
+        torch.cuda.synchronize()
+        return props
+
+    def plain_decode(*a, **k):
+        calls["plain_decode"] += 1
+        return real_decode(*a, **k)
+
+    real_decode = eng._step_decode
+    eng.spec.propose = propose
+    eng._step_decode = plain_decode
+    ca.reset_launch_counts()              # the main path's run starts here
+    results, wall = serve(eng, prompts)
+    launches = ca.launch_counts()         # ... and ends here
+    dispatch = dispatch_tally()
+    ledger = _serving_ledger(observe)
+    units = {name: unit_memory(u) for name, u in (
+        ("prefill", eng._prefill_fn), ("write_prompt", eng._write_fn),
+        ("verify", eng._verify_fn),
+        ("draft_prefill", eng.spec._prefill_fn),
+        ("draft_decode", eng.spec._propose_fn))}
+    problems = []
+    try:
+        eng.check_invariants()
+    except AssertionError as e:
+        problems.append(f"invariants: {e}")
+    n_req = len(prompts)
+    proposes = calls["propose"]
+    want_flash = layers * (2 * n_req + (SPEC_K + 1) * proposes)
+    if (launches["flash_attn_fwd"] != want_flash
+            or launches["flash_attn_fwd_f32_sm90"] != want_flash
+            or launches["paged_decode"] != layers * calls["plain_decode"]):
+        problems.append(f"launches {launches}, want flash {want_flash}, "
+                        f"paged {layers} x {calls['plain_decode']}")
+    want_disp = {"dot_product_attention generic not_usable":
+                 layers * proposes}
+    got_disp = {k: dispatch.get(k, 0) for k in want_disp}
+    if not proposes or got_disp != want_disp:
+        problems.append(f"{proposes} proposes, dispatches {got_disp}")
+    want_ledger = {k: ["first_compile"] for k in (
+        "prefill", "write_prompt", "draft_prefill", "draft_decode",
+        "verify")}
+    if calls["plain_decode"]:
+        want_ledger["decode"] = ["first_compile"]
+    if ledger != want_ledger:
+        problems.append(f"serving ledger {ledger}")
+    if dev.type == "cuda" and any(u["captures"] != 1
+                                  for u in units.values()):
+        problems.append(f"captures {units}")
+    if any(r.finish_reason not in ("length", "eos") for r in results):
+        problems.append(f"finish reasons "
+                        f"{[r.finish_reason for r in results]}")
+    divergences = _divergences(model, prompts, [r.tokens for r in want],
+                               [r.tokens for r in results], problems,
+                               f"spec (draft scale {scale}) vs serve")
+    proposed = sum(r.spec_proposed_tokens for r in results)
+    accepted = sum(r.spec_accepted_tokens for r in results)
+    generated = sum(int(r.tokens.size) for r in results)
+    # the draft path against its references, after the counted run
+    if not snap:
+        problems.append(f"propose call {SPEC_CHECK_CALL} never came")
+        propose_check, draft_flash = None, None
+    else:
+        probs, propose_check = _propose_check(eng.spec, snap)
+        problems += probs
+        # step 0 of the call attends to keys j <= lens in every slot
+        ok, draft_flash = flash_draft_case(
+            dev, snap["kv"][0], snap["lens"].cpu().numpy() + 1)
+        if not ok:
+            problems.append(f"flash at the draft step: {draft_flash}")
+        del snap["kv"]
+    predicted, gaps, agree_n, n_pos = _draft_agreement(
+        draft, SPEC_K, prompts, results)
+    acc_by_req = [r.spec_accepted_tokens for r in results]
+    unexplained = [i for i, (a, b, g) in enumerate(
+        zip(acc_by_req, predicted, gaps)) if a != b and g > 2 * LOGIT_TOL]
+    if unexplained:
+        problems.append(f"accepted {acc_by_req} vs predicted {predicted}: "
+                        f"requests {unexplained} without a draft near tie")
+    timing = {}
+    if timed and dev.type == "cuda":
+        # after every check: replays rewrite K/V past the committed lengths
+        propose_ms = cuda_ms(eng.spec._propose_fn)
+        verify_ms = cuda_ms(eng._verify_fn)
+        ver = verify_attention_ms(dev, eng, cfg)
+        per_propose = layers * (SPEC_K + 1)
+        timing = {
+            "draft_decode_unit_ms": propose_ms, "verify_unit_ms": verify_ms,
+            "flash_tq1_path_ms": draft_flash["path_ms"],
+            "flash_tq1_kernel_ms": draft_flash["ms"],
+            "flash_tq1_layout_copies_ms": draft_flash["layout_copies_ms"],
+            "flash_tq1_path_ms_per_propose":
+                draft_flash["path_ms"] * per_propose,
+            "flash_tq1_path_share_of_propose":
+                draft_flash["path_ms"] * per_propose / propose_ms,
+            "flash_tq1_kernel_share_of_propose":
+                draft_flash["ms"] * per_propose / propose_ms,
+            "verify_attention_path_ms": ver["path_ms"],
+            "verify_generic_attention_ms": ver["attention_ms"],
+            "verify_layout_ms": ver["layout_ms"],
+            "verify_attention_path_share":
+                ver["path_ms"] * layers / verify_ms,
+            "verify_generic_attention_share":
+                ver["attention_ms"] * layers / verify_ms,
+            "verify_attention_shape": ver["shape"],
+            "timed": "CUDA events over 20 replays (units); 20 calls in a "
+                     "CUDA graph x 5 replays (attention, one layer, on the "
+                     "run's caches)"}
+    line = {"draft": f"perturbed_draft(scale={scale}, seed=1)",
+            "calls": calls, "proposed_tokens": proposed,
+            "accepted_tokens": accepted,
+            "accept_ratio": accepted / proposed if proposed else None,
+            "accepted_by_request": acc_by_req,
+            "predicted_accepted_by_request": predicted,
+            "draft_agrees_at": [agree_n, n_pos],
+            "draft_min_top2_gap_by_request": gaps,
+            "propose_check": propose_check, "draft_flash": draft_flash,
+            "generated_tokens": generated, "wall_s": wall,
+            "tokens_per_s": generated / wall, "launches": launches,
+            "dispatch": dispatch, "serving_ledger": ledger,
+            "graph_units": units,
+            "tokens_equal_serve": sum(list(a.tokens) == list(b.tokens)
+                                      for a, b in zip(want, results)),
+            "divergences": divergences, **timing, "problems": problems}
+    return problems, line, launches
+
+
+def serve_spec_phase(dev, smi, model, engine_kw, prompts, want, serve_line):
+    """Speculative decoding at GPT-2-small width: the serve phase's
+    engine configuration and requests with ``spec_k`` ``SPEC_K``, once a
+    draft scale of ``SPEC_DRAFT_SCALES`` (``_spec_run``). Checks in each
+    run the committed streams against the serve phase's greedy streams
+    ``want`` (ties explained), the flash launches (``layers`` x (target
+    and draft prefills + (K+1) x proposes): every draft step runs flash at
+    one query a slot), the paged launches (plain decode steps only), the
+    generic attention of each verify, one ``first_compile`` a unit and no
+    ``new_shape``, and the invariants; each run also holds one captured
+    propose against the generic draft steps, the flash forward against its
+    plain version on that propose's draft cache, and the accepted counts
+    against the committed streams' prediction (``_spec_run``). The second
+    draft must have some of its proposals accepted and some rejected. The
+    first run times the propose and verify units, and one layer's
+    attention inside each as the path calls it (layout copies included)
+    and alone. Returns (problems, line, launches of both runs)."""
+    problems, runs, total = [], [], {}
+    for i, scale in enumerate(SPEC_DRAFT_SCALES):
+        probs, run, launches = _spec_run(dev, model, engine_kw, prompts,
+                                         want, scale, timed=i == 0)
+        problems += probs
+        runs.append(run)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    mixed = runs[-1]
+    if not 0 < mixed["accepted_tokens"] < mixed["proposed_tokens"]:
+        problems.append(f"draft {mixed['draft']}: {mixed['accepted_tokens']}"
+                        f" of {mixed['proposed_tokens']} accepted")
+    line = {"phase": "serve_spec", "card": smi, "model": "GptConfig.base()",
+            "dtype": "float32", "spec_k": SPEC_K, "requests": len(prompts),
+            "max_new_tokens": 32, "runs": runs,
+            "tokens_per_s_spec_off": serve_line["tokens_per_s"],
+            "tokens_per_s_reading": "spec off is the serve phase's captured "
+                                    "run in this call; each run includes "
+                                    "its units' captures; one run each, no "
+                                    "spread",
+            "problems": problems}
+    return problems, line, total
+
+
+def serve_cluster_phase(dev, smi, model, traffic):
+    """``ClusterRouter`` over two engines of the serve_prefix
+    configuration behind ``SLOFrontend`` (interactive and standard pin a
+    system prompt each on both engines; batch's token bucket holds
+    ``CLUSTER_BATCH[1]``). Engine 0's loop runs alone until
+    ``engine_death`` fires in it (after ``CLUSTER_DEATH_AT`` iterations);
+    then engine 1 starts. Every retryable request must complete on engine
+    1 with the serve_prefix reference tokens (ties explained), the batch
+    arrivals past the bucket shed by count, and the survivor record no
+    ``new_shape``. Returns (problems, line, launches)."""
+    from deeplearning4j_tpu_torch import faults, observe
+    from deeplearning4j_tpu_torch.faults import InjectedFault
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.serving import (
+        ClusterRouter, GenerativeEngine, LadderThresholds, SLOFrontend,
+        default_classes)
+
+    systems, prompts, want = traffic
+    faults.reset()
+    observe.reset()
+    engines = [GenerativeEngine(model, **PREFIX_KW, **PREFIX_CACHE_KW,
+                                device=dev, engine_id=i) for i in range(2)]
+    for e in engines:  # capture every unit before the frontend reads
+        e.generate([prompts[0]], max_new_tokens=2, eos_token=-1)
+    router = ClusterRouter(engines)
+    e0, e1 = engines
+    classes = default_classes()
+    classes["interactive"].shared_prefix = systems[0]
+    classes["standard"].shared_prefix = systems[1]
+    classes["batch"].rate = 1e-3            # no refill inside the run
+    classes["batch"].burst = CLUSTER_BATCH[1]
+    # a ladder that stays "ok": the phase checks migration and the token
+    # bucket, and a degraded answer would not be the reference's
+    fe = SLOFrontend(router, classes=classes, thresholds=LadderThresholds(
+        degraded_queue=1000, shedding_queue=2000, degraded_p99_s=60.0,
+        shedding_p99_s=120.0))
+    plan = [("interactive" if i % 4 == 0 else "standard", i)
+            for i in range(len(prompts))]
+    plan += [("batch", i) for i in range(CLUSTER_BATCH[0])]
+    new_shape0 = sum(c == "new_shape" for cs in _serving_ledger(
+        observe).values() for c in cs)
+    faults.arm("engine_death", prob=1.0, after_n=CLUSTER_DEATH_AT,
+               max_fires=1)
+    counts0 = _cluster_counts(observe)
+    ca.reset_launch_counts()              # the main path's run starts here
+    t0 = time.perf_counter()
+    e0.start()
+    try:
+        futs = [fe.submit(prompts[i], slo_class=cls,
+                          max_new_tokens=PREFIX_NEW_TOKENS, eos_token=-1,
+                          max_retries=2) for cls, i in plan]
+        limit = time.perf_counter() + 300
+        while e0._error is None and time.perf_counter() < limit:
+            time.sleep(1e-3)
+        death_s = time.perf_counter() - t0
+        e1.start()
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = ca.launch_counts()     # ... and ends here
+        counts = {k: n - counts0[k]
+                  for k, n in _cluster_counts(observe).items()}
+        live = router.live_engines()
+    finally:
+        faults.reset()
+        router.stop()
+    m = observe.metrics()
+    routed = {}
+    for inst in m.instruments():
+        if inst.name == "dl4j_tpu_cluster_routed_total" and inst.value:
+            lab = dict(inst.labels)
+            routed[f"{lab['engine']} {lab['reason']}"] = int(inst.value)
+    sheds = {}
+    for inst in m.instruments():
+        if inst.name == "dl4j_tpu_slo_shed_total" and inst.value:
+            lab = dict(inst.labels)
+            sheds[f"{lab['class']} {lab['reason']}"] = int(inst.value)
+    ledger = _serving_ledger(observe)
+    new_shape = sum(c == "new_shape" for cs in ledger.values()
+                    for c in cs) - new_shape0
+    problems = []
+    try:
+        router.check_invariants()
+    except AssertionError as e:
+        problems.append(f"invariants: {e}")
+    if not isinstance(e0._error, InjectedFault) or live != [e1]:
+        problems.append(f"engine 0 error {e0._error!r}, live "
+                        f"{[e.engine_id for e in live]}")
+    to_e0 = sum(n for k, n in routed.items() if k.startswith("0 "))
+    if router.deaths != 1 or not to_e0 or router.migrations != to_e0:
+        problems.append(f"deaths {router.deaths}, migrations "
+                        f"{router.migrations}, routed {routed}")
+    n_shed = CLUSTER_BATCH[0] - CLUSTER_BATCH[1]
+    if sheds != {"batch rate_limit": n_shed}:
+        problems.append(f"sheds {sheds}, want batch rate_limit {n_shed}")
+    served = [(i, r) for (cls, i), r in zip(plan, results)
+              if r.finish_reason != "shed"]
+    if (len(served) != len(plan) - n_shed
+            or any(r.finish_reason != "length" for _, r in served)):
+        problems.append(f"finish reasons "
+                        f"{[r.finish_reason for r in results]}")
+    divergences = _divergences(
+        model, [prompts[i] for i, _ in served], [want[i] for i, _ in served],
+        [r.tokens for _, r in served], problems, "cluster vs reference")
+    if new_shape:
+        problems.append(f"{new_shape} new_shape events: {ledger}")
+    # in the run's own counts: every admission without a hit is a full
+    # (flash) prefill, every hit a suffix prefill (generic attention),
+    # every decode step a paged launch a layer
+    layers = model.cfg.layers
+    full = counts["lookups"] - counts["hits"]
+    want_counts = {"flash_attn_fwd": layers * full,
+            "flash_attn_fwd_f32_sm90": layers * full,
+            "paged_decode": layers * counts["decode_steps"],
+            "generic not_usable": layers * counts["hits"]}
+    got = {k: launches[k] for k in want_counts if k in launches}
+    got["generic not_usable"] = counts["generic not_usable"]
+    if got != want_counts or not (full and counts["hits"]
+                           and counts["decode_steps"]):
+        problems.append(f"launches and dispatches {got}, want {want_counts} "
+                        f"({counts})")
+    line = {"phase": "serve_cluster", "card": smi,
+            "model": "GptConfig.base()", "dtype": "float32", "engines": 2,
+            "engine": dict(PREFIX_KW, **PREFIX_CACHE_KW),
+            "plan": {c: sum(p[0] == c for p in plan) for c in (
+                "interactive", "standard", "batch")},
+            "engine_death_after": CLUSTER_DEATH_AT,
+            "death_s": death_s, "wall_s": wall, "routed": routed,
+            "deaths": router.deaths, "migrations": router.migrations,
+            "sheds": sheds, "frontend_state": fe.state,
+            "tokens_equal_reference": sum(
+                list(r.tokens) == list(want[i]) for i, r in served),
+            "served": len(served), "divergences": divergences,
+            "launches": launches, "run_counts": counts,
+            "new_shape": new_shape, "problems": problems}
+    return problems, line, launches
+
+
+def _cluster_counts(observe) -> dict:
+    """The process-wide serving counts serve_cluster reads before and
+    after its run: admissions (prefix lookups), prefix hits, decode steps
+    and the generic attention dispatches a shape refused."""
+    m = observe.metrics()
+    return {"lookups": int(m.counter("dl4j_tpu_prefix_lookups_total").value),
+            "hits": int(m.counter("dl4j_tpu_prefix_hits_total").value),
+            "decode_steps": m.histogram(
+                "dl4j_tpu_serving_decode_step_seconds").count,
+            "generic not_usable": dispatch_tally().get(
+                "dot_product_attention generic not_usable", 0)}
 
 
 def lenet_bf16_phase(dev, smi):
@@ -5700,6 +6544,10 @@ def main() -> int:
         entries.append(entry)
         if not ok:
             failed.append(f"{entry['kernel']}[{entry['dtype']}]")
+    ok, entry = flash_draft_case(dev)
+    entries.append(entry)
+    if not ok:
+        failed.append(f"{entry['kernel']}[draft decode step]")
     for dtype in (torch.float32, torch.bfloat16):
         ok, paged_entries = paged_case(dtype, dev)
         entries += paged_entries
@@ -5798,10 +6646,7 @@ def main() -> int:
     # the same engine, op by op
     with disable_capture():
         eager_results, eager_wall = serve(eng, prompts)
-    serving_ledger = {}
-    for ev in observe.ledger().events():
-        if ev.graph == "serving":
-            serving_ledger.setdefault(ev.key, []).append(ev.cause)
+    serving_ledger = _serving_ledger(observe)
     step_equal, step_diff, step_p50 = decode_step_case(
         GenerativeEngine(model, **engine_kw), prompts)
     units = {name: unit_memory(u) for name, u in (
@@ -5895,6 +6740,25 @@ def main() -> int:
     emit(faults_line)
     if problems:
         raise SystemExit(f"serve_supervised phase failed: {problems}")
+
+    # -------------------------------- serve_prefix, serve_spec, serve_cluster
+    serving_launches = {}
+    problems, line, serving_launches["serve_prefix"], traffic = (
+        serve_prefix_phase(dev, smi, model))
+    emit(line)
+    if problems:
+        raise SystemExit(f"serve_prefix phase failed: {problems}")
+    serve_line = {"tokens_per_s": generated / wall}
+    problems, line, serving_launches["serve_spec"] = serve_spec_phase(
+        dev, smi, model, engine_kw, prompts, results, serve_line)
+    emit(line)
+    if problems:
+        raise SystemExit(f"serve_spec phase failed: {problems}")
+    problems, line, serving_launches["serve_cluster"] = serve_cluster_phase(
+        dev, smi, model, traffic)
+    emit(line)
+    if problems:
+        raise SystemExit(f"serve_cluster phase failed: {problems}")
 
     # ------------------------------------------------------ train, train_fused
     train_launches = {}
@@ -6026,7 +6890,7 @@ def main() -> int:
         "matmul_int8_row_quantize")}
     for path, counts in dict(serve=launches,
                              serve_supervised=supervised_launches,
-                             **train_launches).items():
+                             **serving_launches, **train_launches).items():
         counts = dict(counts)
         for both in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
                      "fused_matmul_bias_act", "bn_matmul_stats",
@@ -6092,6 +6956,8 @@ def main() -> int:
                                                        "activation",
                                                        "design", "causal",
                                                        "context",
+                                                       "path_ms",
+                                                       "layout_copies_ms",
                                                        "library_chain_ms")
                                      if x in r})
                              for r in rows[1:]]})

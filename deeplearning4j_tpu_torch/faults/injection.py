@@ -57,13 +57,14 @@ FAULTS_ENV = "DL4J_TPU_FAULTS"
 #:   checkpoint_torn_write parallel/checkpoint.py save      -> truncate file
 #:   backend_init_fail     (the JAX package's ParallelInference; no port
 #:                         call site yet)
-#:   burst_arrival         (the JAX package's SLO frontend; no port call
-#:                         site yet)
+#:   burst_arrival         serving/frontend.py submit       -> inject a
+#:                         burst of lowest-class arrivals
 #:   preemption            the fit loops (MultiLayerNetwork,
 #:                         ComputationGraph, SameDiff), once a batch
 #:                                                          -> raise
 #:   engine_death          serving/engine.py _serve_loop    -> raise with
 #:                         the restart budget spent: an unrestartable kill
+#:                         (a ClusterRouter migrates the engine's requests)
 FAULT_POINTS = (
     "page_oom",
     "decode_step_error",

@@ -11,6 +11,17 @@ embeddings, and the execution split the serving engine needs:
   cache through the registry's ``paged_decode_attention`` (the CUDA paged
   kernel on the card). The cache is updated IN PLACE, where the JAX
   function returns a functionally updated (donated) array.
+* :func:`gpt_prefill_suffix` — the radix prefix cache's fast path: only
+  the prompt's uncached tail, against the cached prefix K/V.
+* :func:`gpt_verify` — the speculative-decoding target pass: ``K + 1`` fed
+  tokens per slot in one forward against the paged cache, greedy argmax
+  out.
+
+Both of the last two attend under a dense ``(N, 1, B, Tk)`` mask, which
+the flash gate refuses by shape as the JAX gate does: the registry's
+generic ``dot_product_attention`` computes them on the card, as plain XLA
+does in the JAX package. :func:`draft_config_for` builds the paired draft
+configuration (``models.GPT(preset).init_draft()``).
 
 Parameters are a nested dict of tensors with the JAX pytree's structure
 (``{"embeddings": {...}, "blocks": [{"attn": {...}, "ffn": {...}}]}``), so
@@ -74,6 +85,19 @@ class GptConfig:
         d = json.loads(s)
         d.pop("@type", None)
         return GptConfig(**d)
+
+
+def draft_config_for(cfg: GptConfig, **overrides) -> GptConfig:
+    """The paired DRAFT config for speculative decoding against ``cfg``:
+    GPT-tiny transformer dims, with vocab_size, eos_token and max_position
+    copied from the target (draft proposals are target token ids at target
+    positions; the engine checks them again). ``overrides`` change the
+    draft dims."""
+    d = dict(vocab_size=cfg.vocab_size, max_position=cfg.max_position,
+             eos_token=cfg.eos_token, hidden=64, layers=2, heads=4,
+             intermediate=128)
+    d.update(overrides)
+    return GptConfig(**d)
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +213,126 @@ def gpt_prefill(params, ids, cfg: GptConfig, *, mask=None
         x = _ffn(blk, x, cfg.layer_norm_eps)
     logits = x @ emb["word"].T
     return logits, torch.stack(kvs)
+
+
+def gpt_prefill_suffix(params, ids, prefix_kv, prefix_len, suffix_len,
+                       cfg: GptConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Suffix-only prefill against a cached prefix (the radix prefix
+    cache's fast path).
+
+    ids: (1, B) integer — the prompt's uncached tail, zero-padded to the
+    engine's suffix bucket; prefix_kv: (L, 2, Tpre, H, Dh) — the cached
+    prefix K/V gathered from the paged cache (positions >= ``prefix_len``
+    are garbage and masked); prefix_len/suffix_len: 0-d integer tensors
+    on the parameters' device (no host read: the engine captures this).
+    Suffix token i sits at absolute position ``prefix_len + i`` and attends
+    to every valid prefix position and suffix positions <= i. Returns
+    ``(logits (1, B, V), kv (L, 2, B, H, Dh))``, the suffix K/V token-major
+    for the cache scatter."""
+    from deeplearning4j_tpu_torch.ops import exec_op
+
+    emb = params["embeddings"]
+    n, b = ids.shape
+    t_pre = prefix_kv.shape[2]
+    dev = ids.device
+    h, dh = cfg.heads, cfg.hidden // cfg.heads
+    ar = torch.arange(b, device=dev)
+    pos = (prefix_len + ar).long().clamp(0, cfg.max_position - 1)
+    x = emb["word"][ids.long()] + emb["position"][pos][None]
+    x = _layer_norm(x, emb["ln_gamma"], emb["ln_beta"], cfg.layer_norm_eps)
+
+    def split(a):  # (1, B, E) -> (1, H, B, Dh)
+        return a.reshape(n, b, h, dh).permute(0, 2, 1, 3)
+
+    # (1, 1, B, Tpre + B): query i -> prefix j < prefix_len, then suffix
+    # j' <= i (causal) and j' < suffix_len (padding)
+    m_pre = (torch.arange(t_pre, device=dev) < prefix_len)[None, :].expand(
+        b, t_pre)
+    m_suf = (ar[None, :] <= ar[:, None]) & (ar[None, :] < suffix_len)
+    m4 = torch.cat([m_pre, m_suf], dim=1)[None, None]
+    kvs = []
+    for li, blk in enumerate(params["blocks"]):
+        a = blk["attn"]
+        q = split(x @ a["Wq"] + a["bq"])
+        k = split(x @ a["Wk"] + a["bk"])
+        v = split(x @ a["Wv"] + a["bv"])
+        kvs.append(torch.stack([k.permute(0, 2, 1, 3)[0],
+                                v.permute(0, 2, 1, 3)[0]]))  # (2, B, H, Dh)
+        kp = prefix_kv[li, 0].permute(1, 0, 2)[None].to(k.dtype)
+        vp = prefix_kv[li, 1].permute(1, 0, 2)[None].to(v.dtype)
+        out = exec_op("dot_product_attention", q, torch.cat([kp, k], dim=2),
+                      torch.cat([vp, v], dim=2), m4, scaled=True)
+        out = out.permute(0, 2, 1, 3).reshape(n, b, cfg.hidden)
+        x = _layer_norm(x + out @ a["Wo"] + a["bo"],
+                        a["ln_gamma"], a["ln_beta"], cfg.layer_norm_eps)
+        x = _ffn(blk, x, cfg.layer_norm_eps)
+    logits = x @ emb["word"].T
+    return logits, torch.stack(kvs)
+
+
+def gpt_verify(params, kv_pages, tokens, seq_lens, page_table, write_pages,
+               write_offsets, cfg: GptConfig, *, page_size: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative-decoding verification: score ``B = K + 1`` fed tokens
+    per slot in ONE causal forward against the paged KV cache.
+
+    kv_pages: (L, 2, P, page, H, Dh) — written IN PLACE; tokens: (S, B) —
+    per slot, the last committed token then the draft's K proposals;
+    seq_lens: (S,) tokens already cached (the fed run sits at absolute
+    positions ``seq_lens + i``); page_table: (S, max_pages);
+    write_pages/write_offsets: (S, B), where each fed token's K/V lands
+    (the engine points inactive slots at its trash page). Fed token ``i``
+    attends to every cached position ``< seq_lens`` and fed positions
+    ``<= i``. Returns ``(kv_pages, greedy (S, B) int32)``: the target's
+    argmax at every fed position, which is all greedy acceptance needs.
+    The K/V of every fed token is written; positions past the accepted
+    prefix become garbage beyond the engine's rewound ``seq_lens``."""
+    from deeplearning4j_tpu_torch.ops import exec_op
+
+    emb = params["embeddings"]
+    s_n, b = tokens.shape
+    dev = tokens.device
+    t_v = page_table.shape[1] * page_size
+    h, dh = cfg.heads, cfg.hidden // cfg.heads
+    ar = torch.arange(b, device=dev)
+    pos = (seq_lens.long()[:, None] + ar[None, :]).clamp(
+        0, cfg.max_position - 1)
+    x = emb["word"][tokens.long()] + emb["position"][pos]
+    x = _layer_norm(x, emb["ln_gamma"], emb["ln_beta"], cfg.layer_norm_eps)
+
+    def split(a):  # (S, B, E) -> (S, H, B, Dh)
+        return a.reshape(s_n, b, h, dh).permute(0, 2, 1, 3)
+
+    # (S, 1, B, Tv + B): query i -> cached j < seq_lens, then fed j' <= i.
+    # The fed tokens also land in the gathered page range at positions >=
+    # seq_lens, which the cached-side mask excludes: their fresh K/V
+    # enters through the concatenation instead.
+    tpos = torch.arange(t_v, device=dev)
+    m_ctx = (tpos[None, None, :] < seq_lens[:, None, None]).expand(
+        s_n, b, t_v)
+    m_fed = (ar[None, :] <= ar[:, None])[None].expand(s_n, b, b)
+    m4 = torch.cat([m_ctx, m_fed], dim=2)[:, None]
+    gpage = page_table.long()[:, tpos // page_size]      # (S, Tv)
+    goff = tpos % page_size
+    wp, wo = write_pages.long(), write_offsets.long()
+    for li, blk in enumerate(params["blocks"]):
+        a = blk["attn"]
+        q = split(x @ a["Wq"] + a["bq"])
+        k = split(x @ a["Wk"] + a["bk"])
+        v = split(x @ a["Wv"] + a["bv"])
+        # scatter the fed K/V token-major; trash-page duplicates are benign
+        kv_pages[li, 0, wp, wo] = k.permute(0, 2, 1, 3).to(kv_pages.dtype)
+        kv_pages[li, 1, wp, wo] = v.permute(0, 2, 1, 3).to(kv_pages.dtype)
+        kc = kv_pages[li, 0][gpage, goff].permute(0, 2, 1, 3).to(k.dtype)
+        vc = kv_pages[li, 1][gpage, goff].permute(0, 2, 1, 3).to(v.dtype)
+        out = exec_op("dot_product_attention", q, torch.cat([kc, k], dim=2),
+                      torch.cat([vc, v], dim=2), m4, scaled=True)
+        out = out.permute(0, 2, 1, 3).reshape(s_n, b, cfg.hidden)
+        x = _layer_norm(x + out @ a["Wo"] + a["bo"],
+                        a["ln_gamma"], a["ln_beta"], cfg.layer_norm_eps)
+        x = _ffn(blk, x, cfg.layer_norm_eps)
+    logits = x @ emb["word"].T
+    return kv_pages, torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def gpt_decode_step(params, kv_pages, tokens, positions, page_table,

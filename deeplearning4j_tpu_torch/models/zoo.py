@@ -21,7 +21,7 @@ JAX package.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from deeplearning4j_tpu_torch.models._tree import params_from_numpy
 from deeplearning4j_tpu_torch.nn import conf as C
@@ -414,9 +414,9 @@ class UNet(ZooModel):
 class GPT(ZooModel):
     """The zoo entry of the decoder-only transformer
     (:mod:`~deeplearning4j_tpu_torch.models.gpt`): ``init()`` returns a
-    ``GptModel`` for ``serving.GenerativeEngine``. ``init_draft`` (the
-    speculative-decoding draft) waits for speculative decoding (ROADMAP
-    Queue 1 item 8)."""
+    ``GptModel`` for ``serving.GenerativeEngine``; ``init_draft()`` the
+    paired speculative-decoding draft (``GenerativeEngine(model, spec_k=K,
+    draft_model=...)``)."""
 
     def __init__(self, preset: str = "tiny", seed: int = 0, device=None,
                  **overrides):
@@ -439,6 +439,23 @@ class GPT(ZooModel):
             params = params_from_numpy(params, self.device)
         return GptModel(self.cfg, seed=self.seed, params=params,
                         device=self.device)
+
+    def init_draft(self, seed: Optional[int] = None, params=None,
+                   **overrides):
+        """The paired DRAFT model for speculative decoding against this
+        target: GPT-tiny dims sharing the target's vocab, eos and
+        max_position (:func:`~deeplearning4j_tpu_torch.models.gpt.
+        draft_config_for`). Weights are drawn from ``seed`` (default the
+        zoo entry's), or ``params`` (a trained draft's tree, as numpy or
+        tensors) are copied to the device."""
+        from deeplearning4j_tpu_torch.models.gpt import (
+            GptModel, draft_config_for)
+
+        if params is not None:
+            params = params_from_numpy(params, self.device)
+        return GptModel(draft_config_for(self.cfg, **overrides),
+                        seed=self.seed if seed is None else seed,
+                        params=params, device=self.device)
 
 
 class SqueezeNet(_Classifier):

@@ -79,6 +79,11 @@ class PagedKVCache:
     def free_pages(self) -> int:
         return len(self.free)
 
+    def used_pages(self) -> int:
+        """Page references the slots hold (a page shared by two slots
+        counts twice)."""
+        return sum(len(o) for o in self.owned)
+
     def max_context(self) -> int:
         """Longest sequence one slot can hold."""
         return self.max_pages_per_seq * self.page_size

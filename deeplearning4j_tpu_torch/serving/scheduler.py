@@ -27,9 +27,10 @@ import numpy as np
 
 from deeplearning4j_tpu_torch import observe
 
-# Terminal states, the JAX package's taxonomy. "shed" = the bounded queue
-# rejected the request; "deadline" = its per-request deadline expired;
-# "error" = the engine loop failed under it.
+# Terminal states, the JAX package's taxonomy. "shed" = an admission gate
+# (the engine's bounded queue or the SLO frontend) rejected the request;
+# "deadline" = its per-request deadline expired; "error" = the engine loop
+# failed under it, or the frontend's circuit breaker fast-failed it.
 FINISH_REASONS = ("eos", "length", "overflow", "oom", "stopped",
                   "shed", "deadline", "error")
 
@@ -57,6 +58,13 @@ class GenerationRequest:
     max_retries: int = 1             # crash re-admissions before "error"
     retries_used: int = 0            # supervisor bookkeeping, not user-set
     priority: int = 1                # 0 = most important; ties FIFO
+    # the SLO frontend's fields (serving/frontend.py): the admission class,
+    # whether the degradation ladder trimmed the request, and whether its
+    # ``disable_spec`` knob turned speculative decoding off for it. Both
+    # flags ride into the GenerationResult.
+    slo_class: str = "standard"
+    degraded: bool = False
+    spec_disabled: bool = False
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -89,6 +97,15 @@ class GenerationResult:
     prompt_len: int
     ttft_s: Optional[float]          # submit -> first token (perf_counter)
     intertoken_s: List[float]        # successive decode-token gaps
+    slo_class: str = "standard"      # the request's admission class
+    degraded: bool = False           # True: the ladder trimmed this answer
+    prefix_hit_tokens: int = 0       # prompt tokens served from the radix
+    #                                  prefix cache (0 = full prefill)
+    # speculative decoding: draft tokens proposed / committed for this
+    # request, and whether the frontend turned speculation off for it
+    spec_proposed_tokens: int = 0
+    spec_accepted_tokens: int = 0
+    spec_disabled: bool = False
 
 
 @dataclasses.dataclass
@@ -101,12 +118,16 @@ class _Slot:
     ttft_s: Optional[float] = None
     intertoken_s: List[float] = dataclasses.field(default_factory=list)
     last_token_t: Optional[float] = None
+    prefix_hit_tokens: int = 0
+    spec_proposed_tokens: int = 0
+    spec_accepted_tokens: int = 0
 
 
 class SlotScheduler:
     """Pending queue + slot bank. Thread-safe for one engine loop plus
-    submitting client threads: every structural mutation of ``pending``
-    holds ``_plock``."""
+    submitting client threads and the SLO frontend: every structural
+    mutation of ``pending`` (append, best-pending removal, the frontend's
+    victim steal, drain) holds ``_plock``."""
 
     def __init__(self, max_slots: int):
         self.max_slots = int(max_slots)
@@ -134,6 +155,11 @@ class SlotScheduler:
     def occupancy(self) -> float:
         return len(self.slots) / self.max_slots if self.max_slots else 0.0
 
+    def pending_snapshot(self) -> List[tuple]:
+        """A consistent copy of the pending queue (frontend accounting)."""
+        with self._plock:
+            return list(self.pending)
+
     # --------------------------------------------------- priority admission
     def peek_best_pending(self) -> Optional[tuple]:
         """The pending item to admit NEXT: lowest ``priority`` first, then
@@ -156,14 +182,34 @@ class SlotScheduler:
                     return True
         return False
 
+    def steal_lowest_pending(self, than_priority: int) -> Optional[tuple]:
+        """Remove and return the WORST queued item strictly lower-priority
+        than ``than_priority`` (highest priority number; the latest submit
+        breaks ties). None when nothing lower-priority is queued: the
+        shed-lowest-first arm of the SLO frontend's queue bound."""
+        with self._plock:
+            worst, worst_key, worst_i = None, None, -1
+            for i, item in enumerate(self.pending):
+                if item[0].priority <= than_priority:
+                    continue
+                key = (item[0].priority, item[2], i)
+                if worst_key is None or key > worst_key:
+                    worst_key, worst, worst_i = key, item, i
+            if worst is not None:
+                del self.pending[worst_i]
+            return worst
+
     # ------------------------------------------------------------- lifecycle
     def admit(self, slot: int, request: GenerationRequest,
               future: "Future[GenerationResult]", submit_t: float,
-              first_token: int, now: float) -> None:
+              first_token: int, now: float,
+              prefix_hit_tokens: int = 0) -> None:
         """Install a prefilled request into ``slot`` with its first sampled
-        token (TTFT is measured here)."""
+        token (TTFT is measured here). ``prefix_hit_tokens``: how much of
+        the prompt the radix prefix cache served."""
         st = _Slot(request=request, future=future, submit_t=submit_t,
-                   prompt_len=int(request.prompt.size))
+                   prompt_len=int(request.prompt.size),
+                   prefix_hit_tokens=int(prefix_hit_tokens))
         st.tokens.append(int(first_token))
         st.ttft_s = now - submit_t
         st.last_token_t = now
@@ -175,6 +221,26 @@ class SlotScheduler:
         if st.last_token_t is not None:
             st.intertoken_s.append(now - st.last_token_t)
         st.last_token_t = now
+
+    def on_spec_tokens(self, slot: int, tokens: List[int], now: float,
+                       proposed: int, accepted: int) -> Optional[float]:
+        """Commit a verify pass's tokens for ``slot`` (possibly several a
+        step). Inter-token latency is accounted per committed token: the
+        step gap divided by the tokens it committed. Returns that gap (None
+        on the first tokens after admission) for the engine's
+        histograms."""
+        st = self.slots[slot]
+        m = max(1, len(tokens))
+        gap = (None if st.last_token_t is None
+               else (now - st.last_token_t) / m)
+        for t in tokens:
+            st.tokens.append(int(t))
+            if gap is not None:
+                st.intertoken_s.append(gap)
+        st.last_token_t = now
+        st.spec_proposed_tokens += int(proposed)
+        st.spec_accepted_tokens += int(accepted)
+        return gap
 
     def should_finish(self, slot: int) -> Optional[str]:
         """``"eos"``/``"length"`` when the slot's sequence is complete."""
@@ -197,7 +263,12 @@ class SlotScheduler:
         result = GenerationResult(
             tokens=np.asarray(toks, np.int32), finish_reason=reason,
             prompt_len=st.prompt_len, ttft_s=st.ttft_s,
-            intertoken_s=list(st.intertoken_s))
+            intertoken_s=list(st.intertoken_s),
+            slo_class=st.request.slo_class, degraded=st.request.degraded,
+            prefix_hit_tokens=st.prefix_hit_tokens,
+            spec_proposed_tokens=st.spec_proposed_tokens,
+            spec_accepted_tokens=st.spec_accepted_tokens,
+            spec_disabled=st.request.spec_disabled)
         if not st.future.done():
             st.future.set_result(result)
         return result
