@@ -75,6 +75,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    CUDA graph between CUDA events, so no host work sits between launches)
    and the least time the card could take (``bound_ms``); the updater's
    beside ``torch._fused_sgd_`` (Nesterov) and ``torch._fused_adam_``.
+3a. ``tuning`` — measured dispatch (``ops/tuning.py``): ``autotune(
+   smoke=True)`` on the card into a temporary cache directory (every op's
+   entries written, the table loaded back and live), then the standing
+   tables restored; prints the device kind, the checked-in tables that
+   stand (``default.json`` and the card kind's own, written by a full
+   ``autotune()`` on such a card) and their crossovers. The later phases
+   dispatch by them.
 4. ``serve``   — GPT at GPT-2-small width (GptConfig.base(), float32,
    random weights from a numpy seed) served by the port's
    GenerativeEngine through start()/submit()/stop(): once with
@@ -304,6 +311,19 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    ``exec``. Reports the p50 forward time (captured and eager) and
    tokens/s over 5 forwards after 2 warm ones, peak memory, the graph
    pool's memory and node counts beside onnx_bert's.
+11a. ``onnx_bert_autocast`` — onnx_bert's bytes through the optimizer's
+   autocast pass (``passes=PASS_ORDER + ("autocast",)``: every dense
+   MatMul's x and w cast to bfloat16, its result back to float32),
+   ``sd.save`` to a zip, ``SameDiff.load`` on the card, ``sd.output``.
+   One counted forward must launch the 16-bit sm90 fused matmul 72 times
+   and the float32 flash forward 12 times and nothing else, as many as
+   the gates sent to the kernels (the dispatch tally of that forward);
+   the loaded graph's output equals the in-memory graph's; the last
+   hidden state is held against ``helper_mode="generic"`` (relative
+   error 2^-5) and against onnx_bert's float32 forward (the int8 gross
+   bound); captured equals eager bit for bit with one ``first_compile``.
+   Reports tokens/s (forward p50 over 5) beside onnx_bert's float32
+   figure, the busy share of 2 profiled forwards and peak memory.
 12. ``lenet`` — the sequential network: ``LeNet().init()`` at its zoo
    defaults (28×28×1, 10 classes, Adam 1e-3, seed 123; 431,080
    parameters) → ``fit`` on batches of 64 synthetic digits, 3 steps
@@ -422,6 +442,11 @@ reference runs (generic, plain flash, the one-ulp yardsticks) run op by
 op. ``bilstm_tagger`` feeds masks to an LSTM: its steps are routed to
 eager by rule, and the phase prints their count.
 
+Every phase's line carries ``observe.dispatch_summary()``: the
+registry's kernel-or-generic decisions since the phase's last
+``observe.reset()``, with their reasons (``crossover`` where a measured
+crossover sent a call to the generic).
+
 Then the kernel summary line, the card's name and power limit as
 nvidia-smi prints them, and the result line. Without a GPU (or without the
 package beside this script) it exits non-zero and prints no result.
@@ -435,6 +460,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -592,6 +618,19 @@ INT8_MM_SHAPES = [(4096, 768, 768), (4096, 768, 3072), (4096, 3072, 768),
 INT8_BERT_YARDSTICK = 3.0
 INT8_GROSS_REL_ERR = 0.1
 INT8_BERT_TIMED = 5
+# onnx_bert_autocast: onnx_bert's graph with the optimizer's autocast pass
+# (every dense MatMul's x and w cast to bfloat16, its result back to
+# float32), saved to a zip and loaded back. The sm90 kernel rounds
+# act(acc + b) to bfloat16 once, the generic rounds acc to bfloat16 and
+# adds the float32 bias after: a node's result differs by at most one
+# bfloat16 unit (2^-7 of its magnitude, the kernel check's
+# cuda_matmul.kernel_tolerance); over 12 layers the last hidden state
+# differs from helper_mode="generic"'s by a relative error (norm-wise)
+# below 2^-5, and from onnx_bert's float32 forward by less than the int8
+# gross-fault bound
+AUTOCAST_GENERIC_REL_ERR = 2.0 ** -5
+AUTOCAST_GROSS_REL_ERR = INT8_GROSS_REL_ERR
+AUTOCAST_TIMED = 5
 # keras_bert: the imported Keras encoder's forward at the tf_bert shape,
 # against helper_mode="generic" within this many times the generic
 # forward's own change when every weight moves by one unit in the last
@@ -690,6 +729,13 @@ CLUSTER_BATCH = (4, 2)        # batch arrivals, bucket size
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the registry's dispatch
+    decisions since the last ``observe.reset()``
+    (``observe.dispatch_summary()``)."""
+    if "phase" in obj and "dispatch_summary" not in obj:
+        from deeplearning4j_tpu_torch import observe
+
+        obj = dict(obj, dispatch_summary=observe.dispatch_summary())
     print(json.dumps(obj), flush=True)
 
 
@@ -1868,12 +1914,14 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     observe.reset()
     run("auto", ATTN_DROPOUT, steps=1)   # warm-up: cuBLAS, the capture
     run("generic", 0.0, steps=1)
+    disp0 = dispatch_tally()
     ca.reset_launch_counts()
     cu.fused_updater.launches = cu.fused_updater.leaves = 0  # starts here
     kernel_run = run("auto", ATTN_DROPOUT)
     kernel, k_times, k_params, _ = kernel_run
     launches = dict(ca.launch_counts(),
                     fused_updater=cu.fused_updater.launches)  # ... ends here
+    step_dispatch = dispatch_since(disp0)
     updater_leaves = cu.fused_updater.leaves
     cap_problems, cap_fields = capture_fields(
         model._steps.units, kernel_run, run("auto", ATTN_DROPOUT, eager=True),
@@ -1887,9 +1935,11 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
     # predict: no dropout, forward kernels only
     model.params = _load(model.params, k_params)
     pb = data[0]
+    disp0 = dispatch_tally()
     ca.reset_launch_counts()
     logits = model.predict(pb["ids"], pb["segments"], pb["mask"])
     predict_launches = ca.launch_counts()
+    predict_dispatch = dispatch_since(disp0)
     model.cfg = cfg
 
     problems = list(cap_problems)
@@ -1901,23 +1951,32 @@ def bert_phase(phase, dev, smi, *, dtype, batch, seq, task, min_len):
                           "fwd") == "sm90_f32"
     f32_bwd = ca.flash_design(getattr(torch, dtype), head_dim,
                               "dq") == "sm90_f32"
-    want = {"flash_attn_fwd": cfg.layers * BERT_STEPS,
-            "flash_attn_fwd_sm90": cfg.layers * BERT_STEPS * sm90,
-            "flash_attn_fwd_f32_sm90": cfg.layers * BERT_STEPS * f32,
-            "flash_attn_dq": cfg.layers * BERT_STEPS,
-            "flash_attn_dq_sm90": cfg.layers * BERT_STEPS * sm90,
-            "flash_attn_dq_f32_sm90": cfg.layers * BERT_STEPS * f32_bwd,
-            "flash_attn_dkv": cfg.layers * BERT_STEPS,
-            "flash_attn_dkv_sm90": cfg.layers * BERT_STEPS * sm90,
-            "flash_attn_dkv_f32_sm90": cfg.layers * BERT_STEPS * f32_bwd}
+    # the attentions the gates send to the flash kernels under the
+    # standing tuning table, from the steps' and predict's dispatch
+    # tallies; BERT's stay there
+    n_step, more = gated(step_dispatch, "dot_product_attention",
+                         cfg.layers * BERT_STEPS,
+                         floor=cfg.layers * BERT_STEPS)
+    n_pred, more2 = gated(predict_dispatch, "dot_product_attention",
+                          cfg.layers, floor=cfg.layers)
+    problems += more + more2
+    want = {"flash_attn_fwd": n_step,
+            "flash_attn_fwd_sm90": n_step * sm90,
+            "flash_attn_fwd_f32_sm90": n_step * f32,
+            "flash_attn_dq": n_step,
+            "flash_attn_dq_sm90": n_step * sm90,
+            "flash_attn_dq_f32_sm90": n_step * f32_bwd,
+            "flash_attn_dkv": n_step,
+            "flash_attn_dkv_sm90": n_step * sm90,
+            "flash_attn_dkv_f32_sm90": n_step * f32_bwd}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
     problems += updater_count_problems(launches["fused_updater"],
                                        updater_leaves, n_leaves, BERT_STEPS)
-    if (predict_launches["flash_attn_fwd"] != cfg.layers
-            or predict_launches["flash_attn_fwd_sm90"] != cfg.layers * sm90
-            or predict_launches["flash_attn_fwd_f32_sm90"] != cfg.layers * f32
+    if (predict_launches["flash_attn_fwd"] != n_pred
+            or predict_launches["flash_attn_fwd_sm90"] != n_pred * sm90
+            or predict_launches["flash_attn_fwd_f32_sm90"] != n_pred * f32
             or predict_launches["flash_attn_dq"]
             or predict_launches["flash_attn_dkv"]):
         problems.append(f"predict launches {predict_launches}")
@@ -2376,12 +2435,7 @@ def onnx_bert_phase(dev, smi):
                 launches["kmajor_copies"] = {
                     "import_to_counted": copies1 - copies0,
                     "counted_forward": cm.kmajor_weight.copies - copies1}
-                disp = observe.metrics()
-                launches["dispatch_cuda"] = {
-                    op: disp.counter("dl4j_tpu_helper_dispatch_total", op=op,
-                                     impl="cuda", reason="usable").value
-                    for op in ("fused_matmul_bias_act",
-                               "dot_product_attention")}
+                launches["dispatch"] = dispatch_tally()  # reset above
             torch.cuda.reset_peak_memory_stats()
             times = []
             for _ in range(ONNX_BERT_TIMED):
@@ -2424,25 +2478,30 @@ def onnx_bert_phase(dev, smi):
     if k_info["fusions"] != {"attention": cfg["layers"],
                              "epilogue": 6 * cfg["layers"]}:
         problems.append(f"fusions {k_info['fusions']}")
-    # every float32 fused matmul and flash forward on the tensor-core
-    # sm90_f32 designs, none on the CUDA-core ones
-    want = {"fused_matmul_bias_act": 6 * cfg["layers"],
+    # the gates' decisions under the standing tuning table (the counted
+    # forward's dispatch tally; the encoder's stay on the kernels), every
+    # float32 fused matmul and flash forward they send there on the
+    # tensor-core sm90_f32 designs, none on the CUDA-core ones
+    layers = cfg["layers"]
+    n_mm, more = gated(launches["dispatch"], "fused_matmul_bias_act",
+                       6 * layers, floor=6 * layers)
+    n_fa, more2 = gated(launches["dispatch"], "dot_product_attention",
+                        layers, floor=layers)
+    problems += more + more2
+    want = {"fused_matmul_bias_act": n_mm,
             "fused_matmul_bias_act_sm90": 0,
-            "fused_matmul_bias_act_f32_sm90": 6 * cfg["layers"],
-            "flash_attn_fwd": cfg["layers"], "flash_attn_fwd_sm90": 0,
-            "flash_attn_fwd_f32_sm90": cfg["layers"]}
+            "fused_matmul_bias_act_f32_sm90": n_mm,
+            "flash_attn_fwd": n_fa, "flash_attn_fwd_sm90": 0,
+            "flash_attn_fwd_f32_sm90": n_fa}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
-    # one split copy a weight, all made before the counted forward
-    if launches["kmajor_copies"] != {"import_to_counted": 6 * cfg["layers"],
+    # one split copy a kernel matmul's weight, all made before the
+    # counted forward
+    if launches["kmajor_copies"] != {"import_to_counted": n_mm,
                                      "counted_forward": 0}:
         problems.append(f"K-major weight copies {launches['kmajor_copies']} "
-                        f"!= {6 * cfg['layers']} before the counted forward, "
-                        f"0 in it")
-    if launches["dispatch_cuda"] != {"fused_matmul_bias_act": 6 * cfg[
-            "layers"], "dot_product_attention": cfg["layers"]}:
-        problems.append(f"cuda dispatches {launches['dispatch_cuda']}")
+                        f"!= {n_mm} before the counted forward, 0 in it")
     problems += captured_problems(k_info)
     shape = (cfg["batch"], cfg["seq"], 2)
     diffs = {}
@@ -2544,11 +2603,9 @@ def onnx_vision_phase(phase, dev, smi):
     _zero_counters()  # the main path's forward starts here
     y = forward(sd)
     launches = _read_counters()  # ... and ends here
-    tally = [(dict(c.labels), c.value) for c in observe.metrics()
-             .instruments() if c.name == "dl4j_tpu_helper_dispatch_total"]
-    dispatch = {f"{op}.{impl}": sum(v for lab, v in tally
-                                    if lab.get("op") == op
-                                    and lab.get("impl") == impl)
+    gate_disp = dispatch_tally()
+    dispatch = {f"{op}.{impl}": sum(v for k, v in gate_disp.items()
+                                    if k.startswith(f"{op} {impl} "))
                 for op in ("fused_matmul_bias_act", "dot_product_attention")
                 for impl in ("cuda", "generic")}
     st = sd.last_compile_stats
@@ -2607,14 +2664,23 @@ def onnx_vision_phase(phase, dev, smi):
     layers = cfg.get("layers", 0)
     want = {k: 0 for k in launches}
     if vit:
-        want.update(flash_attn_fwd=layers, flash_attn_fwd_f32_sm90=layers,
-                    fused_matmul_bias_act=6 * layers,
-                    fused_matmul_bias_act_f32_sm90=6 * layers)
+        # the encoder's matmuls and attentions the gates send to the
+        # kernels under the standing tuning table (the counted forward's
+        # dispatch tally; they stay there); the classifier, which reads
+        # the class token's offset row, is refused by shape
+        n_mm, more = gated(gate_disp, "fused_matmul_bias_act", 6 * layers,
+                           floor=6 * layers)
+        n_fa, more2 = gated(gate_disp, "dot_product_attention", layers,
+                            floor=layers)
+        problems += more + more2
+        want.update(flash_attn_fwd=n_fa, flash_attn_fwd_f32_sm90=n_fa,
+                    fused_matmul_bias_act=n_mm,
+                    fused_matmul_bias_act_f32_sm90=n_mm)
         fusions = {"attention": layers, "epilogue": 6 * layers + 1}
-        want_disp = {"fused_matmul_bias_act.cuda": 6 * layers,
-                     "fused_matmul_bias_act.generic": 1,
-                     "dot_product_attention.cuda": layers,
-                     "dot_product_attention.generic": 0}
+        want_disp = {"fused_matmul_bias_act.cuda": n_mm,
+                     "fused_matmul_bias_act.generic": 6 * layers + 1 - n_mm,
+                     "dot_product_attention.cuda": n_fa,
+                     "dot_product_attention.generic": layers - n_fa}
     else:
         fusions = {"epilogue": 1}
         want_disp = {"fused_matmul_bias_act.cuda": 0,
@@ -2728,6 +2794,7 @@ def sd_bert_finetune_phase(dev, smi):
                 cm.fused_matmul.sm90_launches = 0
                 cm.fused_matmul.sm90_f32_launches = 0
                 copies0 = cm.kmajor_weight.copies
+                disp0 = dispatch_tally()
                 cu.fused_updater.launches = 0  # the main path starts here
                 cu.fused_updater.leaves = 0
             losses, times = [], []
@@ -2757,6 +2824,7 @@ def sd_bert_finetune_phase(dev, smi):
                     fused_matmul_bias_act_f32_sm90=cm.fused_matmul
                     .sm90_f32_launches,
                     fused_updater=cu.fused_updater.launches)  # ... ends here
+                step_dispatch = dispatch_since(disp0)
                 # the updater makes new weights each step: the sm90_f32
                 # matmul makes their K-major split copies anew
                 copies = cm.kmajor_weight.copies - copies0
@@ -2772,18 +2840,21 @@ def sd_bert_finetune_phase(dev, smi):
             if counted:
                 info["kmajor_copies"] = copies
                 info["fused_updater_leaves"] = updater_leaves
+                info["step_dispatch"] = step_dispatch
             params = {n: t.clone() for n, t in
                       sd.training_state()["params"].items()}
             info["state"] = _clone_tree([params, sd.training_state()[
                 "opt_state"]])
             info["events"], info["units"] = events, units
             n_params = sum(t.numel() for t in params.values())
+            disp0 = dispatch_tally()
             cl.fused_layer_norm_kernel.launches = 0
             cm.fused_matmul.launches = 0
             out = sd.output(feeds, [logits])[logits]
             info["output_launches"] = {
                 "fused_layer_norm": cl.fused_layer_norm_kernel.launches,
                 "fused_matmul_bias_act": cm.fused_matmul.launches}
+            info["output_dispatch"] = dispatch_since(disp0)
             if refit:
                 info.update(captured_vs_eager(sd, feeds, [logits], out, 1),
                             changed_by_fit=bool(not np.array_equal(before,
@@ -2819,15 +2890,34 @@ def sd_bert_finetune_phase(dev, smi):
     if k_info["fusions"] != want_fusions:
         problems.append(f"fusions {k_info['fusions']} != {want_fusions}")
     n_leaves = len(k_params)
-    per_step = {"fused_layer_norm": 1, "flash_attn_fwd": layers,
-                "flash_attn_dq": layers, "flash_attn_dkv": layers,
+    # the launches the gates chose under the standing tuning table, from
+    # the steps' and the output's dispatch tallies (the encoder's 6 a
+    # layer, the head's dense and classifier at M 4096, its LayerNorm)
+    n_fused = 6 * layers + 2
+    gates = {}
+    for window, disp, per in (("steps", k_info["step_dispatch"],
+                               FINETUNE_STEPS),
+                              ("output", k_info["output_dispatch"], 1)):
+        got = {}
+        for op, calls, floor in (("fused_matmul_bias_act", n_fused,
+                                  6 * layers),
+                                 ("dot_product_attention", layers, layers),
+                                 ("fused_layer_norm", 1, 1)):
+            n, more = gated(disp, op, calls * per, floor * per)
+            problems += [f"{window}: {p}" for p in more]
+            got[op] = n // per
+        gates[window] = got
+    mm, fa, ln = (gates["steps"][op] for op in (
+        "fused_matmul_bias_act", "dot_product_attention", "fused_layer_norm"))
+    per_step = {"fused_layer_norm": ln, "flash_attn_fwd": fa,
+                "flash_attn_dq": fa, "flash_attn_dkv": fa,
                 "flash_attn_fwd_sm90": 0, "flash_attn_dq_sm90": 0,
-                "flash_attn_dkv_sm90": 0, "flash_attn_fwd_f32_sm90": layers,
-                "flash_attn_dq_f32_sm90": layers,
-                "flash_attn_dkv_f32_sm90": layers,
-                "fused_matmul_bias_act": 6 * layers + 2,
+                "flash_attn_dkv_sm90": 0, "flash_attn_fwd_f32_sm90": fa,
+                "flash_attn_dq_f32_sm90": fa,
+                "flash_attn_dkv_f32_sm90": fa,
+                "fused_matmul_bias_act": mm,
                 "fused_matmul_bias_act_sm90": 0,
-                "fused_matmul_bias_act_f32_sm90": 6 * layers + 2}
+                "fused_matmul_bias_act_f32_sm90": mm}
     for name, n in per_step.items():
         if launches[name] != n * FINETUNE_STEPS:
             problems.append(f"{name} launches {launches[name]} != {n} x "
@@ -2835,14 +2925,17 @@ def sd_bert_finetune_phase(dev, smi):
     problems += updater_count_problems(launches["fused_updater"],
                                        k_info["fused_updater_leaves"],
                                        n_leaves, FINETUNE_STEPS)
-    # one K-major split copy of each fused matmul's weight a step: the
+    # one K-major split copy of each kernel matmul's weight a step: the
     # updater's new weights are new tensors
-    if k_info["kmajor_copies"] != (6 * layers + 2) * FINETUNE_STEPS:
+    if k_info["kmajor_copies"] != mm * FINETUNE_STEPS:
         problems.append(f"K-major weight copies {k_info['kmajor_copies']} != "
-                        f"{6 * layers + 2} x {FINETUNE_STEPS} steps")
-    if k_info["output_launches"] != {"fused_layer_norm": 1,
-                                     "fused_matmul_bias_act": 6 * layers + 2}:
-        problems.append(f"output launches {k_info['output_launches']}")
+                        f"{mm} x {FINETUNE_STEPS} steps")
+    want_out = {"fused_layer_norm": gates["output"]["fused_layer_norm"],
+                "fused_matmul_bias_act": gates["output"][
+                    "fused_matmul_bias_act"]}
+    if k_info["output_launches"] != want_out:
+        problems.append(f"output launches {k_info['output_launches']} != "
+                        f"{want_out}")
     refit = {k: r_info[k] for k in ("bits_equal_eager", "max_abs_diff_eager",
                                     "changed_by_fit", "graph_unit")}
     if not (refit["bits_equal_eager"] and refit["changed_by_fit"]
@@ -2882,7 +2975,7 @@ def sd_bert_finetune_phase(dev, smi):
             "updater": f"Adam lr {FINETUNE_LR:g}", "steps": FINETUNE_STEPS,
             "leaves": n_leaves, "params": n_params,
             "param_bytes": 4 * n_params, "adam_state_bytes": 8 * n_params,
-            "launches": launches,
+            "launches": launches, "gated": gates,
             "launches_per_step": {k: v / FINETUNE_STEPS
                                   for k, v in launches.items()},
             "kernel": k_info, "generic": g_info,
@@ -2988,10 +3081,12 @@ def tf_bert_phase(dev, smi):
                 sd.output(feeds, ["logits"])  # builds the plan, captures
                 info["first_forward_s"] = time.perf_counter() - t0
                 if counted:
+                    disp0 = dispatch_tally()
                     _zero_counters()  # the main path's forward starts here
                 out = sd.output(feeds, ["logits"])["logits"]
                 if counted:
                     info["forward_launches"] = _read_counters()  # ... ends
+                    info["forward_dispatch"] = dispatch_since(disp0)
                 st = sd.last_compile_stats
                 info.update(fusions=st.fusions, plan_nodes=st.nodes_after,
                             nodes=len(sd._nodes))
@@ -3064,20 +3159,31 @@ def tf_bert_phase(dev, smi):
             problems.append(f"{label} fusions {info['fusions']} != "
                             f"{want_fusions}")
     fwd, step = k_info["forward_launches"], k_info["step_launches"]
-    per_forward = {"flash_attn_fwd": layers, "flash_attn_fwd_f32_sm90": layers,
+    # the fused matmuls and attentions the gates send to the kernels under
+    # the standing tuning table (the pooler's and the classifier's M of 32
+    # lies below a measured crossover where the card's table has one):
+    # the counted forward's dispatch tally; the encoder's stay on them
+    disp = k_info["forward_dispatch"]
+    n_kernel, gate_problems = gated(disp, "fused_matmul_bias_act", n_fused,
+                                    floor=6 * layers)
+    n_flash, more = gated(disp, "dot_product_attention", layers,
+                          floor=layers)
+    problems += gate_problems + more
+    per_forward = {"flash_attn_fwd": n_flash,
+                   "flash_attn_fwd_f32_sm90": n_flash,
                    "flash_attn_dq": 0, "flash_attn_dkv": 0,
-                   "fused_matmul_bias_act": n_fused,
-                   "fused_matmul_bias_act_f32_sm90": n_fused,
+                   "fused_matmul_bias_act": n_kernel,
+                   "fused_matmul_bias_act_f32_sm90": n_kernel,
                    "fused_layer_norm": 0, "fused_updater": 0}
-    per_step = {"flash_attn_fwd": layers, "flash_attn_dq": layers,
-                "flash_attn_dkv": layers, "flash_attn_fwd_sm90": 0,
+    per_step = {"flash_attn_fwd": n_flash, "flash_attn_dq": n_flash,
+                "flash_attn_dkv": n_flash, "flash_attn_fwd_sm90": 0,
                 "flash_attn_dq_sm90": 0, "flash_attn_dkv_sm90": 0,
-                "flash_attn_fwd_f32_sm90": layers,
-                "flash_attn_dq_f32_sm90": layers,
-                "flash_attn_dkv_f32_sm90": layers,
-                "fused_matmul_bias_act": n_fused,
+                "flash_attn_fwd_f32_sm90": n_flash,
+                "flash_attn_dq_f32_sm90": n_flash,
+                "flash_attn_dkv_f32_sm90": n_flash,
+                "fused_matmul_bias_act": n_kernel,
                 "fused_matmul_bias_act_sm90": 0,
-                "fused_matmul_bias_act_f32_sm90": n_fused,
+                "fused_matmul_bias_act_f32_sm90": n_kernel,
                 "fused_layer_norm": 0}
     for name, n in per_forward.items():
         if fwd[name] != n:
@@ -3089,9 +3195,9 @@ def tf_bert_phase(dev, smi):
     problems += updater_count_problems(step["fused_updater"],
                                        step["fused_updater_leaves"],
                                        k_info["leaves"], FINETUNE_STEPS)
-    if k_info["kmajor_copies"] != n_fused * FINETUNE_STEPS:
+    if k_info["kmajor_copies"] != n_kernel * FINETUNE_STEPS:
         problems.append(f"K-major weight copies {k_info['kmajor_copies']} != "
-                        f"{n_fused} x {FINETUNE_STEPS} steps")
+                        f"{n_kernel} x {FINETUNE_STEPS} steps")
     kernel, generic, yard = (i["losses"] for i in (k_info, g_info, y_info))
     if not all(math.isfinite(v) for v in kernel + generic + yard):
         problems.append("non-finite loss")
@@ -3263,11 +3369,14 @@ def sd_namespaces_phase(dev, smi):
                     sd.set_arr(n, t)
             info = {}
             torch.cuda.synchronize()
+            disp0 = dispatch_tally()
             _zero_counters()  # the forward's main path starts here
             out = sd.output(feeds, [logits, loss])
             torch.cuda.synchronize()
             info["forward_launches"] = _read_counters()  # ... ends here
+            info["forward_dispatch"] = dispatch_since(disp0)
             losses, times = [], []
+            disp0 = dispatch_tally()
             _zero_counters()  # the steps' main path starts here
             for _ in range(FINETUNE_STEPS):
                 torch.cuda.synchronize()
@@ -3276,6 +3385,7 @@ def sd_namespaces_phase(dev, smi):
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             info["step_launches"] = _read_counters()  # ... ends here
+            info["step_dispatch"] = dispatch_since(disp0)
             params = {n: t.clone() for n, t in
                       sd.training_state()["params"].items()}
             after = sd.output(feeds, [logits])[logits]
@@ -3301,11 +3411,18 @@ def sd_namespaces_phase(dev, smi):
 
     problems = []
     fwd, step = k_info["forward_launches"], k_info["step_launches"]
-    want_fwd = {"flash_attn_fwd": layers, "flash_attn_dq": 0,
+    # the attentions the gates send to the flash kernels under the
+    # standing tuning table, from each window's dispatch tally
+    n_fwd, more = gated(k_info["forward_dispatch"], "dot_product_attention",
+                        layers, floor=layers)
+    n_step, more2 = gated(k_info["step_dispatch"], "dot_product_attention",
+                          layers * FINETUNE_STEPS,
+                          floor=layers * FINETUNE_STEPS)
+    problems += more + more2
+    want_fwd = {"flash_attn_fwd": n_fwd, "flash_attn_dq": 0,
                 "flash_attn_dkv": 0, "fused_updater": 0}
-    want_step = {"flash_attn_fwd": layers * FINETUNE_STEPS,
-                 "flash_attn_dq": layers * FINETUNE_STEPS,
-                 "flash_attn_dkv": layers * FINETUNE_STEPS}
+    want_step = {"flash_attn_fwd": n_step, "flash_attn_dq": n_step,
+                 "flash_attn_dkv": n_step}
     for name, n in want_fwd.items():
         if fwd[name] != n:
             problems.append(f"forward: {name} launches {fwd[name]} != {n}")
@@ -3489,16 +3606,7 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                     flash_attn_fwd_f32_sm90=ca.flash_attention
                     .sm90_f32_launches,
                     fused_matmul_bias_act=cm.fused_matmul.launches)  # ... ends
-                disp = observe.metrics()
-                launches["dispatch"] = {
-                    op: {f"{impl}/{why}": disp.counter(
-                        "dl4j_tpu_helper_dispatch_total", op=op, impl=impl,
-                        reason=why).value
-                        for impl, why in (("cuda", "usable"),
-                                          ("generic", "not_usable"),
-                                          ("generic", "no_helper"),
-                                          ("generic", "forced_generic"))}
-                    for op in ("matmul_int8", "dot_product_attention")}
+                launches["dispatch"] = dispatch_tally()  # reset above
             if timed:
                 torch.cuda.reset_peak_memory_stats()
                 times = []
@@ -3542,24 +3650,28 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
     problems = []
     layers = cfg["layers"]
     n_dense = 6 * layers + 1
-    want = {"matmul_int8": n_dense, "matmul_int8_sm90": n_dense,
-            "matmul_int8_row_quantize": n_dense,
-            "flash_attn_fwd": layers, "flash_attn_fwd_sm90": 0,
-            "flash_attn_fwd_f32_sm90": layers, "fused_matmul_bias_act": 0}
+    # the gates' decisions under the standing tuning table, from the
+    # counted forward's dispatch tally: every dense layer and attention
+    # at M 4096 / T 128 stays on the kernels
+    n_q, more = gated(launches["dispatch"], "matmul_int8", n_dense,
+                      floor=n_dense)
+    n_fa, more2 = gated(launches["dispatch"], "dot_product_attention",
+                        layers, floor=layers)
+    problems += more + more2
+    want = {"matmul_int8": n_q, "matmul_int8_sm90": n_q,
+            "matmul_int8_row_quantize": n_q,
+            "flash_attn_fwd": n_fa, "flash_attn_fwd_sm90": 0,
+            "flash_attn_fwd_f32_sm90": n_fa, "fused_matmul_bias_act": 0}
     for name, n in want.items():
         if launches[name] != n:
             problems.append(f"{name} launches {launches[name]} != {n}")
-    # one K-major copy a weight, made before the counted forward
-    if k_info["kmajor_copies"] != {"build_to_counted": n_dense,
+    # one K-major copy a kernel GEMM's weight, made before the counted
+    # forward
+    if k_info["kmajor_copies"] != {"build_to_counted": n_q,
                                    "counted_forward": 0}:
         problems.append(f"K-major weight copies {k_info['kmajor_copies']} != "
-                        f"{n_dense} before the counted forward, 0 in it")
+                        f"{n_q} before the counted forward, 0 in it")
     problems += captured_problems(k_info)
-    want_disp = {"matmul_int8": n_dense, "dot_product_attention": layers}
-    for op, counts in launches["dispatch"].items():
-        if counts["cuda/usable"] != want_disp[op] or any(
-                v for k, v in counts.items() if k.startswith("generic")):
-            problems.append(f"{op} dispatches {counts}")
     shapes = {"y": (cfg["batch"], cfg["seq"], 2),
               "hidden": (cfg["batch"], cfg["seq"], cfg["d"])}
     checks = {}
@@ -3627,6 +3739,260 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                           "nodes_before", "nodes_after")},
             "problems": problems}
     return problems, line, {k: launches[k] for k in want}
+
+
+def tuning_phase(dev, smi):
+    """Measured dispatch: ``autotune(smoke=True)`` on the card into a
+    temporary cache directory (every op must write its entries, the table
+    must load back and be live), then the standing table restored — the
+    checked-in tables the rest of the run dispatches by: its device kind,
+    its sources and crossovers. Returns (problems, line)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.ops import tuning
+
+    problems = []
+    keys = {"dot_product_attention": "flash_min_t",
+            "fused_matmul_bias_act": "pallas_min_m",
+            "fused_layer_norm": "min_rows",
+            "fused_updater_step": "min_size",
+            "matmul_int8": "pallas_min_m",
+            "paged_decode_attention": "min_pages",
+            "fused_bn_matmul_stats": "blocks"}
+    old = os.environ.get(tuning.ENV_DIR)
+    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as tmp:
+        os.environ[tuning.ENV_DIR] = tmp
+        tuning.reset_tables()
+        try:
+            table, report = tuning.autotune(smoke=True, device=dev)
+            back = tuning.TuningTable.load(report.table_path)
+            live = {op: tuning.tuned(op, key) for op, key in keys.items()
+                    if key != "blocks"}
+        finally:
+            if old is None:
+                os.environ.pop(tuning.ENV_DIR, None)
+            else:
+                os.environ[tuning.ENV_DIR] = old
+            tuning.reset_tables()
+    for op, key in keys.items():
+        if key not in table.entries.get(op, {}):
+            problems.append(f"autotune wrote no {op}.{key}")
+    if back.entries != table.entries:
+        problems.append("the saved table does not load back as written")
+    if live != {op: table.get(op, key) for op, key in keys.items()
+                if key != "blocks"}:
+        problems.append(f"the measured table is not live: {live}")
+    standing = tuning.active_table()
+    line = {"phase": "tuning", "card": smi,
+            "device_kind": tuning.current_device_kind(),
+            "standing_tables": tuning.default_table_paths(
+                tuning.current_device_kind()),
+            "standing_crossovers": {op: standing.get(op, key)
+                                    for op, key in keys.items()
+                                    if key != "blocks"},
+            "standing_blocks": standing.entries.get(
+                "fused_bn_matmul_stats", {}).get("blocks", {}),
+            "standing_measured_on": standing.measured_on,
+            "smoke_table": table.entries, "smoke_seconds": report.seconds,
+            "smoke_measurements": report.measurements,
+            "smoke_timings": report.timings,
+            "smoke_note": "tiny ladders: a check of the code path, not the "
+                          "card's crossovers",
+            "problems": problems}
+    return problems, line
+
+
+def _build_dir():
+    from deeplearning4j_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    return _build.BUILD_DIR.parent
+
+
+def onnx_bert_autocast_phase(dev, smi, onnx_line, float32_out):
+    """onnx_bert's bytes through the optimizer's autocast pass: ONNX bytes
+    → ``import_onnx`` → ``optimize_graph(passes=… + ("autocast",))`` →
+    ``sd.save(zip)`` → ``SameDiff.load(zip)`` → ``sd.output``, every dense
+    MatMul on the 16-bit sm90 fused matmul (bfloat16 x and w, float32
+    bias) and the attention on the float32 flash forward (Q, K and V come
+    out of the cast-back as float32). The loaded graph's output must
+    equal the in-memory graph's; the expected launches are the gates' own
+    decisions under the standing table (the registry's dispatch tally of
+    the counted forward), which must be 72 and 12. Held against
+    ``helper_mode="generic"`` and onnx_bert's float32 forward. Returns
+    (problems, line, launches of the counted forward)."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.autodiff.optimize import PASS_ORDER
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.profile_serve import _profile
+    from deeplearning4j_tpu_torch.testing.onnx_builder import (
+        BERT_BASE_ONNX, bert_onnx_feeds)
+
+    cfg = BERT_BASE_ONNX
+    layers = cfg["layers"]
+    passes = PASS_ORDER + ("autocast",)
+    env = environment()
+    problems = []
+    last = f"l{layers - 1}_out"
+    model, build_s = _bert_base_onnx()
+    feeds = bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+
+    def forward(sd, outs=("y",), mode="auto"):
+        env.helper_mode = mode
+        try:
+            return sd.output(feeds, list(outs))
+        finally:
+            env.helper_mode = "auto"
+
+    t0 = time.perf_counter()
+    sd = import_onnx(model, device=dev)
+    sd.optimize_passes = passes
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    y_mem = forward(sd)["y"]
+    st_mem = sd.last_compile_stats
+    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as tmp:
+        path = os.path.join(tmp, "bert_autocast.zip")
+        t0 = time.perf_counter()
+        sd.save(path)
+        save_s = time.perf_counter() - t0
+        zip_bytes = os.path.getsize(path)
+        del sd
+        gc.collect()
+        torch.cuda.empty_cache()
+        observe.reset()  # the ledger from here holds the loaded graph's
+        t0 = time.perf_counter()
+        sd = SameDiff.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    sd.optimize_passes = passes
+    t0 = time.perf_counter()
+    forward(sd)  # the first forward builds the plan and warms up
+    first_s = time.perf_counter() - t0
+    forward(sd)  # the capture
+    ledger = samediff_ledger(observe)
+    observe.reset()
+    _zero_counters()  # the main path's forward starts here
+    y = forward(sd)["y"]
+    launches = _read_counters()  # ... and ends here
+    disp = dispatch_tally()  # reset above
+    st = sd.last_compile_stats
+    info = captured_vs_eager(sd, feeds, ["y"], y, AUTOCAST_TIMED)
+    info["ledger"] = ledger
+    problems += captured_problems(info)
+    times = []
+    for _ in range(AUTOCAST_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(sd)
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.percentile(times, 50))
+    prof = _profile(lambda: forward(sd), 2, top=6,
+                    named=("flash", "fused_matmul", "gemm", "cast",
+                           "copy"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out_k = forward(sd, ("y", last))
+    out_g = forward(sd, ("y", last), "generic")
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gates' decisions in the counted forward, and what they launched:
+    # every matmul and attention of the path on the kernels (the 16-bit
+    # sm90 fused matmul has no other path)
+    usable_mm, more = gated(disp, "fused_matmul_bias_act", 6 * layers,
+                            floor=6 * layers)
+    usable_fa, more2 = gated(disp, "dot_product_attention", layers,
+                             floor=layers)
+    problems += more + more2
+    want = {k: 0 for k in launches}
+    want.update(fused_matmul_bias_act=usable_mm,
+                fused_matmul_bias_act_sm90=usable_mm,
+                flash_attn_fwd=usable_fa, flash_attn_fwd_f32_sm90=usable_fa)
+    if launches != want:
+        problems.append(f"launches {launches} != the gates' decisions "
+                        f"{want}")
+    want_fusions = {"attention": layers, "epilogue": 6 * layers,
+                    "autocast_casts": 2 * (6 * layers) + 2}
+    if st.fusions != want_fusions or st_mem.fusions != want_fusions:
+        problems.append(f"fusions {st.fusions} / in memory "
+                        f"{st_mem.fusions} != {want_fusions}")
+    if not np.array_equal(y, y_mem):
+        problems.append(f"the loaded graph's y differs from the in-memory "
+                        f"graph's by {float(np.abs(y - y_mem).max())}")
+    shape = (cfg["batch"], cfg["seq"], 2)
+    for label, v in (("kernel", out_k["y"]), ("generic", out_g["y"])):
+        if v.shape != shape or v.dtype != np.float32 or \
+                not np.all(np.isfinite(v)):
+            problems.append(f"{label} y {v.shape} {v.dtype} not finite")
+    h, hg, hf = out_k[last], out_g[last], float32_out["hidden"]
+    checks = {"hidden_rel_err_vs_generic": _rel_err(h, hg),
+              "y_max_abs_vs_generic": float(np.abs(out_k["y"]
+                                                   - out_g["y"]).max()),
+              "hidden_rel_err_vs_float32": _rel_err(h, hf),
+              "generic_hidden_rel_err_vs_float32": _rel_err(hg, hf),
+              "y_max_abs_vs_float32": float(np.abs(out_k["y"]
+                                                   - float32_out["y"]).max()),
+              "generic_bound": AUTOCAST_GENERIC_REL_ERR,
+              "gross_bound": AUTOCAST_GROSS_REL_ERR}
+    if not checks["hidden_rel_err_vs_generic"] <= AUTOCAST_GENERIC_REL_ERR:
+        problems.append(f"hidden vs generic: relative error "
+                        f"{checks['hidden_rel_err_vs_generic']} > "
+                        f"{AUTOCAST_GENERIC_REL_ERR}")
+    if not checks["hidden_rel_err_vs_float32"] <= AUTOCAST_GROSS_REL_ERR:
+        problems.append(f"hidden vs float32: relative error "
+                        f"{checks['hidden_rel_err_vs_float32']} > "
+                        f"{AUTOCAST_GROSS_REL_ERR}")
+    if not checks["hidden_rel_err_vs_float32"] > 0.0:
+        problems.append("the autocast forward equals the float32 one: no "
+                        "bfloat16 arithmetic ran")
+    tokens = cfg["batch"] * cfg["seq"]
+    real = float(feeds["mask"].sum())
+    f32_p50 = onnx_line["kernel"]["p50_ms"] / 1e3
+    line = {"phase": "onnx_bert_autocast", "card": smi, "config": cfg,
+            "passes": list(passes),
+            "weights": "onnx_bert's: float32, numpy RandomState(0) * 0.02",
+            "build_bytes_s": build_s, "import_s": import_s,
+            "save_s": save_s, "zip_bytes": zip_bytes, "load_s": load_s,
+            "first_forward_s": first_s, "nodes_before": st.nodes_before,
+            "nodes_after": st.nodes_after, "fusions": st.fusions,
+            "launches": launches, "dispatch": disp,
+            "loaded_equals_in_memory": bool(np.array_equal(y, y_mem)),
+            "checks": checks,
+            "tol": f"hidden vs generic relative error <= "
+                   f"{AUTOCAST_GENERIC_REL_ERR:g} (one bfloat16 unit a node "
+                   f"over 12 layers); vs float32 <= "
+                   f"{AUTOCAST_GROSS_REL_ERR:g} (gross faults)",
+            "captured_vs_eager": {k: info[k] for k in (
+                "bits_equal_eager", "max_abs_diff_eager", "graph_unit",
+                "ledger")},
+            "forward_p50_ms": p50 * 1e3,
+            "forward_times_ms": [t * 1e3 for t in times],
+            "eager_forward_p50_ms": info["eager_p50_ms"],
+            "tokens_per_s": tokens / p50, "real_tokens_per_s": real / p50,
+            "eager_tokens_per_s": tokens / (info["eager_p50_ms"] / 1e3),
+            "float32_onnx_bert": {"forward_p50_ms": f32_p50 * 1e3,
+                                  "tokens_per_s": tokens / f32_p50},
+            "speedup_vs_float32": f32_p50 / p50,
+            "device_busy_share": prof["device_busy_share"], "profile": prof,
+            "peak_memory_gib": peak, "peak_memory_own_gib": peak - resident,
+            "smoke_reading": f"{AUTOCAST_TIMED} forwards, no spread",
+            "problems": problems}
+    return problems, line, {k: launches[k] for k in (
+        "fused_matmul_bias_act", "fused_matmul_bias_act_sm90",
+        "fused_matmul_bias_act_f32_sm90", "flash_attn_fwd",
+        "flash_attn_fwd_sm90", "flash_attn_fwd_f32_sm90")}
 
 
 def serve(eng, prompts):
@@ -3731,6 +4097,35 @@ def dispatch_tally(op=None) -> dict:
         if op is None or lab["op"] == op:
             out[f"{lab['op']} {lab['impl']} {lab['reason']}"] = int(c.value)
     return out
+
+
+def dispatch_since(before: dict) -> dict:
+    """The dispatch decisions taken since ``before`` (an earlier
+    :func:`dispatch_tally`), in its keys."""
+    now = dispatch_tally()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+def gated(disp: dict, op: str, calls: int, floor: int = 1) -> tuple:
+    """The gates' own decisions for the ``calls`` dispatches of ``op``
+    that its kernel takes at their shapes, from a dispatch tally (the
+    keys of :func:`dispatch_tally`): (the kernel's share, problems). Each
+    such call goes to the kernel (``cuda usable``) or, below a crossover
+    of the tuning table standing on this card (``ops/tuning.py``), to the
+    generic (``generic crossover``); the launches a phase expects are the
+    kernel's share. ``floor`` of them must stay on the kernel: the path
+    the phase exists to drive."""
+    n = disp.get(f"{op} cuda usable", 0)
+    cross = disp.get(f"{op} generic crossover", 0)
+    problems = []
+    if n + cross != calls:
+        problems.append(f"{op}: {n} calls to the kernel + {cross} by "
+                        f"crossover != {calls}")
+    if n < floor:
+        problems.append(f"{op}: {n} calls to the kernel < {floor}: the "
+                        f"path left the kernel")
+    return n, problems
 
 
 def _move_distance(a, b, start) -> float:
@@ -5203,16 +5598,20 @@ def keras_bert_phase(dev, smi):
 
     net.output(*feeds)  # warm-up: the first cuBLAS and kernel calls
     torch.cuda.synchronize()
+    disp0 = dispatch_tally()
     _zero_counters()  # the main path's forward starts here
     probs = net.output(*feeds)[0]
     launches = _read_counters()  # ... and ends here
+    n_fa, more = gated(dispatch_since(disp0), "dot_product_attention",
+                       layers, floor=layers)
+    problems += more
     k_probs, k_hidden = forward("auto")
     g_probs, g_hidden = forward("generic")
     y_probs, y_hidden = forward("generic", _nudged(net.params,
                                                    np.random.default_rng(11)))
     want_launches = {k: 0 for k in launches}
-    want_launches.update(flash_attn_fwd=layers,
-                         flash_attn_fwd_f32_sm90=layers)
+    want_launches.update(flash_attn_fwd=n_fa,
+                         flash_attn_fwd_f32_sm90=n_fa)
     if launches != want_launches:
         problems.append(f"launches {launches} != {want_launches}")
     if probs.shape != (batch, 2) or not np.all(np.isfinite(probs)):
@@ -5334,6 +5733,7 @@ def serve_supervised_phase(dev, smi, model, engine_kw, prompts, want):
     ptr = eng.cache.kv.data_ptr()
     faults.arm("decode_step_error", after_n=SERVE_CRASH_AT[0], max_fires=1)
     faults.arm("worker_death", after_n=SERVE_CRASH_AT[1], max_fires=1)
+    disp0 = dispatch_tally()
     ca.reset_launch_counts()              # the main path's run starts here
     eng.start()
     t0 = time.perf_counter()
@@ -5343,6 +5743,7 @@ def serve_supervised_phase(dev, smi, model, engine_kw, prompts, want):
         results = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         launches = ca.launch_counts()     # ... and ends here
+        serve_disp = dispatch_since(disp0)
         fires = faults.fire_counts()
         faults.reset()
         faults.arm("page_oom", max_fires=1)
@@ -5385,9 +5786,17 @@ def serve_supervised_phase(dev, smi, model, engine_kw, prompts, want):
         problems.append("the KV pool was reallocated")
     if oom.finish_reason != "oom" or oom_fires != {"page_oom": 1}:
         problems.append(f"page_oom shot: {oom.finish_reason}, {oom_fires}")
-    if dev.type == "cuda" and (launches["flash_attn_fwd"] < len(prompts)
-                               or not launches["paged_decode"]):
-        problems.append(f"launches {launches}")
+    # the launches are the gates' decisions under the standing tuning
+    # table (the faults fire before a step dispatches anything)
+    want = {name: serve_disp.get(f"{op} cuda usable", 0) for op, name in (
+        ("dot_product_attention", "flash_attn_fwd"),
+        ("paged_decode_attention", "paged_decode"))}
+    if dev.type == "cuda" and (
+            any(launches[k] != n or not n for k, n in want.items())
+            or sum(serve_disp.get(f"dot_product_attention {r}", 0)
+                   for r in ("cuda usable", "generic crossover"))
+            < len(prompts)):
+        problems.append(f"launches {launches}, dispatches {serve_disp}")
     line = {"phase": "serve_supervised", "card": smi,
             "model": "GptConfig.base()", "dtype": "float32",
             "requests": len(prompts), "max_retries": 2,
@@ -5541,18 +5950,24 @@ def serve_prefix_phase(dev, smi, model):
                         f"{[r.prefix_hit_tokens for r in on]}")
     if eng.prefix.pinned_pages != n_sys * sys_len // PREFIX_KW["page_size"]:
         problems.append(f"pinned pages {eng.prefix.pinned_pages}")
-    want_disp = {
-        "dot_product_attention cuda usable": layers * n_sys,
-        "dot_product_attention generic not_usable": layers * PREFIX_REQUESTS,
-        "paged_decode_attention cuda usable": layers * want_steps}
+    # the system prompts' prefills and the decode steps go to the kernels
+    # as the gates decide under the standing tuning table; the suffix
+    # prefills (a query offset into the cached keys) are refused by shape
+    n_fa, more = gated(dispatch, "dot_product_attention", layers * n_sys)
+    n_pd, more2 = gated(dispatch, "paged_decode_attention",
+                        layers * want_steps)
+    problems += more + more2
+    want_disp = {"dot_product_attention generic not_usable":
+                 layers * PREFIX_REQUESTS}
     got_disp = {k: dispatch.get(k, 0) for k in want_disp}
     if decode_steps != want_steps or got_disp != want_disp:
         problems.append(f"decode steps {decode_steps} (want {want_steps}), "
                         f"dispatches {got_disp} (want {want_disp})")
-    if (launches["flash_attn_fwd"] != layers * n_sys
-            or launches["flash_attn_fwd_f32_sm90"] != layers * n_sys
-            or launches["paged_decode"] != layers * want_steps):
-        problems.append(f"launches {launches}")
+    if (launches["flash_attn_fwd"] != n_fa
+            or launches["flash_attn_fwd_f32_sm90"] != n_fa
+            or launches["paged_decode"] != n_pd):
+        problems.append(f"launches {launches}, want flash {n_fa}, paged "
+                        f"{n_pd}")
     if ledger != {k: ["first_compile"] for k in (
             "prefill", "write_prompt", "suffix_prefill", "decode")}:
         problems.append(f"serving ledger {ledger}")
@@ -5798,10 +6213,11 @@ def _spec_run(dev, model, engine_kw, prompts, want, scale, timed):
     real_decode = eng._step_decode
     eng.spec.propose = propose
     eng._step_decode = plain_decode
+    disp0 = dispatch_tally()
     ca.reset_launch_counts()              # the main path's run starts here
     results, wall = serve(eng, prompts)
     launches = ca.launch_counts()         # ... and ends here
-    dispatch = dispatch_tally()
+    dispatch = dispatch_since(disp0)
     ledger = _serving_ledger(observe)
     units = {name: unit_memory(u) for name, u in (
         ("prefill", eng._prefill_fn), ("write_prompt", eng._write_fn),
@@ -5815,12 +6231,19 @@ def _spec_run(dev, model, engine_kw, prompts, want, scale, timed):
         problems.append(f"invariants: {e}")
     n_req = len(prompts)
     proposes = calls["propose"]
-    want_flash = layers * (2 * n_req + (SPEC_K + 1) * proposes)
+    # the target's and the draft's prefills and the verify windows go to
+    # the flash kernel, the plain steps to paged decode, as the gates
+    # decide under the standing tuning table
+    want_flash, more = gated(dispatch, "dot_product_attention",
+                             layers * (2 * n_req + (SPEC_K + 1) * proposes))
+    want_paged, more2 = gated(dispatch, "paged_decode_attention",
+                              layers * calls["plain_decode"], floor=0)
+    problems += more + more2
     if (launches["flash_attn_fwd"] != want_flash
             or launches["flash_attn_fwd_f32_sm90"] != want_flash
-            or launches["paged_decode"] != layers * calls["plain_decode"]):
+            or launches["paged_decode"] != want_paged):
         problems.append(f"launches {launches}, want flash {want_flash}, "
-                        f"paged {layers} x {calls['plain_decode']}")
+                        f"paged {want_paged}")
     want_disp = {"dot_product_attention generic not_usable":
                  layers * proposes}
     got_disp = {k: dispatch.get(k, 0) for k in want_disp}
@@ -6065,12 +6488,18 @@ def serve_cluster_phase(dev, smi, model, traffic):
     # every decode step a paged launch a layer
     layers = model.cfg.layers
     full = counts["lookups"] - counts["hits"]
-    want_counts = {"flash_attn_fwd": layers * full,
-            "flash_attn_fwd_f32_sm90": layers * full,
-            "paged_decode": layers * counts["decode_steps"],
-            "generic not_usable": layers * counts["hits"]}
+    # the full prefills and decode steps the gates send to the kernels
+    # under the standing tuning table
+    n_fa, more = gated(counts, "dot_product_attention", layers * full)
+    n_pd, more2 = gated(counts, "paged_decode_attention",
+                        layers * counts["decode_steps"])
+    problems += more + more2
+    want_counts = {"flash_attn_fwd": n_fa, "flash_attn_fwd_f32_sm90": n_fa,
+                   "paged_decode": n_pd,
+                   "generic not_usable": layers * counts["hits"]}
     got = {k: launches[k] for k in want_counts if k in launches}
-    got["generic not_usable"] = counts["generic not_usable"]
+    got["generic not_usable"] = counts[
+        "dot_product_attention generic not_usable"]
     if got != want_counts or not (full and counts["hits"]
                            and counts["decode_steps"]):
         problems.append(f"launches and dispatches {got}, want {want_counts} "
@@ -6101,8 +6530,12 @@ def _cluster_counts(observe) -> dict:
             "hits": int(m.counter("dl4j_tpu_prefix_hits_total").value),
             "decode_steps": m.histogram(
                 "dl4j_tpu_serving_decode_step_seconds").count,
-            "generic not_usable": dispatch_tally().get(
-                "dot_product_attention generic not_usable", 0)}
+            **{k: dispatch_tally().get(k, 0) for k in (
+                "dot_product_attention generic not_usable",
+                "dot_product_attention cuda usable",
+                "dot_product_attention generic crossover",
+                "paged_decode_attention cuda usable",
+                "paged_decode_attention generic crossover")}}
 
 
 def lenet_bf16_phase(dev, smi):
@@ -6613,6 +7046,12 @@ def main() -> int:
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
 
+    # ------------------------------------------------------------- tuning
+    problems, line = tuning_phase(dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"tuning phase failed: {problems}")
+
     # ------------------------------------------------------------- serve
     cfg = GptConfig.base()
     params = init_gpt_params(cfg, seed=0, device=dev,
@@ -6637,9 +7076,11 @@ def main() -> int:
 
     observe.reset()
     eng = GenerativeEngine(model, **engine_kw)
+    disp0 = dispatch_tally()
     ca.reset_launch_counts()          # the main path's run starts here
     results, wall = serve(eng, prompts)
     launches = ca.launch_counts()     # ... and ends here
+    serve_disp = dispatch_since(disp0)
     m = observe.metrics()
     decode_steps = m.histogram("dl4j_tpu_serving_decode_step_seconds").count
     admitted = int(m.counter("dl4j_tpu_serving_admitted_total").value)
@@ -6660,16 +7101,25 @@ def main() -> int:
         if r.tokens.size and not (0 <= r.tokens.min()
                                   and r.tokens.max() < cfg.vocab_size):
             problems.append("token out of vocab")
-    if launches["flash_attn_fwd"] < cfg.layers * len(prompts):
-        problems.append(f"flash launches {launches['flash_attn_fwd']} < "
-                        f"{cfg.layers} x {len(prompts)} requests")
+    # every prefill an attention a layer and every decode step a paged
+    # attention a layer, each sent to its kernel or (below a crossover of
+    # the standing tuning table) to the generic; the launches are the
+    # kernels' share
+    for op, name, least, what in (
+            ("dot_product_attention", "flash_attn_fwd",
+             cfg.layers * len(prompts), "requests"),
+            ("paged_decode_attention", "paged_decode",
+             cfg.layers * decode_steps, "decode steps")):
+        n = serve_disp.get(f"{op} cuda usable", 0)
+        cross = serve_disp.get(f"{op} generic crossover", 0)
+        if n + cross < least or not n or launches[name] != n:
+            problems.append(f"{name} launches {launches[name]}, {n} calls "
+                            f"to the kernel + {cross} by crossover (at "
+                            f"least {least}: {cfg.layers} x the {what})")
     # every float32 prefill on the tensor-core sm90_f32 forward
     if launches["flash_attn_fwd_f32_sm90"] != launches["flash_attn_fwd"]:
         problems.append(f"float32 serving launched the CUDA-core forward: "
                         f"{launches}")
-    if launches["paged_decode"] < cfg.layers * decode_steps:
-        problems.append(f"paged launches {launches['paged_decode']} < "
-                        f"{cfg.layers} x {decode_steps} decode steps")
     if serving_ledger != {k: ["first_compile"] for k in (
             "prefill", "write_prompt", "decode")}:
         problems.append(f"serving ledger {serving_ledger}")
@@ -6831,6 +7281,13 @@ def main() -> int:
     emit(line)
     if problems:
         raise SystemExit(f"int8_bert phase failed: {problems}")
+
+    # ------------------------------------------------- onnx_bert_autocast
+    problems, line, train_launches["onnx_bert_autocast"] = (
+        onnx_bert_autocast_phase(dev, smi, onnx_line, float32_out))
+    emit(line)
+    if problems:
+        raise SystemExit(f"onnx_bert_autocast phase failed: {problems}")
 
     # ------------------- lenet, lenet_bf16, bilstm_tagger, char_lstm
     for phase, fn in (("lenet", lenet_phase),

@@ -32,8 +32,11 @@ Passes (each independently sound; the pipeline loops to a fixpoint):
 The JAX package's environment switches (``DL4J_TPU_FUSION``,
 ``DL4J_TPU_CHECK_PASSES``, ``DL4J_TPU_AUTOCAST``) are not read: the
 pipeline is chosen by ``passes=`` (``SameDiff(optimize_passes=...)``) and
-the checker by ``check_invariants=``. The opt-in ``autocast`` pass is not
-ported yet; asking for it raises.
+the checker by ``check_invariants=``. The opt-in ``autocast`` pass
+(:data:`OPTIONAL_PASSES`, asked for by name in ``passes=``) casts the
+matrix operands of matmul- and conv-class nodes to bfloat16 and their
+results back to float32: on the card a ``fused_matmul_bias_act`` node then
+runs the 16-bit tensor-core kernel.
 
 The matchers and the pass-invariance checker read the shape/dtype evidence
 of the port's ``analysis`` package, with the JAX package's dtype
@@ -60,12 +63,10 @@ from deeplearning4j_tpu_torch.analysis.broadcast import (
 
 PASS_ORDER: Tuple[str, ...] = ("dce", "fold", "cse", "algebraic", "fusion")
 
-# the JAX package's opt-in passes (valid `passes=` names outside the
-# default pipeline): none is ported yet, and asking for one raises
-_NOT_PORTED_PASSES = ("autocast",)
-_AUTOCAST_NOT_PORTED = (
-    "the optimizer's opt-in 'autocast' pass is not ported yet (ROADMAP.md, "
-    "Queue 1 item 6)")
+# opt-in passes: valid names for `passes=`, but never part of the default
+# pipeline. "autocast" (bfloat16 matmul inputs / float32 interface)
+# changes VALUES within bfloat16 tolerance, so it must be asked for.
+OPTIONAL_PASSES: Tuple[str, ...] = ("autocast",)
 
 
 # folded outputs larger than this (elements) stay in the graph:
@@ -1110,6 +1111,80 @@ def _fusion(nodes, outputs, const_vals, var_shapes, seed_dtypes,
 
 
 # ---------------------------------------------------------------------------
+# autocast (opt-in: passes=(..., "autocast"))
+# ---------------------------------------------------------------------------
+
+# matmul/conv-class ops whose inputs are cast to bfloat16. Softmax,
+# layernorm and loss ops are deliberately not here: normalizers and losses
+# stay float32 (the standard mixed-precision recipe).
+_AUTOCAST_OPS = frozenset(
+    ["mmul", "linear", "tensordot", "conv2d", "fused_matmul_bias_act"])
+
+
+def _autocast(nodes, const_vals, var_shapes, seed_dtypes, input_avals,
+              local_ops, stats):
+    """Cast the first two (matrix) operands of each matmul/conv-class node
+    to bfloat16 and the node's output back to float32: bfloat16 tensor-core
+    math with a float32 interface (the products accumulate in float32; the
+    node rounds its result to bfloat16, and the cast-back keeps every
+    downstream dtype, so the invariant checker's interface contract
+    holds). Bias/residual operands (input 2+) stay float32: they join
+    after the accumulator. Only nodes whose original result is float32
+    are touched (a float64-promoting node keeps full precision).
+    Idempotent: once the inputs are bfloat16 there is nothing left to
+    cast."""
+    from deeplearning4j_tpu_torch import analysis as _an
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    if not any(n.op in _AUTOCAST_OPS and n.op not in local_ops
+               for n in nodes):
+        return nodes, False
+    avals, namer = _pass_workspace(nodes, const_vals, var_shapes,
+                                   seed_dtypes, input_avals, local_ops)
+    cast_cache: Dict[str, str] = {}
+    out_nodes, changed = [], False
+    for n in nodes:
+        if n.op not in _AUTOCAST_OPS or n.op in local_ops or \
+                len(n.outputs) != 1:
+            out_nodes.append(n)
+            continue
+        oa = avals.get(n.outputs[0])
+        if oa is None or oa.dtype != f32:
+            out_nodes.append(n)
+            continue
+        new_inputs = list(n.inputs)
+        n_cast = 0
+        for i, name in enumerate(n.inputs[:2]):
+            a = avals.get(name)
+            if a is None or a.dtype != f32:
+                continue
+            bf_name = cast_cache.get(name)
+            if bf_name is None:
+                bf_name = namer.fresh("autocast")
+                out_nodes.append(_Node_like(n, "cast", [name],
+                                            {"dtype": "bfloat16"},
+                                            [bf_name]))
+                avals[bf_name] = _an.AVal(a.shape, bf16)
+                cast_cache[name] = bf_name
+            new_inputs[i] = bf_name
+            n_cast += 1
+        if not n_cast:
+            out_nodes.append(n)
+            continue
+        out_name = n.outputs[0]
+        raw = namer.fresh("autocast_raw")
+        n.inputs = new_inputs
+        n.outputs = [raw]
+        out_nodes.append(n)
+        out_nodes.append(_Node_like(n, "cast", [raw], {"dtype": "float32"},
+                                    [out_name]))
+        avals[raw] = _an.AVal(oa.shape, bf16)
+        stats.record_fusion("autocast_casts", n_cast)
+        changed = True
+    return out_nodes, changed
+
+
+# ---------------------------------------------------------------------------
 # pass-invariance checking
 # ---------------------------------------------------------------------------
 
@@ -1207,7 +1282,8 @@ def optimize_graph(nodes, outputs: Sequence[str], *,
     Pure with respect to the inputs: ``nodes`` entries are copied, and
     ``const_env`` is never mutated (folded values land in
     ``GraphPlan.extra_consts``). ``passes=None`` enables all of
-    :data:`PASS_ORDER`; pass an explicit subset for per-pass control.
+    :data:`PASS_ORDER`; pass an explicit subset (which may include
+    :data:`OPTIONAL_PASSES` names) for per-pass control.
 
     ``check_invariants`` (default on): after every pass application the
     abstract interpreter re-derives the interface shapes/dtypes of the
@@ -1226,9 +1302,7 @@ def optimize_graph(nodes, outputs: Sequence[str], *,
         def resolve_op(name, _lo=local_ops):
             return _sd.resolve_graph_op(name, _lo)
     enabled = tuple(passes) if passes is not None else PASS_ORDER
-    if any(p in _NOT_PORTED_PASSES for p in enabled):
-        raise NotImplementedError(_AUTOCAST_NOT_PORTED)
-    valid = PASS_ORDER
+    valid = PASS_ORDER + OPTIONAL_PASSES
     unknown = [p for p in enabled if p not in valid]
     if unknown:
         raise ValueError(f"unknown optimizer pass(es) {unknown}; "
@@ -1247,7 +1321,7 @@ def optimize_graph(nodes, outputs: Sequence[str], *,
 
     for _ in range(max_iters):
         changed = False
-        for p in PASS_ORDER:
+        for p in PASS_ORDER + OPTIONAL_PASSES:
             if p not in enabled:
                 continue
             before = len(work)
@@ -1262,6 +1336,10 @@ def optimize_graph(nodes, outputs: Sequence[str], *,
                 work, ch = _fusion(work, outputs, const_vals,
                                    var_shapes or {}, seed_dtypes or {},
                                    input_avals, alias, local_ops, stats)
+            elif p == "autocast":
+                work, ch = _autocast(work, const_vals, var_shapes or {},
+                                     seed_dtypes or {}, input_avals,
+                                     local_ops, stats)
             else:
                 work, ch = _algebraic(work, const_vals, var_shapes or {},
                                       seed_dtypes or {}, alias, local_ops)

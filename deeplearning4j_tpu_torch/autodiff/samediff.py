@@ -50,8 +50,11 @@ What differs from the JAX package:
   with the training state and listeners, ``get_arr``/``set_arr``,
   ``variables`` and ``summary``; ``fit`` polls the preemption fault point
   and flag once a batch, keeps the data cursor and logs the
-  ``train_epoch`` event. Not yet: serde and graph checking (``check``;
-  ``validate=True`` raises) (ROADMAP.md, Queue 1 item 11).
+  ``train_epoch`` event; ``to_dict`` / ``save`` / ``load`` write and read
+  the JAX package's zip (either package loads the other's). Not yet:
+  ``as_stablehlo`` (it waits for ``autodiff/export.py``) and graph
+  checking (``check``; ``validate=True`` raises) (ROADMAP.md, Queue 1
+  item 11).
 * Control flow (``scan``, ``while_loop``, ``while_loop_multi``,
   ``scan_multi``, ``cond_multi``, ``cond``: the JAX package's signatures,
   the user's functions built from torch ops). A scan runs its fixed trip
@@ -66,7 +69,10 @@ What differs from the JAX package:
 
 from __future__ import annotations
 
+import io
+import json
 import time
+import zipfile
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -114,6 +120,26 @@ def canonical(value, device: Optional[torch.device] = None) -> torch.Tensor:
             t = torch.from_numpy(arr)
     t = t.to(canonical_dtype(t.dtype))
     return t if device is None else t.to(device)
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    """The numpy name of a dtype (``"float32"``, ``"bfloat16"``,
+    ``"bool"``): what the JAX package's ``graph.json`` holds."""
+    return str(dt).replace("torch.", "")
+
+
+def _jsonable(kw: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: list(v) if isinstance(v, tuple) else v for k, v in kw.items()}
+
+
+def _from_saved(arr: np.ndarray, device) -> torch.Tensor:
+    """A tensor from an array of a saved zip: ``np.savez`` keeps an
+    ``ml_dtypes.bfloat16`` array as raw two-byte records (numpy has no
+    other two-byte record type), read back as bfloat16."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
+                                ).view(torch.bfloat16).to(device)
+    return canonical(arr, device)
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -1769,6 +1795,95 @@ class SameDiff:
                                                   False) for f in fns)
                 else None)
         return self._jit_cache[key]
+
+    # ------------------------------------------------------------------ serde
+    def to_dict(self) -> Dict[str, Any]:
+        """The graph as the JAX package's ``graph.json`` holds it:
+        variables (name, type, shape, dtype name), nodes and the name
+        counter."""
+        return {
+            "variables": [
+                {"name": v.name, "vtype": v.vtype,
+                 "shape": list(v.shape) if v.shape else None,
+                 "dtype": _dtype_name(v.dtype) if v.dtype else "float32"}
+                for v in self._vars.values()
+            ],
+            "nodes": [
+                {"op": n.op, "inputs": n.inputs, "kwargs": _jsonable(n.kwargs),
+                 "outputs": n.outputs}
+                for n in self._nodes
+            ],
+            "name_counter": self._name_counter,
+        }
+
+    def save(self, path: str, save_updater_state: bool = False) -> None:
+        """``sd.save(file)``: the JAX package's zip — ``graph.json``
+        (:meth:`to_dict`), ``meta.json`` (the training step, so a resumed
+        ``fit`` keeps Adam's bias correction and the schedules aligned),
+        ``arrays.npz`` (every VARIABLE and CONSTANT, bfloat16 as
+        ``np.savez`` writes ``ml_dtypes.bfloat16``) and, when asked and
+        present, ``updater.npz`` (``"<variable>::<state key>"``)."""
+        unsaveable = sorted({n.op for n in self._nodes
+                             if n.op in self._local_ops})
+        if unsaveable:
+            raise ValueError(
+                "graph contains control-flow ops whose Python closures cannot "
+                f"be serialized: {unsaveable}; rebuild the graph after load() "
+                "or express the loop body as recorded ops")
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+            z.writestr("graph.json", json.dumps(self.to_dict(), indent=2))
+            z.writestr("meta.json", json.dumps({"step": self._step}))
+            buf = io.BytesIO()
+            np.savez(buf, **{k: _to_numpy(v) for k, v in self._arrays.items()})
+            z.writestr("arrays.npz", buf.getvalue())
+            if save_updater_state and self._updater_state is not None:
+                buf2 = io.BytesIO()
+                flat = {}
+                for n, st in self._updater_state.items():
+                    for k, v in st.items():
+                        flat[f"{n}::{k}"] = _to_numpy(v)
+                np.savez(buf2, **flat)
+                z.writestr("updater.npz", buf2.getvalue())
+
+    @staticmethod
+    def load(path: str, device: Union[str, torch.device, None] = None
+             ) -> "SameDiff":
+        """A graph :meth:`save` (or the JAX package's ``save``) wrote, on
+        ``device`` (the card unless the caller asks for the CPU). Arrays
+        keep the dtype ``graph.json`` names for them: bfloat16, which
+        ``np.savez`` stores as two raw bytes an element, is read back as
+        bfloat16."""
+        from deeplearning4j_tpu_torch.analysis.values import as_dtype
+
+        sd = SameDiff(device=device)
+        with zipfile.ZipFile(path, "r") as z:
+            d = json.loads(z.read("graph.json").decode())
+            arrays = np.load(io.BytesIO(z.read("arrays.npz")))
+            for vd in d["variables"]:
+                v = SDVariable(sd, vd["name"], vd["vtype"],
+                               tuple(vd["shape"]) if vd["shape"] else None,
+                               as_dtype(vd["dtype"]))
+                sd._vars[v.name] = v
+                if v.name in arrays.files:
+                    sd._arrays[v.name] = _from_saved(arrays[v.name],
+                                                     sd.device)
+            for nd in d["nodes"]:
+                sd._nodes.append(_Node(nd["op"], list(nd["inputs"]),
+                                       dict(nd["kwargs"]),
+                                       list(nd["outputs"])))
+            sd._name_counter = d.get("name_counter", len(sd._vars))
+            if "meta.json" in z.namelist():
+                sd._step = int(json.loads(
+                    z.read("meta.json").decode()).get("step", 0))
+            if "updater.npz" in z.namelist():
+                upd = np.load(io.BytesIO(z.read("updater.npz")))
+                state: Dict[str, Dict[str, torch.Tensor]] = {}
+                for key in upd.files:
+                    n, k = key.split("::", 1)
+                    state.setdefault(n, {})[k] = _from_saved(upd[key],
+                                                             sd.device)
+                sd._updater_state = state
+        return sd
 
     # --------------------------------------------------------------- listeners
     def set_listeners(self, *listeners) -> None:

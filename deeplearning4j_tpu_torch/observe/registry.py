@@ -116,6 +116,10 @@ class Histogram:
             cum += c
         return vmax
 
+    @property
+    def mean(self) -> Optional[float]:
+        return (self.sum / self.count) if self.count else None
+
     def percentiles(self) -> Dict[str, Optional[float]]:
         return {"p50": self.quantile(0.50), "p95": self.quantile(0.95),
                 "p99": self.quantile(0.99)}
@@ -160,6 +164,30 @@ class MetricsRegistry:
         """Sum of a counter/gauge family across all label sets."""
         return sum(i.value for i in self.instruments()
                    if i.name == name and not isinstance(i, Histogram))
+
+    def merged_histogram(self, name: str) -> Histogram:
+        """A histogram merging every label set of ``name`` (the
+        cross-model latency distribution :func:`observe.summary` reads)."""
+        out: Optional[Histogram] = None
+        for inst in self.instruments():
+            if inst.name != name or not isinstance(inst, Histogram):
+                continue
+            if out is None:
+                out = Histogram(name, bounds=inst.bounds)
+            if inst.bounds != out.bounds:
+                continue  # families share bounds; a stray mismatch is skipped
+            with inst._lock:
+                counts = list(inst.counts)
+                c, s, mn, mx = inst.count, inst.sum, inst.min, inst.max
+            for i, v in enumerate(counts):
+                out.counts[i] += v
+            out.count += c
+            out.sum += s
+            if mn is not None:
+                out.min = mn if out.min is None else min(out.min, mn)
+            if mx is not None:
+                out.max = mx if out.max is None else max(out.max, mx)
+        return out if out is not None else Histogram(name)
 
 
 _DEFAULT: Optional[MetricsRegistry] = None

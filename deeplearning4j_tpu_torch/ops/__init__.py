@@ -11,7 +11,9 @@ hand-written CUDA kernels as their ``"cuda"`` platform helpers
 (:mod:`.cuda_attention`, :mod:`.cuda_updater`, :mod:`.cuda_convbn`,
 :mod:`.cuda_matmul`, :mod:`.cuda_layernorm`, :mod:`.cuda_quantized`), and
 cuDNN's LSTM as ``lstm_layer``'s (:mod:`.cudnn_lstm`, a library call: the
-reference has no TPU kernel there). No kernel is built at import.
+reference has no TPU kernel there). The kernels' gates read their
+measured crossovers from :mod:`.tuning`'s table. No kernel is built at
+import.
 """
 
 from deeplearning4j_tpu_torch.ops import (  # noqa: F401

@@ -40,9 +40,10 @@ wrappers, the float32 ones' on ``.sm90_f32_launches``.
 
 :func:`register_platform_attention` installs the kernels under the
 ``"cuda"`` platform of the op registry, behind usable gates that mirror
-the JAX package's ``usable`` / ``_paged_usable`` without the TPU-measured
-``flash_min_t`` crossover: on the card every call the JAX gate would send
-to its kernel launches this one, dropout included. The kernels take
+the JAX package's ``usable`` / ``_paged_usable``, their crossovers
+(``flash_min_t``, ``min_pages``) read from the port's own tuning table
+(``ops/tuning.py``): on the card every call the JAX gate would send to its
+kernel launches this one, dropout included. The kernels take
 float32, bfloat16 and float16 and every head dim the JAX gates take (a
 multiple of 8) up to :data:`MAX_HEAD_DIM`; past that the gates refuse and
 the op runs its plain version (the wrappers, called directly, raise).
@@ -58,7 +59,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, tuning
 
 # every kernel takes every head dim D with D % 8 == 0 up to this
 MAX_HEAD_DIM = 256
@@ -785,11 +786,13 @@ def _on_cuda(*ts) -> bool:
 def flash_usable(q, k, v, mask=None, *, scaled: bool = True,
                  causal: bool = False, dropout_rate: float = 0.0,
                  dropout_rng=None) -> bool:
-    """Gate of the flash helper: the JAX ``usable`` without the
-    TPU-measured ``flash_min_t`` crossover — ranks, key-padding-only
-    masks, causal only for ``t_q == t_kv``, head dim a multiple of 8 — on
-    CUDA tensors. Dropout passes, as it does there (the kernels drop in
-    place). A head dim above :data:`MAX_HEAD_DIM`, which the JAX kernel
+    """Gate of the flash helper: the JAX ``usable`` on CUDA tensors —
+    ranks, key-padding-only masks, causal only for ``t_q == t_kv``, head
+    dim a multiple of 8, and the tuning table's measured ``flash_min_t``
+    (``ops/tuning.py``): a key length below it without dropout returns
+    :data:`~.tuning.CROSSOVER` (the generic runs, counted under the reason
+    ``"crossover"``). Dropout passes, as it does there (the kernels drop
+    in place). A head dim above :data:`MAX_HEAD_DIM`, which the JAX kernel
     takes and these are not built for, is refused: the op runs its plain
     version, counted as a ``not_usable`` generic dispatch. The dtype is not
     checked here: the kernel wrappers raise on one they do not take
@@ -810,7 +813,12 @@ def flash_usable(q, k, v, mask=None, *, scaled: bool = True,
         return False
     if causal and t_q != t_kv:
         return False
-    return mask_ok and q.shape[-1] % 8 == 0 and q.shape[-1] <= MAX_HEAD_DIM
+    if not (mask_ok and q.shape[-1] % 8 == 0
+            and q.shape[-1] <= MAX_HEAD_DIM):
+        return False
+    if dropout_rate:
+        return True
+    return tuning.crossover("dot_product_attention", "flash_min_t", t_kv)
 
 
 def flash_dpa(q, k, v, mask=None, *, scaled: bool = True,
@@ -851,19 +859,23 @@ def flash_dpa(q, k, v, mask=None, *, scaled: bool = True,
 
 def paged_usable(q, k_pages, v_pages, page_table, seq_lens, **kw) -> bool:
     """Gate of the paged helper: the JAX ``_paged_usable`` on CUDA tensors
-    — documented ranks, head dim and page size multiples of 8. Its tuned
-    ``min_pages`` is a TPU measurement (default 1: always) and is left
-    out, as ``flash_min_t`` is. A head dim above :data:`MAX_HEAD_DIM` is
-    refused, as in :func:`flash_usable`; a dtype the kernel does not take
-    is not checked here: :func:`paged_decode_attention` raises on it."""
+    — documented ranks, head dim and page size multiples of 8, and a page
+    walk of at least the tuning table's measured ``min_pages``
+    (:data:`~.tuning.CROSSOVER` below it). A head dim above
+    :data:`MAX_HEAD_DIM` is refused, as in :func:`flash_usable`; a dtype
+    the kernel does not take is not checked here:
+    :func:`paged_decode_attention` raises on it."""
     if not _on_cuda(q, k_pages, v_pages, page_table, seq_lens):
         return False
     if q.ndim != 3 or k_pages.ndim != 4:
         return False
     if page_table.ndim != 2 or seq_lens.ndim != 1:
         return False
-    return (q.shape[-1] % 8 == 0 and q.shape[-1] <= MAX_HEAD_DIM
-            and k_pages.shape[1] % 8 == 0)
+    if not (q.shape[-1] % 8 == 0 and q.shape[-1] <= MAX_HEAD_DIM
+            and k_pages.shape[1] % 8 == 0):
+        return False
+    return tuning.crossover("paged_decode_attention", "min_pages",
+                            page_table.shape[1])
 
 
 def register_platform_attention() -> None:

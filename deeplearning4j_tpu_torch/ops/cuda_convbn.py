@@ -25,7 +25,9 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_convbn.py``::
   tensors it launches or raises. Its launches are counted in
   ``bn_matmul_stats.launches``, the sm90 design's also in
   ``bn_matmul_stats.sm90_launches``, and each launch's (M, K, N,
-  prologue, design) in the ``bn_matmul_stats.census`` Counter.
+  prologue, design) in the ``bn_matmul_stats.census`` Counter. The sm90
+  design's tile width comes from the tuning table's ``block_n`` for the
+  (M, K, N) bucket where one was measured (``ops/tuning.py``).
 * :func:`bn_matmul_stats_usable` is the JAX ``_pallas_ok`` minus its
   backend and environment checks: CUDA tensors, bfloat16 x, M % 128,
   K % 64 and N % 64.
@@ -49,7 +51,8 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, tuning
+from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.cuda_matmul import fullest_tile_n, sm_count
 from deeplearning4j_tpu_torch.ops.registry import exec_op, op
 
@@ -108,14 +111,26 @@ def convbn_tile_n(m: int, n: int, sms: int) -> int:
     return fullest_tile_n(m, n, TILE_N, sms, bm=BLOCK_M)
 
 
+def convbn_block_n(m: int, k: int, n: int, sms: int) -> int:
+    """The sm90 design's tile width for an (M, K, N) call: the tuning
+    table's ``block_n`` for its bucket (``ops/tuning.py``, measured by
+    ``autotune``), else :func:`convbn_tile_n`."""
+    return tuning.tuned_block("fused_bn_matmul_stats", "block_n", n,
+                              tuning.bucket_mkn(m, k, n),
+                              lambda s: convbn_tile_n(m, s, sms))
+
+
 def bn_matmul_stats_partials(x, scale, shift, w, stat_shift, *,
-                             relu: bool = True, fuse_prologue: bool = True):
+                             relu: bool = True, fuse_prologue: bool = True,
+                             block_n: int = 0):
     """The kernel's own outputs: ``(z, parts)`` with parts (2, M/128, N)
     float32, ``parts[0]`` the sums over each 128-row block of (acc − s)
     and ``parts[1]`` of (acc − s)², acc the float32 accumulator before z
     is rounded. Given CPU tensors, the plain version's
     (:func:`reference_partials` of the plain z). x and w bfloat16,
-    M % 128, K % 64, N % 64."""
+    M % 128, K % 64, N % 64. ``block_n``: the sm90 design's tile width
+    (one of :data:`TILE_N`); 0 takes the tuning table's ``block_n`` for
+    the (M, K, N) bucket, else :func:`convbn_tile_n`."""
     if x.device.type == "cpu":
         z = reference_bn_matmul_stats(x, scale, shift, w, stat_shift,
                                       relu=relu,
@@ -154,7 +169,10 @@ def bn_matmul_stats_partials(x, scale, shift, w, stat_shift, *,
             int(bool(relu)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if design == "sm90":
-        bn = convbn_tile_n(m, n, sm_count(x.device.index or 0))
+        bn = block_n or convbn_block_n(m, k, n, sm_count(x.device.index or 0))
+        if bn not in TILE_N:
+            raise ValueError(f"bn_matmul_stats_sm90: block_n {bn} is not one "
+                             f"of {TILE_N}")
         fn = _build.kernel_fn("bn_matmul_stats_sm90",
                               "dl4j_bn_matmul_stats_sm90", _SM90_ARGS)
         rc = fn(*args, bn, stream)
@@ -179,16 +197,18 @@ def bn_matmul_stats_partials(x, scale, shift, w, stat_shift, *,
 
 
 def bn_matmul_stats(x, scale, shift, w, stat_shift, *, relu: bool = True,
-                    fuse_prologue: bool = True):
+                    fuse_prologue: bool = True, block_n: int = 0):
     """The CUDA kernel of :func:`reference_bn_matmul_stats` — same
-    contract; x and w bfloat16, M % 128, K % 64, N % 64."""
+    contract; x and w bfloat16, M % 128, K % 64, N % 64; ``block_n`` as
+    :func:`bn_matmul_stats_partials` takes it."""
     if x.device.type == "cpu":
         return reference_bn_matmul_stats(x, scale, shift, w, stat_shift,
                                          relu=relu,
                                          fuse_prologue=fuse_prologue)
     z, parts = bn_matmul_stats_partials(x, scale, shift, w, stat_shift,
                                         relu=relu,
-                                        fuse_prologue=fuse_prologue)
+                                        fuse_prologue=fuse_prologue,
+                                        block_n=block_n)
     return (z,) + reduce_partials(parts, stat_shift)
 
 
@@ -218,8 +238,7 @@ def reset_launch_counts() -> None:
 def bn_matmul_stats_usable(x, scale, shift, w, stat_shift, **kw) -> bool:
     """Gate of the CUDA helper: ``_pallas_ok`` on CUDA tensors — bfloat16
     activations and block-divisible shapes."""
-    if not all(isinstance(t, torch.Tensor) and t.device.type == "cuda"
-               for t in (x, w)):
+    if not _on_cuda(x, w):
         return False
     if x.ndim != 2 or w.ndim != 2:
         return False

@@ -22,9 +22,9 @@ platform helper of ``fused_layer_norm``, the SameDiff optimizer's
   launches are counted in ``fused_layer_norm_kernel.launches``.
 * :func:`fused_layer_norm_usable` is the JAX ``_usable`` (``:178``) on
   CUDA tensors without its TPU limits: trailing axis, a known activation,
-  floating types, gain and bias of shape (D,). The Mosaic tile rule
-  (D % 128, rows % 8) and the TPU-measured ``min_rows`` are left out: the
-  kernel takes any rows and any D.
+  floating types, gain and bias of shape (D,), and the port's own
+  measured ``min_rows`` (``ops/tuning.py``). The Mosaic tile rule
+  (D % 128, rows % 8) is left out: the kernel takes any rows and any D.
 * :class:`FusedLayerNormFn` is the ``custom_vjp`` of ``:146`` as an
   ``autograd.Function``: the kernel forward saving only its inputs, and
   ``_fused_ln_bwd`` (``:156``) — autograd of :func:`generic_f32` on the
@@ -34,10 +34,11 @@ platform helper of ``fused_layer_norm``, the SameDiff optimizer's
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, tuning
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.nn_ops import (
     FUSED_MATMUL_ACTIVATIONS, apply_fused_activation,
@@ -164,8 +165,9 @@ def fused_layer_norm_helper(x, gain, bias=None, *, axis: int = -1,
 
 def fused_layer_norm_usable(x, gain, bias=None, **kw) -> bool:
     """Gate of the CUDA helper: the JAX ``_usable`` decisions on CUDA
-    tensors, without the TPU tile rule and ``min_rows`` (the kernel takes
-    any rows and any D). A kernel limit the JAX gate does not have
+    tensors, without the TPU tile rule (the kernel takes any rows and any
+    D); rows below the tuning table's measured ``min_rows`` return
+    :data:`~.tuning.CROSSOVER`. A kernel limit the JAX gate does not have
     (float64 x) raises in :func:`fused_layer_norm_kernel` instead of the op
     quietly running its generic."""
     if not _on_cuda(x, gain, *(() if bias is None else (bias,))):
@@ -180,7 +182,10 @@ def fused_layer_norm_usable(x, gain, bias=None, **kw) -> bool:
         return False
     if gain.ndim != 1 or gain.shape[0] != x.shape[-1]:
         return False
-    return bias is None or (bias.ndim == 1 and bias.shape[0] == x.shape[-1])
+    if bias is not None and (bias.ndim != 1 or bias.shape[0] != x.shape[-1]):
+        return False
+    return tuning.crossover("fused_layer_norm", "min_rows",
+                            math.prod(x.shape[:-1]))
 
 
 def kernel_tolerance(dtype: torch.dtype):

@@ -28,11 +28,10 @@ helper of ``fused_matmul_bias_act``, the SameDiff optimizer's matmul + bias
   ``fused_matmul.sm90_launches`` and the sm90_f32 design's in
   ``fused_matmul.sm90_f32_launches``.
 * :func:`fused_matmul_usable` is the JAX ``_usable`` (``:192``) on CUDA
-  tensors without its TPU limits: rank-2/3 x, 2-D w, float dtypes, no
-  transpose flags, a known activation, a rank-1 bias. The Mosaic tile
-  rule (M % 8, K % 128, N % 128) and the TPU-measured ``pallas_min_m``
-  crossover are left out: the kernel bounds-checks every edge, so every
-  epilogue fusion on the card launches it.
+  tensors without its Mosaic tile rule (M % 8, K % 128, N % 128; the
+  kernel bounds-checks every edge): rank-2/3 x, 2-D w, float dtypes, no
+  transpose flags, a known activation, a rank-1 bias, and M at least the
+  tuning table's measured ``pallas_min_m`` (``ops/tuning.py``).
 * :class:`FusedMatmulFn` is the ``custom_vjp`` of ``pallas_matmul.py:142``
   as an ``autograd.Function``: the kernel forward, and ``_fused_bwd``
   (``:158``) in PyTorch — the float32 pre-activation recomputed, the
@@ -58,7 +57,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.ops import _build, capture
+from deeplearning4j_tpu_torch.ops import _build, capture, tuning
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.nn_ops import (
     FUSED_MATMUL_ACTIVATIONS, apply_fused_activation,
@@ -361,8 +360,9 @@ def fused_matmul_helper(x, w, b=None, *, activation: str = "none",
 
 def fused_matmul_usable(x, w, b=None, **kw) -> bool:
     """Gate of the CUDA helper: the JAX ``_usable`` decisions on CUDA
-    tensors, without the TPU tile rule and ``pallas_min_m`` crossover (the
-    kernel takes any M, K and N). Kernel limits the JAX gate does not have
+    tensors, without the TPU tile rule (the kernel takes any M, K and N);
+    M below the table's ``pallas_min_m`` returns
+    :data:`~.tuning.CROSSOVER`. Kernel limits the JAX gate does not have
     (mixed or float64 operands) raise in :func:`fused_matmul` instead of
     the op quietly running its generic."""
     if not _on_cuda(x, w):
@@ -375,7 +375,10 @@ def fused_matmul_usable(x, w, b=None, **kw) -> bool:
         return False
     if not (x.is_floating_point() and w.is_floating_point()):
         return False
-    return b is None or getattr(b, "ndim", 0) == 1
+    if b is not None and getattr(b, "ndim", 0) != 1:
+        return False
+    return tuning.crossover("fused_matmul_bias_act", "pallas_min_m",
+                            math.prod(x.shape[:-1]))
 
 
 def kernel_tolerance(x, w, plain):

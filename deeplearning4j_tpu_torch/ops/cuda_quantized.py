@@ -31,19 +31,20 @@ tensors it launches or raises — there is no fallback.
 :func:`matmul_int8_usable` is the JAX ``_usable`` (``:211``) on CUDA
 tensors without its TPU rules: 2-D or 3-D float x, a 2-D int8 (K, N)
 weight, a (N,) or (1, N) float scale. The Mosaic tile rule (M % 32,
-K % 128, N % 128) is left out because the kernel bound-checks every edge,
-and the TPU-measured ``pallas_min_m`` crossover is left out as the other
-kernels' crossovers are (ROADMAP Queue 1 item 2). What the kernel cannot
+K % 128, N % 128) is left out because the kernel bound-checks every edge;
+the ``pallas_min_m`` crossover is read from the port's own tuning table
+(``ops/tuning.py``). What the kernel cannot
 take — a float64 x, an empty K, a mismatched scale — the gate refuses.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, tuning
 from deeplearning4j_tpu_torch.ops import quantized as Q
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda, _stream
 from deeplearning4j_tpu_torch.ops.cuda_matmul import (
@@ -216,7 +217,10 @@ def matmul_int8_usable(x, w_q, w_scale, **kw) -> bool:
     k, n = w_q.shape
     if k == 0 or x.shape[-1] != k or not w_scale.is_floating_point():
         return False
-    return tuple(w_scale.shape) in ((n,), (1, n))
+    if tuple(w_scale.shape) not in ((n,), (1, n)):
+        return False
+    return tuning.crossover("matmul_int8", "pallas_min_m",
+                            math.prod(x.shape[:-1]))
 
 
 # kernel name -> the wrapper holding its launch count

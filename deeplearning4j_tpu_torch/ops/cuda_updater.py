@@ -34,9 +34,10 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_updater.py``::
   leaves into such groups.
 
 :func:`fused_updater_usable` mirrors the JAX gate ``_usable`` (a floating
-leaf, equal shapes, the kind's number of state buffers) without the
-``min_size`` crossover, which is a TPU tuning-table figure: on the card
-every floating leaf takes the kernel. A float64 leaf passes the gate (as
+leaf, equal shapes, the kind's number of state buffers) with the
+``min_size`` crossover of the port's own tuning table (``ops/tuning.py``;
+``default.json``'s 0 sends every floating leaf to the kernel). A float64
+leaf passes the gate (as
 it passes the JAX one) and the wrapper raises on it: the kernel computes
 in float32.
 """
@@ -51,7 +52,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, tuning
+from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.registry import op
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -279,12 +281,12 @@ fused_updater.leaves = 0
 
 
 def fused_updater_usable(param, grad, lr, step, *state, **kw) -> bool:
-    """Gate of the CUDA helper: the JAX ``_usable`` minus ``min_size`` —
-    CUDA tensors, a floating leaf, equal shapes and the kind's number of
-    state buffers."""
+    """Gate of the CUDA helper: the JAX ``_usable`` — CUDA tensors, a
+    floating leaf, equal shapes and the kind's number of state buffers;
+    a leaf smaller than the tuning table's measured ``min_size`` returns
+    :data:`~.tuning.CROSSOVER`."""
     ts = (param, grad) + state
-    if not all(isinstance(t, torch.Tensor) and t.device.type == "cuda"
-               for t in ts):
+    if not _on_cuda(*ts):
         return False
     if not param.is_floating_point():
         return False
@@ -296,7 +298,9 @@ def fused_updater_usable(param, grad, lr, step, *state, **kw) -> bool:
                                        tuple(sorted(hyper.items())))
     except (ValueError, TypeError):
         return False
-    return len(state) == len(keys)
+    if len(state) != len(keys):
+        return False
+    return tuning.crossover("fused_updater_step", "min_size", param.numel())
 
 
 def register_platform_fused_updater() -> None:

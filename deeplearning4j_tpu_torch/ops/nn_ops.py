@@ -420,8 +420,11 @@ def dot_product_attention(q, k, v, mask=None, *, scaled: bool = True,
         # device, as it takes its value: no host read inside a step
         scores = scores / torch.tensor(float(q.shape[-1]),
                                        dtype=scores.dtype).sqrt()
-    # a fill on the device (no host copy, so it runs inside a capture)
-    neg = torch.full((), -1e9, dtype=scores.dtype, device=scores.device)
+    # a fill on the device (no host copy, so it runs inside a capture),
+    # cast to the scores' dtype as the reference's weak scalar is: -inf in
+    # float16, where a direct float16 fill of -1e9 raises on the card
+    neg = torch.full((), -1e9, dtype=torch.float32,
+                     device=scores.device).to(scores.dtype)
     if mask is not None:
         scores = torch.where(mask.bool(), scores, neg)
     if causal:

@@ -4,7 +4,11 @@ Counterpart of ``deeplearning4j_tpu/ops/registry.py``: each op has a plain
 PyTorch implementation (the generic path, and the in-package oracle) and
 may carry a hand-written kernel registered under the ``"cuda"`` platform,
 chosen per call behind a ``usable`` gate — libnd4j's
-``PlatformHelper::isUsable`` pattern, as the JAX package has it.
+``PlatformHelper::isUsable`` pattern, as the JAX package has it. A gate
+that returns :data:`~.tuning.CROSSOVER` passes the arguments but sends
+them to the generic by a measured crossover (``ops/tuning.py``): counted
+under the reason ``"crossover"``, or taken by the kernel under
+``helper_mode="kernel"`` (reason ``"forced_kernel"``).
 
 What differs from the JAX package: the platform is read from the tensor
 arguments (``"cuda"`` or ``"cpu"``), not from a process-wide backend,
@@ -21,6 +25,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.environment import environment
+from deeplearning4j_tpu_torch.ops.tuning import CROSSOVER
 
 def tensor_platform(*args: Any, **kwargs: Any) -> str:
     """Device type of the first tensor argument (``"cpu"`` when none)."""
@@ -80,11 +85,20 @@ class OpDescriptor:
             return self.fn
         # the usable gate comes from the SAME table entry as the impl
         usable = self.platform_usable.get(platform, lambda *a, **k: True)
-        if usable(*args, **kwargs):
-            _note_dispatch(self.name,
-                           self.platform_labels.get(platform, platform),
-                           "usable")
+        verdict = usable(*args, **kwargs)
+        label = self.platform_labels.get(platform, platform)
+        if verdict:
+            _note_dispatch(self.name, label, "usable")
             return impl
+        if verdict is CROSSOVER:
+            # the kernel takes these arguments; a measured crossover
+            # (ops/tuning.py) prefers the generic, unless the kernel is
+            # forced
+            if mode == "kernel":
+                _note_dispatch(self.name, label, "forced_kernel")
+                return impl
+            _note_dispatch(self.name, "generic", "crossover")
+            return self.fn
         if mode == "kernel":
             raise RuntimeError(
                 f"op {self.name}: helper_mode='kernel' but the {platform!r} "

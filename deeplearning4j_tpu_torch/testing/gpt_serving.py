@@ -1,7 +1,8 @@
 """Inputs shared by the serving parity tests: a tiny GPT's parameter tree
 filled from numpy, which both packages load (the JAX package as
-``jax.numpy`` arrays, the port through ``params_from_numpy``), and the
-prompts the tests serve.
+``jax.numpy`` arrays, the port through ``params_from_numpy``), the
+prompts the tests serve, and :func:`drain`, which steps an engine until
+its scheduler is idle within a step budget.
 
 The weights are drawn at std 2/sqrt(hidden) with random biases and
 LayerNorm affines, so greedy generation does not collapse onto the last
@@ -50,3 +51,22 @@ def shared_prefix_prompts(tails) -> list:
     """:data:`SYSTEM_PROMPT` followed by each tail."""
     return [np.concatenate([SYSTEM_PROMPT, np.asarray(t, np.int32)])
             for t in tails]
+
+
+#: steps :func:`drain` allows: the tests' requests finish in tens of steps
+DRAIN_STEPS = 2000
+
+
+def drain(engine, max_steps: int = DRAIN_STEPS) -> int:
+    """Step ``engine`` until its scheduler has no work; the steps taken.
+    A scheduler still busy after ``max_steps`` steps is stalled: raise
+    instead of stepping for ever."""
+    for n in range(max_steps):
+        if not engine.scheduler.has_work():
+            return n
+        engine.step()
+    if engine.scheduler.has_work():
+        raise RuntimeError(f"scheduler still has work after {max_steps} "
+                           f"steps: stalled")
+    return max_steps
+

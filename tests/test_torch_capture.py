@@ -47,6 +47,7 @@ from deeplearning4j_tpu_torch.ops.capture import (
     CapturedUnit, _Derived, _Static, capture_enabled, disable_capture)
 from deeplearning4j_tpu_torch.ops.registry import exec_op
 from deeplearning4j_tpu_torch.serving import GenerativeEngine
+from deeplearning4j_tpu_torch.testing.tables import pin_default_table
 
 PROMPTS = [np.array([3, 5, 7, 9], np.int32),
            np.array([11, 2], np.int32),
@@ -280,6 +281,20 @@ def test_engine_stages_host_state_in_one_buffer():
 
 
 # ------------------------------------------------------------------ card
+
+
+@pytest.fixture(autouse=True)
+def default_table(monkeypatch, tmp_path):
+    """The card tests drive the kernels at small shapes (a small BERT's M
+    of 128, a tiny GPT's prompts): they dispatch by ``default.json``
+    alone, every eligible call to its kernel, not by the card's measured
+    crossovers, under which cuBLAS would take the fused matmuls."""
+    from deeplearning4j_tpu_torch.ops import tuning
+
+    pin_default_table(monkeypatch, tmp_path)
+    yield
+    monkeypatch.undo()
+    tuning.reset_tables()
 
 
 @pytest.fixture

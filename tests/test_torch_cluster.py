@@ -28,7 +28,8 @@ from deeplearning4j_tpu_torch.serving import (
 from deeplearning4j_tpu_torch.serving.overload import (
     _serving_new_shape_count)
 from deeplearning4j_tpu_torch.testing.gpt_serving import (
-    SYSTEM_PROMPT, numpy_gpt_params, shared_prefix_prompts, tiny_config)
+    SYSTEM_PROMPT, drain, numpy_gpt_params, shared_prefix_prompts,
+    tiny_config)
 
 CFG = tiny_config()
 NP_PARAMS = numpy_gpt_params(CFG)
@@ -75,8 +76,7 @@ def test_prefix_affinity_routes_to_the_cached_engine():
     fut = r.submit(shared_prefix_prompts([[7]])[0], max_new_tokens=3,
                    eos_token=-1)
     assert r.engines[1].scheduler.pending_snapshot()[0][1] is fut
-    while r.engines[1].scheduler.has_work():
-        r.engines[1].step()
+    drain(r.engines[1])
     assert fut.result(timeout=0).prefix_hit_tokens == SYSTEM_PROMPT.size
     # affinity yields to load past the imbalance cap
     for p in PROMPTS:
@@ -172,8 +172,7 @@ def test_pinned_prefix_rewarms_on_the_destination():
     e1.prefix.clear()  # the survivor lost its tree; the intent survives
     e0.submit(PROMPTS[0], max_new_tokens=2)
     r._on_engine_death(e0, RuntimeError("boom"))
-    while e1.scheduler.has_work():
-        e1.step()
+    drain(e1)
     assert e1.prefix.pinned_pages == 2
     r.check_invariants()
 

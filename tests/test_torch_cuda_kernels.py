@@ -116,6 +116,7 @@ from deeplearning4j_tpu_torch.ops import cuda_convbn as cc
 from deeplearning4j_tpu_torch.ops import cuda_updater as cu
 from deeplearning4j_tpu_torch.ops import exec_op
 from deeplearning4j_tpu_torch.serving import GenerativeEngine
+from deeplearning4j_tpu_torch.testing.tables import pin_default_table
 from deeplearning4j_tpu_torch.testing import flash_check as fc
 
 pytestmark = pytest.mark.cuda
@@ -135,6 +136,20 @@ def _assert_close(out, ref, dtype, slack=0.0):
     worst = (err / lim).max().item()
     assert worst <= 1.0, (f"max |kernel - plain| {err.max().item():.3g}, "
                           f"{worst:.3g} x the tolerance")
+
+
+@pytest.fixture(autouse=True)
+def default_table(monkeypatch, tmp_path):
+    """These tests drive the kernels through the registry at small shapes:
+    they dispatch by ``default.json`` alone (every eligible call to its
+    kernel), not by the card's measured crossovers, which
+    ``test_card_table_routes_by_its_crossovers`` holds."""
+    from deeplearning4j_tpu_torch.ops import tuning
+
+    pin_default_table(monkeypatch, tmp_path)
+    yield
+    monkeypatch.undo()
+    tuning.reset_tables()
 
 
 @pytest.fixture
@@ -611,6 +626,29 @@ def test_flash_design_routes_by_counters(cuda):
                           "flash_attn_dkv": 1, "flash_attn_dkv_sm90": sm90,
                           "flash_attn_dkv_f32_sm90": f32_bwd,
                           "paged_decode": 0}, (dtype, d, counts)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float16, 2.0 ** -6),
+                                       (torch.bfloat16, 2.0 ** -4)],
+                         ids=["float16", "bfloat16"])
+def test_generic_attention_masks_16_bit_on_the_card(cuda, dtype, tol):
+    """The generic ``dot_product_attention`` (the route a call below
+    ``flash_min_t`` takes) fills masked scores with the reference's -1e9
+    rounded to the scores' dtype (-inf in float16), on the card as on the
+    host: a direct float16 fill of -1e9 raised on the card. It stays
+    within a 16-bit rounding bound of the float32 generic."""
+    from deeplearning4j_tpu_torch.ops.registry import registry
+
+    generic = registry().get("dot_product_attention").fn
+    t = 20
+    q, k, v = (_randn((2, 3, t, 64), dtype, cuda, 70 + i) for i in range(3))
+    m = (torch.arange(t, device=cuda)[None] < torch.tensor(
+        [[t], [9]], device=cuda))[:, None, None, :]
+    out = generic(q, k, v, m, scaled=True, causal=True)
+    want = generic(q.float(), k.float(), v.float(), m, scaled=True,
+                   causal=True)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("causal,rate", [(False, 0.0), (True, 0.0),
@@ -2213,3 +2251,28 @@ def test_small_table_gather_gradient_same_bits_every_run(cuda, rows, dtype):
         tol = 1e-3 if dtype == torch.float32 else 0.5
         torch.testing.assert_close(runs[0].float(), want, rtol=2 ** -7,
                                    atol=tol)
+
+
+def test_card_table_routes_by_its_crossovers(cuda, default_table,
+                                             monkeypatch):
+    """With the card's checked-in table standing (when this card's kind
+    has one): a fused matmul below its ``pallas_min_m`` takes the generic,
+    counted under ``crossover``; at it, the kernel."""
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.ops import tuning
+
+    monkeypatch.undo()
+    tuning.reset_tables()
+    min_m = int(tuning.tuned("fused_matmul_bias_act", "pallas_min_m", 0))
+    if not min_m:
+        pytest.skip(f"no measured table for {tuning.current_device_kind()}")
+    w = _randn((64, 64), torch.float32, cuda, 1)
+    observe.reset()
+    exec_op("fused_matmul_bias_act", _randn((min_m - 1, 64), torch.float32,
+                                            cuda, 0), w)
+    exec_op("fused_matmul_bias_act", _randn((min_m, 64), torch.float32,
+                                            cuda, 0), w)
+    assert observe.dispatch_summary() == {
+        "fused_matmul_bias_act/cuda/usable": 1,
+        "fused_matmul_bias_act/generic/crossover": 1}
+

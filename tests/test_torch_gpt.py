@@ -26,6 +26,7 @@ from deeplearning4j_tpu.models import gpt as jgpt
 from deeplearning4j_tpu.serving import GenerativeEngine as JaxEngine
 from deeplearning4j_tpu_torch.models import gpt as tgpt
 from deeplearning4j_tpu_torch.serving import GenerativeEngine
+from deeplearning4j_tpu_torch.testing.gpt_serving import drain
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CFG_J = jgpt.GptConfig.tiny()
@@ -137,8 +138,7 @@ def test_engine_greedy_matches_jax_engine_midflight(budgets):
         for e in (jeng, eng):
             futs = [e.submit(p, max_new_tokens=b, eos_token=-1)
                     for p, b in zip(PROMPTS, budgets)]
-            while e.scheduler.has_work():
-                e.step()
+            drain(e)
             results.append([f.result(timeout=0) for f in futs])
         wants, gots = results
     for want, got in zip(wants, gots):

@@ -4,9 +4,11 @@
   validation spec (``ops/validation.py``; no exemption list), and the
   port's registry holds every name of the JAX registry (285) plus its own
   two (``fused_bn_matmul_stats``, ``lstm_layer``).
-* Parity, one case per (spec, dtype): the spec's seeded numpy inputs
-  through the JAX op's ``.fn`` and through the port's registry op
-  (``tests/torch_parity.assert_parity``), in float32 and in each 16-bit
+* Parity, one case per (spec, dtype) (the ops by name in three runs:
+  this file, ``test_torch_op_catalog_2.py`` and ``_3.py``): the spec's
+  seeded numpy inputs through the JAX op's ``.fn`` and through the
+  port's registry op (``tests/torch_parity.assert_parity``), in float32
+  and in each 16-bit
   dtype the spec takes, at the spec's stated tolerance, with the same
   output structure, shapes and dtypes; gradients (``jax.vjp`` against
   ``torch.autograd``) where the spec asks, float32. The port's own two
@@ -81,17 +83,41 @@ def test_every_op_has_a_spec_and_the_catalog_is_whole():
     assert TS.REGISTRY_SHADOW_WHITELIST == JS.REGISTRY_SHADOW_WHITELIST
 
 
-_PARITY = [pytest.param(op, i, dtype, id=f"{spec.name}-{dtype}")
-           for op, specs in sorted(V.cases().items())
-           for i, spec in enumerate(specs) for dtype in spec.dtypes]
+# the parity cases run in three files (this one and
+# test_torch_op_catalog_2.py / _3.py), so that the test run's workers take
+# them in parallel: the ops by name in three runs of about equal cases
+PARITY_PARTS = 3
 
 
-@pytest.mark.parametrize("op,index,dtype", _PARITY)
-def test_op_matches_the_jax_op(op, index, dtype):
+def parity_cases(part: int) -> list:
+    """The parity cases of the ``part``-th of :data:`PARITY_PARTS` runs of
+    the ops by name."""
+    cases = [pytest.param(op, i, dtype, id=f"{spec.name}-{dtype}")
+             for op, specs in sorted(V.cases().items())
+             for i, spec in enumerate(specs) for dtype in spec.dtypes]
+    ops = [c.values[0] for c in cases]
+    # a part's bound moves to the next op's first case, so one op's cases
+    # stay in one part
+    cuts = [0]
+    for k in range(1, PARITY_PARTS):
+        at = round(k * len(cases) / PARITY_PARTS)
+        while 0 < at < len(cases) and ops[at] == ops[at - 1]:
+            at += 1
+        cuts.append(at)
+    cuts.append(len(cases))
+    return cases[cuts[part]:cuts[part + 1]]
+
+
+def check_op(op, index, dtype):
     spec = V.cases()[op][index]
     desc = tops.registry().get(op)
     port_kwargs = {"device": "cpu"} if V.takes_device(desc.fn) else {}
     spec_parity(spec, _reference(op), desc, dtype, port_kwargs)
+
+
+@pytest.mark.parametrize("op,index,dtype", parity_cases(0))
+def test_op_matches_the_jax_op(op, index, dtype):
+    check_op(op, index, dtype)
 
 
 # ---------------------------------------------------------------------------

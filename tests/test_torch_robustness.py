@@ -26,6 +26,7 @@ from deeplearning4j_tpu_torch.models.gpt import (
 from deeplearning4j_tpu_torch.serving import GenerativeEngine, PagedKVCache
 from deeplearning4j_tpu_torch.serving.scheduler import (
     FINISH_REASONS, GenerationRequest, SlotScheduler)
+from deeplearning4j_tpu_torch.testing.gpt_serving import drain
 
 CFG = GptConfig.tiny()
 MODEL = GptModel(CFG, params=init_gpt_params(
@@ -230,8 +231,7 @@ class TestDeadlinesAndShedding:
         faults.arm("slow_decode", prob=1.0)  # +50 ms a decode step
         eng = make_engine(max_slots=1)
         fut = eng.submit(PROMPTS[0], max_new_tokens=50, deadline_s=0.12)
-        while eng.scheduler.has_work():
-            eng.step()
+        drain(eng)
         res = fut.result(timeout=0)
         assert res.finish_reason == "deadline"
         assert res.tokens.size >= 1

@@ -319,15 +319,19 @@ def test_env_fusion_opt_out_and_plan_rebuild(monkeypatch):
 
 
 def test_autocast_is_refused_not_ignored(monkeypatch):
+    """``autocast`` is asked for by name in ``passes=`` (it is ported:
+    tests/test_torch_autocast.py); the JAX package's environment switch
+    is not read, and an unknown pass name raises."""
     sd, feeds, outs = g_epilogue("torch", True)
-    with pytest.raises(NotImplementedError, match="autocast"):
+    with pytest.raises(ValueError, match="unknown optimizer pass"):
         topt.optimize_graph(sd._nodes, ["out"], const_env={},
-                            passes=("dce", "autocast"))
+                            passes=("dce", "autocast_bf16"))
     monkeypatch.setenv("DL4J_TPU_AUTOCAST", "bf16")
     sd.output(feeds, list(outs))  # the environment is not read
+    assert "autocast_casts" not in sd.last_compile_stats.fusions
     sd.optimize_passes = topt.PASS_ORDER + ("autocast",)
-    with pytest.raises(NotImplementedError, match="autocast"):
-        sd.output(feeds, list(outs))
+    sd.output(feeds, list(outs))
+    assert sd.last_compile_stats.fusions["autocast_casts"] == 2
 
 
 def test_validate_is_refused_not_ignored():

@@ -27,8 +27,9 @@ never read by the loss). Checked, in float32:
 * the training state carried across: ``apply_training_state`` from the
   JAX ``training_state()`` after one step, then one more step in each,
   held as ``fit`` is;
-* the listener, counters and resume cursor of ``fit``; and the float64
-  finite-difference check of the tiny BERT's gradients through its plan;
+* the listener, counters and resume cursor of ``fit`` (the float64
+  finite-difference check of the tiny BERT's gradients through its plan
+  is in ``test_torch_samediff_gradcheck.py``);
 * bfloat16 numpy arrays (``ml_dtypes.bfloat16``) as variables and feeds of
   a small graph: ``output`` and one ``fit`` step against the JAX package,
   and a JAX bfloat16 training state applied to the port. Tolerance one
@@ -59,8 +60,6 @@ from deeplearning4j_tpu.nn.updater import Adam as JAdam
 from deeplearning4j_tpu_torch import observe
 from deeplearning4j_tpu_torch.autodiff import SameDiff as TSameDiff
 from deeplearning4j_tpu_torch.autodiff import TrainingConfig as TTC
-from deeplearning4j_tpu_torch.autodiff.gradcheck import (
-    check_samediff_gradients)
 from deeplearning4j_tpu_torch.autodiff.listeners import HistoryListener
 from deeplearning4j_tpu_torch.imports import onnx_import as timp
 from deeplearning4j_tpu_torch.nn.updater import Adam as TAdam
@@ -311,12 +310,6 @@ def test_fit_listeners_counters_and_resume(tiny):
     assert tsd._step == 4 and len(hl.history.loss_curve) == 4
     with pytest.raises(ValueError):
         TSameDiff(device="cpu").fit([b])
-
-
-def test_gradients_through_the_plan_pass_finite_differences(tiny):
-    model, feeds = tiny
-    tsd, _, loss = _finetune("torch", model)
-    assert check_samediff_gradients(tsd, feeds, loss, max_per_param=4)
 
 
 # ------------------------------------------------------- bfloat16 arrays

@@ -22,6 +22,7 @@ from deeplearning4j_tpu_torch.models.gpt import (
     GptConfig, GptModel, init_gpt_params, reference_generate)
 from deeplearning4j_tpu_torch.serving import (
     GenerativeEngine, PagedKVCache, sample_tokens)
+from deeplearning4j_tpu_torch.testing.gpt_serving import drain
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CFG = GptConfig.tiny()
@@ -201,8 +202,7 @@ class TestEngine:
         budgets = [3, 8, 2, 6, 4]
         results = [eng.submit(p, max_new_tokens=b, eos_token=-1)
                    for p, b in zip(PROMPTS, budgets)]
-        while eng.scheduler.has_work():
-            eng.step()
+        drain(eng)
         for p, b, f in zip(PROMPTS, budgets, results):
             res = f.result(timeout=0)
             assert res.finish_reason == "length"

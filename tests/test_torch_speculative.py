@@ -33,7 +33,7 @@ from deeplearning4j_tpu_torch.serving import (
 from deeplearning4j_tpu_torch.serving.replay import run_spec_replay
 from deeplearning4j_tpu_torch.serving.speculative import _draft_decode_step
 from deeplearning4j_tpu_torch.testing.gpt_serving import (
-    numpy_gpt_params, shared_prefix_prompts, tiny_config)
+    drain, numpy_gpt_params, shared_prefix_prompts, tiny_config)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CFG = tiny_config()
@@ -285,8 +285,7 @@ def test_sampling_slots_and_spec_disabled_take_plain_decode():
     eng = port_engine(spec_k=2, draft_model=DRAFT)
     futs = [eng.submit(PROMPTS[0], max_new_tokens=5, temperature=0.8),
             eng.submit(PROMPTS[1], max_new_tokens=5, eos_token=-1)]
-    while eng.scheduler.has_work():
-        eng.step()
+    drain(eng)
     sampled, greedy = [f.result(timeout=0) for f in futs]
     assert sampled.spec_proposed_tokens == 0
     assert greedy.spec_proposed_tokens > 0
@@ -294,8 +293,7 @@ def test_sampling_slots_and_spec_disabled_take_plain_decode():
     req = GenerationRequest(prompt=PROMPTS[2], max_new_tokens=5,
                             eos_token=-1, spec_disabled=True)
     fut = eng.submit_request(req)
-    while eng.scheduler.has_work():
-        eng.step()
+    drain(eng)
     res = fut.result(timeout=0)
     assert res.spec_disabled and res.spec_proposed_tokens == 0
     eng.check_invariants()

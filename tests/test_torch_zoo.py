@@ -245,8 +245,22 @@ def _jax_step(jnet, trees, xs, ys):
                 _host(jnet.opt_state))
 
 
-@pytest.mark.parametrize("name", TRAINABLE)
+# the fit cases run in four files, so that the test run's workers take
+# the heavy models in parallel: this file the light ones, and
+# test_torch_zoo_alexnet.py, test_torch_zoo_vgg.py, test_torch_zoo_deep.py
+FIT_FILES = {"test_torch_zoo_alexnet": ("AlexNet", "Darknet19"),
+             "test_torch_zoo_vgg": ("VGG16", "VGG19"),
+             "test_torch_zoo_deep": ("Xception", "InceptionResNetV1")}
+FIT_HERE = [m for m in TRAINABLE
+            if not any(m in ms for ms in FIT_FILES.values())]
+
+
+@pytest.mark.parametrize("name", FIT_HERE)
 def test_zoo_output_and_two_fit_steps_match_jax(name, monkeypatch):
+    check_output_and_two_fit_steps(name, monkeypatch)
+
+
+def check_output_and_two_fit_steps(name, monkeypatch):
     """``output`` in float32, then two ``fit`` steps of batch 4, each from
     one state in every network (the JAX network's after the step before),
     held to the port's step in float64 from that state.
