@@ -429,6 +429,27 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    (probabilities and last hidden state); eager forward p50, tokens/s,
    busy share, peak memory; and a Sequential Conv1D classifier from the
    same builder against its generic run and its CPU import.
+21. ``aot_warm_boot`` — the export cache (``autodiff/export.py``,
+   ``serving/aot.py``; the kernels as ``torch.library`` operators), each
+   leg a fresh process (``chip_smoke.py --aot-leg``) with
+   ``DL4J_TPU_COMPILE_CACHE`` set or not: GPT-2-small width (4 layers)
+   served by ``run_randomized_replay`` (16 requests, prefix cache and
+   speculation armed, every 4th request sampled: the plain decode step;
+   the prefix cache hit in every leg) cold,
+   populating and warm — tokens bit for bit across the three, no serving
+   ``first_compile`` in the warm leg, no ``new_shape`` in any, the flash
+   and paged decode launches of each leg equal; onnx_bert (batch 32 ×
+   128) through ``export_exec`` in one process, its output equal to the
+   same process's plain forward, and ``warm_boot_samediff`` in another,
+   equal to it, 72 ``sm90_f32`` fused matmuls and 12 ``sm90_f32`` flash
+   forwards a restored forward, only ``cache_hit`` in the ledger; LeNet
+   under ``TrainingSupervisor`` (synchronous saves), its train step
+   exported, killed by SIGKILL after 3 of 6 steps and resumed in a fresh
+   process (checkpoint and warm boot): every score and the final
+   parameters equal to an uninterrupted run of the exported step, 3 + 3
+   updater launches, the exported step against the plain step. Each
+   leg's process-start-to-first-output seconds, each entry's bytes, the
+   export and load seconds.
 
 Every training phase (5–8, 10, 12–17) runs its steps as CUDA-graph
 training units (``nn/compiled.py``): the warm-up captures each step key,
@@ -6916,6 +6937,497 @@ def zoo_cnn_phase(dev, smi, train=None, detect=None, kwargs=None):
     return problems, {"fused_updater": launches}
 
 
+# ---------------------------------------------------------------------------
+# the export cache: cold, populating and warm processes
+# ---------------------------------------------------------------------------
+
+AOT_REQUESTS = 16       # aot_warm_boot: run_randomized_replay's requests
+#                         (16: shared-prefix requests hit the prefix cache)
+AOT_SERVE_LAYERS = 4    # GPT-2-small width, depth cut from 12 (the phase
+#                         exports and loads seven step programs per layer)
+AOT_SEED = 3
+AOT_SAMPLE_EVERY = 4    # every 4th request samples: the plain decode step
+AOT_LENET_BATCHES = 6   # one epoch of batch 64: the supervised LeNet run
+AOT_LENET_KILL = 3      # the first process is killed after this iteration
+AOT_LEG_TIMEOUT = 420   # seconds a leg's process may take
+
+
+def _aot_dir(name: str) -> str:
+    """A fresh directory under ``build/chip_smoke_aot`` (ignored by git)."""
+    import pathlib
+    import shutil
+
+    d = pathlib.Path(__file__).resolve().parent / "build" / \
+        "chip_smoke_aot" / name
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return str(d)
+
+
+def _spawn_leg(leg: str, cache_dir, out_dir: str):
+    """Run one leg in a fresh Python process, the export cache at
+    ``cache_dir`` (None: ``$DL4J_TPU_COMPILE_CACHE`` unset). Returns (exit
+    code, the leg's record or None, the end of its stderr)."""
+    from deeplearning4j_tpu_torch.autodiff.export import ENV_DIR
+
+    env = dict(os.environ)
+    env.pop(ENV_DIR, None)
+    if cache_dir is not None:
+        env[ENV_DIR] = cache_dir
+    out = os.path.join(out_dir, f"{leg}.json")
+    if os.path.exists(out):
+        os.remove(out)
+    t_spawn = time.time()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--aot-leg", leg, out_dir, repr(t_spawn)], env=env,
+                       capture_output=True, text=True,
+                       timeout=AOT_LEG_TIMEOUT)
+    rec = None
+    if os.path.exists(out):
+        with open(out) as f:
+            rec = json.load(f)
+    return p.returncode, rec, p.stderr[-3000:]
+
+
+def _leg_launches() -> dict:
+    """The counters of the kernels the export cache's paths run."""
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    counts = {k: v for k, v in ca.launch_counts().items()
+              if k in ("flash_attn_fwd", "flash_attn_fwd_sm90",
+                       "flash_attn_fwd_f32_sm90", "paged_decode")}
+    counts.update(
+        fused_matmul_bias_act=cm.fused_matmul.launches,
+        fused_matmul_bias_act_sm90=cm.fused_matmul.sm90_launches,
+        fused_matmul_bias_act_f32_sm90=cm.fused_matmul.sm90_f32_launches,
+        fused_updater=cu.fused_updater.launches)
+    return counts
+
+
+def _zero_leg_launches() -> None:
+    from deeplearning4j_tpu_torch.ops import cuda_attention as ca
+    from deeplearning4j_tpu_torch.ops import cuda_matmul as cm
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+
+    ca.reset_launch_counts()
+    cm.fused_matmul.launches = cm.fused_matmul.sm90_launches = 0
+    cm.fused_matmul.sm90_f32_launches = 0
+    cu.fused_updater.launches = cu.fused_updater.leaves = 0
+
+
+def _aot_serve_leg(dev, t_spawn: float) -> dict:
+    """GPT-2-small width (``GptConfig.base()`` at ``AOT_SERVE_LAYERS``
+    layers, random weights drawn as the ``serve`` phase draws them)
+    through ``run_randomized_replay`` with the prefix cache and
+    speculation armed; the engine warm-boots when the cache is set."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.gpt import (
+        GptConfig, GptModel, init_gpt_params)
+    from deeplearning4j_tpu_torch.serving.replay import run_randomized_replay
+
+    cfg = GptConfig.base(layers=AOT_SERVE_LAYERS)
+    params = init_gpt_params(cfg, seed=0, device=dev,
+                             std=2.0 / math.sqrt(cfg.hidden))
+    model = GptModel(cfg, params=params, device=dev)
+    _zero_leg_launches()  # the main path's run starts here
+    t_run = time.time()
+    out = run_randomized_replay(n_requests=AOT_REQUESTS, seed=AOT_SEED,
+                                model=model, device=dev,
+                                sample_every=AOT_SAMPLE_EVERY)
+    torch.cuda.synchronize()
+    launches = _leg_launches()  # ... and ends here
+    first = (t_run - t_spawn + out["boot_s"]
+             + (out["ttft_first_ms"] or 0.0) / 1e3)
+    return dict(out, launches=launches, process_to_first_output_s=first,
+                replay_s=time.time() - t_run)
+
+
+def _aot_sd_leg(dev, t_spawn: float, out_dir: str, warm: bool) -> dict:
+    """onnx_bert (``BERT_BASE_ONNX``, batch 32 × 128) imported; populating
+    (``warm`` False): ``export_exec`` and the exported forward, then the
+    plain forward of a fresh import in the same process; warm:
+    ``warm_boot_samediff`` and the restored forward. The counted forward's
+    launches, the output saved for the parent."""
+    import torch
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.autodiff import export as aot
+    from deeplearning4j_tpu_torch.imports import import_onnx
+    from deeplearning4j_tpu_torch.testing.onnx_builder import (
+        BERT_BASE_ONNX, bert_onnx_feeds)
+
+    cfg = BERT_BASE_ONNX
+    model, build_s = _bert_base_onnx()
+    feeds = bert_onnx_feeds(cfg["batch"], cfg["seq"], cfg["vocab"])
+    rec = {"build_bytes_s": build_s}
+    t0 = time.perf_counter()
+    sd = import_onnx(model, device=dev)
+    torch.cuda.synchronize()
+    rec["import_s"] = time.perf_counter() - t0
+    observe.reset()
+    t0 = time.perf_counter()
+    if warm:
+        rec["restored"] = aot.warm_boot_samediff(sd, ["y"])
+        rec["load_s"] = time.perf_counter() - t0
+    else:
+        path = aot.export_exec(sd, feeds, ["y"])
+        rec["export_s"] = time.perf_counter() - t0
+        rec["entry_bytes"] = os.path.getsize(path)
+    shim = sd._compiled_fn(("y",))
+    rec["batch_ranges"] = getattr(shim, "restored", None) and \
+        shim.restored.meta.get("batch_ranges")
+    y = sd.output(feeds, ["y"])["y"]  # the first output: captures
+    rec["process_to_first_output_s"] = time.time() - t_spawn
+    _zero_leg_launches()  # the main path's counted forward starts here
+    y2 = sd.output(feeds, ["y"])["y"]
+    torch.cuda.synchronize()
+    rec["launches"] = _leg_launches()  # ... and ends here
+    rec["replay_equal_first"] = bool(np.array_equal(y, y2))
+    rec["ledger"] = samediff_ledger(observe)
+    rec["restored_marker"] = bool(getattr(shim, "_aot_restored", False))
+    covers = getattr(shim, "aot_covers", None)
+    rec["fallback"] = covers is None or not covers(
+        {k: torch.as_tensor(v) for k, v in feeds.items()})
+    times = []
+    for _ in range(ONNX_BERT_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd.output(feeds, ["y"])
+        times.append(time.perf_counter() - t0)
+    rec["forward_p50_ms"] = float(np.percentile(times, 50)) * 1e3
+    np.save(os.path.join(out_dir, "sd_warm_y.npy" if warm
+                         else "sd_populate_y.npy"), y)
+    if not warm:
+        # the same graph's plain exec in this process: the in-process
+        # output the exported one must equal
+        del sd, shim
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = import_onnx(model, device=dev)
+        y_plain = plain.output(feeds, ["y"])["y"]
+        rec["plain_bits_equal"] = bool(np.array_equal(y, y_plain))
+        rec["plain_max_abs_diff"] = float(np.abs(y - y_plain).max())
+    rec["y_shape"] = list(y.shape)
+    rec["y_finite"] = bool(np.all(np.isfinite(y)))
+    return rec
+
+
+def _lenet_data():
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.testing import sequential as S
+
+    parts = S.lenet_batches(S.LENET["batch"], AOT_LENET_BATCHES)
+    x = np.concatenate([d.features for d in parts])
+    y = np.concatenate([d.labels for d in parts])
+    return (ListDataSetIterator(DataSet(x, y),
+                                batch_size=S.LENET["batch"]),
+            parts[0])
+
+
+class _KillAfter:
+    """A listener: records each iteration's score and, after iteration
+    ``kill_at``, writes the record and kills its own process (SIGKILL)."""
+
+    def __init__(self, kill_at, out, rec):
+        self.kill_at, self.out, self.rec = kill_at, out, rec
+
+    def iteration_done(self, model, iteration, epoch, score):
+        import signal
+
+        self.rec["scores"][str(iteration)] = float(score)
+        self.rec.setdefault("process_to_first_output_s",
+                            time.time() - self.rec["t_spawn"])
+        if iteration == self.kill_at:
+            self.rec["launches"] = _leg_launches()
+            with open(self.out, "w") as f:
+                json.dump(self.rec, f)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def _aot_lenet_leg(dev, t_spawn: float, out_dir: str, resume: bool):
+    """``LeNet()`` under ``TrainingSupervisor`` (synchronous saves every
+    step) over one epoch of ``AOT_LENET_BATCHES`` batches: the first
+    process exports the train step into the cache, trains and is killed
+    (SIGKILL) after iteration ``AOT_LENET_KILL``; the second, fresh,
+    resumes — the checkpoint and the warm boot — and trains the rest."""
+    import torch
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.autodiff import export as aot
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.parallel import (
+        TrainingCheckpointer, TrainingSupervisor)
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    data, first = _lenet_data()
+    net = LeNet(device=dev).init()
+    sup = TrainingSupervisor(net, TrainingCheckpointer(
+        os.path.join(out_dir, "lenet_ckpt")), save_every=1,
+        asynchronous=False)
+    rec = {"scores": {}, "t_spawn": t_spawn}
+    observe.reset()
+    _zero_leg_launches()
+    if not resume:
+        t0 = time.perf_counter()
+        path = aot.export_train_step(net, first.features, first.labels)
+        rec["export_s"] = time.perf_counter() - t0
+        rec["entry_bytes"] = os.path.getsize(path)
+        rec["batch_range"] = net._jit_cache["train_step"].meta["batch_range"]
+        sup._attach()  # the checkpoint listener first: a save, then the kill
+        net.add_listeners(_KillAfter(AOT_LENET_KILL, os.path.join(
+            out_dir, "lenet_kill.json"), rec))
+        sup.fit(data, epochs=1, resume=False)
+        raise RuntimeError("the killed LeNet process finished its epoch")
+    t0 = time.perf_counter()
+    rec["resumed_at"] = sup.resume()
+    rec["load_s"] = time.perf_counter() - t0
+    step = net._jit_cache.get("train_step")
+    rec["warm_booted"] = step is not None and bool(step._aot_restored)
+    net.add_listeners(_KillAfter(None, None, rec))
+    status = sup.fit(data, epochs=1, resume=False)
+    torch.cuda.synchronize()
+    rec["status"] = status
+    rec["launches"] = _leg_launches()
+    rec["fell_back"] = step is None or step.plain
+    rec["ledger"] = [[ev.key, ev.cause] for ev in observe.ledger().events()
+                     if ev.graph == "mln"]
+    np.savez(os.path.join(out_dir, "lenet_resumed.npz"),
+             *[t.detach().cpu().numpy() for p in net.params
+               for t in torch.utils._pytree.tree_leaves(p)])
+    return rec
+
+
+def aot_leg_main(argv) -> int:
+    """``chip_smoke.py --aot-leg LEG OUT_DIR T_SPAWN``: one leg of the
+    ``aot_warm_boot`` phase in this fresh process; its record lands in
+    ``OUT_DIR/LEG.json``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    leg, out_dir, t_spawn = argv[0], argv[1], float(argv[2])
+    dev = torch.device("cuda", 0)
+    if leg.startswith("serve"):
+        rec = _aot_serve_leg(dev, t_spawn)
+    elif leg.startswith("sd_"):
+        rec = _aot_sd_leg(dev, t_spawn, out_dir, warm=leg == "sd_warm")
+    else:
+        rec = _aot_lenet_leg(dev, t_spawn, out_dir,
+                             resume=leg == "lenet_resume")
+    with open(os.path.join(out_dir, f"{leg}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _lenet_oracles(dev, cache_dir):
+    """The LeNet run uninterrupted in this process, through the exported
+    step (its own cache) and through the plain step: (scores, final
+    parameters) of each."""
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import export as aot
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    for mode in ("exported", "plain"):
+        data, first = _lenet_data()
+        net = LeNet(device=dev).init()
+        if mode == "exported":
+            aot.export_train_step(net, first.features, first.labels,
+                                  cache=aot.ExportCache(cache_dir))
+        log = _StepLog()
+        net.set_listeners(log)
+        net.fit(data, epochs=1)
+        _sync(dev)
+        out[mode] = ({str(i): s for i, s in log.calls},
+                     [t.detach().cpu().numpy() for p in net.params
+                      for t in torch.utils._pytree.tree_leaves(p)])
+        del net
+    return out
+
+
+def aot_warm_boot_phase(dev, smi):
+    """The export cache (``autodiff/export.py``, ``serving/aot.py``) on
+    the card, each leg a fresh process: GPT-2-small serving cold,
+    populating and warm; onnx_bert exported and warm-booted; LeNet under
+    ``TrainingSupervisor`` killed and resumed warm. Returns (problems,
+    line, launches of the restored programs)."""
+    out_dir = _aot_dir("legs")
+    cache_dir = _aot_dir("cache")
+    problems, legs = [], {}
+    for leg, cache in (("serve_cold", None), ("serve_populate", cache_dir),
+                       ("serve_warm", cache_dir), ("sd_populate", cache_dir),
+                       ("sd_warm", cache_dir), ("lenet_kill", cache_dir),
+                       ("lenet_resume", cache_dir)):
+        rc, rec, err = _spawn_leg(leg, cache, out_dir)
+        want_rc = -9 if leg == "lenet_kill" else 0
+        if rc != want_rc or rec is None:
+            problems.append(f"{leg}: exit {rc} (want {want_rc}), record "
+                            f"{rec is not None}: {err}")
+            rec = rec or {}
+        legs[leg] = rec
+    # serving: tokens bit for bit across the legs, the warm leg without a
+    # first_compile, no new_shape anywhere, the kernels in every leg
+    cold, pop, warm = (legs.get(k, {}) for k in (
+        "serve_cold", "serve_populate", "serve_warm"))
+    keys = ["decode", "draft_decode", "draft_prefill", "prefill",
+            "suffix_prefill", "verify", "write_prompt"]
+    if not (cold.get("outputs") and cold.get("outputs") == pop.get(
+            "outputs") == warm.get("outputs")):
+        problems.append("serving tokens differ across cold, populate and "
+                        "warm")
+    if warm.get("first_compile_keys") != []:
+        problems.append(f"warm serving first_compile "
+                        f"{warm.get('first_compile_keys')}")
+    if sorted(warm.get("aot", {}).get("restored", [])) != keys or sorted(
+            pop.get("aot", {}).get("exported", [])) != keys:
+        problems.append(f"restored {warm.get('aot')}, exported "
+                        f"{pop.get('aot')}")
+    if not (warm.get("prefix_hit_tokens") and cold.get(
+            "prefix_hit_tokens") == warm.get("prefix_hit_tokens")
+            and "suffix_prefill" in warm.get("cache_hit_keys", [])):
+        problems.append(f"prefix hits cold {cold.get('prefix_hit_tokens')}"
+                        f", warm {warm.get('prefix_hit_tokens')}; warm "
+                        f"cache_hit {warm.get('cache_hit_keys')}")
+    for name, r in (("cold", cold), ("populate", pop), ("warm", warm)):
+        if r.get("new_shape_events") != 0:
+            problems.append(f"serve_{name}: new_shape "
+                            f"{r.get('new_shape_events')}")
+        if not r.get("all_terminal"):
+            problems.append(f"serve_{name}: a request did not finish")
+    for k in ("flash_attn_fwd", "flash_attn_fwd_f32_sm90", "paged_decode"):
+        n = warm.get("launches", {}).get(k)
+        if not n or n != cold.get("launches", {}).get(k) or n != pop.get(
+                "launches", {}).get(k):
+            problems.append(f"{k} launches cold {cold.get('launches')} "
+                            f"populate {pop.get('launches')} warm "
+                            f"{warm.get('launches')}")
+    # onnx_bert: the restored forward equal to the populating process's
+    # exported and plain forwards, 72 + 12 kernel launches a forward
+    sdp, sdw = legs.get("sd_populate", {}), legs.get("sd_warm", {})
+    layers = 12
+    want_sd = {"fused_matmul_bias_act": 6 * layers,
+               "fused_matmul_bias_act_f32_sm90": 6 * layers,
+               "flash_attn_fwd": layers, "flash_attn_fwd_f32_sm90": layers}
+    for name, r in (("sd_populate", sdp), ("sd_warm", sdw)):
+        got = {k: r.get("launches", {}).get(k) for k in want_sd}
+        if got != want_sd:
+            problems.append(f"{name} launches {got} != {want_sd}")
+        if not (r.get("y_finite") and r.get("y_shape") == [32, 128, 2]):
+            problems.append(f"{name}: output {r.get('y_shape')} not finite")
+        if r.get("fallback"):
+            problems.append(f"{name}: the restored exec fell back")
+        if not r.get("replay_equal_first"):
+            problems.append(f"{name}: replay differs from the first call")
+    if not sdp.get("plain_bits_equal"):
+        problems.append(f"sd_populate: exported forward differs from the "
+                        f"plain one by {sdp.get('plain_max_abs_diff')}")
+    if not sdw.get("restored") or {c for _, c in sdw.get("ledger", [])} \
+            != {"cache_hit"}:
+        problems.append(f"sd_warm: restored {sdw.get('restored')}, ledger "
+                        f"{sdw.get('ledger')}")
+    try:
+        y_pop = np.load(os.path.join(out_dir, "sd_populate_y.npy"))
+        y_warm = np.load(os.path.join(out_dir, "sd_warm_y.npy"))
+        sd_equal = bool(np.array_equal(y_pop, y_warm))
+    except OSError as e:
+        sd_equal = False
+        problems.append(f"onnx_bert outputs missing: {e}")
+    if not sd_equal:
+        problems.append("sd_warm output differs from sd_populate's")
+    # LeNet: killed after AOT_LENET_KILL, resumed warm, every score and
+    # the final parameters equal to the uninterrupted exported run's
+    kill, res = legs.get("lenet_kill", {}), legs.get("lenet_resume", {})
+    oracles = _lenet_oracles(dev, _aot_dir("oracle_cache"))
+    o_scores, o_params = oracles["exported"]
+    p_scores, p_params = oracles["plain"]
+    scores = dict(kill.get("scores", {}))
+    scores.update(res.get("scores", {}))
+    if scores != o_scores:
+        problems.append(f"LeNet scores killed + resumed {scores} != "
+                        f"uninterrupted {o_scores}")
+    try:
+        got = np.load(os.path.join(out_dir, "lenet_resumed.npz"))
+        got = [got[f"arr_{i}"] for i in range(len(got.files))]
+        lenet_equal = len(got) == len(o_params) and all(
+            np.array_equal(a, b) for a, b in zip(got, o_params))
+    except OSError as e:
+        lenet_equal = False
+        problems.append(f"LeNet parameters missing: {e}")
+    if not lenet_equal:
+        problems.append("LeNet resumed parameters differ from the "
+                        "uninterrupted exported run's")
+    remaining = AOT_LENET_BATCHES - AOT_LENET_KILL
+    if (res.get("resumed_at") != AOT_LENET_KILL or not res.get(
+            "warm_booted") or res.get("fell_back")
+            or res.get("status") != "completed"):
+        problems.append(f"LeNet resume: step {res.get('resumed_at')}, warm "
+                        f"{res.get('warm_booted')}, fell back "
+                        f"{res.get('fell_back')}, {res.get('status')}")
+    if res.get("launches", {}).get("fused_updater") != remaining or kill.get(
+            "launches", {}).get("fused_updater") != AOT_LENET_KILL:
+        problems.append(f"LeNet updater launches: killed "
+                        f"{kill.get('launches')}, resumed "
+                        f"{res.get('launches')}")
+    if {c for _, c in res.get("ledger", [])} != {"cache_hit"}:
+        problems.append(f"LeNet resumed ledger {res.get('ledger')}")
+    plain_diff = max(float(np.abs(a - b).max())
+                     for a, b in zip(p_params, o_params))
+    score_rel = max(abs(p_scores[k] - o_scores[k]) / abs(o_scores[k])
+                    for k in o_scores)
+    if score_rel > TRAIN_A_LOSS_RTOL:
+        problems.append(f"LeNet exported vs plain scores {score_rel} > "
+                        f"{TRAIN_A_LOSS_RTOL}")
+    strip = ("outputs", "scores", "t_spawn")
+    line = {"phase": "aot_warm_boot", "card": smi,
+            "legs": {k: {f: v for f, v in r.items() if f not in strip}
+                     for k, r in legs.items()},
+            "serve": {"model": f"GptConfig.base(layers={AOT_SERVE_LAYERS})",
+                      "requests": AOT_REQUESTS,
+                      "seed": AOT_SEED,
+                      "tokens_equal_cold_populate_warm": not any(
+                          "serving tokens" in p for p in problems),
+                      "process_to_first_output_s": {
+                          k: r.get("process_to_first_output_s")
+                          for k, r in (("cold", cold), ("populate", pop),
+                                       ("warm", warm))}},
+            "onnx_bert": {"restored_equal_populate": sd_equal,
+                          "restored_equal_plain": sd_equal and bool(
+                              sdp.get("plain_bits_equal")),
+                          "process_to_first_output_s": {
+                              "populate": sdp.get(
+                                  "process_to_first_output_s"),
+                              "warm": sdw.get("process_to_first_output_s")}},
+            "lenet": {"batches": AOT_LENET_BATCHES,
+                      "killed_after": AOT_LENET_KILL,
+                      "resumed_equal_uninterrupted": lenet_equal,
+                      "exported_vs_plain_max_param_diff": plain_diff,
+                      "exported_vs_plain_max_score_rel": score_rel,
+                      "plain_bits_equal_exported": plain_diff == 0.0},
+            "problems": problems}
+    launches = {}
+    for r in (warm, sdw, res):
+        for k, v in r.get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    _drop_ckpt_dirs()
+    return problems, line, launches
+
+
 def main() -> int:
     import torch
 
@@ -6923,6 +7435,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--aot-leg"]:
+        return aot_leg_main(sys.argv[2:])
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -7330,6 +7845,15 @@ def main() -> int:
     if problems:
         raise SystemExit(f"keras_bert phase failed: {problems}")
 
+    # ------------------------------------------------------ aot_warm_boot
+    t_aot = time.perf_counter()
+    problems, line, train_launches["aot_warm_boot"] = aot_warm_boot_phase(
+        dev, smi)
+    line["seconds"] = time.perf_counter() - t_aot
+    emit(line)
+    if problems:
+        raise SystemExit(f"aot_warm_boot phase failed: {problems}")
+
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it
     # (flash_attn_fwd, flash_attn_dq, flash_attn_dkv, fused_matmul_bias_act,
@@ -7418,6 +7942,9 @@ def main() -> int:
                                                        "library_chain_ms")
                                      if x in r})
                              for r in rows[1:]]})
+    emit({"seconds": time.perf_counter() - t_start,
+          "what": "chip_smoke from main() to its contract lines, the "
+                  "kernels' build included"})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -52,6 +52,7 @@ mutated.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -137,6 +138,31 @@ class GraphPlan:
 
     def resolve(self, name: str) -> str:
         return _resolve(self.alias, name)
+
+    def fingerprint(self) -> str:
+        """Canonical sha256 over everything that determines the computation
+        (the JAX ``GraphPlan.fingerprint`` recipe): the optimized node list
+        (op, inputs, sorted kwargs, outputs), the folded extra constants
+        (name, shape, dtype and bytes), the alias map and the requested
+        outputs. Two plans with equal fingerprints run the same
+        computation — the plan half of the export cache's key
+        (``autodiff/export.py``)."""
+        h = hashlib.sha256()
+        for n in self.nodes:
+            h.update(repr((n.op, tuple(n.inputs),
+                           sorted((k, repr(v)) for k, v in n.kwargs.items()),
+                           tuple(n.outputs))).encode())
+        for name in sorted(self.extra_consts):
+            a = self.extra_consts[name]
+            if isinstance(a, torch.Tensor):
+                h.update(repr((name, tuple(a.shape),
+                               str(a.dtype).replace("torch.", ""))).encode())
+                h.update(_tensor_bytes(a))
+            else:
+                h.update(repr((name, a)).encode())
+        h.update(repr(sorted(self.alias.items())).encode())
+        h.update(repr(tuple(self.outputs)).encode())
+        return h.hexdigest()
 
 
 def _tensor_bytes(t: torch.Tensor) -> bytes:
@@ -1452,6 +1478,41 @@ class CompiledGraph:
             m.histogram("dl4j_tpu_trace_seconds").observe(t_end - t0)
         return out
 
+    def export(self, var_arrays: Dict[str, torch.Tensor],
+               feeds: Dict[str, torch.Tensor], *, batch: bool = True):
+        """This graph's whole-graph function as a ``torch.export`` program
+        (the counterpart of the JAX ``CompiledGraph.export`` over
+        ``jax.export``): ``(var_arrays, feeds, consts) -> {name: tensor}``
+        at the given arrays' shapes, every feed's leading axis a symbolic
+        batch (``Dim.AUTO``: export settles its range) when ``batch``. The
+        constants — the graph's and the plan's folded ones — are an
+        argument (``consts``, :attr:`consts`), so the program holds no
+        weights. Traced under ``no_grad``, as ``__call__`` runs it."""
+        from deeplearning4j_tpu_torch.autodiff.export import (
+            export_fn, spec_of)
+
+        # each dict in sorted-key order: a restored program is called with
+        # its arguments' keys in the order it was exported with
+        args = tuple({k: d[k] for k in sorted(d)}
+                     for d in (var_arrays, feeds, self.consts))
+        return export_fn(self._run, args, (spec_of(args[0]),
+                                           spec_of(args[1], batch),
+                                           spec_of(args[2])))
+
+    def lower(self, var_arrays: Dict[str, torch.Tensor],
+              feeds: Dict[str, torch.Tensor]):
+        """The counterpart of the JAX ``CompiledGraph.lower``: the
+        ``torch.export`` program at exactly these shapes (no symbolic
+        batch); ``SameDiff.as_export_text`` prints it."""
+        return self.export(var_arrays, feeds, batch=False)
+
+    @property
+    def consts(self) -> Dict[str, torch.Tensor]:
+        """The tensors the runner binds as constants (the graph's CONSTANT
+        arrays and the plan's folded values)."""
+        return {k: v for k, v in getattr(self._run, "const_env", {}).items()
+                if isinstance(v, torch.Tensor)}
+
     def _routed(self, signature: str, *args):
         """A call routed to eager by :attr:`eager_reason`: recorded once per
         signature in the ledger, counted in
@@ -1468,3 +1529,4 @@ class CompiledGraph:
     def reset(self) -> None:
         """Drop the captured graphs and their pool."""
         self.unit.reset()
+

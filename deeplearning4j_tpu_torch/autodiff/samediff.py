@@ -51,10 +51,13 @@ What differs from the JAX package:
   ``variables`` and ``summary``; ``fit`` polls the preemption fault point
   and flag once a batch, keeps the data cursor and logs the
   ``train_epoch`` event; ``to_dict`` / ``save`` / ``load`` write and read
-  the JAX package's zip (either package loads the other's). Not yet:
-  ``as_stablehlo`` (it waits for ``autodiff/export.py``) and graph
-  checking (``check``; ``validate=True`` raises) (ROADMAP.md, Queue 1
-  item 11).
+  the JAX package's zip (either package loads the other's);
+  ``as_export_text``, the counterpart of ``as_stablehlo``: the text of
+  the ``torch.export`` program of the same exec, whose export
+  (``CompiledGraph.export``) the export cache persists and restores
+  (``autodiff/export.py`` ``export_exec`` / ``warm_boot_samediff``). Not
+  yet: graph checking (``check``; ``validate=True`` raises) (ROADMAP.md,
+  Queue 1 item 11).
 * Control flow (``scan``, ``while_loop``, ``while_loop_multi``,
   ``scan_multi``, ``cond_multi``, ``cond``: the JAX package's signatures,
   the user's functions built from torch ops). A scan runs its fixed trip
@@ -91,7 +94,7 @@ from deeplearning4j_tpu_torch.ops.registry import registry as op_registry
 
 VALIDATE_NOT_PORTED = (
     "graph checking (validate=True) needs the analyzers' check_samediff, "
-    "which the port does not have yet (ROADMAP.md, Queue 1 item 10)")
+    "which the port does not have yet (ROADMAP.md, Queue 1 item 11)")
 
 # the JAX package runs with 64-bit types off: these become 32-bit
 _CANON = {torch.float64: torch.float32, torch.int64: torch.int32,
@@ -1313,11 +1316,17 @@ class SameDiff:
                         for name in n.inputs
                         if name in produced and name not in keep}
 
-            def run(var_arrays, feeds):
+            def run(var_arrays, feeds, consts=None):
+                # consts: the tensor constants as an argument (an exported
+                # program takes them so that it holds no weights)
                 env = dict(const_env)
+                if consts is not None:
+                    env.update(consts)
                 env.update(var_arrays)
                 env.update(feeds)
                 return self._interpret(env, out_names, plan, last_use)
+
+            run.const_env = const_env
 
             from deeplearning4j_tpu_torch.autodiff.optimize import (
                 OptimizeStats)
@@ -1371,11 +1380,17 @@ class SameDiff:
         from deeplearning4j_tpu_torch.observe import signature_of
 
         signature = signature_of(**feeds)
+        feeds = {k: canonical(v, self.device) for k, v in feeds.items()}
+        covers = getattr(fn, "aot_covers", None)
+        if covers is not None:
+            # a restored exec (autodiff/export.py) that does not serve
+            # these feeds falls back, its ledger markers cleared, before
+            # the call is noted
+            covers(feeds)
         self._note_compile(fn, "exec", signature,
                            stable_key=(tuple(outputs), bool(self.optimize),
                                        self.optimize_passes))
-        res = fn(self._var_arrays(fn._const_names),
-                 {k: canonical(v, self.device) for k, v in feeds.items()},
+        res = fn(self._var_arrays(fn._const_names), feeds,
                  signature=signature)
         return {k: _to_numpy(v) for k, v in res.items()}
 
@@ -1892,6 +1907,21 @@ class SameDiff:
         fit(), the loss a device scalar, and ``fit_done(self)`` after
         it."""
         self._listeners = list(listeners)
+
+    def as_export_text(self, feeds: Dict[str, Any],
+                       outputs: Union[str, Sequence[str]]) -> str:
+        """The text of the ``torch.export`` program of the whole-graph
+        exec for ``outputs`` at the shapes of ``feeds``: the aten operators
+        and the ``dl4j_tpu_torch`` kernel operators it runs. The port's
+        counterpart of the JAX ``SameDiff.as_stablehlo`` (the StableHLO
+        text of the same computation); this is not StableHLO."""
+        outputs = tuple([outputs] if isinstance(outputs, str) else outputs)
+        fn = self._compiled_fn(outputs)
+        var_arrays = self._var_arrays(fn._const_names)
+        exported = fn.lower(
+            {k: var_arrays[k] for k in sorted(var_arrays)},
+            {k: canonical(feeds[k], self.device) for k in sorted(feeds)})
+        return str(exported)
 
     # ------------------------------------------------------------------ misc
     def variables(self) -> List[str]:

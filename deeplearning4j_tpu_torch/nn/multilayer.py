@@ -46,6 +46,7 @@ synchronization a step unless a listener reads the score.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from typing import Any, Dict, List, Optional
@@ -305,6 +306,9 @@ class MultiLayerNetwork:
         self._rnn_states: Optional[List[Any]] = None
         self._gen = torch.Generator(device=self.device).manual_seed(conf.seed)
         self._steps = TrainUnits(self.device, "mln", [self._gen])
+        # restored train steps (autodiff/export.py): "train_step" -> the
+        # exported program the ``train`` unit runs in place of _step
+        self._jit_cache: Dict[str, Any] = {}
         last = conf.layers[-1] if conf.layers else None
         self._loss_name = getattr(last, "loss", None)
         self._loss_fn = get_loss(self._loss_name) if self._loss_name else None
@@ -457,17 +461,23 @@ class MultiLayerNetwork:
         return tensors_of(self.params, self.opt_state, self.net_state) + [
             self._steps.iteration.tensor]
 
-    def _step(self, x, y, fmask, lmask, rnn_states=None):
+    def _step(self, x, y, fmask, lmask, rnn_states=None, *,
+              grad_scopes: bool = True):
         """The step's body: loss and gradients by autograd, the update
         tail under no_grad, the iteration advanced on the device. Returns
         the score (loss + the regularization penalty of the parameters
         before the update, a 0-d tensor on the device) and, with
         ``rnn_states``, the carried states, detached: gradients stop at the
-        segment boundary."""
+        segment boundary. ``grad_scopes=False`` switches no grad mode (the
+        caller runs it with autograd on): the form ``torch.export`` traces
+        (``autodiff/export.py``); the tail builds no graph either way, as
+        it reads no tensor that requires grad."""
         step = self._steps.iteration.tensor
         donate = donates(self.device)
+        scope = ((torch.enable_grad, torch.no_grad) if grad_scopes
+                 else (contextlib.nullcontext, contextlib.nullcontext))
         with DT.precision_scope(self.conf.dtype):
-            with torch.enable_grad():
+            with scope[0]():
                 params = autograd_leaves(self.params)
                 res = self._forward(params, self.net_state, x, fmask,
                                     train=True, rng=self._gen,
@@ -476,7 +486,7 @@ class MultiLayerNetwork:
                 loss = self._loss_fn(out, y, lmask) + aux_losses(
                     new_state, self.device)
                 grads = grad_tree(loss, params)
-            with torch.no_grad():
+            with scope[1]():
                 score = loss.detach() + reg_penalty(
                     self.conf, zip(self.params, self.conf.layers),
                     self.device)
@@ -510,6 +520,19 @@ class MultiLayerNetwork:
             flatten_rnn(rnn_states))
         args = [x, y] + [m for m in (fmask, lmask) if m is not None]
         layout = (fmask is not None, lmask is not None, rnn_spec)
+        signature = observe.signature_of(x=x, y=y, fm=fmask, lm=lmask)
+        exported = self._jit_cache.get("train_step")
+        if (exported is not None and rnn_states is None
+                and exported.fits(x, y, fmask, lmask)):
+            # the restored program (autodiff/export.py) as the unit's body
+            out = self._steps.run(
+                "train", exported, args, layout=("aot",) + layout,
+                state=self._donated(), signature=signature,
+                note=lambda unit: observe.note_jit_signature(
+                    exported, graph="mln", key="train",
+                    signature=signature))
+            self._steps.iteration.advanced()
+            return out, None
 
         def body(x, y, *rest):
             rest = list(rest)
@@ -522,7 +545,7 @@ class MultiLayerNetwork:
         out = self._steps.run(
             "train" if rnn_states is None else "train_tbptt", body,
             args + rnn_flat, layout=layout, state=self._donated(),
-            signature=observe.signature_of(x=x, y=y, fm=fmask, lm=lmask),
+            signature=signature,
             eager_reason=mask_routing(self.layers, (fmask,)))
         self._steps.iteration.advanced()
         if rnn_states is None:

@@ -245,9 +245,15 @@ def note_jit_signature(fn: Any, *, graph: str, key: str, signature: str,
     cache-invalidation paths that drop the unit also drop its history — a
     rebuilt unit reports ``cause_if_new_fn`` (the invalidation cause), a
     cached unit seeing a fresh signature reports ``new_shape`` (a new
-    capture). ``stats`` is attached only to the new-unit event.
-    ``callsite`` defaults to the nearest caller frame outside the observe
-    package. Returns the cause recorded, or None on a plain cache hit."""
+    capture). Two attributes the export cache sets (``autodiff/export.py``)
+    override those causes: ``fn._aot_restored`` marks a unit whose program
+    was restored from the persistent export cache — every event it
+    produces is a ``cache_hit``; ``fn._aot_polymorphic`` marks a program
+    exported with a symbolic batch dim — a fresh signature is served by
+    the same program, a ``cache_hit`` instead of a ``new_shape``.
+    ``stats`` is attached only to the new-unit event. ``callsite``
+    defaults to the nearest caller frame outside the observe package.
+    Returns the cause recorded, or None on a plain cache hit."""
     try:
         sigs = fn._obs_sigs
     except AttributeError:
@@ -258,7 +264,13 @@ def note_jit_signature(fn: Any, *, graph: str, key: str, signature: str,
     if signature in sigs:
         return None
     new_fn = not sigs
-    cause = cause_if_new_fn if new_fn else "new_shape"
+    restored = getattr(fn, "_aot_restored", False)
+    if new_fn:
+        cause = "cache_hit" if restored else cause_if_new_fn
+    else:
+        cause = ("cache_hit"
+                 if restored or getattr(fn, "_aot_polymorphic", False)
+                 else "new_shape")
     sigs.add(signature)
     if callsite is None:
         callsite = _caller_callsite()

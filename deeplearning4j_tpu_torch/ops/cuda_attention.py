@@ -4,11 +4,14 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
 
 * :func:`flash_attention` — FlashAttention-2 over ``(BH, T, D)`` tensors
   with a key mask, start-aligned causal masking and in-kernel attention
-  dropout, returning ``(out, lse)`` as ``_flash_fwd`` does. It is
-  differentiable: :class:`FlashAttentionFn` is the counterpart of the JAX
-  ``flash_attention`` custom VJP. On the card its forward launches
-  ``_attn_kernel``'s counterpart and its backward :func:`flash_attention_dq`
-  and :func:`flash_attention_dkv` (``_dq_kernel``'s and ``_dkv_kernel``'s).
+  dropout, returning ``(out, lse)`` as ``_flash_fwd`` does. It is the
+  ``torch.library`` operator ``dl4j_tpu_torch::flash_fwd``
+  (``ops/library.py``), differentiable: its registered autograd formula is
+  the counterpart of the JAX ``flash_attention`` custom VJP and runs the
+  operators ``flash_dq`` and ``flash_dkv``. On the card its forward
+  launches ``_attn_kernel``'s counterpart and its backward
+  :func:`flash_attention_dq` and :func:`flash_attention_dkv`
+  (``_dq_kernel``'s and ``_dkv_kernel``'s).
   :func:`flash_design` picks each kernel's source by dtype and head dim:
   bfloat16 and float16 with D <= 128 take the tensor-core kernels
   ``csrc/flash_attn_fwd_sm90.cu``, ``csrc/flash_attn_dq_sm90.cu`` and
@@ -26,15 +29,19 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
   block-paged KV cache (``csrc/paged_decode.cu``, replacing
   ``_paged_decode_kernel``), the contract of ``paged_decode_attention_xla``:
   split-KV over the slot's pages by the plan of :func:`paged_plan`, the
-  splits combined in the same launch.
+  splits combined in the same launch; the operator
+  ``dl4j_tpu_torch::paged_decode``, whose CUDA implementation allocates the
+  kernel's workspace and zeroed split counters itself.
 
 Beside each kernel wrapper stands its plain PyTorch version
 (:func:`flash_attention_reference`, :func:`flash_attention_dq_reference`,
 :func:`flash_attention_dkv_reference`,
-:func:`paged_decode_attention_reference`). A wrapper given CPU tensors
-computes the plain version; given CUDA tensors it launches its kernel or
-raises — it never falls back. Each kernel's launches are counted on its
-wrapper's ``.launches`` (the forward's on :func:`flash_attention`); the
+:func:`paged_decode_attention_reference`): each operator's CPU
+implementation. A wrapper given CPU tensors computes the plain version;
+given CUDA tensors it launches its kernel or raises — it never falls
+back. A tracer (``torch.export``) records each operator as one node.
+Each kernel's launches are counted on its wrapper's ``.launches`` (the
+forward's on :func:`flash_attention`) by its CUDA implementation; the
 16-bit tensor-core designs' also on ``.sm90_launches`` of the same
 wrappers, the float32 ones' on ``.sm90_f32_launches``.
 
@@ -59,7 +66,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build, tuning
+from deeplearning4j_tpu_torch.ops import _build, library, tuning
 
 # every kernel takes every head dim D with D % 8 == 0 up to this
 MAX_HEAD_DIM = 256
@@ -365,11 +372,8 @@ def _ptr(t) -> Optional[int]:
 
 def _flash_fwd(q, k, v, kv_mask, seed, scale: float, causal: bool,
                dropout_rate: float):
-    """The forward kernel (CPU tensors: its plain version)."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_mask, seed, scale=scale,
-                                         causal=causal,
-                                         dropout_rate=dropout_rate)
+    """The forward kernel's launch (the CUDA implementation of the
+    ``flash_fwd`` operator)."""
     _check_qkv(q, k, v, "flash_attn_fwd")
     bh, t_q, d = q.shape
     t_k = k.shape[1]
@@ -429,15 +433,19 @@ def flash_attention_dq(q, k, v, kv_mask, seed, dout, lse, delta, *,
     ``csrc/flash_attn_bwd.cu`` as :func:`flash_design` says, from the
     forward's lse, ``Δ`` (:func:`attention_delta`) and seed. CPU tensors:
     :func:`flash_attention_dq_reference`."""
-    if q.device.type == "cpu":
-        return flash_attention_dq_reference(
-            q, k, v, kv_mask, seed, dout, lse, delta, scale=scale,
-            causal=causal, dropout_rate=dropout_rate)
+    seed = _norm_seed(seed, dropout_rate, q.device)
+    return library.ops().flash_dq(q, k, v, kv_mask, seed, dout, lse, delta,
+                                  float(scale), bool(causal),
+                                  float(dropout_rate))
+
+
+def _flash_dq(q, k, v, kv_mask, seed, dout, lse, delta, scale: float,
+              causal: bool, dropout_rate: float) -> torch.Tensor:
+    """The dq kernel's launch (the CUDA implementation of ``flash_dq``)."""
     _check_bwd(q, k, v, dout, lse, delta, "flash_attn_dq")
     bh, t_q, d = q.shape
     t_k = k.shape[1]
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dq")
-    seed = _norm_seed(seed, dropout_rate, q.device)
     dq = torch.empty_like(q)
     design = flash_design(q.dtype, d, "dq")
     kernel = {"sm90": "flash_attn_dq_sm90",
@@ -472,15 +480,21 @@ def flash_attention_dkv(q, k, v, kv_mask, seed, dout, lse, delta, *,
     ``csrc/flash_attn_dkv_sm90.cu``, ``csrc/flash_attn_dkv_f32_sm90.cu`` or
     ``csrc/flash_attn_bwd.cu`` as :func:`flash_design` says. CPU tensors:
     :func:`flash_attention_dkv_reference`."""
-    if q.device.type == "cpu":
-        return flash_attention_dkv_reference(
-            q, k, v, kv_mask, seed, dout, lse, delta, scale=scale,
-            causal=causal, dropout_rate=dropout_rate)
+    seed = _norm_seed(seed, dropout_rate, q.device)
+    return library.ops().flash_dkv(q, k, v, kv_mask, seed, dout, lse, delta,
+                                   float(scale), bool(causal),
+                                   float(dropout_rate))
+
+
+def _flash_dkv(q, k, v, kv_mask, seed, dout, lse, delta, scale: float,
+               causal: bool, dropout_rate: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's launch (the CUDA implementation of
+    ``flash_dkv``)."""
     _check_bwd(q, k, v, dout, lse, delta, "flash_attn_dkv")
     bh, t_q, d = q.shape
     t_k = k.shape[1]
     kv_mask = _kernel_mask(kv_mask, bh, t_k, q.device, "flash_attn_dkv")
-    seed = _norm_seed(seed, dropout_rate, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     design = flash_design(q.dtype, d, "dkv")
     kernel = {"sm90": "flash_attn_dkv_sm90",
@@ -507,42 +521,111 @@ flash_attention_dkv.sm90_launches = 0
 flash_attention_dkv.sm90_f32_launches = 0
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Differentiable flash attention — the counterpart of the JAX
-    ``flash_attention`` ``custom_vjp`` (``_fwd``/``_bwd``). The forward
-    saves q, k, v, the mask, the seed, out and lse; the backward computes
-    Δ with torch and runs the dq and dk/dv kernels (their plain versions on
-    CPU tensors, or everywhere when ``plain``). lse is returned but not
+class _PlainFlashFn(torch.autograd.Function):
+    """Flash attention computed by the plain versions on any device (a
+    reference run on the card, ``plain=True``): the plain forward, and the
+    plain dq and dk/dv as its backward. lse is returned but not
     differentiated."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, seed, scale, causal, dropout_rate,
-                plain):
-        if plain:
-            out, lse = flash_attention_reference(
-                q, k, v, kv_mask, seed, scale=scale, causal=causal,
-                dropout_rate=dropout_rate)
-        else:
-            out, lse = _flash_fwd(q, k, v, kv_mask, seed, scale, causal,
-                                  dropout_rate)
+    def forward(ctx, q, k, v, kv_mask, seed, scale, causal, dropout_rate):
+        out, lse = flash_attention_reference(
+            q, k, v, kv_mask, seed, scale=scale, causal=causal,
+            dropout_rate=dropout_rate)
         ctx.save_for_backward(q, k, v, kv_mask, seed, out, lse)
-        ctx.config = (scale, causal, dropout_rate, plain)
+        ctx.config = (scale, causal, dropout_rate)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, kv_mask, seed, out, lse = ctx.saved_tensors
-        scale, causal, rate, plain = ctx.config
+        scale, causal, rate = ctx.config
         dout = dout.contiguous()
         delta = attention_delta(dout, out)
-        dq_fn, dkv_fn = ((flash_attention_dq_reference,
-                          flash_attention_dkv_reference) if plain else
-                         (flash_attention_dq, flash_attention_dkv))
         kw = dict(scale=scale, causal=causal, dropout_rate=rate)
-        dq = dq_fn(q, k, v, kv_mask, seed, dout, lse, delta, **kw)
-        dk, dv = dkv_fn(q, k, v, kv_mask, seed, dout, lse, delta, **kw)
-        return dq, dk, dv, None, None, None, None, None, None
+        dq = flash_attention_dq_reference(q, k, v, kv_mask, seed, dout, lse,
+                                          delta, **kw)
+        dk, dv = flash_attention_dkv_reference(q, k, v, kv_mask, seed, dout,
+                                               lse, delta, **kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# the operators (ops/library.py): CUDA = the launches above, CPU = the plain
+# versions, fake = shapes and dtypes
+# ---------------------------------------------------------------------------
+
+def _flash_fwd_cpu(q, k, v, kv_mask, seed, scale, causal, dropout_rate):
+    return flash_attention_reference(q, k, v, kv_mask, seed, scale=scale,
+                                     causal=causal,
+                                     dropout_rate=dropout_rate)
+
+
+def _flash_fwd_fake(q, k, v, kv_mask, seed, scale, causal, dropout_rate):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def _flash_dq_cpu(q, k, v, kv_mask, seed, dout, lse, delta, scale, causal,
+                  dropout_rate):
+    return flash_attention_dq_reference(
+        q, k, v, kv_mask, seed, dout, lse, delta, scale=scale, causal=causal,
+        dropout_rate=dropout_rate)
+
+
+def _flash_dkv_cpu(q, k, v, kv_mask, seed, dout, lse, delta, scale, causal,
+                   dropout_rate):
+    return flash_attention_dkv_reference(
+        q, k, v, kv_mask, seed, dout, lse, delta, scale=scale, causal=causal,
+        dropout_rate=dropout_rate)
+
+
+def _flash_dq_fake(q, k, v, kv_mask, seed, dout, lse, delta, scale, causal,
+                   dropout_rate):
+    return torch.empty_like(q)
+
+
+def _flash_dkv_fake(q, k, v, kv_mask, seed, dout, lse, delta, scale, causal,
+                    dropout_rate):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, kv_mask, seed, scale, causal, rate = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, kv_mask, seed, out, lse)
+    ctx.config = (scale, causal, rate)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    """The counterpart of the JAX ``flash_attention`` custom VJP's
+    ``_bwd``: Δ with torch, then the dq and dk/dv operators."""
+    q, k, v, kv_mask, seed, out, lse = ctx.saved_tensors
+    scale, causal, rate = ctx.config
+    dout = dout.contiguous()
+    delta = attention_delta(dout, out)
+    ns = library.ops()
+    dq = ns.flash_dq(q, k, v, kv_mask, seed, dout, lse, delta, scale, causal,
+                     rate)
+    dk, dv = ns.flash_dkv(q, k, v, kv_mask, seed, dout, lse, delta, scale,
+                          causal, rate)
+    return dq, dk, dv, None, None, None, None, None
+
+
+_FLASH_ARGS_SCHEMA = ("Tensor q, Tensor k, Tensor v, Tensor? kv_mask, "
+                      "Tensor? seed")
+_BWD_SCHEMA = (f"({_FLASH_ARGS_SCHEMA}, Tensor dout, Tensor lse, "
+               f"Tensor delta, float scale, bool causal, float dropout_rate)")
+library.define("flash_fwd", f"({_FLASH_ARGS_SCHEMA}, float scale, "
+               f"bool causal, float dropout_rate) -> (Tensor, Tensor)",
+               cuda=_flash_fwd, cpu=_flash_fwd_cpu, fake=_flash_fwd_fake,
+               backward=_flash_backward, setup_context=_flash_setup)
+library.define("flash_dq", _BWD_SCHEMA + " -> Tensor", cuda=_flash_dq,
+               cpu=_flash_dq_cpu, fake=_flash_dq_fake)
+library.define("flash_dkv", _BWD_SCHEMA + " -> (Tensor, Tensor)",
+               cuda=_flash_dkv, cpu=_flash_dkv_cpu, fake=_flash_dkv_fake)
 
 
 def flash_attention(q, k, v, kv_mask=None, seed=None, *,
@@ -565,9 +648,11 @@ def flash_attention(q, k, v, kv_mask=None, seed=None, *,
                          f"{q.shape[1]} vs {k.shape[1]}")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     seed = _norm_seed(seed, dropout_rate, q.device)
-    return FlashAttentionFn.apply(q, k, v, kv_mask, seed, float(scale),
-                                  bool(causal), float(dropout_rate),
-                                  bool(plain))
+    if plain:
+        return _PlainFlashFn.apply(q, k, v, kv_mask, seed, float(scale),
+                                   bool(causal), float(dropout_rate))
+    return library.ops().flash_fwd(q, k, v, kv_mask, seed, float(scale),
+                                   bool(causal), float(dropout_rate))
 
 
 flash_attention.launches = 0
@@ -657,29 +742,6 @@ def paged_plan(slots: int, heads: int, d: int, page: int, max_pages: int,
                      splits=-(-max_pages // pps))
 
 
-# per device: the kernel's split counters (zero between calls; the last
-# block of a slot resets its own). A buffer outgrown by a larger call is
-# kept, never freed: a CUDA graph captured against it keeps its address.
-_PAGED_COUNTERS: dict = {}
-_PAGED_OUTGROWN: list = []
-
-
-def _paged_counters(dev: torch.device, n: int) -> torch.Tensor:
-    c = _PAGED_COUNTERS.get(dev)
-    if c is None or c.numel() < n:
-        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            # a capture's warm-up sized it; made here it would live in the
-            # graph's pool and die with the graph
-            raise RuntimeError("paged_decode_attention: split counters "
-                               "would be allocated inside a CUDA-graph "
-                               "capture; run the call once before it")
-        if c is not None:
-            _PAGED_OUTGROWN.append(c)
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _PAGED_COUNTERS[dev] = c
-    return c
-
-
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                            scale: Optional[float] = None):
     """Decode-step attention: ``q (S, H, D)``, ``k/v_pages (P, page, H,
@@ -690,9 +752,18 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     (``kv[layer, 0]``), and are never copied. One launch a call: the
     splits of :func:`paged_plan` write partial softmax sums to a workspace
     and the last split of each slot combines them."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_reference(
-            q, k_pages, v_pages, page_table, seq_lens, scale=scale)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return library.ops().paged_decode(q, k_pages, v_pages, page_table,
+                                      seq_lens, float(scale))
+
+
+def _paged_decode(q, k_pages, v_pages, page_table, seq_lens,
+                  scale: float) -> torch.Tensor:
+    """The paged decode kernel's launch (the CUDA implementation of the
+    ``paged_decode`` operator). The workspace and the per-(slot, head
+    group) split counters are allocated here, the counters zeroed (the
+    kernel's last split of a slot leaves its own at zero again); inside a
+    CUDA-graph capture both come from the graph's pool."""
     _require(q.device.type == "cuda",
              f"paged_decode_attention: unsupported device {q.device}")
     _require(q.ndim == 3 and k_pages.ndim == 4 and v_pages.ndim == 4
@@ -722,7 +793,6 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                  for t in (q, k_pages, v_pages, page_table, seq_lens)),
              "paged_decode_attention: inputs must be contiguous on one "
              "device")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if s_n == 0 or max_pages == 0:
         return torch.zeros_like(q)
     plan = paged_plan(s_n, h, d, page, max_pages, q.element_size(),
@@ -731,7 +801,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     out = torch.empty_like(q)
     ws = torch.empty(max(1, s_n * plan.splits * h * (d + 2)),
                      dtype=torch.float32, device=q.device)
-    counters = _paged_counters(q.device, s_n * plan.head_groups)
+    counters = torch.zeros(s_n * plan.head_groups, dtype=torch.int32,
+                           device=q.device)
     fn = _build.kernel_fn("paged_decode", "dl4j_paged_decode", _PAGED_ARGS)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
@@ -745,6 +816,19 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
 
 
 paged_decode_attention.launches = 0
+
+
+def _paged_decode_cpu(q, k_pages, v_pages, page_table, seq_lens, scale):
+    return paged_decode_attention_reference(q, k_pages, v_pages, page_table,
+                                            seq_lens, scale=scale)
+
+
+library.define(
+    "paged_decode", "(Tensor q, Tensor k_pages, Tensor v_pages, "
+    "Tensor page_table, Tensor seq_lens, float scale) -> Tensor",
+    cuda=_paged_decode, cpu=_paged_decode_cpu,
+    fake=lambda q, *rest: torch.empty_like(q))
+
 
 # kernel name -> (the function holding its launch count, the attribute).
 # flash_attn_fwd, flash_attn_dq and flash_attn_dkv count every launch of

@@ -51,7 +51,7 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build, tuning
+from deeplearning4j_tpu_torch.ops import _build, library, tuning
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.cuda_matmul import fullest_tile_n, sm_count
 from deeplearning4j_tpu_torch.ops.registry import exec_op, op
@@ -136,6 +136,7 @@ def bn_matmul_stats_partials(x, scale, shift, w, stat_shift, *,
                                       relu=relu,
                                       fuse_prologue=fuse_prologue)[0]
         return z, reference_partials(z, stat_shift)
+    library.refuse_tracing("bn_matmul_stats", x, w)
     if x.device.type != "cuda":
         raise ValueError(f"bn_matmul_stats: unsupported device {x.device}")
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:

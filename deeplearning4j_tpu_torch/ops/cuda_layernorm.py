@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build, tuning
+from deeplearning4j_tpu_torch.ops import _build, library, tuning
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.nn_ops import (
     FUSED_MATMUL_ACTIVATIONS, apply_fused_activation,
@@ -84,6 +84,7 @@ def fused_layer_norm_kernel(x, gain, bias=None, *, eps: float = 1e-5,
     if x.device.type == "cpu":
         return fused_layer_norm_reference(x, gain, bias, eps=eps,
                                           activation=activation)
+    library.refuse_tracing("fused_layer_norm", x)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
     if x.ndim < 1 or x.shape[-1] == 0:

@@ -1,5 +1,5 @@
 """act(x @ w + b) in one pass: the plain version, the hand-written CUDA
-kernel, its gate and the differentiable :class:`FusedMatmulFn`.
+kernel as a differentiable ``torch.library`` operator, and its gate.
 
 Counterpart of ``deeplearning4j_tpu/ops/pallas_matmul.py`` — the platform
 helper of ``fused_matmul_bias_act``, the SameDiff optimizer's matmul + bias
@@ -32,11 +32,14 @@ helper of ``fused_matmul_bias_act``, the SameDiff optimizer's matmul + bias
   kernel bounds-checks every edge): rank-2/3 x, 2-D w, float dtypes, no
   transpose flags, a known activation, a rank-1 bias, and M at least the
   tuning table's measured ``pallas_min_m`` (``ops/tuning.py``).
-* :class:`FusedMatmulFn` is the ``custom_vjp`` of ``pallas_matmul.py:142``
-  as an ``autograd.Function``: the kernel forward, and ``_fused_bwd``
-  (``:158``) in PyTorch — the float32 pre-activation recomputed, the
-  activation's derivative, then dx, dw and db. Its products are plain
-  matmuls, as the JAX backward is plain XLA.
+* The ``custom_vjp`` of ``pallas_matmul.py:142`` is the operator's
+  registered autograd formula (``ops/library.py``): the kernel forward,
+  and ``_fused_bwd`` (``:158``) in PyTorch — the float32 pre-activation
+  recomputed, the activation's derivative, then dx, dw and db. Its
+  products are plain matmuls, as the JAX backward is plain XLA. A tracer
+  (``torch.export``) records the forward as one
+  ``dl4j_tpu_torch::fused_matmul`` node and the backward as its aten
+  ops.
 
 The port's float32 contract keeps products accurate to float32
 (``nn/dtype.precision_scope``, ``torch.backends.cuda.matmul.allow_tf32 =
@@ -57,7 +60,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.ops import _build, capture, tuning
+from deeplearning4j_tpu_torch.ops import _build, capture, library, tuning
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.nn_ops import (
     FUSED_MATMUL_ACTIVATIONS, apply_fused_activation,
@@ -221,12 +224,21 @@ def fused_matmul(x, w, b=None, *, activation: str = "none",
                  transpose_a: bool = False, transpose_b: bool = False):
     """The CUDA kernel of :func:`fused_matmul_bias_act_reference` — same
     contract; x (M, K) or (B, T, K), w (K, N), b (N,); x and w of one
-    dtype among float32, bfloat16 and float16. Not differentiable: the
-    registry reaches it through :func:`fused_matmul_helper`."""
-    if x.device.type == "cpu":
-        return fused_matmul_bias_act_reference(
-            x, w, b, activation=activation, transpose_a=transpose_a,
-            transpose_b=transpose_b)
+    dtype among float32, bfloat16 and float16. The operator
+    ``dl4j_tpu_torch::fused_matmul``, differentiable (``_fused_bwd``'s
+    backward, registered as its autograd formula); the registry's CUDA
+    helper of ``fused_matmul_bias_act``."""
+    return library.ops().fused_matmul(x, w, b, activation, bool(transpose_a),
+                                      bool(transpose_b))
+
+
+def _fused_matmul(x, w, b, activation: str, transpose_a: bool,
+                  transpose_b: bool) -> torch.Tensor:
+    """The kernel's launch (the CUDA implementation of the
+    ``fused_matmul`` operator): the design by pointer alignment and the
+    float32 weight's K-major split copy (:func:`kmajor_weight`, kept on
+    the weight tensor the operator was given) are chosen and made here,
+    where real pointers exist."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_matmul: unsupported device {x.device}")
     x, w = _orient(x, w, transpose_a, transpose_b)
@@ -316,46 +328,55 @@ def _act_grad(pre, activation: str):
     raise ValueError(f"unknown activation '{activation}'")
 
 
-class FusedMatmulFn(torch.autograd.Function):
-    """The kernel forward with ``_fused_bwd``'s backward
-    (``pallas_matmul.py:158``)."""
-
-    @staticmethod
-    def forward(ctx, x, w, b, activation, transpose_a, transpose_b):
-        ctx.save_for_backward(x, w, b)
-        ctx.cfg = (activation, transpose_a, transpose_b)
-        return fused_matmul(x, w, b, activation=activation,
-                            transpose_a=transpose_a, transpose_b=transpose_b)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w, b = ctx.saved_tensors
-        activation, transpose_a, transpose_b = ctx.cfg
-        xa, wa = _orient(x, w, transpose_a, transpose_b)
-        # recompute the pre-activation (no saved (M, N) float32 tensor)
-        pre = torch.matmul(xa.float(), wa.float())
-        if b is not None:
-            pre = pre + b.float()
-        dpre = g.float() * _act_grad(pre, activation)
-        dx = torch.matmul(dpre, wa.float().transpose(-1, -2)).to(x.dtype)
-        red = tuple(range(dpre.ndim - 2))
-        dw = torch.matmul(xa.float().transpose(-1, -2), dpre)
-        if red:
-            dw = dw.sum(dim=red)
-        dw = dw.to(w.dtype)
-        if transpose_a:
-            dx = dx.transpose(-1, -2)
-        if transpose_b:
-            dw = dw.transpose(-1, -2)
-        db = None if b is None else dpre.sum(
-            dim=tuple(range(dpre.ndim - 1))).to(b.dtype)
-        return dx, dw, db, None, None, None
+def _fused_backward(ctx, g):
+    """``_fused_bwd`` (``pallas_matmul.py:158``) in PyTorch: the float32
+    pre-activation recomputed (no saved (M, N) float32 tensor), the
+    activation's derivative, then dx, dw and db as plain matmuls, as the
+    JAX backward is plain XLA."""
+    x, w, b = ctx.saved_tensors
+    activation, transpose_a, transpose_b = ctx.cfg
+    xa, wa = _orient(x, w, transpose_a, transpose_b)
+    pre = torch.matmul(xa.float(), wa.float())
+    if b is not None:
+        pre = pre + b.float()
+    dpre = g.float() * _act_grad(pre, activation)
+    dx = torch.matmul(dpre, wa.float().transpose(-1, -2)).to(x.dtype)
+    red = tuple(range(dpre.ndim - 2))
+    dw = torch.matmul(xa.float().transpose(-1, -2), dpre)
+    if red:
+        dw = dw.sum(dim=red)
+    dw = dw.to(w.dtype)
+    if transpose_a:
+        dx = dx.transpose(-1, -2)
+    if transpose_b:
+        dw = dw.transpose(-1, -2)
+    db = None if b is None else dpre.sum(
+        dim=tuple(range(dpre.ndim - 1))).to(b.dtype)
+    return dx, dw, db, None, None, None
 
 
-def fused_matmul_helper(x, w, b=None, *, activation: str = "none",
-                        transpose_a: bool = False, transpose_b: bool = False):
-    """The registered CUDA platform impl: the differentiable kernel."""
-    return FusedMatmulFn.apply(x, w, b, activation, transpose_a, transpose_b)
+def _fused_setup(ctx, inputs, output):
+    x, w, b, activation, transpose_a, transpose_b = inputs
+    ctx.save_for_backward(x, w, b)
+    ctx.cfg = (activation, transpose_a, transpose_b)
+
+
+def _fused_matmul_cpu(x, w, b, activation, transpose_a, transpose_b):
+    return fused_matmul_bias_act_reference(
+        x, w, b, activation=activation, transpose_a=transpose_a,
+        transpose_b=transpose_b)
+
+
+def _fused_matmul_fake(x, w, b, activation, transpose_a, transpose_b):
+    x, w = _orient(x, w, transpose_a, transpose_b)
+    return x.new_empty(x.shape[:-1] + (w.shape[-1],))
+
+
+library.define("fused_matmul", "(Tensor x, Tensor w, Tensor? b, "
+               "str activation, bool transpose_a, bool transpose_b) -> Tensor",
+               cuda=_fused_matmul, cpu=_fused_matmul_cpu,
+               fake=_fused_matmul_fake, backward=_fused_backward,
+               setup_context=_fused_setup)
 
 
 def fused_matmul_usable(x, w, b=None, **kw) -> bool:
@@ -406,4 +427,4 @@ def register_platform_fused_matmul() -> None:
     reg = registry()
     if "cuda" not in reg.get("fused_matmul_bias_act").platform_impls:
         reg.register_platform("fused_matmul_bias_act", "cuda",
-                              fused_matmul_helper, fused_matmul_usable)
+                              fused_matmul, fused_matmul_usable)

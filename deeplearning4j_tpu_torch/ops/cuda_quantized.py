@@ -44,7 +44,7 @@ import math
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build, tuning
+from deeplearning4j_tpu_torch.ops import _build, library, tuning
 from deeplearning4j_tpu_torch.ops import quantized as Q
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda, _stream
 from deeplearning4j_tpu_torch.ops.cuda_matmul import (
@@ -75,6 +75,7 @@ def row_quantize(x):
     ``quantized._row_quantize``."""
     if x.device.type == "cpu":
         return Q._row_quantize(x)
+    library.refuse_tracing("matmul_int8_row_quantize", x)
     if x.device.type != "cuda":
         raise ValueError(f"row_quantize: unsupported device {x.device}")
     if x.ndim != 2 or x.shape[1] == 0 or x.dtype not in _DTYPE_CODES:
@@ -129,6 +130,7 @@ def int8_matmul(xq, xs, w_q, w_scale, dtype: torch.dtype):
     design :func:`int8_design` picks."""
     if xq.device.type == "cpu":
         return int8_matmul_reference(xq, xs, w_q, w_scale, dtype)
+    library.refuse_tracing("matmul_int8", xq, w_q)
     if xq.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {xq.device}")
     if (xq.ndim != 2 or w_q.ndim != 2 or xq.shape[1] != w_q.shape[0]

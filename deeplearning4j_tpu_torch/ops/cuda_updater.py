@@ -46,13 +46,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import json
 import math
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build, tuning
+from deeplearning4j_tpu_torch.ops import _build, library, tuning
 from deeplearning4j_tpu_torch.ops.cuda_attention import _on_cuda
 from deeplearning4j_tpu_torch.ops.registry import op
 
@@ -159,24 +160,153 @@ def vector_count(n: int, elem_size: int, ptrs) -> int:
     return n // (16 // elem_size)
 
 
-def _flat_outputs(shapes, dtype, device, n_out):
-    """``n_out`` lists of new tensors of ``shapes``: views into one flat
-    buffer per output (new param, each state buffer), every leaf starting
-    on a 16-byte boundary so the vector path takes it. Views share their
-    buffer's version counter: an in-place change of one leaf moves every
-    leaf's ``_version`` (``cuda_matmul.kmajor_weight`` then remakes its
-    copies, never keeps a stale one)."""
+def _flat_offsets(shapes, dtype):
+    """Each leaf's start in a flat output buffer and the buffer's length:
+    every leaf starts on a 16-byte boundary, so the vector path takes
+    it."""
     align = 16 // dtype.itemsize
     offs, total = [], 0
-    for s in shapes:
+    for sh in shapes:
         offs.append(total)
-        total += -(-math.prod(s) // align) * align
-    outs = []
-    for _ in range(n_out):
-        flat = torch.empty(total, dtype=dtype, device=device)
-        outs.append([flat[o:o + math.prod(s)].view(s)
-                     for o, s in zip(offs, shapes)])
-    return outs
+        total += -(-math.prod(sh) // align) * align
+    return offs, total
+
+
+def _flat_views(flats, shapes, dtype):
+    """``len(flats)`` lists of the leaves' views into the flat buffers.
+    Views share their buffer's version counter: an in-place change of one
+    leaf moves every leaf's ``_version`` (``cuda_matmul.kmajor_weight``
+    then remakes its copies, never keeps a stale one)."""
+    offs, _ = _flat_offsets(shapes, dtype)
+    return [[flat[o:o + math.prod(sh)].view(sh)
+             for o, sh in zip(offs, shapes)] for flat in flats]
+
+
+def _flat_outputs(shapes, dtype, device, n_out):
+    """``n_out`` lists of new tensors of ``shapes``: views
+    (:func:`_flat_views`) into one new flat buffer per output (new param,
+    each state buffer)."""
+    _, total = _flat_offsets(shapes, dtype)
+    return _flat_views([torch.empty(total, dtype=dtype, device=device)
+                        for _ in range(n_out)], shapes, dtype)
+
+
+def _launch(srcs, outs, coef, kind: str) -> None:
+    """The kernel over leaves ``srcs`` (param, grad, state...) writing
+    ``outs`` (new param, new state...; the same tensors for an in-place
+    step): the table of pointers built here, one launch a
+    :data:`TABLE_LEAVES` leaves."""
+    code = list(_updater_classes()).index(kind)
+    dev, dtype = srcs[0][0].device, srcs[0][0].dtype
+    coef = coef.to(dev, torch.float32).contiguous()
+    ns = len(srcs[0]) - 2
+    es = srcs[0][0].element_size()
+    rows = np.zeros((len(srcs), _ROW), np.int64)
+    for i, bufs in enumerate(srcs):
+        src = [t.data_ptr() for t in bufs]
+        dst = [o.data_ptr() for o in outs[i]]
+        rows[i, :2 + ns] = src
+        rows[i, 5:6 + ns] = dst
+        n = bufs[0].numel()
+        rows[i, 9] = n
+        rows[i, 10] = vector_count(n, es, src + dst)
+    fn = _build.kernel_fn("fused_updater", "dl4j_fused_updater_multi",
+                          _ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for idx, starts in plan_launches(rows[:, 9].tolist(), es):
+        table = np.ascontiguousarray(rows[idx])
+        st = np.asarray(starts, np.int32)
+        rc = fn(table.ctypes.data, st.ctypes.data, len(idx), code,
+                _DTYPE_CODES[dtype], coef.data_ptr(), stream)
+        if rc == -1:
+            raise ValueError("fused_updater: unsupported dtype, kind or leaf "
+                             "count")
+        if rc != 0:
+            raise RuntimeError(f"fused_updater: kernel launch failed with "
+                               f"cudaError_t {rc}")
+        fused_updater.launches += 1
+    fused_updater.leaves += len(srcs)
+
+
+def _updater_classes():
+    from deeplearning4j_tpu_torch.nn.updater import UPDATERS
+
+    return UPDATERS
+
+
+def _per_leaf(params, grads, states):
+    """The flat operator arguments regrouped a leaf: (param, grad, state
+    in sorted-key order...)."""
+    ns = len(states) // max(1, len(params))
+    return [(p, g) + tuple(states[i * ns:(i + 1) * ns])
+            for i, (p, g) in enumerate(zip(params, grads))]
+
+
+def _plain_steps(params, grads, states, lr, step, kind, hyper):
+    hyper = json.loads(hyper)
+    return [fused_updater_step.fn(*leaf[:2], lr, step, *leaf[2:], kind=kind,
+                                  **hyper)
+            for leaf in _per_leaf(params, grads, states)]
+
+
+def _fused_updater_inplace(params, grads, states, coef, lr, step, kind,
+                           hyper):
+    leaves = _per_leaf(params, grads, states)
+    _launch(leaves, [(leaf[0],) + leaf[2:] for leaf in leaves], coef, kind)
+    from deeplearning4j_tpu_torch.ops.capture import bump_versions
+
+    bump_versions(list(params) + list(states))
+
+
+def _fused_updater_inplace_cpu(params, grads, states, coef, lr, step, kind,
+                               hyper):
+    news = _plain_steps(params, grads, states, lr, step, kind, hyper)
+    for leaf, new in zip(_per_leaf(params, grads, states), news):
+        for dst, val in zip((leaf[0],) + leaf[2:], new):
+            dst.copy_(val)
+
+
+def _fused_updater(params, grads, states, coef, lr, step, kind, hyper):
+    leaves = _per_leaf(params, grads, states)
+    views = _flat_outputs([p.shape for p in params], params[0].dtype,
+                          params[0].device, len(leaves[0]) - 1)
+    _launch(leaves, [tuple(v[i] for v in views) for i in range(len(leaves))],
+            coef, kind)
+    return [v[0]._base for v in views]
+
+
+def _fused_updater_cpu(params, grads, states, coef, lr, step, kind, hyper):
+    news = _plain_steps(params, grads, states, lr, step, kind, hyper)
+    shapes = [p.shape for p in params]
+    dtype = params[0].dtype
+    _, total = _flat_offsets(shapes, dtype)
+    flats = [params[0].new_zeros(total) for _ in range(len(news[0]))]
+    for views_i, new in zip(zip(*_flat_views(flats, shapes, dtype)), news):
+        for dst, val in zip(views_i, new):
+            dst.copy_(val)
+    return flats
+
+
+def _fused_updater_fake(params, grads, states, coef, lr, step, kind, hyper):
+    _, total = _flat_offsets([p.shape for p in params], params[0].dtype)
+    n_out = 1 + len(states) // max(1, len(params))
+    return [params[0].new_empty(total) for _ in range(n_out)]
+
+
+# the operators (ops/library.py): ``states`` is every leaf's state buffers
+# leaf after leaf, each leaf's in sorted-key order; ``coef`` the kernel's
+# coefficients (Updater.coefficients); ``lr``, ``step`` and ``hyper`` (the
+# kind's fields as JSON) are what the plain version (the CPU
+# implementation) takes in their place
+_UPDATER_TAIL = "Tensor coef, Tensor lr, Tensor step, str kind, str hyper"
+library.define("fused_updater_", f"(Tensor(a!)[] params, Tensor[] grads, "
+               f"Tensor(b!)[] states, {_UPDATER_TAIL}) -> ()",
+               cuda=_fused_updater_inplace, cpu=_fused_updater_inplace_cpu,
+               fake=lambda *args: None)
+library.define("fused_updater", f"(Tensor[] params, Tensor[] grads, "
+               f"Tensor[] states, {_UPDATER_TAIL}) -> Tensor[]",
+               cuda=_fused_updater, cpu=_fused_updater_cpu,
+               fake=_fused_updater_fake)
 
 
 def fused_updater_multi(params, grads, states, lr, step, *,
@@ -187,9 +317,12 @@ def fused_updater_multi(params, grads, states, lr, step, *,
     leaves share ``kind``, ``hyper``, ``lr``, ``step``, dtype and device;
     ``states[i]`` is leaf i's state in sorted-key order. One launch per
     :data:`TABLE_LEAVES` leaves (``fused_updater.launches``; the leaves on
-    ``fused_updater.leaves``). ``inplace``: the new values overwrite the
-    given (contiguous) parameter and state tensors, which are returned.
-    CPU tensors take the plain version leaf by leaf."""
+    ``fused_updater.leaves``), through the operator
+    ``dl4j_tpu_torch::fused_updater`` (new tensors: views into one flat
+    buffer per output) or, ``inplace``, ``dl4j_tpu_torch::fused_updater_``
+    (the new values overwrite the given contiguous parameter and state
+    tensors, which are returned). CPU tensors take the plain version leaf
+    by leaf."""
     if not params:
         return []
     if params[0].device.type == "cpu":
@@ -201,7 +334,7 @@ def fused_updater_multi(params, grads, states, lr, step, *,
             for dst, new in zip((p,) + tuple(s), out):
                 dst.copy_(new)
         return [(p,) + tuple(s) for p, s in zip(params, states)]
-    upd, _, code = _resolve(kind, hyper, states[0])
+    upd, _, _ = _resolve(kind, hyper, states[0])
     dev, dtype = params[0].device, params[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"fused_updater: unsupported device {dev}")
@@ -225,47 +358,21 @@ def fused_updater_multi(params, grads, states, lr, step, *,
                              "one dtype and device)")
         leaves.append(bufs)
     # the coefficients on the card (a no-op move when the trainer's lr and
-    # step live there); kept alive until the launches are enqueued
+    # step live there)
+    lr_t = _scalar(lr)
     if coef is None:
-        coef = upd.coefficients(_scalar(lr), step)
-    coef = coef.to(dev, torch.float32).contiguous()
+        coef = upd.coefficients(lr_t, step)
+    args = ([b[0] for b in leaves], [b[1] for b in leaves],
+            [t for b in leaves for t in b[2:]], coef, lr_t,
+            torch.as_tensor(step), kind,
+            json.dumps(dict(sorted(hyper.items()))))
+    ops = library.ops()
     if inplace:
-        outs = [[b[0] for b in leaves]] + [[b[2 + j] for b in leaves]
-                                           for j in range(ns)]
-    else:
-        outs = _flat_outputs([b[0].shape for b in leaves], dtype, dev,
-                             1 + ns)
-    es = leaves[0][0].element_size()
-    rows = np.zeros((len(leaves), _ROW), np.int64)
-    for i, bufs in enumerate(leaves):
-        src = [t.data_ptr() for t in bufs]
-        dst = [o[i].data_ptr() for o in outs]
-        rows[i, :2 + ns] = src
-        rows[i, 5:6 + ns] = dst
-        n = bufs[0].numel()
-        rows[i, 9] = n
-        rows[i, 10] = vector_count(n, es, src + dst)
-    fn = _build.kernel_fn("fused_updater", "dl4j_fused_updater_multi",
-                          _ARGS)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for idx, starts in plan_launches(rows[:, 9].tolist(), es):
-        table = np.ascontiguousarray(rows[idx])
-        st = np.asarray(starts, np.int32)
-        rc = fn(table.ctypes.data, st.ctypes.data, len(idx), code,
-                _DTYPE_CODES[dtype], coef.data_ptr(), stream)
-        if rc == -1:
-            raise ValueError("fused_updater: unsupported dtype, kind or leaf "
-                             "count")
-        if rc != 0:
-            raise RuntimeError(f"fused_updater: kernel launch failed with "
-                               f"cudaError_t {rc}")
-        fused_updater.launches += 1
-    fused_updater.leaves += len(leaves)
-    if inplace:
-        from deeplearning4j_tpu_torch.ops.capture import bump_versions
-
-        bump_versions([t for o in outs for t in o])
-    return [tuple(o[i] for o in outs) for i in range(len(leaves))]
+        ops.fused_updater_(*args)
+        return [(b[0],) + tuple(b[2:]) for b in leaves]
+    flats = ops.fused_updater(*args)
+    views = _flat_views(flats, [b[0].shape for b in leaves], dtype)
+    return [tuple(v[i] for v in views) for i in range(len(leaves))]
 
 
 def fused_updater(param, grad, lr, step, *state, kind: str = "Sgd",

@@ -24,8 +24,10 @@ Usage::
     sup = TrainingSupervisor(net, ckpt, save_every=10, install_sigterm=True)
     sup.fit(features, labels, epochs=3, batch_size=32)   # resumable
 
-The JAX supervisor also warm-boots exported train steps on resume
-(``autodiff/export.py``); that waits for the port of the export cache.
+With ``$DL4J_TPU_COMPILE_CACHE`` set, ``resume`` also warm-boots the
+network's exported train step (``autodiff/export.py``
+``maybe_warm_boot_net``): the resumed fit's first batch runs the restored
+program, recorded as ``cache_hit``, instead of tracing the step again.
 """
 
 from __future__ import annotations
@@ -103,6 +105,11 @@ class TrainingSupervisor:
         draining the async queue. Returns the step restored, or None."""
         self.ckpt.wait_until_finished(timeout=60.0)
         restored = self.ckpt.restore(self.net)
+        # the compiled state too: a train step exported by an earlier
+        # process (export_train_step) restores into the net's _jit_cache
+        from deeplearning4j_tpu_torch.autodiff import export as _aot_export
+
+        _aot_export.maybe_warm_boot_net(self.net)
         if restored is not None:
             epoch = int(getattr(self.net, "epoch_count", 0))
             cursor = int(getattr(self.net, "batch_in_epoch", 0))

@@ -1,8 +1,10 @@
 """Generative serving engine — prefill/decode dispatch over the paged cache.
 
-Counterpart of ``deeplearning4j_tpu/serving/engine.py`` without its AOT
-warm boot (``serving/aot.py``) and its ``key_trail`` audit. Three compiled
-step functions — the JAX engine jits them, the port runs each as a
+Counterpart of ``deeplearning4j_tpu/serving/engine.py`` without its
+``key_trail`` audit. With ``$DL4J_TPU_COMPILE_CACHE`` set, the
+constructor and ``_recover`` warm-boot the steps from the export cache
+(``serving/aot.py``). Three compiled step functions — the JAX engine jits
+them, the port runs each as a
 :class:`~deeplearning4j_tpu_torch.ops.capture.CapturedUnit`, a CUDA-graph
 capture on the card (eager on the CPU, and under ``disable_capture()``):
 
@@ -257,6 +259,12 @@ class GenerativeEngine:
             # write here would hide an earlier engine's hung stop
             "stopped_g": m.gauge("dl4j_tpu_serving_stopped_cleanly"),
         }
+        # warm boot from the export cache when $DL4J_TPU_COMPILE_CACHE is
+        # set (serving/aot.py): every step restored, or exported and
+        # stored, before the first request; inert otherwise
+        from deeplearning4j_tpu_torch.serving import aot as _aot
+
+        self.aot_boot = _aot.maybe_warm_boot(self)
 
     # ---------------------------------------------------------- staging
     def _stage(self) -> None:
@@ -280,150 +288,211 @@ class GenerativeEngine:
 
         self._adm_host, self._adm_np, adm = pair(t + 4 + p_n)
         self._adm_dev = adm
-        self._adm = {"ids": adm[:t].view(1, t), "p_len": adm[t],
-                     "top_k": adm[t + 1:t + 2],
-                     "temp": adm[t + 2:t + 3].view(torch.float32),
-                     "top_p": adm[t + 3:t + 4].view(torch.float32),
-                     "pt_row": adm[t + 4:]}
+        self._adm = self._adm_views(adm)
         self._dec_host, self._dec_np, dec = pair(s_n * p_n + 6 * s_n)
         self._dec_dev = dec
-        o = s_n * p_n
-        self._dec = {"page_table": dec[:o].view(s_n, p_n),
-                     **{k: dec[o + i * s_n:o + (i + 1) * s_n]
-                        for i, k in enumerate(("seq_lens", "tokens",
-                                               "active", "top_k"))},
-                     "temp": dec[o + 4 * s_n:o + 5 * s_n].view(torch.float32),
-                     "top_p": dec[o + 5 * s_n:].view(torch.float32)}
+        self._dec = self._dec_views(dec)
         if self.prefix is not None:
             self._suf_host, self._suf_np, suf = pair(b + 5 + p_n)
             self._suf_dev = suf
-            self._suf = {"ids": suf[:b].view(1, b), "prefix_len": suf[b],
-                         "suffix_len": suf[b + 1],
-                         "top_k": suf[b + 2:b + 3],
-                         "temp": suf[b + 3:b + 4].view(torch.float32),
-                         "top_p": suf[b + 4:b + 5].view(torch.float32),
-                         "pt_row": suf[b + 5:]}
+            self._suf = self._suf_views(suf)
         if self.spec is not None:
             w = self.spec.k + 1
             self._ver_host, self._ver_np, ver = pair(s_n * (w + p_n + 2))
             self._ver_dev = ver
-            o = s_n * w
-            self._ver = {"tokens": ver[:o].view(s_n, w),
-                         "page_table": ver[o:o + s_n * p_n].view(s_n, p_n),
-                         "seq_lens": ver[o + s_n * p_n:o + s_n * (p_n + 1)],
-                         "active": ver[o + s_n * (p_n + 1):]}
+            self._ver = self._ver_views(ver)
 
-    def _build_prefill(self) -> CapturedUnit:
-        cfg, params, a = self.cfg, self.model.params, self._adm
+    # the staged buffers' fields, as views of a buffer: the live one, or
+    # the argument of an exported core (which reads no sampling knob: the
+    # float32 ones, views of the int32 bits, only with ``knobs``)
+    def _adm_views(self, adm, knobs: bool = True) -> dict:
         t = self.max_prompt
+        out = {"ids": adm[:t].view(1, t), "p_len": adm[t],
+               "top_k": adm[t + 1:t + 2], "pt_row": adm[t + 4:]}
+        if knobs:
+            out.update(temp=adm[t + 2:t + 3].view(torch.float32),
+                       top_p=adm[t + 3:t + 4].view(torch.float32))
+        return out
+
+    def _dec_views(self, dec, knobs: bool = True) -> dict:
+        s_n, p_n = self.cache.max_slots, self.cache.max_pages_per_seq
+        o = s_n * p_n
+        out = {"page_table": dec[:o].view(s_n, p_n),
+               **{k: dec[o + i * s_n:o + (i + 1) * s_n]
+                  for i, k in enumerate(("seq_lens", "tokens", "active",
+                                         "top_k"))}}
+        if knobs:
+            out.update(
+                temp=dec[o + 4 * s_n:o + 5 * s_n].view(torch.float32),
+                top_p=dec[o + 5 * s_n:].view(torch.float32))
+        return out
+
+    def _suf_views(self, suf, knobs: bool = True) -> dict:
+        b = self.suffix_bucket
+        out = {"ids": suf[:b].view(1, b), "prefix_len": suf[b],
+               "suffix_len": suf[b + 1], "top_k": suf[b + 2:b + 3],
+               "pt_row": suf[b + 5:]}
+        if knobs:
+            out.update(temp=suf[b + 3:b + 4].view(torch.float32),
+                       top_p=suf[b + 4:b + 5].view(torch.float32))
+        return out
+
+    def _ver_views(self, ver) -> dict:
+        s_n, p_n = self.cache.max_slots, self.cache.max_pages_per_seq
+        w = self.spec.k + 1
+        o = s_n * w
+        return {"tokens": ver[:o].view(s_n, w),
+                "page_table": ver[o:o + s_n * p_n].view(s_n, p_n),
+                "seq_lens": ver[o + s_n * p_n:o + s_n * (p_n + 1)],
+                "active": ver[o + s_n * (p_n + 1):]}
+
+    # ------------------------------------------------------ the step cores
+    # Each step is a core — a function of its tensors alone (parameters,
+    # cache, the staged device buffer), what the export cache exports
+    # (serving/aot.py) — run inside its captured unit, followed, where the
+    # step samples, by the draw from the engine's generator, which stays
+    # outside any exported program.
+
+    def _prefill_core(self, params, adm):
+        """The prompt through one causal prefill: ``(kv (L, 2, T, H, Dh),
+        the last prompt position's logits (1, V))``."""
+        a, t = self._adm_views(adm, knobs=False), self.max_prompt
+        pos = torch.arange(t, device=adm.device)
+        mask = (pos < a["p_len"])[None].to(torch.int32)
+        logits, kv = gpt_prefill(params, a["ids"], self.cfg, mask=mask)
+        last = logits[0].index_select(
+            0, (a["p_len"] - 1).reshape(1).long())  # (1, V)
+        return kv[:, :, 0], last
+
+    def _build_prefill(self, core=None) -> CapturedUnit:
+        core = core or self._prefill_core
+        params, adm, a = self.model.params, self._adm_dev, self._adm
 
         def prefill():
-            pos = torch.arange(t, device=self.device)
-            mask = (pos < a["p_len"])[None].to(torch.int32)
-            logits, kv = gpt_prefill(params, a["ids"], cfg, mask=mask)
-            last = logits[0].index_select(
-                0, (a["p_len"] - 1).reshape(1).long())  # (1, V)
+            kv, last = core(params, adm)
             tok = sample_tokens(last, self._gen, a["temp"], a["top_k"],
                                 a["top_p"])
-            return kv[:, :, 0], tok  # (L, 2, T, H, Dh), (1,)
+            return kv, tok  # (L, 2, T, H, Dh), (1,)
 
         return CapturedUnit(prefill, device=self.device,
                             generators=(self._gen,), name="prefill")
 
-    def _build_write(self) -> CapturedUnit:
-        cache, a = self.cache, self._adm
-        page, trash, t = cache.page_size, cache.trash_page, self.max_prompt
+    def _write_core(self, kv, kv_prompt, adm):
+        """Scatter the prefill K/V into the slot's pages of ``kv``, in
+        place; prompt-pad positions land on the trash page."""
+        a, t = self._adm_views(adm, knobs=False), self.max_prompt
+        page, trash = self.cache.page_size, self.cache.trash_page
+        pos = torch.arange(t, device=adm.device)
+        page_idx = torch.where(pos < a["p_len"], a["pt_row"][pos // page],
+                               trash)
+        kv[:, :, page_idx, pos % page] = kv_prompt
+
+    def _build_write(self, core=None) -> CapturedUnit:
+        core = core or self._write_core
+        kv, adm = self.cache.kv, self._adm_dev
 
         def write_prompt(kv_prompt):
-            pos = torch.arange(t, device=self.device)
-            page_idx = torch.where(pos < a["p_len"],
-                                   a["pt_row"][pos // page], trash)
-            cache.kv[:, :, page_idx, pos % page] = kv_prompt
+            core(kv, kv_prompt, adm)
 
         # kv_prompt is the prefill graph's own output buffer: read in place
         return CapturedUnit(write_prompt, device=self.device,
                             owned_inputs=True, name="write_prompt")
 
-    def _build_suffix(self) -> CapturedUnit:
+    def _suffix_core(self, params, kv, suf):
         """Suffix-only prefill for prefix-cache hits: gather the cached
         prefix K/V out of the slot's pages (``max_prompt`` positions through
         its page-table row), run the bucketed suffix through
-        :func:`gpt_prefill_suffix`, sample the first token from the last
-        suffix position, and scatter the suffix K/V into the pages in
-        place (pad positions land on the trash page)."""
-        cfg, cache, params, a = self.cfg, self.cache, self.model.params, \
-            self._suf
+        :func:`gpt_prefill_suffix`, scatter the suffix K/V into the pages
+        in place (pad positions land on the trash page); returns the last
+        suffix position's logits (1, V)."""
+        a = self._suf_views(suf, knobs=False)
+        cache = self.cache
         page, trash = cache.page_size, cache.trash_page
         p_n, t_pre, b = cache.max_pages_per_seq, self.max_prompt, \
             self.suffix_bucket
+        row = a["pt_row"].long()
+        pos = torch.arange(t_pre, device=suf.device)
+        prefix_kv = kv[:, :, row[pos // page], pos % page]
+        logits, kv_suf = gpt_prefill_suffix(
+            params, a["ids"], prefix_kv, a["prefix_len"], a["suffix_len"],
+            self.cfg)
+        last = logits[0].index_select(
+            0, (a["suffix_len"] - 1).reshape(1).long())  # (1, V)
+        ar = torch.arange(b, device=suf.device)
+        apos = a["prefix_len"] + ar
+        wpage = torch.where(ar < a["suffix_len"],
+                            row[(apos // page).clamp(0, p_n - 1)], trash)
+        kv[:, :, wpage, (apos % page).long()] = kv_suf.to(kv.dtype)
+        return last
+
+    def _build_suffix(self, core=None) -> CapturedUnit:
+        """The suffix prefill (:meth:`_suffix_core`) and the first token
+        sampled from its last position."""
+        core = core or self._suffix_core
+        params, kv, suf, a = (self.model.params, self.cache.kv,
+                              self._suf_dev, self._suf)
 
         def suffix_prefill():
-            row = a["pt_row"].long()
-            pos = torch.arange(t_pre, device=self.device)
-            prefix_kv = cache.kv[:, :, row[pos // page], pos % page]
-            logits, kv_suf = gpt_prefill_suffix(
-                params, a["ids"], prefix_kv, a["prefix_len"],
-                a["suffix_len"], cfg)
-            last = logits[0].index_select(
-                0, (a["suffix_len"] - 1).reshape(1).long())  # (1, V)
-            tok = sample_tokens(last, self._gen, a["temp"], a["top_k"],
-                                a["top_p"])
-            ar = torch.arange(b, device=self.device)
-            apos = a["prefix_len"] + ar
-            wpage = torch.where(ar < a["suffix_len"],
-                                row[(apos // page).clamp(0, p_n - 1)], trash)
-            cache.kv[:, :, wpage, (apos % page).long()] = kv_suf.to(
-                cache.kv.dtype)
-            return tok
+            last = core(params, kv, suf)
+            return sample_tokens(last, self._gen, a["temp"], a["top_k"],
+                                 a["top_p"])
 
         return CapturedUnit(suffix_prefill, device=self.device,
                             generators=(self._gen,), name="suffix_prefill")
 
-    def _build_verify(self) -> CapturedUnit:
+    def _verify_core(self, params, kv, ver):
         """Speculative verification: ONE target forward over each slot's
         ``spec_k + 1`` fed tokens (the last committed and the K proposals)
         against the paged cache, the target's greedy argmax at every fed
         position out. Inactive and non-speculating slots ride along
         masked: their writes land on the trash page."""
-        cfg, cache, params, v = self.cfg, self.cache, self.model.params, \
-            self._ver
+        v, cache = self._ver_views(ver), self.cache
         page, trash = cache.page_size, cache.trash_page
         p_n, s_n, w = cache.max_pages_per_seq, cache.max_slots, \
             self.spec.k + 1
+        seq_lens, table = v["seq_lens"], v["page_table"]
+        pos = seq_lens.long()[:, None] + torch.arange(
+            w, device=ver.device)[None, :]
+        row = (pos // page).clamp(0, p_n - 1)
+        wpage = torch.where(
+            (v["active"] > 0)[:, None],
+            table.long()[torch.arange(s_n, device=ver.device)[:, None], row],
+            trash)
+        _, greedy = gpt_verify(params, kv, v["tokens"], seq_lens, table,
+                               wpage, pos % page, self.cfg, page_size=page)
+        return greedy
 
-        def verify():
-            seq_lens, table = v["seq_lens"], v["page_table"]
-            pos = seq_lens.long()[:, None] + torch.arange(
-                w, device=self.device)[None, :]
-            row = (pos // page).clamp(0, p_n - 1)
-            wpage = torch.where(
-                (v["active"] > 0)[:, None],
-                table.long()[torch.arange(s_n, device=self.device)[:, None],
-                             row], trash)
-            _, greedy = gpt_verify(params, cache.kv, v["tokens"], seq_lens,
-                                   table, wpage, pos % page, cfg,
-                                   page_size=page)
-            return greedy
+    def _build_verify(self, core=None) -> CapturedUnit:
+        core = core or self._verify_core
+        params, kv, ver = self.model.params, self.cache.kv, self._ver_dev
+        return CapturedUnit(lambda: core(params, kv, ver),
+                            device=self.device, name="verify")
 
-        return CapturedUnit(verify, device=self.device, name="verify")
-
-    def _build_decode(self) -> CapturedUnit:
-        cfg, cache, params, d = self.cfg, self.cache, self.model.params, \
-            self._dec
+    def _decode_core(self, params, kv, dec):
+        """One token's forward for every slot against the paged cache (its
+        K/V written in place): the logits (S, V)."""
+        d, cache = self._dec_views(dec, knobs=False), self.cache
         page, trash = cache.page_size, cache.trash_page
         s_n, p_n = cache.max_slots, cache.max_pages_per_seq
+        seq_lens = d["seq_lens"]
+        on = d["active"] > 0
+        row = (seq_lens // page).clamp(max=p_n - 1)
+        write_page = torch.where(
+            on, d["page_table"][torch.arange(s_n, device=dec.device),
+                                row.long()], trash).to(torch.int32)
+        seq_incl = seq_lens + on.to(torch.int32)
+        _, logits = gpt_decode_step(
+            params, kv, d["tokens"], seq_lens, d["page_table"], seq_incl,
+            write_page, seq_lens % page, self.cfg)
+        return logits
+
+    def _build_decode(self, core=None) -> CapturedUnit:
+        core = core or self._decode_core
+        params, kv, dec, d = (self.model.params, self.cache.kv,
+                              self._dec_dev, self._dec)
 
         def decode():
-            seq_lens = d["seq_lens"]
-            on = d["active"] > 0
-            row = (seq_lens // page).clamp(max=p_n - 1)
-            write_page = torch.where(
-                on, d["page_table"][torch.arange(s_n, device=self.device),
-                                    row.long()], trash).to(torch.int32)
-            seq_incl = seq_lens + on.to(torch.int32)
-            _, logits = gpt_decode_step(
-                params, cache.kv, d["tokens"], seq_lens, d["page_table"],
-                seq_incl, write_page, seq_lens % page, cfg)
+            logits = core(params, kv, dec)
             toks = sample_tokens(logits, self._gen, d["temp"], d["top_k"],
                                  d["top_p"])
             return toks, logits
@@ -663,6 +732,11 @@ class GenerativeEngine:
             self.spec.reset()
         # the same buffer, zeroed: the captured steps keep their addresses
         cache.reset_kv()
+        # a step never built before the crash comes from the export cache
+        # (units already built are kept)
+        from deeplearning4j_tpu_torch.serving import aot as _aot
+
+        _aot.maybe_warm_boot(self)
         observe.log_event("engine_restart", restart=self.restarts,
                           error=repr(exc))
         delay = min(self.max_backoff_s,

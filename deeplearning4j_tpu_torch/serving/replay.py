@@ -140,15 +140,17 @@ def run_prefix_replay(*, prefix_on: bool, n_requests: int = 12,
     return out
 
 
-def _serving_first_compile_keys(before: int) -> List[str]:
-    """The serving-graph ``first_compile`` ledger keys recorded after
-    event index ``before``: the evidence that exactly the expected units
-    were captured."""
+def _serving_first_compile_keys(before: int,
+                                cause: str = "first_compile") -> List[str]:
+    """The serving-graph ledger keys recorded with ``cause`` after event
+    index ``before``: with ``first_compile``, the evidence that exactly
+    the expected units were captured; with ``cache_hit``, the units an
+    export-cache warm boot restored (``serving/aot.py``)."""
     from deeplearning4j_tpu_torch import observe
 
     evs = observe.ledger().events()
     return sorted(e.key for e in evs[before:]
-                  if e.graph == "serving" and e.cause == "first_compile")
+                  if e.graph == "serving" and e.cause == cause)
 
 
 def run_spec_replay(*, spec_on: bool, n_requests: int = 6,
@@ -243,6 +245,8 @@ def run_spec_replay(*, spec_on: bool, n_requests: int = 6,
         "new_shape_events": max(
             0, _serving_new_shape_count() - new_shape_before),
         "first_compile_keys": _serving_first_compile_keys(led_before),
+        "cache_hit_keys": sorted(set(_serving_first_compile_keys(
+            led_before, "cache_hit"))),
     }
 
 
@@ -252,7 +256,8 @@ def run_randomized_replay(*, n_requests: int = 16, seed: int = 0,
                           gen_max: int = 6, spec_k: int = 3,
                           max_slots: int = 2, n_prefixes: int = 2,
                           draft_noise: float = 1e-2,
-                          model=None, device=None) -> Dict[str, Any]:
+                          model=None, device=None,
+                          sample_every: int = 0) -> Dict[str, Any]:
     """Shape-diverse replay.
 
     Where :func:`run_prefix_replay` fixes the traffic shape to measure
@@ -266,6 +271,10 @@ def run_randomized_replay(*, n_requests: int = 16, seed: int = 0,
     capture signature: the ledger must show only ``first_compile`` events,
     ZERO serving ``new_shape``.  That is the assertion this function
     exists to feed (the caller makes it — this function only reports).
+    ``sample_every`` > 0 (the port's addition; 0 is the JAX function):
+    every ``sample_every``-th request samples (temperature 0.8, top-k
+    40), so it takes the plain decode step — paged decode — where the
+    greedy ones speculate; the engine's seeded generator draws them.
     """
     from deeplearning4j_tpu_torch import observe
     from deeplearning4j_tpu_torch.models.gpt import GptConfig, GptModel
@@ -316,13 +325,17 @@ def run_randomized_replay(*, n_requests: int = 16, seed: int = 0,
                                   size=plen).astype(np.int32))
     gens = [int(r.randint(1, gen_max + 1)) for _ in range(n_requests)]
 
-    def run_one(prompt, n_gen):
-        fut = eng.submit(prompt, max_new_tokens=n_gen, eos_token=-1)
+    def run_one(i, prompt, n_gen):
+        knobs = (dict(temperature=0.8, top_k=40)
+                 if sample_every and i % sample_every == sample_every - 1
+                 else {})
+        fut = eng.submit(prompt, max_new_tokens=n_gen, eos_token=-1,
+                         **knobs)
         while eng.scheduler.has_work():
             eng.step()
         return fut.result(timeout=0)
 
-    results = [run_one(p, g) for p, g in zip(plan, gens)]
+    results = [run_one(i, p, g) for i, (p, g) in enumerate(zip(plan, gens))]
     eng.check_invariants()
 
     reasons: Dict[str, int] = {}
@@ -342,7 +355,11 @@ def run_randomized_replay(*, n_requests: int = 16, seed: int = 0,
         "new_shape_events": max(
             0, _serving_new_shape_count() - new_shape_before),
         "first_compile_keys": _serving_first_compile_keys(led_before),
+        "cache_hit_keys": sorted(set(_serving_first_compile_keys(
+            led_before, "cache_hit"))),
         "boot_s": round(boot_s, 4),
+        # the export cache's warm boot at construction (serving/aot.py)
+        "aot": eng.aot_boot,
         "ttft_first_ms": (round(results[0].ttft_s * 1e3, 3)
                           if results and results[0].ttft_s is not None
                           else None),

@@ -183,55 +183,74 @@ class SpeculativeDecoder:
 
         self._pre_host, self._pre_np, pre = pair(t + 2)
         self._pre_dev = pre
-        self._pre = {"ids": pre[:t].view(1, t), "p_len": pre[t],
-                     "slot": pre[t + 1:t + 2]}
+        self._pre = self._pre_views(pre)
         self._prop_host, self._prop_np, prop = pair(3 * s_n)
         self._prop_dev = prop
-        self._prop = {"tokens": prop[:s_n], "lens": prop[s_n:2 * s_n],
-                      "active": prop[2 * s_n:]}
+        self._prop = self._prop_views(prop)
         # the prefill reads nothing back: this event marks its host-to-device
         # copy done before the next admission rewrites the pinned buffer
         self._pre_copied = torch.cuda.Event() if pin else None
 
     # --------------------------------------------------------- captured units
-    def _build_prefill(self) -> CapturedUnit:
-        cfg, params, a = self.draft.cfg, self.draft.params, self._pre
+    # the staged buffers' fields, as views of a buffer: the live one, or
+    # the argument of an exported core
+    def _pre_views(self, pre) -> dict:
         t = self.max_prompt
+        return {"ids": pre[:t].view(1, t), "p_len": pre[t],
+                "slot": pre[t + 1:t + 2]}
 
-        def draft_prefill():
-            pos = torch.arange(t, device=self.device)
-            mask = (pos < a["p_len"])[None].to(torch.int32)
-            _logits, kvp = gpt_prefill(params, a["ids"], cfg, mask=mask)
-            # kvp (L, 2, 1, Tpre, H, Dh) drops into the slot's row;
-            # positions >= prompt_len hold pad garbage the <= pos decode
-            # mask never reads (the first propose overwrites position
-            # prompt_len before attending to it)
-            self.kv[:, :, a["slot"].long(), :t] = kvp.to(self.kv.dtype)
+    def _prop_views(self, prop) -> dict:
+        s_n = self.max_slots
+        return {"tokens": prop[:s_n], "lens": prop[s_n:2 * s_n],
+                "active": prop[2 * s_n:]}
 
-        return CapturedUnit(draft_prefill, device=self.device,
-                            name="draft_prefill")
+    # Each unit runs a core — a function of its tensors alone (the draft
+    # parameters, the draft KV, the staged buffer), what the export cache
+    # exports (serving/aot.py); neither draws from a generator.
 
-    def _build_propose(self) -> CapturedUnit:
-        cfg, params, d, k = self.draft.cfg, self.draft.params, self._prop, \
-            self.k
+    def _prefill_core(self, params, kv, pre):
+        """The draft over the (bucket-padded) prompt, its K/V written into
+        the slot's row of ``kv`` in place."""
+        t, a = self.max_prompt, self._pre_views(pre)
+        ids, p_len, slot = a["ids"], a["p_len"], a["slot"]
+        pos = torch.arange(t, device=pre.device)
+        mask = (pos < p_len)[None].to(torch.int32)
+        _logits, kvp = gpt_prefill(params, ids, self.draft.cfg, mask=mask)
+        # kvp (L, 2, 1, Tpre, H, Dh) drops into the slot's row; positions
+        # >= prompt_len hold pad garbage the <= pos decode mask never reads
+        # (the first propose overwrites position prompt_len before
+        # attending to it)
+        kv[:, :, slot.long(), :t] = kvp.to(kv.dtype)
 
-        def draft_decode():
-            step = (d["active"] > 0).to(torch.int32)
-            toks, pos, props = d["tokens"], d["lens"], []
-            # k + 1 steps for k proposals: the last one only writes d_K's
-            # K/V (its output is dropped) — a full accept commits K + 1
-            # tokens and advances the draft length over position lens + K,
-            # which must then hold real K/V
-            for _ in range(k + 1):
-                _, logits = _draft_decode_step(params, self.kv, toks, pos,
-                                               d["active"], cfg)
-                toks = torch.argmax(logits, dim=-1).to(torch.int32)
-                props.append(toks)
-                pos = pos + step
-            return torch.stack(props[:k], dim=1)  # (S, K)
+    def _build_prefill(self, core=None) -> CapturedUnit:
+        core = core or self._prefill_core
+        params, kv, pre = self.draft.params, self.kv, self._pre_dev
+        return CapturedUnit(lambda: core(params, kv, pre),
+                            device=self.device, name="draft_prefill")
 
-        return CapturedUnit(draft_decode, device=self.device,
-                            name="draft_decode")
+    def _propose_core(self, params, kv, prop):
+        """K greedy draft steps for every slot: the proposals (S, K)."""
+        d, k = self._prop_views(prop), self.k
+        active = d["active"]
+        step = (active > 0).to(torch.int32)
+        toks, pos, props = d["tokens"], d["lens"], []
+        # k + 1 steps for k proposals: the last one only writes d_K's K/V
+        # (its output is dropped) — a full accept commits K + 1 tokens and
+        # advances the draft length over position lens + K, which must
+        # then hold real K/V
+        for _ in range(k + 1):
+            _, logits = _draft_decode_step(params, kv, toks, pos, active,
+                                           self.draft.cfg)
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            props.append(toks)
+            pos = pos + step
+        return torch.stack(props[:k], dim=1)  # (S, K)
+
+    def _build_propose(self, core=None) -> CapturedUnit:
+        core = core or self._propose_core
+        params, kv, prop = self.draft.params, self.kv, self._prop_dev
+        return CapturedUnit(lambda: core(params, kv, prop),
+                            device=self.device, name="draft_decode")
 
     # ------------------------------------------------------------- lifecycle
     @torch.no_grad()

@@ -215,20 +215,6 @@ def test_dispatch_inside_a_capture_is_tallied_not_counted():
     assert m.family_total("dl4j_tpu_helper_dispatch_total") == 1
 
 
-def test_paged_counters_keep_an_outgrown_buffer():
-    dev = torch.device("cpu")
-    ca._PAGED_COUNTERS.pop(dev, None)
-    first = ca._paged_counters(dev, 10)
-    assert first.numel() == 1024 and ca._paged_counters(dev, 1024) is first
-    n_kept = len(ca._PAGED_OUTGROWN)
-    bigger = ca._paged_counters(dev, 5000)
-    assert bigger.numel() == 5000 and bigger is not first
-    assert ca._PAGED_OUTGROWN[-1] is first  # never freed: graphs address it
-    assert len(ca._PAGED_OUTGROWN) == n_kept + 1
-    ca._PAGED_COUNTERS.pop(dev, None)
-    ca._PAGED_OUTGROWN.remove(first)
-
-
 def test_captured_ops_make_no_host_copies():
     """The graph ops that once built a device tensor from host data —
     ``size`` and a negative-step ``strided_slice`` — give numpy's

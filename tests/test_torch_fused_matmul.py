@@ -16,7 +16,7 @@ Inputs are drawn with numpy and fed to both packages.
   op by op in the operands' dtype), transposes included: float32 1e-5;
   bfloat16 within one bf16 unit per rounding (the product and the bias add
   each round once): 2^-6 relative, 1e-2 absolute.
-* ``FusedMatmulFn``'s gradients against ``jax.vjp`` of ``_fused_mm``
+* the differentiable operator's gradients against ``jax.vjp`` of ``_fused_mm``
   (Pallas forward in interpret mode, the plain two-matmul backward):
   float32 1e-4 relative and absolute (matmuls and column sums of the same
   numbers in another order).
@@ -130,8 +130,8 @@ def test_gradients_match_jax_vjp(act, x_shape, bias, trans_b):
     want = vjp(jnp.asarray(g))
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, w)]
     tb = torch.from_numpy(b).requires_grad_(True) if bias else None
-    got_out = T.FusedMatmulFn.apply(leaves[0], leaves[1], tb, act, False,
-                                    trans_b)
+    got_out = T.fused_matmul(leaves[0], leaves[1], tb, activation=act,
+                             transpose_b=trans_b)
     assert got_out.grad_fn is not None
     np.testing.assert_allclose(_to_np(got_out), np.asarray(out), rtol=1e-5,
                                atol=1e-5)

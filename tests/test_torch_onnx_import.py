@@ -195,7 +195,7 @@ def test_an_unmapped_op_raises_at_import():
 
 
 def test_validate_raises(tiny_bytes):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         timp.import_onnx(tiny_bytes, validate=True, device="cpu")
 
 

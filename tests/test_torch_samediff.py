@@ -335,7 +335,7 @@ def test_autocast_is_refused_not_ignored(monkeypatch):
 
 
 def test_validate_is_refused_not_ignored():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         TSameDiff(validate=True, device="cpu")
 
 
