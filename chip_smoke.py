@@ -311,6 +311,16 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    ``exec``. Reports the p50 forward time (captured and eager) and
    tokens/s over 5 forwards after 2 warm ones, peak memory, the graph
    pool's memory and node counts beside onnx_bert's.
+11b. ``export_bindings`` — the BN/matmul/BN-stats, LayerNorm and int8
+   kernels as ``torch.library`` operators through ``torch.export`` on the
+   card: a one-op module each of ``bn_matmul_stats`` (ResNet-50's stage-3
+   c1 at batch 32) and ``fused_layer_norm`` (4096 × 768, gelu) exported,
+   stored in an ``ExportCache``, loaded and run; int8_bert's graph
+   exported by ``export_exec`` and warm-booted back from the cache — each
+   restored program equal to the direct call bit for bit, with the same
+   launches (73 int8 GEMMs, 73 row quantizations and 12 flash forwards an
+   int8 forward); ``torch.library.opcheck`` of the four operators on CUDA
+   tensors.
 11a. ``onnx_bert_autocast`` — onnx_bert's bytes through the optimizer's
    autocast pass (``passes=PASS_ORDER + ("autocast",)``: every dense
    MatMul's x and w cast to bfloat16, its result back to float32),
@@ -429,6 +439,29 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    (probabilities and last hidden state); eager forward p50, tokens/s,
    busy share, peak memory; and a Sequential Conv1D classifier from the
    same builder against its generic run and its CPU import.
+20a. ``keras_bert_transfer`` — keras_bert's ``.h5`` bytes imported again
+   with ``validate=True`` (the checker's seconds), made a 9-way classifier
+   by ``graph_transfer_builder`` (``testing/layer_nets.
+   transfer_keras_encoder``: the classifier removed, an OutputLayer on
+   ``pooler``, the embeddings and blocks 0–7 frozen, Adam by a
+   ``FineTuneConfiguration``) and fine-tuned by ``EarlyStoppingTrainer``
+   (4 batches of 32 × 128 an epoch, 2 held out, at most 3 epochs,
+   ``InMemoryModelSaver``), captured; then op by op under
+   ``helper_mode="generic"`` and from one-ulp-nudged parameters. Frozen
+   leaves bit-identical, the best model restored with its held-out score
+   equal to ``best_score``, losses and trained leaves within 3× the
+   yardstick, the flash forward / dq / dk/dv and updater launches the
+   steps and held-out scores make; step p50, tokens/s, peak memory.
+20b. ``nn_layer_types`` — the last fourteen layer types through the
+   networks of ``testing/layer_nets`` at card size (CapsNet at Sabour et
+   al. widths, a 784-input VAE by its ELBO, an attention sequence
+   classifier with a CenterLossOutputLayer at batch 32 × T 256, a
+   recurrent-attention tagger at T 64, and one network each of MaskLayer,
+   ElementWiseMultiplicationLayer, FrozenLayerWithBackprop, CnnLossLayer,
+   Yolo2OutputLayer at TinyYOLO's head and a SameDiffLayer): 3 steps
+   each, captured = eager, held to ``helper_mode="generic"`` and to the
+   port's CPU run of the same parameters by the one-ulp yardstick; the
+   learned-query attention launches the flash forward, dq and dk/dv.
 21. ``aot_warm_boot`` — the export cache (``autodiff/export.py``,
    ``serving/aot.py``; the kernels as ``torch.library`` operators), each
    leg a fresh process (``chip_smoke.py --aot-leg``) with
@@ -665,6 +698,13 @@ KERAS_BERT_TIMED = 5
 KERAS_SEQ_CFG = dict(vocab=1000, seq=128, width=32, filters=16, kernel=5,
                      pool=2, classes=4)
 KERAS_SEQ_TOL = 1e-5
+# keras_bert_transfer: the fine-tune of the imported encoder
+KT_CLASSES = 9
+KT_FREEZE = "layer_7_output_norm"   # the embeddings and blocks 0-7 frozen
+KT_TRAIN = 4                        # training batches an epoch
+KT_HELD_OUT = 2                     # held-out batches
+KT_EPOCHS = 3
+LAYERS_STEPS = 3                    # nn_layer_types: fit steps a network
 # sd_bert_finetune: Adam lr and steps (BERT fine-tune practice: 2e-5…5e-5)
 FINETUNE_LR = 5e-5
 FINETUNE_STEPS = 3
@@ -2427,6 +2467,7 @@ def onnx_bert_phase(dev, smi):
             sd = import_onnx(model, optimize=optimize, device=dev)
             torch.cuda.synchronize()
             parse_s = time.perf_counter() - t0
+            check_s = sd.last_check_report.seconds  # inside parse_s
             t0 = time.perf_counter()
             sd.output(feeds, ["y"])  # the first forward builds the plan
             first_s = time.perf_counter() - t0
@@ -2465,7 +2506,8 @@ def onnx_bert_phase(dev, smi):
                 y = sd.output(feeds, ["y"])["y"]
                 times.append(time.perf_counter() - t0)
             st = sd.last_compile_stats
-            info = {"parse_s": parse_s, "first_forward_s": first_s,
+            info = {"parse_s": parse_s, "check_s": check_s,
+                    "first_forward_s": first_s,
                     "p50_ms": float(np.percentile(times, 50)) * 1e3,
                     "times_ms": [t * 1e3 for t in times],
                     "peak_memory_gib":
@@ -2616,6 +2658,7 @@ def onnx_vision_phase(phase, dev, smi):
             env.helper_mode = "auto"
 
     sd, import_s = load()
+    check_s = sd.last_check_report.seconds  # inside import_s
     t0 = time.perf_counter()
     forward(sd)  # the first forward builds the plan and warms up
     first_s = time.perf_counter() - t0
@@ -2722,6 +2765,7 @@ def onnx_vision_phase(phase, dev, smi):
             "weights": weights, "weights_gb": 4 * weights / 1e9,
             "model_bytes": len(model), "build_bytes_s": build_s,
             "parse_s": parse_s, "import_s": import_s,
+            "check_s": check_s,
             "import_unoptimized_s": import_u_s,
             "first_forward_s": first_s,
             "nodes_before": st.nodes_before, "nodes_after": st.nodes_after,
@@ -3094,7 +3138,8 @@ def tf_bert_phase(dev, smi):
             t0 = time.perf_counter()
             sd = build(source, nudge)
             torch.cuda.synchronize()
-            info = {"import_s": time.perf_counter() - t0}
+            info = {"import_s": time.perf_counter() - t0,
+                    "check_s": sd.last_check_report.seconds}
             n_params = sum(a.numel() for n, a in sd._arrays.items()
                            if sd._vars[n].vtype == "VARIABLE")
             with _eager_if(eager or mode != "auto"):
@@ -3552,15 +3597,16 @@ def _rel_err(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-def int8_bert_phase(dev, smi, onnx_line, float32_out):
+def int8_bert_phase(dev, smi, onnx_line, float32_out, keep=None):
     """int8 serving: the BERT-base encoder with every dense MatMul a
     ``matmul_int8``, recorded through ``SameDiff`` from onnx_bert's weights
     and run by ``sd.output`` — through the kernels, with
     ``helper_mode="generic"``, generic from an embedding table moved by one
     unit in the last place (the yardstick), and generic with each column
     de-scaled by its neighbour's scale (the gross fault the float32 bound
-    must catch). Returns (problems, line, launches of the main path's
-    forward)."""
+    must catch). ``keep`` (a dict), when given, receives the counted
+    run's graph, feeds and ``y`` (``export_bindings`` exports it).
+    Returns (problems, line, launches of the main path's forward)."""
     import torch
 
     from deeplearning4j_tpu_torch import observe
@@ -3651,6 +3697,8 @@ def int8_bert_phase(dev, smi, onnx_line, float32_out):
                                               INT8_BERT_TIMED),
                             ledger=ledger)
             out = sd.output(feeds, ["y", "hidden"])
+            if counted and keep is not None:
+                keep.update(sd=sd, feeds=feeds, y=out["y"])
             del sd
             torch.cuda.empty_cache()
             return out, info, launches
@@ -4197,13 +4245,14 @@ def _mln_run(net, start, mode, batches, *, nudge=False, eager=False):
             _clone_tree([net.params, net.opt_state, net.net_state]))
 
 
-def _mln_main_path(net, batches, keys=("train",)):
+def _mln_main_path(net, batches, keys=("train",), counters=None):
     """Warm-up (the step keys' captures), the generic run (the reference,
     op by op), then the counted run — replays — with every launch count
     and the dispatch tally set to 0 just before and read just after, then
     the same steps under ``disable_capture()``. Returns (start, generic
     run, kernel run, launches, updater leaves, tally, (capture problems,
-    capture fields))."""
+    capture fields)); ``counters`` (a dict), when given, receives every
+    kernel's count of the counted run (``_read_counters``)."""
     from deeplearning4j_tpu_torch import observe
     from deeplearning4j_tpu_torch.ops import cuda_updater as cu
 
@@ -4214,8 +4263,12 @@ def _mln_main_path(net, batches, keys=("train",)):
     generic = _mln_run(net, start, "generic", batches)
     events = list(observe.ledger().events())
     cu.fused_updater.launches = cu.fused_updater.leaves = 0
+    if counters is not None:
+        _zero_counters()
     observe.reset()                                 # the main path's run
     kernel = _mln_run(net, start, "auto", batches)
+    if counters is not None:
+        counters.update(_read_counters())
     launches = {"fused_updater": cu.fused_updater.launches}
     leaves, tally = cu.fused_updater.leaves, dispatch_tally()  # ... ends
     events += observe.ledger().events()
@@ -5526,7 +5579,7 @@ def _keras_expected_leaves(arrays):
     return want
 
 
-def keras_bert_phase(dev, smi):
+def keras_bert_phase(dev, smi, keep=None):
     """Keras import without h5py, Keras or TensorFlow, served on the card:
     ``testing/keras_builder`` writes the legacy ``.h5`` of a BERT-base
     width functional Keras encoder (12 layers, 768, 12 heads, 3072, vocab
@@ -5543,8 +5596,9 @@ def keras_bert_phase(dev, smi):
     then the eager forward's p50, tokens/s, busy share and the phase's
     peak memory. A Sequential Conv1D text classifier written by the same
     builder is imported on the card too and held to its generic run and to
-    the port's CPU import. Returns (problems, line, launches of the
-    counted forward)."""
+    the port's CPU import. ``keep`` (a dict), when given, receives the
+    ``.h5`` bytes. Returns (problems, line, launches of the counted
+    forward)."""
     import torch
 
     from deeplearning4j_tpu_torch.environment import environment
@@ -5563,6 +5617,8 @@ def keras_bert_phase(dev, smi):
     t0 = time.perf_counter()
     data, arrays = kb.bert_keras_h5(None, **cfg)
     build_s = time.perf_counter() - t0
+    if keep is not None:  # keras_bert_transfer imports the same bytes
+        keep["h5"] = data
     h5_bytes = len(data)
     t0 = time.perf_counter()
     config, weights = ki.read_keras_h5(data)
@@ -5573,6 +5629,7 @@ def keras_bert_phase(dev, smi):
     net = ki.import_keras_model_and_weights(data, device=dev)
     torch.cuda.synchronize()
     import_s = time.perf_counter() - t0
+    check_s = net.last_check_report.seconds  # inside import_s
     n_params = sum(t.numel() for p in net.params.values()
                    for t in p.values())
 
@@ -5708,6 +5765,7 @@ def keras_bert_phase(dev, smi):
             "leaves_bit_equal": not leaf_problems,
             "h5_bytes": h5_bytes, "build_s": build_s,
             "parse_s": parse_s, "import_s": import_s,
+            "check_s": check_s,
             "import_weight_gb_per_s": 4 * n_params / import_s / 1e9,
             "forward_launches": launches, "checks": checks,
             "forward_p50_ms": p50 * 1e3,
@@ -7428,6 +7486,531 @@ def aot_warm_boot_phase(dev, smi):
     return problems, line, launches
 
 
+# ----------------------------------------------------- the last layer types
+
+
+class _StepClock:
+    """A training listener: each step's synchronized host seconds and its
+    score (read at once: a replayed step's output buffer is reused)."""
+
+    def __init__(self):
+        self.times, self.scores, self._t = [], [], None
+
+    def on_epoch_start(self, model):
+        import torch
+
+        torch.cuda.synchronize()
+        self._t = time.perf_counter()
+
+    def iteration_done(self, model, iteration, epoch, score):
+        import torch
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.times.append(now - self._t)
+        self.scores.append(float(score))
+        self._t = now
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def keras_bert_transfer_phase(dev, smi, h5):
+    """Transfer learning with early stopping on the card, at BERT-base
+    width: keras_bert's ``.h5`` bytes imported again with ``validate=True``
+    (the checker's seconds printed), ``testing/layer_nets.
+    transfer_keras_encoder`` — the 2-way classifier removed, a softmax
+    ``OutputLayer(768 → 9)`` on ``pooler`` as the new output, the
+    embeddings and blocks 0–7 frozen (``set_feature_extractor(
+    "layer_7_output_norm")``), Adam by a ``FineTuneConfiguration`` — then
+    ``EarlyStoppingTrainer`` over seeded batches of 32 × 128 (4 training
+    batches an epoch, 2 held out; ``MaxEpochsTerminationCondition(3)`` and
+    ``ScoreImprovementEpochTerminationCondition(1)``, ``InMemoryModelSaver``),
+    captured, with every launch count set to 0 just before and read just
+    after; then the same run op by op under ``helper_mode="generic"`` and
+    from parameters moved one unit in the last place (the yardstick).
+    Checks: every frozen leaf bit-identical, the best model restored with
+    its held-out score equal to ``best_score``, losses and trained leaves
+    against the generic run, and the flash forward, dq, dk/dv and updater
+    launches the steps and held-out scores make. Returns (problems, line,
+    launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.imports import keras_import as ki
+    from deeplearning4j_tpu_torch.models._tree import leaf_paths
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.testing import keras_builder as kb
+    from deeplearning4j_tpu_torch.testing import layer_nets as L
+
+    cfg = dict(kb.BERT_BASE_KERAS, seq=KERAS_BERT_SEQ)
+    layers, batch, seq = cfg["layers"], KERAS_BERT_BATCH, KERAS_BERT_SEQ
+    env = environment()
+    problems = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    src = ki.import_keras_model_and_weights(h5, validate=True, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    report = src.last_check_report
+    t0 = time.perf_counter()
+    net = L.transfer_keras_encoder(
+        tnn, src, freeze_at=KT_FREEZE, classes=KT_CLASSES,
+        hidden=cfg["hidden"], updater=tnn.Adam(learning_rate=FINETUNE_LR))
+    torch.cuda.synchronize()
+    transfer_s = time.perf_counter() - t0
+    del src
+    gc.collect()
+    frozen = sorted(n.name for n in net.conf.nodes if n.layer is not None
+                    and type(n.layer.updater).__name__ == "Frozen"
+                    and net.params.get(n.name))
+    trainable = sorted(n for n, p in net.params.items()
+                       if p and n not in frozen)
+
+    def batches(n, seed):
+        out = []
+        for i in range(n):
+            ids, pos = kb.bert_inputs(batch, seq, cfg["vocab"], seed=seed + i)
+            y = np.eye(KT_CLASSES, dtype=np.float32)[
+                np.random.RandomState(seed + 50 + i).randint(
+                    0, KT_CLASSES, batch)]
+            out.append(types.SimpleNamespace(  # a multi-input batch
+                features=[ids.astype(np.float32), pos.astype(np.float32)],
+                labels=y, features_mask=None, labels_mask=None,
+                num_examples=lambda: batch))
+        return out
+
+    train, held = batches(KT_TRAIN, 20), batches(KT_HELD_OUT, 40)
+    start = (_clone_tree(net.params), _clone_tree(net.opt_state),
+             _clone_tree(net.net_state))
+
+    def run(mode, *, nudge=False, counted=False):
+        env.helper_mode = mode
+        net.params = _load(net.params, _nudged(
+            start[0], np.random.default_rng(13)) if nudge else start[0])
+        net.opt_state = _load(net.opt_state, start[1])
+        net.net_state = _load(net.net_state, start[2])
+        net.iteration_count = net.epoch_count = net.batch_in_epoch = 0
+        net._gen.manual_seed(net.conf.seed)
+        clock = _StepClock()
+        net.set_listeners(clock)
+        es = tnn.EarlyStoppingConfiguration(
+            epoch_termination_conditions=[
+                tnn.MaxEpochsTerminationCondition(KT_EPOCHS),
+                tnn.ScoreImprovementEpochTerminationCondition(1)],
+            model_saver=tnn.InMemoryModelSaver())
+        info = {}
+        try:
+            with _eager_if(mode != "auto"):
+                if counted:
+                    disp0 = dispatch_tally()
+                    _zero_counters()  # the main path's run starts here
+                t0 = time.perf_counter()
+                res = tnn.EarlyStoppingTrainer(es, net, train, held).fit()
+                torch.cuda.synchronize()
+                info["wall_s"] = time.perf_counter() - t0
+                if counted:
+                    info["launches"] = _read_counters()  # ... and ends here
+                    info["dispatch"] = dispatch_since(disp0)
+                again = float(np.mean([net.score(ds) for ds in held]))
+        finally:
+            env.helper_mode = "auto"
+            net.set_listeners()
+        info.update(reason=res.termination_reason,
+                    details=res.termination_details,
+                    best_epoch=res.best_epoch, best_score=res.best_score,
+                    total_epochs=res.total_epochs,
+                    score_history=res.score_history,
+                    held_out_after_restore=again,
+                    best_model_is_net=res.best_model is net,
+                    step_times=clock.times)
+        return (clock.scores, _clone_tree(net.params)), info
+
+    net.fit(train[:1])  # warm-up: the step's capture
+    observe.reset()
+    kernel, k_info = run("auto", counted=True)
+    generic, g_info = run("generic")
+    yard, y_info = run("generic", nudge=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # frozen leaves: bit for bit through the kernel run; the best model
+    for name in frozen:
+        for (path, a), (_, b) in zip(leaf_paths(kernel[1][name]),
+                                     leaf_paths(start[0][name])):
+            if not torch.equal(a, b):
+                problems.append(f"frozen {name}{list(path)} moved")
+    for label, info in (("kernel", k_info), ("generic", g_info)):
+        if not info["best_model_is_net"] or \
+                info["held_out_after_restore"] != info["best_score"]:
+            problems.append(f"{label}: the restored model scores "
+                            f"{info['held_out_after_restore']} != best "
+                            f"{info['best_score']}")
+    if (k_info["best_epoch"], k_info["total_epochs"], k_info["reason"]) != (
+            g_info["best_epoch"], g_info["total_epochs"], g_info["reason"]):
+        problems.append(f"termination {k_info['details']} epoch "
+                        f"{k_info['best_epoch']} != generic "
+                        f"{g_info['details']} {g_info['best_epoch']}")
+    # trained leaves (the best model's) and the losses against generic
+    trained = lambda p: {n: p[n] for n in trainable}  # noqa: E731
+    more, agree = _rnn_agreement(
+        (trained(start[0]),), (generic[0], None, trained(generic[1])),
+        (kernel[0], None, trained(kernel[1])),
+        (yard[0], None, trained(yard[1])))
+    problems += more
+    steps = len(kernel[0])
+    epochs = k_info["total_epochs"]
+    launches = k_info["launches"]
+    n_fa, more = gated(k_info["dispatch"], "dot_product_attention",
+                       layers * (steps + KT_HELD_OUT * epochs),
+                       floor=layers * steps)
+    problems += more
+    want = {"flash_attn_fwd": n_fa, "flash_attn_fwd_f32_sm90": n_fa,
+            "flash_attn_dq": layers * steps,
+            "flash_attn_dq_f32_sm90": layers * steps,
+            "flash_attn_dkv": layers * steps,
+            "flash_attn_dkv_f32_sm90": layers * steps,
+            # one multi-tensor launch an updater group a step: Frozen, Adam
+            "fused_updater": 2 * steps,
+            "fused_updater_leaves": steps * sum(
+                1 for p in net.params.values() for _ in leaf_paths(p))}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        problems.append(f"launches {got} != {want}")
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if others:
+        problems.append(f"other kernels launched: {others}")
+    times = k_info["step_times"]
+    p50 = float(np.percentile(times, 50))
+    line = {"phase": "keras_bert_transfer", "card": smi, "config": cfg,
+            "import_s": import_s, "check_s": report.seconds,
+            "check_findings": [f.render() for f in report.findings],
+            "transfer_s": transfer_s, "frozen_layers": len(frozen),
+            "trainable_layers": trainable,
+            "params_frozen": sum(t.numel() for n in frozen
+                                 for _, t in leaf_paths(net.params[n])),
+            "params_trainable": sum(t.numel() for n in trainable
+                                    for _, t in leaf_paths(net.params[n])),
+            "recipe": f"remove classifier; OutputLayer(768 -> {KT_CLASSES}, "
+                      f"softmax, mcxent) on pooler; freeze {KT_FREEZE} and "
+                      f"its ancestors; Adam {FINETUNE_LR:g}",
+            "early_stopping": f"MaxEpochs({KT_EPOCHS}) + ScoreImprovement(1),"
+                              f" InMemoryModelSaver; {KT_TRAIN} batches of "
+                              f"{batch} x {seq} an epoch, {KT_HELD_OUT} held "
+                              f"out",
+            "kernel": {k: v for k, v in k_info.items()
+                       if k not in ("dispatch", "step_times")},
+            "generic": {k: v for k, v in g_info.items() if k != "step_times"},
+            "agreement": agree,
+            "frozen_backward": "runs: every leaf is an autograd leaf, so "
+                               "the frozen blocks' dq/dk/dv launch and the "
+                               "Frozen updater writes their leaves back",
+            "launches": launches, "launches_expected": want,
+            "step_p50_ms": p50 * 1e3, "step_times_ms": [t * 1e3
+                                                         for t in times],
+            "tokens_per_s": batch * seq / p50,
+            "peak_memory_gib": peak, "peak_memory_own_gib": peak - resident,
+            "smoke_reading": f"{len(times)} captured steps, no spread",
+            "problems": problems}
+    del net, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems, line, {k: v for k, v in launches.items()
+                            if k != "fused_updater_leaves"}
+
+
+def nn_layer_types_phase(dev, smi):
+    """The last fourteen layer types on the card, through the networks of
+    ``testing/layer_nets`` at their card dims (CapsNet at Sabour et al.
+    widths, the VAE on 784 inputs by its ELBO, the attention sequence
+    classifier at batch 32 × T 256, the recurrent-attention tagger at T
+    64, and one network each of MaskLayer, ElementWiseMultiplicationLayer,
+    FrozenLayerWithBackprop, CnnLossLayer, Yolo2OutputLayer at TinyYOLO's
+    head and a SameDiffLayer): 3 ``fit`` steps each, captured and counted
+    (``_mln_main_path``), held to ``helper_mode="generic"`` and to the
+    port's CPU run of the same parameters with the one-ulp yardstick.
+    LearnedSelfAttentionLayer must launch the flash forward, dq and dk/dv.
+    Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.environment import environment
+    from deeplearning4j_tpu_torch.ops import cuda_updater as cu
+    from deeplearning4j_tpu_torch.testing import layer_nets as L
+
+    env = environment()
+    problems, nets, total = [], {}, {}
+    # the convolutions' backward in one fixed order: the captured steps
+    # must equal the eager ones bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for name in L.NETWORKS:
+        d = L.CARD[name]
+        conf = L.build(name, tnn, d)
+        net = tnn.MultiLayerNetwork(conf, device=dev).init()
+        cpu = tnn.MultiLayerNetwork(L.build(name, tnn, d),
+                                    device="cpu").init(
+            params=_to(net.params, "cpu"))
+        data = [L.batch(name, d, seed=s) for s in range(LAYERS_STEPS)]
+        info = {"layers": [type(lc).__name__ for lc in conf.layers],
+                "dims": d,
+                "params": net.num_params()}
+        if name == "vae":
+            eps = [torch.from_numpy(np.random.RandomState(70 + s).randn(
+                d["batch"], d["latent"]).astype(np.float32))
+                for s in range(LAYERS_STEPS)]
+            start = (_clone_tree(net.params), _clone_tree(net.opt_state))
+
+            def elbo_run(target, mode, nudge=False, counted=False):
+                env.helper_mode = mode
+                p0 = _nudged(start[0], np.random.default_rng(14)) \
+                    if nudge else start[0]
+                target.params = _to(_clone_tree(p0), target.device)
+                target.opt_state = _to(_clone_tree(start[1]), target.device)
+                if counted:
+                    _zero_counters()
+                losses, times = [], []
+                try:
+                    for s, (x, _, _) in enumerate(data):
+                        _sync(target.device)
+                        t0 = time.perf_counter()
+                        loss = L.fit_elbo(target, x,
+                                          eps[s].to(target.device), s)
+                        _sync(target.device)
+                        times.append(time.perf_counter() - t0)
+                        losses.append(float(loss))
+                finally:
+                    env.helper_mode = "auto"
+                counts = _read_counters() if counted else None
+                return (losses, times, _to(target.params, dev)), counts
+
+            kernel, counts = elbo_run(net, "auto", counted=True)
+            generic, _ = elbo_run(net, "generic")
+            yard, _ = elbo_run(net, "generic", nudge=True)
+            on_cpu, _ = elbo_run(cpu, "auto")
+            first = _to(start[0], dev)
+            if counts["fused_updater"] != LAYERS_STEPS:
+                problems.append(f"vae: updater launches "
+                                f"{counts['fused_updater']} != "
+                                f"{LAYERS_STEPS}")
+            info["fit"] = "layer_nets.fit_elbo (eager): the negative ELBO"
+        else:
+            batches = [DataSet(x, y, m, m if y.ndim == 3 else None)
+                       for x, y, m in data]
+            counts = {}
+            start, generic, kernel, _, leaves, tally, capture = \
+                _mln_main_path(net, batches, counters=counts)
+            problems += [f"{name}: {p}" for p in capture[0]]
+            yard = _mln_run(net, start, "generic", batches, nudge=True)
+            cpu_scores = []
+            for ds in batches:
+                cpu.fit(ds, batch_size=ds.num_examples())
+                cpu_scores.append(cpu.score())
+            on_cpu = (cpu_scores, None, _to(cpu.params, dev))
+            first = start[0]
+            info["capture"] = capture[1]
+            info["dispatch"] = tally
+            if counts["fused_updater"] != LAYERS_STEPS:
+                problems.append(f"{name}: updater launches "
+                                f"{counts['fused_updater']} != "
+                                f"{LAYERS_STEPS}")
+            if name == "seq_classifier":
+                n_fa, more = gated(tally, "dot_product_attention",
+                                   LAYERS_STEPS, floor=LAYERS_STEPS)
+                problems += [f"{name}: {p}" for p in more]
+                for k in ("flash_attn_fwd", "flash_attn_dq",
+                          "flash_attn_dkv"):
+                    if counts[k] != n_fa:
+                        problems.append(f"{name}: {k} {counts[k]} != "
+                                        f"{n_fa}")
+        for label, run in (("vs_generic", kernel), ("vs_cpu", on_cpu)):
+            more, info[label] = _rnn_agreement((first,), generic, run, yard)
+            problems += [f"{name} {label}: {p}" for p in more]
+        info.update(losses_cpu=on_cpu[0],
+                    step_p50_ms=float(np.percentile(kernel[1], 50)) * 1e3,
+                    launches={k: v for k, v in counts.items() if v})
+        for k, v in counts.items():
+            if k != "fused_updater_leaves":
+                total[k] = total.get(k, 0) + v
+        nets[name] = info
+        del net, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    line = {"phase": "nn_layer_types", "card": smi, "steps": LAYERS_STEPS,
+            "updater": "Adam 1e-3", "networks": nets,
+            "tol": "the CPU run against the card's generic run by the "
+                   "kernel run's yardstick (each network's tol)",
+            "problems": problems}
+    return problems, line, total
+
+
+def _to(tree, device):
+    """A parameter tree with every tensor copied to ``device``."""
+    from deeplearning4j_tpu_torch.models._tree import map_tree
+
+    return map_tree(lambda t: t.detach().to(device, copy=True), tree)
+
+
+def export_bindings_phase(dev, smi, int8):
+    """The BN/matmul/BN-stats, LayerNorm and int8 kernels through
+    ``torch.export`` on the card, as ``torch.library`` operators: a one-op
+    module of each of ``bn_matmul_stats`` (the stage-3 c1 convolution of
+    ResNet-50 at batch 32) and ``fused_layer_norm`` (4096 × 768, gelu)
+    exported, stored in an ``ExportCache``, loaded and run; int8_bert's
+    forward (the graph that phase built) exported by ``export_exec`` and
+    warm-booted back into it from the cache. Each restored program must
+    equal the direct call bit for bit, with the same launch counts (73
+    GEMMs and 73 row quantizations an int8 forward). Then
+    ``torch.library.opcheck`` of the four operators on CUDA tensors.
+    Returns (problems, line, launches of the restored programs)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import export as aot
+    from deeplearning4j_tpu_torch.ops import cuda_convbn as cc
+    from deeplearning4j_tpu_torch.ops import cuda_layernorm as cl
+    from deeplearning4j_tpu_torch.ops import cuda_quantized as cq
+    from deeplearning4j_tpu_torch.ops import library
+    from deeplearning4j_tpu_torch.testing import onnx_builder as ob
+
+    problems, cases = [], {}
+    tmp = tempfile.mkdtemp(dir=str(_build_dir()))
+    cache = aot.ExportCache(tmp)
+    g = torch.Generator().manual_seed(21)
+    m, k, n, _ = CONVBN_SHAPES["stage3_c1"]
+    m //= 4  # batch 32: M % 128 == 0
+    conv_args = (torch.randn(m, k, generator=g).to(dev, torch.bfloat16),
+                 (torch.rand(k, generator=g) + 0.5).to(dev),
+                 (0.1 * torch.randn(k, generator=g)).to(dev),
+                 (torch.randn(k, n, generator=g) * k ** -0.5).to(
+                     dev, torch.bfloat16),
+                 (0.1 * torch.randn(n, generator=g)).to(dev))
+    ln_args = (torch.randn(*LN_SHAPE, generator=g).to(dev),
+               (1 + 0.1 * torch.randn(LN_SHAPE[1], generator=g)).to(dev),
+               (0.1 * torch.randn(LN_SHAPE[1], generator=g)).to(dev))
+    one_op = {
+        "bn_matmul_stats": (
+            lambda *a: cc.bn_matmul_stats_partials(*a, relu=True,
+                                                   fuse_prologue=True),
+            conv_args, "dl4j_tpu_torch.bn_matmul_stats.default",
+            {"bn_matmul_stats": 1, "bn_matmul_stats_sm90": 1}),
+        "fused_layer_norm": (
+            lambda x, gn, b: cl.fused_layer_norm_kernel(x, gn, b,
+                                                        activation="gelu"),
+            ln_args, "dl4j_tpu_torch.fused_layer_norm.default",
+            {"fused_layer_norm": 1})}
+    restored_counts = {}
+    for name, (fn, args, target, want) in one_op.items():
+        t0 = time.perf_counter()
+        exported = aot.export_fn(fn, args)
+        export_s = time.perf_counter() - t0
+        targets = {str(nd.target) for nd in exported.graph.nodes}
+        cache.store("bindings", name, exported)
+        restored = cache.load("bindings", name).module()
+        _zero_counters()
+        direct = fn(*args)
+        torch.cuda.synchronize()
+        c_direct = {k: v for k, v in _read_counters().items() if v}
+        _zero_counters()
+        got = restored(*args)
+        torch.cuda.synchronize()
+        c_restored = {k: v for k, v in _read_counters().items() if v}
+        direct = direct if isinstance(direct, tuple) else (direct,)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        equal = len(direct) == len(got) and all(
+            torch.equal(a, b) for a, b in zip(direct, got))
+        cases[name] = {"export_s": export_s, "operator_in_program":
+                       target in targets, "bit_equal": equal,
+                       "launches_direct": c_direct,
+                       "launches_restored": c_restored}
+        if target not in targets or not equal:
+            problems.append(f"{name}: {cases[name]}")
+        if c_restored != c_direct or c_restored != want:
+            problems.append(f"{name}: launches {c_restored} (direct "
+                            f"{c_direct}, want {want})")
+        for key, v in c_restored.items():
+            restored_counts[key] = restored_counts.get(key, 0) + v
+
+    # int8_bert's forward, exported and warm-booted from the cache
+    sd, feeds, want_y = int8["sd"], int8["feeds"], int8["y"]
+    t0 = time.perf_counter()
+    path = aot.export_exec(sd, feeds, ["y"], cache=cache)
+    export_s = time.perf_counter() - t0
+    targets = [str(nd.target) for nd in cache.load(
+        aot.samediff_fingerprint(sd, ("y",)), "exec").graph.nodes]
+    booted = aot.warm_boot_samediff(sd, ["y"], cache=cache)
+    sd.output(feeds, ["y"])  # the restored program's capture
+    copies = cq.kmajor_weight.copies
+    _zero_counters()
+    y = sd.output(feeds, ["y"])["y"]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _read_counters().items() if v}
+    layers = ob.BERT_BASE_ONNX["layers"]
+    n_dense = 6 * layers + 1
+    want = {"matmul_int8": n_dense, "matmul_int8_sm90": n_dense,
+            "matmul_int8_row_quantize": n_dense, "flash_attn_fwd": layers,
+            "flash_attn_fwd_f32_sm90": layers}
+    cases["int8_bert"] = {
+        "export_s": export_s, "entry": bool(path), "warm_booted": booted,
+        "operators_in_program": {op: targets.count(
+            f"dl4j_tpu_torch.{op}.default") for op in (
+                "matmul_int8", "matmul_int8_row_quantize", "flash_fwd")},
+        "bit_equal": bool(np.array_equal(y, want_y)),
+        "launches_restored": counts,
+        "kmajor_copies_in_restored_forward": cq.kmajor_weight.copies - copies}
+    if not (path and booted and cases["int8_bert"]["bit_equal"]):
+        problems.append(f"int8_bert: {cases['int8_bert']}")
+    if counts != want:
+        problems.append(f"int8_bert: launches {counts} != {want}")
+    for key, v in counts.items():
+        restored_counts[key] = restored_counts.get(key, 0) + v
+    del sd
+    int8.clear()
+
+    # opcheck on CUDA tensors, small shapes
+    ns = library.ops()
+    small = torch.Generator().manual_seed(22)
+
+    def t(*shape, dtype=torch.float32, grad=False):
+        return torch.randn(*shape, generator=small).to(dev, dtype) \
+            .requires_grad_(grad)
+
+    xq, xs = cq.row_quantize(t(64, 128))
+    checks = {
+        "bn_matmul_stats": (t(256, 64, dtype=torch.bfloat16), t(64), t(64),
+                            t(64, 128, dtype=torch.bfloat16), t(128), True,
+                            True, 0),
+        "fused_layer_norm": (t(64, 96, grad=True), t(96, grad=True),
+                             t(96, grad=True), 1e-5, "gelu"),
+        "matmul_int8_row_quantize": (t(64, 128),),
+        "matmul_int8": (xq, xs, torch.randint(-127, 128, (128, 64),
+                                              dtype=torch.int8,
+                                              generator=small).to(dev),
+                        t(64).abs(), torch.float32)}
+    opcheck = {}
+    for name, args in checks.items():
+        try:
+            torch.library.opcheck(getattr(ns, name).default, args)
+            opcheck[name] = "passed"
+        except Exception as e:  # noqa: BLE001 — reported as a problem
+            opcheck[name] = f"{type(e).__name__}: {e}"[:400]
+            problems.append(f"opcheck {name}: {opcheck[name]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    line = {"phase": "export_bindings", "card": smi, "cases": cases,
+            "opcheck_cuda": opcheck, "schema_digest": library.schema_digest(),
+            "problems": problems}
+    return problems, line, restored_counts
+
+
 def main() -> int:
     import torch
 
@@ -7791,11 +8374,21 @@ def main() -> int:
         raise SystemExit(f"op_catalog phase failed: {problems}")
 
     # ---------------------------------------------------------- int8_bert
+    int8_keep = {}
     problems, line, train_launches["int8_bert"] = int8_bert_phase(
-        dev, smi, onnx_line, float32_out)
+        dev, smi, onnx_line, float32_out, keep=int8_keep)
     emit(line)
     if problems:
         raise SystemExit(f"int8_bert phase failed: {problems}")
+
+    # ---------------------------------------------------- export_bindings
+    t_phase = time.perf_counter()
+    problems, line, train_launches["export_bindings"] = (
+        export_bindings_phase(dev, smi, int8_keep))
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    if problems:
+        raise SystemExit(f"export_bindings phase failed: {problems}")
 
     # ------------------------------------------------- onnx_bert_autocast
     problems, line, train_launches["onnx_bert_autocast"] = (
@@ -7840,10 +8433,30 @@ def main() -> int:
         raise SystemExit(f"updater_coefficients phase failed: {problems}")
 
     # --------------------------------------------------------- keras_bert
-    problems, line, train_launches["keras_bert"] = keras_bert_phase(dev, smi)
+    keras_keep = {}
+    problems, line, train_launches["keras_bert"] = keras_bert_phase(
+        dev, smi, keep=keras_keep)
     emit(line)
     if problems:
         raise SystemExit(f"keras_bert phase failed: {problems}")
+
+    # ----------------------------------------------- keras_bert_transfer
+    t_phase = time.perf_counter()
+    problems, line, train_launches["keras_bert_transfer"] = (
+        keras_bert_transfer_phase(dev, smi, keras_keep.pop("h5")))
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    if problems:
+        raise SystemExit(f"keras_bert_transfer phase failed: {problems}")
+
+    # ---------------------------------------------------- nn_layer_types
+    t_phase = time.perf_counter()
+    problems, line, train_launches["nn_layer_types"] = nn_layer_types_phase(
+        dev, smi)
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    if problems:
+        raise SystemExit(f"nn_layer_types phase failed: {problems}")
 
     # ------------------------------------------------------ aot_warm_boot
     t_aot = time.perf_counter()

@@ -1,11 +1,9 @@
 """Findings of the shape/dtype evidence walk, and the optimizer's
 pass-invariance error.
 
-The JAX package records graph findings in its lint ``Finding`` and builds
-reports, baselines and a CLI on them (``deeplearning4j_tpu/analysis/
-report.py``). The port runs the walk only as the optimizer's evidence and
-invariant checker, so it keeps a small record of its own; the report, the
-CLI and ``check_samediff`` are not ported (ROADMAP.md, Queue 1 item 10).
+The JAX package records graph findings in its lint ``Finding``; the
+port keeps a record of its own with the same fields, which the reports of
+``analysis/report.py`` collect.
 """
 
 from __future__ import annotations

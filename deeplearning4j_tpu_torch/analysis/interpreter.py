@@ -3,7 +3,8 @@ list once, propagating symbolic shapes/dtypes (and a constant env) through
 the per-op rules, collecting GC-coded findings with node provenance.
 
 Counterpart of ``deeplearning4j_tpu/analysis/interpreter.py``
-(``infer_nodes``). Resolution order per node:
+(``infer_nodes``, ``seed_avals``, ``check_samediff``). Resolution order
+per node:
 
 1. instance-local ops (control-flow closures) — deliberately opaque:
    outputs unknown, no finding;
@@ -20,11 +21,13 @@ shape chains stay concrete through the walk, as they do at run time.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.analysis.findings import Finding, make_finding
+from deeplearning4j_tpu_torch.analysis.report import CheckReport
 from deeplearning4j_tpu_torch.analysis.rules import RULES
 from deeplearning4j_tpu_torch.analysis.values import AVal, CONST_VALUE_LIMIT
 
@@ -200,3 +203,58 @@ def infer_nodes(indexed_nodes: Sequence[Tuple[int, Any]],
             avals[name] = aval
             defined.add(name)
     return avals
+
+
+# ---------------------------------------------------------------------------
+# SameDiff entry points
+# ---------------------------------------------------------------------------
+
+
+def seed_avals(sd) -> Tuple[Dict[str, AVal], set]:
+    """(avals, known-names) for a SameDiff instance: bound arrays
+    (VARIABLE/CONSTANT) give exact avals — constants keep their value for
+    the constant env — and PLACEHOLDER declarations give symbolic avals
+    (None/-1 axes become named Dims)."""
+    avals: Dict[str, AVal] = {}
+    known: set = set()
+    for name, v in sd._vars.items():
+        if name in sd._arrays:
+            keep = v.vtype == "CONSTANT"
+            avals[name] = AVal.of_array(sd._arrays[name], keep_value=keep)
+            known.add(name)
+        elif v.vtype == "PLACEHOLDER":
+            avals[name] = AVal.of_placeholder(name, v.shape, v.dtype)
+            known.add(name)
+    return avals, known
+
+
+def check_samediff(sd, outputs: Optional[Sequence[str]] = None,
+                   graph_name: str = "<samediff>") -> CheckReport:
+    """Verify a SameDiff graph statically. ``outputs=None`` checks every
+    recorded node; with explicit outputs only their ancestor subgraph is
+    walked (what a run of those outputs would execute)."""
+    t0 = time.perf_counter()
+    findings: List[Finding] = []
+    avals, known = seed_avals(sd)
+
+    indexed = list(enumerate(sd._nodes))
+    if outputs is not None:
+        wanted = set(outputs)
+        keep: List[Tuple[int, Any]] = []
+        for idx, node in reversed(indexed):
+            if any(o in wanted for o in node.outputs):
+                keep.append((idx, node))
+                wanted.update(node.inputs)
+        keep.reverse()
+        indexed = keep
+
+    infer_nodes(indexed, avals, sd._local_ops, graph_name, findings, known)
+
+    # interface sanity: requested / recorded graph outputs must exist
+    for out in (outputs if outputs is not None else sd.graph_outputs):
+        if out not in sd._vars:
+            findings.append(make_finding(
+                graph_name, len(sd._nodes), "GC004",
+                f"graph output '{out}' names no variable in the graph"))
+    return CheckReport(graph_name, findings, avals,
+                       seconds=time.perf_counter() - t0)

@@ -107,6 +107,38 @@ def _ew_binary(node, ins, emit):
     return [AVal(shape, promote_dtypes([a.dtype for a in ins[:2]]))]
 
 
+@op_rule("layer_norm")
+def _layer_norm_op(node, ins, emit):
+    """(x − mean)·rsqrt(var + eps)·gain (+ bias): the operands' broadcast in
+    their promoted dtype, as a probe of the op gives it. A rule rather
+    than the probe: the first reduction run on meta tensors imports
+    torch's symbolic-shape machinery, seconds a process (the JAX package
+    probes it with ``jax.eval_shape``). Where the probe would fail — an
+    axis out of range, operands that do not broadcast — the outputs are
+    opaque (GC006), as the probe's failure makes them; so are they where
+    the probe would not run (a symbolic or unknown input)."""
+    x = ins[0]
+    axis = node.kwargs.get("axis", -1)
+    if any(not a.is_concrete() or a.dtype is None for a in ins):
+        emit("GC006", "no inference rule and the meta-tensor probe could "
+                      "not run (inputs have symbolic/unknown shape or "
+                      "dtype); outputs are opaque to the checker")
+        return [AVal.unknown()]
+    try:
+        shape = broadcast_shapes([a.shape for a in ins])
+    except BroadcastError as e:
+        emit("GC006", f"no inference for 'layer_norm' on "
+                      f"{_shapes_str(ins)} ({e.detail}); outputs are "
+                      f"opaque to the checker")
+        return [AVal.unknown()]
+    if x.shape is not None and _norm_axis(axis, len(x.shape)) is None:
+        emit("GC006", f"no inference for 'layer_norm' over axis {axis} of "
+                      f"{fmt_shape(x.shape)}; outputs are opaque to the "
+                      f"checker")
+        return [AVal.unknown()]
+    return [AVal(shape, promote_dtypes([a.dtype for a in ins]))]
+
+
 @op_rule("div")
 def _ew_div(node, ins, emit):
     shape = _broadcast_or_emit(ins[:2], emit, "'div'")

@@ -55,9 +55,9 @@ What differs from the JAX package:
   ``as_export_text``, the counterpart of ``as_stablehlo``: the text of
   the ``torch.export`` program of the same exec, whose export
   (``CompiledGraph.export``) the export cache persists and restores
-  (``autodiff/export.py`` ``export_exec`` / ``warm_boot_samediff``). Not
-  yet: graph checking (``check``; ``validate=True`` raises) (ROADMAP.md,
-  Queue 1 item 11).
+  (``autodiff/export.py`` ``export_exec`` / ``warm_boot_samediff``);
+  ``check`` (graftcheck, ``analysis/``) and ``validate=True``, which
+  checks the subgraph an output set runs before its runner is built.
 * Control flow (``scan``, ``while_loop``, ``while_loop_multi``,
   ``scan_multi``, ``cond_multi``, ``cond``: the JAX package's signatures,
   the user's functions built from torch ops). A scan runs its fixed trip
@@ -91,10 +91,6 @@ from deeplearning4j_tpu_torch.ops import transforms as T
 from deeplearning4j_tpu_torch.ops.transforms import inexact
 from deeplearning4j_tpu_torch.ops.validation import takes_device
 from deeplearning4j_tpu_torch.ops.registry import registry as op_registry
-
-VALIDATE_NOT_PORTED = (
-    "graph checking (validate=True) needs the analyzers' check_samediff, "
-    "which the port does not have yet (ROADMAP.md, Queue 1 item 11)")
 
 # the JAX package runs with 64-bit types off: these become 32-bit
 _CANON = {torch.float64: torch.float32, torch.int64: torch.int32,
@@ -987,16 +983,20 @@ class SameDiff:
     ``last_compile_stats``: :class:`~.optimize.OptimizeStats` of the plan
     most recently built or used (per-pass node deltas, fusion counts).
     ``device``: where arrays live (the card unless the caller passes
-    ``"cpu"``). ``validate=True`` raises: graph checking is not ported.
+    ``"cpu"``). ``validate``: run graftcheck (``analysis/``, the abstract
+    shape/dtype interpreter) before the first run of every output set and
+    raise :class:`~deeplearning4j_tpu_torch.analysis.GraphCheckError` on
+    provable shape/dtype errors, with node provenance. :meth:`check` runs
+    it on demand either way.
     """
 
     def __init__(self, optimize: bool = True,
                  optimize_passes: Optional[Sequence[str]] = None,
                  validate: bool = False,
                  device: Union[str, torch.device, None] = None) -> None:
-        if validate:
-            raise NotImplementedError(VALIDATE_NOT_PORTED)
         self.device = resolve_device(device)
+        self.validate = validate
+        self.last_check_report = None
         self._vars: Dict[str, SDVariable] = {}
         self._arrays: Dict[str, torch.Tensor] = {}  # VARIABLE + CONSTANT
         self._nodes: List[_Node] = []
@@ -1209,6 +1209,34 @@ class SameDiff:
                 return "bfloat16"
         return "float32"
 
+    # ------------------------------------------------------------ graftcheck
+    def check(self, outputs: Optional[Sequence[str]] = None,
+              name: str = "<samediff>"):
+        """Statically verify the graph with the abstract shape/dtype
+        interpreter (``analysis/``). Returns a
+        :class:`~deeplearning4j_tpu_torch.analysis.CheckReport` whose
+        findings carry GC codes and node provenance; also stored as
+        ``last_check_report``. Does not raise — callers that want the hard
+        failure use ``report.raise_on_errors()`` (what ``validate=True``
+        and the importers do)."""
+        from deeplearning4j_tpu_torch.analysis import check_samediff
+
+        report = check_samediff(self, outputs=outputs, graph_name=name)
+        self.last_check_report = report
+        return report
+
+    def _maybe_validate(self, out_names: Tuple[str, ...]) -> None:
+        """validate=True: check the subgraph about to run; a provable
+        shape/dtype error raises GraphCheckError here, at graph level with
+        node provenance, not inside the run."""
+        if not self.validate:
+            return
+        cache_key = ("checked", out_names)
+        if cache_key in self._jit_cache:  # cleared on every graph mutation
+            return
+        self.check(outputs=out_names).raise_on_errors()
+        self._jit_cache[cache_key] = True
+
     def _input_avals(self):
         """Declared placeholder metadata as symbolic avals — the optimizer's
         pass-invariance checker unifies named batch dims through them."""
@@ -1302,6 +1330,7 @@ class SameDiff:
                      self._effective_passes())
         cached = self._jit_cache.get(cache_key)
         if cached is None:
+            self._maybe_validate(out_names)
             plan = self._graph_plan(out_names)
             const_env = self._const_env()
             if plan is not None:

@@ -7,10 +7,11 @@ topological rule dispatch, output renaming) that builds a port
 :class:`~deeplearning4j_tpu_torch.autodiff.samediff.SameDiff` on the
 importer's device (the card unless the caller passes ``device="cpu"``).
 
-The JAX walker checks the finished graph statically by default
-(``validate=True``, its analyzers' ``check_samediff``). That check is not
-ported yet (ROADMAP.md, Queue 1 item 10): here ``validate`` defaults to
-False and ``validate=True`` raises rather than silently checking nothing.
+The walker checks the finished graph statically by default
+(``validate=True``: ``analysis.check_samediff``, the report kept as
+``sd.last_check_report``), and raises
+:class:`~deeplearning4j_tpu_torch.analysis.GraphCheckError` on a provable
+shape/dtype error, as the JAX walker does; ``validate=False`` opts out.
 """
 
 from __future__ import annotations
@@ -21,9 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.autodiff.samediff import (
-    VALIDATE_NOT_PORTED, SameDiff, SDVariable,
-)
+from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff, SDVariable
 
 
 @dataclasses.dataclass
@@ -72,10 +71,8 @@ class IRImporter:
                  trainable_consts: bool = True,
                  needs_scope: Sequence[str] = (),
                  optimize: bool = True,
-                 validate: bool = False,
+                 validate: bool = True,
                  device: Union[str, torch.device, None] = None):
-        if validate:
-            raise NotImplementedError(VALIDATE_NOT_PORTED)
         self.rules = dict(rules)
         self.needs_consts = set(needs_consts)
         self.trainable_consts = trainable_consts
@@ -166,4 +163,10 @@ class IRImporter:
                 sd._record("identity", [produced[oname]]).rename(oname)
         sd.graph_inputs = [n for n, _ in ir.inputs]
         sd.graph_outputs = outs
+        if self.validate:
+            from deeplearning4j_tpu_torch.analysis import check_samediff
+
+            report = check_samediff(sd, graph_name=ir.name)
+            sd.last_check_report = report
+            report.raise_on_errors()
         return sd

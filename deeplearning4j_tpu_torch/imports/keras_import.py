@@ -32,8 +32,10 @@ Each network is built on ``device`` (the card unless the caller passes
 ``device="cpu"``) and its leaves replaced by the file's arrays, one
 ``torch.from_numpy(...).to(device)`` a leaf (float64 arrays as float32,
 int64 as int32, as the JAX package's ``jnp.asarray`` takes them).
-``validate=True`` raises: post-import network checking
-(``analysis.check_network``) is not ported.
+Each importer checks the finished network by default (``validate=True``:
+``analysis.check_network``, the report kept as ``net.last_check_report``)
+and raises on a provable shape error with layer provenance, as the JAX
+importers do; ``validate=False`` opts out.
 """
 
 from __future__ import annotations
@@ -189,12 +191,16 @@ def _lstm(cfg, weights):
     return lc, p
 
 
-def _check_validate(validate: bool) -> None:
+def _check_validate(net, validate: bool, graph_name: str):
+    """graftcheck of an imported network (the verify-after-import contract
+    of the ONNX and TF importers): provable layer shape errors raise here,
+    with layer provenance, not at the first forward."""
     if validate:
-        raise NotImplementedError(
-            "validate=True: post-import network checking "
-            "(analysis.check_network) is not ported to "
-            "deeplearning4j_tpu_torch yet; import with validate=False")
+        from deeplearning4j_tpu_torch.analysis import check_network
+
+        net.last_check_report = check_network(net, graph_name=graph_name)
+        net.last_check_report.raise_on_errors()
+    return net
 
 
 def _leaf(w, device: torch.device) -> torch.Tensor:
@@ -216,7 +222,7 @@ def _graft(tree, device: torch.device):
     return _leaf(tree, device)
 
 
-def _assemble_sequential(specs, input_type, validate: bool = False,
+def _assemble_sequential(specs, input_type, validate: bool = True,
                          device=None):
     """Shared Sequential assembly and weight grafting: ``specs`` are
     (class_name, layer_cfg, weights) triples from a live Keras model or a
@@ -226,7 +232,6 @@ def _assemble_sequential(specs, input_type, validate: bool = False,
     reordered while grafting."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
-    _check_validate(validate)
     layer_confs: List[C.LayerConf] = []
     params_list: List[Dict[str, Any]] = []
     states_list: List[Dict[str, Any]] = []
@@ -278,11 +283,11 @@ def _assemble_sequential(specs, input_type, validate: bool = False,
             net.params[i][k] = _graft(w, dev)
         for k, v in st.items():
             net.net_state[i][k] = _leaf(v, dev)
-    return net
+    return _check_validate(net, validate, "keras:sequential")
 
 
 def import_keras_model(model, input_type: Optional[C.InputType] = None,
-                       validate: bool = False, device=None):
+                       validate: bool = True, device=None):
     """A live Keras model → MultiLayerNetwork (Sequential) or
     ComputationGraph (functional), the KerasModelImport.importKeras*
     dispatch for live models. Duck-typed: Keras is not imported."""
@@ -306,7 +311,7 @@ def import_keras_model(model, input_type: Optional[C.InputType] = None,
                                 device=device)
 
 
-def import_keras_sequential_model_and_weights(path, validate: bool = False,
+def import_keras_sequential_model_and_weights(path, validate: bool = True,
                                               device=None):
     """KerasModelImport.importKerasSequentialModelAndWeights: a saved
     ``.h5`` or ``.keras`` file (path or bytes) holding a Sequential
@@ -520,7 +525,7 @@ def _infer_input_type_from_shape(shape):
 
 
 def import_keras_sequential_config(config, weights_map,
-                                   validate: bool = False, device=None):
+                                   validate: bool = True, device=None):
     """Sequential model_config + weights dict → MultiLayerNetwork (the
     file path; shares _assemble_sequential with the live-model path)."""
     specs = []
@@ -587,11 +592,10 @@ def _out_names(spec) -> List[str]:
 
 
 def import_keras_functional_config(config, weights_map,
-                                   validate: bool = False, device=None):
+                                   validate: bool = True, device=None):
     """Functional model_config + weights → ComputationGraph."""
     from deeplearning4j_tpu_torch.nn import graph as G
 
-    _check_validate(validate)
     gcfg = config["config"]
     gb = G.graph_builder()
     params_by_name: Dict[str, Dict[str, Any]] = {}
@@ -661,7 +665,7 @@ def import_keras_functional_config(config, weights_map,
             net.params[name][k] = _graft(w, dev)
         for k, v in blob["state"].items():
             net.net_state[name][k] = _leaf(v, dev)
-    return net
+    return _check_validate(net, validate, "keras:functional")
 
 
 def _read(path):
@@ -674,7 +678,7 @@ def _read(path):
     return read_keras_h5(path)
 
 
-def import_keras_model_and_weights(path, validate: bool = False,
+def import_keras_model_and_weights(path, validate: bool = True,
                                    device=None):
     """KerasModelImport.importKerasModelAndWeights: a legacy ``.h5`` or a
     Keras-3 ``.keras`` zip (path or bytes), read by the port's own

@@ -1947,7 +1947,7 @@ class OnnxImporter(IRImporter):
     """OnnxFrameworkImporter analog."""
 
     def __init__(self, extra_mappers: Optional[Dict[str, Callable]] = None,
-                 optimize: bool = True, validate: bool = False,
+                 optimize: bool = True, validate: bool = True,
                  device: Union[str, torch.device, None] = None):
         rules = dict(ONNX_OP_MAPPERS)
         if extra_mappers:
@@ -1965,11 +1965,10 @@ class OnnxImporter(IRImporter):
         return super().run_import(model)
 
 
-def import_onnx(path_or_bytes, optimize: bool = True, validate: bool = False,
+def import_onnx(path_or_bytes, optimize: bool = True, validate: bool = True,
                 device: Union[str, torch.device, None] = None) -> SameDiff:
     """One-call facade: ONNX bytes or a file path → a SameDiff on
     ``device`` (the card when None). ``optimize=False`` turns the pass
-    pipeline off; ``validate=True`` raises (post-import graph checking is
-    not ported)."""
+    pipeline off; ``validate=False`` skips the post-import graftcheck."""
     return OnnxImporter(optimize=optimize, validate=validate,
                         device=device).run_import(path_or_bytes)

@@ -15,8 +15,8 @@ What differs from the JAX package:
   checkpoint by :mod:`.tensor_bundle` (the LevelDB-format index and the
   data shards).
 * Entry points build on the card unless the caller passes
-  ``device="cpu"``; ``validate=True`` raises (graph checking is not
-  ported).
+  ``device="cpu"``; each checks the imported graph (``validate=True``,
+  the default; ``validate=False`` skips the post-import graftcheck).
 * While loops and conditionals read their predicate on the host and run
   only the branch it picks (``SameDiff.while_loop_multi`` /
   ``cond_multi``); a graph holding one runs eagerly, by rule.
@@ -537,11 +537,11 @@ class TensorflowImporter:
     dispatch the TF dialect rule table. ``device``: where the imported
     SameDiff keeps its arrays (the card unless the caller passes
     ``"cpu"``); ``optimize`` / ``validate``: the walker's defaults for
-    :meth:`run_import` (``validate=True`` raises: graph checking is not
-    ported)."""
+    :meth:`run_import` (``validate=False`` skips the post-import
+    graftcheck)."""
 
     def __init__(self, extra_mappers: Optional[Dict[str, Callable]] = None,
-                 *, optimize: bool = True, validate: bool = False,
+                 *, optimize: bool = True, validate: bool = True,
                  device: Union[str, torch.device, None] = None):
         self.mappers = dict(TF_OP_MAPPERS)
         if extra_mappers:
@@ -619,7 +619,7 @@ def _attr_value(v):
 
 
 def import_frozen_graph(path_or_bytes, *, optimize: bool = True,
-                        validate: bool = False,
+                        validate: bool = True,
                         device: Union[str, torch.device, None] = None
                         ) -> SameDiff:
     """Convenience one-call import (KerasModelImport-style facade): a
@@ -1368,7 +1368,7 @@ def load_saved_model_variables(path: str) -> Dict[str, np.ndarray]:
 
 def import_saved_model(path: str, *, signature: str = "serving_default",
                        extra_variable_values=None, optimize: bool = True,
-                       validate: bool = False,
+                       validate: bool = True,
                        device: Union[str, torch.device, None] = None
                        ) -> SameDiff:
     """SavedModel directory → SameDiff on ``device`` (the card when None)

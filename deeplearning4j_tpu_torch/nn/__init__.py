@@ -2,7 +2,8 @@
 Keras importer builds), the sequential
 network (``MultiLayerNetwork``, its builder and model zips), the
 ComputationGraph runtime with its vertices and zips, listeners, updaters
-and dtype policies (trained with autograd)."""
+and dtype policies (trained with autograd), transfer learning and early
+stopping."""
 
 from deeplearning4j_tpu_torch.nn.conf import (
     GRU, LSTM, ActivationLayer, BatchNormalization, Bidirectional,
@@ -27,6 +28,21 @@ from deeplearning4j_tpu_torch.nn.conf import (  # the Keras importer's
     Subsampling3DLayer, UnitNormLayer, Upsampling1D, Upsampling3D,
     ZeroPadding1DLayer, ZeroPadding3DLayer, ZeroPaddingLayer,
 )
+from deeplearning4j_tpu_torch.nn.conf import (  # the last layer types
+    CapsuleLayer, CapsuleStrengthLayer, CenterLossOutputLayer, CnnLossLayer,
+    ElementWiseMultiplicationLayer, FrozenLayerWithBackprop,
+    LearnedSelfAttentionLayer, MaskLayer, PrimaryCapsules,
+    RecurrentAttentionLayer, SameDiffLayer, SelfAttentionLayer,
+    VariationalAutoencoder, Yolo2OutputLayer, dl4j_drop_out,
+)
+from deeplearning4j_tpu_torch.nn.earlystopping import (
+    EarlyStoppingConfiguration, EarlyStoppingResult, EarlyStoppingTrainer,
+    EpochTerminationCondition, InMemoryModelSaver,
+    IterationTerminationCondition, LocalFileModelSaver,
+    MaxEpochsTerminationCondition, MaxScoreIterationTerminationCondition,
+    MaxTimeIterationTerminationCondition,
+    ScoreImprovementEpochTerminationCondition,
+)
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraph, ComputationGraphConfiguration, DotProductVertex,
     DuplicateToTimeSeriesVertex, ElementWiseVertex, FlattenVertex,
@@ -42,6 +58,10 @@ from deeplearning4j_tpu_torch.nn.listeners import (
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.serde import (
     restore_model, restore_normalizer, save_model)
+from deeplearning4j_tpu_torch.nn.transfer import (
+    FineTuneConfiguration, GraphTransferLearningBuilder, TransferLearning,
+    TransferLearningBuilder, TransferLearningHelper, graph_transfer_builder,
+)
 from deeplearning4j_tpu_torch.nn.updater import (
     UPDATERS, AdaDelta, AdaGrad, AdaMax, Adam, AmsGrad, Frozen, Nadam,
     Nesterovs, NoOp, RmsProp, Sgd, get_updater,
@@ -82,4 +102,20 @@ __all__ = [
     "MultiLayerNetwork", "restore_model", "restore_normalizer", "save_model",
     "UPDATERS", "AdaDelta", "AdaGrad", "AdaMax", "Adam", "AmsGrad", "Frozen",
     "Nadam", "Nesterovs", "NoOp", "RmsProp", "Sgd", "get_updater",
+    "CapsuleLayer", "CapsuleStrengthLayer", "CenterLossOutputLayer",
+    "CnnLossLayer", "ElementWiseMultiplicationLayer",
+    "FrozenLayerWithBackprop", "LearnedSelfAttentionLayer", "MaskLayer",
+    "PrimaryCapsules", "RecurrentAttentionLayer", "SameDiffLayer",
+    "SelfAttentionLayer", "VariationalAutoencoder", "Yolo2OutputLayer",
+    "dl4j_drop_out",
+    "EarlyStoppingConfiguration", "EarlyStoppingResult",
+    "EarlyStoppingTrainer", "EpochTerminationCondition",
+    "InMemoryModelSaver", "IterationTerminationCondition",
+    "LocalFileModelSaver", "MaxEpochsTerminationCondition",
+    "MaxScoreIterationTerminationCondition",
+    "MaxTimeIterationTerminationCondition",
+    "ScoreImprovementEpochTerminationCondition",
+    "FineTuneConfiguration", "GraphTransferLearningBuilder",
+    "TransferLearning", "TransferLearningBuilder", "TransferLearningHelper",
+    "graph_transfer_builder",
 ]

@@ -111,6 +111,19 @@ def _pair(v) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+def dl4j_drop_out(retain_prob: float) -> float:
+    """The reference's ``dropOut(x)`` retain probability (x = the
+    probability an activation is KEPT) as this framework's ``dropout``
+    drop rate: dropOut(0.8) → dropout=0.2; dropOut(0.0) means no
+    dropout."""
+    if retain_prob == 0.0:
+        return 0.0
+    if not 0.0 < retain_prob <= 1.0:
+        raise ValueError(
+            f"retain probability must be in [0, 1], got {retain_prob}")
+    return 1.0 - retain_prob
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerConf:
     """Base layer config; per-layer overrides of the net-wide defaults."""
@@ -1139,6 +1152,252 @@ class CenterCropLayer(LayerConf):
                                        itype.channels)
 
 
+# ---------------------------------------------------------------------------
+# attention, capsule, loss-head, wrapper and user-defined layers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SelfAttentionLayer(LayerConf):
+    """conf/layers/SelfAttentionLayer.java: multi-head attention over a
+    sequence, Q = K = V = the input."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    project_input: bool = True
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, itype.timesteps)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class LearnedSelfAttentionLayer(LayerConf):
+    """conf/layers/LearnedSelfAttentionLayer.java: a fixed set of learned
+    query vectors attends over the input sequence; the output has
+    ``n_queries`` timesteps whatever the input length."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    n_queries: int = 1
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, self.n_queries)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class RecurrentAttentionLayer(LayerConf):
+    """conf/layers/RecurrentAttentionLayer.java: an RNN whose step input is
+    augmented with attention over the whole input sequence, queried by
+    the previous output: out_t = act(Wx·x_t + Wr·attn_t + b)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    activation: str = "tanh"
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, itype.timesteps)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class VariationalAutoencoder(LayerConf):
+    """conf/layers/variational/VariationalAutoencoder.java: the supervised
+    forward emits the latent mean (the reference's ``activate()``); the
+    ELBO and the reconstruction log-probability live on the runtime."""
+
+    n_in: int = 0
+    n_out: int = 0  # latent size
+    encoder_layer_sizes: Tuple[int, ...] = (256,)
+    decoder_layer_sizes: Tuple[int, ...] = (256,)
+    activation: str = "leakyrelu"
+    reconstruction_distribution: str = "gaussian"  # gaussian | bernoulli
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.n_out)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class CnnLossLayer(LayerConf):
+    """conf/layers/CnnLossLayer.java: per-position 2-D loss
+    (segmentation); no parameters; labels (N, H, W, C)."""
+
+    loss: str = "mcxent"
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskLayer(LayerConf):
+    """conf/layers/util/MaskLayer.java: apply the current mask to the
+    activations (zero masked timesteps), pass everything else through."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementWiseMultiplicationLayer(LayerConf):
+    """conf/layers/misc/ElementWiseMultiplicationLayer.java:
+    out = act(x ⊙ w + b) with a learned per-feature scale."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.n_out or itype.flat_size())
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class FrozenLayerWithBackprop(LayerConf):
+    """conf/layers/misc/FrozenLayerWithBackprop.java: the wrapped layer's
+    parameters get no update while gradients still flow to earlier layers
+    (the ``FrozenLayer`` of ``nn/transfer.py`` also blocks the flow)."""
+
+    underlying: Optional[Any] = None
+
+    def inner(self) -> "LayerConf":
+        u = self.underlying
+        return LayerConf.from_dict(u) if isinstance(u, dict) else u
+
+    def output_type(self, itype):
+        return self.inner().output_type(itype)
+
+    def has_params(self):
+        return self.inner().has_params()
+
+    def to_dict(self):
+        d = super().to_dict()
+        if isinstance(d.get("underlying"), LayerConf):
+            d["underlying"] = d["underlying"].to_dict()
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class CenterLossOutputLayer(DenseLayer):
+    """conf/layers/CenterLossOutputLayer.java: softmax classification plus
+    a decoupled center loss — λ·½‖f − sg(c_y)‖² pulls the features toward
+    their class center, α·½‖sg(f) − c_y‖² pulls the centers toward the
+    batch features (its gradient α(c_y − f̄) is the reference's moving
+    average c ← c − α(c − f̄), taken by the optimizer)."""
+
+    loss: str = "mcxent"
+    alpha: float = 0.05     # center pull rate (reference `alpha`)
+    lambda_: float = 2e-4   # feature-pull weight (reference `lambda`)
+
+
+@dataclasses.dataclass(frozen=True)
+class Yolo2OutputLayer(LayerConf):
+    """conf/layers/objdetect/Yolo2OutputLayer.java: identity forward (the
+    activations are decoded inside the loss); the multi-part sum-squared
+    ``yolo2`` loss. Labels (N, H, W, B, 5 + C)."""
+
+    anchors: Tuple[Tuple[float, float], ...] = ()
+    lambda_coord: float = 5.0
+    lambda_noobj: float = 0.5
+    loss: str = "yolo2"
+
+    def loss_fn(self):
+        """The ``yolo2`` loss with this configuration's lambdas and
+        anchors bound (the networks take a configuration's ``loss_fn``
+        before ``get_loss(name)``)."""
+        import functools
+
+        from deeplearning4j_tpu_torch.ops.losses import yolo2
+
+        return functools.partial(
+            yolo2, lambda_coord=self.lambda_coord,
+            lambda_noobj=self.lambda_noobj,
+            anchors=[list(a) for a in self.anchors] or None)
+
+    def to_dict(self):
+        d = super().to_dict()
+        d["anchors"] = [list(a) for a in self.anchors]
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class PrimaryCapsules(LayerConf):
+    """conf/layers/PrimaryCapsules.java (CapsNet): a convolution into
+    (N, capsules, capsule_dim) with the squash nonlinearity."""
+
+    capsules: int = 8          # capsule channels per spatial position
+    capsule_dim: int = 8
+    kernel: Tuple[int, int] = (9, 9)
+    stride: Tuple[int, int] = (2, 2)
+
+    def output_type(self, itype):
+        kh, kw = self.kernel
+        sh, sw = self.stride
+        oh = (itype.height - kh) // sh + 1
+        ow = (itype.width - kw) // sw + 1
+        return InputType.recurrent(self.capsule_dim, oh * ow * self.capsules)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class CapsuleLayer(LayerConf):
+    """conf/layers/CapsuleLayer.java: dynamic-routing capsules,
+    (N, in_caps, in_dim) -> (N, capsules, capsule_dim)."""
+
+    capsules: int = 10
+    capsule_dim: int = 16
+    routings: int = 3
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.capsule_dim, self.capsules)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class CapsuleStrengthLayer(LayerConf):
+    """conf/layers/CapsuleStrengthLayer.java: ‖capsule‖₂ per capsule,
+    (N, caps, dim) -> (N, caps)."""
+
+    def output_type(self, itype):
+        return InputType.feed_forward(itype.timesteps if itype.timesteps > 0
+                                      else itype.size)
+
+
+@dataclasses.dataclass(frozen=True)
+class SameDiffLayer(LayerConf):
+    """conf/layers/samediff/SameDiffLayer.java: a user-defined SameDiff
+    block inside a network. ``define(sd, x, params) -> SDVariable`` builds
+    the block from an input variable and a dict of parameter variables
+    (declared by ``param_shapes``); the network differentiates through it
+    as through any layer. It holds a callable, so it has no JSON form (the
+    reference serializes the subclass by class name)."""
+
+    define: Any = None
+    param_shapes: Any = None  # dict name -> shape tuple
+    n_out: int = 0
+
+    def output_type(self, itype):
+        if self.n_out:
+            if itype.kind == "recurrent":
+                return InputType.recurrent(self.n_out, itype.timesteps)
+            return InputType.feed_forward(self.n_out)
+        return itype
+
+    def has_params(self):
+        return bool(self.param_shapes)
+
+
 LAYER_TYPES = {c.__name__: c for c in [
     DenseLayer, OutputLayer, ConvolutionLayer, Deconvolution2D,
     DepthwiseConvolution2D, SeparableConvolution2D, SubsamplingLayer,
@@ -1156,7 +1415,12 @@ LAYER_TYPES = {c.__name__: c for c in [
     LayerNormalization, GroupNormalization, RescaleLayer,
     DiscretizationLayer, CategoryEncodingLayer, EinsumDenseLayer,
     UnitNormLayer, ConvLSTM2D, DotAttentionLayer, SeparableConvolution1D,
-    Deconvolution1D, ResizeLayer, CenterCropLayer]}
+    Deconvolution1D, ResizeLayer, CenterCropLayer,
+    SelfAttentionLayer, LearnedSelfAttentionLayer, RecurrentAttentionLayer,
+    VariationalAutoencoder, CnnLossLayer, MaskLayer,
+    ElementWiseMultiplicationLayer, FrozenLayerWithBackprop,
+    CenterLossOutputLayer, Yolo2OutputLayer, PrimaryCapsules, CapsuleLayer,
+    CapsuleStrengthLayer, SameDiffLayer]}
 
 # the conv-family layers a flat convolutional input is reshaped for
 # (``_adapt``'s FeedForwardToCnnPreProcessor)

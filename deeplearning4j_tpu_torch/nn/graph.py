@@ -779,7 +779,10 @@ class ComputationGraph:
     def _losses(self, acts, labels: Dict[str, Any], lmasks):
         total = torch.zeros((), device=self.device)
         for name in self._output_layers:
-            loss_fn = get_loss(self._node(name).layer.loss)
+            layer = self._node(name).layer
+            # a configuration's bound loss (Yolo2OutputLayer) first
+            loss_fn = (layer.loss_fn() if hasattr(layer, "loss_fn")
+                       else get_loss(layer.loss))
             lm = None if lmasks is None else lmasks.get(name)
             total = total + loss_fn(acts[name], labels[name], lm)
         return total
@@ -943,7 +946,8 @@ class ComputationGraph:
         kill: it raises) and the graceful-preemption flag
         (``notify_preemption``, then return); a fit resumed mid-epoch
         skips the ``batch_in_epoch`` batches the interrupted one
-        trained."""
+        trained. A batch whose ``features`` is a list feeds the inputs in
+        order (a multi-input graph)."""
         if labels is not None:
             data = ListDataSetIterator(DataSet(data, labels),
                                        batch_size=batch_size)
@@ -973,7 +977,7 @@ class ComputationGraph:
                     notify_preemption(self, self.listeners)
                     return
                 self.last_batch_size = ds.num_examples()
-                feeds = self._feed({in_name: ds.features})
+                feeds = self._feed(self._inputs_of(ds.features))
                 labs = self._feed({out_name: ds.labels})
                 fmasks = (None if ds.features_mask is None
                           else self._feed({in_name: ds.features_mask}))
@@ -1099,8 +1103,33 @@ class ComputationGraph:
             start=start, batch_size=self.last_batch_size, advance=advance,
             notify=functools.partial(notify_iteration, self), layout=(fk, lk))
 
-    def score(self) -> float:
-        return float("nan") if self._score is None else float(self._score)
+    def _inputs_of(self, features) -> Dict[str, Any]:
+        """A batch's features by input name: a list or tuple feeds the
+        inputs in ``network_inputs`` order (a multi-input batch, as a
+        ``MultiDataSet`` does), an array the first input."""
+        ins = self.conf.network_inputs
+        if isinstance(features, (list, tuple)):
+            return dict(zip(ins, features))
+        return {ins[0]: features}
+
+    def score(self, ds=None) -> float:
+        """The last training score, or the loss on ``ds`` (its features as
+        :meth:`fit` feeds them, its labels to the first output), as the
+        sequential network scores a dataset."""
+        if ds is None:
+            return float("nan") if self._score is None else float(self._score)
+        in_name = self.conf.network_inputs[0]
+        out_name = self.conf.network_outputs[0]
+        feeds = self._feed(self._inputs_of(ds.features))
+        fm = (None if ds.features_mask is None
+              else self._feed({in_name: ds.features_mask}))
+        lm = (None if ds.labels_mask is None
+              else self._feed({out_name: ds.labels_mask}))
+        with torch.no_grad(), DT.precision_scope(self.conf.dtype):
+            acts, _ = self._forward(self.params, self.net_state, feeds, fm,
+                                    train=False)
+            return float(self._losses(acts, self._feed({out_name: ds.labels}),
+                                      lm))
 
     def evaluate(self, iterator, evaluation=None):
         """evaluate(DataSetIterator | DataSet) → the ``evaluation``

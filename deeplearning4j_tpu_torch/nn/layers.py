@@ -7,7 +7,8 @@ depthwise and separable convolution, upsampling, space-to-depth,
 pooling, batch norm, LRN, activation, dropout, the
 recurrent layers LSTM / GravesLSTM / GRU / SimpleRnn, Bidirectional,
 RnnOutputLayer, LastTimeStep, RnnLossLayer), the 34 types the Keras
-importer builds (a multi-input layer such as ``AttentionVertexImpl`` also
+importer builds, the attention, capsule, VAE, loss-head, mask, wrapper
+and SameDiff layers (a multi-input layer such as ``AttentionVertexImpl`` also
 has ``apply_multi(params, xs, state, ...)``, given every wired input) and
 :func:`apply_preprocessor`. A layer is
 ``apply(params, x, state, *, train, rng, mask) -> (y, new_state, mask)``
@@ -1315,6 +1316,395 @@ class CenterCropLayerImpl(Layer):
         return x[:, y0:y0 + th, x0:x0 + tw, :], state, mask
 
 
+def _masked_fill(scores, keep):
+    """Scores where ``keep`` is true, -1e9 elsewhere: a fill made on the
+    device and cast to the scores' dtype (no host copy inside a capture),
+    as the JAX layers' ``jnp.where(mask > 0, scores, -1e9)``."""
+    neg = torch.full((), -1e9, dtype=torch.float32,
+                     device=scores.device).to(scores.dtype)
+    return torch.where(keep, scores, neg)
+
+
+class SelfAttentionLayerImpl(Layer):
+    """layers/SelfAttentionLayer.java: multi-head attention with
+    Q = K = V = the input, computed inline (matmul, -1e9 key masking,
+    softmax, matmul), as the JAX layer computes it: a fully masked row
+    attends uniformly, which the flash kernel would not give."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        d = lc.n_out
+        return {"Wq": self._weights(gen, (lc.n_in, d)),
+                "Wk": self._weights(gen, (lc.n_in, d)),
+                "Wv": self._weights(gen, (lc.n_in, d)),
+                "Wo": self._weights(gen, (d, d))}
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        h = self.lc.n_heads
+        x, wq, wk, wv, wo = promote(x, params["Wq"], params["Wk"],
+                                    params["Wv"], params["Wo"])
+        q, k, v = x @ wq, x @ wk, x @ wv
+        n, t, d = q.shape
+        dh = d // h
+
+        def split(a):
+            return a.reshape(n, t, h, dh).transpose(1, 2)
+
+        qh, kh, vh = split(q), split(k), split(v)
+        scores = (qh @ kh.transpose(-1, -2)) / torch.tensor(
+            float(dh), dtype=x.dtype).sqrt()
+        if mask is not None:
+            scores = _masked_fill(scores, mask[:, None, None, :] > 0)
+        attn = torch.softmax(scores, dim=-1)
+        out = (attn @ vh).transpose(1, 2).reshape(n, t, d)
+        return out @ wo, state, mask
+
+
+class LearnedSelfAttentionLayerImpl(Layer):
+    """layers/LearnedSelfAttentionLayer.java: a learned (n_queries, d)
+    query matrix attends over the input sequence; the output has
+    ``n_queries`` timesteps and no mask. The attention goes through the
+    registry's ``dot_product_attention`` (the flash kernels on the card,
+    where the gate admits the call). The queries are broadcast to the
+    batch as a stride-0 view; the flash wrapper folds them into a
+    contiguous copy."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        d = lc.n_out
+        return {"Q": self._weights(gen, (lc.n_queries, d)),
+                "Wk": self._weights(gen, (lc.n_in, d)),
+                "Wv": self._weights(gen, (lc.n_in, d)),
+                "Wo": self._weights(gen, (d, d))}
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        h = self.lc.n_heads
+        n = x.shape[0]
+        d = self.lc.n_out
+        dh = d // h
+        x, qp, wk, wv, wo = promote(x, params["Q"], params["Wk"],
+                                    params["Wv"], params["Wo"])
+        q = qp[None].expand((n,) + tuple(qp.shape))
+        k = x @ wk
+        v = x @ wv
+
+        def split(a):
+            return a.reshape(n, a.shape[1], h, dh).transpose(1, 2)
+
+        m = None if mask is None else mask[:, None, None, :]
+        out = exec_op("dot_product_attention", split(q), split(k), split(v),
+                      m, scaled=True)
+        out = out.transpose(1, 2).reshape(n, self.lc.n_queries, d)
+        return out @ wo, state, None
+
+
+class RecurrentAttentionLayerImpl(Layer):
+    """layers/RecurrentAttentionLayer.java: out_t = act(Wx·x_t + Wr·attn_t
+    + b), attn_t attending over the whole input sequence, queried by the
+    previous output. The JAX ``lax.scan`` over time is a Python loop over
+    the timesteps: no host read, so a training step holding it is
+    captured like any other."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        return {"Wx": self._weights(gen, (lc.n_in, lc.n_out)),
+                "Wr": self._weights(gen, (lc.n_in, lc.n_out)),
+                "Wq": self._weights(gen, (lc.n_out, lc.n_in)),
+                "b": self._zeros(lc.n_out)}
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        n, t, d_in = x.shape
+        heads = max(1, self.lc.n_heads)
+        if d_in % heads:
+            raise ValueError(
+                f"RecurrentAttentionLayer: n_in={d_in} not divisible by "
+                f"n_heads={heads}")
+        dh = d_in // heads
+        scale = 1.0 / float(dh) ** 0.5
+        x, wx, wr, wq, b = promote(x, params["Wx"], params["Wr"],
+                                   params["Wq"], params["b"])
+        keep = None if mask is None else (mask > 0)[:, None, :]
+        xh = x.reshape(n, t, heads, dh)  # keys and values per head
+        h = torch.zeros((n, self.lc.n_out), dtype=x.dtype, device=x.device)
+        ys = []
+        for i in range(t):
+            q = (h @ wq).reshape(n, heads, dh)
+            s = torch.einsum("nhd,nthd->nht", q, xh) * scale
+            if keep is not None:
+                s = _masked_fill(s, keep)
+            a = torch.softmax(s, dim=-1)
+            attn = torch.einsum("nht,nthd->nhd", a, xh).reshape(n, d_in)
+            h = self.activation(x[:, i] @ wx + attn @ wr + b)
+            ys.append(h)
+        return torch.stack(ys, dim=1), state, mask
+
+
+class VariationalAutoencoderImpl(Layer):
+    """layers/variational/VariationalAutoencoder.java. The supervised
+    forward is the encoder's latent mean (the reference's ``activate()``);
+    :meth:`elbo_loss` is the pretrain objective (the reparameterized
+    ELBO) and :meth:`reconstruction_log_probability` its reconstruction
+    term. The reparameterization noise is drawn from a ``torch.Generator``
+    (it cannot match ``jax.random``), or given as ``eps``."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        sizes_e = (lc.n_in,) + tuple(lc.encoder_layer_sizes)
+        sizes_d = (lc.n_out,) + tuple(lc.decoder_layer_sizes)
+
+        def dense(n_in, n_out):
+            return {"W": self._weights(gen, (n_in, n_out)),
+                    "b": self._zeros(n_out)}
+
+        p: Dict[str, object] = {
+            "enc": [dense(a, b) for a, b in zip(sizes_e, sizes_e[1:])]}
+        h = sizes_e[-1]
+        p["mean"] = dense(h, lc.n_out)
+        p["logvar"] = dense(h, lc.n_out)
+        p["dec"] = [dense(a, b) for a, b in zip(sizes_d, sizes_d[1:])]
+        p["recon"] = dense(sizes_d[-1], lc.n_in)
+        return p
+
+    def _encode(self, params, x):
+        h = x
+        for lp in params["enc"]:
+            h = self.activation(h @ lp["W"] + lp["b"])
+        mean = h @ params["mean"]["W"] + params["mean"]["b"]
+        logvar = h @ params["logvar"]["W"] + params["logvar"]["b"]
+        return mean, logvar
+
+    def _decode(self, params, z):
+        h = z
+        for lp in params["dec"]:
+            h = self.activation(h @ lp["W"] + lp["b"])
+        return h @ params["recon"]["W"] + params["recon"]["b"]
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        mean, _ = self._encode(params, x)
+        return mean, state, mask
+
+    def _neg_log_prob(self, x, recon):
+        """−log p(x | z) per example, as the JAX ELBO's reconstruction
+        term: bernoulli cross entropy of sigmoid(recon), or ½‖x − recon‖²
+        for the gaussian (unit variance, no constant)."""
+        if self.lc.reconstruction_distribution == "bernoulli":
+            p = torch.sigmoid(recon)
+            return -torch.sum(x * torch.log(p + 1e-8)
+                              + (1 - x) * torch.log(1 - p + 1e-8), dim=-1)
+        return 0.5 * torch.sum((x - recon) ** 2, dim=-1)
+
+    def _sample(self, params, x, rng, eps):
+        mean, logvar = self._encode(params, x)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=rng, dtype=mean.dtype,
+                              device=mean.device)
+        z = mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+        return mean, logvar, self._decode(params, z)
+
+    def elbo_loss(self, params, x, rng=None, eps=None):
+        """The negative ELBO averaged over the batch: reconstruction plus
+        KL(q(z|x) ‖ N(0, I)), one reparameterized sample."""
+        mean, logvar, recon = self._sample(params, x, rng, eps)
+        rec = self._neg_log_prob(x, recon)
+        kl = -0.5 * torch.sum(1 + logvar - mean ** 2 - torch.exp(logvar),
+                              dim=-1)
+        return torch.mean(rec + kl)
+
+    def reconstruction_log_probability(self, params, x, rng=None, eps=None):
+        """log p(x | z) per example for one reparameterized z ~ q(z | x)
+        (the reference's ``reconstructionLogProbability`` with one
+        sample), in the ELBO's terms."""
+        _, _, recon = self._sample(params, x, rng, eps)
+        return -self._neg_log_prob(x, recon)
+
+
+class CnnLossLayerImpl(Layer):
+    """layers/convolution/CnnLossLayer.java: activation only; the network
+    applies the per-position loss against (N, H, W, C) labels."""
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        return self.activation(x), state, mask
+
+
+class MaskLayerImpl(Layer):
+    """layers/util/MaskLayer.java: zero the masked timesteps."""
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        if mask is not None:
+            m = mask.to(x.dtype)
+            while m.ndim < x.ndim:
+                m = m[..., None]
+            x = x * m
+        return x, state, mask
+
+
+class ElementWiseMultiplicationLayerImpl(Layer):
+    """layers/feedforward/elementwise/ElementWiseMultiplicationLayer.java:
+    act(x ⊙ W + b), W ones and b zeros at init."""
+
+    def init(self, gen) -> Params:
+        n = self.lc.n_out or self.lc.n_in
+        return {"W": self._ones(n), "b": self._zeros(n)}
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        x = self._maybe_dropout(x, train=train, rng=rng)
+        x, w, b = promote(x, params["W"], params["b"])
+        return self.activation(x * w + b), state, mask
+
+
+def _detach_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _detach_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_detach_tree(v) for v in tree]
+    return tree.detach()
+
+
+class FrozenLayerWithBackpropImpl(Layer):
+    """layers/FrozenLayerWithBackprop.java: the wrapped layer runs on
+    detached parameters (their gradient is zero, as ``stop_gradient``
+    gives it) while activations and upstream gradients flow."""
+
+    def __init__(self, net_conf, lc, itype, device):
+        super().__init__(net_conf, lc, itype, device)
+        self.inner_layer = build_layer(net_conf, lc.inner(), itype, device)
+
+    def init(self, gen) -> Params:
+        return {"inner": self.inner_layer.init(gen)}
+
+    def init_state(self) -> State:
+        return self.inner_layer.init_state()
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        return self.inner_layer.apply(_detach_tree(params["inner"]), x,
+                                      state, train=train, rng=rng, mask=mask)
+
+
+class CenterLossOutputLayerImpl(DenseLayerImpl):
+    """layers/training/CenterLossOutputLayer.java: the dense softmax
+    forward; the per-class centers live in ``params["centers"]`` (zeros at
+    init) and enter through the loss the network adds (``nn/multilayer.py``:
+    λ·½‖f − sg(c_y)‖² + α·½‖sg(f) − c_y‖², f the layer's input)."""
+
+    def init(self, gen) -> Params:
+        p = super().init(gen)
+        p["centers"] = torch.zeros((self.lc.n_out, self.lc.n_in),
+                                   dtype=self.dtype, device=self.device)
+        return p
+
+
+class Yolo2OutputLayerImpl(Layer):
+    """layers/objdetect/Yolo2OutputLayer.java: identity forward; the raw
+    head is decoded inside the ``yolo2`` loss."""
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        return x, state, mask
+
+
+def squash(v, dim=-1, eps=1e-8):
+    """CapsNet squash (Sabour et al. 2017): (‖v‖²/(1+‖v‖²)) · v/‖v‖."""
+    sq = torch.sum(v * v, dim=dim, keepdim=True)
+    return (sq / (1.0 + sq)) * v * torch.rsqrt(sq + eps)
+
+
+class PrimaryCapsulesImpl(Layer):
+    """layers/PrimaryCapsules.java: a VALID convolution into capsule
+    channels, then squash: (N, H, W, C) -> (N, caps, capsule_dim)."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        kh, kw = lc.kernel
+        out_ch = lc.capsules * lc.capsule_dim
+        return {"W": self._weights(gen, (kh, kw, self.itype.channels,
+                                         out_ch)),
+                "b": self._zeros(out_ch)}
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        lc = self.lc
+        x, w, b = promote(x, params["W"], params["b"])
+        y = nn_ops.conv2d.fn(x, w, b, stride=tuple(lc.stride),
+                             padding=((0, 0), (0, 0)))
+        y = y.reshape(y.shape[0], -1, lc.capsule_dim)
+        return squash(y), state, None
+
+
+class CapsuleLayerImpl(Layer):
+    """layers/CapsuleLayer.java: dynamic routing between capsule layers,
+    a fixed number of routing iterations unrolled (no host read); the
+    agreement of all but the last uses detached predictions, as the JAX
+    layer's ``stop_gradient``."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        in_caps, in_dim = self.itype.timesteps, self.itype.size
+        return {"W": self._weights(gen, (in_caps, lc.capsules,
+                                         lc.capsule_dim, in_dim))}
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        routings = self.lc.routings
+        x, w = promote(x, params["W"])
+        # u_hat[n, i, j, k] = W[i, j, k, :] · x[n, i, :]
+        u_hat = torch.einsum("nid,ijkd->nijk", x, w)
+        b = torch.zeros(u_hat.shape[:3], dtype=u_hat.dtype,
+                        device=u_hat.device)
+        v = None
+        for it in range(max(int(routings), 1)):
+            c = torch.softmax(b, dim=2)
+            v = squash(torch.sum(c[..., None] * u_hat, dim=1))
+            if it + 1 < routings:
+                b = b + torch.einsum("njk,nijk->nij", v.detach(), u_hat)
+        return v, state, None
+
+
+class CapsuleStrengthLayerImpl(Layer):
+    """layers/CapsuleStrengthLayer.java: each capsule's L2 norm."""
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        return torch.sqrt(torch.sum(x * x, dim=-1) + 1e-12), state, mask
+
+
+class SameDiffLayerImpl(Layer):
+    """layers/samediff/SameDiffLayer.java: the configuration's
+    ``define(sd, x, params)`` records into a private SameDiff once (on the
+    layer's device); ``apply`` interprets that graph on the live input and
+    parameters, so autograd of the network differentiates through it."""
+
+    def _graph(self):
+        if not hasattr(self, "_sd"):
+            from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+
+            sd = SameDiff.create(device=self.device)
+            x = sd.placeholder("sdl_x", shape=None)
+            pvars = {name: sd.placeholder(f"sdl_p_{name}", shape=tuple(shape))
+                     for name, shape in (self.lc.param_shapes or {}).items()}
+            out = self.lc.define(sd, x, pvars)
+            self._sd = sd
+            self._out_name = out.name
+        return self._sd, self._out_name
+
+    def init(self, gen) -> Params:
+        params = {}
+        for name, shape in sorted((self.lc.param_shapes or {}).items()):
+            params[name] = (self._weights(gen, tuple(shape)) if len(shape) >= 2
+                            else torch.zeros(tuple(shape), dtype=self.dtype,
+                                             device=self.device))
+        return params
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        x = self._maybe_dropout(x, train=train, rng=rng)
+        sd, out_name = self._graph()
+        env = dict(sd._arrays)
+        env["sdl_x"] = x
+        for name, arr in params.items():
+            env[f"sdl_p_{name}"] = arr
+        out = sd._interpret(env, [out_name])[out_name]
+        # the block's output is define()'s result: the network's default
+        # activation does not apply again; an explicit layer activation does
+        if self.lc.activation is not None:
+            out = self.activation(out)
+        return out, state, mask
+
+
 LAYER_IMPLS: Dict[Type[C.LayerConf], Type[Layer]] = {
     C.DenseLayer: DenseLayerImpl,
     C.OutputLayer: OutputLayerImpl,
@@ -1375,6 +1765,20 @@ LAYER_IMPLS: Dict[Type[C.LayerConf], Type[Layer]] = {
     C.Deconvolution1D: Deconvolution1DImpl,
     C.ResizeLayer: ResizeLayerImpl,
     C.CenterCropLayer: CenterCropLayerImpl,
+    C.SelfAttentionLayer: SelfAttentionLayerImpl,
+    C.LearnedSelfAttentionLayer: LearnedSelfAttentionLayerImpl,
+    C.RecurrentAttentionLayer: RecurrentAttentionLayerImpl,
+    C.VariationalAutoencoder: VariationalAutoencoderImpl,
+    C.CnnLossLayer: CnnLossLayerImpl,
+    C.MaskLayer: MaskLayerImpl,
+    C.ElementWiseMultiplicationLayer: ElementWiseMultiplicationLayerImpl,
+    C.FrozenLayerWithBackprop: FrozenLayerWithBackpropImpl,
+    C.CenterLossOutputLayer: CenterLossOutputLayerImpl,
+    C.Yolo2OutputLayer: Yolo2OutputLayerImpl,
+    C.PrimaryCapsules: PrimaryCapsulesImpl,
+    C.CapsuleLayer: CapsuleLayerImpl,
+    C.CapsuleStrengthLayer: CapsuleStrengthLayerImpl,
+    C.SameDiffLayer: SameDiffLayerImpl,
 }
 
 

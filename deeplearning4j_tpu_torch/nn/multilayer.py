@@ -311,7 +311,11 @@ class MultiLayerNetwork:
         self._jit_cache: Dict[str, Any] = {}
         last = conf.layers[-1] if conf.layers else None
         self._loss_name = getattr(last, "loss", None)
-        self._loss_fn = get_loss(self._loss_name) if self._loss_name else None
+        if hasattr(last, "loss_fn"):  # the configuration binds its own
+            self._loss_fn = last.loss_fn()
+        else:
+            self._loss_fn = (get_loss(self._loss_name) if self._loss_name
+                             else None)
 
     # ------------------------------------------------------------------ init
     def init(self, params=None) -> "MultiLayerNetwork":
@@ -337,12 +341,13 @@ class MultiLayerNetwork:
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, net_state, x, mask, *, train: bool, rng,
-                 rnn_states=None):
+                 rnn_states=None, tap_input_of: Optional[int] = None):
         """Preprocessors and layers: (out, new layer state), or with
         ``rnn_states`` (one entry a layer, None for the non-recurrent
         ones) (out, new layer state, new rnn states): the tBPTT /
         ``rnn_time_step`` path, where each recurrent layer starts from its
-        carried state."""
+        carried state. ``tap_input_of``: (out, new layer state, the input
+        of that layer) — the features a center loss reads."""
         if DT.needs_cast(self.conf.dtype):
             # mixed policy: the ONE cast of parameters and inputs to bf16
             cd = DT.compute_dtype(self.conf.dtype)
@@ -356,8 +361,11 @@ class MultiLayerNetwork:
         # out in float32, as in the JAX package
         new_state = []
         new_rnn = [] if rnn_states is not None else None
+        tapped = None
         for i, layer in enumerate(self.layers):
             x = apply_preprocessor(self.conf.preprocessors.get(i), x)
+            if i == tap_input_of:
+                tapped = x
             if rnn_states is not None and hasattr(layer, "apply_with_state"):
                 x = layer._maybe_dropout(x, train=train, rng=rng)
                 x, last = layer.apply_with_state(params[i], x, mask=mask,
@@ -374,7 +382,25 @@ class MultiLayerNetwork:
             x = DT.cast_floats(x, torch.float32)  # loss/eval math in f32
         if rnn_states is not None:
             return x, new_state, new_rnn
+        if tap_input_of is not None:
+            return x, new_state, tapped
         return x, new_state
+
+    def _center_loss(self, params, feats, y):
+        """CenterLossOutputLayer's decoupled center loss (JAX
+        ``multilayer.py:361``): λ·½‖f − sg(c_y)‖² pulls the features toward
+        the detached centers, α·½‖sg(f) − c_y‖² the centers toward the
+        detached features (its gradient α(c_y − f̄) is the reference's
+        moving-average center update, taken by the optimizer)."""
+        lc = self.conf.layers[-1]
+        dt = torch.promote_types(torch.float32, feats.dtype)
+        f = feats.to(dt)
+        centers = params[-1]["centers"].to(dt)
+        c_y = centers[torch.argmax(y, dim=-1)]
+        d_feat = f - c_y.detach()
+        d_ctr = f.detach() - c_y
+        return (0.5 * lc.lambda_ * torch.mean(torch.sum(d_feat * d_feat, -1))
+                + 0.5 * lc.alpha * torch.mean(torch.sum(d_ctr * d_ctr, -1)))
 
     def _feed(self, a):
         # in the dtypes the JAX package computes in (float64 → float32,
@@ -479,12 +505,19 @@ class MultiLayerNetwork:
         with DT.precision_scope(self.conf.dtype):
             with scope[0]():
                 params = autograd_leaves(self.params)
-                res = self._forward(params, self.net_state, x, fmask,
-                                    train=True, rng=self._gen,
-                                    rnn_states=rnn_states)
+                center = (rnn_states is None and isinstance(
+                    self.conf.layers[-1], C.CenterLossOutputLayer))
+                res = self._forward(
+                    params, self.net_state, x, fmask, train=True,
+                    rng=self._gen, rnn_states=rnn_states,
+                    tap_input_of=len(self.layers) - 1 if center else None)
                 out, new_state = res[0], res[1]
-                loss = self._loss_fn(out, y, lmask) + aux_losses(
-                    new_state, self.device)
+                if center:
+                    loss = self._loss_fn(out, y, lmask) + self._center_loss(
+                        params, res[2], y)
+                else:
+                    loss = self._loss_fn(out, y, lmask) + aux_losses(
+                        new_state, self.device)
                 grads = grad_tree(loss, params)
             with scope[1]():
                 score = loss.detach() + reg_penalty(

@@ -21,7 +21,9 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_convbn.py``::
   (``csrc/bn_matmul_stats_sm90.cu``, wgmma fed by TMA through an mbarrier
   ring, the prologue rewritten in shared memory) where TMA can read x and
   w, ``"wmma"`` (``csrc/bn_matmul_stats.cu``) for pointers off 16-byte
-  alignment. Given CPU tensors it computes the plain version; given CUDA
+  alignment. The launch is the operator ``dl4j_tpu_torch::bn_matmul_stats``
+  (``ops/library.py``: z and the partial sums; their reduction stays
+  outside). Given CPU tensors it computes the plain version; given CUDA
   tensors it launches or raises. Its launches are counted in
   ``bn_matmul_stats.launches``, the sm90 design's also in
   ``bn_matmul_stats.sm90_launches``, and each launch's (M, K, N,
@@ -127,16 +129,36 @@ def bn_matmul_stats_partials(x, scale, shift, w, stat_shift, *,
     float32, ``parts[0]`` the sums over each 128-row block of (acc − s)
     and ``parts[1]`` of (acc − s)², acc the float32 accumulator before z
     is rounded. Given CPU tensors, the plain version's
-    (:func:`reference_partials` of the plain z). x and w bfloat16,
+    (:func:`reference_partials` of the plain z). The operator
+    ``dl4j_tpu_torch::bn_matmul_stats``: (2, M/128, N) does not depend on
+    the tile width, so its fake needs no SM count. x and w bfloat16,
     M % 128, K % 64, N % 64. ``block_n``: the sm90 design's tile width
     (one of :data:`TILE_N`); 0 takes the tuning table's ``block_n`` for
     the (M, K, N) bucket, else :func:`convbn_tile_n`."""
-    if x.device.type == "cpu":
-        z = reference_bn_matmul_stats(x, scale, shift, w, stat_shift,
-                                      relu=relu,
-                                      fuse_prologue=fuse_prologue)[0]
-        return z, reference_partials(z, stat_shift)
-    library.refuse_tracing("bn_matmul_stats", x, w)
+    return tuple(library.ops().bn_matmul_stats(
+        x, scale, shift, w, stat_shift, bool(relu), bool(fuse_prologue),
+        int(block_n)))
+
+
+def _bn_matmul_stats_cpu(x, scale, shift, w, stat_shift, relu,
+                         fuse_prologue, block_n):
+    z = reference_bn_matmul_stats(x, scale, shift, w, stat_shift, relu=relu,
+                                  fuse_prologue=fuse_prologue)[0]
+    return z, reference_partials(z, stat_shift)
+
+
+def _bn_matmul_stats_fake(x, scale, shift, w, stat_shift, relu,
+                          fuse_prologue, block_n):
+    m, n = x.shape[0], w.shape[1]
+    return (x.new_empty((m, n)),
+            x.new_empty((2, m // BLOCK_M, n), dtype=torch.float32))
+
+
+def _bn_matmul_stats(x, scale, shift, w, stat_shift, relu: bool,
+                     fuse_prologue: bool, block_n: int):
+    """The kernel's launch: the CUDA implementation of the
+    ``bn_matmul_stats`` operator (the design by pointer alignment and the
+    tile width are chosen here, where real pointers exist)."""
     if x.device.type != "cuda":
         raise ValueError(f"bn_matmul_stats: unsupported device {x.device}")
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
@@ -195,6 +217,13 @@ def bn_matmul_stats_partials(x, scale, shift, w, stat_shift, *,
     bn_matmul_stats.sm90_launches += int(design == "sm90")
     bn_matmul_stats.census[(m, k, n, bool(fuse_prologue), design)] += 1
     return z, parts
+
+
+library.define("bn_matmul_stats", "(Tensor x, Tensor scale, Tensor shift, "
+               "Tensor w, Tensor stat_shift, bool relu, bool fuse_prologue, "
+               "int block_n) -> (Tensor, Tensor)",
+               cuda=_bn_matmul_stats, cpu=_bn_matmul_stats_cpu,
+               fake=_bn_matmul_stats_fake)
 
 
 def bn_matmul_stats(x, scale, shift, w, stat_shift, *, relu: bool = True,

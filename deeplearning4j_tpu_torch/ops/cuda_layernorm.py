@@ -1,6 +1,6 @@
 """act(LayerNorm(x)·gain + bias) in one pass: the plain versions, the
-hand-written CUDA kernel, its gate and the differentiable
-:class:`FusedLayerNormFn`.
+hand-written CUDA kernel as a differentiable ``torch.library`` operator,
+and its gate.
 
 Counterpart of ``deeplearning4j_tpu/ops/pallas_layernorm.py`` — the
 platform helper of ``fused_layer_norm``, the SameDiff optimizer's
@@ -14,21 +14,23 @@ platform helper of ``fused_layer_norm``, the SameDiff optimizer's
   bias. The generic registry op (``ops/nn_ops.py`` ``fused_layer_norm``)
   is the other plain version: the op chain it replaces, op by op in x's
   dtype, as the JAX generic does.
-* :func:`fused_layer_norm_kernel` launches ``csrc/fused_layer_norm.cu``
-  (replacing ``_kernel``, ``pallas_layernorm.py:69``, via
-  ``fused_layer_norm_pallas``): statistics and epilogue in float32, one
-  write in x's dtype. Given CPU tensors it computes the plain version;
-  given CUDA tensors it launches or raises — there is no fallback. Its
-  launches are counted in ``fused_layer_norm_kernel.launches``.
+* :func:`fused_layer_norm_kernel` is the operator
+  ``dl4j_tpu_torch::fused_layer_norm`` (``ops/library.py``), which launches
+  ``csrc/fused_layer_norm.cu`` (replacing ``_kernel``,
+  ``pallas_layernorm.py:69``, via ``fused_layer_norm_pallas``): statistics
+  and epilogue in float32, one write in x's dtype. Given CPU tensors it
+  computes the plain version; given CUDA tensors it launches or raises —
+  there is no fallback. Its launches are counted in
+  ``fused_layer_norm_kernel.launches``.
 * :func:`fused_layer_norm_usable` is the JAX ``_usable`` (``:178``) on
   CUDA tensors without its TPU limits: trailing axis, a known activation,
   floating types, gain and bias of shape (D,), and the port's own
   measured ``min_rows`` (``ops/tuning.py``). The Mosaic tile rule
   (D % 128, rows % 8) is left out: the kernel takes any rows and any D.
-* :class:`FusedLayerNormFn` is the ``custom_vjp`` of ``:146`` as an
-  ``autograd.Function``: the kernel forward saving only its inputs, and
-  ``_fused_ln_bwd`` (``:156``) — autograd of :func:`generic_f32` on the
-  saved inputs, the gradients cast back to the inputs' dtypes.
+* The operator's autograd formula is the ``custom_vjp`` of ``:146``: the
+  kernel forward saving only its inputs, and ``_fused_ln_bwd`` (``:156``)
+  — autograd of :func:`generic_f32` on the saved inputs, the gradients
+  cast back to the inputs' dtypes.
 """
 
 from __future__ import annotations
@@ -79,12 +81,15 @@ def fused_layer_norm_kernel(x, gain, bias=None, *, eps: float = 1e-5,
                             activation: str = "none"):
     """The CUDA kernel of :func:`fused_layer_norm_reference` — same
     contract; x (..., D) of float32, bfloat16 or float16, gain and bias
-    (D,) of any float type. Not differentiable: the registry reaches it
-    through :func:`fused_layer_norm_helper`."""
-    if x.device.type == "cpu":
-        return fused_layer_norm_reference(x, gain, bias, eps=eps,
-                                          activation=activation)
-    library.refuse_tracing("fused_layer_norm", x)
+    (D,) of any float type. The operator ``dl4j_tpu_torch::fused_layer_norm``
+    (its CPU implementation the plain version), differentiable through its
+    registered autograd formula."""
+    return library.ops().fused_layer_norm(x, gain, bias, float(eps),
+                                          activation)
+
+
+def _fused_layer_norm(x, gain, bias, eps: float, activation: str):
+    """The kernel's launch: the CUDA implementation of the operator."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
     if x.ndim < 1 or x.shape[-1] == 0:
@@ -131,37 +136,50 @@ def fused_layer_norm_kernel(x, gain, bias=None, *, eps: float = 1e-5,
 fused_layer_norm_kernel.launches = 0
 
 
-class FusedLayerNormFn(torch.autograd.Function):
-    """The kernel forward with ``_fused_ln_bwd``'s backward
-    (``pallas_layernorm.py:156``): nothing but the inputs is saved; the
-    backward recomputes :func:`generic_f32` under autograd."""
+def _fused_ln_backward(ctx, g):
+    """``_fused_ln_bwd`` (``pallas_layernorm.py:156``): nothing but the
+    inputs is saved; autograd of :func:`generic_f32` on them, the
+    gradients cast back to the inputs' dtypes."""
+    x, gain, bias = ctx.saved_tensors
+    eps, activation = ctx.cfg
+    zeros = bias if bias is not None else torch.zeros(
+        x.shape[-1], dtype=x.dtype, device=x.device)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, gain, zeros)]
+        y = generic_f32(*leaves, eps, activation)
+        dx, dg, db = torch.autograd.grad(y, leaves, g.float())
+    return (dx.to(x.dtype), dg.to(gain.dtype),
+            None if bias is None else db.to(bias.dtype), None, None)
 
-    @staticmethod
-    def forward(ctx, x, gain, bias, eps, activation):
-        ctx.save_for_backward(x, gain, bias)
-        ctx.cfg = (eps, activation)
-        return fused_layer_norm_kernel(x, gain, bias, eps=eps,
-                                       activation=activation)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, gain, bias = ctx.saved_tensors
-        eps, activation = ctx.cfg
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in (x, gain, bias)]
-            y = generic_f32(*leaves, eps, activation)
-            dx, dg, db = torch.autograd.grad(y, leaves, g.float())
-        return (dx.to(x.dtype), dg.to(gain.dtype), db.to(bias.dtype), None,
-                None)
+def _fused_ln_setup(ctx, inputs, output):
+    x, gain, bias, eps, activation = inputs
+    ctx.save_for_backward(x, gain, bias)
+    ctx.cfg = (eps, activation)
+
+
+def _fused_ln_cpu(x, gain, bias, eps, activation):
+    return fused_layer_norm_reference(x, gain, bias, eps=eps,
+                                      activation=activation)
+
+
+def _fused_ln_fake(x, gain, bias, eps, activation):
+    return x.new_empty(x.shape)
+
+
+library.define("fused_layer_norm", "(Tensor x, Tensor gain, Tensor? bias, "
+               "float eps, str activation) -> Tensor",
+               cuda=_fused_layer_norm, cpu=_fused_ln_cpu, fake=_fused_ln_fake,
+               backward=_fused_ln_backward, setup_context=_fused_ln_setup)
 
 
 def fused_layer_norm_helper(x, gain, bias=None, *, axis: int = -1,
                             eps: float = 1e-5, activation: str = "none"):
-    """The registered CUDA platform impl: the differentiable kernel, a
+    """The registered CUDA platform impl: the differentiable operator, a
     missing bias a zeros bias of x's dtype (``:171``)."""
     b = bias if bias is not None else torch.zeros(
         x.shape[-1], dtype=x.dtype, device=x.device)
-    return FusedLayerNormFn.apply(x, gain, b, eps, activation)
+    return fused_layer_norm_kernel(x, gain, b, eps=eps, activation=activation)
 
 
 def fused_layer_norm_usable(x, gain, bias=None, **kw) -> bool:

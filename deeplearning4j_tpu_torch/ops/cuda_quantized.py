@@ -25,8 +25,10 @@ Counterpart of the Pallas half of ``deeplearning4j_tpu/ops/quantized.py``
   (the generic forward, ``_matmul_int8_raw``). :func:`matmul_int8_helper`
   wraps it in the straight-through :class:`quantized.Int8MatmulFn`.
 
-Each wrapper given CPU tensors computes its plain version; given CUDA
-tensors it launches or raises — there is no fallback.
+Both kernels are ``torch.library`` operators (``ops/library.py``:
+``matmul_int8_row_quantize``, ``matmul_int8``), so an exported program
+reaches them. Each wrapper given CPU tensors computes its plain version;
+given CUDA tensors it launches or raises — there is no fallback.
 
 :func:`matmul_int8_usable` is the JAX ``_usable`` (``:211``) on CUDA
 tensors without its TPU rules: 2-D or 3-D float x, a 2-D int8 (K, N)
@@ -72,10 +74,19 @@ def _check(rc: int, kernel: str, what: str) -> None:
 
 def row_quantize(x):
     """``(xq, xs)`` of a (M, K) x: int8 (M, K) and float32 (M, 1), as
-    ``quantized._row_quantize``."""
-    if x.device.type == "cpu":
-        return Q._row_quantize(x)
-    library.refuse_tracing("matmul_int8_row_quantize", x)
+    ``quantized._row_quantize``: the operator
+    ``dl4j_tpu_torch::matmul_int8_row_quantize``."""
+    return tuple(library.ops().matmul_int8_row_quantize(x))
+
+
+def _row_quantize_fake(x):
+    m, k = x.shape
+    return (x.new_empty((m, k), dtype=torch.int8),
+            x.new_empty((m, 1), dtype=torch.float32))
+
+
+def _row_quantize(x):
+    """The row kernel's launch: the CUDA implementation of the operator."""
     if x.device.type != "cuda":
         raise ValueError(f"row_quantize: unsupported device {x.device}")
     if x.ndim != 2 or x.shape[1] == 0 or x.dtype not in _DTYPE_CODES:
@@ -98,6 +109,9 @@ def row_quantize(x):
 
 
 row_quantize.launches = 0
+library.define("matmul_int8_row_quantize", "(Tensor x) -> (Tensor, Tensor)",
+               cuda=_row_quantize, cpu=Q._row_quantize,
+               fake=_row_quantize_fake)
 
 
 def int8_matmul_reference(xq, xs, w_q, w_scale, dtype: torch.dtype):
@@ -127,10 +141,18 @@ def int8_matmul(xq, xs, w_q, w_scale, dtype: torch.dtype):
     """The CUDA kernel of :func:`int8_matmul_reference`: xq (M, K) int8,
     xs (M, 1) or (M,) float32, w_q (K, N) int8, w_scale (N,) or (1, N)
     float32 -> (M, N) of ``dtype`` (float32, bfloat16 or float16), by the
-    design :func:`int8_design` picks."""
-    if xq.device.type == "cpu":
-        return int8_matmul_reference(xq, xs, w_q, w_scale, dtype)
-    library.refuse_tracing("matmul_int8", xq, w_q)
+    design :func:`int8_design` picks: the operator
+    ``dl4j_tpu_torch::matmul_int8``, whose CUDA implementation makes the
+    weight's K-major copy (kept on the tensor it was given)."""
+    return library.ops().matmul_int8(xq, xs, w_q, w_scale, dtype)
+
+
+def _int8_matmul_fake(xq, xs, w_q, w_scale, dtype):
+    return xq.new_empty((xq.shape[0], w_q.shape[1]), dtype=dtype)
+
+
+def _int8_matmul(xq, xs, w_q, w_scale, dtype: torch.dtype):
+    """The GEMM's launch: the CUDA implementation of the operator."""
     if xq.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {xq.device}")
     if (xq.ndim != 2 or w_q.ndim != 2 or xq.shape[1] != w_q.shape[0]
@@ -179,6 +201,10 @@ def int8_matmul(xq, xs, w_q, w_scale, dtype: torch.dtype):
 
 int8_matmul.launches = 0
 int8_matmul.sm90_launches = 0
+library.define("matmul_int8", "(Tensor xq, Tensor xs, Tensor w_q, "
+               "Tensor w_scale, ScalarType dtype) -> Tensor",
+               cuda=_int8_matmul, cpu=int8_matmul_reference,
+               fake=_int8_matmul_fake)
 
 
 def matmul_int8_reference(x, w_q, w_scale):

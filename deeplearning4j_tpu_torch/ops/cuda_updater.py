@@ -36,10 +36,11 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_updater.py``::
 :func:`fused_updater_usable` mirrors the JAX gate ``_usable`` (a floating
 leaf, equal shapes, the kind's number of state buffers) with the
 ``min_size`` crossover of the port's own tuning table (``ops/tuning.py``;
-``default.json``'s 0 sends every floating leaf to the kernel). A float64
-leaf passes the gate (as
-it passes the JAX one) and the wrapper raises on it: the kernel computes
-in float32.
+``default.json``'s 0 sends every floating leaf to the kernel). A leaf of
+a dtype the kernel was not built for (float64: the kernel computes in
+float32) is refused by the gate, as the flash gate refuses a head dim it
+was not built for: it runs the generic step, counted ``not_usable``. The
+wrapper still raises on such a leaf when it is called directly.
 """
 
 from __future__ import annotations
@@ -389,13 +390,15 @@ fused_updater.leaves = 0
 
 def fused_updater_usable(param, grad, lr, step, *state, **kw) -> bool:
     """Gate of the CUDA helper: the JAX ``_usable`` — CUDA tensors, a
-    floating leaf, equal shapes and the kind's number of state buffers;
-    a leaf smaller than the tuning table's measured ``min_size`` returns
+    floating leaf, equal shapes and the kind's number of state buffers —
+    and a leaf dtype the kernel was built for (float32, bfloat16,
+    float16: a float64 leaf runs the generic step); a leaf smaller than
+    the tuning table's measured ``min_size`` returns
     :data:`~.tuning.CROSSOVER`."""
     ts = (param, grad) + state
     if not _on_cuda(*ts):
         return False
-    if not param.is_floating_point():
+    if param.dtype not in _DTYPE_CODES:
         return False
     if any(t.shape != param.shape for t in ts):
         return False

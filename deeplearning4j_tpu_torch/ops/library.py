@@ -26,11 +26,18 @@ The operators (defined beside their kernels):
 * ``paged_decode`` — ``ops/cuda_attention.py``;
 * ``fused_matmul`` — ``ops/cuda_matmul.py``, its backward in PyTorch;
 * ``fused_updater`` (out of place) and ``fused_updater_`` (in place,
-  mutating the parameters and the state) — ``ops/cuda_updater.py``.
+  mutating the parameters and the state) — ``ops/cuda_updater.py``;
+* ``bn_matmul_stats`` — ``ops/cuda_convbn.py``: z and the per-128-row
+  block partial sums, whose shape (2, M/128, N) does not depend on the
+  tile width; the reduction to mean and variance stays outside;
+* ``fused_layer_norm`` — ``ops/cuda_layernorm.py``, with its autograd
+  formula (autograd of the float32 math on the saved inputs);
+* ``matmul_int8_row_quantize`` and ``matmul_int8`` — ``ops/cuda_quantized.py``
+  (the int8 weight's K-major copy made inside the CUDA implementation).
 
-The BN/matmul/BN-stats, LayerNorm and int8 kernels are still reached
-through ``ctypes``: tracing a graph that reaches them raises
-(:func:`refuse_tracing`), naming the kernel.
+Every kernel wrapper counts its launches inside the CUDA implementation,
+so a restored exported program counts as the direct call does, and a
+CUDA-graph replay adds what its capture moved (``ops/capture.py``).
 """
 
 from __future__ import annotations
@@ -42,7 +49,9 @@ import torch
 
 NAMESPACE = "dl4j_tpu_torch"
 OPS: Tuple[str, ...] = ("flash_fwd", "flash_dq", "flash_dkv", "paged_decode",
-                        "fused_matmul", "fused_updater", "fused_updater_")
+                        "fused_matmul", "fused_updater", "fused_updater_",
+                        "bn_matmul_stats", "fused_layer_norm",
+                        "matmul_int8_row_quantize", "matmul_int8")
 
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
@@ -71,7 +80,8 @@ def define(name: str, schema: str, *, cuda: Callable, cpu: Callable,
 def ops():
     """``torch.ops.dl4j_tpu_torch``, every operator registered."""
     from deeplearning4j_tpu_torch.ops import (  # noqa: F401  (registers)
-        cuda_attention, cuda_matmul, cuda_updater)
+        cuda_attention, cuda_convbn, cuda_layernorm, cuda_matmul,
+        cuda_quantized, cuda_updater)
 
     return getattr(torch.ops, NAMESPACE)
 
@@ -85,20 +95,3 @@ def schema_digest() -> str:
         h.update(str(getattr(ns, name).default._schema).encode())
         h.update(b"|")
     return h.hexdigest()
-
-
-def tracing(*tensors) -> bool:
-    """Whether any of ``tensors`` is a fake tensor (``torch.export`` or
-    another tracer is running the function, not the card)."""
-    from torch._subclasses.fake_tensor import is_fake
-
-    return any(isinstance(t, torch.Tensor) and is_fake(t) for t in tensors)
-
-
-def refuse_tracing(kernel: str, *tensors) -> None:
-    """Raise when a ``ctypes`` kernel is reached by a tracer: its wrapper
-    needs real device pointers."""
-    if tracing(*tensors):
-        raise NotImplementedError(
-            f"{kernel} is reached through ctypes and is not a torch.library "
-            f"operator yet: a program that calls it cannot be exported")

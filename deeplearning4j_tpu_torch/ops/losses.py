@@ -159,8 +159,12 @@ def yolo2(pred, target, mask=None, *, lambda_coord: float = 5.0,
     p = pred.reshape(n, gh, gw, bx, depth)
     xy = torch.sigmoid(p[..., 0:2])
     if anchors is not None:
-        a = torch.as_tensor(anchors, dtype=p.dtype,
-                            device=p.device).reshape(1, 1, 1, bx, 2)
+        # built by fills on the device: no host-to-device copy, so the loss
+        # runs inside a captured training step
+        a = torch.stack([torch.full((), float(v), dtype=p.dtype,
+                                    device=p.device)
+                         for pair in anchors for v in pair]).reshape(
+            1, 1, 1, bx, 2)
         wh = a * torch.exp(p[..., 2:4])
     else:
         wh = p[..., 2:4]

@@ -449,12 +449,13 @@ class _Functional:
 
 def bert_keras_model(*, layers: int, hidden: int, heads: int, ff: int,
                      vocab: int, max_positions: int, seq: int = 128,
-                     seed: int = 0, std: float = 0.02
-                     ) -> Tuple[dict, "_Functional"]:
+                     seed: int = 0, std: float = 0.02,
+                     dropout: float = 0.1) -> Tuple[dict, "_Functional"]:
     """The BERT-like encoder's ``model_config`` and weights (numpy
     ``RandomState(seed)`` normal draws × ``std``, LayerNorm gains 1 and
-    biases 0; LayerNorm epsilon 1e-12 and dropout 0.1, BERT's)."""
-    eps, dropout = 1e-12, 0.1
+    biases 0; LayerNorm epsilon 1e-12 and dropout 0.1, BERT's, unless
+    ``dropout`` says otherwise)."""
+    eps = 1e-12
     rs = np.random.RandomState(seed)
 
     def w(*shape):
@@ -566,7 +567,7 @@ def bert_keras_h5(path=None, **cfg) -> Tuple[Optional[bytes],
     """Write the BERT-like encoder's legacy ``.h5`` (``path``, or return
     its bytes); also return its arrays by layer, in ``weight_names``
     order. ``cfg``: layers, hidden, heads, ff, vocab, max_positions, and
-    optionally seq, seed, std."""
+    optionally seq, seed, std, dropout."""
     config, f = bert_keras_model(**cfg)
     names = [layer["name"] for layer in f.layers]
     h = _keras_file(config, names, f.weights)

@@ -251,9 +251,10 @@ def test_layer_json_crosses_both_ways(name):
 
 
 def test_unported_types_are_still_refused_by_name():
+    """The two layer types the port has not ported (MoELayer: parallelism;
+    DuelingQLayer: reinforcement learning) are refused by name."""
     text = _jax_conf("Upsampling2D").to_json()
-    for name in ("VariationalAutoencoder", "SelfAttentionLayer", "MoELayer",
-                 "Yolo2OutputLayer", "CapsuleLayer"):
+    for name in ("MoELayer", "DuelingQLayer"):
         bad = text.replace('"@type": "Upsampling2D"', f'"@type": "{name}"')
         with pytest.raises(ValueError, match=f"'{name}' is not ported"):
             tnn.MultiLayerConfiguration.from_json(bad)

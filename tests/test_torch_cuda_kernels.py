@@ -106,6 +106,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.datasets import synthetic_image_batch
+from deeplearning4j_tpu_torch import observe
 from deeplearning4j_tpu_torch.environment import environment
 from deeplearning4j_tpu_torch.models import ResNet50
 from deeplearning4j_tpu_torch.models.gpt import (
@@ -924,8 +925,9 @@ def test_fused_updater_multi_matches_plain(cuda, kind, dtype):
 
 
 def test_apply_fused_many_routes_leaf_by_leaf(cuda):
-    """helper_mode decides for the whole call as for one leaf; a float64
-    leaf passes the gate and raises, as apply_fused does."""
+    """helper_mode decides for the whole call as for one leaf; the gate
+    refuses a float64 leaf, which runs the generic step (counted
+    ``not_usable``) with no launch."""
     upd = U.Adam()
     ps = [torch.randn(n, device=cuda) for n in (3, 300, 5000)]
     ss = [upd.init_state(p) for p in ps]
@@ -943,9 +945,48 @@ def test_apply_fused_many_routes_leaf_by_leaf(cuda):
                 assert all(torch.equal(ns[k], want_s[k]) for k in ns)
     finally:
         env.helper_mode = old
-    with pytest.raises(ValueError, match="dtype"):
-        upd.apply_fused_many([ps[0].double()], [ps[0].double()],
-                             [upd.init_state(ps[0].double())], upd.lr(0), 0)
+    p64 = ps[1].double()
+    s64 = upd.init_state(p64)
+    before = cu.fused_updater.launches
+    d0 = observe.dispatch_summary()
+    new_p, new_s = upd.apply_fused_many([p64], [p64], [s64], upd.lr(0), 0)
+    assert cu.fused_updater.launches == before
+    key = "fused_updater_step/generic/not_usable"
+    assert observe.dispatch_summary().get(key, 0) - d0.get(key, 0) == 1
+    u, want_s = upd.apply(p64, s64, upd.lr(0), 0)
+    assert new_p[0].dtype == torch.float64
+    assert torch.equal(new_p[0], p64 - u)
+    assert all(torch.equal(new_s[0][k], want_s[k]) for k in want_s)
+
+
+def test_float64_network_fits_on_the_card(cuda):
+    """A float64 MultiLayerNetwork fits on the card: its leaves take the
+    generic updater step (the gate refuses float64) and match the CPU
+    fit of the same parameters."""
+    from deeplearning4j_tpu_torch import nn as tnn
+
+    conf = (tnn.builder().seed(3).updater(tnn.Adam(learning_rate=1e-2))
+            .dtype("float64").list()
+            .layer(tnn.DenseLayer(n_in=6, n_out=8, activation="tanh"))
+            .layer(tnn.OutputLayer(n_in=8, n_out=3, activation="softmax",
+                                   loss="mcxent")).build())
+    r = np.random.RandomState(0)
+    x = r.randn(16, 6)
+    y = np.eye(3)[r.randint(0, 3, 16)]
+    nets = [tnn.MultiLayerNetwork(conf, device=d).init()
+            for d in (cuda, "cpu")]
+    for a, b in zip(nets[0].params, nets[1].params):
+        for k in a:
+            a[k].data.copy_(b[k])
+    before = cu.fused_updater.launches
+    for net in nets:
+        net.fit(x, y, epochs=2, batch_size=16)
+    assert cu.fused_updater.launches == before
+    for a, b in zip(nets[0].params, nets[1].params):
+        for k in a:
+            assert a[k].dtype == torch.float64
+            np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(),
+                                       rtol=1e-9, atol=1e-12)
 
 
 def test_fused_updater_routes_and_refuses(cuda):

@@ -20,8 +20,9 @@ same numpy inputs.
   ``sd.output``; the tiny imported ONNX BERT; ``as_export_text``;
   ``GraphPlan.fingerprint``.
 * The kernels' ``torch.library`` operators: ``torch.library.opcheck`` for
-  each; a program calling them exported, saved, loaded and run; a
-  ``ctypes`` kernel refused under tracing (fake CUDA tensors), by name.
+  each; a program calling them exported, saved, loaded and run; the
+  BN/matmul/BN-stats, LayerNorm and int8 kernels traced through their
+  operators' fakes (fake CUDA tensors).
 
 Tolerances against the JAX package, with their reasons (float32; the two
 frameworks sum in other orders): SameDiff outputs 1e-6 relative + 1e-7
@@ -537,6 +538,20 @@ def _op_cases():
                          t(6, grad=True), "gelu", False, False),
         "fused_updater": upd_args,
         "fused_updater_": upd_args,
+        "bn_matmul_stats": (t(256, 64).bfloat16(), t(64), t(64),
+                            t(64, 64).bfloat16(), t(64), True, True, 0),
+        "bn_matmul_stats_no_prologue": (t(128, 64).bfloat16(), t(64), t(64),
+                                        t(64, 128).bfloat16(), t(128), False,
+                                        False, 64),
+        "fused_layer_norm": (t(6, 16, grad=True), t(16, grad=True),
+                             t(16, grad=True), 1e-5, "gelu"),
+        "fused_layer_norm_no_bias": (t(2, 3, 16, grad=True), t(16, grad=True),
+                                     None, 1e-6, "none"),
+        "matmul_int8_row_quantize": (t(7, 32),),
+        "matmul_int8": (torch.from_numpy(r.randint(-127, 128, (7, 32)).astype(
+            np.int8)), t(7, 1).abs(), torch.from_numpy(
+                r.randint(-127, 128, (32, 5)).astype(np.int8)), t(5).abs(),
+            torch.bfloat16),
     }
 
 
@@ -550,7 +565,10 @@ class TestOperators:
     @pytest.mark.parametrize("case", list(_op_cases()))
     def test_opcheck(self, case):
         args = _op_cases()[case]
-        op = getattr(library.ops(), case.replace("_dropout", "")).default
+        name = case
+        for suffix in ("_dropout", "_no_prologue", "_no_bias"):
+            name = name.replace(suffix, "")
+        op = getattr(library.ops(), name).default
         torch.library.opcheck(op, args)
 
     def test_every_operator_is_registered_with_its_schema(self):
@@ -608,19 +626,72 @@ class TestOperators:
             assert torch.equal(g, w)
         assert torch.equal(a[4], b[4]) and a[4].abs().sum() > 0
 
-    @pytest.mark.parametrize("kernel, call", [
-        ("bn_matmul_stats", lambda f: cc.bn_matmul_stats(
-            f(256, 64), f(64), f(64), f(64, 32), f(32))),
-        ("fused_layer_norm", lambda f: cl.fused_layer_norm_kernel(
-            f(16, 64), f(64))),
-        ("matmul_int8_row_quantize", lambda f: cq.row_quantize(f(16, 64))),
+    def test_a_fused_layer_norm_graph_exports_through_its_operator(
+            self, tmp_path, monkeypatch):
+        """A SameDiff graph whose optimizer fuses layer_norm → gelu into a
+        ``fused_layer_norm`` node, with the gate taking these CPU tensors
+        for the card's (the operator's CPU implementation is the plain
+        version): the exported program calls
+        ``dl4j_tpu_torch::fused_layer_norm``, and the warm-booted program
+        gives the direct run's output bit for bit."""
+        import importlib
+
+        registry_mod = importlib.import_module(
+            "deeplearning4j_tpu_torch.ops.registry")
+        monkeypatch.setattr(cl, "_on_cuda", lambda *ts: True)
+        monkeypatch.setattr(registry_mod, "tensor_platform",
+                            lambda *a, **k: "cuda")
+
+        def build():
+            r = np.random.RandomState(6)
+            sd = SameDiff(device="cpu")
+            x = sd.placeholder("x", (None, 16, 32))
+            g = sd.var("g", (1 + 0.1 * r.randn(32)).astype(np.float32))
+            b = sd.var("b", (0.1 * r.randn(32)).astype(np.float32))
+            sd.nn.gelu(sd.nn.layer_norm(x, g, b)).rename("y")
+            return sd
+
+        feeds = {"x": np.random.RandomState(7).randn(4, 16, 32).astype(
+            np.float32)}
+        sd0 = build()
+        direct = sd0.output(feeds, ["y"])["y"]
+        assert sd0.last_compile_stats.fusions.get("layernorm") == 1
+        assert "dl4j_tpu_torch.fused_layer_norm" in sd0.as_export_text(
+            feeds, ["y"])
+        cache = aot.ExportCache(str(tmp_path))
+        assert aot.export_exec(build(), feeds, ["y"], cache=cache)
+        sd2 = build()
+        assert aot.warm_boot_samediff(sd2, ["y"], cache=cache)
+        np.testing.assert_array_equal(sd2.output(feeds, ["y"])["y"], direct)
+
+    @pytest.mark.parametrize("kernel, call, shapes", [
+        ("bn_matmul_stats", lambda f: cc.bn_matmul_stats_partials(
+            f(256, 64), f(64), f(64), f(64, 32), f(32)),
+         [(256, 32), (2, 2, 32)]),
+        ("fused_layer_norm", lambda f: (cl.fused_layer_norm_kernel(
+            f(16, 64), f(64)),), [(16, 64)]),
+        ("matmul_int8_row_quantize", lambda f: cq.row_quantize(f(16, 64)),
+         [(16, 64), (16, 1)]),
     ])
-    def test_a_ctypes_kernel_refuses_tracing_by_name(self, kernel, call):
+    def test_a_ctypes_kernel_refuses_tracing_by_name(self, kernel, call,
+                                                     shapes):
+        """The BN/matmul/BN-stats, LayerNorm and row-quantization kernels
+        trace: fake CUDA tensors go through the operator's fake and come
+        back fake, of the kernel's shapes, with no launch counted."""
         mode = FakeTensorMode()
 
         def fake_cuda(*shape):
             return FakeTensor(mode, torch.empty(shape, device="meta"),
                               torch.device("cuda", 0))
 
-        with mode, pytest.raises(NotImplementedError, match=kernel):
-            call(fake_cuda)
+        counters = (cc.bn_matmul_stats.launches,
+                    cl.fused_layer_norm_kernel.launches,
+                    cq.row_quantize.launches)
+        with mode:
+            outs = call(fake_cuda)
+        assert [tuple(o.shape) for o in outs] == shapes
+        assert all(isinstance(o, FakeTensor) and o.device.type == "cuda"
+                   for o in outs)
+        assert (cc.bn_matmul_stats.launches,
+                cl.fused_layer_norm_kernel.launches,
+                cq.row_quantize.launches) == counters

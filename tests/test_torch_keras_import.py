@@ -497,9 +497,37 @@ def test_rejections_same_message(cls, functional):
 
 
 def test_validate_raises(saved):
-    with pytest.raises(NotImplementedError, match="check_network"):
-        K.import_keras_model_and_weights(saved["Dense"][0]["h5"],
-                                         validate=True, device="cpu")
+    """``validate=True`` (the default in both packages) runs
+    ``check_network`` after the import: the port's report has the JAX
+    importer's codes and positions on the same bytes, for a Sequential
+    and a functional model; a configuration whose declared ``n_in``
+    contradicts the propagated size is refused by both with GC002."""
+    from deeplearning4j_tpu.analysis import check_network as jcheck
+    from deeplearning4j_tpu_torch.analysis import check_network as tcheck
+
+    for name in ("Dense", "Conv2D"):
+        path = saved[name][0]["h5"]
+        got = K.import_keras_model_and_weights(path, device="cpu")
+        want = J.import_keras_model_and_weights(path)
+        assert got.last_check_report.graph_name == \
+            want.last_check_report.graph_name
+        assert _codes(got.last_check_report) == \
+            _codes(want.last_check_report)
+    from deeplearning4j_tpu.nn import conf as JC
+    from deeplearning4j_tpu_torch.nn import conf as TC
+
+    reports = []
+    for C_, check in ((JC, jcheck), (TC, tcheck)):
+        conf = (C_.builder().list()
+                .layer(C_.DenseLayer(n_in=4, n_out=6))
+                .layer(C_.OutputLayer(n_in=5, n_out=2))
+                .set_input_type(C_.InputType.feed_forward(4)).build())
+        reports.append(check(conf, graph_name="keras:sequential"))
+    assert _codes(reports[1]) == _codes(reports[0]) == [("GC002", 2)]
+
+
+def _codes(report):
+    return [(f.rule, f.line) for f in report.findings]
 
 
 def test_mha_keras_v3_defect_fails_alike(saved):

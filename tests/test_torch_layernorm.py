@@ -16,7 +16,7 @@ Inputs are drawn with numpy and fed to both packages.
   (``pallas_layernorm.fused_layer_norm``) in
   float32: 1e-5 relative and absolute. (In bfloat16 each generic rounds
   after every op of the chain, in different places.)
-* ``FusedLayerNormFn``'s gradients against ``jax.vjp`` of ``_fused_ln``
+* The ``fused_layer_norm`` operator's gradients against ``jax.vjp`` of ``_fused_ln``
   (the Pallas forward in interpret mode, ``jax.vjp`` of the float32 math
   backward): float32 1e-5 relative and absolute; bfloat16 x one unit of
   the bf16 gradient (2^-7 relative) and 1e-5 absolute. And, apart from
@@ -131,7 +131,7 @@ def test_gradients_match_jax_vjp(act, dtype, shape):
     leaves = [torch.from_numpy(x).to(TD[dtype]).requires_grad_(True),
               torch.from_numpy(g).requires_grad_(True),
               torch.from_numpy(b).requires_grad_(True)]
-    got_out = T.FusedLayerNormFn.apply(*leaves, 1e-5, act)
+    got_out = T.fused_layer_norm_kernel(*leaves, eps=1e-5, activation=act)
     assert got_out.grad_fn is not None
     np.testing.assert_allclose(_to_np(got_out), _jnp_np(out), **TOL[dtype])
     got = torch.autograd.grad(got_out, leaves,
@@ -160,12 +160,12 @@ def test_fused_node_gradients_against_finite_differences():
     grads = sd.calculate_gradients({}, "loss")
     assert sd.last_compile_stats.fusions.get("layernorm") == 1
     assert check_samediff_gradients(sd, {}, "loss", max_per_param=12)
-    # FusedLayerNormFn (the kernel's autograd.Function, on the CPU its
+    # the fused_layer_norm operator (its autograd formula; on the CPU its
     # plain forward) gives the gradients the checked plan gives
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, g, b)]
     c = torch.from_numpy(np.random.RandomState(5).randn(*x.shape)
                          .astype(np.float32))
-    y = T.FusedLayerNormFn.apply(*leaves, 1e-5, "gelu")
+    y = T.fused_layer_norm_kernel(*leaves, eps=1e-5, activation="gelu")
     got = torch.autograd.grad((y * c).sum(), leaves)
     for name, a in zip("xgb", got):
         np.testing.assert_allclose(_to_np(a), grads[name],

@@ -159,10 +159,22 @@ def test_shape_inference_inserts_the_jax_preprocessors():
 @pytest.mark.parametrize("name", ["SelfAttentionLayer",
                                   "CenterLossOutputLayer"])
 def test_unported_types_are_refused_by_name_in_multilayer_json(name):
-    text = _tagger_conf(jnn).to_json().replace(
-        '"@type": "RnnOutputLayer"', f'"@type": "{name}"', 1)
-    with pytest.raises(ValueError, match=f"'{name}' is not ported"):
-        tnn.MultiLayerConfiguration.from_json(text)
+    """``name`` (once refused) is ported now: a configuration holding it,
+    written by the JAX package, loads and writes the same JSON back; the
+    two types still to port are refused by name."""
+    jconf = (jnn.builder().list()
+             .layer(jnn.SelfAttentionLayer(n_in=6, n_out=6, n_heads=2)
+                    if name == "SelfAttentionLayer" else
+                    jnn.CenterLossOutputLayer(n_in=6, n_out=3))
+             .build())
+    own = tnn.MultiLayerConfiguration.from_json(jconf.to_json())
+    assert type(own.layers[0]).__name__ == name
+    assert json.loads(own.to_json()) == json.loads(jconf.to_json())
+    for unported in ("MoELayer", "DuelingQLayer"):
+        text = _tagger_conf(jnn).to_json().replace(
+            '"@type": "RnnOutputLayer"', f'"@type": "{unported}"', 1)
+        with pytest.raises(ValueError, match=f"'{unported}' is not ported"):
+            tnn.MultiLayerConfiguration.from_json(text)
     # every preprocessor of the JAX package is ported (the 3-D one with
     # the Keras importer); a name outside that set is still refused
     text = LeNet(device="cpu").conf().to_json()

@@ -195,8 +195,29 @@ def test_an_unmapped_op_raises_at_import():
 
 
 def test_validate_raises(tiny_bytes):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        timp.import_onnx(tiny_bytes, validate=True, device="cpu")
+    """``validate=True`` (the default in both packages) checks the
+    imported graph: the tiny BERT's report has the JAX importer's codes
+    and node positions on the same bytes, and a MatMul whose contraction
+    cannot agree is refused by both with GC002 at the same node."""
+    from deeplearning4j_tpu.analysis import GraphCheckError as JErr
+    from deeplearning4j_tpu_torch.analysis import GraphCheckError as TErr
+
+    got = timp.import_onnx(tiny_bytes, validate=True, device="cpu")
+    want = jimp.import_onnx(tiny_bytes)
+    assert got.last_check_report.ok and want.last_check_report.ok
+    assert [(f.rule, f.line) for f in got.last_check_report.findings] == \
+        [(f.rule, f.line) for f in want.last_check_report.findings]
+    bad = tb.build_model(
+        [tb.node_proto("MatMul", ["x", "w"], ["y"])],
+        [("x", (2, 3))], [("y", (2, 4))],
+        {"w": np.ones((5, 4), np.float32)})
+    with pytest.raises(TErr) as terr:
+        timp.import_onnx(bad, device="cpu")
+    with pytest.raises(JErr) as jerr:
+        jimp.import_onnx(bad)
+    assert [(f.rule, f.line) for f in terr.value.findings] == \
+        [(f.rule, f.line) for f in jerr.value.findings]
+    assert terr.value.findings[0].rule == "GC002"
 
 
 def test_the_port_names_no_jax_module():

@@ -335,8 +335,31 @@ def test_autocast_is_refused_not_ignored(monkeypatch):
 
 
 def test_validate_is_refused_not_ignored():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        TSameDiff(validate=True, device="cpu")
+    """``SameDiff(validate=True)`` checks the subgraph an output set runs
+    before running it, in both packages: a clean graph runs and keeps its
+    report; a matmul whose contraction cannot agree raises GraphCheckError
+    with the JAX package's GC002 at the same node, and ``check()`` gives
+    the same findings without raising."""
+    from deeplearning4j_tpu.analysis import GraphCheckError as JErr
+    from deeplearning4j_tpu_torch.analysis import GraphCheckError as TErr
+
+    reports = []
+    for SD, kw, err in ((JSameDiff, {}, JErr),
+                        (TSameDiff, {"device": "cpu"}, TErr)):
+        sd = SD(validate=True, **kw)
+        x = sd.placeholder("x", (None, 4))
+        w = sd.var("w", np.ones((4, 3), np.float32))
+        x.mmul(w).rename("y")
+        sd.output({"x": np.ones((2, 4), np.float32)}, ["y"])
+        assert sd.last_check_report.ok
+        v = sd.var("v", np.ones((5, 2), np.float32))
+        sd._vars["y"].mmul(v).rename("z")
+        with pytest.raises(err) as exc:
+            sd.output({"x": np.ones((2, 4), np.float32)}, ["z"])
+        reports.append(([(f.rule, f.line) for f in exc.value.findings],
+                        [(f.rule, f.line) for f in sd.check().findings]))
+    assert reports[1] == reports[0]
+    assert reports[0][0][0][0] == "GC002"
 
 
 def test_constant_rebind_and_graph_mutation_invalidate_the_plan():

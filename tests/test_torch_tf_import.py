@@ -367,10 +367,33 @@ def test_same_rule_names_as_the_jax_importer():
 
 
 def test_validate_true_raises():
+    """``validate=True`` (the default in both packages) checks the
+    imported GraphDef: the same bytes give the JAX importer's findings,
+    and a MatMul whose contraction cannot agree is refused by both with
+    GC002 at the same node."""
+    from deeplearning4j_tpu.analysis import GraphCheckError as JErr
+    from deeplearning4j_tpu_torch.analysis import GraphCheckError as TErr
+
     gd, _, _ = freeze(lambda x: x * 2.0, tf.TensorSpec([2], tf.float32))
-    with pytest.raises(NotImplementedError, match="validate"):
-        TensorflowImporter(device="cpu", validate=True).run_import(
-            gd.SerializeToString())
+    got = TensorflowImporter(device="cpu", validate=True).run_import(
+        gd.SerializeToString())
+    want = JImporter().run_import(gd.SerializeToString())
+    assert got.last_check_report.ok
+    assert [(f.rule, f.line) for f in got.last_check_report.findings] == \
+        [(f.rule, f.line) for f in want.last_check_report.findings]
+    f32 = tb.a_type(tb.DT_FLOAT)
+    bad = tb.graph_def([
+        tb.node_def("x", "Placeholder", dtype=f32, shape=tb.a_shape((2, 3))),
+        tb.node_def("w", "Const", dtype=f32,
+                    value=tb.a_tensor(np.ones((5, 4), np.float32))),
+        tb.node_def("y", "MatMul", ["x", "w"], T=f32)])
+    with pytest.raises(TErr) as terr:
+        TensorflowImporter(device="cpu").run_import(bad)
+    with pytest.raises(JErr) as jerr:
+        JImporter().run_import(bad)
+    assert [(f.rule, f.line) for f in terr.value.findings] == \
+        [(f.rule, f.line) for f in jerr.value.findings]
+    assert terr.value.findings[0].rule == "GC002"
 
 
 # ---------------------------------------------------------------------------

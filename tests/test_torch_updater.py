@@ -464,3 +464,20 @@ def test_apply_fused_many_keeps_a_subclass_override():
     for p, g, np_ in zip(ps, gs, new_p):
         assert torch.equal(np_, p - 0.5 * upd.lr(0) * g)
     assert new_s == ss
+
+
+@pytest.mark.parametrize("dtype, admitted", [
+    (torch.float32, True), (torch.bfloat16, True), (torch.float16, True),
+    (torch.float64, False)])
+def test_the_gate_refuses_a_dtype_the_kernel_was_not_built_for(
+        monkeypatch, dtype, admitted):
+    """The gate's decision with the device check seeing these CPU tensors
+    as the card's: a float64 leaf is refused (the generic step runs,
+    counted ``not_usable``), as the wrapper would raise on it."""
+    monkeypatch.setattr(cu, "_on_cuda", lambda *ts: True)
+    upd = tupd.Nesterovs(learning_rate=0.1)
+    p = torch.randn(10).to(dtype)
+    st = upd.init_state(p)
+    assert bool(cu.fused_updater_usable(
+        p, p, upd.lr(0), 0, st["v"], kind="Nesterovs",
+        momentum=0.9)) is admitted
