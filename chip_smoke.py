@@ -727,6 +727,29 @@ TRAIN_B_LOSS1_RTOL = 2.0 ** -8
 TRAIN_B_YARDSTICK = 3.0
 
 
+# parallel_moe: google/switch-base-8's sparse FFN widths (Fedus et al.,
+# Switch Transformers: d_model 768, d_ff 3072, 8 experts, top-1,
+# capacity factor 1.25) in a Dense -> MoE -> softmax network, 8 sequences
+# of 512 tokens a step (4096 rows), trained through ParallelWrapper at
+# world 1; ring and Ulysses attention at BERT-base heads, T 2048
+MOE_WIDTH = dict(d_model=768, d_ff=3072, experts=8, top_k=1,
+                 capacity_factor=1.25)
+MOE_TOKENS = (8, 512)
+MOE_CLASSES = 10
+MOE_STEPS = 8
+SP_ATTN_SHAPE = dict(batch=2, heads=12, t=2048, d=64)
+SP_ATTN_TOL = 1e-4      # float32 online softmax against the plain one
+# parallel_inference: the zoo ResNet-50 served by ParallelInference, 4
+# client threads sending 64 requests of 1-8 images
+PI_MAX_BATCH = 32
+PI_WINDOW_MS = 3.0
+PI_CLIENTS = 4
+PI_REQUESTS = 64
+PI_IMAGES = (1, 8)
+PI_YARDSTICK = 3.0
+PI_CALIBRATION = 64     # train-mode forwards setting the BN statistics
+
+
 # the sequential phases' widths and data: testing/sequential.py
 LENET_PARAMS = 431080   # 520 + 25,050 + 400,500 + 5,010
 # cuDNN's LSTM against the generic recurrence (float32, TF32 off): each
@@ -4210,9 +4233,10 @@ def _move_distance(a, b, start) -> float:
     return math.sqrt(num) / max(math.sqrt(den), 1e-30)
 
 
-def _mln_run(net, start, mode, batches, *, nudge=False, eager=False):
-    """``net.fit`` over ``batches`` (one ``fit`` call each) from the
-    ``start`` state (copied into the network's own tensors) under
+def _mln_run(net, start, mode, batches, *, nudge=False, eager=False,
+             fit=None):
+    """``net.fit`` (or ``fit(ds)``) over ``batches`` (one call each) from
+    the ``start`` state (copied into the network's own tensors) under
     ``helper_mode=mode``, captured (``"auto"``) or, for the references
     and with ``eager``, op by op: (scores — one a step, or one a tBPTT
     segment —, host seconds a batch, parameters, the whole state)."""
@@ -4235,7 +4259,10 @@ def _mln_run(net, start, mode, batches, *, nudge=False, eager=False):
             for ds in batches:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                net.fit(ds, batch_size=ds.num_examples())
+                if fit is None:
+                    net.fit(ds, batch_size=ds.num_examples())
+                else:
+                    fit(ds)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 scores += net.tbptt_scores() if tbptt else [net.score()]
@@ -7851,6 +7878,269 @@ def nn_layer_types_phase(dev, smi):
     return problems, line, total
 
 
+def _moe_conf():
+    from deeplearning4j_tpu_torch import nn as tnn
+
+    w = MOE_WIDTH
+    return (tnn.builder().seed(26).updater(tnn.Adam(learning_rate=1e-3))
+            .list()
+            .layer(tnn.DenseLayer(n_out=w["d_model"], activation="gelu"))
+            .layer(tnn.MoELayer(d_hidden=w["d_ff"], n_experts=w["experts"],
+                                top_k=w["top_k"],
+                                capacity_factor=w["capacity_factor"],
+                                activation="relu"))
+            .layer(tnn.OutputLayer(n_out=MOE_CLASSES, activation="softmax",
+                                   loss="mcxent"))
+            .set_input_type(tnn.InputType.feed_forward(w["d_model"])).build())
+
+
+def _sequence_parallel_attention(dev) -> tuple:
+    """ring_attention and ulysses_attention at world 1 on (B, H, T, D) =
+    SP_ATTN_SHAPE float32 against the plain softmax(QKᵀ/√D)·V: (problems,
+    line fields)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import (
+        make_mesh, ring_attention, ulysses_attention)
+
+    sh = SP_ATTN_SHAPE
+    b, h, t, d = sh["batch"], sh["heads"], sh["t"], sh["d"]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device=dev)
+               for _ in range(3))
+    mesh = make_mesh({"seq": 1}, device=dev)
+
+    def plain():
+        return torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(d),
+                             dim=-1) @ v
+
+    def ring():
+        flat = [a.reshape(b * h, t, d) for a in (q, k, v)]
+        return ring_attention(*flat, mesh=mesh).reshape(b, h, t, d)
+
+    def uly():
+        return ulysses_attention(q, k, v, mesh=mesh)
+
+    with torch.no_grad():
+        want = plain()
+        errs = {name: (fn() - want).abs().max().item()
+                for name, fn in (("ring", ring), ("ulysses", uly))}
+        times = {f"{name}_ms": cuda_ms(fn, iters=5) for name, fn in (
+            ("ring", ring), ("ulysses", uly), ("plain", plain))}
+    problems = [f"{name} attention off the plain one by {e}"
+                for name, e in errs.items()
+                if not (math.isfinite(e) and e <= SP_ATTN_TOL)]
+    return problems, {"shape": sh, "dtype": "float32", "max_abs_err": errs,
+                      "tol": SP_ATTN_TOL, **times}
+
+
+def parallel_moe_phase(dev, smi):
+    """A Switch-Base-8-width MoE network (``_moe_conf``) trained through
+    ``ParallelWrapper(net, mesh=make_mesh())`` at world 1: 8 captured
+    steps, counted, held bit for bit to ``net.fit`` from the same start
+    (one rank runs the network's own step), to ``helper_mode="generic"``
+    by the one-ulp yardstick (``_rnn_agreement``), one updater launch a
+    step, the first loss equal to the data loss plus the layer's aux loss
+    at the start, ``_dropped_frac`` in [0, 1]; then sequence-parallel
+    attention at world 1. Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
+
+    t_phase = time.perf_counter()
+    rows = MOE_TOKENS[0] * MOE_TOKENS[1]
+    rng = np.random.default_rng(26)
+    batches = [DataSet(
+        rng.standard_normal((rows, MOE_WIDTH["d_model"])).astype(np.float32),
+        np.eye(MOE_CLASSES, dtype=np.float32)[rng.integers(
+            0, MOE_CLASSES, rows)]) for _ in range(MOE_STEPS)]
+    net = tnn.MultiLayerNetwork(_moe_conf(), device=dev).init()
+    pw = ParallelWrapper(net, mesh=make_mesh(device=dev))
+
+    def pw_fit(ds):
+        pw.fit([ds])
+
+    observe.reset()
+    start = (_clone_tree(net.params), _clone_tree(net.opt_state),
+             _clone_tree(net.net_state))
+    _mln_run(net, start, "auto", batches[:1], fit=pw_fit)  # the capture
+    generic = _mln_run(net, start, "generic", batches, fit=pw_fit)
+    yard = _mln_run(net, start, "generic", batches, nudge=True, fit=pw_fit)
+    own = _mln_run(net, start, "auto", batches)            # net.fit
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    kernel = _mln_run(net, start, "auto", batches, fit=pw_fit)  # main path
+    counts = _read_counters()                                    # ... ends
+    peak = torch.cuda.max_memory_allocated()
+    moe_state = {k: float(v) for k, v in net.net_state[1].items()}
+    unit = net._steps.units["train"]
+
+    problems, agree = _rnn_agreement(start, generic, kernel, yard)
+    if kernel[0] != own[0] or not _equal_trees(kernel[-1], own[-1]):
+        problems.append(f"ParallelWrapper at world 1 differs from net.fit: "
+                        f"losses {kernel[0]} vs {own[0]}, state by "
+                        f"{_max_diff(kernel[-1], own[-1])}")
+    if counts["fused_updater"] != MOE_STEPS:
+        problems.append(f"fused_updater launches {counts['fused_updater']}"
+                        f" != {MOE_STEPS} (one group a step)")
+    if unit.captures != 1 or unit.moved:
+        problems.append(f"train unit: {unit.captures} captures, "
+                        f"{unit.moved} moved (one capture, replayed)")
+    # the first step's loss: the data loss plus the aux loss at the start
+    with torch.no_grad():
+        ds = batches[0]
+        out, st = net._forward(start[0], start[2], net._feed(ds.features),
+                               None, train=True, rng=None)
+        data_loss = float(net._loss_fn(out, net._feed(ds.labels), None))
+        aux0 = float(st[1]["_aux_loss"])
+    if not (aux0 > 0 and abs(kernel[0][0] - (data_loss + aux0))
+            <= 1e-5 * abs(kernel[0][0])
+            and abs(kernel[0][0] - data_loss) > 0.5 * aux0):
+        problems.append(f"first loss {kernel[0][0]} is not the data loss "
+                        f"{data_loss} + aux {aux0}")
+    if not 0.0 <= moe_state["_dropped_frac"] <= 1.0:
+        problems.append(f"_dropped_frac {moe_state['_dropped_frac']}")
+    more, attention = _sequence_parallel_attention(dev)
+    problems += more
+    p50 = float(np.percentile(kernel[1], 50))
+    line = {"phase": "parallel_moe", "card": smi,
+            "model": "google/switch-base-8 sparse FFN widths",
+            "widths": MOE_WIDTH, "rows_a_step": rows,
+            "tokens": f"{MOE_TOKENS[0]} x {MOE_TOKENS[1]}",
+            "steps": MOE_STEPS, "dtype": "float32", "updater": "Adam 1e-3",
+            "params": net.num_params(), "mesh": {"data": 1},
+            "step_p50_ms": p50 * 1e3, "tokens_per_s": rows / p50,
+            "aux_loss": moe_state["_aux_loss"], "aux_loss_step1": aux0,
+            "data_loss_step1": data_loss,
+            "dropped_frac": moe_state["_dropped_frac"],
+            "peak_memory_mib": peak / 2 ** 20,
+            "losses": kernel[0], "losses_net_fit": own[0],
+            "bit_equal_net_fit": kernel[0] == own[0],
+            "launches": {k: v for k, v in counts.items() if v},
+            "graph_unit": unit_memory(unit), "vs_generic": agree,
+            "attention": attention,
+            "seconds": time.perf_counter() - t_phase, "problems": problems}
+    del net, pw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems, line, {"fused_updater": counts["fused_updater"]}
+
+
+def parallel_inference_phase(dev, smi):
+    """The zoo ResNet-50 (224×224×3, 1000 classes, float32; its batch-norm
+    statistics set from one batch) served by
+    ``ParallelInference(net, max_batch=32, window_ms=3.0)``: after one
+    warm request, 4 client threads send 64 requests of 1–8 images. Every
+    reply must equal ``net.output`` of its own rows, and ``output(x)`` of
+    all the rows ``net.output`` of them, within PI_YARDSTICK × the
+    largest change one ulp on the input makes to ``net.output``; the
+    padded forward captured once and replayed for every batch. Returns
+    (problems, line)."""
+    import threading
+
+    import torch
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    t_phase = time.perf_counter()
+    net = ResNet50(num_classes=CLASSES, input_shape=IMAGE, device=dev).init()
+    rng = np.random.default_rng(28)
+    # the random network's batch-norm running statistics from train-mode
+    # forwards of one batch (weights untouched): with the initial (0, 1)
+    # every softmax row is one class at probability 1, and the replies
+    # could not tell rows apart
+    calib = {net.conf.network_inputs[0]: torch.from_numpy(
+        rng.standard_normal((PI_MAX_BATCH,) + IMAGE).astype(
+            np.float32)).to(dev)}
+    with torch.no_grad():
+        for _ in range(PI_CALIBRATION):
+            _, net.net_state = net._forward(net.params, net.net_state, calib,
+                                            None, train=True)
+    sizes = rng.integers(PI_IMAGES[0], PI_IMAGES[1] + 1, PI_REQUESTS)
+    requests = [rng.standard_normal((int(n),) + IMAGE).astype(np.float32)
+                for n in sizes]
+    observe.reset()
+    pi = ParallelInference(net, max_batch=PI_MAX_BATCH,
+                           window_ms=PI_WINDOW_MS).start()
+    replies = [None] * PI_REQUESTS
+    latency = [0.0] * PI_REQUESTS
+    try:
+        pi.predict(requests[0][:1])  # the warm request: the capture
+
+        def client(c):
+            for i in range(c, PI_REQUESTS, PI_CLIENTS):
+                t0 = time.perf_counter()
+                replies[i] = pi.predict(requests[i])
+                latency[i] = time.perf_counter() - t0
+
+        m = observe.metrics()
+        b0 = m.counter("dl4j_tpu_serving_batches_total").value
+        r0 = m.counter("dl4j_tpu_serving_rows_total").value
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(PI_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        batches = m.counter("dl4j_tpu_serving_batches_total").value - b0
+        served = m.counter("dl4j_tpu_serving_rows_total").value - r0
+    finally:
+        pi.stop()
+    problems = []
+    if any(t.is_alive() for t in threads) or any(r is None for r in replies):
+        problems.append("clients did not finish")
+    every = np.concatenate(requests)
+    with torch.no_grad():
+        want_all = _first_output(net.output(every))
+        yard = float(np.abs(_first_output(net.output(np.nextafter(
+            every, np.float32(np.inf)))) - want_all).max())
+        direct = pi.output(every)
+        errs = [float(np.abs(r - _first_output(net.output(x))).max())
+                for x, r in zip(requests, replies) if r is not None]
+    limit = PI_YARDSTICK * yard
+    direct_err = float(np.abs(direct - want_all).max())
+    if not (yard > 0 and max(errs, default=np.inf) <= limit
+            and direct_err <= limit):
+        problems.append(f"replies off net.output by {max(errs, default=0)}, "
+                        f"output(x) by {direct_err} (limit {limit})")
+    ledger = [ev.cause for ev in observe.ledger().events()
+              if ev.graph == "parallel" and ev.key == "serve"]
+    if pi.unit.captures != 1 or ledger != ["first_compile"]:
+        problems.append(f"serve unit: {pi.unit.captures} captures, ledger "
+                        f"{ledger} (one capture, replayed)")
+    images = int(sizes.sum())
+    line = {"phase": "parallel_inference", "card": smi,
+            "model": "zoo ResNet-50", "input": list(IMAGE),
+            "classes": CLASSES, "dtype": "float32",
+            "max_batch": PI_MAX_BATCH, "window_ms": PI_WINDOW_MS,
+            "clients": PI_CLIENTS, "requests": PI_REQUESTS,
+            "images": images, "wall_s": wall,
+            "requests_per_s": PI_REQUESTS / wall, "images_per_s":
+                images / wall,
+            "request_p50_ms": float(np.percentile(latency, 50)) * 1e3,
+            "request_p99_ms": float(np.percentile(latency, 99)) * 1e3,
+            "batches": int(batches), "rows_served": int(served),
+            "batch_occupancy": served / max(1, batches * PI_MAX_BATCH),
+            "reply_max_abs_err": max(errs, default=None),
+            "output_max_abs_err": direct_err, "yardstick_1ulp": yard,
+            "limit": limit, "ledger": ledger,
+            "max_probability": float(want_all.max()),
+            "classes_predicted": int(len(np.unique(want_all.argmax(-1)))),
+            "graph_unit": unit_memory(pi.unit),
+            "seconds": time.perf_counter() - t_phase, "problems": problems}
+    del net, pi
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems, line
+
+
 def _to(tree, device):
     """A parameter tree with every tensor copied to ``device``."""
     from deeplearning4j_tpu_torch.models._tree import map_tree
@@ -8457,6 +8747,17 @@ def main() -> int:
     emit(line)
     if problems:
         raise SystemExit(f"nn_layer_types phase failed: {problems}")
+
+    # ------------------------------------- parallel_moe, parallel_inference
+    problems, line, train_launches["parallel_moe"] = parallel_moe_phase(
+        dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"parallel_moe phase failed: {problems}")
+    problems, line = parallel_inference_phase(dev, smi)
+    emit(line)
+    if problems:
+        raise SystemExit(f"parallel_inference phase failed: {problems}")
 
     # ------------------------------------------------------ aot_warm_boot
     t_aot = time.perf_counter()

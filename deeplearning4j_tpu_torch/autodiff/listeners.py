@@ -4,7 +4,7 @@ Counterpart of ``deeplearning4j_tpu/autodiff/listeners.py`` (nd4j
 autodiff/listeners/**: records/History.java + HistoryListener). ``fit``
 calls ``iteration_done(model, iteration, epoch, loss)`` after every step
 and ``fit_done(model)`` after the last. ``UIListener`` waits for the UI
-server's port (ROADMAP.md, Queue 1 item 9).
+server's port (ROADMAP.md, Queue 1 item 10).
 """
 
 from __future__ import annotations

@@ -55,8 +55,8 @@ FAULTS_ENV = "DL4J_TPU_FAULTS"
 #:                         inside the async checkpoint writer
 #:                         (parallel/checkpoint.py)         -> raise
 #:   checkpoint_torn_write parallel/checkpoint.py save      -> truncate file
-#:   backend_init_fail     (the JAX package's ParallelInference; no port
-#:                         call site yet)
+#:   backend_init_fail     parallel/mesh.py ParallelInference start and
+#:                         _run_batch                       -> raise
 #:   burst_arrival         serving/frontend.py submit       -> inject a
 #:                         burst of lowest-class arrivals
 #:   preemption            the fit loops (MultiLayerNetwork,

@@ -35,6 +35,7 @@ from deeplearning4j_tpu_torch.nn.conf import (  # the last layer types
     RecurrentAttentionLayer, SameDiffLayer, SelfAttentionLayer,
     VariationalAutoencoder, Yolo2OutputLayer, dl4j_drop_out,
 )
+from deeplearning4j_tpu_torch.nn.conf import MoELayer  # the parallel slice
 from deeplearning4j_tpu_torch.nn.earlystopping import (
     EarlyStoppingConfiguration, EarlyStoppingResult, EarlyStoppingTrainer,
     EpochTerminationCondition, InMemoryModelSaver,
@@ -65,6 +66,10 @@ from deeplearning4j_tpu_torch.nn.transfer import (
 from deeplearning4j_tpu_torch.nn.updater import (
     UPDATERS, AdaDelta, AdaGrad, AdaMax, Adam, AmsGrad, Frozen, Nadam,
     Nesterovs, NoOp, RmsProp, Sgd, get_updater,
+)
+from deeplearning4j_tpu_torch.nn.updater import (  # the schedules
+    CycleSchedule, ExponentialSchedule, InverseSchedule, MapSchedule,
+    PolySchedule, Schedule, SigmoidSchedule, StepSchedule,
 )
 
 __all__ = [
@@ -102,6 +107,9 @@ __all__ = [
     "MultiLayerNetwork", "restore_model", "restore_normalizer", "save_model",
     "UPDATERS", "AdaDelta", "AdaGrad", "AdaMax", "Adam", "AmsGrad", "Frozen",
     "Nadam", "Nesterovs", "NoOp", "RmsProp", "Sgd", "get_updater",
+    "CycleSchedule", "ExponentialSchedule", "InverseSchedule",
+    "MapSchedule", "PolySchedule", "Schedule", "SigmoidSchedule",
+    "StepSchedule", "MoELayer",
     "CapsuleLayer", "CapsuleStrengthLayer", "CenterLossOutputLayer",
     "CnnLossLayer", "ElementWiseMultiplicationLayer",
     "FrozenLayerWithBackprop", "LearnedSelfAttentionLayer", "MaskLayer",

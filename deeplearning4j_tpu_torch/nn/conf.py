@@ -362,6 +362,34 @@ class ActivationLayer(LayerConf):
 
 
 @dataclasses.dataclass(frozen=True)
+class MoELayer(LayerConf):
+    """Mixture-of-experts FFN layer (GShard / Switch routing), JAX
+    ``nn/conf.py:386``: ``n_experts`` expert MLPs ``n_in → d_hidden →
+    n_in``, each token routed to its ``top_k`` experts (1: Switch, 2:
+    GShard) with capacity C = ceil(cf·S·k/E) a expert over the S tokens of
+    the global batch; an assignment past capacity is dropped, and a token
+    whose every assignment is dropped passes through unchanged. The layer
+    state carries ``_aux_loss`` (the Switch load-balance loss times
+    ``aux_weight``, added to the training loss) and ``_dropped_frac``.
+    Under ``ParallelWrapper`` with ``moe_ep_rules()`` each rank holds
+    ``n_experts / n`` experts and tokens reach them by all-to-all
+    (``nn/moe_layer.py``)."""
+
+    n_in: int = 0
+    d_hidden: int = 0
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    aux_weight: float = 1e-2
+
+    def output_type(self, itype):
+        return itype
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
 class FusedBottleneck(LayerConf):
     """ResNet v1 bottleneck as one layer: 1×1 → BN+relu → 3×3 → BN+relu →
     1×1 → BN → (+shortcut) → relu, arranged so the two 1×1 convs run
@@ -1420,7 +1448,7 @@ LAYER_TYPES = {c.__name__: c for c in [
     VariationalAutoencoder, CnnLossLayer, MaskLayer,
     ElementWiseMultiplicationLayer, FrozenLayerWithBackprop,
     CenterLossOutputLayer, Yolo2OutputLayer, PrimaryCapsules, CapsuleLayer,
-    CapsuleStrengthLayer, SameDiffLayer]}
+    CapsuleStrengthLayer, SameDiffLayer, MoELayer]}
 
 # the conv-family layers a flat convolutional input is reshaped for
 # (``_adapt``'s FeedForwardToCnnPreProcessor)

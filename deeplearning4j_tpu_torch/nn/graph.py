@@ -76,6 +76,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     evaluate_batches, flatten_trees, grad_tree, init_opt_state, reg_penalty,
     unflatten_trees)
 from deeplearning4j_tpu_torch.nn.updater import Adam, Updater, get_updater
+from deeplearning4j_tpu_torch.ops import collectives
 from deeplearning4j_tpu_torch.ops.losses import get_loss
 
 # ---------------------------------------------------------------------------
@@ -805,7 +806,9 @@ class ComputationGraph:
         donate = donates(self.device)
         with DT.precision_scope(self.conf.dtype):
             with torch.enable_grad():
-                params = {n: autograd_leaves(self.params[n]) for n in names}
+                leaves = {n: autograd_leaves(self.params[n]) for n in names}
+                # the leaves a ParallelWrapper rank holds sharded, whole
+                params = collectives.forward_params(leaves)
                 res = self._forward(params, self.net_state, feeds, fmasks,
                                     train=True, rng=self._gen,
                                     rnn_states=rnn_states)
@@ -813,11 +816,13 @@ class ComputationGraph:
                 loss = self._losses(acts, labels, lmasks)
                 if rnn_states is None:  # the JAX tBPTT loss has no aux
                     loss = loss + aux_losses(new_state, self.device)
-                g = grad_tree(loss, params)
+                g = collectives.reduce_gradients(grad_tree(loss, leaves))
             with torch.no_grad():
-                score = loss.detach() + reg_penalty(
-                    self.conf, ((self.params[n], self.layers[n].lc)
-                                for n in names), self.device)
+                score = collectives.mean_loss(loss.detach()) + reg_penalty(
+                    self.conf, ((_tree().map_tree(torch.Tensor.detach,
+                                                  params[n]),
+                                 self.layers[n].lc) for n in names),
+                    self.device)
                 updated = apply_layer_updates(
                     self.conf,
                     ((self.params[n], g[n], self.opt_state[n],
@@ -871,8 +876,9 @@ class ComputationGraph:
                 **{f"y.{k}": v for k, v in labels.items()},
                 **{f"fm.{k}": v for k, v in (fmasks or {}).items()},
                 **{f"lm.{k}": v for k, v in (lmasks or {}).items()}),
-            eager_reason=mask_routing(self.layers.values(),
-                                      (fmasks or {}).values()))
+            eager_reason=(mask_routing(self.layers.values(),
+                                       (fmasks or {}).values())
+                          or collectives.routing()))
         self._steps.iteration.advanced()
         if rnn_states is None:
             return out

@@ -1791,6 +1791,11 @@ def build_layer(net_conf: C.MultiLayerConfiguration, lc: C.LayerConf,
             FusedBottleneckImpl)
         LAYER_IMPLS[C.FusedBottleneck] = FusedBottleneckImpl
         impl = FusedBottleneckImpl
+    if impl is None and type(lc) is C.MoELayer:
+        # registered late, as the JAX package does (nn/layers.py:1853)
+        from deeplearning4j_tpu_torch.nn.moe_layer import MoELayerImpl
+        LAYER_IMPLS[C.MoELayer] = MoELayerImpl
+        impl = MoELayerImpl
     if impl is None:
         raise ValueError(f"no runtime impl for layer config "
                          f"{type(lc).__name__}")

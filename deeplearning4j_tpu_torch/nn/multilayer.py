@@ -69,6 +69,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     BidirectionalImpl, Layer, apply_preprocessor, build_layer)
 from deeplearning4j_tpu_torch.nn.listeners import (
     TrainingListener, notify_fit_done, notify_iteration, notify_preemption)
+from deeplearning4j_tpu_torch.ops import collectives
 from deeplearning4j_tpu_torch.ops.losses import get_loss
 
 WEIGHT_KEYS = {"W", "RW", "dW", "pW", "Wq", "Wk", "Wv", "Wo"}
@@ -234,8 +235,8 @@ def apply_layer_updates(conf, items, step, *, inplace: bool = False):
 
 def aux_losses(new_state, device=None) -> torch.Tensor:
     """Sum the differentiable side losses layers keep in their state under
-    ``_aux_loss`` (none on the ported layers), from a zero on ``device``
-    (the step's: no host constant enters a captured step)."""
+    ``_aux_loss`` (a ``MoELayer``'s load-balance loss), from a zero on
+    ``device`` (the step's: no host constant enters a captured step)."""
     states = new_state.values() if isinstance(new_state, dict) else new_state
     total = torch.zeros((), device=device)
     for st in states:
@@ -504,7 +505,9 @@ class MultiLayerNetwork:
                  else (contextlib.nullcontext, contextlib.nullcontext))
         with DT.precision_scope(self.conf.dtype):
             with scope[0]():
-                params = autograd_leaves(self.params)
+                leaves = autograd_leaves(self.params)
+                # the leaves a ParallelWrapper rank holds sharded, whole
+                params = collectives.forward_params(leaves)
                 center = (rnn_states is None and isinstance(
                     self.conf.layers[-1], C.CenterLossOutputLayer))
                 res = self._forward(
@@ -518,11 +521,12 @@ class MultiLayerNetwork:
                 else:
                     loss = self._loss_fn(out, y, lmask) + aux_losses(
                         new_state, self.device)
-                grads = grad_tree(loss, params)
+                grads = collectives.reduce_gradients(grad_tree(loss, leaves))
             with scope[1]():
-                score = loss.detach() + reg_penalty(
-                    self.conf, zip(self.params, self.conf.layers),
-                    self.device)
+                score = collectives.mean_loss(loss.detach()) + reg_penalty(
+                    self.conf, zip(_tree().map_tree(torch.Tensor.detach,
+                                                    params),
+                                   self.conf.layers), self.device)
                 updated = apply_layer_updates(
                     self.conf, zip(self.params, grads, self.opt_state,
                                    self.updaters, self.conf.layers), step,
@@ -579,7 +583,8 @@ class MultiLayerNetwork:
             "train" if rnn_states is None else "train_tbptt", body,
             args + rnn_flat, layout=layout, state=self._donated(),
             signature=signature,
-            eager_reason=mask_routing(self.layers, (fmask,)))
+            eager_reason=(mask_routing(self.layers, (fmask,))
+                          or collectives.routing()))
         self._steps.iteration.advanced()
         if rnn_states is None:
             return out, None

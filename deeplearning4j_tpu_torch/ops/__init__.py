@@ -17,9 +17,15 @@ import.
 """
 
 from deeplearning4j_tpu_torch.ops import (  # noqa: F401
-    bitwise, compression, image_ops, linalg_ops, misc_ops, nn_cases, nn_ops,
-    quantized, random, reductions, scatter, shape_ops, transforms, validation,
+    activations, bitwise, compression, image_ops, linalg_ops, losses,
+    misc_ops, nn_cases, nn_ops, quantized, random, reductions, scatter,
+    shape_ops, transforms, tuning, validation, weight_init,
 )
+from deeplearning4j_tpu_torch.ops.activations import (
+    ACTIVATIONS, get_activation,
+)
+from deeplearning4j_tpu_torch.ops.losses import LOSSES, get_loss
+from deeplearning4j_tpu_torch.ops.weight_init import init_weights
 from deeplearning4j_tpu_torch.ops.cuda_attention import (
     register_platform_attention,
 )
@@ -49,4 +55,7 @@ register_platform_fused_layernorm()
 register_platform_quantized()
 register_platform_lstm()
 
-__all__ = ["OpDescriptor", "OpRegistry", "exec_op", "op", "registry"]
+__all__ = ["OpDescriptor", "OpRegistry", "exec_op", "op", "registry",
+           "tuning", "nn_ops", "activations", "losses", "random",
+           "compression", "weight_init", "get_activation", "ACTIVATIONS",
+           "get_loss", "LOSSES", "init_weights"]

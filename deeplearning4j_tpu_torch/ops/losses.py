@@ -13,14 +13,23 @@ from typing import Callable, Dict
 
 import torch
 
+from deeplearning4j_tpu_torch.ops import collectives
 
 def _apply_mask_and_mean(per_example, mask):
-    """per_example: [B] or [B,T] score per example; mask broadcastable."""
+    """per_example: [B] or [B,T] score per example; mask broadcastable.
+    Inside a ``ParallelWrapper`` step over D data ranks the masked mean
+    divides by the global count of unmasked entries, times D: the mean of
+    the ranks' losses is then the global batch's."""
     if mask is not None:
         m = mask.to(per_example.dtype)
         while m.ndim > per_example.ndim:
             m = m.squeeze(-1)
         per_example = per_example * m
+        ranks = collectives.data_size()
+        if ranks > 1:
+            count = collectives.data_sum(torch.sum(m).detach())
+            return ranks * torch.sum(per_example) / torch.clamp_min(count,
+                                                                    1.0)
         return torch.sum(per_example) / torch.clamp_min(torch.sum(m), 1.0)
     return torch.mean(per_example)
 

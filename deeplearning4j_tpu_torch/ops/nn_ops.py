@@ -58,6 +58,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.ops import collectives
 from deeplearning4j_tpu_torch.ops.reductions import dims
 from deeplearning4j_tpu_torch.ops.registry import op
 from deeplearning4j_tpu_torch.ops.transforms import inexact
@@ -378,15 +379,29 @@ def batch_norm_train(x, gamma, beta, running_mean, running_var, *,
     (1−momentum)·batch_stat, with the unbiased (n/(n−1)) batch variance.
     Statistics are taken in at least float32; the running buffers keep
     their own dtype. The channel-last case (the layer path) runs
-    :class:`_BNCore`; other axes take autograd of the plain math."""
-    if tuple(axis) == tuple(range(x.ndim - 1)):
+    :class:`_BNCore`; other axes take autograd of the plain math. Inside
+    a ``ParallelWrapper`` step over several data ranks the statistics are
+    the global batch's (SyncBatchNorm): the sums of x and of (x − mean)²
+    all-reduced, differentiably, over the data ranks."""
+    ranks = collectives.data_size()
+    if ranks > 1:
+        xf = x.to(_stat_dtype(x.dtype))
+        ax = tuple(axis)
+        total = ranks * math.prod(x.shape[d] for d in ax)
+        mean = collectives.data_sum(torch.sum(xf, dim=ax,
+                                              keepdim=True)) / total
+        var = collectives.data_sum(torch.sum((xf - mean) ** 2, dim=ax,
+                                             keepdim=True)) / total
+        mean, var = mean.squeeze(ax), var.squeeze(ax)
+        out = batchnorm.fn(x, mean, var, gamma, beta, eps=eps)
+    elif tuple(axis) == tuple(range(x.ndim - 1)):
         out, mean, var = _BNCore.apply(x, gamma, beta, running_mean, eps)
     else:
         xf = x.to(_stat_dtype(x.dtype))
         mean = torch.mean(xf, dim=tuple(axis))
         var = torch.var(xf, dim=tuple(axis), correction=0)
         out = batchnorm.fn(x, mean, var, gamma, beta, eps=eps)
-    n = x.numel() // mean.numel()
+    n = x.numel() // mean.numel() * ranks
     unbiased = var * n / max(n - 1, 1)
     rdt = running_mean.dtype
     new_mean = (momentum * running_mean

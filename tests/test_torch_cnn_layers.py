@@ -251,10 +251,12 @@ def test_layer_json_crosses_both_ways(name):
 
 
 def test_unported_types_are_still_refused_by_name():
-    """The two layer types the port has not ported (MoELayer: parallelism;
-    DuelingQLayer: reinforcement learning) are refused by name."""
+    """The one layer type the port has not ported (DuelingQLayer:
+    reinforcement learning) is refused by name; MoELayer, ported with the
+    parallel package, is not."""
+    assert "MoELayer" in tnn.conf.LAYER_TYPES
     text = _jax_conf("Upsampling2D").to_json()
-    for name in ("MoELayer", "DuelingQLayer"):
+    for name in ("DuelingQLayer",):
         bad = text.replace('"@type": "Upsampling2D"', f'"@type": "{name}"')
         with pytest.raises(ValueError, match=f"'{name}' is not ported"):
             tnn.MultiLayerConfiguration.from_json(bad)

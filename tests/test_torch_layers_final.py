@@ -257,10 +257,9 @@ def test_dl4j_drop_out_matches_jax():
 
 
 def test_layer_types_are_the_jax_ones_but_two():
-    """Every JAX layer type is ported except MoELayer (parallelism) and
-    DuelingQLayer (reinforcement learning)."""
-    assert set(JC.LAYER_TYPES) - set(TC.LAYER_TYPES) == {"MoELayer",
-                                                         "DuelingQLayer"}
+    """Every JAX layer type is ported except DuelingQLayer (reinforcement
+    learning); MoELayer came with the parallel package."""
+    assert set(JC.LAYER_TYPES) - set(TC.LAYER_TYPES) == {"DuelingQLayer"}
     assert set(TC.LAYER_TYPES) <= set(JC.LAYER_TYPES)
 
 
@@ -282,6 +281,6 @@ def test_public_names_hold_the_jax_transfer_and_layer_names():
                   == jtr.__name__}
     assert {"FineTuneConfiguration", "EarlyStoppingTrainer"} <= jax_names
     assert jax_names - set(tnn.__all__) == set()
-    layer_names = set(JC.LAYER_TYPES) - {"MoELayer", "DuelingQLayer"}
+    layer_names = set(JC.LAYER_TYPES) - {"DuelingQLayer"}
     assert {n for n in layer_names if hasattr(jnn, n)} <= set(tnn.__all__) \
         | {n for n in layer_names if hasattr(tnn, n)}
