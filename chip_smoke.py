@@ -483,6 +483,39 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    updater launches, the exported step against the plain step. Each
    leg's process-start-to-first-output seconds, each entry's bytes, the
    export and load seconds.
+22. ``rl_dqn`` — RL4J's DQN on bsuite Catch (84 × 84 × 4 frames from
+   ``testing/rl_envs``): the Nature-DQN trunk under a ``DuelingQLayer``
+   head (~1.7M parameters), ``QLearningDiscrete`` (Adam 6.25e-5, double
+   DQN, γ 0.99, batch 32; replay 10,000, warm-up 500, target sync every
+   500, cut from the paper's). One TD step on a fixed minibatch from the
+   same parameters against ``helper_mode="generic"`` and against the
+   port's CPU run (the one-ulp yardstick), one updater launch; Q − (V +
+   A − mean A) on the card's output; the target network a copy a TD step
+   does not move. Then, counts set to 0 just before, 2,000 environment
+   steps: one ``fused_updater`` launch a TD step; environment steps/s,
+   the TD step's device p50 (CUDA events), the Q forward's, peak memory,
+   the mean return of the last 50 episodes.
+22a. ``rl_a3c`` — ``A3CDiscrete`` on 16 Catch environments, t_max 5, the
+   2013 Atari trunk in the policy (softmax 3) and value (linear 1)
+   networks: one update on a fixed rollout against generic and the CPU
+   (2 updater launches), then 100 rollouts counted: 2 ``fused_updater``
+   launches an update; batches/s, the update's device p50.
+22b. ``word2vec`` — SGNS on ~2M seeded Zipf(1.0) tokens over 100k types
+   (V printed) at D 300, window 5, negative 5, subsample 1e-3, batch 512:
+   the epoch's first 20 batches from the same vectors on the card and the
+   CPU (1e-5 of the matrix's largest value), one epoch of ``fit`` (the
+   loss falls), mining seconds, pairs/s, the step's device p50 and the
+   part of it the full-matrix zero buffers take, peak memory, a binary
+   serde round trip of the card's vectors; then 200 hierarchical-softmax
+   batches.
+22c. ``glove`` — GloVe on 500k seeded tokens (D 300, window 10, x_max
+   100, α 0.75, batch 4096, 2 epochs): the table's nonzeros and build
+   seconds, the first 20 AdaGrad batches on the card against the CPU,
+   pairs/s, the batch's device p50, peak memory.
+22d. ``paragraph_vectors`` — PV-DBOW on 10,000 seeded labelled documents
+   of 100 tokens (D 300, batch 2048, one epoch): documents/s, the step's
+   device p50; ``infer_vector`` on 8 unseen documents twice with one
+   seed, equal bit for bit.
 
 Every training phase (5–8, 10, 12–17) runs its steps as CUDA-graph
 training units (``nn/compiled.py``): the warm-up captures each step key,
@@ -749,6 +782,41 @@ PI_IMAGES = (1, 8)
 PI_YARDSTICK = 3.0
 PI_CALIBRATION = 64     # train-mode forwards setting the BN statistics
 
+
+# rl_dqn: the Nature-DQN trunk (Mnih et al., 2015) under the DuelingQLayer
+# head on bsuite Catch rendered 84 x 84 x 4; Adam 6.25e-5, double DQN,
+# gamma 0.99, batch 32; the replay, warm-up, target period and run cut
+# from 1M / 50k / 10k / 50M frames
+RL_DQN = dict(replay=10_000, start_size=500, target_sync=500,
+              env_steps=2_000, batch=32, lr=6.25e-5, gamma=0.99,
+              eps_anneal=1_000)
+# rl_a3c: A3CDiscrete on 16 Catch environments, t_max 5 (Mnih et al.,
+# 2016), the 2013 Atari trunk (Mnih et al., 2013) in both networks
+RL_A3C = dict(n_envs=16, n_steps=5, batches=100, lr=1e-4)
+# a fixed-input update is held to helper_mode="generic" on the card, and
+# the port's CPU run to the card's generic run, by the one-ulp yardstick
+# (RNN_*)
+# word2vec: ~2M Zipf(1.0) tokens over 100k types (cut from text8's 17M),
+# SGNS at D 300, window 5, negative 5, subsample 1e-3, lr 0.025, batch
+# 512 (the JAX defaults), one epoch; then hierarchical softmax for
+# W2V_HS_BATCHES batches
+W2V = dict(tokens=2_000_000, types=100_000, dim=300, window=5, negative=5,
+           subsample=1e-3, lr=0.025, batch=512)
+W2V_HS_BATCHES = 200
+# glove: 500k tokens (cut: the host co-occurrence pass), D 300, window
+# 10, x_max 100, alpha 0.75, symmetric, batch 4096, 2 epochs (cut from 25)
+GLOVE = dict(tokens=500_000, types=100_000, dim=300, window=10,
+             x_max=100.0, alpha=0.75, batch=4096, epochs=2)
+# paragraph_vectors: 10,000 labelled documents of 100 tokens, PV-DBOW at
+# D 300, batch 2048, one epoch (cut from 5)
+PV = dict(docs=10_000, doc_len=100, types=100_000, topics=50, dim=300,
+          batch=2048, epochs=1, infer_docs=8)
+# the embeddings' first EMB_CHECK_BATCHES batches on the card against the
+# port's CPU run of the same start and inputs: index_add_ adds a row's
+# duplicates in another order on the card (float32), relative to the
+# largest absolute value of the matrix
+EMB_CHECK_BATCHES = 20
+EMB_CPU_TOL = 1e-5
 
 # the sequential phases' widths and data: testing/sequential.py
 LENET_PARAMS = 431080   # 520 + 25,050 + 400,500 + 5,010
@@ -8301,6 +8369,649 @@ def export_bindings_phase(dev, smi, int8):
     return problems, line, restored_counts
 
 
+class _StepTimer:
+    """Per-call times of a function wrapped by :meth:`wrap`: device time
+    from CUDA events around each call on the card (read once, at the end:
+    no host synchronization a call), host time on the CPU; and the host
+    seconds from the first call's start to the last call's end."""
+
+    def __init__(self, dev):
+        self.cuda = dev.type == "cuda"
+        self.marks = []
+        self.t_first = self.t_last = None
+
+    def wrap(self, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            if self.t_first is None:
+                self.t_first = t0
+            if self.cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                self.marks.append((start, end))
+            else:
+                out = fn(*args, **kwargs)
+                self.marks.append(time.perf_counter() - t0)
+            self.t_last = time.perf_counter()
+            return out
+
+        return timed
+
+    def ms(self) -> list:
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+            return [s.elapsed_time(e) for s, e in self.marks]
+        return [m * 1e3 for m in self.marks]
+
+    def p50(self) -> float:
+        return float(np.percentile(self.ms(), 50)) if self.marks else 0.0
+
+
+@contextlib.contextmanager
+def _patched(module, name, wrapper):
+    """``module.name`` replaced by ``wrapper(module.name)`` inside."""
+    orig = getattr(module, name)
+    setattr(module, name, wrapper(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _peak_reset(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_mb(dev):
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 20
+
+
+def _dev_ms(fn, dev, iters: int = 10) -> float:
+    """Device time of one call of ``fn`` on the card (:func:`cuda_ms`);
+    host time on the CPU (a rehearsal)."""
+    if dev.type == "cuda":
+        return cuda_ms(fn, iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _catch_minibatch(n: int, seed: int):
+    """``n`` Catch transitions (s, a, r, s2, done) under random actions,
+    as the replay stores them."""
+    from deeplearning4j_tpu_torch.testing.rl_envs import CatchPixels
+
+    rng = np.random.RandomState(seed)
+    mdp = CatchPixels(seed=seed)
+    obs = mdp.reset()
+    s, a, r, s2, d = [], [], [], [], []
+    while len(s) < n:
+        act = int(rng.randint(3))
+        nxt, rew, done = mdp.step(act)
+        s.append(obs)
+        a.append(act)
+        r.append(rew)
+        s2.append(nxt)
+        d.append(float(done))
+        obs = mdp.reset() if done else nxt
+    return (np.stack(s), np.asarray(a, np.int32), np.asarray(r, np.float32),
+            np.stack(s2), np.asarray(d, np.float32))
+
+
+def _fixed_update_runs(nets, start, update, dev, seed):
+    """One update from ``start`` (a list of (params, updater state), one
+    a network) on fixed inputs: the counted kernel run (``auto``), the
+    generic run, the generic run from parameters one ulp away, and the
+    port's run on CPU copies of the networks. ``update(nets)`` returns the
+    loss. Returns (start parameters, kernel, generic, yardstick, CPU
+    runs — each ([loss], None, [parameters a network]) —, the kernel
+    run's launches)."""
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch.environment import environment
+
+    env = environment()
+    cpu = [tnn.MultiLayerNetwork(n.conf, device="cpu").init(
+        params=_to(p, "cpu")) for n, (p, _) in zip(nets, start)]
+
+    def run(targets, mode, nudge=False):
+        env.helper_mode = mode
+        try:
+            for net, (p, s) in zip(targets, start):
+                p0 = _nudged(p, np.random.default_rng(seed)) if nudge else p
+                net.params = _load(net.params, _to(p0, net.device))
+                net.opt_state = _load(net.opt_state, _to(s, net.device))
+                net.iteration_count = 0
+            loss = float(update(targets))
+        finally:
+            env.helper_mode = "auto"
+        return [loss], None, [_to(n.params, dev) for n in targets]
+
+    _zero_counters()
+    kernel = run(nets, "auto")
+    launches = _read_counters()["fused_updater"]
+    generic = run(nets, "generic")
+    yard = run(nets, "generic", nudge=True)
+    on_cpu = run(cpu, "auto")
+    return [p for p, _ in start], kernel, generic, yard, on_cpu, launches
+
+
+def _fixed_update_problems(label, runs, want_launches) -> tuple:
+    """The checks of :func:`_fixed_update_runs`: the kernel run and the
+    CPU run each against the generic run by the one-ulp yardstick
+    (:func:`_rnn_agreement`), the launch count. Returns (problems, line
+    fields)."""
+    first, kernel, generic, yard, on_cpu, launches = runs
+    problems, fields = [], {"launches": launches}
+    if launches != want_launches:
+        problems.append(f"{label}: fused_updater launches {launches} != "
+                        f"{want_launches}")
+    for what, run in (("vs_generic", kernel), ("vs_cpu", on_cpu)):
+        more, fields[what] = _rnn_agreement((first,), generic, run, yard)
+        problems += [f"{label} {what}: {p}" for p in more]
+    fields["loss_cpu"] = on_cpu[0][0]
+    return problems, fields
+
+
+def rl_dqn_phase(dev, smi):
+    """DQN on Catch at the Nature-DQN width (``RL_DQN``): the
+    ``QLearningDiscrete`` learner over ``CatchPixels`` with a
+    ``DuelingQLayer`` head. First one TD step on a fixed minibatch from
+    the same parameters — the card against ``helper_mode="generic"`` and
+    against the port's CPU run (:func:`_fixed_update_problems`), one
+    updater launch; the head's Q − (V + A − mean A) on the card's output;
+    the target network a copy a TD step does not move. Then the main
+    path: ``train_episode`` until ``env_steps`` environment steps, every
+    launch count set to 0 just before; one ``fused_updater`` launch a TD
+    step. Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch import rl
+    from deeplearning4j_tpu_torch.nn.compiled import tensors_of
+    from deeplearning4j_tpu_torch.testing import rl_envs as E
+
+    t_phase = time.perf_counter()
+    cfg = RL_DQN
+    conf = E.conv_q_conf(tnn, learning_rate=cfg["lr"])
+    net = tnn.MultiLayerNetwork(conf, device=dev).init()
+    qcfg = rl.QLearningConfiguration(
+        gamma=cfg["gamma"], batch_size=cfg["batch"],
+        target_update_freq=cfg["target_sync"], start_size=cfg["start_size"],
+        max_replay=cfg["replay"], double_dqn=True,
+        eps_anneal_steps=cfg["eps_anneal"], seed=0)
+    batch = _catch_minibatch(cfg["batch"], seed=5)
+    start = [(_clone_tree(net.params), _clone_tree(net.opt_state))]
+
+    def td(nets):
+        learner = rl.QLearningDiscrete(E.CatchPixels(), nets[0], qcfg)
+        learner.target_params = _to(start[0][0], nets[0].device)
+        return learner.td_step(*batch)
+
+    runs = _fixed_update_runs([net], start, td, dev, seed=21)
+    problems, fixed = _fixed_update_problems("td step", runs, 1)
+    # the dueling head on the card: Q = V + A − mean A, recomputed from
+    # the trunk's output with the head's parameters
+    net.params = _load(net.params, start[0][0])
+    acts = net.feed_forward(batch[0])
+    h = torch.from_numpy(acts[-2]).to(dev)
+    head = net.params[-1]
+    with torch.no_grad():
+        v = h @ head["Wv"] + head["bv"]
+        a = h @ head["Wa"] + head["ba"]
+        q = (v + a - a.mean(-1, keepdim=True)).cpu().numpy()
+    dueling_err = float(np.abs(q - acts[-1]).max())
+    if dueling_err > 1e-6:
+        problems.append(f"Q - (V + A - mean A) = {dueling_err}")
+    # the target is a copy: a TD step after a sync leaves it where it was
+    learner = rl.QLearningDiscrete(E.CatchPixels(), net, qcfg)
+    learner.sync_target()
+    snap = _clone_tree(learner.target_params)
+    learner.td_step(*batch)
+    target_moved = _max_diff(learner.target_params, snap)
+    online_moved = _max_diff(net.params, snap)
+    shared = sum(a.data_ptr() == b.data_ptr() for a, b in zip(
+        tensors_of(net.params), tensors_of(learner.target_params)))
+    if target_moved != 0.0 or online_moved == 0.0 or shared:
+        problems.append(f"target network: moved {target_moved}, online "
+                        f"moved {online_moved}, {shared} shared buffers")
+
+    # ------------------------------------------------ the main path's run
+    net.params = _load(net.params, start[0][0])
+    net.opt_state = _load(net.opt_state, start[0][1])
+    net.iteration_count = 0
+    learner = rl.QLearningDiscrete(E.CatchPixels(seed=1), net, qcfg)
+    timer = _StepTimer(dev)
+    learner.td_step = timer.wrap(learner.td_step)
+    q_host, q_values = [], learner.q_values
+
+    def timed_q(obs):
+        t0 = time.perf_counter()
+        out = q_values(obs)
+        q_host.append(time.perf_counter() - t0)
+        return out
+
+    learner.q_values = timed_q
+    _peak_reset(dev)
+    _zero_counters()                    # the main path's run starts here
+    t0 = time.perf_counter()
+    while learner.total_steps < cfg["env_steps"]:
+        learner.train_episode(max_steps=100)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {"fused_updater": _read_counters()["fused_updater"]}  # ends
+    peak = _peak_mb(dev)
+    td_steps = len(learner.losses)
+    losses = [float(x) for x in learner.losses]
+    if launches["fused_updater"] != td_steps or not td_steps:
+        problems.append(f"fused_updater launches {launches} != {td_steps} "
+                        f"TD steps")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("non-finite TD loss")
+    obs = E.CatchPixels(seed=2).reset()
+    q_fwd_ms = _dev_ms(lambda: net._output_tensor(obs[None]), dev)
+    returns = learner.episode_rewards
+    line = {"phase": "rl_dqn", "card": smi,
+            "model": "Nature-DQN trunk (conv 32 8x8/4, 64 4x4/2, 64 3x3/1, "
+                     "dense 512) + DuelingQLayer(3)",
+            "params": net.num_params(), "env": "bsuite Catch 10x5, "
+            "84x84x4 frames", "config": cfg,
+            "env_steps": learner.total_steps, "td_steps": td_steps,
+            "episodes": len(returns), "launches": launches,
+            "env_steps_per_s": learner.total_steps / wall, "wall_s": wall,
+            "td_step_device_ms_p50": timer.p50(),
+            "q_values_host_ms_p50": float(np.percentile(q_host, 50)) * 1e3,
+            "q_forward_device_ms": q_fwd_ms,
+            "host_syncs_per_env_step": "1 (q_values) + 1 a TD step (the "
+                                       "replay minibatch's upload)",
+            "peak_mb": peak,
+            "mean_return_last_50": float(np.mean(returns[-50:])),
+            "mean_return_first_50": float(np.mean(returns[:50])),
+            "td_loss_first": losses[0] if losses else None,
+            "td_loss_last": losses[-1] if losses else None,
+            "fixed_td_step": fixed, "dueling_max_abs": dueling_err,
+            "target_moved_by_td_step": target_moved,
+            "seconds": time.perf_counter() - t_phase,
+            "problems": problems}
+    del net, learner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems, line, launches
+
+
+def rl_a3c_phase(dev, smi):
+    """A3C on 16 Catch environments (``RL_A3C``): policy and value
+    networks on the 2013 Atari trunk. One update on a fixed rollout from
+    the same parameters (card against generic and the CPU, 2 updater
+    launches), then ``train(batches)`` counted: 2 ``fused_updater``
+    launches an update. Returns (problems, line, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as tnn
+    from deeplearning4j_tpu_torch import rl
+    from deeplearning4j_tpu_torch.testing import rl_envs as E
+
+    t_phase = time.perf_counter()
+    cfg = RL_A3C
+    nets = [tnn.MultiLayerNetwork(E.atari_2013_conf(
+        tnn, head, learning_rate=cfg["lr"]), device=dev).init()
+        for head in ("policy", "value")]
+    n = cfg["n_envs"] * cfg["n_steps"]
+    obs = _catch_minibatch(n, seed=6)[0]
+    rng = np.random.RandomState(7)
+    acts = rng.randint(3, size=n).astype(np.int32)
+    rets = rng.randn(n).astype(np.float32)
+    start = [(_clone_tree(x.params), _clone_tree(x.opt_state)) for x in nets]
+
+    def upd(targets):
+        a3c = rl.A3CDiscrete(E.CatchPixels, targets[0], targets[1],
+                             n_envs=1, n_steps=1)
+        return a3c.update(3, obs, acts, rets)
+
+    runs = _fixed_update_runs(nets, start, upd, dev, seed=22)
+    problems, fixed = _fixed_update_problems("a3c update", runs, 2)
+
+    # ------------------------------------------------ the main path's run
+    for x, (p, s) in zip(nets, start):
+        x.params = _load(x.params, p)
+        x.opt_state = _load(x.opt_state, s)
+    seeds = iter(range(100, 100 + cfg["n_envs"]))
+    a3c = rl.A3CDiscrete(lambda: E.CatchPixels(seed=next(seeds)), nets[0],
+                         nets[1], n_envs=cfg["n_envs"],
+                         n_steps=cfg["n_steps"], seed=0)
+    timer = _StepTimer(dev)
+    a3c.update = timer.wrap(a3c.update)
+    _peak_reset(dev)
+    _zero_counters()                    # the main path's run starts here
+    t0 = time.perf_counter()
+    losses = a3c.train(batches=cfg["batches"])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {"fused_updater": _read_counters()["fused_updater"]}  # ends
+    if launches["fused_updater"] != 2 * cfg["batches"]:
+        problems.append(f"fused_updater launches {launches} != 2 x "
+                        f"{cfg['batches']} updates")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("non-finite A3C loss")
+    returns = a3c.episode_rewards
+    line = {"phase": "rl_a3c", "card": smi,
+            "model": "2013 Atari trunk (conv 16 8x8/4, 32 4x4/2, dense "
+                     "256) + softmax(3) / linear(1)",
+            "params": [x.num_params() for x in nets], "config": cfg,
+            "batches": cfg["batches"], "launches": launches,
+            "batches_per_s": cfg["batches"] / wall, "wall_s": wall,
+            "env_steps_per_s": cfg["batches"] * n / wall,
+            "update_device_ms_p50": timer.p50(),
+            "host_syncs_per_batch": f"{cfg['n_steps']} policy forwards, "
+                                    "the bootstrap value, the loss",
+            "peak_mb": _peak_mb(dev), "episodes": len(returns),
+            "mean_return_last_50": float(np.mean(returns[-50:])),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "fixed_update": fixed,
+            "seconds": time.perf_counter() - t_phase, "problems": problems}
+    del nets, a3c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems, line, launches
+
+
+def _rel_to_max(got, want) -> float:
+    """max |got − want| / max |want| over tensors (on any device)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def word2vec_phase(dev, smi):
+    """Word2Vec on the seeded Zipf corpus (``W2V``): the first
+    ``EMB_CHECK_BATCHES`` SGNS batches of the epoch from the same
+    vectors and inputs on the card and on the CPU (``EMB_CPU_TOL``);
+    one epoch of ``fit`` (the loss falls); the per-batch full-matrix
+    zero buffers timed apart; a binary serde round trip of the card's
+    vectors; then hierarchical softmax for ``W2V_HS_BATCHES`` batches.
+    Returns (problems, line)."""
+    import shutil
+
+    import torch
+
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.nlp import word2vec as W
+    from deeplearning4j_tpu_torch.testing import corpus as C
+
+    t_phase = time.perf_counter()
+    cfg = W2V
+    problems = []
+    t0 = time.perf_counter()
+    sents = C.zipf_sentences(cfg["tokens"], cfg["types"], seed=0)
+    corpus_s = time.perf_counter() - t0
+    kw = dict(layer_size=cfg["dim"], window_size=cfg["window"],
+              negative_samples=cfg["negative"], subsample=cfg["subsample"],
+              learning_rate=cfg["lr"], batch_size=cfg["batch"], epochs=1,
+              seed=42)
+    w = nlp.Word2Vec(device=dev, **kw)
+    w.build_vocab(sents)
+    V = w.vocab_size()
+    w._init_vectors()
+    start = (w.syn0.clone(), w.syn1.clone())
+    # the epoch's first batches, drawn as fit draws them
+    rng = np.random.RandomState(w.seed)
+    t0 = time.perf_counter()
+    centers, contexts = w._pairs(sents, rng)
+    mining_s = time.perf_counter() - t0
+    order = rng.permutation(len(centers))
+    first = W.trained_batches(len(order), w.batch_size)[:EMB_CHECK_BATCHES]
+    used = first[-1][1]
+    probs = w.counts ** 0.75
+    negs = rng.choice(V, size=(used, w.negative), p=probs / probs.sum())
+
+    def first_batches(device):
+        s0, s1 = (x.to(device, copy=True) for x in start)
+        c, x = (torch.from_numpy(a[order[:used]].astype(np.int64)).to(device)
+                for a in (centers, contexts))
+        ng = torch.from_numpy(negs.astype(np.int64)).to(device)
+        lr = torch.tensor(w.lr, dtype=torch.float32, device=device)
+        losses = [W.sgns_step(s0, s1, c[a:b], x[a:b], ng[a:b], lr)
+                  for a, b in first]
+        return s0, s1, [float(v) for v in losses]
+
+    card, cpu = first_batches(dev), first_batches("cpu")
+    check = {"syn0_rel": _rel_to_max(card[0], cpu[0]),
+             "syn1_rel": _rel_to_max(card[1], cpu[1]),
+             "loss_max_rel": max(abs(a - b) / abs(b)
+                                 for a, b in zip(card[2], cpu[2]))}
+    if max(check.values()) > EMB_CPU_TOL:
+        problems.append(f"first {len(first)} batches: card vs CPU {check}")
+    del card, cpu
+
+    # ------------------------------------------------ the main path's run
+    timer = _StepTimer(dev)
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    with _patched(W, "sgns_step", timer.wrap):
+        hist = w.fit(sents)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    peak = _peak_mb(dev)
+    loop_s = timer.t_last - timer.t_first
+    pairs = int(len(centers))
+    trained = sum(b - a for a, b in W.trained_batches(pairs, w.batch_size))
+    bl = [float(x) for x in w.batch_losses]
+    if not all(math.isfinite(x) for x in bl):
+        problems.append("non-finite word2vec loss")
+    head, tail = float(np.mean(bl[:50])), float(np.mean(bl[-50:]))
+    if not tail < head:
+        problems.append(f"word2vec loss did not fall: {head} -> {tail}")
+    # the O(V·D) part of a step: two zero buffers and the two full-matrix
+    # updates, on copies
+    s0, s1 = w.syn0.clone(), w.syn1.clone()
+    cnt = torch.zeros(V, device=dev)
+    lr = torch.tensor(w.lr, device=dev)
+
+    def dense_part():
+        a0, a1 = torch.zeros_like(s0), torch.zeros_like(s1)
+        s0.sub_(lr * a0 / torch.clamp_min(cnt, 1.0)[:, None])
+        s1.sub_(lr * a1 / torch.clamp_min(cnt, 1.0)[:, None])
+
+    dense_ms = _dev_ms(dense_part, dev)
+    zeros_ms = _dev_ms(lambda: (torch.zeros_like(s0), torch.zeros_like(s1)),
+                       dev)
+    del s0, s1
+    # a binary round trip of the card's vectors
+    out_dir = os.path.join(_build_dir(), "chip_smoke_w2v")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "vectors.bin")
+    try:
+        t0 = time.perf_counter()
+        nlp.write_word2vec_binary(w, path)
+        words, mat = nlp.read_word2vec_binary(path)
+        serde_s = time.perf_counter() - t0
+        serde_equal = (words == w.inv_vocab and np.array_equal(
+            mat, w.syn0.cpu().numpy()))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if not serde_equal:
+        problems.append("word2vec binary round trip differs")
+    # hierarchical softmax on the same corpus and vocabulary
+    hs = nlp.Word2Vec(device=dev, use_hierarchic_softmax=True, **kw)
+    hs.vocab, hs.inv_vocab, hs.counts = w.vocab, w.inv_vocab, w.counts
+    hs._init_vectors()
+    hs_timer = _StepTimer(dev)
+    t0 = time.perf_counter()
+    with _patched(W, "hs_step", hs_timer.wrap):
+        hs_hist = hs._fit_hs(sents, max_batches=W2V_HS_BATCHES)
+    _sync(dev)
+    hs_s = time.perf_counter() - t0
+    code_len = int(W.huffman(hs.counts)[2].sum(1).max())
+    if len(hs.batch_losses) != W2V_HS_BATCHES or not math.isfinite(
+            hs_hist[0]):
+        problems.append(f"hierarchical softmax: {len(hs.batch_losses)} "
+                        f"batches, loss {hs_hist}")
+    line = {"phase": "word2vec", "card": smi, "config": cfg,
+            "tokens": sum(len(s) for s in sents), "vocab": V,
+            "pairs": pairs, "trained_pairs": trained,
+            "batches": len(w.batch_losses), "corpus_s": corpus_s,
+            "mining_s": mining_s, "fit_s": fit_s, "train_loop_s": loop_s,
+            "trained_pairs_per_s": trained / loop_s,
+            "step_device_ms_p50": timer.p50(),
+            "dense_part_device_ms": dense_ms,
+            "zero_buffers_device_ms": zeros_ms,
+            "dense_part_what": "per batch: zeros_like(syn0), "
+                               "zeros_like(syn1) and the two full-matrix "
+                               "divide-and-subtract passes",
+            "peak_mb": peak, "epoch_loss": hist,
+            "loss_first_50": head, "loss_last_50": tail,
+            "first_batches_vs_cpu": check, "tol": EMB_CPU_TOL,
+            "serde_s": serde_s, "serde_equal": serde_equal,
+            "hs": {"batches": len(hs.batch_losses), "seconds": hs_s,
+                   "step_device_ms_p50": hs_timer.p50(),
+                   "max_code_len": code_len, "loss": hs_hist},
+            "seconds": time.perf_counter() - t_phase, "problems": problems}
+    del w, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems, line
+
+
+def glove_phase(dev, smi):
+    """GloVe on the seeded Zipf corpus (``GLOVE``): the co-occurrence
+    table built on the host, the first ``EMB_CHECK_BATCHES`` AdaGrad
+    batches from the same start on the card and on the CPU
+    (``EMB_CPU_TOL``), then ``fit_table`` for the epochs. Returns
+    (problems, line)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.nlp import glove as G
+    from deeplearning4j_tpu_torch.testing import corpus as C
+
+    t_phase = time.perf_counter()
+    cfg = GLOVE
+    problems = []
+    sents = C.zipf_sentences(cfg["tokens"], cfg["types"], seed=1)
+    g = nlp.GloVe(layer_size=cfg["dim"], window_size=cfg["window"],
+                  x_max=cfg["x_max"], alpha=cfg["alpha"],
+                  batch_size=cfg["batch"], epochs=cfg["epochs"], device=dev)
+    g.build_vocab(sents)
+    V, D = g.vocab_size(), cfg["dim"]
+    t0 = time.perf_counter()
+    rows, cols, vals = g._cooccurrences(sents)
+    build_s = time.perf_counter() - t0
+    nnz, bs = len(vals), min(cfg["batch"], len(vals))
+
+    def first_batches(device):
+        rng = np.random.RandomState(g.seed)
+        state = G.init_state(V, D, rng, device)
+        table = G.table_tensors(rows, cols, vals, g.x_max, g.alpha, device)
+        order = torch.from_numpy(rng.permutation(nnz)[:EMB_CHECK_BATCHES
+                                                      * bs]).to(device)
+        losses = [G.glove_batch(state, *table, order[k * bs:(k + 1) * bs],
+                                g.lr) for k in range(EMB_CHECK_BATCHES)]
+        return state, [float(x) for x in losses]
+
+    card, cpu = first_batches(dev), first_batches("cpu")
+    check = {name: _rel_to_max(a, b) for name, a, b in zip(
+        ("w", "w_tilde", "b", "b_tilde"), card[0][:4], cpu[0][:4])}
+    check["loss_max_rel"] = max(abs(a - b) / abs(b)
+                                for a, b in zip(card[1], cpu[1]))
+    if max(check.values()) > EMB_CPU_TOL:
+        problems.append(f"first {EMB_CHECK_BATCHES} batches: card vs CPU "
+                        f"{check}")
+    del card, cpu
+
+    # ------------------------------------------------ the main path's run
+    timer = _StepTimer(dev)
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    with _patched(G, "glove_batch", timer.wrap):
+        losses = g.fit_table(rows, cols, vals)
+    fit_s = time.perf_counter() - t0
+    peak = _peak_mb(dev)
+    loop_s = timer.t_last - timer.t_first
+    if not (all(math.isfinite(x) for x in losses) and losses[-1]
+            < losses[0]):
+        problems.append(f"glove epoch losses {losses}")
+    line = {"phase": "glove", "card": smi, "config": cfg,
+            "tokens": sum(len(s) for s in sents), "vocab": V,
+            "nonzeros": nnz, "build_s": build_s, "fit_s": fit_s,
+            "train_loop_s": loop_s, "epoch_s": loop_s / cfg["epochs"],
+            "pairs_per_s": (nnz // bs) * bs * cfg["epochs"] / loop_s,
+            "batch_device_ms_p50": timer.p50(), "peak_mb": peak,
+            "state_mb": 4 * V * D * 4 / 2 ** 20, "epoch_loss": losses,
+            "first_batches_vs_cpu": check, "tol": EMB_CPU_TOL,
+            "seconds": time.perf_counter() - t_phase, "problems": problems}
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems, line
+
+
+def paragraph_vectors_phase(dev, smi):
+    """PV-DBOW on seeded labelled documents (``PV``): one epoch of
+    ``fit``, then ``infer_vector`` on unseen documents twice with the
+    same seed (equal bit for bit). Returns (problems, line)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.nlp import paragraph_vectors as P
+    from deeplearning4j_tpu_torch.testing import corpus as C
+
+    t_phase = time.perf_counter()
+    cfg = PV
+    problems = []
+    docs = C.labelled_documents(cfg["docs"], cfg["doc_len"], cfg["types"],
+                                n_topics=cfg["topics"], seed=2)
+    pv = nlp.ParagraphVectors(layer_size=cfg["dim"],
+                              batch_size=cfg["batch"], epochs=cfg["epochs"],
+                              device=dev)
+    timer = _StepTimer(dev)
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    with _patched(P, "sgns_step", timer.wrap):
+        losses = pv.fit(docs)
+    fit_s = time.perf_counter() - t0
+    peak = _peak_mb(dev)
+    unseen = C.labelled_documents(cfg["infer_docs"], cfg["doc_len"],
+                                  cfg["types"], n_topics=cfg["topics"],
+                                  seed=99)
+    t0 = time.perf_counter()
+    once = [pv.infer_vector(d.tokens, seed=4) for d in unseen]
+    infer_s = (time.perf_counter() - t0) / len(unseen)
+    again = [pv.infer_vector(d.tokens, seed=4) for d in unseen]
+    equal = all(np.array_equal(a, b) for a, b in zip(once, again))
+    if not equal or not all(np.isfinite(a).all() for a in once):
+        problems.append("infer_vector: two runs with one seed differ")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"paragraph vectors loss {losses}")
+    line = {"phase": "paragraph_vectors", "card": smi, "config": cfg,
+            "vocab": pv._w2v.vocab_size(), "labels": len(pv.labels),
+            "batches": len(timer.marks), "fit_s": fit_s,
+            "docs_per_s": cfg["docs"] * cfg["epochs"] / fit_s,
+            "step_device_ms_p50": timer.p50(), "peak_mb": peak,
+            "epoch_loss": losses, "infer_s_per_doc": infer_s,
+            "infer_equal": equal,
+            "seconds": time.perf_counter() - t_phase, "problems": problems}
+    del pv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems, line
+
+
 def main() -> int:
     import torch
 
@@ -8767,6 +9478,21 @@ def main() -> int:
     emit(line)
     if problems:
         raise SystemExit(f"aot_warm_boot phase failed: {problems}")
+
+    # -------------------------------------------------- rl_dqn, rl_a3c
+    for phase, fn in (("rl_dqn", rl_dqn_phase), ("rl_a3c", rl_a3c_phase)):
+        problems, line, train_launches[phase] = fn(dev, smi)
+        emit(line)
+        if problems:
+            raise SystemExit(f"{phase} phase failed: {problems}")
+
+    # ------------------------------ word2vec, glove, paragraph_vectors
+    for phase, fn in (("word2vec", word2vec_phase), ("glove", glove_phase),
+                      ("paragraph_vectors", paragraph_vectors_phase)):
+        problems, line = fn(dev, smi)
+        emit(line)
+        if problems:
+            raise SystemExit(f"{phase} phase failed: {problems}")
 
     # ---------------------------------------------- contract lines, last
     # launches of each kernel on each main path that runs it

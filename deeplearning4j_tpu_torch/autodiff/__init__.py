@@ -5,8 +5,8 @@ graph, its op catalog, eager execution, gradients, ``fit``, control flow
 and ``save`` / ``load``), :mod:`.optimize` (the pre-run pass pipeline and
 its fusion tier), :mod:`.listeners` (History), :mod:`.gradcheck`
 (finite differences in float64) and :mod:`.export` (the AOT export
-cache). The JAX package's ``check_gradients`` for networks and its
-``UIListener`` are not ported yet (ROADMAP.md, Queue 1 items 13 and 10).
+cache). The JAX package's ``UIListener`` is not ported yet (ROADMAP.md,
+Queue 1 item 10).
 """
 
 from deeplearning4j_tpu_torch.autodiff.samediff import (
@@ -14,7 +14,7 @@ from deeplearning4j_tpu_torch.autodiff.samediff import (
 )
 
 from deeplearning4j_tpu_torch.autodiff.gradcheck import (
-    check_gradients_fn, check_samediff_gradients,
+    check_gradients, check_gradients_fn, check_samediff_gradients,
 )
 from deeplearning4j_tpu_torch.autodiff.listeners import (
     History, HistoryListener,
@@ -25,5 +25,5 @@ from deeplearning4j_tpu_torch.autodiff.optimize import (
 
 __all__ = ["GRAPH_OPS", "SameDiff", "SDVariable", "TrainingConfig",
            "resolve_graph_op", "GraphPlan", "OptimizeStats",
-           "optimize_graph", "check_gradients_fn",
+           "optimize_graph", "check_gradients", "check_gradients_fn",
            "check_samediff_gradients", "History", "HistoryListener"]

@@ -3,7 +3,9 @@ float64 on the CPU.
 
 Counterpart of ``deeplearning4j_tpu/autodiff/gradcheck.py``
 (GradientCheckUtil / GradCheckUtil analogs): the same thresholds, the same
-coordinate subsampling and the same relative-error rule. What differs:
+coordinate subsampling and the same relative-error rule, for a function
+of a dict of leaves (:func:`check_gradients_fn`), a ``MultiLayerNetwork``
+(:func:`check_gradients`) and a SameDiff graph. What differs:
 :func:`check_samediff_gradients` runs the graph through the optimizer's
 plan when the graph has the optimizer on (the JAX package runs the
 recording), so the fused nodes — ``fused_layer_norm``,
@@ -87,6 +89,47 @@ def check_gradients_fn(loss_fn: Callable[[Dict[str, torch.Tensor]],
                               f"analytic={ana:.8g} numeric={num:.8g} "
                               f"rel={rel:.3g}")
     return ok
+
+
+def check_gradients(net, features, labels, *, eps: float = DEFAULT_EPS,
+                    max_rel_error: float = DEFAULT_MAX_REL_ERROR,
+                    min_abs_error: float = DEFAULT_MIN_ABS_ERROR,
+                    max_per_param: int = 25, seed: int = 0,
+                    features_mask=None, labels_mask=None) -> bool:
+    """GradientCheckUtil.checkGradients(MultiLayerNetwork, ...) analog
+    (JAX ``gradcheck.py:94``): the network's forward and loss with
+    ``train=False`` (no dropout, no batch-norm statistics update), in
+    float64, on a CPU twin of the network (the same configuration, the
+    parameters and layer state copied), whichever device ``net`` is on.
+    Leaves are checked in the order ``jax.tree`` flattens ``net.params``
+    (layers in order, keys sorted), so the coordinates drawn from
+    ``seed`` are the JAX package's."""
+    from deeplearning4j_tpu_torch.models._tree import (
+        leaf_paths, map_tree, rebuild)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    twin = MultiLayerNetwork(net.conf, device="cpu")
+    if twin._loss_fn is None:
+        raise ValueError("terminal layer has no loss configured")
+    # names that sort as jax.tree orders the leaves: the layer index
+    # zero-padded, then the key path
+    paths = list(leaf_paths(net.params))
+    names = [f"{path[0]:06d}/" + "/".join(map(str, path[1:]))
+             for path, _ in paths]
+    x, y, fm, lm = (None if a is None else _f64(a)
+                    for a in (features, labels, features_mask, labels_mask))
+    state = map_tree(_f64, net.net_state)
+
+    def loss_fn(leaves):
+        params = rebuild(net.params, {path: leaves[n] for (path, _), n
+                                      in zip(paths, names)})
+        out, _ = twin._forward(params, state, x, fm, train=False, rng=None)
+        return twin._loss_fn(out, y, lm)
+
+    return check_gradients_fn(
+        loss_fn, {n: leaf for n, (_, leaf) in zip(names, paths)}, eps=eps,
+        max_rel_error=max_rel_error, min_abs_error=min_abs_error,
+        max_per_param=max_per_param, seed=seed, print_failures=True)
 
 
 def check_samediff_gradients(sd, feeds: Dict[str, np.ndarray],

@@ -36,6 +36,7 @@ from deeplearning4j_tpu_torch.nn.conf import (  # the last layer types
     VariationalAutoencoder, Yolo2OutputLayer, dl4j_drop_out,
 )
 from deeplearning4j_tpu_torch.nn.conf import MoELayer  # the parallel slice
+from deeplearning4j_tpu_torch.nn.conf import DuelingQLayer  # RL4J's head
 from deeplearning4j_tpu_torch.nn.earlystopping import (
     EarlyStoppingConfiguration, EarlyStoppingResult, EarlyStoppingTrainer,
     EpochTerminationCondition, InMemoryModelSaver,
@@ -109,7 +110,7 @@ __all__ = [
     "Nadam", "Nesterovs", "NoOp", "RmsProp", "Sgd", "get_updater",
     "CycleSchedule", "ExponentialSchedule", "InverseSchedule",
     "MapSchedule", "PolySchedule", "Schedule", "SigmoidSchedule",
-    "StepSchedule", "MoELayer",
+    "StepSchedule", "MoELayer", "DuelingQLayer",
     "CapsuleLayer", "CapsuleStrengthLayer", "CenterLossOutputLayer",
     "CnnLossLayer", "ElementWiseMultiplicationLayer",
     "FrozenLayerWithBackprop", "LearnedSelfAttentionLayer", "MaskLayer",

@@ -357,6 +357,22 @@ class BatchNormalization(LayerConf):
 
 
 @dataclasses.dataclass(frozen=True)
+class DuelingQLayer(LayerConf):
+    """Dueling-DQN head (RL4J's dueling QLearning configuration), JAX
+    ``nn/conf.py:370``: a value stream V(s) (one unit) and an advantage
+    stream A(s, ·), combined as Q = V + A − mean(A)."""
+
+    n_in: int = 0
+    n_actions: int = 0
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.n_actions)
+
+    def has_params(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
 class ActivationLayer(LayerConf):
     """conf/layers/ActivationLayer.java: standalone activation."""
 
@@ -1448,7 +1464,7 @@ LAYER_TYPES = {c.__name__: c for c in [
     VariationalAutoencoder, CnnLossLayer, MaskLayer,
     ElementWiseMultiplicationLayer, FrozenLayerWithBackprop,
     CenterLossOutputLayer, Yolo2OutputLayer, PrimaryCapsules, CapsuleLayer,
-    CapsuleStrengthLayer, SameDiffLayer, MoELayer]}
+    CapsuleStrengthLayer, SameDiffLayer, MoELayer, DuelingQLayer]}
 
 # the conv-family layers a flat convolutional input is reshaped for
 # (``_adapt``'s FeedForwardToCnnPreProcessor)

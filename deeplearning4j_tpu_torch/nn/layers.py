@@ -354,6 +354,25 @@ class GlobalPoolingLayerImpl(Layer):
         return y, state, None
 
 
+class DuelingQLayerImpl(Layer):
+    """The dueling head (JAX ``nn/layers.py:406``): Q = act(V + A −
+    mean(A)), V = xWv + bv, A = xWa + ba, input dropout as every layer."""
+
+    def init(self, gen) -> Params:
+        lc = self.lc
+        return {"Wv": self._weights(gen, (lc.n_in, 1)),
+                "bv": self._zeros(1),
+                "Wa": self._weights(gen, (lc.n_in, lc.n_actions)),
+                "ba": self._zeros(lc.n_actions)}
+
+    def apply(self, params, x, state, *, train, rng, mask=None):
+        x = self._maybe_dropout(x, train=train, rng=rng)
+        x, wv, wa = promote(x, params["Wv"], params["Wa"])
+        v = x @ wv + params["bv"]
+        a = x @ wa + params["ba"]
+        return self.activation(v + a - a.mean(-1, keepdim=True)), state, mask
+
+
 class BatchNormalizationImpl(Layer):
     """layers/normalization/BatchNormalization.java: gamma/beta trainable,
     running mean/var in the layer state; running = decay·running +
@@ -1718,6 +1737,7 @@ LAYER_IMPLS: Dict[Type[C.LayerConf], Type[Layer]] = {
     C.SpaceToDepthLayer: SpaceToDepthLayerImpl,
     C.GlobalPoolingLayer: GlobalPoolingLayerImpl,
     C.BatchNormalization: BatchNormalizationImpl,
+    C.DuelingQLayer: DuelingQLayerImpl,
     C.ActivationLayer: ActivationLayerImpl,
     C.LossLayer: LossLayerImpl,
     C.EmbeddingLayer: EmbeddingLayerImpl,

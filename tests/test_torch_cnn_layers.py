@@ -251,12 +251,19 @@ def test_layer_json_crosses_both_ways(name):
 
 
 def test_unported_types_are_still_refused_by_name():
-    """The one layer type the port has not ported (DuelingQLayer:
-    reinforcement learning) is refused by name; MoELayer, ported with the
-    parallel package, is not."""
-    assert "MoELayer" in tnn.conf.LAYER_TYPES
+    """Every JAX layer type is ported now (MoELayer with the parallel
+    package, DuelingQLayer with reinforcement learning): a configuration
+    holding DuelingQLayer loads and writes the JAX JSON back, and a type
+    name the JAX package does not have is still refused by name."""
+    assert {"MoELayer", "DuelingQLayer"} <= set(tnn.conf.LAYER_TYPES)
+    jconf = (jnn.builder().list()
+             .layer(jnn.DenseLayer(n_in=4, n_out=6, activation="relu"))
+             .layer(jnn.DuelingQLayer(n_actions=3)).build())
+    own = tnn.MultiLayerConfiguration.from_json(jconf.to_json())
+    assert type(own.layers[1]).__name__ == "DuelingQLayer"
+    assert json.loads(own.to_json()) == json.loads(jconf.to_json())
     text = _jax_conf("Upsampling2D").to_json()
-    for name in ("DuelingQLayer",):
+    for name in ("NoSuchLayer",):
         bad = text.replace('"@type": "Upsampling2D"', f'"@type": "{name}"')
         with pytest.raises(ValueError, match=f"'{name}' is not ported"):
             tnn.MultiLayerConfiguration.from_json(bad)

@@ -160,8 +160,8 @@ def test_shape_inference_inserts_the_jax_preprocessors():
                                   "CenterLossOutputLayer"])
 def test_unported_types_are_refused_by_name_in_multilayer_json(name):
     """``name`` (once refused) is ported now: a configuration holding it,
-    written by the JAX package, loads and writes the same JSON back; the
-    type still to port is refused by name."""
+    written by the JAX package, loads and writes the same JSON back; a
+    type name the JAX package does not have is refused by name."""
     jconf = (jnn.builder().list()
              .layer(jnn.SelfAttentionLayer(n_in=6, n_out=6, n_heads=2)
                     if name == "SelfAttentionLayer" else
@@ -170,7 +170,7 @@ def test_unported_types_are_refused_by_name_in_multilayer_json(name):
     own = tnn.MultiLayerConfiguration.from_json(jconf.to_json())
     assert type(own.layers[0]).__name__ == name
     assert json.loads(own.to_json()) == json.loads(jconf.to_json())
-    for unported in ("DuelingQLayer",):
+    for unported in ("NoSuchLayer",):  # every JAX layer type is ported
         text = _tagger_conf(jnn).to_json().replace(
             '"@type": "RnnOutputLayer"', f'"@type": "{unported}"', 1)
         with pytest.raises(ValueError, match=f"'{unported}' is not ported"):

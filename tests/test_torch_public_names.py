@@ -8,24 +8,13 @@ import importlib
 import pytest
 
 PACKAGES = ("analysis", "autodiff", "datasets", "eval", "faults", "imports",
-            "models", "nlp", "nn", "observe", "ops", "parallel", "serving")
+            "models", "nlp", "nn", "observe", "ops", "parallel", "rl",
+            "serving")
 
-# still to port: item 10 (breadth) and item 13 (check_gradients)
+# still to port: item 10 (breadth)
 OWED = {
-    "autodiff": {"UIListener", "check_gradients"},
-    "datasets": {"Cifar10DataSetIterator", "ColorJitterTransform",
-                 "EMNIST_SETS", "EmnistDataSetIterator", "FlipImageTransform",
-                 "ImageRecordReader", "MnistDataSetIterator",
-                 "PipelineImageTransform", "RandomCropTransform",
-                 "RotateImageTransform", "SyntheticImageNetIterator",
-                 "synthetic_images"},
+    "autodiff": {"UIListener"},
     "models": {"ModelHub"},
-    "nlp": {"GloVe", "LabelledDocument", "ParagraphVectors",
-            "StaticWordVectors", "Word2Vec", "distributed_word2vec_fit",
-            "load_static_model", "read_word2vec_binary",
-            "read_word2vec_text", "write_word2vec_binary",
-            "write_word2vec_text"},
-    "nn": {"DuelingQLayer"},
 }
 
 
